@@ -1,0 +1,197 @@
+"""The captioner: pooled encoder + GRU decoder (counterpart of
+show_tell_tpu/models/captioner.py).
+
+Only the pooled GRU variant of the reference's ``main.py`` is ported;
+the other variants raise NotImplementedError naming the ROADMAP item
+that ports them.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from show_tell_tpu_torch.models.decoder import Decoder, DecoderConfig
+from show_tell_tpu_torch.models.encoder import Encoder, EncoderConfig
+from show_tell_tpu_torch.models.resnet import RESNET_SPECS, STAGE_WIDTHS, feature_dim
+
+_NOT_PORTED = {
+    "lstm": "ROADMAP Queue 1 item 11 (pooled LSTM)",
+    "attn": "ROADMAP Queue 1 item 12 (attention families)",
+    "attn_lstm": "ROADMAP Queue 1 item 12 (attention families)",
+}
+
+
+class CaptionerConfig(NamedTuple):
+    variant: str  # 'gru' ('lstm' | 'attn' | 'attn_lstm' are not ported yet)
+    resnet_version: int
+    embed_dim: int
+    hidden_dim: int
+    vocab_size: int
+    num_layers: int
+    nos_filters: int = 2048
+    attn_dim: int = 512
+    alpha_c: float = 1.0
+    max_caption_length: int = 25
+    start_token: int = 1
+    attn_next_token: bool = False
+
+    @property
+    def is_attention(self) -> bool:
+        return self.variant in ("attn", "attn_lstm")
+
+    @property
+    def cell_type(self) -> str:
+        return "gru" if self.variant in ("gru", "attn") else "lstm"
+
+    def encoder_config(self) -> EncoderConfig:
+        return EncoderConfig(self.resnet_version, self.embed_dim, spatial=self.is_attention)
+
+    def decoder_config(self) -> DecoderConfig:
+        return DecoderConfig(
+            self.cell_type, self.embed_dim, self.hidden_dim, self.vocab_size,
+            self.num_layers, self.max_caption_length,
+        )
+
+
+def require_ported(cfg: CaptionerConfig) -> None:
+    if cfg.variant != "gru":
+        raise NotImplementedError(
+            "variant %r is not ported to PyTorch yet: %s" % (cfg.variant, _NOT_PORTED.get(cfg.variant, "?"))
+        )
+
+
+class CaptionerModel(nn.Module):
+    def __init__(self, cfg: CaptionerConfig):
+        super().__init__()
+        require_ported(cfg)
+        self.encoder = Encoder(cfg.encoder_config())
+        self.decoder = Decoder(cfg.decoder_config())
+
+
+def init_captioner(cfg: CaptionerConfig, generator: torch.Generator) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """Random weights by the JAX package's init laws, drawn from
+    ``generator``, as (params, bn_state) numpy trees in the JAX layout
+    (so either package can load them): kaiming-normal fan_out convs,
+    N(0, 0.05) head weight, U(+-1/sqrt(fan_in)) head bias and decoder,
+    N(0, 1) embedding, BN at identity."""
+    require_ported(cfg)
+    g = generator
+
+    def normal(shape, std=1.0):
+        return (torch.randn(shape, generator=g) * std).numpy()
+
+    def uniform(shape, bound):
+        return ((torch.rand(shape, generator=g) * 2.0 - 1.0) * bound).numpy()
+
+    kind, stages = RESNET_SPECS[cfg.resnet_version]
+    res_p: Dict[str, np.ndarray] = {}
+    res_s: Dict[str, np.ndarray] = {}
+
+    def conv(name, k, cin, cout):
+        res_p[name + ".weight"] = normal((k, k, cin, cout), float(np.sqrt(2.0 / (k * k * cout))))
+
+    def bn(name, c):
+        res_p[name + ".weight"] = np.ones(c, np.float32)
+        res_p[name + ".bias"] = np.zeros(c, np.float32)
+        res_s[name + ".running_mean"] = np.zeros(c, np.float32)
+        res_s[name + ".running_var"] = np.ones(c, np.float32)
+
+    conv("conv1", 7, 3, 64)
+    bn("bn1", 64)
+    cin = 64
+    for s, n_blocks in enumerate(stages):
+        width = STAGE_WIDTHS[s]
+        cout = width if kind == "basic" else width * 4
+        for b in range(n_blocks):
+            pre = "layer%d.%d" % (s + 1, b)
+            stride = 2 if (b == 0 and s > 0) else 1
+            convs = [(3, cin, width), (3, width, width)] if kind == "basic" else [
+                (1, cin, width), (3, width, width), (1, width, cout)]
+            for i, (k, ci, co) in enumerate(convs, start=1):
+                conv("%s.conv%d" % (pre, i), k, ci, co)
+                bn("%s.bn%d" % (pre, i), co)
+            if stride != 1 or cin != cout:
+                conv(pre + ".downsample.0", 1, cin, cout)
+                bn(pre + ".downsample.1", cout)
+            cin = cout
+
+    C, E, H, V = feature_dim(cfg.resnet_version), cfg.embed_dim, cfg.hidden_dim, cfg.vocab_size
+    params = {
+        "encoder": {
+            "resnet": res_p,
+            "linear_secondlast_layer": {"w": normal((C, E), 0.05), "b": uniform((E,), 1.0 / C ** 0.5)},
+            "last_layer": {"weight": np.ones(E, np.float32), "bias": np.zeros(E, np.float32)},
+        },
+        "decoder": {
+            "embedding": normal((V, E)),
+            "rnn": [
+                {
+                    "w_ih": uniform((E if l == 0 else H, 3 * H), 1.0 / H ** 0.5),
+                    "w_hh": uniform((H, 3 * H), 1.0 / H ** 0.5),
+                    "b_ih": uniform((3 * H,), 1.0 / H ** 0.5),
+                    "b_hh": uniform((3 * H,), 1.0 / H ** 0.5),
+                }
+                for l in range(cfg.num_layers)
+            ],
+            "linear": {"w": uniform((H, V), 1.0 / H ** 0.5), "b": uniform((V,), 1.0 / H ** 0.5)},
+        },
+    }
+    bn_state = {
+        "resnet": res_s,
+        "last_layer": {"running_mean": np.zeros(E, np.float32), "running_var": np.ones(E, np.float32)},
+    }
+    return params, bn_state
+
+
+def build_model(
+    params: Dict[str, Any],
+    bn_state: Dict[str, Any],
+    cfg: CaptionerConfig,
+    dtype: torch.dtype,
+    device: torch.device,
+) -> CaptionerModel:
+    """A CaptionerModel on ``device`` holding the JAX-layout trees'
+    weights; every float32 parameter and BN statistic is cast to ``dtype``."""
+    from show_tell_tpu_torch.models.convert import params_from_jax
+
+    sds = params_from_jax(params, bn_state)
+    with torch.device("meta"):  # no default init: every tensor comes from the trees
+        model = CaptionerModel(cfg)
+    for name in ("encoder", "decoder"):
+        sd = {k: torch.from_numpy(np.array(v)) for k, v in sds[name].items()}  # own, writable copies
+        getattr(model, name).load_state_dict(sd, strict=True, assign=True)
+    model = model.to(device=device, dtype=dtype)
+    model.encoder.resnet.to(memory_format=torch.channels_last)
+    return model.eval().requires_grad_(False)
+
+
+def prepare_decode(model: CaptionerModel, dtype: torch.dtype) -> Dict[str, object]:
+    """The fused step kernel's weights, built once per model."""
+    from show_tell_tpu_torch.ops.rnn import prepare_greedy
+
+    dec = model.decoder
+    return prepare_greedy(dec.unit.layers(), dec.embeddings.weight, dec.linear.weight, dec.linear.bias, dtype)
+
+
+def captioner_greedy_decode(
+    model: CaptionerModel,
+    cfg: CaptionerConfig,
+    images: torch.Tensor,  # [B, 224, 224, 3] normalized float
+    prepared: Optional[Dict[str, object]] = None,
+    end_token: Optional[int] = None,
+) -> torch.Tensor:
+    """Eval-mode encode + 25-step batched greedy decode -> [B, 25] int32
+    ids, one fused-step kernel launch per step on a CUDA device (the plain
+    twin on the CPU).  ``prepared``: ``prepare_decode(model, dtype)``,
+    cached by the caller; built here when absent."""
+    from show_tell_tpu_torch.ops.rnn import greedy_decode_kernel
+
+    require_ported(cfg)
+    feats = model.encoder(images)
+    if prepared is None:
+        prepared = prepare_decode(model, model.decoder.embeddings.weight.dtype)
+    return greedy_decode_kernel(prepared, feats, cfg.max_caption_length, end_token=end_token)

@@ -1,0 +1,126 @@
+"""The pooled GRU caption decoder and its greedy loops
+(counterpart of show_tell_tpu/models/decoder.py).
+
+Parameter names are the reference's (rnn.py:23-25): ``embeddings.weight``,
+``unit.weight_ih_l{k}``, ``unit.weight_hh_l{k}``, ``unit.bias_ih_l{k}``,
+``unit.bias_hh_l{k}``, ``linear.weight``, ``linear.bias``.  The recurrence
+is never run through ``nn.GRU``: greedy decode steps with the plain cell
+here or with the fused kernel (ops/rnn.py).
+
+Decode (rnn.py:37-58): a fixed 25 greedy steps, the argmax fed back
+through the embedding.  The early-exit loop stops once every row has
+emitted <end> and writes <pad> (0) after it; rows before <end> equal the
+fixed loop's.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, List, NamedTuple, Optional
+
+import torch
+import torch.nn as nn
+
+from show_tell_tpu_torch.models.rnn_cells import stack_step_gru
+from show_tell_tpu_torch.ops.vocab import first_max_argmax
+
+
+class DecoderConfig(NamedTuple):
+    cell_type: str  # 'gru' ('lstm' is not ported yet)
+    embed_dim: int
+    hidden_dim: int
+    vocab_size: int
+    num_layers: int
+    max_caption_length: int = 25  # reference rnn.py:39
+
+
+class GRUWeights(nn.Module):
+    """The stacked GRU's parameters under nn.GRU's names, without its forward."""
+
+    def __init__(self, input_dim: int, hidden_dim: int, num_layers: int):
+        super().__init__()
+        self.num_layers = num_layers
+        for l in range(num_layers):
+            in_dim = input_dim if l == 0 else hidden_dim
+            self.register_parameter("weight_ih_l%d" % l, nn.Parameter(torch.empty(3 * hidden_dim, in_dim)))
+            self.register_parameter("weight_hh_l%d" % l, nn.Parameter(torch.empty(3 * hidden_dim, hidden_dim)))
+            self.register_parameter("bias_ih_l%d" % l, nn.Parameter(torch.empty(3 * hidden_dim)))
+            self.register_parameter("bias_hh_l%d" % l, nn.Parameter(torch.empty(3 * hidden_dim)))
+
+    def layers(self) -> List[Dict[str, torch.Tensor]]:
+        """Per-layer {w_ih [3H,in], w_hh [3H,H], b_ih [3H], b_hh [3H]}."""
+        return [
+            {
+                "w_ih": getattr(self, "weight_ih_l%d" % l),
+                "w_hh": getattr(self, "weight_hh_l%d" % l),
+                "b_ih": getattr(self, "bias_ih_l%d" % l),
+                "b_hh": getattr(self, "bias_hh_l%d" % l),
+            }
+            for l in range(self.num_layers)
+        ]
+
+
+class Decoder(nn.Module):
+    def __init__(self, cfg: DecoderConfig):
+        super().__init__()
+        if cfg.cell_type != "gru":
+            raise NotImplementedError("the pooled LSTM decoder is ROADMAP Queue 1 item 11")
+        self.embeddings = nn.Embedding(cfg.vocab_size, cfg.embed_dim)
+        self.unit = GRUWeights(cfg.embed_dim, cfg.hidden_dim, cfg.num_layers)
+        self.linear = nn.Linear(cfg.hidden_dim, cfg.vocab_size)
+
+
+def greedy_loop(step: Callable, embedding: torch.Tensor, x0, state0, T: int) -> torch.Tensor:
+    """Run ``step(x, state) -> (tok, state)`` T times, feeding back
+    ``embedding[tok]``.  Returns [B, T] int32 ids."""
+    x, state, toks = x0, state0, []
+    for _ in range(T):
+        tok, state = step(x, state)
+        toks.append(tok)
+        x = embedding.index_select(0, tok)
+    return torch.stack(toks, dim=1).to(torch.int32)
+
+
+def greedy_early_exit_loop(
+    step: Callable, embedding: torch.Tensor, x0, state0, T: int, end_token: int
+) -> torch.Tensor:
+    """``greedy_loop`` that stops once every row has emitted ``end_token``
+    (or after T steps).  Positions after a row's first <end> are <pad> (0);
+    rows and steps before it equal the fixed loop's."""
+    B = x0.shape[0]
+    toks = torch.zeros(B, T, dtype=torch.int32, device=x0.device)
+    done = torch.zeros(B, dtype=torch.bool, device=x0.device)
+    x, state = x0, state0
+    for t in range(T):
+        tok, state = step(x, state)
+        tok = torch.where(done, torch.zeros_like(tok), tok)
+        toks[:, t] = tok
+        done = done | (tok == end_token)
+        if bool(done.all()):  # one host sync per step: the price of stopping early
+            break
+        x = embedding.index_select(0, tok)
+    return toks
+
+
+def greedy_decode(
+    decoder: Decoder,
+    cfg: DecoderConfig,
+    feats: torch.Tensor,  # [B, E]
+    end_token: Optional[int] = None,
+) -> torch.Tensor:
+    """Plain batched greedy decode: the per-layer cell, ``top @ W^T + b``
+    in f32 and the first-max argmax (decoder.greedy_decode in the JAX
+    package).  Computes in the embedding's dtype.  Returns [B, T] ids."""
+    layers = decoder.unit.layers()
+    embedding = decoder.embeddings.weight
+    dtype = embedding.dtype
+    hs0 = torch.zeros(cfg.num_layers, feats.shape[0], cfg.hidden_dim, dtype=dtype, device=feats.device)
+
+    def step(x, hs):
+        top, hs2 = stack_step_gru(layers, x, hs)
+        logits = top.float() @ decoder.linear.weight.float().T + decoder.linear.bias.float()
+        return first_max_argmax(logits), hs2
+
+    x0 = feats.to(dtype)
+    if end_token is None:
+        return greedy_loop(step, embedding, x0, hs0, cfg.max_caption_length)
+    return greedy_early_exit_loop(step, embedding, x0, hs0, cfg.max_caption_length, end_token)

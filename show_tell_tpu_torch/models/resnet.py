@@ -1,0 +1,111 @@
+"""ResNet-18/34/50/101/152 backbones as nn.Modules, eval mode
+(counterpart of show_tell_tpu/models/resnet.py).
+
+Parameter and buffer names are torchvision's ("layer1.0.conv1.weight",
+"bn1.running_mean", ...), the names the JAX package keys its flat dicts
+by.  BatchNorm runs from its running statistics; the final fc layer is
+never created (the reference strips it, cnn.py:34).  Input and output are
+NHWC at the public boundary; inside, activations are channels-last NCHW,
+the layout cuDNN's NHWC convolutions take.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+BN_EPS = 1e-5
+
+# (block_type, blocks per stage) per version.
+RESNET_SPECS: Dict[int, Tuple[str, List[int]]] = {
+    18: ("basic", [2, 2, 2, 2]),
+    34: ("basic", [3, 4, 6, 3]),
+    50: ("bottleneck", [3, 4, 6, 3]),
+    101: ("bottleneck", [3, 4, 23, 3]),
+    152: ("bottleneck", [3, 8, 36, 3]),
+}
+
+STAGE_WIDTHS = [64, 128, 256, 512]
+
+
+def feature_dim(version: int) -> int:
+    return 512 if RESNET_SPECS[version][0] == "basic" else 2048
+
+
+class FrozenBatchNorm(nn.Module):
+    """Eval-mode BatchNorm over axis 1 of [B, C, ...]: weight/bias
+    parameters and running_mean/running_var buffers (no
+    num_batches_tracked, so the keys match the JAX dicts)."""
+
+    def __init__(self, c: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+        self.register_buffer("running_mean", torch.zeros(c))
+        self.register_buffer("running_var", torch.ones(c))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
+                            training=False, eps=BN_EPS)
+
+
+def _conv(cin: int, cout: int, k: int, stride: int) -> nn.Conv2d:
+    return nn.Conv2d(cin, cout, k, stride=stride, padding=k // 2, bias=False)
+
+
+class Block(nn.Module):
+    """Basic (two 3x3) or bottleneck (1x1, 3x3, 1x1) residual block."""
+
+    def __init__(self, kind: str, cin: int, width: int, stride: int):
+        super().__init__()
+        self.kind = kind
+        cout = width if kind == "basic" else width * 4
+        if kind == "basic":
+            self.conv1, self.bn1 = _conv(cin, width, 3, stride), FrozenBatchNorm(width)
+            self.conv2, self.bn2 = _conv(width, width, 3, 1), FrozenBatchNorm(width)
+        else:
+            self.conv1, self.bn1 = _conv(cin, width, 1, 1), FrozenBatchNorm(width)
+            self.conv2, self.bn2 = _conv(width, width, 3, stride), FrozenBatchNorm(width)
+            self.conv3, self.bn3 = _conv(width, cout, 1, 1), FrozenBatchNorm(cout)
+        self.downsample = None
+        if stride != 1 or cin != cout:
+            self.downsample = nn.Sequential(_conv(cin, cout, 1, stride), FrozenBatchNorm(cout))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = F.relu(self.bn1(self.conv1(x)))
+        if self.kind == "basic":
+            h = self.bn2(self.conv2(h))
+        else:
+            h = F.relu(self.bn2(self.conv2(h)))
+            h = self.bn3(self.conv3(h))
+        identity = x if self.downsample is None else self.downsample(x)
+        return F.relu(h + identity)
+
+
+class ResNet(nn.Module):
+    def __init__(self, version: int):
+        super().__init__()
+        kind, stages = RESNET_SPECS[version]
+        self.version = version
+        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+        self.bn1 = FrozenBatchNorm(64)
+        cin = 64
+        for s, n_blocks in enumerate(stages):
+            blocks = []
+            for b in range(n_blocks):
+                stride = 2 if (b == 0 and s > 0) else 1
+                blocks.append(Block(kind, cin, STAGE_WIDTHS[s], stride))
+                cin = STAGE_WIDTHS[s] * (1 if kind == "basic" else 4)
+            self.add_module("layer%d" % (s + 1), nn.Sequential(*blocks))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x [B, H, W, 3] normalized float -> features [B, H/32, W/32, C]."""
+        y = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        y = F.relu(self.bn1(self.conv1(y)))
+        y = F.max_pool2d(y, kernel_size=3, stride=2, padding=1)  # implicit -inf padding
+        for s in range(4):
+            y = getattr(self, "layer%d" % (s + 1))(y)
+        return y.permute(0, 2, 3, 1)
