@@ -1,19 +1,25 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path once on one NVIDIA GPU (H100).
+"""Drive the PyTorch port's serving paths once on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py
 
 Phases, one line each (any failure exits non-zero with no ok line):
   1. device: the card's name and power limit, torch and CUDA versions;
   2. build: the CUDA kernels from show_tell_tpu_torch/csrc, with nvcc;
-  3. kernel against plain: the fused greedy decode step at the flagship
-     widths (L=5, E=256, H=512, V=9,956), B = 1, 64, 512, f32 and bf16,
-     plus a cross-block argmax tie;
-  4. main path: a flagship pooled-GRU Captioner (ResNet-101, random
+  3. kernel against plain, at the flagship widths: the pooled fused step
+     (L=5, E=256, H=512, V=9,956; B = 1, 64, 512) and at E > H (E=1024);
+     the fused attention step (L=5, E=H=A=512, P=49, V=9,956; B = 1, 64,
+     256); the attention context (C=2048, same B); the projection + argmax
+     (H=512, V=9,956, same B); f32 and bf16, with cross-block argmax ties;
+  4. pooled main path: a flagship pooled-GRU Captioner (ResNet-101, random
      weights from seed 0, bf16) serves three requests of 64 images; the
      fused step must have launched 3 x 25 times and the ids must agree
      with the plain step's decode; then once more in f32 at B=8;
-  5. times: per-step kernel and plain times, and captions/s.
+  5. attention main path: the same for a flagship attention-GRU Captioner
+     (spatial ResNet-101, C=2048, E=H=A=512): 3 x 25 fused attention
+     launches, then f32 at B=8, then one composite decode at B=64 (25
+     launches each of the context and projection kernels);
+  6. times: per-step kernel and plain times, and captions/s of each slice.
 The last lines are the card's name and power limit, a JSON line of the
 kernels, and {"ok": true, "device": {...}}.
 """
@@ -25,8 +31,15 @@ import subprocess
 import sys
 import time
 
-L, E, H, V = 5, 256, 512, 9956
+L, E, H, V = 5, 256, 512, 9956  # pooled flagship (bench.py:61-74, variant gru)
+AE, AC, AA, AP = 512, 2048, 512, 49  # attention flagship: embed, channels, attention width, positions
+T = 25
 SEED = 0
+# (rtol = atol for values, smallest top-2 logit gap at which tokens must agree):
+# f32 differs from the plain twin by summation order only; bf16 by one bf16
+# ulp of a |h| <= 1 value (2^-7 ~ 0.0078) after a cast, and its logits near
+# ties by more than the f32 sums' order.
+TOL = {"float32": (1e-5, 1e-4), "bfloat16": (2e-2, 5e-2)}
 
 
 def fail(msg):
@@ -75,31 +88,216 @@ def event_median_ms(fn, iters=30, warmup=5):
     return statistics.median(e0.elapsed_time(e1) for e0, e1 in pairs)
 
 
-def step_inputs(rng, B, dtype, device):
-    """Decode-step inputs at the flagship widths, kernel layout: weights
-    U(+-1/sqrt(H)) as the decoder init draws them, layer 0 zero-padded
-    from E to H, hidden state in (-1, 1)."""
+def dname(dtype):
+    return str(dtype).split(".")[1]
+
+
+def uniform(rng, shape, bound, dtype, device):
     import torch
 
-    bound = 1.0 / H ** 0.5
-    t = lambda a: torch.from_numpy(a.astype("float32")).to(device=device, dtype=dtype).contiguous()
-    w_ih = rng.uniform(-bound, bound, (L, 3 * H, H))
-    w_ih[0, :, E:] = 0.0
-    stacked = {
-        "w_ih": t(w_ih),
-        "w_hh": t(rng.uniform(-bound, bound, (L, 3 * H, H))),
-        "b_ih": t(rng.uniform(-bound, bound, (L, 3 * H))),
-        "b_hh": t(rng.uniform(-bound, bound, (L, 3 * H))),
+    return torch.from_numpy(rng.uniform(-bound, bound, shape).astype("float32")).to(device, dtype).contiguous()
+
+
+def stack_inputs(rng, I0, Hd, Ld, dtype, device):
+    """prepare_rnn_weights layout, U(+-1/sqrt(H)) as the decoder init draws it."""
+    b = 1.0 / Hd ** 0.5
+    return {
+        "w_ih0": uniform(rng, (3 * Hd, I0), b, dtype, device),
+        "w_ihU": uniform(rng, (Ld - 1, 3 * Hd, Hd), b, dtype, device),
+        "w_hh": uniform(rng, (Ld, 3 * Hd, Hd), b, dtype, device),
+        "b_ih": uniform(rng, (Ld, 3 * Hd), b, dtype, device),
+        "b_hh": uniform(rng, (Ld, 3 * Hd), b, dtype, device),
     }
-    vocab = {"w": t(rng.uniform(-bound, bound, (V, H))), "b": t(rng.uniform(-bound, bound, V))}
-    x = rng.randn(B, H)
-    x[:, E:] = 0.0
-    return stacked, vocab, t(x), t(rng.uniform(-1, 1, (L, B, H)))
+
+
+def vocab_inputs(rng, Hd, dtype, device):
+    b = 1.0 / Hd ** 0.5
+    return {"w": uniform(rng, (V, Hd), b, dtype, device), "b": uniform(rng, (V,), b, dtype, device)}
+
+
+def step_inputs(rng, B, dtype, device, Ed=E):
+    """Pooled decode-step inputs at the flagship widths, kernel layout."""
+    import torch
+
+    x = torch.from_numpy(rng.randn(B, Ed).astype("float32")).to(device, dtype)
+    return (stack_inputs(rng, Ed, H, L, dtype, device), vocab_inputs(rng, H, dtype, device), x,
+            uniform(rng, (L, B, H), 1.0, dtype, device))
+
+
+def attn_inputs(rng, B, dtype, device):
+    """Fused attention step inputs at the flagship widths: prepare_attn_decode's
+    dict, the token embeddings [B, E] and the hidden state [L, B, H]."""
+    import torch
+
+    prep = {
+        "stacked": stack_inputs(rng, 2 * AE, H, L, dtype, device),
+        "vocab": vocab_inputs(rng, H, dtype, device),
+        "wdec": uniform(rng, (AA, H), H ** -0.5, dtype, device),
+        "bdec": uniform(rng, (AA,), H ** -0.5, dtype, device),
+        "wfull": uniform(rng, (AA,), AA ** -0.5, dtype, device),
+        "b_emb": uniform(rng, (AE,), AC ** -0.5, dtype, device),
+        "att1": uniform(rng, (B, AP, AA), 1.0, dtype, device),
+        "feats_e": uniform(rng, (B, AP, AE), 1.0, dtype, device),
+    }
+    w_emb = torch.from_numpy(rng.randn(B, AE).astype("float32")).to(device, dtype)
+    return prep, w_emb, uniform(rng, (L, B, H), 1.0, dtype, device)
 
 
 def top2_gap(logits):
     top = logits.float().topk(2, dim=-1).values
     return top[:, 0] - top[:, 1]
+
+
+def check_states(what, got, ref, dtype):
+    import torch
+
+    tol = TOL[dname(dtype)][0]
+    err = (got.float() - ref.float()).abs().max().item()
+    if not torch.allclose(got.float(), ref.float(), rtol=tol, atol=tol):
+        fail("%s differs from plain: max_abs_err %g (rtol = atol = %g)" % (what, err, tol))
+    return err
+
+
+def check_tokens(what, tok, ref_tok, logits, dtype):
+    gap_min = TOL[dname(dtype)][1]
+    clear = top2_gap(logits) > gap_min
+    bad = int(((tok != ref_tok) & clear).sum())
+    if bad:
+        fail("%s: tokens differ from plain on %d rows with a top-2 gap > %g" % (what, bad, gap_min))
+    return int(clear.sum())
+
+
+def kernels_against_plain(rng, device):
+    """Phase 3.  Returns the bf16 B=64 max_abs_err of each kernel."""
+    import torch
+
+    from show_tell_tpu_torch.ops.attention import attention_context_cuda, attention_context_plain
+    from show_tell_tpu_torch.ops.fused_attn import fused_attn_decode_step_cuda, fused_attn_decode_step_plain
+    from show_tell_tpu_torch.ops.fused_step import fused_gru_decode_step_cuda, fused_gru_decode_step_plain
+    from show_tell_tpu_torch.ops.vocab import project_argmax_cuda, project_argmax_plain, project_logits
+
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn, tol = dname(dtype), TOL[dname(dtype)]
+        for B, Ed in ((1, E), (64, E), (512, E), (64, 1024)):
+            stacked, vocab, x, hs = step_inputs(rng, B, dtype, device, Ed)
+            tok, new_hs = fused_gru_decode_step_cuda(stacked, vocab, x, hs)
+            torch.cuda.synchronize()
+            ref_tok, ref_hs = fused_gru_decode_step_plain(stacked, vocab, x, hs)
+            what = "pooled step %s B=%d E=%d" % (dn, B, Ed)
+            err = check_states(what + " new_hs", new_hs, ref_hs, dtype)
+            n = check_tokens(what, tok, ref_tok, project_logits(vocab, ref_hs[-1]), dtype)
+            if dtype == torch.bfloat16 and B == 64 and Ed == E:
+                errs["fused_gru_decode_step"] = err
+            phase("kernel", "%s: new_hs max_abs_err %.3g (rtol atol %g); tokens equal on all %d rows with top-2 "
+                  "gap > %g, %d rows closer" % (what, err, tol[0], n, tol[1], B - n))
+        stacked, vocab, x, hs = step_inputs(rng, 64, dtype, device)
+        vocab["w"][9000] = vocab["w"][7]
+        vocab["b"][7] = vocab["b"][9000] = 100.0
+        tok, _ = fused_gru_decode_step_cuda(stacked, vocab, x, hs)
+        ref_tok, _ = fused_gru_decode_step_plain(stacked, vocab, x, hs)
+        if not (bool((tok == 7).all()) and bool((ref_tok == 7).all())):
+            fail("pooled step: tie of columns 7 and 9000 not resolved to 7 (%s): %s" % (dn, tok.unique().tolist()))
+        phase("kernel", "pooled step %s tie between columns 7 and 9000 -> 7 on all 64 rows" % dn)
+
+        for B in (1, 64, 256):
+            prep, w_emb, hs = attn_inputs(rng, B, dtype, device)
+            tok, new_hs = fused_attn_decode_step_cuda(prep, w_emb, hs)
+            torch.cuda.synchronize()
+            ref_tok, ref_hs = fused_attn_decode_step_plain(prep, w_emb, hs)
+            what = "attention step %s B=%d" % (dn, B)
+            err = check_states(what + " new_hs", new_hs, ref_hs, dtype)
+            n = check_tokens(what, tok, ref_tok, project_logits(prep["vocab"], ref_hs[-1]), dtype)
+            if dtype == torch.bfloat16 and B == 64:
+                errs["fused_attn_decode_step"] = err
+            phase("kernel", "%s: new_hs max_abs_err %.3g (rtol atol %g); tokens equal on all %d rows with top-2 "
+                  "gap > %g, %d rows closer" % (what, err, tol[0], n, tol[1], B - n))
+
+            feats = uniform(rng, (B, AP, AC), 1.0, dtype, device)
+            ctx, alpha = attention_context_cuda(prep, feats, prep["att1"], hs[-1])
+            torch.cuda.synchronize()
+            ref_ctx, ref_alpha = attention_context_plain(prep, feats, prep["att1"], hs[-1])
+            what = "attention context %s B=%d" % (dn, B)
+            err = check_states(what + " ctx", ctx, ref_ctx, dtype)
+            a_err = (alpha - ref_alpha).abs().max().item()
+            if not torch.allclose(alpha, ref_alpha, rtol=1e-5, atol=1e-6):  # f32 in both: summation order
+                fail("%s alpha max_abs_err %g (rtol 1e-5, atol 1e-6)" % (what, a_err))
+            if dtype == torch.bfloat16 and B == 64:
+                errs["attention_context"] = err
+            phase("kernel", "%s: ctx max_abs_err %.3g (rtol atol %g), alpha max_abs_err %.3g (rtol 1e-5 atol 1e-6)"
+                  % (what, err, tol[0], a_err))
+
+            top = hs[-1]
+            tok = project_argmax_cuda(prep["vocab"], top)
+            torch.cuda.synchronize()
+            ref_tok = project_argmax_plain(prep["vocab"], top)
+            logits = project_logits(prep["vocab"], top)
+            what = "project_argmax %s B=%d" % (dn, B)
+            n = check_tokens(what, tok, ref_tok, logits, dtype)
+            rows = torch.arange(B, device=device)
+            err = (logits[rows, tok.long()] - logits[rows, ref_tok.long()]).abs().max().item()
+            if dtype == torch.bfloat16 and B == 64:
+                errs["project_argmax"] = err
+            phase("kernel", "%s: tokens equal on all %d rows with top-2 gap > %g, %d rows closer; largest logit "
+                  "gap between the two picks %.3g" % (what, n, tol[1], B - n, err))
+
+        prep, w_emb, hs = attn_inputs(rng, 64, dtype, device)
+        prep["vocab"]["w"][9000] = prep["vocab"]["w"][7]
+        prep["vocab"]["b"][7] = prep["vocab"]["b"][9000] = 100.0
+        toks = [fused_attn_decode_step_cuda(prep, w_emb, hs)[0], fused_attn_decode_step_plain(prep, w_emb, hs)[0],
+                project_argmax_cuda(prep["vocab"], hs[-1]), project_argmax_plain(prep["vocab"], hs[-1])]
+        if not all(bool((t == 7).all()) for t in toks):
+            fail("attention step / project_argmax: tie of columns 7 and 9000 not resolved to 7 (%s)" % dn)
+        phase("kernel", "attention step and project_argmax %s: tie between columns 7 and 9000 -> 7 on all 64 rows"
+              % dn)
+    return errs
+
+
+def serve(cap, requests, counter_fns, launches_each):
+    """One warm-up request, then ``requests`` timed on the host clock with
+    every kernel count set to 0 just before; returns (ids, seconds, counts)."""
+    import torch
+
+    cap.caption_ids(requests[0])  # warm-up: cuDNN plans, allocator
+    torch.cuda.synchronize()
+    for fn in counter_fns:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    served = [cap.caption_ids(imgs) for imgs in requests]
+    seconds = time.perf_counter() - t0
+    counts = {fn.__name__: fn.launches for fn in counter_fns}
+    for name, want in launches_each.items():
+        if counts[name] != want:
+            fail("main path launched %s %d times, expected %d (counts %s)" % (name, counts[name], want, counts))
+    return served, seconds, counts
+
+
+def check_served(label, served, requests, plain_decode, cap):
+    for i, (ids, imgs) in enumerate(zip(served, requests)):
+        if ids.shape != (len(imgs), T) or ids.min() < 0 or ids.max() >= V:
+            fail("%s request %d: ids of shape %s in [%d, %d]" % (label, i, ids.shape, ids.min(), ids.max()))
+        ref_ids, _ = plain_decode(cap, imgs)
+        share = float((ids == ref_ids).mean())
+        if share < 0.95:
+            fail("%s request %d: ids equal the plain step's decode on %.4f of positions (< 0.95)" % (label, i, share))
+        phase("main", "%s bf16 request %d: [64,25] ids, equal to the plain step's decode on %.4f of positions"
+              % (label, i, share))
+
+
+def check_f32(label, cap32, imgs, counter, plain_decode):
+    counter.launches = 0
+    ids32 = cap32.caption_ids(imgs)
+    if counter.launches != T:
+        fail("%s f32 request launched %s %d times" % (label, counter.__name__, counter.launches))
+    ref32, gaps32 = plain_decode(cap32, imgs)
+    same = (ids32 == ref32).all(axis=1)
+    for r in [int(i) for i in range(len(same)) if not same[i]]:
+        phase("main", "%s f32 row %d differs from the plain decode; its smallest top-2 gap is %.3g"
+              % (label, r, gaps32[r]))
+    if same.mean() < 0.99:
+        fail("%s f32 B=%d: %d rows equal the plain decode (< 99%%)" % (label, len(same), int(same.sum())))
+    phase("main", "%s f32 B=%d (TF32 off): %d of %d rows equal the plain step's decode"
+          % (label, len(same), int(same.sum()), len(same)))
 
 
 def main():
@@ -129,149 +327,200 @@ def main():
     t0 = time.perf_counter()
     build.load_library()
     phase("build", "%s in %.2f s (%s)" % (os.path.basename(build.library_path()), time.perf_counter() - t0,
-                                          "already built" if cached else "nvcc ran"))
+                                          "already built" if cached else "nvcc ran, one process per source"))
 
     # 3. kernel against plain
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.RandomState(SEED)
+    errs = kernels_against_plain(rng, device)
+
+    from show_tell_tpu_torch.data.transforms import preprocess_images
+    from show_tell_tpu_torch.models.attention import init_hidden, linear_f32, start_embeddings
+    from show_tell_tpu_torch.models.captioner import CaptionerConfig, init_captioner
+    from show_tell_tpu_torch.models.decoder import greedy_loop
+    from show_tell_tpu_torch.ops.attention import (
+        attention_context,
+        attention_context_cuda,
+        attention_context_plain,
+        attn_greedy_decode_composite,
+        precompute_att1,
+    )
+    from show_tell_tpu_torch.ops.fused_attn import (
+        fused_attn_decode_step,
+        fused_attn_decode_step_cuda,
+        fused_attn_decode_step_plain,
+        prepare_attn_decode,
+    )
     from show_tell_tpu_torch.ops.fused_step import (
         fused_gru_decode_step,
         fused_gru_decode_step_cuda,
         fused_gru_decode_step_plain,
     )
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    tol = {torch.float32: (1e-5, 1e-5, 1e-4), torch.bfloat16: (2e-2, 2e-2, 5e-2)}  # rtol, atol, token gap
-    main_err = None
-    rng = np.random.RandomState(SEED)
-    for dtype in (torch.float32, torch.bfloat16):
-        rtol, atol, gap_min = tol[dtype]
-        for B in (1, 64, 512):
-            stacked, vocab, x, hs = step_inputs(rng, B, dtype, device)
-            tok, new_hs = fused_gru_decode_step_cuda(stacked, vocab, x, hs)
-            torch.cuda.synchronize()
-            ref_tok, ref_hs = fused_gru_decode_step_plain(stacked, vocab, x, hs)
-            err = (new_hs.float() - ref_hs.float()).abs().max().item()
-            if not torch.allclose(new_hs.float(), ref_hs.float(), rtol=rtol, atol=atol):
-                fail("kernel new_hs differs from plain: %s B=%d max_abs_err %g" % (dtype, B, err))
-            logits = ref_hs[-1].float() @ vocab["w"].float().T + vocab["b"].float()
-            clear = top2_gap(logits) > gap_min
-            bad = int(((tok != ref_tok) & clear).sum())
-            if bad:
-                fail("kernel tokens differ from plain on %d rows with a top-2 gap > %g (%s B=%d)"
-                     % (bad, gap_min, dtype, B))
-            if dtype == torch.bfloat16 and B == 64:
-                main_err = err
-            phase("kernel", "%s B=%d new_hs max_abs_err %.3g (rtol %g atol %g); tokens equal on all %d rows "
-                  "with top-2 gap > %g, %d rows closer" % (str(dtype).split(".")[1], B, err, rtol, atol,
-                                                            int(clear.sum()), gap_min, B - int(clear.sum())))
-        stacked, vocab, x, hs = step_inputs(rng, 64, dtype, device)
-        vocab["w"][9000] = vocab["w"][7]
-        vocab["b"][7] = vocab["b"][9000] = 100.0
-        tok, _ = fused_gru_decode_step_cuda(stacked, vocab, x, hs)
-        ref_tok, _ = fused_gru_decode_step_plain(stacked, vocab, x, hs)
-        if not (bool((tok == 7).all()) and bool((ref_tok == 7).all())):
-            fail("tie of columns 7 and 9000 not resolved to 7 (%s): %s" % (dtype, tok.unique().tolist()))
-        phase("kernel", "%s tie between columns 7 and 9000 -> 7 on all 64 rows" % str(dtype).split(".")[1])
-
-    # 4. main path
-    from show_tell_tpu_torch.data.transforms import preprocess_images
-    from show_tell_tpu_torch.models.captioner import CaptionerConfig, init_captioner
-    from show_tell_tpu_torch.models.decoder import greedy_loop
-    from show_tell_tpu_torch.ops.rnn import pad_cols
+    from show_tell_tpu_torch.ops.rnn import gru_stack_plain
+    from show_tell_tpu_torch.ops.vocab import project_argmax, project_argmax_cuda, project_argmax_plain, project_logits
     from show_tell_tpu_torch.serve import Captioner
 
-    cfg = CaptionerConfig("gru", 101, E, H, V, L)
+    counters = [fused_gru_decode_step, fused_attn_decode_step, attention_context, project_argmax]
     vocab = SyntheticVocab(V)
-    params, bn_state = init_captioner(cfg, torch.Generator().manual_seed(SEED))
     img_rng = np.random.RandomState(SEED + 1)
 
-    def plain_decode(cap, images_u8, B):
-        """The same features, decoded with the plain step on the card;
-        returns ids and the smallest top-2 logit gap along each row."""
+    def features(cap, images_u8):
+        x = preprocess_images(torch.from_numpy(images_u8).to(device), augment=False, dtype=cap.dtype)
+        return cap.model.encoder(x)
+
+    def plain_loop(step, embedding, x0, hs0):
+        """greedy_loop over a plain step; returns ids and each row's smallest top-2 logit gap."""
+        gaps = []
+
+        def run(x, hs):
+            tok, hs2, logits = step(x, hs)
+            gaps.append(top2_gap(logits))
+            return tok, hs2
+
+        ids = greedy_loop(run, embedding, x0, hs0, T)
+        return ids.cpu().numpy(), torch.stack(gaps, 1).min(1).values.cpu().numpy()
+
+    # 4. pooled main path
+    cfg = CaptionerConfig("gru", 101, E, H, V, L)
+    params, bn_state = init_captioner(cfg, torch.Generator().manual_seed(SEED))
+
+    def pooled_plain(cap, images_u8):
+        """The same features, decoded with the plain step on the card."""
         with torch.inference_mode():
-            x = preprocess_images(torch.from_numpy(images_u8).to(device), augment=False, dtype=cap.dtype)
-            feats = cap.model.encoder(x)
+            feats = features(cap, images_u8)
             prep = cap.prepared
-            gaps = []
 
             def step(xx, hs):
                 tok, hs2 = fused_gru_decode_step_plain(prep["stacked"], prep["vocab"], xx, hs)
-                logits = hs2[-1].float() @ prep["vocab"]["w"].float().T + prep["vocab"]["b"].float()
-                gaps.append(top2_gap(logits))
-                return tok, hs2
+                return tok, hs2, project_logits(prep["vocab"], hs2[-1])
 
-            x0 = pad_cols(feats.to(cap.dtype), H)
-            hs0 = torch.zeros(L, B, H, dtype=cap.dtype, device=device)
-            ids = greedy_loop(step, prep["embedding"], x0, hs0, cfg.max_caption_length)
-            return ids.cpu().numpy(), torch.stack(gaps, 1).min(1).values.cpu().numpy()
+            hs0 = torch.zeros(L, len(images_u8), H, dtype=cap.dtype, device=device)
+            return plain_loop(step, prep["embedding"], feats.to(cap.dtype), hs0)
 
     cap = Captioner(params, bn_state, cfg, vocab, "bfloat16", device="gpu")
     requests = [img_rng.randint(0, 256, (64, 224, 224, 3), dtype=np.uint8) for _ in range(3)]
-    cap.caption_ids(requests[0])  # warm-up: cuDNN plans, allocator
-    torch.cuda.synchronize()
-    fused_gru_decode_step.launches = 0
-    t0 = time.perf_counter()
-    served = [cap.caption_ids(imgs) for imgs in requests]
-    serve_s = time.perf_counter() - t0
-    launches = fused_gru_decode_step.launches
-    if launches != 3 * cfg.max_caption_length:
-        fail("main path launched the fused step %d times, expected %d" % (launches, 3 * cfg.max_caption_length))
-    for i, (ids, imgs) in enumerate(zip(served, requests)):
-        if ids.shape != (64, 25) or ids.min() < 0 or ids.max() >= V:
-            fail("request %d: ids of shape %s in [%d, %d]" % (i, ids.shape, ids.min(), ids.max()))
-        ref_ids, _ = plain_decode(cap, imgs, 64)
-        share = float((ids == ref_ids).mean())
-        if share < 0.95:
-            fail("request %d: ids equal the plain step's decode on %.4f of positions (< 0.95)" % (i, share))
-        phase("main", "bf16 request %d: [64,25] ids, equal to the plain step's decode on %.4f of positions"
-              % (i, share))
-    phase("main", "fused step launches in the three requests: %d (= 3 x 25)" % launches)
-    captions = [" ".join(vocab.index_to_word[int(t)] for t in row[:8]) + " ..." for row in served[0][:3]]
-    for c in captions:
-        phase("main", "caption: %s" % c)
-
+    served, pooled_s, counts = serve(cap, requests, counters, {"fused_gru_decode_step": 3 * T})
+    pooled_launches = counts["fused_gru_decode_step"]
+    check_served("pooled", served, requests, pooled_plain, cap)
+    phase("main", "pooled: launches in the three requests %s (fused step = 3 x 25)" % counts)
+    for row in served[0][:3]:
+        phase("main", "pooled caption: %s ..." % " ".join(vocab.index_to_word[int(t)] for t in row[:8]))
     cap32 = Captioner(params, bn_state, cfg, vocab, "float32", device="gpu")
-    imgs = img_rng.randint(0, 256, (8, 224, 224, 3), dtype=np.uint8)
-    fused_gru_decode_step.launches = 0
-    ids32 = cap32.caption_ids(imgs)
-    if fused_gru_decode_step.launches != cfg.max_caption_length:
-        fail("f32 request launched the fused step %d times" % fused_gru_decode_step.launches)
-    ref32, gaps32 = plain_decode(cap32, imgs, 8)
-    same = (ids32 == ref32).all(axis=1)
-    for r in np.flatnonzero(~same):
-        phase("main", "f32 row %d differs from the plain decode; its smallest top-2 gap is %.3g" % (r, gaps32[r]))
-    if same.mean() < 0.99:
-        fail("f32 B=8: %d of 8 rows equal the plain decode (< 99%%)" % int(same.sum()))
-    phase("main", "f32 B=8 (TF32 off): %d of 8 rows equal the plain step's decode" % int(same.sum()))
-    del cap32
+    check_f32("pooled", cap32, img_rng.randint(0, 256, (8, 224, 224, 3), dtype=np.uint8), fused_gru_decode_step,
+              pooled_plain)
+    del cap, cap32, params, bn_state
 
-    # 5. times (bf16, flagship widths)
+    # 5. attention main path
+    acfg = CaptionerConfig("attn", 101, AE, H, V, L, nos_filters=AC, attn_dim=AA)
+    dcfg = acfg.decoder_config()
+    params, bn_state = init_captioner(acfg, torch.Generator().manual_seed(SEED))
+
+    def attn_plain(cap, images_u8):
+        """The same features, decoded with the fused step's plain twin on the card."""
+        with torch.inference_mode():
+            feats = features(cap, images_u8)
+            dec = cap.model.decoder
+            prep = prepare_attn_decode(cap.prepared, dec, feats.transpose(1, 2))
+
+            def step(w_emb, hs):
+                tok, hs2 = fused_attn_decode_step_plain(prep, w_emb, hs)
+                return tok, hs2, project_logits(prep["vocab"], hs2[-1])
+
+            w0 = start_embeddings(dec, len(images_u8), acfg.start_token, device)
+            return plain_loop(step, dec.embeddings.weight, w0, init_hidden(dec, dcfg, feats))
+
+    acap = Captioner(params, bn_state, acfg, vocab, "bfloat16", device="gpu")
+    requests = [img_rng.randint(0, 256, (64, 224, 224, 3), dtype=np.uint8) for _ in range(3)]
+    served, attn_s, counts = serve(acap, requests, counters, {"fused_attn_decode_step": 3 * T})
+    attn_launches = counts["fused_attn_decode_step"]
+    check_served("attention", served, requests, attn_plain, acap)
+    phase("main", "attention: launches in the three requests %s (fused attention step = 3 x 25)" % counts)
+    for row in served[0][:3]:
+        phase("main", "attention caption: %s ..." % " ".join(vocab.index_to_word[int(t)] for t in row[:8]))
+
+    # the composite path, called directly: the flagship (H <= 2E) takes the fused step
+    with torch.inference_mode():
+        feats = features(acap, requests[0])
+        for fn in counters:
+            fn.launches = 0
+        comp_ids = attn_greedy_decode_composite(acap.prepared, acap.model.decoder, dcfg, feats,
+                                                acfg.start_token).cpu().numpy()
+        comp_counts = {fn.__name__: fn.launches for fn in counters}
+        dec = acap.model.decoder
+        feats_pm = feats.transpose(1, 2).contiguous()
+        att1 = precompute_att1(dec.attn, feats_pm).to(acap.dtype).contiguous()
+        weights = acap.prepared
+
+        def comp_step(w_emb, hs):
+            ctx, _ = attention_context_plain(weights, feats_pm, att1, hs[-1])
+            x = torch.cat([w_emb, linear_f32(dec.embed, ctx).to(w_emb.dtype)], dim=-1)
+            top, hs2 = gru_stack_plain(weights["stacked"], x, hs)
+            return project_argmax_plain(weights["vocab"], top), hs2, project_logits(weights["vocab"], top)
+
+        comp_ref, _ = plain_loop(comp_step, dec.embeddings.weight, start_embeddings(dec, 64, acfg.start_token, device),
+                                 init_hidden(dec, dcfg, feats))
+    if comp_counts["attention_context"] != T or comp_counts["project_argmax"] != T:
+        fail("composite decode launched %s, expected 25 context and 25 projection launches" % comp_counts)
+    share = float((comp_ids == comp_ref).mean())
+    if share < 0.95:
+        fail("composite decode: ids equal the plain composite decode on %.4f of positions (< 0.95)" % share)
+    phase("main", "attention composite bf16 B=64: launches %s; ids equal the plain composite decode on %.4f of "
+          "positions" % (comp_counts, share))
+    acap32 = Captioner(params, bn_state, acfg, vocab, "float32", device="gpu")
+    check_f32("attention", acap32, img_rng.randint(0, 256, (8, 224, 224, 3), dtype=np.uint8),
+              fused_attn_decode_step, attn_plain)
+    del acap, acap32
+
+    # 6. times (bf16, flagship widths)
     times = {}
+    note = "(median of 30 after 5, CUDA events)"
     for B in (1, 64, 512):
         stacked, vocab_w, x, hs = step_inputs(rng, B, torch.bfloat16, device)
-        k_ms = event_median_ms(lambda: fused_gru_decode_step_cuda(stacked, vocab_w, x, hs))
-        p_ms = event_median_ms(lambda: fused_gru_decode_step_plain(stacked, vocab_w, x, hs))
-        times[B] = (k_ms, p_ms)
-        phase("times", "%s bf16 decode step B=%d: kernel %.4f ms, plain %.4f ms (median of 30 after 5, CUDA events)"
-              % (card, B, k_ms, p_ms))
+        times["fused_gru_decode_step", B] = (
+            event_median_ms(lambda: fused_gru_decode_step_cuda(stacked, vocab_w, x, hs)),
+            event_median_ms(lambda: fused_gru_decode_step_plain(stacked, vocab_w, x, hs)))
+    for B in (1, 64, 256):
+        prep, w_emb, hs = attn_inputs(rng, B, torch.bfloat16, device)
+        feats = uniform(rng, (B, AP, AC), 1.0, torch.bfloat16, device)
+        times["fused_attn_decode_step", B] = (
+            event_median_ms(lambda: fused_attn_decode_step_cuda(prep, w_emb, hs)),
+            event_median_ms(lambda: fused_attn_decode_step_plain(prep, w_emb, hs)))
+        times["attention_context", B] = (
+            event_median_ms(lambda: attention_context_cuda(prep, feats, prep["att1"], hs[-1])),
+            event_median_ms(lambda: attention_context_plain(prep, feats, prep["att1"], hs[-1])))
+        times["project_argmax", B] = (
+            event_median_ms(lambda: project_argmax_cuda(prep["vocab"], hs[-1])),
+            event_median_ms(lambda: project_argmax_plain(prep["vocab"], hs[-1])))
+    for (name, B), (k_ms, p_ms) in times.items():
+        phase("times", "%s bf16 %s B=%d: kernel %.4f ms, plain %.4f ms %s" % (card, name, B, k_ms, p_ms, note))
     phase("times", "%s pooled-GRU slice, bf16, ResNet-101 + 25 greedy steps: %.1f captions/s at B=64 "
-          "(3 requests, %.3f s, host clock to ids on the host)" % (card, 3 * 64 / serve_s, serve_s))
+          "(3 requests, %.3f s, host clock to ids on the host)" % (card, 3 * 64 / pooled_s, pooled_s))
+    phase("times", "%s attention-GRU slice, bf16, spatial ResNet-101 + 25 greedy steps: %.1f captions/s at B=64 "
+          "(3 requests, %.3f s, host clock to ids on the host)" % (card, 3 * 64 / attn_s, attn_s))
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "show_tell_tpu"))
     if leaked:
         fail("the port's path imported %s" % leaked[:5])
 
+    rows = [
+        ("fused_gru_decode_step", "fused_gru_step.cu", "show_tell_tpu/ops/fused_step_pallas.py:255", pooled_launches),
+        ("fused_attn_decode_step", "fused_attn_step.cu", "show_tell_tpu/ops/fused_attn_pallas.py:330", attn_launches),
+        ("attention_context", "attention_context.cu", "show_tell_tpu/ops/attention_pallas.py:94",
+         comp_counts["attention_context"]),
+        ("project_argmax", "project_argmax.cu", "show_tell_tpu/ops/vocab_pallas.py:170", comp_counts["project_argmax"]),
+    ]
     print(smi, flush=True)
     print(json.dumps({"kernels": [{
-        "name": "fused_gru_decode_step",
+        "name": name,
         "route": "cuda",
-        "source": "show_tell_tpu_torch/csrc/fused_gru_step.cu",
-        "replaces": "show_tell_tpu/ops/fused_step_pallas.py:255",
+        "source": "show_tell_tpu_torch/csrc/" + src,
+        "replaces": replaces,
         "launches": launches,
-        "max_abs_err": main_err,
-        "ms": times[64][0],
-        "plain_ms": times[64][1],
-    }]}), flush=True)
+        "max_abs_err": errs[name],
+        "ms": times[name, 64][0],
+        "plain_ms": times[name, 64][1],
+    } for name, src, replaces, launches in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
 

@@ -1,0 +1,323 @@
+// Device code shared by the decode kernels (fused_gru_step.cu,
+// fused_attn_step.cu, attention_context.cu, project_argmax.cu): 16-byte
+// vector loads, warp reductions, the first-max argmax key, the GRU stack
+// layer and the vocab projection + argmax, and the cooperative launch.
+//
+// Every kernel here runs kThreads threads a block.  Weights are in the torch
+// layout [out, in], so one output column is one contiguous row: a warp owns
+// a column, each lane reads 16 contiguous bytes of it per chunk (512 bytes a
+// warp load), multiplies them with up to kBM batch rows held in shared
+// memory as f32, and the warp reduces by shuffles.  Row widths must be
+// multiples of 8 elements (the callers check), so every 16-byte load is
+// aligned and whole.
+//
+// Everything is a template, inline or in an anonymous namespace, so each
+// .cu file that includes this header compiles its own copy.
+
+#pragma once
+
+#include <cooperative_groups.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+namespace cg = cooperative_groups;
+
+constexpr int kThreads = 128;  // 4 warps
+constexpr int kWarps = kThreads / 32;
+constexpr int kBM = 8;  // batch rows per tile (<= 32: lane b finishes row b)
+
+// 16-byte vector loads converted to f32.
+template <typename T> struct Vec;
+
+template <> struct Vec<float> {
+  static constexpr int N = 4;
+  __device__ static void ldg(const float* p, float* out) {
+    float4 v = __ldg(reinterpret_cast<const float4*>(p));
+    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+  }
+  // Through L2 only: the data may have been written by another block in this launch.
+  __device__ static void ldcg(const float* p, float* out) {
+    float4 v = __ldcg(reinterpret_cast<const float4*>(p));
+    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+  }
+  __device__ static float to_f32(float v) { return v; }
+  __device__ static float from_f32(float v) { return v; }
+};
+
+template <> struct Vec<__nv_bfloat16> {
+  static constexpr int N = 8;
+  __device__ static void unpack(uint4 u, float* out) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float2 f = __bfloat1622float2(h[i]);
+      out[2 * i] = f.x;
+      out[2 * i + 1] = f.y;
+    }
+  }
+  __device__ static void ldg(const __nv_bfloat16* p, float* out) {
+    unpack(__ldg(reinterpret_cast<const uint4*>(p)), out);
+  }
+  __device__ static void ldcg(const __nv_bfloat16* p, float* out) {
+    unpack(__ldcg(reinterpret_cast<const uint4*>(p)), out);
+  }
+  __device__ static float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+  __device__ static __nv_bfloat16 from_f32(float v) { return __float2bfloat16_rn(v); }
+};
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+__device__ __forceinline__ float sigmoidf(float v) { return 1.0f / (1.0f + expf(-v)); }
+
+// Monotone map of a float onto unsigned bits: a < b  <=>  key(a) < key(b).
+// +0.0f folds -0.0 onto +0.0, which compare equal as floats.  The low half
+// holds ~index, so of two equal values the lower index has the larger key:
+// atomicMax over keys is the first-max rule of vocab_pallas.merge_block_argmax.
+__device__ __forceinline__ unsigned long long pack_key(float v, int idx) {
+  unsigned int u = __float_as_uint(v + 0.0f);
+  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return (static_cast<unsigned long long>(u) << 32) |
+         static_cast<unsigned long long>(0xffffffffu - static_cast<unsigned int>(idx));
+}
+
+__device__ __forceinline__ int32_t key_index(unsigned long long key) {
+  return static_cast<int32_t>(0xffffffffu - static_cast<unsigned int>(key & 0xffffffffull));
+}
+
+// Rows [b0, b0 + nb) of src [*, width] into smem [kBM][width] as f32.
+template <typename T>
+__device__ void load_rows(float* smem, const T* src, int b0, int nb, int width) {
+  constexpr int N = Vec<T>::N;
+  for (int i = threadIdx.x * N; i < nb * width; i += kThreads * N) {
+    Vec<T>::ldcg(src + static_cast<size_t>(b0) * width + i, smem + i);
+  }
+}
+
+// Splits the work of one phase into (batch tile, column range) items:
+// every block gets at least one item while there are columns to go round.
+struct Tiling {
+  int row_tiles, splits, per_split;
+  __device__ Tiling(int B, int cols) {
+    row_tiles = (B + kBM - 1) / kBM;
+    splits = max(1, static_cast<int>(gridDim.x) / row_tiles);
+    splits = min(splits, cols);
+    per_split = (cols + splits - 1) / splits;
+  }
+  __device__ int items() const { return row_tiles * splits; }
+};
+
+// One GRU layer over all B rows: hout = GRU(xin [B, I], hin [B, H]) with
+// w_ih [3H, I] and w_hh [3H, H] (gate order r, z, n; double biases; the
+// reset gate multiplies W_hn h + b_hn).  Products are summed and the gate
+// math is done in f32; h' is cast to T.  xs holds kBM rows of I floats,
+// hsm kBM rows of H.
+template <typename T>
+__device__ void gru_layer(const T* xin, int I, const T* hin, const T* w_ih, const T* w_hh,
+                          const T* b_ih, const T* b_hh, T* hout, int B, int H, float* xs, float* hsm) {
+  constexpr int N = Vec<T>::N;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  Tiling t(B, H);
+  for (int item = blockIdx.x; item < t.items(); item += gridDim.x) {
+    const int b0 = (item / t.splits) * kBM;
+    const int nb = min(kBM, B - b0);
+    const int j0 = (item % t.splits) * t.per_split;
+    const int j1 = min(H, j0 + t.per_split);
+    __syncthreads();  // the previous item is done with the tiles
+    load_rows<T>(xs, xin, b0, nb, I);
+    load_rows<T>(hsm, hin, b0, nb, H);
+    __syncthreads();
+    for (int j = j0 + warp; j < j1; j += kWarps) {
+      float acc[kBM][6];
+#pragma unroll
+      for (int b = 0; b < kBM; ++b)
+#pragma unroll
+        for (int g = 0; g < 6; ++g) acc[b][g] = 0.0f;
+      // x side: acc[b][0..2] += w_ih[g*H + j] . x[b]
+      for (int k = lane * N; k < I; k += 32 * N) {
+        float w[3][N];
+#pragma unroll
+        for (int g = 0; g < 3; ++g) Vec<T>::ldg(w_ih + static_cast<size_t>(g * H + j) * I + k, w[g]);
+#pragma unroll
+        for (int b = 0; b < kBM; ++b) {
+          if (b < nb) {
+            const float* xr = xs + b * I + k;
+#pragma unroll
+            for (int i = 0; i < N; ++i)
+#pragma unroll
+              for (int g = 0; g < 3; ++g) acc[b][g] += w[g][i] * xr[i];
+          }
+        }
+      }
+      // h side: acc[b][3..5] += w_hh[g*H + j] . h[b]
+      for (int k = lane * N; k < H; k += 32 * N) {
+        float w[3][N];
+#pragma unroll
+        for (int g = 0; g < 3; ++g) Vec<T>::ldg(w_hh + static_cast<size_t>(g * H + j) * H + k, w[g]);
+#pragma unroll
+        for (int b = 0; b < kBM; ++b) {
+          if (b < nb) {
+            const float* hr = hsm + b * H + k;
+#pragma unroll
+            for (int i = 0; i < N; ++i)
+#pragma unroll
+              for (int g = 0; g < 3; ++g) acc[b][3 + g] += w[g][i] * hr[i];
+          }
+        }
+      }
+      float mine[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int b = 0; b < kBM; ++b) {
+        if (b < nb) {
+#pragma unroll
+          for (int g = 0; g < 6; ++g) {
+            const float s = warp_sum(acc[b][g]);
+            if (lane == b) mine[g] = s;
+          }
+        }
+      }
+      if (lane < nb) {
+        const float gx_r = mine[0] + Vec<T>::to_f32(b_ih[j]);
+        const float gx_z = mine[1] + Vec<T>::to_f32(b_ih[H + j]);
+        const float gx_n = mine[2] + Vec<T>::to_f32(b_ih[2 * H + j]);
+        const float gh_r = mine[3] + Vec<T>::to_f32(b_hh[j]);
+        const float gh_z = mine[4] + Vec<T>::to_f32(b_hh[H + j]);
+        const float gh_n = mine[5] + Vec<T>::to_f32(b_hh[2 * H + j]);
+        const float r = sigmoidf(gx_r + gh_r);
+        const float z = sigmoidf(gx_z + gh_z);
+        const float n = tanhf(gx_n + r * gh_n);
+        const float h = hsm[lane * H + j];
+        hout[static_cast<size_t>(b0 + lane) * H + j] = Vec<T>::from_f32((1.0f - z) * n + z * h);
+      }
+    }
+  }
+}
+
+// The recurrence of a decode step: L layers over [L, B, H] states.  Layer
+// 0 reads x [B, I0] with its own w_ih0 [3H, I0]; layer l > 0 reads layer
+// l-1's output from new_hs with w_ihU[l-1] [3H, H].
+struct StackArgs {
+  const void* x;      // [B, I0]     layer-0 input
+  const void* w_ih0;  // [3H, I0]
+  const void* w_ihU;  // [L-1, 3H, H]
+  const void* w_hh;   // [L, 3H, H]
+  const void* b_ih;   // [L, 3H]
+  const void* b_hh;   // [L, 3H]
+  const void* hs;     // [L, B, H]   state in
+  void* new_hs;       // [L, B, H]   state out
+  int L, B, I0, H;
+};
+
+// Shared memory a block needs for one layer: kBM rows of the wider input plus kBM rows of h.
+inline size_t stack_smem_floats(const StackArgs& s) {
+  return static_cast<size_t>(kBM) * ((s.I0 > s.H ? s.I0 : s.H) + s.H);
+}
+
+// The cell of the stack.  A kernel templated on the cell calls
+// Cell::layer<T>(stack, l, smem) for l = 0..L-1 with a grid barrier after each.
+struct GruCell {
+  template <typename T>
+  __device__ static void layer(const StackArgs& s, int l, float* smem) {
+    const size_t LH3 = static_cast<size_t>(3) * s.H * s.H;
+    const size_t BH = static_cast<size_t>(s.B) * s.H;
+    const T* xin = l == 0 ? static_cast<const T*>(s.x) : static_cast<const T*>(s.new_hs) + (l - 1) * BH;
+    const T* w_ih = l == 0 ? static_cast<const T*>(s.w_ih0) : static_cast<const T*>(s.w_ihU) + (l - 1) * LH3;
+    float* xs = smem;
+    float* hsm = smem + static_cast<size_t>(kBM) * (s.I0 > s.H ? s.I0 : s.H);
+    gru_layer<T>(xin, l == 0 ? s.I0 : s.H, static_cast<const T*>(s.hs) + l * BH, w_ih,
+                 static_cast<const T*>(s.w_hh) + l * LH3,
+                 static_cast<const T*>(s.b_ih) + static_cast<size_t>(l) * 3 * s.H,
+                 static_cast<const T*>(s.b_hh) + static_cast<size_t>(l) * 3 * s.H,
+                 static_cast<T*>(s.new_hs) + l * BH, s.B, s.H, xs, hsm);
+  }
+};
+
+// best[b] = atomicMax over packed (logit, index) keys of top[b] . wv[v] + bv[v]
+// for v in [0, V).  top [B, H], wv [V, H]; best must start below every key (0).
+template <typename T>
+__device__ void project_argmax(const T* top, const T* wv, const T* bv, int B, int H, int V,
+                               unsigned long long* best, float* xs) {
+  constexpr int N = Vec<T>::N;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  Tiling t(B, V);
+  for (int item = blockIdx.x; item < t.items(); item += gridDim.x) {
+    const int b0 = (item / t.splits) * kBM;
+    const int nb = min(kBM, B - b0);
+    const int v0 = (item % t.splits) * t.per_split;
+    const int v1 = min(V, v0 + t.per_split);
+    __syncthreads();
+    load_rows<T>(xs, top, b0, nb, H);
+    __syncthreads();
+    // Lane b keeps the running first max of row b0 + b over this warp's
+    // columns, which it visits in increasing order.
+    float best_val = -INFINITY;
+    int best_idx = -1;
+    for (int v = v0 + warp; v < v1; v += kWarps) {
+      float acc[kBM];
+#pragma unroll
+      for (int b = 0; b < kBM; ++b) acc[b] = 0.0f;
+      for (int k = lane * N; k < H; k += 32 * N) {
+        float w[N];
+        Vec<T>::ldg(wv + static_cast<size_t>(v) * H + k, w);
+#pragma unroll
+        for (int b = 0; b < kBM; ++b) {
+          if (b < nb) {
+            const float* xr = xs + b * H + k;
+#pragma unroll
+            for (int i = 0; i < N; ++i) acc[b] += w[i] * xr[i];
+          }
+        }
+      }
+      float mine = 0.0f;
+#pragma unroll
+      for (int b = 0; b < kBM; ++b) {
+        if (b < nb) {
+          const float s = warp_sum(acc[b]);
+          if (lane == b) mine = s;
+        }
+      }
+      if (lane < nb) {
+        const float logit = mine + Vec<T>::to_f32(bv[v]);
+        if (best_idx < 0 || logit > best_val) {
+          best_val = logit;
+          best_idx = v;
+        }
+      }
+    }
+    if (lane < nb && best_idx >= 0) atomicMax(best + b0 + lane, pack_key(best_val, best_idx));
+  }
+}
+
+__device__ __forceinline__ int grid_thread() { return blockIdx.x * kThreads + threadIdx.x; }
+__device__ __forceinline__ int grid_threads() { return gridDim.x * kThreads; }
+
+// Launch ``kernel`` cooperatively with kThreads threads a block and as many
+// blocks as can be resident at once (the occupancy API times the SM count),
+// so that grid.sync() is legal.  Returns the first CUDA error.
+template <typename Kernel>
+cudaError_t launch_cooperative(Kernel kernel, size_t smem, void** argv, cudaStream_t stream) {
+  cudaError_t err;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  int device = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel), dim3(per_sm * sms), dim3(kThreads),
+                                    argv, smem, stream);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+}  // namespace

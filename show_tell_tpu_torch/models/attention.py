@@ -1,0 +1,128 @@
+"""The soft-attention GRU caption decoder and its plain greedy decode
+(counterpart of show_tell_tpu/models/attention.py, serving half).
+
+Parameter names are the reference's (Attention/rnn_attn.py:49-58):
+``embeddings.weight``, ``unit.{weight,bias}_{ih,hh}_l{k}`` (layer 0 is 2E
+wide), ``linear.*``, ``init_h.*``, ``embed.*``, ``attn.encoder_att.*``,
+``attn.decoder_att.*``, ``attn.full_att.*``.
+
+Per step (rnn_attn.py:21-31,69-94): additive attention of the last
+layer's hidden state over the P spatial positions, the alpha-weighted
+feature sum, ``x = cat(embedding[w], embed(context))``, the L-layer GRU,
+the projection and the argmax.  Decode starts from the <start> embedding
+with the hidden state ``init_h(mean over positions)`` on every layer.
+The teacher-forced forward and the doubly-stochastic penalty belong to
+the training slice.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from show_tell_tpu_torch.models.decoder import GRUWeights, greedy_loop
+from show_tell_tpu_torch.models.rnn_cells import stack_step_gru
+from show_tell_tpu_torch.ops.vocab import first_max_argmax
+
+
+class AttnDecoderConfig(NamedTuple):
+    cell_type: str  # 'gru' ('lstm' is not ported yet)
+    embed_dim: int
+    nos_filters: int  # CNN channels (2048)
+    attention_dim: int
+    hidden_dim: int
+    vocab_size: int
+    num_layers: int
+    max_caption_length: int = 25  # rnn_attn.py:53
+
+
+class AttentionNet(nn.Module):
+    """The reference's Attention_Net: encoder_att (C->A), decoder_att (H->A), full_att (A->1)."""
+
+    def __init__(self, nos_filters: int, hidden_dim: int, attention_dim: int):
+        super().__init__()
+        self.encoder_att = nn.Linear(nos_filters, attention_dim)
+        self.decoder_att = nn.Linear(hidden_dim, attention_dim)
+        self.full_att = nn.Linear(attention_dim, 1)
+
+
+class AttnDecoder(nn.Module):
+    def __init__(self, cfg: AttnDecoderConfig):
+        super().__init__()
+        if cfg.cell_type != "gru":
+            raise NotImplementedError("the attention LSTM decoder is ROADMAP Queue 1 item 12")
+        E, C, H = cfg.embed_dim, cfg.nos_filters, cfg.hidden_dim
+        self.embeddings = nn.Embedding(cfg.vocab_size, E)
+        self.unit = GRUWeights(2 * E, H, cfg.num_layers)
+        self.linear = nn.Linear(H, cfg.vocab_size)
+        self.init_h = nn.Linear(C, H)
+        self.embed = nn.Linear(C, E)
+        self.attn = AttentionNet(C, H, cfg.attention_dim)
+
+
+def linear_f32(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """``x @ W^T + b`` with products summed in f32 (the JAX package's
+    ``_linear``: dot with preferred_element_type=f32, plus the bias)."""
+    return x.float() @ layer.weight.float().T + layer.bias.float()
+
+
+def attention_net_hoisted(
+    attn: AttentionNet, img_feat: torch.Tensor, att1: torch.Tensor, hidden: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Attention with ``att1 = encoder_att(img_feat)`` precomputed.
+    img_feat [B, P, C] positions-major, hidden [B, H].  Returns (context
+    [B, C] f32, alpha [B, P] f32); e keeps b_full, as the reference does."""
+    att2 = linear_f32(attn.decoder_att, hidden)  # [B, A]
+    act = F.leaky_relu(att1 + att2[:, None, :], negative_slope=0.2)
+    e = linear_f32(attn.full_att, act)[..., 0]  # [B, P]
+    alpha = torch.softmax(e, dim=1)
+    return (img_feat.float() * alpha[..., None]).sum(dim=1), alpha
+
+
+def attention_net(attn: AttentionNet, img_feat: torch.Tensor, hidden: torch.Tensor):
+    """img_feat [B, P, C], hidden [B, H] -> (context [B, C], alpha [B, P])."""
+    return attention_net_hoisted(attn, img_feat, linear_f32(attn.encoder_att, img_feat), hidden)
+
+
+def init_hidden(decoder: AttnDecoder, cfg: AttnDecoderConfig, cnn_feature: torch.Tensor) -> torch.Tensor:
+    """cnn_feature [B, C, P] -> hs0 [L, B, H] in the compute dtype: init_h
+    of the mean over positions (taken in the feature dtype), repeated on
+    every layer (rnn_attn.py:54,62)."""
+    dtype = decoder.embeddings.weight.dtype
+    h0 = linear_f32(decoder.init_h, cnn_feature.mean(dim=2)).to(dtype)
+    return h0[None].expand(cfg.num_layers, *h0.shape).contiguous()
+
+
+def start_embeddings(decoder: AttnDecoder, B: int, start_token: int, device) -> torch.Tensor:
+    """The first step's input: the <start> row of the embedding, [B, E]."""
+    return decoder.embeddings.weight[torch.full((B,), start_token, dtype=torch.long, device=device)]
+
+
+def attn_greedy_decode(
+    decoder: AttnDecoder,
+    cfg: AttnDecoderConfig,
+    cnn_feature: torch.Tensor,  # [B, C, P]
+    start_token: int,
+    end_token: Optional[int] = None,
+) -> torch.Tensor:
+    """Plain 25-step greedy decode from <start> (rnn_attn.py:77-94; the
+    JAX package's attn_greedy_decode).  end_token: stop once every row
+    emitted it, <pad> after it.  Returns [B, T] int32 ids."""
+    B = cnn_feature.shape[0]
+    feats_pm = cnn_feature.transpose(1, 2)
+    att1 = linear_f32(decoder.attn.encoder_att, feats_pm)  # hoisted: constant over t
+    layers = decoder.unit.layers()
+    embedding = decoder.embeddings.weight
+
+    def step(w_emb, hs):
+        context, _ = attention_net_hoisted(decoder.attn, feats_pm, att1, hs[-1])
+        x = torch.cat([w_emb, linear_f32(decoder.embed, context).to(w_emb.dtype)], dim=-1)
+        top, hs2 = stack_step_gru(layers, x, hs)
+        return first_max_argmax(linear_f32(decoder.linear, top)), hs2
+
+    w0 = start_embeddings(decoder, B, start_token, cnn_feature.device)
+    hs0 = init_hidden(decoder, cfg, cnn_feature)
+    return greedy_loop(step, embedding, w0, hs0, cfg.max_caption_length, end_token)

@@ -1,32 +1,33 @@
-"""The captioner: pooled encoder + GRU decoder (counterpart of
+"""The captioner: encoder + decoder (counterpart of
 show_tell_tpu/models/captioner.py).
 
-Only the pooled GRU variant of the reference's ``main.py`` is ported;
-the other variants raise NotImplementedError naming the ROADMAP item
-that ports them.
+Ported: the pooled GRU of the reference's ``main.py`` (variant 'gru') and
+the soft-attention GRU of ``Attention/main_attn.py`` (variant 'attn',
+spatial [B, C, 49] features).  The LSTM variants raise
+NotImplementedError naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn as nn
 
+from show_tell_tpu_torch.models.attention import AttnDecoder, AttnDecoderConfig
 from show_tell_tpu_torch.models.decoder import Decoder, DecoderConfig
 from show_tell_tpu_torch.models.encoder import Encoder, EncoderConfig
 from show_tell_tpu_torch.models.resnet import RESNET_SPECS, STAGE_WIDTHS, feature_dim
 
 _NOT_PORTED = {
     "lstm": "ROADMAP Queue 1 item 11 (pooled LSTM)",
-    "attn": "ROADMAP Queue 1 item 12 (attention families)",
-    "attn_lstm": "ROADMAP Queue 1 item 12 (attention families)",
+    "attn_lstm": "ROADMAP Queue 1 item 12 (attention LSTM)",
 }
 
 
 class CaptionerConfig(NamedTuple):
-    variant: str  # 'gru' ('lstm' | 'attn' | 'attn_lstm' are not ported yet)
+    variant: str  # 'gru' | 'attn' ('lstm' | 'attn_lstm' are not ported yet)
     resnet_version: int
     embed_dim: int
     hidden_dim: int
@@ -50,7 +51,12 @@ class CaptionerConfig(NamedTuple):
     def encoder_config(self) -> EncoderConfig:
         return EncoderConfig(self.resnet_version, self.embed_dim, spatial=self.is_attention)
 
-    def decoder_config(self) -> DecoderConfig:
+    def decoder_config(self) -> Union[DecoderConfig, AttnDecoderConfig]:
+        if self.is_attention:
+            return AttnDecoderConfig(
+                self.cell_type, self.embed_dim, self.nos_filters, self.attn_dim, self.hidden_dim,
+                self.vocab_size, self.num_layers, self.max_caption_length,
+            )
         return DecoderConfig(
             self.cell_type, self.embed_dim, self.hidden_dim, self.vocab_size,
             self.num_layers, self.max_caption_length,
@@ -58,7 +64,7 @@ class CaptionerConfig(NamedTuple):
 
 
 def require_ported(cfg: CaptionerConfig) -> None:
-    if cfg.variant != "gru":
+    if cfg.variant not in ("gru", "attn"):
         raise NotImplementedError(
             "variant %r is not ported to PyTorch yet: %s" % (cfg.variant, _NOT_PORTED.get(cfg.variant, "?"))
         )
@@ -69,16 +75,25 @@ class CaptionerModel(nn.Module):
         super().__init__()
         require_ported(cfg)
         self.encoder = Encoder(cfg.encoder_config())
-        self.decoder = Decoder(cfg.decoder_config())
+        self.decoder = (AttnDecoder if cfg.is_attention else Decoder)(cfg.decoder_config())
 
 
 def init_captioner(cfg: CaptionerConfig, generator: torch.Generator) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     """Random weights by the JAX package's init laws, drawn from
     ``generator``, as (params, bn_state) numpy trees in the JAX layout
     (so either package can load them): kaiming-normal fan_out convs,
-    N(0, 0.05) head weight, U(+-1/sqrt(fan_in)) head bias and decoder,
-    N(0, 1) embedding, BN at identity."""
+    N(0, 0.05) head weight, U(+-1/sqrt(fan_in)) head bias and attention
+    linears, U(+-1/sqrt(H)) recurrence and projection, N(0, 1) embedding,
+    BN at identity."""
     require_ported(cfg)
+    if cfg.is_attention:
+        # The spatial channels are the backbone's (captioner.py:79-90 in the JAX package).
+        expected = feature_dim(cfg.resnet_version)
+        if cfg.nos_filters != expected:
+            raise ValueError(
+                "nos_cnn_filters=%d does not match ResNet-%d's spatial feature channels (%d); "
+                "pass --nos_cnn_filters %d" % (cfg.nos_filters, cfg.resnet_version, expected, expected)
+            )
     g = generator
 
     def normal(shape, std=1.0):
@@ -120,6 +135,12 @@ def init_captioner(cfg: CaptionerConfig, generator: torch.Generator) -> Tuple[Di
             cin = cout
 
     C, E, H, V = feature_dim(cfg.resnet_version), cfg.embed_dim, cfg.hidden_dim, cfg.vocab_size
+    I0 = 2 * E if cfg.is_attention else E
+
+    def linear(d_in, d_out):
+        bound = 1.0 / d_in ** 0.5
+        return {"w": uniform((d_in, d_out), bound), "b": uniform((d_out,), bound)}
+
     params = {
         "encoder": {
             "resnet": res_p,
@@ -130,16 +151,23 @@ def init_captioner(cfg: CaptionerConfig, generator: torch.Generator) -> Tuple[Di
             "embedding": normal((V, E)),
             "rnn": [
                 {
-                    "w_ih": uniform((E if l == 0 else H, 3 * H), 1.0 / H ** 0.5),
+                    "w_ih": uniform((I0 if l == 0 else H, 3 * H), 1.0 / H ** 0.5),
                     "w_hh": uniform((H, 3 * H), 1.0 / H ** 0.5),
                     "b_ih": uniform((3 * H,), 1.0 / H ** 0.5),
                     "b_hh": uniform((3 * H,), 1.0 / H ** 0.5),
                 }
                 for l in range(cfg.num_layers)
             ],
-            "linear": {"w": uniform((H, V), 1.0 / H ** 0.5), "b": uniform((V,), 1.0 / H ** 0.5)},
+            "linear": linear(H, V),
         },
     }
+    if cfg.is_attention:
+        N, A = cfg.nos_filters, cfg.attn_dim
+        params["decoder"].update({
+            "init_h": linear(N, H),
+            "embed": linear(N, E),
+            "attn": {"encoder_att": linear(N, A), "decoder_att": linear(H, A), "full_att": linear(A, 1)},
+        })
     bn_state = {
         "resnet": res_s,
         "last_layer": {"running_mean": np.zeros(E, np.float32), "running_var": np.ones(E, np.float32)},
@@ -170,10 +198,13 @@ def build_model(
 
 
 def prepare_decode(model: CaptionerModel, dtype: torch.dtype) -> Dict[str, object]:
-    """The fused step kernel's weights, built once per model."""
+    """The decode kernels' weights in kernel layout, built once per model."""
+    from show_tell_tpu_torch.ops.fused_attn import prepare_attn_weights
     from show_tell_tpu_torch.ops.rnn import prepare_greedy
 
     dec = model.decoder
+    if isinstance(dec, AttnDecoder):
+        return prepare_attn_weights(dec, dtype)
     return prepare_greedy(dec.unit.layers(), dec.embeddings.weight, dec.linear.weight, dec.linear.bias, dtype)
 
 
@@ -185,13 +216,25 @@ def captioner_greedy_decode(
     end_token: Optional[int] = None,
 ) -> torch.Tensor:
     """Eval-mode encode + 25-step batched greedy decode -> [B, 25] int32
-    ids, one fused-step kernel launch per step on a CUDA device (the plain
-    twin on the CPU).  ``prepared``: ``prepare_decode(model, dtype)``,
-    cached by the caller; built here when absent."""
+    ids, through the decode kernels on a CUDA device (their plain twins on
+    the CPU).  ``prepared``: ``prepare_decode(model, dtype)``, cached by
+    the caller; built here when absent.
+
+    Dispatch (captioner.py:201-262 in the JAX package): the pooled GRU
+    runs one fused-step launch per token.  Attention runs the fused
+    attention step when H <= 2E (``fused_attn_fits``), else the composite
+    path: the attention context kernel, plain embed and GRU products, and
+    the projection + argmax kernel."""
+    from show_tell_tpu_torch.ops.attention import attn_greedy_decode_composite
+    from show_tell_tpu_torch.ops.fused_attn import attn_greedy_decode_fused, fused_attn_fits
     from show_tell_tpu_torch.ops.rnn import greedy_decode_kernel
 
     require_ported(cfg)
     feats = model.encoder(images)
     if prepared is None:
         prepared = prepare_decode(model, model.decoder.embeddings.weight.dtype)
+    if cfg.is_attention:
+        fused = fused_attn_fits(cfg.hidden_dim, cfg.embed_dim)
+        decode = attn_greedy_decode_fused if fused else attn_greedy_decode_composite
+        return decode(prepared, model.decoder, cfg.decoder_config(), feats, cfg.start_token, end_token=end_token)
     return greedy_decode_kernel(prepared, feats, cfg.max_caption_length, end_token=end_token)

@@ -7,11 +7,15 @@ BN vector}, "linear_secondlast_layer": {"w" [C,E], "b"}, "last_layer":
 {"weight", "bias"}}, "decoder": {"embedding" [V,E], "rnn": [{"w_ih" [in,3H],
 "w_hh", "b_ih", "b_hh"}, ...], "linear": {"w" [H,V], "b"}}}`` and
 ``bn_state = {"resnet": {name.running_mean|var}, "last_layer": {...}}``.
+The attention decoders add "init_h", "embed" (and "init_c" for the LSTM)
+as {"w" [C,out], "b"} and "attn": {"encoder_att", "decoder_att",
+"full_att"}, each {"w" [in,out], "b"}.
 
 Port side: ``{"encoder": state_dict, "decoder": state_dict}`` with
 torchvision's names under ``resnet.`` (OIHW convs), ``linear_secondlast_layer.*``
 and ``last_layer.*`` (nn.Linear layout), and the reference decoder's names
-(``embeddings.weight``, ``unit.weight_ih_l{k}``, ..., ``linear.weight``).
+(``embeddings.weight``, ``unit.weight_ih_l{k}``, ..., ``linear.weight``,
+and for attention ``init_h.*``, ``embed.*``, ``attn.encoder_att.*``, ...).
 """
 
 from __future__ import annotations
@@ -21,6 +25,15 @@ from typing import Any, Dict, Tuple
 import numpy as np
 
 _RUNNING = (".running_mean", ".running_var")
+# The attention decoders' extra nn.Linear layers: torch prefix -> path in the JAX tree.
+_ATTN_LINEARS = {
+    "init_h": ("init_h",),
+    "init_c": ("init_c",),
+    "embed": ("embed",),
+    "attn.encoder_att": ("attn", "encoder_att"),
+    "attn.decoder_att": ("attn", "decoder_att"),
+    "attn.full_att": ("attn", "full_att"),
+}
 
 
 def _T(a) -> np.ndarray:
@@ -43,7 +56,11 @@ def params_from_jax(params: Dict[str, Any], bn_state: Dict[str, Any]) -> Dict[st
     for k in ("running_mean", "running_var"):
         enc["last_layer." + k] = np.asarray(enc_s["last_layer"][k])
 
-    dec_p = params["decoder"]
+    return {"encoder": enc, "decoder": decoder_from_jax(params["decoder"])}
+
+
+def decoder_from_jax(dec_p: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """A JAX decoder tree (pooled or attention) -> the decoder's state_dict."""
     dec: Dict[str, np.ndarray] = {
         "embeddings.weight": np.asarray(dec_p["embedding"]),
         "linear.weight": _T(dec_p["linear"]["w"]),
@@ -54,13 +71,19 @@ def params_from_jax(params: Dict[str, Any], bn_state: Dict[str, Any]) -> Dict[st
         dec["unit.weight_hh_l%d" % l] = _T(layer["w_hh"])
         dec["unit.bias_ih_l%d" % l] = np.asarray(layer["b_ih"])
         dec["unit.bias_hh_l%d" % l] = np.asarray(layer["b_hh"])
-    return {"encoder": enc, "decoder": dec}
+    for prefix, path in _ATTN_LINEARS.items():
+        node = dec_p
+        for key in path:
+            node = node.get(key) if isinstance(node, dict) else None
+        if node is not None:
+            dec[prefix + ".weight"] = _T(node["w"])
+            dec[prefix + ".bias"] = np.asarray(node["b"])
+    return dec
 
 
 def params_to_jax(state_dicts: Dict[str, Dict[str, Any]]) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     """The inverse of ``params_from_jax``: -> (params, bn_state) numpy trees."""
     enc = {k: np.asarray(v) for k, v in state_dicts["encoder"].items()}
-    dec = {k: np.asarray(v) for k, v in state_dicts["decoder"].items()}
     res_p, res_s = {}, {}
     for k, v in enc.items():
         if not k.startswith("resnet."):
@@ -70,7 +93,6 @@ def params_to_jax(state_dicts: Dict[str, Dict[str, Any]]) -> Tuple[Dict[str, Any
             res_s[name] = v
         else:
             res_p[name] = np.ascontiguousarray(v.transpose(2, 3, 1, 0)) if v.ndim == 4 else v  # OIHW->HWIO
-    n_layers = sum(1 for k in dec if k.startswith("unit.weight_ih_l"))
     params = {
         "encoder": {
             "resnet": res_p,
@@ -80,19 +102,7 @@ def params_to_jax(state_dicts: Dict[str, Dict[str, Any]]) -> Tuple[Dict[str, Any
             },
             "last_layer": {"weight": enc["last_layer.weight"], "bias": enc["last_layer.bias"]},
         },
-        "decoder": {
-            "embedding": dec["embeddings.weight"],
-            "rnn": [
-                {
-                    "w_ih": _T(dec["unit.weight_ih_l%d" % l]),
-                    "w_hh": _T(dec["unit.weight_hh_l%d" % l]),
-                    "b_ih": dec["unit.bias_ih_l%d" % l],
-                    "b_hh": dec["unit.bias_hh_l%d" % l],
-                }
-                for l in range(n_layers)
-            ],
-            "linear": {"w": _T(dec["linear.weight"]), "b": dec["linear.bias"]},
-        },
+        "decoder": decoder_to_jax(state_dicts["decoder"]),
     }
     bn_state = {
         "resnet": res_s,
@@ -102,3 +112,29 @@ def params_to_jax(state_dicts: Dict[str, Dict[str, Any]]) -> Tuple[Dict[str, Any
         },
     }
     return params, bn_state
+
+
+def decoder_to_jax(state_dict: Dict[str, Any]) -> Dict[str, Any]:
+    """The inverse of ``decoder_from_jax``."""
+    dec = {k: np.asarray(v) for k, v in state_dict.items()}
+    n_layers = sum(1 for k in dec if k.startswith("unit.weight_ih_l"))
+    tree: Dict[str, Any] = {
+        "embedding": dec["embeddings.weight"],
+        "rnn": [
+            {
+                "w_ih": _T(dec["unit.weight_ih_l%d" % l]),
+                "w_hh": _T(dec["unit.weight_hh_l%d" % l]),
+                "b_ih": dec["unit.bias_ih_l%d" % l],
+                "b_hh": dec["unit.bias_hh_l%d" % l],
+            }
+            for l in range(n_layers)
+        ],
+        "linear": {"w": _T(dec["linear.weight"]), "b": dec["linear.bias"]},
+    }
+    for prefix, path in _ATTN_LINEARS.items():
+        if prefix + ".weight" in dec:
+            node = tree
+            for key in path[:-1]:
+                node = node.setdefault(key, {})
+            node[path[-1]] = {"w": _T(dec[prefix + ".weight"]), "b": dec[prefix + ".bias"]}
+    return tree

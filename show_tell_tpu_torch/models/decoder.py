@@ -69,9 +69,14 @@ class Decoder(nn.Module):
         self.linear = nn.Linear(cfg.hidden_dim, cfg.vocab_size)
 
 
-def greedy_loop(step: Callable, embedding: torch.Tensor, x0, state0, T: int) -> torch.Tensor:
+def greedy_loop(
+    step: Callable, embedding: torch.Tensor, x0, state0, T: int, end_token: Optional[int] = None
+) -> torch.Tensor:
     """Run ``step(x, state) -> (tok, state)`` T times, feeding back
-    ``embedding[tok]``.  Returns [B, T] int32 ids."""
+    ``embedding[tok]``.  Returns [B, T] int32 ids.  end_token: run
+    ``greedy_early_exit_loop`` instead."""
+    if end_token is not None:
+        return greedy_early_exit_loop(step, embedding, x0, state0, T, end_token)
     x, state, toks = x0, state0, []
     for _ in range(T):
         tok, state = step(x, state)
@@ -120,7 +125,4 @@ def greedy_decode(
         logits = top.float() @ decoder.linear.weight.float().T + decoder.linear.bias.float()
         return first_max_argmax(logits), hs2
 
-    x0 = feats.to(dtype)
-    if end_token is None:
-        return greedy_loop(step, embedding, x0, hs0, cfg.max_caption_length)
-    return greedy_early_exit_loop(step, embedding, x0, hs0, cfg.max_caption_length, end_token)
+    return greedy_loop(step, embedding, feats.to(dtype), hs0, cfg.max_caption_length, end_token)

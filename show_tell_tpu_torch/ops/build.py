@@ -1,12 +1,14 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
-The sources are ``show_tell_tpu_torch/csrc/*.cu``, each with a plain C
-interface.  They are compiled together, at first use, into one shared
-library for Hopper (``sm_90a``) under ``build/show_tell_tpu_torch/`` at
-the root of the checkout.  The library's file name carries a hash of the
-sources and the flags, so an edited source builds anew and a stale
-library is never loaded.  A missing ``nvcc`` or a failed build raises,
-with nvcc's own error output.
+The kernels are ``show_tell_tpu_torch/csrc/*.cu``, each with a plain C
+interface, and they share device code through ``csrc/*.cuh``.  At first
+use each ``.cu`` is compiled for Hopper (``sm_90a``) by its own ``nvcc``,
+all started together, and the objects are linked into one shared library
+under ``build/show_tell_tpu_torch/`` at the root of the checkout.  The
+library's file name carries a hash of every source under ``csrc/``
+(``*.cu``, ``*.cuh``, ``*.h``) and of the flags, so an edited kernel or
+header builds anew and a stale library is never loaded.  A missing
+``nvcc`` or a failed build raises, with nvcc's own error output.
 
     python -m show_tell_tpu_torch.ops.build    # build now, print the path
 """
@@ -27,8 +29,9 @@ BUILD_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), "build", "show_tell_tpu_t
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
+SOURCE_SUFFIXES = (".cu", ".cuh", ".h")
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -57,6 +60,7 @@ def find_nvcc() -> str:
 
 
 def _sources():
+    """The kernels to compile: every ``csrc/*.cu``."""
     sources = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
     if not sources:
         raise KernelBuildError("no CUDA sources under %s" % CSRC_DIR)
@@ -64,11 +68,12 @@ def _sources():
 
 
 def library_path() -> str:
-    """Where the library for the current sources and flags lives."""
+    """Where the library for the current sources (kernels and headers) and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
-        with open(src, "rb") as f:
-            h.update(os.path.basename(src).encode() + b"\0" + f.read())
+    for name in sorted(os.listdir(CSRC_DIR)):
+        if name.endswith(SOURCE_SUFFIXES):
+            with open(os.path.join(CSRC_DIR, name), "rb") as f:
+                h.update(name.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, "libst_kernels_%s.so" % h.hexdigest()[:16])
 
 
@@ -81,16 +86,32 @@ def build() -> str:
     nvcc = find_nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = "%s.%d.tmp" % (lib, os.getpid())
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *_sources()]
-    result = subprocess.run(cmd, capture_output=True, text=True)
-    if result.returncode != 0:
+    objs = tmp + ".objs"
+    os.makedirs(objs, exist_ok=True)
+    try:
+        compiles = []
+        for src in _sources():
+            obj = os.path.join(objs, os.path.basename(src) + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            compiles.append((cmd, obj, proc))
+        errors = [proc.communicate()[1] for _, _, proc in compiles]  # wait for all of them
+        for (cmd, _, proc), err in zip(compiles, errors):
+            _raise_if_failed(cmd, proc.returncode, err)
+        cmd = [nvcc, "-shared", "-o", tmp, *(obj for _, obj, _ in compiles)]
+        result = subprocess.run(cmd, capture_output=True, text=True)
+        _raise_if_failed(cmd, result.returncode, result.stderr)
+        os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
+    finally:
+        shutil.rmtree(objs, ignore_errors=True)
         if os.path.exists(tmp):
             os.remove(tmp)
-        raise KernelBuildError(
-            "nvcc failed (exit %d): %s\n%s" % (result.returncode, " ".join(cmd), result.stderr)
-        )
-    os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
     return lib
+
+
+def _raise_if_failed(cmd, returncode: int, stderr: str) -> None:
+    if returncode != 0:
+        raise KernelBuildError("nvcc failed (exit %d): %s\n%s" % (returncode, " ".join(cmd), stderr))
 
 
 def load_library() -> ctypes.CDLL:
@@ -99,8 +120,12 @@ def load_library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(build())
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.st_fused_gru_step.argtypes = [i, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, p]
-        lib.st_fused_gru_step.restype = i
+        lib.st_fused_gru_step.argtypes = [i] + [p] * 12 + [i] * 5 + [p]
+        lib.st_fused_attn_step.argtypes = [i] + [p] * 20 + [i] * 7 + [p]
+        lib.st_attention_context.argtypes = [i] + [p] * 8 + [i] * 5 + [p]
+        lib.st_project_argmax.argtypes = [i] + [p] * 5 + [i] * 3 + [p]
+        for fn in (lib.st_fused_gru_step, lib.st_fused_attn_step, lib.st_attention_context, lib.st_project_argmax):
+            fn.restype = i
         _lib = lib
     return _lib
 

@@ -1,0 +1,165 @@
+"""The fused attention decode step: attention, the embed-space context,
+the L-layer GRU, the vocab projection and the first-max argmax in one CUDA
+kernel launch (csrc/fused_attn_step.cu), its plain PyTorch twin, a count
+of kernel launches, and the greedy decode over it (counterpart of
+show_tell_tpu/ops/fused_attn_pallas.py, GRU and argmax mode).
+
+Two per-image constants are hoisted out of the step, as on the TPU:
+``att1 = feats @ W_enc + b_enc`` and ``feats_e = feats @ W_embed``.  Decode
+only needs ``embed(context)``, and ``embed(sum_p alpha_p feats_p) =
+sum_p alpha_p feats_e_p + b_embed``, so the kernel reduces over E columns
+instead of C.  Both are products in f32 rounded once to the compute dtype,
+where the JAX package rounds them.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from show_tell_tpu_torch.ops import check_tensor, check_widths, dtype_code, raise_on_error, stream_arg, uses_kernel
+from show_tell_tpu_torch.ops.attention import attention_alpha_plain, precompute_att1
+from show_tell_tpu_torch.ops.fused_step import check_stack
+from show_tell_tpu_torch.ops.rnn import gru_stack_plain, prepare_rnn_weights
+from show_tell_tpu_torch.ops.vocab import prepare_vocab, project_argmax_plain
+
+
+def fused_attn_fits(hidden_dim: int, embed_dim: int) -> bool:
+    """The fused step's shape rule, the JAX package's (ops/__init__.py
+    fused_attn_step_fits without its VMEM budget): H <= 2E; wider hidden
+    states take the composite path (ops/attention.py)."""
+    return hidden_dim <= 2 * embed_dim
+
+
+def prepare_attn_weights(decoder, dtype: Optional[torch.dtype] = None) -> Dict[str, object]:
+    """Per model, in kernel layout and ``dtype`` (default the decoder's):
+    the stacked recurrence (layer 0 is 2E wide), the vocab projection and
+    the attention weights wdec [A, H], bdec [A], wfull [A] (full_att's
+    weight; its bias is dropped), b_emb [E] (embed's bias)."""
+    dtype = dtype or decoder.embeddings.weight.dtype
+    c = lambda t: t.to(dtype).contiguous()
+    att = decoder.attn
+    return {
+        "stacked": prepare_rnn_weights(decoder.unit.layers(), dtype),
+        "vocab": prepare_vocab(decoder.linear.weight, decoder.linear.bias, dtype),
+        "wdec": c(att.decoder_att.weight),
+        "bdec": c(att.decoder_att.bias),
+        "wfull": c(att.full_att.weight[0]),
+        "b_emb": c(decoder.embed.bias),
+    }
+
+
+def prepare_attn_decode(weights: Dict[str, object], decoder, feats_pm: torch.Tensor) -> Dict[str, object]:
+    """Per decode: ``weights`` plus att1 [B, P, A] and feats_e [B, P, E],
+    each a product in f32 cast to the compute dtype once."""
+    dtype = weights["wdec"].dtype
+    feats_e = feats_pm.float() @ decoder.embed.weight.float().T
+    return {
+        **weights,
+        "att1": precompute_att1(decoder.attn, feats_pm).to(dtype).contiguous(),
+        "feats_e": feats_e.to(dtype).contiguous(),
+    }
+
+
+def fused_attn_decode_step_plain(
+    prep: Dict[str, object], w_emb: torch.Tensor, hs: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's function in plain torch ops: alpha from the last
+    layer's incoming h, ctx_e = sum_p alpha_p feats_e_p + b_emb in f32,
+    x = cat(w_emb, ctx_e) in hs's dtype, the GRU stack, the projection and
+    the first-max argmax.  Returns (tok [B] int32, new_hs [L, B, H])."""
+    alpha = attention_alpha_plain(prep, prep["att1"], hs[-1])
+    ctx_e = (prep["feats_e"].float() * alpha[..., None]).sum(dim=1) + prep["b_emb"].float()
+    x = torch.cat([w_emb.to(hs.dtype), ctx_e.to(hs.dtype)], dim=-1)
+    top, new_hs = gru_stack_plain(prep["stacked"], x, hs)
+    return project_argmax_plain(prep["vocab"], top), new_hs
+
+
+def fused_attn_decode_step_cuda(prep, w_emb, hs) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the kernel on the current stream.  Every tensor must be on
+    the same CUDA device, in one dtype (float32 or bfloat16), contiguous,
+    with E, H and A multiples of 8.  Raises on anything else and on a
+    failed launch."""
+    from show_tell_tpu_torch.ops.build import load_library
+
+    L, B, H = hs.shape
+    _, P, E = prep["feats_e"].shape
+    A = prep["att1"].shape[2]
+    V = prep["vocab"]["w"].shape[0]
+    dtype, device = hs.dtype, hs.device
+    code = dtype_code("fused_attn_decode_step", dtype)
+    check_widths("fused_attn_decode_step", E=E, A=A)
+    if P < 1 or V < 1:
+        raise ValueError("fused_attn_decode_step needs P, V >= 1 (got P=%d V=%d)" % (P, V))
+    check_stack("fused_attn_decode_step", prep["stacked"], 2 * E, hs)
+    check_tensor("w_emb", w_emb, (B, E), dtype, device)
+    check_tensor("feats_e", prep["feats_e"], (B, P, E), dtype, device)
+    check_tensor("att1", prep["att1"], (B, P, A), dtype, device)
+    check_tensor("wdec", prep["wdec"], (A, H), dtype, device)
+    check_tensor("bdec", prep["bdec"], (A,), dtype, device)
+    check_tensor("wfull", prep["wfull"], (A,), dtype, device)
+    check_tensor("b_emb", prep["b_emb"], (E,), dtype, device)
+    check_tensor("vocab w", prep["vocab"]["w"], (V, H), dtype, device)
+    check_tensor("vocab b", prep["vocab"]["b"], (V,), dtype, device)
+    lib = load_library()
+    stacked, vocab = prep["stacked"], prep["vocab"]
+    x = torch.empty(B, 2 * E, dtype=dtype, device=device)
+    att2 = torch.empty(B, A, dtype=torch.float32, device=device)
+    new_hs = torch.empty_like(hs)
+    tok = torch.empty(B, dtype=torch.int32, device=device)
+    best = torch.empty(B, dtype=torch.int64, device=device)
+    with torch.cuda.device(device):
+        err = lib.st_fused_attn_step(
+            code, w_emb.data_ptr(), prep["feats_e"].data_ptr(), prep["att1"].data_ptr(), prep["wdec"].data_ptr(),
+            prep["bdec"].data_ptr(), prep["wfull"].data_ptr(), prep["b_emb"].data_ptr(),
+            stacked["w_ih0"].data_ptr(), stacked["w_ihU"].data_ptr(), stacked["w_hh"].data_ptr(),
+            stacked["b_ih"].data_ptr(), stacked["b_hh"].data_ptr(), hs.data_ptr(), vocab["w"].data_ptr(),
+            vocab["b"].data_ptr(), x.data_ptr(), att2.data_ptr(), new_hs.data_ptr(), tok.data_ptr(),
+            best.data_ptr(), L, B, E, H, A, P, V, stream_arg(device),
+        )
+    raise_on_error("fused attention step", err)
+    fused_attn_decode_step.launches += 1
+    return tok, new_hs
+
+
+def fused_attn_decode_step(
+    prep: Dict[str, object],  # prepare_attn_decode output
+    w_emb: torch.Tensor,  # [B, E] current token embeddings
+    hs: torch.Tensor,  # [L, B, H]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One fused attention greedy step.  Returns (tok [B] int32, new_hs).
+    CUDA tensors launch the kernel (and count the launch in
+    ``fused_attn_decode_step.launches``); CPU tensors run the plain twin."""
+    if uses_kernel(hs):
+        return fused_attn_decode_step_cuda(prep, w_emb, hs)
+    return fused_attn_decode_step_plain(prep, w_emb, hs)
+
+
+fused_attn_decode_step.launches = 0
+
+
+def attn_greedy_decode_fused(
+    weights: Dict[str, object],  # prepare_attn_weights
+    decoder,  # models.attention.AttnDecoder
+    cfg,  # models.attention.AttnDecoderConfig
+    cnn_feature: torch.Tensor,  # [B, C, P]
+    start_token: int,
+    end_token: Optional[int] = None,
+) -> torch.Tensor:
+    """Greedy attention decode, one fused-step launch per token
+    (fused_attn_pallas.attn_greedy_decode_fused_pallas).  Returns [B, T]
+    int32 ids; end_token: stop once every row emitted it (<pad> after)."""
+    from show_tell_tpu_torch.models.attention import init_hidden, start_embeddings
+    from show_tell_tpu_torch.models.decoder import greedy_loop
+
+    B = cnn_feature.shape[0]
+    prep = prepare_attn_decode(weights, decoder, cnn_feature.transpose(1, 2))
+    embedding = decoder.embeddings.weight
+    w0 = start_embeddings(decoder, B, start_token, cnn_feature.device)
+    hs0 = init_hidden(decoder, cfg, cnn_feature)
+
+    def step(w_emb, hs):
+        return fused_attn_decode_step(prep, w_emb, hs)
+
+    return greedy_loop(step, embedding, w0, hs0, cfg.max_caption_length, end_token)

@@ -2,17 +2,17 @@
 (counterpart of show_tell_tpu/ops/rnn_pallas.py).
 
 Weights stay in the torch layout [3H, in] (one contiguous row per gate
-column), which is what the CUDA kernel streams.  Layer 0's input width E
-is zero-padded up to H once, in ``prepare_rnn_weights``, so the kernel
-sees uniform [L, 3H, H] strides; the zeros add nothing to the sums.
+column), which is what the CUDA kernels stream.  Layer 0 keeps its own
+input width I0 (E for the pooled decoder, 2E for attention), smaller or
+larger than H: ``prepare_rnn_weights`` stacks it apart from the upper
+layers, as ops/fused_attn_pallas.py does on the TPU.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 
 def gru_cell_math(x, h, w_ih, w_hh, b_ih, b_hh, out_dtype: torch.dtype) -> torch.Tensor:
@@ -29,28 +29,38 @@ def gru_cell_math(x, h, w_ih, w_hh, b_ih, b_hh, out_dtype: torch.dtype) -> torch
     return ((1.0 - z) * n + z * h.float()).to(out_dtype)
 
 
-def pad_cols(t: torch.Tensor, width: int) -> torch.Tensor:
-    """Zero-pad the last axis of ``t`` up to ``width`` (layer-0 input E -> H)."""
-    if t.shape[-1] > width:
-        raise ValueError("input width %d exceeds the hidden width %d" % (t.shape[-1], width))
-    return F.pad(t, (0, width - t.shape[-1])) if t.shape[-1] < width else t
-
-
 def prepare_rnn_weights(
     layers: List[Dict[str, torch.Tensor]], dtype: Optional[torch.dtype] = None
 ) -> Dict[str, torch.Tensor]:
     """Stack per-layer {w_ih [3H,in], w_hh [3H,H], b_ih [3H], b_hh [3H]}
-    into w_ih/w_hh [L, 3H, H] and b_ih/b_hh [L, 3H], padding layer 0's
-    input width up to H.  Done once per model, outside the decode loop."""
+    into w_ih0 [3H, I0] (layer 0, its own input width), w_ihU [L-1, 3H, H]
+    (the upper layers; empty for L=1), w_hh [L, 3H, H] and b_ih/b_hh
+    [L, 3H].  Done once per model, outside the decode loop."""
     H = layers[0]["w_hh"].shape[1]
     dtype = dtype or layers[0]["w_hh"].dtype
     stack = lambda ts: torch.stack([t.to(dtype) for t in ts]).contiguous()
+    w_ihU = [l["w_ih"] for l in layers[1:]]
     return {
-        "w_ih": stack([pad_cols(l["w_ih"], H) for l in layers]),
+        "w_ih0": layers[0]["w_ih"].to(dtype).contiguous(),
+        "w_ihU": stack(w_ihU) if w_ihU else layers[0]["w_hh"].new_empty((0, 3 * H, H), dtype=dtype),
         "w_hh": stack([l["w_hh"] for l in layers]),
         "b_ih": stack([l["b_ih"] for l in layers]),
         "b_hh": stack([l["b_hh"] for l in layers]),
     }
+
+
+def gru_stack_plain(
+    stacked: Dict[str, torch.Tensor], x: torch.Tensor, hs: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The recurrence of a fused decode step in plain torch ops: the
+    ``prepare_rnn_weights`` layers over x [B, I0] and hs [L, B, H], each
+    by ``gru_cell_math``.  Returns (top h [B, H], new_hs [L, B, H])."""
+    inp, new_hs = x.to(hs.dtype), []
+    for l in range(hs.shape[0]):
+        w_ih = stacked["w_ih0"] if l == 0 else stacked["w_ihU"][l - 1]
+        inp = gru_cell_math(inp, hs[l], w_ih, stacked["w_hh"][l], stacked["b_ih"][l], stacked["b_hh"][l], hs.dtype)
+        new_hs.append(inp)
+    return inp, torch.stack(new_hs)
 
 
 def prepare_greedy(
@@ -61,18 +71,16 @@ def prepare_greedy(
     dtype: Optional[torch.dtype] = None,
 ) -> Dict[str, object]:
     """Everything the greedy loop reads, in kernel layout, built once:
-    stacked recurrence weights, the projection, and the embedding table
-    zero-padded to H columns so each fed-back row is already the kernel's
-    layer-0 input."""
+    stacked recurrence weights, the projection, and the embedding table,
+    whose fed-back rows are the kernel's layer-0 input as they stand."""
     from show_tell_tpu_torch.ops.vocab import prepare_vocab
 
     stacked = prepare_rnn_weights(layers, dtype)
     dtype = stacked["w_hh"].dtype
-    H = stacked["w_hh"].shape[2]
     return {
         "stacked": stacked,
         "vocab": prepare_vocab(linear_w, linear_b, dtype),
-        "embedding": pad_cols(embedding.to(dtype), H).contiguous(),
+        "embedding": embedding.to(dtype).contiguous(),
     }
 
 
@@ -86,18 +94,16 @@ def greedy_decode_kernel(
     rnn_pallas.greedy_decode_pallas): ``tok, hs = fused_gru_decode_step``,
     then ``x = embedding[tok]``.  Returns [B, max_len] int32 ids.
     end_token: stop once every row emitted it (<pad> after it)."""
-    from show_tell_tpu_torch.models.decoder import greedy_early_exit_loop, greedy_loop
+    from show_tell_tpu_torch.models.decoder import greedy_loop
     from show_tell_tpu_torch.ops.fused_step import fused_gru_decode_step
 
     stacked, vocab, embedding = prepared["stacked"], prepared["vocab"], prepared["embedding"]
     L, _, H = stacked["w_hh"].shape
     B = feats.shape[0]
-    x0 = pad_cols(feats.to(embedding.dtype), H).contiguous()
+    x0 = feats.to(embedding.dtype).contiguous()
     hs0 = torch.zeros(L, B, H, dtype=embedding.dtype, device=feats.device)
 
     def step(x, hs):
         return fused_gru_decode_step(stacked, vocab, x, hs)
 
-    if end_token is None:
-        return greedy_loop(step, embedding, x0, hs0, max_len)
-    return greedy_early_exit_loop(step, embedding, x0, hs0, max_len, end_token)
+    return greedy_loop(step, embedding, x0, hs0, max_len, end_token)

@@ -1,18 +1,20 @@
 """Serving API: checkpoint -> captions (counterpart of show_tell_tpu/serve.py,
-pooled GRU, greedy decode).
+the pooled GRU and the soft-attention GRU, greedy decode).
 
     captioner = Captioner.from_checkpoint("output/COCO/model_50.ckpt",
                                           "output/COCO/vocab.pkl", device="gpu")
+    captioner = Captioner.from_checkpoint(ckpt, vocab, variant="attn", embed_dim=512)
     captions = captioner.caption(images_u8)          # [B,224,224,3] uint8
     captions = captioner.caption_files(paths)        # JPEG files
 
 Images are preprocessed on the device; decode is batched greedy, one
-fused-step CUDA kernel launch per token on a GPU.  ``compute_dtype=
+fused-step CUDA kernel launch per token on a GPU (the pooled step, or the
+attention step with its attention, context, recurrence and argmax).  ``compute_dtype=
 "bfloat16"`` casts every float32 weight and BN statistic to bf16 (no
 autocast); "float32" is the parity dtype.
 
 CLI: ``python -m show_tell_tpu_torch.serve --ckpt model.ckpt --vocab
-vocab.pkl [--device cpu|gpu] img1.jpg photos_dir/ ...``
+vocab.pkl [--variant gru|attn] [--device cpu|gpu] img1.jpg photos_dir/ ...``
 """
 
 from __future__ import annotations
@@ -206,13 +208,18 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     p.add_argument("--ckpt", required=True, help="show_tell_tpu pickle checkpoint")
     p.add_argument("--vocab", required=True, help="vocab.pkl path")
     p.add_argument("--variant", default="gru", choices=["gru", "lstm", "attn", "attn_lstm"],
-                   help="only gru is ported; the others raise NotImplementedError")
+                   help="gru and attn are ported; lstm and attn_lstm raise NotImplementedError")
     p.add_argument("--resnet_version", type=int, default=101)
-    p.add_argument("--embedding_length", type=int, default=256)
+    p.add_argument("--embedding_length", type=int, default=0,
+                   help="0 = the reference default for the variant (256 gru, 512 the others)")
     p.add_argument("--num_hidden_units", type=int, default=512)
     p.add_argument("--num_layers", type=int, default=5)
     p.add_argument("--batch_size", type=int, default=64)
     p.add_argument("--compute_dtype", default="bfloat16", choices=sorted(_DTYPES))
+    p.add_argument("--nos_cnn_filters", type=int, default=0,
+                   help="attention variants: encoder channels (0 = the backbone's, 2048 for ResNet-50/101/152, "
+                        "512 for 18/34)")
+    p.add_argument("--attn_dim", type=int, default=512, help="attention variants: attention width (reference 512)")
     p.add_argument("--early_exit", type=int, default=0, help="stop decoding when every row emitted <end>; identical captions")
     p.add_argument("--device", default="gpu", choices=DEVICE_CHOICES, help="gpu raises when there is no CUDA device")
     p.add_argument("--json", action="store_true", help='emit {"image": ..., "caption": ...} JSON lines')
@@ -234,11 +241,15 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         print("no images found", file=sys.stderr)
         return 2
 
+    cfg_kw = {}
+    if args.variant.startswith("attn"):
+        nos = args.nos_cnn_filters or (512 if args.resnet_version in (18, 34) else 2048)
+        cfg_kw = dict(nos_filters=nos, attn_dim=args.attn_dim)
     captioner = Captioner.from_checkpoint(
         args.ckpt, args.vocab, variant=args.variant, resnet_version=args.resnet_version,
-        embed_dim=args.embedding_length, hidden_dim=args.num_hidden_units,
-        num_layers=args.num_layers, compute_dtype=args.compute_dtype,
-        early_exit=bool(args.early_exit), device=args.device,
+        embed_dim=args.embedding_length or (256 if args.variant == "gru" else 512),
+        hidden_dim=args.num_hidden_units, num_layers=args.num_layers, compute_dtype=args.compute_dtype,
+        early_exit=bool(args.early_exit), device=args.device, **cfg_kw,
     )
     B = max(1, args.batch_size)
     for lo in range(0, len(paths), B):

@@ -1,7 +1,9 @@
-"""The fused step's CUDA kernel against its plain twin, on an NVIDIA GPU.
+"""The port's CUDA kernels against their plain twins, on an NVIDIA GPU:
+the pooled fused step, the fused attention step, the attention context
+and the projection + argmax.
 
 Marked ``cuda``: each test skips where torch finds no CUDA device (the
-kernel has no CPU or interpret mode).  Run them on the card with
+kernels have no CPU or interpret mode).  Run them on the card with
 ``python -m pytest tests/test_torch_cuda.py -m cuda``; chip_smoke.py runs
 the same comparison at the flagship widths.
 """
@@ -10,13 +12,15 @@ import numpy as np
 import pytest
 import torch
 
+from show_tell_tpu_torch.ops.attention import attention_context, attention_context_plain
+from show_tell_tpu_torch.ops.fused_attn import fused_attn_decode_step, fused_attn_decode_step_plain
 from show_tell_tpu_torch.ops.fused_step import (
     fused_gru_decode_step,
     fused_gru_decode_step_cuda,
     fused_gru_decode_step_plain,
 )
 from show_tell_tpu_torch.ops.rnn import prepare_rnn_weights
-from show_tell_tpu_torch.ops.vocab import prepare_vocab
+from show_tell_tpu_torch.ops.vocab import prepare_vocab, project_argmax, project_argmax_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -24,7 +28,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the fused step kernel runs only on the card")
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
@@ -42,7 +46,8 @@ def _inputs(B, E, H, V, L, dtype, device, seed=0):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("B,E,H,V,L", [(3, 16, 24, 40, 2), (19, 64, 128, 1001, 3), (1, 256, 512, 9956, 5)])
+@pytest.mark.parametrize("B,E,H,V,L", [(3, 16, 24, 40, 2), (19, 64, 128, 1001, 3), (1, 256, 512, 9956, 5),
+                                       (5, 32, 16, 40, 2), (64, 1024, 512, 9956, 5)])
 def test_kernel_matches_plain(cuda, dtype, B, E, H, V, L):
     stacked, vocab, x, hs = _inputs(B, E, H, V, L, dtype, cuda)
     before = fused_gru_decode_step.launches
@@ -73,8 +78,84 @@ def test_kernel_wrapper_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="dtype"):
         fused_gru_decode_step(stacked, vocab, x, hs.bfloat16())
     with pytest.raises(ValueError, match="shape"):
-        fused_gru_decode_step_cuda(stacked, vocab, x, hs)  # x not padded to H
+        fused_gru_decode_step_cuda(stacked, vocab, x[:, :8].contiguous(), hs)  # x narrower than layer 0
     with pytest.raises(ValueError, match="contiguous"):
         fused_gru_decode_step(stacked, vocab, x, hs.transpose(1, 2).contiguous().transpose(1, 2))
     with pytest.raises(ValueError, match="is on"):
         fused_gru_decode_step(stacked, vocab, x.cpu(), hs)
+
+
+TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2e-2, 5e-2)}  # (values: summation order / one bf16 ulp, token gap)
+
+
+def _clear(logits, gap):
+    top = logits.topk(2, dim=-1).values
+    return (top[:, 0] - top[:, 1]) > gap
+
+
+def _attn_prep(B, E, H, A, P, V, L, dtype, device, seed=0):
+    rng = np.random.RandomState(seed)
+    t = lambda *s, b=0.3: torch.from_numpy(rng.uniform(-b, b, s).astype(np.float32))
+    layers = [{"w_ih": t(3 * H, 2 * E if l == 0 else H), "w_hh": t(3 * H, H), "b_ih": t(3 * H), "b_hh": t(3 * H)}
+              for l in range(L)]
+    d = lambda x: x.to(device, dtype).contiguous()
+    prep = {
+        "stacked": {k: d(v) for k, v in prepare_rnn_weights(layers).items()},
+        "vocab": {k: d(v) for k, v in prepare_vocab(t(V, H), t(V)).items()},
+        "wdec": d(t(A, H)), "bdec": d(t(A)), "wfull": d(t(A)), "b_emb": d(t(E)),
+        "att1": d(t(B, P, A, b=1.0)), "feats_e": d(t(B, P, E, b=1.0)),
+    }
+    return prep, d(torch.from_numpy(rng.randn(B, E).astype(np.float32))), d(t(L, B, H, b=1.0))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,E,H,A,P,V,L", [(3, 16, 24, 16, 5, 40, 1), (19, 64, 128, 32, 7, 1001, 3),
+                                           (64, 512, 512, 512, 49, 9956, 5)])
+def test_fused_attn_kernel_matches_plain(cuda, dtype, B, E, H, A, P, V, L):
+    prep, w_emb, hs = _attn_prep(B, E, H, A, P, V, L, dtype, cuda)
+    before = fused_attn_decode_step.launches
+    tok, new_hs = fused_attn_decode_step(prep, w_emb, hs)
+    torch.cuda.synchronize()
+    assert fused_attn_decode_step.launches == before + 1
+    ref_tok, ref_hs = fused_attn_decode_step_plain(prep, w_emb, hs)
+    tol, gap = TOL[dtype]
+    torch.testing.assert_close(new_hs.float(), ref_hs.float(), rtol=tol, atol=tol)
+    clear = _clear(ref_hs[-1].float() @ prep["vocab"]["w"].float().T + prep["vocab"]["b"].float(), gap)
+    assert torch.equal(tok[clear], ref_tok[clear])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,C,A,H,P", [(3, 32, 16, 24, 5), (64, 2048, 512, 512, 49)])
+def test_attention_context_kernel_matches_plain(cuda, dtype, B, C, A, H, P):
+    """ctx within the values' tolerance, alpha (f32 in both) within 1e-6."""
+    prep, _, hs = _attn_prep(B, 8, H, A, P, 40, 1, dtype, cuda, seed=2)
+    feats = torch.rand(B, P, C, generator=torch.Generator().manual_seed(3)).to(cuda, dtype)
+    before = attention_context.launches
+    ctx, alpha = attention_context(prep, feats, prep["att1"], hs[-1])
+    torch.cuda.synchronize()
+    assert attention_context.launches == before + 1 and ctx.dtype == dtype and alpha.dtype == torch.float32
+    ref_ctx, ref_alpha = attention_context_plain(prep, feats, prep["att1"], hs[-1])
+    tol = TOL[dtype][0]
+    torch.testing.assert_close(ctx.float(), ref_ctx.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(alpha, ref_alpha, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,H,V", [(3, 24, 40), (64, 512, 9956), (256, 512, 9956)])
+def test_project_argmax_kernel_matches_plain(cuda, dtype, B, H, V):
+    prep, _, hs = _attn_prep(B, 8, H, 8, 1, V, 1, dtype, cuda, seed=4)
+    before = project_argmax.launches
+    tok = project_argmax(prep["vocab"], hs[-1])
+    torch.cuda.synchronize()
+    assert project_argmax.launches == before + 1
+    logits = hs[-1].float() @ prep["vocab"]["w"].float().T + prep["vocab"]["b"].float()
+    clear = _clear(logits, TOL[dtype][1])
+    assert torch.equal(tok[clear], project_argmax_plain(prep["vocab"], hs[-1])[clear])
+
+
+def test_project_argmax_and_fused_attn_ties_take_lowest_index(cuda):
+    prep, w_emb, hs = _attn_prep(33, 16, 24, 16, 5, 1000, 2, torch.float32, cuda, seed=5)
+    prep["vocab"]["w"][900] = prep["vocab"]["w"][7]
+    prep["vocab"]["b"][7] = prep["vocab"]["b"][900] = 50.0
+    assert project_argmax(prep["vocab"], hs[-1]).tolist() == [7] * 33
+    assert fused_attn_decode_step(prep, w_emb, hs)[0].tolist() == [7] * 33

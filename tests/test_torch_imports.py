@@ -15,7 +15,9 @@ PORT = os.path.join(REPO, "show_tell_tpu_torch")
 def test_port_imports_without_jax():
     code = (
         "import show_tell_tpu_torch, show_tell_tpu_torch.serve, show_tell_tpu_torch.models.captioner, "
-        "show_tell_tpu_torch.ops.fused_step, show_tell_tpu_torch.ops.build; import sys; "
+        "show_tell_tpu_torch.ops.fused_step, show_tell_tpu_torch.ops.build, show_tell_tpu_torch.models.attention, "
+        "show_tell_tpu_torch.ops.attention, show_tell_tpu_torch.ops.fused_attn, show_tell_tpu_torch.ops.vocab; "
+        "import sys; "
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if m.startswith('jax'))"
     )
     env = dict(os.environ, PYTHONPATH=REPO)

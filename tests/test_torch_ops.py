@@ -3,7 +3,7 @@
 The same seeded numpy inputs go through the JAX function (Pallas kernels
 in interpret mode, as tests/test_pallas_ops.py runs them) and through the
 port's plain twin, which is what a port wrapper runs for CPU tensors.
-Sizes: L=2, E=16/24, H=24, V=40, B=3; the JAX side uses block_v=16 so V
+Sizes: L=2, E=16/24/32, H=24, V=40, B=3; the JAX side uses block_v=16 so V
 spans three vocab blocks.
 """
 
@@ -14,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+from show_tell_tpu.models.decoder import DecoderConfig as JaxDecoderConfig
+from show_tell_tpu.models.decoder import greedy_decode as jax_greedy_decode
 from show_tell_tpu.models.rnn_cells import gru_cell as jax_gru_cell
 from show_tell_tpu.models.rnn_cells import stack_step_gru as jax_stack_step_gru
 from show_tell_tpu.ops.fused_step_pallas import fused_gru_decode_step_pallas
@@ -21,7 +23,7 @@ from show_tell_tpu.ops.rnn_pallas import prepare_rnn_weights as jax_prepare_rnn_
 from show_tell_tpu.ops.vocab_pallas import prepare_vocab as jax_prepare_vocab
 from show_tell_tpu_torch.ops import build, uses_kernel
 from show_tell_tpu_torch.ops.fused_step import fused_gru_decode_step, fused_gru_decode_step_plain
-from show_tell_tpu_torch.ops.rnn import gru_cell_math, prepare_rnn_weights
+from show_tell_tpu_torch.ops.rnn import greedy_decode_kernel, gru_cell_math, prepare_greedy, prepare_rnn_weights
 from show_tell_tpu_torch.ops.vocab import prepare_vocab
 
 L, H, V, B = 2, 24, 40, 3
@@ -42,10 +44,15 @@ def _jax_tree(E, seed=0):
     return layers, linear, x, hs
 
 
+def _torch_layer(layer):
+    """A JAX-layout layer ({w_ih [in,3H], ...}) in the torch layout."""
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    return {k: t(v.T) if v.ndim == 2 else t(v) for k, v in layer.items()}
+
+
 def _torch_side(layers, linear):
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
-    tl = [{k: t(v.T) if v.ndim == 2 else t(v) for k, v in l.items()} for l in layers]
-    return prepare_rnn_weights(tl), prepare_vocab(t(linear["w"].T), t(linear["b"]))
+    return prepare_rnn_weights([_torch_layer(l) for l in layers]), prepare_vocab(t(linear["w"].T), t(linear["b"]))
 
 
 def _jax_side(layers, linear):
@@ -68,7 +75,7 @@ def test_fused_step_plain_matches_pallas_interpret(E):
     np.testing.assert_array_equal(tok.numpy(), np.asarray(j_tok))
 
 
-@pytest.mark.parametrize("E", [16, 24], ids=["E<H", "E=H"])
+@pytest.mark.parametrize("E", [16, 24, 32], ids=["E<H", "E=H", "E>H"])
 def test_fused_step_plain_matches_xla_stack_step(E):
     layers, linear, x, hs = _jax_tree(E, seed=100 + E)
     stacked, vocab = _torch_side(layers, linear)
@@ -97,25 +104,46 @@ def test_fused_step_cross_block_tie_takes_lowest_index():
 
 
 def test_prepare_rnn_weights_matches_jax():
-    """Same stacked arrays as the JAX package, in the torch [out, in]
-    layout the CUDA kernel streams: w [L,3H,H] is JAX's [L,H,3H]
-    transposed (layer 0 zero-padded the same way), b [L,3H] is JAX's [L,1,3H]."""
+    """Same values as the JAX package's stacked arrays, in the torch
+    [out, in] layout the CUDA kernels stream, with layer 0 apart at its
+    own width: w_ih0 [3H,E] is JAX's zero-padded layer 0 [H,3H] cut back to
+    E rows and transposed, w_ihU [L-1,3H,H] and w_hh [L,3H,H] are JAX's
+    [*,H,3H] transposed, b [L,3H] is JAX's [L,1,3H]."""
     layers, linear, _, _ = _jax_tree(16, seed=3)
     stacked, _ = _torch_side(layers, linear)
     j_stacked, _ = _jax_side(layers, linear)
-    for k in ("w_ih", "w_hh"):
-        assert tuple(stacked[k].shape) == (L, 3 * H, H) and stacked[k].is_contiguous()
-        np.testing.assert_array_equal(stacked[k].transpose(1, 2).numpy(), np.asarray(j_stacked[k]))
+    j_w_ih = np.asarray(j_stacked["w_ih"])
+    assert tuple(stacked["w_ih0"].shape) == (3 * H, 16) and (j_w_ih[0, 16:] == 0).all()
+    np.testing.assert_array_equal(stacked["w_ih0"].T.numpy(), j_w_ih[0, :16])
+    assert tuple(stacked["w_ihU"].shape) == (L - 1, 3 * H, H) and stacked["w_ihU"].is_contiguous()
+    np.testing.assert_array_equal(stacked["w_ihU"].transpose(1, 2).numpy(), j_w_ih[1:])
+    assert tuple(stacked["w_hh"].shape) == (L, 3 * H, H) and stacked["w_hh"].is_contiguous()
+    np.testing.assert_array_equal(stacked["w_hh"].transpose(1, 2).numpy(), np.asarray(j_stacked["w_hh"]))
     for k in ("b_ih", "b_hh"):
         np.testing.assert_array_equal(stacked[k][:, None, :].numpy(), np.asarray(j_stacked[k]))
+    one = prepare_rnn_weights([_torch_layer(layers[0])])
+    assert tuple(one["w_ihU"].shape) == (0, 3 * H, H)  # L=1: no upper layers
 
 
-def test_prepare_rnn_weights_rejects_embed_wider_than_hidden():
-    """E > H has no kernel layout (layer 0 is padded up to H, never cut)."""
-    layers, _, _, _ = _jax_tree(32, seed=6)
-    tl = [{k: torch.from_numpy(np.ascontiguousarray(v.T)) for k, v in l.items()} for l in layers]
-    with pytest.raises(ValueError, match="exceeds the hidden width"):
-        prepare_rnn_weights(tl)
+@pytest.mark.parametrize("end_token", [None, "emitted"], ids=["fixed_T", "early_exit"])
+def test_embed_wider_than_hidden_decodes_like_jax_xla(end_token):
+    """A pooled model with E=32 > H=24: layer 0 keeps its own width, so the
+    fused step's greedy loop (plain twin on the CPU) serves it, with f32
+    ids bit-equal to the JAX package's XLA decode (its only path for E > H)."""
+    layers, linear, _, _ = _jax_tree(32, seed=6)
+    rng = np.random.RandomState(6)
+    embedding = rng.randn(V, 32).astype(np.float32)
+    feats = rng.randn(B, 32).astype(np.float32)
+    j_params = {"embedding": jnp.asarray(embedding), "linear": {k: jnp.asarray(v) for k, v in linear.items()},
+                "rnn": [{k: jnp.asarray(v) for k, v in l.items()} for l in layers]}
+    dcfg = JaxDecoderConfig("gru", 32, H, V, L)
+    fixed = np.asarray(jax_greedy_decode(j_params, dcfg, jnp.asarray(feats)))
+    end = int(fixed[0, 2]) if end_token else None
+    ref = np.asarray(jax_greedy_decode(j_params, dcfg, jnp.asarray(feats), end_token=end)) if end else fixed
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    prepared = prepare_greedy([_torch_layer(l) for l in layers], t(embedding), t(linear["w"].T), t(linear["b"]))
+    ids = greedy_decode_kernel(prepared, t(feats), 25, end_token=end).numpy()
+    np.testing.assert_array_equal(ids, ref)
 
 
 def test_prepare_vocab_matches_jax_unpadded():
@@ -188,3 +216,22 @@ def test_build_raises_with_nvcc_stderr(monkeypatch, tmp_path):
         build.build()
     assert not os.listdir(tmp_path / "build")  # no partial library left behind
     assert "sm_90a" in " ".join(build.NVCC_FLAGS)
+
+
+def test_library_path_hashes_headers(monkeypatch, tmp_path):
+    """Every source under csrc/ names the library: an edited shared header
+    (*.cuh, *.h) gives a new path, so a stale library is never loaded;
+    other files do not count."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text('#include "common.cuh"\n')
+    (csrc / "common.cuh").write_text("// v1\n")
+    monkeypatch.setattr(build, "CSRC_DIR", str(csrc))
+    first = build.library_path()
+    assert build._sources() == [str(csrc / "k.cu")]
+    (csrc / "notes.txt").write_text("not a source\n")
+    assert build.library_path() == first
+    (csrc / "common.cuh").write_text("// v2\n")
+    second = build.library_path()
+    (csrc / "extra.h").write_text("// new\n")
+    assert len({first, second, build.library_path()}) == 3
