@@ -6,19 +6,22 @@
 Phases, one line each (any failure exits non-zero with no ok line):
   1. device: the card's name and power limit, torch and CUDA versions;
   2. build: the CUDA kernels from show_tell_tpu_torch/csrc, with nvcc;
-  3. kernel against plain, at the flagship widths: the pooled fused step
-     (L=5, E=256, H=512, V=9,956; B = 1, 64, 512) and at E > H (E=1024);
-     the fused attention step (L=5, E=H=A=512, P=49, V=9,956; B = 1, 64,
-     256); the attention context (C=2048, same B); the projection + argmax
-     (H=512, V=9,956, same B); f32 and bf16, with cross-block argmax ties;
-  4. pooled main path: a flagship pooled-GRU Captioner (ResNet-101, random
-     weights from seed 0, bf16) serves three requests of 64 images; the
-     fused step must have launched 3 x 25 times and the ids must agree
-     with the plain step's decode; then once more in f32 at B=8;
-  5. attention main path: the same for a flagship attention-GRU Captioner
-     (spatial ResNet-101, C=2048, E=H=A=512): 3 x 25 fused attention
-     launches, then f32 at B=8, then one composite decode at B=64 (25
-     launches each of the context and projection kernels);
+  3. kernel against plain, at the flagship widths: the pooled fused step,
+     GRU (L=5, E=256, H=512, V=9,956; B = 1, 64, 512; and E=1024 > H) and
+     LSTM (E=512, same B); the fused attention step, GRU and LSTM (L=5,
+     E=H=A=512, P=49, V=9,956; B = 1, 64, 256); the attention context
+     (C=2048, same B); the projection + argmax (H=512, V=9,956, same B);
+     f32 and bf16, with cross-block argmax ties;
+  4. pooled main paths: a flagship pooled-GRU Captioner (ResNet-101,
+     random weights from seed 0, bf16) serves three requests of 64
+     images; the fused step must have launched 3 x 25 times and the ids
+     must agree with the plain step's decode; then once more in f32 at
+     B=8.  The same for a flagship pooled-LSTM Captioner (E=512) and the
+     step's LSTM instance;
+  5. attention main paths: the same for a flagship attention-GRU and an
+     attention-LSTM Captioner (spatial ResNet-101, C=2048, E=H=A=512),
+     each followed by one composite decode of the same features at B=64
+     (25 launches each of the context and projection kernels);
   6. times: per-step kernel and plain times, and captions/s of each slice.
 The last lines are the card's name and power limit, a JSON line of the
 kernels, and {"ok": true, "device": {...}}.
@@ -32,7 +35,9 @@ import sys
 import time
 
 L, E, H, V = 5, 256, 512, 9956  # pooled flagship (bench.py:61-74, variant gru)
+LE = 512  # pooled-LSTM flagship embed (bench.py:61-74, variant lstm)
 AE, AC, AA, AP = 512, 2048, 512, 49  # attention flagship: embed, channels, attention width, positions
+GATES = {"gru": 3, "lstm": 4}
 T = 25
 SEED = 0
 # (rtol = atol for values, smallest top-2 logit gap at which tokens must agree):
@@ -98,15 +103,16 @@ def uniform(rng, shape, bound, dtype, device):
     return torch.from_numpy(rng.uniform(-bound, bound, shape).astype("float32")).to(device, dtype).contiguous()
 
 
-def stack_inputs(rng, I0, Hd, Ld, dtype, device):
+def stack_inputs(rng, I0, Hd, Ld, dtype, device, cell="gru"):
     """prepare_rnn_weights layout, U(+-1/sqrt(H)) as the decoder init draws it."""
     b = 1.0 / Hd ** 0.5
+    G = GATES[cell] * Hd
     return {
-        "w_ih0": uniform(rng, (3 * Hd, I0), b, dtype, device),
-        "w_ihU": uniform(rng, (Ld - 1, 3 * Hd, Hd), b, dtype, device),
-        "w_hh": uniform(rng, (Ld, 3 * Hd, Hd), b, dtype, device),
-        "b_ih": uniform(rng, (Ld, 3 * Hd), b, dtype, device),
-        "b_hh": uniform(rng, (Ld, 3 * Hd), b, dtype, device),
+        "w_ih0": uniform(rng, (G, I0), b, dtype, device),
+        "w_ihU": uniform(rng, (Ld - 1, G, Hd), b, dtype, device),
+        "w_hh": uniform(rng, (Ld, G, Hd), b, dtype, device),
+        "b_ih": uniform(rng, (Ld, G), b, dtype, device),
+        "b_hh": uniform(rng, (Ld, G), b, dtype, device),
     }
 
 
@@ -115,22 +121,29 @@ def vocab_inputs(rng, Hd, dtype, device):
     return {"w": uniform(rng, (V, Hd), b, dtype, device), "b": uniform(rng, (V,), b, dtype, device)}
 
 
-def step_inputs(rng, B, dtype, device, Ed=E):
-    """Pooled decode-step inputs at the flagship widths, kernel layout."""
+def state_inputs(rng, B, dtype, device, cell):
+    """hs [L, B, H] in [-1, 1]; for the LSTM (hs, cs) with cs in [-2, 2]."""
+    hs = uniform(rng, (L, B, H), 1.0, dtype, device)
+    return (hs, uniform(rng, (L, B, H), 2.0, dtype, device)) if cell == "lstm" else hs
+
+
+def step_inputs(rng, B, dtype, device, Ed=E, cell="gru"):
+    """Pooled decode-step inputs at the flagship widths, kernel layout:
+    stacked, vocab, x [B, E] and the state."""
     import torch
 
     x = torch.from_numpy(rng.randn(B, Ed).astype("float32")).to(device, dtype)
-    return (stack_inputs(rng, Ed, H, L, dtype, device), vocab_inputs(rng, H, dtype, device), x,
-            uniform(rng, (L, B, H), 1.0, dtype, device))
+    return (stack_inputs(rng, Ed, H, L, dtype, device, cell), vocab_inputs(rng, H, dtype, device), x,
+            state_inputs(rng, B, dtype, device, cell))
 
 
-def attn_inputs(rng, B, dtype, device):
+def attn_inputs(rng, B, dtype, device, cell="gru"):
     """Fused attention step inputs at the flagship widths: prepare_attn_decode's
-    dict, the token embeddings [B, E] and the hidden state [L, B, H]."""
+    dict, the token embeddings [B, E] and the state."""
     import torch
 
     prep = {
-        "stacked": stack_inputs(rng, 2 * AE, H, L, dtype, device),
+        "stacked": stack_inputs(rng, 2 * AE, H, L, dtype, device, cell),
         "vocab": vocab_inputs(rng, H, dtype, device),
         "wdec": uniform(rng, (AA, H), H ** -0.5, dtype, device),
         "bdec": uniform(rng, (AA,), H ** -0.5, dtype, device),
@@ -140,7 +153,7 @@ def attn_inputs(rng, B, dtype, device):
         "feats_e": uniform(rng, (B, AP, AE), 1.0, dtype, device),
     }
     w_emb = torch.from_numpy(rng.randn(B, AE).astype("float32")).to(device, dtype)
-    return prep, w_emb, uniform(rng, (L, B, H), 1.0, dtype, device)
+    return prep, w_emb, state_inputs(rng, B, dtype, device, cell)
 
 
 def top2_gap(logits):
@@ -158,6 +171,14 @@ def check_states(what, got, ref, dtype):
     return err
 
 
+def check_state(what, got, ref, dtype):
+    """new_hs, and for the LSTM new_cs, against the plain twin's; returns the larger error."""
+    if isinstance(got, tuple):
+        return max(check_states(what + " new_hs", got[0], ref[0], dtype),
+                   check_states(what + " new_cs", got[1], ref[1], dtype))
+    return check_states(what + " new_hs", got, ref, dtype)
+
+
 def check_tokens(what, tok, ref_tok, logits, dtype):
     gap_min = TOL[dname(dtype)][1]
     clear = top2_gap(logits) > gap_min
@@ -171,52 +192,65 @@ def kernels_against_plain(rng, device):
     """Phase 3.  Returns the bf16 B=64 max_abs_err of each kernel."""
     import torch
 
+    from show_tell_tpu_torch.models.attention import last_h
     from show_tell_tpu_torch.ops.attention import attention_context_cuda, attention_context_plain
     from show_tell_tpu_torch.ops.fused_attn import fused_attn_decode_step_cuda, fused_attn_decode_step_plain
-    from show_tell_tpu_torch.ops.fused_step import fused_gru_decode_step_cuda, fused_gru_decode_step_plain
+    from show_tell_tpu_torch.ops.fused_step import (
+        fused_gru_decode_step_cuda,
+        fused_gru_decode_step_plain,
+        fused_lstm_decode_step_cuda,
+        fused_lstm_decode_step_plain,
+    )
     from show_tell_tpu_torch.ops.vocab import project_argmax_cuda, project_argmax_plain, project_logits
 
+    pooled = (("fused_gru_decode_step", "gru", E, fused_gru_decode_step_cuda, fused_gru_decode_step_plain),
+              ("fused_lstm_decode_step", "lstm", LE, fused_lstm_decode_step_cuda, fused_lstm_decode_step_plain))
+    attention = (("fused_attn_decode_step", "gru"), ("fused_attn_lstm_decode_step", "lstm"))
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
         dn, tol = dname(dtype), TOL[dname(dtype)]
-        for B, Ed in ((1, E), (64, E), (512, E), (64, 1024)):
-            stacked, vocab, x, hs = step_inputs(rng, B, dtype, device, Ed)
-            tok, new_hs = fused_gru_decode_step_cuda(stacked, vocab, x, hs)
-            torch.cuda.synchronize()
-            ref_tok, ref_hs = fused_gru_decode_step_plain(stacked, vocab, x, hs)
-            what = "pooled step %s B=%d E=%d" % (dn, B, Ed)
-            err = check_states(what + " new_hs", new_hs, ref_hs, dtype)
-            n = check_tokens(what, tok, ref_tok, project_logits(vocab, ref_hs[-1]), dtype)
-            if dtype == torch.bfloat16 and B == 64 and Ed == E:
-                errs["fused_gru_decode_step"] = err
-            phase("kernel", "%s: new_hs max_abs_err %.3g (rtol atol %g); tokens equal on all %d rows with top-2 "
-                  "gap > %g, %d rows closer" % (what, err, tol[0], n, tol[1], B - n))
-        stacked, vocab, x, hs = step_inputs(rng, 64, dtype, device)
-        vocab["w"][9000] = vocab["w"][7]
-        vocab["b"][7] = vocab["b"][9000] = 100.0
-        tok, _ = fused_gru_decode_step_cuda(stacked, vocab, x, hs)
-        ref_tok, _ = fused_gru_decode_step_plain(stacked, vocab, x, hs)
-        if not (bool((tok == 7).all()) and bool((ref_tok == 7).all())):
-            fail("pooled step: tie of columns 7 and 9000 not resolved to 7 (%s): %s" % (dn, tok.unique().tolist()))
-        phase("kernel", "pooled step %s tie between columns 7 and 9000 -> 7 on all 64 rows" % dn)
+        for name, cell, Ec, cuda_step, plain_step in pooled:
+            shapes = ((1, Ec), (64, Ec), (512, Ec)) + (((64, 1024),) if cell == "gru" else ())
+            for B, Ed in shapes:
+                stacked, vocab, x, state = step_inputs(rng, B, dtype, device, Ed, cell)
+                tok, new_state = cuda_step(stacked, vocab, x, state)
+                torch.cuda.synchronize()
+                ref_tok, ref_state = plain_step(stacked, vocab, x, state)
+                what = "pooled %s step %s B=%d E=%d" % (cell, dn, B, Ed)
+                err = check_state(what, new_state, ref_state, dtype)
+                n = check_tokens(what, tok, ref_tok, project_logits(vocab, last_h(ref_state)), dtype)
+                if dtype == torch.bfloat16 and B == 64 and Ed == Ec:
+                    errs[name] = err
+                phase("kernel", "%s: state max_abs_err %.3g (rtol atol %g); tokens equal on all %d rows with top-2 "
+                      "gap > %g, %d rows closer" % (what, err, tol[0], n, tol[1], B - n))
+            stacked, vocab, x, state = step_inputs(rng, 64, dtype, device, Ec, cell)
+            vocab["w"][9000] = vocab["w"][7]
+            vocab["b"][7] = vocab["b"][9000] = 100.0
+            tok, _ = cuda_step(stacked, vocab, x, state)
+            ref_tok, _ = plain_step(stacked, vocab, x, state)
+            if not (bool((tok == 7).all()) and bool((ref_tok == 7).all())):
+                fail("pooled %s step: tie of columns 7 and 9000 not resolved to 7 (%s): %s"
+                     % (cell, dn, tok.unique().tolist()))
+            phase("kernel", "pooled %s step %s tie between columns 7 and 9000 -> 7 on all 64 rows" % (cell, dn))
 
         for B in (1, 64, 256):
-            prep, w_emb, hs = attn_inputs(rng, B, dtype, device)
-            tok, new_hs = fused_attn_decode_step_cuda(prep, w_emb, hs)
-            torch.cuda.synchronize()
-            ref_tok, ref_hs = fused_attn_decode_step_plain(prep, w_emb, hs)
-            what = "attention step %s B=%d" % (dn, B)
-            err = check_states(what + " new_hs", new_hs, ref_hs, dtype)
-            n = check_tokens(what, tok, ref_tok, project_logits(prep["vocab"], ref_hs[-1]), dtype)
-            if dtype == torch.bfloat16 and B == 64:
-                errs["fused_attn_decode_step"] = err
-            phase("kernel", "%s: new_hs max_abs_err %.3g (rtol atol %g); tokens equal on all %d rows with top-2 "
-                  "gap > %g, %d rows closer" % (what, err, tol[0], n, tol[1], B - n))
-
+            for name, cell in attention:
+                prep, w_emb, state = attn_inputs(rng, B, dtype, device, cell)
+                tok, new_state = fused_attn_decode_step_cuda(prep, w_emb, state)
+                torch.cuda.synchronize()
+                ref_tok, ref_state = fused_attn_decode_step_plain(prep, w_emb, state)
+                what = "attention %s step %s B=%d" % (cell, dn, B)
+                err = check_state(what, new_state, ref_state, dtype)
+                n = check_tokens(what, tok, ref_tok, project_logits(prep["vocab"], last_h(ref_state)), dtype)
+                if dtype == torch.bfloat16 and B == 64:
+                    errs[name] = err
+                phase("kernel", "%s: state max_abs_err %.3g (rtol atol %g); tokens equal on all %d rows with top-2 "
+                      "gap > %g, %d rows closer" % (what, err, tol[0], n, tol[1], B - n))
+            top = last_h(state)
             feats = uniform(rng, (B, AP, AC), 1.0, dtype, device)
-            ctx, alpha = attention_context_cuda(prep, feats, prep["att1"], hs[-1])
+            ctx, alpha = attention_context_cuda(prep, feats, prep["att1"], top)
             torch.cuda.synchronize()
-            ref_ctx, ref_alpha = attention_context_plain(prep, feats, prep["att1"], hs[-1])
+            ref_ctx, ref_alpha = attention_context_plain(prep, feats, prep["att1"], top)
             what = "attention context %s B=%d" % (dn, B)
             err = check_states(what + " ctx", ctx, ref_ctx, dtype)
             a_err = (alpha - ref_alpha).abs().max().item()
@@ -227,7 +261,6 @@ def kernels_against_plain(rng, device):
             phase("kernel", "%s: ctx max_abs_err %.3g (rtol atol %g), alpha max_abs_err %.3g (rtol 1e-5 atol 1e-6)"
                   % (what, err, tol[0], a_err))
 
-            top = hs[-1]
             tok = project_argmax_cuda(prep["vocab"], top)
             torch.cuda.synchronize()
             ref_tok = project_argmax_plain(prep["vocab"], top)
@@ -241,15 +274,19 @@ def kernels_against_plain(rng, device):
             phase("kernel", "%s: tokens equal on all %d rows with top-2 gap > %g, %d rows closer; largest logit "
                   "gap between the two picks %.3g" % (what, n, tol[1], B - n, err))
 
-        prep, w_emb, hs = attn_inputs(rng, 64, dtype, device)
-        prep["vocab"]["w"][9000] = prep["vocab"]["w"][7]
-        prep["vocab"]["b"][7] = prep["vocab"]["b"][9000] = 100.0
-        toks = [fused_attn_decode_step_cuda(prep, w_emb, hs)[0], fused_attn_decode_step_plain(prep, w_emb, hs)[0],
-                project_argmax_cuda(prep["vocab"], hs[-1]), project_argmax_plain(prep["vocab"], hs[-1])]
-        if not all(bool((t == 7).all()) for t in toks):
-            fail("attention step / project_argmax: tie of columns 7 and 9000 not resolved to 7 (%s)" % dn)
-        phase("kernel", "attention step and project_argmax %s: tie between columns 7 and 9000 -> 7 on all 64 rows"
-              % dn)
+        for _, cell in attention:
+            prep, w_emb, state = attn_inputs(rng, 64, dtype, device, cell)
+            prep["vocab"]["w"][9000] = prep["vocab"]["w"][7]
+            prep["vocab"]["b"][7] = prep["vocab"]["b"][9000] = 100.0
+            top = last_h(state)
+            toks = [fused_attn_decode_step_cuda(prep, w_emb, state)[0],
+                    fused_attn_decode_step_plain(prep, w_emb, state)[0],
+                    project_argmax_cuda(prep["vocab"], top), project_argmax_plain(prep["vocab"], top)]
+            if not all(bool((t == 7).all()) for t in toks):
+                fail("attention %s step / project_argmax: tie of columns 7 and 9000 not resolved to 7 (%s)"
+                     % (cell, dn))
+            phase("kernel", "attention %s step and project_argmax %s: tie between columns 7 and 9000 -> 7 on all 64 "
+                  "rows" % (cell, dn))
     return errs
 
 
@@ -336,9 +373,10 @@ def main():
     errs = kernels_against_plain(rng, device)
 
     from show_tell_tpu_torch.data.transforms import preprocess_images
-    from show_tell_tpu_torch.models.attention import init_hidden, linear_f32, start_embeddings
+    from show_tell_tpu_torch.models.attention import init_hidden, last_h, linear_f32, start_embeddings
     from show_tell_tpu_torch.models.captioner import CaptionerConfig, init_captioner
     from show_tell_tpu_torch.models.decoder import greedy_loop
+    from show_tell_tpu_torch.models.rnn_cells import init_state
     from show_tell_tpu_torch.ops.attention import (
         attention_context,
         attention_context_cuda,
@@ -350,18 +388,23 @@ def main():
         fused_attn_decode_step,
         fused_attn_decode_step_cuda,
         fused_attn_decode_step_plain,
+        fused_attn_lstm_decode_step,
         prepare_attn_decode,
     )
     from show_tell_tpu_torch.ops.fused_step import (
         fused_gru_decode_step,
         fused_gru_decode_step_cuda,
         fused_gru_decode_step_plain,
+        fused_lstm_decode_step,
+        fused_lstm_decode_step_cuda,
+        fused_lstm_decode_step_plain,
     )
-    from show_tell_tpu_torch.ops.rnn import gru_stack_plain
+    from show_tell_tpu_torch.ops.rnn import stack_plain
     from show_tell_tpu_torch.ops.vocab import project_argmax, project_argmax_cuda, project_argmax_plain, project_logits
     from show_tell_tpu_torch.serve import Captioner
 
-    counters = [fused_gru_decode_step, fused_attn_decode_step, attention_context, project_argmax]
+    counters = [fused_gru_decode_step, fused_lstm_decode_step, fused_attn_decode_step, fused_attn_lstm_decode_step,
+                attention_context, project_argmax]
     vocab = SyntheticVocab(V)
     img_rng = np.random.RandomState(SEED + 1)
 
@@ -369,146 +412,169 @@ def main():
         x = preprocess_images(torch.from_numpy(images_u8).to(device), augment=False, dtype=cap.dtype)
         return cap.model.encoder(x)
 
-    def plain_loop(step, embedding, x0, hs0):
+    def plain_loop(step, embedding, x0, state0):
         """greedy_loop over a plain step; returns ids and each row's smallest top-2 logit gap."""
         gaps = []
 
-        def run(x, hs):
-            tok, hs2, logits = step(x, hs)
+        def run(x, state):
+            tok, state2, logits = step(x, state)
             gaps.append(top2_gap(logits))
-            return tok, hs2
+            return tok, state2
 
-        ids = greedy_loop(run, embedding, x0, hs0, T)
+        ids = greedy_loop(run, embedding, x0, state0, T)
         return ids.cpu().numpy(), torch.stack(gaps, 1).min(1).values.cpu().numpy()
 
-    # 4. pooled main path
-    cfg = CaptionerConfig("gru", 101, E, H, V, L)
-    params, bn_state = init_captioner(cfg, torch.Generator().manual_seed(SEED))
+    def show_captions(label, served):
+        for row in served[0][:3]:
+            phase("main", "%s caption: %s ..." % (label, " ".join(vocab.index_to_word[int(t)] for t in row[:8])))
 
-    def pooled_plain(cap, images_u8):
-        """The same features, decoded with the plain step on the card."""
+    def pooled_slice(variant, Ed, counter):
+        """Phase 4 for one pooled family; returns (launches, seconds of the three requests)."""
+        cfg = CaptionerConfig(variant, 101, Ed, H, V, L)
+        params, bn_state = init_captioner(cfg, torch.Generator().manual_seed(SEED))
+        plain_step = fused_lstm_decode_step_plain if cfg.cell_type == "lstm" else fused_gru_decode_step_plain
+
+        def pooled_plain(cap, images_u8):
+            """The same features, decoded with the plain step on the card."""
+            with torch.inference_mode():
+                feats = features(cap, images_u8)
+                prep = cap.prepared
+
+                def step(xx, state):
+                    tok, state2 = plain_step(prep["stacked"], prep["vocab"], xx, state)
+                    return tok, state2, project_logits(prep["vocab"], last_h(state2))
+
+                state0 = init_state(cfg.cell_type, L, len(images_u8), H, cap.dtype, device)
+                return plain_loop(step, prep["embedding"], feats.to(cap.dtype), state0)
+
+        cap = Captioner(params, bn_state, cfg, vocab, "bfloat16", device="gpu")
+        requests = [img_rng.randint(0, 256, (64, 224, 224, 3), dtype=np.uint8) for _ in range(3)]
+        served, seconds, counts = serve(cap, requests, counters, {counter.__name__: 3 * T})
+        check_served(variant, served, requests, pooled_plain, cap)
+        phase("main", "%s: launches in the three requests %s (fused step = 3 x 25)" % (variant, counts))
+        show_captions(variant, served)
+        cap32 = Captioner(params, bn_state, cfg, vocab, "float32", device="gpu")
+        check_f32(variant, cap32, img_rng.randint(0, 256, (8, 224, 224, 3), dtype=np.uint8), counter, pooled_plain)
+        return counts[counter.__name__], seconds
+
+    def attention_slice(variant, counter):
+        """Phase 5 for one attention family; returns (launches, seconds of the
+        three requests, the composite decode's launch counts)."""
+        acfg = CaptionerConfig(variant, 101, AE, H, V, L, nos_filters=AC, attn_dim=AA)
+        dcfg = acfg.decoder_config()
+        params, bn_state = init_captioner(acfg, torch.Generator().manual_seed(SEED))
+
+        def attn_plain(cap, images_u8):
+            """The same features, decoded with the fused step's plain twin on the card."""
+            with torch.inference_mode():
+                feats = features(cap, images_u8)
+                dec = cap.model.decoder
+                prep = prepare_attn_decode(cap.prepared, dec, feats.transpose(1, 2))
+
+                def step(w_emb, state):
+                    tok, state2 = fused_attn_decode_step_plain(prep, w_emb, state)
+                    return tok, state2, project_logits(prep["vocab"], last_h(state2))
+
+                w0 = start_embeddings(dec, len(images_u8), acfg.start_token, device)
+                return plain_loop(step, dec.embeddings.weight, w0, init_hidden(dec, dcfg, feats))
+
+        acap = Captioner(params, bn_state, acfg, vocab, "bfloat16", device="gpu")
+        requests = [img_rng.randint(0, 256, (64, 224, 224, 3), dtype=np.uint8) for _ in range(3)]
+        served, seconds, counts = serve(acap, requests, counters, {counter.__name__: 3 * T})
+        check_served(variant, served, requests, attn_plain, acap)
+        phase("main", "%s: launches in the three requests %s (fused attention step = 3 x 25)" % (variant, counts))
+        show_captions(variant, served)
+
+        # the composite path, called directly: the flagship (H <= 2E) takes the fused step
         with torch.inference_mode():
-            feats = features(cap, images_u8)
-            prep = cap.prepared
+            feats = features(acap, requests[0])
+            for fn in counters:
+                fn.launches = 0
+            comp_ids = attn_greedy_decode_composite(acap.prepared, acap.model.decoder, dcfg, feats,
+                                                    acfg.start_token).cpu().numpy()
+            comp_counts = {fn.__name__: fn.launches for fn in counters}
+            dec = acap.model.decoder
+            feats_pm = feats.transpose(1, 2).contiguous()
+            att1 = precompute_att1(dec.attn, feats_pm).to(acap.dtype).contiguous()
+            weights = acap.prepared
+            stack = stack_plain(dcfg.cell_type)
 
-            def step(xx, hs):
-                tok, hs2 = fused_gru_decode_step_plain(prep["stacked"], prep["vocab"], xx, hs)
-                return tok, hs2, project_logits(prep["vocab"], hs2[-1])
+            def comp_step(w_emb, state):
+                ctx, _ = attention_context_plain(weights, feats_pm, att1, last_h(state))
+                x = torch.cat([w_emb, linear_f32(dec.embed, ctx).to(w_emb.dtype)], dim=-1)
+                top, state2 = stack(weights["stacked"], x, state)
+                return project_argmax_plain(weights["vocab"], top), state2, project_logits(weights["vocab"], top)
 
-            hs0 = torch.zeros(L, len(images_u8), H, dtype=cap.dtype, device=device)
-            return plain_loop(step, prep["embedding"], feats.to(cap.dtype), hs0)
+            comp_ref, _ = plain_loop(comp_step, dec.embeddings.weight,
+                                     start_embeddings(dec, 64, acfg.start_token, device), init_hidden(dec, dcfg, feats))
+        if comp_counts["attention_context"] != T or comp_counts["project_argmax"] != T:
+            fail("%s composite decode launched %s, expected 25 context and 25 projection launches"
+                 % (variant, comp_counts))
+        share = float((comp_ids == comp_ref).mean())
+        if share < 0.95:
+            fail("%s composite decode: ids equal the plain composite decode on %.4f of positions (< 0.95)"
+                 % (variant, share))
+        phase("main", "%s composite bf16 B=64: launches %s; ids equal the plain composite decode on %.4f of "
+              "positions" % (variant, comp_counts, share))
+        acap32 = Captioner(params, bn_state, acfg, vocab, "float32", device="gpu")
+        check_f32(variant, acap32, img_rng.randint(0, 256, (8, 224, 224, 3), dtype=np.uint8), counter, attn_plain)
+        return counts[counter.__name__], seconds, comp_counts
 
-    cap = Captioner(params, bn_state, cfg, vocab, "bfloat16", device="gpu")
-    requests = [img_rng.randint(0, 256, (64, 224, 224, 3), dtype=np.uint8) for _ in range(3)]
-    served, pooled_s, counts = serve(cap, requests, counters, {"fused_gru_decode_step": 3 * T})
-    pooled_launches = counts["fused_gru_decode_step"]
-    check_served("pooled", served, requests, pooled_plain, cap)
-    phase("main", "pooled: launches in the three requests %s (fused step = 3 x 25)" % counts)
-    for row in served[0][:3]:
-        phase("main", "pooled caption: %s ..." % " ".join(vocab.index_to_word[int(t)] for t in row[:8]))
-    cap32 = Captioner(params, bn_state, cfg, vocab, "float32", device="gpu")
-    check_f32("pooled", cap32, img_rng.randint(0, 256, (8, 224, 224, 3), dtype=np.uint8), fused_gru_decode_step,
-              pooled_plain)
-    del cap, cap32, params, bn_state
+    # 4. pooled main paths
+    launches, slice_s = {}, {}
+    for variant, Ed, counter in (("gru", E, fused_gru_decode_step), ("lstm", LE, fused_lstm_decode_step)):
+        launches[counter.__name__], slice_s[variant] = pooled_slice(variant, Ed, counter)
 
-    # 5. attention main path
-    acfg = CaptionerConfig("attn", 101, AE, H, V, L, nos_filters=AC, attn_dim=AA)
-    dcfg = acfg.decoder_config()
-    params, bn_state = init_captioner(acfg, torch.Generator().manual_seed(SEED))
-
-    def attn_plain(cap, images_u8):
-        """The same features, decoded with the fused step's plain twin on the card."""
-        with torch.inference_mode():
-            feats = features(cap, images_u8)
-            dec = cap.model.decoder
-            prep = prepare_attn_decode(cap.prepared, dec, feats.transpose(1, 2))
-
-            def step(w_emb, hs):
-                tok, hs2 = fused_attn_decode_step_plain(prep, w_emb, hs)
-                return tok, hs2, project_logits(prep["vocab"], hs2[-1])
-
-            w0 = start_embeddings(dec, len(images_u8), acfg.start_token, device)
-            return plain_loop(step, dec.embeddings.weight, w0, init_hidden(dec, dcfg, feats))
-
-    acap = Captioner(params, bn_state, acfg, vocab, "bfloat16", device="gpu")
-    requests = [img_rng.randint(0, 256, (64, 224, 224, 3), dtype=np.uint8) for _ in range(3)]
-    served, attn_s, counts = serve(acap, requests, counters, {"fused_attn_decode_step": 3 * T})
-    attn_launches = counts["fused_attn_decode_step"]
-    check_served("attention", served, requests, attn_plain, acap)
-    phase("main", "attention: launches in the three requests %s (fused attention step = 3 x 25)" % counts)
-    for row in served[0][:3]:
-        phase("main", "attention caption: %s ..." % " ".join(vocab.index_to_word[int(t)] for t in row[:8]))
-
-    # the composite path, called directly: the flagship (H <= 2E) takes the fused step
-    with torch.inference_mode():
-        feats = features(acap, requests[0])
-        for fn in counters:
-            fn.launches = 0
-        comp_ids = attn_greedy_decode_composite(acap.prepared, acap.model.decoder, dcfg, feats,
-                                                acfg.start_token).cpu().numpy()
-        comp_counts = {fn.__name__: fn.launches for fn in counters}
-        dec = acap.model.decoder
-        feats_pm = feats.transpose(1, 2).contiguous()
-        att1 = precompute_att1(dec.attn, feats_pm).to(acap.dtype).contiguous()
-        weights = acap.prepared
-
-        def comp_step(w_emb, hs):
-            ctx, _ = attention_context_plain(weights, feats_pm, att1, hs[-1])
-            x = torch.cat([w_emb, linear_f32(dec.embed, ctx).to(w_emb.dtype)], dim=-1)
-            top, hs2 = gru_stack_plain(weights["stacked"], x, hs)
-            return project_argmax_plain(weights["vocab"], top), hs2, project_logits(weights["vocab"], top)
-
-        comp_ref, _ = plain_loop(comp_step, dec.embeddings.weight, start_embeddings(dec, 64, acfg.start_token, device),
-                                 init_hidden(dec, dcfg, feats))
-    if comp_counts["attention_context"] != T or comp_counts["project_argmax"] != T:
-        fail("composite decode launched %s, expected 25 context and 25 projection launches" % comp_counts)
-    share = float((comp_ids == comp_ref).mean())
-    if share < 0.95:
-        fail("composite decode: ids equal the plain composite decode on %.4f of positions (< 0.95)" % share)
-    phase("main", "attention composite bf16 B=64: launches %s; ids equal the plain composite decode on %.4f of "
-          "positions" % (comp_counts, share))
-    acap32 = Captioner(params, bn_state, acfg, vocab, "float32", device="gpu")
-    check_f32("attention", acap32, img_rng.randint(0, 256, (8, 224, 224, 3), dtype=np.uint8),
-              fused_attn_decode_step, attn_plain)
-    del acap, acap32
+    # 5. attention main paths
+    comp = {}
+    for variant, counter in (("attn", fused_attn_decode_step), ("attn_lstm", fused_attn_lstm_decode_step)):
+        launches[counter.__name__], slice_s[variant], comp[variant] = attention_slice(variant, counter)
+    for name in ("attention_context", "project_argmax"):
+        launches[name] = sum(counts[name] for counts in comp.values())  # both composite decodes
 
     # 6. times (bf16, flagship widths)
     times = {}
     note = "(median of 30 after 5, CUDA events)"
-    for B in (1, 64, 512):
-        stacked, vocab_w, x, hs = step_inputs(rng, B, torch.bfloat16, device)
-        times["fused_gru_decode_step", B] = (
-            event_median_ms(lambda: fused_gru_decode_step_cuda(stacked, vocab_w, x, hs)),
-            event_median_ms(lambda: fused_gru_decode_step_plain(stacked, vocab_w, x, hs)))
+    for name, cell, Ed, cuda_step, plain_step in (
+            ("fused_gru_decode_step", "gru", E, fused_gru_decode_step_cuda, fused_gru_decode_step_plain),
+            ("fused_lstm_decode_step", "lstm", LE, fused_lstm_decode_step_cuda, fused_lstm_decode_step_plain)):
+        for B in (1, 64, 512):
+            stacked, vocab_w, x, state = step_inputs(rng, B, torch.bfloat16, device, Ed, cell)
+            times[name, B] = (event_median_ms(lambda: cuda_step(stacked, vocab_w, x, state)),
+                              event_median_ms(lambda: plain_step(stacked, vocab_w, x, state)))
     for B in (1, 64, 256):
-        prep, w_emb, hs = attn_inputs(rng, B, torch.bfloat16, device)
+        for name, cell in (("fused_attn_decode_step", "gru"), ("fused_attn_lstm_decode_step", "lstm")):
+            prep, w_emb, state = attn_inputs(rng, B, torch.bfloat16, device, cell)
+            times[name, B] = (event_median_ms(lambda: fused_attn_decode_step_cuda(prep, w_emb, state)),
+                              event_median_ms(lambda: fused_attn_decode_step_plain(prep, w_emb, state)))
+        h = last_h(state)
         feats = uniform(rng, (B, AP, AC), 1.0, torch.bfloat16, device)
-        times["fused_attn_decode_step", B] = (
-            event_median_ms(lambda: fused_attn_decode_step_cuda(prep, w_emb, hs)),
-            event_median_ms(lambda: fused_attn_decode_step_plain(prep, w_emb, hs)))
         times["attention_context", B] = (
-            event_median_ms(lambda: attention_context_cuda(prep, feats, prep["att1"], hs[-1])),
-            event_median_ms(lambda: attention_context_plain(prep, feats, prep["att1"], hs[-1])))
+            event_median_ms(lambda: attention_context_cuda(prep, feats, prep["att1"], h)),
+            event_median_ms(lambda: attention_context_plain(prep, feats, prep["att1"], h)))
         times["project_argmax", B] = (
-            event_median_ms(lambda: project_argmax_cuda(prep["vocab"], hs[-1])),
-            event_median_ms(lambda: project_argmax_plain(prep["vocab"], hs[-1])))
+            event_median_ms(lambda: project_argmax_cuda(prep["vocab"], h)),
+            event_median_ms(lambda: project_argmax_plain(prep["vocab"], h)))
     for (name, B), (k_ms, p_ms) in times.items():
         phase("times", "%s bf16 %s B=%d: kernel %.4f ms, plain %.4f ms %s" % (card, name, B, k_ms, p_ms, note))
-    phase("times", "%s pooled-GRU slice, bf16, ResNet-101 + 25 greedy steps: %.1f captions/s at B=64 "
-          "(3 requests, %.3f s, host clock to ids on the host)" % (card, 3 * 64 / pooled_s, pooled_s))
-    phase("times", "%s attention-GRU slice, bf16, spatial ResNet-101 + 25 greedy steps: %.1f captions/s at B=64 "
-          "(3 requests, %.3f s, host clock to ids on the host)" % (card, 3 * 64 / attn_s, attn_s))
+    for variant, what in (("gru", "pooled-GRU slice, bf16, ResNet-101"),
+                          ("lstm", "pooled-LSTM slice, bf16, ResNet-101"),
+                          ("attn", "attention-GRU slice, bf16, spatial ResNet-101"),
+                          ("attn_lstm", "attention-LSTM slice, bf16, spatial ResNet-101")):
+        phase("times", "%s %s + 25 greedy steps: %.1f captions/s at B=64 (3 requests, %.3f s, host clock to ids on "
+              "the host)" % (card, what, 3 * 64 / slice_s[variant], slice_s[variant]))
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "show_tell_tpu"))
     if leaked:
         fail("the port's path imported %s" % leaked[:5])
 
     rows = [
-        ("fused_gru_decode_step", "fused_gru_step.cu", "show_tell_tpu/ops/fused_step_pallas.py:255", pooled_launches),
-        ("fused_attn_decode_step", "fused_attn_step.cu", "show_tell_tpu/ops/fused_attn_pallas.py:330", attn_launches),
-        ("attention_context", "attention_context.cu", "show_tell_tpu/ops/attention_pallas.py:94",
-         comp_counts["attention_context"]),
-        ("project_argmax", "project_argmax.cu", "show_tell_tpu/ops/vocab_pallas.py:170", comp_counts["project_argmax"]),
+        ("fused_gru_decode_step", "fused_step.cu", "show_tell_tpu/ops/fused_step_pallas.py:255"),
+        ("fused_lstm_decode_step", "fused_step.cu", "show_tell_tpu/ops/fused_step_pallas.py:277"),
+        ("fused_attn_decode_step", "fused_attn_step.cu", "show_tell_tpu/ops/fused_attn_pallas.py:330"),
+        ("fused_attn_lstm_decode_step", "fused_attn_step.cu", "show_tell_tpu/ops/fused_attn_pallas.py:330"),
+        ("attention_context", "attention_context.cu", "show_tell_tpu/ops/attention_pallas.py:94"),
+        ("project_argmax", "project_argmax.cu", "show_tell_tpu/ops/vocab_pallas.py:170"),
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": [{
@@ -516,11 +582,11 @@ def main():
         "route": "cuda",
         "source": "show_tell_tpu_torch/csrc/" + src,
         "replaces": replaces,
-        "launches": launches,
+        "launches": launches[name],
         "max_abs_err": errs[name],
         "ms": times[name, 64][0],
         "plain_ms": times[name, 64][1],
-    } for name, src, replaces, launches in rows]}), flush=True)
+    } for name, src, replaces in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
 

@@ -10,7 +10,7 @@ import no jax either.
 Layout mirrors the JAX package:
   core/     device resolution (--device cpu|gpu)
   data/     on-device image preprocessing
-  models/   ResNet encoder, GRU decoder, captioner, JAX <-> torch weight bridge
+  models/   ResNet encoder, GRU/LSTM decoders (pooled, attention), captioner, weight bridge
   ops/      the CUDA kernels (csrc/), their wrappers and plain twins, the build
   serve.py  Captioner and the captioning CLI
 """

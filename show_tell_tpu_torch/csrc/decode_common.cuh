@@ -1,7 +1,8 @@
-// Device code shared by the decode kernels (fused_gru_step.cu,
+// Device code shared by the decode kernels (fused_step.cu,
 // fused_attn_step.cu, attention_context.cu, project_argmax.cu): 16-byte
-// vector loads, warp reductions, the first-max argmax key, the GRU stack
-// layer and the vocab projection + argmax, and the cooperative launch.
+// vector loads, warp reductions, the first-max argmax key, the GRU and
+// LSTM stack layers, the vocab projection + argmax, and the cooperative
+// launch.
 //
 // Every kernel here runs kThreads threads a block.  Weights are in the torch
 // layout [out, in], so one output column is one contiguous row: a warp owns
@@ -114,104 +115,22 @@ struct Tiling {
   __device__ int items() const { return row_tiles * splits; }
 };
 
-// One GRU layer over all B rows: hout = GRU(xin [B, I], hin [B, H]) with
-// w_ih [3H, I] and w_hh [3H, H] (gate order r, z, n; double biases; the
-// reset gate multiplies W_hn h + b_hn).  Products are summed and the gate
-// math is done in f32; h' is cast to T.  xs holds kBM rows of I floats,
-// hsm kBM rows of H.
-template <typename T>
-__device__ void gru_layer(const T* xin, int I, const T* hin, const T* w_ih, const T* w_hh,
-                          const T* b_ih, const T* b_hh, T* hout, int B, int H, float* xs, float* hsm) {
-  constexpr int N = Vec<T>::N;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  Tiling t(B, H);
-  for (int item = blockIdx.x; item < t.items(); item += gridDim.x) {
-    const int b0 = (item / t.splits) * kBM;
-    const int nb = min(kBM, B - b0);
-    const int j0 = (item % t.splits) * t.per_split;
-    const int j1 = min(H, j0 + t.per_split);
-    __syncthreads();  // the previous item is done with the tiles
-    load_rows<T>(xs, xin, b0, nb, I);
-    load_rows<T>(hsm, hin, b0, nb, H);
-    __syncthreads();
-    for (int j = j0 + warp; j < j1; j += kWarps) {
-      float acc[kBM][6];
-#pragma unroll
-      for (int b = 0; b < kBM; ++b)
-#pragma unroll
-        for (int g = 0; g < 6; ++g) acc[b][g] = 0.0f;
-      // x side: acc[b][0..2] += w_ih[g*H + j] . x[b]
-      for (int k = lane * N; k < I; k += 32 * N) {
-        float w[3][N];
-#pragma unroll
-        for (int g = 0; g < 3; ++g) Vec<T>::ldg(w_ih + static_cast<size_t>(g * H + j) * I + k, w[g]);
-#pragma unroll
-        for (int b = 0; b < kBM; ++b) {
-          if (b < nb) {
-            const float* xr = xs + b * I + k;
-#pragma unroll
-            for (int i = 0; i < N; ++i)
-#pragma unroll
-              for (int g = 0; g < 3; ++g) acc[b][g] += w[g][i] * xr[i];
-          }
-        }
-      }
-      // h side: acc[b][3..5] += w_hh[g*H + j] . h[b]
-      for (int k = lane * N; k < H; k += 32 * N) {
-        float w[3][N];
-#pragma unroll
-        for (int g = 0; g < 3; ++g) Vec<T>::ldg(w_hh + static_cast<size_t>(g * H + j) * H + k, w[g]);
-#pragma unroll
-        for (int b = 0; b < kBM; ++b) {
-          if (b < nb) {
-            const float* hr = hsm + b * H + k;
-#pragma unroll
-            for (int i = 0; i < N; ++i)
-#pragma unroll
-              for (int g = 0; g < 3; ++g) acc[b][3 + g] += w[g][i] * hr[i];
-          }
-        }
-      }
-      float mine[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int b = 0; b < kBM; ++b) {
-        if (b < nb) {
-#pragma unroll
-          for (int g = 0; g < 6; ++g) {
-            const float s = warp_sum(acc[b][g]);
-            if (lane == b) mine[g] = s;
-          }
-        }
-      }
-      if (lane < nb) {
-        const float gx_r = mine[0] + Vec<T>::to_f32(b_ih[j]);
-        const float gx_z = mine[1] + Vec<T>::to_f32(b_ih[H + j]);
-        const float gx_n = mine[2] + Vec<T>::to_f32(b_ih[2 * H + j]);
-        const float gh_r = mine[3] + Vec<T>::to_f32(b_hh[j]);
-        const float gh_z = mine[4] + Vec<T>::to_f32(b_hh[H + j]);
-        const float gh_n = mine[5] + Vec<T>::to_f32(b_hh[2 * H + j]);
-        const float r = sigmoidf(gx_r + gh_r);
-        const float z = sigmoidf(gx_z + gh_z);
-        const float n = tanhf(gx_n + r * gh_n);
-        const float h = hsm[lane * H + j];
-        hout[static_cast<size_t>(b0 + lane) * H + j] = Vec<T>::from_f32((1.0f - z) * n + z * h);
-      }
-    }
-  }
-}
-
-// The recurrence of a decode step: L layers over [L, B, H] states.  Layer
-// 0 reads x [B, I0] with its own w_ih0 [3H, I0]; layer l > 0 reads layer
-// l-1's output from new_hs with w_ihU[l-1] [3H, H].
+// The recurrence's state and weights, stacked over the L layers.  Layer 0
+// reads x [B, I0] with its own w_ih0 [G*H, I0]; layer l > 0 reads layer
+// l-1's output from new_hs with w_ihU[l-1] [G*H, H].  G is the cell's gate
+// count (3 GRU, 4 LSTM); cs and new_cs are the LSTM's cell state, null for
+// the GRU.
 struct StackArgs {
   const void* x;      // [B, I0]     layer-0 input
-  const void* w_ih0;  // [3H, I0]
-  const void* w_ihU;  // [L-1, 3H, H]
-  const void* w_hh;   // [L, 3H, H]
-  const void* b_ih;   // [L, 3H]
-  const void* b_hh;   // [L, 3H]
+  const void* w_ih0;  // [G*H, I0]
+  const void* w_ihU;  // [L-1, G*H, H]
+  const void* w_hh;   // [L, G*H, H]
+  const void* b_ih;   // [L, G*H]
+  const void* b_hh;   // [L, G*H]
   const void* hs;     // [L, B, H]   state in
+  const void* cs;     // [L, B, H]   cell state in (LSTM), or null
   void* new_hs;       // [L, B, H]   state out
+  void* new_cs;       // [L, B, H]   cell state out (LSTM), or null
   int L, B, I0, H;
 };
 
@@ -220,24 +139,161 @@ inline size_t stack_smem_floats(const StackArgs& s) {
   return static_cast<size_t>(kBM) * ((s.I0 > s.H ? s.I0 : s.H) + s.H);
 }
 
-// The cell of the stack.  A kernel templated on the cell calls
-// Cell::layer<T>(stack, l, smem) for l = 0..L-1 with a grid barrier after each.
+// One layer of the stack over all B rows, as pointers into StackArgs.
+template <typename T>
+struct Layer {
+  const T* xin;   // [B, I]
+  const T* hin;   // [B, H]
+  const T* cin;   // [B, H] (LSTM) or null
+  const T* w_ih;  // [G*H, I]
+  const T* w_hh;  // [G*H, H]
+  const T* b_ih;  // [G*H]
+  const T* b_hh;  // [G*H]
+  T* hout;        // [B, H]
+  T* cout;        // [B, H] (LSTM) or null
+  int I, B, H;
+};
+
+// acc[b][A0 + g] += w[g*H + j] . rows[b] for the G gates of column j and
+// the nb rows held in shared memory (width floats each).  Each lane takes
+// 16-byte chunks of the weight rows; the warp sums the lanes afterwards.
+template <typename T, int G, int A0, int NA>
+__device__ __forceinline__ void gate_dots(float (&acc)[kBM][NA], const T* w, int width, int H, int j,
+                                          const float* rows, int nb) {
+  constexpr int N = Vec<T>::N;
+  const int lane = threadIdx.x & 31;
+  for (int k = lane * N; k < width; k += 32 * N) {
+    float wv[G][N];
+#pragma unroll
+    for (int g = 0; g < G; ++g) Vec<T>::ldg(w + static_cast<size_t>(g * H + j) * width + k, wv[g]);
+#pragma unroll
+    for (int b = 0; b < kBM; ++b) {
+      if (b < nb) {
+        const float* r = rows + b * width + k;
+#pragma unroll
+        for (int i = 0; i < N; ++i)
+#pragma unroll
+          for (int g = 0; g < G; ++g) acc[b][A0 + g] += wv[g][i] * r[i];
+      }
+    }
+  }
+}
+
+// The cells.  Each names its gate count G, its kAcc f32 sums per row and
+// column (the x-side sums go to acc[0..G), the h-side sums from kHidden),
+// and finish(), which turns lane b's sums into row b's outputs at column j
+// (inlined, so that the sums stay in registers).
+// Weights are in the torch layout with torch's gate order and double
+// biases; the gate math is f32 and only the stored states are cast to T.
+
+// GRU, gates r, z, n: the reset gate multiplies the hidden-side affine
+// W_hn h + b_hn, so the two sides are summed apart.
 struct GruCell {
+  static constexpr int kGates = 3, kAcc = 6, kHidden = 3;
   template <typename T>
-  __device__ static void layer(const StackArgs& s, int l, float* smem) {
-    const size_t LH3 = static_cast<size_t>(3) * s.H * s.H;
-    const size_t BH = static_cast<size_t>(s.B) * s.H;
-    const T* xin = l == 0 ? static_cast<const T*>(s.x) : static_cast<const T*>(s.new_hs) + (l - 1) * BH;
-    const T* w_ih = l == 0 ? static_cast<const T*>(s.w_ih0) : static_cast<const T*>(s.w_ihU) + (l - 1) * LH3;
-    float* xs = smem;
-    float* hsm = smem + static_cast<size_t>(kBM) * (s.I0 > s.H ? s.I0 : s.H);
-    gru_layer<T>(xin, l == 0 ? s.I0 : s.H, static_cast<const T*>(s.hs) + l * BH, w_ih,
-                 static_cast<const T*>(s.w_hh) + l * LH3,
-                 static_cast<const T*>(s.b_ih) + static_cast<size_t>(l) * 3 * s.H,
-                 static_cast<const T*>(s.b_hh) + static_cast<size_t>(l) * 3 * s.H,
-                 static_cast<T*>(s.new_hs) + l * BH, s.B, s.H, xs, hsm);
+  __device__ __forceinline__ static void finish(const Layer<T>& y, const float* s, int row, int j, float h) {
+    const int H = y.H;
+    const float gx_r = s[0] + Vec<T>::to_f32(y.b_ih[j]);
+    const float gx_z = s[1] + Vec<T>::to_f32(y.b_ih[H + j]);
+    const float gx_n = s[2] + Vec<T>::to_f32(y.b_ih[2 * H + j]);
+    const float gh_r = s[3] + Vec<T>::to_f32(y.b_hh[j]);
+    const float gh_z = s[4] + Vec<T>::to_f32(y.b_hh[H + j]);
+    const float gh_n = s[5] + Vec<T>::to_f32(y.b_hh[2 * H + j]);
+    const float r = sigmoidf(gx_r + gh_r);
+    const float z = sigmoidf(gx_z + gh_z);
+    const float n = tanhf(gx_n + r * gh_n);
+    y.hout[static_cast<size_t>(row) * H + j] = Vec<T>::from_f32((1.0f - z) * n + z * h);
   }
 };
+
+// LSTM, gates i, f, g, o: both sides of a gate go into one sum (4 sums a
+// row where keeping them apart would take 8 and spill).  c' = f c + i g
+// and h' = o tanh(c') are taken in f32 from the unrounded c', as
+// rnn_pallas.lstm_cell_math does; then each is cast to T.
+struct LstmCell {
+  static constexpr int kGates = 4, kAcc = 4, kHidden = 0;
+  template <typename T>
+  __device__ __forceinline__ static void finish(const Layer<T>& y, const float* s, int row, int j, float) {
+    const int H = y.H;
+    const float ig = sigmoidf(s[0] + Vec<T>::to_f32(y.b_ih[j]) + Vec<T>::to_f32(y.b_hh[j]));
+    const float fg = sigmoidf(s[1] + Vec<T>::to_f32(y.b_ih[H + j]) + Vec<T>::to_f32(y.b_hh[H + j]));
+    const float gg = tanhf(s[2] + Vec<T>::to_f32(y.b_ih[2 * H + j]) + Vec<T>::to_f32(y.b_hh[2 * H + j]));
+    const float og = sigmoidf(s[3] + Vec<T>::to_f32(y.b_ih[3 * H + j]) + Vec<T>::to_f32(y.b_hh[3 * H + j]));
+    const size_t at = static_cast<size_t>(row) * H + j;
+    const float c = fg * Vec<T>::to_f32(y.cin[at]) + ig * gg;
+    y.cout[at] = Vec<T>::from_f32(c);
+    y.hout[at] = Vec<T>::from_f32(og * tanhf(c));
+  }
+};
+
+// One layer over all B rows, split into (batch tile, column range) items.
+// xs holds kBM rows of I floats, hsm kBM rows of H.
+template <typename T, typename Cell>
+__device__ void rnn_layer(const Layer<T>& y, float* xs, float* hsm) {
+  constexpr int G = Cell::kGates, NA = Cell::kAcc;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int H = y.H;
+  Tiling t(y.B, H);
+  for (int item = blockIdx.x; item < t.items(); item += gridDim.x) {
+    const int b0 = (item / t.splits) * kBM;
+    const int nb = min(kBM, y.B - b0);
+    const int j0 = (item % t.splits) * t.per_split;
+    const int j1 = min(H, j0 + t.per_split);
+    __syncthreads();  // the previous item is done with the tiles
+    load_rows<T>(xs, y.xin, b0, nb, y.I);
+    load_rows<T>(hsm, y.hin, b0, nb, H);
+    __syncthreads();
+    for (int j = j0 + warp; j < j1; j += kWarps) {
+      float acc[kBM][NA];
+#pragma unroll
+      for (int b = 0; b < kBM; ++b)
+#pragma unroll
+        for (int a = 0; a < NA; ++a) acc[b][a] = 0.0f;
+      gate_dots<T, G, 0>(acc, y.w_ih, y.I, H, j, xs, nb);
+      gate_dots<T, G, Cell::kHidden>(acc, y.w_hh, H, H, j, hsm, nb);
+      float mine[NA];  // lane b ends with row b0 + b's sums
+#pragma unroll
+      for (int a = 0; a < NA; ++a) mine[a] = 0.0f;
+#pragma unroll
+      for (int b = 0; b < kBM; ++b) {
+        if (b < nb) {
+#pragma unroll
+          for (int a = 0; a < NA; ++a) {
+            const float v = warp_sum(acc[b][a]);
+            if (lane == b) mine[a] = v;
+          }
+        }
+      }
+      if (lane < nb) Cell::template finish<T>(y, mine, b0 + lane, j, hsm[lane * H + j]);
+    }
+  }
+}
+
+// Layer l of a decode step's recurrence.  A kernel templated on the cell
+// calls it for l = 0..L-1 with a grid barrier after each.
+template <typename T, typename Cell>
+__device__ void stack_layer(const StackArgs& s, int l, float* smem) {
+  const size_t GH = static_cast<size_t>(Cell::kGates) * s.H;
+  const size_t BH = static_cast<size_t>(s.B) * s.H;
+  const T* new_hs = static_cast<const T*>(s.new_hs);
+  const Layer<T> y{
+      l == 0 ? static_cast<const T*>(s.x) : new_hs + (l - 1) * BH,
+      static_cast<const T*>(s.hs) + l * BH,
+      s.cs ? static_cast<const T*>(s.cs) + l * BH : nullptr,
+      l == 0 ? static_cast<const T*>(s.w_ih0) : static_cast<const T*>(s.w_ihU) + (l - 1) * GH * s.H,
+      static_cast<const T*>(s.w_hh) + l * GH * s.H,
+      static_cast<const T*>(s.b_ih) + l * GH,
+      static_cast<const T*>(s.b_hh) + l * GH,
+      static_cast<T*>(s.new_hs) + l * BH,
+      s.new_cs ? static_cast<T*>(s.new_cs) + l * BH : nullptr,
+      l == 0 ? s.I0 : s.H,
+      s.B,
+      s.H,
+  };
+  float* xs = smem;
+  float* hsm = smem + static_cast<size_t>(kBM) * (s.I0 > s.H ? s.I0 : s.H);
+  rnn_layer<T, Cell>(y, xs, hsm);
+}
 
 // best[b] = atomicMax over packed (logit, index) keys of top[b] . wv[v] + bv[v]
 // for v in [0, V).  top [B, H], wv [V, H]; best must start below every key (0).

@@ -4,28 +4,31 @@
 // vocab projection and the first-max argmax.
 //
 // Replaces show_tell_tpu/ops/fused_attn_pallas.py::fused_attn_decode_step_pallas
-// (greedy argmax mode; the cell is a template parameter, GRU here).
+// in greedy argmax mode, for both cells: st_fused_attn_step (GRU) and
+// st_fused_attn_lstm_step (LSTM, cs in and out) instantiate one kernel
+// templated on the cell (GruCell, LstmCell in decode_common.cuh).
 //
-//   h      = hs[L-1][b]                          the last layer's INCOMING h
+//   h      = hs[L-1][b]                          the last layer's INCOMING h (never c)
 //   att2   = h . W_dec^T + b_dec                 [A]        (f32)
 //   e_p    = sum_a LeakyReLU_0.2(att1[b,p,a] + att2[a]) * w_full[a]
 //            (b_full is softmax-invariant and dropped, as on the TPU)
 //   alpha  = softmax_p(e)                        f32, max subtracted
 //   ctx_e  = sum_p alpha_p * feats_e[b,p,:] + b_emb               [E]
 //   x[b]   = cat(w_emb[b], ctx_e) in T           [2E]
-//   then the recurrence (layer 0 reads x with w_ih0 [3H, 2E]), the
-//   projection and the argmax, exactly as fused_gru_step.cu.
+//   then the recurrence (layer 0 reads x with w_ih0 [G*H, 2E]), the
+//   projection and the argmax, exactly as fused_step.cu.
 // att1 = feats @ W_enc + b_enc and feats_e = feats @ W_embed are per-image
 // constants, computed once per decode outside the kernel.
 //
 // What bounds it on an H100.  At the flagship (L=5, E=512, H=512, A=512,
-// P=49, V=9,956) one step reads about 28 MB of bf16 weights (layer 0
-// 1536 x 1024 + 1536 x 512, four upper layers 2 x 1536 x 512 each, W_dec
-// 512 x 512, the vocabulary 9,956 x 512) plus 2 x B x 49 x 512 values of
-// att1 and feats_e: 6.4 MB at B=64, all of it inside the 50 MB L2.  As in
-// the pooled step the weights are streamed once per kBM-row batch tile and
-// multiplied on the SIMT units in f32; the attention adds little work
-// (2 x 49 x 512 multiply-adds a row) but three more grid barriers.
+// P=49, V=9,956) one step reads about 28 MB (GRU) or 34 MB (LSTM) of bf16
+// weights (layer 0 G*H x 1024 + G*H x 512, four upper layers 2 x G*H x 512
+// each, W_dec 512 x 512, the vocabulary 9,956 x 512) plus 2 x B x 49 x
+// 512 values of att1 and feats_e: 6.4 MB at B=64, all of it inside the
+// 50 MB L2.  As in the pooled step the weights are streamed once per
+// kBM-row batch tile and multiplied on the SIMT units in f32; the
+// attention adds little work (2 x 49 x 512 multiply-adds a row) but three
+// more grid barriers.
 // The design:
 //   * phase A1 computes att2 for all rows as a (batch tile, column range)
 //     product like a GRU layer, so W_dec is read once per tile and every
@@ -36,7 +39,9 @@
 //     feats_e rows, so each att1 and feats_e row is read once, coalesced;
 //     x = cat(w_emb, ctx_e) goes to a [B, 2E] scratch;
 //   * the recurrence and projection reuse decode_common.cuh.  Layer 0 is
-//     2E wide, so the shared-memory input tile is sized by max(2E, H).
+//     2E wide, so the shared-memory input tile is sized by max(2E, H):
+//     8 x (1024 + 512) f32 = 48 KiB at the flagship, the default limit;
+//     launch_cooperative raises the limit for wider tiles.
 // The TPU kernel ran the attention in 8-row sub-stages of a sequential
 // grid to bound VMEM; here the grid barriers order the phases instead.
 
@@ -45,7 +50,7 @@
 namespace {
 
 struct Params {
-  StackArgs stack;           // x = the [B, 2E] scratch, w_ih0 [3H, 2E], ...
+  StackArgs stack;           // x = the [B, 2E] scratch, w_ih0 [G*H, 2E], ...
   const void* w_emb;         // [B, E]     current token embeddings
   const void* feats_e;       // [B, P, E]  feats @ W_embed
   const void* att1;          // [B, P, A]  feats @ W_enc + b_enc
@@ -182,7 +187,7 @@ __global__ void __launch_bounds__(kThreads) fused_attn_step_kernel(Params p) {
   attention_context_e<T>(p, smem);
   grid.sync();  // x = cat(w_emb, ctx_e) is complete
   for (int l = 0; l < s.L; ++l) {
-    Cell::template layer<T>(s, l, smem);
+    stack_layer<T, Cell>(s, l, smem);
     grid.sync();
   }
   const T* top = static_cast<const T*>(s.new_hs) + static_cast<size_t>(s.L - 1) * s.B * s.H;
@@ -191,30 +196,49 @@ __global__ void __launch_bounds__(kThreads) fused_attn_step_kernel(Params p) {
   for (int b = grid_thread(); b < s.B; b += grid_threads()) p.tok[b] = key_index(p.best[b]);
 }
 
-template <typename T>
+template <typename T, typename Cell>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   const size_t attn = static_cast<size_t>(p.A) + p.P;
   const size_t stack = stack_smem_floats(p.stack);
   Params args = p;
   void* argv[] = {&args};
-  return launch_cooperative(fused_attn_step_kernel<T, GruCell>, (attn > stack ? attn : stack) * sizeof(float),
+  return launch_cooperative(fused_attn_step_kernel<T, Cell>, (attn > stack ? attn : stack) * sizeof(float),
                             argv, stream);
+}
+
+template <typename Cell>
+int run(int dtype, const Params& p, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return static_cast<int>(launch<float, Cell>(p, s));
+  if (dtype == 1) return static_cast<int>(launch<__nv_bfloat16, Cell>(p, s));
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  x is the [B, 2E] scratch for layer 0's
-// input, att2 a [B, A] f32 scratch.  Returns a cudaError_t (0 on success).
+// input, att2 a [B, A] f32 scratch.  Each returns a cudaError_t (0 on success).
 extern "C" int st_fused_attn_step(int dtype, const void* w_emb, const void* feats_e, const void* att1,
                                   const void* wdec, const void* bdec, const void* wfull, const void* b_emb,
                                   const void* w_ih0, const void* w_ihU, const void* w_hh, const void* b_ih,
                                   const void* b_hh, const void* hs, const void* wv, const void* bv, void* x,
                                   float* att2, void* new_hs, int32_t* tok, unsigned long long* best, int L,
                                   int B, int E, int H, int A, int P, int V, void* stream) {
-  Params p{{x, w_ih0, w_ihU, w_hh, b_ih, b_hh, hs, new_hs, L, B, 2 * E, H},
-           w_emb, feats_e, att1, wdec, bdec, wfull, b_emb, wv, bv, att2, tok, best, E, A, P, V};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return static_cast<int>(launch<float>(p, s));
-  if (dtype == 1) return static_cast<int>(launch<__nv_bfloat16>(p, s));
-  return static_cast<int>(cudaErrorInvalidValue);
+  return run<GruCell>(dtype,
+                      Params{{x, w_ih0, w_ihU, w_hh, b_ih, b_hh, hs, nullptr, new_hs, nullptr, L, B, 2 * E, H},
+                             w_emb, feats_e, att1, wdec, bdec, wfull, b_emb, wv, bv, att2, tok, best, E, A, P, V},
+                      stream);
+}
+
+extern "C" int st_fused_attn_lstm_step(int dtype, const void* w_emb, const void* feats_e, const void* att1,
+                                       const void* wdec, const void* bdec, const void* wfull, const void* b_emb,
+                                       const void* w_ih0, const void* w_ihU, const void* w_hh, const void* b_ih,
+                                       const void* b_hh, const void* hs, const void* cs, const void* wv,
+                                       const void* bv, void* x, float* att2, void* new_hs, void* new_cs,
+                                       int32_t* tok, unsigned long long* best, int L, int B, int E, int H, int A,
+                                       int P, int V, void* stream) {
+  return run<LstmCell>(dtype,
+                       Params{{x, w_ih0, w_ihU, w_hh, b_ih, b_hh, hs, cs, new_hs, new_cs, L, B, 2 * E, H},
+                              w_emb, feats_e, att1, wdec, bdec, wfull, b_emb, wv, bv, att2, tok, best, E, A, P, V},
+                       stream);
 }

@@ -1,0 +1,113 @@
+// One greedy decode step of the pooled captioner in one kernel launch: the
+// L-layer GRU or LSTM recurrence, the H x V vocab projection and the
+// first-max argmax over the vocabulary.
+//
+// Replaces show_tell_tpu/ops/fused_step_pallas.py::fused_gru_decode_step_pallas
+// (st_fused_gru_step) and ::fused_lstm_decode_step_pallas (st_fused_lstm_step):
+// one kernel templated on the cell (GruCell, LstmCell in decode_common.cuh).
+//
+//   x_0 = x [B, E]; for l in 0..L-1:
+//     h'_l (, c'_l) = Cell(x_l, h_l (, c_l); w_ih_l, w_hh[l], b_ih[l], b_hh[l]);  x_{l+1} = h'_l
+//   tok[b] = lowest v maximising  x_L[b] . wv[v] + bv[v]              (int32)
+//
+// Layer 0 has its own input width E (w_ih0 [G*H, E]), so E may be smaller
+// or larger than H; layers 1..L-1 read H-wide inputs (w_ihU [L-1, G*H, H]).
+// GRU gates r, z, n (the reset gate multiplies W_hn h + b_hn); LSTM gates
+// i, f, g, o with the cell state carried in T beside h.  Double biases.
+// Products are summed and the gate math is done in f32; h' (and c') are
+// cast back to the carry type T (float or bf16).
+//
+// What bounds it on an H100.  At the serving shapes (L=5, H=512,
+// V=9,956; E=256 GRU, E=512 LSTM) one step reads G x H x E + (2L-1) x
+// G x H x H recurrence weights plus 9,956 x 512 projection weights: about
+// 25 MB (GRU) and 31 MB (LSTM) in bf16, both inside the 50 MB L2 cache.
+// At small batches the step is bound by those weight bytes; each weight
+// row is read once per batch tile of kBM rows, so at large batches it
+// turns into an f32 SIMT FMA loop (no tensor cores in this version).
+// The design (device code in decode_common.cuh):
+//   * weights are kept in the torch layout [out, in] so that one output
+//     column is one contiguous row: a warp owns a column (its G gate rows)
+//     and reads it as coalesced 16-byte lane loads against kBM batch rows
+//     in shared memory;
+//   * one cooperative launch covers the whole step.  The TPU kernel carried
+//     the layer activation and the running (max, index) from one grid step
+//     to the next on one core; Hopper's blocks run in parallel and in no
+//     order, so layer l+1 starts after a grid-wide barrier (layer l's h'
+//     is read back from new_hs, which stays in L2), and the argmax merges
+//     across blocks with a 64-bit atomicMax on (ordered float, ~index):
+//     a greater value wins, and on equal values the lower index wins,
+//     exactly the first-max rule of vocab_pallas.merge_block_argmax;
+//   * the grid is sized from the occupancy of this kernel times the SM
+//     count, and each block walks over (batch tile, column range) items,
+//     so any B, H and V run, and at B=1 every SM still gets columns;
+//   * the LSTM sums a gate's x side and h side into one accumulator, so
+//     a warp holds kBM x 4 sums, fewer than the GRU's kBM x 6.
+// The vocabulary is not padded: the last columns are simply the last items.
+
+#include "decode_common.cuh"
+
+namespace {
+
+struct Params {
+  StackArgs stack;            // x [B, E], w_ih0 [G*H, E], ..., new_hs, new_cs
+  const void* wv;             // [V, H]  vocab projection, torch layout
+  const void* bv;             // [V]
+  int32_t* tok;               // [B]
+  unsigned long long* best;   // [B] scratch: packed (value, index) keys
+  int V;
+};
+
+template <typename T, typename Cell>
+__global__ void __launch_bounds__(kThreads) fused_step_kernel(Params p) {
+  extern __shared__ float smem[];
+  cg::grid_group grid = cg::this_grid();
+  const StackArgs& s = p.stack;
+  for (int b = grid_thread(); b < s.B; b += grid_threads()) p.best[b] = 0ull;  // below every packed key
+  for (int l = 0; l < s.L; ++l) {
+    stack_layer<T, Cell>(s, l, smem);
+    grid.sync();  // layer l's h' is complete in new_hs
+  }
+  const T* top = static_cast<const T*>(s.new_hs) + static_cast<size_t>(s.L - 1) * s.B * s.H;
+  project_argmax<T>(top, static_cast<const T*>(p.wv), static_cast<const T*>(p.bv), s.B, s.H, p.V, p.best, smem);
+  grid.sync();
+  for (int b = grid_thread(); b < s.B; b += grid_threads()) p.tok[b] = key_index(p.best[b]);
+}
+
+template <typename T, typename Cell>
+cudaError_t launch(const Params& p, cudaStream_t stream) {
+  Params args = p;
+  void* argv[] = {&args};
+  return launch_cooperative(fused_step_kernel<T, Cell>, stack_smem_floats(p.stack) * sizeof(float), argv, stream);
+}
+
+template <typename Cell>
+int run(int dtype, const Params& p, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return static_cast<int>(launch<float, Cell>(p, s));
+  if (dtype == 1) return static_cast<int>(launch<__nv_bfloat16, Cell>(p, s));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16.  Each returns a cudaError_t (0 on
+// success); a width whose [kBM, max(E, H) + H] f32 tile exceeds a block's
+// shared memory fails here.
+extern "C" int st_fused_gru_step(int dtype, const void* x, const void* w_ih0, const void* w_ihU,
+                                 const void* w_hh, const void* b_ih, const void* b_hh, const void* hs,
+                                 const void* wv, const void* bv, void* new_hs, int32_t* tok,
+                                 unsigned long long* best, int L, int B, int E, int H, int V, void* stream) {
+  return run<GruCell>(
+      dtype, Params{{x, w_ih0, w_ihU, w_hh, b_ih, b_hh, hs, nullptr, new_hs, nullptr, L, B, E, H}, wv, bv, tok, best, V},
+      stream);
+}
+
+extern "C" int st_fused_lstm_step(int dtype, const void* x, const void* w_ih0, const void* w_ihU,
+                                  const void* w_hh, const void* b_ih, const void* b_hh, const void* hs,
+                                  const void* cs, const void* wv, const void* bv, void* new_hs, void* new_cs,
+                                  int32_t* tok, unsigned long long* best, int L, int B, int E, int H, int V,
+                                  void* stream) {
+  return run<LstmCell>(
+      dtype, Params{{x, w_ih0, w_ihU, w_hh, b_ih, b_hh, hs, cs, new_hs, new_cs, L, B, E, H}, wv, bv, tok, best, V},
+      stream);
+}

@@ -1,18 +1,21 @@
-"""The soft-attention GRU caption decoder and its plain greedy decode
-(counterpart of show_tell_tpu/models/attention.py, serving half).
+"""The soft-attention GRU and LSTM caption decoders and their plain
+greedy decode (counterpart of show_tell_tpu/models/attention.py, serving
+half).
 
-Parameter names are the reference's (Attention/rnn_attn.py:49-58):
-``embeddings.weight``, ``unit.{weight,bias}_{ih,hh}_l{k}`` (layer 0 is 2E
-wide), ``linear.*``, ``init_h.*``, ``embed.*``, ``attn.encoder_att.*``,
-``attn.decoder_att.*``, ``attn.full_att.*``.
+Parameter names are the reference's (Attention/rnn_attn.py:49-58,
+rnn_attn_LSTM.py:55): ``embeddings.weight``,
+``unit.{weight,bias}_{ih,hh}_l{k}`` (layer 0 is 2E wide), ``linear.*``,
+``init_h.*``, ``init_c.*`` (LSTM only), ``embed.*``,
+``attn.encoder_att.*``, ``attn.decoder_att.*``, ``attn.full_att.*``.
 
 Per step (rnn_attn.py:21-31,69-94): additive attention of the last
-layer's hidden state over the P spatial positions, the alpha-weighted
-feature sum, ``x = cat(embedding[w], embed(context))``, the L-layer GRU,
-the projection and the argmax.  Decode starts from the <start> embedding
-with the hidden state ``init_h(mean over positions)`` on every layer.
-The teacher-forced forward and the doubly-stochastic penalty belong to
-the training slice.
+layer's hidden state h (never the LSTM's c) over the P spatial positions,
+the alpha-weighted feature sum, ``x = cat(embedding[w], embed(context))``,
+the L-layer GRU or LSTM, the projection and the argmax.  Decode starts
+from the <start> embedding with the hidden state ``init_h(mean over
+positions)`` on every layer, and for the LSTM the cell state
+``init_c(mean over positions)``.  The teacher-forced forward and the
+doubly-stochastic penalty belong to the training slice.
 """
 
 from __future__ import annotations
@@ -23,13 +26,14 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from show_tell_tpu_torch.models.decoder import GRUWeights, greedy_loop
-from show_tell_tpu_torch.models.rnn_cells import stack_step_gru
+from show_tell_tpu_torch.models.decoder import RNNWeights, greedy_loop
+from show_tell_tpu_torch.models.rnn_cells import stack_step
+from show_tell_tpu_torch.ops.rnn import State
 from show_tell_tpu_torch.ops.vocab import first_max_argmax
 
 
 class AttnDecoderConfig(NamedTuple):
-    cell_type: str  # 'gru' ('lstm' is not ported yet)
+    cell_type: str  # 'gru' | 'lstm'
     embed_dim: int
     nos_filters: int  # CNN channels (2048)
     attention_dim: int
@@ -52,13 +56,13 @@ class AttentionNet(nn.Module):
 class AttnDecoder(nn.Module):
     def __init__(self, cfg: AttnDecoderConfig):
         super().__init__()
-        if cfg.cell_type != "gru":
-            raise NotImplementedError("the attention LSTM decoder is ROADMAP Queue 1 item 12")
         E, C, H = cfg.embed_dim, cfg.nos_filters, cfg.hidden_dim
         self.embeddings = nn.Embedding(cfg.vocab_size, E)
-        self.unit = GRUWeights(2 * E, H, cfg.num_layers)
+        self.unit = RNNWeights(cfg.cell_type, 2 * E, H, cfg.num_layers)
         self.linear = nn.Linear(H, cfg.vocab_size)
         self.init_h = nn.Linear(C, H)
+        if cfg.cell_type == "lstm":
+            self.init_c = nn.Linear(C, H)
         self.embed = nn.Linear(C, E)
         self.attn = AttentionNet(C, H, cfg.attention_dim)
 
@@ -87,13 +91,25 @@ def attention_net(attn: AttentionNet, img_feat: torch.Tensor, hidden: torch.Tens
     return attention_net_hoisted(attn, img_feat, linear_f32(attn.encoder_att, img_feat), hidden)
 
 
-def init_hidden(decoder: AttnDecoder, cfg: AttnDecoderConfig, cnn_feature: torch.Tensor) -> torch.Tensor:
+def init_hidden(decoder: AttnDecoder, cfg: AttnDecoderConfig, cnn_feature: torch.Tensor) -> State:
     """cnn_feature [B, C, P] -> hs0 [L, B, H] in the compute dtype: init_h
     of the mean over positions (taken in the feature dtype), repeated on
-    every layer (rnn_attn.py:54,62)."""
+    every layer (rnn_attn.py:54,62).  The LSTM returns (hs0, cs0), cs0 made
+    the same way by init_c (rnn_attn_LSTM.py:55,63)."""
     dtype = decoder.embeddings.weight.dtype
-    h0 = linear_f32(decoder.init_h, cnn_feature.mean(dim=2)).to(dtype)
-    return h0[None].expand(cfg.num_layers, *h0.shape).contiguous()
+    pooled = cnn_feature.mean(dim=2)
+
+    def repeat(layer):
+        v = linear_f32(layer, pooled).to(dtype)
+        return v[None].expand(cfg.num_layers, *v.shape).contiguous()
+
+    hs0 = repeat(decoder.init_h)
+    return (hs0, repeat(decoder.init_c)) if cfg.cell_type == "lstm" else hs0
+
+
+def last_h(state: State) -> torch.Tensor:
+    """The last layer's hidden state [B, H], which the attention reads (never c)."""
+    return (state[0] if isinstance(state, tuple) else state)[-1]
 
 
 def start_embeddings(decoder: AttnDecoder, B: int, start_token: int, device) -> torch.Tensor:
@@ -116,13 +132,14 @@ def attn_greedy_decode(
     att1 = linear_f32(decoder.attn.encoder_att, feats_pm)  # hoisted: constant over t
     layers = decoder.unit.layers()
     embedding = decoder.embeddings.weight
+    step_fn = stack_step(cfg.cell_type)
 
-    def step(w_emb, hs):
-        context, _ = attention_net_hoisted(decoder.attn, feats_pm, att1, hs[-1])
+    def step(w_emb, state):
+        context, _ = attention_net_hoisted(decoder.attn, feats_pm, att1, last_h(state))
         x = torch.cat([w_emb, linear_f32(decoder.embed, context).to(w_emb.dtype)], dim=-1)
-        top, hs2 = stack_step_gru(layers, x, hs)
-        return first_max_argmax(linear_f32(decoder.linear, top)), hs2
+        top, state2 = step_fn(layers, x, state)
+        return first_max_argmax(linear_f32(decoder.linear, top)), state2
 
     w0 = start_embeddings(decoder, B, start_token, cnn_feature.device)
-    hs0 = init_hidden(decoder, cfg, cnn_feature)
-    return greedy_loop(step, embedding, w0, hs0, cfg.max_caption_length, end_token)
+    state0 = init_hidden(decoder, cfg, cnn_feature)
+    return greedy_loop(step, embedding, w0, state0, cfg.max_caption_length, end_token)

@@ -1,10 +1,12 @@
 """The captioner: encoder + decoder (counterpart of
 show_tell_tpu/models/captioner.py).
 
-Ported: the pooled GRU of the reference's ``main.py`` (variant 'gru') and
-the soft-attention GRU of ``Attention/main_attn.py`` (variant 'attn',
-spatial [B, C, 49] features).  The LSTM variants raise
-NotImplementedError naming the ROADMAP item that ports them.
+All four families of the reference, greedy serving:
+
+  variant 'gru'       ResNet pooled [B, E]      -> GRU decoder    (main.py)
+  variant 'lstm'      ResNet pooled [B, E]      -> LSTM decoder   (LSTM/main_lstm.py)
+  variant 'attn'      ResNet spatial [B, C, 49] -> attention GRU  (Attention/main_attn.py)
+  variant 'attn_lstm' ResNet spatial [B, C, 49] -> attention LSTM (Attention/main_attn_LSTM.py)
 """
 
 from __future__ import annotations
@@ -16,18 +18,13 @@ import torch
 import torch.nn as nn
 
 from show_tell_tpu_torch.models.attention import AttnDecoder, AttnDecoderConfig
-from show_tell_tpu_torch.models.decoder import Decoder, DecoderConfig
+from show_tell_tpu_torch.models.decoder import GATES, Decoder, DecoderConfig
 from show_tell_tpu_torch.models.encoder import Encoder, EncoderConfig
 from show_tell_tpu_torch.models.resnet import RESNET_SPECS, STAGE_WIDTHS, feature_dim
 
-_NOT_PORTED = {
-    "lstm": "ROADMAP Queue 1 item 11 (pooled LSTM)",
-    "attn_lstm": "ROADMAP Queue 1 item 12 (attention LSTM)",
-}
-
 
 class CaptionerConfig(NamedTuple):
-    variant: str  # 'gru' | 'attn' ('lstm' | 'attn_lstm' are not ported yet)
+    variant: str  # 'gru' | 'lstm' | 'attn' | 'attn_lstm'
     resnet_version: int
     embed_dim: int
     hidden_dim: int
@@ -63,17 +60,9 @@ class CaptionerConfig(NamedTuple):
         )
 
 
-def require_ported(cfg: CaptionerConfig) -> None:
-    if cfg.variant not in ("gru", "attn"):
-        raise NotImplementedError(
-            "variant %r is not ported to PyTorch yet: %s" % (cfg.variant, _NOT_PORTED.get(cfg.variant, "?"))
-        )
-
-
 class CaptionerModel(nn.Module):
     def __init__(self, cfg: CaptionerConfig):
         super().__init__()
-        require_ported(cfg)
         self.encoder = Encoder(cfg.encoder_config())
         self.decoder = (AttnDecoder if cfg.is_attention else Decoder)(cfg.decoder_config())
 
@@ -83,9 +72,8 @@ def init_captioner(cfg: CaptionerConfig, generator: torch.Generator) -> Tuple[Di
     ``generator``, as (params, bn_state) numpy trees in the JAX layout
     (so either package can load them): kaiming-normal fan_out convs,
     N(0, 0.05) head weight, U(+-1/sqrt(fan_in)) head bias and attention
-    linears, U(+-1/sqrt(H)) recurrence and projection, N(0, 1) embedding,
-    BN at identity."""
-    require_ported(cfg)
+    linears, U(+-1/sqrt(H)) recurrence (3H gate rows for the GRU, 4H for
+    the LSTM) and projection, N(0, 1) embedding, BN at identity."""
     if cfg.is_attention:
         # The spatial channels are the backbone's (captioner.py:79-90 in the JAX package).
         expected = feature_dim(cfg.resnet_version)
@@ -136,6 +124,7 @@ def init_captioner(cfg: CaptionerConfig, generator: torch.Generator) -> Tuple[Di
 
     C, E, H, V = feature_dim(cfg.resnet_version), cfg.embed_dim, cfg.hidden_dim, cfg.vocab_size
     I0 = 2 * E if cfg.is_attention else E
+    GH = GATES[cfg.cell_type] * H
 
     def linear(d_in, d_out):
         bound = 1.0 / d_in ** 0.5
@@ -151,10 +140,10 @@ def init_captioner(cfg: CaptionerConfig, generator: torch.Generator) -> Tuple[Di
             "embedding": normal((V, E)),
             "rnn": [
                 {
-                    "w_ih": uniform((I0 if l == 0 else H, 3 * H), 1.0 / H ** 0.5),
-                    "w_hh": uniform((H, 3 * H), 1.0 / H ** 0.5),
-                    "b_ih": uniform((3 * H,), 1.0 / H ** 0.5),
-                    "b_hh": uniform((3 * H,), 1.0 / H ** 0.5),
+                    "w_ih": uniform((I0 if l == 0 else H, GH), 1.0 / H ** 0.5),
+                    "w_hh": uniform((H, GH), 1.0 / H ** 0.5),
+                    "b_ih": uniform((GH,), 1.0 / H ** 0.5),
+                    "b_hh": uniform((GH,), 1.0 / H ** 0.5),
                 }
                 for l in range(cfg.num_layers)
             ],
@@ -168,6 +157,8 @@ def init_captioner(cfg: CaptionerConfig, generator: torch.Generator) -> Tuple[Di
             "embed": linear(N, E),
             "attn": {"encoder_att": linear(N, A), "decoder_att": linear(H, A), "full_att": linear(A, 1)},
         })
+        if cfg.cell_type == "lstm":
+            params["decoder"]["init_c"] = linear(N, H)
     bn_state = {
         "resnet": res_s,
         "last_layer": {"running_mean": np.zeros(E, np.float32), "running_var": np.ones(E, np.float32)},
@@ -221,15 +212,16 @@ def captioner_greedy_decode(
     the caller; built here when absent.
 
     Dispatch (captioner.py:201-262 in the JAX package): the pooled GRU
-    runs one fused-step launch per token.  Attention runs the fused
-    attention step when H <= 2E (``fused_attn_fits``), else the composite
-    path: the attention context kernel, plain embed and GRU products, and
-    the projection + argmax kernel."""
+    and LSTM run one fused-step launch per token.  Attention runs the
+    fused attention step (its GRU or LSTM instance) when H <= 2E
+    (``fused_attn_fits``), else the composite path: the attention context
+    kernel, plain embed and recurrence products, and the projection +
+    argmax kernel.  The JAX package keeps the pooled LSTM on its XLA scan
+    by a TPU measurement; here it takes the kernel like the GRU."""
     from show_tell_tpu_torch.ops.attention import attn_greedy_decode_composite
     from show_tell_tpu_torch.ops.fused_attn import attn_greedy_decode_fused, fused_attn_fits
     from show_tell_tpu_torch.ops.rnn import greedy_decode_kernel
 
-    require_ported(cfg)
     feats = model.encoder(images)
     if prepared is None:
         prepared = prepare_decode(model, model.decoder.embeddings.weight.dtype)

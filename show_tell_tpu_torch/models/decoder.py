@@ -1,11 +1,12 @@
-"""The pooled GRU caption decoder and its greedy loops
+"""The pooled GRU and LSTM caption decoders and their greedy loops
 (counterpart of show_tell_tpu/models/decoder.py).
 
-Parameter names are the reference's (rnn.py:23-25): ``embeddings.weight``,
-``unit.weight_ih_l{k}``, ``unit.weight_hh_l{k}``, ``unit.bias_ih_l{k}``,
-``unit.bias_hh_l{k}``, ``linear.weight``, ``linear.bias``.  The recurrence
-is never run through ``nn.GRU``: greedy decode steps with the plain cell
-here or with the fused kernel (ops/rnn.py).
+Parameter names are the reference's (rnn.py:23-25, LSTM/rnn_lstm.py):
+``embeddings.weight``, ``unit.weight_ih_l{k}``, ``unit.weight_hh_l{k}``,
+``unit.bias_ih_l{k}``, ``unit.bias_hh_l{k}``, ``linear.weight``,
+``linear.bias``.  The recurrence is never run through ``nn.GRU`` or
+``nn.LSTM``: greedy decode steps with the plain cell here or with the
+fused kernel (ops/rnn.py).
 
 Decode (rnn.py:37-58): a fixed 25 greedy steps, the argmax fed back
 through the embedding.  The early-exit loop stops once every row has
@@ -20,12 +21,12 @@ from typing import Callable, Dict, List, NamedTuple, Optional
 import torch
 import torch.nn as nn
 
-from show_tell_tpu_torch.models.rnn_cells import stack_step_gru
+from show_tell_tpu_torch.models.rnn_cells import init_state, stack_step
 from show_tell_tpu_torch.ops.vocab import first_max_argmax
 
 
 class DecoderConfig(NamedTuple):
-    cell_type: str  # 'gru' ('lstm' is not ported yet)
+    cell_type: str  # 'gru' | 'lstm'
     embed_dim: int
     hidden_dim: int
     vocab_size: int
@@ -33,21 +34,27 @@ class DecoderConfig(NamedTuple):
     max_caption_length: int = 25  # reference rnn.py:39
 
 
-class GRUWeights(nn.Module):
-    """The stacked GRU's parameters under nn.GRU's names, without its forward."""
+GATES = {"gru": 3, "lstm": 4}
 
-    def __init__(self, input_dim: int, hidden_dim: int, num_layers: int):
+
+class RNNWeights(nn.Module):
+    """A stacked GRU's or LSTM's parameters under nn.GRU's and nn.LSTM's
+    names, without their forward: G = 3 (GRU) or 4 (LSTM) gate blocks of H
+    rows each."""
+
+    def __init__(self, cell_type: str, input_dim: int, hidden_dim: int, num_layers: int):
         super().__init__()
         self.num_layers = num_layers
+        GH = GATES[cell_type] * hidden_dim
         for l in range(num_layers):
             in_dim = input_dim if l == 0 else hidden_dim
-            self.register_parameter("weight_ih_l%d" % l, nn.Parameter(torch.empty(3 * hidden_dim, in_dim)))
-            self.register_parameter("weight_hh_l%d" % l, nn.Parameter(torch.empty(3 * hidden_dim, hidden_dim)))
-            self.register_parameter("bias_ih_l%d" % l, nn.Parameter(torch.empty(3 * hidden_dim)))
-            self.register_parameter("bias_hh_l%d" % l, nn.Parameter(torch.empty(3 * hidden_dim)))
+            self.register_parameter("weight_ih_l%d" % l, nn.Parameter(torch.empty(GH, in_dim)))
+            self.register_parameter("weight_hh_l%d" % l, nn.Parameter(torch.empty(GH, hidden_dim)))
+            self.register_parameter("bias_ih_l%d" % l, nn.Parameter(torch.empty(GH)))
+            self.register_parameter("bias_hh_l%d" % l, nn.Parameter(torch.empty(GH)))
 
     def layers(self) -> List[Dict[str, torch.Tensor]]:
-        """Per-layer {w_ih [3H,in], w_hh [3H,H], b_ih [3H], b_hh [3H]}."""
+        """Per-layer {w_ih [G*H,in], w_hh [G*H,H], b_ih [G*H], b_hh [G*H]}."""
         return [
             {
                 "w_ih": getattr(self, "weight_ih_l%d" % l),
@@ -62,10 +69,8 @@ class GRUWeights(nn.Module):
 class Decoder(nn.Module):
     def __init__(self, cfg: DecoderConfig):
         super().__init__()
-        if cfg.cell_type != "gru":
-            raise NotImplementedError("the pooled LSTM decoder is ROADMAP Queue 1 item 11")
         self.embeddings = nn.Embedding(cfg.vocab_size, cfg.embed_dim)
-        self.unit = GRUWeights(cfg.embed_dim, cfg.hidden_dim, cfg.num_layers)
+        self.unit = RNNWeights(cfg.cell_type, cfg.embed_dim, cfg.hidden_dim, cfg.num_layers)
         self.linear = nn.Linear(cfg.hidden_dim, cfg.vocab_size)
 
 
@@ -114,15 +119,17 @@ def greedy_decode(
 ) -> torch.Tensor:
     """Plain batched greedy decode: the per-layer cell, ``top @ W^T + b``
     in f32 and the first-max argmax (decoder.greedy_decode in the JAX
-    package).  Computes in the embedding's dtype.  Returns [B, T] ids."""
+    package).  Computes in the embedding's dtype, from a zero state.
+    Returns [B, T] ids."""
     layers = decoder.unit.layers()
     embedding = decoder.embeddings.weight
     dtype = embedding.dtype
-    hs0 = torch.zeros(cfg.num_layers, feats.shape[0], cfg.hidden_dim, dtype=dtype, device=feats.device)
+    state0 = init_state(cfg.cell_type, cfg.num_layers, feats.shape[0], cfg.hidden_dim, dtype, feats.device)
+    step_fn = stack_step(cfg.cell_type)
 
-    def step(x, hs):
-        top, hs2 = stack_step_gru(layers, x, hs)
+    def step(x, state):
+        top, state2 = step_fn(layers, x, state)
         logits = top.float() @ decoder.linear.weight.float().T + decoder.linear.bias.float()
-        return first_max_argmax(logits), hs2
+        return first_max_argmax(logits), state2
 
-    return greedy_loop(step, embedding, feats.to(dtype), hs0, cfg.max_caption_length, end_token)
+    return greedy_loop(step, embedding, feats.to(dtype), state0, cfg.max_caption_length, end_token)

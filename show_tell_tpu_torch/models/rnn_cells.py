@@ -1,14 +1,16 @@
-"""Plain GRU cell and stack step with PyTorch gate conventions
-(counterpart of show_tell_tpu/models/rnn_cells.py, GRU half).
+"""Plain GRU and LSTM cells and stack steps with PyTorch gate conventions
+(counterpart of show_tell_tpu/models/rnn_cells.py, decode half).
 
-Gate order r, z, n; double biases; the reset gate multiplies the
+GRU gate order r, z, n; double biases; the reset gate multiplies the
 hidden-side affine:
     r = sigma(x W_ir^T + b_ir + h W_hr^T + b_hr)
     z = sigma(x W_iz^T + b_iz + h W_hz^T + b_hz)
     n = tanh (x W_in^T + b_in + r * (h W_hn^T + b_hn))
     h' = (1 - z) n + z h
-Weights are in the torch layout (w_ih [3H, in], w_hh [3H, H]).  Sums and
-gate math run in f32 and h' is cast back to the carry dtype.
+LSTM gate order i, f, g, o; double biases; c' = f c + i g, h' = o tanh(c').
+Weights are in the torch layout (w_ih [G*H, in], w_hh [G*H, H]).  Sums and
+gate math run in f32 and h' (and c') are cast back to the carry dtype.  A
+stack's state is hs [L, B, H] for the GRU and (hs, cs) for the LSTM.
 """
 
 from __future__ import annotations
@@ -17,12 +19,20 @@ from typing import Dict, List, Tuple
 
 import torch
 
-from show_tell_tpu_torch.ops.rnn import gru_cell_math
+from show_tell_tpu_torch.ops.rnn import gru_cell_math, lstm_cell_math
 
 
 def gru_cell(layer: Dict[str, torch.Tensor], x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     """One GRU step. x [B, in], h [B, H] -> h' [B, H] in h's dtype."""
     return gru_cell_math(x, h, layer["w_ih"], layer["w_hh"], layer["b_ih"], layer["b_hh"], h.dtype)
+
+
+def lstm_cell(
+    layer: Dict[str, torch.Tensor], x: torch.Tensor, hc: Tuple[torch.Tensor, torch.Tensor]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One LSTM step. x [B, in], (h, c) [B, H] each -> (h', c') in their dtypes."""
+    h, c = hc
+    return lstm_cell_math(x, h, c, layer["w_ih"], layer["w_hh"], layer["b_ih"], layer["b_hh"], h.dtype, c.dtype)
 
 
 def stack_step_gru(
@@ -35,3 +45,27 @@ def stack_step_gru(
         inp = gru_cell(layer, inp, hs[l])
         new_hs.append(inp)
     return inp, torch.stack(new_hs)
+
+
+def stack_step_lstm(
+    layers: List[Dict[str, torch.Tensor]], x: torch.Tensor, state: Tuple[torch.Tensor, torch.Tensor]
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """One step through all layers. state (hs, cs) -> (top h [B, H], (new hs, new cs))."""
+    hs, cs = state
+    new_hs, new_cs = [], []
+    inp = x
+    for l, layer in enumerate(layers):
+        inp, c2 = lstm_cell(layer, inp, (hs[l], cs[l]))
+        new_hs.append(inp)
+        new_cs.append(c2)
+    return inp, (torch.stack(new_hs), torch.stack(new_cs))
+
+
+def stack_step(cell_type: str):
+    return stack_step_lstm if cell_type == "lstm" else stack_step_gru
+
+
+def init_state(cell_type: str, num_layers: int, batch: int, hidden: int, dtype: torch.dtype, device=None):
+    """Zeros in ``dtype``: hs for the GRU, (hs, cs) for the LSTM."""
+    hs = torch.zeros(num_layers, batch, hidden, dtype=dtype, device=device)
+    return (hs, torch.zeros_like(hs)) if cell_type == "lstm" else hs

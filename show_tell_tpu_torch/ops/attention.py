@@ -4,8 +4,9 @@ it (counterpart of show_tell_tpu/ops/attention_pallas.py).
 
 The composite decode is the attention path for configurations outside the
 fused step's shape rule (H > 2E, ops/fused_attn.py): per step the context
-kernel, ``embed(context)`` as a plain product, the plain GRU stack step,
-and the projection + argmax kernel (ops/vocab.py).
+kernel (fed the last layer's h), ``embed(context)`` as a plain product,
+the cell's plain stack step (GRU or LSTM), and the projection + argmax
+kernel (ops/vocab.py).
 """
 
 from __future__ import annotations
@@ -104,23 +105,24 @@ def attn_greedy_decode_composite(
     """Greedy attention decode with the context kernel and the projection
     + argmax kernel (attention_pallas.attn_greedy_decode_pallas).  Returns
     [B, T] int32 ids; end_token: stop once every row emitted it."""
-    from show_tell_tpu_torch.models.attention import init_hidden, linear_f32, start_embeddings
+    from show_tell_tpu_torch.models.attention import init_hidden, last_h, linear_f32, start_embeddings
     from show_tell_tpu_torch.models.decoder import greedy_loop
-    from show_tell_tpu_torch.ops.rnn import gru_stack_plain
+    from show_tell_tpu_torch.ops.rnn import stack_plain
     from show_tell_tpu_torch.ops.vocab import project_argmax
 
     B = cnn_feature.shape[0]
     feats_pm = cnn_feature.transpose(1, 2).contiguous()
     dtype = decoder.embeddings.weight.dtype
     att1 = precompute_att1(decoder.attn, feats_pm).to(dtype).contiguous()
+    stack = stack_plain(cfg.cell_type)
 
-    def step(w_emb, hs):
-        context, _ = attention_context(weights, feats_pm, att1, hs[-1])
+    def step(w_emb, state):
+        context, _ = attention_context(weights, feats_pm, att1, last_h(state))
         x = torch.cat([w_emb, linear_f32(decoder.embed, context).to(w_emb.dtype)], dim=-1)
-        top, hs2 = gru_stack_plain(weights["stacked"], x, hs)
-        return project_argmax(weights["vocab"], top.contiguous()), hs2
+        top, state2 = stack(weights["stacked"], x, state)
+        return project_argmax(weights["vocab"], top.contiguous()), state2
 
     w0 = start_embeddings(decoder, B, start_token, cnn_feature.device)
-    hs0 = init_hidden(decoder, cfg, cnn_feature)
+    state0 = init_hidden(decoder, cfg, cnn_feature)
     embedding = decoder.embeddings.weight
-    return greedy_loop(step, embedding, w0, hs0, cfg.max_caption_length, end_token)
+    return greedy_loop(step, embedding, w0, state0, cfg.max_caption_length, end_token)

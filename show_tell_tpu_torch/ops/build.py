@@ -120,12 +120,17 @@ def load_library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(build())
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.st_fused_gru_step.argtypes = [i] + [p] * 12 + [i] * 5 + [p]
-        lib.st_fused_attn_step.argtypes = [i] + [p] * 20 + [i] * 7 + [p]
-        lib.st_attention_context.argtypes = [i] + [p] * 8 + [i] * 5 + [p]
-        lib.st_project_argmax.argtypes = [i] + [p] * 5 + [i] * 3 + [p]
-        for fn in (lib.st_fused_gru_step, lib.st_fused_attn_step, lib.st_attention_context, lib.st_project_argmax):
-            fn.restype = i
+        signatures = {
+            "st_fused_gru_step": [i] + [p] * 12 + [i] * 5 + [p],
+            "st_fused_lstm_step": [i] + [p] * 14 + [i] * 5 + [p],
+            "st_fused_attn_step": [i] + [p] * 20 + [i] * 7 + [p],
+            "st_fused_attn_lstm_step": [i] + [p] * 22 + [i] * 7 + [p],
+            "st_attention_context": [i] + [p] * 8 + [i] * 5 + [p],
+            "st_project_argmax": [i] + [p] * 5 + [i] * 3 + [p],
+        }
+        for name, argtypes in signatures.items():
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = argtypes, i
         _lib = lib
     return _lib
 

@@ -1,8 +1,11 @@
 """The fused attention decode step: attention, the embed-space context,
-the L-layer GRU, the vocab projection and the first-max argmax in one CUDA
-kernel launch (csrc/fused_attn_step.cu), its plain PyTorch twin, a count
-of kernel launches, and the greedy decode over it (counterpart of
-show_tell_tpu/ops/fused_attn_pallas.py, GRU and argmax mode).
+the L-layer GRU or LSTM, the vocab projection and the first-max argmax in
+one CUDA kernel launch (csrc/fused_attn_step.cu), its plain PyTorch twin,
+a count of kernel launches for each cell, and the greedy decode over it
+(counterpart of show_tell_tpu/ops/fused_attn_pallas.py, argmax mode).
+
+The step takes the state as the greedy loop carries it: hs [L, B, H] for
+the GRU, the tuple (hs, cs) for the LSTM.
 
 Two per-image constants are hoisted out of the step, as on the TPU:
 ``att1 = feats @ W_enc + b_enc`` and ``feats_e = feats @ W_embed``.  Decode
@@ -21,7 +24,7 @@ import torch
 from show_tell_tpu_torch.ops import check_tensor, check_widths, dtype_code, raise_on_error, stream_arg, uses_kernel
 from show_tell_tpu_torch.ops.attention import attention_alpha_plain, precompute_att1
 from show_tell_tpu_torch.ops.fused_step import check_stack
-from show_tell_tpu_torch.ops.rnn import gru_stack_plain, prepare_rnn_weights
+from show_tell_tpu_torch.ops.rnn import LstmState, State, prepare_rnn_weights, stack_plain
 from show_tell_tpu_torch.ops.vocab import prepare_vocab, project_argmax_plain
 
 
@@ -63,26 +66,32 @@ def prepare_attn_decode(weights: Dict[str, object], decoder, feats_pm: torch.Ten
 
 
 def fused_attn_decode_step_plain(
-    prep: Dict[str, object], w_emb: torch.Tensor, hs: torch.Tensor
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    prep: Dict[str, object], w_emb: torch.Tensor, state: State
+) -> Tuple[torch.Tensor, State]:
     """The kernel's function in plain torch ops: alpha from the last
     layer's incoming h, ctx_e = sum_p alpha_p feats_e_p + b_emb in f32,
-    x = cat(w_emb, ctx_e) in hs's dtype, the GRU stack, the projection and
-    the first-max argmax.  Returns (tok [B] int32, new_hs [L, B, H])."""
+    x = cat(w_emb, ctx_e) in hs's dtype, the GRU or LSTM stack (by the
+    state), the projection and the first-max argmax.  Returns (tok [B]
+    int32, new state)."""
+    lstm = isinstance(state, tuple)
+    hs = state[0] if lstm else state
     alpha = attention_alpha_plain(prep, prep["att1"], hs[-1])
     ctx_e = (prep["feats_e"].float() * alpha[..., None]).sum(dim=1) + prep["b_emb"].float()
     x = torch.cat([w_emb.to(hs.dtype), ctx_e.to(hs.dtype)], dim=-1)
-    top, new_hs = gru_stack_plain(prep["stacked"], x, hs)
-    return project_argmax_plain(prep["vocab"], top), new_hs
+    top, new_state = stack_plain("lstm" if lstm else "gru")(prep["stacked"], x, state)
+    return project_argmax_plain(prep["vocab"], top), new_state
 
 
-def fused_attn_decode_step_cuda(prep, w_emb, hs) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the kernel on the current stream.  Every tensor must be on
-    the same CUDA device, in one dtype (float32 or bfloat16), contiguous,
-    with E, H and A multiples of 8.  Raises on anything else and on a
-    failed launch."""
+def fused_attn_decode_step_cuda(prep, w_emb, state: State) -> Tuple[torch.Tensor, State]:
+    """Launch the GRU or (for a state (hs, cs)) the LSTM instance of the
+    kernel on the current stream, and count it on ``fused_attn_decode_step``
+    or ``fused_attn_lstm_decode_step``.  Every tensor must be on the same
+    CUDA device, in one dtype (float32 or bfloat16), contiguous, with E, H
+    and A multiples of 8.  Raises on anything else and on a failed launch."""
     from show_tell_tpu_torch.ops.build import load_library
 
+    lstm = isinstance(state, tuple)
+    hs, cs = state if lstm else (state, None)
     L, B, H = hs.shape
     _, P, E = prep["feats_e"].shape
     A = prep["att1"].shape[2]
@@ -92,7 +101,9 @@ def fused_attn_decode_step_cuda(prep, w_emb, hs) -> Tuple[torch.Tensor, torch.Te
     check_widths("fused_attn_decode_step", E=E, A=A)
     if P < 1 or V < 1:
         raise ValueError("fused_attn_decode_step needs P, V >= 1 (got P=%d V=%d)" % (P, V))
-    check_stack("fused_attn_decode_step", prep["stacked"], 2 * E, hs)
+    check_stack("fused_attn_decode_step", prep["stacked"], 2 * E, hs, 4 if lstm else 3)
+    if lstm:
+        check_tensor("cs", cs, (L, B, H), dtype, device)
     check_tensor("w_emb", w_emb, (B, E), dtype, device)
     check_tensor("feats_e", prep["feats_e"], (B, P, E), dtype, device)
     check_tensor("att1", prep["att1"], (B, P, A), dtype, device)
@@ -107,18 +118,25 @@ def fused_attn_decode_step_cuda(prep, w_emb, hs) -> Tuple[torch.Tensor, torch.Te
     x = torch.empty(B, 2 * E, dtype=dtype, device=device)
     att2 = torch.empty(B, A, dtype=torch.float32, device=device)
     new_hs = torch.empty_like(hs)
+    new_cs = torch.empty_like(cs) if lstm else None
     tok = torch.empty(B, dtype=torch.int32, device=device)
     best = torch.empty(B, dtype=torch.int64, device=device)
+    state_in = [hs.data_ptr(), cs.data_ptr()] if lstm else [hs.data_ptr()]
+    state_out = [new_hs.data_ptr(), new_cs.data_ptr()] if lstm else [new_hs.data_ptr()]
+    entry = lib.st_fused_attn_lstm_step if lstm else lib.st_fused_attn_step
     with torch.cuda.device(device):
-        err = lib.st_fused_attn_step(
+        err = entry(
             code, w_emb.data_ptr(), prep["feats_e"].data_ptr(), prep["att1"].data_ptr(), prep["wdec"].data_ptr(),
             prep["bdec"].data_ptr(), prep["wfull"].data_ptr(), prep["b_emb"].data_ptr(),
             stacked["w_ih0"].data_ptr(), stacked["w_ihU"].data_ptr(), stacked["w_hh"].data_ptr(),
-            stacked["b_ih"].data_ptr(), stacked["b_hh"].data_ptr(), hs.data_ptr(), vocab["w"].data_ptr(),
-            vocab["b"].data_ptr(), x.data_ptr(), att2.data_ptr(), new_hs.data_ptr(), tok.data_ptr(),
+            stacked["b_ih"].data_ptr(), stacked["b_hh"].data_ptr(), *state_in, vocab["w"].data_ptr(),
+            vocab["b"].data_ptr(), x.data_ptr(), att2.data_ptr(), *state_out, tok.data_ptr(),
             best.data_ptr(), L, B, E, H, A, P, V, stream_arg(device),
         )
     raise_on_error("fused attention step", err)
+    if lstm:
+        fused_attn_lstm_decode_step.launches += 1
+        return tok, (new_hs, new_cs)
     fused_attn_decode_step.launches += 1
     return tok, new_hs
 
@@ -128,7 +146,7 @@ def fused_attn_decode_step(
     w_emb: torch.Tensor,  # [B, E] current token embeddings
     hs: torch.Tensor,  # [L, B, H]
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One fused attention greedy step.  Returns (tok [B] int32, new_hs).
+    """One fused attention GRU greedy step.  Returns (tok [B] int32, new_hs).
     CUDA tensors launch the kernel (and count the launch in
     ``fused_attn_decode_step.launches``); CPU tensors run the plain twin."""
     if uses_kernel(hs):
@@ -136,7 +154,22 @@ def fused_attn_decode_step(
     return fused_attn_decode_step_plain(prep, w_emb, hs)
 
 
+def fused_attn_lstm_decode_step(
+    prep: Dict[str, object],
+    w_emb: torch.Tensor,  # [B, E]
+    state: LstmState,  # (hs, cs), each [L, B, H]
+) -> Tuple[torch.Tensor, LstmState]:
+    """One fused attention LSTM greedy step.  Returns (tok [B] int32,
+    (new_hs, new_cs)).  CUDA tensors launch the kernel's LSTM instance (and
+    count the launch in ``fused_attn_lstm_decode_step.launches``); CPU
+    tensors run the plain twin."""
+    if uses_kernel(state[0]):
+        return fused_attn_decode_step_cuda(prep, w_emb, state)
+    return fused_attn_decode_step_plain(prep, w_emb, state)
+
+
 fused_attn_decode_step.launches = 0
+fused_attn_lstm_decode_step.launches = 0
 
 
 def attn_greedy_decode_fused(
@@ -157,9 +190,10 @@ def attn_greedy_decode_fused(
     prep = prepare_attn_decode(weights, decoder, cnn_feature.transpose(1, 2))
     embedding = decoder.embeddings.weight
     w0 = start_embeddings(decoder, B, start_token, cnn_feature.device)
-    hs0 = init_hidden(decoder, cfg, cnn_feature)
+    state0 = init_hidden(decoder, cfg, cnn_feature)
+    fused = fused_attn_lstm_decode_step if cfg.cell_type == "lstm" else fused_attn_decode_step
 
-    def step(w_emb, hs):
-        return fused_attn_decode_step(prep, w_emb, hs)
+    def step(w_emb, state):
+        return fused(prep, w_emb, state)
 
-    return greedy_loop(step, embedding, w0, hs0, cfg.max_caption_length, end_token)
+    return greedy_loop(step, embedding, w0, state0, cfg.max_caption_length, end_token)

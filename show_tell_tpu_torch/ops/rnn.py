@@ -1,18 +1,23 @@
-"""GRU decode math and the greedy loop over the fused step kernel
+"""GRU and LSTM decode math and the greedy loop over the fused step kernel
 (counterpart of show_tell_tpu/ops/rnn_pallas.py).
 
-Weights stay in the torch layout [3H, in] (one contiguous row per gate
-column), which is what the CUDA kernels stream.  Layer 0 keeps its own
-input width I0 (E for the pooled decoder, 2E for attention), smaller or
-larger than H: ``prepare_rnn_weights`` stacks it apart from the upper
-layers, as ops/fused_attn_pallas.py does on the TPU.
+Weights stay in the torch layout [G*H, in] (G = 3 gates for the GRU, 4
+for the LSTM; one contiguous row per gate column), which is what the CUDA
+kernels stream.  Layer 0 keeps its own input width I0 (E for the pooled
+decoder, 2E for attention), smaller or larger than H:
+``prepare_rnn_weights`` stacks it apart from the upper layers, as
+ops/fused_attn_pallas.py does on the TPU.  A recurrent state is hs
+[L, B, H] for the GRU and the tuple (hs, cs) for the LSTM.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
+
+LstmState = Tuple[torch.Tensor, torch.Tensor]  # (hs, cs), each [L, B, H]
+State = Union[torch.Tensor, LstmState]  # hs, or the LSTM's (hs, cs)
 
 
 def gru_cell_math(x, h, w_ih, w_hh, b_ih, b_hh, out_dtype: torch.dtype) -> torch.Tensor:
@@ -29,24 +34,48 @@ def gru_cell_math(x, h, w_ih, w_hh, b_ih, b_hh, out_dtype: torch.dtype) -> torch
     return ((1.0 - z) * n + z * h.float()).to(out_dtype)
 
 
+def lstm_cell_math(
+    x, h, c, w_ih, w_hh, b_ih, b_hh, h_dtype: torch.dtype, c_dtype: torch.dtype
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One LSTM cell (torch gate order i, f, g, o; double biases): the sum
+    x w_ih^T + b_ih + h w_hh^T + b_hh in f32, c' = f c + i g in f32 and
+    h' = o tanh(c') from that f32 c'; only then are h' and c' cast to their
+    carry dtypes.  Mirrors rnn_pallas.lstm_cell_math; w_ih [4H, in], w_hh
+    [4H, H].  Returns (h', c')."""
+    H = h.shape[-1]
+    g = x.float() @ w_ih.float().T + b_ih.float() + h.float() @ w_hh.float().T + b_hh.float()
+    i = torch.sigmoid(g[:, :H])
+    f = torch.sigmoid(g[:, H : 2 * H])
+    gg = torch.tanh(g[:, 2 * H : 3 * H])
+    o = torch.sigmoid(g[:, 3 * H :])
+    c2 = f * c.float() + i * gg
+    return (o * torch.tanh(c2)).to(h_dtype), c2.to(c_dtype)
+
+
 def prepare_rnn_weights(
     layers: List[Dict[str, torch.Tensor]], dtype: Optional[torch.dtype] = None
 ) -> Dict[str, torch.Tensor]:
-    """Stack per-layer {w_ih [3H,in], w_hh [3H,H], b_ih [3H], b_hh [3H]}
-    into w_ih0 [3H, I0] (layer 0, its own input width), w_ihU [L-1, 3H, H]
-    (the upper layers; empty for L=1), w_hh [L, 3H, H] and b_ih/b_hh
-    [L, 3H].  Done once per model, outside the decode loop."""
-    H = layers[0]["w_hh"].shape[1]
+    """Stack per-layer {w_ih [G*H,in], w_hh [G*H,H], b_ih [G*H], b_hh [G*H]}
+    (G, the gate count, read from w_hh) into w_ih0 [G*H, I0] (layer 0, its
+    own input width), w_ihU [L-1, G*H, H] (the upper layers; empty for
+    L=1), w_hh [L, G*H, H] and b_ih/b_hh [L, G*H].  Done once per model,
+    outside the decode loop."""
+    GH, H = layers[0]["w_hh"].shape
     dtype = dtype or layers[0]["w_hh"].dtype
     stack = lambda ts: torch.stack([t.to(dtype) for t in ts]).contiguous()
     w_ihU = [l["w_ih"] for l in layers[1:]]
     return {
         "w_ih0": layers[0]["w_ih"].to(dtype).contiguous(),
-        "w_ihU": stack(w_ihU) if w_ihU else layers[0]["w_hh"].new_empty((0, 3 * H, H), dtype=dtype),
+        "w_ihU": stack(w_ihU) if w_ihU else layers[0]["w_hh"].new_empty((0, GH, H), dtype=dtype),
         "w_hh": stack([l["w_hh"] for l in layers]),
         "b_ih": stack([l["b_ih"] for l in layers]),
         "b_hh": stack([l["b_hh"] for l in layers]),
     }
+
+
+def _layer_weights(stacked: Dict[str, torch.Tensor], l: int):
+    w_ih = stacked["w_ih0"] if l == 0 else stacked["w_ihU"][l - 1]
+    return w_ih, stacked["w_hh"][l], stacked["b_ih"][l], stacked["b_hh"][l]
 
 
 def gru_stack_plain(
@@ -57,10 +86,30 @@ def gru_stack_plain(
     by ``gru_cell_math``.  Returns (top h [B, H], new_hs [L, B, H])."""
     inp, new_hs = x.to(hs.dtype), []
     for l in range(hs.shape[0]):
-        w_ih = stacked["w_ih0"] if l == 0 else stacked["w_ihU"][l - 1]
-        inp = gru_cell_math(inp, hs[l], w_ih, stacked["w_hh"][l], stacked["b_ih"][l], stacked["b_hh"][l], hs.dtype)
+        inp = gru_cell_math(inp, hs[l], *_layer_weights(stacked, l), hs.dtype)
         new_hs.append(inp)
     return inp, torch.stack(new_hs)
+
+
+def lstm_stack_plain(
+    stacked: Dict[str, torch.Tensor], x: torch.Tensor, state: LstmState
+) -> Tuple[torch.Tensor, LstmState]:
+    """The LSTM twin of ``gru_stack_plain``: state (hs, cs), each [L, B, H],
+    each layer by ``lstm_cell_math``.  Returns (top h [B, H], (new_hs,
+    new_cs))."""
+    hs, cs = state
+    inp, new_hs, new_cs = x.to(hs.dtype), [], []
+    for l in range(hs.shape[0]):
+        inp, c2 = lstm_cell_math(inp, hs[l], cs[l], *_layer_weights(stacked, l), hs.dtype, cs.dtype)
+        new_hs.append(inp)
+        new_cs.append(c2)
+    return inp, (torch.stack(new_hs), torch.stack(new_cs))
+
+
+def stack_plain(cell_type: str):
+    """The plain stack step of a cell: ``(stacked, x, state) -> (top, state)``
+    (rnn_cells.stack_step's role in the JAX package's composite paths)."""
+    return lstm_stack_plain if cell_type == "lstm" else gru_stack_plain
 
 
 def prepare_greedy(
@@ -91,19 +140,23 @@ def greedy_decode_kernel(
     end_token: Optional[int] = None,
 ) -> torch.Tensor:
     """Greedy decode, one fused-step launch per token (counterpart of
-    rnn_pallas.greedy_decode_pallas): ``tok, hs = fused_gru_decode_step``,
-    then ``x = embedding[tok]``.  Returns [B, max_len] int32 ids.
-    end_token: stop once every row emitted it (<pad> after it)."""
+    rnn_pallas.greedy_decode_pallas): ``tok, state = fused_{gru,lstm}_decode_step``
+    by the stacked weights' gate count, then ``x = embedding[tok]``.  The
+    state starts at zeros in the compute dtype, hs and (LSTM) cs alike.
+    Returns [B, max_len] int32 ids.  end_token: stop once every row
+    emitted it (<pad> after it)."""
     from show_tell_tpu_torch.models.decoder import greedy_loop
-    from show_tell_tpu_torch.ops.fused_step import fused_gru_decode_step
+    from show_tell_tpu_torch.models.rnn_cells import init_state
+    from show_tell_tpu_torch.ops.fused_step import fused_gru_decode_step, fused_lstm_decode_step
 
     stacked, vocab, embedding = prepared["stacked"], prepared["vocab"], prepared["embedding"]
-    L, _, H = stacked["w_hh"].shape
-    B = feats.shape[0]
+    L, GH, H = stacked["w_hh"].shape
+    cell = "lstm" if GH == 4 * H else "gru"
     x0 = feats.to(embedding.dtype).contiguous()
-    hs0 = torch.zeros(L, B, H, dtype=embedding.dtype, device=feats.device)
+    state0 = init_state(cell, L, feats.shape[0], H, embedding.dtype, feats.device)
+    fused = fused_lstm_decode_step if cell == "lstm" else fused_gru_decode_step
 
-    def step(x, hs):
-        return fused_gru_decode_step(stacked, vocab, x, hs)
+    def step(x, state):
+        return fused(stacked, vocab, x, state)
 
-    return greedy_loop(step, embedding, x0, hs0, max_len, end_token)
+    return greedy_loop(step, embedding, x0, state0, max_len, end_token)

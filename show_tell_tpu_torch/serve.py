@@ -1,20 +1,21 @@
 """Serving API: checkpoint -> captions (counterpart of show_tell_tpu/serve.py,
-the pooled GRU and the soft-attention GRU, greedy decode).
+the pooled and the soft-attention GRU and LSTM, greedy decode).
 
     captioner = Captioner.from_checkpoint("output/COCO/model_50.ckpt",
                                           "output/COCO/vocab.pkl", device="gpu")
-    captioner = Captioner.from_checkpoint(ckpt, vocab, variant="attn", embed_dim=512)
+    captioner = Captioner.from_checkpoint(ckpt, vocab, variant="attn_lstm", embed_dim=512)
     captions = captioner.caption(images_u8)          # [B,224,224,3] uint8
     captions = captioner.caption_files(paths)        # JPEG files
 
 Images are preprocessed on the device; decode is batched greedy, one
 fused-step CUDA kernel launch per token on a GPU (the pooled step, or the
-attention step with its attention, context, recurrence and argmax).  ``compute_dtype=
+attention step with its attention, context, recurrence and argmax; each
+with a GRU and an LSTM instance).  ``compute_dtype=
 "bfloat16"`` casts every float32 weight and BN statistic to bf16 (no
 autocast); "float32" is the parity dtype.
 
 CLI: ``python -m show_tell_tpu_torch.serve --ckpt model.ckpt --vocab
-vocab.pkl [--variant gru|attn] [--device cpu|gpu] img1.jpg photos_dir/ ...``
+vocab.pkl [--variant gru|lstm|attn|attn_lstm] [--device cpu|gpu] img1.jpg photos_dir/ ...``
 """
 
 from __future__ import annotations
@@ -208,7 +209,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     p.add_argument("--ckpt", required=True, help="show_tell_tpu pickle checkpoint")
     p.add_argument("--vocab", required=True, help="vocab.pkl path")
     p.add_argument("--variant", default="gru", choices=["gru", "lstm", "attn", "attn_lstm"],
-                   help="gru and attn are ported; lstm and attn_lstm raise NotImplementedError")
+                   help="model family: pooled gru/lstm (main.py, main_lstm.py) or attention attn/attn_lstm")
     p.add_argument("--resnet_version", type=int, default=101)
     p.add_argument("--embedding_length", type=int, default=0,
                    help="0 = the reference default for the variant (256 gru, 512 the others)")

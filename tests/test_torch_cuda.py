@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain twins, on an NVIDIA GPU:
-the pooled fused step, the fused attention step, the attention context
-and the projection + argmax.
+the pooled fused step and the fused attention step (each with its GRU and
+its LSTM instance), the attention context and the projection + argmax.
 
 Marked ``cuda``: each test skips where torch finds no CUDA device (the
 kernels have no CPU or interpret mode).  Run them on the card with
@@ -13,11 +13,17 @@ import pytest
 import torch
 
 from show_tell_tpu_torch.ops.attention import attention_context, attention_context_plain
-from show_tell_tpu_torch.ops.fused_attn import fused_attn_decode_step, fused_attn_decode_step_plain
+from show_tell_tpu_torch.ops.fused_attn import (
+    fused_attn_decode_step,
+    fused_attn_decode_step_plain,
+    fused_attn_lstm_decode_step,
+)
 from show_tell_tpu_torch.ops.fused_step import (
     fused_gru_decode_step,
     fused_gru_decode_step_cuda,
     fused_gru_decode_step_plain,
+    fused_lstm_decode_step,
+    fused_lstm_decode_step_plain,
 )
 from show_tell_tpu_torch.ops.rnn import prepare_rnn_weights
 from show_tell_tpu_torch.ops.vocab import prepare_vocab, project_argmax, project_argmax_plain
@@ -33,11 +39,11 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(B, E, H, V, L, dtype, device, seed=0):
+def _inputs(B, E, H, V, L, dtype, device, seed=0, gates=3):
     rng = np.random.RandomState(seed)
     t = lambda *s: torch.from_numpy(rng.uniform(-0.3, 0.3, s).astype(np.float32))
-    layers = [{"w_ih": t(3 * H, E if l == 0 else H), "w_hh": t(3 * H, H), "b_ih": t(3 * H), "b_hh": t(3 * H)}
-              for l in range(L)]
+    G = gates * H
+    layers = [{"w_ih": t(G, E if l == 0 else H), "w_hh": t(G, H), "b_ih": t(G), "b_hh": t(G)} for l in range(L)]
     stacked = {k: v.to(device) for k, v in prepare_rnn_weights(layers, dtype).items()}
     vocab = {k: v.to(device) for k, v in prepare_vocab(t(V, H), t(V), dtype).items()}
     x = torch.from_numpy(rng.randn(B, E).astype(np.float32)).to(device, dtype)
@@ -93,11 +99,11 @@ def _clear(logits, gap):
     return (top[:, 0] - top[:, 1]) > gap
 
 
-def _attn_prep(B, E, H, A, P, V, L, dtype, device, seed=0):
+def _attn_prep(B, E, H, A, P, V, L, dtype, device, seed=0, gates=3):
     rng = np.random.RandomState(seed)
     t = lambda *s, b=0.3: torch.from_numpy(rng.uniform(-b, b, s).astype(np.float32))
-    layers = [{"w_ih": t(3 * H, 2 * E if l == 0 else H), "w_hh": t(3 * H, H), "b_ih": t(3 * H), "b_hh": t(3 * H)}
-              for l in range(L)]
+    G = gates * H
+    layers = [{"w_ih": t(G, 2 * E if l == 0 else H), "w_hh": t(G, H), "b_ih": t(G), "b_hh": t(G)} for l in range(L)]
     d = lambda x: x.to(device, dtype).contiguous()
     prep = {
         "stacked": {k: d(v) for k, v in prepare_rnn_weights(layers).items()},
@@ -159,3 +165,68 @@ def test_project_argmax_and_fused_attn_ties_take_lowest_index(cuda):
     prep["vocab"]["b"][7] = prep["vocab"]["b"][900] = 50.0
     assert project_argmax(prep["vocab"], hs[-1]).tolist() == [7] * 33
     assert fused_attn_decode_step(prep, w_emb, hs)[0].tolist() == [7] * 33
+
+
+def _cell_state(hs, seed):
+    """A cell state unlike hs (values in [-2, 2]), so reading one for the other shows."""
+    g = torch.Generator().manual_seed(seed)
+    return (torch.rand(hs.shape, generator=g) * 4 - 2).to(hs.device, hs.dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,E,H,V,L", [(3, 16, 24, 40, 2), (19, 64, 128, 1001, 3), (1, 512, 512, 9956, 5),
+                                       (5, 32, 16, 40, 2), (64, 512, 512, 9956, 5), (512, 512, 512, 9956, 5)])
+def test_lstm_kernel_matches_plain(cuda, dtype, B, E, H, V, L):
+    """The pooled step's LSTM instance: new hs and cs within the values'
+    tolerance, tokens equal where the top-2 logit gap is clear."""
+    stacked, vocab, x, hs = _inputs(B, E, H, V, L, dtype, cuda, gates=4)
+    cs = _cell_state(hs, 1)
+    before = fused_lstm_decode_step.launches
+    tok, (new_hs, new_cs) = fused_lstm_decode_step(stacked, vocab, x, (hs, cs))
+    torch.cuda.synchronize()
+    assert fused_lstm_decode_step.launches == before + 1 and new_cs.dtype == dtype
+    ref_tok, (ref_hs, ref_cs) = fused_lstm_decode_step_plain(stacked, vocab, x, (hs, cs))
+    tol, gap = TOL[dtype]
+    torch.testing.assert_close(new_hs.float(), ref_hs.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(new_cs.float(), ref_cs.float(), rtol=tol, atol=tol)
+    clear = _clear(ref_hs[-1].float() @ vocab["w"].float().T + vocab["b"].float(), gap)
+    assert torch.equal(tok[clear], ref_tok[clear])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,E,H,A,P,V,L", [(3, 16, 24, 16, 5, 40, 1), (19, 64, 128, 32, 7, 1001, 3),
+                                           (64, 512, 512, 512, 49, 9956, 5)])
+def test_fused_attn_lstm_kernel_matches_plain(cuda, dtype, B, E, H, A, P, V, L):
+    prep, w_emb, hs = _attn_prep(B, E, H, A, P, V, L, dtype, cuda, gates=4)
+    cs = _cell_state(hs, 2)
+    before = fused_attn_lstm_decode_step.launches
+    tok, (new_hs, new_cs) = fused_attn_lstm_decode_step(prep, w_emb, (hs, cs))
+    torch.cuda.synchronize()
+    assert fused_attn_lstm_decode_step.launches == before + 1
+    ref_tok, (ref_hs, ref_cs) = fused_attn_decode_step_plain(prep, w_emb, (hs, cs))
+    tol, gap = TOL[dtype]
+    torch.testing.assert_close(new_hs.float(), ref_hs.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(new_cs.float(), ref_cs.float(), rtol=tol, atol=tol)
+    clear = _clear(ref_hs[-1].float() @ prep["vocab"]["w"].float().T + prep["vocab"]["b"].float(), gap)
+    assert torch.equal(tok[clear], ref_tok[clear])
+
+
+def test_lstm_kernels_tie_takes_lowest_index(cuda):
+    stacked, vocab, x, hs = _inputs(33, 16, 24, 1000, 2, torch.float32, cuda, seed=6, gates=4)
+    vocab["w"][900] = vocab["w"][7]
+    vocab["b"][7] = vocab["b"][900] = 50.0
+    assert fused_lstm_decode_step(stacked, vocab, x, (hs, _cell_state(hs, 3)))[0].tolist() == [7] * 33
+    prep, w_emb, hs = _attn_prep(33, 16, 24, 16, 5, 1000, 2, torch.float32, cuda, seed=7, gates=4)
+    prep["vocab"]["w"][900] = prep["vocab"]["w"][7]
+    prep["vocab"]["b"][7] = prep["vocab"]["b"][900] = 50.0
+    assert fused_attn_lstm_decode_step(prep, w_emb, (hs, _cell_state(hs, 4)))[0].tolist() == [7] * 33
+
+
+def test_lstm_wrappers_reject_a_bad_cell_state(cuda):
+    stacked, vocab, x, hs = _inputs(3, 16, 24, 40, 2, torch.float32, cuda, gates=4)
+    with pytest.raises(ValueError, match="cs has shape"):
+        fused_lstm_decode_step(stacked, vocab, x, (hs, hs[:, :2].contiguous()))
+    with pytest.raises(ValueError, match="cs has dtype"):
+        fused_lstm_decode_step(stacked, vocab, x, (hs, hs.bfloat16()))
+    with pytest.raises(ValueError, match=r"w_ih0 has shape \(72, 16\), expected \(96, 16\)"):  # GRU weights
+        fused_lstm_decode_step(_inputs(3, 16, 24, 40, 2, torch.float32, cuda)[0], vocab, x, (hs, hs))

@@ -208,7 +208,26 @@ def test_preprocess_matches_jax():
 
 
 @pytest.mark.parametrize("variant", ["lstm", "attn_lstm"])
-def test_unported_variants_name_their_roadmap_item(variant):
-    cfg = CaptionerConfig(variant, 18, 16, 24, 40, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 1[12]"):
-        init_captioner(cfg, torch.Generator().manual_seed(0))
+def test_init_captioner_lstm_variants_match_jax_tree_and_laws(variant):
+    """The LSTM families: the JAX tree's structure and shapes (4H gate
+    rows; init_c for the attention LSTM), the recurrence and init_c laws,
+    and a model built from the trees."""
+    cfg = CaptionerConfig(variant, 18, 16, 24, 40, 2, nos_filters=512)
+    params, state = init_captioner(cfg, torch.Generator().manual_seed(0))
+    j_params, j_state = jax.eval_shape(
+        lambda k: jax_captioner.init_captioner(k, jax_captioner.CaptionerConfig(*cfg)), jax.random.PRNGKey(0)
+    )
+    assert jax.tree.structure(params) == jax.tree.structure(j_params)
+    assert jax.tree.structure(state) == jax.tree.structure(j_state)
+    for a, b in zip(jax.tree.leaves((params, state)), jax.tree.leaves((j_params, j_state))):
+        assert a.shape == b.shape and a.dtype == np.float32
+    dec = params["decoder"]
+    assert dec["rnn"][0]["w_ih"].shape == (32 if variant == "attn_lstm" else 16, 96)
+    w_hh = dec["rnn"][1]["w_hh"]
+    assert np.abs(w_hh).max() <= 1 / np.sqrt(24) and np.abs(w_hh).max() > 0.9 / np.sqrt(24)
+    assert ("init_c" in dec) == (variant == "attn_lstm")
+    if variant == "attn_lstm":
+        w = dec["init_c"]["w"]
+        assert w.shape == (512, 24) and 0.9 / np.sqrt(512) < np.abs(w).max() <= 1 / np.sqrt(512)
+    model = build_model(params, state, cfg, torch.float32, CPU)
+    assert model.decoder.unit.weight_hh_l1.shape == (96, 24)
