@@ -12,17 +12,30 @@ Phases, one line each (any failure exits non-zero with no ok line):
      E=H=A=512, P=49, V=9,956; B = 1, 64, 256); the attention context
      (C=2048, same B); the projection + argmax (H=512, V=9,956, same B);
      f32 and bf16, with cross-block argmax ties;
+  3b. beam kernels against plain, same widths, R = B x K beam rows in
+     {3, 5, 192, 320} (B in {1, 64}, K in {3, 5}), f32 and bf16: the
+     pooled step's dense and top-k forms (both cells), the attention
+     step's dense form (both cells), the projection + top-k; logits and
+     top-k against the plain projection of the kernel's own new top
+     activation, and top-k ties listed lower index first;
   4. pooled main paths: a flagship pooled-GRU Captioner (ResNet-101,
      random weights from seed 0, bf16) serves three requests of 64
      images; the fused step must have launched 3 x 25 times and the ids
      must agree with the plain step's decode; then once more in f32 at
-     B=8.  The same for a flagship pooled-LSTM Captioner (E=512) and the
-     step's LSTM instance;
+     B=8.  Then the same Captioner serves three requests at beam width 3
+     (3 x 24 launches of the dense beam step; ids against a beam decode
+     with the plain twins as steps) and one f32 beam request at B=8, and
+     the first request's features are decoded by the top-k route and the
+     sparse composite (24 launches each).  The same for a flagship
+     pooled-LSTM Captioner (E=512) and the steps' LSTM instances;
   5. attention main paths: the same for a flagship attention-GRU and an
      attention-LSTM Captioner (spatial ResNet-101, C=2048, E=H=A=512),
      each followed by one composite decode of the same features at B=64
-     (25 launches each of the context and projection kernels);
-  6. times: per-step kernel and plain times, and captions/s of each slice.
+     (25 launches each of the context and projection kernels); beam as
+     in 4 (3 x 24 dense-step launches and one context launch a request),
+     and a sparse composite beam decode (25 context, 24 top-k launches);
+  6. times: per-step kernel and plain times, captions/s of each slice,
+     greedy and beam, and the pooled GRU's beam routes side by side.
 The last lines are the card's name and power limit, a JSON line of the
 kernels, and {"ok": true, "device": {...}}.
 """
@@ -45,6 +58,19 @@ SEED = 0
 # ulp of a |h| <= 1 value (2^-7 ~ 0.0078) after a cast, and its logits near
 # ties by more than the f32 sums' order.
 TOL = {"float32": (1e-5, 1e-4), "bfloat16": (2e-2, 5e-2)}
+K_BEAM = 3  # the beam width of the main paths (the published widths are 3 and 5)
+END, PAD = 2, 0  # SyntheticVocab's <end> and <pad>
+BEAM_RS = ((3, 3), (5, 5), (192, 3), (320, 5))  # (R, K): R = B x K rows for B in {1, 64}
+# Beam kernels: logits and top-k against the plain projection of the
+# kernel's own new top activation isolate the f32 summation order: rtol =
+# atol = 1e-4, and top-k ids equal on every row whose K+1 best logits are
+# more than 1e-4 apart.  New states against the plain twin's: TOL, but
+# 2e-5 in f32, as at R = 192 the attention step's f32 new_hs differs from
+# cuBLAS's by up to 1.2e-5 (tests/test_torch_cuda.py on the card).
+BEAM_TOL = 1e-4
+BEAM_STATE_TOL = {"float32": 2e-5, "bfloat16": TOL["bfloat16"][0]}
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, the published peak
+BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
 
 
 def fail(msg):
@@ -161,22 +187,22 @@ def top2_gap(logits):
     return top[:, 0] - top[:, 1]
 
 
-def check_states(what, got, ref, dtype):
+def check_states(what, got, ref, dtype, tol=None):
     import torch
 
-    tol = TOL[dname(dtype)][0]
+    tol = tol or TOL[dname(dtype)][0]
     err = (got.float() - ref.float()).abs().max().item()
     if not torch.allclose(got.float(), ref.float(), rtol=tol, atol=tol):
         fail("%s differs from plain: max_abs_err %g (rtol = atol = %g)" % (what, err, tol))
     return err
 
 
-def check_state(what, got, ref, dtype):
+def check_state(what, got, ref, dtype, tol=None):
     """new_hs, and for the LSTM new_cs, against the plain twin's; returns the larger error."""
     if isinstance(got, tuple):
-        return max(check_states(what + " new_hs", got[0], ref[0], dtype),
-                   check_states(what + " new_cs", got[1], ref[1], dtype))
-    return check_states(what + " new_hs", got, ref, dtype)
+        return max(check_states(what + " new_hs", got[0], ref[0], dtype, tol),
+                   check_states(what + " new_cs", got[1], ref[1], dtype, tol))
+    return check_states(what + " new_hs", got, ref, dtype, tol)
 
 
 def check_tokens(what, tok, ref_tok, logits, dtype):
@@ -290,26 +316,199 @@ def kernels_against_plain(rng, device):
     return errs
 
 
-def serve(cap, requests, counter_fns, launches_each):
-    """One warm-up request, then ``requests`` timed on the host clock with
-    every kernel count set to 0 just before; returns (ids, seconds, counts)."""
+# (kernel, source, the TPU kernel it replaces): every instance, greedy then beam
+KERNEL_ROWS = [
+    ("fused_gru_decode_step", "fused_step.cu", "show_tell_tpu/ops/fused_step_pallas.py:255"),
+    ("fused_lstm_decode_step", "fused_step.cu", "show_tell_tpu/ops/fused_step_pallas.py:277"),
+    ("fused_attn_decode_step", "fused_attn_step.cu", "show_tell_tpu/ops/fused_attn_pallas.py:330"),
+    ("fused_attn_lstm_decode_step", "fused_attn_step.cu", "show_tell_tpu/ops/fused_attn_pallas.py:330"),
+    ("attention_context", "attention_context.cu", "show_tell_tpu/ops/attention_pallas.py:94"),
+    ("project_argmax", "project_argmax.cu", "show_tell_tpu/ops/vocab_pallas.py:170"),
+    ("fused_gru_dense_step", "fused_step.cu", "show_tell_tpu/ops/fused_beam_pallas.py:347"),
+    ("fused_lstm_dense_step", "fused_step.cu", "show_tell_tpu/ops/fused_beam_pallas.py:347"),
+    ("fused_gru_topk_step", "fused_step.cu", "show_tell_tpu/ops/fused_beam_pallas.py:377"),
+    ("fused_lstm_topk_step", "fused_step.cu", "show_tell_tpu/ops/fused_beam_pallas.py:377"),
+    ("fused_attn_dense_step", "fused_attn_step.cu", "show_tell_tpu/ops/fused_attn_pallas.py:353"),
+    ("fused_attn_lstm_dense_step", "fused_attn_step.cu", "show_tell_tpu/ops/fused_attn_pallas.py:353"),
+    ("project_topk", "project_topk.cu", "show_tell_tpu/ops/vocab_pallas.py:296"),
+]
+BEAM_KERNELS = {name for name, _, _ in KERNEL_ROWS[6:]}
+
+
+def check_logits(what, logits, top, vocab):
+    """Dense logits against the plain projection of the kernel's own top."""
     import torch
 
-    cap.caption_ids(requests[0])  # warm-up: cuDNN plans, allocator
+    from show_tell_tpu_torch.ops.vocab import project_logits
+
+    ref = project_logits(vocab, top)
+    err = (logits - ref).abs().max().item()
+    if not torch.allclose(logits, ref, rtol=BEAM_TOL, atol=BEAM_TOL):
+        fail("%s logits differ from the plain projection: max_abs_err %g (rtol = atol = %g)" % (what, err, BEAM_TOL))
+    return err
+
+
+def check_topk(what, logp, ids, top, vocab, k):
+    """(logp, ids) against the plain top-k of the projection of the kernel's
+    own top; returns (logp max_abs_err, rows whose ids had to be equal)."""
+    import torch
+
+    from show_tell_tpu_torch.ops.vocab import project_logits, project_topk_plain
+
+    ref_logp, ref_ids = project_topk_plain(vocab, top, k)
+    err = (logp - ref_logp).abs().max().item()
+    if not torch.allclose(logp, ref_logp, rtol=BEAM_TOL, atol=BEAM_TOL):
+        fail("%s logp differs from the plain top-k: max_abs_err %g (rtol = atol = %g)" % (what, err, BEAM_TOL))
+    best = project_logits(vocab, top).topk(k + 1, dim=-1).values
+    clear = (best[:, :-1] - best[:, 1:]).min(dim=1).values > BEAM_TOL
+    bad = int((ids != ref_ids)[clear].any(dim=1).sum())
+    if bad:
+        fail("%s: top-%d ids differ from plain on %d rows whose %d best logits are > %g apart"
+             % (what, k, bad, k + 1, BEAM_TOL))
+    return err, int(clear.sum())
+
+
+def beam_kernels_against_plain(rng, device):
+    """Phase 3b.  Returns each beam kernel's bf16 R=192 max_abs_err (the
+    largest of its outputs' against their references)."""
+    import torch
+
+    from show_tell_tpu_torch.models.attention import last_h
+    from show_tell_tpu_torch.ops.fused_attn import fused_attn_dense_step_cuda, fused_attn_dense_step_plain
+    from show_tell_tpu_torch.ops.fused_beam import (
+        fused_dense_step_cuda,
+        fused_dense_step_plain,
+        fused_topk_step_cuda,
+        fused_topk_step_plain,
+    )
+    from show_tell_tpu_torch.ops.vocab import project_topk_cuda
+
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = dname(dtype)
+        tol = BEAM_STATE_TOL[dn]
+        for R, k in BEAM_RS:
+            for cell, Ec in (("gru", E), ("lstm", LE)):
+                stacked, vocab, x, state = step_inputs(rng, R, dtype, device, Ec, cell)
+                what = "beam %s dense step %s R=%d" % (cell, dn, R)
+                logits, new_state = fused_dense_step_cuda(stacked, vocab, x, state)
+                torch.cuda.synchronize()
+                err = check_state(what, new_state, fused_dense_step_plain(stacked, vocab, x, state)[1], dtype, tol)
+                l_err = check_logits(what, logits, last_h(new_state), vocab)
+                if dtype == torch.bfloat16 and R == 192:
+                    errs["fused_%s_dense_step" % cell] = max(err, l_err)
+                phase("kernel", "%s: state max_abs_err %.3g (rtol atol %g); logits max_abs_err %.3g (rtol atol %g)"
+                      % (what, err, tol, l_err, BEAM_TOL))
+                what = "beam %s top-%d step %s R=%d" % (cell, k, dn, R)
+                (logp, ids), new_state = fused_topk_step_cuda(stacked, vocab, x, state, k)
+                torch.cuda.synchronize()
+                err = check_state(what, new_state, fused_topk_step_plain(stacked, vocab, x, state, k)[1], dtype, tol)
+                k_err, n = check_topk(what, logp, ids, last_h(new_state), vocab, k)
+                if dtype == torch.bfloat16 and R == 192:
+                    errs["fused_%s_topk_step" % cell] = max(err, k_err)
+                phase("kernel", "%s: state max_abs_err %.3g; logp max_abs_err %.3g (rtol atol %g); ids equal on all "
+                      "%d rows whose %d best logits are > %g apart, %d rows closer"
+                      % (what, err, k_err, BEAM_TOL, n, k + 1, BEAM_TOL, R - n))
+            for cell in ("gru", "lstm"):
+                prep, w_emb, state = attn_inputs(rng, R, dtype, device, cell)
+                what = "beam attention %s dense step %s R=%d" % (cell, dn, R)
+                logits, new_state = fused_attn_dense_step_cuda(prep, w_emb, state)
+                torch.cuda.synchronize()
+                err = check_state(what, new_state, fused_attn_dense_step_plain(prep, w_emb, state)[1], dtype, tol)
+                l_err = check_logits(what, logits, last_h(new_state), prep["vocab"])
+                if dtype == torch.bfloat16 and R == 192:
+                    errs["fused_%sdense_step" % ("attn_lstm_" if cell == "lstm" else "attn_")] = max(err, l_err)
+                phase("kernel", "%s: state max_abs_err %.3g (rtol atol %g); logits max_abs_err %.3g (rtol atol %g)"
+                      % (what, err, tol, l_err, BEAM_TOL))
+            top = last_h(state)
+            what = "project_topk k=%d %s R=%d" % (k, dn, R)
+            logp, ids = project_topk_cuda(prep["vocab"], top, k)
+            torch.cuda.synchronize()
+            k_err, n = check_topk(what, logp, ids, top, prep["vocab"], k)
+            if dtype == torch.bfloat16 and R == 192:
+                errs["project_topk"] = k_err
+            phase("kernel", "%s: logp max_abs_err %.3g (rtol atol %g); ids equal on all %d rows whose %d best logits "
+                  "are > %g apart, %d rows closer" % (what, k_err, BEAM_TOL, n, k + 1, BEAM_TOL, R - n))
+
+        # ties: columns 7 and 9000 equal and top in every row
+        for cell, Ec in (("gru", E), ("lstm", LE)):
+            stacked, vocab, x, state = step_inputs(rng, 192, dtype, device, Ec, cell)
+            vocab["w"][9000] = vocab["w"][7]
+            vocab["b"][7] = vocab["b"][9000] = 100.0
+            (_, ids), new_state = fused_topk_step_cuda(stacked, vocab, x, state, 5)
+            tie_ids = [ids, project_topk_cuda(vocab, last_h(new_state), 3)[1]]
+            logits, _ = fused_dense_step_cuda(stacked, vocab, x, state)
+            if not all(bool((i[:, :2] == torch.tensor([7, 9000], device=device)).all()) for i in tie_ids):
+                fail("beam %s top-k / project_topk %s: tie of columns 7 and 9000 not listed as [7, 9000]" % (cell, dn))
+            if not torch.equal(logits[:, 7], logits[:, 9000]) or not bool((logits.argmax(1) == 7).all()):
+                fail("beam %s dense step %s: columns 7 and 9000 not tied at the top" % (cell, dn))
+            phase("kernel", "beam %s top-5 step and project_topk %s: tie between columns 7 and 9000 -> [7, 9000, ...] "
+                  "on all 192 rows; the dense step's logits tie there" % (cell, dn))
+    return errs
+
+
+def work(name, R, k=K_BEAM):
+    """(bytes, operations) that one call of kernel ``name`` at R rows must
+    move and do in bf16 at the flagship widths: each input read once, each
+    output written once, two operations a multiply-add."""
+    cell = "lstm" if "lstm" in name else "gru"
+    G = GATES[cell] * H
+    attn = name.startswith("fused_attn")
+    I0 = 2 * AE if attn else (LE if cell == "lstm" else E)
+    vocab_el, vocab_ops = V * H + V, 2 * R * V * H
+    if name == "attention_context":  # feats, att1, h, wdec, bdec, wfull -> ctx, alpha (f32)
+        return (2 * (R * AP * (AC + AA) + R * H + AA * H + 2 * AA + R * AC) + 4 * R * AP,
+                2 * R * (AA * H + AP * AA + AP * AC))
+    end_bytes = 8 * R * k if "topk" in name else 4 * R * V if "dense" in name else 4 * R  # logp + ids, logits, tok
+    if name.startswith("project_"):
+        return 2 * (R * H + vocab_el) + end_bytes, vocab_ops
+    stack_el = G * I0 + (2 * L - 1) * G * H + 2 * L * G  # w_ih0, w_ihU and w_hh, the biases
+    state_el = 2 * (2 if cell == "lstm" else 1) * L * R * H  # hs (and cs), in and out
+    x_el = R * AE + R * AP * (AE + AA) + AA * H + 2 * AA + AE if attn else R * I0  # w_emb, feats_e, att1, ... or x
+    ops = 2 * R * (G * I0 + (2 * L - 1) * G * H) + vocab_ops
+    if attn:
+        ops += 2 * R * (AA * H + AP * AA + AP * AE)  # att2, the scores, the context
+    return 2 * (stack_el + state_el + vocab_el + x_el) + end_bytes, ops
+
+
+def bound(name, R):
+    """(least ms the card could take for one call, what bounds it)."""
+    nbytes, ops = work(name, R)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def serve(cap, requests, counter_fns, launches_each, beam_size=0):
+    """One warm-up request, then ``requests`` timed on the host clock with
+    every kernel count set to 0 just before; returns (ids, seconds, counts).
+    Every count not in launches_each must stay 0."""
+    import torch
+
+    cap.caption_ids(requests[0], beam_size)  # warm-up: cuDNN plans, allocator
     torch.cuda.synchronize()
     for fn in counter_fns:
         fn.launches = 0
     t0 = time.perf_counter()
-    served = [cap.caption_ids(imgs) for imgs in requests]
+    served = [cap.caption_ids(imgs, beam_size) for imgs in requests]
     seconds = time.perf_counter() - t0
-    counts = {fn.__name__: fn.launches for fn in counter_fns}
-    for name, want in launches_each.items():
-        if counts[name] != want:
-            fail("main path launched %s %d times, expected %d (counts %s)" % (name, counts[name], want, counts))
+    counts = read_counts(counter_fns, launches_each)
     return served, seconds, counts
 
 
+def read_counts(counter_fns, launches_each):
+    """Every kernel's launch count; fails unless each named one is as
+    expected and the others are 0."""
+    counts = {fn.__name__: fn.launches for fn in counter_fns}
+    for name, got in counts.items():
+        if got != launches_each.get(name, 0):
+            fail("main path launched %s %d times, expected %d (counts %s)"
+                 % (name, got, launches_each.get(name, 0), counts))
+    return counts
+
+
 def check_served(label, served, requests, plain_decode, cap):
+    """Returns the smallest share of positions equal to the plain decode."""
+    shares = []
     for i, (ids, imgs) in enumerate(zip(served, requests)):
         if ids.shape != (len(imgs), T) or ids.min() < 0 or ids.max() >= V:
             fail("%s request %d: ids of shape %s in [%d, %d]" % (label, i, ids.shape, ids.min(), ids.max()))
@@ -319,20 +518,31 @@ def check_served(label, served, requests, plain_decode, cap):
             fail("%s request %d: ids equal the plain step's decode on %.4f of positions (< 0.95)" % (label, i, share))
         phase("main", "%s bf16 request %d: [64,25] ids, equal to the plain step's decode on %.4f of positions"
               % (label, i, share))
+        shares.append(share)
+    return min(shares)
 
 
-def check_f32(label, cap32, imgs, counter, plain_decode):
-    counter.launches = 0
-    ids32 = cap32.caption_ids(imgs)
-    if counter.launches != T:
-        fail("%s f32 request launched %s %d times" % (label, counter.__name__, counter.launches))
+def check_f32(label, cap32, imgs, counter, plain_decode, beam_size=0, expected=None):
+    """One f32 request against the plain decode of its features.  Greedy:
+    ``counter`` launched T times and every row equal; beam: the counts in
+    ``expected`` and at least 7 of 8 rows equal."""
+    counters = list(expected) if expected else [counter]
+    for fn in counters:
+        fn.launches = 0
+    ids32 = cap32.caption_ids(imgs, beam_size)
+    for fn in counters:
+        want = expected[fn] if expected else T
+        if fn.launches != want:
+            fail("%s f32 request launched %s %d times, expected %d" % (label, fn.__name__, fn.launches, want))
     ref32, gaps32 = plain_decode(cap32, imgs)
     same = (ids32 == ref32).all(axis=1)
+    gap = "score gap (K-th to (K+1)-th candidate, best to second final beam)" if beam_size else "top-2 gap"
     for r in [int(i) for i in range(len(same)) if not same[i]]:
-        phase("main", "%s f32 row %d differs from the plain decode; its smallest top-2 gap is %.3g"
-              % (label, r, gaps32[r]))
-    if same.mean() < 0.99:
-        fail("%s f32 B=%d: %d rows equal the plain decode (< 99%%)" % (label, len(same), int(same.sum())))
+        phase("main", "%s f32 row %d differs from the plain decode at %d of %d positions; its smallest %s is %.3g"
+              % (label, r, int((ids32[r] != ref32[r]).sum()), T, gap, gaps32[r]))
+    need = 7 / 8 if beam_size else 0.99
+    if same.mean() < need:
+        fail("%s f32 B=%d: %d rows equal the plain decode (< %.3f)" % (label, len(same), int(same.sum()), need))
     phase("main", "%s f32 B=%d (TF32 off): %d of %d rows equal the plain step's decode"
           % (label, len(same), int(same.sum()), len(same)))
 
@@ -371,8 +581,10 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     rng = np.random.RandomState(SEED)
     errs = kernels_against_plain(rng, device)
+    errs.update(beam_kernels_against_plain(rng, device))
 
     from show_tell_tpu_torch.data.transforms import preprocess_images
+    from show_tell_tpu_torch.decode.beam import attn_beam_search_decode, beam_engine, beam_search_decode, rnn_state_helpers
     from show_tell_tpu_torch.models.attention import init_hidden, last_h, linear_f32, start_embeddings
     from show_tell_tpu_torch.models.captioner import CaptionerConfig, init_captioner
     from show_tell_tpu_torch.models.decoder import greedy_loop
@@ -388,8 +600,22 @@ def main():
         fused_attn_decode_step,
         fused_attn_decode_step_cuda,
         fused_attn_decode_step_plain,
+        fused_attn_dense_step,
+        fused_attn_dense_step_cuda,
+        fused_attn_dense_step_plain,
         fused_attn_lstm_decode_step,
+        fused_attn_lstm_dense_step,
         prepare_attn_decode,
+    )
+    from show_tell_tpu_torch.ops.fused_beam import (
+        fused_dense_step_cuda,
+        fused_dense_step_plain,
+        fused_gru_dense_step,
+        fused_gru_topk_step,
+        fused_lstm_dense_step,
+        fused_lstm_topk_step,
+        fused_topk_step_cuda,
+        fused_topk_step_plain,
     )
     from show_tell_tpu_torch.ops.fused_step import (
         fused_gru_decode_step,
@@ -400,11 +626,20 @@ def main():
         fused_lstm_decode_step_plain,
     )
     from show_tell_tpu_torch.ops.rnn import stack_plain
-    from show_tell_tpu_torch.ops.vocab import project_argmax, project_argmax_cuda, project_argmax_plain, project_logits
+    from show_tell_tpu_torch.ops.vocab import (
+        project_argmax,
+        project_argmax_cuda,
+        project_argmax_plain,
+        project_logits,
+        project_topk,
+        project_topk_cuda,
+        project_topk_plain,
+    )
     from show_tell_tpu_torch.serve import Captioner
 
     counters = [fused_gru_decode_step, fused_lstm_decode_step, fused_attn_decode_step, fused_attn_lstm_decode_step,
-                attention_context, project_argmax]
+                attention_context, project_argmax, fused_gru_dense_step, fused_lstm_dense_step, fused_gru_topk_step,
+                fused_lstm_topk_step, fused_attn_dense_step, fused_attn_lstm_dense_step, project_topk]
     vocab = SyntheticVocab(V)
     img_rng = np.random.RandomState(SEED + 1)
 
@@ -423,6 +658,33 @@ def main():
 
         ids = greedy_loop(run, embedding, x0, state0, T)
         return ids.cpu().numpy(), torch.stack(gaps, 1).min(1).values.cpu().numpy()
+
+    def plain_beam(logp0, state1, step, Bq):
+        """beam_engine over plain steps; returns ids and each image's
+        smallest score gap at a choice (beam_engine's ``gaps``)."""
+        tile, gather = rnn_state_helpers(Bq, K_BEAM)
+        gaps = []
+        ids = beam_engine(logp0, state1, step, tile, gather, K_BEAM, T, END, PAD, gaps=gaps)
+        return ids.cpu().numpy(), torch.stack(gaps, 1).min(1).values.cpu().numpy()
+
+    def route_decodes(label, dense_ids, decodes):
+        """Each (route, launches expected, decode()) on the same features:
+        counts zeroed just before, read just after; ids against the dense
+        route's.  Returns {route: counts}."""
+        out = {}
+        for route, expected, decode in decodes:
+            for fn in counters:
+                fn.launches = 0
+            with torch.inference_mode():
+                ids = decode().cpu().numpy()
+            out[route] = read_counts(counters, expected)
+            share = float((ids == dense_ids).mean())
+            if share < 0.95:
+                fail("%s beam %s decode: ids equal the dense route's on %.4f of positions (< 0.95)"
+                     % (label, route, share))
+            phase("main", "%s beam %s bf16 B=64 K=%d: launches %s; ids equal the dense route's on %.4f of positions"
+                  % (label, route, K_BEAM, {k: v for k, v in out[route].items() if v}, share))
+        return out
 
     def show_captions(label, served):
         for row in served[0][:3]:
@@ -455,7 +717,45 @@ def main():
         show_captions(variant, served)
         cap32 = Captioner(params, bn_state, cfg, vocab, "float32", device="gpu")
         check_f32(variant, cap32, img_rng.randint(0, 256, (8, 224, 224, 3), dtype=np.uint8), counter, pooled_plain)
-        return counts[counter.__name__], seconds
+
+        # beam, width 3: the dense step's instance of this cell, 24 launches a request
+        dense = fused_lstm_dense_step if cfg.cell_type == "lstm" else fused_gru_dense_step
+        topk = fused_lstm_topk_step if cfg.cell_type == "lstm" else fused_gru_topk_step
+
+        def pooled_beam_plain(cap, images_u8):
+            """The same features, beam-decoded with the plain twins as steps on the card."""
+            with torch.inference_mode():
+                feats = features(cap, images_u8)
+                prep = cap.prepared
+                state0 = init_state(cfg.cell_type, L, len(images_u8), H, cap.dtype, device)
+                top, state1 = stack_plain(cfg.cell_type)(prep["stacked"], feats.to(cap.dtype), state0)
+
+                def step(tokens, state):
+                    x = prep["embedding"].index_select(0, tokens)
+                    logits, state2 = fused_dense_step_plain(prep["stacked"], prep["vocab"], x, state)
+                    return torch.log_softmax(logits, dim=-1), state2
+
+                return plain_beam(torch.log_softmax(project_logits(prep["vocab"], top), dim=-1), state1, step,
+                                  len(images_u8))
+
+        beam_served, beam_s, beam_counts = serve(cap, requests, counters, {dense.__name__: 3 * (T - 1)}, K_BEAM)
+        beam_share = check_served(variant + " beam", beam_served, requests, pooled_beam_plain, cap)
+        phase("main", "%s beam: launches in the three requests %s (dense beam step = 3 x 24)"
+              % (variant, {k: v for k, v in beam_counts.items() if v}))
+        show_captions(variant + " beam", beam_served)
+        check_f32(variant + " beam", cap32, img_rng.randint(0, 256, (8, 224, 224, 3), dtype=np.uint8), dense,
+                  pooled_beam_plain, K_BEAM, {dense: T - 1})
+        with torch.inference_mode():
+            feats = features(cap, requests[0])
+        dcfg = cfg.decoder_config()
+        routes = route_decodes(variant, beam_served[0], [
+            ("top-k", {topk.__name__: T - 1},
+             lambda: beam_search_decode(cap.prepared, dcfg, feats, K_BEAM, END, PAD, fused_step="topk")),
+            ("sparse composite", {"project_topk": T - 1},
+             lambda: beam_search_decode(cap.prepared, dcfg, feats, K_BEAM, END, PAD, fused_step=None, sparse=True)),
+        ])
+        return {"launches": counts[counter.__name__], "seconds": seconds, "beam_seconds": beam_s,
+                "beam_counts": beam_counts, "routes": routes, "beam_share": beam_share, "cap": cap, "feats": feats}
 
     def attention_slice(variant, counter):
         """Phase 5 for one attention family; returns (launches, seconds of the
@@ -518,19 +818,68 @@ def main():
               "positions" % (variant, comp_counts, share))
         acap32 = Captioner(params, bn_state, acfg, vocab, "float32", device="gpu")
         check_f32(variant, acap32, img_rng.randint(0, 256, (8, 224, 224, 3), dtype=np.uint8), counter, attn_plain)
-        return counts[counter.__name__], seconds, comp_counts
+
+        # beam, width 3: the dense attention step's instance, 24 launches and one context launch a request
+        dense = fused_attn_lstm_dense_step if dcfg.cell_type == "lstm" else fused_attn_dense_step
+
+        def attn_beam_plain(cap, images_u8):
+            """The same features, beam-decoded with the plain twins (the context's at step 0) on the card."""
+            with torch.inference_mode():
+                feats = features(cap, images_u8)
+                dec, weights = cap.model.decoder, cap.prepared
+                prep = prepare_attn_decode(weights, dec, feats.transpose(1, 2).contiguous())
+                state0 = init_hidden(dec, dcfg, feats)
+                ctx, _ = attention_context_plain(weights, feats.transpose(1, 2).contiguous(), prep["att1"],
+                                                 last_h(state0))
+                w0 = start_embeddings(dec, len(images_u8), acfg.start_token, device)
+                x = torch.cat([w0, linear_f32(dec.embed, ctx).to(w0.dtype)], dim=-1)
+                top, state1 = stack_plain(dcfg.cell_type)(weights["stacked"], x, state0)
+                rows = dict(prep, feats_e=prep["feats_e"].repeat_interleave(K_BEAM, dim=0),
+                            att1=prep["att1"].repeat_interleave(K_BEAM, dim=0))
+
+                def step(tokens, state):
+                    logits, state2 = fused_attn_dense_step_plain(rows, dec.embeddings.weight.index_select(0, tokens),
+                                                                 state)
+                    return torch.log_softmax(logits, dim=-1), state2
+
+                return plain_beam(torch.log_softmax(project_logits(weights["vocab"], top), dim=-1), state1, step,
+                                  len(images_u8))
+
+        beam_served, beam_s, beam_counts = serve(
+            acap, requests, counters, {dense.__name__: 3 * (T - 1), "attention_context": 3}, K_BEAM)
+        beam_share = check_served(variant + " beam", beam_served, requests, attn_beam_plain, acap)
+        phase("main", "%s beam: launches in the three requests %s (dense beam step = 3 x 24, context = 3 x 1)"
+              % (variant, {k: v for k, v in beam_counts.items() if v}))
+        show_captions(variant + " beam", beam_served)
+        imgs32 = img_rng.randint(0, 256, (8, 224, 224, 3), dtype=np.uint8)
+        check_f32(variant + " beam", acap32, imgs32, dense, attn_beam_plain, K_BEAM, {dense: T - 1, attention_context: 1})
+        with torch.inference_mode():  # the scale at which f32 summation orders part
+            h0 = last_h(init_hidden(acap32.model.decoder, dcfg, features(acap32, imgs32)))
+        phase("main", "%s f32 B=8: the initial state init_h(mean of the untrained encoder's features) reaches |h| = %.4g"
+              % (variant, h0.abs().max().item()))
+        routes = route_decodes(variant, beam_served[0], [
+            ("sparse composite", {"attention_context": T, "project_topk": T - 1},
+             lambda: attn_beam_search_decode(acap.prepared, acap.model.decoder, dcfg, feats, K_BEAM, acfg.start_token,
+                                             END, PAD, fused_step=None, sparse=True)),
+        ])
+        return {"launches": counts[counter.__name__], "seconds": seconds, "comp_counts": comp_counts,
+                "beam_seconds": beam_s, "beam_counts": beam_counts, "routes": routes, "beam_share": beam_share}
 
     # 4. pooled main paths
-    launches, slice_s = {}, {}
+    launches, slices = {}, {}
     for variant, Ed, counter in (("gru", E, fused_gru_decode_step), ("lstm", LE, fused_lstm_decode_step)):
-        launches[counter.__name__], slice_s[variant] = pooled_slice(variant, Ed, counter)
+        slices[variant] = pooled_slice(variant, Ed, counter)
+        launches[counter.__name__] = slices[variant]["launches"]
 
     # 5. attention main paths
-    comp = {}
     for variant, counter in (("attn", fused_attn_decode_step), ("attn_lstm", fused_attn_lstm_decode_step)):
-        launches[counter.__name__], slice_s[variant], comp[variant] = attention_slice(variant, counter)
-    for name in ("attention_context", "project_argmax"):
-        launches[name] = sum(counts[name] for counts in comp.values())  # both composite decodes
+        slices[variant] = attention_slice(variant, counter)
+        launches[counter.__name__] = slices[variant]["launches"]
+    # every other kernel: its launches over all the main-path runs that launched it
+    runs = [sl["beam_counts"] for sl in slices.values()] + [c for sl in slices.values() for c in sl["routes"].values()]
+    runs += [slices[v]["comp_counts"] for v in ("attn", "attn_lstm")]
+    for fn in counters[4:]:
+        launches[fn.__name__] = sum(counts[fn.__name__] for counts in runs)
 
     # 6. times (bf16, flagship widths)
     times = {}
@@ -555,38 +904,101 @@ def main():
         times["project_argmax", B] = (
             event_median_ms(lambda: project_argmax_cuda(prep["vocab"], h)),
             event_median_ms(lambda: project_argmax_plain(prep["vocab"], h)))
+    # the beam kernels at R = 3 (B=1) and R = 192 (B=64), K = 3
+    for R in (3, 192):
+        for cell, Ed in (("gru", E), ("lstm", LE)):
+            stacked, vocab_w, x, state = step_inputs(rng, R, torch.bfloat16, device, Ed, cell)
+            times["fused_%s_dense_step" % cell, R] = (
+                event_median_ms(lambda: fused_dense_step_cuda(stacked, vocab_w, x, state)),
+                event_median_ms(lambda: fused_dense_step_plain(stacked, vocab_w, x, state)))
+            times["fused_%s_topk_step" % cell, R] = (
+                event_median_ms(lambda: fused_topk_step_cuda(stacked, vocab_w, x, state, K_BEAM)),
+                event_median_ms(lambda: fused_topk_step_plain(stacked, vocab_w, x, state, K_BEAM)))
+        for name, cell in (("fused_attn_dense_step", "gru"), ("fused_attn_lstm_dense_step", "lstm")):
+            prep, w_emb, state = attn_inputs(rng, R, torch.bfloat16, device, cell)
+            times[name, R] = (event_median_ms(lambda: fused_attn_dense_step_cuda(prep, w_emb, state)),
+                              event_median_ms(lambda: fused_attn_dense_step_plain(prep, w_emb, state)))
+        h = last_h(state)
+        times["project_topk", R] = (event_median_ms(lambda: project_topk_cuda(prep["vocab"], h, K_BEAM)),
+                                    event_median_ms(lambda: project_topk_plain(prep["vocab"], h, K_BEAM)))
     for (name, B), (k_ms, p_ms) in times.items():
-        phase("times", "%s bf16 %s B=%d: kernel %.4f ms, plain %.4f ms %s" % (card, name, B, k_ms, p_ms, note))
+        phase("times", "%s bf16 %s %s=%d: kernel %.4f ms, plain %.4f ms, bound %.4f ms (%s) %s"
+              % (card, name, "R" if name in BEAM_KERNELS else "B", B, k_ms, p_ms, *bound(name, B), note))
+    # composite yardsticks at the serving shapes: cuBLAS bf16 products and torch's own reductions
+    w, b = prep["vocab"]["w"], prep["vocab"]["b"]
+    h64 = h[:64].contiguous()
+    phase("times", "%s bf16 yardstick project_argmax B=64: torch.addmm + argmax %.4f ms; project_topk R=192: "
+          "torch.addmm + log_softmax + topk %.4f ms %s" % (
+              card, event_median_ms(lambda: torch.addmm(b, h64, w.T).argmax(dim=-1)),
+              event_median_ms(lambda: torch.addmm(b, h, w.T).float().log_softmax(dim=-1).topk(K_BEAM, dim=-1)), note))
     for variant, what in (("gru", "pooled-GRU slice, bf16, ResNet-101"),
                           ("lstm", "pooled-LSTM slice, bf16, ResNet-101"),
                           ("attn", "attention-GRU slice, bf16, spatial ResNet-101"),
                           ("attn_lstm", "attention-LSTM slice, bf16, spatial ResNet-101")):
+        sl = slices[variant]
         phase("times", "%s %s + 25 greedy steps: %.1f captions/s at B=64 (3 requests, %.3f s, host clock to ids on "
-              "the host)" % (card, what, 3 * 64 / slice_s[variant], slice_s[variant]))
+              "the host)" % (card, what, 3 * 64 / sl["seconds"], sl["seconds"]))
+        phase("times", "%s %s + beam search, K=3: %.1f captions/s at B=64 (3 requests, %.3f s, host clock to ids on "
+              "the host); bf16 ids equal the plain beam decode on >= %.4f of positions"
+              % (card, what, 3 * 64 / sl["beam_seconds"], sl["beam_seconds"], sl["beam_share"]))
+    # the pooled GRU's beam routes on one request's features, in turns
+    gru = slices["gru"]
+    routes = {"dense": dict(fused_step="dense"), "top-k": dict(fused_step="topk"),
+              "sparse composite": dict(fused_step=None, sparse=True)}
+    route_s = {route: [] for route in routes}
+    with torch.inference_mode():
+        for order in [list(routes), list(routes)[::-1]] * 2 + [list(routes)]:
+            for route in order:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                beam_search_decode(gru["cap"].prepared, gru["cap"].cfg.decoder_config(), gru["feats"], K_BEAM, END,
+                                   PAD, **routes[route])
+                torch.cuda.synchronize()
+                route_s[route].append(time.perf_counter() - t0)
+    phase("times", "%s pooled-GRU beam decode, B=64, K=3, 25 steps (host clock, median [min, max] of 5 in turns): %s"
+          % (card, ", ".join("%s %.3f ms [%.3f, %.3f]" % (r, 1e3 * statistics.median(v), 1e3 * min(v), 1e3 * max(v))
+                             for r, v in route_s.items())))
+    # what is not the step kernel: step 0, log_softmax, the K x V sort, gathers, launches and wrapper checks
+    one = []
+    with torch.inference_mode():
+        feats1 = gru["feats"][:1].contiguous()
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            beam_search_decode(gru["cap"].prepared, gru["cap"].cfg.decoder_config(), feats1, K_BEAM, END, PAD)
+            torch.cuda.synchronize()
+            one.append(time.perf_counter() - t0)
+    for Bq, decode_ms in ((1, 1e3 * statistics.median(one)), (64, 1e3 * statistics.median(route_s["dense"]))):
+        kernel_ms = (T - 1) * times["fused_gru_dense_step", Bq * K_BEAM][0]
+        phase("times", "%s pooled-GRU dense beam decode, B=%d, K=3: %.3f ms a decode (host clock), of which the 24 "
+              "step kernels %.3f ms (kernel time at R=%d); the rest, %.1f us a step, is step 0 and the torch and host "
+              "work around the kernel" % (card, Bq, decode_ms, kernel_ms, Bq * K_BEAM,
+                                          1e3 * (decode_ms - kernel_ms) / (T - 1)))
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "show_tell_tpu"))
     if leaked:
         fail("the port's path imported %s" % leaked[:5])
 
-    rows = [
-        ("fused_gru_decode_step", "fused_step.cu", "show_tell_tpu/ops/fused_step_pallas.py:255"),
-        ("fused_lstm_decode_step", "fused_step.cu", "show_tell_tpu/ops/fused_step_pallas.py:277"),
-        ("fused_attn_decode_step", "fused_attn_step.cu", "show_tell_tpu/ops/fused_attn_pallas.py:330"),
-        ("fused_attn_lstm_decode_step", "fused_attn_step.cu", "show_tell_tpu/ops/fused_attn_pallas.py:330"),
-        ("attention_context", "attention_context.cu", "show_tell_tpu/ops/attention_pallas.py:94"),
-        ("project_argmax", "project_argmax.cu", "show_tell_tpu/ops/vocab_pallas.py:170"),
-    ]
     print(smi, flush=True)
-    print(json.dumps({"kernels": [{
-        "name": name,
-        "route": "cuda",
-        "source": "show_tell_tpu_torch/csrc/" + src,
-        "replaces": replaces,
-        "launches": launches[name],
-        "max_abs_err": errs[name],
-        "ms": times[name, 64][0],
-        "plain_ms": times[name, 64][1],
-    } for name, src, replaces in rows]}), flush=True)
+    kernels = []
+    for name, src, replaces in KERNEL_ROWS:
+        rows = 192 if name in BEAM_KERNELS else 64  # the slice's serving shape: B=64, K=3 beam rows
+        bound_ms, bound_by = bound(name, rows)
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "show_tell_tpu_torch/csrc/" + src,
+            "replaces": replaces,
+            "launches": launches[name],
+            "max_abs_err": errs[name],
+            "ms": times[name, rows][0],
+            "plain_ms": times[name, rows][1],
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": None,  # no single torch call computes any of these functions
+            "rows": rows,
+        })
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
 

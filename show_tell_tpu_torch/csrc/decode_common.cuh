@@ -1,8 +1,9 @@
 // Device code shared by the decode kernels (fused_step.cu,
-// fused_attn_step.cu, attention_context.cu, project_argmax.cu): 16-byte
-// vector loads, warp reductions, the first-max argmax key, the GRU and
-// LSTM stack layers, the vocab projection + argmax, and the cooperative
-// launch.
+// fused_attn_step.cu, attention_context.cu, project_argmax.cu,
+// project_topk.cu): 16-byte vector loads, warp reductions, the first-max
+// argmax key, the GRU and LSTM stack layers, the vocab projection with its
+// three ends (first-max argmax, dense f32 logits, top-K with logsumexp),
+// and the cooperative launch.
 //
 // Every kernel here runs kThreads threads a block.  Weights are in the torch
 // layout [out, in], so one output column is one contiguous row: a warp owns
@@ -93,6 +94,13 @@ __device__ __forceinline__ int32_t key_index(unsigned long long key) {
   return static_cast<int32_t>(0xffffffffu - static_cast<unsigned int>(key & 0xffffffffull));
 }
 
+// The float that pack_key packed (-0.0 comes back as +0.0).
+__device__ __forceinline__ float key_value(unsigned long long key) {
+  unsigned int u = static_cast<unsigned int>(key >> 32);
+  u = (u & 0x80000000u) ? (u & 0x7fffffffu) : ~u;
+  return __uint_as_float(u);
+}
+
 // Rows [b0, b0 + nb) of src [*, width] into smem [kBM][width] as f32.
 template <typename T>
 __device__ void load_rows(float* smem, const T* src, int b0, int nb, int width) {
@@ -104,12 +112,14 @@ __device__ void load_rows(float* smem, const T* src, int b0, int nb, int width) 
 
 // Splits the work of one phase into (batch tile, column range) items:
 // every block gets at least one item while there are columns to go round.
+// max_splits caps the column ranges (the top-k phase's scratch holds that
+// many per row).
 struct Tiling {
   int row_tiles, splits, per_split;
-  __device__ Tiling(int B, int cols) {
+  __device__ Tiling(int B, int cols, int max_splits = 0x7fffffff) {
     row_tiles = (B + kBM - 1) / kBM;
     splits = max(1, static_cast<int>(gridDim.x) / row_tiles);
-    splits = min(splits, cols);
+    splits = min(min(splits, cols), max_splits);
     per_split = (cols + splits - 1) / splits;
   }
   __device__ int items() const { return row_tiles * splits; }
@@ -295,26 +305,27 @@ __device__ void stack_layer(const StackArgs& s, int l, float* smem) {
   rnn_layer<T, Cell>(y, xs, hsm);
 }
 
-// best[b] = atomicMax over packed (logit, index) keys of top[b] . wv[v] + bv[v]
-// for v in [0, V).  top [B, H], wv [V, H]; best must start below every key (0).
-template <typename T>
-__device__ void project_argmax(const T* top, const T* wv, const T* bv, int B, int H, int V,
-                               unsigned long long* best, float* xs) {
+// The vocab projection  logit = top[b] . wv[v] + bv[v]  (f32) for all B
+// rows, split into (batch tile, column range) items; top [B, H], wv [V, H].
+// A warp takes one column at a time and lane b ends with row b0 + b's
+// logit.  Per item, each warp calls sink.start(), then sink.column(row, v,
+// logit) on its lanes b < nb for its columns in increasing v, then
+// sink.finish(b0, nb, split, warp, lane).
+template <typename T, typename Sink>
+__device__ __forceinline__ void project_items(const T* top, const T* wv, const T* bv, int B, int H, int V,
+                                              const Tiling& t, float* xs, Sink& sink) {
   constexpr int N = Vec<T>::N;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  Tiling t(B, V);
   for (int item = blockIdx.x; item < t.items(); item += gridDim.x) {
+    const int split = item % t.splits;
     const int b0 = (item / t.splits) * kBM;
     const int nb = min(kBM, B - b0);
-    const int v0 = (item % t.splits) * t.per_split;
+    const int v0 = split * t.per_split;
     const int v1 = min(V, v0 + t.per_split);
     __syncthreads();
     load_rows<T>(xs, top, b0, nb, H);
     __syncthreads();
-    // Lane b keeps the running first max of row b0 + b over this warp's
-    // columns, which it visits in increasing order.
-    float best_val = -INFINITY;
-    int best_idx = -1;
+    sink.start();
     for (int v = v0 + warp; v < v1; v += kWarps) {
       float acc[kBM];
 #pragma unroll
@@ -339,20 +350,206 @@ __device__ void project_argmax(const T* top, const T* wv, const T* bv, int B, in
           if (lane == b) mine = s;
         }
       }
-      if (lane < nb) {
-        const float logit = mine + Vec<T>::to_f32(bv[v]);
-        if (best_idx < 0 || logit > best_val) {
-          best_val = logit;
-          best_idx = v;
-        }
+      if (lane < nb) sink.column(b0 + lane, v, mine + Vec<T>::to_f32(bv[v]));
+    }
+    sink.finish(b0, nb, split, warp, lane);
+  }
+}
+
+// Greedy end: lane b keeps the running first max of its row over the
+// warp's columns (visited in increasing order), then merges it into
+// best[row] by atomicMax over packed (logit, index) keys.  best must start
+// below every key (0).
+struct ArgmaxSink {
+  unsigned long long* best;  // [B]
+  float val;
+  int idx;
+  __device__ __forceinline__ void start() {
+    val = -INFINITY;
+    idx = -1;
+  }
+  __device__ __forceinline__ void column(int, int v, float logit) {
+    if (idx < 0 || logit > val) {
+      val = logit;
+      idx = v;
+    }
+  }
+  __device__ __forceinline__ void finish(int b0, int nb, int, int, int lane) {
+    if (lane < nb && idx >= 0) atomicMax(best + b0 + lane, pack_key(val, idx));
+  }
+};
+
+// Beam's dense end: the f32 logits themselves, logits[row, v].  Lane b
+// stores row b's logit, so a warp's 8 stores stride by V: simple, not
+// coalesced (a staging tile in shared memory would coalesce them).
+struct DenseSink {
+  float* logits;  // [B, V]
+  int V;
+  __device__ __forceinline__ void start() {}
+  __device__ __forceinline__ void column(int row, int v, float logit) {
+    logits[static_cast<size_t>(row) * V + v] = logit;
+  }
+  __device__ __forceinline__ void finish(int, int, int, int, int) {}
+};
+
+// Beam's sparse end: each row's K best (log-probability, index) pairs.
+// Part p = split * kWarps + warp of a row is what one warp saw of it in
+// one column range; the phase writes every part's top-K keys and its
+// online logsumexp (m, s) to scratch, and merge_topk reduces the parts.
+constexpr int kMaxK = 8;
+
+struct TopkArgs {
+  unsigned long long* part_keys;  // [n_parts, B, K] scratch: packed (logit, index), 0 = empty
+  float2* part_ms;                // [n_parts, B] scratch: (max, sum of exp(logit - max))
+  float* logp;                    // [B, K] out: logit - logsumexp, best first
+  int32_t* ids;                   // [B, K] out
+  int K, max_splits;              // K <= kMaxK; n_parts <= max_splits * kWarps
+};
+
+// A sorted (descending) list of the K greatest keys seen, in registers
+// (static indices only).  Slots from K on are not kept up to date.
+struct TopkList {
+  unsigned long long keys[kMaxK];
+  unsigned long long floor;  // keys[K-1]: a key must beat it to enter
+  __device__ __forceinline__ void clear() {
+#pragma unroll
+    for (int i = 0; i < kMaxK; ++i) keys[i] = 0ull;
+    floor = 0ull;
+  }
+  __device__ __forceinline__ void insert(unsigned long long key, int K) {
+    if (key <= floor) return;
+#pragma unroll
+    for (int i = 0; i < kMaxK; ++i) {  // keep the larger, carry the smaller on
+      const unsigned long long hi = keys[i] > key ? keys[i] : key;
+      key = keys[i] > key ? key : keys[i];
+      keys[i] = hi;
+    }
+#pragma unroll
+    for (int i = 0; i < kMaxK; ++i)
+      if (i == K - 1) floor = keys[i];
+  }
+  __device__ __forceinline__ void pop() {  // drop keys[0]
+#pragma unroll
+    for (int i = 0; i + 1 < kMaxK; ++i) keys[i] = keys[i + 1];
+    keys[kMaxK - 1] = 0ull;
+  }
+};
+
+// (m, s) <- the logsumexp pair of both (m, s) and (m2, s2); s2 = 0 is empty.
+__device__ __forceinline__ void lse_merge(float& m, float& s, float m2, float s2) {
+  if (s2 == 0.0f) return;
+  if (m2 > m) {
+    s = s * expf(m - m2) + s2;
+    m = m2;
+  } else {
+    s += s2 * expf(m2 - m);
+  }
+}
+
+struct TopkSink {
+  TopkArgs a;
+  int B;
+  TopkList list;
+  float m, s;
+  __device__ __forceinline__ void start() {
+    list.clear();
+    m = -INFINITY;
+    s = 0.0f;
+  }
+  __device__ __forceinline__ void column(int, int v, float logit) {
+    lse_merge(m, s, logit, 1.0f);
+    list.insert(pack_key(logit, v), a.K);
+  }
+  __device__ __forceinline__ void finish(int b0, int nb, int split, int warp, int lane) {
+    if (lane >= nb) return;
+    const size_t at = static_cast<size_t>(split * kWarps + warp) * B + b0 + lane;
+#pragma unroll
+    for (int j = 0; j < kMaxK; ++j)
+      if (j < a.K) a.part_keys[at * a.K + j] = list.keys[j];
+    a.part_ms[at] = make_float2(m, s);
+  }
+};
+
+// After a grid barrier: one warp per row merges the row's parts.  Each lane
+// folds every 32nd part into its own top-K and (m, s); the warp then takes
+// the K greatest heads in turn (a greater value first, of equal values the
+// lower index: jax.lax.top_k's order) and lse = m* + log sum_i s_i
+// exp(m_i - m*) over the lanes.
+__device__ __forceinline__ void merge_topk(const TopkArgs& a, int B, int n_parts) {
+  const int lane = threadIdx.x & 31;
+  const int K = a.K;
+  for (int row = blockIdx.x * kWarps + (threadIdx.x >> 5); row < B; row += gridDim.x * kWarps) {
+    TopkList list;
+    list.clear();
+    float m = -INFINITY, s = 0.0f;
+    for (int p = lane; p < n_parts; p += 32) {
+      const size_t at = static_cast<size_t>(p) * B + row;
+      for (int j = 0; j < K; ++j) list.insert(__ldcg(a.part_keys + at * K + j), K);
+      const float2 ms = __ldcg(a.part_ms + at);
+      lse_merge(m, s, ms.x, ms.y);
+    }
+    float mx = m;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    const float lse = mx + logf(warp_sum(s > 0.0f ? s * expf(m - mx) : 0.0f));
+    for (int j = 0; j < K; ++j) {
+      unsigned long long best = list.keys[0];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        const unsigned long long other = __shfl_xor_sync(0xffffffffu, best, off);
+        best = other > best ? other : best;
+      }
+      if (list.keys[0] == best) list.pop();  // keys are unique: one lane pops
+      if (lane == 0) {
+        a.logp[static_cast<size_t>(row) * K + j] = key_value(best) - lse;
+        a.ids[static_cast<size_t>(row) * K + j] = key_index(best);
       }
     }
-    if (lane < nb && best_idx >= 0) atomicMax(best + b0 + lane, pack_key(best_val, best_idx));
   }
+}
+
+// best[b] = atomicMax over packed (logit, index) keys of top[b] . wv[v] + bv[v]
+// for v in [0, V).  top [B, H], wv [V, H]; best must start below every key (0).
+template <typename T>
+__device__ void project_argmax(const T* top, const T* wv, const T* bv, int B, int H, int V,
+                               unsigned long long* best, float* xs) {
+  ArgmaxSink sink{best};
+  project_items<T>(top, wv, bv, B, H, V, Tiling(B, V), xs, sink);
 }
 
 __device__ __forceinline__ int grid_thread() { return blockIdx.x * kThreads + threadIdx.x; }
 __device__ __forceinline__ int grid_threads() { return gridDim.x * kThreads; }
+
+// The three ends of a decode step's vocab phase, picked at compile time.
+enum VocabMode { kArgmax = 0, kDense = 1, kTopk = 2 };
+
+struct VocabOut {
+  int32_t* tok;               // argmax: [B] out
+  unsigned long long* best;   // argmax: [B] scratch, zeroed before a grid barrier that precedes the phase
+  float* logits;              // dense: [B, V] out
+  TopkArgs topk;              // top-k: outs and scratch
+};
+
+// The vocab phase after the top activation is complete (a grid barrier
+// before it): argmax tokens, dense logits, or top-K log-probabilities.
+template <int kMode, typename T>
+__device__ __forceinline__ void vocab_phase(const T* top, const T* wv, const T* bv, int B, int H, int V,
+                                            const VocabOut& o, float* xs, cg::grid_group& grid) {
+  if constexpr (kMode == kArgmax) {
+    project_argmax<T>(top, wv, bv, B, H, V, o.best, xs);
+    grid.sync();
+    for (int b = grid_thread(); b < B; b += grid_threads()) o.tok[b] = key_index(o.best[b]);
+  } else if constexpr (kMode == kDense) {
+    DenseSink sink{o.logits, V};
+    project_items<T>(top, wv, bv, B, H, V, Tiling(B, V), xs, sink);
+  } else {
+    const Tiling t(B, V, o.topk.max_splits);
+    TopkSink sink{o.topk, B};
+    project_items<T>(top, wv, bv, B, H, V, t, xs, sink);
+    grid.sync();  // every part is in scratch
+    merge_topk(o.topk, B, t.splits * kWarps);
+  }
+}
 
 // Launch ``kernel`` cooperatively with kThreads threads a block and as many
 // blocks as can be resident at once (the occupancy API times the SM count),

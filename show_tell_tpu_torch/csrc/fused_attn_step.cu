@@ -1,12 +1,15 @@
-// One greedy decode step of the soft-attention captioner in one kernel
-// launch: additive attention over the P spatial positions, the context in
-// embed space, the L-layer recurrence with a 2E-wide layer 0, the H x V
-// vocab projection and the first-max argmax.
+// One decode step of the soft-attention captioner in one kernel launch:
+// additive attention over the P spatial positions, the context in embed
+// space, the L-layer recurrence with a 2E-wide layer 0, the H x V vocab
+// projection and either the first-max argmax (greedy) or the dense f32
+// logits (beam).
 //
-// Replaces show_tell_tpu/ops/fused_attn_pallas.py::fused_attn_decode_step_pallas
-// in greedy argmax mode, for both cells: st_fused_attn_step (GRU) and
-// st_fused_attn_lstm_step (LSTM, cs in and out) instantiate one kernel
-// templated on the cell (GruCell, LstmCell in decode_common.cuh).
+// Replaces, for both cells, show_tell_tpu/ops/fused_attn_pallas.py::
+// fused_attn_decode_step_pallas in greedy argmax mode (st_fused_attn_step,
+// st_fused_attn_lstm_step) and ::fused_attn_dense_step_pallas, its dense
+// mode (st_fused_attn_dense_step, st_fused_attn_lstm_dense_step): one
+// kernel templated on the cell (GruCell, LstmCell in decode_common.cuh)
+// and the vocab end (VocabMode); the LSTM instances take cs in and out.
 //
 //   h      = hs[L-1][b]                          the last layer's INCOMING h (never c)
 //   att2   = h . W_dec^T + b_dec                 [A]        (f32)
@@ -16,7 +19,7 @@
 //   ctx_e  = sum_p alpha_p * feats_e[b,p,:] + b_emb               [E]
 //   x[b]   = cat(w_emb[b], ctx_e) in T           [2E]
 //   then the recurrence (layer 0 reads x with w_ih0 [G*H, 2E]), the
-//   projection and the argmax, exactly as fused_step.cu.
+//   projection and the argmax or the logits [B, V], exactly as fused_step.cu.
 // att1 = feats @ W_enc + b_enc and feats_e = feats @ W_embed are per-image
 // constants, computed once per decode outside the kernel.
 //
@@ -25,8 +28,10 @@
 // weights (layer 0 G*H x 1024 + G*H x 512, four upper layers 2 x G*H x 512
 // each, W_dec 512 x 512, the vocabulary 9,956 x 512) plus 2 x B x 49 x
 // 512 values of att1 and feats_e: 6.4 MB at B=64, all of it inside the
-// 50 MB L2.  As in the pooled step the weights are streamed once per
-// kBM-row batch tile and multiplied on the SIMT units in f32; the
+// 50 MB L2.  At beam's B = 192 rows att1 and feats_e are 19.3 MB and the
+// dense logits another 7.6 MB written.  As in the pooled step the weights
+// are streamed once per kBM-row batch tile and multiplied on the SIMT
+// units in f32; the
 // attention adds little work (2 x 49 x 512 multiply-adds a row) but three
 // more grid barriers.
 // The design:
@@ -41,7 +46,9 @@
 //   * the recurrence and projection reuse decode_common.cuh.  Layer 0 is
 //     2E wide, so the shared-memory input tile is sized by max(2E, H):
 //     8 x (1024 + 512) f32 = 48 KiB at the flagship, the default limit;
-//     launch_cooperative raises the limit for wider tiles.
+//     launch_cooperative raises the limit for wider tiles;
+//   * the dense end is fused_step.cu's: lane b stores row b's logit, so
+//     the stores stride by V (uncoalesced).
 // The TPU kernel ran the attention in 8-row sub-stages of a sequential
 // grid to bound VMEM; here the grid barriers order the phases instead.
 
@@ -61,8 +68,7 @@ struct Params {
   const void* wv;            // [V, H]
   const void* bv;            // [V]
   float* att2;               // [B, A]     scratch
-  int32_t* tok;              // [B]
-  unsigned long long* best;  // [B]        scratch: packed (value, index) keys
+  VocabOut out;              // tok and best (argmax) or logits (dense)
   int E, A, P, V;
 };
 
@@ -176,12 +182,13 @@ __device__ void attention_context_e(const Params& p, float* smem) {
   }
 }
 
-template <typename T, typename Cell>
+template <typename T, typename Cell, int kMode>
 __global__ void __launch_bounds__(kThreads) fused_attn_step_kernel(Params p) {
   extern __shared__ float smem[];
   cg::grid_group grid = cg::this_grid();
   const StackArgs& s = p.stack;
-  for (int b = grid_thread(); b < s.B; b += grid_threads()) p.best[b] = 0ull;  // below every packed key
+  if constexpr (kMode == kArgmax)
+    for (int b = grid_thread(); b < s.B; b += grid_threads()) p.out.best[b] = 0ull;  // below every packed key
   attention_scores_in<T>(p, smem);
   grid.sync();  // att2 is complete
   attention_context_e<T>(p, smem);
@@ -191,26 +198,25 @@ __global__ void __launch_bounds__(kThreads) fused_attn_step_kernel(Params p) {
     grid.sync();
   }
   const T* top = static_cast<const T*>(s.new_hs) + static_cast<size_t>(s.L - 1) * s.B * s.H;
-  project_argmax<T>(top, static_cast<const T*>(p.wv), static_cast<const T*>(p.bv), s.B, s.H, p.V, p.best, smem);
-  grid.sync();
-  for (int b = grid_thread(); b < s.B; b += grid_threads()) p.tok[b] = key_index(p.best[b]);
+  vocab_phase<kMode, T>(top, static_cast<const T*>(p.wv), static_cast<const T*>(p.bv), s.B, s.H, p.V, p.out, smem,
+                        grid);
 }
 
-template <typename T, typename Cell>
+template <typename T, typename Cell, int kMode>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   const size_t attn = static_cast<size_t>(p.A) + p.P;
   const size_t stack = stack_smem_floats(p.stack);
   Params args = p;
   void* argv[] = {&args};
-  return launch_cooperative(fused_attn_step_kernel<T, Cell>, (attn > stack ? attn : stack) * sizeof(float),
+  return launch_cooperative(fused_attn_step_kernel<T, Cell, kMode>, (attn > stack ? attn : stack) * sizeof(float),
                             argv, stream);
 }
 
-template <typename Cell>
+template <typename Cell, int kMode>
 int run(int dtype, const Params& p, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return static_cast<int>(launch<float, Cell>(p, s));
-  if (dtype == 1) return static_cast<int>(launch<__nv_bfloat16, Cell>(p, s));
+  if (dtype == 0) return static_cast<int>(launch<float, Cell, kMode>(p, s));
+  if (dtype == 1) return static_cast<int>(launch<__nv_bfloat16, Cell, kMode>(p, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -218,16 +224,18 @@ int run(int dtype, const Params& p, void* stream) {
 
 // dtype: 0 = float32, 1 = bfloat16.  x is the [B, 2E] scratch for layer 0's
 // input, att2 a [B, A] f32 scratch.  Each returns a cudaError_t (0 on success).
+// Greedy: tok [B] int32, best [B] scratch.  Beam: logits [B, V] f32.
 extern "C" int st_fused_attn_step(int dtype, const void* w_emb, const void* feats_e, const void* att1,
                                   const void* wdec, const void* bdec, const void* wfull, const void* b_emb,
                                   const void* w_ih0, const void* w_ihU, const void* w_hh, const void* b_ih,
                                   const void* b_hh, const void* hs, const void* wv, const void* bv, void* x,
                                   float* att2, void* new_hs, int32_t* tok, unsigned long long* best, int L,
                                   int B, int E, int H, int A, int P, int V, void* stream) {
-  return run<GruCell>(dtype,
-                      Params{{x, w_ih0, w_ihU, w_hh, b_ih, b_hh, hs, nullptr, new_hs, nullptr, L, B, 2 * E, H},
-                             w_emb, feats_e, att1, wdec, bdec, wfull, b_emb, wv, bv, att2, tok, best, E, A, P, V},
-                      stream);
+  return run<GruCell, kArgmax>(
+      dtype,
+      Params{{x, w_ih0, w_ihU, w_hh, b_ih, b_hh, hs, nullptr, new_hs, nullptr, L, B, 2 * E, H}, w_emb, feats_e, att1,
+             wdec, bdec, wfull, b_emb, wv, bv, att2, VocabOut{tok, best, nullptr, {}}, E, A, P, V},
+      stream);
 }
 
 extern "C" int st_fused_attn_lstm_step(int dtype, const void* w_emb, const void* feats_e, const void* att1,
@@ -237,8 +245,36 @@ extern "C" int st_fused_attn_lstm_step(int dtype, const void* w_emb, const void*
                                        const void* bv, void* x, float* att2, void* new_hs, void* new_cs,
                                        int32_t* tok, unsigned long long* best, int L, int B, int E, int H, int A,
                                        int P, int V, void* stream) {
-  return run<LstmCell>(dtype,
-                       Params{{x, w_ih0, w_ihU, w_hh, b_ih, b_hh, hs, cs, new_hs, new_cs, L, B, 2 * E, H},
-                              w_emb, feats_e, att1, wdec, bdec, wfull, b_emb, wv, bv, att2, tok, best, E, A, P, V},
-                       stream);
+  return run<LstmCell, kArgmax>(
+      dtype,
+      Params{{x, w_ih0, w_ihU, w_hh, b_ih, b_hh, hs, cs, new_hs, new_cs, L, B, 2 * E, H}, w_emb, feats_e, att1, wdec,
+             bdec, wfull, b_emb, wv, bv, att2, VocabOut{tok, best, nullptr, {}}, E, A, P, V},
+      stream);
+}
+
+extern "C" int st_fused_attn_dense_step(int dtype, const void* w_emb, const void* feats_e, const void* att1,
+                                        const void* wdec, const void* bdec, const void* wfull, const void* b_emb,
+                                        const void* w_ih0, const void* w_ihU, const void* w_hh, const void* b_ih,
+                                        const void* b_hh, const void* hs, const void* wv, const void* bv, void* x,
+                                        float* att2, void* new_hs, float* logits, int L, int B, int E, int H, int A,
+                                        int P, int V, void* stream) {
+  return run<GruCell, kDense>(
+      dtype,
+      Params{{x, w_ih0, w_ihU, w_hh, b_ih, b_hh, hs, nullptr, new_hs, nullptr, L, B, 2 * E, H}, w_emb, feats_e, att1,
+             wdec, bdec, wfull, b_emb, wv, bv, att2, VocabOut{nullptr, nullptr, logits, {}}, E, A, P, V},
+      stream);
+}
+
+extern "C" int st_fused_attn_lstm_dense_step(int dtype, const void* w_emb, const void* feats_e, const void* att1,
+                                             const void* wdec, const void* bdec, const void* wfull,
+                                             const void* b_emb, const void* w_ih0, const void* w_ihU,
+                                             const void* w_hh, const void* b_ih, const void* b_hh, const void* hs,
+                                             const void* cs, const void* wv, const void* bv, void* x, float* att2,
+                                             void* new_hs, void* new_cs, float* logits, int L, int B, int E, int H,
+                                             int A, int P, int V, void* stream) {
+  return run<LstmCell, kDense>(
+      dtype,
+      Params{{x, w_ih0, w_ihU, w_hh, b_ih, b_hh, hs, cs, new_hs, new_cs, L, B, 2 * E, H}, w_emb, feats_e, att1, wdec,
+             bdec, wfull, b_emb, wv, bv, att2, VocabOut{nullptr, nullptr, logits, {}}, E, A, P, V},
+      stream);
 }

@@ -1,17 +1,28 @@
-// One greedy decode step of the pooled captioner in one kernel launch: the
-// L-layer GRU or LSTM recurrence, the H x V vocab projection and the
-// first-max argmax over the vocabulary.
+// One decode step of the pooled captioner in one kernel launch: the L-layer
+// GRU or LSTM recurrence, then the H x V vocab projection with one of three
+// ends: the first-max argmax (greedy), the dense f32 logits (beam, dense)
+// or each row's top-K log-probabilities (beam, sparse).
 //
-// Replaces show_tell_tpu/ops/fused_step_pallas.py::fused_gru_decode_step_pallas
-// (st_fused_gru_step) and ::fused_lstm_decode_step_pallas (st_fused_lstm_step):
-// one kernel templated on the cell (GruCell, LstmCell in decode_common.cuh).
+// Replaces, one kernel templated on the cell (GruCell, LstmCell in
+// decode_common.cuh) and the vocab end (VocabMode):
+//   show_tell_tpu/ops/fused_step_pallas.py::fused_gru_decode_step_pallas
+//     (st_fused_gru_step) and ::fused_lstm_decode_step_pallas (st_fused_lstm_step);
+//   show_tell_tpu/ops/fused_beam_pallas.py::fused_dense_step_pallas
+//     (st_fused_gru_dense_step, st_fused_lstm_dense_step);
+//   show_tell_tpu/ops/fused_beam_pallas.py::fused_topk_step_pallas
+//     (st_fused_gru_topk_step, st_fused_lstm_topk_step).
 //
 //   x_0 = x [B, E]; for l in 0..L-1:
 //     h'_l (, c'_l) = Cell(x_l, h_l (, c_l); w_ih_l, w_hh[l], b_ih[l], b_hh[l]);  x_{l+1} = h'_l
-//   tok[b] = lowest v maximising  x_L[b] . wv[v] + bv[v]              (int32)
+//   logit[b, v] = x_L[b] . wv[v] + bv[v]                                  (f32)
+//   argmax: tok[b] = lowest v maximising logit[b, v]                      (int32)
+//   dense:  logits[b, v]                                                  [B, V] f32
+//   top-K:  the K greatest logit[b, v] (of equal ones the lower v first) as
+//           (logit - logsumexp_v logit[b, v], v)                          [B, K] each
 //
 // Layer 0 has its own input width E (w_ih0 [G*H, E]), so E may be smaller
 // or larger than H; layers 1..L-1 read H-wide inputs (w_ihU [L-1, G*H, H]).
+// The TPU beam kernels pad x up to H and take no E > H; these take any E.
 // GRU gates r, z, n (the reset gate multiplies W_hn h + b_hn); LSTM gates
 // i, f, g, o with the cell state carried in T beside h.  Double biases.
 // Products are summed and the gate math is done in f32; h' (and c') are
@@ -21,9 +32,11 @@
 // V=9,956; E=256 GRU, E=512 LSTM) one step reads G x H x E + (2L-1) x
 // G x H x H recurrence weights plus 9,956 x 512 projection weights: about
 // 25 MB (GRU) and 31 MB (LSTM) in bf16, both inside the 50 MB L2 cache.
-// At small batches the step is bound by those weight bytes; each weight
-// row is read once per batch tile of kBM rows, so at large batches it
-// turns into an f32 SIMT FMA loop (no tensor cores in this version).
+// The dense end adds B x V x 4 bytes of logits (7.6 MB at B = 192 beam
+// rows); the top-K end writes only [B, K] and a few MB of per-part scratch.
+// At small batches the step is bound by those bytes; each weight row is
+// read once per batch tile of kBM rows, so at large batches it turns into
+// an f32 SIMT FMA loop (no tensor cores in this version).
 // The design (device code in decode_common.cuh):
 //   * weights are kept in the torch layout [out, in] so that one output
 //     column is one contiguous row: a warp owns a column (its G gate rows)
@@ -37,6 +50,15 @@
 //     across blocks with a 64-bit atomicMax on (ordered float, ~index):
 //     a greater value wins, and on equal values the lower index wins,
 //     exactly the first-max rule of vocab_pallas.merge_block_argmax;
+//   * the top-K end replaces the TPU's per-vocab-block top-k and online
+//     logsumexp (vocab_pallas.topk_block_stage): each warp keeps its rows'
+//     top-K keys and (max, sum) over its columns in registers and writes
+//     them to per-part scratch; after one more barrier a warp per row
+//     merges the parts by the same 64-bit key order (jax.lax.top_k's tie
+//     rule) and forms lse.  The wrapper sizes the scratch from a bound on
+//     the grid (the SM count times 16 resident 128-thread blocks);
+//   * the dense end stores lane b's logit at logits[b, v]: those stores
+//     stride by V, uncoalesced (what later work would fix);
 //   * the grid is sized from the occupancy of this kernel times the SM
 //     count, and each block walks over (batch tile, column range) items,
 //     so any B, H and V run, and at B=1 every SM still gets columns;
@@ -49,56 +71,68 @@
 namespace {
 
 struct Params {
-  StackArgs stack;            // x [B, E], w_ih0 [G*H, E], ..., new_hs, new_cs
-  const void* wv;             // [V, H]  vocab projection, torch layout
-  const void* bv;             // [V]
-  int32_t* tok;               // [B]
-  unsigned long long* best;   // [B] scratch: packed (value, index) keys
+  StackArgs stack;  // x [B, E], w_ih0 [G*H, E], ..., new_hs, new_cs
+  const void* wv;   // [V, H]  vocab projection, torch layout
+  const void* bv;   // [V]
+  VocabOut out;     // the vocab end's outputs and scratch
   int V;
 };
 
-template <typename T, typename Cell>
+template <typename T, typename Cell, int kMode>
 __global__ void __launch_bounds__(kThreads) fused_step_kernel(Params p) {
   extern __shared__ float smem[];
   cg::grid_group grid = cg::this_grid();
   const StackArgs& s = p.stack;
-  for (int b = grid_thread(); b < s.B; b += grid_threads()) p.best[b] = 0ull;  // below every packed key
+  if constexpr (kMode == kArgmax)
+    for (int b = grid_thread(); b < s.B; b += grid_threads()) p.out.best[b] = 0ull;  // below every packed key
   for (int l = 0; l < s.L; ++l) {
     stack_layer<T, Cell>(s, l, smem);
     grid.sync();  // layer l's h' is complete in new_hs
   }
   const T* top = static_cast<const T*>(s.new_hs) + static_cast<size_t>(s.L - 1) * s.B * s.H;
-  project_argmax<T>(top, static_cast<const T*>(p.wv), static_cast<const T*>(p.bv), s.B, s.H, p.V, p.best, smem);
-  grid.sync();
-  for (int b = grid_thread(); b < s.B; b += grid_threads()) p.tok[b] = key_index(p.best[b]);
+  vocab_phase<kMode, T>(top, static_cast<const T*>(p.wv), static_cast<const T*>(p.bv), s.B, s.H, p.V, p.out, smem,
+                        grid);
 }
 
-template <typename T, typename Cell>
+template <typename T, typename Cell, int kMode>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   Params args = p;
   void* argv[] = {&args};
-  return launch_cooperative(fused_step_kernel<T, Cell>, stack_smem_floats(p.stack) * sizeof(float), argv, stream);
+  return launch_cooperative(fused_step_kernel<T, Cell, kMode>, stack_smem_floats(p.stack) * sizeof(float), argv,
+                            stream);
 }
 
-template <typename Cell>
+template <typename Cell, int kMode>
 int run(int dtype, const Params& p, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return static_cast<int>(launch<float, Cell>(p, s));
-  if (dtype == 1) return static_cast<int>(launch<__nv_bfloat16, Cell>(p, s));
+  if (dtype == 0) return static_cast<int>(launch<float, Cell, kMode>(p, s));
+  if (dtype == 1) return static_cast<int>(launch<__nv_bfloat16, Cell, kMode>(p, s));
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+VocabOut argmax_out(int32_t* tok, unsigned long long* best) { return VocabOut{tok, best, nullptr, {}}; }
+VocabOut dense_out(float* logits) { return VocabOut{nullptr, nullptr, logits, {}}; }
+VocabOut topk_out(unsigned long long* part_keys, float2* part_ms, float* logp, int32_t* ids, int K, int max_splits) {
+  return VocabOut{nullptr, nullptr, nullptr, {part_keys, part_ms, logp, ids, K, max_splits}};
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Each returns a cudaError_t (0 on
 // success); a width whose [kBM, max(E, H) + H] f32 tile exceeds a block's
-// shared memory fails here.
+// shared memory fails here.  The top-K steps take K <= 8 and per-part
+// scratch part_keys [max_splits * 4, B, K] (u64) and part_ms [max_splits *
+// 4, B] (float2), where max_splits bounds the column ranges of the grid.
+
+// Greedy: tok [B] int32; best [B] scratch.
 extern "C" int st_fused_gru_step(int dtype, const void* x, const void* w_ih0, const void* w_ihU,
                                  const void* w_hh, const void* b_ih, const void* b_hh, const void* hs,
                                  const void* wv, const void* bv, void* new_hs, int32_t* tok,
                                  unsigned long long* best, int L, int B, int E, int H, int V, void* stream) {
-  return run<GruCell>(
-      dtype, Params{{x, w_ih0, w_ihU, w_hh, b_ih, b_hh, hs, nullptr, new_hs, nullptr, L, B, E, H}, wv, bv, tok, best, V},
+  return run<GruCell, kArgmax>(
+      dtype,
+      Params{{x, w_ih0, w_ihU, w_hh, b_ih, b_hh, hs, nullptr, new_hs, nullptr, L, B, E, H}, wv, bv,
+             argmax_out(tok, best), V},
       stream);
 }
 
@@ -107,7 +141,58 @@ extern "C" int st_fused_lstm_step(int dtype, const void* x, const void* w_ih0, c
                                   const void* cs, const void* wv, const void* bv, void* new_hs, void* new_cs,
                                   int32_t* tok, unsigned long long* best, int L, int B, int E, int H, int V,
                                   void* stream) {
-  return run<LstmCell>(
-      dtype, Params{{x, w_ih0, w_ihU, w_hh, b_ih, b_hh, hs, cs, new_hs, new_cs, L, B, E, H}, wv, bv, tok, best, V},
+  return run<LstmCell, kArgmax>(
+      dtype,
+      Params{{x, w_ih0, w_ihU, w_hh, b_ih, b_hh, hs, cs, new_hs, new_cs, L, B, E, H}, wv, bv, argmax_out(tok, best),
+             V},
+      stream);
+}
+
+// Beam, dense: logits [B, V] f32.
+extern "C" int st_fused_gru_dense_step(int dtype, const void* x, const void* w_ih0, const void* w_ihU,
+                                       const void* w_hh, const void* b_ih, const void* b_hh, const void* hs,
+                                       const void* wv, const void* bv, void* new_hs, float* logits, int L, int B,
+                                       int E, int H, int V, void* stream) {
+  return run<GruCell, kDense>(
+      dtype,
+      Params{{x, w_ih0, w_ihU, w_hh, b_ih, b_hh, hs, nullptr, new_hs, nullptr, L, B, E, H}, wv, bv,
+             dense_out(logits), V},
+      stream);
+}
+
+extern "C" int st_fused_lstm_dense_step(int dtype, const void* x, const void* w_ih0, const void* w_ihU,
+                                        const void* w_hh, const void* b_ih, const void* b_hh, const void* hs,
+                                        const void* cs, const void* wv, const void* bv, void* new_hs, void* new_cs,
+                                        float* logits, int L, int B, int E, int H, int V, void* stream) {
+  return run<LstmCell, kDense>(
+      dtype,
+      Params{{x, w_ih0, w_ihU, w_hh, b_ih, b_hh, hs, cs, new_hs, new_cs, L, B, E, H}, wv, bv, dense_out(logits), V},
+      stream);
+}
+
+// Beam, sparse: logp [B, K] f32 and ids [B, K] int32, best first.
+extern "C" int st_fused_gru_topk_step(int dtype, const void* x, const void* w_ih0, const void* w_ihU,
+                                      const void* w_hh, const void* b_ih, const void* b_hh, const void* hs,
+                                      const void* wv, const void* bv, void* new_hs, unsigned long long* part_keys,
+                                      float2* part_ms, float* logp, int32_t* ids, int L, int B, int E, int H, int V,
+                                      int K, int max_splits, void* stream) {
+  if (K < 1 || K > kMaxK || K > V || max_splits < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return run<GruCell, kTopk>(
+      dtype,
+      Params{{x, w_ih0, w_ihU, w_hh, b_ih, b_hh, hs, nullptr, new_hs, nullptr, L, B, E, H}, wv, bv,
+             topk_out(part_keys, part_ms, logp, ids, K, max_splits), V},
+      stream);
+}
+
+extern "C" int st_fused_lstm_topk_step(int dtype, const void* x, const void* w_ih0, const void* w_ihU,
+                                       const void* w_hh, const void* b_ih, const void* b_hh, const void* hs,
+                                       const void* cs, const void* wv, const void* bv, void* new_hs, void* new_cs,
+                                       unsigned long long* part_keys, float2* part_ms, float* logp, int32_t* ids,
+                                       int L, int B, int E, int H, int V, int K, int max_splits, void* stream) {
+  if (K < 1 || K > kMaxK || K > V || max_splits < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return run<LstmCell, kTopk>(
+      dtype,
+      Params{{x, w_ih0, w_ihU, w_hh, b_ih, b_hh, hs, cs, new_hs, new_cs, L, B, E, H}, wv, bv,
+             topk_out(part_keys, part_ms, logp, ids, K, max_splits), V},
       stream);
 }

@@ -1,7 +1,7 @@
 """The captioner: encoder + decoder (counterpart of
 show_tell_tpu/models/captioner.py).
 
-All four families of the reference, greedy serving:
+All four families of the reference, greedy and beam serving:
 
   variant 'gru'       ResNet pooled [B, E]      -> GRU decoder    (main.py)
   variant 'lstm'      ResNet pooled [B, E]      -> LSTM decoder   (LSTM/main_lstm.py)
@@ -230,3 +230,32 @@ def captioner_greedy_decode(
         decode = attn_greedy_decode_fused if fused else attn_greedy_decode_composite
         return decode(prepared, model.decoder, cfg.decoder_config(), feats, cfg.start_token, end_token=end_token)
     return greedy_decode_kernel(prepared, feats, cfg.max_caption_length, end_token=end_token)
+
+
+def captioner_beam_decode(
+    model: CaptionerModel,
+    cfg: CaptionerConfig,
+    images: torch.Tensor,  # [B, 224, 224, 3] normalized float
+    prepared: Optional[Dict[str, object]] = None,
+    beam_size: int = 3,
+    end_token: int = 2,
+    early_exit: bool = False,
+) -> torch.Tensor:
+    """Eval-mode encode + batched beam search of width ``beam_size`` ->
+    [B, 25] int32 ids (the best hypothesis of each image; <pad> after its
+    <end>), through the beam kernels on a CUDA device (their plain twins on
+    the CPU).  The dispatch is show_tell_tpu/serve.py's: the pooled
+    families take ``beam_search_decode``, the attention families
+    ``attn_beam_search_decode``, each with the fused dense step (the
+    composite for an attention model with H > 2E).  Beams retire on
+    ``end_token``; early_exit stops once all have (identical ids)."""
+    from show_tell_tpu_torch.decode.beam import attn_beam_search_decode, beam_search_decode
+
+    feats = model.encoder(images)
+    if prepared is None:
+        prepared = prepare_decode(model, model.decoder.embeddings.weight.dtype)
+    if cfg.is_attention:
+        return attn_beam_search_decode(prepared, model.decoder, cfg.decoder_config(), feats, beam_size,
+                                       cfg.start_token, end_token=end_token, early_exit=early_exit)
+    return beam_search_decode(prepared, cfg.decoder_config(), feats, beam_size, end_token=end_token,
+                              early_exit=early_exit)

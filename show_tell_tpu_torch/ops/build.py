@@ -10,7 +10,8 @@ library's file name carries a hash of every source under ``csrc/``
 header builds anew and a stale library is never loaded.  A missing
 ``nvcc`` or a failed build raises, with nvcc's own error output.
 
-    python -m show_tell_tpu_torch.ops.build    # build now, print the path
+    python -m show_tell_tpu_torch.ops.build            # build now, print the path
+    python -m show_tell_tpu_torch.ops.build --ptxas    # each kernel instance's registers and spills
 """
 
 from __future__ import annotations
@@ -19,9 +20,12 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
-from typing import Optional
+import sys
+import tempfile
+from typing import List, Optional
 
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
@@ -109,6 +113,42 @@ def build() -> str:
     return lib
 
 
+def ptxas_report() -> List[str]:
+    """Compile every source once more with ``-Xptxas -v`` (the objects are
+    thrown away) and return one line per kernel instance: its source, its
+    name (demangled when the toolkit's cu++filt is there), the registers a
+    thread uses, its stack frame and spill bytes."""
+    nvcc = find_nvcc()
+    found = []  # (source, mangled name, registers, "stack frame, spill stores, spill loads")
+    with tempfile.TemporaryDirectory() as tmp:
+        compiles = []
+        for src in _sources():
+            cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", src, "-o", os.path.join(tmp, os.path.basename(src) + ".o")]
+            compiles.append((cmd, src, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        for cmd, src, proc in compiles:
+            err = proc.communicate()[1]
+            _raise_if_failed(cmd, proc.returncode, err)
+            name, frame = None, "no stack frame"
+            for line in err.splitlines():
+                m = re.search(r"Function properties for (\S+)", line)
+                if m:
+                    name, frame = m.group(1), "no stack frame"
+                elif "bytes stack frame" in line:
+                    frame = line.strip()
+                m = re.search(r"Used (\d+) registers", line)
+                if m and name:
+                    found.append((os.path.basename(src), name, int(m.group(1)), frame))
+                    name = None
+    names = [name for _, name, _, _ in found]
+    demangler = os.path.join(os.path.dirname(nvcc), "cu++filt")
+    if names and os.access(demangler, os.X_OK):
+        out = subprocess.run([demangler], input="\n".join(names), capture_output=True, text=True).stdout.splitlines()
+        if len(out) == len(names):
+            names = [n.replace("(anonymous namespace)::", "") for n in out]
+    return ["%s %s: %d registers, %s" % (src, name, regs, frame)
+            for (src, _, regs, frame), name in zip(found, names)]
+
+
 def _raise_if_failed(cmd, returncode: int, stderr: str) -> None:
     if returncode != 0:
         raise KernelBuildError("nvcc failed (exit %d): %s\n%s" % (returncode, " ".join(cmd), stderr))
@@ -123,10 +163,17 @@ def load_library() -> ctypes.CDLL:
         signatures = {
             "st_fused_gru_step": [i] + [p] * 12 + [i] * 5 + [p],
             "st_fused_lstm_step": [i] + [p] * 14 + [i] * 5 + [p],
+            "st_fused_gru_dense_step": [i] + [p] * 11 + [i] * 5 + [p],
+            "st_fused_lstm_dense_step": [i] + [p] * 13 + [i] * 5 + [p],
+            "st_fused_gru_topk_step": [i] + [p] * 14 + [i] * 7 + [p],
+            "st_fused_lstm_topk_step": [i] + [p] * 16 + [i] * 7 + [p],
             "st_fused_attn_step": [i] + [p] * 20 + [i] * 7 + [p],
             "st_fused_attn_lstm_step": [i] + [p] * 22 + [i] * 7 + [p],
+            "st_fused_attn_dense_step": [i] + [p] * 19 + [i] * 7 + [p],
+            "st_fused_attn_lstm_dense_step": [i] + [p] * 21 + [i] * 7 + [p],
             "st_attention_context": [i] + [p] * 8 + [i] * 5 + [p],
             "st_project_argmax": [i] + [p] * 5 + [i] * 3 + [p],
+            "st_project_topk": [i] + [p] * 7 + [i] * 5 + [p],
         }
         for name, argtypes in signatures.items():
             fn = getattr(lib, name)
@@ -136,4 +183,4 @@ def load_library() -> ctypes.CDLL:
 
 
 if __name__ == "__main__":
-    print(build())
+    print("\n".join(ptxas_report()) if "--ptxas" in sys.argv[1:] else build())

@@ -1,8 +1,10 @@
 """The fused attention decode step: attention, the embed-space context,
-the L-layer GRU or LSTM, the vocab projection and the first-max argmax in
-one CUDA kernel launch (csrc/fused_attn_step.cu), its plain PyTorch twin,
-a count of kernel launches for each cell, and the greedy decode over it
-(counterpart of show_tell_tpu/ops/fused_attn_pallas.py, argmax mode).
+the L-layer GRU or LSTM, the vocab projection and the first-max argmax
+(greedy) or the dense f32 logits (beam) in one CUDA kernel launch
+(csrc/fused_attn_step.cu), its plain PyTorch twins, a count of kernel
+launches for each cell and end, and the greedy decode over it
+(counterpart of show_tell_tpu/ops/fused_attn_pallas.py, argmax and dense
+modes).
 
 The step takes the state as the greedy loop carries it: hs [L, B, H] for
 the GRU, the tuple (hs, cs) for the LSTM.
@@ -25,7 +27,7 @@ from show_tell_tpu_torch.ops import check_tensor, check_widths, dtype_code, rais
 from show_tell_tpu_torch.ops.attention import attention_alpha_plain, precompute_att1
 from show_tell_tpu_torch.ops.fused_step import check_stack
 from show_tell_tpu_torch.ops.rnn import LstmState, State, prepare_rnn_weights, stack_plain
-from show_tell_tpu_torch.ops.vocab import prepare_vocab, project_argmax_plain
+from show_tell_tpu_torch.ops.vocab import prepare_vocab, project_argmax_plain, project_logits
 
 
 def fused_attn_fits(hidden_dim: int, embed_dim: int) -> bool:
@@ -65,29 +67,42 @@ def prepare_attn_decode(weights: Dict[str, object], decoder, feats_pm: torch.Ten
     }
 
 
-def fused_attn_decode_step_plain(
-    prep: Dict[str, object], w_emb: torch.Tensor, state: State
-) -> Tuple[torch.Tensor, State]:
-    """The kernel's function in plain torch ops: alpha from the last
-    layer's incoming h, ctx_e = sum_p alpha_p feats_e_p + b_emb in f32,
-    x = cat(w_emb, ctx_e) in hs's dtype, the GRU or LSTM stack (by the
-    state), the projection and the first-max argmax.  Returns (tok [B]
-    int32, new state)."""
+def _attn_stack_plain(prep: Dict[str, object], w_emb: torch.Tensor, state: State) -> Tuple[torch.Tensor, State]:
+    """The kernels' trunk in plain torch ops: alpha from the last layer's
+    incoming h, ctx_e = sum_p alpha_p feats_e_p + b_emb in f32, x =
+    cat(w_emb, ctx_e) in hs's dtype, then the GRU or LSTM stack (by the
+    state).  Returns (top h [B, H], new state)."""
     lstm = isinstance(state, tuple)
     hs = state[0] if lstm else state
     alpha = attention_alpha_plain(prep, prep["att1"], hs[-1])
     ctx_e = (prep["feats_e"].float() * alpha[..., None]).sum(dim=1) + prep["b_emb"].float()
     x = torch.cat([w_emb.to(hs.dtype), ctx_e.to(hs.dtype)], dim=-1)
-    top, new_state = stack_plain("lstm" if lstm else "gru")(prep["stacked"], x, state)
+    return stack_plain("lstm" if lstm else "gru")(prep["stacked"], x, state)
+
+
+def fused_attn_decode_step_plain(
+    prep: Dict[str, object], w_emb: torch.Tensor, state: State
+) -> Tuple[torch.Tensor, State]:
+    """The greedy kernel's function in plain torch ops: the trunk, the
+    projection and the first-max argmax.  Returns (tok [B] int32, new
+    state)."""
+    top, new_state = _attn_stack_plain(prep, w_emb, state)
     return project_argmax_plain(prep["vocab"], top), new_state
 
 
-def fused_attn_decode_step_cuda(prep, w_emb, state: State) -> Tuple[torch.Tensor, State]:
-    """Launch the GRU or (for a state (hs, cs)) the LSTM instance of the
-    kernel on the current stream, and count it on ``fused_attn_decode_step``
-    or ``fused_attn_lstm_decode_step``.  Every tensor must be on the same
-    CUDA device, in one dtype (float32 or bfloat16), contiguous, with E, H
-    and A multiples of 8.  Raises on anything else and on a failed launch."""
+def fused_attn_dense_step_plain(
+    prep: Dict[str, object], w_emb: torch.Tensor, state: State
+) -> Tuple[torch.Tensor, State]:
+    """The dense kernel's function in plain torch ops: the trunk and the
+    projection in f32.  Returns (logits [B, V] f32, new state)."""
+    top, new_state = _attn_stack_plain(prep, w_emb, state)
+    return project_logits(prep["vocab"], top), new_state
+
+
+def _fused_attn_cuda(prep, w_emb, state: State, dense: bool):
+    """Check, allocate and launch the GRU or (for a state (hs, cs)) the
+    LSTM instance of the argmax or the dense kernel.  Returns (tok or
+    logits, new state)."""
     from show_tell_tpu_torch.ops.build import load_library
 
     lstm = isinstance(state, tuple)
@@ -97,11 +112,12 @@ def fused_attn_decode_step_cuda(prep, w_emb, state: State) -> Tuple[torch.Tensor
     A = prep["att1"].shape[2]
     V = prep["vocab"]["w"].shape[0]
     dtype, device = hs.dtype, hs.device
-    code = dtype_code("fused_attn_decode_step", dtype)
-    check_widths("fused_attn_decode_step", E=E, A=A)
+    kernel = "fused_attn_dense_step" if dense else "fused_attn_decode_step"
+    code = dtype_code(kernel, dtype)
+    check_widths(kernel, E=E, A=A)
     if P < 1 or V < 1:
-        raise ValueError("fused_attn_decode_step needs P, V >= 1 (got P=%d V=%d)" % (P, V))
-    check_stack("fused_attn_decode_step", prep["stacked"], 2 * E, hs, 4 if lstm else 3)
+        raise ValueError("%s needs P, V >= 1 (got P=%d V=%d)" % (kernel, P, V))
+    check_stack(kernel, prep["stacked"], 2 * E, hs, 4 if lstm else 3)
     if lstm:
         check_tensor("cs", cs, (L, B, H), dtype, device)
     check_tensor("w_emb", w_emb, (B, E), dtype, device)
@@ -119,26 +135,49 @@ def fused_attn_decode_step_cuda(prep, w_emb, state: State) -> Tuple[torch.Tensor
     att2 = torch.empty(B, A, dtype=torch.float32, device=device)
     new_hs = torch.empty_like(hs)
     new_cs = torch.empty_like(cs) if lstm else None
-    tok = torch.empty(B, dtype=torch.int32, device=device)
-    best = torch.empty(B, dtype=torch.int64, device=device)
+    if dense:
+        out = torch.empty(B, V, dtype=torch.float32, device=device)
+        end = [out.data_ptr()]
+    else:
+        out = torch.empty(B, dtype=torch.int32, device=device)
+        best = torch.empty(B, dtype=torch.int64, device=device)
+        end = [out.data_ptr(), best.data_ptr()]
     state_in = [hs.data_ptr(), cs.data_ptr()] if lstm else [hs.data_ptr()]
     state_out = [new_hs.data_ptr(), new_cs.data_ptr()] if lstm else [new_hs.data_ptr()]
-    entry = lib.st_fused_attn_lstm_step if lstm else lib.st_fused_attn_step
+    entry = getattr(lib, "st_fused_attn_%s%sstep" % ("lstm_" if lstm else "", "dense_" if dense else ""))
     with torch.cuda.device(device):
         err = entry(
             code, w_emb.data_ptr(), prep["feats_e"].data_ptr(), prep["att1"].data_ptr(), prep["wdec"].data_ptr(),
             prep["bdec"].data_ptr(), prep["wfull"].data_ptr(), prep["b_emb"].data_ptr(),
             stacked["w_ih0"].data_ptr(), stacked["w_ihU"].data_ptr(), stacked["w_hh"].data_ptr(),
             stacked["b_ih"].data_ptr(), stacked["b_hh"].data_ptr(), *state_in, vocab["w"].data_ptr(),
-            vocab["b"].data_ptr(), x.data_ptr(), att2.data_ptr(), *state_out, tok.data_ptr(),
-            best.data_ptr(), L, B, E, H, A, P, V, stream_arg(device),
+            vocab["b"].data_ptr(), x.data_ptr(), att2.data_ptr(), *state_out, *end,
+            L, B, E, H, A, P, V, stream_arg(device),
         )
-    raise_on_error("fused attention step", err)
-    if lstm:
-        fused_attn_lstm_decode_step.launches += 1
-        return tok, (new_hs, new_cs)
-    fused_attn_decode_step.launches += 1
-    return tok, new_hs
+    raise_on_error(kernel, err)
+    return out, ((new_hs, new_cs) if lstm else new_hs)
+
+
+def fused_attn_decode_step_cuda(prep, w_emb, state: State) -> Tuple[torch.Tensor, State]:
+    """Launch the GRU or (for a state (hs, cs)) the LSTM instance of the
+    greedy kernel on the current stream, and count it on
+    ``fused_attn_decode_step`` or ``fused_attn_lstm_decode_step``.  Every
+    tensor must be on the same CUDA device, in one dtype (float32 or
+    bfloat16), contiguous, with E, H and A multiples of 8.  Raises on
+    anything else and on a failed launch."""
+    out = _fused_attn_cuda(prep, w_emb, state, dense=False)
+    (fused_attn_lstm_decode_step if isinstance(state, tuple) else fused_attn_decode_step).launches += 1
+    return out
+
+
+def fused_attn_dense_step_cuda(prep, w_emb, state: State) -> Tuple[torch.Tensor, State]:
+    """Launch the dense kernel's GRU or LSTM instance, the greedy one's
+    rules, and count it on ``fused_attn_dense_step`` or
+    ``fused_attn_lstm_dense_step``.  Returns (logits [B, V] f32, new
+    state)."""
+    out = _fused_attn_cuda(prep, w_emb, state, dense=True)
+    (fused_attn_lstm_dense_step if isinstance(state, tuple) else fused_attn_dense_step).launches += 1
+    return out
 
 
 def fused_attn_decode_step(
@@ -168,8 +207,31 @@ def fused_attn_lstm_decode_step(
     return fused_attn_decode_step_plain(prep, w_emb, state)
 
 
+def fused_attn_dense_step(
+    prep: Dict[str, object],  # prepare_attn_decode output, att1 and feats_e per beam row
+    w_emb: torch.Tensor,  # [R, E]
+    hs: torch.Tensor,  # [L, R, H]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One fused attention GRU beam step: (logits [R, V] f32, new_hs).
+    CUDA tensors launch the kernel (and count the launch in
+    ``fused_attn_dense_step.launches``); CPU tensors run the plain twin."""
+    if uses_kernel(hs):
+        return fused_attn_dense_step_cuda(prep, w_emb, hs)
+    return fused_attn_dense_step_plain(prep, w_emb, hs)
+
+
+def fused_attn_lstm_dense_step(prep, w_emb, state: LstmState) -> Tuple[torch.Tensor, LstmState]:
+    """The LSTM twin of ``fused_attn_dense_step``: state (hs, cs), counted
+    in ``fused_attn_lstm_dense_step.launches``."""
+    if uses_kernel(state[0]):
+        return fused_attn_dense_step_cuda(prep, w_emb, state)
+    return fused_attn_dense_step_plain(prep, w_emb, state)
+
+
 fused_attn_decode_step.launches = 0
 fused_attn_lstm_decode_step.launches = 0
+fused_attn_dense_step.launches = 0
+fused_attn_lstm_dense_step.launches = 0
 
 
 def attn_greedy_decode_fused(

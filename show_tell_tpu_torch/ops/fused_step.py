@@ -1,7 +1,8 @@
 """The fused greedy decode step: the L-layer GRU or LSTM, the vocab
 projection and the first-max argmax in one CUDA kernel launch
-(csrc/fused_step.cu), the plain PyTorch twins, and a count of kernel
-launches for each cell.
+(csrc/fused_step.cu), the plain PyTorch twins, a count of kernel launches
+for each cell, and the launcher that the kernel's beam ends share
+(ops/fused_beam.py).
 
 Counterpart of show_tell_tpu/ops/fused_step_pallas.py::fused_gru_decode_step_pallas
 and ::fused_lstm_decode_step_pallas.  Layer 0 reads x at its own width E,
@@ -10,13 +11,13 @@ which may exceed H.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Tuple, Union
 
 import torch
 
 from show_tell_tpu_torch.ops import check_tensor, check_widths, dtype_code, raise_on_error, stream_arg, uses_kernel
-from show_tell_tpu_torch.ops.rnn import LstmState, gru_stack_plain, lstm_stack_plain
-from show_tell_tpu_torch.ops.vocab import project_argmax_plain
+from show_tell_tpu_torch.ops.rnn import LstmState, State, gru_stack_plain, lstm_stack_plain
+from show_tell_tpu_torch.ops.vocab import project_argmax_plain, topk_launch_args
 
 
 def fused_gru_decode_step_plain(
@@ -55,13 +56,16 @@ def check_stack(kernel: str, stacked: Dict[str, torch.Tensor], I0: int, hs: torc
         check_tensor(key, stacked[key], (L, GH), hs.dtype, hs.device)
 
 
-def _fused_step_cuda(
-    kernel: str, stacked, vocab, x, hs, cs: Optional[torch.Tensor]
-) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
-    """Check, allocate and launch the GRU (cs None) or LSTM instance.
-    Returns (tok, new_hs, new_cs or None)."""
+def launch_fused_step(kernel: str, stacked, vocab, x, state: State, end: Union[str, int]):
+    """Check, allocate and launch one instance of the fused step kernel:
+    the cell by the state (hs: GRU, (hs, cs): LSTM), the vocab end by
+    ``end``: "argmax" (tok [B] int32), "dense" (logits [B, V] f32) or a top-k
+    width k (logp [B, k] f32, ids [B, k] int32).  Returns (the end's
+    output, new state)."""
     from show_tell_tpu_torch.ops.build import load_library
 
+    lstm = isinstance(state, tuple)
+    hs, cs = state if lstm else (state, None)
     L, B, H = hs.shape
     E = x.shape[-1]
     V = vocab["w"].shape[0]
@@ -69,29 +73,40 @@ def _fused_step_cuda(
     code = dtype_code(kernel, dtype)
     if V < 1:
         raise ValueError("%s needs V >= 1" % kernel)
-    check_stack(kernel, stacked, E, hs, 3 if cs is None else 4)
-    if cs is not None:
+    check_stack(kernel, stacked, E, hs, 4 if lstm else 3)
+    if lstm:
         check_tensor("cs", cs, (L, B, H), dtype, device)
     check_tensor("x", x, (B, E), dtype, device)
     check_tensor("vocab w", vocab["w"], (V, H), dtype, device)
     check_tensor("vocab b", vocab["b"], (V,), dtype, device)
-    lib = load_library()
     new_hs = torch.empty_like(hs)
-    new_cs = None if cs is None else torch.empty_like(cs)
-    tok = torch.empty(B, dtype=torch.int32, device=device)
-    best = torch.empty(B, dtype=torch.int64, device=device)
-    state_in = [hs.data_ptr()] if cs is None else [hs.data_ptr(), cs.data_ptr()]
-    state_out = [new_hs.data_ptr()] if cs is None else [new_hs.data_ptr(), new_cs.data_ptr()]
-    entry = lib.st_fused_gru_step if cs is None else lib.st_fused_lstm_step
+    new_cs = torch.empty_like(cs) if lstm else None
+    ints = [L, B, E, H, V]
+    if end == "argmax":
+        out = torch.empty(B, dtype=torch.int32, device=device)
+        best = torch.empty(B, dtype=torch.int64, device=device)
+        ptrs, name = [out.data_ptr(), best.data_ptr()], "step"
+    elif end == "dense":
+        out = torch.empty(B, V, dtype=torch.float32, device=device)
+        ptrs, name = [out.data_ptr()], "dense_step"
+    else:
+        max_splits, part_keys, part_ms, logp, ids = topk_launch_args(kernel, B, V, end, device)
+        out = (logp, ids)
+        ptrs = [part_keys.data_ptr(), part_ms.data_ptr(), logp.data_ptr(), ids.data_ptr()]
+        ints += [end, max_splits]
+        name = "topk_step"
+    lib = load_library()
+    entry = getattr(lib, "st_fused_%s_%s" % ("lstm" if lstm else "gru", name))
+    state_in = [hs.data_ptr(), cs.data_ptr()] if lstm else [hs.data_ptr()]
+    state_out = [new_hs.data_ptr(), new_cs.data_ptr()] if lstm else [new_hs.data_ptr()]
     with torch.cuda.device(device):
         err = entry(
             code, x.data_ptr(), stacked["w_ih0"].data_ptr(), stacked["w_ihU"].data_ptr(),
             stacked["w_hh"].data_ptr(), stacked["b_ih"].data_ptr(), stacked["b_hh"].data_ptr(), *state_in,
-            vocab["w"].data_ptr(), vocab["b"].data_ptr(), *state_out, tok.data_ptr(),
-            best.data_ptr(), L, B, E, H, V, stream_arg(device),
+            vocab["w"].data_ptr(), vocab["b"].data_ptr(), *state_out, *ptrs, *ints, stream_arg(device),
         )
     raise_on_error(kernel, err)
-    return tok, new_hs, new_cs
+    return out, ((new_hs, new_cs) if lstm else new_hs)
 
 
 def fused_gru_decode_step_cuda(stacked, vocab, x, hs) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -99,18 +114,17 @@ def fused_gru_decode_step_cuda(stacked, vocab, x, hs) -> Tuple[torch.Tensor, tor
     the same CUDA device, in one dtype (float32 or bfloat16), contiguous,
     with E and H multiples of 8.  Raises on anything else and on a failed
     launch."""
-    tok, new_hs, _ = _fused_step_cuda("fused_gru_decode_step", stacked, vocab, x, hs, None)
+    out = launch_fused_step("fused_gru_decode_step", stacked, vocab, x, hs, "argmax")
     fused_gru_decode_step.launches += 1
-    return tok, new_hs
+    return out
 
 
 def fused_lstm_decode_step_cuda(stacked, vocab, x, state: LstmState) -> Tuple[torch.Tensor, LstmState]:
     """Launch the LSTM kernel on the current stream; the GRU kernel's rules,
     with cs [L, B, H] held like hs."""
-    hs, cs = state
-    tok, new_hs, new_cs = _fused_step_cuda("fused_lstm_decode_step", stacked, vocab, x, hs, cs)
+    out = launch_fused_step("fused_lstm_decode_step", stacked, vocab, x, state, "argmax")
     fused_lstm_decode_step.launches += 1
-    return tok, (new_hs, new_cs)
+    return out
 
 
 def fused_gru_decode_step(

@@ -1,7 +1,8 @@
-"""Vocab projection for greedy decode: the weights in kernel layout, the
-first-max argmax, and the projection + argmax kernel (csrc/project_argmax.cu)
-with its plain twin and launch count (counterpart of
-show_tell_tpu/ops/vocab_pallas.py).
+"""Vocab projection for decode: the weights in kernel layout, the first-max
+argmax and the stable top-k, the projection + argmax kernel
+(csrc/project_argmax.cu, greedy) and the projection + top-k kernel
+(csrc/project_topk.cu, beam), each with its plain twin and launch count
+(counterpart of show_tell_tpu/ops/vocab_pallas.py).
 
 The CUDA kernels read the projection in the torch layout [V, H], one
 contiguous row per vocabulary entry, and mask the ragged end of V
@@ -10,7 +11,7 @@ themselves, so nothing is padded here.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -83,3 +84,90 @@ def project_argmax(vocab: Dict[str, torch.Tensor], top: torch.Tensor) -> torch.T
 
 
 project_argmax.launches = 0
+
+
+MAX_K = 8  # the top-k kernels keep each row's K best in registers: K <= 8
+RESIDENT_BLOCKS_PER_SM = 2048 // 128  # an SM holds 2,048 threads: 16 of the kernels' 128-thread blocks
+KERNEL_WARPS = 4  # warps a block: each writes one top-k part per column range
+
+
+def stable_topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k largest values along the last axis and their int32 indices,
+    largest first and, among equal values, the lower index first: the
+    order of ``jax.lax.top_k``.  ``torch.topk`` documents no order for
+    ties, so this is a stable descending sort cut to k."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k].to(torch.int32)
+
+
+def project_topk_plain(vocab: Dict[str, torch.Tensor], top: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's function in plain torch ops: ``stable_topk`` of the
+    f32 ``log_softmax(top @ w.T + b)``.  Returns (logp [B, k] f32, ids
+    [B, k] int32)."""
+    return stable_topk(torch.log_softmax(project_logits(vocab, top), dim=-1), k)
+
+
+def topk_launch_args(kernel: str, B: int, V: int, k: int, device: torch.device):
+    """Check k and allocate what a top-k vocab phase writes: logp and ids
+    [B, k], and its per-part scratch.  The grid is sized inside the launch
+    from the kernel's occupancy, so the scratch is sized from a bound on it:
+    at most RESIDENT_BLOCKS_PER_SM blocks on each SM, hence at most
+    max_splits = min(V, that grid // ceil(B / 8)) column ranges a row, each
+    worked by KERNEL_WARPS warps.  Returns (max_splits, part_keys [n, B, k]
+    int64, part_ms [n, B, 2] f32, logp, ids), n = max_splits x KERNEL_WARPS."""
+    if not 1 <= k <= min(MAX_K, V):
+        raise ValueError("%s takes 1 <= k <= min(%d, V) (got k=%d, V=%d)" % (kernel, MAX_K, k, V))
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    max_splits = max(1, min(V, sms * RESIDENT_BLOCKS_PER_SM // -(-B // 8)))
+    n = max_splits * KERNEL_WARPS
+    return (
+        max_splits,
+        torch.empty(n, B, k, dtype=torch.int64, device=device),
+        torch.empty(n, B, 2, dtype=torch.float32, device=device),
+        torch.empty(B, k, dtype=torch.float32, device=device),
+        torch.empty(B, k, dtype=torch.int32, device=device),
+    )
+
+
+def project_topk_cuda(vocab: Dict[str, torch.Tensor], top: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the kernel on the current stream.  top [B, H], vocab w [V, H]
+    and b [V], all on one CUDA device in one dtype, contiguous, H a
+    multiple of 8, 1 <= k <= min(8, V).  Raises on anything else and on a
+    failed launch."""
+    from show_tell_tpu_torch.ops.build import load_library
+
+    B, H = top.shape
+    V = vocab["w"].shape[0]
+    dtype, device = top.dtype, top.device
+    code = dtype_code("project_topk", dtype)
+    check_widths("project_topk", H=H)
+    if B < 1:
+        raise ValueError("project_topk needs B >= 1")
+    check_tensor("top", top, (B, H), dtype, device)
+    check_tensor("vocab w", vocab["w"], (V, H), dtype, device)
+    check_tensor("vocab b", vocab["b"], (V,), dtype, device)
+    max_splits, part_keys, part_ms, logp, ids = topk_launch_args("project_topk", B, V, k, device)
+    lib = load_library()
+    with torch.cuda.device(device):
+        err = lib.st_project_topk(code, top.data_ptr(), vocab["w"].data_ptr(), vocab["b"].data_ptr(),
+                                  part_keys.data_ptr(), part_ms.data_ptr(), logp.data_ptr(), ids.data_ptr(),
+                                  B, H, V, k, max_splits, stream_arg(device))
+    raise_on_error("project_topk", err)
+    project_topk.launches += 1
+    return logp, ids
+
+
+def project_topk(
+    vocab: Dict[str, torch.Tensor], top: torch.Tensor, k: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each row's k best continuations, (logp [B, k] f32, ids [B, k]
+    int32), as ``stable_topk(log_softmax(top @ w.T + b), k)`` but without a
+    [B, V] logits tensor (counterpart of vocab_pallas.project_topk_pallas).
+    CUDA tensors launch the kernel (and count the launch in
+    ``project_topk.launches``); CPU tensors run the plain twin."""
+    if uses_kernel(top):
+        return project_topk_cuda(vocab, top, k)
+    return project_topk_plain(vocab, top, k)
+
+
+project_topk.launches = 0

@@ -1,21 +1,26 @@
 """Serving API: checkpoint -> captions (counterpart of show_tell_tpu/serve.py,
-the pooled and the soft-attention GRU and LSTM, greedy decode).
+the pooled and the soft-attention GRU and LSTM, greedy and beam decode).
 
     captioner = Captioner.from_checkpoint("output/COCO/model_50.ckpt",
                                           "output/COCO/vocab.pkl", device="gpu")
     captioner = Captioner.from_checkpoint(ckpt, vocab, variant="attn_lstm", embed_dim=512)
-    captions = captioner.caption(images_u8)          # [B,224,224,3] uint8
-    captions = captioner.caption_files(paths)        # JPEG files
+    captions = captioner.caption(images_u8)               # [B,224,224,3] uint8, greedy
+    captions = captioner.caption(images_u8, beam_size=3)  # beam search, width 3
+    captions = captioner.caption_files(paths)             # image files (PIL)
 
-Images are preprocessed on the device; decode is batched greedy, one
-fused-step CUDA kernel launch per token on a GPU (the pooled step, or the
-attention step with its attention, context, recurrence and argmax; each
-with a GRU and an LSTM instance).  ``compute_dtype=
-"bfloat16"`` casts every float32 weight and BN statistic to bf16 (no
-autocast); "float32" is the parity dtype.
+Images are preprocessed on the device.  Greedy decode runs one fused-step
+CUDA kernel launch per token on a GPU (the pooled step, or the attention
+step with its attention, context, recurrence and argmax; each with a GRU
+and an LSTM instance); beam search (``beam_size`` K > 0) runs B x K beam
+rows through the fused step's dense-logits form, one launch per token
+after the first (decode/beam.py).  ``compute_dtype="bfloat16"`` casts
+every float32 weight and BN statistic to bf16 (no autocast); "float32" is
+the parity dtype.  The package reads checkpoints, vocabularies and images
+itself: nothing of the JAX package is imported.
 
 CLI: ``python -m show_tell_tpu_torch.serve --ckpt model.ckpt --vocab
-vocab.pkl [--variant gru|lstm|attn|attn_lstm] [--device cpu|gpu] img1.jpg photos_dir/ ...``
+vocab.pkl [--variant gru|lstm|attn|attn_lstm] [--beam_size K] [--device cpu|gpu]
+img1.jpg photos_dir/ ...``
 """
 
 from __future__ import annotations
@@ -27,13 +32,16 @@ import numpy as np
 import torch
 
 from show_tell_tpu_torch.core.device import DEVICE_CHOICES, resolve_device
+from show_tell_tpu_torch.data.images import load_images
 from show_tell_tpu_torch.data.transforms import preprocess_images
 from show_tell_tpu_torch.models.captioner import (
     CaptionerConfig,
     build_model,
+    captioner_beam_decode,
     captioner_greedy_decode,
     prepare_decode,
 )
+from show_tell_tpu_torch.vocab import load_vocab
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -110,9 +118,9 @@ class Captioner:
         device: Union[str, torch.device] = "gpu",
     ):
         """params, bn_state: the JAX package's trees (numpy arrays).
-        early_exit stops decoding once every row emitted <end> (identical
-        captions).  device: 'cpu', 'gpu' or a torch.device; 'gpu' without
-        CUDA raises."""
+        early_exit stops decoding once every row (beam: every beam)
+        emitted <end> (identical captions).  device: 'cpu', 'gpu' or a
+        torch.device; 'gpu' without CUDA raises."""
         self.cfg = cfg
         self.vocab = vocab
         self.early_exit = early_exit
@@ -120,6 +128,7 @@ class Captioner:
         self.dtype = _DTYPES[compute_dtype]
         self.model = build_model(params, bn_state, cfg, self.dtype, self.device)
         self.prepared = prepare_decode(self.model, self.dtype)
+        # Early exit and beam retirement key on the loaded vocab's own <end> id.
         self.end_idx = vocab.word_to_index[vocab.end_token()]
 
     @classmethod
@@ -138,8 +147,6 @@ class Captioner:
         **cfg_kw,
     ) -> "Captioner":
         """Load a show_tell_tpu pickle checkpoint and its vocab.pkl."""
-        from show_tell_tpu.vocab.vocabulary import load_vocab
-
         vocab = load_vocab(vocab_path)
         cfg_kw.setdefault("start_token", vocab.word_to_index.get(vocab.start_token(), 1))
         cfg = CaptionerConfig(
@@ -149,51 +156,33 @@ class Captioner:
         params, bn_state = load_checkpoint(ckpt_path)
         return cls(params, bn_state, cfg, vocab, compute_dtype, early_exit=early_exit, device=device)
 
-    def caption_ids(self, images_u8: Union[np.ndarray, torch.Tensor]) -> np.ndarray:
-        """uint8 [B,224,224,3] (host numpy or a tensor) -> [B, 25] int32 ids."""
+    def caption_ids(self, images_u8: Union[np.ndarray, torch.Tensor], beam_size: int = 0) -> np.ndarray:
+        """uint8 [B,224,224,3] (host numpy or a tensor) -> [B, 25] int32
+        ids: greedy for beam_size 0, else beam search of that width."""
         images = torch.as_tensor(images_u8).to(self.device, non_blocking=True)
         with torch.inference_mode():
             x = preprocess_images(images, augment=False, dtype=self.dtype)
-            ids = captioner_greedy_decode(
-                self.model, self.cfg, x, self.prepared,
-                end_token=self.end_idx if self.early_exit else None,
-            )
+            if beam_size > 0:
+                ids = captioner_beam_decode(self.model, self.cfg, x, self.prepared, beam_size,
+                                            end_token=self.end_idx, early_exit=self.early_exit)
+            else:
+                ids = captioner_greedy_decode(
+                    self.model, self.cfg, x, self.prepared,
+                    end_token=self.end_idx if self.early_exit else None,
+                )
         return ids.cpu().numpy()
 
-    def caption(self, images_u8) -> List[str]:
+    def caption(self, images_u8, beam_size: int = 0) -> List[str]:
         """uint8 [B,224,224,3] -> caption strings (<end>-truncated)."""
-        words = create_caption_word_format(self.caption_ids(images_u8), self.vocab)
+        words = create_caption_word_format(self.caption_ids(images_u8, beam_size), self.vocab)
         return [" ".join(w) for w in words]
 
     def load_files(self, paths: Sequence[str]) -> np.ndarray:
-        """JPEG file paths -> uint8 [N,224,224,3] (native decoder, PIL for odd files)."""
-        from show_tell_tpu.data.dataset import IMAGE_SIZE
-        from show_tell_tpu.native import fastimage
+        """Image file paths -> uint8 [N,224,224,3] (PIL, data/images.py)."""
+        return load_images(paths)
 
-        if fastimage.is_available():
-            bufs = []
-            for p in paths:
-                with open(p, "rb") as f:
-                    bufs.append(f.read())
-            batch, statuses = fastimage.decode_resize_batch(bufs, IMAGE_SIZE, IMAGE_SIZE)
-            for i, s in enumerate(statuses):
-                if s != 0:
-                    batch[i] = _pil_load(paths[i])
-            return batch
-        return np.stack([_pil_load(p) for p in paths])
-
-    def caption_files(self, paths: Sequence[str]) -> List[str]:
-        return self.caption(self.load_files(paths))
-
-
-def _pil_load(path: str) -> np.ndarray:
-    from PIL import Image
-
-    from show_tell_tpu.data.dataset import IMAGE_SIZE
-
-    with Image.open(path) as img:
-        img = img.convert("RGB").resize((IMAGE_SIZE, IMAGE_SIZE), Image.BILINEAR)
-        return np.asarray(img, dtype=np.uint8)
+    def caption_files(self, paths: Sequence[str], beam_size: int = 0) -> List[str]:
+        return self.caption(self.load_files(paths), beam_size)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
@@ -216,12 +205,14 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     p.add_argument("--num_hidden_units", type=int, default=512)
     p.add_argument("--num_layers", type=int, default=5)
     p.add_argument("--batch_size", type=int, default=64)
+    p.add_argument("--beam_size", type=int, default=0, help="0 = greedy; K > 0 = beam search of width K")
     p.add_argument("--compute_dtype", default="bfloat16", choices=sorted(_DTYPES))
     p.add_argument("--nos_cnn_filters", type=int, default=0,
                    help="attention variants: encoder channels (0 = the backbone's, 2048 for ResNet-50/101/152, "
                         "512 for 18/34)")
     p.add_argument("--attn_dim", type=int, default=512, help="attention variants: attention width (reference 512)")
-    p.add_argument("--early_exit", type=int, default=0, help="stop decoding when every row emitted <end>; identical captions")
+    p.add_argument("--early_exit", type=int, default=0,
+                   help="stop decoding when every row (or beam) emitted <end>; identical captions")
     p.add_argument("--device", default="gpu", choices=DEVICE_CHOICES, help="gpu raises when there is no CUDA device")
     p.add_argument("--json", action="store_true", help='emit {"image": ..., "caption": ...} JSON lines')
     args = p.parse_args(argv)
@@ -255,7 +246,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     B = max(1, args.batch_size)
     for lo in range(0, len(paths), B):
         chunk = paths[lo : lo + B]
-        for path, cap in zip(chunk, captioner.caption_files(chunk)):
+        for path, cap in zip(chunk, captioner.caption_files(chunk, args.beam_size)):
             print(json.dumps({"image": path, "caption": cap}) if args.json else "%s\t%s" % (path, cap))
     return 0
 

@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain twins, on an NVIDIA GPU:
 the pooled fused step and the fused attention step (each with its GRU and
-its LSTM instance), the attention context and the projection + argmax.
+its LSTM instance; greedy, and the beam forms: dense logits, and top-k for
+the pooled step), the attention context, the projection + argmax and the
+projection + top-k.
 
 Marked ``cuda``: each test skips where torch finds no CUDA device (the
 kernels have no CPU or interpret mode).  Run them on the card with
@@ -16,7 +18,10 @@ from show_tell_tpu_torch.ops.attention import attention_context, attention_conte
 from show_tell_tpu_torch.ops.fused_attn import (
     fused_attn_decode_step,
     fused_attn_decode_step_plain,
+    fused_attn_dense_step,
+    fused_attn_dense_step_plain,
     fused_attn_lstm_decode_step,
+    fused_attn_lstm_dense_step,
 )
 from show_tell_tpu_torch.ops.fused_step import (
     fused_gru_decode_step,
@@ -25,8 +30,25 @@ from show_tell_tpu_torch.ops.fused_step import (
     fused_lstm_decode_step,
     fused_lstm_decode_step_plain,
 )
+from show_tell_tpu_torch.ops.fused_beam import (
+    fused_dense_step,
+    fused_dense_step_plain,
+    fused_gru_dense_step,
+    fused_gru_topk_step,
+    fused_lstm_dense_step,
+    fused_lstm_topk_step,
+    fused_topk_step,
+    fused_topk_step_plain,
+)
 from show_tell_tpu_torch.ops.rnn import prepare_rnn_weights
-from show_tell_tpu_torch.ops.vocab import prepare_vocab, project_argmax, project_argmax_plain
+from show_tell_tpu_torch.ops.vocab import (
+    prepare_vocab,
+    project_argmax,
+    project_argmax_plain,
+    project_logits,
+    project_topk,
+    project_topk_plain,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -230,3 +252,128 @@ def test_lstm_wrappers_reject_a_bad_cell_state(cuda):
         fused_lstm_decode_step(stacked, vocab, x, (hs, hs.bfloat16()))
     with pytest.raises(ValueError, match=r"w_ih0 has shape \(72, 16\), expected \(96, 16\)"):  # GRU weights
         fused_lstm_decode_step(_inputs(3, 16, 24, 40, 2, torch.float32, cuda)[0], vocab, x, (hs, hs))
+
+
+# The beam kernels.  Logits and top-k results are held against the plain
+# projection of the kernel's own new top activation, which isolates the
+# f32 summation order: rtol = atol = 1e-4; top-k ids equal on every row
+# whose K+1 best logits are more than 1e-4 apart.  New states against the
+# plain twin's: bf16 as the greedy tests; f32 within 2e-5, as at R=192 the
+# attention step's f32 new_hs, through the softmax-weighted context and
+# five layers, differs from cuBLAS's by up to 1.2e-5 (2 of 491,520 values
+# above 1e-5 on an H100).
+BEAM_TOL = 1e-4
+BEAM_STATE_TOL = {torch.float32: 2e-5, torch.bfloat16: TOL[torch.bfloat16][0]}
+# (R, E, H, V, L): R = B x K beam rows, not all multiples of 8; the last at the flagship widths
+BEAM_SHAPES = [(3, 16, 24, 40, 2), (5, 32, 16, 40, 2), (19, 64, 128, 1001, 3), (192, 256, 512, 9956, 5)]
+
+
+def _state(cell, hs, seed):
+    return (hs, _cell_state(hs, seed)) if cell == "lstm" else hs
+
+
+def _top(state):
+    return (state[0] if isinstance(state, tuple) else state)[-1]
+
+
+def _check_states(got, ref, dtype):
+    tol = BEAM_STATE_TOL[dtype]
+    for g, r in zip(got if isinstance(got, tuple) else (got,), ref if isinstance(ref, tuple) else (ref,)):
+        torch.testing.assert_close(g.float(), r.float(), rtol=tol, atol=tol)
+
+
+def _check_topk(logp, ids, vocab, top, k):
+    """(logp, ids) against the plain top-k of the projection of ``top``."""
+    ref_logp, ref_ids = project_topk_plain(vocab, top, k)
+    torch.testing.assert_close(logp, ref_logp, rtol=BEAM_TOL, atol=BEAM_TOL)
+    best = project_logits(vocab, top).topk(min(k + 1, vocab["w"].shape[0]), dim=-1).values
+    clear = (best[:, :-1] - best[:, 1:]).min(dim=1).values > BEAM_TOL
+    assert torch.equal(ids[clear], ref_ids[clear])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("R,E,H,V,L", BEAM_SHAPES)
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_fused_dense_step_kernel_matches_plain(cuda, cell, dtype, R, E, H, V, L):
+    stacked, vocab, x, hs = _inputs(R, E, H, V, L, dtype, cuda, gates=4 if cell == "lstm" else 3)
+    state = _state(cell, hs, 8)
+    counter = fused_lstm_dense_step if cell == "lstm" else fused_gru_dense_step
+    before = counter.launches
+    logits, new_state = fused_dense_step(stacked, vocab, x, state)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1 and logits.dtype == torch.float32 and tuple(logits.shape) == (R, V)
+    _check_states(new_state, fused_dense_step_plain(stacked, vocab, x, state)[1], dtype)
+    torch.testing.assert_close(logits, project_logits(vocab, _top(new_state)), rtol=BEAM_TOL, atol=BEAM_TOL)
+
+
+@pytest.mark.parametrize("k", [1, 3, 5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("R,E,H,V,L", BEAM_SHAPES)
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_fused_topk_step_kernel_matches_plain(cuda, cell, dtype, R, E, H, V, L, k):
+    stacked, vocab, x, hs = _inputs(R, E, H, V, L, dtype, cuda, seed=k, gates=4 if cell == "lstm" else 3)
+    state = _state(cell, hs, 9)
+    counter = fused_lstm_topk_step if cell == "lstm" else fused_gru_topk_step
+    before = counter.launches
+    (logp, ids), new_state = fused_topk_step(stacked, vocab, x, state, k)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1 and ids.dtype == torch.int32 and tuple(ids.shape) == (R, k)
+    _check_states(new_state, fused_topk_step_plain(stacked, vocab, x, state, k)[1], dtype)
+    _check_topk(logp, ids, vocab, _top(new_state), k)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("R,E,H,A,P,V,L", [(3, 16, 24, 16, 5, 40, 1), (19, 64, 128, 32, 7, 1001, 3),
+                                           (192, 512, 512, 512, 49, 9956, 5)])
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_fused_attn_dense_kernel_matches_plain(cuda, cell, dtype, R, E, H, A, P, V, L):
+    prep, w_emb, hs = _attn_prep(R, E, H, A, P, V, L, dtype, cuda, gates=4 if cell == "lstm" else 3)
+    state = _state(cell, hs, 10)
+    counter = fused_attn_lstm_dense_step if cell == "lstm" else fused_attn_dense_step
+    before = counter.launches
+    logits, new_state = counter(prep, w_emb, state)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1 and tuple(logits.shape) == (R, V)
+    _check_states(new_state, fused_attn_dense_step_plain(prep, w_emb, state)[1], dtype)
+    torch.testing.assert_close(logits, project_logits(prep["vocab"], _top(new_state)), rtol=BEAM_TOL, atol=BEAM_TOL)
+
+
+@pytest.mark.parametrize("k", [1, 3, 5, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("R,H,V", [(3, 24, 40), (5, 512, 9956), (192, 512, 9956), (320, 512, 9956)])
+def test_project_topk_kernel_matches_plain(cuda, dtype, R, H, V, k):
+    prep, _, hs = _attn_prep(R, 8, H, 8, 1, V, 1, dtype, cuda, seed=11)
+    before = project_topk.launches
+    logp, ids = project_topk(prep["vocab"], hs[-1], k)
+    torch.cuda.synchronize()
+    assert project_topk.launches == before + 1
+    _check_topk(logp, ids, prep["vocab"], hs[-1], k)
+
+
+def test_beam_kernels_order_ties_lower_index_first(cuda):
+    """Columns 7 and 900 equal and top in every row: the top-k kernels list
+    7 then 900, the dense kernels give them equal logits."""
+    for cell in ("gru", "lstm"):
+        stacked, vocab, x, hs = _inputs(21, 16, 24, 1000, 2, torch.float32, cuda, seed=12,
+                                        gates=4 if cell == "lstm" else 3)
+        vocab["w"][900] = vocab["w"][7]
+        vocab["b"][7] = vocab["b"][900] = 50.0
+        state = _state(cell, hs, 13)
+        (_, ids), new_state = fused_topk_step(stacked, vocab, x, state, 3)
+        assert ids[:, :2].tolist() == [[7, 900]] * 21
+        assert project_topk(vocab, _top(new_state).contiguous(), 2)[1].tolist() == [[7, 900]] * 21
+        logits, _ = fused_dense_step(stacked, vocab, x, state)
+        assert torch.equal(logits[:, 7], logits[:, 900])
+
+
+def test_beam_wrappers_reject_what_they_do_not_take(cuda):
+    stacked, vocab, x, hs = _inputs(6, 16, 24, 40, 2, torch.float32, cuda)
+    with pytest.raises(ValueError, match="k=9"):
+        fused_topk_step(stacked, vocab, x, hs, 9)
+    with pytest.raises(ValueError, match="k=0"):
+        project_topk(vocab, hs[-1], 0)
+    small = {k: v[:4].contiguous() for k, v in vocab.items()}
+    with pytest.raises(ValueError, match="V=4"):
+        project_topk(small, hs[-1], 5)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_dense_step(stacked, vocab, x, hs.transpose(1, 2).contiguous().transpose(1, 2))

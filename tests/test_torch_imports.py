@@ -1,12 +1,13 @@
-"""The PyTorch port imports no jax.
+"""The PyTorch port imports no jax and nothing of the JAX package.
 
 tests/conftest.py imports jax into every test process, so the import
-check runs in a fresh interpreter."""
+checks run in a fresh interpreter."""
 
 import os
 import re
 import subprocess
 import sys
+import textwrap
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "show_tell_tpu_torch")
@@ -16,7 +17,9 @@ def test_port_imports_without_jax():
     code = (
         "import show_tell_tpu_torch, show_tell_tpu_torch.serve, show_tell_tpu_torch.models.captioner, "
         "show_tell_tpu_torch.ops.fused_step, show_tell_tpu_torch.ops.build, show_tell_tpu_torch.models.attention, "
-        "show_tell_tpu_torch.ops.attention, show_tell_tpu_torch.ops.fused_attn, show_tell_tpu_torch.ops.vocab; "
+        "show_tell_tpu_torch.ops.attention, show_tell_tpu_torch.ops.fused_attn, show_tell_tpu_torch.ops.vocab, "
+        "show_tell_tpu_torch.ops.fused_beam, show_tell_tpu_torch.decode.beam, show_tell_tpu_torch.vocab, "
+        "show_tell_tpu_torch.data.images; "
         "import sys; "
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if m.startswith('jax'))"
     )
@@ -40,3 +43,51 @@ def test_port_sources_never_import_jax():
         smoke = fh.read()
     assert not pattern.search(smoke)
     assert "show_tell_tpu." not in smoke  # nothing of the JAX package either
+
+
+def test_serving_from_a_checkpoint_imports_nothing_of_the_jax_package(tmp_path):
+    """A checkpoint and vocab.pkl written by the JAX package, then
+    ``Captioner.from_checkpoint``, ``caption_files`` (greedy and beam) and
+    the CLI in a fresh interpreter: no ``jax`` and no ``show_tell_tpu``
+    module gets imported on the way."""
+    import jax
+    import numpy as np
+    import optax
+
+    from fixtures import build_mini_coco
+    from show_tell_tpu.models import captioner as jax_captioner
+    from show_tell_tpu.train.checkpoint import create_checkpoint
+    from show_tell_tpu.train.train_step import TrainState
+    from show_tell_tpu.vocab.vocabulary import DatasetVocabulary, save_vocab
+
+    vocab = DatasetVocabulary()
+    for w in ["<pad>", "<start>", "<end>", "<unk>", "a", "dog", "on", "the", "bus"]:
+        vocab.add_new_word(w)
+    cfg = jax_captioner.CaptionerConfig("gru", 18, 16, 24, len(vocab), 1)
+    params, bn_state = jax_captioner.init_captioner(jax.random.PRNGKey(0), cfg)
+    trainable, frozen = jax_captioner.split_trainable(params)
+    state = TrainState(trainable, frozen, bn_state, optax.adam(1e-3).init(trainable), jax.random.PRNGKey(1),
+                       np.int32(0))
+    ckpt = create_checkpoint(state, 1, 0, [], {"output_dir": str(tmp_path)})
+    vocab_path = str(tmp_path / "vocab.pkl")
+    save_vocab(vocab, vocab_path)
+    build_mini_coco(str(tmp_path / "data"))
+    img_dir = str(tmp_path / "data" / "train2014")
+    code = textwrap.dedent("""
+        import os, sys
+        from show_tell_tpu_torch import serve
+        kw = dict(resnet_version=18, embed_dim=16, hidden_dim=24, num_layers=1, compute_dtype="float32")
+        cap = serve.Captioner.from_checkpoint(%r, %r, device="cpu", **kw)
+        paths = sorted(os.path.join(%r, f) for f in os.listdir(%r))[:2]
+        assert len(cap.caption_files(paths)) == len(cap.caption_files(paths, beam_size=2)) == 2
+        assert serve.main(["--ckpt", %r, "--vocab", %r, "--resnet_version", "18", "--embedding_length", "16",
+                           "--num_hidden_units", "24", "--num_layers", "1", "--compute_dtype", "float32",
+                           "--device", "cpu", "--beam_size", "2", paths[0]]) == 0
+        leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "show_tell_tpu"))
+        assert not leaked, leaked
+    """) % (ckpt, vocab_path, img_dir, img_dir, ckpt, vocab_path)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    result = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True,
+                            timeout=300)
+    assert result.returncode == 0, result.stderr
+    assert result.stdout.count("\t") == 1  # the CLI's one path<TAB>caption line
