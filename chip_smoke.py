@@ -18,6 +18,9 @@ Phases, one line each (any failure exits non-zero with no ok line):
      step's dense form (both cells), the projection + top-k; logits and
      top-k against the plain projection of the kernel's own new top
      activation, and top-k ties listed lower index first;
+  3c. input kernels against plain, f32 and bf16: the preprocess (C = 3
+     and 12, B = 1 and 64, and two odd shapes) bit for bit; the fused stem
+     (s2d and RGB layouts, pool on and off, B = 1 and 64) within STEM_TOL;
   4. pooled main paths: a flagship pooled-GRU Captioner (ResNet-101,
      random weights from seed 0, bf16) serves three requests of 64
      images; the fused step must have launched 3 x 25 times and the ids
@@ -26,16 +29,31 @@ Phases, one line each (any failure exits non-zero with no ok line):
      (3 x 24 launches of the dense beam step; ids against a beam decode
      with the plain twins as steps) and one f32 beam request at B=8, and
      the first request's features are decoded by the top-k route and the
-     sparse composite (24 launches each).  The same for a flagship
+     sparse composite (24 launches each).  Every stock request launches
+     the preprocess kernel once, and its greedy ids must equal on every
+     row, bf16 and f32, those of the same kernels fed the plain twin's
+     preprocess.  Then an s2d Captioner of the same weights serves the
+     same pixels (three requests of 64, bf16: 3 stem launches,
+     ids against the stem's twin + the plain step's decode; the pooled GRU
+     also one f32 request of 8, every row equal).  The same for a flagship
      pooled-LSTM Captioner (E=512) and the steps' LSTM instances;
   5. attention main paths: the same for a flagship attention-GRU and an
      attention-LSTM Captioner (spatial ResNet-101, C=2048, E=H=A=512),
      each followed by one composite decode of the same features at B=64
      (25 launches each of the context and projection kernels); beam as
      in 4 (3 x 24 dense-step launches and one context launch a request),
-     and a sparse composite beam decode (25 context, 24 top-k launches);
+     and a sparse composite beam decode (25 context, 24 top-k launches),
+     and the s2d path as in 4;
+  5b. the CLI path: 130 generated JPEGs of COCO's sizes (640 x 480 and
+     the like) captioned by the s2d pooled GRU through caption_paths at
+     B=64 (two full batches and a padded one), overlapped and serial
+     (equal captions), then by serve.main with --s2d 1 --image_cache twice
+     from a checkpoint of the same weights: the same captions, and the
+     second run all cache hits;
   6. times: per-step kernel and plain times, captions/s of each slice,
-     greedy and beam, and the pooled GRU's beam routes side by side.
+     greedy and beam, and the pooled GRU's beam routes side by side; the
+     input kernels against their twins and yardsticks, and the stages of a
+     stock and an s2d request.
 The last lines are the card's name and power limit, a JSON line of the
 kernels, and {"ok": true, "device": {...}}.
 """
@@ -69,8 +87,18 @@ BEAM_RS = ((3, 3), (5, 5), (192, 3), (320, 5))  # (R, K): R = B x K rows for B i
 # cuBLAS's by up to 1.2e-5 (tests/test_torch_cuda.py on the card).
 BEAM_TOL = 1e-4
 BEAM_STATE_TOL = {"float32": 2e-5, "bfloat16": TOL["bfloat16"][0]}
+IMG = 224  # the serving image side
+N_FILES = 130  # the CLI phase: two full batches of 64 and one padded batch of 2
+COCO_SIZES = ((640, 480), (640, 427), (480, 640), (427, 640))  # (width, height): MS-COCO's most common image sizes
+CLI_TURNS = 5  # caption_paths runs in turns, each mode from PIL and from the cache
+# Fused stem against its twin, rtol = atol.  Both sum the 192 taps in f32 in
+# one order; with bf16 weights each product is exact, so each step rounds
+# once in both (the kernel's FMA, the twin's add) and they should agree bit
+# for bit; with f32 weights the twin rounds the products too.
+STEM_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, the published peak
 BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
+SPIN_CYCLES = 2_000_000  # about 1 ms at the H100's 1.98 GHz boost clock: longer than a wrapper's enqueue
 
 
 def fail(msg):
@@ -103,7 +131,11 @@ class SyntheticVocab:
 
 def event_median_ms(fn, iters=30, warmup=5):
     """Median over ``iters`` launches of the device time between CUDA
-    events recorded around each call, after ``warmup`` calls."""
+    events recorded around each call, after ``warmup`` calls.  Each timed
+    call is queued behind a spin of the card (SPIN_CYCLES), so the host has
+    enqueued the events and the call before the card reaches them: the
+    events bracket device work, not the host's wrapper and launch time,
+    which is most of a call that takes tens of microseconds on the card."""
     import torch
 
     for _ in range(warmup):
@@ -111,6 +143,7 @@ def event_median_ms(fn, iters=30, warmup=5):
     pairs = []
     for _ in range(iters):
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         e0.record()
         fn()
         e1.record()
@@ -331,8 +364,11 @@ KERNEL_ROWS = [
     ("fused_attn_dense_step", "fused_attn_step.cu", "show_tell_tpu/ops/fused_attn_pallas.py:353"),
     ("fused_attn_lstm_dense_step", "fused_attn_step.cu", "show_tell_tpu/ops/fused_attn_pallas.py:353"),
     ("project_topk", "project_topk.cu", "show_tell_tpu/ops/vocab_pallas.py:296"),
+    ("preprocess_images", "preprocess.cu", "show_tell_tpu/ops/preprocess_pallas.py:41"),
+    ("stem_fused", "stem.cu", "show_tell_tpu/ops/stem_pallas.py:167"),
 ]
-BEAM_KERNELS = {name for name, _, _ in KERNEL_ROWS[6:]}
+BEAM_KERNELS = {name for name, _, _ in KERNEL_ROWS[6:13]}
+COUNTER_OF = {"preprocess_images": "preprocess_u8"}  # a row's launch counter, where its name differs
 
 
 def check_logits(what, logits, top, vocab):
@@ -447,10 +483,81 @@ def beam_kernels_against_plain(rng, device):
     return errs
 
 
+def u8_images(rng, shape, device):
+    import torch
+
+    return torch.from_numpy(rng.randint(0, 256, shape, dtype="uint8")).to(device)
+
+
+def stem_stub(rng, device):
+    """conv1 and bn1 as prepare_stem reads them: kaiming-scaled weights, BN
+    statistics off the identity so that folding them is exercised."""
+    import types
+
+    import torch
+
+    t = lambda a: torch.from_numpy(a.astype("float32")).to(device)
+    return types.SimpleNamespace(
+        conv1=types.SimpleNamespace(weight=t(rng.randn(64, 3, 7, 7) * (2.0 / (49 * 64)) ** 0.5)),
+        bn1=types.SimpleNamespace(weight=t(rng.uniform(0.5, 1.5, 64)), bias=t(rng.uniform(-0.2, 0.2, 64)),
+                                  running_mean=t(rng.uniform(-0.2, 0.2, 64)), running_var=t(rng.uniform(0.5, 1.5, 64))))
+
+
+def input_kernels_against_plain(rng, device):
+    """Phase 3c.  Returns the bf16 B=64 max_abs_err of the preprocess
+    (stock layout) and the fused stem (s2d layout, pooled)."""
+    import torch
+
+    from show_tell_tpu_torch.ops.preprocess import preprocess_u8_cuda, preprocess_u8_plain
+    from show_tell_tpu_torch.ops.s2d_stem import space_to_depth
+    from show_tell_tpu_torch.ops.stem import prepare_stem, stem_fused_cuda, stem_fused_plain
+
+    errs = {"preprocess_images": 0.0}
+    side = IMG // 2
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = dname(dtype)
+        shapes = ((1, IMG, IMG, 3), (64, IMG, IMG, 3), (1, side, side, 12), (64, side, side, 12), (3, 100, 60, 3),
+                  (3, 50, 30, 12))
+        for shape in shapes:
+            x = u8_images(rng, shape, device)
+            got = preprocess_u8_cuda(x, dtype)
+            torch.cuda.synchronize()
+            ref = preprocess_u8_plain(x, dtype)
+            if not torch.equal(got, ref):
+                fail("preprocess %s %s differs from plain on %d elements, max_abs_err %g (expected bit-equal)"
+                     % (dn, shape, int((got != ref).sum()), (got.float() - ref.float()).abs().max().item()))
+        phase("kernel", "preprocess %s: bit-equal to the plain twin at %s" % (dn, ", ".join(str(sh) for sh in shapes)))
+        prepared = prepare_stem(stem_stub(rng, device), dtype)
+        tol = STEM_TOL[dn]
+        for B in (1, 64):
+            rgb = u8_images(rng, (B, IMG, IMG, 3), device)
+            for layout, x in (("s2d", space_to_depth(rgb).contiguous()), ("rgb", rgb)):
+                for pool in (True, False):
+                    got = stem_fused_cuda(x, prepared, pool)
+                    torch.cuda.synchronize()
+                    ref = stem_fused_plain(x, prepared, pool)
+                    what = "stem %s B=%d %s layout, %s" % (dn, B, layout, "pool" if pool else "no pool")
+                    err = check_states(what, got, ref, dtype, tol)
+                    if dtype == torch.bfloat16 and B == 64 and layout == "rgb" and pool:  # the served input
+                        errs["stem_fused"] = err
+                    phase("kernel", "%s: %s max_abs_err %.3g (rtol atol %g; |plain| <= %.3g); %d of %d values differ"
+                          % (what, tuple(got.shape), err, tol, ref.float().abs().max().item(),
+                             int((got != ref).sum()), got.numel()))
+    return errs
+
+
 def work(name, R, k=K_BEAM):
     """(bytes, operations) that one call of kernel ``name`` at R rows must
     move and do in bf16 at the flagship widths: each input read once, each
     output written once, two operations a multiply-add."""
+    if name == "preprocess_images":  # u8 in, bf16 out; a multiply, a subtract and a divide an element
+        n = R * IMG * IMG * 3
+        return 3 * n, 3 * n
+    if name == "stem_fused":  # u8 image, w (bf16) and t (f32) in, pooled bf16 out
+        # conv1's 7 x 7 x 3 = 147 taps a position: the 192 of the 4 x 4 x 12 s2d form hold 45 structural zeros
+        side = IMG // 2
+        return (R * side * side * 12 + 2 * 192 * 64 + 4 * side * side * 64 + 2 * R * (side // 2) ** 2 * 64,
+                2 * R * side * side * 64 * 147)
     cell = "lstm" if "lstm" in name else "gru"
     G = GATES[cell] * H
     attn = name.startswith("fused_attn")
@@ -545,6 +652,7 @@ def check_f32(label, cap32, imgs, counter, plain_decode, beam_size=0, expected=N
         fail("%s f32 B=%d: %d rows equal the plain decode (< %.3f)" % (label, len(same), int(same.sum()), need))
     phase("main", "%s f32 B=%d (TF32 off): %d of %d rows equal the plain step's decode"
           % (label, len(same), int(same.sum()), len(same)))
+    return ids32
 
 
 def main():
@@ -582,11 +690,14 @@ def main():
     rng = np.random.RandomState(SEED)
     errs = kernels_against_plain(rng, device)
     errs.update(beam_kernels_against_plain(rng, device))
+    errs.update(input_kernels_against_plain(rng, device))
+
+    import torch.nn.functional as F
 
     from show_tell_tpu_torch.data.transforms import preprocess_images
     from show_tell_tpu_torch.decode.beam import attn_beam_search_decode, beam_engine, beam_search_decode, rnn_state_helpers
     from show_tell_tpu_torch.models.attention import init_hidden, last_h, linear_f32, start_embeddings
-    from show_tell_tpu_torch.models.captioner import CaptionerConfig, init_captioner
+    from show_tell_tpu_torch.models.captioner import CaptionerConfig, captioner_greedy_decode, init_captioner
     from show_tell_tpu_torch.models.decoder import greedy_loop
     from show_tell_tpu_torch.models.rnn_cells import init_state
     from show_tell_tpu_torch.ops.attention import (
@@ -625,7 +736,10 @@ def main():
         fused_lstm_decode_step_cuda,
         fused_lstm_decode_step_plain,
     )
+    from show_tell_tpu_torch.ops.preprocess import preprocess_u8, preprocess_u8_cuda, preprocess_u8_plain
     from show_tell_tpu_torch.ops.rnn import stack_plain
+    from show_tell_tpu_torch.ops.s2d_stem import S2D_PAD, space_to_depth, transform_conv1_weight
+    from show_tell_tpu_torch.ops.stem import stem_fused, stem_fused_cuda, stem_fused_plain
     from show_tell_tpu_torch.ops.vocab import (
         project_argmax,
         project_argmax_cuda,
@@ -639,13 +753,52 @@ def main():
 
     counters = [fused_gru_decode_step, fused_lstm_decode_step, fused_attn_decode_step, fused_attn_lstm_decode_step,
                 attention_context, project_argmax, fused_gru_dense_step, fused_lstm_dense_step, fused_gru_topk_step,
-                fused_lstm_topk_step, fused_attn_dense_step, fused_attn_lstm_dense_step, project_topk]
+                fused_lstm_topk_step, fused_attn_dense_step, fused_attn_lstm_dense_step, project_topk, preprocess_u8,
+                stem_fused]
     vocab = SyntheticVocab(V)
     img_rng = np.random.RandomState(SEED + 1)
 
     def features(cap, images_u8):
-        x = preprocess_images(torch.from_numpy(images_u8).to(device), augment=False, dtype=cap.dtype)
-        return cap.model.encoder(x)
+        """The encoder through the plain twins: the preprocess's, or under
+        s2d the fused stem's, then the ResNet (and head) as served."""
+        x = torch.from_numpy(images_u8).to(device)
+        enc = cap.model.encoder
+        if cap.s2d:
+            y = stem_fused_plain(x, enc.stem_operands())
+            return enc.head(enc.resnet.forward_from_stem(y.permute(0, 3, 1, 2)))
+        return enc(preprocess_images(x, augment=False, dtype=cap.dtype))
+
+    def check_plain_preprocess(label, cap, imgs, ids):
+        """The stock path's greedy ids against the same kernels fed the
+        plain twin's preprocess: the preprocess kernel is bit-equal to its
+        twin, so every row must be equal."""
+        with torch.inference_mode():
+            x = preprocess_images(torch.from_numpy(imgs).to(device), augment=False, dtype=cap.dtype)
+            ref = captioner_greedy_decode(cap.model, cap.cfg, x, cap.prepared).cpu().numpy()
+        rows = int((ref == ids).all(axis=1).sum())
+        if rows != len(ids):
+            fail("%s %s B=%d: served ids equal the plain-preprocess decode on %d of %d rows"
+                 % (label, dname(cap.dtype), len(ids), rows, len(ids)))
+        phase("main", "%s %s B=%d: served ids equal the plain-preprocess decode on all %d rows"
+              % (label, dname(cap.dtype), len(ids), len(ids)))
+
+    def s2d_path(label, params, bn_state, cfg, requests, counter, plain_decode, f32_request=False):
+        """The s2d Captioner of the same weights serves the same pixels:
+        three bf16 requests with the counts read around them (the stem
+        once a request, the decode as on the stock path), ids against the
+        stem's twin + the plain step's decode; optionally one f32 request
+        of 8, every row equal."""
+        scap = Captioner(params, bn_state, cfg, vocab, "bfloat16", device="gpu", s2d=True)
+        served, seconds, counts = serve(scap, requests, counters, {counter.__name__: 3 * T, "stem_fused": 3})
+        share = check_served(label + " s2d", served, requests, plain_decode, scap)
+        phase("main", "%s s2d: launches in the three requests %s (stem = 3 x 1)"
+              % (label, {k: v for k, v in counts.items() if v}))
+        show_captions(label + " s2d", served)
+        if f32_request:
+            scap32 = Captioner(params, bn_state, cfg, vocab, "float32", device="gpu", s2d=True)
+            imgs32 = img_rng.randint(0, 256, (8, IMG, IMG, 3), dtype=np.uint8)
+            check_f32(label + " s2d", scap32, imgs32, None, plain_decode, expected={counter: T, stem_fused: 1})
+        return {"seconds": seconds, "counts": counts, "share": share, "cap": scap}
 
     def plain_loop(step, embedding, x0, state0):
         """greedy_loop over a plain step; returns ids and each row's smallest top-2 logit gap."""
@@ -711,12 +864,15 @@ def main():
 
         cap = Captioner(params, bn_state, cfg, vocab, "bfloat16", device="gpu")
         requests = [img_rng.randint(0, 256, (64, 224, 224, 3), dtype=np.uint8) for _ in range(3)]
-        served, seconds, counts = serve(cap, requests, counters, {counter.__name__: 3 * T})
+        served, seconds, counts = serve(cap, requests, counters, {counter.__name__: 3 * T, "preprocess_u8": 3})
         check_served(variant, served, requests, pooled_plain, cap)
-        phase("main", "%s: launches in the three requests %s (fused step = 3 x 25)" % (variant, counts))
+        phase("main", "%s: launches in the three requests %s (fused step = 3 x 25, preprocess = 3 x 1)"
+              % (variant, {k: v for k, v in counts.items() if v}))
         show_captions(variant, served)
+        check_plain_preprocess(variant, cap, requests[0], served[0])
         cap32 = Captioner(params, bn_state, cfg, vocab, "float32", device="gpu")
-        check_f32(variant, cap32, img_rng.randint(0, 256, (8, 224, 224, 3), dtype=np.uint8), counter, pooled_plain)
+        imgs32 = img_rng.randint(0, 256, (8, 224, 224, 3), dtype=np.uint8)
+        check_plain_preprocess(variant, cap32, imgs32, check_f32(variant, cap32, imgs32, counter, pooled_plain))
 
         # beam, width 3: the dense step's instance of this cell, 24 launches a request
         dense = fused_lstm_dense_step if cfg.cell_type == "lstm" else fused_gru_dense_step
@@ -738,7 +894,8 @@ def main():
                 return plain_beam(torch.log_softmax(project_logits(prep["vocab"], top), dim=-1), state1, step,
                                   len(images_u8))
 
-        beam_served, beam_s, beam_counts = serve(cap, requests, counters, {dense.__name__: 3 * (T - 1)}, K_BEAM)
+        beam_served, beam_s, beam_counts = serve(cap, requests, counters,
+                                                 {dense.__name__: 3 * (T - 1), "preprocess_u8": 3}, K_BEAM)
         beam_share = check_served(variant + " beam", beam_served, requests, pooled_beam_plain, cap)
         phase("main", "%s beam: launches in the three requests %s (dense beam step = 3 x 24)"
               % (variant, {k: v for k, v in beam_counts.items() if v}))
@@ -754,8 +911,10 @@ def main():
             ("sparse composite", {"project_topk": T - 1},
              lambda: beam_search_decode(cap.prepared, dcfg, feats, K_BEAM, END, PAD, fused_step=None, sparse=True)),
         ])
-        return {"launches": counts[counter.__name__], "seconds": seconds, "beam_seconds": beam_s,
-                "beam_counts": beam_counts, "routes": routes, "beam_share": beam_share, "cap": cap, "feats": feats}
+        s2d = s2d_path(variant, params, bn_state, cfg, requests, counter, pooled_plain, f32_request=variant == "gru")
+        return {"launches": counts[counter.__name__], "seconds": seconds, "beam_seconds": beam_s, "counts": counts,
+                "beam_counts": beam_counts, "routes": routes, "beam_share": beam_share, "cap": cap, "feats": feats,
+                "requests": requests, "s2d": s2d, "params": (params, bn_state)}
 
     def attention_slice(variant, counter):
         """Phase 5 for one attention family; returns (launches, seconds of the
@@ -780,10 +939,12 @@ def main():
 
         acap = Captioner(params, bn_state, acfg, vocab, "bfloat16", device="gpu")
         requests = [img_rng.randint(0, 256, (64, 224, 224, 3), dtype=np.uint8) for _ in range(3)]
-        served, seconds, counts = serve(acap, requests, counters, {counter.__name__: 3 * T})
+        served, seconds, counts = serve(acap, requests, counters, {counter.__name__: 3 * T, "preprocess_u8": 3})
         check_served(variant, served, requests, attn_plain, acap)
-        phase("main", "%s: launches in the three requests %s (fused attention step = 3 x 25)" % (variant, counts))
+        phase("main", "%s: launches in the three requests %s (fused attention step = 3 x 25, preprocess = 3 x 1)"
+              % (variant, {k: v for k, v in counts.items() if v}))
         show_captions(variant, served)
+        check_plain_preprocess(variant, acap, requests[0], served[0])
 
         # the composite path, called directly: the flagship (H <= 2E) takes the fused step
         with torch.inference_mode():
@@ -817,7 +978,8 @@ def main():
         phase("main", "%s composite bf16 B=64: launches %s; ids equal the plain composite decode on %.4f of "
               "positions" % (variant, comp_counts, share))
         acap32 = Captioner(params, bn_state, acfg, vocab, "float32", device="gpu")
-        check_f32(variant, acap32, img_rng.randint(0, 256, (8, 224, 224, 3), dtype=np.uint8), counter, attn_plain)
+        imgs32 = img_rng.randint(0, 256, (8, 224, 224, 3), dtype=np.uint8)
+        check_plain_preprocess(variant, acap32, imgs32, check_f32(variant, acap32, imgs32, counter, attn_plain))
 
         # beam, width 3: the dense attention step's instance, 24 launches and one context launch a request
         dense = fused_attn_lstm_dense_step if dcfg.cell_type == "lstm" else fused_attn_dense_step
@@ -846,7 +1008,7 @@ def main():
                                   len(images_u8))
 
         beam_served, beam_s, beam_counts = serve(
-            acap, requests, counters, {dense.__name__: 3 * (T - 1), "attention_context": 3}, K_BEAM)
+            acap, requests, counters, {dense.__name__: 3 * (T - 1), "attention_context": 3, "preprocess_u8": 3}, K_BEAM)
         beam_share = check_served(variant + " beam", beam_served, requests, attn_beam_plain, acap)
         phase("main", "%s beam: launches in the three requests %s (dense beam step = 3 x 24, context = 3 x 1)"
               % (variant, {k: v for k, v in beam_counts.items() if v}))
@@ -862,8 +1024,121 @@ def main():
              lambda: attn_beam_search_decode(acap.prepared, acap.model.decoder, dcfg, feats, K_BEAM, acfg.start_token,
                                              END, PAD, fused_step=None, sparse=True)),
         ])
-        return {"launches": counts[counter.__name__], "seconds": seconds, "comp_counts": comp_counts,
-                "beam_seconds": beam_s, "beam_counts": beam_counts, "routes": routes, "beam_share": beam_share}
+        s2d = s2d_path(variant, params, bn_state, acfg, requests, counter, attn_plain)
+        return {"launches": counts[counter.__name__], "seconds": seconds, "comp_counts": comp_counts, "counts": counts,
+                "beam_seconds": beam_s, "beam_counts": beam_counts, "routes": routes, "beam_share": beam_share,
+                "s2d": s2d}
+
+    def cli_path(gru):
+        """Phase 5b: N_FILES generated JPEGs through caption_paths (the s2d
+        pooled GRU, B=64, overlapped then serial) and twice through the CLI
+        with --s2d 1 --image_cache, from a checkpoint of the same weights;
+        then caption_paths timed in turns, and its parts."""
+        import contextlib
+        import io
+        import pickle
+        import shutil
+        import tempfile
+
+        from PIL import Image
+
+        from show_tell_tpu_torch import serve as port_serve
+        from show_tell_tpu_torch.data.serve_cache import ServeImageCache
+        from show_tell_tpu_torch.serve import caption_paths
+        from show_tell_tpu_torch.vocab import DatasetVocabulary
+
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+        try:
+            img_dir = os.path.join(tmp, "images")
+            os.makedirs(img_dir)
+            frng = np.random.RandomState(SEED + 2)
+            for i in range(N_FILES):  # COCO's common sizes: smooth colour fields under grain, saved at quality 90
+                w, h = COCO_SIZES[i % len(COCO_SIZES)]
+                base = Image.fromarray(frng.randint(0, 256, (h // 32, w // 32, 3), dtype=np.uint8))
+                field = np.asarray(base.resize((w, h), Image.BILINEAR), np.float32)
+                grain = frng.normal(0.0, 12.0, (h, w, 3)).astype(np.float32)
+                Image.fromarray(np.clip(field + grain, 0, 255).astype(np.uint8)).save(
+                    os.path.join(img_dir, "img%03d.jpg" % i), quality=90)
+            paths = sorted(os.path.join(img_dir, f) for f in os.listdir(img_dir))
+            jpeg_kb = sum(os.path.getsize(p) for p in paths) / len(paths) / 1024
+            scap = gru["s2d"]["cap"]
+            for fn in counters:
+                fn.launches = 0
+            t0 = time.perf_counter()
+            over = list(caption_paths(scap, paths, 64, overlap=True))
+            t_over = time.perf_counter() - t0
+            counts = read_counts(counters, {"fused_gru_decode_step": 3 * T, "stem_fused": 3})
+            t0 = time.perf_counter()
+            serial = list(caption_paths(scap, paths, 64, overlap=False))
+            t_serial = time.perf_counter() - t0
+            if [p for p, _ in over] != paths or over != serial:
+                fail("caption_paths: the overlapped run's (path, caption) pairs differ from the serial run's")
+            phase("main", "caption_paths, s2d pooled GRU bf16, %d JPEGs of %s pixels (%.1f KiB each on average) at "
+                  "B=64 (3 batches, the last padded from 2): launches %s; overlapped %.3f s, serial %.3f s (host "
+                  "clock, decode and load included); equal captions"
+                  % (N_FILES, "/".join("%dx%d" % wh for wh in COCO_SIZES), jpeg_kb,
+                     {k: v for k, v in counts.items() if v}, t_over, t_serial))
+
+            params, bn_state = gru["params"]
+            ckpt = {"format": "show_tell_tpu_torch", "decoder_state_dict": params["decoder"], "encoder_state_dict": {
+                "frozen": {"resnet": params["encoder"]["resnet"]}, "bn_state": bn_state,
+                "trainable": {k: params["encoder"][k] for k in ("linear_secondlast_layer", "last_layer")}}}
+            ckpt_path, vocab_path = os.path.join(tmp, "model.ckpt"), os.path.join(tmp, "vocab.pkl")
+            pv = DatasetVocabulary()
+            pv.word_to_index, pv.index_to_word, pv.index = dict(vocab.word_to_index), dict(vocab.index_to_word), V
+            with open(ckpt_path, "wb") as f:
+                pickle.dump(ckpt, f)
+            with open(vocab_path, "wb") as f:
+                pickle.dump(pv, f)
+            cache_dir = os.path.join(tmp, "cache")
+            argv = ["--ckpt", ckpt_path, "--vocab", vocab_path, "--s2d", "1", "--image_cache", cache_dir, img_dir]
+            expected = ["%s\t%s" % pair for pair in over]
+            for run, report in enumerate(("0 hits, %d misses" % N_FILES, "%d hits, 0 misses" % N_FILES)):
+                out, err = io.StringIO(), io.StringIO()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+                    rc = port_serve.main(argv)
+                seconds = time.perf_counter() - t0
+                if rc != 0 or report not in err.getvalue():
+                    fail("serve.main run %d: exit %d, expected the cache report %r, stderr %r"
+                         % (run + 1, rc, report, err.getvalue()[-500:]))
+                lines = out.getvalue().splitlines()
+                if lines != expected:
+                    n = sum(a == b for a, b in zip(lines, expected))
+                    fail("serve.main run %d: %d lines, %d equal to caption_paths' %d" % (run + 1, len(lines), n,
+                                                                                       len(expected)))
+                phase("main", "serve.main --s2d 1 --image_cache, run %d: %d captions equal to caption_paths'; %s; "
+                      "%.3f s with the checkpoint load (host clock)" % (run + 1, len(lines), report, seconds))
+
+            # In turns: overlapped and serial runs alternate which goes first, from PIL and from the (now
+            # full) cache; one file alone (a batch of 1); and one batch's load + stage and its captioning
+            # alone, the pipeline's two parts.
+            runs = {}
+            for turn in range(CLI_TURNS):
+                for cached in (False, True):
+                    for overlap in ((True, False) if turn % 2 else (False, True)):
+                        cache = ServeImageCache(cache_dir, IMG) if cached else None
+                        t0 = time.perf_counter()
+                        list(caption_paths(scap, paths, 64, cache=cache, overlap=overlap))
+                        runs.setdefault((cached, overlap), []).append(time.perf_counter() - t0)
+                t0 = time.perf_counter()
+                list(caption_paths(scap, paths[turn : turn + 1], 64))
+                runs.setdefault("one file", []).append(time.perf_counter() - t0)
+            parts = {}
+            for _ in range(3):
+                for name, load in (("load + stage, PIL", lambda: scap.load_files(paths[:64])),
+                                   ("load + stage, cache", lambda: np.stack(
+                                       [ServeImageCache(cache_dir, IMG).get(q) for q in paths[:64]]))):
+                    t0 = time.perf_counter()
+                    staged = scap.stage(load())
+                    torch.cuda.synchronize()
+                    parts.setdefault(name, []).append(time.perf_counter() - t0)
+                t0 = time.perf_counter()
+                scap.caption(staged)
+                parts.setdefault("captioning", []).append(time.perf_counter() - t0)
+            return {"counts": counts, "overlap_s": t_over, "serial_s": t_serial, "runs": runs, "parts": parts}
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
 
     # 4. pooled main paths
     launches, slices = {}, {}
@@ -875,15 +1150,18 @@ def main():
     for variant, counter in (("attn", fused_attn_decode_step), ("attn_lstm", fused_attn_lstm_decode_step)):
         slices[variant] = attention_slice(variant, counter)
         launches[counter.__name__] = slices[variant]["launches"]
+    # 5b. the CLI path
+    cli = cli_path(slices["gru"])
     # every other kernel: its launches over all the main-path runs that launched it
     runs = [sl["beam_counts"] for sl in slices.values()] + [c for sl in slices.values() for c in sl["routes"].values()]
     runs += [slices[v]["comp_counts"] for v in ("attn", "attn_lstm")]
+    runs += [sl["counts"] for sl in slices.values()] + [sl["s2d"]["counts"] for sl in slices.values()] + [cli["counts"]]
     for fn in counters[4:]:
         launches[fn.__name__] = sum(counts[fn.__name__] for counts in runs)
 
     # 6. times (bf16, flagship widths)
     times = {}
-    note = "(median of 30 after 5, CUDA events)"
+    note = "(median of 30 after 5, CUDA events, each call queued behind a 1 ms spin)"
     for name, cell, Ed, cuda_step, plain_step in (
             ("fused_gru_decode_step", "gru", E, fused_gru_decode_step_cuda, fused_gru_decode_step_plain),
             ("fused_lstm_decode_step", "lstm", LE, fused_lstm_decode_step_cuda, fused_lstm_decode_step_plain)):
@@ -975,6 +1253,79 @@ def main():
               "work around the kernel" % (card, Bq, decode_ms, kernel_ms, Bq * K_BEAM,
                                           1e3 * (decode_ms - kernel_ms) / (T - 1)))
 
+    # the input kernels at the serving shape (B=64, bf16), their twins and yardsticks, and request stages
+    library = {}
+    x3 = u8_images(rng, (64, IMG, IMG, 3), device)
+    x12 = space_to_depth(x3).contiguous()
+    bf16 = torch.bfloat16
+    times["preprocess_images", 64] = (event_median_ms(lambda: preprocess_u8_cuda(x3, bf16)),
+                                      event_median_ms(lambda: preprocess_u8_plain(x3, bf16)))
+    pre12 = (event_median_ms(lambda: preprocess_u8_cuda(x12, bf16)), event_median_ms(lambda: preprocess_u8_plain(x12, bf16)))
+    scap = slices["gru"]["s2d"]["cap"]
+    enc = scap.model.encoder
+    res = enc.resnet
+    sprep = enc.stem_operands()  # the flagship's folded conv1 and bn1, bf16
+    # the served layout: RGB as decoded, which the kernel reads through index math
+    times["stem_fused", 64] = (event_median_ms(lambda: stem_fused_cuda(x3, sprep)),
+                               event_median_ms(lambda: stem_fused_plain(x3, sprep)))
+    stem12 = (event_median_ms(lambda: stem_fused_cuda(x12, sprep)), event_median_ms(lambda: stem_fused_plain(x12, sprep)))
+    with torch.inference_mode():
+        mult = res.bn1.weight.float() * torch.rsqrt(res.bn1.running_var.float() + 1e-5)
+        w4f = (transform_conv1_weight(res.conv1.weight.float()) * mult[:, None, None, None]).to(bf16).contiguous(
+            memory_format=torch.channels_last)
+        b4f = (res.bn1.bias.float() - res.bn1.running_mean.float() * mult).to(bf16)
+        xn12 = preprocess_u8_cuda(x12, bf16).permute(0, 3, 1, 2)
+        xn3 = preprocess_u8_cuda(x3, bf16).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        # yardstick: cuDNN's 4x4 conv with the BN-folded weight and bias on the normalized s2d input, relu, pool
+        library["stem_fused"] = event_median_ms(
+            lambda: F.max_pool2d(F.relu(F.conv2d(F.pad(xn12, S2D_PAD), w4f, b4f)), 3, 2, 1))
+        # the encoder's own stem routes (Encoder.stem_u8), each to the post-maxpool activation
+        stem_y = enc.stem_u8(x3, s2d=True)
+        stages = {
+            "stock stem (preprocess kernel + 7x7 conv1 + BN + relu + pool)": event_median_ms(lambda: enc.stem_u8(x3)),
+            "s2d stem, conv route from [64,112,112,12] (preprocess kernel + 4x4 conv1 + BN + relu + pool)":
+                event_median_ms(lambda: enc.stem_u8(x12, s2d=True, stem="conv")),
+            "s2d stem, fused route from RGB (the served route: stem kernel)":
+                event_median_ms(lambda: enc.stem_u8(x3, s2d=True)),
+            "layer1-4 + pooled head from the stem's output": event_median_ms(
+                lambda: enc.head(res.forward_from_stem(stem_y))),
+            "stock encoder from normalized images (conv1 to head)": event_median_ms(
+                lambda: slices["gru"]["cap"].model.encoder(xn3.permute(0, 2, 3, 1))),
+        }
+    pinned = torch.from_numpy(slices["gru"]["requests"][0]).pin_memory()
+    h2d = event_median_ms(lambda: pinned.to(device, non_blocking=True))
+    for name in ("preprocess_images", "stem_fused"):
+        k_ms, p_ms = times[name, 64]
+        phase("times", "%s bf16 %s B=64: kernel %.4f ms, plain %.4f ms, bound %.4f ms (%s), yardstick %s %s"
+              % (card, name, k_ms, p_ms, *bound(name, 64),
+                 "%.4f ms" % library[name] if name in library else "none", note))
+    phase("times", "%s bf16 preprocess B=64, s2d layout [64,112,112,12]: kernel %.4f ms, plain %.4f ms %s"
+          % (card, pre12[0], pre12[1], note))
+    phase("times", "%s bf16 stem_fused B=64, s2d layout [64,112,112,12]: kernel %.4f ms, plain %.4f ms %s"
+          % (card, stem12[0], stem12[1], note))
+    phase("times", "%s stock request stages, pooled GRU, bf16, B=64: host-to-device copy of the uint8 batch from "
+          "pinned memory %.4f ms (not part of the preprocess stage); preprocess stage before (plain chain) %.4f ms, "
+          "after (kernel) %.4f ms %s" % (card, h2d, times["preprocess_images", 64][1],
+                                          times["preprocess_images", 64][0], note))
+    for stage, ms in stages.items():
+        phase("times", "%s request stage, pooled GRU, bf16, B=64: %s %.4f ms %s" % (card, stage, ms, note))
+    for variant in ("gru", "lstm", "attn", "attn_lstm"):
+        sl = slices[variant]
+        phase("times", "%s %s s2d slice, bf16, ResNet-101 + 25 greedy steps: %.1f captions/s at B=64 (3 requests, "
+              "%.3f s), stock slice %.1f captions/s in the same run (host clock to ids on the host); s2d bf16 ids "
+              "equal its plain decode on >= %.4f of positions" % (card, variant, 3 * 64 / sl["s2d"]["seconds"],
+                                                                   sl["s2d"]["seconds"], 3 * 64 / sl["seconds"],
+                                                                   sl["s2d"]["share"]))
+    phase("times", "%s caption_paths, %d COCO-size JPEGs, s2d pooled GRU bf16, B=64: overlapped %.3f s, serial %.3f "
+          "s (host clock, PIL decode included)" % (card, N_FILES, cli["overlap_s"], cli["serial_s"]))
+    spread = lambda xs: "%.4f s [%.4f, %.4f]" % (statistics.median(xs), min(xs), max(xs))
+    phase("times", "%s caption_paths in turns, %d COCO-size JPEGs, B=64, host clock, median [min, max] of %d: from PIL "
+          "overlapped %s, serial %s; from the cache overlapped %s, serial %s; one file from PIL (a batch of 1) %s; "
+          "one batch of 64 alone: %s" % (
+              card, N_FILES, CLI_TURNS, spread(cli["runs"][False, True]), spread(cli["runs"][False, False]),
+              spread(cli["runs"][True, True]), spread(cli["runs"][True, False]), spread(cli["runs"]["one file"]),
+              ", ".join("%s %s" % (k, spread(v)) for k, v in cli["parts"].items())))
+
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "show_tell_tpu"))
     if leaked:
         fail("the port's path imported %s" % leaked[:5])
@@ -989,13 +1340,14 @@ def main():
             "route": "cuda",
             "source": "show_tell_tpu_torch/csrc/" + src,
             "replaces": replaces,
-            "launches": launches[name],
+            "launches": launches[COUNTER_OF.get(name, name)],
             "max_abs_err": errs[name],
             "ms": times[name, rows][0],
             "plain_ms": times[name, rows][1],
             "bound_ms": bound_ms,
             "bound_by": bound_by,
-            "library_ms": None,  # no single torch call computes any of these functions
+            # no single torch call computes any of these functions; the stem's row carries its cuDNN yardstick
+            "library_ms": library.get(name),
             "rows": rows,
         })
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -199,17 +199,29 @@ def prepare_decode(model: CaptionerModel, dtype: torch.dtype) -> Dict[str, objec
     return prepare_greedy(dec.unit.layers(), dec.embeddings.weight, dec.linear.weight, dec.linear.bias, dtype)
 
 
+def encode(model: CaptionerModel, images: torch.Tensor, s2d: bool = False) -> torch.Tensor:
+    """Features of uint8 pixels through the encoder's serving entry
+    (``Encoder.encode_u8``: the preprocess kernel, or under s2d the stem
+    kernel), or of normalized float images through the plain forward."""
+    if images.dtype == torch.uint8:
+        return model.encoder.encode_u8(images, s2d=s2d)
+    return model.encoder(images)
+
+
 def captioner_greedy_decode(
     model: CaptionerModel,
     cfg: CaptionerConfig,
-    images: torch.Tensor,  # [B, 224, 224, 3] normalized float
+    images: torch.Tensor,  # uint8 [B,224,224,3] (s2d: or [B,112,112,12]), or normalized float
     prepared: Optional[Dict[str, object]] = None,
     end_token: Optional[int] = None,
+    s2d: bool = False,
 ) -> torch.Tensor:
     """Eval-mode encode + 25-step batched greedy decode -> [B, 25] int32
-    ids, through the decode kernels on a CUDA device (their plain twins on
-    the CPU).  ``prepared``: ``prepare_decode(model, dtype)``, cached by
-    the caller; built here when absent.
+    ids, through the kernels on a CUDA device (their plain twins on the
+    CPU).  uint8 images enter through ``encode`` (s2d routes the stem);
+    normalized float images skip the preprocess.  ``prepared``:
+    ``prepare_decode(model, dtype)``, cached by the caller; built here when
+    absent.
 
     Dispatch (captioner.py:201-262 in the JAX package): the pooled GRU
     and LSTM run one fused-step launch per token.  Attention runs the
@@ -222,7 +234,7 @@ def captioner_greedy_decode(
     from show_tell_tpu_torch.ops.fused_attn import attn_greedy_decode_fused, fused_attn_fits
     from show_tell_tpu_torch.ops.rnn import greedy_decode_kernel
 
-    feats = model.encoder(images)
+    feats = encode(model, images, s2d)
     if prepared is None:
         prepared = prepare_decode(model, model.decoder.embeddings.weight.dtype)
     if cfg.is_attention:
@@ -235,13 +247,15 @@ def captioner_greedy_decode(
 def captioner_beam_decode(
     model: CaptionerModel,
     cfg: CaptionerConfig,
-    images: torch.Tensor,  # [B, 224, 224, 3] normalized float
+    images: torch.Tensor,  # uint8 [B,224,224,3] (s2d: or [B,112,112,12]), or normalized float
     prepared: Optional[Dict[str, object]] = None,
     beam_size: int = 3,
     end_token: int = 2,
     early_exit: bool = False,
+    s2d: bool = False,
 ) -> torch.Tensor:
-    """Eval-mode encode + batched beam search of width ``beam_size`` ->
+    """Eval-mode encode (``encode``, as in ``captioner_greedy_decode``) +
+    batched beam search of width ``beam_size`` ->
     [B, 25] int32 ids (the best hypothesis of each image; <pad> after its
     <end>), through the beam kernels on a CUDA device (their plain twins on
     the CPU).  The dispatch is show_tell_tpu/serve.py's: the pooled
@@ -251,7 +265,7 @@ def captioner_beam_decode(
     ``end_token``; early_exit stops once all have (identical ids)."""
     from show_tell_tpu_torch.decode.beam import attn_beam_search_decode, beam_search_decode
 
-    feats = model.encoder(images)
+    feats = encode(model, images, s2d)
     if prepared is None:
         prepared = prepare_decode(model, model.decoder.embeddings.weight.dtype)
     if cfg.is_attention:

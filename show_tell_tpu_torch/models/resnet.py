@@ -7,6 +7,12 @@ by.  BatchNorm runs from its running statistics; the final fc layer is
 never created (the reference strips it, cnn.py:34).  Input and output are
 NHWC at the public boundary; inside, activations are channels-last NCHW,
 the layout cuDNN's NHWC convolutions take.
+
+A 12-channel input is the space-to-depth layout (data/transforms.py): conv1
+then runs as the equivalent 4x4/s1 convolution with padding (2, 1), its
+weight rearranged from the 7x7 one (ops/s2d_stem.py).  ``forward_from_stem``
+starts after the stem, from the post-maxpool activation, which the fused
+stem kernel (ops/stem.py) computes straight from uint8 pixels.
 """
 
 from __future__ import annotations
@@ -16,6 +22,8 @@ from typing import Dict, List, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from show_tell_tpu_torch.ops.s2d_stem import S2D_PAD, transform_conv1_weight
 
 BN_EPS = 1e-5
 
@@ -102,10 +110,25 @@ class ResNet(nn.Module):
             self.add_module("layer%d" % (s + 1), nn.Sequential(*blocks))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x [B, H, W, 3] normalized float -> features [B, H/32, W/32, C]."""
+        """x [B, H, W, 3] normalized float, or its s2d layout [B, H/2, W/2,
+        12] -> features [B, H/32, W/32, C]."""
+        return self.forward_from_stem(self.stem(x))
+
+    def stem(self, x: torch.Tensor) -> torch.Tensor:
+        """x as ``forward`` takes it -> conv1, bn1, relu and the maxpool ->
+        [B, 64, H/4, W/4] channels-last."""
         y = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        y = F.relu(self.bn1(self.conv1(y)))
-        y = F.max_pool2d(y, kernel_size=3, stride=2, padding=1)  # implicit -inf padding
+        if y.shape[1] == 12:
+            y = F.conv2d(F.pad(y, S2D_PAD), transform_conv1_weight(self.conv1.weight))
+        else:
+            y = self.conv1(y)
+        y = F.relu(self.bn1(y))
+        return F.max_pool2d(y, kernel_size=3, stride=2, padding=1)  # implicit -inf padding
+
+    def forward_from_stem(self, y: torch.Tensor) -> torch.Tensor:
+        """The post-maxpool activation [B, 64, H/4, W/4] (channels-last, as
+        ``stem.permute(0, 3, 1, 2)`` of an NHWC tensor gives it) -> layer1-4
+        -> features [B, H/32, W/32, C]."""
         for s in range(4):
             y = getattr(self, "layer%d" % (s + 1))(y)
         return y.permute(0, 2, 3, 1)

@@ -159,7 +159,7 @@ def load_library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(build())
-        p, i = ctypes.c_void_p, ctypes.c_int
+        p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
         signatures = {
             "st_fused_gru_step": [i] + [p] * 12 + [i] * 5 + [p],
             "st_fused_lstm_step": [i] + [p] * 14 + [i] * 5 + [p],
@@ -174,6 +174,8 @@ def load_library() -> ctypes.CDLL:
             "st_attention_context": [i] + [p] * 8 + [i] * 5 + [p],
             "st_project_argmax": [i] + [p] * 5 + [i] * 3 + [p],
             "st_project_topk": [i] + [p] * 7 + [i] * 5 + [p],
+            "st_preprocess": [i, p, p, ll] + [f] * 7 + [p],
+            "st_stem": [i] * 3 + [p] * 4 + [i, p],
         }
         for name, argtypes in signatures.items():
             fn = getattr(lib, name)

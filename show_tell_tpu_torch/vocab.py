@@ -4,7 +4,7 @@ own copy of show_tell_tpu/vocab/vocabulary.py's class and reader).
 A vocab.pkl, whether written by the reference or by the JAX package,
 stores a ``vocab_builder.DatasetVocabulary`` instance: the two maps and
 the next index.  ``load_vocab`` reads that class name (and the JAX
-package's own) as ``DatasetVocabulary`` here, and nothing else but
+package's and this module's own) as ``DatasetVocabulary`` here, and nothing else but
 builtin containers, so loading imports no other package.
 """
 
@@ -35,7 +35,8 @@ class DatasetVocabulary(object):
 
 
 class _VocabUnpickler(pickle.Unpickler):
-    _VOCAB_CLASSES = {("vocab_builder", "DatasetVocabulary"), ("show_tell_tpu.vocab.vocabulary", "DatasetVocabulary")}
+    _VOCAB_CLASSES = {("vocab_builder", "DatasetVocabulary"), ("show_tell_tpu.vocab.vocabulary", "DatasetVocabulary"),
+                      ("show_tell_tpu_torch.vocab", "DatasetVocabulary")}
 
     def find_class(self, module: str, name: str):
         if (module, name) in self._VOCAB_CLASSES:

@@ -1,8 +1,8 @@
 """The port's CUDA kernels against their plain twins, on an NVIDIA GPU:
 the pooled fused step and the fused attention step (each with its GRU and
 its LSTM instance; greedy, and the beam forms: dense logits, and top-k for
-the pooled step), the attention context, the projection + argmax and the
-projection + top-k.
+the pooled step), the attention context, the projection + argmax, the
+projection + top-k, the image preprocess and the fused s2d stem.
 
 Marked ``cuda``: each test skips where torch finds no CUDA device (the
 kernels have no CPU or interpret mode).  Run them on the card with
@@ -40,7 +40,10 @@ from show_tell_tpu_torch.ops.fused_beam import (
     fused_topk_step,
     fused_topk_step_plain,
 )
+from show_tell_tpu_torch.ops.preprocess import preprocess_u8, preprocess_u8_plain
 from show_tell_tpu_torch.ops.rnn import prepare_rnn_weights
+from show_tell_tpu_torch.ops.s2d_stem import space_to_depth
+from show_tell_tpu_torch.ops.stem import prepare_stem, stem_fused, stem_fused_plain
 from show_tell_tpu_torch.ops.vocab import (
     prepare_vocab,
     project_argmax,
@@ -377,3 +380,107 @@ def test_beam_wrappers_reject_what_they_do_not_take(cuda):
         project_topk(small, hs[-1], 5)
     with pytest.raises(ValueError, match="contiguous"):
         fused_dense_step(stacked, vocab, x, hs.transpose(1, 2).contiguous().transpose(1, 2))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(1, 224, 224, 3), (64, 224, 224, 3), (1, 112, 112, 12), (64, 112, 112, 12),
+                                   (3, 100, 60, 3), (3, 50, 30, 12), (2, 3, 3, 3)])
+def test_preprocess_kernel_bit_equal_to_plain(cuda, dtype, shape):
+    """The kernel repeats the twin's arithmetic as PyTorch runs it on the
+    card (x * float(1/255), - mean, / std, round to the dtype): bit for
+    bit, at any shape (the last two leave a ragged end of 8 and 6 bytes)."""
+    x = torch.from_numpy(np.random.RandomState(sum(shape)).randint(0, 256, shape, dtype=np.uint8)).to(cuda)
+    before = preprocess_u8.launches
+    got = preprocess_u8(x, dtype)
+    torch.cuda.synchronize()
+    assert preprocess_u8.launches == before + 1 and got.dtype == dtype and got.shape == x.shape
+    assert torch.equal(got, preprocess_u8_plain(x, dtype))
+
+
+def _stem_resnet(device, seed=0):
+    """conv1 and bn1 as prepare_stem reads them, BN off the identity."""
+    import types
+
+    rng = np.random.RandomState(seed)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(device)
+    return types.SimpleNamespace(
+        conv1=types.SimpleNamespace(weight=t(rng.randn(64, 3, 7, 7) * 0.05)),
+        bn1=types.SimpleNamespace(weight=t(rng.uniform(0.5, 1.5, 64)), bias=t(rng.uniform(-0.2, 0.2, 64)),
+                                  running_mean=t(rng.uniform(-0.2, 0.2, 64)), running_var=t(rng.uniform(0.5, 1.5, 64))))
+
+
+@pytest.mark.parametrize("pool", [True, False], ids=["pool", "no_pool"])
+@pytest.mark.parametrize("layout", ["s2d", "rgb"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B", [1, 5])
+def test_stem_kernel_matches_plain(cuda, B, dtype, layout, pool):
+    """Against the twin, which sums the taps in the kernel's order: f32
+    within 1e-4 (the twin rounds each product, the kernel's FMA does not),
+    bf16 bit for bit (each product of a pixel and a bf16 weight is exact
+    in f32)."""
+    torch.backends.cudnn.allow_tf32 = False
+    prepared = prepare_stem(_stem_resnet(cuda), dtype)
+    rgb = torch.from_numpy(np.random.RandomState(B).randint(0, 256, (B, 224, 224, 3), dtype=np.uint8)).to(cuda)
+    x = space_to_depth(rgb).contiguous() if layout == "s2d" else rgb
+    before = stem_fused.launches
+    got = stem_fused(x, prepared, pool)
+    torch.cuda.synchronize()
+    assert stem_fused.launches == before + 1 and got.dtype == dtype
+    ref = stem_fused_plain(x, prepared, pool)
+    assert got.shape == ref.shape == ((B, 56, 56, 64) if pool else (B, 112, 112, 64))
+    if dtype == torch.bfloat16:
+        assert torch.equal(got, ref)
+    else:
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+
+
+def test_stem_and_preprocess_wrappers_reject_what_they_do_not_take(cuda):
+    prepared = prepare_stem(_stem_resnet(cuda), torch.float32)
+    x = torch.zeros(2, 112, 112, 12, dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        stem_fused(x.transpose(1, 2), prepared)
+    with pytest.raises(ValueError, match="stem t"):
+        stem_fused(x, dict(prepared, t=prepared["t"].to(torch.bfloat16)))
+    with pytest.raises(ValueError, match="uint8"):
+        stem_fused(torch.zeros(2, 112, 112, 3, dtype=torch.uint8, device=cuda), prepared)
+    with pytest.raises(ValueError, match="contiguous"):
+        preprocess_u8(torch.zeros(2, 8, 8, 3, dtype=torch.uint8, device=cuda).transpose(1, 2), torch.float32)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        preprocess_u8(torch.zeros(2, 8, 8, 3, dtype=torch.uint8, device=cuda), torch.float16)
+
+
+def test_staged_s2d_batches_on_the_card(cuda, tmp_path):
+    """Captioner.stage copies a host batch through pinned memory on the
+    side stream and hands back the copy's event; a staged batch, a host
+    batch and the same pixels in the s2d layout caption alike (one stem
+    launch a request), and caption_paths, whose worker thread stages
+    batch k+1 while batch k is captioned, equals its serial run."""
+    from PIL import Image
+
+    from show_tell_tpu_torch.data.transforms import host_space_to_depth
+    from show_tell_tpu_torch.models.captioner import CaptionerConfig, init_captioner
+    from show_tell_tpu_torch.serve import Captioner, caption_paths
+    from show_tell_tpu_torch.vocab import DatasetVocabulary
+
+    torch.backends.cudnn.allow_tf32 = False
+    vocab = DatasetVocabulary()
+    for i, w in enumerate(["<pad>", "<start>", "<end>", "<unk>"] + ["w%d" % i for i in range(36)]):
+        vocab.word_to_index[w], vocab.index_to_word[i] = i, w
+    cfg = CaptionerConfig("gru", 18, 16, 24, len(vocab), 1)
+    params, bn_state = init_captioner(cfg, torch.Generator().manual_seed(3))
+    cap = Captioner(params, bn_state, cfg, vocab, "float32", device=cuda, s2d=True)
+    rgb = np.random.RandomState(3).randint(0, 256, (4, 224, 224, 3), dtype=np.uint8)
+    staged = cap.stage(rgb)
+    assert staged.ready is not None and staged.images.device.type == "cuda"
+    before = stem_fused.launches
+    ids = cap.caption_ids(staged)
+    assert stem_fused.launches == before + 1
+    assert np.array_equal(staged.images.cpu().numpy(), rgb)
+    assert np.array_equal(cap.caption_ids(rgb), ids) and np.array_equal(cap.caption_ids(host_space_to_depth(rgb)), ids)
+
+    for i in range(5):
+        Image.fromarray(np.random.RandomState(i).randint(0, 256, (40, 56, 3), dtype=np.uint8)).save(
+            str(tmp_path / ("img%d.jpg" % i)))
+    paths = sorted(str(p) for p in tmp_path.iterdir())
+    out = list(caption_paths(cap, paths, 2))
+    assert [p for p, _ in out] == paths and out == list(caption_paths(cap, paths, 2, overlap=False))
