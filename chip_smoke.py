@@ -5,7 +5,8 @@
 
 Phases, one line each (any failure exits non-zero with no ok line):
   1. device: the card's name and power limit, torch and CUDA versions;
-  2. build: the CUDA kernels from show_tell_tpu_torch/csrc, with nvcc;
+  2. build: the CUDA kernels from show_tell_tpu_torch/csrc, with nvcc, and
+     beside them the grid-barrier probe (grid_barrier_probe.cu);
   3. kernel against plain, at the flagship widths: the pooled fused step,
      GRU (L=5, E=256, H=512, V=9,956; B = 1, 64, 512; and E=1024 > H) and
      LSTM (E=512, same B); the fused attention step, GRU and LSTM (L=5,
@@ -21,6 +22,10 @@ Phases, one line each (any failure exits non-zero with no ok line):
   3c. input kernels against plain, f32 and bf16: the preprocess (C = 3
      and 12, B = 1 and 64, and two odd shapes) bit for bit; the fused stem
      (s2d and RGB layouts, pool on and off, B = 1 and 64) within STEM_TOL;
+  3d. the greedy routes' other kernels, f32 and bf16, B = 1, 64, 512: the
+     whole-decode kernel (all 25 steps in one launch) bit-equal to the
+     per-step kernel's loop and against its twin, with a cross-block tie;
+     the GRU (E=256) and LSTM (E=512) stack steps against their twins;
   4. pooled main paths: a flagship pooled-GRU Captioner (ResNet-101,
      random weights from seed 0, bf16) serves three requests of 64
      images; the fused step must have launched 3 x 25 times and the ids
@@ -36,7 +41,14 @@ Phases, one line each (any failure exits non-zero with no ok line):
      same pixels (three requests of 64, bf16: 3 stem launches,
      ids against the stem's twin + the plain step's decode; the pooled GRU
      also one f32 request of 8, every row equal).  The same for a flagship
-     pooled-LSTM Captioner (E=512) and the steps' LSTM instances;
+     pooled-LSTM Captioner (E=512) and the steps' LSTM instances.  The
+     pooled GRU's three requests are decoded once more from their features
+     by the whole-decode kernel (one launch a request, the served ids);
+     one request of each pooled family goes through the sharded-projection
+     route (captioner_greedy_decode(vocab_sharded=True): 25 stack-step
+     launches, ids against the plain decode); the f32 GRU Captioner's
+     encode, with cuDNN's TF32 flag left at its default, equals an encode
+     with TF32 off and differs from one in TF32;
   5. attention main paths: the same for a flagship attention-GRU and an
      attention-LSTM Captioner (spatial ResNet-101, C=2048, E=H=A=512),
      each followed by one composite decode of the same features at B=64
@@ -49,15 +61,22 @@ Phases, one line each (any failure exits non-zero with no ok line):
      B=64 (two full batches and a padded one), overlapped and serial
      (equal captions), then by serve.main with --s2d 1 --image_cache twice
      from a checkpoint of the same weights: the same captions, and the
-     second run all cache hits;
+     second run all cache hits; then once with --fast_jpeg 1 (the native
+     decoder's scaled decode), captions equal to caption_paths' with it.
+     Which JPEG decoder ran (native libjpeg or PIL), and why, is printed;
   6. times: per-step kernel and plain times, captions/s of each slice,
      greedy and beam, and the pooled GRU's beam routes side by side; the
      input kernels against their twins and yardsticks, and the stages of a
-     stock and an s2d request.
+     stock and an s2d request; the A/B behind whole_decode_default(): the
+     whole-decode kernel against the per-step loop at B = 1, 64, 512, bf16
+     and f32, in turns, median [quartiles] (min, max) and the rounds each
+     route won; the stack steps against one torch.nn.GRU / LSTM call; the
+     cost of a grid barrier at the whole-decode kernel's grid.
 The last lines are the card's name and power limit, a JSON line of the
 kernels, and {"ok": true, "device": {...}}.
 """
 
+import ctypes
 import json
 import os
 import statistics
@@ -90,7 +109,7 @@ BEAM_STATE_TOL = {"float32": 2e-5, "bfloat16": TOL["bfloat16"][0]}
 IMG = 224  # the serving image side
 N_FILES = 130  # the CLI phase: two full batches of 64 and one padded batch of 2
 COCO_SIZES = ((640, 480), (640, 427), (480, 640), (427, 640))  # (width, height): MS-COCO's most common image sizes
-CLI_TURNS = 5  # caption_paths runs in turns, each mode from PIL and from the cache
+CLI_TURNS = 5  # caption_paths runs in turns, each mode decoding the files and from the cache
 # Fused stem against its twin, rtol = atol.  Both sum the 192 taps in f32 in
 # one order; with bf16 weights each product is exact, so each step rounds
 # once in both (the kernel's FMA, the twin's add) and they should agree bit
@@ -99,6 +118,10 @@ STEM_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, the published peak
 BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
 SPIN_CYCLES = 2_000_000  # about 1 ms at the H100's 1.98 GHz boost clock: longer than a wrapper's enqueue
+# about 10 ms: longer than the host work of PyTorch's own RNN call, which issues several kernels a layer
+LIBRARY_SPIN_CYCLES = 10 * SPIN_CYCLES
+AB_ROUNDS, AB_REPS = 10, 5  # whole decode against the per-step loop: rounds in turns, decodes timed together in each
+BARRIERS = 1000  # grid barriers in one timed launch of the barrier probe
 
 
 def fail(msg):
@@ -129,13 +152,14 @@ class SyntheticVocab:
         return "<end>"
 
 
-def event_median_ms(fn, iters=30, warmup=5):
+def event_median_ms(fn, iters=30, warmup=5, spin=SPIN_CYCLES):
     """Median over ``iters`` launches of the device time between CUDA
     events recorded around each call, after ``warmup`` calls.  Each timed
-    call is queued behind a spin of the card (SPIN_CYCLES), so the host has
-    enqueued the events and the call before the card reaches them: the
+    call is queued behind a spin of the card (``spin`` cycles), so the host
+    has enqueued the events and the call before the card reaches them: the
     events bracket device work, not the host's wrapper and launch time,
-    which is most of a call that takes tens of microseconds on the card."""
+    which is most of a call that takes tens of microseconds on the card.
+    A call whose host work outlasts the spin reads that work too."""
     import torch
 
     for _ in range(warmup):
@@ -143,7 +167,7 @@ def event_median_ms(fn, iters=30, warmup=5):
     pairs = []
     for _ in range(iters):
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda._sleep(spin)
         e0.record()
         fn()
         e1.record()
@@ -366,6 +390,9 @@ KERNEL_ROWS = [
     ("project_topk", "project_topk.cu", "show_tell_tpu/ops/vocab_pallas.py:296"),
     ("preprocess_images", "preprocess.cu", "show_tell_tpu/ops/preprocess_pallas.py:41"),
     ("stem_fused", "stem.cu", "show_tell_tpu/ops/stem_pallas.py:167"),
+    ("gru_whole_greedy_decode", "whole_decode.cu", "show_tell_tpu/ops/whole_decode_pallas.py:240"),
+    ("gru_stack_step", "fused_step.cu", "show_tell_tpu/ops/rnn_pallas.py:247"),
+    ("lstm_stack_step", "fused_step.cu", "show_tell_tpu/ops/rnn_pallas.py:221"),
 ]
 BEAM_KERNELS = {name for name, _, _ in KERNEL_ROWS[6:13]}
 COUNTER_OF = {"preprocess_images": "preprocess_u8"}  # a row's launch counter, where its name differs
@@ -546,10 +573,135 @@ def input_kernels_against_plain(rng, device):
     return errs
 
 
-def work(name, R, k=K_BEAM):
+def whole_inputs(rng, B, dtype, device):
+    """The greedy decode's operands at the pooled-GRU flagship widths:
+    prepare_greedy's dict (an N(0, 1) embedding, as the decoder init draws
+    it) and f32 features [B, E]."""
+    import torch
+
+    stacked, vocab, x, _ = step_inputs(rng, B, dtype, device)
+    emb = torch.from_numpy(rng.randn(V, E).astype("float32")).to(device, dtype)
+    return {"stacked": stacked, "vocab": vocab, "embedding": emb}, x.float()
+
+
+def library_rnn(cell, stacked, Ed):
+    """The one PyTorch call that computes a stack step: a torch.nn.GRU or
+    LSTM of L layers (input Ed, hidden H), whose cells are the port's
+    (PyTorch's gate order, both biases), holding the stacked weights."""
+    import torch
+
+    w_hh = stacked["w_hh"]
+    rnn = (torch.nn.LSTM if cell == "lstm" else torch.nn.GRU)(Ed, H, L).to(w_hh.device, w_hh.dtype)
+    with torch.no_grad():
+        for l in range(L):
+            getattr(rnn, "weight_ih_l%d" % l).copy_(stacked["w_ih0"] if l == 0 else stacked["w_ihU"][l - 1])
+            getattr(rnn, "weight_hh_l%d" % l).copy_(w_hh[l])
+            getattr(rnn, "bias_ih_l%d" % l).copy_(stacked["b_ih"][l])
+            getattr(rnn, "bias_hh_l%d" % l).copy_(stacked["b_hh"][l])
+    rnn.flatten_parameters()  # cuDNN's one weight buffer, where cuDNN takes the dtype
+    return rnn
+
+
+def plain_greedy(prepared, feats):
+    """The whole decode's plain twin on the card, step by step: ids [B, T]
+    and each row's smallest top-2 logit gap on its way."""
+    import torch
+
+    from show_tell_tpu_torch.models.decoder import greedy_loop
+    from show_tell_tpu_torch.ops.rnn import gru_stack_plain
+    from show_tell_tpu_torch.ops.vocab import first_max_argmax, project_logits
+
+    emb = prepared["embedding"]
+    gaps = []
+
+    def step(x, hs):
+        top, hs2 = gru_stack_plain(prepared["stacked"], x, hs)
+        logits = project_logits(prepared["vocab"], top)
+        gaps.append(top2_gap(logits))
+        return first_max_argmax(logits), hs2
+
+    hs0 = torch.zeros(L, feats.shape[0], H, dtype=emb.dtype, device=feats.device)
+    ids = greedy_loop(step, emb, feats.to(emb.dtype), hs0, T)
+    return ids, torch.stack(gaps, 1).min(1).values
+
+
+def decode_kernels_against_plain(rng, device):
+    """Phase 3d.  Returns the bf16 B=64 max_abs_err of the whole decode
+    (the largest gap, in the twin's step-0 logits, between the twin's pick
+    and the kernel's) and of the stack steps (their states)."""
+    import torch
+
+    from show_tell_tpu_torch.models.attention import last_h
+    from show_tell_tpu_torch.ops.rnn import (
+        greedy_decode_kernel,
+        gru_stack_plain,
+        gru_stack_step_cuda,
+        lstm_stack_plain,
+        lstm_stack_step_cuda,
+    )
+    from show_tell_tpu_torch.ops.vocab import project_logits
+    from show_tell_tpu_torch.ops.whole_decode import gru_whole_greedy_decode_cuda
+
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn, tol = dname(dtype), TOL[dname(dtype)]
+        for B in (1, 64, 512):
+            prepared, feats = whole_inputs(rng, B, dtype, device)
+            ids = gru_whole_greedy_decode_cuda(prepared, feats, T)
+            torch.cuda.synchronize()
+            loop = greedy_decode_kernel(prepared, feats, T, whole_decode=False)
+            what = "whole decode %s B=%d T=%d" % (dn, B, T)
+            if not torch.equal(ids, loop):
+                fail("%s: ids differ from the per-step kernel's loop on %d of %d rows"
+                     % (what, int((ids != loop).any(1).sum()), B))
+            ref, gaps = plain_greedy(prepared, feats)
+            clear = gaps > tol[1]
+            bad = int(((ids != ref).any(1) & clear).sum())
+            if bad:
+                fail("%s: ids differ from the plain twin's on %d rows whose top-2 gaps all exceed %g" % (what, bad, tol[1]))
+            top0, _ = gru_stack_plain(prepared["stacked"], feats.to(dtype), torch.zeros(L, B, H, dtype=dtype,
+                                                                                         device=device))
+            logits0 = project_logits(prepared["vocab"], top0)
+            rows = torch.arange(B, device=device)
+            err = (logits0[rows, ref[:, 0].long()] - logits0[rows, ids[:, 0].long()]).abs().max().item()
+            if dtype == torch.bfloat16 and B == 64:
+                errs["gru_whole_greedy_decode"] = err
+            phase("kernel", "%s: ids bit-equal to the per-step kernel's loop; equal to the plain twin's on all %d rows "
+                  "whose top-2 gaps all exceed %g (%d rows closer, %d of them equal anyway); step-0 logit gap between "
+                  "the picks %.3g" % (what, int(clear.sum()), tol[1], B - int(clear.sum()),
+                                      int(((ids == ref).all(1) & ~clear).sum()), err))
+        prepared, feats = whole_inputs(rng, 64, dtype, device)
+        prepared["vocab"]["w"][9000] = prepared["vocab"]["w"][7]
+        prepared["vocab"]["b"][7] = prepared["vocab"]["b"][9000] = 100.0
+        toks = [gru_whole_greedy_decode_cuda(prepared, feats, T), greedy_decode_kernel(prepared, feats, T,
+                                                                                        whole_decode=False)]
+        if not all(bool((t == 7).all()) for t in toks):
+            fail("whole decode %s: tie of columns 7 and 9000 not resolved to 7 at every step" % dn)
+        phase("kernel", "whole decode %s: tie between columns 7 and 9000 -> 7 at all 25 steps of all 64 rows, as the "
+              "per-step loop" % dn)
+        for name, cell, Ec, cuda_step, plain_step in (
+                ("gru_stack_step", "gru", E, gru_stack_step_cuda, gru_stack_plain),
+                ("lstm_stack_step", "lstm", LE, lstm_stack_step_cuda, lstm_stack_plain)):
+            for B in (1, 64, 512):
+                stacked, _, x, state = step_inputs(rng, B, dtype, device, Ec, cell)
+                top, new_state = cuda_step(stacked, x, state)
+                torch.cuda.synchronize()
+                _, ref_state = plain_step(stacked, x, state)
+                what = "%s %s B=%d E=%d" % (name, dn, B, Ec)
+                err = check_state(what, new_state, ref_state, dtype)
+                if not torch.equal(top, last_h(new_state)):
+                    fail("%s: the top activation is not new_hs[L-1]" % what)
+                if dtype == torch.bfloat16 and B == 64:
+                    errs[name] = err
+                phase("kernel", "%s: state max_abs_err %.3g (rtol atol %g); top = new_hs[L-1]" % (what, err, tol[0]))
+    return errs
+
+
+def work(name, R, k=K_BEAM, emb_rows=0):
     """(bytes, operations) that one call of kernel ``name`` at R rows must
     move and do in bf16 at the flagship widths: each input read once, each
-    output written once, two operations a multiply-add."""
+    output written once, two operations a multiply-add.  emb_rows: the
+    embedding rows a whole decode fed back (what its data needs)."""
     if name == "preprocess_images":  # u8 in, bf16 out; a multiply, a subtract and a divide an element
         n = R * IMG * IMG * 3
         return 3 * n, 3 * n
@@ -571,16 +723,21 @@ def work(name, R, k=K_BEAM):
         return 2 * (R * H + vocab_el) + end_bytes, vocab_ops
     stack_el = G * I0 + (2 * L - 1) * G * H + 2 * L * G  # w_ih0, w_ihU and w_hh, the biases
     state_el = 2 * (2 if cell == "lstm" else 1) * L * R * H  # hs (and cs), in and out
+    rec_ops = 2 * R * (G * I0 + (2 * L - 1) * G * H)
+    if name.endswith("stack_step"):  # x, the weights, the state in and out
+        return 2 * (R * I0 + stack_el + state_el), rec_ops
+    if name == "gru_whole_greedy_decode":  # features, weights, projection, the rows fed back; T tokens a row out
+        return 2 * (R * I0 + stack_el + vocab_el + emb_rows * I0) + 4 * R * T, T * (rec_ops + vocab_ops)
     x_el = R * AE + R * AP * (AE + AA) + AA * H + 2 * AA + AE if attn else R * I0  # w_emb, feats_e, att1, ... or x
-    ops = 2 * R * (G * I0 + (2 * L - 1) * G * H) + vocab_ops
+    ops = rec_ops + vocab_ops
     if attn:
         ops += 2 * R * (AA * H + AP * AA + AP * AE)  # att2, the scores, the context
     return 2 * (stack_el + state_el + vocab_el + x_el) + end_bytes, ops
 
 
-def bound(name, R):
+def bound(name, R, emb_rows=0):
     """(least ms the card could take for one call, what bounds it)."""
-    nbytes, ops = work(name, R)
+    nbytes, ops = work(name, R, emb_rows=emb_rows)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
@@ -680,24 +837,40 @@ def main():
 
     cached = os.path.isfile(build.library_path())
     t0 = time.perf_counter()
+    # the grid-barrier probe (phase 6) builds beside the library, started first so the two compile together
+    os.makedirs(build.BUILD_DIR, exist_ok=True)
+    probe_so = os.path.join(build.BUILD_DIR, "libgrid_barrier_probe.%d.so" % os.getpid())
+    probe_cmd = [build.find_nvcc(), *build.NVCC_FLAGS, "-shared", "-I", here,
+                 os.path.join(here, "grid_barrier_probe.cu"), "-o", probe_so]
+    probe_proc = subprocess.Popen(probe_cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     build.load_library()
-    phase("build", "%s in %.2f s (%s)" % (os.path.basename(build.library_path()), time.perf_counter() - t0,
-                                          "already built" if cached else "nvcc ran, one process per source"))
+    probe_err = probe_proc.communicate()[1]
+    if probe_proc.returncode != 0:
+        fail("nvcc failed on grid_barrier_probe.cu (exit %d): %s" % (probe_proc.returncode, probe_err))
+    probe = ctypes.CDLL(probe_so)
+    os.remove(probe_so)  # loaded; nothing else reads it
+    probe.st_grid_barriers.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    probe.st_grid_barriers.restype = ctypes.c_int
+    phase("build", "%s and the grid-barrier probe in %.2f s (%s)"
+          % (os.path.basename(build.library_path()), time.perf_counter() - t0,
+             "library already built" if cached else "nvcc ran, one process per source"))
 
-    # 3. kernel against plain
+    # 3. kernel against plain.  cuDNN's TF32 flag stays at its default: the
+    # port scopes it off for f32 encodes, and features() below for its own.
     torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     rng = np.random.RandomState(SEED)
     errs = kernels_against_plain(rng, device)
     errs.update(beam_kernels_against_plain(rng, device))
     errs.update(input_kernels_against_plain(rng, device))
+    errs.update(decode_kernels_against_plain(rng, device))
 
     import torch.nn.functional as F
 
     from show_tell_tpu_torch.data.transforms import preprocess_images
+    from show_tell_tpu_torch.native import fastimage
     from show_tell_tpu_torch.decode.beam import attn_beam_search_decode, beam_engine, beam_search_decode, rnn_state_helpers
     from show_tell_tpu_torch.models.attention import init_hidden, last_h, linear_f32, start_embeddings
-    from show_tell_tpu_torch.models.captioner import CaptionerConfig, captioner_greedy_decode, init_captioner
+    from show_tell_tpu_torch.models.captioner import CaptionerConfig, captioner_greedy_decode, encode, init_captioner
     from show_tell_tpu_torch.models.decoder import greedy_loop
     from show_tell_tpu_torch.models.rnn_cells import init_state
     from show_tell_tpu_torch.ops.attention import (
@@ -737,7 +910,22 @@ def main():
         fused_lstm_decode_step_plain,
     )
     from show_tell_tpu_torch.ops.preprocess import preprocess_u8, preprocess_u8_cuda, preprocess_u8_plain
-    from show_tell_tpu_torch.ops.rnn import stack_plain
+    from show_tell_tpu_torch.ops import dtype_code, raise_on_error, stream_arg, whole_decode_default
+    from show_tell_tpu_torch.ops.rnn import (
+        greedy_decode_kernel,
+        gru_stack_plain,
+        gru_stack_step,
+        gru_stack_step_cuda,
+        lstm_stack_plain,
+        lstm_stack_step,
+        lstm_stack_step_cuda,
+        stack_plain,
+    )
+    from show_tell_tpu_torch.ops.whole_decode import (
+        gru_whole_greedy_decode,
+        gru_whole_greedy_decode_cuda,
+        gru_whole_greedy_decode_plain,
+    )
     from show_tell_tpu_torch.ops.s2d_stem import S2D_PAD, space_to_depth, transform_conv1_weight
     from show_tell_tpu_torch.ops.stem import stem_fused, stem_fused_cuda, stem_fused_plain
     from show_tell_tpu_torch.ops.vocab import (
@@ -754,19 +942,60 @@ def main():
     counters = [fused_gru_decode_step, fused_lstm_decode_step, fused_attn_decode_step, fused_attn_lstm_decode_step,
                 attention_context, project_argmax, fused_gru_dense_step, fused_lstm_dense_step, fused_gru_topk_step,
                 fused_lstm_topk_step, fused_attn_dense_step, fused_attn_lstm_dense_step, project_topk, preprocess_u8,
-                stem_fused]
+                stem_fused, gru_whole_greedy_decode, gru_stack_step, lstm_stack_step]
     vocab = SyntheticVocab(V)
     img_rng = np.random.RandomState(SEED + 1)
+    whole_default = whole_decode_default()
+
+    def greedy_launches(counter, requests):
+        """{kernel counter: launches} of ``requests`` greedy requests of a
+        family whose per-step kernel counts in ``counter``: the pooled GRU
+        takes the whole-decode kernel, once a request, where
+        whole_decode_default() says so; else T steps a request."""
+        if counter is fused_gru_decode_step and whole_default:
+            return {gru_whole_greedy_decode: requests}
+        return {counter: requests * T}
+
+    def by_name(expected):
+        return {fn.__name__: n for fn, n in expected.items()}
 
     def features(cap, images_u8):
         """The encoder through the plain twins: the preprocess's, or under
-        s2d the fused stem's, then the ResNet (and head) as served."""
+        s2d the fused stem's, then the ResNet (and head) as served, its f32
+        convolutions without TF32 (scoped here: the global stays at its
+        default)."""
         x = torch.from_numpy(images_u8).to(device)
         enc = cap.model.encoder
-        if cap.s2d:
-            y = stem_fused_plain(x, enc.stem_operands())
-            return enc.head(enc.resnet.forward_from_stem(y.permute(0, 3, 1, 2)))
-        return enc(preprocess_images(x, augment=False, dtype=cap.dtype))
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            if cap.s2d:
+                y = stem_fused_plain(x, enc.stem_operands())
+                return enc.head(enc.resnet.forward_from_stem(y.permute(0, 3, 1, 2)))
+            return enc(preprocess_images(x, augment=False, dtype=cap.dtype))
+
+    def tf32_check(label, cap32, imgs):
+        """An f32 Captioner's encode, with cuDNN's TF32 flag at its default,
+        against encodes with TF32 scoped off and on: equal to the first
+        within 1e-5 of the largest feature, farther than that from the
+        second; the global flag unchanged."""
+        if not torch.backends.cudnn.allow_tf32:
+            fail("torch.backends.cudnn.allow_tf32 is not at its default (True)")
+        x = torch.from_numpy(imgs).to(device)
+        with torch.inference_mode():
+            served = encode(cap32.model, x)
+            if not torch.backends.cudnn.allow_tf32:
+                fail("%s f32 encode left torch.backends.cudnn.allow_tf32 off" % label)
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+                exact = cap32.model.encoder.encode_u8(x)
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+                tf32 = cap32.model.encoder.encode_u8(x)
+        scale = exact.abs().max().item()
+        e_exact, e_tf32 = ((served - exact).abs().max().item(), (served - tf32).abs().max().item())
+        if e_exact > 1e-5 * scale or e_tf32 <= 1e-5 * scale:
+            fail("%s f32 encode: max_abs_err %g against TF32 off, %g against TF32 on (|features| <= %g; expected "
+                 "<= 1e-5 and > 1e-5 of it)" % (label, e_exact, e_tf32, scale))
+        phase("main", "%s f32 encode B=%d, cudnn.allow_tf32 at its default (True) before and after: max_abs_err %.3g "
+              "against an encode with TF32 off, %.3g against one in TF32 (|features| <= %.4g; limit 1e-5 of it)"
+              % (label, len(imgs), e_exact, e_tf32, scale))
 
     def check_plain_preprocess(label, cap, imgs, ids):
         """The stock path's greedy ids against the same kernels fed the
@@ -789,7 +1018,8 @@ def main():
         stem's twin + the plain step's decode; optionally one f32 request
         of 8, every row equal."""
         scap = Captioner(params, bn_state, cfg, vocab, "bfloat16", device="gpu", s2d=True)
-        served, seconds, counts = serve(scap, requests, counters, {counter.__name__: 3 * T, "stem_fused": 3})
+        served, seconds, counts = serve(scap, requests, counters, dict(by_name(greedy_launches(counter, 3)),
+                                                                        stem_fused=3))
         share = check_served(label + " s2d", served, requests, plain_decode, scap)
         phase("main", "%s s2d: launches in the three requests %s (stem = 3 x 1)"
               % (label, {k: v for k, v in counts.items() if v}))
@@ -797,7 +1027,8 @@ def main():
         if f32_request:
             scap32 = Captioner(params, bn_state, cfg, vocab, "float32", device="gpu", s2d=True)
             imgs32 = img_rng.randint(0, 256, (8, IMG, IMG, 3), dtype=np.uint8)
-            check_f32(label + " s2d", scap32, imgs32, None, plain_decode, expected={counter: T, stem_fused: 1})
+            check_f32(label + " s2d", scap32, imgs32, None, plain_decode,
+                      expected={**greedy_launches(counter, 1), stem_fused: 1})
         return {"seconds": seconds, "counts": counts, "share": share, "cap": scap}
 
     def plain_loop(step, embedding, x0, state0):
@@ -864,15 +1095,51 @@ def main():
 
         cap = Captioner(params, bn_state, cfg, vocab, "bfloat16", device="gpu")
         requests = [img_rng.randint(0, 256, (64, 224, 224, 3), dtype=np.uint8) for _ in range(3)]
-        served, seconds, counts = serve(cap, requests, counters, {counter.__name__: 3 * T, "preprocess_u8": 3})
+        served, seconds, counts = serve(cap, requests, counters,
+                                        dict(by_name(greedy_launches(counter, 3)), preprocess_u8=3))
         check_served(variant, served, requests, pooled_plain, cap)
-        phase("main", "%s: launches in the three requests %s (fused step = 3 x 25, preprocess = 3 x 1)"
-              % (variant, {k: v for k, v in counts.items() if v}))
+        phase("main", "%s: launches in the three requests %s (greedy decode %s, preprocess = 3 x 1)"
+              % (variant, {k: v for k, v in counts.items() if v}, by_name(greedy_launches(counter, 3))))
         show_captions(variant, served)
         check_plain_preprocess(variant, cap, requests[0], served[0])
+        other = {}  # the greedy routes that serving does not take, on the same weights
+        if cfg.cell_type == "gru":  # the three requests' features by the other of the whole decode and the loop
+            with torch.inference_mode():
+                feats3 = [features(cap, imgs) for imgs in requests]
+                for fn in counters:
+                    fn.launches = 0
+                ids3 = [greedy_decode_kernel(cap.prepared, f, T, whole_decode=not whole_default).cpu().numpy()
+                        for f in feats3]
+            other["whole"] = read_counts(counters, by_name(
+                {gru_whole_greedy_decode: 3} if not whole_default else {fused_gru_decode_step: 3 * T}))
+            rows = sum(int((a == b).all(axis=1).sum()) for a, b in zip(ids3, served))
+            if rows != 3 * 64:
+                fail("gru: the %s route's ids equal the served ids on %d of %d rows"
+                     % ("per-step" if whole_default else "whole-decode", rows, 3 * 64))
+            phase("main", "gru bf16 B=64: the three requests' features through greedy_decode_kernel(whole_decode=%s): "
+                  "launches %s; ids equal the served ids on all %d rows"
+                  % (not whole_default, {k: v for k, v in other["whole"].items() if v}, rows))
+        stack_step = lstm_stack_step if cfg.cell_type == "lstm" else gru_stack_step
+        for fn in counters:
+            fn.launches = 0
+        with torch.inference_mode():
+            sharded = captioner_greedy_decode(cap.model, cfg, torch.from_numpy(requests[0]).to(device), cap.prepared,
+                                              vocab_sharded=True).cpu().numpy()
+        other["sharded"] = read_counts(counters, {stack_step.__name__: T, "preprocess_u8": 1})
+        ref_ids, _ = pooled_plain(cap, requests[0])
+        share, share_served = float((sharded == ref_ids).mean()), float((sharded == served[0]).mean())
+        if share < 0.95:
+            fail("%s sharded-projection request: ids equal the plain decode on %.4f of positions (< 0.95)"
+                 % (variant, share))
+        phase("main", "%s bf16 B=64 through captioner_greedy_decode(vocab_sharded=True): launches %s; ids equal the "
+              "plain decode on %.4f of positions, the served (fused-step) ids on %.4f"
+              % (variant, {k: v for k, v in other["sharded"].items() if v}, share, share_served))
         cap32 = Captioner(params, bn_state, cfg, vocab, "float32", device="gpu")
         imgs32 = img_rng.randint(0, 256, (8, 224, 224, 3), dtype=np.uint8)
-        check_plain_preprocess(variant, cap32, imgs32, check_f32(variant, cap32, imgs32, counter, pooled_plain))
+        if cfg.cell_type == "gru":
+            tf32_check(variant, cap32, imgs32)
+        check_plain_preprocess(variant, cap32, imgs32, check_f32(variant, cap32, imgs32, None, pooled_plain,
+                                                                 expected=greedy_launches(counter, 1)))
 
         # beam, width 3: the dense step's instance of this cell, 24 launches a request
         dense = fused_lstm_dense_step if cfg.cell_type == "lstm" else fused_gru_dense_step
@@ -912,7 +1179,7 @@ def main():
              lambda: beam_search_decode(cap.prepared, dcfg, feats, K_BEAM, END, PAD, fused_step=None, sparse=True)),
         ])
         s2d = s2d_path(variant, params, bn_state, cfg, requests, counter, pooled_plain, f32_request=variant == "gru")
-        return {"launches": counts[counter.__name__], "seconds": seconds, "beam_seconds": beam_s, "counts": counts,
+        return {"seconds": seconds, "beam_seconds": beam_s, "counts": counts, "other": other,
                 "beam_counts": beam_counts, "routes": routes, "beam_share": beam_share, "cap": cap, "feats": feats,
                 "requests": requests, "s2d": s2d, "params": (params, bn_state)}
 
@@ -1025,7 +1292,7 @@ def main():
                                              END, PAD, fused_step=None, sparse=True)),
         ])
         s2d = s2d_path(variant, params, bn_state, acfg, requests, counter, attn_plain)
-        return {"launches": counts[counter.__name__], "seconds": seconds, "comp_counts": comp_counts, "counts": counts,
+        return {"seconds": seconds, "comp_counts": comp_counts, "counts": counts, "other": {},
                 "beam_seconds": beam_s, "beam_counts": beam_counts, "routes": routes, "beam_share": beam_share,
                 "s2d": s2d}
 
@@ -1067,7 +1334,7 @@ def main():
             t0 = time.perf_counter()
             over = list(caption_paths(scap, paths, 64, overlap=True))
             t_over = time.perf_counter() - t0
-            counts = read_counts(counters, {"fused_gru_decode_step": 3 * T, "stem_fused": 3})
+            counts = read_counts(counters, dict(by_name(greedy_launches(fused_gru_decode_step, 3)), stem_fused=3))
             t0 = time.perf_counter()
             serial = list(caption_paths(scap, paths, 64, overlap=False))
             t_serial = time.perf_counter() - t0
@@ -1109,9 +1376,24 @@ def main():
                                                                                        len(expected)))
                 phase("main", "serve.main --s2d 1 --image_cache, run %d: %d captions equal to caption_paths'; %s; "
                       "%.3f s with the checkpoint load (host clock)" % (run + 1, len(lines), report, seconds))
+            phase("main", "JPEG decoder of data/images.load_images: %s" % fastimage.status())
+            fast = ["%s\t%s" % pair for pair in caption_paths(scap, paths, 64, fast_jpeg=True)]
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = port_serve.main(["--ckpt", ckpt_path, "--vocab", vocab_path, "--s2d", "1", "--fast_jpeg", "1",
+                                      img_dir])
+            seconds = time.perf_counter() - t0
+            lines = out.getvalue().splitlines()
+            if rc != 0 or lines != fast:
+                fail("serve.main --fast_jpeg 1: exit %d, %d lines, %d equal to caption_paths(fast_jpeg=True)'s %d"
+                     % (rc, len(lines), sum(a == b for a, b in zip(lines, fast)), len(fast)))
+            phase("main", "serve.main --s2d 1 --fast_jpeg 1: %d captions equal to caption_paths(fast_jpeg=True)'s, %d "
+                  "of them equal to the full decode's; %.3f s with the checkpoint load (host clock)"
+                  % (len(lines), sum(a == b for a, b in zip(lines, expected)), seconds))
 
-            # In turns: overlapped and serial runs alternate which goes first, from PIL and from the (now
-            # full) cache; one file alone (a batch of 1); and one batch's load + stage and its captioning
+            # In turns: overlapped and serial runs alternate which goes first, decoding the files and from
+            # the (now full) cache; one file alone (a batch of 1); and one batch's load + stage and its captioning
             # alone, the pipeline's two parts.
             runs = {}
             for turn in range(CLI_TURNS):
@@ -1126,7 +1408,8 @@ def main():
                 runs.setdefault("one file", []).append(time.perf_counter() - t0)
             parts = {}
             for _ in range(3):
-                for name, load in (("load + stage, PIL", lambda: scap.load_files(paths[:64])),
+                for name, load in (("load + stage, decode", lambda: scap.load_files(paths[:64])),
+                                   ("load + stage, decode --fast_jpeg", lambda: scap.load_files(paths[:64], True)),
                                    ("load + stage, cache", lambda: np.stack(
                                        [ServeImageCache(cache_dir, IMG).get(q) for q in paths[:64]]))):
                     t0 = time.perf_counter()
@@ -1141,23 +1424,21 @@ def main():
             shutil.rmtree(tmp, ignore_errors=True)
 
     # 4. pooled main paths
-    launches, slices = {}, {}
+    slices = {}
     for variant, Ed, counter in (("gru", E, fused_gru_decode_step), ("lstm", LE, fused_lstm_decode_step)):
         slices[variant] = pooled_slice(variant, Ed, counter)
-        launches[counter.__name__] = slices[variant]["launches"]
 
     # 5. attention main paths
     for variant, counter in (("attn", fused_attn_decode_step), ("attn_lstm", fused_attn_lstm_decode_step)):
         slices[variant] = attention_slice(variant, counter)
-        launches[counter.__name__] = slices[variant]["launches"]
     # 5b. the CLI path
     cli = cli_path(slices["gru"])
-    # every other kernel: its launches over all the main-path runs that launched it
+    # every kernel: its launches over all the main-path runs, each read just after it ran
     runs = [sl["beam_counts"] for sl in slices.values()] + [c for sl in slices.values() for c in sl["routes"].values()]
     runs += [slices[v]["comp_counts"] for v in ("attn", "attn_lstm")]
+    runs += [c for sl in slices.values() for c in sl["other"].values()]
     runs += [sl["counts"] for sl in slices.values()] + [sl["s2d"]["counts"] for sl in slices.values()] + [cli["counts"]]
-    for fn in counters[4:]:
-        launches[fn.__name__] = sum(counts[fn.__name__] for counts in runs)
+    launches = {fn.__name__: sum(counts[fn.__name__] for counts in runs) for fn in counters}
 
     # 6. times (bf16, flagship widths)
     times = {}
@@ -1199,9 +1480,93 @@ def main():
         h = last_h(state)
         times["project_topk", R] = (event_median_ms(lambda: project_topk_cuda(prep["vocab"], h, K_BEAM)),
                                     event_median_ms(lambda: project_topk_plain(prep["vocab"], h, K_BEAM)))
+    # the sharded-projection route's stack steps, and the whole decode (T=25 steps in one call)
+    whole_rows = {}  # B -> the distinct embedding rows the timed whole decode fed back (its bound's bytes)
+    library = {}  # kernel -> ms of the one PyTorch call that computes its function at the kernels line's shape
+    for B in (1, 64, 512):
+        for name, cell, Ed, cuda_step, plain_step in (("gru_stack_step", "gru", E, gru_stack_step_cuda, gru_stack_plain),
+                                                      ("lstm_stack_step", "lstm", LE, lstm_stack_step_cuda,
+                                                       lstm_stack_plain)):
+            stacked, _, x, state = step_inputs(rng, B, torch.bfloat16, device, Ed, cell)
+            times[name, B] = (event_median_ms(lambda: cuda_step(stacked, x, state)),
+                              event_median_ms(lambda: plain_step(stacked, x, state)))
+            # the library's call: the whole L-layer step as one multi-layer torch.nn.GRU / LSTM call (cuDNN
+            # where it takes bf16), held to the kernel's new state first
+            rnn = library_rnn(cell, stacked, Ed)
+            hx = tuple(state) if cell == "lstm" else state
+            with torch.inference_mode():
+                _, lib_state = rnn(x[None], hx)
+                err = check_state("%s B=%d library call (torch.nn.%s)" % (name, B, cell.upper()), lib_state,
+                                  cuda_step(stacked, x, state)[1], torch.bfloat16)
+                lib_ms = event_median_ms(lambda: rnn(x[None], hx), spin=LIBRARY_SPIN_CYCLES)
+            if B == 64:
+                library[name] = lib_ms
+            phase("times", "%s bf16 %s B=%d: library call torch.nn.%s(%d, %d, num_layers=%d) %.4f ms (cuDNN %s; "
+                  "its state within %.3g of the kernel's) %s"
+                  % (card, name, B, cell.upper(), Ed, H, L, lib_ms,
+                     "accepts bf16" if torch.backends.cudnn.is_acceptable(x) else "refuses bf16: PyTorch's own RNN",
+                     err, note.replace("1 ms spin", "10 ms spin")))
+        prepared, feats = whole_inputs(rng, B, torch.bfloat16, device)
+        toks = gru_whole_greedy_decode_cuda(prepared, feats, T)
+        whole_rows[B] = int(torch.unique(toks[:, :-1]).numel())
+        times["gru_whole_greedy_decode", B] = (
+            event_median_ms(lambda: gru_whole_greedy_decode_cuda(prepared, feats, T), iters=10, warmup=2),
+            event_median_ms(lambda: gru_whole_greedy_decode_plain(prepared, feats, T), iters=5, warmup=1))
     for (name, B), (k_ms, p_ms) in times.items():
         phase("times", "%s bf16 %s %s=%d: kernel %.4f ms, plain %.4f ms, bound %.4f ms (%s) %s"
-              % (card, name, "R" if name in BEAM_KERNELS else "B", B, k_ms, p_ms, *bound(name, B), note))
+              % (card, name, "R" if name in BEAM_KERNELS else "B", B, k_ms, p_ms,
+                 *bound(name, B, whole_rows.get(B, 0)), note))
+    # the A/B behind whole_decode_default(): host clock around whole decodes (the user's wait), in turns.
+    # A route wins a B when it is faster in at least nine tenths of the rounds (each round times both
+    # routes, one after the other) and the medians differ by more than the larger interquartile range.
+    wins = {}  # (dtype name, B) -> "whole", "loop" or None
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = dname(dtype)
+        for B in (1, 64, 512):
+            prepared, feats = whole_inputs(rng, B, dtype, device)
+            decodes = {route: (lambda w=(route == "whole"): greedy_decode_kernel(prepared, feats, T, whole_decode=w))
+                       for route in ("whole", "loop")}
+            for decode in decodes.values():
+                decode()
+            ms = {route: [] for route in decodes}
+            for rnd in range(AB_ROUNDS):
+                for route in (("whole", "loop") if rnd % 2 == 0 else ("loop", "whole")):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(AB_REPS):
+                        decodes[route]()
+                    torch.cuda.synchronize()
+                    ms[route].append(1e3 * (time.perf_counter() - t0) / AB_REPS)
+            (w1, w2, w3), (l1, l2, l3) = statistics.quantiles(ms["whole"], n=4), statistics.quantiles(ms["loop"], n=4)
+            spread, gap = max(w3 - w1, l3 - l1), statistics.median(ms["loop"]) - statistics.median(ms["whole"])
+            whole_won = sum(w < lp for w, lp in zip(ms["whole"], ms["loop"]))
+            loop_won = sum(lp < w for w, lp in zip(ms["whole"], ms["loop"]))
+            need = 0.9 * AB_ROUNDS
+            wins[dn, B] = ("whole" if whole_won >= need and gap > spread else
+                           "loop" if loop_won >= need and -gap > spread else None)
+            phase("times", "%s A/B %s B=%d T=%d, host clock a decode, median [quartiles] (min, max) of %d rounds of %d "
+                  "decodes in turns: whole-decode kernel %.4f ms [%.4f, %.4f] (%.4f, %.4f), per-step loop (25 fused "
+                  "steps + index_select) %.4f ms [%.4f, %.4f] (%.4f, %.4f); loop / whole %.3f; medians %.4f ms apart, "
+                  "spread (larger interquartile range) %.4f ms; whole faster in %d of %d rounds, loop in %d: %s"
+                  % (card, dn, B, T, AB_ROUNDS, AB_REPS, statistics.median(ms["whole"]), w1, w3, min(ms["whole"]),
+                     max(ms["whole"]), statistics.median(ms["loop"]), l1, l3, min(ms["loop"]), max(ms["loop"]),
+                     statistics.median(ms["loop"]) / statistics.median(ms["whole"]), gap, spread, whole_won,
+                     AB_ROUNDS, loop_won, {"whole": "the whole decode wins", "loop": "the loop wins",
+                                           None: "no winner"}[wins[dn, B]]))
+        code = dtype_code("grid barriers", dtype)
+
+        def barriers():
+            raise_on_error("grid barriers", probe.st_grid_barriers(code, L, 64, E, H, BARRIERS, stream_arg(device)))
+
+        per_us = 1e3 * event_median_ms(barriers, iters=10, warmup=2) / BARRIERS
+        phase("times", "%s %s grid barrier at the whole-decode kernel's grid: %.3f us each (%d in one launch); a T=25 "
+              "decode crosses %d, %.4f ms; the B=64 bf16 whole decode takes %.4f ms"
+              % (card, dn, per_us, BARRIERS, T * (L + 2) - 1, per_us * (T * (L + 2) - 1) / 1e3,
+                 times["gru_whole_greedy_decode", 64][0]))
+    # whole_decode_default() is on where the whole decode wins at B=64 bf16 and the loop wins at no B in bf16
+    backed = wins["bfloat16", 64] == "whole" and all(wins["bfloat16", B] != "loop" for B in (1, 64, 512))
+    phase("times", "%s A/B verdict: this run %s whole_decode_default() = %s"
+          % (card, "backs" if backed == whole_default else "does not back", whole_default))
     # composite yardsticks at the serving shapes: cuBLAS bf16 products and torch's own reductions
     w, b = prep["vocab"]["w"], prep["vocab"]["b"]
     h64 = h[:64].contiguous()
@@ -1254,7 +1619,6 @@ def main():
                                           1e3 * (decode_ms - kernel_ms) / (T - 1)))
 
     # the input kernels at the serving shape (B=64, bf16), their twins and yardsticks, and request stages
-    library = {}
     x3 = u8_images(rng, (64, IMG, IMG, 3), device)
     x12 = space_to_depth(x3).contiguous()
     bf16 = torch.bfloat16
@@ -1316,13 +1680,14 @@ def main():
               "equal its plain decode on >= %.4f of positions" % (card, variant, 3 * 64 / sl["s2d"]["seconds"],
                                                                    sl["s2d"]["seconds"], 3 * 64 / sl["seconds"],
                                                                    sl["s2d"]["share"]))
+    decoder = fastimage.status().split(" ")[0]  # native or PIL
     phase("times", "%s caption_paths, %d COCO-size JPEGs, s2d pooled GRU bf16, B=64: overlapped %.3f s, serial %.3f "
-          "s (host clock, PIL decode included)" % (card, N_FILES, cli["overlap_s"], cli["serial_s"]))
+          "s (host clock, %s decode included)" % (card, N_FILES, cli["overlap_s"], cli["serial_s"], decoder))
     spread = lambda xs: "%.4f s [%.4f, %.4f]" % (statistics.median(xs), min(xs), max(xs))
-    phase("times", "%s caption_paths in turns, %d COCO-size JPEGs, B=64, host clock, median [min, max] of %d: from PIL "
-          "overlapped %s, serial %s; from the cache overlapped %s, serial %s; one file from PIL (a batch of 1) %s; "
+    phase("times", "%s caption_paths in turns, %d COCO-size JPEGs, B=64, host clock, median [min, max] of %d: decoded "
+          "(%s) overlapped %s, serial %s; from the cache overlapped %s, serial %s; one file decoded (a batch of 1) %s; "
           "one batch of 64 alone: %s" % (
-              card, N_FILES, CLI_TURNS, spread(cli["runs"][False, True]), spread(cli["runs"][False, False]),
+              card, N_FILES, CLI_TURNS, decoder, spread(cli["runs"][False, True]), spread(cli["runs"][False, False]),
               spread(cli["runs"][True, True]), spread(cli["runs"][True, False]), spread(cli["runs"]["one file"]),
               ", ".join("%s %s" % (k, spread(v)) for k, v in cli["parts"].items())))
 
@@ -1334,7 +1699,7 @@ def main():
     kernels = []
     for name, src, replaces in KERNEL_ROWS:
         rows = 192 if name in BEAM_KERNELS else 64  # the slice's serving shape: B=64, K=3 beam rows
-        bound_ms, bound_by = bound(name, rows)
+        bound_ms, bound_by = bound(name, rows, whole_rows.get(rows, 0))
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -1346,7 +1711,7 @@ def main():
             "plain_ms": times[name, rows][1],
             "bound_ms": bound_ms,
             "bound_by": bound_by,
-            # no single torch call computes any of these functions; the stem's row carries its cuDNN yardstick
+            # the stack steps: one torch.nn.GRU / LSTM call; the stem: its cuDNN yardstick; the rest: no single call
             "library_ms": library.get(name),
             "rows": rows,
         })

@@ -1,9 +1,9 @@
 // Device code shared by the decode kernels (fused_step.cu,
 // fused_attn_step.cu, attention_context.cu, project_argmax.cu,
-// project_topk.cu): 16-byte vector loads, warp reductions, the first-max
-// argmax key, the GRU and LSTM stack layers, the vocab projection with its
-// three ends (first-max argmax, dense f32 logits, top-K with logsumexp),
-// and the cooperative launch.
+// project_topk.cu, whole_decode.cu): 16-byte vector loads, warp
+// reductions, the first-max argmax key, the GRU and LSTM stack layers, the
+// vocab projection with its ends (first-max argmax, dense f32 logits,
+// top-K with logsumexp, or none), and the cooperative launch.
 //
 // Every kernel here runs kThreads threads a block.  Weights are in the torch
 // layout [out, in], so one output column is one contiguous row: a warp owns
@@ -520,8 +520,9 @@ __device__ void project_argmax(const T* top, const T* wv, const T* bv, int B, in
 __device__ __forceinline__ int grid_thread() { return blockIdx.x * kThreads + threadIdx.x; }
 __device__ __forceinline__ int grid_threads() { return gridDim.x * kThreads; }
 
-// The three ends of a decode step's vocab phase, picked at compile time.
-enum VocabMode { kArgmax = 0, kDense = 1, kTopk = 2 };
+// The ends of a decode step's vocab phase, picked at compile time; kNone
+// ends the step after the recurrence (the top activation is new_hs[L-1]).
+enum VocabMode { kArgmax = 0, kDense = 1, kTopk = 2, kNone = 3 };
 
 struct VocabOut {
   int32_t* tok;               // argmax: [B] out
@@ -531,11 +532,14 @@ struct VocabOut {
 };
 
 // The vocab phase after the top activation is complete (a grid barrier
-// before it): argmax tokens, dense logits, or top-K log-probabilities.
+// before it): argmax tokens, dense logits, top-K log-probabilities, or
+// nothing (kNone).
 template <int kMode, typename T>
 __device__ __forceinline__ void vocab_phase(const T* top, const T* wv, const T* bv, int B, int H, int V,
                                             const VocabOut& o, float* xs, cg::grid_group& grid) {
-  if constexpr (kMode == kArgmax) {
+  if constexpr (kMode == kNone) {
+    return;
+  } else if constexpr (kMode == kArgmax) {
     project_argmax<T>(top, wv, bv, B, H, V, o.best, xs);
     grid.sync();
     for (int b = grid_thread(); b < B; b += grid_threads()) o.tok[b] = key_index(o.best[b]);

@@ -1,7 +1,8 @@
 // One decode step of the pooled captioner in one kernel launch: the L-layer
 // GRU or LSTM recurrence, then the H x V vocab projection with one of three
 // ends: the first-max argmax (greedy), the dense f32 logits (beam, dense)
-// or each row's top-K log-probabilities (beam, sparse).
+// or each row's top-K log-probabilities (beam, sparse); or the recurrence
+// alone (the stack step, whose caller projects the top activation itself).
 //
 // Replaces, one kernel templated on the cell (GruCell, LstmCell in
 // decode_common.cuh) and the vocab end (VocabMode):
@@ -10,7 +11,10 @@
 //   show_tell_tpu/ops/fused_beam_pallas.py::fused_dense_step_pallas
 //     (st_fused_gru_dense_step, st_fused_lstm_dense_step);
 //   show_tell_tpu/ops/fused_beam_pallas.py::fused_topk_step_pallas
-//     (st_fused_gru_topk_step, st_fused_lstm_topk_step).
+//     (st_fused_gru_topk_step, st_fused_lstm_topk_step);
+//   show_tell_tpu/ops/rnn_pallas.py::gru_stack_step_pallas (_gru_stack_kernel;
+//     st_gru_stack_step) and ::lstm_stack_step_pallas (_lstm_stack_kernel;
+//     st_lstm_stack_step), the kNone end: the sharded-projection route.
 //
 //   x_0 = x [B, E]; for l in 0..L-1:
 //     h'_l (, c'_l) = Cell(x_l, h_l (, c_l); w_ih_l, w_hh[l], b_ih[l], b_hh[l]);  x_{l+1} = h'_l
@@ -37,6 +41,9 @@
 // At small batches the step is bound by those bytes; each weight row is
 // read once per batch tile of kBM rows, so at large batches it turns into
 // an f32 SIMT FMA loop (no tensor cores in this version).
+// The stack step (kNone) reads the recurrence weights alone: 14.9 MB (GRU,
+// E=256) and 21.0 MB (LSTM, E=512) in bf16, plus [L, B, H] states in and
+// out; its bound is those bytes, 4.5 and 6.3 us at 3.35 TB/s at small B.
 // The design (device code in decode_common.cuh):
 //   * weights are kept in the torch layout [out, in] so that one output
 //     column is one contiguous row: a warp owns a column (its G gate rows)
@@ -87,7 +94,7 @@ __global__ void __launch_bounds__(kThreads) fused_step_kernel(Params p) {
     for (int b = grid_thread(); b < s.B; b += grid_threads()) p.out.best[b] = 0ull;  // below every packed key
   for (int l = 0; l < s.L; ++l) {
     stack_layer<T, Cell>(s, l, smem);
-    grid.sync();  // layer l's h' is complete in new_hs
+    if (kMode != kNone || l + 1 < s.L) grid.sync();  // layer l's h' is complete in new_hs
   }
   const T* top = static_cast<const T*>(s.new_hs) + static_cast<size_t>(s.L - 1) * s.B * s.H;
   vocab_phase<kMode, T>(top, static_cast<const T*>(p.wv), static_cast<const T*>(p.bv), s.B, s.H, p.V, p.out, smem,
@@ -194,5 +201,25 @@ extern "C" int st_fused_lstm_topk_step(int dtype, const void* x, const void* w_i
       dtype,
       Params{{x, w_ih0, w_ihU, w_hh, b_ih, b_hh, hs, cs, new_hs, new_cs, L, B, E, H}, wv, bv,
              topk_out(part_keys, part_ms, logp, ids, K, max_splits), V},
+      stream);
+}
+
+// The stack step: the recurrence alone, new_hs (and new_cs) out; the top
+// activation is new_hs[L-1].
+extern "C" int st_gru_stack_step(int dtype, const void* x, const void* w_ih0, const void* w_ihU, const void* w_hh,
+                                 const void* b_ih, const void* b_hh, const void* hs, void* new_hs, int L, int B, int E,
+                                 int H, void* stream) {
+  return run<GruCell, kNone>(
+      dtype, Params{{x, w_ih0, w_ihU, w_hh, b_ih, b_hh, hs, nullptr, new_hs, nullptr, L, B, E, H}, nullptr, nullptr,
+                    VocabOut{}, 0},
+      stream);
+}
+
+extern "C" int st_lstm_stack_step(int dtype, const void* x, const void* w_ih0, const void* w_ihU, const void* w_hh,
+                                  const void* b_ih, const void* b_hh, const void* hs, const void* cs, void* new_hs,
+                                  void* new_cs, int L, int B, int E, int H, void* stream) {
+  return run<LstmCell, kNone>(
+      dtype, Params{{x, w_ih0, w_ihU, w_hh, b_ih, b_hh, hs, cs, new_hs, new_cs, L, B, E, H}, nullptr, nullptr,
+                    VocabOut{}, 0},
       stream);
 }

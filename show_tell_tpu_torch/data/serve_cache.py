@@ -2,8 +2,8 @@
 port's own copy of show_tell_tpu/data/serve_cache.py).
 
 One ``.npy`` per image, keyed by a hash of (absolute path, file size,
-mtime_ns, image size, decode mode), so a replaced image file decodes
-anew and unrelated serve runs can share one directory.  Writes are atomic
+mtime_ns, image size, fast_jpeg), the JAX package's key, so a replaced
+image file decodes anew and unrelated serve runs can share one directory.  Writes are atomic
 (a temporary file, then a rename), so concurrent serve processes can
 share it too; a duplicated decode is the worst a race costs.  An entry
 that does not load as the expected uint8 [size, size, 3] counts as a miss
@@ -20,14 +20,15 @@ from typing import Optional
 
 import numpy as np
 
-DECODE_MODE = "pil"  # data/images.py: PIL, RGB, bilinear resize
-
 
 class ServeImageCache:
-    def __init__(self, cache_dir: str, image_size: int):
+    def __init__(self, cache_dir: str, image_size: int, fast_jpeg: bool = False):
+        """fast_jpeg: the entries are (to be) decoded with the native
+        decoder's scaled decode (data/images.load_images)."""
         os.makedirs(cache_dir, exist_ok=True)
         self.dir = cache_dir
         self.image_size = image_size
+        self.fast_jpeg = bool(fast_jpeg)
         self.hits = 0
         self.misses = 0
 
@@ -36,7 +37,7 @@ class ServeImageCache:
             st = os.stat(path)
         except OSError:
             return None
-        ident = "%s|%d|%d|%d|%s" % (os.path.abspath(path), st.st_size, st.st_mtime_ns, self.image_size, DECODE_MODE)
+        ident = "%s|%d|%d|%d|%d" % (os.path.abspath(path), st.st_size, st.st_mtime_ns, self.image_size, self.fast_jpeg)
         return hashlib.sha1(ident.encode()).hexdigest()
 
     def get(self, path: str) -> Optional[np.ndarray]:

@@ -11,6 +11,7 @@ All four families of the reference, greedy and beam serving:
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
@@ -199,13 +200,29 @@ def prepare_decode(model: CaptionerModel, dtype: torch.dtype) -> Dict[str, objec
     return prepare_greedy(dec.unit.layers(), dec.embeddings.weight, dec.linear.weight, dec.linear.bias, dtype)
 
 
+def exact_f32_convs(weight: torch.Tensor):
+    """A context in which cuDNN runs the convolutions of ``weight``'s model
+    in full f32 where that is its dtype on a GPU.  cuDNN takes f32
+    convolutions in TF32 by default (``torch.backends.cudnn.allow_tf32``),
+    which keeps about three decimal digits: neither the JAX package's f32
+    nor the reference's.  Scoped: the global flags are as the caller left
+    them outside it.  bf16 and the CPU run as they are."""
+    if weight.dtype != torch.float32 or weight.device.type != "cuda":
+        return contextlib.nullcontext()
+    cudnn = torch.backends.cudnn
+    return cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark, benchmark_limit=None,
+                       deterministic=cudnn.deterministic, allow_tf32=False)
+
+
 def encode(model: CaptionerModel, images: torch.Tensor, s2d: bool = False) -> torch.Tensor:
     """Features of uint8 pixels through the encoder's serving entry
     (``Encoder.encode_u8``: the preprocess kernel, or under s2d the stem
-    kernel), or of normalized float images through the plain forward."""
-    if images.dtype == torch.uint8:
-        return model.encoder.encode_u8(images, s2d=s2d)
-    return model.encoder(images)
+    kernel), or of normalized float images through the plain forward; an
+    f32 model's convolutions in full f32 (``exact_f32_convs``)."""
+    with exact_f32_convs(model.encoder.resnet.conv1.weight):
+        if images.dtype == torch.uint8:
+            return model.encoder.encode_u8(images, s2d=s2d)
+        return model.encoder(images)
 
 
 def captioner_greedy_decode(
@@ -215,6 +232,7 @@ def captioner_greedy_decode(
     prepared: Optional[Dict[str, object]] = None,
     end_token: Optional[int] = None,
     s2d: bool = False,
+    vocab_sharded: bool = False,
 ) -> torch.Tensor:
     """Eval-mode encode + 25-step batched greedy decode -> [B, 25] int32
     ids, through the kernels on a CUDA device (their plain twins on the
@@ -223,8 +241,12 @@ def captioner_greedy_decode(
     ``prepare_decode(model, dtype)``, cached by the caller; built here when
     absent.
 
-    Dispatch (captioner.py:201-262 in the JAX package): the pooled GRU
-    and LSTM run one fused-step launch per token.  Attention runs the
+    Dispatch (captioner.py:160-262 in the JAX package): the pooled GRU
+    and LSTM take ``greedy_decode_kernel``: one fused-step launch per token
+    (or the whole-decode kernel where ``whole_decode_default()`` says so),
+    and under ``vocab_sharded`` the stack-step kernel with the projection
+    outside it (the route of a sharded projection; the attention families
+    do not read it).  Attention runs the
     fused attention step (its GRU or LSTM instance) when H <= 2E
     (``fused_attn_fits``), else the composite path: the attention context
     kernel, plain embed and recurrence products, and the projection +
@@ -241,7 +263,8 @@ def captioner_greedy_decode(
         fused = fused_attn_fits(cfg.hidden_dim, cfg.embed_dim)
         decode = attn_greedy_decode_fused if fused else attn_greedy_decode_composite
         return decode(prepared, model.decoder, cfg.decoder_config(), feats, cfg.start_token, end_token=end_token)
-    return greedy_decode_kernel(prepared, feats, cfg.max_caption_length, end_token=end_token)
+    return greedy_decode_kernel(prepared, feats, cfg.max_caption_length, end_token=end_token,
+                                vocab_sharded=vocab_sharded)
 
 
 def captioner_beam_decode(

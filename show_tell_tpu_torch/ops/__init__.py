@@ -62,3 +62,35 @@ def stream_arg(device: torch.device) -> ctypes.c_void_p:
 def raise_on_error(kernel: str, err: int) -> None:
     if err != 0:
         raise RuntimeError("%s kernel failed with cudaError_t %d" % (kernel, err))
+
+
+def whole_decode_default() -> bool:
+    """Whether ``greedy_decode_kernel`` takes the whole-decode kernel
+    (ops/whole_decode.py: all T greedy GRU steps in one launch) when the
+    caller does not say; the counterpart of
+    show_tell_tpu/ops/__init__.py::pallas_whole_decode_default.
+
+    On, by an A/B on an NVIDIA H100 80GB HBM3 at its 700 W power limit
+    (chip_smoke.py phase 6: host clock a T=25 pooled-GRU decode, ten
+    rounds of five decodes in turns against 25 fused-step launches with
+    index_select between them; ids bit-equal).  The rule: on when at
+    B=64 bf16 the whole decode is faster in at least 9 of 10 rounds and
+    the medians differ by more than the larger interquartile range, and
+    the loop wins so at none of B = 1, 64, 512.  The run that set it, with
+    the rule fixed before it, had the whole decode faster in 10 of 10 rounds
+    at every B, bf16 and f32: 0.9717 against 1.9152 ms at B=1, 10.6069
+    against 10.7170 ms at B=64 (medians 0.1101 ms apart, spread
+    0.0195 ms), 81.4852 against 81.8421 ms at B=512; f32 1.62x, 1.021x,
+    1.016x.  Of the four earlier runs, which printed ranges only, or
+    quartiles without counting rounds, the second had one whole-decode
+    round of 13.54 ms at B=64 and so no win by min-max ranges; the rule
+    moved to quartiles after it.
+
+    What it saves is the host's work between steps: the loop waits on it
+    at B=1 and hides it behind the device at B >= 64, where the kernel's
+    extra grid barrier a step (1.6 us) eats most of the saving.  Whether
+    the 1% at B=64 shows in captions/s is not verified: three host-clock
+    requests spread more than that.  The TPU kernel's 0.99x and 0.82x
+    (off there) do not carry over.  Early exit, the LSTM and the sharded
+    projection keep the per-step loop."""
+    return True

@@ -56,54 +56,61 @@ def check_stack(kernel: str, stacked: Dict[str, torch.Tensor], I0: int, hs: torc
         check_tensor(key, stacked[key], (L, GH), hs.dtype, hs.device)
 
 
-def launch_fused_step(kernel: str, stacked, vocab, x, state: State, end: Union[str, int]):
+def launch_fused_step(kernel: str, stacked, vocab, x, state: State, end: Union[str, int, None]):
     """Check, allocate and launch one instance of the fused step kernel:
     the cell by the state (hs: GRU, (hs, cs): LSTM), the vocab end by
-    ``end``: "argmax" (tok [B] int32), "dense" (logits [B, V] f32) or a top-k
-    width k (logp [B, k] f32, ids [B, k] int32).  Returns (the end's
-    output, new state)."""
+    ``end``: "argmax" (tok [B] int32), "dense" (logits [B, V] f32), a top-k
+    width k (logp [B, k] f32, ids [B, k] int32), or None, the stack step
+    (the top activation [B, H], a view of new_hs[L-1]; ``vocab`` is not
+    read).  Returns (the end's output, new state)."""
     from show_tell_tpu_torch.ops.build import load_library
 
     lstm = isinstance(state, tuple)
     hs, cs = state if lstm else (state, None)
     L, B, H = hs.shape
     E = x.shape[-1]
-    V = vocab["w"].shape[0]
     dtype, device = hs.dtype, hs.device
     code = dtype_code(kernel, dtype)
-    if V < 1:
-        raise ValueError("%s needs V >= 1" % kernel)
     check_stack(kernel, stacked, E, hs, 4 if lstm else 3)
     if lstm:
         check_tensor("cs", cs, (L, B, H), dtype, device)
     check_tensor("x", x, (B, E), dtype, device)
-    check_tensor("vocab w", vocab["w"], (V, H), dtype, device)
-    check_tensor("vocab b", vocab["b"], (V,), dtype, device)
+    ints = [L, B, E, H]
+    vocab_ptrs = []
+    if end is not None:
+        V = vocab["w"].shape[0]
+        if V < 1:
+            raise ValueError("%s needs V >= 1" % kernel)
+        check_tensor("vocab w", vocab["w"], (V, H), dtype, device)
+        check_tensor("vocab b", vocab["b"], (V,), dtype, device)
+        ints.append(V)
+        vocab_ptrs = [vocab["w"].data_ptr(), vocab["b"].data_ptr()]
     new_hs = torch.empty_like(hs)
     new_cs = torch.empty_like(cs) if lstm else None
-    ints = [L, B, E, H, V]
-    if end == "argmax":
+    if end is None:
+        out, ptrs, entry_name = new_hs[L - 1], [], "st_%s_stack_step"
+    elif end == "argmax":
         out = torch.empty(B, dtype=torch.int32, device=device)
         best = torch.empty(B, dtype=torch.int64, device=device)
-        ptrs, name = [out.data_ptr(), best.data_ptr()], "step"
+        ptrs, entry_name = [out.data_ptr(), best.data_ptr()], "st_fused_%s_step"
     elif end == "dense":
         out = torch.empty(B, V, dtype=torch.float32, device=device)
-        ptrs, name = [out.data_ptr()], "dense_step"
+        ptrs, entry_name = [out.data_ptr()], "st_fused_%s_dense_step"
     else:
         max_splits, part_keys, part_ms, logp, ids = topk_launch_args(kernel, B, V, end, device)
         out = (logp, ids)
         ptrs = [part_keys.data_ptr(), part_ms.data_ptr(), logp.data_ptr(), ids.data_ptr()]
         ints += [end, max_splits]
-        name = "topk_step"
+        entry_name = "st_fused_%s_topk_step"
     lib = load_library()
-    entry = getattr(lib, "st_fused_%s_%s" % ("lstm" if lstm else "gru", name))
+    entry = getattr(lib, entry_name % ("lstm" if lstm else "gru"))
     state_in = [hs.data_ptr(), cs.data_ptr()] if lstm else [hs.data_ptr()]
     state_out = [new_hs.data_ptr(), new_cs.data_ptr()] if lstm else [new_hs.data_ptr()]
     with torch.cuda.device(device):
         err = entry(
             code, x.data_ptr(), stacked["w_ih0"].data_ptr(), stacked["w_ihU"].data_ptr(),
             stacked["w_hh"].data_ptr(), stacked["b_ih"].data_ptr(), stacked["b_hh"].data_ptr(), *state_in,
-            vocab["w"].data_ptr(), vocab["b"].data_ptr(), *state_out, *ptrs, *ints, stream_arg(device),
+            *vocab_ptrs, *state_out, *ptrs, *ints, stream_arg(device),
         )
     raise_on_error(kernel, err)
     return out, ((new_hs, new_cs) if lstm else new_hs)

@@ -1,4 +1,5 @@
-"""GRU and LSTM decode math and the greedy loop over the fused step kernel
+"""GRU and LSTM decode math, the stack-step kernels (the recurrence alone,
+csrc/fused_step.cu) and the greedy decode's routes over the step kernels
 (counterpart of show_tell_tpu/ops/rnn_pallas.py).
 
 Weights stay in the torch layout [G*H, in] (G = 3 gates for the GRU, 4
@@ -15,6 +16,8 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Tuple, Union
 
 import torch
+
+from show_tell_tpu_torch.ops import uses_kernel
 
 LstmState = Tuple[torch.Tensor, torch.Tensor]  # (hs, cs), each [L, B, H]
 State = Union[torch.Tensor, LstmState]  # hs, or the LSTM's (hs, cs)
@@ -112,6 +115,55 @@ def stack_plain(cell_type: str):
     return lstm_stack_plain if cell_type == "lstm" else gru_stack_plain
 
 
+def gru_stack_step_cuda(stacked, x, hs) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the GRU stack-step kernel (csrc/fused_step.cu, the kNone end)
+    on the current stream: the fused step's checks, no vocab operands.
+    Raises on anything it does not take and on a failed launch."""
+    from show_tell_tpu_torch.ops.fused_step import launch_fused_step
+
+    out = launch_fused_step("gru_stack_step", stacked, None, x, hs, None)
+    gru_stack_step.launches += 1
+    return out
+
+
+def lstm_stack_step_cuda(stacked, x, state: LstmState) -> Tuple[torch.Tensor, LstmState]:
+    """Launch the LSTM stack-step kernel; the GRU kernel's rules, with cs
+    [L, B, H] held like hs."""
+    from show_tell_tpu_torch.ops.fused_step import launch_fused_step
+
+    out = launch_fused_step("lstm_stack_step", stacked, None, x, state, None)
+    lstm_stack_step.launches += 1
+    return out
+
+
+def gru_stack_step(
+    stacked: Dict[str, torch.Tensor], x: torch.Tensor, hs: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One step of the L-layer GRU stack (counterpart of
+    rnn_pallas.gru_stack_step_pallas): x [B, I0], hs [L, B, H] -> (top
+    [B, H], new_hs [L, B, H]).  CUDA tensors launch the kernel (and count
+    the launch in ``gru_stack_step.launches``); CPU tensors run
+    ``gru_stack_plain``."""
+    if uses_kernel(hs):
+        return gru_stack_step_cuda(stacked, x, hs)
+    return gru_stack_plain(stacked, x, hs)
+
+
+def lstm_stack_step(
+    stacked: Dict[str, torch.Tensor], x: torch.Tensor, state: LstmState
+) -> Tuple[torch.Tensor, LstmState]:
+    """The LSTM stack step (counterpart of rnn_pallas.lstm_stack_step_pallas):
+    (hs, cs) -> (top [B, H], (new_hs, new_cs)).  CUDA tensors launch the
+    kernel (``lstm_stack_step.launches``); CPU tensors run ``lstm_stack_plain``."""
+    if uses_kernel(state[0]):
+        return lstm_stack_step_cuda(stacked, x, state)
+    return lstm_stack_plain(stacked, x, state)
+
+
+gru_stack_step.launches = 0
+lstm_stack_step.launches = 0
+
+
 def prepare_greedy(
     layers: List[Dict[str, torch.Tensor]],
     embedding: torch.Tensor,  # [V, E]
@@ -138,25 +190,52 @@ def greedy_decode_kernel(
     feats: torch.Tensor,  # [B, E] image features
     max_len: int,
     end_token: Optional[int] = None,
+    whole_decode: Optional[bool] = None,
+    vocab_sharded: bool = False,
 ) -> torch.Tensor:
-    """Greedy decode, one fused-step launch per token (counterpart of
-    rnn_pallas.greedy_decode_pallas): ``tok, state = fused_{gru,lstm}_decode_step``
-    by the stacked weights' gate count, then ``x = embedding[tok]``.  The
-    state starts at zeros in the compute dtype, hs and (LSTM) cs alike.
-    Returns [B, max_len] int32 ids.  end_token: stop once every row
-    emitted it (<pad> after it)."""
+    """Greedy decode (counterpart of rnn_pallas.greedy_decode_pallas), by
+    the stacked weights' gate count; returns [B, max_len] int32 ids.
+
+    Routes, as the JAX package dispatches them:
+      * the whole-decode kernel (ops/whole_decode.py), one launch for all
+        max_len steps, when ``whole_decode`` (None: ``whole_decode_default()``),
+        ``end_token`` is None, the cell is the GRU and the projection is
+        not sharded;
+      * ``vocab_sharded``: per token the stack-step kernel, the projection
+        ``top @ w.T + b`` in f32 outside any kernel and the first-max
+        argmax (the JAX package leaves that product to XLA);
+      * otherwise one fused-step launch per token
+        (``fused_{gru,lstm}_decode_step``).
+    The per-token routes feed back ``x = embedding[tok]`` from a zero state
+    in the compute dtype, hs and (LSTM) cs alike.  end_token: stop once
+    every row emitted it (<pad> after it)."""
     from show_tell_tpu_torch.models.decoder import greedy_loop
     from show_tell_tpu_torch.models.rnn_cells import init_state
+    from show_tell_tpu_torch.ops import whole_decode_default
     from show_tell_tpu_torch.ops.fused_step import fused_gru_decode_step, fused_lstm_decode_step
+    from show_tell_tpu_torch.ops.vocab import first_max_argmax, project_logits
+    from show_tell_tpu_torch.ops.whole_decode import gru_whole_greedy_decode
 
     stacked, vocab, embedding = prepared["stacked"], prepared["vocab"], prepared["embedding"]
     L, GH, H = stacked["w_hh"].shape
     cell = "lstm" if GH == 4 * H else "gru"
+    if whole_decode is None:
+        whole_decode = whole_decode_default()
+    if whole_decode and end_token is None and cell == "gru" and not vocab_sharded:
+        return gru_whole_greedy_decode(prepared, feats, max_len)
     x0 = feats.to(embedding.dtype).contiguous()
     state0 = init_state(cell, L, feats.shape[0], H, embedding.dtype, feats.device)
-    fused = fused_lstm_decode_step if cell == "lstm" else fused_gru_decode_step
+    if vocab_sharded:
+        stack = lstm_stack_step if cell == "lstm" else gru_stack_step
 
-    def step(x, state):
-        return fused(stacked, vocab, x, state)
+        def step(x, state):
+            top, state2 = stack(stacked, x, state)
+            return first_max_argmax(project_logits(vocab, top)), state2
+
+    else:
+        fused = fused_lstm_decode_step if cell == "lstm" else fused_gru_decode_step
+
+        def step(x, state):
+            return fused(stacked, vocab, x, state)
 
     return greedy_loop(step, embedding, x0, state0, max_len, end_token)

@@ -6,7 +6,7 @@ the pooled and the soft-attention GRU and LSTM, greedy and beam decode).
     captioner = Captioner.from_checkpoint(ckpt, vocab, variant="attn_lstm", embed_dim=512)
     captions = captioner.caption(images_u8)               # [B,224,224,3] uint8, greedy
     captions = captioner.caption(images_u8, beam_size=3)  # beam search, width 3
-    captions = captioner.caption_files(paths)             # image files (PIL)
+    captions = captioner.caption_files(paths)             # image files (native libjpeg, else PIL)
     captioner = Captioner.from_checkpoint(ckpt, vocab, s2d=True)  # the space-to-depth input path
     for path, caption in caption_paths(captioner, paths, 64, cache=ServeImageCache(dir, 224)): ...
 
@@ -19,16 +19,19 @@ stream, and ``caption_paths`` stages batch k+1 on a worker thread while
 batch k is captioned.  Greedy decode runs one fused-step
 CUDA kernel launch per token on a GPU (the pooled step, or the attention
 step with its attention, context, recurrence and argmax; each with a GRU
-and an LSTM instance); beam search (``beam_size`` K > 0) runs B x K beam
+and an LSTM instance), and the pooled GRU's fixed-length decode one
+whole-decode launch for all its tokens (``ops.whole_decode_default()``);
+beam search (``beam_size`` K > 0) runs B x K beam
 rows through the fused step's dense-logits form, one launch per token
 after the first (decode/beam.py).  ``compute_dtype="bfloat16"`` casts
 every float32 weight and BN statistic to bf16 (no autocast); "float32" is
-the parity dtype.  The package reads checkpoints, vocabularies and images
-itself: nothing of the JAX package is imported.
+the parity dtype, its convolutions in full f32 (no TF32).  The package
+reads checkpoints, vocabularies and images itself (its own copy of the
+native JPEG decoder): nothing of the JAX package is imported.
 
 CLI: ``python -m show_tell_tpu_torch.serve --ckpt model.ckpt --vocab
 vocab.pkl [--variant gru|lstm|attn|attn_lstm] [--beam_size K] [--s2d 1]
-[--image_cache DIR] [--device cpu|gpu] img1.jpg photos_dir/ ...``
+[--fast_jpeg 1] [--image_cache DIR] [--device cpu|gpu] img1.jpg photos_dir/ ...``
 """
 
 from __future__ import annotations
@@ -223,23 +226,27 @@ class Captioner:
         words = create_caption_word_format(self.caption_ids(images_u8, beam_size), self.vocab)
         return [" ".join(w) for w in words]
 
-    def load_files(self, paths: Sequence[str]) -> np.ndarray:
-        """Image file paths -> uint8 [N,224,224,3] (PIL, data/images.py)."""
-        return load_images(paths)
+    def load_files(self, paths: Sequence[str], fast_jpeg: bool = False) -> np.ndarray:
+        """Image file paths -> uint8 [N,224,224,3] (data/images.py: the
+        native decoder, PIL for the files it rejects).  fast_jpeg: its
+        DCT-domain scaled decode, about 2x faster on the host, pixels
+        within a few LSB of the full decode."""
+        return load_images(paths, fast_jpeg)
 
-    def caption_files(self, paths: Sequence[str], beam_size: int = 0) -> List[str]:
-        return self.caption(self.load_files(paths), beam_size)
+    def caption_files(self, paths: Sequence[str], beam_size: int = 0, fast_jpeg: bool = False) -> List[str]:
+        return self.caption(self.load_files(paths, fast_jpeg), beam_size)
 
 
-def _load_with_cache(captioner: Captioner, paths: Sequence[str], cache: Optional[ServeImageCache]) -> np.ndarray:
+def _load_with_cache(captioner: Captioner, paths: Sequence[str], cache: Optional[ServeImageCache],
+                     fast_jpeg: bool = False) -> np.ndarray:
     """``load_files`` through an optional ServeImageCache: cached rows
     come from their .npy, only the misses are decoded (and cached)."""
     if cache is None:
-        return captioner.load_files(paths)
+        return captioner.load_files(paths, fast_jpeg)
     out = [cache.get(p) for p in paths]
     miss = [i for i, a in enumerate(out) if a is None]
     if miss:
-        decoded = captioner.load_files([paths[i] for i in miss])
+        decoded = captioner.load_files([paths[i] for i in miss], fast_jpeg)
         for j, i in enumerate(miss):
             out[i] = decoded[j]
             cache.put(paths[i], decoded[j])
@@ -253,6 +260,7 @@ def caption_paths(
     beam_size: int = 0,
     cache: Optional[ServeImageCache] = None,
     overlap: bool = True,
+    fast_jpeg: bool = False,
 ) -> Iterator[Tuple[str, str]]:
     """Caption image files in batches of ``batch_size``, yielding (path,
     caption) in order.  Fewer files than ``batch_size`` make one batch of
@@ -260,14 +268,15 @@ def caption_paths(
     last image and the outputs sliced, so every batch has one shape.
     overlap loads and stages batch k+1 on one worker thread while batch k
     is captioned; False runs each batch's load, copy and captioning in
-    turn."""
+    turn.  fast_jpeg: the scaled JPEG decode (``Captioner.load_files``);
+    a cache should be keyed with the same flag."""
     if not paths:
         return
     B = min(batch_size, len(paths))
     chunks = [paths[lo : lo + B] for lo in range(0, len(paths), B)]
 
     def load(chunk):
-        imgs = _load_with_cache(captioner, chunk, cache)
+        imgs = _load_with_cache(captioner, chunk, cache, fast_jpeg)
         if len(chunk) < B:  # pad decoded pixels, not paths
             imgs = np.concatenate([imgs, np.repeat(imgs[-1:], B - len(chunk), axis=0)])
         return captioner.stage(imgs)
@@ -318,9 +327,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                    help="stop decoding when every row (or beam) emitted <end>; identical captions")
     p.add_argument("--s2d", type=int, default=0,
                    help="serve the space-to-depth input path: the fused stem kernel from the decoded pixels")
+    p.add_argument("--fast_jpeg", type=int, default=0, help="DCT-domain scaled JPEG decode (~2x host decode speed)")
     p.add_argument("--image_cache", default="",
-                   help="decoded-image cache dir (.npy per image keyed by path, size and mtime; stale entries "
-                        "decode anew; shareable across serve runs)")
+                   help="decoded-image cache dir (.npy per image keyed by path, size, mtime and --fast_jpeg; stale "
+                        "entries decode anew; shareable across serve runs)")
     p.add_argument("--device", default="gpu", choices=DEVICE_CHOICES, help="gpu raises when there is no CUDA device")
     p.add_argument("--json", action="store_true", help='emit {"image": ..., "caption": ...} JSON lines')
     args = p.parse_args(argv)
@@ -351,8 +361,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         hidden_dim=args.num_hidden_units, num_layers=args.num_layers, compute_dtype=args.compute_dtype,
         early_exit=bool(args.early_exit), device=args.device, s2d=bool(args.s2d), **cfg_kw,
     )
-    cache = ServeImageCache(args.image_cache, IMAGE_SIZE) if args.image_cache else None
-    for path, cap in caption_paths(captioner, paths, max(1, args.batch_size), args.beam_size, cache=cache):
+    fast_jpeg = bool(args.fast_jpeg)
+    cache = ServeImageCache(args.image_cache, IMAGE_SIZE, fast_jpeg) if args.image_cache else None
+    for path, cap in caption_paths(captioner, paths, max(1, args.batch_size), args.beam_size, cache=cache,
+                                   fast_jpeg=fast_jpeg):
         print(json.dumps({"image": path, "caption": cap}) if args.json else "%s\t%s" % (path, cap))
     if cache is not None:
         print("image cache %s: %d hits, %d misses" % (args.image_cache, cache.hits, cache.misses), file=sys.stderr)

@@ -1,8 +1,10 @@
 """The port's CUDA kernels against their plain twins, on an NVIDIA GPU:
 the pooled fused step and the fused attention step (each with its GRU and
 its LSTM instance; greedy, and the beam forms: dense logits, and top-k for
-the pooled step), the attention context, the projection + argmax, the
-projection + top-k, the image preprocess and the fused s2d stem.
+the pooled step), the stack steps, the whole greedy decode (bit-equal to
+the per-step kernel's loop), the attention context, the projection +
+argmax, the projection + top-k, the image preprocess and the fused s2d
+stem; and the f32 encode without TF32.
 
 Marked ``cuda``: each test skips where torch finds no CUDA device (the
 kernels have no CPU or interpret mode).  Run them on the card with
@@ -41,9 +43,16 @@ from show_tell_tpu_torch.ops.fused_beam import (
     fused_topk_step_plain,
 )
 from show_tell_tpu_torch.ops.preprocess import preprocess_u8, preprocess_u8_plain
-from show_tell_tpu_torch.ops.rnn import prepare_rnn_weights
+from show_tell_tpu_torch.ops.rnn import (
+    greedy_decode_kernel,
+    gru_stack_step,
+    lstm_stack_step,
+    prepare_rnn_weights,
+    stack_plain,
+)
 from show_tell_tpu_torch.ops.s2d_stem import space_to_depth
 from show_tell_tpu_torch.ops.stem import prepare_stem, stem_fused, stem_fused_plain
+from show_tell_tpu_torch.ops.whole_decode import gru_whole_greedy_decode
 from show_tell_tpu_torch.ops.vocab import (
     prepare_vocab,
     project_argmax,
@@ -484,3 +493,113 @@ def test_staged_s2d_batches_on_the_card(cuda, tmp_path):
     paths = sorted(str(p) for p in tmp_path.iterdir())
     out = list(caption_paths(cap, paths, 2))
     assert [p for p, _ in out] == paths and out == list(caption_paths(cap, paths, 2, overlap=False))
+
+
+def _greedy_prepared(B, E, H, V, L, dtype, device, seed=0):
+    """prepare_greedy's dict of random weights, and f32 features [B, E]."""
+    stacked, vocab, _, _ = _inputs(B, E, H, V, L, dtype, device, seed=seed)
+    rng = np.random.RandomState(seed + 1)
+    emb = torch.from_numpy(rng.randn(V, E).astype(np.float32)).to(device, dtype)
+    return {"stacked": stacked, "vocab": vocab, "embedding": emb}, torch.from_numpy(
+        rng.randn(B, E).astype(np.float32)).to(device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,E,H,V,L,T", [(3, 16, 24, 40, 2, 7), (19, 64, 128, 1001, 3, 9), (5, 32, 16, 40, 2, 6),
+                                         (1, 256, 512, 9956, 5, 25), (64, 256, 512, 9956, 5, 25)])
+def test_whole_decode_kernel_bit_equal_to_the_step_loop(cuda, dtype, B, E, H, V, L, T):
+    """One launch for all T steps, ids equal bit for bit to T launches of the
+    fused step with index_select between them; greedy_decode_kernel takes it
+    under whole_decode=True."""
+    prepared, feats = _greedy_prepared(B, E, H, V, L, dtype, cuda)
+    before = gru_whole_greedy_decode.launches, fused_gru_decode_step.launches
+    whole = gru_whole_greedy_decode(prepared, feats, T)
+    loop = greedy_decode_kernel(prepared, feats, T, whole_decode=False)
+    torch.cuda.synchronize()
+    assert (gru_whole_greedy_decode.launches, fused_gru_decode_step.launches) == (before[0] + 1, before[1] + T)
+    assert whole.dtype == torch.int32 and tuple(whole.shape) == (B, T)
+    assert torch.equal(whole, loop)
+    assert torch.equal(greedy_decode_kernel(prepared, feats, T, whole_decode=True), whole)
+    assert gru_whole_greedy_decode.launches == before[0] + 2
+
+
+def test_whole_decode_kernel_tie_takes_lowest_index(cuda):
+    prepared, feats = _greedy_prepared(33, 16, 24, 1000, 2, torch.float32, cuda, seed=2)
+    vocab = prepared["vocab"]
+    vocab["w"][900] = vocab["w"][7]
+    vocab["b"][7] = vocab["b"][900] = 50.0
+    assert gru_whole_greedy_decode(prepared, feats, 5).tolist() == [[7] * 5] * 33
+
+
+def test_whole_decode_wrapper_rejects_what_it_does_not_take(cuda):
+    prepared, feats = _greedy_prepared(3, 16, 24, 40, 2, torch.float32, cuda)
+    with pytest.raises(ValueError, match="T, V >= 1"):
+        gru_whole_greedy_decode(prepared, feats, 0)
+    with pytest.raises(ValueError, match="embedding"):
+        gru_whole_greedy_decode(dict(prepared, embedding=prepared["embedding"][:, :8].contiguous()), feats, 3)
+    with pytest.raises(ValueError, match="is on"):
+        gru_whole_greedy_decode(dict(prepared, embedding=prepared["embedding"].cpu()), feats, 3)
+    lstm, _ = _greedy_prepared(3, 16, 24, 40, 2, torch.float32, cuda)
+    lstm["stacked"] = _inputs(3, 16, 24, 40, 2, torch.float32, cuda, gates=4)[0]
+    with pytest.raises(ValueError, match="GRU"):
+        gru_whole_greedy_decode(lstm, feats, 3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,E,H,L", [(3, 16, 24, 2), (19, 64, 128, 3), (5, 32, 16, 1), (1, 256, 512, 5),
+                                     (64, 512, 512, 5), (512, 256, 512, 5)])
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_stack_step_kernels_match_plain(cuda, cell, dtype, B, E, H, L):
+    stacked, _, x, hs = _inputs(B, E, H, 8, L, dtype, cuda, gates=3 if cell == "gru" else 4)
+    state = (hs, (hs * 2).contiguous()) if cell == "lstm" else hs
+    step = lstm_stack_step if cell == "lstm" else gru_stack_step
+    before = step.launches
+    top, new_state = step(stacked, x, state)
+    torch.cuda.synchronize()
+    assert step.launches == before + 1
+    _, ref_state = stack_plain(cell)(stacked, x, state)
+    # f32: summation order, up to 1.6e-5 against cuBLAS's at B=512 with these U(+-0.3) weights (gate sums of
+    # 768 terms); bf16: one ulp of a state
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    for got, ref in zip((new_state if cell == "lstm" else (new_state,)), (ref_state if cell == "lstm" else (ref_state,))):
+        torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
+    new_hs = new_state[0] if cell == "lstm" else new_state
+    assert torch.equal(top, new_hs[-1])
+
+
+def test_stack_step_wrappers_reject_what_they_do_not_take(cuda):
+    stacked, _, x, hs = _inputs(3, 16, 24, 8, 2, torch.float32, cuda)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        gru_stack_step(stacked, x, hs.half())
+    with pytest.raises(ValueError, match="shape"):
+        gru_stack_step(stacked, x[:, :8].contiguous(), hs)
+    lstacked = _inputs(3, 16, 24, 8, 2, torch.float32, cuda, gates=4)[0]
+    with pytest.raises(ValueError, match="cs"):
+        lstm_stack_step(lstacked, x, (hs, hs[:1].contiguous()))
+
+
+def test_f32_encode_runs_without_tf32_and_leaves_the_global(cuda):
+    """With torch.backends.cudnn.allow_tf32 at its default (True), an f32
+    Captioner's encode equals an encode with TF32 off (relative 1e-5), not
+    one in TF32, and the global is still True afterwards."""
+    from show_tell_tpu_torch.models.captioner import CaptionerConfig, build_model, encode, init_captioner
+
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        cfg = CaptionerConfig("gru", 18, 16, 24, 40, 1)
+        params, bn_state = init_captioner(cfg, torch.Generator().manual_seed(5))
+        model = build_model(params, bn_state, cfg, torch.float32, cuda)
+        images = torch.from_numpy(np.random.RandomState(5).randint(0, 256, (4, 224, 224, 3), dtype=np.uint8)).to(cuda)
+        with torch.inference_mode():
+            got = encode(model, images)
+            assert torch.backends.cudnn.allow_tf32 is True
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+                exact = model.encoder.encode_u8(images)
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+                tf32 = model.encoder.encode_u8(images)
+        scale = exact.abs().max().item()
+        assert (got - exact).abs().max().item() <= 1e-5 * scale
+        assert (tf32 - exact).abs().max().item() > 1e-5 * scale
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved

@@ -20,7 +20,8 @@ def test_port_imports_without_jax():
         "show_tell_tpu_torch.ops.attention, show_tell_tpu_torch.ops.fused_attn, show_tell_tpu_torch.ops.vocab, "
         "show_tell_tpu_torch.ops.fused_beam, show_tell_tpu_torch.decode.beam, show_tell_tpu_torch.vocab, "
         "show_tell_tpu_torch.data.images, show_tell_tpu_torch.data.serve_cache, show_tell_tpu_torch.ops.preprocess, "
-        "show_tell_tpu_torch.ops.stem, show_tell_tpu_torch.ops.s2d_stem; "
+        "show_tell_tpu_torch.ops.stem, show_tell_tpu_torch.ops.s2d_stem, show_tell_tpu_torch.ops.whole_decode, "
+        "show_tell_tpu_torch.native.build, show_tell_tpu_torch.native.fastimage; "
         "import sys; "
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if m.startswith('jax'))"
     )
@@ -50,7 +51,8 @@ def test_serving_from_a_checkpoint_imports_nothing_of_the_jax_package(tmp_path):
     """A checkpoint and vocab.pkl written by the JAX package, then
     ``Captioner.from_checkpoint``, ``caption_files`` (greedy and beam), the
     s2d Captioner through ``caption_paths`` with an image cache, and the
-    CLI (stock, and with --s2d 1 --image_cache) in a fresh interpreter: no
+    CLI (stock, with --s2d 1 --image_cache, and with --fast_jpeg 1, the
+    native decoder's scaled decode) in a fresh interpreter: no
     ``jax`` and no ``show_tell_tpu`` module gets imported on the way."""
     import jax
     import numpy as np
@@ -89,6 +91,7 @@ def test_serving_from_a_checkpoint_imports_nothing_of_the_jax_package(tmp_path):
         cache = serve.ServeImageCache(os.path.join(%r, "cache"), 224)
         assert len(list(serve.caption_paths(s2d, paths, 2, cache=cache))) == 2 and cache.misses == 2
         assert serve.main(cli + ["--s2d", "1", "--image_cache", os.path.join(%r, "cache"), paths[1]]) == 0
+        assert serve.main(cli + ["--fast_jpeg", "1", paths[0]]) == 0
         leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "show_tell_tpu"))
         assert not leaked, leaked
     """) % (ckpt, vocab_path, img_dir, img_dir, ckpt, vocab_path, ckpt, vocab_path, str(tmp_path), str(tmp_path))
@@ -96,5 +99,5 @@ def test_serving_from_a_checkpoint_imports_nothing_of_the_jax_package(tmp_path):
     result = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True,
                             timeout=300)
     assert result.returncode == 0, result.stderr
-    assert result.stdout.count("\t") == 2  # each CLI run's one path<TAB>caption line
+    assert result.stdout.count("\t") == 3  # each CLI run's one path<TAB>caption line
     assert "1 hits, 0 misses" in result.stderr  # the s2d CLI run found its image in the cache
