@@ -6,7 +6,9 @@
 Phases, one line each (any failure exits non-zero with no ok line):
   1. device: the card's name and power limit, torch and CUDA versions;
   2. build: the CUDA kernels from show_tell_tpu_torch/csrc, with nvcc, and
-     beside them the grid-barrier probe (grid_barrier_probe.cu);
+     beside them the grid-barrier probe (grid_barrier_probe.cu); ptxas's
+     registers, stack and spills of the bf16 projection kernels
+     (vocab_mma.cuh) and the tensor-core (HMMA) instructions in their SASS;
   3. kernel against plain, at the flagship widths: the pooled fused step,
      GRU (L=5, E=256, H=512, V=9,956; B = 1, 64, 512; and E=1024 > H) and
      LSTM (E=512, same B); the fused attention step, GRU and LSTM (L=5,
@@ -26,6 +28,8 @@ Phases, one line each (any failure exits non-zero with no ok line):
      whole-decode kernel (all 25 steps in one launch) bit-equal to the
      per-step kernel's loop and against its twin, with a cross-block tie;
      the GRU (E=256) and LSTM (E=512) stack steps against their twins;
+  3e. the bf16 projection kernels' V-tiles on this card, and a tie across
+     the first V-tile boundary in both projection kernels, f32 and bf16;
   4. pooled main paths: a flagship pooled-GRU Captioner (ResNet-101,
      random weights from seed 0, bf16) serves three requests of 64
      images; the fused step must have launched 3 x 25 times and the ids
@@ -71,7 +75,9 @@ Phases, one line each (any failure exits non-zero with no ok line):
      whole-decode kernel against the per-step loop at B = 1, 64, 512, bf16
      and f32, in turns, median [quartiles] (min, max) and the rounds each
      route won; the stack steps against one torch.nn.GRU / LSTM call; the
-     cost of a grid barrier at the whole-decode kernel's grid.
+     cost of a grid barrier at the whole-decode kernel's grid; the
+     projection kernels at B = 1, 64, 256 and R = 3, 192, 320 against
+     their twins, bounds and composite yardsticks, L2 warm and cold.
 The last lines are the card's name and power limit, a JSON line of the
 kernels, and {"ok": true, "device": {...}}.
 """
@@ -152,14 +158,16 @@ class SyntheticVocab:
         return "<end>"
 
 
-def event_median_ms(fn, iters=30, warmup=5, spin=SPIN_CYCLES):
+def event_median_ms(fn, iters=30, warmup=5, spin=SPIN_CYCLES, before=None):
     """Median over ``iters`` launches of the device time between CUDA
     events recorded around each call, after ``warmup`` calls.  Each timed
     call is queued behind a spin of the card (``spin`` cycles), so the host
     has enqueued the events and the call before the card reaches them: the
     events bracket device work, not the host's wrapper and launch time,
     which is most of a call that takes tens of microseconds on the card.
-    A call whose host work outlasts the spin reads that work too."""
+    A call whose host work outlasts the spin reads that work too.
+    ``before``, if given, is queued between the spin and the first event
+    (an L2 flush: the call then finds its operands in device memory)."""
     import torch
 
     for _ in range(warmup):
@@ -168,6 +176,8 @@ def event_median_ms(fn, iters=30, warmup=5, spin=SPIN_CYCLES):
     for _ in range(iters):
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(spin)
+        if before is not None:
+            before()
         e0.record()
         fn()
         e1.record()
@@ -395,6 +405,13 @@ KERNEL_ROWS = [
     ("lstm_stack_step", "fused_step.cu", "show_tell_tpu/ops/rnn_pallas.py:221"),
 ]
 BEAM_KERNELS = {name for name, _, _ in KERNEL_ROWS[6:13]}
+LIBRARY_CALLS = {  # what a row's library_ms times
+    "project_argmax": "composite: torch.addmm + argmax",
+    "project_topk": "composite: torch.addmm + log_softmax + topk",
+    "gru_stack_step": "torch.nn.GRU",
+    "lstm_stack_step": "torch.nn.LSTM",
+    "stem_fused": "composite: cuDNN conv2d + relu + max_pool2d",
+}
 COUNTER_OF = {"preprocess_images": "preprocess_u8"}  # a row's launch counter, where its name differs
 
 
@@ -429,6 +446,71 @@ def check_topk(what, logp, ids, top, vocab, k):
         fail("%s: top-%d ids differ from plain on %d rows whose %d best logits are > %g apart"
              % (what, k, bad, k + 1, BEAM_TOL))
     return err, int(clear.sum())
+
+
+def projection_tile_ties(rng, device):
+    """Phase 3e.  Columns mv - 1 and mv, on either side of the first V-tile
+    boundary of the bf16 projection kernels at the flagship V (the tile
+    vocab_tiles picks on this card), equal and top in every row:
+    project_argmax gives mv - 1 and project_topk lists mv - 1 then mv, f32
+    and bf16, at B = 64 and R = 192 rows."""
+    import torch
+
+    from show_tell_tpu_torch.ops.vocab import project_argmax_cuda, project_topk_cuda, vocab_tiles
+
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    g = vocab_tiles(H, V, sms)
+    phase("kernel", "bf16 projection tiles at H=%d, V=%d on %d SMs: %d rows a V-tile, %d tiles, %d bytes of shared "
+          "memory a block" % (H, V, sms, g.mv, g.tiles, g.smem))
+    pair = torch.tensor([g.mv - 1, g.mv], device=device)
+    for dtype in (torch.float32, torch.bfloat16):
+        for rows in (64, 192):
+            vocab = vocab_inputs(rng, H, dtype, device)
+            vocab["w"][g.mv] = vocab["w"][g.mv - 1]
+            vocab["b"][g.mv - 1] = vocab["b"][g.mv] = 100.0
+            top = uniform(rng, (rows, H), 1.0, dtype, device)
+            tok = project_argmax_cuda(vocab, top)
+            ids = project_topk_cuda(vocab, top, K_BEAM)[1]
+            if not bool((tok == g.mv - 1).all()) or not bool((ids[:, :2] == pair).all()):
+                fail("project_argmax / project_topk %s rows=%d: tie of columns %d and %d across the first V-tile "
+                     "boundary not resolved to %d / listed as [%d, %d]"
+                     % (dname(dtype), rows, g.mv - 1, g.mv, g.mv - 1, g.mv - 1, g.mv))
+            phase("kernel", "project_argmax and project_topk %s rows=%d: tie between columns %d and %d, across the "
+                  "first V-tile boundary -> %d and [%d, %d, ...] on every row"
+                  % (dname(dtype), rows, g.mv - 1, g.mv, g.mv - 1, g.mv - 1, g.mv))
+
+
+TILE_KERNELS = ("project_argmax_tiles_kernel", "project_topk_tiles_kernel")  # the bf16 tensor-core instances
+
+
+def tile_kernel_report(build):
+    """ptxas's registers, stack frame and spills of the two bf16 projection
+    kernels, and, where the toolkit has cuobjdump, the tensor-core (HMMA)
+    instructions in their SASS in the library; fails if either has none."""
+    import re
+
+    for line in build.ptxas_report(["project_argmax.cu", "project_topk.cu"]):
+        if any(k in line for k in TILE_KERNELS):
+            phase("build", "ptxas -v " + line)
+    cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    if not os.access(cuobjdump, os.X_OK):
+        phase("build", "no cuobjdump beside nvcc: the HMMA count is not taken")
+        return
+    proc = subprocess.run([cuobjdump, "-sass", build.library_path()], capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        phase("build", "cuobjdump -sass failed (exit %d), the HMMA count is not taken: %s"
+              % (proc.returncode, proc.stderr.strip()[-300:]))
+        return
+    counts, current = dict.fromkeys(TILE_KERNELS, 0), None
+    for line in proc.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            current = next((k for k in TILE_KERNELS if k in m.group(1)), None)
+        elif current and re.search(r"\bHMMA\b", line):
+            counts[current] += 1
+    if not all(counts.values()):
+        fail("the bf16 projection kernels' SASS holds no tensor-core instruction: HMMA counts %s" % counts)
+    phase("build", "cuobjdump -sass: HMMA instructions %s" % counts)
 
 
 def beam_kernels_against_plain(rng, device):
@@ -854,6 +936,7 @@ def main():
     phase("build", "%s and the grid-barrier probe in %.2f s (%s)"
           % (os.path.basename(build.library_path()), time.perf_counter() - t0,
              "library already built" if cached else "nvcc ran, one process per source"))
+    tile_kernel_report(build)
 
     # 3. kernel against plain.  cuDNN's TF32 flag stays at its default: the
     # port scopes it off for f32 encodes, and features() below for its own.
@@ -863,6 +946,7 @@ def main():
     errs.update(beam_kernels_against_plain(rng, device))
     errs.update(input_kernels_against_plain(rng, device))
     errs.update(decode_kernels_against_plain(rng, device))
+    projection_tile_ties(rng, device)
 
     import torch.nn.functional as F
 
@@ -1460,9 +1544,6 @@ def main():
         times["attention_context", B] = (
             event_median_ms(lambda: attention_context_cuda(prep, feats, prep["att1"], h)),
             event_median_ms(lambda: attention_context_plain(prep, feats, prep["att1"], h)))
-        times["project_argmax", B] = (
-            event_median_ms(lambda: project_argmax_cuda(prep["vocab"], h)),
-            event_median_ms(lambda: project_argmax_plain(prep["vocab"], h)))
     # the beam kernels at R = 3 (B=1) and R = 192 (B=64), K = 3
     for R in (3, 192):
         for cell, Ed in (("gru", E), ("lstm", LE)):
@@ -1477,9 +1558,6 @@ def main():
             prep, w_emb, state = attn_inputs(rng, R, torch.bfloat16, device, cell)
             times[name, R] = (event_median_ms(lambda: fused_attn_dense_step_cuda(prep, w_emb, state)),
                               event_median_ms(lambda: fused_attn_dense_step_plain(prep, w_emb, state)))
-        h = last_h(state)
-        times["project_topk", R] = (event_median_ms(lambda: project_topk_cuda(prep["vocab"], h, K_BEAM)),
-                                    event_median_ms(lambda: project_topk_plain(prep["vocab"], h, K_BEAM)))
     # the sharded-projection route's stack steps, and the whole decode (T=25 steps in one call)
     whole_rows = {}  # B -> the distinct embedding rows the timed whole decode fed back (its bound's bytes)
     library = {}  # kernel -> ms of the one PyTorch call that computes its function at the kernels line's shape
@@ -1516,6 +1594,30 @@ def main():
         phase("times", "%s bf16 %s %s=%d: kernel %.4f ms, plain %.4f ms, bound %.4f ms (%s) %s"
               % (card, name, "R" if name in BEAM_KERNELS else "B", B, k_ms, p_ms,
                  *bound(name, B, whole_rows.get(B, 0)), note))
+    # the projection kernels at B = 1, 64, 256 and R = 3, 192, 320, each against its twin, its bound and its
+    # composite yardstick (cuBLAS's bf16 product and torch's reductions) on the same operands; with the weights
+    # warm in L2, as the earlier PRs timed them, and cold (a 64 MB write between the spin and the call)
+    vocab_t = vocab_inputs(rng, H, torch.bfloat16, device)
+    w, b = vocab_t["w"], vocab_t["b"]
+    flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    projections = (
+        ("project_argmax", (1, 64, 256), lambda h: project_argmax_cuda(vocab_t, h),
+         lambda h: project_argmax_plain(vocab_t, h), lambda h: torch.addmm(b, h, w.T).argmax(dim=-1)),
+        ("project_topk", (3, 192, 320), lambda h: project_topk_cuda(vocab_t, h, K_BEAM),
+         lambda h: project_topk_plain(vocab_t, h, K_BEAM),
+         lambda h: torch.addmm(b, h, w.T).float().log_softmax(dim=-1).topk(K_BEAM, dim=-1)))
+    for name, shapes, kernel_fn, plain_fn, yard_fn in projections:
+        for rows in shapes:
+            h = uniform(rng, (rows, H), 1.0, torch.bfloat16, device)
+            k_ms, p_ms, y_ms = (event_median_ms(lambda: fn(h)) for fn in (kernel_fn, plain_fn, yard_fn))
+            k_cold, y_cold = (event_median_ms(lambda: fn(h), before=flush_buf.zero_) for fn in (kernel_fn, yard_fn))
+            times[name, rows] = (k_ms, p_ms)
+            if rows in (64, 192):
+                library[name] = y_ms
+            phase("times", "%s bf16 %s %s=%d: kernel %.4f ms, plain %.4f ms, bound %.4f ms (%s), composite yardstick "
+                  "%s %.4f ms: kernel / yardstick %.3f; L2 cold: kernel %.4f ms, yardstick %.4f ms, %.3f %s"
+                  % (card, name, "R" if name in BEAM_KERNELS else "B", rows, k_ms, p_ms, *bound(name, rows),
+                     LIBRARY_CALLS[name], y_ms, k_ms / y_ms, k_cold, y_cold, k_cold / y_cold, note))
     # the A/B behind whole_decode_default(): host clock around whole decodes (the user's wait), in turns.
     # A route wins a B when it is faster in at least nine tenths of the rounds (each round times both
     # routes, one after the other) and the medians differ by more than the larger interquartile range.
@@ -1567,13 +1669,6 @@ def main():
     backed = wins["bfloat16", 64] == "whole" and all(wins["bfloat16", B] != "loop" for B in (1, 64, 512))
     phase("times", "%s A/B verdict: this run %s whole_decode_default() = %s"
           % (card, "backs" if backed == whole_default else "does not back", whole_default))
-    # composite yardsticks at the serving shapes: cuBLAS bf16 products and torch's own reductions
-    w, b = prep["vocab"]["w"], prep["vocab"]["b"]
-    h64 = h[:64].contiguous()
-    phase("times", "%s bf16 yardstick project_argmax B=64: torch.addmm + argmax %.4f ms; project_topk R=192: "
-          "torch.addmm + log_softmax + topk %.4f ms %s" % (
-              card, event_median_ms(lambda: torch.addmm(b, h64, w.T).argmax(dim=-1)),
-              event_median_ms(lambda: torch.addmm(b, h, w.T).float().log_softmax(dim=-1).topk(K_BEAM, dim=-1)), note))
     for variant, what in (("gru", "pooled-GRU slice, bf16, ResNet-101"),
                           ("lstm", "pooled-LSTM slice, bf16, ResNet-101"),
                           ("attn", "attention-GRU slice, bf16, spatial ResNet-101"),
@@ -1711,8 +1806,10 @@ def main():
             "plain_ms": times[name, rows][1],
             "bound_ms": bound_ms,
             "bound_by": bound_by,
-            # the stack steps: one torch.nn.GRU / LSTM call; the stem: its cuDNN yardstick; the rest: no single call
+            # the stack steps: one torch.nn.GRU / LSTM call; the stem: its cuDNN yardstick; the projections: their
+            # composite yardsticks; the rest: no single call
             "library_ms": library.get(name),
+            "library_call": LIBRARY_CALLS.get(name),
             "rows": rows,
         })
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -63,9 +63,11 @@ def find_nvcc() -> str:
     )
 
 
-def _sources():
-    """The kernels to compile: every ``csrc/*.cu``."""
+def _sources(names: Optional[List[str]] = None):
+    """The kernels to compile: every ``csrc/*.cu``, or those of ``names`` (file names)."""
     sources = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+    if names is not None:
+        sources = [src for src in sources if os.path.basename(src) in names]
     if not sources:
         raise KernelBuildError("no CUDA sources under %s" % CSRC_DIR)
     return sources
@@ -113,16 +115,17 @@ def build() -> str:
     return lib
 
 
-def ptxas_report() -> List[str]:
-    """Compile every source once more with ``-Xptxas -v`` (the objects are
-    thrown away) and return one line per kernel instance: its source, its
-    name (demangled when the toolkit's cu++filt is there), the registers a
-    thread uses, its stack frame and spill bytes."""
+def ptxas_report(names: Optional[List[str]] = None) -> List[str]:
+    """Compile every source (or those of ``names``) once more with
+    ``-Xptxas -v`` (the objects are thrown away) and return one line per
+    kernel instance: its source, its name (demangled when the toolkit's
+    cu++filt is there), the registers a thread uses, its stack frame and
+    spill bytes."""
     nvcc = find_nvcc()
     found = []  # (source, mangled name, registers, "stack frame, spill stores, spill loads")
     with tempfile.TemporaryDirectory() as tmp:
         compiles = []
-        for src in _sources():
+        for src in _sources(names):
             cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", src, "-o", os.path.join(tmp, os.path.basename(src) + ".o")]
             compiles.append((cmd, src, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
         for cmd, src, proc in compiles:
@@ -175,8 +178,8 @@ def load_library() -> ctypes.CDLL:
             "st_fused_attn_dense_step": [i] + [p] * 19 + [i] * 7 + [p],
             "st_fused_attn_lstm_dense_step": [i] + [p] * 21 + [i] * 7 + [p],
             "st_attention_context": [i] + [p] * 8 + [i] * 5 + [p],
-            "st_project_argmax": [i] + [p] * 5 + [i] * 3 + [p],
-            "st_project_topk": [i] + [p] * 7 + [i] * 5 + [p],
+            "st_project_argmax": [i] + [p] * 5 + [i] * 4 + [p],
+            "st_project_topk": [i] + [p] * 7 + [i] * 6 + [p],
             "st_preprocess": [i, p, p, ll] + [f] * 7 + [p],
             "st_stem": [i] * 3 + [p] * 4 + [i, p],
         }

@@ -6,12 +6,14 @@ argmax and the stable top-k, the projection + argmax kernel
 
 The CUDA kernels read the projection in the torch layout [V, H], one
 contiguous row per vocabulary entry, and mask the ragged end of V
-themselves, so nothing is padded here.
+themselves, so nothing is padded here.  In bf16 both kernels run on the
+tensor cores in V-tiles whose geometry ``vocab_tiles`` computes here and
+passes to the launch; f32 keeps the SIMT projection of the fused steps.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -46,6 +48,53 @@ def project_argmax_plain(vocab: Dict[str, torch.Tensor], top: torch.Tensor) -> t
     return first_max_argmax(project_logits(vocab, top))
 
 
+# The bf16 kernels' V-tiles (csrc/vocab_mma.cuh; the constants must agree with it)
+TILE_ROWS_MAX = 128  # mv <= this: 4 m16 tiles of f32 accumulators a warp
+BATCH_GROUP = 64  # batch rows a pass: 4 slabs of 16
+K_CHUNK = 64  # K elements a stage of the cp.async ring
+RING_STAGES = 6
+SMEM_LIMIT = 232448  # the 227 KB of shared memory a block may opt into on Hopper
+
+
+class VocabTiles(NamedTuple):
+    mv: int  # V-tile rows, a multiple of 16 (mma.sync's M)
+    tiles: int  # ceil(V / mv): blocks of the grid, and top-k parts a row
+    smem: int  # dynamic shared memory of a block, bytes
+
+
+def tile_smem(mv: int, H: int) -> int:
+    """A block's shared memory (vocab_tile_smem in csrc/vocab_mma.cuh): the
+    V-tile's weights at a row pitch of H rounded up to 16, plus 8; the ring
+    of batch chunks; the staged f32 logits of one batch group."""
+    kp = -(-H // 16) * 16
+    return 2 * (mv * (kp + 8) + RING_STAGES * BATCH_GROUP * (K_CHUNK + 8)) + 4 * BATCH_GROUP * (mv + 4)
+
+
+def vocab_tiles(H: int, V: int, sms: int) -> VocabTiles:
+    """The bf16 kernels' launch geometry: V-tiles of mv rows, mv the least
+    multiple of 16 that covers V in at most ``sms`` tiles (about one wave
+    of one block an SM), capped at TILE_ROWS_MAX and at what fits in
+    shared memory.  Raises for an H whose 16-row tile does not fit."""
+    if H < 8 or H % 8:
+        raise ValueError("the vocab projection needs H a multiple of 8 (got H=%d)" % H)
+    fit = TILE_ROWS_MAX
+    while fit >= 16 and tile_smem(fit, H) > SMEM_LIMIT:
+        fit -= 16
+    if fit < 16:
+        raise ValueError("H=%d is too wide for the bf16 vocab projection: a 16-row V-tile needs %d bytes of shared "
+                         "memory, over the %d a block may use" % (H, tile_smem(16, H), SMEM_LIMIT))
+    units = -(-V // 16)  # 16-row units of V
+    mv = min(16 * -(-units // sms), TILE_ROWS_MAX, fit)
+    return VocabTiles(mv, -(-V // mv), tile_smem(mv, H))
+
+
+def tile_rows(H: int, V: int, device: torch.device, dtype: torch.dtype) -> int:
+    """The mv argument of a projection kernel: the V-tile rows in bf16, 0 in f32 (the SIMT path)."""
+    if dtype != torch.bfloat16:
+        return 0
+    return vocab_tiles(H, V, torch.cuda.get_device_properties(device).multi_processor_count).mv
+
+
 def project_argmax_cuda(vocab: Dict[str, torch.Tensor], top: torch.Tensor) -> torch.Tensor:
     """Launch the kernel on the current stream.  top [B, H], vocab w [V, H]
     and b [V], all on one CUDA device in one dtype, contiguous.  Raises on
@@ -62,12 +111,13 @@ def project_argmax_cuda(vocab: Dict[str, torch.Tensor], top: torch.Tensor) -> to
     check_tensor("top", top, (B, H), dtype, device)
     check_tensor("vocab w", vocab["w"], (V, H), dtype, device)
     check_tensor("vocab b", vocab["b"], (V,), dtype, device)
+    mv = tile_rows(H, V, device, dtype)
     lib = load_library()
     tok = torch.empty(B, dtype=torch.int32, device=device)
     best = torch.empty(B, dtype=torch.int64, device=device)
     with torch.cuda.device(device):
         err = lib.st_project_argmax(code, top.data_ptr(), vocab["w"].data_ptr(), vocab["b"].data_ptr(),
-                                    tok.data_ptr(), best.data_ptr(), B, H, V, stream_arg(device))
+                                    tok.data_ptr(), best.data_ptr(), B, H, V, mv, stream_arg(device))
     raise_on_error("project_argmax", err)
     project_argmax.launches += 1
     return tok
@@ -107,19 +157,24 @@ def project_topk_plain(vocab: Dict[str, torch.Tensor], top: torch.Tensor, k: int
     return stable_topk(torch.log_softmax(project_logits(vocab, top), dim=-1), k)
 
 
-def topk_launch_args(kernel: str, B: int, V: int, k: int, device: torch.device):
+def topk_launch_args(kernel: str, B: int, V: int, k: int, device: torch.device, tiles: Optional[int] = None):
     """Check k and allocate what a top-k vocab phase writes: logp and ids
-    [B, k], and its per-part scratch.  The grid is sized inside the launch
+    [B, k], and its per-part scratch.  The bf16 projection kernel writes
+    one part per V-tile: pass ``tiles`` (vocab_tiles), and max_splits = n =
+    tiles.  Otherwise (the SIMT phase) the grid is sized inside the launch
     from the kernel's occupancy, so the scratch is sized from a bound on it:
     at most RESIDENT_BLOCKS_PER_SM blocks on each SM, hence at most
     max_splits = min(V, that grid // ceil(B / 8)) column ranges a row, each
-    worked by KERNEL_WARPS warps.  Returns (max_splits, part_keys [n, B, k]
-    int64, part_ms [n, B, 2] f32, logp, ids), n = max_splits x KERNEL_WARPS."""
+    worked by KERNEL_WARPS warps, n = max_splits x KERNEL_WARPS.  Returns
+    (max_splits, part_keys [n, B, k] int64, part_ms [n, B, 2] f32, logp, ids)."""
     if not 1 <= k <= min(MAX_K, V):
         raise ValueError("%s takes 1 <= k <= min(%d, V) (got k=%d, V=%d)" % (kernel, MAX_K, k, V))
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    max_splits = max(1, min(V, sms * RESIDENT_BLOCKS_PER_SM // -(-B // 8)))
-    n = max_splits * KERNEL_WARPS
+    if tiles is not None:
+        max_splits = n = tiles
+    else:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        max_splits = max(1, min(V, sms * RESIDENT_BLOCKS_PER_SM // -(-B // 8)))
+        n = max_splits * KERNEL_WARPS
     return (
         max_splits,
         torch.empty(n, B, k, dtype=torch.int64, device=device),
@@ -146,12 +201,14 @@ def project_topk_cuda(vocab: Dict[str, torch.Tensor], top: torch.Tensor, k: int)
     check_tensor("top", top, (B, H), dtype, device)
     check_tensor("vocab w", vocab["w"], (V, H), dtype, device)
     check_tensor("vocab b", vocab["b"], (V,), dtype, device)
-    max_splits, part_keys, part_ms, logp, ids = topk_launch_args("project_topk", B, V, k, device)
+    mv = tile_rows(H, V, device, dtype)
+    max_splits, part_keys, part_ms, logp, ids = topk_launch_args("project_topk", B, V, k, device,
+                                                                 -(-V // mv) if mv else None)
     lib = load_library()
     with torch.cuda.device(device):
         err = lib.st_project_topk(code, top.data_ptr(), vocab["w"].data_ptr(), vocab["b"].data_ptr(),
                                   part_keys.data_ptr(), part_ms.data_ptr(), logp.data_ptr(), ids.data_ptr(),
-                                  B, H, V, k, max_splits, stream_arg(device))
+                                  B, H, V, k, max_splits, mv, stream_arg(device))
     raise_on_error("project_topk", err)
     project_topk.launches += 1
     return logp, ids

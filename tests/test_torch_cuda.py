@@ -60,6 +60,7 @@ from show_tell_tpu_torch.ops.vocab import (
     project_logits,
     project_topk,
     project_topk_plain,
+    vocab_tiles,
 )
 
 pytestmark = pytest.mark.cuda
@@ -181,8 +182,11 @@ def test_attention_context_kernel_matches_plain(cuda, dtype, B, C, A, H, P):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("B,H,V", [(3, 24, 40), (64, 512, 9956), (256, 512, 9956)])
+@pytest.mark.parametrize("B,H,V", [(3, 24, 40), (1, 512, 9956), (19, 512, 1001), (19, 24, 1001), (64, 512, 9956),
+                                   (256, 512, 9956)])
 def test_project_argmax_kernel_matches_plain(cuda, dtype, B, H, V):
+    """B = 1, 19 (not a multiple of 8), 64, 256; V = 1,001, a multiple of
+    no V-tile; H = 24, a multiple of 8 but not of the mma's 16."""
     prep, _, hs = _attn_prep(B, 8, H, 8, 1, V, 1, dtype, cuda, seed=4)
     before = project_argmax.launches
     tok = project_argmax(prep["vocab"], hs[-1])
@@ -352,7 +356,8 @@ def test_fused_attn_dense_kernel_matches_plain(cuda, cell, dtype, R, E, H, A, P,
 
 @pytest.mark.parametrize("k", [1, 3, 5, 8])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("R,H,V", [(3, 24, 40), (5, 512, 9956), (192, 512, 9956), (320, 512, 9956)])
+@pytest.mark.parametrize("R,H,V", [(3, 24, 40), (3, 512, 9956), (5, 512, 9956), (19, 512, 1001), (19, 24, 1001),
+                                   (192, 512, 9956), (320, 512, 9956)])
 def test_project_topk_kernel_matches_plain(cuda, dtype, R, H, V, k):
     prep, _, hs = _attn_prep(R, 8, H, 8, 1, V, 1, dtype, cuda, seed=11)
     before = project_topk.launches
@@ -360,6 +365,22 @@ def test_project_topk_kernel_matches_plain(cuda, dtype, R, H, V, k):
     torch.cuda.synchronize()
     assert project_topk.launches == before + 1
     _check_topk(logp, ids, prep["vocab"], hs[-1], k)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,H,V", [(19, 512, 9956), (19, 24, 1001), (64, 512, 1001)])
+def test_projection_kernels_tie_across_a_tile_boundary(cuda, dtype, B, H, V):
+    """Columns mv - 1 and mv, on either side of the first V-tile boundary at
+    the tile the bf16 kernels pick for this V, equal and top in every row:
+    argmax gives mv - 1, top-k lists mv - 1 then mv."""
+    mv = vocab_tiles(H, V, torch.cuda.get_device_properties(cuda).multi_processor_count).mv
+    prep, _, hs = _attn_prep(B, 8, H, 8, 1, V, 1, dtype, cuda, seed=14)
+    vocab = prep["vocab"]
+    vocab["w"][mv] = vocab["w"][mv - 1]
+    vocab["b"][mv - 1] = vocab["b"][mv] = 50.0
+    assert project_argmax(vocab, hs[-1]).tolist() == [mv - 1] * B
+    for k in (2, 5):
+        assert project_topk(vocab, hs[-1], k)[1][:, :2].tolist() == [[mv - 1, mv]] * B
 
 
 def test_beam_kernels_order_ties_lower_index_first(cuda):
