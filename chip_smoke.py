@@ -7,8 +7,9 @@ Phases, one line each (any failure exits non-zero with no ok line):
   1. device: the card's name and power limit, torch and CUDA versions;
   2. build: the CUDA kernels from show_tell_tpu_torch/csrc, with nvcc, and
      beside them the grid-barrier probe (grid_barrier_probe.cu); ptxas's
-     registers, stack and spills of the bf16 projection kernels
-     (vocab_mma.cuh) and the tensor-core (HMMA) instructions in their SASS;
+     registers, stack and spills of the tensor-core instances (the bf16
+     projection kernels, vocab_mma.cuh; the four bf16 dense beam steps,
+     dense_mma.cuh) and the tensor-core (HMMA) instructions in their SASS;
   3. kernel against plain, at the flagship widths: the pooled fused step,
      GRU (L=5, E=256, H=512, V=9,956; B = 1, 64, 512; and E=1024 > H) and
      LSTM (E=512, same B); the fused attention step, GRU and LSTM (L=5,
@@ -20,7 +21,9 @@ Phases, one line each (any failure exits non-zero with no ok line):
      pooled step's dense and top-k forms (both cells), the attention
      step's dense form (both cells), the projection + top-k; logits and
      top-k against the plain projection of the kernel's own new top
-     activation, and top-k ties listed lower index first;
+     activation, and top-k ties listed lower index first; digests of the
+     f32 dense steps' outputs (the SIMT path: two builds that print the
+     same digests agree bit for bit);
   3c. input kernels against plain, f32 and bf16: the preprocess (C = 3
      and 12, B = 1 and 64, and two odd shapes) bit for bit; the fused stem
      (s2d and RGB layouts, pool on and off, B = 1 and 64) within STEM_TOL;
@@ -77,7 +80,11 @@ Phases, one line each (any failure exits non-zero with no ok line):
      route won; the stack steps against one torch.nn.GRU / LSTM call; the
      cost of a grid barrier at the whole-decode kernel's grid; the
      projection kernels at B = 1, 64, 256 and R = 3, 192, 320 against
-     their twins, bounds and composite yardsticks, L2 warm and cold.
+     their twins, bounds and composite yardsticks, L2 warm and cold; the
+     dense beam steps at R = 3 and 192, L2 warm and cold, the pooled ones
+     at R = 192 beside the stack step (their recurrence alone) and their
+     composite yardstick (torch.nn.GRU / LSTM + torch.addmm); the pooled
+     GRU's and the attention GRU's dense beam decode at B=64.
 The last lines are the card's name and power limit, a JSON line of the
 kernels, and {"ok": true, "device": {...}}.
 """
@@ -408,6 +415,8 @@ BEAM_KERNELS = {name for name, _, _ in KERNEL_ROWS[6:13]}
 LIBRARY_CALLS = {  # what a row's library_ms times
     "project_argmax": "composite: torch.addmm + argmax",
     "project_topk": "composite: torch.addmm + log_softmax + topk",
+    "fused_gru_dense_step": "composite: torch.nn.GRU + torch.addmm",
+    "fused_lstm_dense_step": "composite: torch.nn.LSTM + torch.addmm",
     "gru_stack_step": "torch.nn.GRU",
     "lstm_stack_step": "torch.nn.LSTM",
     "stem_fused": "composite: cuDNN conv2d + relu + max_pool2d",
@@ -480,17 +489,41 @@ def projection_tile_ties(rng, device):
                   % (dname(dtype), rows, g.mv - 1, g.mv, g.mv - 1, g.mv - 1, g.mv))
 
 
-TILE_KERNELS = ("project_argmax_tiles_kernel", "project_topk_tiles_kernel")  # the bf16 tensor-core instances
+TILE_KERNELS = ("project_argmax_tiles_kernel", "project_topk_tiles_kernel")  # the bf16 projection kernels
+# the bf16 dense beam steps (csrc/dense_mma.cuh): entry point -> (kernel template, cell); the dense end is kDense = 1
+DENSE_INSTANCES = {
+    "st_fused_gru_dense_step": ("fused_step_kernel", "GruCell"),
+    "st_fused_lstm_dense_step": ("fused_step_kernel", "LstmCell"),
+    "st_fused_attn_dense_step": ("fused_attn_step_kernel", "GruCell"),
+    "st_fused_attn_lstm_dense_step": ("fused_attn_step_kernel", "LstmCell"),
+}
+
+
+def tensor_core_kernel(name):
+    """The label of a kernel name (mangled, as cuobjdump prints it, or
+    demangled, as ptxas_report does) among the tensor-core instances, or None."""
+    import re
+
+    tile = next((k for k in TILE_KERNELS if k in name), None)
+    if tile:
+        return tile
+    for label, (base, cell) in DENSE_INSTANCES.items():
+        if ((base + "<" in name or base + "I" in name) and cell in name and "__nv_bfloat16" in name
+                and re.search(r"(, (\(int\))?1>|ELi1E)", name)):
+            return label
+    return None
 
 
 def tile_kernel_report(build):
-    """ptxas's registers, stack frame and spills of the two bf16 projection
-    kernels, and, where the toolkit has cuobjdump, the tensor-core (HMMA)
-    instructions in their SASS in the library; fails if either has none."""
+    """ptxas's registers, stack frame and spills of the tensor-core kernel
+    instances (the two bf16 projection kernels and the four bf16 dense beam
+    steps), and, where the toolkit has cuobjdump, the tensor-core (HMMA)
+    instructions in their SASS in the library; fails if one has none."""
     import re
 
-    for line in build.ptxas_report(["project_argmax.cu", "project_topk.cu"]):
-        if any(k in line for k in TILE_KERNELS):
+    labels = TILE_KERNELS + tuple(DENSE_INSTANCES)
+    for line in build.ptxas_report(["project_argmax.cu", "project_topk.cu", "fused_step.cu", "fused_attn_step.cu"]):
+        if tensor_core_kernel(line.rsplit(": ", 1)[0]):
             phase("build", "ptxas -v " + line)
     cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
     if not os.access(cuobjdump, os.X_OK):
@@ -501,15 +534,15 @@ def tile_kernel_report(build):
         phase("build", "cuobjdump -sass failed (exit %d), the HMMA count is not taken: %s"
               % (proc.returncode, proc.stderr.strip()[-300:]))
         return
-    counts, current = dict.fromkeys(TILE_KERNELS, 0), None
+    counts, current = dict.fromkeys(labels, 0), None
     for line in proc.stdout.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            current = next((k for k in TILE_KERNELS if k in m.group(1)), None)
+            current = tensor_core_kernel(m.group(1))
         elif current and re.search(r"\bHMMA\b", line):
             counts[current] += 1
     if not all(counts.values()):
-        fail("the bf16 projection kernels' SASS holds no tensor-core instruction: HMMA counts %s" % counts)
+        fail("a tensor-core kernel instance's SASS holds no tensor-core instruction: HMMA counts %s" % counts)
     phase("build", "cuobjdump -sass: HMMA instructions %s" % counts)
 
 
@@ -590,6 +623,36 @@ def beam_kernels_against_plain(rng, device):
             phase("kernel", "beam %s top-5 step and project_topk %s: tie between columns 7 and 9000 -> [7, 9000, ...] "
                   "on all 192 rows; the dense step's logits tie there" % (cell, dn))
     return errs
+
+
+def f32_dense_digests(device):
+    """Phase 3b.  sha256 digests of the f32 dense steps' logits and new
+    states at R = 3 and 192, from inputs of their own seed: the f32
+    instances run the SIMT path, so two builds that print the same digests
+    gave bit-equal outputs."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from show_tell_tpu_torch.ops.fused_attn import fused_attn_dense_step_cuda
+    from show_tell_tpu_torch.ops.fused_beam import fused_dense_step_cuda
+
+    rng = np.random.RandomState(SEED + 1)
+    digest = lambda ts: hashlib.sha256(b"".join(t.cpu().numpy().tobytes() for t in ts)).hexdigest()[:16]
+    for R in (3, 192):
+        for cell, Ec in (("gru", E), ("lstm", LE)):
+            stacked, vocab, x, state = step_inputs(rng, R, torch.float32, device, Ec, cell)
+            logits, new_state = fused_dense_step_cuda(stacked, vocab, x, state)
+            states = new_state if isinstance(new_state, tuple) else (new_state,)
+            phase("kernel", "beam %s dense step float32 R=%d: sha256 of the logits %s, of the new state %s"
+                  % (cell, R, digest([logits]), digest(states)))
+        for cell in ("gru", "lstm"):
+            prep, w_emb, state = attn_inputs(rng, R, torch.float32, device, cell)
+            logits, new_state = fused_attn_dense_step_cuda(prep, w_emb, state)
+            states = new_state if isinstance(new_state, tuple) else (new_state,)
+            phase("kernel", "beam attention %s dense step float32 R=%d: sha256 of the logits %s, of the new state %s"
+                  % (cell, R, digest([logits]), digest(states)))
 
 
 def u8_images(rng, shape, device):
@@ -944,6 +1007,7 @@ def main():
     rng = np.random.RandomState(SEED)
     errs = kernels_against_plain(rng, device)
     errs.update(beam_kernels_against_plain(rng, device))
+    f32_dense_digests(device)
     errs.update(input_kernels_against_plain(rng, device))
     errs.update(decode_kernels_against_plain(rng, device))
     projection_tile_ties(rng, device)
@@ -1378,7 +1442,8 @@ def main():
         s2d = s2d_path(variant, params, bn_state, acfg, requests, counter, attn_plain)
         return {"seconds": seconds, "comp_counts": comp_counts, "counts": counts, "other": {},
                 "beam_seconds": beam_s, "beam_counts": beam_counts, "routes": routes, "beam_share": beam_share,
-                "s2d": s2d}
+                "s2d": s2d, "beam_decode": lambda: attn_beam_search_decode(
+                    acap.prepared, acap.model.decoder, dcfg, feats, K_BEAM, acfg.start_token, END, PAD)}
 
     def cli_path(gru):
         """Phase 5b: N_FILES generated JPEGs through caption_paths (the s2d
@@ -1544,23 +1609,52 @@ def main():
         times["attention_context", B] = (
             event_median_ms(lambda: attention_context_cuda(prep, feats, prep["att1"], h)),
             event_median_ms(lambda: attention_context_plain(prep, feats, prep["att1"], h)))
-    # the beam kernels at R = 3 (B=1) and R = 192 (B=64), K = 3
+    # the beam kernels at R = 3 (B=1) and R = 192 (B=64), K = 3.  The dense steps also with their operands cold in
+    # L2 (a 64 MB write between the spin and the call); at R = 192 the pooled ones beside the stack step (kNone,
+    # the recurrence alone on the SIMT units, so dense minus stack is the vocab phase and the dense end only where
+    # the dense step's recurrence is SIMT too, as before the tensor-core form) and beside their composite
+    # yardstick: one torch.nn.GRU / LSTM step and one cuBLAS addmm for the logits, the module built outside the
+    # timed call
+    library = {}  # kernel -> ms of the one PyTorch call (or composite) that computes its function at the line's shape
+    flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=device)
     for R in (3, 192):
         for cell, Ed in (("gru", E), ("lstm", LE)):
+            name = "fused_%s_dense_step" % cell
             stacked, vocab_w, x, state = step_inputs(rng, R, torch.bfloat16, device, Ed, cell)
-            times["fused_%s_dense_step" % cell, R] = (
-                event_median_ms(lambda: fused_dense_step_cuda(stacked, vocab_w, x, state)),
-                event_median_ms(lambda: fused_dense_step_plain(stacked, vocab_w, x, state)))
+            dense = lambda: fused_dense_step_cuda(stacked, vocab_w, x, state)
+            times[name, R] = (event_median_ms(dense),
+                              event_median_ms(lambda: fused_dense_step_plain(stacked, vocab_w, x, state)))
+            cold = event_median_ms(dense, before=flush_buf.zero_)
             times["fused_%s_topk_step" % cell, R] = (
                 event_median_ms(lambda: fused_topk_step_cuda(stacked, vocab_w, x, state, K_BEAM)),
                 event_median_ms(lambda: fused_topk_step_plain(stacked, vocab_w, x, state, K_BEAM)))
+            split = ""
+            if R == 192:
+                stack_cuda = lstm_stack_step_cuda if cell == "lstm" else gru_stack_step_cuda
+                stack_ms = event_median_ms(lambda: stack_cuda(stacked, x, state))
+                rnn = library_rnn(cell, stacked, Ed)
+                hx = tuple(state) if cell == "lstm" else state
+                wv, bv = vocab_w["w"], vocab_w["b"]
+                with torch.inference_mode():
+                    yard_err = (torch.addmm(bv, rnn(x[None], hx)[0][0], wv.T).float() - dense()[0]).abs().max().item()
+                    library[name] = event_median_ms(lambda: torch.addmm(bv, rnn(x[None], hx)[0][0], wv.T).float(),
+                                                    spin=LIBRARY_SPIN_CYCLES)
+                split = ("; stack step (kNone: the SIMT recurrence alone) %.4f ms, dense minus stack %.4f ms; "
+                         "composite yardstick %s %.4f ms (10 ms spin; its logits within %.3g of the kernel's): "
+                         "kernel / yardstick %.3f"
+                         % (stack_ms, times[name, R][0] - stack_ms, LIBRARY_CALLS[name], library[name], yard_err,
+                            times[name, R][0] / library[name]))
+            phase("times", "%s bf16 %s R=%d: kernel %.4f ms, L2 cold %.4f ms%s %s"
+                  % (card, name, R, times[name, R][0], cold, split, note))
         for name, cell in (("fused_attn_dense_step", "gru"), ("fused_attn_lstm_dense_step", "lstm")):
             prep, w_emb, state = attn_inputs(rng, R, torch.bfloat16, device, cell)
-            times[name, R] = (event_median_ms(lambda: fused_attn_dense_step_cuda(prep, w_emb, state)),
+            dense = lambda: fused_attn_dense_step_cuda(prep, w_emb, state)
+            times[name, R] = (event_median_ms(dense),
                               event_median_ms(lambda: fused_attn_dense_step_plain(prep, w_emb, state)))
+            phase("times", "%s bf16 %s R=%d: kernel %.4f ms, L2 cold %.4f ms %s"
+                  % (card, name, R, times[name, R][0], event_median_ms(dense, before=flush_buf.zero_), note))
     # the sharded-projection route's stack steps, and the whole decode (T=25 steps in one call)
     whole_rows = {}  # B -> the distinct embedding rows the timed whole decode fed back (its bound's bytes)
-    library = {}  # kernel -> ms of the one PyTorch call that computes its function at the kernels line's shape
     for B in (1, 64, 512):
         for name, cell, Ed, cuda_step, plain_step in (("gru_stack_step", "gru", E, gru_stack_step_cuda, gru_stack_plain),
                                                       ("lstm_stack_step", "lstm", LE, lstm_stack_step_cuda,
@@ -1599,7 +1693,6 @@ def main():
     # warm in L2, as the earlier PRs timed them, and cold (a 64 MB write between the spin and the call)
     vocab_t = vocab_inputs(rng, H, torch.bfloat16, device)
     w, b = vocab_t["w"], vocab_t["b"]
-    flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=device)
     projections = (
         ("project_argmax", (1, 64, 256), lambda h: project_argmax_cuda(vocab_t, h),
          lambda h: project_argmax_plain(vocab_t, h), lambda h: torch.addmm(b, h, w.T).argmax(dim=-1)),
@@ -1706,6 +1799,19 @@ def main():
             beam_search_decode(gru["cap"].prepared, gru["cap"].cfg.decoder_config(), feats1, K_BEAM, END, PAD)
             torch.cuda.synchronize()
             one.append(time.perf_counter() - t0)
+    attn_ms = []
+    with torch.inference_mode():
+        for rep in range(6):  # one warm-up, then 5 timed
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            slices["attn"]["beam_decode"]()
+            torch.cuda.synchronize()
+            if rep:
+                attn_ms.append(1e3 * (time.perf_counter() - t0))
+    phase("times", "%s attention-GRU dense beam decode, B=64, K=3, 25 steps (host clock, median [min, max] of 5): "
+          "%.3f ms [%.3f, %.3f], of which the 24 step kernels %.3f ms (kernel time at R=192)"
+          % (card, statistics.median(attn_ms), min(attn_ms), max(attn_ms),
+             (T - 1) * times["fused_attn_dense_step", 192][0]))
     for Bq, decode_ms in ((1, 1e3 * statistics.median(one)), (64, 1e3 * statistics.median(route_s["dense"]))):
         kernel_ms = (T - 1) * times["fused_gru_dense_step", Bq * K_BEAM][0]
         phase("times", "%s pooled-GRU dense beam decode, B=%d, K=3: %.3f ms a decode (host clock), of which the 24 "

@@ -279,14 +279,14 @@ __device__ void rnn_layer(const Layer<T>& y, float* xs, float* hsm) {
   }
 }
 
-// Layer l of a decode step's recurrence.  A kernel templated on the cell
-// calls it for l = 0..L-1 with a grid barrier after each.
+// Layer l of the stack as pointers into StackArgs: its input is x (l = 0)
+// or layer l-1's output in new_hs.
 template <typename T, typename Cell>
-__device__ void stack_layer(const StackArgs& s, int l, float* smem) {
+__device__ __forceinline__ Layer<T> stack_layer_args(const StackArgs& s, int l) {
   const size_t GH = static_cast<size_t>(Cell::kGates) * s.H;
   const size_t BH = static_cast<size_t>(s.B) * s.H;
   const T* new_hs = static_cast<const T*>(s.new_hs);
-  const Layer<T> y{
+  return Layer<T>{
       l == 0 ? static_cast<const T*>(s.x) : new_hs + (l - 1) * BH,
       static_cast<const T*>(s.hs) + l * BH,
       s.cs ? static_cast<const T*>(s.cs) + l * BH : nullptr,
@@ -300,9 +300,15 @@ __device__ void stack_layer(const StackArgs& s, int l, float* smem) {
       s.B,
       s.H,
   };
+}
+
+// Layer l of a decode step's recurrence.  A kernel templated on the cell
+// calls it for l = 0..L-1 with a grid barrier after each.
+template <typename T, typename Cell>
+__device__ void stack_layer(const StackArgs& s, int l, float* smem) {
   float* xs = smem;
   float* hsm = smem + static_cast<size_t>(kBM) * (s.I0 > s.H ? s.I0 : s.H);
-  rnn_layer<T, Cell>(y, xs, hsm);
+  rnn_layer<T, Cell>(stack_layer_args<T, Cell>(s, l), xs, hsm);
 }
 
 // The vocab projection  logit = top[b] . wv[v] + bv[v]  (f32) for all B

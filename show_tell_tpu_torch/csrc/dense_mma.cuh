@@ -1,0 +1,269 @@
+// The bf16 dense beam steps on Hopper's tensor cores: the recurrence and
+// the vocab projection of fused_step.cu's and fused_attn_step.cu's kDense
+// instances in bf16, as mma.sync m16n8k16 products (bf16 in, f32 sums).
+// The f32 instances and every other end keep the SIMT code of
+// decode_common.cuh.
+//
+// What bounds a dense step on an H100: at R = 192 beam rows it reads
+// 15-23 MB of recurrence weights and the 10.2 MB projection, all of it
+// inside the 50 MB L2, and writes R x V f32 logits (7.6 MB); its 5-8 GFLOP
+// are about 5-8 us on the tensor cores.  The SIMT code converted every
+// weight to f32 and re-read it once per 8 batch rows (24 times at R = 192),
+// and its dense end stored each logit alone, 4 bytes at a stride of V.
+//
+// The design:
+// - Products: rows of a weight matrix (gate rows, vocabulary rows) are M,
+//   batch rows are N, both K-contiguous in their torch layouts, so an
+//   m16n8k16 A fragment (row-major) and B fragment (column-major) are
+//   plain row reads.  Fragments are loaded straight from global memory
+//   into registers (weights by ld.global.nc, activations through L2 only,
+//   as other blocks wrote them in this launch), with no shared-memory ring:
+//   each weight fragment is used by one warp only, and the SIMT phases of
+//   the same launch (attention's A1 and A2) keep the occupancy of a small
+//   shared-memory footprint.  K is permuted inside each 32-column chunk,
+//   the same way for A and B, so that lane (g, t) reads 16 contiguous
+//   bytes of a row (columns 8t .. 8t+7) and feeds them to two k16 steps:
+//   columns 8t..8t+3 to the first, 8t+4..8t+7 to the second.  A warp's
+//   load is then 8 rows x 64 contiguous bytes.  Each chunk's loads are
+//   issued kMmaDepth - 1 chunks ahead of its mma (a ring of register
+//   buffers).
+// - Items: a block of kThreads = 128 threads (the SIMT phases' block) takes
+//   an item of kMmaSlots m16 row tiles x kMmaSlab = 32 batch rows, and its
+//   four warps split K into four runs of chunks (split-K), so a small R
+//   still spreads over the SMs.  The recurrence's tile is 16 columns j of
+//   every gate (rows g*H + j of w_ih and w_hh); the GRU keeps four sums,
+//   r and z over both sides, n's x side and n's h side apart; the LSTM its
+//   four gates.  The vocabulary's tile is 64 rows.  Items go round the
+//   cooperative grid; a layer ends in the grid barrier, as before.
+// - Staging: each warp writes its 64 f32 sums a lane to shared memory
+//   (kMmaPitch = 33 floats a row of 32 lanes), and after one barrier the
+//   block's threads add the four warps' sums in warp order.  The
+//   recurrence then finishes column j of a row in f32 with the cells of
+//   decode_common.cuh (GruCell::finish, LstmCell::finish), unchanged; the
+//   vocabulary adds the bias and stores each batch row's 64 logits as one
+//   contiguous run (a warp writes 128 contiguous bytes).
+// - Ragged edges: rows j >= H, v >= V and n >= R, and columns from K up to
+//   the chunk's 32, are zeros in registers (never loaded); only j < H,
+//   v < V and n < R are written.  K need only be a multiple of 8.
+
+#pragma once
+
+#include <type_traits>
+
+#include "vocab_mma.cuh"
+
+namespace {
+
+constexpr int kMmaSlab = 32;                   // batch rows of an item: four n8 tiles
+constexpr int kMmaChunk = 32;                  // K columns a step of a warp: two k16 mma steps
+constexpr int kMmaSlots = 4;                   // m16 accumulator tiles of an item
+constexpr int kMmaVals = kMmaSlots * 4 * 4;    // f32 sums a lane: slots x n8 tiles x 4
+constexpr int kMmaPitch = 33;                  // floats a staged row of 32 lanes
+constexpr int kMmaVocabRows = 16 * kMmaSlots;  // vocabulary rows of an item
+constexpr int kMmaDepth = 2;                   // register buffers of a warp's chunk pipeline (3 and 4 ran slower)
+constexpr size_t kMmaSmemFloats = static_cast<size_t>(kWarps) * kMmaVals * kMmaPitch;
+
+// Whether a fused step's instance runs this file's code: the dense end in bf16.
+template <int kMode, typename T>
+__host__ __device__ constexpr bool dense_mma() {
+  return kMode == kDense && std::is_same<T, __nv_bfloat16>::value;
+}
+
+// One chunk of a lane's fragments: rows g and g + 8 of each A tile, rows
+// g, 8 + g, 16 + g, 24 + g of the batch slab.
+struct MmaChunk {
+  uint4 a[kMmaSlots][2];
+  uint4 b[4];
+};
+
+// A: NA m16 row tiles, tile i at a + i * tile_step, its row r at + r * K; row r
+// of tile i is real while r + i * row_step < a_rows.  B: the slab's rows at
+// b, nb of them real.  Columns k0 + 8t .. k0 + 8t + 7 of each, zero past K.
+template <int NA>
+__device__ __forceinline__ void mma_load(MmaChunk& f, const __nv_bfloat16* a, size_t tile_step, int a_rows,
+                                         int row_step, const __nv_bfloat16* b, int nb, int K, int k0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, k = k0 + 8 * (lane & 3);
+  const bool in_k = k < K;
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+  for (int i = 0; i < NA; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = g + 8 * h;
+      f.a[i][h] = in_k && r + i * row_step < a_rows
+                      ? __ldg(reinterpret_cast<const uint4*>(a + i * tile_step + static_cast<size_t>(r) * K + k))
+                      : zero;
+    }
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    const int n = 8 * nt + g;
+    f.b[nt] = in_k && n < nb ? __ldcg(reinterpret_cast<const uint4*>(b + static_cast<size_t>(n) * K + k)) : zero;
+  }
+}
+
+// acc[nt] += tile i of the chunk x its n8 tiles nt < nts (those holding
+// real rows; the rest stay 0): the two k16 steps.
+__device__ __forceinline__ void mma_tile(float (&acc)[4][4], const MmaChunk& f, int i, int nts) {
+  const uint32_t lo[4] = {f.a[i][0].x, f.a[i][1].x, f.a[i][0].y, f.a[i][1].y};
+  const uint32_t hi[4] = {f.a[i][0].z, f.a[i][1].z, f.a[i][0].w, f.a[i][1].w};
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    if (nt < nts) {
+      mma_bf16_16816(acc[nt], lo, f.b[nt].x, f.b[nt].y);
+      mma_bf16_16816(acc[nt], hi, f.b[nt].z, f.b[nt].w);
+    }
+  }
+}
+
+__device__ __forceinline__ void mma_zero(float (&acc)[kMmaSlots][4][4]) {
+#pragma unroll
+  for (int s = 0; s < kMmaSlots; ++s)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[s][nt][e] = 0.0f;
+}
+
+// Chunks [c0, c1) through load(f, c) and then compute(f, c), the loads of
+// the next kMmaDepth - 1 chunks in flight while one is computed (a ring of
+// register buffers, unrolled so that every index is static).
+template <typename Load, typename Compute>
+__device__ __forceinline__ void mma_pipeline(int c0, int c1, Load load, Compute compute) {
+  MmaChunk buf[kMmaDepth];
+#pragma unroll
+  for (int d = 0; d + 1 < kMmaDepth; ++d)
+    if (c0 + d < c1) load(buf[d], c0 + d);
+  for (int c = c0; c < c1; c += kMmaDepth) {
+#pragma unroll
+    for (int d = 0; d < kMmaDepth; ++d) {
+      if (c + d < c1) {
+        if (c + d + kMmaDepth - 1 < c1) load(buf[(d + kMmaDepth - 1) % kMmaDepth], c + d + kMmaDepth - 1);
+        compute(buf[d], c + d);
+      }
+    }
+  }
+}
+
+// Chunks [c0, c1) of this warp's split of n_chunks.
+__device__ __forceinline__ void mma_split(int n_chunks, int& c0, int& c1) {
+  const int warp = threadIdx.x >> 5;
+  c0 = warp * n_chunks / kWarps;
+  c1 = (warp + 1) * n_chunks / kWarps;
+}
+
+// Each warp's sums into shared memory, then the barrier after which any thread may read them.
+__device__ __forceinline__ void mma_stage(const float (&acc)[kMmaSlots][4][4], float* red) {
+  const int lane = threadIdx.x & 31;
+  float* mine = red + (threadIdx.x >> 5) * kMmaVals * kMmaPitch;
+#pragma unroll
+  for (int s = 0; s < kMmaSlots; ++s)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mine[((s * 4 + nt) * 4 + e) * kMmaPitch + lane] = acc[s][nt][e];
+  __syncthreads();
+}
+
+// The item's sum at slot s, tile row m (0..15) and slab row n (0..31), over
+// the four warps in order.  Accumulator e of lane 4g + t holds row g + 8(e/2),
+// column 2t + e%2 of its n8 tile.
+__device__ __forceinline__ float mma_sum(const float* red, int s, int m, int n) {
+  const int at = ((s * 4 + (n >> 3)) * 4 + 2 * (m >> 3) + (n & 1)) * kMmaPitch + 4 * (m & 7) + ((n & 7) >> 1);
+  float v = red[at];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) v += red[w * kMmaVals * kMmaPitch + at];
+  return v;
+}
+
+// One layer of the recurrence over all B rows, by (16 columns, 32 rows)
+// items.  K is the layer input's I columns, then h's H.
+template <typename Cell>
+__device__ void mma_rnn_layer(const Layer<__nv_bfloat16>& y, float* red) {
+  constexpr int G = Cell::kGates;
+  const int H = y.H, I = y.I;
+  const int cx = (I + kMmaChunk - 1) / kMmaChunk, n_chunks = cx + (H + kMmaChunk - 1) / kMmaChunk;
+  int c0, c1;
+  mma_split(n_chunks, c0, c1);
+  const int slabs = (y.B + kMmaSlab - 1) / kMmaSlab, items = slabs * ((H + 15) / 16);
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    const int n0 = (item % slabs) * kMmaSlab, j0 = (item / slabs) * 16;
+    const int nb = min(kMmaSlab, y.B - n0), nts = (nb + 7) / 8;
+    auto load = [&](MmaChunk& f, int c) {
+      if (c < cx)
+        mma_load<G>(f, y.w_ih + static_cast<size_t>(j0) * I, static_cast<size_t>(H) * I, H - j0, 0,
+                    y.xin + static_cast<size_t>(n0) * I, nb, I, c * kMmaChunk);
+      else
+        mma_load<G>(f, y.w_hh + static_cast<size_t>(j0) * H, static_cast<size_t>(H) * H, H - j0, 0,
+                    y.hin + static_cast<size_t>(n0) * H, nb, H, (c - cx) * kMmaChunk);
+    };
+    float acc[kMmaSlots][4][4];
+    mma_zero(acc);
+    mma_pipeline(c0, c1, load, [&](const MmaChunk& f, int c) {
+#pragma unroll
+      for (int i = 0; i < G; ++i) {
+        if (G == 3 && i == 2 && c >= cx)
+          mma_tile(acc[3], f, i, nts);  // the GRU's n gate: the h side apart
+        else
+          mma_tile(acc[i], f, i, nts);
+      }
+    });
+    __syncthreads();  // the previous item's finish is done with red
+    mma_stage(acc, red);
+    for (int o = threadIdx.x; o < 16 * kMmaSlab; o += kThreads) {
+      const int m = o & 15, n = o >> 4, j = j0 + m;
+      if (n < nb && j < H) {
+        // GruCell: r and z over both sides in the x-side slots (their h-side sums 0), n apart
+        float s[Cell::kAcc] = {};
+        s[0] = mma_sum(red, 0, m, n);
+        s[1] = mma_sum(red, 1, m, n);
+        s[2] = mma_sum(red, 2, m, n);
+        if constexpr (G == 3)
+          s[5] = mma_sum(red, 3, m, n);
+        else
+          s[3] = mma_sum(red, 3, m, n);
+        const int row = n0 + n;
+        const float h = Cell::kHidden ? __bfloat162float(y.hin[static_cast<size_t>(row) * H + j]) : 0.0f;
+        Cell::template finish<__nv_bfloat16>(y, s, row, j, h);
+      }
+    }
+  }
+}
+
+// Layer l of the stack on the tensor cores (stack_layer's operands).
+template <typename Cell>
+__device__ void mma_stack_layer(const StackArgs& s, int l, float* red) {
+  mma_rnn_layer<Cell>(stack_layer_args<__nv_bfloat16, Cell>(s, l), red);
+}
+
+// logits[b, v] = top[b] . wv[v] + bv[v] in f32 for all B rows, by (64
+// vocabulary rows, 32 batch rows) items; top [B, H], wv [V, H].
+__device__ void mma_dense_logits(const __nv_bfloat16* top, const __nv_bfloat16* wv, const __nv_bfloat16* bv, int B,
+                                 int H, int V, float* logits, float* red) {
+  int c0, c1;
+  mma_split((H + kMmaChunk - 1) / kMmaChunk, c0, c1);
+  const int slabs = (B + kMmaSlab - 1) / kMmaSlab, items = slabs * ((V + kMmaVocabRows - 1) / kMmaVocabRows);
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    const int n0 = (item % slabs) * kMmaSlab, v0 = (item / slabs) * kMmaVocabRows;
+    const int nb = min(kMmaSlab, B - n0), nts = (nb + 7) / 8;
+    auto load = [&](MmaChunk& f, int c) {
+      mma_load<kMmaSlots>(f, wv + static_cast<size_t>(v0) * H, static_cast<size_t>(16) * H, V - v0, 16,
+                          top + static_cast<size_t>(n0) * H, nb, H, c * kMmaChunk);
+    };
+    float acc[kMmaSlots][4][4];
+    mma_zero(acc);
+    mma_pipeline(c0, c1, load, [&](const MmaChunk& f, int) {
+#pragma unroll
+      for (int i = 0; i < kMmaSlots; ++i) mma_tile(acc[i], f, i, nts);
+    });
+    __syncthreads();
+    mma_stage(acc, red);
+    // a batch row's 64 logits, one contiguous run: consecutive threads take consecutive v
+    for (int o = threadIdx.x; o < kMmaVocabRows * kMmaSlab; o += kThreads) {
+      const int m = o % kMmaVocabRows, n = o / kMmaVocabRows, v = v0 + m;
+      if (n < nb && v < V)
+        logits[static_cast<size_t>(n0 + n) * V + v] = mma_sum(red, m >> 4, m & 15, n) + __bfloat162float(bv[v]);
+    }
+  }
+}
+
+}  // namespace

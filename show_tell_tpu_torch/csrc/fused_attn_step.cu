@@ -29,11 +29,12 @@
 // each, W_dec 512 x 512, the vocabulary 9,956 x 512) plus 2 x B x 49 x
 // 512 values of att1 and feats_e: 6.4 MB at B=64, all of it inside the
 // 50 MB L2.  At beam's B = 192 rows att1 and feats_e are 19.3 MB and the
-// dense logits another 7.6 MB written.  As in the pooled step the weights
-// are streamed once per kBM-row batch tile and multiplied on the SIMT
-// units in f32; the
+// dense logits another 7.6 MB written.  As in the pooled step the SIMT
+// code streams the weights once per kBM-row batch tile and multiplies in
+// f32; the bf16 dense instances run the recurrence and the projection on
+// the tensor cores (dense_mma.cuh), at this kernel's 128-thread block.  The
 // attention adds little work (2 x 49 x 512 multiply-adds a row) but three
-// more grid barriers.
+// more grid barriers, and its phases A1 and A2 stay SIMT in every instance.
 // The design:
 //   * phase A1 computes att2 for all rows as a (batch tile, column range)
 //     product like a GRU layer, so W_dec is read once per tile and every
@@ -46,13 +47,17 @@
 //   * the recurrence and projection reuse decode_common.cuh.  Layer 0 is
 //     2E wide, so the shared-memory input tile is sized by max(2E, H):
 //     8 x (1024 + 512) f32 = 48 KiB at the flagship, the default limit;
-//     launch_cooperative raises the limit for wider tiles;
-//   * the dense end is fused_step.cu's: lane b stores row b's logit, so
-//     the stores stride by V (uncoalesced).
+//     launch_cooperative raises the limit for wider tiles.  The bf16 dense
+//     instances need max(A1's 8 rows of h, A2's A + P scores, the staged
+//     tensor-core sums): 33 KiB at the flagship;
+//   * the dense end is fused_step.cu's: f32 stores stride by V, bf16
+//     stores each row's 64 logits of a tile as one run (dense_mma.cuh).
 // The TPU kernel ran the attention in 8-row sub-stages of a sequential
 // grid to bound VMEM; here the grid barriers order the phases instead.
 
-#include "decode_common.cuh"
+#include <algorithm>
+
+#include "dense_mma.cuh"
 
 namespace {
 
@@ -194,18 +199,26 @@ __global__ void __launch_bounds__(kThreads) fused_attn_step_kernel(Params p) {
   attention_context_e<T>(p, smem);
   grid.sync();  // x = cat(w_emb, ctx_e) is complete
   for (int l = 0; l < s.L; ++l) {
-    stack_layer<T, Cell>(s, l, smem);
+    if constexpr (dense_mma<kMode, T>())
+      mma_stack_layer<Cell>(s, l, smem);
+    else
+      stack_layer<T, Cell>(s, l, smem);
     grid.sync();
   }
   const T* top = static_cast<const T*>(s.new_hs) + static_cast<size_t>(s.L - 1) * s.B * s.H;
-  vocab_phase<kMode, T>(top, static_cast<const T*>(p.wv), static_cast<const T*>(p.bv), s.B, s.H, p.V, p.out, smem,
-                        grid);
+  if constexpr (dense_mma<kMode, T>())
+    mma_dense_logits(top, static_cast<const T*>(p.wv), static_cast<const T*>(p.bv), s.B, s.H, p.V, p.out.logits,
+                     smem);
+  else
+    vocab_phase<kMode, T>(top, static_cast<const T*>(p.wv), static_cast<const T*>(p.bv), s.B, s.H, p.V, p.out,
+                          smem, grid);
 }
 
 template <typename T, typename Cell, int kMode>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  const size_t attn = static_cast<size_t>(p.A) + p.P;
-  const size_t stack = stack_smem_floats(p.stack);
+  // A1's kBM rows of h and A2's scores beside the recurrence's tiles (the bf16 dense form: its staged sums)
+  const size_t attn = std::max(static_cast<size_t>(p.A) + p.P, static_cast<size_t>(kBM) * p.stack.H);
+  const size_t stack = dense_mma<kMode, T>() ? kMmaSmemFloats : stack_smem_floats(p.stack);
   Params args = p;
   void* argv[] = {&args};
   return launch_cooperative(fused_attn_step_kernel<T, Cell, kMode>, (attn > stack ? attn : stack) * sizeof(float),

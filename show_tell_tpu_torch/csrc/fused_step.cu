@@ -38,9 +38,11 @@
 // 25 MB (GRU) and 31 MB (LSTM) in bf16, both inside the 50 MB L2 cache.
 // The dense end adds B x V x 4 bytes of logits (7.6 MB at B = 192 beam
 // rows); the top-K end writes only [B, K] and a few MB of per-part scratch.
-// At small batches the step is bound by those bytes; each weight row is
-// read once per batch tile of kBM rows, so at large batches it turns into
-// an f32 SIMT FMA loop (no tensor cores in this version).
+// At small batches the step is bound by those bytes.  The SIMT code below
+// reads each weight row once per batch tile of kBM rows, so at large
+// batches it turns into an f32 FMA loop; the bf16 dense instances instead
+// run the recurrence and the projection on the tensor cores
+// (dense_mma.cuh: mma.sync, weights re-read once per 32 beam rows).
 // The stack step (kNone) reads the recurrence weights alone: 14.9 MB (GRU,
 // E=256) and 21.0 MB (LSTM, E=512) in bf16, plus [L, B, H] states in and
 // out; its bound is those bytes, 4.5 and 6.3 us at 3.35 TB/s at small B.
@@ -64,8 +66,9 @@
 //     merges the parts by the same 64-bit key order (jax.lax.top_k's tie
 //     rule) and forms lse.  The wrapper sizes the scratch from a bound on
 //     the grid (the SM count times 16 resident 128-thread blocks);
-//   * the dense end stores lane b's logit at logits[b, v]: those stores
-//     stride by V, uncoalesced (what later work would fix);
+//   * the dense end: in f32, lane b stores its logit at logits[b, v],
+//     stores that stride by V; in bf16, dense_mma.cuh stages each tile's
+//     logits in shared memory and stores each row's 64 as one run;
 //   * the grid is sized from the occupancy of this kernel times the SM
 //     count, and each block walks over (batch tile, column range) items,
 //     so any B, H and V run, and at B=1 every SM still gets columns;
@@ -73,7 +76,7 @@
 //     a warp holds kBM x 4 sums, fewer than the GRU's kBM x 6.
 // The vocabulary is not padded: the last columns are simply the last items.
 
-#include "decode_common.cuh"
+#include "dense_mma.cuh"
 
 namespace {
 
@@ -93,20 +96,27 @@ __global__ void __launch_bounds__(kThreads) fused_step_kernel(Params p) {
   if constexpr (kMode == kArgmax)
     for (int b = grid_thread(); b < s.B; b += grid_threads()) p.out.best[b] = 0ull;  // below every packed key
   for (int l = 0; l < s.L; ++l) {
-    stack_layer<T, Cell>(s, l, smem);
+    if constexpr (dense_mma<kMode, T>())
+      mma_stack_layer<Cell>(s, l, smem);
+    else
+      stack_layer<T, Cell>(s, l, smem);
     if (kMode != kNone || l + 1 < s.L) grid.sync();  // layer l's h' is complete in new_hs
   }
   const T* top = static_cast<const T*>(s.new_hs) + static_cast<size_t>(s.L - 1) * s.B * s.H;
-  vocab_phase<kMode, T>(top, static_cast<const T*>(p.wv), static_cast<const T*>(p.bv), s.B, s.H, p.V, p.out, smem,
-                        grid);
+  if constexpr (dense_mma<kMode, T>())
+    mma_dense_logits(top, static_cast<const T*>(p.wv), static_cast<const T*>(p.bv), s.B, s.H, p.V, p.out.logits,
+                     smem);
+  else
+    vocab_phase<kMode, T>(top, static_cast<const T*>(p.wv), static_cast<const T*>(p.bv), s.B, s.H, p.V, p.out,
+                          smem, grid);
 }
 
 template <typename T, typename Cell, int kMode>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   Params args = p;
   void* argv[] = {&args};
-  return launch_cooperative(fused_step_kernel<T, Cell, kMode>, stack_smem_floats(p.stack) * sizeof(float), argv,
-                            stream);
+  const size_t floats = dense_mma<kMode, T>() ? kMmaSmemFloats : stack_smem_floats(p.stack);
+  return launch_cooperative(fused_step_kernel<T, Cell, kMode>, floats * sizeof(float), argv, stream);
 }
 
 template <typename Cell, int kMode>

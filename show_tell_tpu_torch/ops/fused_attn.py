@@ -25,6 +25,7 @@ import torch
 
 from show_tell_tpu_torch.ops import check_tensor, check_widths, dtype_code, raise_on_error, stream_arg, uses_kernel
 from show_tell_tpu_torch.ops.attention import attention_alpha_plain, precompute_att1
+from show_tell_tpu_torch.ops.fused_beam import dense_tiles
 from show_tell_tpu_torch.ops.fused_step import check_stack
 from show_tell_tpu_torch.ops.rnn import LstmState, State, prepare_rnn_weights, stack_plain
 from show_tell_tpu_torch.ops.vocab import prepare_vocab, project_argmax_plain, project_logits
@@ -129,6 +130,8 @@ def _fused_attn_cuda(prep, w_emb, state: State, dense: bool):
     check_tensor("b_emb", prep["b_emb"], (E,), dtype, device)
     check_tensor("vocab w", prep["vocab"]["w"], (V, H), dtype, device)
     check_tensor("vocab b", prep["vocab"]["b"], (V,), dtype, device)
+    if dense and dtype == torch.bfloat16:
+        dense_tiles(B, 2 * E, H, V, (A, P))
     lib = load_library()
     stacked, vocab = prep["stacked"], prep["vocab"]
     x = torch.empty(B, 2 * E, dtype=dtype, device=device)

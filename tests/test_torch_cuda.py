@@ -54,6 +54,7 @@ from show_tell_tpu_torch.ops.s2d_stem import space_to_depth
 from show_tell_tpu_torch.ops.stem import prepare_stem, stem_fused, stem_fused_plain
 from show_tell_tpu_torch.ops.whole_decode import gru_whole_greedy_decode
 from show_tell_tpu_torch.ops.vocab import (
+    first_max_argmax,
     prepare_vocab,
     project_argmax,
     project_argmax_plain,
@@ -280,8 +281,10 @@ def test_lstm_wrappers_reject_a_bad_cell_state(cuda):
 # above 1e-5 on an H100).
 BEAM_TOL = 1e-4
 BEAM_STATE_TOL = {torch.float32: 2e-5, torch.bfloat16: TOL[torch.bfloat16][0]}
-# (R, E, H, V, L): R = B x K beam rows, not all multiples of 8; the last at the flagship widths
-BEAM_SHAPES = [(3, 16, 24, 40, 2), (5, 32, 16, 40, 2), (19, 64, 128, 1001, 3), (192, 256, 512, 9956, 5)]
+# (R, E, H, V, L): R = B x K beam rows, not all multiples of 8 (nor of the bf16 dense tiles' 32-row slabs); H=24
+# pads K to the tiles' 32; E=40 is not a multiple of 16; the last two at the flagship widths
+BEAM_SHAPES = [(3, 16, 24, 40, 2), (5, 32, 16, 40, 2), (19, 64, 128, 1001, 3), (1, 40, 24, 77, 2),
+               (65, 40, 24, 1001, 2), (64, 256, 512, 9956, 5), (192, 256, 512, 9956, 5)]
 
 
 def _state(cell, hs, seed):
@@ -340,7 +343,8 @@ def test_fused_topk_step_kernel_matches_plain(cuda, cell, dtype, R, E, H, V, L, 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("R,E,H,A,P,V,L", [(3, 16, 24, 16, 5, 40, 1), (19, 64, 128, 32, 7, 1001, 3),
-                                           (192, 512, 512, 512, 49, 9956, 5)])
+                                           (1, 24, 24, 16, 5, 77, 2), (65, 40, 24, 32, 7, 1001, 2),
+                                           (64, 512, 512, 512, 49, 9956, 5), (192, 512, 512, 512, 49, 9956, 5)])
 @pytest.mark.parametrize("cell", ["gru", "lstm"])
 def test_fused_attn_dense_kernel_matches_plain(cuda, cell, dtype, R, E, H, A, P, V, L):
     prep, w_emb, hs = _attn_prep(R, E, H, A, P, V, L, dtype, cuda, gates=4 if cell == "lstm" else 3)
@@ -397,6 +401,50 @@ def test_beam_kernels_order_ties_lower_index_first(cuda):
         assert project_topk(vocab, _top(new_state).contiguous(), 2)[1].tolist() == [[7, 900]] * 21
         logits, _ = fused_dense_step(stacked, vocab, x, state)
         assert torch.equal(logits[:, 7], logits[:, 900])
+
+
+@pytest.mark.parametrize("V", [1001, 9956])
+def test_bf16_dense_logits_tie_across_the_first_and_last_vocab_tiles(cuda, V):
+    """Columns 5 (the first 64-row tile of the bf16 dense steps) and V - 2
+    (the last) equal and top in every row: their logits are equal, and the
+    first-max argmax of the logits is 5, for the pooled and the attention
+    dense steps, both cells, R = 65 (a partial slab)."""
+    R = 65
+    for cell in ("gru", "lstm"):
+        gates = 4 if cell == "lstm" else 3
+        stacked, vocab, x, hs = _inputs(R, 40, 512, V, 2, torch.bfloat16, cuda, seed=15, gates=gates)
+        prep, w_emb, ahs = _attn_prep(R, 40, 512, 32, 7, V, 2, torch.bfloat16, cuda, seed=16, gates=gates)
+        runs = [(fused_dense_step, stacked, vocab, x, _state(cell, hs, 17)),
+                (fused_attn_lstm_dense_step if cell == "lstm" else fused_attn_dense_step, prep, prep["vocab"], w_emb,
+                 _state(cell, ahs, 18))]
+        for step, weights, voc, inp, state in runs:
+            voc["w"][V - 2] = voc["w"][5]
+            voc["b"][5] = voc["b"][V - 2] = 50.0
+            logits, _ = step(weights, voc, inp, state) if step is fused_dense_step else step(weights, inp, state)
+            torch.cuda.synchronize()
+            assert torch.equal(logits[:, 5], logits[:, V - 2])
+            assert logits.argmax(dim=1).tolist() == [5] * R
+
+
+@pytest.mark.parametrize("R,E,H,V,L", [(3, 16, 24, 40, 2), (65, 40, 24, 1001, 2), (192, 256, 512, 9956, 5)])
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_f32_dense_step_runs_the_simt_code(cuda, cell, R, E, H, V, L):
+    """The f32 dense instances keep the SIMT code of the other ends: their new
+    state is bit-equal to the stack step's and the top-k step's, and the
+    first-max argmax of their logits is the greedy step's token on every row
+    (the same per-column sums)."""
+    stacked, vocab, x, hs = _inputs(R, E, H, V, L, torch.float32, cuda, seed=19, gates=4 if cell == "lstm" else 3)
+    state = _state(cell, hs, 20)
+    logits, new_state = fused_dense_step(stacked, vocab, x, state)
+    stack = lstm_stack_step if cell == "lstm" else gru_stack_step
+    greedy = fused_lstm_decode_step if cell == "lstm" else fused_gru_decode_step
+    others = [stack(stacked, x, state)[1], fused_topk_step(stacked, vocab, x, state, 3)[1]]
+    tok, greedy_state = greedy(stacked, vocab, x, state)
+    torch.cuda.synchronize()
+    for other in others + [greedy_state]:
+        for a, b in zip(new_state if cell == "lstm" else (new_state,), other if cell == "lstm" else (other,)):
+            assert torch.equal(a, b)
+    assert torch.equal(first_max_argmax(logits), tok)
 
 
 def test_beam_wrappers_reject_what_they_do_not_take(cuda):
