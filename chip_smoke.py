@@ -8,8 +8,10 @@ Phases, one line each (any failure exits non-zero with no ok line):
   2. build: the CUDA kernels from show_tell_tpu_torch/csrc, with nvcc, and
      beside them the grid-barrier probe (grid_barrier_probe.cu); ptxas's
      registers, stack and spills of the tensor-core instances (the bf16
-     projection kernels, vocab_mma.cuh; the four bf16 dense beam steps,
-     dense_mma.cuh) and the tensor-core (HMMA) instructions in their SASS;
+     projection kernels, vocab_mma.cuh; the seven bf16 fused steps of
+     dense_mma.cuh: the four dense beam steps, the attention greedy step's
+     two cells and the pooled LSTM greedy step) and the tensor-core (HMMA)
+     instructions in their SASS;
   3. kernel against plain, at the flagship widths: the pooled fused step,
      GRU (L=5, E=256, H=512, V=9,956; B = 1, 64, 512; and E=1024 > H) and
      LSTM (E=512, same B); the fused attention step, GRU and LSTM (L=5,
@@ -22,8 +24,9 @@ Phases, one line each (any failure exits non-zero with no ok line):
      step's dense form (both cells), the projection + top-k; logits and
      top-k against the plain projection of the kernel's own new top
      activation, and top-k ties listed lower index first; digests of the
-     f32 dense steps' outputs (the SIMT path: two builds that print the
-     same digests agree bit for bit);
+     f32 dense steps' outputs and of the greedy steps that keep the SIMT
+     code (every f32 instance, the bf16 pooled GRU) at B = 1 and 64 (two
+     builds that print the same digests agree bit for bit);
   3c. input kernels against plain, f32 and bf16: the preprocess (C = 3
      and 12, B = 1 and 64, and two odd shapes) bit for bit; the fused stem
      (s2d and RGB layouts, pool on and off, B = 1 and 64) within STEM_TOL;
@@ -71,8 +74,10 @@ Phases, one line each (any failure exits non-zero with no ok line):
      second run all cache hits; then once with --fast_jpeg 1 (the native
      decoder's scaled decode), captions equal to caption_paths' with it.
      Which JPEG decoder ran (native libjpeg or PIL), and why, is printed;
-  6. times: per-step kernel and plain times, captions/s of each slice,
-     greedy and beam, and the pooled GRU's beam routes side by side; the
+  6. times: per-step kernel and plain times (the tensor-core greedy steps
+     also with their operands cold in L2), captions/s of each slice,
+     greedy and beam, greedy also over 12 requests a family in turns
+     (median [min, max]), and the pooled GRU's beam routes side by side; the
      input kernels against their twins and yardsticks, and the stages of a
      stock and an s2d request; the A/B behind whole_decode_default(): the
      whole-decode kernel against the per-step loop at B = 1, 64, 512, bf16
@@ -135,6 +140,7 @@ SPIN_CYCLES = 2_000_000  # about 1 ms at the H100's 1.98 GHz boost clock: longer
 LIBRARY_SPIN_CYCLES = 10 * SPIN_CYCLES
 AB_ROUNDS, AB_REPS = 10, 5  # whole decode against the per-step loop: rounds in turns, decodes timed together in each
 BARRIERS = 1000  # grid barriers in one timed launch of the barrier probe
+RATE_ROUNDS = 4  # greedy captions/s: rounds of each family's three requests, the families in turns
 
 
 def fail(msg):
@@ -286,6 +292,25 @@ def check_tokens(what, tok, ref_tok, logits, dtype):
     if bad:
         fail("%s: tokens differ from plain on %d rows with a top-2 gap > %g" % (what, bad, gap_min))
     return int(clear.sum())
+
+
+def greedy_rates(served, rounds):
+    """Greedy captions/s of each family, {name: (Captioner, requests)}:
+    after one warm-up request each, ``rounds`` rounds in which every family
+    serves each of its requests once (the families in turns, reversed every
+    other round), each request timed alone on the host clock, to ids on the
+    host.  Returns {name: [captions/s of each request]}."""
+    for cap, requests in served.values():
+        cap.caption_ids(requests[0])
+    rates = {name: [] for name in served}
+    for rnd in range(rounds):
+        for name in list(served) if rnd % 2 == 0 else list(served)[::-1]:
+            cap, requests = served[name]
+            for imgs in requests:
+                t0 = time.perf_counter()
+                cap.caption_ids(imgs)
+                rates[name].append(len(imgs) / (time.perf_counter() - t0))
+    return rates
 
 
 def kernels_against_plain(rng, device):
@@ -490,12 +515,16 @@ def projection_tile_ties(rng, device):
 
 
 TILE_KERNELS = ("project_argmax_tiles_kernel", "project_topk_tiles_kernel")  # the bf16 projection kernels
-# the bf16 dense beam steps (csrc/dense_mma.cuh): entry point -> (kernel template, cell); the dense end is kDense = 1
-DENSE_INSTANCES = {
-    "st_fused_gru_dense_step": ("fused_step_kernel", "GruCell"),
-    "st_fused_lstm_dense_step": ("fused_step_kernel", "LstmCell"),
-    "st_fused_attn_dense_step": ("fused_attn_step_kernel", "GruCell"),
-    "st_fused_attn_lstm_dense_step": ("fused_attn_step_kernel", "LstmCell"),
+# the bf16 fused steps on the tensor cores (csrc/dense_mma.cuh, mma_step()): entry point -> (kernel template, cell,
+# vocab end: kArgmax = 0, kDense = 1); the pooled GRU's argmax instance stays SIMT
+MMA_STEPS = {
+    "st_fused_gru_dense_step": ("fused_step_kernel", "GruCell", 1),
+    "st_fused_lstm_dense_step": ("fused_step_kernel", "LstmCell", 1),
+    "st_fused_attn_dense_step": ("fused_attn_step_kernel", "GruCell", 1),
+    "st_fused_attn_lstm_dense_step": ("fused_attn_step_kernel", "LstmCell", 1),
+    "st_fused_lstm_step": ("fused_step_kernel", "LstmCell", 0),
+    "st_fused_attn_step": ("fused_attn_step_kernel", "GruCell", 0),
+    "st_fused_attn_lstm_step": ("fused_attn_step_kernel", "LstmCell", 0),
 }
 
 
@@ -507,24 +536,34 @@ def tensor_core_kernel(name):
     tile = next((k for k in TILE_KERNELS if k in name), None)
     if tile:
         return tile
-    for label, (base, cell) in DENSE_INSTANCES.items():
+    for label, (base, cell, mode) in MMA_STEPS.items():
         if ((base + "<" in name or base + "I" in name) and cell in name and "__nv_bfloat16" in name
-                and re.search(r"(, (\(int\))?1>|ELi1E)", name)):
+                and re.search(r"(, (\(int\))?%d>|ELi%dE)" % (mode, mode), name)):
             return label
     return None
 
 
 def tile_kernel_report(build):
     """ptxas's registers, stack frame and spills of the tensor-core kernel
-    instances (the two bf16 projection kernels and the four bf16 dense beam
-    steps), and, where the toolkit has cuobjdump, the tensor-core (HMMA)
-    instructions in their SASS in the library; fails if one has none."""
+    instances (the two bf16 projection kernels and the seven bf16 fused
+    steps of MMA_STEPS), and, where the toolkit has cuobjdump, the
+    tensor-core (HMMA) instructions in their SASS in the library; fails if
+    one has none, if ptxas names none of them, or if a fused step has a
+    stack frame or spills."""
     import re
 
-    labels = TILE_KERNELS + tuple(DENSE_INSTANCES)
+    labels = TILE_KERNELS + tuple(MMA_STEPS)
+    reported = set()
     for line in build.ptxas_report(["project_argmax.cu", "project_topk.cu", "fused_step.cu", "fused_attn_step.cu"]):
-        if tensor_core_kernel(line.rsplit(": ", 1)[0]):
+        label = tensor_core_kernel(line.rsplit(": ", 1)[0])
+        if label:
             phase("build", "ptxas -v " + line)
+            reported.add(label)
+            frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if label in MMA_STEPS and (not frame or any(int(b) for b in frame.groups())):
+                fail("the tensor-core step %s has a stack frame or spills: %s" % (label, line))
+    if reported != set(labels):
+        fail("ptxas reported no line for the tensor-core instances %s" % sorted(set(labels) - reported))
     cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
     if not os.access(cuobjdump, os.X_OK):
         phase("build", "no cuobjdump beside nvcc: the HMMA count is not taken")
@@ -653,6 +692,40 @@ def f32_dense_digests(device):
             states = new_state if isinstance(new_state, tuple) else (new_state,)
             phase("kernel", "beam attention %s dense step float32 R=%d: sha256 of the logits %s, of the new state %s"
                   % (cell, R, digest([logits]), digest(states)))
+
+
+def simt_greedy_digests(device):
+    """Phase 3.  sha256 digests of the greedy steps' tokens and new states
+    that keep the SIMT code, at B = 1 and 64, from inputs of their own
+    seed: every f32 instance (pooled GRU and LSTM, attention GRU and LSTM)
+    and the bf16 pooled GRU (the whole decode's twin), so that two builds
+    that print the same digests gave bit-equal outputs on those paths."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from show_tell_tpu_torch.ops.fused_attn import fused_attn_decode_step_cuda
+    from show_tell_tpu_torch.ops.fused_step import fused_gru_decode_step_cuda, fused_lstm_decode_step_cuda
+
+    rng = np.random.RandomState(SEED + 3)
+    raw = lambda t: t.cpu().view(torch.uint8).numpy().tobytes()  # bf16 has no numpy type: its bytes
+    digest = lambda ts: hashlib.sha256(b"".join(raw(t) for t in ts)).hexdigest()[:16]
+    for B in (1, 64):
+        runs = [("pooled gru", torch.float32), ("pooled lstm", torch.float32), ("attention gru", torch.float32),
+                ("attention lstm", torch.float32), ("pooled gru", torch.bfloat16)]
+        for family, dtype in runs:
+            cell = family.split()[1]
+            if family.startswith("pooled"):
+                stacked, vocab, x, state = step_inputs(rng, B, dtype, device, LE if cell == "lstm" else E, cell)
+                step = fused_lstm_decode_step_cuda if cell == "lstm" else fused_gru_decode_step_cuda
+                tok, new_state = step(stacked, vocab, x, state)
+            else:
+                prep, w_emb, state = attn_inputs(rng, B, dtype, device, cell)
+                tok, new_state = fused_attn_decode_step_cuda(prep, w_emb, state)
+            states = new_state if isinstance(new_state, tuple) else (new_state,)
+            phase("kernel", "%s greedy step %s B=%d (SIMT): sha256 of the tokens %s, of the new state %s"
+                  % (family, dname(dtype), B, digest([tok]), digest(states)))
 
 
 def u8_images(rng, shape, device):
@@ -1008,6 +1081,7 @@ def main():
     errs = kernels_against_plain(rng, device)
     errs.update(beam_kernels_against_plain(rng, device))
     f32_dense_digests(device)
+    simt_greedy_digests(device)
     errs.update(input_kernels_against_plain(rng, device))
     errs.update(decode_kernels_against_plain(rng, device))
     projection_tile_ties(rng, device)
@@ -1440,7 +1514,8 @@ def main():
                                              END, PAD, fused_step=None, sparse=True)),
         ])
         s2d = s2d_path(variant, params, bn_state, acfg, requests, counter, attn_plain)
-        return {"seconds": seconds, "comp_counts": comp_counts, "counts": counts, "other": {},
+        return {"seconds": seconds, "comp_counts": comp_counts, "counts": counts, "other": {}, "cap": acap,
+                "requests": requests,
                 "beam_seconds": beam_s, "beam_counts": beam_counts, "routes": routes, "beam_share": beam_share,
                 "s2d": s2d, "beam_decode": lambda: attn_beam_search_decode(
                     acap.prepared, acap.model.decoder, dcfg, feats, K_BEAM, acfg.start_token, END, PAD)}
@@ -1591,6 +1666,8 @@ def main():
 
     # 6. times (bf16, flagship widths)
     times = {}
+    cold_ms = {}  # (kernel, B) -> ms with the operands cold in L2 (a 64 MB write between the spin and the call)
+    flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=device)
     note = "(median of 30 after 5, CUDA events, each call queued behind a 1 ms spin)"
     for name, cell, Ed, cuda_step, plain_step in (
             ("fused_gru_decode_step", "gru", E, fused_gru_decode_step_cuda, fused_gru_decode_step_plain),
@@ -1599,11 +1676,16 @@ def main():
             stacked, vocab_w, x, state = step_inputs(rng, B, torch.bfloat16, device, Ed, cell)
             times[name, B] = (event_median_ms(lambda: cuda_step(stacked, vocab_w, x, state)),
                               event_median_ms(lambda: plain_step(stacked, vocab_w, x, state)))
+            if cell == "lstm":  # the tensor-core greedy steps, also with their operands cold in L2
+                cold_ms[name, B] = event_median_ms(lambda: cuda_step(stacked, vocab_w, x, state),
+                                                   before=flush_buf.zero_)
     for B in (1, 64, 256):
         for name, cell in (("fused_attn_decode_step", "gru"), ("fused_attn_lstm_decode_step", "lstm")):
             prep, w_emb, state = attn_inputs(rng, B, torch.bfloat16, device, cell)
             times[name, B] = (event_median_ms(lambda: fused_attn_decode_step_cuda(prep, w_emb, state)),
                               event_median_ms(lambda: fused_attn_decode_step_plain(prep, w_emb, state)))
+            cold_ms[name, B] = event_median_ms(lambda: fused_attn_decode_step_cuda(prep, w_emb, state),
+                                               before=flush_buf.zero_)
         h = last_h(state)
         feats = uniform(rng, (B, AP, AC), 1.0, torch.bfloat16, device)
         times["attention_context", B] = (
@@ -1616,7 +1698,6 @@ def main():
     # yardstick: one torch.nn.GRU / LSTM step and one cuBLAS addmm for the logits, the module built outside the
     # timed call
     library = {}  # kernel -> ms of the one PyTorch call (or composite) that computes its function at the line's shape
-    flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=device)
     for R in (3, 192):
         for cell, Ed in (("gru", E), ("lstm", LE)):
             name = "fused_%s_dense_step" % cell
@@ -1685,8 +1766,9 @@ def main():
             event_median_ms(lambda: gru_whole_greedy_decode_cuda(prepared, feats, T), iters=10, warmup=2),
             event_median_ms(lambda: gru_whole_greedy_decode_plain(prepared, feats, T), iters=5, warmup=1))
     for (name, B), (k_ms, p_ms) in times.items():
-        phase("times", "%s bf16 %s %s=%d: kernel %.4f ms, plain %.4f ms, bound %.4f ms (%s) %s"
-              % (card, name, "R" if name in BEAM_KERNELS else "B", B, k_ms, p_ms,
+        phase("times", "%s bf16 %s %s=%d: kernel %.4f ms%s, plain %.4f ms, bound %.4f ms (%s) %s"
+              % (card, name, "R" if name in BEAM_KERNELS else "B", B, k_ms,
+                 " (L2 cold %.4f ms)" % cold_ms[name, B] if (name, B) in cold_ms else "", p_ms,
                  *bound(name, B, whole_rows.get(B, 0)), note))
     # the projection kernels at B = 1, 64, 256 and R = 3, 192, 320, each against its twin, its bound and its
     # composite yardstick (cuBLAS's bf16 product and torch's reductions) on the same operands; with the weights
@@ -1772,6 +1854,12 @@ def main():
         phase("times", "%s %s + beam search, K=3: %.1f captions/s at B=64 (3 requests, %.3f s, host clock to ids on "
               "the host); bf16 ids equal the plain beam decode on >= %.4f of positions"
               % (card, what, 3 * 64 / sl["beam_seconds"], sl["beam_seconds"], sl["beam_share"]))
+    # greedy captions/s at B=64 over more requests than the three above, the families in turns
+    rates = greedy_rates({v: (sl["cap"], sl["requests"]) for v, sl in slices.items()}, RATE_ROUNDS)
+    for variant, per_s in rates.items():
+        phase("times", "%s %s + 25 greedy steps, bf16, B=64: %.1f captions/s, median [min, max] [%.1f, %.1f] of %d "
+              "requests, each timed alone on the host clock to ids on the host, %d rounds of three with the families "
+              "in turns" % (card, variant, statistics.median(per_s), min(per_s), max(per_s), len(per_s), RATE_ROUNDS))
     # the pooled GRU's beam routes on one request's features, in turns
     gru = slices["gru"]
     routes = {"dense": dict(fused_step="dense"), "top-k": dict(fused_step="topk"),

@@ -537,6 +537,13 @@ struct VocabOut {
   TopkArgs topk;              // top-k: outs and scratch
 };
 
+// The argmax end's last barrier and its tokens: once every block's
+// atomicMax has landed in best, tok[b] is the index of best[b]'s key.
+__device__ __forceinline__ void argmax_tokens(const VocabOut& o, int B, cg::grid_group& grid) {
+  grid.sync();
+  for (int b = grid_thread(); b < B; b += grid_threads()) o.tok[b] = key_index(o.best[b]);
+}
+
 // The vocab phase after the top activation is complete (a grid barrier
 // before it): argmax tokens, dense logits, top-K log-probabilities, or
 // nothing (kNone).
@@ -547,8 +554,7 @@ __device__ __forceinline__ void vocab_phase(const T* top, const T* wv, const T* 
     return;
   } else if constexpr (kMode == kArgmax) {
     project_argmax<T>(top, wv, bv, B, H, V, o.best, xs);
-    grid.sync();
-    for (int b = grid_thread(); b < B; b += grid_threads()) o.tok[b] = key_index(o.best[b]);
+    argmax_tokens(o, B, grid);
   } else if constexpr (kMode == kDense) {
     DenseSink sink{o.logits, V};
     project_items<T>(top, wv, bv, B, H, V, Tiling(B, V), xs, sink);

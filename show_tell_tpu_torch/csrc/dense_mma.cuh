@@ -1,15 +1,23 @@
-// The bf16 dense beam steps on Hopper's tensor cores: the recurrence and
-// the vocab projection of fused_step.cu's and fused_attn_step.cu's kDense
-// instances in bf16, as mma.sync m16n8k16 products (bf16 in, f32 sums).
-// The f32 instances and every other end keep the SIMT code of
-// decode_common.cuh.
+// The bf16 fused steps on Hopper's tensor cores: the recurrence and the
+// vocab projection as mma.sync m16n8k16 products (bf16 in, f32 sums), with
+// two ends of the projection: the dense f32 logits (beam) and the
+// first-max argmax (greedy).  mma_step() names the instances that run this
+// file's code: in bf16, the dense instances of fused_step.cu and
+// fused_attn_step.cu, the argmax instances of fused_attn_step.cu (both
+// cells) and the pooled LSTM's argmax instance of fused_step.cu.  The f32
+// instances, the pooled GRU's argmax instance, the top-k end and kNone keep
+// the SIMT code of decode_common.cuh.
 //
-// What bounds a dense step on an H100: at R = 192 beam rows it reads
-// 15-23 MB of recurrence weights and the 10.2 MB projection, all of it
-// inside the 50 MB L2, and writes R x V f32 logits (7.6 MB); its 5-8 GFLOP
-// are about 5-8 us on the tensor cores.  The SIMT code converted every
-// weight to f32 and re-read it once per 8 batch rows (24 times at R = 192),
-// and its dense end stored each logit alone, 4 bytes at a stride of V.
+// What bounds a step on an H100.  It reads the recurrence weights (15-23 MB
+// in bf16 at the flagships) and the 10.2 MB projection, 25-34 MB in all,
+// inside the 50 MB L2; a dense step at R = 192 beam rows also writes R x V
+// f32 logits (7.6 MB), a greedy step only B tokens.  Its 5-8 GFLOP at R =
+// 192 (1.6-2.2 at B = 64) are a few microseconds on the tensor cores, so
+// at small batches the step is bound by those bytes, 7.5-10 us from HBM
+// and less from L2.  The SIMT code converted every weight to f32 and
+// re-read it once per 8 batch rows (8 times at B = 64, 24 at R = 192); its
+// dense end stored each logit alone, 4 bytes at a stride of V, and its
+// argmax end finished each row with one warp.
 //
 // The design:
 // - Products: rows of a weight matrix (gate rows, vocabulary rows) are M,
@@ -29,7 +37,7 @@
 //   buffers).
 // - Items: a block of kThreads = 128 threads (the SIMT phases' block) takes
 //   an item of kMmaSlots m16 row tiles x kMmaSlab = 32 batch rows, and its
-//   four warps split K into four runs of chunks (split-K), so a small R
+//   four warps split K into four runs of chunks (split-K), so a small B
 //   still spreads over the SMs.  The recurrence's tile is 16 columns j of
 //   every gate (rows g*H + j of w_ih and w_hh); the GRU keeps four sums,
 //   r and z over both sides, n's x side and n's h side apart; the LSTM its
@@ -39,12 +47,21 @@
 //   (kMmaPitch = 33 floats a row of 32 lanes), and after one barrier the
 //   block's threads add the four warps' sums in warp order.  The
 //   recurrence then finishes column j of a row in f32 with the cells of
-//   decode_common.cuh (GruCell::finish, LstmCell::finish), unchanged; the
-//   vocabulary adds the bias and stores each batch row's 64 logits as one
-//   contiguous run (a warp writes 128 contiguous bytes).
-// - Ragged edges: rows j >= H, v >= V and n >= R, and columns from K up to
+//   decode_common.cuh (GruCell::finish, LstmCell::finish), unchanged.  The
+//   projection (mma_project) hands each item's staged sums to its end:
+//   the dense end adds the bias and stores each batch row's 64 logits as
+//   one contiguous run (a warp writes 128 contiguous bytes); the argmax
+//   end gives each batch row four neighbouring threads, each scanning 16
+//   consecutive vocabulary rows (sum + bias) for their first max, combines
+//   the four by packed (logit, ~index) key (pack_key: of equal values the
+//   lower index) and merges the item into best[row] with one atomicMax,
+//   the first-max rule of vocab_pallas.merge_block_argmax, whatever the
+//   grid or the order of the atomics.  The tokens are read from best after
+//   a grid barrier (argmax_tokens, as the SIMT end).
+// - Ragged edges: rows j >= H, v >= V and n >= B, and columns from K up to
 //   the chunk's 32, are zeros in registers (never loaded); only j < H,
-//   v < V and n < R are written.  K need only be a multiple of 8.
+//   v < V and n < B are written or form a key.  K need only be a multiple
+//   of 8.
 
 #pragma once
 
@@ -63,10 +80,14 @@ constexpr int kMmaVocabRows = 16 * kMmaSlots;  // vocabulary rows of an item
 constexpr int kMmaDepth = 2;                   // register buffers of a warp's chunk pipeline (3 and 4 ran slower)
 constexpr size_t kMmaSmemFloats = static_cast<size_t>(kWarps) * kMmaVals * kMmaPitch;
 
-// Whether a fused step's instance runs this file's code: the dense end in bf16.
-template <int kMode, typename T>
-__host__ __device__ constexpr bool dense_mma() {
-  return kMode == kDense && std::is_same<T, __nv_bfloat16>::value;
+// Whether a fused step's instance runs this file's code (kPooled: fused_step.cu's, else fused_attn_step.cu's):
+// bf16 with the dense end, or with the argmax end except the pooled GRU's.  That instance stays SIMT: the whole
+// decode (whole_decode.cu) runs the same SIMT layer and argmax, and is held bit-equal to the per-step loop of this
+// instance, so the two move to the tensor cores together.
+template <typename T, typename Cell, int kMode, bool kPooled>
+__host__ __device__ constexpr bool mma_step() {
+  return std::is_same<T, __nv_bfloat16>::value &&
+         (kMode == kDense || (kMode == kArgmax && !(kPooled && std::is_same<Cell, GruCell>::value)));
 }
 
 // One chunk of a lane's fragments: rows g and g + 8 of each A tile, rows
@@ -235,10 +256,13 @@ __device__ void mma_stack_layer(const StackArgs& s, int l, float* red) {
   mma_rnn_layer<Cell>(stack_layer_args<__nv_bfloat16, Cell>(s, l), red);
 }
 
-// logits[b, v] = top[b] . wv[v] + bv[v] in f32 for all B rows, by (64
-// vocabulary rows, 32 batch rows) items; top [B, H], wv [V, H].
-__device__ void mma_dense_logits(const __nv_bfloat16* top, const __nv_bfloat16* wv, const __nv_bfloat16* bv, int B,
-                                 int H, int V, float* logits, float* red) {
+// top[b] . wv[v] in f32 for all B rows, by (64 vocabulary rows, 32 batch
+// rows) items; top [B, H], wv [V, H].  After an item's sums are staged,
+// every thread calls end(n0, nb, v0): mma_sum(red, m >> 4, m & 15, n) is
+// the product of batch row n0 + n (n < nb) and vocabulary row v0 + m.
+template <typename End>
+__device__ __forceinline__ void mma_project(const __nv_bfloat16* top, const __nv_bfloat16* wv, int B, int H, int V,
+                                            float* red, End end) {
   int c0, c1;
   mma_split((H + kMmaChunk - 1) / kMmaChunk, c0, c1);
   const int slabs = (B + kMmaSlab - 1) / kMmaSlab, items = slabs * ((V + kMmaVocabRows - 1) / kMmaVocabRows);
@@ -255,14 +279,51 @@ __device__ void mma_dense_logits(const __nv_bfloat16* top, const __nv_bfloat16* 
 #pragma unroll
       for (int i = 0; i < kMmaSlots; ++i) mma_tile(acc[i], f, i, nts);
     });
-    __syncthreads();
+    __syncthreads();  // the previous item's end is done with red
     mma_stage(acc, red);
-    // a batch row's 64 logits, one contiguous run: consecutive threads take consecutive v
-    for (int o = threadIdx.x; o < kMmaVocabRows * kMmaSlab; o += kThreads) {
-      const int m = o % kMmaVocabRows, n = o / kMmaVocabRows, v = v0 + m;
-      if (n < nb && v < V)
-        logits[static_cast<size_t>(n0 + n) * V + v] = mma_sum(red, m >> 4, m & 15, n) + __bfloat162float(bv[v]);
-    }
+    end(n0, nb, v0);
+  }
+}
+
+// The vocab phase of an mma_step instance, after the top activation is
+// complete: the dense f32 logits, or the first-max argmax tokens.
+template <int kMode>
+__device__ void mma_vocab_phase(const __nv_bfloat16* top, const __nv_bfloat16* wv, const __nv_bfloat16* bv, int B,
+                                int H, int V, const VocabOut& out, float* red, cg::grid_group& grid) {
+  if constexpr (kMode == kDense) {
+    mma_project(top, wv, B, H, V, red, [&](int n0, int nb, int v0) {
+      // a batch row's 64 logits, one contiguous run: consecutive threads take consecutive v
+      for (int o = threadIdx.x; o < kMmaVocabRows * kMmaSlab; o += kThreads) {
+        const int m = o % kMmaVocabRows, n = o / kMmaVocabRows, v = v0 + m;
+        if (n < nb && v < V)
+          out.logits[static_cast<size_t>(n0 + n) * V + v] = mma_sum(red, m >> 4, m & 15, n) + __bfloat162float(bv[v]);
+      }
+    });
+  } else {
+    static_assert(kMode == kArgmax, "the tensor-core steps end in dense logits or the argmax");
+    static_assert(kThreads == kRowThreads * kMmaSlab && kMmaVocabRows == kRowThreads * 16,
+                  "the argmax end: four threads a batch row, 16 vocabulary rows (one slot) each");
+    mma_project(top, wv, B, H, V, red, [&](int n0, int nb, int v0) {
+      const int n = threadIdx.x / kRowThreads, q = threadIdx.x % kRowThreads;  // slot q: rows v0 + 16q + m
+      float val = -INFINITY;
+      int idx = -1;
+      if (n < nb) {
+#pragma unroll
+        for (int m = 0; m < 16; ++m) {  // increasing v: of equal values the first stays
+          const int v = v0 + 16 * q + m;
+          if (v < V) {
+            const float x = mma_sum(red, q, m, n) + __bfloat162float(bv[v]);
+            if (idx < 0 || x > val) {
+              val = x;
+              idx = v;
+            }
+          }
+        }
+      }
+      const unsigned long long key = row_max_key(idx >= 0 ? pack_key(val, idx) : 0ull);
+      if (n < nb && q == 0) atomicMax(out.best + n0 + n, key);
+    });
+    argmax_tokens(out, B, grid);
   }
 }
 

@@ -28,11 +28,13 @@
 // weights (layer 0 G*H x 1024 + G*H x 512, four upper layers 2 x G*H x 512
 // each, W_dec 512 x 512, the vocabulary 9,956 x 512) plus 2 x B x 49 x
 // 512 values of att1 and feats_e: 6.4 MB at B=64, all of it inside the
-// 50 MB L2.  At beam's B = 192 rows att1 and feats_e are 19.3 MB and the
-// dense logits another 7.6 MB written.  As in the pooled step the SIMT
-// code streams the weights once per kBM-row batch tile and multiplies in
-// f32; the bf16 dense instances run the recurrence and the projection on
-// the tensor cores (dense_mma.cuh), at this kernel's 128-thread block.  The
+// 50 MB L2: 10-12 us at 3.35 TB/s, less from L2.  At beam's B = 192 rows
+// att1 and feats_e are 19.3 MB and the dense logits another 7.6 MB
+// written; the greedy step writes only B tokens.  As in the pooled step
+// the SIMT code streams the weights once per kBM-row batch tile and
+// multiplies in f32; every bf16 instance, greedy (argmax) and beam
+// (dense), runs the recurrence and the projection on the tensor cores
+// (dense_mma.cuh, mma_step()), at this kernel's 128-thread block.  The
 // attention adds little work (2 x 49 x 512 multiply-adds a row) but three
 // more grid barriers, and its phases A1 and A2 stay SIMT in every instance.
 // The design:
@@ -47,11 +49,13 @@
 //   * the recurrence and projection reuse decode_common.cuh.  Layer 0 is
 //     2E wide, so the shared-memory input tile is sized by max(2E, H):
 //     8 x (1024 + 512) f32 = 48 KiB at the flagship, the default limit;
-//     launch_cooperative raises the limit for wider tiles.  The bf16 dense
+//     launch_cooperative raises the limit for wider tiles.  The bf16
 //     instances need max(A1's 8 rows of h, A2's A + P scores, the staged
 //     tensor-core sums): 33 KiB at the flagship;
-//   * the dense end is fused_step.cu's: f32 stores stride by V, bf16
-//     stores each row's 64 logits of a tile as one run (dense_mma.cuh).
+//   * the ends are fused_step.cu's: f32 logits stores stride by V, bf16
+//     stores each row's 64 logits of a tile as one run; the bf16 argmax
+//     merges each 64-row vocabulary item's first max of a row by one
+//     atomicMax (dense_mma.cuh).
 // The TPU kernel ran the attention in 8-row sub-stages of a sequential
 // grid to bound VMEM; here the grid barriers order the phases instead.
 
@@ -192,6 +196,7 @@ __global__ void __launch_bounds__(kThreads) fused_attn_step_kernel(Params p) {
   extern __shared__ float smem[];
   cg::grid_group grid = cg::this_grid();
   const StackArgs& s = p.stack;
+  constexpr bool kMma = mma_step<T, Cell, kMode, false>();  // the tensor cores (dense_mma.cuh)
   if constexpr (kMode == kArgmax)
     for (int b = grid_thread(); b < s.B; b += grid_threads()) p.out.best[b] = 0ull;  // below every packed key
   attention_scores_in<T>(p, smem);
@@ -199,16 +204,16 @@ __global__ void __launch_bounds__(kThreads) fused_attn_step_kernel(Params p) {
   attention_context_e<T>(p, smem);
   grid.sync();  // x = cat(w_emb, ctx_e) is complete
   for (int l = 0; l < s.L; ++l) {
-    if constexpr (dense_mma<kMode, T>())
+    if constexpr (kMma)
       mma_stack_layer<Cell>(s, l, smem);
     else
       stack_layer<T, Cell>(s, l, smem);
     grid.sync();
   }
   const T* top = static_cast<const T*>(s.new_hs) + static_cast<size_t>(s.L - 1) * s.B * s.H;
-  if constexpr (dense_mma<kMode, T>())
-    mma_dense_logits(top, static_cast<const T*>(p.wv), static_cast<const T*>(p.bv), s.B, s.H, p.V, p.out.logits,
-                     smem);
+  if constexpr (kMma)
+    mma_vocab_phase<kMode>(top, static_cast<const T*>(p.wv), static_cast<const T*>(p.bv), s.B, s.H, p.V, p.out, smem,
+                           grid);
   else
     vocab_phase<kMode, T>(top, static_cast<const T*>(p.wv), static_cast<const T*>(p.bv), s.B, s.H, p.V, p.out,
                           smem, grid);
@@ -216,9 +221,9 @@ __global__ void __launch_bounds__(kThreads) fused_attn_step_kernel(Params p) {
 
 template <typename T, typename Cell, int kMode>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  // A1's kBM rows of h and A2's scores beside the recurrence's tiles (the bf16 dense form: its staged sums)
+  // A1's kBM rows of h and A2's scores beside the recurrence's tiles (an mma_step instance: its staged sums)
   const size_t attn = std::max(static_cast<size_t>(p.A) + p.P, static_cast<size_t>(kBM) * p.stack.H);
-  const size_t stack = dense_mma<kMode, T>() ? kMmaSmemFloats : stack_smem_floats(p.stack);
+  const size_t stack = mma_step<T, Cell, kMode, false>() ? kMmaSmemFloats : stack_smem_floats(p.stack);
   Params args = p;
   void* argv[] = {&args};
   return launch_cooperative(fused_attn_step_kernel<T, Cell, kMode>, (attn > stack ? attn : stack) * sizeof(float),

@@ -38,11 +38,17 @@
 // 25 MB (GRU) and 31 MB (LSTM) in bf16, both inside the 50 MB L2 cache.
 // The dense end adds B x V x 4 bytes of logits (7.6 MB at B = 192 beam
 // rows); the top-K end writes only [B, K] and a few MB of per-part scratch.
-// At small batches the step is bound by those bytes.  The SIMT code below
-// reads each weight row once per batch tile of kBM rows, so at large
-// batches it turns into an f32 FMA loop; the bf16 dense instances instead
-// run the recurrence and the projection on the tensor cores
-// (dense_mma.cuh: mma.sync, weights re-read once per 32 beam rows).
+// At small batches the step is bound by those bytes (7.5 and 9.3 us at
+// 3.35 TB/s, less from L2): the greedy step writes only B tokens, and its
+// 1.6-2.0 GFLOP at B = 64 are about 2 us on the tensor cores.  The SIMT
+// code below reads each weight row once per batch tile of kBM rows and
+// multiplies in f32, so at large batches it turns into an f32 FMA loop.
+// The bf16 instances that mma_step() names run the recurrence and the
+// projection on the tensor cores instead (dense_mma.cuh: mma.sync, weights
+// re-read once per 32 batch rows): the dense end and the LSTM's argmax
+// end, which merges each 64-row vocabulary item's first max into best by
+// one atomicMax a row.  The GRU's argmax instance stays SIMT beside the
+// whole decode (whole_decode.cu), which must stay bit-equal to its loop.
 // The stack step (kNone) reads the recurrence weights alone: 14.9 MB (GRU,
 // E=256) and 21.0 MB (LSTM, E=512) in bf16, plus [L, B, H] states in and
 // out; its bound is those bytes, 4.5 and 6.3 us at 3.35 TB/s at small B.
@@ -93,19 +99,20 @@ __global__ void __launch_bounds__(kThreads) fused_step_kernel(Params p) {
   extern __shared__ float smem[];
   cg::grid_group grid = cg::this_grid();
   const StackArgs& s = p.stack;
+  constexpr bool kMma = mma_step<T, Cell, kMode, true>();  // the tensor cores (dense_mma.cuh)
   if constexpr (kMode == kArgmax)
     for (int b = grid_thread(); b < s.B; b += grid_threads()) p.out.best[b] = 0ull;  // below every packed key
   for (int l = 0; l < s.L; ++l) {
-    if constexpr (dense_mma<kMode, T>())
+    if constexpr (kMma)
       mma_stack_layer<Cell>(s, l, smem);
     else
       stack_layer<T, Cell>(s, l, smem);
     if (kMode != kNone || l + 1 < s.L) grid.sync();  // layer l's h' is complete in new_hs
   }
   const T* top = static_cast<const T*>(s.new_hs) + static_cast<size_t>(s.L - 1) * s.B * s.H;
-  if constexpr (dense_mma<kMode, T>())
-    mma_dense_logits(top, static_cast<const T*>(p.wv), static_cast<const T*>(p.bv), s.B, s.H, p.V, p.out.logits,
-                     smem);
+  if constexpr (kMma)
+    mma_vocab_phase<kMode>(top, static_cast<const T*>(p.wv), static_cast<const T*>(p.bv), s.B, s.H, p.V, p.out, smem,
+                           grid);
   else
     vocab_phase<kMode, T>(top, static_cast<const T*>(p.wv), static_cast<const T*>(p.bv), s.B, s.H, p.V, p.out,
                           smem, grid);
@@ -115,7 +122,7 @@ template <typename T, typename Cell, int kMode>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   Params args = p;
   void* argv[] = {&args};
-  const size_t floats = dense_mma<kMode, T>() ? kMmaSmemFloats : stack_smem_floats(p.stack);
+  const size_t floats = mma_step<T, Cell, kMode, true>() ? kMmaSmemFloats : stack_smem_floats(p.stack);
   return launch_cooperative(fused_step_kernel<T, Cell, kMode>, floats * sizeof(float), argv, stream);
 }
 

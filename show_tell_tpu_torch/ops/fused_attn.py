@@ -9,6 +9,10 @@ modes).
 The step takes the state as the greedy loop carries it: hs [L, B, H] for
 the GRU, the tuple (hs, cs) for the LSTM.
 
+In bf16 both ends run the recurrence and the projection on the tensor
+cores (csrc/dense_mma.cuh; geometry ``fused_step.mma_tiles``); the
+attention phases and f32 keep the SIMT code.
+
 Two per-image constants are hoisted out of the step, as on the TPU:
 ``att1 = feats @ W_enc + b_enc`` and ``feats_e = feats @ W_embed``.  Decode
 only needs ``embed(context)``, and ``embed(sum_p alpha_p feats_p) =
@@ -25,8 +29,7 @@ import torch
 
 from show_tell_tpu_torch.ops import check_tensor, check_widths, dtype_code, raise_on_error, stream_arg, uses_kernel
 from show_tell_tpu_torch.ops.attention import attention_alpha_plain, precompute_att1
-from show_tell_tpu_torch.ops.fused_beam import dense_tiles
-from show_tell_tpu_torch.ops.fused_step import check_stack
+from show_tell_tpu_torch.ops.fused_step import check_stack, mma_step, mma_tiles
 from show_tell_tpu_torch.ops.rnn import LstmState, State, prepare_rnn_weights, stack_plain
 from show_tell_tpu_torch.ops.vocab import prepare_vocab, project_argmax_plain, project_logits
 
@@ -102,8 +105,9 @@ def fused_attn_dense_step_plain(
 
 def _fused_attn_cuda(prep, w_emb, state: State, dense: bool):
     """Check, allocate and launch the GRU or (for a state (hs, cs)) the
-    LSTM instance of the argmax or the dense kernel.  Returns (tok or
-    logits, new state)."""
+    LSTM instance of the argmax or the dense kernel; a bf16 instance's
+    tensor-core geometry is checked first (``mma_tiles`` raises for a
+    width that does not fit).  Returns (tok or logits, new state)."""
     from show_tell_tpu_torch.ops.build import load_library
 
     lstm = isinstance(state, tuple)
@@ -130,8 +134,8 @@ def _fused_attn_cuda(prep, w_emb, state: State, dense: bool):
     check_tensor("b_emb", prep["b_emb"], (E,), dtype, device)
     check_tensor("vocab w", prep["vocab"]["w"], (V, H), dtype, device)
     check_tensor("vocab b", prep["vocab"]["b"], (V,), dtype, device)
-    if dense and dtype == torch.bfloat16:
-        dense_tiles(B, 2 * E, H, V, (A, P))
+    if mma_step(dtype, lstm, "dense" if dense else "argmax", pooled=False):
+        mma_tiles(B, 2 * E, H, V, (A, P))
     lib = load_library()
     stacked, vocab = prep["stacked"], prep["vocab"]
     x = torch.empty(B, 2 * E, dtype=dtype, device=device)

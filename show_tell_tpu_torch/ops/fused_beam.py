@@ -9,62 +9,23 @@ and ::fused_topk_step_pallas.  The beam rows ride the batch axis: x is
 own width E, which may exceed H (the TPU kernels refuse E > H).
 
 In bf16 the dense instances (here and in ops/fused_attn.py) run their
-recurrence and projection on the tensor cores (csrc/dense_mma.cuh), whose
-launch geometry ``dense_tiles`` computes; f32 and the top-k end keep the
-SIMT code.
+recurrence and projection on the tensor cores (csrc/dense_mma.cuh, whose
+launch geometry ``fused_step.mma_tiles`` computes); f32 and the top-k end
+keep the SIMT code.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, Tuple
 
 import torch
 
-from show_tell_tpu_torch.ops import check_widths, uses_kernel
+from show_tell_tpu_torch.ops import uses_kernel
 from show_tell_tpu_torch.ops.fused_step import launch_fused_step
 from show_tell_tpu_torch.ops.rnn import State, stack_plain
-from show_tell_tpu_torch.ops.vocab import SMEM_LIMIT, project_logits, project_topk_plain
+from show_tell_tpu_torch.ops.vocab import project_logits, project_topk_plain
 
 TopK = Tuple[torch.Tensor, torch.Tensor]  # (logp [R, k] f32, ids [R, k] int32)
-
-# The bf16 dense steps' tensor-core items (csrc/dense_mma.cuh; the constants must agree with it)
-MMA_SLAB = 32  # batch rows an item: four n8 tiles of mma.sync m16n8k16
-MMA_CHUNK = 32  # K columns a warp's step: two k16 steps
-MMA_SLOTS = 4  # m16 accumulator tiles an item: the gates (GRU: r, z, n's x side, n's h side) or 64 vocab rows
-MMA_WARPS = 4  # warps a block (128 threads, the SIMT phases' block), splitting an item's K chunks
-MMA_PITCH = 33  # floats a staged row of a warp's 32 lanes
-MMA_SMEM = 4 * MMA_WARPS * MMA_SLOTS * 4 * 4 * MMA_PITCH  # bytes: every warp's 64 sums a lane
-ATTN_ROWS = 8  # the attention's SIMT phase A1 holds 8 rows of h (kBM in csrc/decode_common.cuh)
-
-
-class DenseTiles(NamedTuple):
-    gate_items: int  # (16 columns of every gate, 32 batch rows) items of a layer
-    vocab_items: int  # (64 vocabulary rows, 32 batch rows) items of the projection
-    layer0_chunks: int  # 32-column K chunks of layer 0 (I0, then H), split over the 4 warps
-    upper_chunks: int  # the same for a layer l > 0 (H, then H)
-    vocab_chunks: int  # the same for the projection (H)
-    smem: int  # dynamic shared memory of a block, bytes
-
-
-def dense_tiles(R: int, I0: int, H: int, V: int, attention: Optional[Tuple[int, int]] = None) -> DenseTiles:
-    """The launch geometry of a bf16 dense step (pooled, or with
-    ``attention`` = (A, P)): its items, K chunks and shared memory, as
-    csrc/dense_mma.cuh and the kernels' launch compute them.  The grid is
-    the occupancy times the SM count, and blocks walk the items.  Raises
-    for widths whose shared memory exceeds a block's."""
-    check_widths("dense step", I0=I0, H=H)
-    chunks = lambda k: -(-k // MMA_CHUNK)
-    slabs = -(-R // MMA_SLAB)
-    smem = MMA_SMEM
-    if attention is not None:  # A1's rows of h and A2's A + P scores share the block's memory
-        A, P = attention
-        smem = max(smem, 4 * (A + P), 4 * ATTN_ROWS * H)
-    if smem > SMEM_LIMIT:
-        raise ValueError("the bf16 dense step at H=%d%s needs %d bytes of shared memory a block, over the %d a block "
-                         "may use" % (H, "" if attention is None else ", A=%d, P=%d" % attention, smem, SMEM_LIMIT))
-    return DenseTiles(slabs * -(-H // 16), slabs * -(-V // (16 * MMA_SLOTS)), chunks(I0) + chunks(H), 2 * chunks(H),
-                      chunks(H), smem)
-
 
 def fused_dense_step_plain(stacked, vocab, x, state: State) -> Tuple[torch.Tensor, State]:
     """The dense kernel's function in plain torch ops: the cell's stack
@@ -87,9 +48,6 @@ def fused_dense_step_cuda(stacked, vocab, x, state: State) -> Tuple[torch.Tensor
     or ``fused_lstm_dense_step``.  Every tensor on the same CUDA device, in
     one dtype (float32 or bfloat16), contiguous, E and H multiples of 8;
     raises on anything else and on a failed launch."""
-    hs = state[0] if isinstance(state, tuple) else state
-    if hs.dtype == torch.bfloat16:
-        dense_tiles(hs.shape[1], x.shape[-1], hs.shape[2], vocab["w"].shape[0])
     out = launch_fused_step("fused_dense_step", stacked, vocab, x, state, "dense")
     (fused_lstm_dense_step if isinstance(state, tuple) else fused_gru_dense_step).launches += 1
     return out

@@ -7,17 +7,73 @@ for each cell, and the launcher that the kernel's beam ends share
 Counterpart of show_tell_tpu/ops/fused_step_pallas.py::fused_gru_decode_step_pallas
 and ::fused_lstm_decode_step_pallas.  Layer 0 reads x at its own width E,
 which may exceed H.
+
+The bf16 instances that ``mma_step`` names (here and in ops/fused_attn.py)
+run their recurrence and projection on the tensor cores
+(csrc/dense_mma.cuh), whose launch geometry ``mma_tiles`` computes: the
+dense end, the attention step's argmax end and the pooled LSTM's.  f32,
+the pooled GRU's argmax end (bit-equal to the whole decode's), the top-k
+end and the stack step keep the SIMT code.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple, Union
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
 from show_tell_tpu_torch.ops import check_tensor, check_widths, dtype_code, raise_on_error, stream_arg, uses_kernel
 from show_tell_tpu_torch.ops.rnn import LstmState, State, gru_stack_plain, lstm_stack_plain
-from show_tell_tpu_torch.ops.vocab import project_argmax_plain, topk_launch_args
+from show_tell_tpu_torch.ops.vocab import SMEM_LIMIT, project_argmax_plain, topk_launch_args
+
+
+# The tensor-core items of the bf16 steps (csrc/dense_mma.cuh; the constants must agree with it)
+MMA_SLAB = 32  # batch rows an item: four n8 tiles of mma.sync m16n8k16
+MMA_CHUNK = 32  # K columns a warp's step: two k16 steps
+MMA_SLOTS = 4  # m16 accumulator tiles an item: the gates (GRU: r, z, n's x side, n's h side) or 64 vocab rows
+MMA_WARPS = 4  # warps a block (128 threads, the SIMT phases' block), splitting an item's K chunks
+MMA_PITCH = 33  # floats a staged row of a warp's 32 lanes
+MMA_SMEM = 4 * MMA_WARPS * MMA_SLOTS * 4 * 4 * MMA_PITCH  # bytes: every warp's 64 sums a lane
+ATTN_ROWS = 8  # the attention's SIMT phase A1 holds 8 rows of h (kBM in csrc/decode_common.cuh)
+
+
+def mma_step(dtype: torch.dtype, lstm: bool, end: Union[str, int, None], pooled: bool) -> bool:
+    """Whether a fused step's instance runs on the tensor cores (mma_step()
+    in csrc/dense_mma.cuh): bf16 with the "dense" end, or the "argmax" end
+    except the pooled GRU's, which stays SIMT and bit-equal to the whole
+    decode (csrc/whole_decode.cu)."""
+    return dtype == torch.bfloat16 and (end == "dense" or (end == "argmax" and (lstm or not pooled)))
+
+
+class MmaTiles(NamedTuple):
+    gate_items: int  # (16 columns of every gate, 32 batch rows) items of a layer
+    vocab_items: int  # (64 vocabulary rows, 32 batch rows) items of the projection
+    layer0_chunks: int  # 32-column K chunks of layer 0 (I0, then H), split over the 4 warps
+    upper_chunks: int  # the same for a layer l > 0 (H, then H)
+    vocab_chunks: int  # the same for the projection (H)
+    smem: int  # dynamic shared memory of a block, bytes
+
+
+def mma_tiles(R: int, I0: int, H: int, V: int, attention: Optional[Tuple[int, int]] = None) -> MmaTiles:
+    """The launch geometry of a tensor-core step (pooled, or with
+    ``attention`` = (A, P)) at R batch rows: its items, K chunks and shared
+    memory, as csrc/dense_mma.cuh and the kernels' launch compute them; the
+    dense and the argmax end take the same items.  The grid is the
+    occupancy times the SM count, and blocks walk the items.  Raises for
+    widths whose shared memory exceeds a block's."""
+    check_widths("tensor-core step", I0=I0, H=H)
+    chunks = lambda k: -(-k // MMA_CHUNK)
+    slabs = -(-R // MMA_SLAB)
+    smem = MMA_SMEM
+    if attention is not None:  # A1's rows of h and A2's A + P scores share the block's memory
+        A, P = attention
+        smem = max(smem, 4 * (A + P), 4 * ATTN_ROWS * H)
+    if smem > SMEM_LIMIT:
+        raise ValueError("the bf16 tensor-core step at H=%d%s needs %d bytes of shared memory a block, over the %d a "
+                         "block may use" % (H, "" if attention is None else ", A=%d, P=%d" % attention, smem,
+                                            SMEM_LIMIT))
+    return MmaTiles(slabs * -(-H // 16), slabs * -(-V // (16 * MMA_SLOTS)), chunks(I0) + chunks(H), 2 * chunks(H),
+                    chunks(H), smem)
 
 
 def fused_gru_decode_step_plain(
@@ -62,7 +118,9 @@ def launch_fused_step(kernel: str, stacked, vocab, x, state: State, end: Union[s
     ``end``: "argmax" (tok [B] int32), "dense" (logits [B, V] f32), a top-k
     width k (logp [B, k] f32, ids [B, k] int32), or None, the stack step
     (the top activation [B, H], a view of new_hs[L-1]; ``vocab`` is not
-    read).  Returns (the end's output, new state)."""
+    read).  An instance that ``mma_step`` names has its tensor-core
+    geometry checked first (``mma_tiles``).  Returns (the end's output, new
+    state)."""
     from show_tell_tpu_torch.ops.build import load_library
 
     lstm = isinstance(state, tuple)
@@ -85,6 +143,8 @@ def launch_fused_step(kernel: str, stacked, vocab, x, state: State, end: Union[s
         check_tensor("vocab b", vocab["b"], (V,), dtype, device)
         ints.append(V)
         vocab_ptrs = [vocab["w"].data_ptr(), vocab["b"].data_ptr()]
+        if mma_step(dtype, lstm, end, pooled=True):
+            mma_tiles(B, E, H, V)
     new_hs = torch.empty_like(hs)
     new_cs = torch.empty_like(cs) if lstm else None
     if end is None:

@@ -4,7 +4,10 @@ its LSTM instance; greedy, and the beam forms: dense logits, and top-k for
 the pooled step), the stack steps, the whole greedy decode (bit-equal to
 the per-step kernel's loop), the attention context, the projection +
 argmax, the projection + top-k, the image preprocess and the fused s2d
-stem; and the f32 encode without TF32.
+stem; and the f32 encode without TF32.  The bf16 instances on the tensor
+cores (the dense steps, the attention greedy step and the pooled LSTM
+greedy step) are also held bit for bit to each other, and the ones that
+keep the SIMT code (f32, the pooled GRU greedy step) to the SIMT ends.
 
 Marked ``cuda``: each test skips where torch finds no CUDA device (the
 kernels have no CPU or interpret mode).  Run them on the card with
@@ -672,3 +675,120 @@ def test_f32_encode_runs_without_tf32_and_leaves_the_global(cuda):
         assert (tf32 - exact).abs().max().item() > 1e-5 * scale
     finally:
         torch.backends.cudnn.allow_tf32 = saved
+
+
+# The bf16 greedy steps on the tensor cores (csrc/dense_mma.cuh): the pooled LSTM's argmax instance and the
+# attention step's, both cells, at the flagship widths (E = H = A = 512, P = 49, V = 9,956, L = 5).  Tokens may
+# differ from the SIMT code's where the top-2 logit gap is under 5e-2 (bf16 near-ties).
+TC_GREEDY = ["pooled lstm", "attention gru", "attention lstm"]
+
+
+def _tc_greedy(family, B, dtype, device, seed=21):
+    """(step, plain twin, its arguments, vocab) of one tensor-core greedy family."""
+    if family == "pooled lstm":
+        stacked, vocab, x, hs = _inputs(B, 512, 512, 9956, 5, dtype, device, seed=seed, gates=4)
+        args = (stacked, vocab, x, _state("lstm", hs, seed))
+        return fused_lstm_decode_step, fused_lstm_decode_step_plain, args, vocab
+    cell = family.split()[1]
+    gates = 4 if cell == "lstm" else 3
+    prep, w_emb, hs = _attn_prep(B, 512, 512, 512, 49, 9956, 5, dtype, device, seed=seed, gates=gates)
+    step = fused_attn_lstm_decode_step if cell == "lstm" else fused_attn_decode_step
+    return step, fused_attn_decode_step_plain, (prep, w_emb, _state(cell, hs, seed)), prep["vocab"]
+
+
+@pytest.mark.parametrize("B", [1, 19, 64, 65, 512])
+@pytest.mark.parametrize("family", TC_GREEDY)
+def test_bf16_greedy_tensor_core_steps_match_plain(cuda, family, B):
+    step, plain, args, vocab = _tc_greedy(family, B, torch.bfloat16, cuda)
+    before = step.launches
+    tok, new_state = step(*args)
+    torch.cuda.synchronize()
+    assert step.launches == before + 1 and tok.dtype == torch.int32 and tuple(tok.shape) == (B,)
+    ref_tok, ref_state = plain(*args)
+    tol, gap = TOL[torch.bfloat16]
+    for g, r in zip(new_state if isinstance(new_state, tuple) else (new_state,),
+                    ref_state if isinstance(ref_state, tuple) else (ref_state,)):
+        torch.testing.assert_close(g.float(), r.float(), rtol=tol, atol=tol)
+    clear = _clear(project_logits(vocab, _top(ref_state)), gap)
+    assert torch.equal(tok[clear], ref_tok[clear])
+
+
+@pytest.mark.parametrize("lo,hi", [(63, 64), (5, 9954)], ids=["across-two-items", "first-and-last-tiles"])
+@pytest.mark.parametrize("family", TC_GREEDY)
+def test_bf16_greedy_tie_across_vocab_items_takes_the_lower_index(cuda, family, lo, hi):
+    """Two vocabulary rows equal and top in every row, in two 64-row items
+    (63 and 64; 5 and V - 2 in the first and last): the lower index, at
+    B = 65 (a partial slab), as the plain twin."""
+    step, plain, args, vocab = _tc_greedy(family, 65, torch.bfloat16, cuda, seed=22)
+    vocab["w"][hi] = vocab["w"][lo]
+    vocab["b"][lo] = vocab["b"][hi] = 50.0
+    assert step(*args)[0].tolist() == [lo] * 65
+    assert plain(*args)[0].tolist() == [lo] * 65
+
+
+@pytest.mark.parametrize("family", TC_GREEDY)
+def test_bf16_greedy_tensor_core_steps_are_deterministic(cuda, family):
+    """Two launches on the same inputs: equal tokens and states, bit for
+    bit, whatever order the blocks' atomics land in."""
+    step, _, args, _ = _tc_greedy(family, 64, torch.bfloat16, cuda, seed=23)
+    (tok1, state1), (tok2, state2) = step(*args), step(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(tok1, tok2)
+    for a, b in zip(state1 if isinstance(state1, tuple) else (state1,),
+                    state2 if isinstance(state2, tuple) else (state2,)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("B", [3, 65])
+@pytest.mark.parametrize("family", TC_GREEDY)
+def test_bf16_greedy_steps_run_the_tensor_core_code(cuda, family, B):
+    """The three instances share the bf16 dense steps' tensor-core code: a
+    new state bit-equal to the dense step's, and tokens equal to the
+    first-max argmax of its logits (the same staged sums, the same bias)."""
+    step, _, args, _ = _tc_greedy(family, B, torch.bfloat16, cuda, seed=24)
+    if family == "pooled lstm":
+        dense = lambda: fused_dense_step(*args)
+    else:
+        dense_step = fused_attn_lstm_dense_step if family.endswith("lstm") else fused_attn_dense_step
+        dense = lambda: dense_step(*args)
+    (tok, state), (logits, dense_state) = step(*args), dense()
+    torch.cuda.synchronize()
+    for a, b in zip(state if isinstance(state, tuple) else (state,),
+                    dense_state if isinstance(dense_state, tuple) else (dense_state,)):
+        assert torch.equal(a, b)
+    assert torch.equal(first_max_argmax(logits), tok)
+
+
+@pytest.mark.parametrize("shape", [(3, 16, 24, 40, 2), (65, 40, 24, 1001, 2), (64, 256, 512, 9956, 5)])
+def test_bf16_pooled_gru_greedy_step_runs_the_simt_code(cuda, shape):
+    """The pooled GRU's bf16 greedy instance stays SIMT (bit-equal to the
+    whole decode): its new state is bit-equal to the bf16 stack step's and
+    its tokens are the bf16 top-k step's first ids (the same per-column
+    sums)."""
+    B, E, H, V, L = shape
+    stacked, vocab, x, hs = _inputs(B, E, H, V, L, torch.bfloat16, cuda, seed=25)
+    tok, new_hs = fused_gru_decode_step(stacked, vocab, x, hs)
+    (_, ids), topk_hs = fused_topk_step(stacked, vocab, x, hs, 1)
+    stack_hs = gru_stack_step(stacked, x, hs)[1]
+    torch.cuda.synchronize()
+    assert torch.equal(new_hs, stack_hs) and torch.equal(new_hs, topk_hs)
+    assert torch.equal(ids[:, 0], tok)
+
+
+@pytest.mark.parametrize("B,E,H,A,P,V,L", [(3, 16, 24, 16, 5, 40, 1), (65, 64, 128, 32, 7, 1001, 2),
+                                           (64, 512, 512, 512, 49, 9956, 5)])
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_f32_attention_greedy_step_runs_the_simt_code(cuda, cell, B, E, H, A, P, V, L):
+    """The f32 attention greedy instances keep the SIMT code: a new state
+    bit-equal to the f32 dense step's, tokens the first-max argmax of its
+    logits."""
+    prep, w_emb, hs = _attn_prep(B, E, H, A, P, V, L, torch.float32, cuda, seed=26,
+                                 gates=4 if cell == "lstm" else 3)
+    state = _state(cell, hs, 27)
+    greedy = fused_attn_lstm_decode_step if cell == "lstm" else fused_attn_decode_step
+    dense = fused_attn_lstm_dense_step if cell == "lstm" else fused_attn_dense_step
+    (tok, new_state), (logits, dense_state) = greedy(prep, w_emb, state), dense(prep, w_emb, state)
+    torch.cuda.synchronize()
+    for a, b in zip(new_state if cell == "lstm" else (new_state,), dense_state if cell == "lstm" else (dense_state,)):
+        assert torch.equal(a, b)
+    assert torch.equal(first_max_argmax(logits), tok)

@@ -1,7 +1,7 @@
 """The bf16 dense beam steps' tensor-core tiles (csrc/dense_mma.cuh), on the CPU.
 
 The kernels run only on the card; what surrounds them runs here: the
-launch geometry (``fused_beam.dense_tiles``: items, K chunks, shared
+launch geometry (``fused_step.mma_tiles``: items, K chunks, shared
 memory, and the error for a width that does not fit), with its constants
 read back from the header.  The tiles' arithmetic is re-enacted in numpy
 lane by lane: each lane's 16-byte loads in the kernel's K permutation,
@@ -34,20 +34,20 @@ from show_tell_tpu.models.attention import AttnDecoderConfig as JaxAttnConfig
 from show_tell_tpu.models.attention import init_attn_decoder_params
 from show_tell_tpu_torch.models.attention import AttnDecoder, AttnDecoderConfig
 from show_tell_tpu_torch.models.convert import decoder_from_jax
-from show_tell_tpu_torch.ops import fused_beam
+from show_tell_tpu_torch.ops import fused_step
 from show_tell_tpu_torch.ops.attention import attention_alpha_plain
 from show_tell_tpu_torch.ops.fused_attn import prepare_attn_decode, prepare_attn_weights
-from show_tell_tpu_torch.ops.fused_beam import dense_tiles
+from show_tell_tpu_torch.ops.fused_step import mma_tiles
 from show_tell_tpu_torch.ops.rnn import prepare_rnn_weights, stack_plain
 from show_tell_tpu_torch.ops.vocab import prepare_vocab, project_logits
 
 E, H, L = 16, 24, 2
 AC, AA, P = 24, 16, 5  # attention: channels, attention width, positions
 BLOCK_V = 16  # the JAX kernels' vocab block here
-SLAB, CHUNK, SLOTS, WARPS, PITCH = (fused_beam.MMA_SLAB, fused_beam.MMA_CHUNK, fused_beam.MMA_SLOTS,
-                                    fused_beam.MMA_WARPS, fused_beam.MMA_PITCH)
+SLAB, CHUNK, SLOTS, WARPS, PITCH = (fused_step.MMA_SLAB, fused_step.MMA_CHUNK, fused_step.MMA_SLOTS,
+                                    fused_step.MMA_WARPS, fused_step.MMA_PITCH)
 VALS = SLOTS * 4 * 4  # f32 sums a lane
-HEADER = os.path.join(os.path.dirname(fused_beam.__file__), "..", "csrc", "dense_mma.cuh")
+HEADER = os.path.join(os.path.dirname(fused_step.__file__), "..", "csrc", "dense_mma.cuh")
 
 
 def t(a):
@@ -65,7 +65,7 @@ def test_constants_agree_with_the_kernel_header():
     assert "kMmaVocabRows = 16 * kMmaSlots" in src
     common = open(os.path.join(os.path.dirname(HEADER), "decode_common.cuh")).read()
     assert re.search(r"constexpr int kThreads = (\d+);", common).group(1) == str(32 * WARPS)
-    assert re.search(r"constexpr int kBM = (\d+);", common).group(1) == str(fused_beam.ATTN_ROWS)
+    assert re.search(r"constexpr int kBM = (\d+);", common).group(1) == str(fused_step.ATTN_ROWS)
 
 
 # (family, R, I0, H, V, attention (A, P)): the four flagships at R = 3 (B=1) and 192 (B=64), K=3
@@ -78,7 +78,7 @@ FLAGSHIPS = [("pooled gru", 256, None), ("pooled lstm", 512, None), ("attention 
 def test_flagship_geometry(family, I0, attention, R):
     """H=512, V=9,956: 32 column tiles and 156 vocabulary tiles, times ceil(R / 32) slabs; 33,792 bytes of
     staged sums a block, the largest of the attention's needs too (A1: 8 x 512 f32, A2: 561)."""
-    g = dense_tiles(R, I0, 512, 9956, attention)
+    g = mma_tiles(R, I0, 512, 9956, attention)
     slabs = -(-R // 32)
     assert g == (32 * slabs, 156 * slabs, I0 // 32 + 16, 32, 16, 33792)
 
@@ -89,7 +89,7 @@ def test_items_cover_every_output_once(R, I0, H_, V):
     """The kernel's item -> (slab, tile) maps cover each (row, column) of a
     layer and each (row, vocabulary entry) once, and every warp's chunk run
     together covers K once."""
-    g = dense_tiles(R, I0, H_, V)
+    g = mma_tiles(R, I0, H_, V)
     slabs = -(-R // SLAB)
     for items, width, rows in ((g.gate_items, H_, 16), (g.vocab_items, V, 16 * SLOTS)):
         covered = np.zeros((R, width), np.int64)
@@ -106,10 +106,10 @@ def test_items_cover_every_output_once(R, I0, H_, V):
 def test_a_width_that_does_not_fit_raises():
     """The attention's SIMT phase A1 holds 8 rows of h in f32: H=8,192 needs 262,144 bytes."""
     with pytest.raises(ValueError, match="H=8192, A=512, P=49 needs 262144 bytes"):
-        dense_tiles(192, 1024, 8192, 9956, (512, 49))
+        mma_tiles(192, 1024, 8192, 9956, (512, 49))
     with pytest.raises(ValueError, match="multiples of 8"):
-        dense_tiles(3, 20, 24, 40)
-    assert dense_tiles(192, 1024, 8192, 9956).smem == 33792  # the pooled step stages only its sums
+        mma_tiles(3, 20, 24, 40)
+    assert mma_tiles(192, 1024, 8192, 9956).smem == 33792  # the pooled step stages only its sums
 
 
 # ---------------------------------------------------------------- the tiles' arithmetic, lane by lane
@@ -240,13 +240,14 @@ def tiled_layer(cell, x, h, c, w_ih, w_hh, b_ih, b_hh):
     return h2, (c2 if G == 4 else None)
 
 
-def tiled_logits(top, wv, bv):
-    """mma_dense_logits re-enacted: [R, V] f32."""
+def vocab_item_sums(top, wv, order=None):
+    """mma_project re-enacted: for each (64 vocabulary rows, 32 batch rows)
+    item, in ``order`` (default the items' own), (n0, v0, red), red its
+    staged sums.  top [R, H], wv [V, H]."""
     R, Hd = top.shape
     V = wv.shape[0]
     slabs = -(-R // SLAB)
-    out = np.full((R, V), np.nan, np.float32)
-    for item in range(slabs * -(-V // (16 * SLOTS))):
+    for item in range(slabs * -(-V // (16 * SLOTS))) if order is None else order:
         n0, v0 = (item % slabs) * SLAB, (item // slabs) * 16 * SLOTS
 
         def sources(ch):
@@ -256,7 +257,14 @@ def tiled_logits(top, wv, bv):
                 tiles.append(lane_loads(wv, np.where(rows < V, rows, -1), ch * CHUNK))
             return list(range(SLOTS)), tiles, lane_loads(top, slab_rows(n0, R), ch * CHUNK)
 
-        red = run_item(sources, -(-Hd // CHUNK))
+        yield n0, v0, run_item(sources, -(-Hd // CHUNK))
+
+
+def tiled_logits(top, wv, bv):
+    """mma_vocab_phase's dense end re-enacted: [R, V] f32."""
+    R, V = top.shape[0], wv.shape[0]
+    out = np.full((R, V), np.nan, np.float32)
+    for n0, v0, red in vocab_item_sums(top, wv):
         for o in range(16 * SLOTS * SLAB):
             m, n = o % (16 * SLOTS), o // (16 * SLOTS)
             if n0 + n < R and v0 + m < V:
@@ -264,8 +272,8 @@ def tiled_logits(top, wv, bv):
     return out
 
 
-def tiled_step(cell, stacked, vocab, x, state):
-    """The bf16 dense step's order of work, in f32: (logits, new state)."""
+def tiled_stack(cell, stacked, x, state):
+    """mma_stack_layer's L layers re-enacted, in f32: (top [R, H], new state)."""
     npy = lambda v: v.numpy()
     hs, cs = (npy(state[0]), npy(state[1])) if cell == "lstm" else (npy(state), None)
     inp, new_h, new_c = npy(x), [], []
@@ -275,8 +283,13 @@ def tiled_step(cell, stacked, vocab, x, state):
                               npy(stacked["b_ih"][l]), npy(stacked["b_hh"][l]))
         new_h.append(inp)
         new_c.append(c2)
-    logits = tiled_logits(inp, npy(vocab["w"]), npy(vocab["b"]))
-    return logits, ((np.stack(new_h), np.stack(new_c)) if cell == "lstm" else np.stack(new_h))
+    return inp, ((np.stack(new_h), np.stack(new_c)) if cell == "lstm" else np.stack(new_h))
+
+
+def tiled_step(cell, stacked, vocab, x, state):
+    """The bf16 dense step's order of work, in f32: (logits, new state)."""
+    top, new_state = tiled_stack(cell, stacked, x, state)
+    return tiled_logits(top, vocab["w"].numpy(), vocab["b"].numpy()), new_state
 
 
 def _states(state):
@@ -340,21 +353,18 @@ def test_pooled_tiles_match_plain_and_pallas(cell, R, V):
     _assert_states(state, j_state)
 
 
-@pytest.mark.parametrize("V", [40, 77])
-@pytest.mark.parametrize("R", [3, 19])
-@pytest.mark.parametrize("cell", ["gru", "lstm"])
-def test_attention_tiles_match_plain_and_pallas(cell, R, V):
-    """The attention dense step: A1 and A2 as the plain twin computes them
-    (they stay SIMT), then the recurrence (layer 0 is 2E wide) and the
-    projection in the tiles' order, against the plain stack and the
-    interpreted fused_attn_dense_step_pallas."""
+def _attn_case(cell, R, V, seed):
+    """An attention decoder from the JAX package's init, in both layouts:
+    (prep, w_emb, state) of the port, x = cat(w_emb, ctx_e) as the plain
+    twin's A1 and A2 form it (they stay SIMT in every instance), and the
+    JAX package's (prep, w_emb, state) with its vocab in BLOCK_V blocks."""
     jcfg = JaxAttnConfig(cell, E, AC, AA, H, V, L, max_caption_length=4)
-    jparams = init_attn_decoder_params(jax.random.PRNGKey(R + V), jcfg)
+    jparams = init_attn_decoder_params(jax.random.PRNGKey(seed), jcfg)
     with torch.device("meta"):
         dec = AttnDecoder(AttnDecoderConfig(*jcfg))
     sd = {k: t(np.array(v)) for k, v in decoder_from_jax(jax.tree.map(np.asarray, jparams)).items()}
     dec.load_state_dict(sd, strict=True, assign=True)
-    rng = np.random.RandomState(200 + R + V)
+    rng = np.random.RandomState(200 + seed)
     feats_pm = rng.randn(R, P, AC).astype(np.float32)
     w_emb = rng.randn(R, E).astype(np.float32)
     hs = rng.uniform(-1, 1, (L, R, H)).astype(np.float32)
@@ -365,15 +375,27 @@ def test_attention_tiles_match_plain_and_pallas(cell, R, V):
         alpha = attention_alpha_plain(prep, prep["att1"], t(hs[-1]))
         ctx_e = (prep["feats_e"].float() * alpha[..., None]).sum(dim=1) + prep["b_emb"].float()
         x = torch.cat([t(w_emb), ctx_e], dim=-1)
+    j_prep = jax_prepare_attn_decode(jparams, jnp.asarray(feats_pm))
+    j_prep["vocab"] = jax_prepare_vocab(jparams["linear"], block_v=BLOCK_V)
+    return (prep, t(w_emb), tstate), x, (j_prep, jnp.asarray(w_emb), jax.tree.map(jnp.asarray, state))
+
+
+@pytest.mark.parametrize("V", [40, 77])
+@pytest.mark.parametrize("R", [3, 19])
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_attention_tiles_match_plain_and_pallas(cell, R, V):
+    """The attention dense step: A1 and A2 as the plain twin computes them
+    (they stay SIMT), then the recurrence (layer 0 is 2E wide) and the
+    projection in the tiles' order, against the plain stack and the
+    interpreted fused_attn_dense_step_pallas."""
+    (prep, _, tstate), x, (j_prep, j_emb, j_state0) = _attn_case(cell, R, V, R + V)
+    with torch.inference_mode():
         logits, new_state = tiled_step(cell, prep["stacked"], prep["vocab"], x, tstate)
         top, ref_state = stack_plain(cell)(prep["stacked"], x, tstate)
         ref_logits = project_logits(prep["vocab"], top).numpy()
     _assert_states(new_state, ref_state)
     np.testing.assert_allclose(logits, ref_logits, rtol=1e-5, atol=1e-5)
-    j_prep = jax_prepare_attn_decode(jparams, jnp.asarray(feats_pm))
-    j_prep["vocab"] = jax_prepare_vocab(jparams["linear"], block_v=BLOCK_V)
-    j_logits, j_state = fused_attn_dense_step_pallas(j_prep, cell, jnp.asarray(w_emb), jax.tree.map(jnp.asarray, state),
-                                                     V, block_v=BLOCK_V, interpret=True)
+    j_logits, j_state = fused_attn_dense_step_pallas(j_prep, cell, j_emb, j_state0, V, block_v=BLOCK_V, interpret=True)
     np.testing.assert_allclose(logits, np.asarray(j_logits), rtol=1e-5, atol=1e-5)
     _assert_states(new_state, j_state)
 
