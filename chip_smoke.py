@@ -8,10 +8,10 @@ Phases, one line each (any failure exits non-zero with no ok line):
   2. build: the CUDA kernels from show_tell_tpu_torch/csrc, with nvcc, and
      beside them the grid-barrier probe (grid_barrier_probe.cu); ptxas's
      registers, stack and spills of the tensor-core instances (the bf16
-     projection kernels, vocab_mma.cuh; the seven bf16 fused steps of
-     dense_mma.cuh: the four dense beam steps, the attention greedy step's
-     two cells and the pooled LSTM greedy step) and the tensor-core (HMMA)
-     instructions in their SASS;
+     projection kernels, vocab_mma.cuh; the nine bf16 instances of
+     dense_mma.cuh: the four dense beam steps, the four greedy steps,
+     pooled and attention, GRU and LSTM, and the whole decode) and the
+     tensor-core (HMMA) instructions in their SASS;
   3. kernel against plain, at the flagship widths: the pooled fused step,
      GRU (L=5, E=256, H=512, V=9,956; B = 1, 64, 512; and E=1024 > H) and
      LSTM (E=512, same B); the fused attention step, GRU and LSTM (L=5,
@@ -25,14 +25,16 @@ Phases, one line each (any failure exits non-zero with no ok line):
      top-k against the plain projection of the kernel's own new top
      activation, and top-k ties listed lower index first; digests of the
      f32 dense steps' outputs and of the greedy steps that keep the SIMT
-     code (every f32 instance, the bf16 pooled GRU) at B = 1 and 64 (two
-     builds that print the same digests agree bit for bit);
+     code (every f32 instance), and of the bf16 pooled GRU step, at B = 1
+     and 64 (two builds that print the same digests agree bit for bit);
   3c. input kernels against plain, f32 and bf16: the preprocess (C = 3
      and 12, B = 1 and 64, and two odd shapes) bit for bit; the fused stem
      (s2d and RGB layouts, pool on and off, B = 1 and 64) within STEM_TOL;
   3d. the greedy routes' other kernels, f32 and bf16, B = 1, 64, 512: the
      whole-decode kernel (all 25 steps in one launch) bit-equal to the
-     per-step kernel's loop and against its twin, with a cross-block tie;
+     per-step kernel's loop and against its twin, with a cross-block tie
+     (columns 7 and 9000) and a tie across the first 64-row vocabulary
+     item boundary (63 and 64);
      the GRU (E=256) and LSTM (E=512) stack steps against their twins;
   3e. the bf16 projection kernels' V-tiles on this card, and a tie across
      the first V-tile boundary in both projection kernels, f32 and bf16;
@@ -515,16 +517,18 @@ def projection_tile_ties(rng, device):
 
 
 TILE_KERNELS = ("project_argmax_tiles_kernel", "project_topk_tiles_kernel")  # the bf16 projection kernels
-# the bf16 fused steps on the tensor cores (csrc/dense_mma.cuh, mma_step()): entry point -> (kernel template, cell,
-# vocab end: kArgmax = 0, kDense = 1); the pooled GRU's argmax instance stays SIMT
+# the bf16 instances on the tensor cores (csrc/dense_mma.cuh, mma_step()): entry point -> (kernel template, cell,
+# vocab end: kArgmax = 0, kDense = 1; None where the template names neither: the whole decode, GRU and argmax)
 MMA_STEPS = {
     "st_fused_gru_dense_step": ("fused_step_kernel", "GruCell", 1),
     "st_fused_lstm_dense_step": ("fused_step_kernel", "LstmCell", 1),
     "st_fused_attn_dense_step": ("fused_attn_step_kernel", "GruCell", 1),
     "st_fused_attn_lstm_dense_step": ("fused_attn_step_kernel", "LstmCell", 1),
+    "st_fused_gru_step": ("fused_step_kernel", "GruCell", 0),
     "st_fused_lstm_step": ("fused_step_kernel", "LstmCell", 0),
     "st_fused_attn_step": ("fused_attn_step_kernel", "GruCell", 0),
     "st_fused_attn_lstm_step": ("fused_attn_step_kernel", "LstmCell", 0),
+    "st_whole_gru_decode": ("whole_gru_kernel", None, None),
 }
 
 
@@ -537,16 +541,16 @@ def tensor_core_kernel(name):
     if tile:
         return tile
     for label, (base, cell, mode) in MMA_STEPS.items():
-        if ((base + "<" in name or base + "I" in name) and cell in name and "__nv_bfloat16" in name
-                and re.search(r"(, (\(int\))?%d>|ELi%dE)" % (mode, mode), name)):
+        if ((base + "<" in name or base + "I" in name) and "__nv_bfloat16" in name and (cell is None or cell in name)
+                and (mode is None or re.search(r"(, (\(int\))?%d>|ELi%dE)" % (mode, mode), name))):
             return label
     return None
 
 
 def tile_kernel_report(build):
     """ptxas's registers, stack frame and spills of the tensor-core kernel
-    instances (the two bf16 projection kernels and the seven bf16 fused
-    steps of MMA_STEPS), and, where the toolkit has cuobjdump, the
+    instances (the two bf16 projection kernels and the nine bf16 fused
+    instances of MMA_STEPS), and, where the toolkit has cuobjdump, the
     tensor-core (HMMA) instructions in their SASS in the library; fails if
     one has none, if ptxas names none of them, or if a fused step has a
     stack frame or spills."""
@@ -554,7 +558,8 @@ def tile_kernel_report(build):
 
     labels = TILE_KERNELS + tuple(MMA_STEPS)
     reported = set()
-    for line in build.ptxas_report(["project_argmax.cu", "project_topk.cu", "fused_step.cu", "fused_attn_step.cu"]):
+    for line in build.ptxas_report(["project_argmax.cu", "project_topk.cu", "fused_step.cu", "fused_attn_step.cu",
+                                    "whole_decode.cu"]):
         label = tensor_core_kernel(line.rsplit(": ", 1)[0])
         if label:
             phase("build", "ptxas -v " + line)
@@ -697,9 +702,11 @@ def f32_dense_digests(device):
 def simt_greedy_digests(device):
     """Phase 3.  sha256 digests of the greedy steps' tokens and new states
     that keep the SIMT code, at B = 1 and 64, from inputs of their own
-    seed: every f32 instance (pooled GRU and LSTM, attention GRU and LSTM)
-    and the bf16 pooled GRU (the whole decode's twin), so that two builds
-    that print the same digests gave bit-equal outputs on those paths."""
+    seed: every f32 instance (pooled GRU and LSTM, attention GRU and LSTM),
+    so that two builds that print the same digests gave bit-equal outputs
+    on those paths.  After them, the bf16 pooled GRU's (the tensor cores
+    since it moved with the whole decode; its draws keep the B=64 f32
+    inputs those of earlier builds)."""
     import hashlib
 
     import numpy as np
@@ -724,8 +731,9 @@ def simt_greedy_digests(device):
                 prep, w_emb, state = attn_inputs(rng, B, dtype, device, cell)
                 tok, new_state = fused_attn_decode_step_cuda(prep, w_emb, state)
             states = new_state if isinstance(new_state, tuple) else (new_state,)
-            phase("kernel", "%s greedy step %s B=%d (SIMT): sha256 of the tokens %s, of the new state %s"
-                  % (family, dname(dtype), B, digest([tok]), digest(states)))
+            phase("kernel", "%s greedy step %s B=%d (%s): sha256 of the tokens %s, of the new state %s"
+                  % (family, dname(dtype), B, "SIMT" if dtype == torch.float32 else "tensor cores", digest([tok]),
+                     digest(states)))
 
 
 def u8_images(rng, shape, device):
@@ -888,15 +896,18 @@ def decode_kernels_against_plain(rng, device):
                   "whose top-2 gaps all exceed %g (%d rows closer, %d of them equal anyway); step-0 logit gap between "
                   "the picks %.3g" % (what, int(clear.sum()), tol[1], B - int(clear.sum()),
                                       int(((ids == ref).all(1) & ~clear).sum()), err))
-        prepared, feats = whole_inputs(rng, 64, dtype, device)
-        prepared["vocab"]["w"][9000] = prepared["vocab"]["w"][7]
-        prepared["vocab"]["b"][7] = prepared["vocab"]["b"][9000] = 100.0
-        toks = [gru_whole_greedy_decode_cuda(prepared, feats, T), greedy_decode_kernel(prepared, feats, T,
-                                                                                        whole_decode=False)]
-        if not all(bool((t == 7).all()) for t in toks):
-            fail("whole decode %s: tie of columns 7 and 9000 not resolved to 7 at every step" % dn)
-        phase("kernel", "whole decode %s: tie between columns 7 and 9000 -> 7 at all 25 steps of all 64 rows, as the "
-              "per-step loop" % dn)
+        # ties across blocks (7, 9000) and across the first 64-row vocabulary item boundary of the tensor-core end
+        for lo, hi in ((7, 9000), (63, 64)):
+            prepared, feats = whole_inputs(rng, 64, dtype, device)
+            prepared["vocab"]["w"][hi] = prepared["vocab"]["w"][lo]
+            prepared["vocab"]["b"][lo] = prepared["vocab"]["b"][hi] = 100.0
+            toks = [gru_whole_greedy_decode_cuda(prepared, feats, T), greedy_decode_kernel(prepared, feats, T,
+                                                                                            whole_decode=False)]
+            if not all(bool((t == lo).all()) for t in toks):
+                fail("whole decode / per-step loop %s: tie of columns %d and %d not resolved to %d at every step"
+                     % (dn, lo, hi, lo))
+            phase("kernel", "whole decode and per-step loop %s: tie between columns %d and %d -> %d at all 25 steps "
+                  "of all 64 rows in both routes" % (dn, lo, hi, lo))
         for name, cell, Ec, cuda_step, plain_step in (
                 ("gru_stack_step", "gru", E, gru_stack_step_cuda, gru_stack_plain),
                 ("lstm_stack_step", "lstm", LE, lstm_stack_step_cuda, lstm_stack_plain)):
@@ -1676,9 +1687,8 @@ def main():
             stacked, vocab_w, x, state = step_inputs(rng, B, torch.bfloat16, device, Ed, cell)
             times[name, B] = (event_median_ms(lambda: cuda_step(stacked, vocab_w, x, state)),
                               event_median_ms(lambda: plain_step(stacked, vocab_w, x, state)))
-            if cell == "lstm":  # the tensor-core greedy steps, also with their operands cold in L2
-                cold_ms[name, B] = event_median_ms(lambda: cuda_step(stacked, vocab_w, x, state),
-                                                   before=flush_buf.zero_)
+            # the tensor-core greedy steps, also with their operands cold in L2
+            cold_ms[name, B] = event_median_ms(lambda: cuda_step(stacked, vocab_w, x, state), before=flush_buf.zero_)
     for B in (1, 64, 256):
         for name, cell in (("fused_attn_decode_step", "gru"), ("fused_attn_lstm_decode_step", "lstm")):
             prep, w_emb, state = attn_inputs(rng, B, torch.bfloat16, device, cell)

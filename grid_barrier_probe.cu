@@ -21,11 +21,11 @@ __global__ void __launch_bounds__(kThreads) grid_barriers_kernel(int n) {
 template <typename T>
 cudaError_t launch_barriers(int L, int B, int E, int H, int n, cudaStream_t stream) {
   Params p{};
-  p.stack.L = L;
-  p.stack.B = B;
-  p.stack.I0 = E;
-  p.stack.H = H;
-  const size_t smem = smem_bytes(p);
+  p.even.L = L;
+  p.even.B = B;
+  p.even.I0 = E;
+  p.even.H = H;
+  const size_t smem = smem_bytes<T>(p);
   cudaError_t err;
   if (smem > 48 * 1024) {
     err = cudaFuncSetAttribute(whole_gru_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));

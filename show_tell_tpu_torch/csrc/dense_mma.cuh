@@ -2,11 +2,11 @@
 // vocab projection as mma.sync m16n8k16 products (bf16 in, f32 sums), with
 // two ends of the projection: the dense f32 logits (beam) and the
 // first-max argmax (greedy).  mma_step() names the instances that run this
-// file's code: in bf16, the dense instances of fused_step.cu and
-// fused_attn_step.cu, the argmax instances of fused_attn_step.cu (both
-// cells) and the pooled LSTM's argmax instance of fused_step.cu.  The f32
-// instances, the pooled GRU's argmax instance, the top-k end and kNone keep
-// the SIMT code of decode_common.cuh.
+// file's code: in bf16, the dense and argmax instances of fused_step.cu and
+// fused_attn_step.cu (both cells), and the whole decode of whole_decode.cu,
+// which runs the pooled GRU argmax instance's layers and key merge T times
+// and so stays bit-equal to its per-step loop.  The f32 instances, the
+// top-k end and kNone keep the SIMT code of decode_common.cuh.
 //
 // What bounds a step on an H100.  It reads the recurrence weights (15-23 MB
 // in bf16 at the flagships) and the 10.2 MB projection, 25-34 MB in all,
@@ -56,8 +56,17 @@
 //   the four by packed (logit, ~index) key (pack_key: of equal values the
 //   lower index) and merges the item into best[row] with one atomicMax,
 //   the first-max rule of vocab_pallas.merge_block_argmax, whatever the
-//   grid or the order of the atomics.  The tokens are read from best after
-//   a grid barrier (argmax_tokens, as the SIMT end).
+//   grid or the order of the atomics (mma_argmax_keys).  The per-step
+//   kernels read the tokens from best after a grid barrier (argmax_tokens,
+//   as the SIMT end); the whole decode reads them in its own token phase.
+// - Registers: a phase reads threadIdx.x and its widths through an empty
+//   asm (phase_thread), so that the whole decode, which inlines every
+//   phase into its step loop, derives them anew in each phase instead of
+//   holding them through the others (it spilled before, at 255 registers).
+// - Coherence: every operand that another block may have written in the
+//   same launch (layer inputs, the state h in the finish) is read through
+//   L2 only (__ldcg), since L1 is not coherent across SMs; in the whole
+//   decode that is every step's input and state.
 // - Ragged edges: rows j >= H, v >= V and n >= B, and columns from K up to
 //   the chunk's 32, are zeros in registers (never loaded); only j < H,
 //   v < V and n < B are written or form a key.  K need only be a multiple
@@ -80,14 +89,19 @@ constexpr int kMmaVocabRows = 16 * kMmaSlots;  // vocabulary rows of an item
 constexpr int kMmaDepth = 2;                   // register buffers of a warp's chunk pipeline (3 and 4 ran slower)
 constexpr size_t kMmaSmemFloats = static_cast<size_t>(kWarps) * kMmaVals * kMmaPitch;
 
-// Whether a fused step's instance runs this file's code (kPooled: fused_step.cu's, else fused_attn_step.cu's):
-// bf16 with the dense end, or with the argmax end except the pooled GRU's.  That instance stays SIMT: the whole
-// decode (whole_decode.cu) runs the same SIMT layer and argmax, and is held bit-equal to the per-step loop of this
-// instance, so the two move to the tensor cores together.
-template <typename T, typename Cell, int kMode, bool kPooled>
+// Whether a fused step's instance (or, with kArgmax, the whole decode) runs this file's code: bf16 with the dense or
+// the argmax end, either cell.
+template <typename T, int kMode>
 __host__ __device__ constexpr bool mma_step() {
-  return std::is_same<T, __nv_bfloat16>::value &&
-         (kMode == kDense || (kMode == kArgmax && !(kPooled && std::is_same<Cell, GruCell>::value)));
+  return std::is_same<T, __nv_bfloat16>::value && (kMode == kDense || kMode == kArgmax);
+}
+
+// threadIdx.x, opaque to the compiler: a phase (a layer, a projection) reads it once, and its widths through the same
+// empty asm, so that nothing it derives from them is hoisted out of the whole decode's step loop (see Registers above).
+__device__ __forceinline__ int phase_thread() {
+  int t = threadIdx.x;
+  asm volatile("" : "+r"(t));
+  return t;
 }
 
 // One chunk of a lane's fragments: rows g and g + 8 of each A tile, rows
@@ -102,8 +116,8 @@ struct MmaChunk {
 // b, nb of them real.  Columns k0 + 8t .. k0 + 8t + 7 of each, zero past K.
 template <int NA>
 __device__ __forceinline__ void mma_load(MmaChunk& f, const __nv_bfloat16* a, size_t tile_step, int a_rows,
-                                         int row_step, const __nv_bfloat16* b, int nb, int K, int k0) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, k = k0 + 8 * (lane & 3);
+                                         int row_step, const __nv_bfloat16* b, int nb, int K, int k0, int lane) {
+  const int g = lane >> 2, k = k0 + 8 * (lane & 3);
   const bool in_k = k < K;
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
 #pragma unroll
@@ -166,16 +180,15 @@ __device__ __forceinline__ void mma_pipeline(int c0, int c1, Load load, Compute 
 }
 
 // Chunks [c0, c1) of this warp's split of n_chunks.
-__device__ __forceinline__ void mma_split(int n_chunks, int& c0, int& c1) {
-  const int warp = threadIdx.x >> 5;
+__device__ __forceinline__ void mma_split(int n_chunks, int& c0, int& c1, int warp) {
   c0 = warp * n_chunks / kWarps;
   c1 = (warp + 1) * n_chunks / kWarps;
 }
 
 // Each warp's sums into shared memory, then the barrier after which any thread may read them.
-__device__ __forceinline__ void mma_stage(const float (&acc)[kMmaSlots][4][4], float* red) {
-  const int lane = threadIdx.x & 31;
-  float* mine = red + (threadIdx.x >> 5) * kMmaVals * kMmaPitch;
+__device__ __forceinline__ void mma_stage(const float (&acc)[kMmaSlots][4][4], float* red, int tid) {
+  const int lane = tid & 31;
+  float* mine = red + (tid >> 5) * kMmaVals * kMmaPitch;
 #pragma unroll
   for (int s = 0; s < kMmaSlots; ++s)
 #pragma unroll
@@ -201,21 +214,23 @@ __device__ __forceinline__ float mma_sum(const float* red, int s, int m, int n) 
 template <typename Cell>
 __device__ void mma_rnn_layer(const Layer<__nv_bfloat16>& y, float* red) {
   constexpr int G = Cell::kGates;
-  const int H = y.H, I = y.I;
+  int H = y.H, I = y.I, B = y.B;
+  asm volatile("" : "+r"(H), "+r"(I), "+r"(B));  // opaque, as phase_thread()
   const int cx = (I + kMmaChunk - 1) / kMmaChunk, n_chunks = cx + (H + kMmaChunk - 1) / kMmaChunk;
+  const int tid = phase_thread(), lane = tid & 31;
   int c0, c1;
-  mma_split(n_chunks, c0, c1);
-  const int slabs = (y.B + kMmaSlab - 1) / kMmaSlab, items = slabs * ((H + 15) / 16);
+  mma_split(n_chunks, c0, c1, tid >> 5);
+  const int slabs = (B + kMmaSlab - 1) / kMmaSlab, items = slabs * ((H + 15) / 16);
   for (int item = blockIdx.x; item < items; item += gridDim.x) {
     const int n0 = (item % slabs) * kMmaSlab, j0 = (item / slabs) * 16;
-    const int nb = min(kMmaSlab, y.B - n0), nts = (nb + 7) / 8;
+    const int nb = min(kMmaSlab, B - n0), nts = (nb + 7) / 8;
     auto load = [&](MmaChunk& f, int c) {
       if (c < cx)
         mma_load<G>(f, y.w_ih + static_cast<size_t>(j0) * I, static_cast<size_t>(H) * I, H - j0, 0,
-                    y.xin + static_cast<size_t>(n0) * I, nb, I, c * kMmaChunk);
+                    y.xin + static_cast<size_t>(n0) * I, nb, I, c * kMmaChunk, lane);
       else
         mma_load<G>(f, y.w_hh + static_cast<size_t>(j0) * H, static_cast<size_t>(H) * H, H - j0, 0,
-                    y.hin + static_cast<size_t>(n0) * H, nb, H, (c - cx) * kMmaChunk);
+                    y.hin + static_cast<size_t>(n0) * H, nb, H, (c - cx) * kMmaChunk, lane);
     };
     float acc[kMmaSlots][4][4];
     mma_zero(acc);
@@ -229,8 +244,8 @@ __device__ void mma_rnn_layer(const Layer<__nv_bfloat16>& y, float* red) {
       }
     });
     __syncthreads();  // the previous item's finish is done with red
-    mma_stage(acc, red);
-    for (int o = threadIdx.x; o < 16 * kMmaSlab; o += kThreads) {
+    mma_stage(acc, red, tid);
+    for (int o = tid; o < 16 * kMmaSlab; o += kThreads) {
       const int m = o & 15, n = o >> 4, j = j0 + m;
       if (n < nb && j < H) {
         // GruCell: r and z over both sides in the x-side slots (their h-side sums 0), n apart
@@ -243,7 +258,7 @@ __device__ void mma_rnn_layer(const Layer<__nv_bfloat16>& y, float* red) {
         else
           s[3] = mma_sum(red, 3, m, n);
         const int row = n0 + n;
-        const float h = Cell::kHidden ? __bfloat162float(y.hin[static_cast<size_t>(row) * H + j]) : 0.0f;
+        const float h = Cell::kHidden ? __bfloat162float(__ldcg(y.hin + static_cast<size_t>(row) * H + j)) : 0.0f;
         Cell::template finish<__nv_bfloat16>(y, s, row, j, h);
       }
     }
@@ -263,15 +278,17 @@ __device__ void mma_stack_layer(const StackArgs& s, int l, float* red) {
 template <typename End>
 __device__ __forceinline__ void mma_project(const __nv_bfloat16* top, const __nv_bfloat16* wv, int B, int H, int V,
                                             float* red, End end) {
+  asm volatile("" : "+r"(B), "+r"(H), "+r"(V));  // opaque, as phase_thread()
+  const int tid = phase_thread(), lane = tid & 31;
   int c0, c1;
-  mma_split((H + kMmaChunk - 1) / kMmaChunk, c0, c1);
+  mma_split((H + kMmaChunk - 1) / kMmaChunk, c0, c1, tid >> 5);
   const int slabs = (B + kMmaSlab - 1) / kMmaSlab, items = slabs * ((V + kMmaVocabRows - 1) / kMmaVocabRows);
   for (int item = blockIdx.x; item < items; item += gridDim.x) {
     const int n0 = (item % slabs) * kMmaSlab, v0 = (item / slabs) * kMmaVocabRows;
     const int nb = min(kMmaSlab, B - n0), nts = (nb + 7) / 8;
     auto load = [&](MmaChunk& f, int c) {
       mma_load<kMmaSlots>(f, wv + static_cast<size_t>(v0) * H, static_cast<size_t>(16) * H, V - v0, 16,
-                          top + static_cast<size_t>(n0) * H, nb, H, c * kMmaChunk);
+                          top + static_cast<size_t>(n0) * H, nb, H, c * kMmaChunk, lane);
     };
     float acc[kMmaSlots][4][4];
     mma_zero(acc);
@@ -280,9 +297,39 @@ __device__ __forceinline__ void mma_project(const __nv_bfloat16* top, const __nv
       for (int i = 0; i < kMmaSlots; ++i) mma_tile(acc[i], f, i, nts);
     });
     __syncthreads();  // the previous item's end is done with red
-    mma_stage(acc, red);
+    mma_stage(acc, red, tid);
     end(n0, nb, v0);
   }
+}
+
+// best[b] = max(best[b], the packed (logit, index) key of b's first max over
+// v < V of top[b] . wv[v] + bv[v]), by one atomicMax an item and batch row;
+// best must start below every key (0) behind a grid barrier.
+__device__ void mma_argmax_keys(const __nv_bfloat16* top, const __nv_bfloat16* wv, const __nv_bfloat16* bv, int B,
+                                int H, int V, unsigned long long* best, float* red) {
+  static_assert(kThreads == kRowThreads * kMmaSlab && kMmaVocabRows == kRowThreads * 16,
+                "the argmax end: four threads a batch row, 16 vocabulary rows (one slot) each");
+  const int tid = phase_thread();
+  mma_project(top, wv, B, H, V, red, [&](int n0, int nb, int v0) {
+    const int n = tid / kRowThreads, q = tid % kRowThreads;  // slot q: rows v0 + 16q + m
+    float val = -INFINITY;
+    int idx = -1;
+    if (n < nb) {
+#pragma unroll
+      for (int m = 0; m < 16; ++m) {  // increasing v: of equal values the first stays
+        const int v = v0 + 16 * q + m;
+        if (v < V) {
+          const float x = mma_sum(red, q, m, n) + __bfloat162float(bv[v]);
+          if (idx < 0 || x > val) {
+            val = x;
+            idx = v;
+          }
+        }
+      }
+    }
+    const unsigned long long key = row_max_key(idx >= 0 ? pack_key(val, idx) : 0ull);
+    if (n < nb && q == 0) atomicMax(best + n0 + n, key);
+  });
 }
 
 // The vocab phase of an mma_step instance, after the top activation is
@@ -301,28 +348,7 @@ __device__ void mma_vocab_phase(const __nv_bfloat16* top, const __nv_bfloat16* w
     });
   } else {
     static_assert(kMode == kArgmax, "the tensor-core steps end in dense logits or the argmax");
-    static_assert(kThreads == kRowThreads * kMmaSlab && kMmaVocabRows == kRowThreads * 16,
-                  "the argmax end: four threads a batch row, 16 vocabulary rows (one slot) each");
-    mma_project(top, wv, B, H, V, red, [&](int n0, int nb, int v0) {
-      const int n = threadIdx.x / kRowThreads, q = threadIdx.x % kRowThreads;  // slot q: rows v0 + 16q + m
-      float val = -INFINITY;
-      int idx = -1;
-      if (n < nb) {
-#pragma unroll
-        for (int m = 0; m < 16; ++m) {  // increasing v: of equal values the first stays
-          const int v = v0 + 16 * q + m;
-          if (v < V) {
-            const float x = mma_sum(red, q, m, n) + __bfloat162float(bv[v]);
-            if (idx < 0 || x > val) {
-              val = x;
-              idx = v;
-            }
-          }
-        }
-      }
-      const unsigned long long key = row_max_key(idx >= 0 ? pack_key(val, idx) : 0ull);
-      if (n < nb && q == 0) atomicMax(out.best + n0 + n, key);
-    });
+    mma_argmax_keys(top, wv, bv, B, H, V, out.best, red);
     argmax_tokens(out, B, grid);
   }
 }

@@ -196,7 +196,7 @@ __global__ void __launch_bounds__(kThreads) fused_attn_step_kernel(Params p) {
   extern __shared__ float smem[];
   cg::grid_group grid = cg::this_grid();
   const StackArgs& s = p.stack;
-  constexpr bool kMma = mma_step<T, Cell, kMode, false>();  // the tensor cores (dense_mma.cuh)
+  constexpr bool kMma = mma_step<T, kMode>();  // the tensor cores (dense_mma.cuh)
   if constexpr (kMode == kArgmax)
     for (int b = grid_thread(); b < s.B; b += grid_threads()) p.out.best[b] = 0ull;  // below every packed key
   attention_scores_in<T>(p, smem);
@@ -223,7 +223,7 @@ template <typename T, typename Cell, int kMode>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   // A1's kBM rows of h and A2's scores beside the recurrence's tiles (an mma_step instance: its staged sums)
   const size_t attn = std::max(static_cast<size_t>(p.A) + p.P, static_cast<size_t>(kBM) * p.stack.H);
-  const size_t stack = mma_step<T, Cell, kMode, false>() ? kMmaSmemFloats : stack_smem_floats(p.stack);
+  const size_t stack = mma_step<T, kMode>() ? kMmaSmemFloats : stack_smem_floats(p.stack);
   Params args = p;
   void* argv[] = {&args};
   return launch_cooperative(fused_attn_step_kernel<T, Cell, kMode>, (attn > stack ? attn : stack) * sizeof(float),

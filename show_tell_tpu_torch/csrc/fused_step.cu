@@ -45,10 +45,11 @@
 // multiplies in f32, so at large batches it turns into an f32 FMA loop.
 // The bf16 instances that mma_step() names run the recurrence and the
 // projection on the tensor cores instead (dense_mma.cuh: mma.sync, weights
-// re-read once per 32 batch rows): the dense end and the LSTM's argmax
-// end, which merges each 64-row vocabulary item's first max into best by
-// one atomicMax a row.  The GRU's argmax instance stays SIMT beside the
-// whole decode (whole_decode.cu), which must stay bit-equal to its loop.
+// re-read once per 32 batch rows): the dense end and the argmax end of
+// both cells, which merges each 64-row vocabulary item's first max into
+// best by one atomicMax a row.  The whole decode (whole_decode.cu) runs the
+// GRU argmax instance's layers and key merge, so its ids stay bit-equal to
+// this instance's loop.
 // The stack step (kNone) reads the recurrence weights alone: 14.9 MB (GRU,
 // E=256) and 21.0 MB (LSTM, E=512) in bf16, plus [L, B, H] states in and
 // out; its bound is those bytes, 4.5 and 6.3 us at 3.35 TB/s at small B.
@@ -99,7 +100,7 @@ __global__ void __launch_bounds__(kThreads) fused_step_kernel(Params p) {
   extern __shared__ float smem[];
   cg::grid_group grid = cg::this_grid();
   const StackArgs& s = p.stack;
-  constexpr bool kMma = mma_step<T, Cell, kMode, true>();  // the tensor cores (dense_mma.cuh)
+  constexpr bool kMma = mma_step<T, kMode>();  // the tensor cores (dense_mma.cuh)
   if constexpr (kMode == kArgmax)
     for (int b = grid_thread(); b < s.B; b += grid_threads()) p.out.best[b] = 0ull;  // below every packed key
   for (int l = 0; l < s.L; ++l) {
@@ -122,7 +123,7 @@ template <typename T, typename Cell, int kMode>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   Params args = p;
   void* argv[] = {&args};
-  const size_t floats = mma_step<T, Cell, kMode, true>() ? kMmaSmemFloats : stack_smem_floats(p.stack);
+  const size_t floats = mma_step<T, kMode>() ? kMmaSmemFloats : stack_smem_floats(p.stack);
   return launch_cooperative(fused_step_kernel<T, Cell, kMode>, floats * sizeof(float), argv, stream);
 }
 

@@ -70,27 +70,32 @@ def whole_decode_default() -> bool:
     caller does not say; the counterpart of
     show_tell_tpu/ops/__init__.py::pallas_whole_decode_default.
 
-    On, by an A/B on an NVIDIA H100 80GB HBM3 at its 700 W power limit
+    Off, by an A/B on an NVIDIA H100 80GB HBM3 at its 700 W power limit
     (chip_smoke.py phase 6: host clock a T=25 pooled-GRU decode, ten
     rounds of five decodes in turns against 25 fused-step launches with
-    index_select between them; ids bit-equal).  The rule: on when at
-    B=64 bf16 the whole decode is faster in at least 9 of 10 rounds and
-    the medians differ by more than the larger interquartile range, and
-    the loop wins so at none of B = 1, 64, 512.  The run that set it, with
-    the rule fixed before it, had the whole decode faster in 10 of 10 rounds
-    at every B, bf16 and f32: 0.9717 against 1.9152 ms at B=1, 10.6069
-    against 10.7170 ms at B=64 (medians 0.1101 ms apart, spread
-    0.0195 ms), 81.4852 against 81.8421 ms at B=512; f32 1.62x, 1.021x,
-    1.016x.  Of the four earlier runs, which printed ranges only, or
-    quartiles without counting rounds, the second had one whole-decode
-    round of 13.54 ms at B=64 and so no win by min-max ranges; the rule
-    moved to quartiles after it.
+    index_select between them; ids bit-equal).  The rule, fixed before the
+    first run: on when at B=64 bf16 the whole decode is faster in at least
+    9 of 10 rounds and the medians differ by more than the larger
+    interquartile range, and the loop wins so at none of B = 1, 64, 512.
 
-    What it saves is the host's work between steps: the loop waits on it
-    at B=1 and hides it behind the device at B >= 64, where the kernel's
-    extra grid barrier a step (1.6 us) eats most of the saving.  Whether
-    the 1% at B=64 shows in captions/s is not verified: three host-clock
-    requests spread more than that.  The TPU kernel's 0.99x and 0.82x
-    (off there) do not carry over.  Early exit, the LSTM and the sharded
-    projection keep the per-step loop."""
-    return True
+    The run that turned it off came after both kernels moved to the
+    tensor cores in bf16 (the per-step GRU step from 0.42 to 0.06 ms at
+    B=64): the whole decode won at B=1 (1.1878 against 1.8889 ms, 10 of
+    10 rounds) and B=64 (1.5616 against 1.7619 ms, 10 of 10, medians
+    0.2003 ms apart, spread 0.1896 ms), and lost at B=512 (3.8727 against
+    3.7698 ms, the loop faster in 10 of 10 rounds, medians 0.1029 ms
+    apart, spread 0.0403 ms).  f32 (SIMT) still favours the whole decode
+    at every B (1.20x, 1.031x, 1.019x).  The earlier runs, on the SIMT
+    bf16 kernels, had it on: faster in 10 of 10 rounds at every B, 1.62x
+    at B=1 and 1.01x at B=64 in the run that set it.
+
+    Where it loses: at B=512 a whole-decode step takes about 7 us more on
+    the card than a launch of the per-step kernel (tools/step_times.py in
+    the same call: 3.8571 and 3.8768 ms for 25 steps, 0.1479 and 0.1477 ms
+    a step), and the host work it saves is hidden there behind the card.
+    Where the 7 us go is not measured: its extra grid barrier and row
+    gather a step, or a kernel at 255 registers against the step's 234.  A
+    route by batch size would keep its gain at B <= 64; the rule as fixed
+    takes one default for every B.  Early exit, the LSTM and the sharded
+    projection keep the per-step loop either way."""
+    return False

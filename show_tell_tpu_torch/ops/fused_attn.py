@@ -134,7 +134,7 @@ def _fused_attn_cuda(prep, w_emb, state: State, dense: bool):
     check_tensor("b_emb", prep["b_emb"], (E,), dtype, device)
     check_tensor("vocab w", prep["vocab"]["w"], (V, H), dtype, device)
     check_tensor("vocab b", prep["vocab"]["b"], (V,), dtype, device)
-    if mma_step(dtype, lstm, "dense" if dense else "argmax", pooled=False):
+    if mma_step(dtype, "dense" if dense else "argmax"):
         mma_tiles(B, 2 * E, H, V, (A, P))
     lib = load_library()
     stacked, vocab = prep["stacked"], prep["vocab"]

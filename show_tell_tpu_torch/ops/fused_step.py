@@ -8,12 +8,12 @@ Counterpart of show_tell_tpu/ops/fused_step_pallas.py::fused_gru_decode_step_pal
 and ::fused_lstm_decode_step_pallas.  Layer 0 reads x at its own width E,
 which may exceed H.
 
-The bf16 instances that ``mma_step`` names (here and in ops/fused_attn.py)
-run their recurrence and projection on the tensor cores
-(csrc/dense_mma.cuh), whose launch geometry ``mma_tiles`` computes: the
-dense end, the attention step's argmax end and the pooled LSTM's.  f32,
-the pooled GRU's argmax end (bit-equal to the whole decode's), the top-k
-end and the stack step keep the SIMT code.
+The bf16 instances that ``mma_step`` names (here, in ops/fused_attn.py
+and the whole decode of ops/whole_decode.py) run their recurrence and
+projection on the tensor cores (csrc/dense_mma.cuh), whose launch
+geometry ``mma_tiles`` computes: the dense and the argmax end, both cells
+(the pooled GRU's argmax instance bit-equal to the whole decode).  f32,
+the top-k end and the stack step keep the SIMT code.
 """
 
 from __future__ import annotations
@@ -37,12 +37,12 @@ MMA_SMEM = 4 * MMA_WARPS * MMA_SLOTS * 4 * 4 * MMA_PITCH  # bytes: every warp's 
 ATTN_ROWS = 8  # the attention's SIMT phase A1 holds 8 rows of h (kBM in csrc/decode_common.cuh)
 
 
-def mma_step(dtype: torch.dtype, lstm: bool, end: Union[str, int, None], pooled: bool) -> bool:
+def mma_step(dtype: torch.dtype, end: Union[str, int, None]) -> bool:
     """Whether a fused step's instance runs on the tensor cores (mma_step()
-    in csrc/dense_mma.cuh): bf16 with the "dense" end, or the "argmax" end
-    except the pooled GRU's, which stays SIMT and bit-equal to the whole
-    decode (csrc/whole_decode.cu)."""
-    return dtype == torch.bfloat16 and (end == "dense" or (end == "argmax" and (lstm or not pooled)))
+    in csrc/dense_mma.cuh): bf16 with the "dense" or the "argmax" end, of
+    either cell; the whole decode (csrc/whole_decode.cu) as the "argmax"
+    end."""
+    return dtype == torch.bfloat16 and end in ("dense", "argmax")
 
 
 class MmaTiles(NamedTuple):
@@ -143,7 +143,7 @@ def launch_fused_step(kernel: str, stacked, vocab, x, state: State, end: Union[s
         check_tensor("vocab b", vocab["b"], (V,), dtype, device)
         ints.append(V)
         vocab_ptrs = [vocab["w"].data_ptr(), vocab["b"].data_ptr()]
-        if mma_step(dtype, lstm, end, pooled=True):
+        if mma_step(dtype, end):
             mma_tiles(B, E, H, V)
     new_hs = torch.empty_like(hs)
     new_cs = torch.empty_like(cs) if lstm else None

@@ -5,7 +5,11 @@ fed back inside the kernel; its plain twin and a count of launches.
 
 Counterpart of show_tell_tpu/ops/whole_decode_pallas.py::gru_whole_greedy_decode_pallas.
 Fixed T (no early exit), GRU only, an unsharded projection; layer 0 reads
-the features at their own width E.
+the features at their own width E.  Each step is the pooled GRU argmax
+step's own code (ops/fused_step.py): in bf16 the tensor cores
+(csrc/dense_mma.cuh, whose geometry ``mma_tiles`` checks before the
+launch), in f32 the SIMT loops; so its ids are bit-equal to T launches of
+that step with ``index_select`` between them.
 """
 
 from __future__ import annotations
@@ -15,7 +19,7 @@ from typing import Dict
 import torch
 
 from show_tell_tpu_torch.ops import check_tensor, dtype_code, raise_on_error, stream_arg, uses_kernel
-from show_tell_tpu_torch.ops.fused_step import check_stack, fused_gru_decode_step_plain
+from show_tell_tpu_torch.ops.fused_step import check_stack, fused_gru_decode_step_plain, mma_step, mma_tiles
 
 
 def gru_whole_greedy_decode_plain(prepared: Dict[str, object], feats: torch.Tensor, T: int) -> torch.Tensor:
@@ -39,7 +43,8 @@ def gru_whole_greedy_decode_cuda(prepared: Dict[str, object], feats: torch.Tenso
     """Launch the kernel on the current stream.  Every operand on one CUDA
     device in one dtype (float32 or bfloat16), contiguous, with E and H
     multiples of 8; the features are cast to the compute dtype.  Raises on
-    anything else and on a failed launch."""
+    anything else (in bf16 also on widths whose tensor-core tiles do not
+    fit) and on a failed launch."""
     from show_tell_tpu_torch.ops.build import load_library
 
     kernel = "gru_whole_greedy_decode"
@@ -55,22 +60,23 @@ def gru_whole_greedy_decode_cuda(prepared: Dict[str, object], feats: torch.Tenso
         raise ValueError("%s needs T, V >= 1 (got T=%d V=%d)" % (kernel, T, V))
     hs0 = torch.zeros(L, B, H, dtype=dtype, device=device)
     check_stack(kernel, stacked, E, hs0, 3)
-    x0 = feats.to(dtype).contiguous()
-    check_tensor("feats", x0, (B, E), dtype, device)
+    x = feats.to(dtype, copy=True).contiguous()  # the features in; the kernel overwrites it with the fed-back rows
+    check_tensor("feats", x, (B, E), dtype, device)
     check_tensor("embedding", emb, (V, E), dtype, device)
     check_tensor("vocab w", vocab["w"], (V, H), dtype, device)
     check_tensor("vocab b", vocab["b"], (V,), dtype, device)
+    if mma_step(dtype, "argmax"):
+        mma_tiles(B, E, H, V)
     hs1 = torch.empty_like(hs0)
-    x = torch.empty_like(x0)
     toks = torch.empty(B, T, dtype=torch.int32, device=device)
     best = torch.empty(B, dtype=torch.int64, device=device)
     lib = load_library()
     with torch.cuda.device(device):
         err = lib.st_whole_gru_decode(
-            code, x0.data_ptr(), emb.data_ptr(), stacked["w_ih0"].data_ptr(), stacked["w_ihU"].data_ptr(),
+            code, x.data_ptr(), emb.data_ptr(), stacked["w_ih0"].data_ptr(), stacked["w_ihU"].data_ptr(),
             stacked["w_hh"].data_ptr(), stacked["b_ih"].data_ptr(), stacked["b_hh"].data_ptr(),
-            vocab["w"].data_ptr(), vocab["b"].data_ptr(), hs0.data_ptr(), hs1.data_ptr(), x.data_ptr(),
-            toks.data_ptr(), best.data_ptr(), L, B, E, H, V, T, stream_arg(device),
+            vocab["w"].data_ptr(), vocab["b"].data_ptr(), hs0.data_ptr(), hs1.data_ptr(), toks.data_ptr(),
+            best.data_ptr(), L, B, E, H, V, T, stream_arg(device),
         )
     raise_on_error(kernel, err)
     gru_whole_greedy_decode.launches += 1

@@ -19,8 +19,9 @@ stream, and ``caption_paths`` stages batch k+1 on a worker thread while
 batch k is captioned.  Greedy decode runs one fused-step
 CUDA kernel launch per token on a GPU (the pooled step, or the attention
 step with its attention, context, recurrence and argmax; each with a GRU
-and an LSTM instance), and the pooled GRU's fixed-length decode one
-whole-decode launch for all its tokens (``ops.whole_decode_default()``);
+and an LSTM instance); the pooled GRU's fixed-length decode can instead
+take one whole-decode launch for all its tokens
+(``ops.whole_decode_default()``, off since an H100 A/B);
 beam search (``beam_size`` K > 0) runs B x K beam
 rows through the fused step's dense-logits form, one launch per token
 after the first (decode/beam.py).  ``compute_dtype="bfloat16"`` casts

@@ -1,7 +1,8 @@
 """The bf16 greedy steps' argmax end on the tensor cores (csrc/dense_mma.cuh), on the CPU.
 
-The pooled LSTM's and the attention step's bf16 greedy instances run the
-recurrence and the projection on the tensor cores and end in an argmax
+The bf16 greedy instances (pooled and attention, GRU and LSTM) and the
+bf16 whole decode run the recurrence and the projection on the tensor
+cores and end in an argmax
 over each item's staged sums.  The kernels run only on the card; here the
 end is re-enacted in numpy thread by thread, on the staged sums that
 tests/test_torch_gate_tiles.py's lane-by-lane re-enactment of the
@@ -10,8 +11,9 @@ v0 + 16q .. v0 + 16q + 15 of batch row n for their first max (sum + bias),
 the four threads of a row take the max of their packed (logit, ~index)
 keys by two xor shuffles, and one atomicMax a row merges the item into
 best.  The re-enactment is held to the plain twins
-(``fused_lstm_decode_step_plain``, ``fused_attn_decode_step_plain``) and to
-the JAX package's fused_lstm_decode_step_pallas and
+(``fused_gru_decode_step_plain``, ``fused_lstm_decode_step_plain``,
+``fused_attn_decode_step_plain``) and to the JAX package's
+fused_gru_decode_step_pallas, fused_lstm_decode_step_pallas and
 fused_attn_decode_step_pallas in interpret mode, in f32 at small widths
 (E=16, H=24, L=2, R = 3, 19, 33, V = 40 and 77); ties within one thread's
 run, between two threads of a row, across two items and between the
@@ -29,8 +31,8 @@ import pytest
 import torch
 
 from show_tell_tpu.ops.fused_attn_pallas import fused_attn_decode_step_pallas
-from show_tell_tpu.ops.fused_step_pallas import fused_lstm_decode_step_pallas
-from show_tell_tpu_torch.ops import build, fused_attn, fused_step
+from show_tell_tpu.ops.fused_step_pallas import fused_gru_decode_step_pallas, fused_lstm_decode_step_pallas
+from show_tell_tpu_torch.ops import build, fused_attn, fused_step, whole_decode
 from show_tell_tpu_torch.ops.fused_attn import (
     fused_attn_decode_step_cuda,
     fused_attn_decode_step_plain,
@@ -39,11 +41,13 @@ from show_tell_tpu_torch.ops.fused_attn import (
 from show_tell_tpu_torch.ops.fused_beam import fused_dense_step_cuda
 from show_tell_tpu_torch.ops.fused_step import (
     fused_gru_decode_step_cuda,
+    fused_gru_decode_step_plain,
     fused_lstm_decode_step_cuda,
     fused_lstm_decode_step_plain,
 )
-from show_tell_tpu_torch.ops.rnn import gru_stack_step_cuda, lstm_stack_step_cuda
+from show_tell_tpu_torch.ops.rnn import gru_stack_step_cuda, lstm_stack_step_cuda, stack_plain
 from show_tell_tpu_torch.ops.vocab import first_max_argmax, project_logits
+from show_tell_tpu_torch.ops.whole_decode import gru_whole_greedy_decode_cuda
 from test_torch_gate_tiles import (
     BLOCK_V,
     HEADER,
@@ -133,13 +137,15 @@ def test_argmax_end_constants_agree_with_the_kernel_headers():
     assert "constexpr int kRowThreads = kTileThreads / kGroup;" in vocab_src
     assert THREADS == ROW_THREADS * SLAB and RUN * ROW_THREADS == 16 * SLOTS
     src = open(HEADER).read()
-    end = src[src.index("mma_project(top, wv, B, H, V, red, [&](int n0, int nb, int v0) {\n      const int n"):]
-    assert "const int n = threadIdx.x / kRowThreads, q = threadIdx.x % kRowThreads;" in end
+    end = src[src.index("mma_project(top, wv, B, H, V, red, [&](int n0, int nb, int v0) {\n    const int n"):]
+    assert "const int n = tid / kRowThreads, q = tid % kRowThreads;" in end
+    assert "const int tid = phase_thread();\n  mma_project(top, wv, B, H, V, red, [&](int n0, int nb, int v0) {" in src
     assert "for (int m = 0; m < 16; ++m) {" in end and "const int v = v0 + 16 * q + m;" in end
     assert "const float x = mma_sum(red, q, m, n) + __bfloat162float(bv[v]);" in end
     assert "if (idx < 0 || x > val) {" in end
     assert "row_max_key(idx >= 0 ? pack_key(val, idx) : 0ull)" in end
-    assert "if (n < nb && q == 0) atomicMax(out.best + n0 + n, key);" in end
+    assert "if (n < nb && q == 0) atomicMax(best + n0 + n, key);" in end
+    assert "mma_argmax_keys(top, wv, bv, B, H, V, out.best, red);\n    argmax_tokens(out, B, grid);" in src
 
 
 def test_pack_key_orders_values_then_lower_indices():
@@ -155,26 +161,32 @@ def test_pack_key_orders_values_then_lower_indices():
 
 @pytest.mark.parametrize("V", [40, 77])
 @pytest.mark.parametrize("R", [3, 19, 33])
-def test_pooled_lstm_argmax_tiles_match_plain_and_pallas(R, V):
-    """The pooled LSTM greedy step in the tiles' order: the new state within
-    1e-5 of the plain twin's and the interpreted
-    fused_lstm_decode_step_pallas's, tokens equal to both where the top-2
-    gap is clear, and bit for bit the first-max argmax of the dense end's
-    logits on the same staged sums."""
-    port, jax_args = _pooled_case("lstm", R, V, 300 + R + V)
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_pooled_argmax_tiles_match_plain_and_pallas(cell, R, V):
+    """The pooled greedy step of either cell in the tiles' order: the new
+    state within 1e-5 of the plain twin's and the interpreted
+    fused_gru_decode_step_pallas's / fused_lstm_decode_step_pallas's,
+    tokens equal to both where the top-2 gap is clear, and bit for bit the
+    first-max argmax of the dense end's logits on the same staged sums."""
+    port, jax_args = _pooled_case(cell, R, V, 300 + R + V)
     stacked, vocab, x, state = port
-    top, new_state = tiled_stack("lstm", stacked, x, state)
+    top, new_state = tiled_stack(cell, stacked, x, state)
     tok, _ = tiled_argmax(top, vocab["w"].numpy(), vocab["b"].numpy())
     dense = tiled_logits(top, vocab["w"].numpy(), vocab["b"].numpy())
     assert np.array_equal(tok, first_max_argmax(torch.from_numpy(dense)).numpy())
-    ref_tok, ref_state = fused_lstm_decode_step_plain(*port)
+    plain_step = fused_lstm_decode_step_plain if cell == "lstm" else fused_gru_decode_step_plain
+    ref_tok, ref_state = plain_step(*port)
     _assert_states(new_state, ref_state)
     clear = _clear(top, vocab)
     assert clear.mean() > 0.8
     assert np.array_equal(tok[clear], ref_tok.numpy()[clear])
-    j_stacked, j_vocab, j_x, (j_hs, j_cs) = jax_args
-    j_tok, j_state = fused_lstm_decode_step_pallas(j_stacked, j_vocab, j_x, j_hs, j_cs, block_v=BLOCK_V,
-                                                   interpret=True)
+    j_stacked, j_vocab, j_x, j_state0 = jax_args
+    if cell == "lstm":
+        j_tok, j_state = fused_lstm_decode_step_pallas(j_stacked, j_vocab, j_x, *j_state0, block_v=BLOCK_V,
+                                                       interpret=True)
+    else:
+        j_tok, j_state = fused_gru_decode_step_pallas(j_stacked, j_vocab, j_x, j_state0, block_v=BLOCK_V,
+                                                      interpret=True)
     assert np.array_equal(tok[clear], np.asarray(j_tok)[clear])
     _assert_states(new_state, j_state)
 
@@ -215,16 +227,23 @@ TIES = {
 def test_ties_go_to_the_lower_index_whatever_the_item_order(where):
     """Two vocabulary rows equal and top in every row (the same weight row,
     bias 50): the end gives the lower index, as the plain twin, with the
-    items merged in their order, reversed, or shuffled; the keys agree."""
+    items merged in their order, reversed, or shuffled; the keys agree.
+    The tied rows hold one weight, 1/4 at column 0, so each logit is 50 +
+    top[n, 0] / 4 rounded once in any summation order: the twin's CPU
+    product ties them bit for bit too (equal rows of an inexact product
+    need not, whatever the thread count)."""
     lo, hi = TIES[where]
     port, _ = _pooled_case("lstm", 19, 77, 11)
     stacked, vocab, x, state = port
-    vocab["w"][hi] = vocab["w"][lo]
+    vocab["w"][lo] = vocab["w"][hi] = 0.0
+    vocab["w"][lo, 0] = vocab["w"][hi, 0] = 0.25
     vocab["b"][lo] = vocab["b"][hi] = 50.0
     top, _ = tiled_stack("lstm", stacked, x, state)
     wv, bv = vocab["w"].numpy(), vocab["b"].numpy()
     dense = tiled_logits(top, wv, bv)
     assert np.array_equal(dense[:, lo], dense[:, hi])
+    twin = project_logits(vocab, stack_plain("lstm")(stacked, x, state)[0])
+    assert torch.equal(twin[:, lo], twin[:, hi])
     items = 2  # one slab of 19 rows, two vocabulary items
     runs = [tiled_argmax(top, wv, bv, order) for order in (None, range(items)[::-1], [1, 0])]
     for tok, best in runs:
@@ -278,6 +297,7 @@ def no_library(monkeypatch):
     spy.__wrapped__ = fused_step.mma_tiles
     monkeypatch.setattr(fused_step, "mma_tiles", spy)
     monkeypatch.setattr(fused_attn, "mma_tiles", spy)
+    monkeypatch.setattr(whole_decode, "mma_tiles", spy)
 
     def load_library():
         raise _Launched()
@@ -287,10 +307,10 @@ def no_library(monkeypatch):
 
 
 def test_mma_tiles_check_runs_for_the_tensor_core_instances_only(no_library):
-    """bf16 dense steps, the attention greedy step (both cells) and the
-    pooled LSTM greedy step check the tensor-core geometry before the
-    launch; f32, the pooled GRU greedy step and the stack steps do not
-    (they keep the SIMT code, as does the top-k end)."""
+    """bf16 dense steps, the greedy steps (pooled and attention, both
+    cells) and the whole decode check the tensor-core geometry before the
+    launch; f32 and the stack steps do not (they keep the SIMT code, as
+    does the top-k end)."""
     B, E, H, V, A, P = 3, 16, 24, 40, 16, 5
     for dtype in (torch.float32, torch.bfloat16):
         bf16 = dtype == torch.bfloat16
@@ -299,21 +319,24 @@ def test_mma_tiles_check_runs_for_the_tensor_core_instances_only(no_library):
             launches = [
                 (lambda: (fused_lstm_decode_step_cuda if lstm else fused_gru_decode_step_cuda)(stacked, vocab, x,
                                                                                                  state),
-                 bf16 and lstm, (B, E, H, V)),
+                 bf16, (B, E, H, V)),
                 (lambda: fused_dense_step_cuda(stacked, vocab, x, state), bf16, (B, E, H, V)),
                 (lambda: (lstm_stack_step_cuda if lstm else gru_stack_step_cuda)(stacked, x, state), False, None),
                 (lambda: fused_attn_decode_step_cuda(prep, w_emb, astate), bf16, (B, 2 * E, H, V, (A, P))),
                 (lambda: fused_attn_dense_step_cuda(prep, w_emb, astate), bf16, (B, 2 * E, H, V, (A, P))),
             ]
+            if not lstm:  # the whole decode: the pooled GRU's greedy step T times
+                emb = torch.zeros(V, E, dtype=dtype)
+                launches.append((lambda: gru_whole_greedy_decode_cuda(
+                    {"stacked": stacked, "vocab": vocab, "embedding": emb}, x, 4), bf16, (B, E, H, V)))
             for launch, checked, args in launches:
                 no_library.clear()
                 with pytest.raises(_Launched):
                     launch()
                 assert no_library == ([args] if checked else [])
-            assert fused_step.mma_step(dtype, lstm, "argmax", pooled=True) == (bf16 and lstm)
-            assert fused_step.mma_step(dtype, lstm, "argmax", pooled=False) == bf16
-            assert not fused_step.mma_step(dtype, lstm, 3, pooled=True)  # a top-k width
-            assert not fused_step.mma_step(dtype, lstm, None, pooled=True)  # the stack step
+        assert fused_step.mma_step(dtype, "argmax") == fused_step.mma_step(dtype, "dense") == bf16
+        assert not fused_step.mma_step(dtype, 3)  # a top-k width
+        assert not fused_step.mma_step(dtype, None)  # the stack step
 
 
 def test_a_width_that_does_not_fit_raises_before_the_launch(no_library):

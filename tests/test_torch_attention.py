@@ -119,7 +119,8 @@ def test_project_argmax_twin_matches_pallas(tie):
     rng = np.random.RandomState(21)
     w, b = rng.uniform(-0.3, 0.3, (H, V)).astype(np.float32), rng.uniform(-0.3, 0.3, V).astype(np.float32)
     if tie:
-        w[:, 35] = w[:, 5]
+        w[:, [5, 35]] = 0.0
+        w[0, [5, 35]] = 0.25  # one weight: 50 + top[:, 0] / 4 rounds once, whatever order a BLAS sums in
         b[5] = b[35] = 50.0
     top = rng.randn(B, H).astype(np.float32)
     j_tok = project_argmax_pallas(jax_prepare_vocab({"w": jnp.asarray(w), "b": jnp.asarray(b)}, block_v=BLOCK_V),

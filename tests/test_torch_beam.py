@@ -158,7 +158,8 @@ def test_project_topk_cross_block_tie_takes_lower_index_first():
     """Columns 5 (vocab block 0) and 37 (block 2) are equal and top: both
     packages list 5, then 37."""
     linear, top = _vocab_case(20)
-    linear["w"][:, 37] = linear["w"][:, 5]
+    linear["w"][:, [5, 37]] = 0.0
+    linear["w"][0, [5, 37]] = 0.25  # one weight: 50 + top[:, 0] / 4 rounds once, whatever order a BLAS sums in
     linear["b"][5] = linear["b"][37] = 50.0
     _, j_ids = project_topk_pallas(_jax_vocab(linear), jnp.asarray(top), 3, block_v=BLOCK_V, interpret=True)
     _, ids = project_topk(prepare_vocab(t(linear["w"].T), t(linear["b"])), t(top), 3)

@@ -5,9 +5,9 @@ the pooled step), the stack steps, the whole greedy decode (bit-equal to
 the per-step kernel's loop), the attention context, the projection +
 argmax, the projection + top-k, the image preprocess and the fused s2d
 stem; and the f32 encode without TF32.  The bf16 instances on the tensor
-cores (the dense steps, the attention greedy step and the pooled LSTM
-greedy step) are also held bit for bit to each other, and the ones that
-keep the SIMT code (f32, the pooled GRU greedy step) to the SIMT ends.
+cores (the dense steps and the greedy steps, pooled and attention, GRU
+and LSTM; the whole decode) are also held bit for bit to each other, and
+the ones that keep the SIMT code (f32) to the SIMT ends.
 
 Marked ``cuda``: each test skips where torch finds no CUDA device (the
 kernels have no CPU or interpret mode).  Run them on the card with
@@ -578,11 +578,13 @@ def _greedy_prepared(B, E, H, V, L, dtype, device, seed=0):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("B,E,H,V,L,T", [(3, 16, 24, 40, 2, 7), (19, 64, 128, 1001, 3, 9), (5, 32, 16, 40, 2, 6),
-                                         (1, 256, 512, 9956, 5, 25), (64, 256, 512, 9956, 5, 25)])
+                                         (65, 40, 24, 1001, 2, 6), (1, 256, 512, 9956, 5, 25),
+                                         (64, 256, 512, 9956, 5, 25)])
 def test_whole_decode_kernel_bit_equal_to_the_step_loop(cuda, dtype, B, E, H, V, L, T):
     """One launch for all T steps, ids equal bit for bit to T launches of the
-    fused step with index_select between them; greedy_decode_kernel takes it
-    under whole_decode=True."""
+    fused step with index_select between them (in bf16 both on the tensor
+    cores, in f32 both SIMT); greedy_decode_kernel takes it under
+    whole_decode=True."""
     prepared, feats = _greedy_prepared(B, E, H, V, L, dtype, cuda)
     before = gru_whole_greedy_decode.launches, fused_gru_decode_step.launches
     whole = gru_whole_greedy_decode(prepared, feats, T)
@@ -677,14 +679,18 @@ def test_f32_encode_runs_without_tf32_and_leaves_the_global(cuda):
         torch.backends.cudnn.allow_tf32 = saved
 
 
-# The bf16 greedy steps on the tensor cores (csrc/dense_mma.cuh): the pooled LSTM's argmax instance and the
-# attention step's, both cells, at the flagship widths (E = H = A = 512, P = 49, V = 9,956, L = 5).  Tokens may
-# differ from the SIMT code's where the top-2 logit gap is under 5e-2 (bf16 near-ties).
-TC_GREEDY = ["pooled lstm", "attention gru", "attention lstm"]
+# The bf16 greedy steps on the tensor cores (csrc/dense_mma.cuh): the pooled step's argmax instances and the
+# attention step's, both cells, at the flagship widths (pooled GRU E = 256, the others E = H = A = 512, P = 49,
+# V = 9,956, L = 5).  Tokens may differ from the SIMT code's where the top-2 logit gap is under 5e-2 (bf16
+# near-ties).
+TC_GREEDY = ["pooled gru", "pooled lstm", "attention gru", "attention lstm"]
 
 
 def _tc_greedy(family, B, dtype, device, seed=21):
     """(step, plain twin, its arguments, vocab) of one tensor-core greedy family."""
+    if family == "pooled gru":
+        stacked, vocab, x, hs = _inputs(B, 256, 512, 9956, 5, dtype, device, seed=seed)
+        return fused_gru_decode_step, fused_gru_decode_step_plain, (stacked, vocab, x, hs), vocab
     if family == "pooled lstm":
         stacked, vocab, x, hs = _inputs(B, 512, 512, 9956, 5, dtype, device, seed=seed, gates=4)
         args = (stacked, vocab, x, _state("lstm", hs, seed))
@@ -742,11 +748,11 @@ def test_bf16_greedy_tensor_core_steps_are_deterministic(cuda, family):
 @pytest.mark.parametrize("B", [3, 65])
 @pytest.mark.parametrize("family", TC_GREEDY)
 def test_bf16_greedy_steps_run_the_tensor_core_code(cuda, family, B):
-    """The three instances share the bf16 dense steps' tensor-core code: a
+    """The four instances share the bf16 dense steps' tensor-core code: a
     new state bit-equal to the dense step's, and tokens equal to the
     first-max argmax of its logits (the same staged sums, the same bias)."""
     step, _, args, _ = _tc_greedy(family, B, torch.bfloat16, cuda, seed=24)
-    if family == "pooled lstm":
+    if family.startswith("pooled"):
         dense = lambda: fused_dense_step(*args)
     else:
         dense_step = fused_attn_lstm_dense_step if family.endswith("lstm") else fused_attn_dense_step
@@ -757,22 +763,6 @@ def test_bf16_greedy_steps_run_the_tensor_core_code(cuda, family, B):
                     dense_state if isinstance(dense_state, tuple) else (dense_state,)):
         assert torch.equal(a, b)
     assert torch.equal(first_max_argmax(logits), tok)
-
-
-@pytest.mark.parametrize("shape", [(3, 16, 24, 40, 2), (65, 40, 24, 1001, 2), (64, 256, 512, 9956, 5)])
-def test_bf16_pooled_gru_greedy_step_runs_the_simt_code(cuda, shape):
-    """The pooled GRU's bf16 greedy instance stays SIMT (bit-equal to the
-    whole decode): its new state is bit-equal to the bf16 stack step's and
-    its tokens are the bf16 top-k step's first ids (the same per-column
-    sums)."""
-    B, E, H, V, L = shape
-    stacked, vocab, x, hs = _inputs(B, E, H, V, L, torch.bfloat16, cuda, seed=25)
-    tok, new_hs = fused_gru_decode_step(stacked, vocab, x, hs)
-    (_, ids), topk_hs = fused_topk_step(stacked, vocab, x, hs, 1)
-    stack_hs = gru_stack_step(stacked, x, hs)[1]
-    torch.cuda.synchronize()
-    assert torch.equal(new_hs, stack_hs) and torch.equal(new_hs, topk_hs)
-    assert torch.equal(ids[:, 0], tok)
 
 
 @pytest.mark.parametrize("B,E,H,A,P,V,L", [(3, 16, 24, 16, 5, 40, 1), (65, 64, 128, 32, 7, 1001, 2),

@@ -185,7 +185,8 @@ def test_fused_lstm_step_cross_block_tie_takes_lowest_index():
     """Columns 5 (vocab block 0) and 37 (block 2) are identical and the row
     maximum: both packages return 5, the first-max rule."""
     layers, linear, x, hs, cs = _pooled_step_case(2, seed=7)
-    linear["w"][:, 37] = linear["w"][:, 5]
+    linear["w"][:, [5, 37]] = 0.0
+    linear["w"][0, [5, 37]] = 0.25  # one weight: 50 + top[:, 0] / 4 rounds once, whatever order a BLAS sums in
     linear["b"][5] = linear["b"][37] = 50.0
     (j_tok, _, _), (tok, _) = _pooled_step_both(layers, linear, x, hs, cs)
     assert j_tok.tolist() == [5] * B and tok.tolist() == [5] * B

@@ -91,7 +91,8 @@ def test_fused_step_cross_block_tie_takes_lowest_index():
     """Columns 5 (vocab block 0) and 37 (block 2) are identical and the
     row maximum: both packages must return 5, the first-max rule."""
     layers, linear, x, hs = _jax_tree(16, seed=7)
-    linear["w"][:, 37] = linear["w"][:, 5]
+    linear["w"][:, [5, 37]] = 0.0
+    linear["w"][0, [5, 37]] = 0.25  # one weight: 50 + top[:, 0] / 4 rounds once, whatever order a BLAS sums in
     linear["b"][5] = linear["b"][37] = 50.0
     stacked, vocab = _torch_side(layers, linear)
     j_stacked, j_vocab = _jax_side(layers, linear)

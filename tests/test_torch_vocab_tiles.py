@@ -162,13 +162,25 @@ def tiled_argmax(logits: np.ndarray, mv: int) -> np.ndarray:
 
 
 def _case(seed, V, R=19, ties=()):
-    """Weights in the JAX layout [H, V], top [R, H]; each tie (a, b) copies column a to b, both biased to the top."""
+    """Weights in the JAX layout [H, V], top [R, H]; each tie (a, b) copies column a to b, both biased to the top.
+
+    Every weight, bias and input is a multiple of 1/64 in [-0.5, 0.5]: each product is a multiple of 2^-12 below
+    1/4 in size, so each partial sum of H = 24 of them and a bias (below 64 in size) is exact in f32.  Equal columns
+    then give bit-equal logits whatever order a BLAS sums them in (a CPU BLAS does not promise that for equal
+    columns at different positions of an inexact product: its blocking follows the thread count)."""
     rng = np.random.RandomState(seed)
-    linear = {"w": rng.uniform(-0.3, 0.3, (H, V)).astype(np.float32), "b": rng.uniform(-0.3, 0.3, V).astype(np.float32)}
+    grid = lambda *shape: (rng.randint(-32, 33, shape) / 64.0).astype(np.float32)
+    linear = {"w": grid(H, V), "b": grid(V)}
     for rank, (a, b) in enumerate(ties):
         linear["w"][:, b] = linear["w"][:, a]
         linear["b"][a] = linear["b"][b] = 50.0 - 20.0 * rank
-    return linear, rng.randn(R, H).astype(np.float32)
+    return linear, grid(R, H)
+
+
+def _assert_tied(logits, ties):
+    """The plain twin's logits of each tied pair of columns are bit-equal (the data ties exactly)."""
+    for a, b in ties:
+        np.testing.assert_array_equal(logits[:, a], logits[:, b])
 
 
 def _port_vocab(linear):
@@ -186,9 +198,11 @@ def test_tiled_topk_matches_plain_and_pallas(V, sms, k):
     inside the last tile: the merged parts list the lower index first, as
     the plain twin and jax.lax.top_k do; logp within 1e-5 (per-tile sums)."""
     mv = vocab_tiles(H, V, sms).mv
-    linear, top = _case(k, V, ties=((mv - 1, mv), (V - 2, V - 1)))
+    ties = ((mv - 1, mv), (V - 2, V - 1))
+    linear, top = _case(k, V, ties=ties)
     vocab = _port_vocab(linear)
     logits = project_logits(vocab, torch.from_numpy(top)).numpy()
+    _assert_tied(logits, ties)
     keys, ms = tile_parts(logits, mv, k)
     assert len(keys) == vocab_tiles(H, V, sms).tiles
     logp, ids = merge_parts(keys, ms, k)
@@ -211,6 +225,7 @@ def test_tiled_argmax_takes_the_lower_index_across_a_tile_boundary(V, sms):
     linear, top = _case(3, V, ties=((mv - 1, mv),))
     vocab = _port_vocab(linear)
     logits = project_logits(vocab, torch.from_numpy(top)).numpy()
+    _assert_tied(logits, ((mv - 1, mv),))
     tok = tiled_argmax(logits, mv)
     assert tok.tolist() == [mv - 1] * len(top)
     assert project_argmax_plain(vocab, torch.from_numpy(top)).tolist() == tok.tolist()

@@ -8,6 +8,16 @@ and, in the torch layout, into the port, whose wrapper runs the plain twin
 for CPU tensors.  Sizes: L <= 3, H <= 64, V = 70 (not a multiple of the
 vocab block) and 128, T <= 9; the tie case E = H = 16, V = 64, block 16.
 Ids must be bit-equal, f32 and bf16.
+
+The bf16 kernel runs each step on the tensor cores (csrc/dense_mma.cuh):
+the GRU layers and the argmax end's key merge of the per-step kernel, then
+its own token phase, which feeds the winner's embedding row back.  Its
+order of work is re-enacted here in f32 (tests/test_torch_gate_tiles.py's
+lane-by-lane tiles, tests/test_torch_argmax_tiles.py's thread-by-thread
+end) over T steps at E=16, H=24, L=2, V = 40 and 77, and held to the twin
+and to the interpreted Pallas kernel on the rows whose top-2 gaps clear
+GAP at every step; a tie across the first 64-row vocabulary item goes to
+the lower index at every step, and that index's row is fed back.
 """
 
 import jax
@@ -22,10 +32,14 @@ from show_tell_tpu.models.decoder import init_decoder_params
 from show_tell_tpu.ops.whole_decode_pallas import gru_whole_greedy_decode_pallas
 from show_tell_tpu_torch import ops as port_ops
 from show_tell_tpu_torch.ops import whole_decode as port_whole
-from show_tell_tpu_torch.ops.rnn import greedy_decode_kernel, prepare_greedy
+from show_tell_tpu_torch.ops.rnn import greedy_decode_kernel, gru_stack_plain, prepare_greedy
+from show_tell_tpu_torch.ops.vocab import project_logits
 from show_tell_tpu_torch.ops.whole_decode import gru_whole_greedy_decode, gru_whole_greedy_decode_plain
+from test_torch_argmax_tiles import tiled_argmax
+from test_torch_gate_tiles import tiled_logits, tiled_stack
 
 CASES = [(32, 64, 70, 3, 8, 9), (64, 64, 128, 1, 4, 5)]  # (E, H, V, L, B, T)
+GAP = 1e-4  # f32: ids agree where each step's top-2 logit gap exceeds the summation order's reach
 
 
 def t(a):
@@ -85,6 +99,87 @@ def test_whole_decode_ties_take_the_first_index_and_feed_back_its_row():
         np.testing.assert_array_equal(got, ref)
         np.testing.assert_array_equal(got, ref_pallas)
         assert (got == winner).all()
+
+
+def tiled_whole_decode(prepared, feats, T):
+    """The bf16 kernel's order of work, in f32: T times the L layers
+    (tiled_stack, mma_stack_layer's tiles) and the argmax end's key merge
+    into best (tiled_argmax), then the token phase: each row's token from
+    its key, and emb[tok] as the next step's layer-0 input.  Returns (ids
+    [B, T] int32, each row's smallest top-2 gap of the step's logits, the
+    rows fed back at steps 1..T-1 [T-1, B, E], the final state)."""
+    stacked, vocab, emb = prepared["stacked"], prepared["vocab"], prepared["embedding"].numpy()
+    wv, bv = vocab["w"].numpy(), vocab["b"].numpy()
+    L, _, H = stacked["w_hh"].shape
+    x, hs = feats.numpy(), np.zeros((L, feats.shape[0], H), np.float32)
+    ids, gaps, fed = [], [], []
+    for step in range(T):
+        top, hs = tiled_stack("gru", stacked, torch.from_numpy(x), torch.from_numpy(hs))
+        tok, _ = tiled_argmax(top, wv, bv)
+        logits = np.sort(tiled_logits(top, wv, bv), axis=1)
+        ids.append(tok)
+        gaps.append(logits[:, -1] - logits[:, -2])
+        if step + 1 < T:
+            x = emb[tok]
+            fed.append(x)
+    return np.stack(ids, 1), np.min(gaps, axis=0), np.array(fed), hs
+
+
+TILE_CASES = [(16, 24, 40, 2, 19, 4), (16, 24, 77, 2, 33, 6)]  # (E, H, V, L, B, T): one and two 32-row slabs
+
+
+@pytest.mark.parametrize("seed,case", list(enumerate(TILE_CASES)))
+def test_tiled_whole_decode_matches_plain_and_pallas(seed, case):
+    """The bf16 kernel's tiles, step by step: ids equal to the twin's and to
+    the interpreted whole-decode kernel's on every row whose top-2 gaps
+    all clear GAP (most rows), and each step's fed-back rows the embedding
+    rows of that step's ids."""
+    E, H, V, L, B, T = case
+    cfg, params, feat = _case(*case, seed=40 + seed)
+    prepared = _prepared(params)
+    ids, gaps, fed, _ = tiled_whole_decode(prepared, t(feat), T)
+    clear = gaps > GAP
+    assert clear.mean() > 0.8
+    ref = gru_whole_greedy_decode_plain(prepared, t(feat), T).numpy()
+    ref_pallas = np.asarray(gru_whole_greedy_decode_pallas(params, cfg, jnp.asarray(feat), block_v=32,
+                                                           interpret=True))
+    np.testing.assert_array_equal(ids[clear], ref[clear])
+    np.testing.assert_array_equal(ids[clear], ref_pallas[clear])
+    np.testing.assert_array_equal(fed, prepared["embedding"].numpy()[ids[:, :-1].T])
+
+
+def test_tiled_whole_decode_tie_across_a_vocab_item_takes_the_lower_index():
+    """Columns 63 and 64, either side of the first 64-row vocabulary item,
+    equal and top in every row (one weight, 1/4 at h column 0, and bias
+    50: each logit rounds once, in any summation order): the tiles, the
+    twin and the interpreted kernel give 63 at every step, and the rows
+    fed back are row 63's (the final state equals a plain stack fed row
+    63, not row 64, after step 0)."""
+    E, H, V, L, B, T = 16, 24, 77, 2, 19, 5
+    cfg, params, feat = _case(E, H, V, L, B, T, seed=9)
+    w = np.array(params["linear"]["w"])
+    b = np.array(params["linear"]["b"])
+    w[:, 63] = w[:, 64] = 0.0
+    w[0, 63] = w[0, 64] = 0.25
+    b[63] = b[64] = 50.0
+    params["linear"] = {"w": jnp.asarray(w), "b": jnp.asarray(b)}
+    prepared = _prepared(params)
+    emb = prepared["embedding"]
+    assert not torch.equal(emb[63], emb[64])
+    ids, _, fed, hs = tiled_whole_decode(prepared, t(feat), T)
+    ref = gru_whole_greedy_decode_plain(prepared, t(feat), T).numpy()
+    ref_pallas = np.asarray(gru_whole_greedy_decode_pallas(params, cfg, jnp.asarray(feat), block_v=32,
+                                                           interpret=True))
+    for got in (ids, ref, ref_pallas):
+        assert (got == 63).all()
+    np.testing.assert_array_equal(fed, np.broadcast_to(emb[63].numpy(), fed.shape))
+    x, ref_hs = t(feat), torch.zeros(L, B, H)
+    for _ in range(T):
+        top, ref_hs = gru_stack_plain(prepared["stacked"], x, ref_hs)
+        logits = project_logits(prepared["vocab"], top)
+        assert torch.equal(logits[:, 63], logits[:, 64])  # the twin's product ties them bit for bit
+        x = emb[63].expand(B, E)
+    np.testing.assert_allclose(hs, ref_hs.numpy(), rtol=1e-5, atol=1e-5)
 
 
 def test_greedy_decode_kernel_routes(monkeypatch):

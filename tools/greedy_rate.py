@@ -1,6 +1,6 @@
 """Greedy captions/s at B=64 of the PyTorch port's flagship families on one NVIDIA GPU.
 
-    python tools/greedy_rate.py [--root DIR] [--rounds N] [--variants lstm,attn,attn_lstm]
+    python tools/greedy_rate.py [--root DIR] [--rounds N] [--variants gru,lstm,attn,attn_lstm]
 
 Imports show_tell_tpu_torch from DIR (default: this checkout), so that one
 script times two checkouts alike, each in its own process.  Each family's
@@ -28,7 +28,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=HERE, help="checkout whose show_tell_tpu_torch is timed")
     ap.add_argument("--rounds", type=int, default=4)
-    ap.add_argument("--variants", default="lstm,attn,attn_lstm")
+    ap.add_argument("--variants", default="gru,lstm,attn,attn_lstm")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)

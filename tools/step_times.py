@@ -1,0 +1,67 @@
+"""Device times of the pooled GRU's greedy kernels at the flagship widths on one NVIDIA GPU.
+
+    python tools/step_times.py [--root DIR]
+
+Imports show_tell_tpu_torch from DIR (default: this checkout), so that one
+script times two checkouts alike, each in its own process.  In bf16, with
+chip_smoke.py's inputs and timer (CUDA events, median of 30 after 5, each
+call queued behind a 1 ms spin): the fused greedy step
+(fused_gru_decode_step_cuda) at B = 1, 64 and 512 with its operands warm
+in L2 and cold (a 64 MB write between the spin and the call), and the
+whole decode of T = 25 steps (gru_whole_greedy_decode_cuda; median of 10
+after 2) at the same B.  Prints the card's name and power limit, one line
+a kernel and B, and a JSON line of every time.
+"""
+
+import argparse
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=HERE, help="checkout whose show_tell_tpu_torch is timed")
+    args = ap.parse_args()
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    spec = importlib.util.spec_from_file_location("chip_smoke_helpers", os.path.join(HERE, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+
+    import numpy as np
+    import torch
+
+    import show_tell_tpu_torch
+    from show_tell_tpu_torch.ops.fused_step import fused_gru_decode_step_cuda
+    from show_tell_tpu_torch.ops.whole_decode import gru_whole_greedy_decode_cuda
+
+    if not show_tell_tpu_torch.__file__.startswith(root + os.sep):
+        cs.fail("show_tell_tpu_torch came from %s, not from %s" % (show_tell_tpu_torch.__file__, root))
+    if not torch.cuda.is_available():
+        cs.fail("torch finds no CUDA device")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+    device = torch.device("cuda", 0)
+    rng = np.random.RandomState(cs.SEED)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    times = {}
+    print(smi, flush=True)
+    for B in (1, 64, 512):
+        stacked, vocab, x, hs = cs.step_inputs(rng, B, torch.bfloat16, device)
+        step = lambda: fused_gru_decode_step_cuda(stacked, vocab, x, hs)
+        prepared, feats = cs.whole_inputs(rng, B, torch.bfloat16, device)
+        times["step", B] = (cs.event_median_ms(step), cs.event_median_ms(step, before=flush.zero_))
+        times["whole", B] = (cs.event_median_ms(lambda: gru_whole_greedy_decode_cuda(prepared, feats, cs.T), iters=10,
+                                                warmup=2),)
+        print("%s bf16 B=%d from %s: fused GRU greedy step %.4f ms, L2 cold %.4f ms; whole decode T=%d %.4f ms"
+              % (smi, B, root, *times["step", B], cs.T, times["whole", B][0]), flush=True)
+    print(json.dumps({"root": root, "card": smi, "ms": {"%s B=%d" % k: v for k, v in times.items()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()
