@@ -8,10 +8,11 @@ Phases, one line each (any failure exits non-zero with no ok line):
   2. build: the CUDA kernels from show_tell_tpu_torch/csrc, with nvcc, and
      beside them the grid-barrier probe (grid_barrier_probe.cu); ptxas's
      registers, stack and spills of the tensor-core instances (the bf16
-     projection kernels, vocab_mma.cuh; the nine bf16 instances of
-     dense_mma.cuh: the four dense beam steps, the four greedy steps,
-     pooled and attention, GRU and LSTM, and the whole decode) and the
-     tensor-core (HMMA) instructions in their SASS;
+     projection kernels, vocab_mma.cuh; the eleven bf16 instances of
+     dense_mma.cuh: the four dense beam steps, the two pooled top-k beam
+     steps, the four greedy steps, pooled and attention, GRU and LSTM,
+     and the whole decode) and the tensor-core (HMMA) instructions in
+     their SASS;
   3. kernel against plain, at the flagship widths: the pooled fused step,
      GRU (L=5, E=256, H=512, V=9,956; B = 1, 64, 512; and E=1024 > H) and
      LSTM (E=512, same B); the fused attention step, GRU and LSTM (L=5,
@@ -45,8 +46,9 @@ Phases, one line each (any failure exits non-zero with no ok line):
      B=8.  Then the same Captioner serves three requests at beam width 3
      (3 x 24 launches of the dense beam step; ids against a beam decode
      with the plain twins as steps) and one f32 beam request at B=8, and
-     the first request's features are decoded by the top-k route and the
-     sparse composite (24 launches each).  Every stock request launches
+     the first request's features are decoded by the other fused route
+     (top-k or dense: serving takes the one beam_step_default() names)
+     and the sparse composite (24 launches each).  Every stock request launches
      the preprocess kernel once, and its greedy ids must equal on every
      row, bf16 and f32, those of the same kernels fed the plain twin's
      preprocess.  Then an s2d Captioner of the same weights serves the
@@ -90,8 +92,11 @@ Phases, one line each (any failure exits non-zero with no ok line):
      their twins, bounds and composite yardsticks, L2 warm and cold; the
      dense beam steps at R = 3 and 192, L2 warm and cold, the pooled ones
      at R = 192 beside the stack step (their recurrence alone) and their
-     composite yardstick (torch.nn.GRU / LSTM + torch.addmm); the pooled
-     GRU's and the attention GRU's dense beam decode at B=64.
+     composite yardstick (torch.nn.GRU / LSTM + torch.addmm), the pooled
+     top-k steps beside theirs (the same + log_softmax + topk); the pooled
+     GRU's and the attention GRU's dense beam decode at B=64; the A/B
+     behind beam_step_default(): whole pooled GRU and LSTM beam decodes at
+     K=3, B = 1, 64, 256, by the dense and the top-k route in turns.
 The last lines are the card's name and power limit, a JSON line of the
 kernels, and {"ok": true, "device": {...}}.
 """
@@ -140,7 +145,7 @@ BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
 SPIN_CYCLES = 2_000_000  # about 1 ms at the H100's 1.98 GHz boost clock: longer than a wrapper's enqueue
 # about 10 ms: longer than the host work of PyTorch's own RNN call, which issues several kernels a layer
 LIBRARY_SPIN_CYCLES = 10 * SPIN_CYCLES
-AB_ROUNDS, AB_REPS = 10, 5  # whole decode against the per-step loop: rounds in turns, decodes timed together in each
+AB_ROUNDS, AB_REPS = 10, 5  # an A/B of two routes: rounds in turns, decodes timed together in each
 BARRIERS = 1000  # grid barriers in one timed launch of the barrier probe
 RATE_ROUNDS = 4  # greedy captions/s: rounds of each family's three requests, the families in turns
 
@@ -444,6 +449,8 @@ LIBRARY_CALLS = {  # what a row's library_ms times
     "project_topk": "composite: torch.addmm + log_softmax + topk",
     "fused_gru_dense_step": "composite: torch.nn.GRU + torch.addmm",
     "fused_lstm_dense_step": "composite: torch.nn.LSTM + torch.addmm",
+    "fused_gru_topk_step": "composite: torch.nn.GRU + torch.addmm + log_softmax + topk",
+    "fused_lstm_topk_step": "composite: torch.nn.LSTM + torch.addmm + log_softmax + topk",
     "gru_stack_step": "torch.nn.GRU",
     "lstm_stack_step": "torch.nn.LSTM",
     "stem_fused": "composite: cuDNN conv2d + relu + max_pool2d",
@@ -518,10 +525,13 @@ def projection_tile_ties(rng, device):
 
 TILE_KERNELS = ("project_argmax_tiles_kernel", "project_topk_tiles_kernel")  # the bf16 projection kernels
 # the bf16 instances on the tensor cores (csrc/dense_mma.cuh, mma_step()): entry point -> (kernel template, cell,
-# vocab end: kArgmax = 0, kDense = 1; None where the template names neither: the whole decode, GRU and argmax)
+# vocab end: kArgmax = 0, kDense = 1, kTopk = 2; None where the template names neither: the whole decode, GRU and
+# argmax)
 MMA_STEPS = {
     "st_fused_gru_dense_step": ("fused_step_kernel", "GruCell", 1),
     "st_fused_lstm_dense_step": ("fused_step_kernel", "LstmCell", 1),
+    "st_fused_gru_topk_step": ("fused_step_kernel", "GruCell", 2),
+    "st_fused_lstm_topk_step": ("fused_step_kernel", "LstmCell", 2),
     "st_fused_attn_dense_step": ("fused_attn_step_kernel", "GruCell", 1),
     "st_fused_attn_lstm_dense_step": ("fused_attn_step_kernel", "LstmCell", 1),
     "st_fused_gru_step": ("fused_step_kernel", "GruCell", 0),
@@ -549,7 +559,7 @@ def tensor_core_kernel(name):
 
 def tile_kernel_report(build):
     """ptxas's registers, stack frame and spills of the tensor-core kernel
-    instances (the two bf16 projection kernels and the nine bf16 fused
+    instances (the two bf16 projection kernels and the eleven bf16 fused
     instances of MMA_STEPS), and, where the toolkit has cuobjdump, the
     tensor-core (HMMA) instructions in their SASS in the library; fails if
     one has none, if ptxas names none of them, or if a fused step has a
@@ -971,6 +981,51 @@ def bound(name, R, emb_rows=0):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def ab_rounds(decodes):
+    """Host-clock ms a call of each of two routes ({route: fn}, each call
+    ending on the host), after one warm-up call each: AB_ROUNDS rounds of
+    AB_REPS calls a route, the routes in turns (every other round in the
+    reverse order)."""
+    import torch
+
+    for fn in decodes.values():
+        fn()
+    routes = list(decodes)
+    ms = {route: [] for route in routes}
+    for rnd in range(AB_ROUNDS):
+        for route in (routes if rnd % 2 == 0 else routes[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(AB_REPS):
+                decodes[route]()
+            torch.cuda.synchronize()
+            ms[route].append(1e3 * (time.perf_counter() - t0) / AB_REPS)
+    return ms
+
+
+def ab_verdict(ms, labels):
+    """The winner of two routes' rounds (ab_rounds), or None, and a line
+    that reports them: a route wins when it is faster in at least nine
+    tenths of the rounds and the medians differ by more than the larger
+    interquartile range.  labels: {route: what it is}."""
+    a, b = list(ms)
+    (a1, _, a3), (b1, _, b3) = statistics.quantiles(ms[a], n=4), statistics.quantiles(ms[b], n=4)
+    spread, gap = max(a3 - a1, b3 - b1), statistics.median(ms[b]) - statistics.median(ms[a])
+    a_won = sum(x < y for x, y in zip(ms[a], ms[b]))
+    b_won = sum(y < x for x, y in zip(ms[a], ms[b]))
+    need = 0.9 * AB_ROUNDS
+    winner = a if a_won >= need and gap > spread else b if b_won >= need and -gap > spread else None
+    text = ("median [quartiles] (min, max) of %d rounds of %d decodes in turns: %s %.4f ms [%.4f, %.4f] (%.4f, %.4f), "
+            "%s %.4f ms [%.4f, %.4f] (%.4f, %.4f); %s / %s %.3f; medians %.4f ms apart, spread (larger interquartile "
+            "range) %.4f ms; %s faster in %d of %d rounds, %s in %d: %s; rounds (ms a decode) %s %s, %s %s"
+            % (AB_ROUNDS, AB_REPS, labels[a], statistics.median(ms[a]), a1, a3, min(ms[a]), max(ms[a]), labels[b],
+               statistics.median(ms[b]), b1, b3, min(ms[b]), max(ms[b]), b, a,
+               statistics.median(ms[b]) / statistics.median(ms[a]), gap, spread, a, a_won, AB_ROUNDS, b, b_won,
+               "the %s route wins" % winner if winner else "no winner", a, " ".join("%.4f" % x for x in ms[a]), b,
+               " ".join("%.4f" % x for x in ms[b])))
+    return winner, text
+
+
 def serve(cap, requests, counter_fns, launches_each, beam_size=0):
     """One warm-up request, then ``requests`` timed on the host clock with
     every kernel count set to 0 just before; returns (ids, seconds, counts).
@@ -1143,7 +1198,13 @@ def main():
         fused_lstm_decode_step_plain,
     )
     from show_tell_tpu_torch.ops.preprocess import preprocess_u8, preprocess_u8_cuda, preprocess_u8_plain
-    from show_tell_tpu_torch.ops import dtype_code, raise_on_error, stream_arg, whole_decode_default
+    from show_tell_tpu_torch.ops import (
+        beam_step_default,
+        dtype_code,
+        raise_on_error,
+        stream_arg,
+        whole_decode_default,
+    )
     from show_tell_tpu_torch.ops.rnn import (
         greedy_decode_kernel,
         gru_stack_plain,
@@ -1179,6 +1240,7 @@ def main():
     vocab = SyntheticVocab(V)
     img_rng = np.random.RandomState(SEED + 1)
     whole_default = whole_decode_default()
+    beam_default = beam_step_default()
 
     def greedy_launches(counter, requests):
         """{kernel counter: launches} of ``requests`` greedy requests of a
@@ -1284,9 +1346,9 @@ def main():
         ids = beam_engine(logp0, state1, step, tile, gather, K_BEAM, T, END, PAD, gaps=gaps)
         return ids.cpu().numpy(), torch.stack(gaps, 1).min(1).values.cpu().numpy()
 
-    def route_decodes(label, dense_ids, decodes):
+    def route_decodes(label, served_ids, decodes):
         """Each (route, launches expected, decode()) on the same features:
-        counts zeroed just before, read just after; ids against the dense
+        counts zeroed just before, read just after; ids against the served
         route's.  Returns {route: counts}."""
         out = {}
         for route, expected, decode in decodes:
@@ -1295,11 +1357,11 @@ def main():
             with torch.inference_mode():
                 ids = decode().cpu().numpy()
             out[route] = read_counts(counters, expected)
-            share = float((ids == dense_ids).mean())
+            share = float((ids == served_ids).mean())
             if share < 0.95:
-                fail("%s beam %s decode: ids equal the dense route's on %.4f of positions (< 0.95)"
+                fail("%s beam %s decode: ids equal the served route's on %.4f of positions (< 0.95)"
                      % (label, route, share))
-            phase("main", "%s beam %s bf16 B=64 K=%d: launches %s; ids equal the dense route's on %.4f of positions"
+            phase("main", "%s beam %s bf16 B=64 K=%d: launches %s; ids equal the served route's on %.4f of positions"
                   % (label, route, K_BEAM, {k: v for k, v in out[route].items() if v}, share))
         return out
 
@@ -1374,9 +1436,10 @@ def main():
         check_plain_preprocess(variant, cap32, imgs32, check_f32(variant, cap32, imgs32, None, pooled_plain,
                                                                  expected=greedy_launches(counter, 1)))
 
-        # beam, width 3: the dense step's instance of this cell, 24 launches a request
+        # beam, width 3: the step route beam_step_default() names, this cell's instance, 24 launches a request
         dense = fused_lstm_dense_step if cfg.cell_type == "lstm" else fused_gru_dense_step
         topk = fused_lstm_topk_step if cfg.cell_type == "lstm" else fused_gru_topk_step
+        served_step, other_step = (topk, dense) if beam_default == "topk" else (dense, topk)
 
         def pooled_beam_plain(cap, images_u8):
             """The same features, beam-decoded with the plain twins as steps on the card."""
@@ -1395,19 +1458,20 @@ def main():
                                   len(images_u8))
 
         beam_served, beam_s, beam_counts = serve(cap, requests, counters,
-                                                 {dense.__name__: 3 * (T - 1), "preprocess_u8": 3}, K_BEAM)
+                                                 {served_step.__name__: 3 * (T - 1), "preprocess_u8": 3}, K_BEAM)
         beam_share = check_served(variant + " beam", beam_served, requests, pooled_beam_plain, cap)
-        phase("main", "%s beam: launches in the three requests %s (dense beam step = 3 x 24)"
-              % (variant, {k: v for k, v in beam_counts.items() if v}))
+        phase("main", "%s beam (the %s route, beam_step_default()): launches in the three requests %s (beam step = "
+              "3 x 24)" % (variant, beam_default, {k: v for k, v in beam_counts.items() if v}))
         show_captions(variant + " beam", beam_served)
-        check_f32(variant + " beam", cap32, img_rng.randint(0, 256, (8, 224, 224, 3), dtype=np.uint8), dense,
-                  pooled_beam_plain, K_BEAM, {dense: T - 1})
+        check_f32(variant + " beam", cap32, img_rng.randint(0, 256, (8, 224, 224, 3), dtype=np.uint8), served_step,
+                  pooled_beam_plain, K_BEAM, {served_step: T - 1})
         with torch.inference_mode():
             feats = features(cap, requests[0])
         dcfg = cfg.decoder_config()
+        other_route = "dense" if beam_default == "topk" else "topk"
         routes = route_decodes(variant, beam_served[0], [
-            ("top-k", {topk.__name__: T - 1},
-             lambda: beam_search_decode(cap.prepared, dcfg, feats, K_BEAM, END, PAD, fused_step="topk")),
+            (other_route, {other_step.__name__: T - 1},
+             lambda: beam_search_decode(cap.prepared, dcfg, feats, K_BEAM, END, PAD, fused_step=other_route)),
             ("sparse composite", {"project_topk": T - 1},
              lambda: beam_search_decode(cap.prepared, dcfg, feats, K_BEAM, END, PAD, fused_step=None, sparse=True)),
         ])
@@ -1716,10 +1780,12 @@ def main():
             times[name, R] = (event_median_ms(dense),
                               event_median_ms(lambda: fused_dense_step_plain(stacked, vocab_w, x, state)))
             cold = event_median_ms(dense, before=flush_buf.zero_)
-            times["fused_%s_topk_step" % cell, R] = (
-                event_median_ms(lambda: fused_topk_step_cuda(stacked, vocab_w, x, state, K_BEAM)),
-                event_median_ms(lambda: fused_topk_step_plain(stacked, vocab_w, x, state, K_BEAM)))
-            split = ""
+            topk_name = "fused_%s_topk_step" % cell
+            topk = lambda: fused_topk_step_cuda(stacked, vocab_w, x, state, K_BEAM)
+            times[topk_name, R] = (event_median_ms(topk),
+                                   event_median_ms(lambda: fused_topk_step_plain(stacked, vocab_w, x, state, K_BEAM)))
+            topk_cold = event_median_ms(topk, before=flush_buf.zero_)
+            split, topk_split = "", ""
             if R == 192:
                 stack_cuda = lstm_stack_step_cuda if cell == "lstm" else gru_stack_step_cuda
                 stack_ms = event_median_ms(lambda: stack_cuda(stacked, x, state))
@@ -1735,8 +1801,20 @@ def main():
                          "kernel / yardstick %.3f"
                          % (stack_ms, times[name, R][0] - stack_ms, LIBRARY_CALLS[name], library[name], yard_err,
                             times[name, R][0] / library[name]))
+                with torch.inference_mode():
+                    yard = lambda: torch.addmm(bv, rnn(x[None], hx)[0][0], wv.T).float().log_softmax(dim=-1).topk(
+                        K_BEAM, dim=-1)
+                    yard_err = (yard().values - topk()[0][0]).abs().max().item()
+                    library[topk_name] = event_median_ms(yard, spin=LIBRARY_SPIN_CYCLES)
+                topk_split = ("; composite yardstick %s %.4f ms (10 ms spin; its logp within %.3g of the kernel's): "
+                              "kernel / yardstick %.3f; kernel / dense step %.3f"
+                              % (LIBRARY_CALLS[topk_name], library[topk_name], yard_err,
+                                 times[topk_name, R][0] / library[topk_name],
+                                 times[topk_name, R][0] / times[name, R][0]))
             phase("times", "%s bf16 %s R=%d: kernel %.4f ms, L2 cold %.4f ms%s %s"
                   % (card, name, R, times[name, R][0], cold, split, note))
+            phase("times", "%s bf16 %s R=%d: kernel %.4f ms, L2 cold %.4f ms%s %s"
+                  % (card, topk_name, R, times[topk_name, R][0], topk_cold, topk_split, note))
         for name, cell in (("fused_attn_dense_step", "gru"), ("fused_attn_lstm_dense_step", "lstm")):
             prep, w_emb, state = attn_inputs(rng, R, torch.bfloat16, device, cell)
             dense = lambda: fused_attn_dense_step_cuda(prep, w_emb, state)
@@ -1803,43 +1881,18 @@ def main():
                   "%s %.4f ms: kernel / yardstick %.3f; L2 cold: kernel %.4f ms, yardstick %.4f ms, %.3f %s"
                   % (card, name, "R" if name in BEAM_KERNELS else "B", rows, k_ms, p_ms, *bound(name, rows),
                      LIBRARY_CALLS[name], y_ms, k_ms / y_ms, k_cold, y_cold, k_cold / y_cold, note))
-    # the A/B behind whole_decode_default(): host clock around whole decodes (the user's wait), in turns.
-    # A route wins a B when it is faster in at least nine tenths of the rounds (each round times both
-    # routes, one after the other) and the medians differ by more than the larger interquartile range.
+    # the A/B behind whole_decode_default(): host clock around whole decodes (the user's wait), in turns,
+    # by ab_verdict's rule
     wins = {}  # (dtype name, B) -> "whole", "loop" or None
     for dtype in (torch.bfloat16, torch.float32):
         dn = dname(dtype)
         for B in (1, 64, 512):
             prepared, feats = whole_inputs(rng, B, dtype, device)
-            decodes = {route: (lambda w=(route == "whole"): greedy_decode_kernel(prepared, feats, T, whole_decode=w))
-                       for route in ("whole", "loop")}
-            for decode in decodes.values():
-                decode()
-            ms = {route: [] for route in decodes}
-            for rnd in range(AB_ROUNDS):
-                for route in (("whole", "loop") if rnd % 2 == 0 else ("loop", "whole")):
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    for _ in range(AB_REPS):
-                        decodes[route]()
-                    torch.cuda.synchronize()
-                    ms[route].append(1e3 * (time.perf_counter() - t0) / AB_REPS)
-            (w1, w2, w3), (l1, l2, l3) = statistics.quantiles(ms["whole"], n=4), statistics.quantiles(ms["loop"], n=4)
-            spread, gap = max(w3 - w1, l3 - l1), statistics.median(ms["loop"]) - statistics.median(ms["whole"])
-            whole_won = sum(w < lp for w, lp in zip(ms["whole"], ms["loop"]))
-            loop_won = sum(lp < w for w, lp in zip(ms["whole"], ms["loop"]))
-            need = 0.9 * AB_ROUNDS
-            wins[dn, B] = ("whole" if whole_won >= need and gap > spread else
-                           "loop" if loop_won >= need and -gap > spread else None)
-            phase("times", "%s A/B %s B=%d T=%d, host clock a decode, median [quartiles] (min, max) of %d rounds of %d "
-                  "decodes in turns: whole-decode kernel %.4f ms [%.4f, %.4f] (%.4f, %.4f), per-step loop (25 fused "
-                  "steps + index_select) %.4f ms [%.4f, %.4f] (%.4f, %.4f); loop / whole %.3f; medians %.4f ms apart, "
-                  "spread (larger interquartile range) %.4f ms; whole faster in %d of %d rounds, loop in %d: %s"
-                  % (card, dn, B, T, AB_ROUNDS, AB_REPS, statistics.median(ms["whole"]), w1, w3, min(ms["whole"]),
-                     max(ms["whole"]), statistics.median(ms["loop"]), l1, l3, min(ms["loop"]), max(ms["loop"]),
-                     statistics.median(ms["loop"]) / statistics.median(ms["whole"]), gap, spread, whole_won,
-                     AB_ROUNDS, loop_won, {"whole": "the whole decode wins", "loop": "the loop wins",
-                                           None: "no winner"}[wins[dn, B]]))
+            ms = ab_rounds({route: lambda w=(route == "whole"): greedy_decode_kernel(prepared, feats, T, whole_decode=w)
+                            for route in ("whole", "loop")})
+            wins[dn, B], text = ab_verdict(ms, {"whole": "whole-decode kernel",
+                                                "loop": "per-step loop (25 fused steps + index_select)"})
+            phase("times", "%s A/B %s B=%d T=%d, host clock a decode, %s" % (card, dn, B, T, text))
         code = dtype_code("grid barriers", dtype)
 
         def barriers():
@@ -1887,6 +1940,25 @@ def main():
     phase("times", "%s pooled-GRU beam decode, B=64, K=3, 25 steps (host clock, median [min, max] of 5 in turns): %s"
           % (card, ", ".join("%s %.3f ms [%.3f, %.3f]" % (r, 1e3 * statistics.median(v), 1e3 * min(v), 1e3 * max(v))
                              for r, v in route_s.items())))
+    # the A/B behind beam_step_default(): host clock around whole pooled beam decodes (K=3, bf16, ids on the host),
+    # the dense and the top-k route in turns, by ab_verdict's rule; the features of a request (four times for B=256)
+    beam_wins = {}  # (variant, B) -> "dense", "topk" or None
+    with torch.inference_mode():
+        for variant in ("gru", "lstm"):
+            sl = slices[variant]
+            dcfg = sl["cap"].cfg.decoder_config()
+            for Bq in (1, 64, 256):
+                fb = torch.cat([sl["feats"]] * 4)[:Bq].contiguous()
+                ms = ab_rounds({route: lambda r=route: beam_search_decode(
+                    sl["cap"].prepared, dcfg, fb, K_BEAM, END, PAD, fused_step=r).cpu() for route in ("dense", "topk")})
+                beam_wins[variant, Bq], text = ab_verdict(ms, {"dense": "dense route", "topk": "top-k route"})
+                phase("times", "%s beam A/B pooled %s bf16 B=%d K=%d T=%d, host clock a decode to ids on the host, %s"
+                      % (card, variant, Bq, K_BEAM, T, text))
+    # top-k is the default where it wins at B=64 and dense wins at neither B=1 nor B=256, for both families
+    topk_backed = all(beam_wins[v, 64] == "topk" and "dense" not in (beam_wins[v, 1], beam_wins[v, 256])
+                      for v in ("gru", "lstm"))
+    phase("times", "%s beam A/B verdict: by its rule this run gives %s; beam_step_default() = %s"
+          % (card, "topk" if topk_backed else "dense", beam_default))
     # what is not the step kernel: step 0, log_softmax, the K x V sort, gathers, launches and wrapper checks
     one = []
     with torch.inference_mode():

@@ -412,27 +412,24 @@ struct TopkArgs {
   int K, max_splits;              // K <= kMaxK; n_parts <= max_splits * kWarps
 };
 
-// A sorted (descending) list of the K greatest keys seen, in registers
-// (static indices only).  Slots from K on are not kept up to date.
+// A sorted (descending) list of the kMaxK greatest keys seen, in registers:
+// the K greatest are its first K.  A key enters when it beats the last;
+// every index is static (no index depends on K, which would put the list
+// in local memory).
 struct TopkList {
   unsigned long long keys[kMaxK];
-  unsigned long long floor;  // keys[K-1]: a key must beat it to enter
   __device__ __forceinline__ void clear() {
 #pragma unroll
     for (int i = 0; i < kMaxK; ++i) keys[i] = 0ull;
-    floor = 0ull;
   }
-  __device__ __forceinline__ void insert(unsigned long long key, int K) {
-    if (key <= floor) return;
+  __device__ __forceinline__ void insert(unsigned long long key) {
+    if (key <= keys[kMaxK - 1]) return;
 #pragma unroll
     for (int i = 0; i < kMaxK; ++i) {  // keep the larger, carry the smaller on
       const unsigned long long hi = keys[i] > key ? keys[i] : key;
       key = keys[i] > key ? key : keys[i];
       keys[i] = hi;
     }
-#pragma unroll
-    for (int i = 0; i < kMaxK; ++i)
-      if (i == K - 1) floor = keys[i];
   }
   __device__ __forceinline__ void pop() {  // drop keys[0]
 #pragma unroll
@@ -464,7 +461,7 @@ struct TopkSink {
   }
   __device__ __forceinline__ void column(int, int v, float logit) {
     lse_merge(m, s, logit, 1.0f);
-    list.insert(pack_key(logit, v), a.K);
+    list.insert(pack_key(logit, v));
   }
   __device__ __forceinline__ void finish(int b0, int nb, int split, int warp, int lane) {
     if (lane >= nb) return;
@@ -490,7 +487,7 @@ __device__ __forceinline__ void merge_topk(const TopkArgs& a, int B, int n_parts
     float m = -INFINITY, s = 0.0f;
     for (int p = lane; p < n_parts; p += 32) {
       const size_t at = static_cast<size_t>(p) * B + row;
-      for (int j = 0; j < K; ++j) list.insert(__ldcg(a.part_keys + at * K + j), K);
+      for (int j = 0; j < K; ++j) list.insert(__ldcg(a.part_keys + at * K + j));
       const float2 ms = __ldcg(a.part_ms + at);
       lse_merge(m, s, ms.x, ms.y);
     }

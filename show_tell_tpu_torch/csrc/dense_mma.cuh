@@ -1,12 +1,13 @@
 // The bf16 fused steps on Hopper's tensor cores: the recurrence and the
 // vocab projection as mma.sync m16n8k16 products (bf16 in, f32 sums), with
-// two ends of the projection: the dense f32 logits (beam) and the
-// first-max argmax (greedy).  mma_step() names the instances that run this
-// file's code: in bf16, the dense and argmax instances of fused_step.cu and
-// fused_attn_step.cu (both cells), and the whole decode of whole_decode.cu,
-// which runs the pooled GRU argmax instance's layers and key merge T times
-// and so stays bit-equal to its per-step loop.  The f32 instances, the
-// top-k end and kNone keep the SIMT code of decode_common.cuh.
+// three ends of the projection: the dense f32 logits (beam), each row's
+// top-K log-probabilities (beam, sparse) and the first-max argmax (greedy).
+// mma_step() names the instances that run this file's code: in bf16, every
+// instance of fused_step.cu and fused_attn_step.cu that has a vocab end
+// (both cells), and the whole decode of whole_decode.cu, which runs the
+// pooled GRU argmax instance's layers and key merge T times and so stays
+// bit-equal to its per-step loop.  The f32 instances and kNone keep the
+// SIMT code of decode_common.cuh.
 //
 // What bounds a step on an H100.  It reads the recurrence weights (15-23 MB
 // in bf16 at the flagships) and the 10.2 MB projection, 25-34 MB in all,
@@ -59,6 +60,12 @@
 //   grid or the order of the atomics (mma_argmax_keys).  The per-step
 //   kernels read the tokens from best after a grid barrier (argmax_tokens,
 //   as the SIMT end); the whole decode reads them in its own token phase.
+//   The top-k end scans the same runs into each thread's K greatest keys
+//   and its (max, sum of exp), combines a row's four threads into one part
+//   per vocabulary item (mma_topk_parts) and, after a grid barrier,
+//   merge_topk reduces each row's ceil(V / 64) parts: the dense end's
+//   7.6 MB of logits at R = 192 never reach memory, and log_softmax is
+//   taken in f32 from the same sums (logit - lse).
 // - Registers: a phase reads threadIdx.x and its widths through an empty
 //   asm (phase_thread), so that the whole decode, which inlines every
 //   phase into its step loop, derives them anew in each phase instead of
@@ -89,11 +96,11 @@ constexpr int kMmaVocabRows = 16 * kMmaSlots;  // vocabulary rows of an item
 constexpr int kMmaDepth = 2;                   // register buffers of a warp's chunk pipeline (3 and 4 ran slower)
 constexpr size_t kMmaSmemFloats = static_cast<size_t>(kWarps) * kMmaVals * kMmaPitch;
 
-// Whether a fused step's instance (or, with kArgmax, the whole decode) runs this file's code: bf16 with the dense or
-// the argmax end, either cell.
+// Whether a fused step's instance (or, with kArgmax, the whole decode) runs this file's code: bf16 with a vocab end
+// (dense, top-k or argmax), either cell.
 template <typename T, int kMode>
 __host__ __device__ constexpr bool mma_step() {
-  return std::is_same<T, __nv_bfloat16>::value && (kMode == kDense || kMode == kArgmax);
+  return std::is_same<T, __nv_bfloat16>::value && (kMode == kDense || kMode == kTopk || kMode == kArgmax);
 }
 
 // threadIdx.x, opaque to the compiler: a phase (a layer, a projection) reads it once, and its widths through the same
@@ -332,8 +339,57 @@ __device__ void mma_argmax_keys(const __nv_bfloat16* top, const __nv_bfloat16* w
   });
 }
 
+// The top-k end's parts: for each (64 vocabulary rows, 32 batch rows) item,
+// each batch row's K greatest packed (logit, ~index) keys over the item
+// (0 = empty) at part_keys[p][row][0..K), and the item's (max, sum of
+// exp(logit - max)) at part_ms[p][row], p = v0 / 64.  The part is the
+// vocabulary item, not the block that ran it, so the keys, and the order
+// in which merge_topk folds the (max, sum) pairs, do not depend on the
+// grid.  Thread 4n + q scans rows v0 + 16q .. v0 + 16q + 15 of batch row n
+// (sum + bias in f32, v < V only) into a TopkList and its (m, s); the four
+// threads of a row take the max of m and the rescaled sum of s by xor
+// shuffles and K pops of the greatest head (TopkTileEnd's combine).
+__device__ void mma_topk_parts(const __nv_bfloat16* top, const __nv_bfloat16* wv, const __nv_bfloat16* bv, int B,
+                               int H, int V, const TopkArgs& a, float* red) {
+  const int tid = phase_thread();
+  mma_project(top, wv, B, H, V, red, [&](int n0, int nb, int v0) {
+    const int n = tid / kRowThreads, q = tid % kRowThreads;  // slot q: rows v0 + 16q + i
+    TopkList list;
+    list.clear();
+    float x[16], m = -INFINITY, s = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int v = v0 + 16 * q + i;
+      x[i] = 0.0f;
+      if (n < nb && v < V) {
+        x[i] = mma_sum(red, q, i, n) + __bfloat162float(bv[v]);
+        m = fmaxf(m, x[i]);
+        list.insert(pack_key(x[i], v));
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      if (n < nb && v0 + 16 * q + i < V) s += expf(x[i] - m);
+    float mx = m;
+#pragma unroll
+    for (int off = 1; off < kRowThreads; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    float sum = s > 0.0f ? s * expf(m - mx) : 0.0f;
+#pragma unroll
+    for (int off = 1; off < kRowThreads; off <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    const bool writer = n < nb && q == 0;
+    const size_t at = static_cast<size_t>(v0 / kMmaVocabRows) * B + n0 + n;
+    for (int j = 0; j < a.K; ++j) {
+      const unsigned long long best = row_max_key(list.keys[0]);
+      if (list.keys[0] == best) list.pop();  // keys are unique (0 = empty pops harmlessly)
+      if (writer) a.part_keys[at * a.K + j] = best;
+    }
+    if (writer) a.part_ms[at] = make_float2(mx, sum);
+  });
+}
+
 // The vocab phase of an mma_step instance, after the top activation is
-// complete: the dense f32 logits, or the first-max argmax tokens.
+// complete: the dense f32 logits, each row's top-K log-probabilities, or
+// the first-max argmax tokens.
 template <int kMode>
 __device__ void mma_vocab_phase(const __nv_bfloat16* top, const __nv_bfloat16* wv, const __nv_bfloat16* bv, int B,
                                 int H, int V, const VocabOut& out, float* red, cg::grid_group& grid) {
@@ -346,8 +402,12 @@ __device__ void mma_vocab_phase(const __nv_bfloat16* top, const __nv_bfloat16* w
           out.logits[static_cast<size_t>(n0 + n) * V + v] = mma_sum(red, m >> 4, m & 15, n) + __bfloat162float(bv[v]);
       }
     });
+  } else if constexpr (kMode == kTopk) {
+    mma_topk_parts(top, wv, bv, B, H, V, out.topk, red);
+    grid.sync();  // every part is in scratch
+    merge_topk(out.topk, B, (V + kMmaVocabRows - 1) / kMmaVocabRows);
   } else {
-    static_assert(kMode == kArgmax, "the tensor-core steps end in dense logits or the argmax");
+    static_assert(kMode == kArgmax, "the tensor-core steps end in dense logits, the top-k or the argmax");
     mma_argmax_keys(top, wv, bv, B, H, V, out.best, red);
     argmax_tokens(out, B, grid);
   }

@@ -45,11 +45,14 @@
 // multiplies in f32, so at large batches it turns into an f32 FMA loop.
 // The bf16 instances that mma_step() names run the recurrence and the
 // projection on the tensor cores instead (dense_mma.cuh: mma.sync, weights
-// re-read once per 32 batch rows): the dense end and the argmax end of
-// both cells, which merges each 64-row vocabulary item's first max into
-// best by one atomicMax a row.  The whole decode (whole_decode.cu) runs the
-// GRU argmax instance's layers and key merge, so its ids stay bit-equal to
-// this instance's loop.
+// re-read once per 32 batch rows): the dense, top-K and argmax ends of
+// both cells.  The argmax end merges each 64-row vocabulary item's first
+// max into best by one atomicMax a row; the top-K end writes one part per
+// 64-row vocabulary item (its K greatest keys and (max, sum)), and after a
+// grid barrier merge_topk reduces each row's ceil(V / 64) parts, so it
+// needs scratch for that many parts (max_splits >= ceil(V / 64)).  The
+// whole decode (whole_decode.cu) runs the GRU argmax instance's layers and
+// key merge, so its ids stay bit-equal to this instance's loop.
 // The stack step (kNone) reads the recurrence weights alone: 14.9 MB (GRU,
 // E=256) and 21.0 MB (LSTM, E=512) in bf16, plus [L, B, H] states in and
 // out; its bound is those bytes, 4.5 and 6.3 us at 3.35 TB/s at small B.
@@ -67,12 +70,14 @@
 //     a greater value wins, and on equal values the lower index wins,
 //     exactly the first-max rule of vocab_pallas.merge_block_argmax;
 //   * the top-K end replaces the TPU's per-vocab-block top-k and online
-//     logsumexp (vocab_pallas.topk_block_stage): each warp keeps its rows'
-//     top-K keys and (max, sum) over its columns in registers and writes
-//     them to per-part scratch; after one more barrier a warp per row
-//     merges the parts by the same 64-bit key order (jax.lax.top_k's tie
-//     rule) and forms lse.  The wrapper sizes the scratch from a bound on
-//     the grid (the SM count times 16 resident 128-thread blocks);
+//     logsumexp (vocab_pallas.topk_block_stage): in f32 each warp keeps
+//     its rows' top-K keys and (max, sum) over its columns in registers
+//     and writes them to per-part scratch (in bf16, each 64-row vocabulary
+//     item's four threads a row do, dense_mma.cuh); after one more barrier
+//     a warp per row merges the parts by the same 64-bit key order
+//     (jax.lax.top_k's tie rule) and forms lse.  In f32 the wrapper sizes
+//     the scratch from a bound on the grid (the SM count times 16 resident
+//     128-thread blocks), in bf16 at one part per vocabulary item;
 //   * the dense end: in f32, lane b stores its logit at logits[b, v],
 //     stores that stride by V; in bf16, dense_mma.cuh stages each tile's
 //     logits in shared memory and stores each row's 64 as one run;
@@ -141,13 +146,22 @@ VocabOut topk_out(unsigned long long* part_keys, float2* part_ms, float* logp, i
   return VocabOut{nullptr, nullptr, nullptr, {part_keys, part_ms, logp, ids, K, max_splits}};
 }
 
+// A top-K step's K and scratch: 1 <= K <= min(kMaxK, V); the tensor-core
+// instances (bf16) write one part per 64-row vocabulary item.
+bool topk_args_ok(int dtype, int V, int K, int max_splits) {
+  if (K < 1 || K > kMaxK || K > V || max_splits < 1) return false;
+  return dtype != 1 || max_splits >= (V + kMmaVocabRows - 1) / kMmaVocabRows;
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Each returns a cudaError_t (0 on
 // success); a width whose [kBM, max(E, H) + H] f32 tile exceeds a block's
 // shared memory fails here.  The top-K steps take K <= 8 and per-part
-// scratch part_keys [max_splits * 4, B, K] (u64) and part_ms [max_splits *
-// 4, B] (float2), where max_splits bounds the column ranges of the grid.
+// scratch part_keys [n, B, K] (u64) and part_ms [n, B] (float2): in f32
+// n = max_splits * 4, where max_splits bounds the column ranges of the
+// grid; in bf16 n = max_splits >= ceil(V / 64), one part per vocabulary
+// item (else cudaErrorInvalidValue).
 
 // Greedy: tok [B] int32; best [B] scratch.
 extern "C" int st_fused_gru_step(int dtype, const void* x, const void* w_ih0, const void* w_ihU,
@@ -201,7 +215,7 @@ extern "C" int st_fused_gru_topk_step(int dtype, const void* x, const void* w_ih
                                       const void* wv, const void* bv, void* new_hs, unsigned long long* part_keys,
                                       float2* part_ms, float* logp, int32_t* ids, int L, int B, int E, int H, int V,
                                       int K, int max_splits, void* stream) {
-  if (K < 1 || K > kMaxK || K > V || max_splits < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (!topk_args_ok(dtype, V, K, max_splits)) return static_cast<int>(cudaErrorInvalidValue);
   return run<GruCell, kTopk>(
       dtype,
       Params{{x, w_ih0, w_ihU, w_hh, b_ih, b_hh, hs, nullptr, new_hs, nullptr, L, B, E, H}, wv, bv,
@@ -214,7 +228,7 @@ extern "C" int st_fused_lstm_topk_step(int dtype, const void* x, const void* w_i
                                        const void* cs, const void* wv, const void* bv, void* new_hs, void* new_cs,
                                        unsigned long long* part_keys, float2* part_ms, float* logp, int32_t* ids,
                                        int L, int B, int E, int H, int V, int K, int max_splits, void* stream) {
-  if (K < 1 || K > kMaxK || K > V || max_splits < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (!topk_args_ok(dtype, V, K, max_splits)) return static_cast<int>(cudaErrorInvalidValue);
   return run<LstmCell, kTopk>(
       dtype,
       Params{{x, w_ih0, w_ihU, w_hh, b_ih, b_hh, hs, cs, new_hs, new_cs, L, B, E, H}, wv, bv,

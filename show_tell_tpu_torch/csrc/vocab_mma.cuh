@@ -294,7 +294,7 @@ struct TopkTileEnd {
       for (int c = q; c < nv; c += kRowThreads) {
         const float x = row[c];
         m = fmaxf(m, x);
-        list.insert(pack_key(x, v0 + c), a.K);
+        list.insert(pack_key(x, v0 + c));
       }
       for (int c = q; c < nv; c += kRowThreads) s += expf(row[c] - m);
     }

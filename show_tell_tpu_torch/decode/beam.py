@@ -19,14 +19,18 @@ a GPU the attention context kernel), as the JAX package does; the other
 T - 1 steps run one of its step routes, picked by the caller:
 
   fused_step="dense"   one fused-step kernel launch, dense f32 logits, then
-                       log_softmax and the K x V top-K in torch (the default,
-                       the JAX package's measured TPU policy);
+                       log_softmax and the K x V top-K in torch (the
+                       default of these functions);
   fused_step="topk"    one fused-step kernel launch ending in each row's
                        top-K log-probabilities (pooled only);
   fused_step=None      the composite: the plain stack (after the attention
                        context kernel), then the projection + top-k kernel
                        when ``sparse``, else the plain projection and
                        log_softmax.
+
+Serving (``models.captioner.captioner_beam_decode``) gives the pooled
+families the route that ``ops.beam_step_default()`` names, set by an H100
+A/B; tests call each route directly.
 """
 
 from __future__ import annotations

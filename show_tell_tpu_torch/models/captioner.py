@@ -282,11 +282,13 @@ def captioner_beam_decode(
     [B, 25] int32 ids (the best hypothesis of each image; <pad> after its
     <end>), through the beam kernels on a CUDA device (their plain twins on
     the CPU).  The dispatch is show_tell_tpu/serve.py's: the pooled
-    families take ``beam_search_decode``, the attention families
-    ``attn_beam_search_decode``, each with the fused dense step (the
+    families take ``beam_search_decode`` with the step route that
+    ``ops.beam_step_default()`` names (dense or top-k), the attention
+    families ``attn_beam_search_decode`` with the fused dense step (the
     composite for an attention model with H > 2E).  Beams retire on
     ``end_token``; early_exit stops once all have (identical ids)."""
     from show_tell_tpu_torch.decode.beam import attn_beam_search_decode, beam_search_decode
+    from show_tell_tpu_torch.ops import beam_step_default
 
     feats = encode(model, images, s2d)
     if prepared is None:
@@ -295,4 +297,4 @@ def captioner_beam_decode(
         return attn_beam_search_decode(prepared, model.decoder, cfg.decoder_config(), feats, beam_size,
                                        cfg.start_token, end_token=end_token, early_exit=early_exit)
     return beam_search_decode(prepared, cfg.decoder_config(), feats, beam_size, end_token=end_token,
-                              early_exit=early_exit)
+                              fused_step=beam_step_default(), early_exit=early_exit)

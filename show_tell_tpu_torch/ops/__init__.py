@@ -99,3 +99,37 @@ def whole_decode_default() -> bool:
     takes one default for every B.  Early exit, the LSTM and the sharded
     projection keep the per-step loop either way."""
     return False
+
+
+def beam_step_default() -> str:
+    """The step route that ``captioner_beam_decode`` gives a pooled
+    family's beam search (``decode.beam.beam_search_decode``'s
+    ``fused_step``), "dense" or "topk"; the counterpart of
+    show_tell_tpu/ops/__init__.py::pallas_beam_fused_default.  The
+    attention families keep the dense step: the JAX package has no
+    attention top-k step.
+
+    The rule, fixed before the first timed run (chip_smoke.py phase 6:
+    host clock a whole beam decode at K=3, bf16, ids on the host, ten
+    rounds of five decodes with the two routes in turns, the pooled GRU and
+    LSTM at B = 1, 64, 256): "topk" when, for both pooled families, the
+    top-k route is faster at B=64 in at least 9 of 10 rounds with medians
+    more than the larger interquartile range apart, and the dense route
+    wins so at neither B=1 nor B=256; else "dense".
+
+    Dense, by the A/B on an NVIDIA H100 80GB HBM3 at its 700 W power limit
+    that followed the top-k step's move to the tensor cores (0.0974 ms
+    against the dense step's 0.0808 at R=192, GRU; 1.2488 before): at B=64
+    the top-k route was faster in 8 of 10 rounds for either family, its
+    medians 1.2723 ms (GRU, 15.7562 against 17.0285 ms) and 2.2929 ms
+    (LSTM) lower, inside the larger interquartile ranges (1.9912, 2.7501
+    ms), so no route won there; at B=256 it won 10 of 10 rounds for both
+    (GRU 14.4061 against 27.9639 ms, LSTM 17.5778 against 29.4840 ms); at
+    B=1 neither won.  Two more runs of the same code gave the same
+    verdicts.  Both routes spend most of a decode at B <= 64 in the
+    engine's host work between the 24 step launches, which is why the
+    routes tie there; the top-k route's gain (no log_softmax over R x V,
+    a sort of B x K^2 candidates, not B x K x V) shows once the device
+    work outgrows the host's, at B=256.  A route by batch size would take
+    that gain; the rule as fixed takes one default for every B."""
+    return "dense"

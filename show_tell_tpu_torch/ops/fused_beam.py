@@ -8,10 +8,12 @@ and ::fused_topk_step_pallas.  The beam rows ride the batch axis: x is
 [R, E] and the state [L, R, H] for R = B x K rows.  Layer 0 reads x at its
 own width E, which may exceed H (the TPU kernels refuse E > H).
 
-In bf16 the dense instances (here and in ops/fused_attn.py) run their
-recurrence and projection on the tensor cores (csrc/dense_mma.cuh, whose
-launch geometry ``fused_step.mma_tiles`` computes); f32 and the top-k end
-keep the SIMT code.
+In bf16 the dense and top-k instances (and the attention's dense ones in
+ops/fused_attn.py) run their recurrence and projection on the tensor
+cores (csrc/dense_mma.cuh, whose launch geometry ``fused_step.mma_tiles``
+computes); the top-k end writes each 64-row vocabulary item's top-k keys
+and (max, sum) and merges them after a grid barrier.  f32 keeps the SIMT
+code.
 """
 
 from __future__ import annotations

@@ -11,9 +11,9 @@ which may exceed H.
 The bf16 instances that ``mma_step`` names (here, in ops/fused_attn.py
 and the whole decode of ops/whole_decode.py) run their recurrence and
 projection on the tensor cores (csrc/dense_mma.cuh), whose launch
-geometry ``mma_tiles`` computes: the dense and the argmax end, both cells
-(the pooled GRU's argmax instance bit-equal to the whole decode).  f32,
-the top-k end and the stack step keep the SIMT code.
+geometry ``mma_tiles`` computes: the dense, top-k and argmax ends, both
+cells (the pooled GRU's argmax instance bit-equal to the whole decode).
+f32 and the stack step keep the SIMT code.
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ from show_tell_tpu_torch.ops.vocab import SMEM_LIMIT, project_argmax_plain, topk
 MMA_SLAB = 32  # batch rows an item: four n8 tiles of mma.sync m16n8k16
 MMA_CHUNK = 32  # K columns a warp's step: two k16 steps
 MMA_SLOTS = 4  # m16 accumulator tiles an item: the gates (GRU: r, z, n's x side, n's h side) or 64 vocab rows
+MMA_VOCAB_ROWS = 16 * MMA_SLOTS  # vocabulary rows an item: the top-k end writes one part per such item
 MMA_WARPS = 4  # warps a block (128 threads, the SIMT phases' block), splitting an item's K chunks
 MMA_PITCH = 33  # floats a staged row of a warp's 32 lanes
 MMA_SMEM = 4 * MMA_WARPS * MMA_SLOTS * 4 * 4 * MMA_PITCH  # bytes: every warp's 64 sums a lane
@@ -39,10 +40,10 @@ ATTN_ROWS = 8  # the attention's SIMT phase A1 holds 8 rows of h (kBM in csrc/de
 
 def mma_step(dtype: torch.dtype, end: Union[str, int, None]) -> bool:
     """Whether a fused step's instance runs on the tensor cores (mma_step()
-    in csrc/dense_mma.cuh): bf16 with the "dense" or the "argmax" end, of
-    either cell; the whole decode (csrc/whole_decode.cu) as the "argmax"
-    end."""
-    return dtype == torch.bfloat16 and end in ("dense", "argmax")
+    in csrc/dense_mma.cuh): bf16 with a vocab end, "dense", "argmax" or a
+    top-k width, of either cell; the whole decode (csrc/whole_decode.cu) as
+    the "argmax" end.  The stack step (end None) keeps the SIMT code."""
+    return dtype == torch.bfloat16 and end is not None
 
 
 class MmaTiles(NamedTuple):
@@ -72,7 +73,7 @@ def mma_tiles(R: int, I0: int, H: int, V: int, attention: Optional[Tuple[int, in
         raise ValueError("the bf16 tensor-core step at H=%d%s needs %d bytes of shared memory a block, over the %d a "
                          "block may use" % (H, "" if attention is None else ", A=%d, P=%d" % attention, smem,
                                             SMEM_LIMIT))
-    return MmaTiles(slabs * -(-H // 16), slabs * -(-V // (16 * MMA_SLOTS)), chunks(I0) + chunks(H), 2 * chunks(H),
+    return MmaTiles(slabs * -(-H // 16), slabs * -(-V // MMA_VOCAB_ROWS), chunks(I0) + chunks(H), 2 * chunks(H),
                     chunks(H), smem)
 
 
@@ -119,8 +120,9 @@ def launch_fused_step(kernel: str, stacked, vocab, x, state: State, end: Union[s
     width k (logp [B, k] f32, ids [B, k] int32), or None, the stack step
     (the top activation [B, H], a view of new_hs[L-1]; ``vocab`` is not
     read).  An instance that ``mma_step`` names has its tensor-core
-    geometry checked first (``mma_tiles``).  Returns (the end's output, new
-    state)."""
+    geometry checked first (``mma_tiles``); its top-k end gets one scratch
+    part per MMA_VOCAB_ROWS vocabulary rows.  Returns (the end's output,
+    new state)."""
     from show_tell_tpu_torch.ops.build import load_library
 
     lstm = isinstance(state, tuple)
@@ -157,7 +159,8 @@ def launch_fused_step(kernel: str, stacked, vocab, x, state: State, end: Union[s
         out = torch.empty(B, V, dtype=torch.float32, device=device)
         ptrs, entry_name = [out.data_ptr()], "st_fused_%s_dense_step"
     else:
-        max_splits, part_keys, part_ms, logp, ids = topk_launch_args(kernel, B, V, end, device)
+        items = -(-V // MMA_VOCAB_ROWS) if mma_step(dtype, end) else None
+        max_splits, part_keys, part_ms, logp, ids = topk_launch_args(kernel, B, V, end, device, items)
         out = (logp, ids)
         ptrs = [part_keys.data_ptr(), part_ms.data_ptr(), logp.data_ptr(), ids.data_ptr()]
         ints += [end, max_splits]

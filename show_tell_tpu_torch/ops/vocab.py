@@ -160,7 +160,8 @@ def project_topk_plain(vocab: Dict[str, torch.Tensor], top: torch.Tensor, k: int
 def topk_launch_args(kernel: str, B: int, V: int, k: int, device: torch.device, tiles: Optional[int] = None):
     """Check k and allocate what a top-k vocab phase writes: logp and ids
     [B, k], and its per-part scratch.  The bf16 projection kernel writes
-    one part per V-tile: pass ``tiles`` (vocab_tiles), and max_splits = n =
+    one part per V-tile, the bf16 fused top-k step one per 64-row
+    vocabulary item: pass that count as ``tiles``, and max_splits = n =
     tiles.  Otherwise (the SIMT phase) the grid is sized inside the launch
     from the kernel's occupancy, so the scratch is sized from a bound on it:
     at most RESIDENT_BLOCKS_PER_SM blocks on each SM, hence at most

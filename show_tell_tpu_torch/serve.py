@@ -23,8 +23,10 @@ and an LSTM instance); the pooled GRU's fixed-length decode can instead
 take one whole-decode launch for all its tokens
 (``ops.whole_decode_default()``, off since an H100 A/B);
 beam search (``beam_size`` K > 0) runs B x K beam
-rows through the fused step's dense-logits form, one launch per token
-after the first (decode/beam.py).  ``compute_dtype="bfloat16"`` casts
+rows through a fused step, one launch per token after the first
+(decode/beam.py): the pooled families by the route that
+``ops.beam_step_default()`` names (dense logits or each row's top-K), the
+attention families by the dense-logits form.  ``compute_dtype="bfloat16"`` casts
 every float32 weight and BN statistic to bf16 (no autocast); "float32" is
 the parity dtype, its convolutions in full f32 (no TF32).  The package
 reads checkpoints, vocabularies and images itself (its own copy of the
@@ -104,7 +106,7 @@ def load_checkpoint(path: str) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     if not (isinstance(ckpt, dict) and str(ckpt.get("format", "")).startswith("show_tell_tpu")):
         raise ValueError(
             "%s is not a show_tell_tpu pickle checkpoint (reading reference torch .ckpt files "
-            "is ROADMAP Queue 1 item 7)" % path
+            "is ROADMAP Queue 1 item 2, serving leftovers)" % path
         )
     enc = ckpt["encoder_state_dict"]
     params = {

@@ -309,8 +309,8 @@ def no_library(monkeypatch):
 def test_mma_tiles_check_runs_for_the_tensor_core_instances_only(no_library):
     """bf16 dense steps, the greedy steps (pooled and attention, both
     cells) and the whole decode check the tensor-core geometry before the
-    launch; f32 and the stack steps do not (they keep the SIMT code, as
-    does the top-k end)."""
+    launch; f32 and the stack steps do not (they keep the SIMT code).  The
+    top-k steps: tests/test_torch_topk_tiles.py."""
     B, E, H, V, A, P = 3, 16, 24, 40, 16, 5
     for dtype in (torch.float32, torch.bfloat16):
         bf16 = dtype == torch.bfloat16
@@ -335,7 +335,7 @@ def test_mma_tiles_check_runs_for_the_tensor_core_instances_only(no_library):
                     launch()
                 assert no_library == ([args] if checked else [])
         assert fused_step.mma_step(dtype, "argmax") == fused_step.mma_step(dtype, "dense") == bf16
-        assert not fused_step.mma_step(dtype, 3)  # a top-k width
+        assert fused_step.mma_step(dtype, 3) == bf16  # a top-k width: bf16 top-k runs on the tensor cores too
         assert not fused_step.mma_step(dtype, None)  # the stack step
 
 

@@ -406,6 +406,29 @@ def test_captioner_beam_from_jax_checkpoint_equals_jax(beam_checkpoints, variant
     assert port.caption(images, beam_size=3) == ref.caption(images, beam_size=3)
 
 
+@pytest.mark.parametrize("route", ["dense", "topk"])
+def test_captioner_beam_takes_the_beam_step_default(beam_checkpoints, route, monkeypatch):
+    """A pooled Captioner's beam search takes the step route that
+    ops.beam_step_default() names (its wrapper is the only step called)
+    and gives the JAX Captioner's ids by either route."""
+    from show_tell_tpu_torch import ops as port_ops
+    from show_tell_tpu_torch.ops import fused_beam
+
+    assert port_ops.beam_step_default() in ("dense", "topk")
+    calls = []
+    for name in ("fused_dense_step", "fused_topk_step"):
+        real = getattr(fused_beam, name)
+        monkeypatch.setattr(fused_beam, name, lambda *a, _real=real, _name=name: calls.append(_name) or _real(*a))
+    monkeypatch.setattr(port_ops, "beam_step_default", lambda: route)
+    ckpt, vocab = beam_checkpoints["gru"]
+    images = np.random.RandomState(151).randint(0, 256, (3, 64, 64, 3), dtype=np.uint8)
+    port = Captioner.from_checkpoint(ckpt, vocab, device="cpu", **_kw("gru"))
+    ids = port.caption_ids(images, beam_size=3)
+    assert set(calls) == {"fused_%s_step" % route} and len(calls) == 24
+    ref = JaxCaptioner.from_checkpoint(ckpt, vocab, **_kw("gru"))
+    np.testing.assert_array_equal(ids, ref.caption_ids(images, beam_size=3))
+
+
 @pytest.mark.parametrize("variant", ["gru", "attn_lstm"])
 def test_cli_beam_size_captions_like_jax(beam_checkpoints, variant, tmp_path, capsys):
     """--beam_size 3: one JSON line per image, the JAX Captioner's beam

@@ -330,7 +330,7 @@ def test_fused_dense_step_kernel_matches_plain(cuda, cell, dtype, R, E, H, V, L)
 
 @pytest.mark.parametrize("k", [1, 3, 5])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("R,E,H,V,L", BEAM_SHAPES)
+@pytest.mark.parametrize("R,E,H,V,L", BEAM_SHAPES + [(512, 256, 512, 9956, 5)])
 @pytest.mark.parametrize("cell", ["gru", "lstm"])
 def test_fused_topk_step_kernel_matches_plain(cuda, cell, dtype, R, E, H, V, L, k):
     stacked, vocab, x, hs = _inputs(R, E, H, V, L, dtype, cuda, seed=k, gates=4 if cell == "lstm" else 3)
@@ -404,6 +404,22 @@ def test_beam_kernels_order_ties_lower_index_first(cuda):
         assert project_topk(vocab, _top(new_state).contiguous(), 2)[1].tolist() == [[7, 900]] * 21
         logits, _ = fused_dense_step(stacked, vocab, x, state)
         assert torch.equal(logits[:, 7], logits[:, 900])
+
+
+@pytest.mark.parametrize("lo,hi", [(63, 64), (5, 9955)])
+@pytest.mark.parametrize("R", [21, 192])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_topk_step_ties_across_vocab_items_list_the_lower_index_first(cuda, dtype, R, lo, hi):
+    """Columns in two different 64-row vocabulary items (the bf16 top-k
+    end's parts: the first item's last row and the second's first; the
+    first item and the last), equal and top in every row: both cells list
+    lo then hi, f32 and bf16."""
+    for cell in ("gru", "lstm"):
+        stacked, vocab, x, hs = _inputs(R, 256, 512, 9956, 5, dtype, cuda, seed=15, gates=4 if cell == "lstm" else 3)
+        vocab["w"][hi] = vocab["w"][lo]
+        vocab["b"][lo] = vocab["b"][hi] = 50.0
+        (_, ids), _ = fused_topk_step(stacked, vocab, x, _state(cell, hs, 16), 3)
+        assert ids[:, :2].tolist() == [[lo, hi]] * R
 
 
 @pytest.mark.parametrize("V", [1001, 9956])

@@ -1,16 +1,18 @@
-"""Device times of the pooled GRU's greedy kernels at the flagship widths on one NVIDIA GPU.
+"""Device times of the pooled fused-step kernels at the flagship widths on one NVIDIA GPU.
 
     python tools/step_times.py [--root DIR]
 
 Imports show_tell_tpu_torch from DIR (default: this checkout), so that one
 script times two checkouts alike, each in its own process.  In bf16, with
 chip_smoke.py's inputs and timer (CUDA events, median of 30 after 5, each
-call queued behind a 1 ms spin): the fused greedy step
+call queued behind a 1 ms spin): the GRU's fused greedy step
 (fused_gru_decode_step_cuda) at B = 1, 64 and 512 with its operands warm
 in L2 and cold (a 64 MB write between the spin and the call), and the
 whole decode of T = 25 steps (gru_whole_greedy_decode_cuda; median of 10
-after 2) at the same B.  Prints the card's name and power limit, one line
-a kernel and B, and a JSON line of every time.
+after 2) at the same B; the GRU's and the LSTM's beam steps, top-k (k=3,
+warm and cold) and dense, at R = 3 and 192 beam rows.  Prints the card's
+name and power limit, one line a kernel and B, and a JSON line of every
+time.
 """
 
 import argparse
@@ -37,6 +39,7 @@ def main():
     import torch
 
     import show_tell_tpu_torch
+    from show_tell_tpu_torch.ops.fused_beam import fused_dense_step_cuda, fused_topk_step_cuda
     from show_tell_tpu_torch.ops.fused_step import fused_gru_decode_step_cuda
     from show_tell_tpu_torch.ops.whole_decode import gru_whole_greedy_decode_cuda
 
@@ -60,7 +63,17 @@ def main():
                                                 warmup=2),)
         print("%s bf16 B=%d from %s: fused GRU greedy step %.4f ms, L2 cold %.4f ms; whole decode T=%d %.4f ms"
               % (smi, B, root, *times["step", B], cs.T, times["whole", B][0]), flush=True)
-    print(json.dumps({"root": root, "card": smi, "ms": {"%s B=%d" % k: v for k, v in times.items()}}), flush=True)
+    for R in (3, 192):
+        for cell, Ed in (("gru", cs.E), ("lstm", cs.LE)):
+            stacked, vocab, x, state = cs.step_inputs(rng, R, torch.bfloat16, device, Ed, cell)
+            topk = lambda: fused_topk_step_cuda(stacked, vocab, x, state, cs.K_BEAM)
+            times[cell + " topk", R] = (cs.event_median_ms(topk), cs.event_median_ms(topk, before=flush.zero_))
+            times[cell + " dense", R] = (cs.event_median_ms(lambda: fused_dense_step_cuda(stacked, vocab, x, state)),)
+            print("%s bf16 R=%d from %s: fused %s top-%d beam step %.4f ms, L2 cold %.4f ms; dense beam step %.4f ms"
+                  % (smi, R, root, cell.upper(), cs.K_BEAM, *times[cell + " topk", R], times[cell + " dense", R][0]),
+                  flush=True)
+    print(json.dumps({"root": root, "card": smi, "ms": {"%s %s=%d" % (k[0], "R" if " " in k[0] else "B", k[1]): v
+                                                        for k, v in times.items()}}), flush=True)
 
 
 if __name__ == "__main__":
