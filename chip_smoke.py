@@ -8,11 +8,11 @@ Phases, one line each (any failure exits non-zero with no ok line):
   2. build: the CUDA kernels from show_tell_tpu_torch/csrc, with nvcc, and
      beside them the grid-barrier probe (grid_barrier_probe.cu); ptxas's
      registers, stack and spills of the tensor-core instances (the bf16
-     projection kernels, vocab_mma.cuh; the eleven bf16 instances of
+     projection kernels, vocab_mma.cuh; the thirteen bf16 instances of
      dense_mma.cuh: the four dense beam steps, the two pooled top-k beam
      steps, the four greedy steps, pooled and attention, GRU and LSTM,
-     and the whole decode) and the tensor-core (HMMA) instructions in
-     their SASS;
+     the whole decode and the two stack steps) and the tensor-core (HMMA)
+     instructions in their SASS;
   3. kernel against plain, at the flagship widths: the pooled fused step,
      GRU (L=5, E=256, H=512, V=9,956; B = 1, 64, 512; and E=1024 > H) and
      LSTM (E=512, same B); the fused attention step, GRU and LSTM (L=5,
@@ -36,7 +36,9 @@ Phases, one line each (any failure exits non-zero with no ok line):
      per-step kernel's loop and against its twin, with a cross-block tie
      (columns 7 and 9000) and a tie across the first 64-row vocabulary
      item boundary (63 and 64);
-     the GRU (E=256) and LSTM (E=512) stack steps against their twins;
+     the GRU (E=256) and LSTM (E=512) stack steps against their twins,
+     in bf16 also launched twice (bit-equal) with the arrival counters of
+     their K split back at zero;
   3e. the bf16 projection kernels' V-tiles on this card, and a tie across
      the first V-tile boundary in both projection kernels, f32 and bf16;
   4. pooled main paths: a flagship pooled-GRU Captioner (ResNet-101,
@@ -86,7 +88,9 @@ Phases, one line each (any failure exits non-zero with no ok line):
      stock and an s2d request; the A/B behind whole_decode_default(): the
      whole-decode kernel against the per-step loop at B = 1, 64, 512, bf16
      and f32, in turns, median [quartiles] (min, max) and the rounds each
-     route won; the stack steps against one torch.nn.GRU / LSTM call; the
+     route won; the stack steps at B = 1, 64, 512, L2 warm and cold,
+     against one torch.nn.GRU / LSTM call, and at every K split S = 1 .. 8
+     beside the S that stack_tiles' rule takes; the
      cost of a grid barrier at the whole-decode kernel's grid; the
      projection kernels at B = 1, 64, 256 and R = 3, 192, 320 against
      their twins, bounds and composite yardsticks, L2 warm and cold; the
@@ -525,8 +529,8 @@ def projection_tile_ties(rng, device):
 
 TILE_KERNELS = ("project_argmax_tiles_kernel", "project_topk_tiles_kernel")  # the bf16 projection kernels
 # the bf16 instances on the tensor cores (csrc/dense_mma.cuh, mma_step()): entry point -> (kernel template, cell,
-# vocab end: kArgmax = 0, kDense = 1, kTopk = 2; None where the template names neither: the whole decode, GRU and
-# argmax)
+# vocab end: kArgmax = 0, kDense = 1, kTopk = 2, kNone = 3; None where the template names neither: the whole decode,
+# GRU and argmax)
 MMA_STEPS = {
     "st_fused_gru_dense_step": ("fused_step_kernel", "GruCell", 1),
     "st_fused_lstm_dense_step": ("fused_step_kernel", "LstmCell", 1),
@@ -539,6 +543,8 @@ MMA_STEPS = {
     "st_fused_attn_step": ("fused_attn_step_kernel", "GruCell", 0),
     "st_fused_attn_lstm_step": ("fused_attn_step_kernel", "LstmCell", 0),
     "st_whole_gru_decode": ("whole_gru_kernel", None, None),
+    "st_gru_stack_step": ("fused_step_kernel", "GruCell", 3),
+    "st_lstm_stack_step": ("fused_step_kernel", "LstmCell", 3),
 }
 
 
@@ -559,7 +565,7 @@ def tensor_core_kernel(name):
 
 def tile_kernel_report(build):
     """ptxas's registers, stack frame and spills of the tensor-core kernel
-    instances (the two bf16 projection kernels and the eleven bf16 fused
+    instances (the two bf16 projection kernels and the thirteen bf16 fused
     instances of MMA_STEPS), and, where the toolkit has cuobjdump, the
     tensor-core (HMMA) instructions in their SASS in the library; fails if
     one has none, if ptxas names none of them, or if a fused step has a
@@ -868,6 +874,7 @@ def decode_kernels_against_plain(rng, device):
     import torch
 
     from show_tell_tpu_torch.models.attention import last_h
+    from show_tell_tpu_torch.ops.fused_step import arrival_counters, sm_count, stack_tiles
     from show_tell_tpu_torch.ops.rnn import (
         greedy_decode_kernel,
         gru_stack_plain,
@@ -932,7 +939,20 @@ def decode_kernels_against_plain(rng, device):
                     fail("%s: the top activation is not new_hs[L-1]" % what)
                 if dtype == torch.bfloat16 and B == 64:
                     errs[name] = err
-                phase("kernel", "%s: state max_abs_err %.3g (rtol atol %g); top = new_hs[L-1]" % (what, err, tol[0]))
+                split = ""
+                if dtype == torch.bfloat16:  # the K split: the same bits again, its counters left at zero
+                    tiles = stack_tiles(B, Ec, H, sm_count(device))
+                    again = cuda_step(stacked, x, state)[1]
+                    torch.cuda.synchronize()
+                    pairs = zip(*(st if isinstance(st, tuple) else (st,) for st in (new_state, again)))
+                    if not all(torch.equal(a, b) for a, b in pairs):
+                        fail("%s: a second launch on the same inputs gave other bits" % what)
+                    if int(arrival_counters(device, tiles.items).abs().sum()):
+                        fail("%s: the K split's arrival counters are not back at zero" % what)
+                    split = "; K split S = %d (layer 0), %d (above): a second launch bit-equal, counters at zero" % (
+                        tiles.splits)
+                phase("kernel", "%s: state max_abs_err %.3g (rtol atol %g); top = new_hs[L-1]%s"
+                      % (what, err, tol[0], split))
     return errs
 
 
@@ -1190,12 +1210,15 @@ def main():
         fused_topk_step_plain,
     )
     from show_tell_tpu_torch.ops.fused_step import (
+        MAX_SPLITS,
         fused_gru_decode_step,
         fused_gru_decode_step_cuda,
         fused_gru_decode_step_plain,
         fused_lstm_decode_step,
         fused_lstm_decode_step_cuda,
         fused_lstm_decode_step_plain,
+        sm_count,
+        stack_tiles,
     )
     from show_tell_tpu_torch.ops.preprocess import preprocess_u8, preprocess_u8_cuda, preprocess_u8_plain
     from show_tell_tpu_torch.ops import (
@@ -1767,10 +1790,9 @@ def main():
             event_median_ms(lambda: attention_context_plain(prep, feats, prep["att1"], h)))
     # the beam kernels at R = 3 (B=1) and R = 192 (B=64), K = 3.  The dense steps also with their operands cold in
     # L2 (a 64 MB write between the spin and the call); at R = 192 the pooled ones beside the stack step (kNone,
-    # the recurrence alone on the SIMT units, so dense minus stack is the vocab phase and the dense end only where
-    # the dense step's recurrence is SIMT too, as before the tensor-core form) and beside their composite
-    # yardstick: one torch.nn.GRU / LSTM step and one cuBLAS addmm for the logits, the module built outside the
-    # timed call
+    # the recurrence alone on the same tensor-core layers, at R = 192 with no K split: dense minus stack is the
+    # vocab phase and its grid barrier) and beside their composite yardstick: one torch.nn.GRU / LSTM step and
+    # one cuBLAS addmm for the logits, the module built outside the timed call
     library = {}  # kernel -> ms of the one PyTorch call (or composite) that computes its function at the line's shape
     for R in (3, 192):
         for cell, Ed in (("gru", E), ("lstm", LE)):
@@ -1796,7 +1818,7 @@ def main():
                     yard_err = (torch.addmm(bv, rnn(x[None], hx)[0][0], wv.T).float() - dense()[0]).abs().max().item()
                     library[name] = event_median_ms(lambda: torch.addmm(bv, rnn(x[None], hx)[0][0], wv.T).float(),
                                                     spin=LIBRARY_SPIN_CYCLES)
-                split = ("; stack step (kNone: the SIMT recurrence alone) %.4f ms, dense minus stack %.4f ms; "
+                split = ("; stack step (kNone: the tensor-core recurrence alone) %.4f ms, dense minus stack %.4f ms; "
                          "composite yardstick %s %.4f ms (10 ms spin; its logits within %.3g of the kernel's): "
                          "kernel / yardstick %.3f"
                          % (stack_ms, times[name, R][0] - stack_ms, LIBRARY_CALLS[name], library[name], yard_err,
@@ -1831,6 +1853,17 @@ def main():
             stacked, _, x, state = step_inputs(rng, B, torch.bfloat16, device, Ed, cell)
             times[name, B] = (event_median_ms(lambda: cuda_step(stacked, x, state)),
                               event_median_ms(lambda: plain_step(stacked, x, state)))
+            cold_ms[name, B] = event_median_ms(lambda: cuda_step(stacked, x, state), before=flush_buf.zero_)
+            # every K split the rule may take, L2 warm and cold, beside the one it takes (stack_tiles)
+            by_split = {S: (event_median_ms(lambda: cuda_step(stacked, x, state, splits=S)),
+                            event_median_ms(lambda: cuda_step(stacked, x, state, splits=S), before=flush_buf.zero_))
+                        for S in range(1, MAX_SPLITS + 1)}
+            rule = stack_tiles(B, Ed, H, sm_count(device)).splits
+            best = min(by_split, key=lambda S: by_split[S][0])
+            phase("times", "%s bf16 %s B=%d K split: %s; the rule takes S = %d (layer 0), %d (above): %.4f ms; fastest "
+                  "warm S = %d, %.4f ms %s"
+                  % (card, name, B, ", ".join("S=%d %.4f ms (cold %.4f)" % (S, *ms) for S, ms in by_split.items()),
+                     *rule, times[name, B][0], best, by_split[best][0], note))
             # the library's call: the whole L-layer step as one multi-layer torch.nn.GRU / LSTM call (cuDNN
             # where it takes bf16), held to the kernel's new state first
             rnn = library_rnn(cell, stacked, Ed)

@@ -542,14 +542,11 @@ __device__ __forceinline__ void argmax_tokens(const VocabOut& o, int B, cg::grid
 }
 
 // The vocab phase after the top activation is complete (a grid barrier
-// before it): argmax tokens, dense logits, top-K log-probabilities, or
-// nothing (kNone).
+// before it): argmax tokens, dense logits or top-K log-probabilities.
 template <int kMode, typename T>
 __device__ __forceinline__ void vocab_phase(const T* top, const T* wv, const T* bv, int B, int H, int V,
                                             const VocabOut& o, float* xs, cg::grid_group& grid) {
-  if constexpr (kMode == kNone) {
-    return;
-  } else if constexpr (kMode == kArgmax) {
+  if constexpr (kMode == kArgmax) {
     project_argmax<T>(top, wv, bv, B, H, V, o.best, xs);
     argmax_tokens(o, B, grid);
   } else if constexpr (kMode == kDense) {

@@ -1,13 +1,13 @@
 // The bf16 fused steps on Hopper's tensor cores: the recurrence and the
 // vocab projection as mma.sync m16n8k16 products (bf16 in, f32 sums), with
 // three ends of the projection: the dense f32 logits (beam), each row's
-// top-K log-probabilities (beam, sparse) and the first-max argmax (greedy).
+// top-K log-probabilities (beam, sparse) and the first-max argmax (greedy),
+// or none (the stack step, kNone: the recurrence alone).
 // mma_step() names the instances that run this file's code: in bf16, every
-// instance of fused_step.cu and fused_attn_step.cu that has a vocab end
-// (both cells), and the whole decode of whole_decode.cu, which runs the
-// pooled GRU argmax instance's layers and key merge T times and so stays
-// bit-equal to its per-step loop.  The f32 instances and kNone keep the
-// SIMT code of decode_common.cuh.
+// instance of fused_step.cu and fused_attn_step.cu (both cells), and the
+// whole decode of whole_decode.cu, which runs the pooled GRU argmax
+// instance's layers and key merge T times and so stays bit-equal to its
+// per-step loop.  The f32 instances keep the SIMT code of decode_common.cuh.
 //
 // What bounds a step on an H100.  It reads the recurrence weights (15-23 MB
 // in bf16 at the flagships) and the 10.2 MB projection, 25-34 MB in all,
@@ -44,6 +44,19 @@
 //   r and z over both sides, n's x side and n's h side apart; the LSTM its
 //   four gates.  The vocabulary's tile is 64 rows.  Items go round the
 //   cooperative grid; a layer ends in the grid barrier, as before.
+// - K split across blocks (the stack step only, SplitK): at a small batch a
+//   layer has few items (32 at B = 1: 32 of 132 SMs pull its weights), so
+//   the stack step's instance may cut each item into S parts, part s taking
+//   the contiguous run [s n / S, (s + 1) n / S) of the layer's n K chunks,
+//   split over the four warps as above.  Each part writes its warp-ordered
+//   sums (16 columns x up to 32 rows, each slot) to a global scratch; the
+//   part that arrives last at the item's counter (a block barrier, then one
+//   thread's acquire-release atomicInc that wraps the counter back to 0)
+//   adds the S parts in the order s = 0 .. S - 1, read through L2 all at
+//   once, and finishes the item.  The
+//   state then depends on S, never on the grid or the order of arrival.
+//   S comes per layer from the wrapper (ops/fused_step.stack_tiles); S = 1
+//   finishes from shared memory as every other instance does.
 // - Staging: each warp writes its 64 f32 sums a lane to shared memory
 //   (kMmaPitch = 33 floats a row of 32 lanes), and after one barrier the
 //   block's threads add the four warps' sums in warp order.  The
@@ -95,13 +108,24 @@ constexpr int kMmaPitch = 33;                  // floats a staged row of 32 lane
 constexpr int kMmaVocabRows = 16 * kMmaSlots;  // vocabulary rows of an item
 constexpr int kMmaDepth = 2;                   // register buffers of a warp's chunk pipeline (3 and 4 ran slower)
 constexpr size_t kMmaSmemFloats = static_cast<size_t>(kWarps) * kMmaVals * kMmaPitch;
+constexpr int kMaxSplits = 8;                  // parts an item's K chunks may be split into (the stack step)
+constexpr int kMmaPartFloats = kMmaSlots * kMmaSlab * 16;  // f32 sums of one part in the split-K scratch
 
-// Whether a fused step's instance (or, with kArgmax, the whole decode) runs this file's code: bf16 with a vocab end
-// (dense, top-k or argmax), either cell.
+// Whether a fused step's instance (or, with kArgmax, the whole decode) runs this file's code: bf16, any vocab end
+// (dense, top-k, argmax or none), either cell.
 template <typename T, int kMode>
 __host__ __device__ constexpr bool mma_step() {
-  return std::is_same<T, __nv_bfloat16>::value && (kMode == kDense || kMode == kTopk || kMode == kArgmax);
+  return std::is_same<T, __nv_bfloat16>::value &&
+         (kMode == kDense || kMode == kTopk || kMode == kArgmax || kMode == kNone);
 }
+
+// The stack step's K split across blocks: S parts an item, for layer 0 and for the upper layers.
+struct SplitK {
+  float* partial;          // [max_parts, kMmaSlots, kMmaSlab, 16] scratch: each part's warp-ordered sums
+  unsigned int* arrivals;  // [items] counters: 0 before a layer, 0 again after it
+  int s0, su;              // S of layer 0 and of layers 1 .. L-1, 1 <= S <= kMaxSplits
+  int max_parts;           // parts the scratch holds: items x S for each S > 1
+};
 
 // threadIdx.x, opaque to the compiler: a phase (a layer, a projection) reads it once, and its widths through the same
 // empty asm, so that nothing it derives from them is hoisted out of the whole decode's step loop (see Registers above).
@@ -192,6 +216,14 @@ __device__ __forceinline__ void mma_split(int n_chunks, int& c0, int& c1, int wa
   c1 = (warp + 1) * n_chunks / kWarps;
 }
 
+// Chunks [c0, c1) of this warp's split of part s of S: the part's run [s n / S, (s + 1) n / S), split as mma_split.
+__device__ __forceinline__ void mma_part_split(int n_chunks, int S, int s, int& c0, int& c1, int warp) {
+  const int lo = s * n_chunks / S, n = (s + 1) * n_chunks / S - lo;
+  mma_split(n, c0, c1, warp);
+  c0 += lo;
+  c1 += lo;
+}
+
 // Each warp's sums into shared memory, then the barrier after which any thread may read them.
 __device__ __forceinline__ void mma_stage(const float (&acc)[kMmaSlots][4][4], float* red, int tid) {
   const int lane = tid & 31;
@@ -216,10 +248,31 @@ __device__ __forceinline__ float mma_sum(const float* red, int s, int m, int n) 
   return v;
 }
 
+// The sum of each slot at tile row m and slab row n over an item's S parts
+// in the split-K scratch, added in the order s = 0 .. S - 1; the S x 4
+// loads (through L2: other blocks wrote them) go out together.
+__device__ __forceinline__ void mma_part_sums(const float* parts, int S, int m, int n, float (&t)[kMmaSlots]) {
+  float v[kMaxSplits][kMmaSlots];
+#pragma unroll
+  for (int p = 0; p < kMaxSplits; ++p)
+#pragma unroll
+    for (int s = 0; s < kMmaSlots; ++s)
+      v[p][s] = p < S ? __ldcg(parts + static_cast<size_t>(p) * kMmaPartFloats + (s * kMmaSlab + n) * 16 + m) : 0.0f;
+#pragma unroll
+  for (int s = 0; s < kMmaSlots; ++s) {
+    t[s] = v[0][s];
+#pragma unroll
+    for (int p = 1; p < kMaxSplits; ++p)
+      if (p < S) t[s] += v[p][s];
+  }
+}
+
 // One layer of the recurrence over all B rows, by (16 columns, 32 rows)
-// items.  K is the layer input's I columns, then h's H.
-template <typename Cell>
-__device__ void mma_rnn_layer(const Layer<__nv_bfloat16>& y, float* red) {
+// items.  K is the layer input's I columns, then h's H.  kSplit (the stack
+// step): each item is S parts over its K chunks, finished by the last part
+// to arrive (see the K split above); with S = 1 as without kSplit.
+template <typename Cell, bool kSplit = false>
+__device__ void mma_rnn_layer(const Layer<__nv_bfloat16>& y, float* red, const SplitK* sk = nullptr, int S = 1) {
   constexpr int G = Cell::kGates;
   int H = y.H, I = y.I, B = y.B;
   asm volatile("" : "+r"(H), "+r"(I), "+r"(B));  // opaque, as phase_thread()
@@ -228,7 +281,9 @@ __device__ void mma_rnn_layer(const Layer<__nv_bfloat16>& y, float* red) {
   int c0, c1;
   mma_split(n_chunks, c0, c1, tid >> 5);
   const int slabs = (B + kMmaSlab - 1) / kMmaSlab, items = slabs * ((H + 15) / 16);
-  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+  for (int it = blockIdx.x; it < (kSplit ? items * S : items); it += gridDim.x) {
+    const int item = kSplit ? it / S : it;
+    if constexpr (kSplit) mma_part_split(n_chunks, S, it % S, c0, c1, tid >> 5);
     const int n0 = (item % slabs) * kMmaSlab, j0 = (item / slabs) * 16;
     const int nb = min(kMmaSlab, B - n0), nts = (nb + 7) / 8;
     auto load = [&](MmaChunk& f, int c) {
@@ -252,18 +307,49 @@ __device__ void mma_rnn_layer(const Layer<__nv_bfloat16>& y, float* red) {
     });
     __syncthreads();  // the previous item's finish is done with red
     mma_stage(acc, red, tid);
+    const float* parts = nullptr;  // the item's S parts in the scratch, once this block is the last to arrive
+    if constexpr (kSplit) {
+      if (S > 1) {
+        float* mine = sk->partial + static_cast<size_t>(it) * kMmaPartFloats;  // part it % S of item it / S
+        for (int o = tid; o < 16 * kMmaSlab; o += kThreads) {
+          const int m = o & 15, n = o >> 4;
+          if (n < nb && j0 + m < H)
+#pragma unroll
+            for (int s = 0; s < kMmaSlots; ++s) mine[(s * kMmaSlab + n) * 16 + m] = mma_sum(red, s, m, n);
+        }
+        // the block's stores, then one thread's arrival: an acquire-release atomicInc (wrapping back to 0), whose
+        // release is cumulative over the stores the barrier ordered before it and whose acquire orders the last
+        // part's loads after every part's stores
+        __syncthreads();
+        int last = 0;
+        if (tid == 0) {
+          unsigned int old;
+          asm volatile("atom.acq_rel.gpu.global.inc.u32 %0, [%1], %2;"
+                       : "=r"(old) : "l"(sk->arrivals + item), "r"(static_cast<unsigned int>(S - 1)) : "memory");
+          last = old == static_cast<unsigned int>(S - 1);
+        }
+        if (!__syncthreads_or(last)) continue;
+        parts = sk->partial + static_cast<size_t>(item) * S * kMmaPartFloats;
+      }
+    }
     for (int o = tid; o < 16 * kMmaSlab; o += kThreads) {
       const int m = o & 15, n = o >> 4, j = j0 + m;
       if (n < nb && j < H) {
+        float t[kMmaSlots];  // the item's sum of each slot: the staged warps, or the S parts in order
+        if (kSplit && parts)
+          mma_part_sums(parts, S, m, n, t);
+        else
+#pragma unroll
+          for (int s = 0; s < kMmaSlots; ++s) t[s] = mma_sum(red, s, m, n);
         // GruCell: r and z over both sides in the x-side slots (their h-side sums 0), n apart
         float s[Cell::kAcc] = {};
-        s[0] = mma_sum(red, 0, m, n);
-        s[1] = mma_sum(red, 1, m, n);
-        s[2] = mma_sum(red, 2, m, n);
+        s[0] = t[0];
+        s[1] = t[1];
+        s[2] = t[2];
         if constexpr (G == 3)
-          s[5] = mma_sum(red, 3, m, n);
+          s[5] = t[3];
         else
-          s[3] = mma_sum(red, 3, m, n);
+          s[3] = t[3];
         const int row = n0 + n;
         const float h = Cell::kHidden ? __bfloat162float(__ldcg(y.hin + static_cast<size_t>(row) * H + j)) : 0.0f;
         Cell::template finish<__nv_bfloat16>(y, s, row, j, h);
@@ -276,6 +362,12 @@ __device__ void mma_rnn_layer(const Layer<__nv_bfloat16>& y, float* red) {
 template <typename Cell>
 __device__ void mma_stack_layer(const StackArgs& s, int l, float* red) {
   mma_rnn_layer<Cell>(stack_layer_args<__nv_bfloat16, Cell>(s, l), red);
+}
+
+// Layer l of the stack step (kNone): its K split S ways across blocks, S = sk.s0 for layer 0, sk.su above.
+template <typename Cell>
+__device__ void mma_stack_layer(const StackArgs& s, int l, float* red, const SplitK& sk) {
+  mma_rnn_layer<Cell, true>(stack_layer_args<__nv_bfloat16, Cell>(s, l), red, &sk, l == 0 ? sk.s0 : sk.su);
 }
 
 // top[b] . wv[v] in f32 for all B rows, by (64 vocabulary rows, 32 batch

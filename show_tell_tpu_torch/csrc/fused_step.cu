@@ -45,8 +45,8 @@
 // multiplies in f32, so at large batches it turns into an f32 FMA loop.
 // The bf16 instances that mma_step() names run the recurrence and the
 // projection on the tensor cores instead (dense_mma.cuh: mma.sync, weights
-// re-read once per 32 batch rows): the dense, top-K and argmax ends of
-// both cells.  The argmax end merges each 64-row vocabulary item's first
+// re-read once per 32 batch rows): every end of both cells, the stack
+// step's none included.  The argmax end merges each 64-row vocabulary item's first
 // max into best by one atomicMax a row; the top-K end writes one part per
 // 64-row vocabulary item (its K greatest keys and (max, sum)), and after a
 // grid barrier merge_topk reduces each row's ceil(V / 64) parts, so it
@@ -55,7 +55,15 @@
 // key merge, so its ids stay bit-equal to this instance's loop.
 // The stack step (kNone) reads the recurrence weights alone: 14.9 MB (GRU,
 // E=256) and 21.0 MB (LSTM, E=512) in bf16, plus [L, B, H] states in and
-// out; its bound is those bytes, 4.5 and 6.3 us at 3.35 TB/s at small B.
+// out; its bound is those bytes, 4.5 and 6.3 us at 3.35 TB/s at small B,
+// and its 7.65 and 10.7 GFLOP at B = 512 (7.7 and 10.8 us on the tensor
+// cores).  Its bf16 instance runs the tensor-core layers too, with no vocab
+// phase, and at small B splits each item's K chunks across S blocks
+// (dense_mma.cuh, SplitK: the last part to arrive adds the S parts in
+// order and finishes), so that more than a layer's 32 items (B = 1) pull
+// its weights; S per layer comes from the wrapper (ops/fused_step.py
+// stack_tiles), with the partial-sum scratch and the arrival counters,
+// which it leaves at zero.
 // The design (device code in decode_common.cuh):
 //   * weights are kept in the torch layout [out, in] so that one output
 //     column is one contiguous row: a warp owns a column (its G gate rows)
@@ -98,6 +106,7 @@ struct Params {
   const void* bv;   // [V]
   VocabOut out;     // the vocab end's outputs and scratch
   int V;
+  SplitK split;     // the stack step's K split (bf16 kNone); zeros elsewhere
 };
 
 template <typename T, typename Cell, int kMode>
@@ -109,19 +118,23 @@ __global__ void __launch_bounds__(kThreads) fused_step_kernel(Params p) {
   if constexpr (kMode == kArgmax)
     for (int b = grid_thread(); b < s.B; b += grid_threads()) p.out.best[b] = 0ull;  // below every packed key
   for (int l = 0; l < s.L; ++l) {
-    if constexpr (kMma)
+    if constexpr (kMma && kMode == kNone)
+      mma_stack_layer<Cell>(s, l, smem, p.split);
+    else if constexpr (kMma)
       mma_stack_layer<Cell>(s, l, smem);
     else
       stack_layer<T, Cell>(s, l, smem);
     if (kMode != kNone || l + 1 < s.L) grid.sync();  // layer l's h' is complete in new_hs
   }
-  const T* top = static_cast<const T*>(s.new_hs) + static_cast<size_t>(s.L - 1) * s.B * s.H;
-  if constexpr (kMma)
-    mma_vocab_phase<kMode>(top, static_cast<const T*>(p.wv), static_cast<const T*>(p.bv), s.B, s.H, p.V, p.out, smem,
-                           grid);
-  else
-    vocab_phase<kMode, T>(top, static_cast<const T*>(p.wv), static_cast<const T*>(p.bv), s.B, s.H, p.V, p.out,
-                          smem, grid);
+  if constexpr (kMode != kNone) {
+    const T* top = static_cast<const T*>(s.new_hs) + static_cast<size_t>(s.L - 1) * s.B * s.H;
+    if constexpr (kMma)
+      mma_vocab_phase<kMode>(top, static_cast<const T*>(p.wv), static_cast<const T*>(p.bv), s.B, s.H, p.V, p.out,
+                             smem, grid);
+    else
+      vocab_phase<kMode, T>(top, static_cast<const T*>(p.wv), static_cast<const T*>(p.bv), s.B, s.H, p.V, p.out,
+                            smem, grid);
+  }
 }
 
 template <typename T, typename Cell, int kMode>
@@ -151,6 +164,17 @@ VocabOut topk_out(unsigned long long* part_keys, float2* part_ms, float* logp, i
 bool topk_args_ok(int dtype, int V, int K, int max_splits) {
   if (K < 1 || K > kMaxK || K > V || max_splits < 1) return false;
   return dtype != 1 || max_splits >= (V + kMmaVocabRows - 1) / kMmaVocabRows;
+}
+
+// A stack step's K split: in bf16, 1 <= S <= kMaxSplits for layer 0 and for the upper layers, and where S > 1 the
+// scratch and counters for items x S parts; f32 (SIMT) takes S = 1.
+bool split_args_ok(int dtype, const SplitK& k, int B, int H) {
+  if (dtype != 1) return k.s0 == 1 && k.su == 1;
+  const int items = (B + kMmaSlab - 1) / kMmaSlab * ((H + 15) / 16);
+  auto ok = [&](int S) {
+    return S >= 1 && S <= kMaxSplits && (S == 1 || (k.partial && k.arrivals && items * S <= k.max_parts));
+  };
+  return ok(k.s0) && ok(k.su);
 }
 
 }  // namespace
@@ -237,21 +261,30 @@ extern "C" int st_fused_lstm_topk_step(int dtype, const void* x, const void* w_i
 }
 
 // The stack step: the recurrence alone, new_hs (and new_cs) out; the top
-// activation is new_hs[L-1].
+// activation is new_hs[L-1].  s0, su: the K split of layer 0 and of the
+// upper layers (bf16: 1 .. 8; f32: 1); where one exceeds 1, partial
+// [max_parts, 4, 32, 16] f32 scratch and arrivals [ceil(B/32) ceil(H/16)]
+// u32 counters, zero, which the kernel leaves at zero.
 extern "C" int st_gru_stack_step(int dtype, const void* x, const void* w_ih0, const void* w_ihU, const void* w_hh,
-                                 const void* b_ih, const void* b_hh, const void* hs, void* new_hs, int L, int B, int E,
-                                 int H, void* stream) {
+                                 const void* b_ih, const void* b_hh, const void* hs, void* new_hs, float* partial,
+                                 unsigned int* arrivals, int L, int B, int E, int H, int s0, int su, int max_parts,
+                                 void* stream) {
+  const SplitK split{partial, arrivals, s0, su, max_parts};
+  if (!split_args_ok(dtype, split, B, H)) return static_cast<int>(cudaErrorInvalidValue);
   return run<GruCell, kNone>(
       dtype, Params{{x, w_ih0, w_ihU, w_hh, b_ih, b_hh, hs, nullptr, new_hs, nullptr, L, B, E, H}, nullptr, nullptr,
-                    VocabOut{}, 0},
+                    VocabOut{}, 0, split},
       stream);
 }
 
 extern "C" int st_lstm_stack_step(int dtype, const void* x, const void* w_ih0, const void* w_ihU, const void* w_hh,
                                   const void* b_ih, const void* b_hh, const void* hs, const void* cs, void* new_hs,
-                                  void* new_cs, int L, int B, int E, int H, void* stream) {
+                                  void* new_cs, float* partial, unsigned int* arrivals, int L, int B, int E, int H,
+                                  int s0, int su, int max_parts, void* stream) {
+  const SplitK split{partial, arrivals, s0, su, max_parts};
+  if (!split_args_ok(dtype, split, B, H)) return static_cast<int>(cudaErrorInvalidValue);
   return run<LstmCell, kNone>(
       dtype, Params{{x, w_ih0, w_ihU, w_hh, b_ih, b_hh, hs, cs, new_hs, new_cs, L, B, E, H}, nullptr, nullptr,
-                    VocabOut{}, 0},
+                    VocabOut{}, 0, split},
       stream);
 }

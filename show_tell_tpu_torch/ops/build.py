@@ -170,8 +170,8 @@ def load_library() -> ctypes.CDLL:
             "st_fused_lstm_dense_step": [i] + [p] * 13 + [i] * 5 + [p],
             "st_fused_gru_topk_step": [i] + [p] * 14 + [i] * 7 + [p],
             "st_fused_lstm_topk_step": [i] + [p] * 16 + [i] * 7 + [p],
-            "st_gru_stack_step": [i] + [p] * 8 + [i] * 4 + [p],
-            "st_lstm_stack_step": [i] + [p] * 10 + [i] * 4 + [p],
+            "st_gru_stack_step": [i] + [p] * 10 + [i] * 7 + [p],
+            "st_lstm_stack_step": [i] + [p] * 12 + [i] * 7 + [p],
             "st_whole_gru_decode": [i] + [p] * 13 + [i] * 6 + [p],
             "st_fused_attn_step": [i] + [p] * 20 + [i] * 7 + [p],
             "st_fused_attn_lstm_step": [i] + [p] * 22 + [i] * 7 + [p],

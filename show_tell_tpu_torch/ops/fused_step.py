@@ -12,8 +12,9 @@ The bf16 instances that ``mma_step`` names (here, in ops/fused_attn.py
 and the whole decode of ops/whole_decode.py) run their recurrence and
 projection on the tensor cores (csrc/dense_mma.cuh), whose launch
 geometry ``mma_tiles`` computes: the dense, top-k and argmax ends, both
-cells (the pooled GRU's argmax instance bit-equal to the whole decode).
-f32 and the stack step keep the SIMT code.
+cells (the pooled GRU's argmax instance bit-equal to the whole decode),
+and the stack step (no vocab end), whose K split across blocks
+``stack_tiles`` computes.  f32 keeps the SIMT code.
 """
 
 from __future__ import annotations
@@ -36,14 +37,17 @@ MMA_WARPS = 4  # warps a block (128 threads, the SIMT phases' block), splitting 
 MMA_PITCH = 33  # floats a staged row of a warp's 32 lanes
 MMA_SMEM = 4 * MMA_WARPS * MMA_SLOTS * 4 * 4 * MMA_PITCH  # bytes: every warp's 64 sums a lane
 ATTN_ROWS = 8  # the attention's SIMT phase A1 holds 8 rows of h (kBM in csrc/decode_common.cuh)
+MAX_SPLITS = 8  # parts a stack-step item's K chunks may be split into (kMaxSplits)
+MMA_BLOCKS_PER_SM = 2  # blocks of a tensor-core step resident on an SM: 128 threads at <= 256 registers each
+MMA_PART = MMA_SLOTS * MMA_SLAB * 16  # f32 sums of one split-K part: every slot's 16 columns x 32 rows
 
 
 def mma_step(dtype: torch.dtype, end: Union[str, int, None]) -> bool:
     """Whether a fused step's instance runs on the tensor cores (mma_step()
-    in csrc/dense_mma.cuh): bf16 with a vocab end, "dense", "argmax" or a
-    top-k width, of either cell; the whole decode (csrc/whole_decode.cu) as
-    the "argmax" end.  The stack step (end None) keeps the SIMT code."""
-    return dtype == torch.bfloat16 and end is not None
+    in csrc/dense_mma.cuh): bf16, with any end ("dense", "argmax", a top-k
+    width, or None: the stack step), of either cell; the whole decode
+    (csrc/whole_decode.cu) as the "argmax" end.  f32 keeps the SIMT code."""
+    return dtype == torch.bfloat16
 
 
 class MmaTiles(NamedTuple):
@@ -75,6 +79,58 @@ def mma_tiles(R: int, I0: int, H: int, V: int, attention: Optional[Tuple[int, in
                                             SMEM_LIMIT))
     return MmaTiles(slabs * -(-H // 16), slabs * -(-V // MMA_VOCAB_ROWS), chunks(I0) + chunks(H), 2 * chunks(H),
                     chunks(H), smem)
+
+
+class StackTiles(NamedTuple):
+    items: int  # (16 columns of every gate, 32 batch rows) items of a layer
+    chunks: Tuple[int, int]  # 32-column K chunks of layer 0 (I0, then H) and of a layer l > 0 (H, then H)
+    splits: Tuple[int, int]  # S, the parts of an item's K chunks, in layer 0 and in the layers above
+    parts: int  # split-K scratch parts, items x the larger S > 1 (0: no layer splits)
+
+
+def stack_splits(B: int, I: int, H: int, sms: int) -> int:
+    """S for a bf16 stack-step layer of input width I at B rows on a card
+    of ``sms`` SMs: as many parts as the resident grid (MMA_BLOCKS_PER_SM
+    blocks an SM) holds for the layer's items, at most MAX_SPLITS and at
+    most a chunk a warp; 1 where the items alone fill the grid.  Settled
+    on an H100 by chip_smoke.py's sweep of S = 1 .. 8 (PERF.md)."""
+    items = -(-B // MMA_SLAB) * -(-H // 16)
+    chunks = -(-I // MMA_CHUNK) + -(-H // MMA_CHUNK)
+    return max(1, min(MAX_SPLITS, chunks // MMA_WARPS, MMA_BLOCKS_PER_SM * sms // items))
+
+
+def stack_tiles(B: int, I0: int, H: int, sms: int, splits: int = 0) -> StackTiles:
+    """The bf16 stack step's launch geometry at B rows: its items, K
+    chunks, the S of layer 0 and of the upper layers (``stack_splits``, or
+    ``splits`` for both where it is given) and the parts its scratch must
+    hold.  Raises for widths that are not multiples of 8 and for an S
+    outside 1 .. MAX_SPLITS."""
+    check_widths("stack step", I0=I0, H=H)
+    if splits and not 1 <= splits <= MAX_SPLITS:
+        raise ValueError("the stack step splits K into 1 to %d parts (got %d)" % (MAX_SPLITS, splits))
+    items = -(-B // MMA_SLAB) * -(-H // 16)
+    chunks = lambda k: -(-k // MMA_CHUNK)
+    S = tuple(splits or stack_splits(B, I, H, sms) for I in (I0, H))
+    return StackTiles(items, (chunks(I0) + chunks(H), 2 * chunks(H)), S, items * max(S) if max(S) > 1 else 0)
+
+
+def sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+_ARRIVALS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+
+
+def arrival_counters(device: torch.device, items: int) -> torch.Tensor:
+    """The split-K arrival counters of the stack step on ``device``'s
+    current stream, at least ``items`` of them: zeroed when allocated, and
+    every launch leaves them at zero (each item's last part wraps its
+    counter back), so a launch needs no memset of its own."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    counters = _ARRIVALS.get(key)
+    if counters is None or counters.numel() < items:
+        counters = _ARRIVALS[key] = torch.zeros(items, dtype=torch.int32, device=device)
+    return counters
 
 
 def fused_gru_decode_step_plain(
@@ -113,16 +169,17 @@ def check_stack(kernel: str, stacked: Dict[str, torch.Tensor], I0: int, hs: torc
         check_tensor(key, stacked[key], (L, GH), hs.dtype, hs.device)
 
 
-def launch_fused_step(kernel: str, stacked, vocab, x, state: State, end: Union[str, int, None]):
+def launch_fused_step(kernel: str, stacked, vocab, x, state: State, end: Union[str, int, None], splits: int = 0):
     """Check, allocate and launch one instance of the fused step kernel:
     the cell by the state (hs: GRU, (hs, cs): LSTM), the vocab end by
     ``end``: "argmax" (tok [B] int32), "dense" (logits [B, V] f32), a top-k
     width k (logp [B, k] f32, ids [B, k] int32), or None, the stack step
     (the top activation [B, H], a view of new_hs[L-1]; ``vocab`` is not
     read).  An instance that ``mma_step`` names has its tensor-core
-    geometry checked first (``mma_tiles``); its top-k end gets one scratch
-    part per MMA_VOCAB_ROWS vocabulary rows.  Returns (the end's output,
-    new state)."""
+    geometry checked first (``mma_tiles``; the stack step ``stack_tiles``,
+    which ``splits`` overrides); its top-k end gets one scratch part per
+    MMA_VOCAB_ROWS vocabulary rows, the stack step its split-K scratch and
+    the stream's arrival counters.  Returns (the end's output, new state)."""
     from show_tell_tpu_torch.ops.build import load_library
 
     lstm = isinstance(state, tuple)
@@ -137,6 +194,8 @@ def launch_fused_step(kernel: str, stacked, vocab, x, state: State, end: Union[s
     check_tensor("x", x, (B, E), dtype, device)
     ints = [L, B, E, H]
     vocab_ptrs = []
+    if splits and not (end is None and dtype == torch.bfloat16):
+        raise ValueError("%s: splits apply to the bf16 stack step only" % kernel)
     if end is not None:
         V = vocab["w"].shape[0]
         if V < 1:
@@ -150,7 +209,15 @@ def launch_fused_step(kernel: str, stacked, vocab, x, state: State, end: Union[s
     new_hs = torch.empty_like(hs)
     new_cs = torch.empty_like(cs) if lstm else None
     if end is None:
-        out, ptrs, entry_name = new_hs[L - 1], [], "st_%s_stack_step"
+        out, entry_name = new_hs[L - 1], "st_%s_stack_step"
+        ptrs, split_ints = [None, None], [1, 1, 0]  # f32: no split
+        if mma_step(dtype, end):
+            tiles = stack_tiles(B, E, H, sm_count(device), splits)
+            if tiles.parts:  # held until the launch is queued
+                partial = torch.empty(tiles.parts * MMA_PART, dtype=torch.float32, device=device)
+                ptrs = [partial.data_ptr(), arrival_counters(device, tiles.items).data_ptr()]
+            split_ints = [*tiles.splits, tiles.parts]
+        ints += split_ints
     elif end == "argmax":
         out = torch.empty(B, dtype=torch.int32, device=device)
         best = torch.empty(B, dtype=torch.int64, device=device)

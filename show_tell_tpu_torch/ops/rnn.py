@@ -115,23 +115,26 @@ def stack_plain(cell_type: str):
     return lstm_stack_plain if cell_type == "lstm" else gru_stack_plain
 
 
-def gru_stack_step_cuda(stacked, x, hs) -> Tuple[torch.Tensor, torch.Tensor]:
+def gru_stack_step_cuda(stacked, x, hs, splits: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the GRU stack-step kernel (csrc/fused_step.cu, the kNone end)
-    on the current stream: the fused step's checks, no vocab operands.
-    Raises on anything it does not take and on a failed launch."""
+    on the current stream: the fused step's checks, no vocab operands.  In
+    bf16 it runs on the tensor cores (csrc/dense_mma.cuh) with each layer's
+    K split across S blocks, S by ``fused_step.stack_tiles`` (``splits``:
+    that S for every layer instead); f32 runs the SIMT code.  Raises on
+    anything it does not take and on a failed launch."""
     from show_tell_tpu_torch.ops.fused_step import launch_fused_step
 
-    out = launch_fused_step("gru_stack_step", stacked, None, x, hs, None)
+    out = launch_fused_step("gru_stack_step", stacked, None, x, hs, None, splits)
     gru_stack_step.launches += 1
     return out
 
 
-def lstm_stack_step_cuda(stacked, x, state: LstmState) -> Tuple[torch.Tensor, LstmState]:
+def lstm_stack_step_cuda(stacked, x, state: LstmState, splits: int = 0) -> Tuple[torch.Tensor, LstmState]:
     """Launch the LSTM stack-step kernel; the GRU kernel's rules, with cs
     [L, B, H] held like hs."""
     from show_tell_tpu_torch.ops.fused_step import launch_fused_step
 
-    out = launch_fused_step("lstm_stack_step", stacked, None, x, state, None)
+    out = launch_fused_step("lstm_stack_step", stacked, None, x, state, None, splits)
     lstm_stack_step.launches += 1
     return out
 

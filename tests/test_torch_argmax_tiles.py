@@ -20,7 +20,8 @@ run, between two threads of a row, across two items and between the
 first and last items go to the lower index, whatever the items' order.
 The geometry constants are read back from the headers, and the wrappers'
 geometry check (``fused_step.mma_tiles`` for the instances that
-``fused_step.mma_step`` names) is tested with the library replaced.
+``fused_step.mma_step`` names, ``fused_step.stack_tiles`` for the stack
+steps) is tested with the library replaced.
 """
 
 import os
@@ -266,6 +267,9 @@ def test_item_order_does_not_change_the_keys():
 # ---------------------------------------------------------------- the wrappers' geometry check
 
 
+STACK_TILES = fused_step.stack_tiles
+
+
 class _Launched(Exception):
     """The library was asked for: the wrapper got past its checks."""
 
@@ -299,6 +303,13 @@ def no_library(monkeypatch):
     monkeypatch.setattr(fused_attn, "mma_tiles", spy)
     monkeypatch.setattr(whole_decode, "mma_tiles", spy)
 
+    def stack_spy(*args):
+        calls.append(args)
+        return STACK_TILES(*args)
+
+    monkeypatch.setattr(fused_step, "stack_tiles", stack_spy)
+    monkeypatch.setattr(fused_step, "sm_count", lambda device: 132)  # an H100's SMs, for tensors off the card
+
     def load_library():
         raise _Launched()
 
@@ -308,9 +319,10 @@ def no_library(monkeypatch):
 
 def test_mma_tiles_check_runs_for_the_tensor_core_instances_only(no_library):
     """bf16 dense steps, the greedy steps (pooled and attention, both
-    cells) and the whole decode check the tensor-core geometry before the
-    launch; f32 and the stack steps do not (they keep the SIMT code).  The
-    top-k steps: tests/test_torch_topk_tiles.py."""
+    cells), the whole decode and the stack steps (``stack_tiles``, with
+    the card's SM count and no forced S) check the tensor-core geometry
+    before the launch; f32 does not (it keeps the SIMT code).  The top-k
+    steps: tests/test_torch_topk_tiles.py."""
     B, E, H, V, A, P = 3, 16, 24, 40, 16, 5
     for dtype in (torch.float32, torch.bfloat16):
         bf16 = dtype == torch.bfloat16
@@ -321,7 +333,8 @@ def test_mma_tiles_check_runs_for_the_tensor_core_instances_only(no_library):
                                                                                                  state),
                  bf16, (B, E, H, V)),
                 (lambda: fused_dense_step_cuda(stacked, vocab, x, state), bf16, (B, E, H, V)),
-                (lambda: (lstm_stack_step_cuda if lstm else gru_stack_step_cuda)(stacked, x, state), False, None),
+                (lambda: (lstm_stack_step_cuda if lstm else gru_stack_step_cuda)(stacked, x, state), bf16,
+                 (B, E, H, 132, 0)),
                 (lambda: fused_attn_decode_step_cuda(prep, w_emb, astate), bf16, (B, 2 * E, H, V, (A, P))),
                 (lambda: fused_attn_dense_step_cuda(prep, w_emb, astate), bf16, (B, 2 * E, H, V, (A, P))),
             ]
@@ -336,7 +349,7 @@ def test_mma_tiles_check_runs_for_the_tensor_core_instances_only(no_library):
                 assert no_library == ([args] if checked else [])
         assert fused_step.mma_step(dtype, "argmax") == fused_step.mma_step(dtype, "dense") == bf16
         assert fused_step.mma_step(dtype, 3) == bf16  # a top-k width: bf16 top-k runs on the tensor cores too
-        assert not fused_step.mma_step(dtype, None)  # the stack step
+        assert fused_step.mma_step(dtype, None) == bf16  # the stack step: bf16 on the tensor cores too
 
 
 def test_a_width_that_does_not_fit_raises_before_the_launch(no_library):

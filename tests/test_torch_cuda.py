@@ -46,10 +46,13 @@ from show_tell_tpu_torch.ops.fused_beam import (
     fused_topk_step_plain,
 )
 from show_tell_tpu_torch.ops.preprocess import preprocess_u8, preprocess_u8_plain
+from show_tell_tpu_torch.ops import stream_arg
 from show_tell_tpu_torch.ops.rnn import (
     greedy_decode_kernel,
     gru_stack_step,
+    gru_stack_step_cuda,
     lstm_stack_step,
+    lstm_stack_step_cuda,
     prepare_rnn_weights,
     stack_plain,
 )
@@ -655,6 +658,63 @@ def test_stack_step_kernels_match_plain(cuda, cell, dtype, B, E, H, L):
         torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
     new_hs = new_state[0] if cell == "lstm" else new_state
     assert torch.equal(top, new_hs[-1])
+
+
+@pytest.mark.parametrize("B", [1, 3, 33, 64, 512])
+@pytest.mark.parametrize("E,L", [(256, 1), (256, 5), (768, 5)])
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_bf16_stack_step_on_the_tensor_cores(cuda, cell, E, L, B):
+    """The bf16 stack step (tensor cores, K split across S blocks by
+    stack_tiles at small B) against its plain twin within 2e-2 at H=512,
+    E != H; two launches on the same inputs bit-identical (the S parts are
+    added in order whatever their arrival); the arrival counters back at
+    zero; and every forced S = 1 .. MAX_SPLITS within 2e-2 of the twin."""
+    from show_tell_tpu_torch.ops import fused_step
+
+    H = 512
+    stacked, _, x, hs = _inputs(B, E, H, 8, L, torch.bfloat16, cuda, seed=B + E + L, gates=3 if cell == "gru" else 4)
+    state = (hs, (hs * 2).contiguous()) if cell == "lstm" else hs
+    step = lstm_stack_step_cuda if cell == "lstm" else gru_stack_step_cuda
+    _, ref_state = stack_plain(cell)(stacked, x, state)
+    unpack = lambda st: st if cell == "lstm" else (st,)
+    tiles = fused_step.stack_tiles(B, E, H, torch.cuda.get_device_properties(cuda).multi_processor_count)
+    runs = {S: step(stacked, x, state, splits=S)[1] for S in range(1, fused_step.MAX_SPLITS + 1)}
+    first, again = step(stacked, x, state)[1], step(stacked, x, state)[1]
+    torch.cuda.synchronize()
+    for a, b, forced in zip(unpack(first), unpack(again), unpack(runs[tiles.splits[1]])):
+        assert torch.equal(a, b)
+        if tiles.splits[0] == tiles.splits[1]:
+            assert torch.equal(a, forced)  # the rule's S, forced, is the rule's launch
+    for S, got in runs.items():
+        for g, r in zip(unpack(got), unpack(ref_state)):
+            torch.testing.assert_close(g.float(), r.float(), rtol=2e-2, atol=2e-2, msg=lambda m: "S=%d: %s" % (S, m))
+    counters = fused_step.arrival_counters(x.device, tiles.items)  # the wrapper's: the device of its tensors
+    assert int(counters.abs().sum()) == 0
+
+
+def test_stack_step_split_arguments_are_checked(cuda):
+    """A forced S outside 1 .. MAX_SPLITS, or any S for f32, raises before
+    the launch; the kernel refuses an S the scratch does not hold."""
+    from show_tell_tpu_torch.ops import build, fused_step
+
+    stacked, _, x, hs = _inputs(1, 256, 512, 8, 2, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="1 to 8 parts"):
+        gru_stack_step_cuda(stacked, x, hs, splits=9)
+    s32, _, x32, hs32 = _inputs(1, 256, 512, 8, 2, torch.float32, cuda)
+    with pytest.raises(ValueError, match="bf16 stack step only"):
+        gru_stack_step_cuda(s32, x32, hs32, splits=2)
+    lib = build.load_library()
+    new_hs = torch.empty_like(hs)
+    partial = torch.empty(32 * 4 * fused_step.MMA_PART, dtype=torch.float32, device=cuda)
+    counters = fused_step.arrival_counters(x.device, 32)
+    args = lambda s0, parts: (1, x.data_ptr(), stacked["w_ih0"].data_ptr(), stacked["w_ihU"].data_ptr(),
+                              stacked["w_hh"].data_ptr(), stacked["b_ih"].data_ptr(), stacked["b_hh"].data_ptr(),
+                              hs.data_ptr(), new_hs.data_ptr(), partial.data_ptr(), counters.data_ptr(), 2, 1, 256,
+                              512, s0, 1, parts, stream_arg(x.device))
+    assert lib.st_gru_stack_step(*args(4, 32 * 3)) != 0  # 32 items x 4 parts need 128
+    assert lib.st_gru_stack_step(*args(4, 32 * 4)) == 0
+    torch.cuda.synchronize()
+    assert int(counters.abs().sum()) == 0
 
 
 def test_stack_step_wrappers_reject_what_they_do_not_take(cuda):

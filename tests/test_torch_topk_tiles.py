@@ -153,7 +153,7 @@ def test_topk_end_agrees_with_the_kernel_sources():
     reads ceil(V / 64) parts after a grid barrier; the C entry points
     refuse scratch for fewer parts."""
     src = open(HEADER).read()
-    assert "(kMode == kDense || kMode == kTopk || kMode == kArgmax)" in src
+    assert "(kMode == kDense || kMode == kTopk || kMode == kArgmax || kMode == kNone)" in src
     end = src[src.index("__device__ void mma_topk_parts("):src.index("// The vocab phase of an mma_step instance")]
     assert "const int n = tid / kRowThreads, q = tid % kRowThreads;" in end
     assert "const int v = v0 + 16 * q + i;" in end and "for (int i = 0; i < 16; ++i) {" in end

@@ -10,12 +10,19 @@ call queued behind a 1 ms spin): the GRU's fused greedy step
 in L2 and cold (a 64 MB write between the spin and the call), and the
 whole decode of T = 25 steps (gru_whole_greedy_decode_cuda; median of 10
 after 2) at the same B; the GRU's and the LSTM's beam steps, top-k (k=3,
-warm and cold) and dense, at R = 3 and 192 beam rows.  Prints the card's
-name and power limit, one line a kernel and B, and a JSON line of every
-time.
+warm and cold) and dense, at R = 3 and 192 beam rows; the GRU's and the
+LSTM's stack steps (gru_stack_step_cuda, lstm_stack_step_cuda: the
+sharded-projection route's recurrence alone) at B = 1, 64 and 512, warm
+and cold.  Then sha256 digests of every bf16 tensor-core instance's
+outputs on inputs of their own seed (the greedy, dense and top-k steps
+of both cells and the whole decode at B=64, R=192; the attention
+greedy and dense steps), so that two checkouts that print the same
+digests gave bit-equal outputs.  Prints the card's name and power limit,
+one line a kernel and B, and a JSON line of every time and digest.
 """
 
 import argparse
+import hashlib
 import importlib.util
 import json
 import os
@@ -39,8 +46,10 @@ def main():
     import torch
 
     import show_tell_tpu_torch
+    from show_tell_tpu_torch.ops.fused_attn import fused_attn_decode_step_cuda, fused_attn_dense_step_cuda
     from show_tell_tpu_torch.ops.fused_beam import fused_dense_step_cuda, fused_topk_step_cuda
-    from show_tell_tpu_torch.ops.fused_step import fused_gru_decode_step_cuda
+    from show_tell_tpu_torch.ops.fused_step import fused_gru_decode_step_cuda, fused_lstm_decode_step_cuda
+    from show_tell_tpu_torch.ops.rnn import gru_stack_step_cuda, lstm_stack_step_cuda
     from show_tell_tpu_torch.ops.whole_decode import gru_whole_greedy_decode_cuda
 
     if not show_tell_tpu_torch.__file__.startswith(root + os.sep):
@@ -72,8 +81,39 @@ def main():
             print("%s bf16 R=%d from %s: fused %s top-%d beam step %.4f ms, L2 cold %.4f ms; dense beam step %.4f ms"
                   % (smi, R, root, cell.upper(), cs.K_BEAM, *times[cell + " topk", R], times[cell + " dense", R][0]),
                   flush=True)
-    print(json.dumps({"root": root, "card": smi, "ms": {"%s %s=%d" % (k[0], "R" if " " in k[0] else "B", k[1]): v
-                                                        for k, v in times.items()}}), flush=True)
+    for B in (1, 64, 512):
+        for cell, Ed, step in (("gru", cs.E, gru_stack_step_cuda), ("lstm", cs.LE, lstm_stack_step_cuda)):
+            stacked, _, x, state = cs.step_inputs(rng, B, torch.bfloat16, device, Ed, cell)
+            run = lambda: step(stacked, x, state)
+            times[cell + " stack", B] = (cs.event_median_ms(run), cs.event_median_ms(run, before=flush.zero_))
+            print("%s bf16 B=%d from %s: %s stack step %.4f ms, L2 cold %.4f ms"
+                  % (smi, B, root, cell.upper(), *times[cell + " stack", B]), flush=True)
+    # the bits of every bf16 tensor-core instance, from inputs of their own seed
+    drng = np.random.RandomState(cs.SEED + 7)
+    raw = lambda t: t.cpu().contiguous().view(torch.uint8).numpy().tobytes()
+    flat = lambda out: [t for o in (out if isinstance(out, tuple) else (out,))
+                        for t in (o if isinstance(o, tuple) else (o,))]
+    digests = {}
+    for cell, Ed in (("gru", cs.E), ("lstm", cs.LE)):
+        greedy = fused_lstm_decode_step_cuda if cell == "lstm" else fused_gru_decode_step_cuda
+        stacked, vocab, x, state = cs.step_inputs(drng, 64, torch.bfloat16, device, Ed, cell)
+        digests[cell + " greedy B=64"] = greedy(stacked, vocab, x, state)
+        stacked, vocab, x, state = cs.step_inputs(drng, 192, torch.bfloat16, device, Ed, cell)
+        digests[cell + " dense R=192"] = fused_dense_step_cuda(stacked, vocab, x, state)
+        digests[cell + " top-k R=192"] = fused_topk_step_cuda(stacked, vocab, x, state, cs.K_BEAM)
+        prep, w_emb, astate = cs.attn_inputs(drng, 64, torch.bfloat16, device, cell)
+        digests["attention %s greedy B=64" % cell] = fused_attn_decode_step_cuda(prep, w_emb, astate)
+        prep, w_emb, astate = cs.attn_inputs(drng, 192, torch.bfloat16, device, cell)
+        digests["attention %s dense R=192" % cell] = fused_attn_dense_step_cuda(prep, w_emb, astate)
+    prepared, feats = cs.whole_inputs(drng, 64, torch.bfloat16, device)
+    digests["gru whole decode B=64"] = gru_whole_greedy_decode_cuda(prepared, feats, cs.T)
+    torch.cuda.synchronize()
+    digests = {k: hashlib.sha256(b"".join(raw(t) for t in flat(v))).hexdigest()[:16] for k, v in digests.items()}
+    print("%s bf16 tensor-core instances from %s, sha256 of their outputs: %s"
+          % (smi, root, ", ".join("%s %s" % kv for kv in digests.items())), flush=True)
+    print(json.dumps({"root": root, "card": smi, "ms": {"%s %s=%d" % (k[0], "R" if k[0].endswith(("topk", "dense"))
+                                                                       else "B", k[1]): v
+                                                        for k, v in times.items()}, "digests": digests}), flush=True)
 
 
 if __name__ == "__main__":
