@@ -8,11 +8,12 @@ Phases, one line each (any failure exits non-zero with no ok line):
   2. build: the CUDA kernels from show_tell_tpu_torch/csrc, with nvcc, and
      beside them the grid-barrier probe (grid_barrier_probe.cu); ptxas's
      registers, stack and spills of the tensor-core instances (the bf16
-     projection kernels, vocab_mma.cuh; the thirteen bf16 instances of
-     dense_mma.cuh: the four dense beam steps, the two pooled top-k beam
-     steps, the four greedy steps, pooled and attention, GRU and LSTM,
-     the whole decode and the two stack steps) and the tensor-core (HMMA)
-     instructions in their SASS;
+     projection kernels, vocab_mma.cuh; the bf16 stem, stem.cu; the
+     fourteen bf16 instances of dense_mma.cuh: the four dense beam steps,
+     the two pooled top-k beam steps, the four greedy steps, pooled and
+     attention, GRU and LSTM, the whole decode, the two stack steps and
+     the attention context) and the tensor-core (HMMA) instructions in
+     their SASS;
   3. kernel against plain, at the flagship widths: the pooled fused step,
      GRU (L=5, E=256, H=512, V=9,956; B = 1, 64, 512; and E=1024 > H) and
      LSTM (E=512, same B); the fused attention step, GRU and LSTM (L=5,
@@ -30,7 +31,8 @@ Phases, one line each (any failure exits non-zero with no ok line):
      and 64 (two builds that print the same digests agree bit for bit);
   3c. input kernels against plain, f32 and bf16: the preprocess (C = 3
      and 12, B = 1 and 64, and two odd shapes) bit for bit; the fused stem
-     (s2d and RGB layouts, pool on and off, B = 1 and 64) within STEM_TOL;
+     (s2d and RGB layouts, pool on and off, B = 1 and 64) within STEM_TOL,
+     bf16 also within one bf16 ulp, with its share of bit-equal values;
   3d. the greedy routes' other kernels, f32 and bf16, B = 1, 64, 512: the
      whole-decode kernel (all 25 steps in one launch) bit-equal to the
      per-step kernel's loop and against its twin, with a cross-block tie
@@ -54,9 +56,12 @@ Phases, one line each (any failure exits non-zero with no ok line):
      the preprocess kernel once, and its greedy ids must equal on every
      row, bf16 and f32, those of the same kernels fed the plain twin's
      preprocess.  Then an s2d Captioner of the same weights serves the
-     same pixels (three requests of 64, bf16: 3 stem launches,
-     ids against the stem's twin + the plain step's decode; the pooled GRU
-     also one f32 request of 8, every row equal).  The same for a flagship
+     same pixels (three requests of 64, bf16: 3 stem launches; the
+     served stem within one bf16 ulp of its twin at every value, the
+     plain decode from it against that from the twin at least as close
+     as S2D_CONTROLS one-ulp controls a request, the ids against the
+     plain decode from the served stem; the pooled GRU also one f32
+     request of 8, every row equal to the twin + the plain decode).  The same for a flagship
      pooled-LSTM Captioner (E=512) and the steps' LSTM instances.  The
      pooled GRU's three requests are decoded once more from their features
      by the whole-decode kernel (one launch a request, the served ids);
@@ -84,10 +89,12 @@ Phases, one line each (any failure exits non-zero with no ok line):
      also with their operands cold in L2), captions/s of each slice,
      greedy and beam, greedy also over 12 requests a family in turns
      (median [min, max]), and the pooled GRU's beam routes side by side; the
-     input kernels against their twins and yardsticks, and the stages of a
-     stock and an s2d request; the A/B behind whole_decode_default(): the
-     whole-decode kernel against the per-step loop at B = 1, 64, 512, bf16
-     and f32, in turns, median [quartiles] (min, max) and the rounds each
+     input kernels against their twins and yardsticks (the stem at B = 1
+     and 64), and the stages of a stock and an s2d request; the attention
+     context at B = 1, 64, 256 against its twin and its composite yardstick
+     (addmm, leaky_relu, a matmul by w_full, softmax, bmm); the A/B behind
+     whole_decode_default(): the whole-decode kernel against the per-step
+     loop at B = 1, 64, 512, bf16 and f32, in turns, median [quartiles] (min, max) and the rounds each
      route won; the stack steps at B = 1, 64, 512, L2 warm and cold,
      against one torch.nn.GRU / LSTM call, and at every K split S = 1 .. 8
      beside the S that stack_tiles' rule takes; the
@@ -139,11 +146,13 @@ IMG = 224  # the serving image side
 N_FILES = 130  # the CLI phase: two full batches of 64 and one padded batch of 2
 COCO_SIZES = ((640, 480), (640, 427), (480, 640), (427, 640))  # (width, height): MS-COCO's most common image sizes
 CLI_TURNS = 5  # caption_paths runs in turns, each mode decoding the files and from the cache
-# Fused stem against its twin, rtol = atol.  Both sum the 192 taps in f32 in
-# one order; with bf16 weights each product is exact, so each step rounds
-# once in both (the kernel's FMA, the twin's add) and they should agree bit
-# for bit; with f32 weights the twin rounds the products too.
+# Fused stem against its twin, rtol = atol.  f32: both sum the 192 taps in
+# f32 in one order, and the twin rounds each product (the kernel's FMA does
+# not).  bf16: each product of a pixel and a bf16 weight is exact in f32,
+# but the tensor cores add them in another order, so a value may round to
+# the neighbouring bf16: also within one bf16 ulp (bf16_ulp_gaps).
 STEM_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+S2D_CONTROLS = 4  # one-ulp controls a request on the s2d path (s2d_against_twin)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, the published peak
 BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
 SPIN_CYCLES = 2_000_000  # about 1 ms at the H100's 1.98 GHz boost clock: longer than a wrapper's enqueue
@@ -273,9 +282,45 @@ def attn_inputs(rng, B, dtype, device, cell="gru"):
     return prep, w_emb, state_inputs(rng, B, dtype, device, cell)
 
 
+def context_inputs(rng, B, dtype, device):
+    """attention_context's operands at the attention flagship's widths: the
+    weights (wdec [A, H], bdec, wfull), feats [B, P, C], att1 [B, P, A] and h [B, H]."""
+    weights = {"wdec": uniform(rng, (AA, H), H ** -0.5, dtype, device),
+               "bdec": uniform(rng, (AA,), H ** -0.5, dtype, device),
+               "wfull": uniform(rng, (AA,), AA ** -0.5, dtype, device)}
+    return (weights, uniform(rng, (B, AP, AC), 1.0, dtype, device), uniform(rng, (B, AP, AA), 1.0, dtype, device),
+            uniform(rng, (B, H), 1.0, dtype, device))
+
+
 def top2_gap(logits):
     top = logits.float().topk(2, dim=-1).values
     return top[:, 0] - top[:, 1]
+
+
+def bf16_ulp_gaps(got, ref):
+    """How many bf16 values lie more than one bf16 ulp (of the larger of the
+    two) from the reference; below 2^-9, where an ulp is finer than the f32
+    sums' order differences around relu's zero, more than 2^-16."""
+    import torch
+
+    g, r = got.float(), ref.float()
+    ulp = torch.ldexp(torch.ones_like(g), torch.frexp(torch.maximum(g.abs(), r.abs())).exponent - 8)
+    return int(((g - r).abs() > torch.clamp(ulp, min=2.0 ** -16)).sum())
+
+
+def ulp_nudges(y, n, seed):
+    """bf16 ``y`` with ``n`` of its positive values, at seeded random
+    places, moved to the neighbouring bf16 value, up or down at random: a
+    control with as many one-ulp differences as a kernel shows."""
+    import torch
+
+    g = torch.Generator(device=y.device).manual_seed(seed)
+    flat = y.reshape(-1).clone()
+    pos = (flat > 0).nonzero().squeeze(1)
+    pick = pos[torch.randperm(len(pos), generator=g, device=y.device)[:n]]
+    bits = flat.view(torch.int16)  # positive bf16 values: the bit pattern +- 1 is the neighbour above or below
+    bits[pick] += (torch.randint(0, 2, (len(pick),), generator=g, device=y.device) * 2 - 1).to(torch.int16)
+    return flat.view(y.shape)
 
 
 def check_states(what, got, ref, dtype, tol=None):
@@ -458,6 +503,7 @@ LIBRARY_CALLS = {  # what a row's library_ms times
     "gru_stack_step": "torch.nn.GRU",
     "lstm_stack_step": "torch.nn.LSTM",
     "stem_fused": "composite: cuDNN conv2d + relu + max_pool2d",
+    "attention_context": "composite: torch.addmm + leaky_relu + matmul + softmax + bmm",
 }
 COUNTER_OF = {"preprocess_images": "preprocess_u8"}  # a row's launch counter, where its name differs
 
@@ -527,10 +573,11 @@ def projection_tile_ties(rng, device):
                   % (dname(dtype), rows, g.mv - 1, g.mv, g.mv - 1, g.mv - 1, g.mv))
 
 
-TILE_KERNELS = ("project_argmax_tiles_kernel", "project_topk_tiles_kernel")  # the bf16 projection kernels
-# the bf16 instances on the tensor cores (csrc/dense_mma.cuh, mma_step()): entry point -> (kernel template, cell,
-# vocab end: kArgmax = 0, kDense = 1, kTopk = 2, kNone = 3; None where the template names neither: the whole decode,
-# GRU and argmax)
+# the bf16 projection kernels (vocab_mma.cuh) and the bf16 stem (stem.cu)
+TILE_KERNELS = ("project_argmax_tiles_kernel", "project_topk_tiles_kernel", "stem_mma_kernel")
+# the bf16 instances on the tensor cores (csrc/dense_mma.cuh: mma_step(), and the attention context's att2 phase):
+# entry point -> (kernel template, cell, vocab end: kArgmax = 0, kDense = 1, kTopk = 2, kNone = 3; None where the
+# template names neither: the whole decode, GRU and argmax; the attention context)
 MMA_STEPS = {
     "st_fused_gru_dense_step": ("fused_step_kernel", "GruCell", 1),
     "st_fused_lstm_dense_step": ("fused_step_kernel", "LstmCell", 1),
@@ -545,7 +592,9 @@ MMA_STEPS = {
     "st_whole_gru_decode": ("whole_gru_kernel", None, None),
     "st_gru_stack_step": ("fused_step_kernel", "GruCell", 3),
     "st_lstm_stack_step": ("fused_step_kernel", "LstmCell", 3),
+    "st_attention_context": ("attention_context_kernel", None, None),
 }
+NO_SPILL = set(MMA_STEPS) | {"stem_mma_kernel"}  # instances that fail the build phase with a stack frame or spills
 
 
 def tensor_core_kernel(name):
@@ -565,24 +614,24 @@ def tensor_core_kernel(name):
 
 def tile_kernel_report(build):
     """ptxas's registers, stack frame and spills of the tensor-core kernel
-    instances (the two bf16 projection kernels and the thirteen bf16 fused
-    instances of MMA_STEPS), and, where the toolkit has cuobjdump, the
-    tensor-core (HMMA) instructions in their SASS in the library; fails if
-    one has none, if ptxas names none of them, or if a fused step has a
-    stack frame or spills."""
+    instances (the two bf16 projection kernels, the bf16 stem and the
+    fourteen bf16 instances of MMA_STEPS), and, where the toolkit has
+    cuobjdump, the tensor-core (HMMA) instructions in their SASS in the
+    library; fails if one has none, if ptxas names none of them, or if one
+    of NO_SPILL has a stack frame or spills."""
     import re
 
     labels = TILE_KERNELS + tuple(MMA_STEPS)
     reported = set()
     for line in build.ptxas_report(["project_argmax.cu", "project_topk.cu", "fused_step.cu", "fused_attn_step.cu",
-                                    "whole_decode.cu"]):
+                                    "whole_decode.cu", "stem.cu", "attention_context.cu"]):
         label = tensor_core_kernel(line.rsplit(": ", 1)[0])
         if label:
             phase("build", "ptxas -v " + line)
             reported.add(label)
             frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
-            if label in MMA_STEPS and (not frame or any(int(b) for b in frame.groups())):
-                fail("the tensor-core step %s has a stack frame or spills: %s" % (label, line))
+            if label in NO_SPILL and (not frame or any(int(b) for b in frame.groups())):
+                fail("the tensor-core instance %s has a stack frame or spills: %s" % (label, line))
     if reported != set(labels):
         fail("ptxas reported no line for the tensor-core instances %s" % sorted(set(labels) - reported))
     cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
@@ -807,11 +856,17 @@ def input_kernels_against_plain(rng, device):
                     ref = stem_fused_plain(x, prepared, pool)
                     what = "stem %s B=%d %s layout, %s" % (dn, B, layout, "pool" if pool else "no pool")
                     err = check_states(what, got, ref, dtype, tol)
+                    if dtype == torch.bfloat16:
+                        wide = bf16_ulp_gaps(got, ref)
+                        if wide:
+                            fail("%s: %d values more than one bf16 ulp from the twin" % (what, wide))
                     if dtype == torch.bfloat16 and B == 64 and layout == "rgb" and pool:  # the served input
                         errs["stem_fused"] = err
-                    phase("kernel", "%s: %s max_abs_err %.3g (rtol atol %g; |plain| <= %.3g); %d of %d values differ"
-                          % (what, tuple(got.shape), err, tol, ref.float().abs().max().item(),
-                             int((got != ref).sum()), got.numel()))
+                    phase("kernel", "%s: %s max_abs_err %.3g (rtol atol %g; |plain| <= %.3g%s); %d of %d values "
+                          "differ, %.6f bit-equal" % (what, tuple(got.shape), err, tol, ref.float().abs().max().item(),
+                                                      ", each within one bf16 ulp" if dtype == torch.bfloat16 else "",
+                                                      int((got != ref).sum()), got.numel(),
+                                                      (got == ref).float().mean().item()))
     return errs
 
 
@@ -964,10 +1019,10 @@ def work(name, R, k=K_BEAM, emb_rows=0):
     if name == "preprocess_images":  # u8 in, bf16 out; a multiply, a subtract and a divide an element
         n = R * IMG * IMG * 3
         return 3 * n, 3 * n
-    if name == "stem_fused":  # u8 image, w (bf16) and t (f32) in, pooled bf16 out
+    if name == "stem_fused":  # u8 image, w (bf16) and the class table tc (f32) in, pooled bf16 out
         # conv1's 7 x 7 x 3 = 147 taps a position: the 192 of the 4 x 4 x 12 s2d form hold 45 structural zeros
         side = IMG // 2
-        return (R * side * side * 12 + 2 * 192 * 64 + 4 * side * side * 64 + 2 * R * (side // 2) ** 2 * 64,
+        return (R * side * side * 12 + 2 * 192 * 64 + 4 * 4 * 4 * 64 + 2 * R * (side // 2) ** 2 * 64,
                 2 * R * side * side * 64 * 147)
     cell = "lstm" if "lstm" in name else "gru"
     G = GATES[cell] * H
@@ -1074,16 +1129,22 @@ def read_counts(counter_fns, launches_each):
     return counts
 
 
+def request_share(label, i, ids, rows, ref_ids):
+    """Fails unless a request's ids are [rows, T] in [0, V) and equal
+    ``ref_ids`` on at least 0.95 of positions; returns that share."""
+    if ids.shape != (rows, T) or ids.min() < 0 or ids.max() >= V:
+        fail("%s request %d: ids of shape %s in [%d, %d]" % (label, i, ids.shape, ids.min(), ids.max()))
+    share = float((ids == ref_ids).mean())
+    if share < 0.95:
+        fail("%s request %d: ids equal the plain step's decode on %.4f of positions (< 0.95)" % (label, i, share))
+    return share
+
+
 def check_served(label, served, requests, plain_decode, cap):
     """Returns the smallest share of positions equal to the plain decode."""
     shares = []
     for i, (ids, imgs) in enumerate(zip(served, requests)):
-        if ids.shape != (len(imgs), T) or ids.min() < 0 or ids.max() >= V:
-            fail("%s request %d: ids of shape %s in [%d, %d]" % (label, i, ids.shape, ids.min(), ids.max()))
-        ref_ids, _ = plain_decode(cap, imgs)
-        share = float((ids == ref_ids).mean())
-        if share < 0.95:
-            fail("%s request %d: ids equal the plain step's decode on %.4f of positions (< 0.95)" % (label, i, share))
+        share = request_share(label, i, ids, len(imgs), plain_decode(cap, imgs)[0])
         phase("main", "%s bf16 request %d: [64,25] ids, equal to the plain step's decode on %.4f of positions"
               % (label, i, share))
         shares.append(share)
@@ -1277,16 +1338,16 @@ def main():
     def by_name(expected):
         return {fn.__name__: n for fn, n in expected.items()}
 
-    def features(cap, images_u8):
+    def features(cap, images_u8, stem=stem_fused_plain):
         """The encoder through the plain twins: the preprocess's, or under
-        s2d the fused stem's, then the ResNet (and head) as served, its f32
-        convolutions without TF32 (scoped here: the global stays at its
-        default)."""
+        s2d ``stem(images, operands)`` (NHWC; by default the fused stem's
+        twin), then the ResNet (and head) as served, its f32 convolutions
+        without TF32 (scoped here: the global stays at its default)."""
         x = torch.from_numpy(images_u8).to(device)
         enc = cap.model.encoder
         with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
             if cap.s2d:
-                y = stem_fused_plain(x, enc.stem_operands())
+                y = stem(x, enc.stem_operands())
                 return enc.head(enc.resnet.forward_from_stem(y.permute(0, 3, 1, 2)))
             return enc(preprocess_images(x, augment=False, dtype=cap.dtype))
 
@@ -1329,16 +1390,63 @@ def main():
         phase("main", "%s %s B=%d: served ids equal the plain-preprocess decode on all %d rows"
               % (label, dname(cap.dtype), len(ids), len(ids)))
 
+    def s2d_against_twin(label, scap, served, requests, plain_decode):
+        """The bf16 s2d requests against the stem's twin.  For each request:
+        the stem as served (Encoder.stem_u8) within one bf16 ulp of its twin
+        at every value; the plain decode (ResNet, head and step) of the
+        served stem's output against that of the twin's, on at least the
+        share of equal positions that the smallest of S2D_CONTROLS controls
+        reaches over the three requests, each control the twin's output
+        with as many values as the served stem changed moved one bf16 ulp
+        at seeded random places (a random-weight ResNet-101 carries one-ulp
+        differences into many tokens: tools/s2d_sensitivity.py); the served
+        ids against the plain decode of the served stem's output at 0.95,
+        as check_served.  Also prints the served ids against the twin's
+        decode.  Returns the smallest of the last shares."""
+        enc = scap.model.encoder
+        ops = enc.stem_operands()
+        rows = []
+        for i, imgs in enumerate(requests):
+            x = torch.from_numpy(imgs).to(device)
+            with torch.inference_mode():
+                y_served = enc.stem_u8(x, s2d=True).permute(0, 2, 3, 1)
+                y_twin = stem_fused_plain(x, ops)
+            wide, n = bf16_ulp_gaps(y_served, y_twin), int((y_served != y_twin).sum())
+            if wide:
+                fail("%s s2d request %d: the served stem has %d values more than one bf16 ulp from its twin"
+                     % (label, i, wide))
+            twin_ids = plain_decode(scap, imgs)[0]
+            own_ids = plain_decode(scap, imgs, stem=lambda *_: y_served)[0]
+            controls = [float((plain_decode(scap, imgs, stem=lambda *_: ulp_nudges(y_twin, n, k))[0] == twin_ids)
+                              .mean()) for k in range(S2D_CONTROLS)]
+            own = float((own_ids == twin_ids).mean())
+            down = request_share(label + " s2d", i, served[i], len(imgs), own_ids)
+            phase("main", "%s s2d bf16 request %d: the served stem within one bf16 ulp of its twin (%d of %d values "
+                  "differ); plain decode from the served stem against that from the twin on %.4f of positions, "
+                  "controls with %d one-ulp moves %s; served [64,25] ids equal to the plain decode from the served "
+                  "stem on %.4f of positions, to that from the twin on %.4f"
+                  % (label, i, n, y_twin.numel(), own, n, " ".join("%.4f" % c for c in controls), down,
+                     float((served[i] == twin_ids).mean())))
+            rows.append((own, min(controls), down))
+        bar = min(r[1] for r in rows)
+        for i, (own, _, _) in enumerate(rows):
+            if own < bar:
+                fail("%s s2d request %d: the plain decode from the served stem equals that from its twin on %.4f of "
+                     "positions, below every one-ulp control's %.4f" % (label, i, own, bar))
+        phase("main", "%s s2d: on every request the decode from the served stem agrees with the twin's at least as "
+              "well as the weakest one-ulp control (%.4f)" % (label, bar))
+        return min(r[2] for r in rows)
+
     def s2d_path(label, params, bn_state, cfg, requests, counter, plain_decode, f32_request=False):
         """The s2d Captioner of the same weights serves the same pixels:
         three bf16 requests with the counts read around them (the stem
-        once a request, the decode as on the stock path), ids against the
-        stem's twin + the plain step's decode; optionally one f32 request
-        of 8, every row equal."""
+        once a request, the decode as on the stock path), held to the
+        stem's twin by s2d_against_twin; optionally one f32 request of 8,
+        every row equal to the stem's twin + the plain decode."""
         scap = Captioner(params, bn_state, cfg, vocab, "bfloat16", device="gpu", s2d=True)
         served, seconds, counts = serve(scap, requests, counters, dict(by_name(greedy_launches(counter, 3)),
                                                                         stem_fused=3))
-        share = check_served(label + " s2d", served, requests, plain_decode, scap)
+        share = s2d_against_twin(label, scap, served, requests, plain_decode)
         phase("main", "%s s2d: launches in the three requests %s (stem = 3 x 1)"
               % (label, {k: v for k, v in counts.items() if v}))
         show_captions(label + " s2d", served)
@@ -1398,10 +1506,10 @@ def main():
         params, bn_state = init_captioner(cfg, torch.Generator().manual_seed(SEED))
         plain_step = fused_lstm_decode_step_plain if cfg.cell_type == "lstm" else fused_gru_decode_step_plain
 
-        def pooled_plain(cap, images_u8):
-            """The same features, decoded with the plain step on the card."""
+        def pooled_plain(cap, images_u8, stem=stem_fused_plain):
+            """The same features (under s2d from ``stem``), decoded with the plain step on the card."""
             with torch.inference_mode():
-                feats = features(cap, images_u8)
+                feats = features(cap, images_u8, stem)
                 prep = cap.prepared
 
                 def step(xx, state):
@@ -1510,10 +1618,10 @@ def main():
         dcfg = acfg.decoder_config()
         params, bn_state = init_captioner(acfg, torch.Generator().manual_seed(SEED))
 
-        def attn_plain(cap, images_u8):
-            """The same features, decoded with the fused step's plain twin on the card."""
+        def attn_plain(cap, images_u8, stem=stem_fused_plain):
+            """The same features (under s2d from ``stem``), decoded with the fused step's plain twin on the card."""
             with torch.inference_mode():
-                feats = features(cap, images_u8)
+                feats = features(cap, images_u8, stem)
                 dec = cap.model.decoder
                 prep = prepare_attn_decode(cap.prepared, dec, feats.transpose(1, 2))
 
@@ -1764,6 +1872,7 @@ def main():
 
     # 6. times (bf16, flagship widths)
     times = {}
+    library = {}  # kernel -> ms of the one PyTorch call (or composite) that computes its function at the line's shape
     cold_ms = {}  # (kernel, B) -> ms with the operands cold in L2 (a 64 MB write between the spin and the call)
     flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=device)
     note = "(median of 30 after 5, CUDA events, each call queued behind a 1 ms spin)"
@@ -1788,12 +1897,24 @@ def main():
         times["attention_context", B] = (
             event_median_ms(lambda: attention_context_cuda(prep, feats, prep["att1"], h)),
             event_median_ms(lambda: attention_context_plain(prep, feats, prep["att1"], h)))
+        # composite yardstick: cuBLAS's att2, the scores by leaky_relu and a matmul by w_full, softmax, bmm
+        wdec, bdec, wfull = prep["wdec"], prep["bdec"], prep["wfull"]
+        yard = lambda: torch.bmm(torch.softmax((F.leaky_relu(prep["att1"] + torch.addmm(bdec, h, wdec.T)[:, None, :],
+                                                            0.2) @ wfull).float(), dim=1)[:, None, :].to(feats.dtype),
+                                 feats)[:, 0]
+        y_ms = event_median_ms(yard)
+        y_err = (yard().float() - attention_context_plain(prep, feats, prep["att1"], h)[0].float()).abs().max().item()
+        if B == 64:
+            library["attention_context"] = y_ms
+        phase("times", "%s attention_context bf16 B=%d: kernel %.4f ms, plain %.4f ms, bound %.4f ms (%s), composite "
+              "yardstick %s %.4f ms (max_abs_err against the twin %.3g): kernel / yardstick %.3f %s"
+              % (card, B, *times["attention_context", B], *bound("attention_context", B),
+                 LIBRARY_CALLS["attention_context"], y_ms, y_err, times["attention_context", B][0] / y_ms, note))
     # the beam kernels at R = 3 (B=1) and R = 192 (B=64), K = 3.  The dense steps also with their operands cold in
     # L2 (a 64 MB write between the spin and the call); at R = 192 the pooled ones beside the stack step (kNone,
     # the recurrence alone on the same tensor-core layers, at R = 192 with no K split: dense minus stack is the
     # vocab phase and its grid barrier) and beside their composite yardstick: one torch.nn.GRU / LSTM step and
     # one cuBLAS addmm for the logits, the module built outside the timed call
-    library = {}  # kernel -> ms of the one PyTorch call (or composite) that computes its function at the line's shape
     for R in (3, 192):
         for cell, Ed in (("gru", E), ("lstm", LE)):
             name = "fused_%s_dense_step" % cell
@@ -2033,10 +2154,13 @@ def main():
     enc = scap.model.encoder
     res = enc.resnet
     sprep = enc.stem_operands()  # the flagship's folded conv1 and bn1, bf16
-    # the served layout: RGB as decoded, which the kernel reads through index math
-    times["stem_fused", 64] = (event_median_ms(lambda: stem_fused_cuda(x3, sprep)),
-                               event_median_ms(lambda: stem_fused_plain(x3, sprep)))
+    # the served layout: RGB as decoded, which the kernel reads through index math; at B=64 and B=1
+    x1 = x3[:1].contiguous()
+    for B, xb in ((64, x3), (1, x1)):
+        times["stem_fused", B] = (event_median_ms(lambda: stem_fused_cuda(xb, sprep)),
+                                  event_median_ms(lambda: stem_fused_plain(xb, sprep)))
     stem12 = (event_median_ms(lambda: stem_fused_cuda(x12, sprep)), event_median_ms(lambda: stem_fused_plain(x12, sprep)))
+    stem_conv = event_median_ms(lambda: stem_fused_cuda(x3, sprep, pool=False))  # 4 conv rows a CTA, no recomputed row
     with torch.inference_mode():
         mult = res.bn1.weight.float() * torch.rsqrt(res.bn1.running_var.float() + 1e-5)
         w4f = (transform_conv1_weight(res.conv1.weight.float()) * mult[:, None, None, None]).to(bf16).contiguous(
@@ -2047,6 +2171,8 @@ def main():
         # yardstick: cuDNN's 4x4 conv with the BN-folded weight and bias on the normalized s2d input, relu, pool
         library["stem_fused"] = event_median_ms(
             lambda: F.max_pool2d(F.relu(F.conv2d(F.pad(xn12, S2D_PAD), w4f, b4f)), 3, 2, 1))
+        stem_yard1 = event_median_ms(lambda: F.max_pool2d(F.relu(F.conv2d(F.pad(xn12[:1], S2D_PAD), w4f, b4f)),
+                                                          3, 2, 1))
         # the encoder's own stem routes (Encoder.stem_u8), each to the post-maxpool activation
         stem_y = enc.stem_u8(x3, s2d=True)
         stages = {
@@ -2069,8 +2195,11 @@ def main():
                  "%.4f ms" % library[name] if name in library else "none", note))
     phase("times", "%s bf16 preprocess B=64, s2d layout [64,112,112,12]: kernel %.4f ms, plain %.4f ms %s"
           % (card, pre12[0], pre12[1], note))
-    phase("times", "%s bf16 stem_fused B=64, s2d layout [64,112,112,12]: kernel %.4f ms, plain %.4f ms %s"
-          % (card, stem12[0], stem12[1], note))
+    phase("times", "%s bf16 stem_fused B=64, s2d layout [64,112,112,12]: kernel %.4f ms, plain %.4f ms %s; RGB "
+          "without the pool ([64,112,112,64] out) %.4f ms" % (card, stem12[0], stem12[1], note, stem_conv))
+    phase("times", "%s bf16 stem_fused B=1 (RGB, pooled): kernel %.4f ms, plain %.4f ms, bound %.4f ms (%s), "
+          "yardstick %s %.4f ms %s" % (card, *times["stem_fused", 1], *bound("stem_fused", 1),
+                                       LIBRARY_CALLS["stem_fused"], stem_yard1, note))
     phase("times", "%s stock request stages, pooled GRU, bf16, B=64: host-to-device copy of the uint8 batch from "
           "pinned memory %.4f ms (not part of the preprocess stage); preprocess stage before (plain chain) %.4f ms, "
           "after (kernel) %.4f ms %s" % (card, h2d, times["preprocess_images", 64][1],
@@ -2081,7 +2210,7 @@ def main():
         sl = slices[variant]
         phase("times", "%s %s s2d slice, bf16, ResNet-101 + 25 greedy steps: %.1f captions/s at B=64 (3 requests, "
               "%.3f s), stock slice %.1f captions/s in the same run (host clock to ids on the host); s2d bf16 ids "
-              "equal its plain decode on >= %.4f of positions" % (card, variant, 3 * 64 / sl["s2d"]["seconds"],
+              "equal the plain decode from the served stem on >= %.4f of positions" % (card, variant, 3 * 64 / sl["s2d"]["seconds"],
                                                                    sl["s2d"]["seconds"], 3 * 64 / sl["seconds"],
                                                                    sl["s2d"]["share"]))
     decoder = fastimage.status().split(" ")[0]  # native or PIL

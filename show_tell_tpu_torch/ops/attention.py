@@ -66,11 +66,12 @@ def attention_context_cuda(weights, feats_pm, att1, h) -> Tuple[torch.Tensor, to
     lib = load_library()
     ctx = torch.empty(B, C, dtype=dtype, device=device)
     alpha = torch.empty(B, P, dtype=torch.float32, device=device)
+    att2 = torch.empty(B, A, dtype=torch.float32, device=device)  # scratch between the kernel's first two phases
     with torch.cuda.device(device):
         err = lib.st_attention_context(
             code, feats_pm.data_ptr(), att1.data_ptr(), h.data_ptr(), weights["wdec"].data_ptr(),
             weights["bdec"].data_ptr(), weights["wfull"].data_ptr(), ctx.data_ptr(), alpha.data_ptr(),
-            B, P, C, A, H, stream_arg(device),
+            att2.data_ptr(), B, P, C, A, H, stream_arg(device),
         )
     raise_on_error("attention_context", err)
     attention_context.launches += 1

@@ -177,7 +177,7 @@ def load_library() -> ctypes.CDLL:
             "st_fused_attn_lstm_step": [i] + [p] * 22 + [i] * 7 + [p],
             "st_fused_attn_dense_step": [i] + [p] * 19 + [i] * 7 + [p],
             "st_fused_attn_lstm_dense_step": [i] + [p] * 21 + [i] * 7 + [p],
-            "st_attention_context": [i] + [p] * 8 + [i] * 5 + [p],
+            "st_attention_context": [i] + [p] * 9 + [i] * 5 + [p],
             "st_project_argmax": [i] + [p] * 5 + [i] * 4 + [p],
             "st_project_topk": [i] + [p] * 7 + [i] * 6 + [p],
             "st_preprocess": [i, p, p, ll] + [f] * 7 + [p],

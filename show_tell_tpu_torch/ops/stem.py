@@ -28,6 +28,9 @@ from show_tell_tpu_torch.ops import check_tensor, dtype_code, raise_on_error, st
 from show_tell_tpu_torch.ops.s2d_stem import S2D_PAD, space_to_depth, transform_conv1_weight
 
 S2D_SIDE, CHANNELS, TAPS = 112, 64, 192  # the 224 image's s2d side; conv1's outputs; 4 x 4 x 12
+# A row (column) of t belongs to one of four classes, 0, 1, 2..110 or 111, by which of the taps it reads fall
+# on conv1's padding; CLASS_REPS names one row (column) of each, so tc = t[CLASS_REPS][:, CLASS_REPS].
+CLASS_REPS = (0, 1, 2, S2D_SIDE - 1)
 LAYOUTS = {(S2D_SIDE, S2D_SIDE, 12): 0, (2 * S2D_SIDE, 2 * S2D_SIDE, 3): 1}  # the kernel's `layout` argument
 
 
@@ -37,7 +40,9 @@ def prepare_stem(resnet, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
     kernel with BN's multiplier gamma / sqrt(var + eps) and the scale
     1 / (255 std_c) folded in, rows in (a, b, di, dj, c) order; "t":
     [112, 112, 64] f32, the shift -mean_c / std_c through the convolution
-    where taps lie inside the image, plus BN's bias}.  Folded in f32 on
+    where taps lie inside the image, plus BN's bias; "tc": [4, 4, 64] f32,
+    t's 16 distinct vectors, t at rows and columns CLASS_REPS (both
+    kernels read tc, the twin t)}.  Folded in f32 on
     the CPU (no TF32), then moved; w is rounded to ``dtype`` once."""
     from show_tell_tpu_torch.models.resnet import BN_EPS
 
@@ -55,8 +60,10 @@ def prepare_stem(resnet, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
     tmask[:, :, 2:S2D_SIDE + 2, 2:S2D_SIDE + 2] = shift[:, None, None]
     tmap = F.conv2d(tmask, w4)[0] + bias[:, None, None]  # [64, 112, 112]
     w = (w4 * scale[None, :, None, None]).permute(2, 3, 1, 0).reshape(TAPS, CHANNELS)
+    t = tmap.permute(1, 2, 0).contiguous()
+    reps = list(CLASS_REPS)
     device = resnet.conv1.weight.device
-    return {"w": w.to(device, dtype).contiguous(), "t": tmap.permute(1, 2, 0).contiguous().to(device)}
+    return {"w": w.to(device, dtype).contiguous(), "t": t.to(device), "tc": t[reps][:, reps].contiguous().to(device)}
 
 
 def _layout(images_u8: torch.Tensor) -> int:
@@ -67,13 +74,16 @@ def _layout(images_u8: torch.Tensor) -> int:
 
 
 def stem_fused_plain(images_u8: torch.Tensor, prepared: Dict[str, torch.Tensor], pool: bool = True) -> torch.Tensor:
-    """The kernel's function in plain torch ops, with its arithmetic: each
-    f32 sum runs over the 192 taps in the kernel's order (a, then c12,
-    then b) starting from 0, then + t, relu, maxpool, rounded once to the
-    compute dtype, in NHWC.  With bf16 weights every product of a pixel
-    and a weight is exact in f32, so each step rounds once, as the
-    kernel's fused multiply-add does: the two agree bit for bit.  In f32
-    they differ by those roundings only."""
+    """The kernel's function in plain torch ops: each f32 sum runs over
+    the 192 taps in the f32 (SIMT) kernel's order (a, then c12, then b)
+    starting from 0, then + t, relu, maxpool, rounded once to the compute
+    dtype, in NHWC.  In f32 the two differ by the twin's rounding of each
+    product (the kernel's fused multiply-add does not round it).  With
+    bf16 weights every product of a pixel and a weight is exact in f32,
+    but the bf16 kernel adds them on the tensor cores in another order
+    (k16 steps, and within one the hardware's), so its f32 sums differ
+    from the twin's in the last bits and the bf16 outputs by at most one
+    bf16 ulp where a sum sits near a rounding boundary."""
     if _layout(images_u8) == 1:
         images_u8 = space_to_depth(images_u8)
     w = prepared["w"]
@@ -93,24 +103,25 @@ def stem_fused_plain(images_u8: torch.Tensor, prepared: Dict[str, torch.Tensor],
 
 def stem_fused_cuda(images_u8: torch.Tensor, prepared: Dict[str, torch.Tensor], pool: bool = True) -> torch.Tensor:
     """Launch the kernel on the current stream.  images_u8 uint8 [B,112,112,12]
-    or [B,224,224,3]; prepared w [192, 64] (f32 or bf16) and t [112, 112,
-    64] f32; all on one CUDA device, contiguous.  Raises on anything else
-    and on a failed launch."""
+    or [B,224,224,3]; prepared w [192, 64] (f32: the SIMT kernel; bf16:
+    the tensor-core kernel) and tc [4, 4, 64] f32; both
+    on one CUDA device, contiguous.  Raises on anything else and on a
+    failed launch."""
     from show_tell_tpu_torch.ops.build import load_library
 
     layout = _layout(images_u8)
     B, device = images_u8.shape[0], images_u8.device
-    w, t = prepared["w"], prepared["t"]
+    w, tc = prepared["w"], prepared["tc"]
     code = dtype_code("stem_fused", w.dtype)
     check_tensor("images_u8", images_u8, images_u8.shape, torch.uint8, device)
     check_tensor("stem w", w, (TAPS, CHANNELS), w.dtype, device)
-    check_tensor("stem t", t, (S2D_SIDE, S2D_SIDE, CHANNELS), torch.float32, device)
+    check_tensor("stem tc", tc, (len(CLASS_REPS), len(CLASS_REPS), CHANNELS), torch.float32, device)
     side = S2D_SIDE // 2 if pool else S2D_SIDE
     out = torch.empty(B, side, side, CHANNELS, dtype=w.dtype, device=device)
     lib = load_library()
     with torch.cuda.device(device):
-        err = lib.st_stem(code, layout, int(pool), images_u8.data_ptr(), w.data_ptr(), t.data_ptr(), out.data_ptr(),
-                          B, stream_arg(device))
+        err = lib.st_stem(code, layout, int(pool), images_u8.data_ptr(), w.data_ptr(), tc.data_ptr(), out.data_ptr(), B,
+                          stream_arg(device))
     raise_on_error("stem_fused", err)
     stem_fused.launches += 1
     return out

@@ -173,7 +173,8 @@ def test_fused_attn_kernel_matches_plain(cuda, dtype, B, E, H, A, P, V, L):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("B,C,A,H,P", [(3, 32, 16, 24, 5), (64, 2048, 512, 512, 49)])
+@pytest.mark.parametrize("B,C,A,H,P", [(3, 32, 16, 24, 5), (1, 2048, 512, 512, 49), (64, 2048, 512, 512, 49),
+                                       (256, 2048, 512, 512, 49)])
 def test_attention_context_kernel_matches_plain(cuda, dtype, B, C, A, H, P):
     """ctx within the values' tolerance, alpha (f32 in both) within 1e-6."""
     prep, _, hs = _attn_prep(B, 8, H, A, P, 40, 1, dtype, cuda, seed=2)
@@ -514,10 +515,14 @@ def _stem_resnet(device, seed=0):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("B", [1, 5])
 def test_stem_kernel_matches_plain(cuda, B, dtype, layout, pool):
-    """Against the twin, which sums the taps in the kernel's order: f32
-    within 1e-4 (the twin rounds each product, the kernel's FMA does not),
-    bf16 bit for bit (each product of a pixel and a bf16 weight is exact
-    in f32)."""
+    """Against the twin, which sums the taps in the f32 kernel's order: f32
+    within 1e-4 (the twin rounds each product, the kernel's FMA does not).
+    bf16 within one bf16 ulp at every element, and bit-equal on at least
+    99% of them: each product of a pixel and a bf16 weight is exact in f32,
+    but the tensor cores add them in another order, so an f32 sum may
+    round to the neighbouring bf16 value (below 2^-9, where a bf16 ulp is
+    finer than that order's f32 differences around relu's zero, within
+    2^-16)."""
     torch.backends.cudnn.allow_tf32 = False
     prepared = prepare_stem(_stem_resnet(cuda), dtype)
     rgb = torch.from_numpy(np.random.RandomState(B).randint(0, 256, (B, 224, 224, 3), dtype=np.uint8)).to(cuda)
@@ -529,7 +534,12 @@ def test_stem_kernel_matches_plain(cuda, B, dtype, layout, pool):
     ref = stem_fused_plain(x, prepared, pool)
     assert got.shape == ref.shape == ((B, 56, 56, 64) if pool else (B, 112, 112, 64))
     if dtype == torch.bfloat16:
-        assert torch.equal(got, ref)
+        g, r = got.float(), ref.float()
+        ulp = torch.ldexp(torch.ones_like(g), torch.frexp(torch.maximum(g.abs(), r.abs())).exponent - 8)
+        gap = (g - r).abs()
+        equal = (got == ref).float().mean().item()
+        assert bool((gap <= torch.clamp(ulp, min=2.0 ** -16)).all()), "largest gap %g" % gap.max().item()
+        assert equal >= 0.99, "bit-equal on %.6f of the elements" % equal
     else:
         torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
 
@@ -539,8 +549,8 @@ def test_stem_and_preprocess_wrappers_reject_what_they_do_not_take(cuda):
     x = torch.zeros(2, 112, 112, 12, dtype=torch.uint8, device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
         stem_fused(x.transpose(1, 2), prepared)
-    with pytest.raises(ValueError, match="stem t"):
-        stem_fused(x, dict(prepared, t=prepared["t"].to(torch.bfloat16)))
+    with pytest.raises(ValueError, match="stem tc"):
+        stem_fused(x, dict(prepared, tc=prepared["tc"].to(torch.bfloat16)))
     with pytest.raises(ValueError, match="uint8"):
         stem_fused(torch.zeros(2, 112, 112, 3, dtype=torch.uint8, device=cuda), prepared)
     with pytest.raises(ValueError, match="contiguous"):

@@ -1,6 +1,6 @@
 """Device times of the pooled fused-step kernels at the flagship widths on one NVIDIA GPU.
 
-    python tools/step_times.py [--root DIR]
+    python tools/step_times.py [--root DIR] [--requests N]
 
 Imports show_tell_tpu_torch from DIR (default: this checkout), so that one
 script times two checkouts alike, each in its own process.  In bf16, with
@@ -13,12 +13,20 @@ after 2) at the same B; the GRU's and the LSTM's beam steps, top-k (k=3,
 warm and cold) and dense, at R = 3 and 192 beam rows; the GRU's and the
 LSTM's stack steps (gru_stack_step_cuda, lstm_stack_step_cuda: the
 sharded-projection route's recurrence alone) at B = 1, 64 and 512, warm
-and cold.  Then sha256 digests of every bf16 tensor-core instance's
-outputs on inputs of their own seed (the greedy, dense and top-k steps
-of both cells and the whole decode at B=64, R=192; the attention
-greedy and dense steps), so that two checkouts that print the same
-digests gave bit-equal outputs.  Prints the card's name and power limit,
-one line a kernel and B, and a JSON line of every time and digest.
+and cold; the fused s2d stem (stem_fused_cuda, RGB layout, pooled: the
+served call) at B = 1 and 64 and the attention context
+(attention_context_cuda) at B = 1, 64 and 256, warm and cold.  Then
+sha256 digests of every bf16 tensor-core instance's outputs on inputs of
+their own seed (the greedy, dense and top-k steps of both cells and the
+whole decode at B=64, R=192; the attention greedy and dense steps; the
+stem and the attention context at B=64), so that two checkouts that
+print the same digests gave bit-equal outputs.  With --requests N, also
+whole requests of 64 images on the host clock (to ids on the host, median
+of N after one warm-up): the pooled GRU's s2d greedy request and the
+attention GRU's beam request (K=3), the Captioners built as chip_smoke.py
+builds them (ResNet-101, random weights from seed 0).  Prints the card's
+name and power limit, one line a kernel and B, and a JSON line of every
+time and digest.
 """
 
 import argparse
@@ -26,8 +34,10 @@ import hashlib
 import importlib.util
 import json
 import os
+import statistics
 import subprocess
 import sys
+import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -35,6 +45,7 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=HERE, help="checkout whose show_tell_tpu_torch is timed")
+    ap.add_argument("--requests", type=int, default=0, help="also time N whole requests of each served path")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -49,7 +60,9 @@ def main():
     from show_tell_tpu_torch.ops.fused_attn import fused_attn_decode_step_cuda, fused_attn_dense_step_cuda
     from show_tell_tpu_torch.ops.fused_beam import fused_dense_step_cuda, fused_topk_step_cuda
     from show_tell_tpu_torch.ops.fused_step import fused_gru_decode_step_cuda, fused_lstm_decode_step_cuda
+    from show_tell_tpu_torch.ops.attention import attention_context_cuda
     from show_tell_tpu_torch.ops.rnn import gru_stack_step_cuda, lstm_stack_step_cuda
+    from show_tell_tpu_torch.ops.stem import prepare_stem, stem_fused_cuda
     from show_tell_tpu_torch.ops.whole_decode import gru_whole_greedy_decode_cuda
 
     if not show_tell_tpu_torch.__file__.startswith(root + os.sep):
@@ -88,6 +101,19 @@ def main():
             times[cell + " stack", B] = (cs.event_median_ms(run), cs.event_median_ms(run, before=flush.zero_))
             print("%s bf16 B=%d from %s: %s stack step %.4f ms, L2 cold %.4f ms"
                   % (smi, B, root, cell.upper(), *times[cell + " stack", B]), flush=True)
+    sprep = prepare_stem(cs.stem_stub(rng, device), torch.bfloat16)
+    for B in (1, 64):
+        x = cs.u8_images(rng, (B, cs.IMG, cs.IMG, 3), device)
+        run = lambda: stem_fused_cuda(x, sprep)
+        times["stem", B] = (cs.event_median_ms(run), cs.event_median_ms(run, before=flush.zero_))
+        print("%s bf16 B=%d from %s: stem (RGB, pooled) %.4f ms, L2 cold %.4f ms" % (smi, B, root, *times["stem", B]),
+              flush=True)
+    for B in (1, 64, 256):
+        weights, feats, att1, h = cs.context_inputs(rng, B, torch.bfloat16, device)
+        run = lambda: attention_context_cuda(weights, feats, att1, h)
+        times["attention_context", B] = (cs.event_median_ms(run), cs.event_median_ms(run, before=flush.zero_))
+        print("%s bf16 B=%d from %s: attention_context %.4f ms, L2 cold %.4f ms"
+              % (smi, B, root, *times["attention_context", B]), flush=True)
     # the bits of every bf16 tensor-core instance, from inputs of their own seed
     drng = np.random.RandomState(cs.SEED + 7)
     raw = lambda t: t.cpu().contiguous().view(torch.uint8).numpy().tobytes()
@@ -107,10 +133,34 @@ def main():
         digests["attention %s dense R=192" % cell] = fused_attn_dense_step_cuda(prep, w_emb, astate)
     prepared, feats = cs.whole_inputs(drng, 64, torch.bfloat16, device)
     digests["gru whole decode B=64"] = gru_whole_greedy_decode_cuda(prepared, feats, cs.T)
+    digests["stem B=64"] = stem_fused_cuda(cs.u8_images(drng, (64, cs.IMG, cs.IMG, 3), device),
+                                           prepare_stem(cs.stem_stub(drng, device), torch.bfloat16))
+    digests["attention_context B=64"] = attention_context_cuda(*cs.context_inputs(drng, 64, torch.bfloat16, device))
     torch.cuda.synchronize()
     digests = {k: hashlib.sha256(b"".join(raw(t) for t in flat(v))).hexdigest()[:16] for k, v in digests.items()}
     print("%s bf16 tensor-core instances from %s, sha256 of their outputs: %s"
           % (smi, root, ", ".join("%s %s" % kv for kv in digests.items())), flush=True)
+    if args.requests:
+        from show_tell_tpu_torch.models.captioner import CaptionerConfig, init_captioner
+        from show_tell_tpu_torch.serve import Captioner
+
+        imgs = np.random.RandomState(cs.SEED + 1).randint(0, 256, (64, cs.IMG, cs.IMG, 3), dtype=np.uint8)
+        for name, cfg, s2d, beam in (
+                ("s2d greedy request", CaptionerConfig("gru", 101, cs.E, cs.H, cs.V, cs.L), True, 0),
+                ("attention beam request", CaptionerConfig("attn", 101, cs.AE, cs.H, cs.V, cs.L, nos_filters=cs.AC,
+                                                           attn_dim=cs.AA), False, cs.K_BEAM)):
+            params, bn_state = init_captioner(cfg, torch.Generator().manual_seed(cs.SEED))
+            cap = Captioner(params, bn_state, cfg, cs.SyntheticVocab(cs.V), "bfloat16", device="gpu", s2d=s2d)
+            cap.caption_ids(imgs, beam)  # warm-up: cuDNN plans, allocator
+            ms = []
+            for _ in range(args.requests):
+                t0 = time.perf_counter()
+                cap.caption_ids(imgs, beam)
+                ms.append(1e3 * (time.perf_counter() - t0))
+            times[name, 64] = (statistics.median(ms), min(ms), max(ms))
+            print("%s bf16 B=64 from %s: %s %.3f ms, %.1f captions/s (host clock, median of %d; min %.3f, max %.3f "
+                  "ms)" % (smi, root, name, times[name, 64][0], 64e3 / times[name, 64][0], args.requests,
+                           times[name, 64][1], times[name, 64][2]), flush=True)
     print(json.dumps({"root": root, "card": smi, "ms": {"%s %s=%d" % (k[0], "R" if k[0].endswith(("topk", "dense"))
                                                                        else "B", k[1]): v
                                                         for k, v in times.items()}, "digests": digests}), flush=True)
