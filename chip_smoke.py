@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving paths once on one NVIDIA GPU (H100).
+"""Drive the PyTorch port's serving and training paths once on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py
 
@@ -107,7 +107,21 @@ Phases, one line each (any failure exits non-zero with no ok line):
      top-k steps beside theirs (the same + log_softmax + topk); the pooled
      GRU's and the attention GRU's dense beam decode at B=64; the A/B
      behind beam_step_default(): whole pooled GRU and LSTM beam decodes at
-     K=3, B = 1, 64, 256, by the dense and the top-k route in turns.
+     K=3, B = 1, 64, 256, by the dense and the top-k route in turns;
+  7. training: train.loop.train, 2 epochs at B=32 (4 steps each) on 130
+     generated JPEGs of COCO's sizes with one caption each from the
+     synthetic vocabulary (saved as vocab.pkl and loaded by
+     get_vocabulary), for the four flagship families in f32 and the
+     pooled GRU and attention GRU in bf16 (TRAIN_RUNS); no kernel runs in
+     training.  Each step's loss (finite); the f32 first step on the card
+     against the same step on the CPU (the loss; the frozen backbone's
+     train-mode output, with a TF32 control; from one backbone output,
+     every trainable gradient's norm); the bf16 first loss against the
+     f32 one (5% + 0.05); train images/s by CUDA events and the host
+     clock; which tokenizer and JPEG decoder ran.  From the pooled GRU's
+     model_2.ckpt: an eval step (25 launches of the fused greedy step, ids
+     against the plain decode) and one request of 64 served through
+     Captioner.from_checkpoint (ids against the plain decode, >= 0.95).
 The last lines are the card's name and power limit, a JSON line of the
 kernels, and {"ok": true, "device": {...}}.
 """
@@ -161,6 +175,18 @@ LIBRARY_SPIN_CYCLES = 10 * SPIN_CYCLES
 AB_ROUNDS, AB_REPS = 10, 5  # an A/B of two routes: rounds in turns, decodes timed together in each
 BARRIERS = 1000  # grid barriers in one timed launch of the barrier probe
 RATE_ROUNDS = 4  # greedy captions/s: rounds of each family's three requests, the families in turns
+TRAIN_B, TRAIN_EPOCHS, TRAIN_TIMED = 32, 2, 4  # config.json's batch; epochs of each run; steps timed by CUDA events
+# Phase 7's runs of train.loop.train: (variant, embed, optimizer, lr, train_dtype); lr and momentum 0.9 from
+# config.json for SGD, Adam at its reference default 1e-3.  The bf16 runs start from the f32 runs' weights.
+TRAIN_RUNS = (("gru", E, "SGD", 0.01, "float32"), ("lstm", LE, "Adam", 1e-3, "float32"),
+              ("attn", AE, "SGD", 0.01, "float32"), ("attn_lstm", AE, "Adam", 1e-3, "float32"),
+              ("gru", E, "SGD", 0.01, "bfloat16"), ("attn", AE, "SGD", 0.01, "bfloat16"))
+# The f32 first step on the card against the CPU: the loss, and (from one backbone output) every trainable
+# gradient's norm, within TRAIN_CPU_RTOL.  The frozen ResNet-101's train-mode output is held apart, within
+# TRAIN_BACKBONE_RTOL: through 101 layers of batch-statistics BN the card's f32 convolutions and the CPU's part
+# by about 1e-3 relative, far below a TF32 run's gap (the smoke measures both), and that spread reaches the
+# gradients of the whole step, held within TRAIN_FULL_RTOL.
+TRAIN_CPU_RTOL, TRAIN_BACKBONE_RTOL, TRAIN_FULL_RTOL = 1e-4, 5e-3, 1e-2
 
 
 def fail(msg):
@@ -189,6 +215,39 @@ class SyntheticVocab:
 
     def end_token(self):
         return "<end>"
+
+
+def write_coco_jpegs(img_dir, n, seed):
+    """``n`` JPEGs of COCO's common sizes (smooth colour fields under grain,
+    quality 90) into ``img_dir``; returns their sorted paths."""
+    import numpy as np
+    from PIL import Image
+
+    frng = np.random.RandomState(seed)
+    for i in range(n):
+        w, h = COCO_SIZES[i % len(COCO_SIZES)]
+        base = Image.fromarray(frng.randint(0, 256, (h // 32, w // 32, 3), dtype=np.uint8))
+        field = np.asarray(base.resize((w, h), Image.BILINEAR), np.float32)
+        grain = frng.normal(0.0, 12.0, (h, w, 3)).astype(np.float32)
+        Image.fromarray(np.clip(field + grain, 0, 255).astype(np.uint8)).save(
+            os.path.join(img_dir, "img%03d.jpg" % i), quality=90)
+    return sorted(os.path.join(img_dir, f) for f in os.listdir(img_dir))
+
+
+class Recorder:
+    """A loader that records the batches each epoch consumed."""
+
+    def __init__(self, inner):
+        self.inner, self.epochs = inner, []
+
+    def __len__(self):
+        return len(self.inner)
+
+    def __iter__(self):
+        self.epochs.append([])
+        for batch in self.inner:
+            self.epochs[-1].append(batch)
+            yield batch
 
 
 def event_median_ms(fn, iters=30, warmup=5, spin=SPIN_CYCLES, before=None):
@@ -1239,7 +1298,13 @@ def main():
     from show_tell_tpu_torch.native import fastimage
     from show_tell_tpu_torch.decode.beam import attn_beam_search_decode, beam_engine, beam_search_decode, rnn_state_helpers
     from show_tell_tpu_torch.models.attention import init_hidden, last_h, linear_f32, start_embeddings
-    from show_tell_tpu_torch.models.captioner import CaptionerConfig, captioner_greedy_decode, encode, init_captioner
+    from show_tell_tpu_torch.models.captioner import (
+        CaptionerConfig,
+        captioner_greedy_decode,
+        encode,
+        init_captioner,
+        prepare_decode,
+    )
     from show_tell_tpu_torch.models.decoder import greedy_loop
     from show_tell_tpu_torch.models.rnn_cells import init_state
     from show_tell_tpu_torch.ops.attention import (
@@ -1737,8 +1802,6 @@ def main():
         import shutil
         import tempfile
 
-        from PIL import Image
-
         from show_tell_tpu_torch import serve as port_serve
         from show_tell_tpu_torch.data.serve_cache import ServeImageCache
         from show_tell_tpu_torch.serve import caption_paths
@@ -1748,15 +1811,7 @@ def main():
         try:
             img_dir = os.path.join(tmp, "images")
             os.makedirs(img_dir)
-            frng = np.random.RandomState(SEED + 2)
-            for i in range(N_FILES):  # COCO's common sizes: smooth colour fields under grain, saved at quality 90
-                w, h = COCO_SIZES[i % len(COCO_SIZES)]
-                base = Image.fromarray(frng.randint(0, 256, (h // 32, w // 32, 3), dtype=np.uint8))
-                field = np.asarray(base.resize((w, h), Image.BILINEAR), np.float32)
-                grain = frng.normal(0.0, 12.0, (h, w, 3)).astype(np.float32)
-                Image.fromarray(np.clip(field + grain, 0, 255).astype(np.uint8)).save(
-                    os.path.join(img_dir, "img%03d.jpg" % i), quality=90)
-            paths = sorted(os.path.join(img_dir, f) for f in os.listdir(img_dir))
+            paths = write_coco_jpegs(img_dir, N_FILES, SEED + 2)
             jpeg_kb = sum(os.path.getsize(p) for p in paths) / len(paths) / 1024
             scap = gru["s2d"]["cap"]
             for fn in counters:
@@ -1850,6 +1905,251 @@ def main():
                 scap.caption(staged)
                 parts.setdefault("captioning", []).append(time.perf_counter() - t0)
             return {"counts": counts, "overlap_s": t_over, "serial_s": t_serial, "runs": runs, "parts": parts}
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+    def training_phase():
+        """Phase 7: train.loop.train for every run of TRAIN_RUNS on N_FILES
+        generated JPEGs with one synthetic caption each; the f32 card step
+        against the CPU step, bf16 against f32; then an eval step and a
+        served request from the pooled GRU's checkpoint."""
+        import contextlib
+        import io
+        import pickle
+        import shutil
+        import tempfile
+
+        from show_tell_tpu_torch.data.dataset import MSCOCO, DataLoader
+        from show_tell_tpu_torch.data.images import load_images
+        from show_tell_tpu_torch.models.captioner import exact_f32_math, trainable_parameters
+        from show_tell_tpu_torch.train.checkpoint import read_checkpoint, restore_train_state
+        from show_tell_tpu_torch.train.loop import captioner_config_from_params, train
+        from show_tell_tpu_torch.train.train_step import create_train_state, make_eval_step, make_train_step
+        from show_tell_tpu_torch.vocab import DatasetVocabulary, get_vocabulary, save_vocab, tokenizer_name
+
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+        try:
+            img_dir = os.path.join(tmp, "train2014")
+            os.makedirs(img_dir)
+            paths = write_coco_jpegs(img_dir, N_FILES, SEED + 3)
+            crng = np.random.RandomState(SEED + 4)  # one caption an image, 8-16 words of the synthetic vocabulary
+            anns = [{"id": 1000 + i, "image_id": i, "caption": " ".join(
+                vocab.index_to_word[int(j)] for j in crng.randint(4, V, crng.randint(8, 17)))} for i in range(N_FILES)]
+            ann_path = os.path.join(tmp, "captions_train2014.json")
+            with open(ann_path, "w") as f:
+                json.dump({"images": [{"id": i, "file_name": os.path.basename(p)} for i, p in enumerate(paths)],
+                           "annotations": anns}, f)
+            vocab_path = os.path.join(tmp, "vocab.pkl")
+            built = DatasetVocabulary()
+            for i in range(V):
+                built.add_new_word(vocab.index_to_word[i])
+            save_vocab(built, vocab_path)
+            tvocab = get_vocabulary("MSCOCO", {"vocab_path": vocab_path})  # loads the file: no tokenizing
+            if len(tvocab) != V or tvocab.word_to_index != vocab.word_to_index:
+                fail("get_vocabulary read %d words from vocab.pkl, not the %d saved" % (len(tvocab), V))
+            tok = tokenizer_name()
+            ds_kw = {} if tok else {"tokenize": str.split}
+            phase("train", "tokenizer: %s" % (tok or "str.split: nltk is not installed here, and the synthetic "
+                                                    "captions are lowercase words between single spaces, which nltk's "
+                                                    "tokenizer splits the same way"))
+            dataset = MSCOCO(ann_path, img_dir, tvocab, **ds_kw)
+            phase("train", "JPEG decoder of data/dataset.MSCOCO: %s; %d images of %s pixels, one caption each, B=%d: "
+                  "%d steps an epoch (drop_last)" % (dataset.decoder, N_FILES, "/".join("%dx%d" % wh for wh in COCO_SIZES),
+                                                     TRAIN_B, N_FILES // TRAIN_B))
+            class FixedMap(torch.nn.Module):
+                """A backbone that returns one feature map, so that two steps share the frozen ResNet's output."""
+
+                def __init__(self, fmap):
+                    super().__init__()
+                    self.fmap = fmap
+
+                def forward(self, images):
+                    return self.fmap
+
+            def first_step(dev, cfg, optimizer, lr, init, batch, fmap=None):
+                """The loop's first step again on ``dev`` from the same weights and flips: (loss, {trainable
+                parameter: its gradient's norm}); with ``fmap``, the backbone's output is that map."""
+                s = create_train_state(cfg, optimizer, lr, 0.9, device=dev, seed=1, init=init)
+                if fmap is not None:
+                    s.model.encoder.resnet = FixedMap(fmap.to(s.device))
+                loss = float(make_train_step(cfg)(s, *batch[1:]))
+                # norms summed in f64: on the CPU an f32 sum over the projection gradient's 5.1M values drifts
+                # by more than TRAIN_CPU_RTOL
+                return loss, {n: p.grad.double().norm().item() for n, p in trainable_parameters(s.model).items()
+                              if p.grad is not None}
+
+            def norm_gaps(card, cpu):
+                """Each gradient norm's relative difference, with a floor of 1e-3 of the largest norm: the
+                Linear bias in front of the head's train-mode BN1d has a gradient of roundoff alone."""
+                if sorted(card) != sorted(cpu):
+                    fail("the card's step has gradients for %s, the CPU's for %s" % (sorted(card), sorted(cpu)))
+                floor = 1e-3 * max(cpu.values())
+                rel = {n: abs(card[n] - cpu[n]) / max(cpu[n], floor) for n in cpu}
+                return rel, max(rel, key=rel.get)
+
+            def cpu_against_card(label, cfg, optimizer, lr, init, batch, loop_loss):
+                """The f32 first step on the card against the CPU: the whole step (loss within TRAIN_CPU_RTOL,
+                gradient norms within TRAIN_FULL_RTOL), the frozen backbone's train-mode output (within
+                TRAIN_BACKBONE_RTOL), and the trainable part of the step from the CPU's backbone output on both
+                (loss and every gradient norm within TRAIN_CPU_RTOL)."""
+                (gl, gn), (cl, cn) = first_step("gpu", cfg, optimizer, lr, init, batch), \
+                    first_step("cpu", cfg, optimizer, lr, init, batch)
+                rel, worst = norm_gaps(gn, cn)
+                if abs(gl - cl) > TRAIN_CPU_RTOL * abs(cl) or abs(gl - loop_loss) > TRAIN_CPU_RTOL * abs(cl):
+                    fail("%s: the first step's loss %.7f on the card, %.7f on the CPU, %.7f in the loop"
+                         % (label, gl, cl, loop_loss))
+                if rel[worst] > TRAIN_FULL_RTOL:
+                    fail("%s: the first step's gradient norm of %s %.6g on the card, %.6g on the CPU (bar %g)"
+                         % (label, worst, gn[worst], cn[worst], TRAIN_FULL_RTOL))
+                maps = {}
+                for dev, tf32 in (("gpu", False), ("gpu", True), ("cpu", False)):
+                    s = create_train_state(cfg, optimizer, lr, 0.9, device=dev, seed=1, init=init)
+                    s.model.train()
+                    with torch.no_grad(), exact_f32_math(s.device):
+                        x = preprocess_images(torch.from_numpy(batch[1]).to(s.device), s.generator)
+                        with torch.backends.cudnn.flags(enabled=True, allow_tf32=tf32):  # TF32: the control
+                            maps[dev, tf32] = s.model.encoder.resnet(x).double().cpu()
+                    del s
+                cpu_map = maps["cpu", False]
+                fmap = cpu_map.float()
+                backbone, tf32_gap = (((maps["gpu", t] - cpu_map).norm() / cpu_map.norm()).item() for t in (False, True))
+                if backbone > TRAIN_BACKBONE_RTOL or tf32_gap <= TRAIN_BACKBONE_RTOL:
+                    fail("%s: the backbone's train-mode output on the card is %.3g from the CPU's, relative, and %.3g "
+                         "with TF32 (bar %g, which TF32 must exceed)" % (label, backbone, tf32_gap, TRAIN_BACKBONE_RTOL))
+                (tl, tn), (ul, un) = first_step("gpu", cfg, optimizer, lr, init, batch, fmap), \
+                    first_step("cpu", cfg, optimizer, lr, init, batch, fmap)
+                trel, tworst = norm_gaps(tn, un)
+                if abs(tl - ul) > TRAIN_CPU_RTOL * abs(ul) or trel[tworst] > TRAIN_CPU_RTOL:
+                    fail("%s: from one backbone output, the first step's loss %.7f on the card, %.7f on the CPU; "
+                         "gradient norm of %s %.6g / %.6g (bar %g)" % (label, tl, ul, tworst, tn[tworst], un[tworst],
+                                                                       TRAIN_CPU_RTOL))
+                phase("train", "%s: the first step on the card against the CPU: loss %.7f / %.7f (relative %.2e, "
+                      "bar %g; the loop's %.7f); %d gradient norms within %.2e (bar %g; the farthest %s); the "
+                      "frozen ResNet-101's train-mode output %.2e apart (bar %g; with cuDNN's TF32 on, %.3g); from "
+                      "one backbone output, the loss %.2e and every gradient norm within %.2e relative (bar %g; the "
+                      "farthest %s)" % (label, gl, cl, abs(gl - cl) / abs(cl), TRAIN_CPU_RTOL, loop_loss, len(cn),
+                                        rel[worst], TRAIN_FULL_RTOL, worst, backbone, TRAIN_BACKBONE_RTOL, tf32_gap,
+                                        abs(tl - ul) / abs(ul), trel[tworst], TRAIN_CPU_RTOL, tworst))
+
+            first_losses, out = {}, {}
+            for variant, Ed, optimizer, lr, dtype in TRAIN_RUNS:
+                label = "%s %s %s" % (variant, dtype, optimizer)
+                params = {"variant": variant, "resnet_version": 101, "embedding_length": Ed, "num_hidden_units": H,
+                          "num_layers": L, "nos_cnn_filters": AC, "attn_dim": AA, "optimizer_type": optimizer,
+                          "lr": lr, "momentum": 0.9, "num_epochs": TRAIN_EPOCHS, "batch_size": TRAIN_B,
+                          "output_dir": os.path.join(tmp, "%s_%s" % (variant, dtype)), "device": "gpu", "seed": 1,
+                          "train_dtype": dtype}
+                cfg = captioner_config_from_params(params, V)
+                init = init_captioner(cfg, torch.Generator().manual_seed(SEED))
+                loader = Recorder(DataLoader(dataset, TRAIN_B, shuffle=True, drop_last=True, num_workers=8, seed=1))
+                for fn in counters:
+                    fn.launches = 0
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()) as log:
+                    ts = train(params, tvocab, loader, init_params_state=init)
+                seconds = time.perf_counter() - t0
+                read_counts(counters, {})  # no TPU kernel runs in training (the JAX package's train step is XLA)
+                losses = []
+                for epoch in range(1, TRAIN_EPOCHS + 1):
+                    with open(os.path.join(params["output_dir"], "model_%d_metrics.ckpt" % epoch), "rb") as f:
+                        losses += pickle.load(f)["train_loss"]
+                if len(losses) != TRAIN_EPOCHS * (N_FILES // TRAIN_B) or not np.isfinite(losses).all():
+                    fail("%s: losses %s (loop output %r)" % (label, losses, log.getvalue()[-500:]))
+                with open(os.path.join(params["output_dir"], "metrics.jsonl")) as f:
+                    last_epoch = [json.loads(line) for line in f][-1]
+                host_s = last_epoch["timing"]["step"]["total_s"]
+                steps = last_epoch["timing"]["step"]["count"]
+                phase("train", "%s: losses %s; %.1f s for %d epochs with model build and checkpoints (host clock)"
+                      % (label, " ".join("%.4f" % x for x in losses), seconds, TRAIN_EPOCHS))
+                # CUDA events: TRAIN_TIMED more steps over the last epoch's batches, staged on the card beforehand
+                step = make_train_step(cfg, compute_dtype=dtype)
+                staged = [[torch.from_numpy(a).to(device) for a in b[1:]] for b in loader.epochs[-1][:TRAIN_TIMED]]
+                step(ts, *staged[0])
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                start.record()
+                for b in staged:
+                    step(ts, *b)
+                end.record()
+                torch.cuda.synchronize()
+                step_ms = start.elapsed_time(end) / len(staged)
+                out[variant, dtype] = {"step_ms": step_ms, "host_ms": host_s / steps * 1e3}
+                phase("train", "%s %s ResNet-101 B=%d: %.1f train images/s by CUDA events (%d steps, %.2f ms a step, "
+                      "batches on the card), %.1f by the host clock (the loop's last epoch, %d steps, %.2f ms a step "
+                      "to float(loss))" % (card, label, TRAIN_B, TRAIN_B / step_ms * 1e3, len(staged), step_ms,
+                                           TRAIN_B / host_s * steps, steps, host_s / steps * 1e3))
+                del ts, step, staged
+                loader.inner.close()
+                first_batch = loader.epochs[0][0]
+                if dtype == "float32":
+                    first_losses[variant] = losses[0]
+                    cpu_against_card(label, cfg, optimizer, lr, init, first_batch, losses[0])
+                else:
+                    ref = first_losses[variant]
+                    if abs(losses[0] - ref) > 0.05 * abs(ref) + 0.05:
+                        fail("%s: first loss %.4f against f32 %.4f (bar 5%% + 0.05)" % (label, losses[0], ref))
+                    phase("train", "%s: first loss %.4f against the f32 run's %.4f (bar 5%% + 0.05: %.4f)"
+                          % (label, losses[0], ref, abs(losses[0] - ref)))
+                    if losses[-1] >= losses[0]:
+                        phase("train", "%s: note: the last loss %.4f is not below the first" % (label, losses[-1]))
+                out[variant, dtype]["first_batch"] = first_batch
+                torch.cuda.empty_cache()
+
+            # the pooled GRU's f32 checkpoint: an eval step (the decode kernels), and one served request of 64
+            cfg = CaptionerConfig("gru", 101, E, H, V, L)
+            ckpt = os.path.join(tmp, "gru_float32", "model_%d.ckpt" % TRAIN_EPOCHS)
+            ts = create_train_state(cfg, "SGD", 0.01, device="gpu", seed=2)
+            restore_train_state(ts, read_checkpoint(ckpt))
+            _, images, captions, lengths = out["gru", "float32"]["first_batch"]
+            expected = greedy_launches(fused_gru_decode_step, 1)
+            for fn in counters:
+                fn.launches = 0
+            loss, ids = make_eval_step(cfg)(ts, images, captions, lengths, torch.Generator().manual_seed(SEED))
+            counts = read_counts(counters, by_name(expected))
+            ids = ids.cpu().numpy()
+            with torch.no_grad(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+                ts.model.eval()
+                x = preprocess_images(torch.from_numpy(images).to(device), torch.Generator().manual_seed(SEED))
+                feats = ts.model.encoder(x)
+                prep = prepare_decode(ts.model, torch.float32)
+
+                def step32(xx, state):
+                    tok, state2 = fused_gru_decode_step_plain(prep["stacked"], prep["vocab"], xx, state)
+                    return tok, state2, project_logits(prep["vocab"], last_h(state2))
+
+                ref_ids, _ = plain_loop(step32, prep["embedding"], feats, init_state("gru", L, len(images), H,
+                                                                                       torch.float32, device))
+            rows = int((ids == ref_ids).all(axis=1).sum())
+            if not np.isfinite(float(loss)) or ids.shape != (TRAIN_B, T) or rows < 0.99 * TRAIN_B:
+                fail("gru eval step from model_%d.ckpt: loss %s, ids %s, %d of %d rows equal the plain decode"
+                     % (TRAIN_EPOCHS, float(loss), ids.shape, rows, TRAIN_B))
+            phase("train", "gru f32 eval step from model_%d.ckpt (eval BN, flips as the reference): loss %.4f; launches "
+                  "%s; %d of %d rows of ids equal the plain step's decode of its features"
+                  % (TRAIN_EPOCHS, float(loss), {k: v for k, v in counts.items() if v}, rows, TRAIN_B))
+            del ts
+            cap = Captioner.from_checkpoint(ckpt, vocab_path, variant="gru", resnet_version=101, embed_dim=E,
+                                            hidden_dim=H, num_layers=L, device="gpu")
+            request = load_images(paths[:64])
+            served, seconds, counts = serve(cap, [request], counters,
+                                            dict(by_name(greedy_launches(fused_gru_decode_step, 1)), preprocess_u8=1))
+
+            def trained_plain(c, imgs):
+                with torch.inference_mode():
+                    f = features(c, imgs)
+                    p = c.prepared
+
+                    def step16(xx, state):
+                        tok, state2 = fused_gru_decode_step_plain(p["stacked"], p["vocab"], xx, state)
+                        return tok, state2, project_logits(p["vocab"], last_h(state2))
+
+                    return plain_loop(step16, p["embedding"], f.to(c.dtype),
+                                      init_state("gru", L, len(imgs), H, c.dtype, device))
+
+            share = request_share("trained gru", 0, served[0], len(request), trained_plain(cap, request)[0])
+            phase("train", "Captioner.from_checkpoint(model_%d.ckpt), bf16: one request of 64 of the training JPEGs, "
+                  "launches %s, %.3f s (host clock); ids equal the plain step's decode on %.4f of positions (>= 0.95)"
+                  % (TRAIN_EPOCHS, {k: v for k, v in counts.items() if v}, seconds, share))
+            return out
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2223,6 +2523,9 @@ def main():
               card, N_FILES, CLI_TURNS, decoder, spread(cli["runs"][False, True]), spread(cli["runs"][False, False]),
               spread(cli["runs"][True, True]), spread(cli["runs"][True, False]), spread(cli["runs"]["one file"]),
               ", ".join("%s %s" % (k, spread(v)) for k, v in cli["parts"].items())))
+
+    # 7. training
+    training_phase()
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "show_tell_tpu"))
     if leaked:

@@ -32,13 +32,15 @@ IMAGENET_STD = (0.229, 0.224, 0.225)
 
 def _flip_draws(b: int, generator: Optional[torch.Generator], device: torch.device):
     """Per-sample (horizontal, vertical) Bernoulli(0.5) flips, drawn in
-    that order with shape [b, 1, 1, 1] each, so that the stock and the s2d
-    preprocess flip the same samples from the same generator state."""
+    that order with shape [b, 1, 1, 1] each on the generator's device (a
+    CPU generator flips CUDA images as it flips their CPU copy), so that
+    the stock and the s2d preprocess flip the same samples from the same
+    generator state."""
     if generator is None:
         raise ValueError("augment=True needs a torch.Generator")
-    hflip = torch.rand(b, 1, 1, 1, generator=generator, device=device) < 0.5
-    vflip = torch.rand(b, 1, 1, 1, generator=generator, device=device) < 0.5
-    return hflip, vflip
+    hflip = torch.rand(b, 1, 1, 1, generator=generator, device=generator.device) < 0.5
+    vflip = torch.rand(b, 1, 1, 1, generator=generator, device=generator.device) < 0.5
+    return hflip.to(device), vflip.to(device)
 
 
 def _normalize(x: torch.Tensor, reps: int, dtype: torch.dtype) -> torch.Tensor:
@@ -57,8 +59,7 @@ def preprocess_images(
 ) -> torch.Tensor:
     """uint8 [B,H,W,3] -> normalized [B,H,W,3] ``dtype``.  With augment,
     each sample is flipped horizontally, then vertically, each with an
-    independent Bernoulli(0.5) draw from ``generator`` (which must live on
-    the images' device)."""
+    independent Bernoulli(0.5) draw from ``generator``."""
     if images_u8.dtype != torch.uint8 or images_u8.dim() != 4 or images_u8.shape[-1] != 3:
         raise ValueError("expected uint8 [B,H,W,3] images, got %s %s" % (images_u8.dtype, tuple(images_u8.shape)))
     x = images_u8.float() / 255.0

@@ -14,8 +14,14 @@ the alpha-weighted feature sum, ``x = cat(embedding[w], embed(context))``,
 the L-layer GRU or LSTM, the projection and the argmax.  Decode starts
 from the <start> embedding with the hidden state ``init_h(mean over
 positions)`` on every layer, and for the LSTM the cell state
-``init_c(mean over positions)``.  The teacher-forced forward and the
-doubly-stochastic penalty belong to the training slice.
+``init_c(mean over positions)``.
+
+Training (rnn_attn.py:64-74, main_attn.py:126-131): ``attn_decoder_forward``
+feeds caption token w_t at step t; the caller picks the target (the
+reference's w_t itself, or w_{t+1} under ``attn_next_token``).  The
+reference's shrinking batch is a freeze mask: rows with t >= length keep
+their state and get zero logits and alphas.  ``doubly_stochastic_penalty``
+is the alpha_c regularizer.
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from show_tell_tpu_torch.models.decoder import RNNWeights, greedy_loop
+from show_tell_tpu_torch.models.decoder import RNNWeights, greedy_loop, linear_f32
 from show_tell_tpu_torch.models.rnn_cells import stack_step
 from show_tell_tpu_torch.ops.rnn import State
 from show_tell_tpu_torch.ops.vocab import first_max_argmax
@@ -65,12 +71,6 @@ class AttnDecoder(nn.Module):
             self.init_c = nn.Linear(C, H)
         self.embed = nn.Linear(C, E)
         self.attn = AttentionNet(C, H, cfg.attention_dim)
-
-
-def linear_f32(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    """``x @ W^T + b`` with products summed in f32 (the JAX package's
-    ``_linear``: dot with preferred_element_type=f32, plus the bias)."""
-    return x.float() @ layer.weight.float().T + layer.bias.float()
 
 
 def attention_net_hoisted(
@@ -143,3 +143,42 @@ def attn_greedy_decode(
     w0 = start_embeddings(decoder, B, start_token, cnn_feature.device)
     state0 = init_hidden(decoder, cfg, cnn_feature)
     return greedy_loop(step, embedding, w0, state0, cfg.max_caption_length, end_token)
+
+
+def attn_decoder_forward(
+    decoder: AttnDecoder,
+    cfg: AttnDecoderConfig,
+    cnn_feature: torch.Tensor,  # [B, C, P]
+    captions: torch.Tensor,  # [B, T] int
+    lengths: torch.Tensor,  # [B] int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Teacher-forced pass (attention.attn_decoder_forward in the JAX
+    package): step t consumes captions[:, t].  Returns (predictions [B, T,
+    V] f32, alphas [B, T, P] f32), both zero on rows with t >= lengths,
+    whose state stays frozen from there on.  att1 is computed once."""
+    feats_pm = cnn_feature.transpose(1, 2)  # [B, P, C]
+    att1 = linear_f32(decoder.attn.encoder_att, feats_pm)  # hoisted: constant over t
+    emb = F.embedding(captions.long(), decoder.embeddings.weight)  # [B, T, E]
+    layers = decoder.unit.layers()
+    step_fn = stack_step(cfg.cell_type)
+    lengths = lengths.to(cnn_feature.device)
+    state = init_hidden(decoder, cfg, cnn_feature)
+    preds, alphas = [], []
+    for t in range(captions.shape[1]):
+        w_emb = emb[:, t]
+        context, alpha = attention_net_hoisted(decoder.attn, feats_pm, att1, last_h(state))
+        x = torch.cat([w_emb, linear_f32(decoder.embed, context).to(w_emb.dtype)], dim=-1)
+        top, state2 = step_fn(layers, x, state)
+        alive = (t < lengths)[:, None]  # [B, 1]
+        if isinstance(state, tuple):
+            state = tuple(torch.where(alive[None], n, o) for n, o in zip(state2, state))
+        else:
+            state = torch.where(alive[None], state2, state)
+        preds.append(torch.where(alive, linear_f32(decoder.linear, top), 0.0))
+        alphas.append(torch.where(alive, alpha, 0.0))
+    return torch.stack(preds, dim=1), torch.stack(alphas, dim=1)
+
+
+def doubly_stochastic_penalty(alphas: torch.Tensor) -> torch.Tensor:
+    """alpha_c regularizer: ((1 - sum_t alpha)^2).mean() over [B, P] (main_attn.py:131)."""
+    return ((1.0 - alphas.sum(dim=1)) ** 2).mean()

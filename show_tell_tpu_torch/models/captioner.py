@@ -7,6 +7,12 @@ All four families of the reference, greedy and beam serving:
   variant 'lstm'      ResNet pooled [B, E]      -> LSTM decoder   (LSTM/main_lstm.py)
   variant 'attn'      ResNet spatial [B, C, 49] -> attention GRU  (Attention/main_attn.py)
   variant 'attn_lstm' ResNet spatial [B, C, 49] -> attention LSTM (Attention/main_attn_LSTM.py)
+
+Serving builds a frozen model in eval mode (``build_model``).  Training
+builds one in train mode (``build_trainable_model``) whose trainable
+parameters are the reference's (main.py:96): the decoder, the encoder's
+Linear head and its BN1d; the backbone is frozen, but its BN running
+statistics move.  ``captioner_loss`` is the teacher-forced loss.
 """
 
 from __future__ import annotations
@@ -18,8 +24,13 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from show_tell_tpu_torch.models.attention import AttnDecoder, AttnDecoderConfig
-from show_tell_tpu_torch.models.decoder import GATES, Decoder, DecoderConfig
+from show_tell_tpu_torch.models.attention import (
+    AttnDecoder,
+    AttnDecoderConfig,
+    attn_decoder_forward,
+    doubly_stochastic_penalty,
+)
+from show_tell_tpu_torch.models.decoder import GATES, Decoder, DecoderConfig, decoder_forward, masked_cross_entropy
 from show_tell_tpu_torch.models.encoder import Encoder, EncoderConfig
 from show_tell_tpu_torch.models.resnet import RESNET_SPECS, STAGE_WIDTHS, feature_dim
 
@@ -64,8 +75,57 @@ class CaptionerConfig(NamedTuple):
 class CaptionerModel(nn.Module):
     def __init__(self, cfg: CaptionerConfig):
         super().__init__()
+        self.cfg = cfg
         self.encoder = Encoder(cfg.encoder_config())
         self.decoder = (AttnDecoder if cfg.is_attention else Decoder)(cfg.decoder_config())
+
+    def forward(self, images: torch.Tensor, captions: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+        """The teacher-forced loss (``captioner_loss``) of normalized float images."""
+        return captioner_loss(self, self.cfg, images, captions, lengths)
+
+
+# The trainable parameters (reference main.py:96): the decoder and the encoder's head.
+TRAINABLE_PREFIXES = ("decoder.", "encoder.linear_secondlast_layer.", "encoder.last_layer.")
+
+
+def trainable_parameters(model: CaptionerModel) -> Dict[str, nn.Parameter]:
+    """{name: parameter} of the trainable split, in the model's order (the
+    JAX package's ``split_trainable``: the decoder, ``linear_secondlast_layer``
+    and ``last_layer``); every other parameter is the frozen backbone's."""
+    return {n: p for n, p in model.named_parameters() if n.startswith(TRAINABLE_PREFIXES)}
+
+
+def captioner_loss(
+    model: CaptionerModel,
+    cfg: CaptionerConfig,
+    images: torch.Tensor,  # [B, H, W, 3] normalized float, NHWC
+    captions: torch.Tensor,  # [B, T] int
+    lengths: torch.Tensor,  # [B] int
+) -> torch.Tensor:
+    """Teacher-forced loss (captioner.captioner_loss in the JAX package):
+    masked CE, which equals the reference's packed CE, plus alpha_c times
+    the doubly-stochastic penalty for the attention families
+    (main_attn.py:130-131).  The attention families take the reference's
+    w_t -> w_t alignment, or with ``attn_next_token`` step t predicting
+    w_{t+1} over t < length - 1.  The encoder runs in the model's mode: in
+    train mode its BatchNorms move their running statistics in place.
+
+    Captions are cut to the longest length first: every later position is
+    masked out of each term and the recurrence is causal, so the loss and
+    its gradients are those of the padded batch, without the dead steps."""
+    t_max = max(int(lengths.max()), 1)
+    captions = captions[:, :t_max]
+    feats = model.encoder(images)
+    if not cfg.is_attention:
+        logits = decoder_forward(model.decoder, cfg.decoder_config(), feats, captions, lengths)
+        return masked_cross_entropy(logits, captions, lengths)
+    if cfg.attn_next_token:
+        lengths = (lengths - 1).clamp(min=0)
+        targets = torch.cat([captions[:, 1:], torch.zeros_like(captions[:, :1])], dim=1)
+    else:
+        targets = captions
+    preds, alphas = attn_decoder_forward(model.decoder, cfg.decoder_config(), feats, captions, lengths)
+    return masked_cross_entropy(preds, targets, lengths) + cfg.alpha_c * doubly_stochastic_penalty(alphas)
 
 
 def init_captioner(cfg: CaptionerConfig, generator: torch.Generator) -> Tuple[Dict[str, Any], Dict[str, Any]]:
@@ -167,15 +227,10 @@ def init_captioner(cfg: CaptionerConfig, generator: torch.Generator) -> Tuple[Di
     return params, bn_state
 
 
-def build_model(
-    params: Dict[str, Any],
-    bn_state: Dict[str, Any],
-    cfg: CaptionerConfig,
-    dtype: torch.dtype,
+def _model_from_trees(
+    params: Dict[str, Any], bn_state: Dict[str, Any], cfg: CaptionerConfig, dtype: torch.dtype,
     device: torch.device,
 ) -> CaptionerModel:
-    """A CaptionerModel on ``device`` holding the JAX-layout trees'
-    weights; every float32 parameter and BN statistic is cast to ``dtype``."""
     from show_tell_tpu_torch.models.convert import params_from_jax
 
     sds = params_from_jax(params, bn_state)
@@ -186,7 +241,40 @@ def build_model(
         getattr(model, name).load_state_dict(sd, strict=True, assign=True)
     model = model.to(device=device, dtype=dtype)
     model.encoder.resnet.to(memory_format=torch.channels_last)
-    return model.eval().requires_grad_(False)
+    return model
+
+
+def build_model(
+    params: Dict[str, Any],
+    bn_state: Dict[str, Any],
+    cfg: CaptionerConfig,
+    dtype: torch.dtype,
+    device: torch.device,
+) -> CaptionerModel:
+    """A CaptionerModel on ``device`` holding the JAX-layout trees'
+    weights; every float32 parameter and BN statistic is cast to ``dtype``."""
+    return _model_from_trees(params, bn_state, cfg, dtype, device).eval().requires_grad_(False)
+
+
+def build_trainable_model(
+    params: Dict[str, Any], bn_state: Dict[str, Any], cfg: CaptionerConfig, device: torch.device
+) -> CaptionerModel:
+    """A CaptionerModel for training on ``device``: f32 weights and BN
+    statistics from the JAX-layout trees, train mode, gradients on the
+    trainable split (``trainable_parameters``) only."""
+    model = _model_from_trees(params, bn_state, cfg, torch.float32, device).train().requires_grad_(False)
+    for p in trainable_parameters(model).values():
+        p.requires_grad_(True)
+    return model
+
+
+def model_trees(model: CaptionerModel) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """The inverse of ``build_model``: the model's weights and BN statistics
+    as (params, bn_state) numpy trees in the JAX layout."""
+    from show_tell_tpu_torch.models.convert import params_to_jax
+
+    return params_to_jax({name: {k: v.detach().cpu().numpy() for k, v in getattr(model, name).state_dict().items()}
+                          for name in ("encoder", "decoder")})
 
 
 def prepare_decode(model: CaptionerModel, dtype: torch.dtype) -> Dict[str, object]:
@@ -212,6 +300,25 @@ def exact_f32_convs(weight: torch.Tensor):
     cudnn = torch.backends.cudnn
     return cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark, benchmark_limit=None,
                        deterministic=cudnn.deterministic, allow_tf32=False)
+
+
+@contextlib.contextmanager
+def exact_f32_math(device: torch.device):
+    """``exact_f32_convs`` for every convolution and, through
+    ``torch.set_float32_matmul_precision("highest")``, every f32 matmul
+    (cuBLAS) on a CUDA ``device``: the train step's f32 is the JAX
+    package's.  Scoped: the flags are as the caller left them outside it.
+    The CPU runs as it is."""
+    if device.type != "cuda":
+        yield
+        return
+    precision = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        with exact_f32_convs(torch.empty(0, device=device)):
+            yield
+    finally:
+        torch.set_float32_matmul_precision(precision)
 
 
 def encode(model: CaptionerModel, images: torch.Tensor, s2d: bool = False) -> torch.Tensor:

@@ -138,3 +138,17 @@ def decoder_to_jax(state_dict: Dict[str, Any]) -> Dict[str, Any]:
                 node = node.setdefault(key, {})
             node[path[-1]] = {"w": _T(dec[prefix + ".weight"]), "b": dec[prefix + ".bias"]}
     return tree
+
+
+def trainable_from_jax(tree: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """A tree shaped like the JAX package's trainable split (its weights,
+    gradients or optimizer moments: {"decoder": ..., "encoder":
+    {"linear_secondlast_layer", "last_layer"}}) -> {the port's parameter
+    name under CaptionerModel: array in the port's layout}."""
+    out = {"decoder." + k: v for k, v in decoder_from_jax(tree["decoder"]).items()}
+    lin, bn = tree["encoder"]["linear_secondlast_layer"], tree["encoder"]["last_layer"]
+    out["encoder.linear_secondlast_layer.weight"] = _T(lin["w"])
+    out["encoder.linear_secondlast_layer.bias"] = np.asarray(lin["b"])
+    out["encoder.last_layer.weight"] = np.asarray(bn["weight"])
+    out["encoder.last_layer.bias"] = np.asarray(bn["bias"])
+    return out

@@ -8,6 +8,12 @@ Parameter names are the reference's (rnn.py:23-25, LSTM/rnn_lstm.py):
 ``nn.LSTM``: greedy decode steps with the plain cell here or with the
 fused kernel (ops/rnn.py).
 
+Training (rnn.py:27-35): ``decoder_forward`` prepends the image feature as
+the step-0 input and drops the last embedding, so position j consumes
+``feat`` (j=0) or ``emb(w_{j-1})`` and predicts w_j; ``masked_cross_entropy``
+averages over the positions j < length, which is the reference's CE over
+its packed sequence.
+
 Decode (rnn.py:37-58): a fixed 25 greedy steps, the argmax fed back
 through the embedding.  The early-exit loop stops once every row has
 emitted <end> and writes <pad> (0) after it; rows before <end> equal the
@@ -21,7 +27,9 @@ from typing import Callable, Dict, List, NamedTuple, Optional
 import torch
 import torch.nn as nn
 
-from show_tell_tpu_torch.models.rnn_cells import init_state, stack_step
+import torch.nn.functional as F
+
+from show_tell_tpu_torch.models.rnn_cells import init_state, rnn_scan, stack_step
 from show_tell_tpu_torch.ops.vocab import first_max_argmax
 
 
@@ -72,6 +80,14 @@ class Decoder(nn.Module):
         self.embeddings = nn.Embedding(cfg.vocab_size, cfg.embed_dim)
         self.unit = RNNWeights(cfg.cell_type, cfg.embed_dim, cfg.hidden_dim, cfg.num_layers)
         self.linear = nn.Linear(cfg.hidden_dim, cfg.vocab_size)
+
+
+def linear_f32(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """``x @ W^T + b`` with products summed in f32 (the JAX package's
+    ``_linear``: dot with preferred_element_type=f32, plus the bias).  The
+    operands are upcast before the product: a bf16 product is exact in f32,
+    so only the order of the sums can differ."""
+    return x.float() @ layer.weight.float().T + layer.bias.float()
 
 
 def greedy_loop(
@@ -133,3 +149,33 @@ def greedy_decode(
         return first_max_argmax(logits), state2
 
     return greedy_loop(step, embedding, feats.to(dtype), state0, cfg.max_caption_length, end_token)
+
+
+def decoder_forward(
+    decoder: Decoder,
+    cfg: DecoderConfig,
+    cnn_feature: torch.Tensor,  # [B, E]
+    captions: torch.Tensor,  # [B, T] int
+    lengths: torch.Tensor,  # [B] int
+) -> torch.Tensor:
+    """Teacher-forced logits [B, T, V] in f32; position j predicts
+    captions[:, j] (decoder.decoder_forward in the JAX package).  Computes
+    in the embedding's dtype from a zero state, layer-major (``rnn_scan``).
+    Only positions j < lengths are meaningful; the loss masks the rest."""
+    emb = F.embedding(captions.long(), decoder.embeddings.weight)  # [B, T, E]
+    inputs = torch.cat([cnn_feature.to(emb.dtype)[:, None, :], emb[:, :-1, :]], dim=1)
+    state = init_state(cfg.cell_type, cfg.num_layers, captions.shape[0], cfg.hidden_dim, inputs.dtype,
+                       inputs.device)
+    outs, _ = rnn_scan(decoder.unit.layers(), cfg.cell_type, inputs, state)
+    return linear_f32(decoder.linear, outs)
+
+
+def masked_cross_entropy(logits: torch.Tensor, targets: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Mean CE over the positions t < lengths of f32 logits [B, T, V]: the
+    reference's CrossEntropyLoss over pack_padded_sequence data
+    (main.py:145,149)."""
+    T = logits.shape[1]
+    mask = (torch.arange(T, device=logits.device)[None, :] < lengths.to(logits.device)[:, None]).float()
+    logz = torch.logsumexp(logits, dim=-1)  # [B, T]
+    tok = logits.gather(-1, targets.long()[..., None])[..., 0]
+    return ((logz - tok) * mask).sum() / mask.sum()

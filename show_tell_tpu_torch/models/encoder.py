@@ -1,10 +1,14 @@
 """The image encoder: frozen ResNet backbone + Linear/BatchNorm1d head
-(counterpart of show_tell_tpu/models/encoder.py, eval).
+(counterpart of show_tell_tpu/models/encoder.py).
 
     pooled:   features = BN1d(Linear(mean_{h,w} resnet(images)))   [B, embed]
     spatial:  features = resnet(images) as [B, C, 49], p = 7*row + col
 
-The backbone output is detached, as the reference detaches it (cnn.py:47).
+The backbone output is detached, as the reference detaches it (cnn.py:47):
+the backbone runs under ``torch.no_grad()``, and only the head trains.  In
+train mode (``Encoder.train()``) its BatchNorms still move their running
+statistics, as the reference's ``cnn.train()`` does; the head's BN1d moves
+its own with momentum 0.01 (cnn.py:38) and the unbiased variance.
 The spatial mode (the attention families, cnn_attn.py:49) still creates the
 Linear/BN1d head and never runs it: a dead parameter kept so that
 checkpoints carry the same keys as the reference's.
@@ -24,11 +28,12 @@ from typing import Dict, NamedTuple, Optional
 import torch
 import torch.nn as nn
 
-from show_tell_tpu_torch.models.resnet import FrozenBatchNorm, ResNet, feature_dim
+from show_tell_tpu_torch.models.resnet import BatchNorm, ResNet, feature_dim
 from show_tell_tpu_torch.ops.preprocess import preprocess_u8
 from show_tell_tpu_torch.ops.stem import prepare_stem, stem_fused
 
 STEM_ROUTES = ("fused", "conv")
+HEAD_BN_MOMENTUM = 0.01  # reference cnn.py:38
 
 
 class EncoderConfig(NamedTuple):
@@ -43,7 +48,7 @@ class Encoder(nn.Module):
         self.spatial = cfg.spatial
         self.resnet = ResNet(cfg.resnet_version)
         self.linear_secondlast_layer = nn.Linear(feature_dim(cfg.resnet_version), cfg.embed_dim)
-        self.last_layer = FrozenBatchNorm(cfg.embed_dim)
+        self.last_layer = BatchNorm(cfg.embed_dim, momentum=HEAD_BN_MOMENTUM)
         self._stem: Optional[Dict[str, torch.Tensor]] = None
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
@@ -51,20 +56,29 @@ class Encoder(nn.Module):
         layout [B, 112, 112, 12] -> [B, embed] pooled, or [B, C, 49]
         spatial: a view of the NHWC feature map, whose transpose(1, 2) is
         the contiguous positions-major [B, 49, C]."""
-        return self.head(self.resnet(images))
+        with torch.no_grad():
+            fmap = self.resnet(images)
+        return self.head(fmap)
+
+    def train(self, mode: bool = True) -> "Encoder":
+        self._stem = None  # bn1's running statistics move in train mode
+        return super().train(mode)
 
     def stem_operands(self) -> Dict[str, torch.Tensor]:
         """The fused stem's folded weight and bias map (ops/stem.py
-        ``prepare_stem``), built from conv1 and bn1 at first use and kept:
-        the backbone is frozen."""
-        if self._stem is None:
+        ``prepare_stem``), built from conv1 and bn1 at first use.  In eval
+        mode they are kept: the backbone is frozen.  Train mode moves bn1's
+        running statistics, so it drops them and builds them at each call."""
+        if self._stem is None or self.training:
             self._stem = prepare_stem(self.resnet, self.resnet.conv1.weight.dtype)
         return self._stem
 
     def encode_u8(self, images_u8: torch.Tensor, s2d: bool = False) -> torch.Tensor:
         """uint8 pixels -> features, as ``forward`` returns them: ``stem_u8``
         (under s2d its "fused" route), layer1-4 and the head."""
-        return self.head(self.resnet.forward_from_stem(self.stem_u8(images_u8, s2d)))
+        with torch.no_grad():
+            fmap = self.resnet.forward_from_stem(self.stem_u8(images_u8, s2d))
+        return self.head(fmap)
 
     def stem_u8(self, images_u8: torch.Tensor, s2d: bool = False, stem: str = "fused") -> torch.Tensor:
         """uint8 pixels -> the post-maxpool activation [B, 64, 56, 56]

@@ -1,10 +1,13 @@
-"""ResNet-18/34/50/101/152 backbones as nn.Modules, eval mode
+"""ResNet-18/34/50/101/152 backbones as nn.Modules
 (counterpart of show_tell_tpu/models/resnet.py).
 
 Parameter and buffer names are torchvision's ("layer1.0.conv1.weight",
 "bn1.running_mean", ...), the names the JAX package keys its flat dicts
-by.  BatchNorm runs from its running statistics; the final fc layer is
-never created (the reference strips it, cnn.py:34).  Input and output are
+by.  BatchNorm follows the module's mode: eval runs from the running
+statistics (serving), train normalizes by the batch's statistics and moves
+the running ones (the reference trains its frozen backbone in train mode,
+``cnn.train()``); the final fc layer is never created (the reference
+strips it, cnn.py:34).  Input and output are
 NHWC at the public boundary; inside, activations are channels-last NCHW,
 the layout cuDNN's NHWC convolutions take.
 
@@ -43,13 +46,18 @@ def feature_dim(version: int) -> int:
     return 512 if RESNET_SPECS[version][0] == "basic" else 2048
 
 
-class FrozenBatchNorm(nn.Module):
-    """Eval-mode BatchNorm over axis 1 of [B, C, ...]: weight/bias
-    parameters and running_mean/running_var buffers (no
-    num_batches_tracked, so the keys match the JAX dicts)."""
+class BatchNorm(nn.Module):
+    """BatchNorm over axis 1 of [B, C, ...]: weight/bias parameters and
+    running_mean/running_var buffers (no num_batches_tracked, so the keys
+    match the JAX dicts).  Eval mode normalizes by the running statistics.
+    Train mode (the JAX package's ``_bn(training=True)``) normalizes by the
+    batch's biased variance over every axis but 1 and moves the running
+    statistics by ``momentum`` towards the batch mean and the unbiased
+    variance (n = B x H x W), which is ``F.batch_norm``'s own rule."""
 
-    def __init__(self, c: int):
+    def __init__(self, c: int, momentum: float = 0.1):
         super().__init__()
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(c))
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer("running_mean", torch.zeros(c))
@@ -57,7 +65,7 @@ class FrozenBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
-                            training=False, eps=BN_EPS)
+                            training=self.training, momentum=self.momentum, eps=BN_EPS)
 
 
 def _conv(cin: int, cout: int, k: int, stride: int) -> nn.Conv2d:
@@ -72,15 +80,15 @@ class Block(nn.Module):
         self.kind = kind
         cout = width if kind == "basic" else width * 4
         if kind == "basic":
-            self.conv1, self.bn1 = _conv(cin, width, 3, stride), FrozenBatchNorm(width)
-            self.conv2, self.bn2 = _conv(width, width, 3, 1), FrozenBatchNorm(width)
+            self.conv1, self.bn1 = _conv(cin, width, 3, stride), BatchNorm(width)
+            self.conv2, self.bn2 = _conv(width, width, 3, 1), BatchNorm(width)
         else:
-            self.conv1, self.bn1 = _conv(cin, width, 1, 1), FrozenBatchNorm(width)
-            self.conv2, self.bn2 = _conv(width, width, 3, stride), FrozenBatchNorm(width)
-            self.conv3, self.bn3 = _conv(width, cout, 1, 1), FrozenBatchNorm(cout)
+            self.conv1, self.bn1 = _conv(cin, width, 1, 1), BatchNorm(width)
+            self.conv2, self.bn2 = _conv(width, width, 3, stride), BatchNorm(width)
+            self.conv3, self.bn3 = _conv(width, cout, 1, 1), BatchNorm(cout)
         self.downsample = None
         if stride != 1 or cin != cout:
-            self.downsample = nn.Sequential(_conv(cin, cout, 1, stride), FrozenBatchNorm(cout))
+            self.downsample = nn.Sequential(_conv(cin, cout, 1, stride), BatchNorm(cout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = F.relu(self.bn1(self.conv1(x)))
@@ -99,7 +107,7 @@ class ResNet(nn.Module):
         kind, stages = RESNET_SPECS[version]
         self.version = version
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = FrozenBatchNorm(64)
+        self.bn1 = BatchNorm(64)
         cin = 64
         for s, n_blocks in enumerate(stages):
             blocks = []

@@ -1,5 +1,6 @@
-"""Plain GRU and LSTM cells and stack steps with PyTorch gate conventions
-(counterpart of show_tell_tpu/models/rnn_cells.py, decode half).
+"""Plain GRU and LSTM cells, stack steps and the teacher-forced stack
+over time, with PyTorch gate conventions (counterpart of
+show_tell_tpu/models/rnn_cells.py).
 
 GRU gate order r, z, n; double biases; the reset gate multiplies the
 hidden-side affine:
@@ -19,7 +20,7 @@ from typing import Dict, List, Tuple
 
 import torch
 
-from show_tell_tpu_torch.ops.rnn import gru_cell_math, lstm_cell_math
+from show_tell_tpu_torch.ops.rnn import State, gru_cell_math, gru_gate_math, lstm_cell_math, lstm_gate_math
 
 
 def gru_cell(layer: Dict[str, torch.Tensor], x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
@@ -69,3 +70,31 @@ def init_state(cell_type: str, num_layers: int, batch: int, hidden: int, dtype: 
     """Zeros in ``dtype``: hs for the GRU, (hs, cs) for the LSTM."""
     hs = torch.zeros(num_layers, batch, hidden, dtype=dtype, device=device)
     return (hs, torch.zeros_like(hs)) if cell_type == "lstm" else hs
+
+
+def rnn_scan(layers: List[Dict[str, torch.Tensor]], cell_type: str, inputs: torch.Tensor,
+             state: State) -> Tuple[torch.Tensor, State]:
+    """Run the stack over time: inputs [B, T, in] -> (outputs [B, T, H] of
+    the top layer, final state).  Layer-major, as the JAX package's
+    ``rnn_scan``: per layer, the input side of every step is one [B*T, in] x
+    [in, G*H] product summed in f32 (+ b_ih), and only the h side and the
+    gate math run step by step.  Outputs and the carry keep ``state``'s dtype."""
+    lstm = cell_type == "lstm"
+    seq = inputs
+    finals_h, finals_c = [], []
+    for l, layer in enumerate(layers):
+        gx_all = seq.float() @ layer["w_ih"].float().T + layer["b_ih"].float()  # [B, T, G*H]
+        h = state[0][l] if lstm else state[l]
+        c = state[1][l] if lstm else None
+        outs = []
+        for t in range(seq.shape[1]):
+            if lstm:
+                h, c = lstm_gate_math(gx_all[:, t], h, c, layer["w_hh"], layer["b_hh"], h.dtype, c.dtype)
+            else:
+                h = gru_gate_math(gx_all[:, t], h, layer["w_hh"], layer["b_hh"], h.dtype)
+            outs.append(h)
+        seq = torch.stack(outs, dim=1)
+        finals_h.append(h)
+        finals_c.append(c)
+    hs = torch.stack(finals_h)
+    return seq, ((hs, torch.stack(finals_c)) if lstm else hs)

@@ -28,8 +28,14 @@ def gru_cell_math(x, h, w_ih, w_hh, b_ih, b_hh, out_dtype: torch.dtype) -> torch
     order r, z, n; double biases; the reset gate multiplies the hidden-side
     affine W_hn h + b_hn), result cast to the carry dtype.  Mirrors
     rnn_pallas.gru_cell_math; w_ih [3H, in], w_hh [3H, H]."""
-    H = h.shape[-1]
     gx = x.float() @ w_ih.float().T + b_ih.float()
+    return gru_gate_math(gx, h, w_hh, b_hh, out_dtype)
+
+
+def gru_gate_math(gx, h, w_hh, b_hh, out_dtype: torch.dtype) -> torch.Tensor:
+    """``gru_cell_math`` from its x side ``gx = x w_ih^T + b_ih`` [B, 3H]
+    (f32), computed apart: the h side and the gate math."""
+    H = h.shape[-1]
     gh = h.float() @ w_hh.float().T + b_hh.float()
     r = torch.sigmoid(gx[:, :H] + gh[:, :H])
     z = torch.sigmoid(gx[:, H : 2 * H] + gh[:, H : 2 * H])
@@ -45,8 +51,17 @@ def lstm_cell_math(
     h' = o tanh(c') from that f32 c'; only then are h' and c' cast to their
     carry dtypes.  Mirrors rnn_pallas.lstm_cell_math; w_ih [4H, in], w_hh
     [4H, H].  Returns (h', c')."""
+    return lstm_gate_math(x.float() @ w_ih.float().T + b_ih.float(), h, c, w_hh, b_hh, h_dtype, c_dtype)
+
+
+def lstm_gate_math(
+    gx, h, c, w_hh, b_hh, h_dtype: torch.dtype, c_dtype: torch.dtype
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``lstm_cell_math`` from its x side ``gx = x w_ih^T + b_ih`` [B, 4H]
+    (f32), computed apart: gx + h w_hh^T + b_hh, summed in that order, and
+    the gate math."""
     H = h.shape[-1]
-    g = x.float() @ w_ih.float().T + b_ih.float() + h.float() @ w_hh.float().T + b_hh.float()
+    g = gx + h.float() @ w_hh.float().T + b_hh.float()
     i = torch.sigmoid(g[:, :H])
     f = torch.sigmoid(g[:, H : 2 * H])
     gg = torch.tanh(g[:, 2 * H : 3 * H])

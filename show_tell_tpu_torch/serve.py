@@ -39,7 +39,6 @@ vocab.pkl [--variant gru|lstm|attn|attn_lstm] [--beam_size K] [--s2d 1]
 
 from __future__ import annotations
 
-import pickle
 from typing import Any, Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -55,6 +54,7 @@ from show_tell_tpu_torch.models.captioner import (
     captioner_greedy_decode,
     prepare_decode,
 )
+from show_tell_tpu_torch.train.checkpoint import load_checkpoint
 from show_tell_tpu_torch.vocab import load_vocab
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -74,50 +74,6 @@ def create_caption_word_format(tokenized, vocab) -> List[List[str]]:
                 curr_word.append(vocab.index_to_word[idx])
         caption_words.append(curr_word)
     return caption_words
-
-
-class _NumpyTreeUnpickler(pickle.Unpickler):
-    """Reads the JAX package's pickle checkpoints without importing jax:
-    numpy and builtin types load as themselves, and any other class (the
-    optimizer's state tuples) becomes an inert tuple, since serving reads
-    only the weights."""
-
-    _ALLOWED = ("numpy", "ml_dtypes", "builtins", "collections", "copyreg", "_codecs")
-
-    def find_class(self, module: str, name: str):
-        if module.split(".")[0] in self._ALLOWED:
-            return super().find_class(module, name)
-        return type(name, (_Opaque,), {"__module__": module})
-
-
-class _Opaque(tuple):
-    def __new__(cls, *args, **kwargs):
-        return tuple.__new__(cls, args)
-
-    def __setstate__(self, state):
-        pass
-
-
-def load_checkpoint(path: str) -> Tuple[Dict[str, Any], Dict[str, Any]]:
-    """A show_tell_tpu pickle checkpoint (train/checkpoint.py) -> (params,
-    bn_state) numpy trees in the JAX layout."""
-    with open(path, "rb") as f:
-        ckpt = _NumpyTreeUnpickler(f).load()
-    if not (isinstance(ckpt, dict) and str(ckpt.get("format", "")).startswith("show_tell_tpu")):
-        raise ValueError(
-            "%s is not a show_tell_tpu pickle checkpoint (reading reference torch .ckpt files "
-            "is ROADMAP Queue 1 item 2, serving leftovers)" % path
-        )
-    enc = ckpt["encoder_state_dict"]
-    params = {
-        "encoder": {
-            "resnet": enc["frozen"]["resnet"],
-            "linear_secondlast_layer": enc["trainable"]["linear_secondlast_layer"],
-            "last_layer": enc["trainable"]["last_layer"],
-        },
-        "decoder": ckpt["decoder_state_dict"],
-    }
-    return params, enc["bn_state"]
 
 
 class Staged(NamedTuple):

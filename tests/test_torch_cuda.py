@@ -4,7 +4,8 @@ its LSTM instance; greedy, and the beam forms: dense logits, and top-k for
 the pooled step), the stack steps, the whole greedy decode (bit-equal to
 the per-step kernel's loop), the attention context, the projection +
 argmax, the projection + top-k, the image preprocess and the fused s2d
-stem; and the f32 encode without TF32.  The bf16 instances on the tensor
+stem; the f32 encode without TF32; and one f32 train step on the card
+against the same step on the CPU.  The bf16 instances on the tensor
 cores (the dense steps and the greedy steps, pooled and attention, GRU
 and LSTM; the whole decode) are also held bit for bit to each other, and
 the ones that keep the SIMT code (f32) to the SIMT ends.
@@ -868,3 +869,42 @@ def test_f32_attention_greedy_step_runs_the_simt_code(cuda, cell, B, E, H, A, P,
     for a, b in zip(new_state if cell == "lstm" else (new_state,), dense_state if cell == "lstm" else (dense_state,)):
         assert torch.equal(a, b)
     assert torch.equal(first_max_argmax(logits), tok)
+
+
+@pytest.mark.parametrize("tf32_global", [False, True], ids=["tf32-off", "tf32-on"])
+def test_f32_train_step_on_the_card_equals_the_cpu_step(cuda, tf32_global):
+    """One f32 train step (flips from equal CPU generators) on the card and
+    on the CPU from the same weights: the loss and every trainable
+    gradient's norm within 1e-4 relative, the updated weights within 1e-4.
+    With the global TF32 flags on (cuDNN's default), the step still runs
+    in full f32 inside and leaves both flags as it found them."""
+    from show_tell_tpu_torch.models.captioner import CaptionerConfig, init_captioner, trainable_parameters
+    from show_tell_tpu_torch.train.train_step import create_train_state, make_train_step
+
+    saved = (torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision())
+    torch.backends.cudnn.allow_tf32 = tf32_global
+    torch.set_float32_matmul_precision("high" if tf32_global else "highest")
+    try:
+        for variant in ("gru", "attn_lstm"):
+            cfg = CaptionerConfig(variant, 18, 16, 24, 40, 2, nos_filters=512, attn_dim=16)
+            init = init_captioner(cfg, torch.Generator().manual_seed(3))
+            rng = np.random.RandomState(4)
+            images = rng.randint(0, 256, (4, 64, 64, 3), dtype=np.uint8)
+            captions = rng.randint(4, 40, (4, 9)).astype(np.int32)
+            lengths = np.array([9, 7, 5, 3], np.int32)
+            out = {}
+            for dev in ("cpu", "gpu"):
+                ts = create_train_state(cfg, "SGD", 0.05, device=dev, init=init)
+                loss = float(make_train_step(cfg)(ts, images, captions, lengths))
+                params = trainable_parameters(ts.model)
+                out[dev] = (loss, {n: p.grad.double().norm().item() for n, p in params.items() if p.grad is not None},
+                            {n: p.detach().cpu() for n, p in params.items()})
+            assert abs(out["gpu"][0] - out["cpu"][0]) <= 1e-4 * abs(out["cpu"][0]), (variant, out["gpu"][0], out["cpu"][0])
+            for n, g in out["cpu"][1].items():
+                assert abs(out["gpu"][1][n] - g) <= 1e-4 * g + 1e-7, (variant, n, out["gpu"][1][n], g)
+                torch.testing.assert_close(out["gpu"][2][n], out["cpu"][2][n], rtol=1e-4, atol=1e-4)
+            assert torch.backends.cudnn.allow_tf32 is tf32_global
+            assert torch.backends.cuda.matmul.allow_tf32 is tf32_global
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved[0]
+        torch.set_float32_matmul_precision(saved[1])

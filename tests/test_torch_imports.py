@@ -21,9 +21,15 @@ def test_port_imports_without_jax():
         "show_tell_tpu_torch.ops.fused_beam, show_tell_tpu_torch.decode.beam, show_tell_tpu_torch.vocab, "
         "show_tell_tpu_torch.data.images, show_tell_tpu_torch.data.serve_cache, show_tell_tpu_torch.ops.preprocess, "
         "show_tell_tpu_torch.ops.stem, show_tell_tpu_torch.ops.s2d_stem, show_tell_tpu_torch.ops.whole_decode, "
-        "show_tell_tpu_torch.native.build, show_tell_tpu_torch.native.fastimage; "
+        "show_tell_tpu_torch.native.build, show_tell_tpu_torch.native.fastimage, show_tell_tpu_torch.train.optim, "
+        "show_tell_tpu_torch.train.train_step, show_tell_tpu_torch.train.checkpoint, show_tell_tpu_torch.train.loop, "
+        "show_tell_tpu_torch.data.coco, show_tell_tpu_torch.data.dataset, show_tell_tpu_torch.data.image_cache, "
+        "show_tell_tpu_torch.data.device_prefetch, show_tell_tpu_torch.utils, show_tell_tpu_torch.utils.logging, "
+        "show_tell_tpu_torch.utils.profiling; "
         "import sys; "
-        "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if m.startswith('jax'))"
+        "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if m.startswith('jax')); "
+        "assert not any(m.split('.')[0] in ('optax', 'nltk', 'show_tell_tpu') for m in sys.modules), "
+        "sorted(m for m in sys.modules if m.split('.')[0] in ('optax', 'nltk', 'show_tell_tpu'))"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
     result = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True,
@@ -31,8 +37,44 @@ def test_port_imports_without_jax():
     assert result.returncode == 0, result.stderr
 
 
+def test_port_trains_without_nltk(tmp_path):
+    """With nltk unimportable (the GPU host's package list has none), the
+    training modules import, a saved vocabulary loads without tokenizing,
+    and tokenizing raises and says why; a dataset given its own
+    ``tokenize`` builds batches."""
+    import json
+
+    ann = tmp_path / "ann.json"
+    ann.write_text(json.dumps({"images": [{"id": 1, "file_name": "x.jpg"}],
+                               "annotations": [{"id": 5, "image_id": 1, "caption": "A red bus"}]}))
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["nltk"] = None  # import nltk raises ImportError
+        import show_tell_tpu_torch.train.loop, show_tell_tpu_torch.data.dataset
+        from show_tell_tpu_torch import vocab as V
+        from show_tell_tpu_torch.data.dataset import MSCOCO
+        assert V.tokenizer_name() is None
+        try:
+            V.word_tokenize("a red bus")
+            raise SystemExit("word_tokenize ran without nltk")
+        except ImportError as e:
+            assert "nltk" in str(e), e
+        v = V.DatasetVocabulary()
+        for w in ["<pad>", "<start>", "<end>", "<unk>", "a", "red", "bus"]:
+            v.add_new_word(w)
+        V.save_vocab(v, %r)
+        loaded = V.get_vocabulary("MSCOCO", {"vocab_path": %r})
+        ds = MSCOCO(%r, %r, loaded, tokenize=str.split)
+        assert ds.caption_ids(0) == [1, 4, 5, 6, 2], ds.caption_ids(0)
+    """) % (str(tmp_path / "v.pkl"), str(tmp_path / "v.pkl"), str(ann), str(tmp_path))
+    env = dict(os.environ, PYTHONPATH=REPO)
+    result = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True,
+                            timeout=120)
+    assert result.returncode == 0, result.stderr
+
+
 def test_port_sources_never_import_jax():
-    pattern = re.compile(r"^\s*(import jax|from jax)\b", re.M)
+    pattern = re.compile(r"^\s*(import (jax|optax)|from (jax|optax))\b", re.M)
     offenders = []
     for root, _, files in os.walk(PORT):
         for f in files:
