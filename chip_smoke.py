@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths once on one NVIDIA GPU (H100).
+"""Drive the PyTorch port's serving, training and eval paths once on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py
 
@@ -121,7 +121,26 @@ Phases, one line each (any failure exits non-zero with no ok line):
      clock; which tokenizer and JPEG decoder ran.  From the pooled GRU's
      model_2.ckpt: an eval step (25 launches of the fused greedy step, ids
      against the plain decode) and one request of 64 served through
-     Captioner.from_checkpoint (ids against the plain decode, >= 0.95).
+     Captioner.from_checkpoint (ids against the plain decode, >= 0.95);
+  8. eval, on phase 7's f32 checkpoints (the 130 JPEGs in a test loader:
+     B=32, five batches, the last of 2, no flips): evaluation.tester.
+     test_model greedy for each family (25 launches of its fused step a
+     batch; Candidate_Words_Dict equal, image by image, to the plain-twin
+     decode of the same features, but where a choice of that decode has a
+     gap <= 1e-4; the scores, and the host-clock split of a batch: the
+     step queued, the batch consumed); the pooled GRU in bf16 (every
+     score within 0.05 of f32); beam K=3 for the pooled GRU (the dense
+     step) and the attention GRU (the dense step, the context at step 0),
+     captions against the plain beam; the device syncs of one eval step
+     (torch.cuda.set_sync_debug_mode); the faithful beam (the GRU on 8
+     single-image batches) against the same decode on the CPU from the
+     card's features; which caption scorer runs (native or Python, and
+     why), and native scores equal to Python's on the phase's captions;
+     train.loop.train(eval_every_epochs=1) for one epoch of the pooled GRU,
+     its printed scores equal to a direct test_model call on its
+     checkpoint; cli.run.run's test phase where nltk is installed; eval
+     images/s of each family f32 and the GRU bf16, PIPELINE_SCORING on and
+     off in turns.  Phase 8's launches join the kernels' counts.
 The last lines are the card's name and power limit, a JSON line of the
 kernels, and {"ok": true, "device": {...}}.
 """
@@ -1908,6 +1927,12 @@ def main():
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
 
+    def train_params(variant, Ed, optimizer, lr, **over):
+        """The params dict of a flagship training run on the card (phases 7 and 8)."""
+        return dict({"variant": variant, "resnet_version": 101, "embedding_length": Ed, "num_hidden_units": H,
+                     "num_layers": L, "nos_cnn_filters": AC, "attn_dim": AA, "optimizer_type": optimizer, "lr": lr,
+                     "momentum": 0.9, "batch_size": TRAIN_B, "device": "gpu", "seed": 1}, **over)
+
     def training_phase():
         """Phase 7: train.loop.train for every run of TRAIN_RUNS on N_FILES
         generated JPEGs with one synthetic caption each; the f32 card step
@@ -2034,11 +2059,8 @@ def main():
             first_losses, out = {}, {}
             for variant, Ed, optimizer, lr, dtype in TRAIN_RUNS:
                 label = "%s %s %s" % (variant, dtype, optimizer)
-                params = {"variant": variant, "resnet_version": 101, "embedding_length": Ed, "num_hidden_units": H,
-                          "num_layers": L, "nos_cnn_filters": AC, "attn_dim": AA, "optimizer_type": optimizer,
-                          "lr": lr, "momentum": 0.9, "num_epochs": TRAIN_EPOCHS, "batch_size": TRAIN_B,
-                          "output_dir": os.path.join(tmp, "%s_%s" % (variant, dtype)), "device": "gpu", "seed": 1,
-                          "train_dtype": dtype}
+                params = train_params(variant, Ed, optimizer, lr, num_epochs=TRAIN_EPOCHS, train_dtype=dtype,
+                                      output_dir=os.path.join(tmp, "%s_%s" % (variant, dtype)))
                 cfg = captioner_config_from_params(params, V)
                 init = init_captioner(cfg, torch.Generator().manual_seed(SEED))
                 loader = Recorder(DataLoader(dataset, TRAIN_B, shuffle=True, drop_last=True, num_workers=8, seed=1))
@@ -2149,9 +2171,368 @@ def main():
             phase("train", "Captioner.from_checkpoint(model_%d.ckpt), bf16: one request of 64 of the training JPEGs, "
                   "launches %s, %.3f s (host clock); ids equal the plain step's decode on %.4f of positions (>= 0.95)"
                   % (TRAIN_EPOCHS, {k: v for k, v in counts.items() if v}, seconds, share))
-            return out
+            del cap
+            torch.cuda.empty_cache()
+            # 8. eval, on these checkpoints
+            return eval_phase(tmp, dataset, tvocab)
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
+
+    def eval_phase(tmp, dataset, tvocab):
+        """Phase 8: test_model on phase 7's f32 checkpoints of the four families (and the pooled GRU in bf16, by
+        beam and by the faithful beam), the native scorer against the Python one, the loop's in-training eval
+        against a direct call, and eval images/s.  Returns the launch counts of its main-path runs."""
+        import contextlib
+        import io
+        import pickle
+        import re
+        import shutil
+
+        from show_tell_tpu_torch.data.dataset import DataLoader
+        from show_tell_tpu_torch.decode.faithful_beam import faithful_beam_decode
+        from show_tell_tpu_torch.evaluation import tester
+        from show_tell_tpu_torch.evaluation.metrics import evaluate, nltk_bleu4_method4
+        from show_tell_tpu_torch.models.captioner import exact_f32_math
+        from show_tell_tpu_torch.native import fastmetrics
+        from show_tell_tpu_torch.train.checkpoint import read_checkpoint, restore_train_state
+        from show_tell_tpu_torch.train.loop import captioner_config_from_params, train
+        from show_tell_tpu_torch.train.train_step import create_train_state
+        from show_tell_tpu_torch.utils import StepTimer
+
+        loader = DataLoader(dataset, TRAIN_B, shuffle=False, drop_last=False, num_workers=8)
+        batches = list(loader)  # decoded once (PIL's decode is phase 7's data stage); every eval reads these
+        loader.close()
+        n_images = sum(len(b[0]) for b in batches)
+        if [len(b[0]) for b in batches] != [TRAIN_B] * (N_FILES // TRAIN_B) + [N_FILES % TRAIN_B]:
+            fail("the test loader gave batches of %s" % [len(b[0]) for b in batches])
+        out_dir = os.path.join(tmp, "eval")
+        os.makedirs(out_dir)
+        greedy_step = {"gru": fused_gru_decode_step, "lstm": fused_lstm_decode_step, "attn": fused_attn_decode_step,
+                       "attn_lstm": fused_attn_lstm_decode_step}
+        main_counts = []
+
+        def run_eval(ts, cfg, data, expected, **kw):
+            """test_model with every count zeroed just before and read just after (``expected``: {kernel:
+            launches}, None for timing runs); its printed output kept apart.  Returns (scores, the
+            Candidate_Words_Dict it pickled, counts, printed text)."""
+            params = {"output_dir": out_dir, "eval_augment": 0, "compute_dtype": kw.pop("dtype", "float32")}
+            for fn in counters:
+                fn.launches = 0
+            with contextlib.redirect_stdout(io.StringIO()) as log:
+                scores = tester.test_model(ts, cfg, data, tvocab, params, **kw)
+            counts = read_counts(counters, by_name(expected)) if expected is not None else None
+            with open(os.path.join(out_dir, "Candidate_Words_Dict.pickle"), "rb") as f:
+                return scores, pickle.load(f), counts, log.getvalue()
+
+        def eval_features(ts, imgs):
+            """The features test_model's step decodes: no flips, f32, TF32 off, eval mode."""
+            ts.model.eval()
+            try:
+                with torch.no_grad(), exact_f32_math(device):
+                    return encode(ts.model, preprocess_images(torch.from_numpy(imgs).to(device), None, False))
+            finally:
+                ts.model.train()
+
+        def plain_greedy(cfg, ts, prepared, feats):
+            """The features decoded greedily with the fused step's plain twin on the card: (ids, top-2 gaps)."""
+            B = feats.shape[0]
+            if cfg.is_attention:
+                dec = ts.model.decoder
+                prep = prepare_attn_decode(prepared, dec, feats.transpose(1, 2))
+
+                def astep(w_emb, state):
+                    tok, state2 = fused_attn_decode_step_plain(prep, w_emb, state)
+                    return tok, state2, project_logits(prep["vocab"], last_h(state2))
+
+                return plain_loop(astep, dec.embeddings.weight, start_embeddings(dec, B, cfg.start_token, device),
+                                  init_hidden(dec, cfg.decoder_config(), feats))
+            plain = fused_lstm_decode_step_plain if cfg.cell_type == "lstm" else fused_gru_decode_step_plain
+
+            def pstep(x, state):
+                tok, state2 = plain(prepared["stacked"], prepared["vocab"], x, state)
+                return tok, state2, project_logits(prepared["vocab"], last_h(state2))
+
+            return plain_loop(pstep, prepared["embedding"], feats,
+                              init_state(cfg.cell_type, L, B, H, torch.float32, device))
+
+        def plain_beam_decode(cfg, ts, prepared, feats):
+            """The features beam-decoded (K_BEAM) with the plain twins as steps (the context's at step 0) on the
+            card: (ids, score gaps)."""
+            B, dcfg = feats.shape[0], cfg.decoder_config()
+            if cfg.is_attention:
+                dec = ts.model.decoder
+                feats_pm = feats.transpose(1, 2).contiguous()
+                prep = prepare_attn_decode(prepared, dec, feats_pm)
+                state0 = init_hidden(dec, dcfg, feats)
+                ctx, _ = attention_context_plain(prepared, feats_pm, prep["att1"], last_h(state0))
+                w0 = start_embeddings(dec, B, cfg.start_token, device)
+                x = torch.cat([w0, linear_f32(dec.embed, ctx).to(w0.dtype)], dim=-1)
+                top, state1 = stack_plain(dcfg.cell_type)(prepared["stacked"], x, state0)
+                rows = dict(prep, feats_e=prep["feats_e"].repeat_interleave(K_BEAM, dim=0),
+                            att1=prep["att1"].repeat_interleave(K_BEAM, dim=0))
+
+                def step(tokens, state):
+                    logits, state2 = fused_attn_dense_step_plain(rows, dec.embeddings.weight.index_select(0, tokens),
+                                                                 state)
+                    return torch.log_softmax(logits, dim=-1), state2
+            else:
+                state0 = init_state(cfg.cell_type, L, B, H, torch.float32, device)
+                top, state1 = stack_plain(cfg.cell_type)(prepared["stacked"], feats, state0)
+
+                def step(tokens, state):
+                    logits, state2 = fused_dense_step_plain(prepared["stacked"], prepared["vocab"],
+                                                            prepared["embedding"].index_select(0, tokens), state)
+                    return torch.log_softmax(logits, dim=-1), state2
+
+            return plain_beam(torch.log_softmax(project_logits(prepared["vocab"], top), dim=-1), state1, step, B)
+
+        def hold(label, cands, data, decode):
+            """Fails unless test_model's Candidate_Words_Dict equals, image by image, the dict of ``decode``'s ids
+            (batch by batch over ``data``), but where the plain decode's smallest gap at a choice is at most
+            1e-4 (phase 3's f32 tie bar: there another summation order may choose otherwise).  Returns the
+            reference ids."""
+            ref, gaps, ids_all = {}, {}, []
+            for paths, _, _, _, ids, gap in decode(data):
+                ids_all.append(ids)
+                for p, words, g in zip(paths, tester.create_caption_word_format(ids, tvocab), gap):
+                    ref.setdefault(p, []).append(words)
+                    gaps[p] = min(gaps.get(p, np.inf), float(g))
+            if sorted(cands) != sorted(ref):
+                fail("%s: test_model captioned %d images, the plain decode %d" % (label, len(cands), len(ref)))
+            differ = [p for p in ref if cands[p] != ref[p]]
+            ties = [p for p in differ if gaps[p] <= 1e-4]
+            if len(differ) > len(ties):
+                fail("%s: Candidate_Words_Dict differs from the plain decode's on %d of %d images, %d of them with "
+                     "no gap at or below 1e-4 (e.g. %s: %s against %s)" % (
+                         label, len(differ), len(ref), len(differ) - len(ties), differ[0], cands[differ[0]],
+                         ref[differ[0]]))
+            phase("eval", "%s: Candidate_Words_Dict equals the plain decode's on %d of %d images%s" % (
+                label, len(ref) - len(differ), len(ref),
+                "; %d differ where a choice of the plain decode has a gap <= 1e-4 (smallest %.3g)"
+                % (len(ties), min(gaps[p] for p in ties)) if ties else ""))
+            return ids_all
+
+        def decoded(ts, cfg, plain):
+            prepared = prepare_decode(ts.model, torch.float32)
+
+            def decode(data):
+                for paths, imgs, captions, lengths in data:
+                    with torch.no_grad(), exact_f32_math(device):
+                        ids, gap = plain(cfg, ts, prepared, eval_features(ts, imgs))
+                    yield paths, imgs, captions, lengths, ids, gap
+
+            return decode
+
+        def step_syncs(label, ts, cfg, beam_size=0):
+            """One eval step (test_model's: flips, loss and decode) of the first batch, staged on the card, queued
+            under torch.cuda.set_sync_debug_mode("warn"); fails if it synced the device (test_model reads nothing
+            of a batch before the next one is queued)."""
+            import warnings
+
+            imgs, caps, lens = (torch.from_numpy(a).to(device) for a in batches[0][1:])
+            step = tester.make_test_step(cfg, beam_size, augment=True)
+            prepared = prepare_decode(ts.model, torch.float32)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    step(ts, imgs, caps, lens, torch.Generator().manual_seed(SEED), prepared,
+                         int(batches[0][3].max()))
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            syncs = [w for w in caught if "synchroniz" in str(w.message)]
+            if syncs:
+                fail("%s: one eval step synced the device %d times, first at %s:%d"
+                     % (label, len(syncs), syncs[0].filename, syncs[0].lineno))
+            phase("eval", "%s: one eval step (flips on) queued with no device sync (torch.cuda.set_sync_debug_mode)"
+                  % label)
+            # the same step once more under torch.profiler: the card's kernel time against the host's wall time
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                step(ts, imgs, caps, lens, torch.Generator().manual_seed(SEED), prepared, int(batches[0][3].max()))
+                queued = time.perf_counter() - t0
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+            busy_us = sum(getattr(e, "self_device_time_total", 0) for e in kernels)
+            if busy_us <= 0:
+                phase("eval", "%s %s: the profiler saw no device time: the step's device busy share is not measured"
+                      % (card, label))
+            else:
+                phase("eval", "%s %s B=%d: one eval step under torch.profiler: %d kernel launches, %.2f ms of kernel "
+                      "time on the card, queued in %.2f ms and done in %.2f ms (host clock, profiler on): the card "
+                      "busy %.1f%% of it" % (card, label, TRAIN_B, sum(e.count for e in kernels), busy_us / 1e3,
+                                             queued * 1e3, wall * 1e3, busy_us / 1e3 / (wall * 1e3) * 100))
+
+        # greedy, f32, each family: 25 launches of its fused step a batch; captions against the plain decode
+        states, greedy_ids = {}, {}
+        for variant, Ed, optimizer, lr, dtype in TRAIN_RUNS:
+            if dtype != "float32":
+                continue
+            cfg = captioner_config_from_params(train_params(variant, Ed, optimizer, lr), V)
+            ts = create_train_state(cfg, optimizer, lr, device="gpu", seed=1)
+            restore_train_state(ts, read_checkpoint(os.path.join(tmp, "%s_float32" % variant,
+                                                                 "model_%d.ckpt" % TRAIN_EPOCHS)))
+            states[variant] = cfg, ts
+            timer = StepTimer()
+            expected = {greedy_step[variant]: len(batches) * T}
+            scores, cands, counts, _ = run_eval(ts, cfg, batches, expected, timer=timer)
+            main_counts.append(counts)
+            split = timer.summary()
+            phase("eval", "%s f32 test_model from model_%d.ckpt, B=%d (%d batches, %d images, no flips): launches %s "
+                  "(25 a batch); test loss %.4f; %s; host clock a batch: step queued in %.2f ms, consumed (loss and "
+                  "ids read, captions, scoring handed to the pool) in %.2f ms" % (
+                      variant, TRAIN_EPOCHS, TRAIN_B, len(batches), n_images, {k: v for k, v in counts.items() if v},
+                      scores["test_loss"], ", ".join("%s %.4f" % (k, v) for k, v in scores.items() if k != "test_loss"),
+                      split["step"]["mean_ms"], split["score"]["mean_ms"]))
+            greedy_ids[variant] = hold("%s f32 greedy" % variant, cands, batches, decoded(ts, cfg, plain_greedy))
+            step_syncs("%s f32 greedy" % variant, ts, cfg)
+            if variant == "gru":
+                f32_scores = scores
+
+        # the pooled GRU in bf16: the tensor-core instance of the greedy step; every score within 0.05 of f32
+        cfg, ts = states["gru"]
+        scores16, _, counts, _ = run_eval(ts, cfg, batches, {fused_gru_decode_step: len(batches) * T}, dtype="bfloat16")
+        main_counts.append(counts)
+        worst = max(("Bleu_1", "Bleu_4", "CIDEr", "ROUGE_L", "test_loss"), key=lambda k: abs(scores16[k] - f32_scores[k]))
+        if abs(scores16[worst] - f32_scores[worst]) > 0.05:
+            fail("gru bf16 test_model: %s %.4f against f32 %.4f (bar 0.05)" % (worst, scores16[worst], f32_scores[worst]))
+        phase("eval", "gru bf16 test_model: launches %s; every score within %.4f of f32 (bar 0.05; the farthest %s: "
+              "%.4f / %.4f)" % ({k: v for k, v in counts.items() if v}, abs(scores16[worst] - f32_scores[worst]), worst,
+                                scores16[worst], f32_scores[worst]))
+
+        # beam, K_BEAM, f32: the pooled GRU (dense step) and the attention GRU (dense step, the context at step 0)
+        for variant, expected in (("gru", {fused_gru_dense_step: len(batches) * (T - 1)}),
+                                  ("attn", {fused_attn_dense_step: len(batches) * (T - 1),
+                                            attention_context: len(batches)})):
+            cfg, ts = states[variant]
+            _, cands, counts, _ = run_eval(ts, cfg, batches, expected, beam_size=K_BEAM)
+            main_counts.append(counts)
+            phase("eval", "%s f32 test_model, beam K=%d: launches %s" % (variant, K_BEAM,
+                                                                          {k: v for k, v in counts.items() if v}))
+            hold("%s f32 beam K=%d" % (variant, K_BEAM), cands, batches, decoded(ts, cfg, plain_beam_decode))
+            step_syncs("%s f32 beam K=%d" % (variant, K_BEAM), ts, cfg, K_BEAM)
+
+        # the faithful beam: the pooled GRU on 8 single-image batches, against the same decode on the CPU from the
+        # card's features
+        cfg, ts = states["gru"]
+        singles = [((p,), im[None], c[None], n[None]) for b in batches for p, im, c, n in zip(*b)][:8]
+        _, cands, counts, _ = run_eval(ts, cfg, singles, {}, beam_size=K_BEAM, faithful_beam=True)
+        prep_cpu = {k: ({n: t.cpu() for n, t in v.items()} if isinstance(v, dict) else v.cpu())
+                    for k, v in prepare_decode(ts.model, torch.float32).items()}
+
+        def faithful_on_cpu(data):
+            for paths, imgs, captions, lengths in data:
+                gaps = []
+                ids = faithful_beam_decode(prep_cpu, cfg.decoder_config(), eval_features(ts, imgs).cpu(), K_BEAM, gaps)
+                yield paths, imgs, captions, lengths, ids[None], [min(gaps)]
+
+        hold("gru f32 faithful beam K=%d (8 single-image batches, the card against the CPU)" % K_BEAM, cands, singles,
+             faithful_on_cpu)
+
+        # the native scorer against the Python path on this phase's captions (each f32 family's greedy captions)
+        phase("eval", "caption scorer: %s" % fastmetrics.status())
+        weights = [(1.0, 0, 0, 0), (0.5, 0.5, 0, 0), (0.34, 0.33, 0.33, 0), (0.25, 0.25, 0.25, 0.25)]
+        score_s = {}
+        for path_name, env in (("native", None), ("Python", "0")):
+            if env is not None:
+                os.environ["ST_FASTMETRICS"] = env
+            try:
+                t0 = time.perf_counter()
+                rows, sums = [], []
+                for variant, id_batches in greedy_ids.items():
+                    for (paths, _, captions, _), ids in zip(batches, id_batches):
+                        target = tester.create_caption_word_format(captions, tvocab, True)
+                        predicted = tester.create_caption_word_format(ids, tvocab)
+                        rows.append(evaluate(target, predicted))
+                        for refs, cand in zip(target, predicted):
+                            got = fastmetrics.corpus_bleu4_sums(refs, [cand], weights)
+                            sums.append(list(got) if got is not None else nltk_bleu4_method4(refs, cand, weights))
+                score_s[path_name] = (time.perf_counter() - t0, rows, sums)
+            finally:
+                os.environ.pop("ST_FASTMETRICS", None)
+        (ns, nrows, nsums), (ps, prows, psums) = score_s["native"], score_s["Python"]
+        if nrows != prows or nsums != psums:
+            fail("native and Python scores differ: %s" % [(a, b) for a, b in zip(nrows, prows) if a != b][:2])
+        phase("eval", "native and Python scores equal on %d batches and %d images' corpus BLEU (4 families' greedy "
+              "captions): %.2f ms a batch native, %.2f ms Python, with the corpus pass (host clock)"
+              % (len(nrows), len(nsums), ns / len(nrows) * 1e3, ps / len(prows) * 1e3))
+
+        # the loop's in-training eval: one epoch of the pooled GRU, test_model on sub_batch_test=2 batches (flips
+        # on, as the reference), against a direct call on that epoch's checkpoint
+        Ed, optimizer, lr = E, "SGD", 0.01
+        params = train_params("gru", Ed, optimizer, lr, num_epochs=1, sub_batch_test=2,
+                              output_dir=os.path.join(tmp, "gru_in_training"))
+        cfg = captioner_config_from_params(params, V)
+        init = init_captioner(cfg, torch.Generator().manual_seed(SEED))
+        train_loader = DataLoader(dataset, TRAIN_B, shuffle=True, drop_last=True, num_workers=8, seed=1)
+        for fn in counters:
+            fn.launches = 0
+        with contextlib.redirect_stdout(io.StringIO()) as log:
+            train(params, tvocab, train_loader, batches, eval_every_epochs=1, init_params_state=init)
+        train_loader.close()
+        main_counts.append(read_counts(counters, by_name({fused_gru_decode_step: 2 * T})))
+        ts = create_train_state(cfg, optimizer, lr, device="gpu", seed=1)
+        restore_train_state(ts, read_checkpoint(os.path.join(params["output_dir"], "model_1.ckpt")))
+        with contextlib.redirect_stdout(io.StringIO()) as direct:
+            tester.test_model(ts, cfg, batches, tvocab, params, sub_batch_size=2)
+        lines = [[re.sub(r"[0-9.]+ time", "<t> time", x) for x in text.splitlines() if "test loss" in x]
+                 for text in (log.getvalue(), direct.getvalue())]
+        if len(lines[0]) != 2 or lines[0] != lines[1]:
+            fail("the in-training eval printed %s, a direct test_model call %s" % (lines[0], lines[1]))
+        phase("eval", "gru f32 train(eval_every_epochs=1, sub_batch_test=2): launches {'fused_gru_decode_step': %d}; "
+              "its printed scores equal a direct test_model call on model_1.ckpt: %s" % (2 * T, lines[0][0]))
+        del ts
+
+        # the CLI's test phase on the card, where the CLI's tokenizer (nltk) is installed
+        try:
+            import nltk  # noqa: F401
+        except ImportError:
+            phase("eval", "cli.run.run: not run here: nltk (the CLI loader's tokenizer) is not installed on this host; "
+                  "the CLI is covered by tests/test_torch_cli*.py on the CPU")
+        else:
+            from show_tell_tpu_torch.cli.run import run
+
+            gru_dir = os.path.join(tmp, "gru_float32")
+            shutil.copy(os.path.join(tmp, "vocab.pkl"), os.path.join(gru_dir, "vocab.pkl"))
+            argv = ["--data_dir", tmp, "--output_dir", gru_dir, "--test_ann_path", "captions_train2014.json",
+                    "--train_ann_path", "captions_train2014.json", "--train_img_dir", "train2014",
+                    "--test_img_dir", "train2014", "--resnet_version", "101", "--embedding_length", str(E),
+                    "--num_hidden_units", str(H),
+                    "--num_layers", str(L), "--batch_size", str(TRAIN_B), "--is_training", "0", "--is_testing", "1",
+                    "--load_model_test", "model_%d" % TRAIN_EPOCHS, "--eval_augment", "0", "--device", "gpu"]
+            with contextlib.redirect_stdout(io.StringIO()):
+                cli_scores = run("gru", argv)["scores"]
+            if any(cli_scores[k] != f32_scores[k] for k in f32_scores if k != "test_loss"):
+                fail("cli.run.run's test phase scored %s, test_model %s" % (cli_scores, f32_scores))
+            phase("eval", "cli.run.run('gru', ... --device gpu) test phase: scores equal the direct test_model's")
+
+        # eval images/s, host clock to the scores, the batches in memory: PIPELINE_SCORING on and off in turns
+        rates = {}
+        try:
+            for variant, dtype in (("gru", "float32"), ("lstm", "float32"), ("attn", "float32"),
+                                   ("attn_lstm", "float32"), ("gru", "bfloat16")):
+                cfg, ts = states[variant]
+                for _ in range(3):
+                    for pipelined in (True, False):
+                        tester.PIPELINE_SCORING = pipelined
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        run_eval(ts, cfg, batches, None, dtype=dtype)
+                        rates.setdefault((variant, dtype, pipelined), []).append(n_images / (time.perf_counter() - t0))
+                on, off = (rates[variant, dtype, p] for p in (True, False))
+                phase("eval", "%s %s %s test_model B=%d, %d images in %d batches from memory, no flips, host clock to "
+                      "the scores: pipelined %.1f images/s [%.1f, %.1f], serial %.1f [%.1f, %.1f] (median [min, max] "
+                      "of 3 in turns)" % (card, variant, dtype, TRAIN_B, n_images, len(batches),
+                                          statistics.median(on), min(on), max(on), statistics.median(off), min(off),
+                                          max(off)))
+        finally:
+            tester.PIPELINE_SCORING = True
+        return main_counts
 
     # 4. pooled main paths
     slices = {}
@@ -2524,8 +2905,10 @@ def main():
               spread(cli["runs"][True, True]), spread(cli["runs"][True, False]), spread(cli["runs"]["one file"]),
               ", ".join("%s %s" % (k, spread(v)) for k, v in cli["parts"].items())))
 
-    # 7. training
-    training_phase()
+    # 7. training, then 8. eval on its checkpoints; phase 8's runs are the eval path's share of every launch count
+    for counts in training_phase():
+        for name, n in counts.items():
+            launches[name] += n
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "show_tell_tpu"))
     if leaked:

@@ -21,10 +21,12 @@ from show_tell_tpu_torch.core.device import resolve_device
 
 
 def device_prefetch(batches: Iterable, device: Union[str, torch.device],
-                    put_indices: Tuple[int, ...] = (1, 2, 3)) -> Iterator[tuple]:
+                    put_indices: Tuple[int, ...] = (1, 2, 3), stage_ahead: bool = True) -> Iterator[tuple]:
     """Yield each batch with its elements at ``put_indices`` (numpy arrays:
     images, captions, lengths) as tensors on ``device``, the next batch's
-    copy already queued; the other elements (the paths) pass through."""
+    copy already queued; the other elements (the paths) pass through.
+    ``stage_ahead=False`` queues each batch's copy only when it is taken
+    (the serial order, for an A/B of the staging)."""
     device = resolve_device(device)
     stream = torch.cuda.Stream(device) if device.type == "cuda" else None
 
@@ -52,6 +54,10 @@ def device_prefetch(batches: Iterable, device: Union[str, torch.device],
         return tuple(out)
 
     it = iter(batches)
+    if not stage_ahead:
+        for batch in it:
+            yield take(put(batch))
+        return
     try:
         pending = put(next(it))
     except StopIteration:

@@ -35,19 +35,22 @@ def _flip_draws(b: int, generator: Optional[torch.Generator], device: torch.devi
     that order with shape [b, 1, 1, 1] each on the generator's device (a
     CPU generator flips CUDA images as it flips their CPU copy), so that
     the stock and the s2d preprocess flip the same samples from the same
-    generator state."""
+    generator state.  The copies to a GPU are queued without a stream sync
+    (non_blocking from fresh host tensors), so a step can queue behind the
+    card's work."""
     if generator is None:
         raise ValueError("augment=True needs a torch.Generator")
     hflip = torch.rand(b, 1, 1, 1, generator=generator, device=generator.device) < 0.5
     vflip = torch.rand(b, 1, 1, 1, generator=generator, device=generator.device) < 0.5
-    return hflip.to(device), vflip.to(device)
+    return hflip.to(device, non_blocking=True), vflip.to(device, non_blocking=True)
 
 
 def _normalize(x: torch.Tensor, reps: int, dtype: torch.dtype) -> torch.Tensor:
     """(x - mean_c) / std_c with the RGB constants tiled ``reps`` times
-    along the last axis (channel k holds colour k % 3)."""
-    mean = torch.tensor(IMAGENET_MEAN * reps, dtype=torch.float32, device=x.device)
-    std = torch.tensor(IMAGENET_STD * reps, dtype=torch.float32, device=x.device)
+    along the last axis (channel k holds colour k % 3); the constants are
+    copied to a GPU without a stream sync, as in ``_flip_draws``."""
+    mean = torch.tensor(IMAGENET_MEAN * reps, dtype=torch.float32).to(x.device, non_blocking=True)
+    std = torch.tensor(IMAGENET_STD * reps, dtype=torch.float32).to(x.device, non_blocking=True)
     return ((x - mean) / std).to(dtype)
 
 

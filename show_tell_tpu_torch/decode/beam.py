@@ -89,11 +89,13 @@ def beam_engine(
     state = tile_state(state1)
     finished = toks0 == end_token
     tokens = toks0.reshape(B * K)
-    # Retired beams continue only with <pad>, at zero cost.
+    # Retired beams continue only with <pad>, at zero cost.  fill_ takes the
+    # scalar as a kernel argument: an item assignment would copy it from the
+    # host and sync the stream.
     pad_only = torch.full((V,), NEG_INF, device=device)
-    pad_only[pad_token] = 0.0
+    pad_only.narrow(0, pad_token, 1).fill_(0.0)
     pad_first = torch.full((K,), NEG_INF, device=device)
-    pad_first[0] = 0.0
+    pad_first.narrow(0, 0, 1).fill_(0.0)
     parents, toks = [], []
     for _ in range(T - 1):
         if early_exit and bool(finished.all()):  # the host sync of each step

@@ -101,21 +101,37 @@ def captioner_loss(
     images: torch.Tensor,  # [B, H, W, 3] normalized float, NHWC
     captions: torch.Tensor,  # [B, T] int
     lengths: torch.Tensor,  # [B] int
+    t_max: Optional[int] = None,
 ) -> torch.Tensor:
     """Teacher-forced loss (captioner.captioner_loss in the JAX package):
-    masked CE, which equals the reference's packed CE, plus alpha_c times
-    the doubly-stochastic penalty for the attention families
+    the encoder in the model's mode (in train mode its BatchNorms move their
+    running statistics in place), then ``decoder_loss`` of its features."""
+    return decoder_loss(model, cfg, model.encoder(images), captions, lengths, t_max)
+
+
+def decoder_loss(
+    model: CaptionerModel,
+    cfg: CaptionerConfig,
+    feats: torch.Tensor,  # the encoder's features: [B, E] pooled, [B, C, P] spatial
+    captions: torch.Tensor,  # [B, T] int
+    lengths: torch.Tensor,  # [B] int
+    t_max: Optional[int] = None,
+) -> torch.Tensor:
+    """The loss of ``captioner_loss`` from the encoder's features: masked
+    CE, which equals the reference's packed CE, plus alpha_c times the
+    doubly-stochastic penalty for the attention families
     (main_attn.py:130-131).  The attention families take the reference's
     w_t -> w_t alignment, or with ``attn_next_token`` step t predicting
-    w_{t+1} over t < length - 1.  The encoder runs in the model's mode: in
-    train mode its BatchNorms move their running statistics in place.
+    w_{t+1} over t < length - 1.
 
     Captions are cut to the longest length first: every later position is
     masked out of each term and the recurrence is causal, so the loss and
-    its gradients are those of the padded batch, without the dead steps."""
-    t_max = max(int(lengths.max()), 1)
-    captions = captions[:, :t_max]
-    feats = model.encoder(images)
+    its gradients are those of the padded batch, without the dead steps.
+    ``t_max``: that length, where the caller has it on the host; else it is
+    read from ``lengths`` (a device sync for lengths on a GPU)."""
+    if t_max is None:
+        t_max = int(lengths.max())
+    captions = captions[:, : max(t_max, 1)]
     if not cfg.is_attention:
         logits = decoder_forward(model.decoder, cfg.decoder_config(), feats, captions, lengths)
         return masked_cross_entropy(logits, captions, lengths)
@@ -359,11 +375,22 @@ def captioner_greedy_decode(
     kernel, plain embed and recurrence products, and the projection +
     argmax kernel.  The JAX package keeps the pooled LSTM on its XLA scan
     by a TPU measurement; here it takes the kernel like the GRU."""
+    return greedy_decode_features(model, cfg, encode(model, images, s2d), prepared, end_token, vocab_sharded)
+
+
+def greedy_decode_features(
+    model: CaptionerModel,
+    cfg: CaptionerConfig,
+    feats: torch.Tensor,  # the encoder's features: [B, E] pooled, [B, C, P] spatial
+    prepared: Optional[Dict[str, object]] = None,
+    end_token: Optional[int] = None,
+    vocab_sharded: bool = False,
+) -> torch.Tensor:
+    """The decode of ``captioner_greedy_decode`` from the encoder's features."""
     from show_tell_tpu_torch.ops.attention import attn_greedy_decode_composite
     from show_tell_tpu_torch.ops.fused_attn import attn_greedy_decode_fused, fused_attn_fits
     from show_tell_tpu_torch.ops.rnn import greedy_decode_kernel
 
-    feats = encode(model, images, s2d)
     if prepared is None:
         prepared = prepare_decode(model, model.decoder.embeddings.weight.dtype)
     if cfg.is_attention:
@@ -394,10 +421,22 @@ def captioner_beam_decode(
     families ``attn_beam_search_decode`` with the fused dense step (the
     composite for an attention model with H > 2E).  Beams retire on
     ``end_token``; early_exit stops once all have (identical ids)."""
+    return beam_decode_features(model, cfg, encode(model, images, s2d), prepared, beam_size, end_token, early_exit)
+
+
+def beam_decode_features(
+    model: CaptionerModel,
+    cfg: CaptionerConfig,
+    feats: torch.Tensor,  # the encoder's features: [B, E] pooled, [B, C, P] spatial
+    prepared: Optional[Dict[str, object]] = None,
+    beam_size: int = 3,
+    end_token: int = 2,
+    early_exit: bool = False,
+) -> torch.Tensor:
+    """The beam search of ``captioner_beam_decode`` from the encoder's features."""
     from show_tell_tpu_torch.decode.beam import attn_beam_search_decode, beam_search_decode
     from show_tell_tpu_torch.ops import beam_step_default
 
-    feats = encode(model, images, s2d)
     if prepared is None:
         prepared = prepare_decode(model, model.decoder.embeddings.weight.dtype)
     if cfg.is_attention:

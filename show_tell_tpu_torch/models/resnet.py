@@ -20,8 +20,9 @@ stem kernel (ops/stem.py) computes straight from uint8 pixels.
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Any, Dict, List, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -140,3 +141,24 @@ class ResNet(nn.Module):
         for s in range(4):
             y = getattr(self, "layer%d" % (s + 1))(y)
         return y.permute(0, 2, 3, 1)
+
+
+def resnet_params_from_torch(state_dict: Dict[str, Any]) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]:
+    """A torchvision ResNet state_dict -> (params, state) flat numpy dicts in
+    the JAX layout (the counterpart of show_tell_tpu/models/resnet.py's
+    ``resnet_params_from_torch``), for ``init_captioner``'s trees: conv
+    weights OIHW -> HWIO; ``fc.*`` and ``num_batches_tracked`` are dropped
+    (the reference strips fc, cnn.py:34).  Every array is a copy."""
+    params: Dict[str, np.ndarray] = {}
+    state: Dict[str, np.ndarray] = {}
+    for k, v in state_dict.items():
+        if k.startswith("fc.") or k.endswith("num_batches_tracked"):
+            continue
+        arr = np.array(v.detach().cpu().numpy() if torch.is_tensor(v) else v, copy=True)
+        if k.endswith(".weight") and arr.ndim == 4:
+            params[k] = np.ascontiguousarray(np.transpose(arr, (2, 3, 1, 0)))  # OIHW->HWIO
+        elif k.endswith(".running_mean") or k.endswith(".running_var"):
+            state[k] = arr
+        else:
+            params[k] = arr
+    return params, state

@@ -10,11 +10,14 @@ but restarts at epoch 0, faithfully (SURVEY.md §3.5).  On SIGTERM the loop
 checkpoints at the next batch boundary and exits with code 143.
 ``metrics.jsonl`` gets a record every print and every epoch, with the
 stage timer's host-clock split (data, step); ``profile_dir`` takes a
-``torch.profiler`` trace of steps 2-6 of the first epoch.
+``torch.profiler`` trace of steps 2-6 of the first epoch.  Every
+``eval_every_epochs`` epochs (the GRU CLI asks for 5), after the epoch's
+checkpoint, ``test_model`` scores ``sub_batch_test`` batches of the test
+loader, and the model goes back to train mode.
 
-Not yet ported: data parallelism (``dp`` > 1, ROADMAP Queue 1 item 6)
-and the in-training eval (``eval_every_epochs`` with a test loader,
-``test_model``, item 5).  Asking for either raises before the first step.
+Not yet ported: data parallelism (``dp`` > 1, ROADMAP Queue 1 item 6),
+which raises before the first step, as does an eval setting the port's
+test_model does not run.
 """
 
 from __future__ import annotations
@@ -76,8 +79,9 @@ def train(
         raise NotImplementedError("data parallelism (dp=%d) is ROADMAP Queue 1 item 6; the port trains on one device"
                                   % params["dp"])
     if eval_every_epochs and test_data_loader is not None:
-        raise NotImplementedError("the in-training eval (test_model every %d epochs) is ROADMAP Queue 1 item 5"
-                                  % eval_every_epochs)
+        from show_tell_tpu_torch.evaluation.tester import check_eval_params
+
+        check_eval_params(params)  # before training, not at the first eval
     cfg = captioner_config_from_params(params, len(vocab))
     ts = create_train_state(cfg, params["optimizer_type"], params["lr"], params.get("momentum", 0.9),
                             device=params.get("device", "gpu"), seed=params.get("seed", 1), init=init_params_state)
@@ -173,6 +177,13 @@ def train(
             if params.get("keep_checkpoints", 0):
                 prune_checkpoints(params["output_dir"], int(params["keep_checkpoints"]))
             timer.reset()
+
+            if eval_every_epochs and (epoch + 1) % eval_every_epochs == 0 and test_data_loader is not None:
+                from show_tell_tpu_torch.evaluation.tester import test_model
+
+                print("Steps to be taken - %d\n" % params.get("sub_batch_test", 10))
+                test_model(ts, cfg, test_data_loader, vocab, params, sub_batch_size=params.get("sub_batch_test", 10))
+                ts.model.train()
     finally:
         if handler_installed:
             signal.signal(signal.SIGTERM, prev_handler if prev_handler is not None else signal.SIG_DFL)

@@ -33,9 +33,12 @@ from show_tell_tpu_torch.data.transforms import preprocess_images
 from show_tell_tpu_torch.models.captioner import (
     CaptionerConfig,
     CaptionerModel,
+    beam_decode_features,
     build_trainable_model,
-    captioner_greedy_decode,
+    decoder_loss,
+    encode,
     exact_f32_math,
+    greedy_decode_features,
     init_captioner,
     prepare_decode,
     trainable_parameters,
@@ -125,29 +128,60 @@ def make_train_step(
     return step
 
 
-def make_eval_step(cfg: CaptionerConfig, augment: bool = True):
-    """Returns evaluate(ts, images_u8, captions, lengths, generator) ->
-    (loss, ids [B, 25] int32): eval-mode BatchNorm, the teacher-forced loss
-    and the greedy decode (``captioner_greedy_decode``: the decode kernels
-    on a GPU) of the state's f32 weights.  The reference keeps its random
+def make_eval_step(
+    cfg: CaptionerConfig,
+    augment: bool = True,
+    compute_dtype: str = "float32",
+    beam_size: int = 0,
+    loss_only: bool = False,
+    early_exit: bool = False,
+    end_token: int = 2,
+):
+    """Returns evaluate(ts, images_u8, captions, lengths, generator=None,
+    prepared=None, t_max=None) -> (loss, out): eval-mode BatchNorm, one
+    encoder forward, the teacher-forced loss from its features, and from
+    them ``out``: the greedy decode's ids [B, 25] int32
+    (``greedy_decode_features``: the decode kernels on a GPU), with
+    ``beam_size`` > 0 the batched beam search's (``beam_decode_features``),
+    or with ``loss_only`` the features themselves (the faithful beam decodes
+    them on the host).  ``early_exit`` stops the decode once every row
+    emitted ``end_token`` (identical ids).  The reference keeps its random
     flips at test time (utils.py:96); ``augment`` mirrors that, drawn from
-    ``generator``.  The kernels' weight layout is built from the weights at
-    each call (a copy, small beside the encode), so an eval after an update
-    or a restore decodes with the weights as they are.  The model's mode is
-    restored."""
+    ``generator``.
 
-    def evaluate(ts: TrainState, images_u8, captions, lengths, generator: Optional[torch.Generator] = None):
+    ``ts.model`` computes in ``compute_dtype`` ("bfloat16": a model whose
+    weights the caller cast, and the images are cast to it).  ``prepared``:
+    the kernels' weight layout (``prepare_decode``), which a caller that
+    evaluates many batches of unchanged weights builds once; else it is
+    built from the weights at each call, so an eval after an update or a
+    restore decodes with the weights as they are.  ``t_max``: the longest
+    caption length, where the caller has it on the host.  Neither the loss
+    nor ``out`` is read on the host here (with ``t_max`` given and no
+    ``early_exit``: no device sync), so a caller may queue the next batch
+    before it reads them.  The model's mode is restored."""
+    dtype = COMPUTE_DTYPES[compute_dtype] or torch.float32
+
+    def evaluate(ts: TrainState, images_u8, captions, lengths, generator: Optional[torch.Generator] = None,
+                 prepared: Optional[Dict[str, object]] = None, t_max: Optional[int] = None):
         model = ts.model
         was_training = model.training
         model.eval()
         try:
             images_u8, captions, lengths = _on(ts.device, images_u8, captions, lengths)
             with torch.no_grad(), exact_f32_math(ts.device):
-                images = preprocess_images(images_u8, generator, augment)
-                loss = model(images, captions, lengths)
-                ids = captioner_greedy_decode(model, cfg, images, prepare_decode(model, torch.float32))
+                images = preprocess_images(images_u8, generator, augment, dtype)
+                feats = encode(model, images)
+                loss = decoder_loss(model, cfg, feats, captions, lengths, t_max)
+                if loss_only:
+                    return loss, feats
+                if prepared is None:
+                    prepared = prepare_decode(model, dtype)
+                if beam_size > 0:
+                    out = beam_decode_features(model, cfg, feats, prepared, beam_size, end_token, early_exit)
+                else:
+                    out = greedy_decode_features(model, cfg, feats, prepared, end_token if early_exit else None)
         finally:
             model.train(was_training)
-        return loss, ids
+        return loss, out
 
     return evaluate

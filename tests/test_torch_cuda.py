@@ -908,3 +908,92 @@ def test_f32_train_step_on_the_card_equals_the_cpu_step(cuda, tf32_global):
     finally:
         torch.backends.cudnn.allow_tf32 = saved[0]
         torch.set_float32_matmul_precision(saved[1])
+
+
+class _EvalVocab:
+    def __init__(self, size):
+        self.index_to_word = ["<pad>", "<start>", "<end>", "<unk>"] + ["w%d" % i for i in range(4, size)]
+        self.word_to_index = {w: i for i, w in enumerate(self.index_to_word)}
+
+    def start_token(self):
+        return "<start>"
+
+    def end_token(self):
+        return "<end>"
+
+    def __len__(self):
+        return len(self.index_to_word)
+
+
+def _eval_batches(V, seed=0):
+    """Two batches of 8 and a tail of 3 (paths, uint8 images, captions, lengths), as the test loader yields them."""
+    rng = np.random.RandomState(seed)
+    out, n = [], 0
+    for rows in (8, 8, 3):
+        lengths = np.sort(rng.randint(4, 10, rows))[::-1].astype(np.int32).copy()
+        caps = np.zeros((rows, 12), np.int32)
+        for b in range(rows):
+            caps[b, : lengths[b]] = rng.randint(4, V, lengths[b])
+        out.append((tuple("img_%d.jpg" % (n + i) for i in range(rows)),
+                    rng.randint(0, 256, (rows, 64, 64, 3), dtype=np.uint8), caps, lengths))
+        n += rows
+    return out
+
+
+@pytest.mark.parametrize("variant", ["gru", "attn"])
+def test_f32_test_model_on_the_card_equals_the_cpu_run(cuda, tmp_path, variant):
+    """test_model (greedy, f32, no flips) from the same weights on the card
+    (the fused greedy step kernels) and on the CPU (their plain twins):
+    every score equal, the test loss within 1e-5 relative, the same
+    captions; the decode kernel launched 25 times a batch."""
+    import pickle
+
+    from show_tell_tpu_torch.evaluation.tester import test_model
+    from show_tell_tpu_torch.models.captioner import CaptionerConfig, init_captioner
+    from show_tell_tpu_torch.train.train_step import create_train_state
+
+    V = 40
+    cfg = CaptionerConfig(variant, 18, 16, 24, V, 2, nos_filters=512, attn_dim=16)
+    init = init_captioner(cfg, torch.Generator().manual_seed(5))
+    step = fused_gru_decode_step if variant == "gru" else fused_attn_decode_step
+    runs = {}
+    for dev in ("cpu", "gpu"):
+        out = tmp_path / dev
+        out.mkdir()
+        ts = create_train_state(cfg, "SGD", 0.01, device=dev, init=init)
+        before = step.launches
+        scores = test_model(ts, cfg, _eval_batches(V), _EvalVocab(V), {"output_dir": str(out), "eval_augment": 0})
+        with open(out / "Candidate_Words_Dict.pickle", "rb") as f:
+            runs[dev] = (scores, pickle.load(f), step.launches - before)
+    (gpu, gpu_caps, gpu_launches), (cpu, cpu_caps, cpu_launches) = runs["gpu"], runs["cpu"]
+    assert (gpu_launches, cpu_launches) == (3 * 25, 0)
+    assert gpu_caps == cpu_caps
+    for k in cpu:
+        if k == "test_loss":
+            assert abs(gpu[k] - cpu[k]) <= 1e-5 * abs(cpu[k]), (gpu[k], cpu[k])
+        else:
+            assert gpu[k] == cpu[k], (k, gpu[k], cpu[k])
+
+
+@pytest.mark.parametrize("beam_size", [0, 3], ids=["greedy", "beam"])
+@pytest.mark.parametrize("variant", ["gru", "attn"])
+def test_eval_step_queues_without_a_device_sync(cuda, variant, beam_size):
+    """test_model's step (flips, loss, decode) on a staged batch reads nothing
+    on the host: under torch.cuda.set_sync_debug_mode("error") any sync raises."""
+    from show_tell_tpu_torch.evaluation.tester import make_test_step
+    from show_tell_tpu_torch.models.captioner import CaptionerConfig, init_captioner, prepare_decode
+    from show_tell_tpu_torch.train.train_step import create_train_state
+
+    cfg = CaptionerConfig(variant, 18, 16, 24, 40, 2, nos_filters=512, attn_dim=16)
+    ts = create_train_state(cfg, "SGD", 0.01, device="gpu", init=init_captioner(cfg, torch.Generator().manual_seed(5)))
+    _, images, captions, lengths = _eval_batches(40)[0]
+    staged = [torch.from_numpy(a).to(cuda) for a in (images, captions, lengths)]
+    step = make_test_step(cfg, beam_size, augment=True)
+    prepared = prepare_decode(ts.model, torch.float32)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss, ids = step(ts, *staged, torch.Generator().manual_seed(1), prepared, int(lengths.max()))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert ids.shape == (8, 25) and torch.isfinite(loss)

@@ -25,7 +25,11 @@ def test_port_imports_without_jax():
         "show_tell_tpu_torch.train.train_step, show_tell_tpu_torch.train.checkpoint, show_tell_tpu_torch.train.loop, "
         "show_tell_tpu_torch.data.coco, show_tell_tpu_torch.data.dataset, show_tell_tpu_torch.data.image_cache, "
         "show_tell_tpu_torch.data.device_prefetch, show_tell_tpu_torch.utils, show_tell_tpu_torch.utils.logging, "
-        "show_tell_tpu_torch.utils.profiling; "
+        "show_tell_tpu_torch.utils.profiling, show_tell_tpu_torch.evaluation.metrics, "
+        "show_tell_tpu_torch.evaluation.tester, show_tell_tpu_torch.native.fastmetrics, "
+        "show_tell_tpu_torch.decode.faithful_beam, show_tell_tpu_torch.decode.generic, show_tell_tpu_torch.core.config, "
+        "show_tell_tpu_torch.cli.run, show_tell_tpu_torch.cli.main, show_tell_tpu_torch.cli.main_lstm, "
+        "show_tell_tpu_torch.cli.main_attn, show_tell_tpu_torch.cli.main_attn_lstm; "
         "import sys; "
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if m.startswith('jax')); "
         "assert not any(m.split('.')[0] in ('optax', 'nltk', 'show_tell_tpu') for m in sys.modules), "
@@ -143,3 +147,85 @@ def test_serving_from_a_checkpoint_imports_nothing_of_the_jax_package(tmp_path):
     assert result.returncode == 0, result.stderr
     assert result.stdout.count("\t") == 3  # each CLI run's one path<TAB>caption line
     assert "1 hits, 0 misses" in result.stderr  # the s2d CLI run found its image in the cache
+
+
+def _small_gru_checkpoint(tmp_path):
+    """(data_root, out_dir): the mini-COCO fixture, and a port checkpoint and vocab.pkl of a small pooled GRU
+    (the CLI flags of tests/torch_eval_helpers.cli_argv)."""
+    import torch
+
+    from fixtures import build_mini_coco
+    from show_tell_tpu_torch.models.captioner import CaptionerConfig
+    from show_tell_tpu_torch.train.checkpoint import create_checkpoint
+    from show_tell_tpu_torch.train.train_step import create_train_state
+    from show_tell_tpu_torch.vocab import get_vocabulary
+
+    data_root, out = str(tmp_path / "data"), str(tmp_path / "out")
+    build_mini_coco(data_root)
+    os.makedirs(out)
+    params = {"vocab_path": os.path.join(out, "vocab.pkl"), "data_dir": data_root, "vocab_threshold": 1,
+              "train_ann_path": "annotations/captions_train2014.json", "output_dir": out}
+    vocab = get_vocabulary("MSCOCO", params)  # builds and saves vocab.pkl (nltk here)
+    ts = create_train_state(CaptionerConfig("gru", 18, 16, 24, len(vocab), 1), "Adam", 0.01, device="cpu")
+    with torch.no_grad():
+        create_checkpoint(ts, 1, 0, [], params)
+    return data_root, out
+
+
+def test_test_model_imports_neither_nltk_nor_the_jax_package(tmp_path):
+    """test_model from a port checkpoint, with nltk unimportable (the GPU
+    host has none) and the loader's captions split by str.split: no jax,
+    optax, nltk or show_tell_tpu module is imported."""
+    data_root, out = _small_gru_checkpoint(tmp_path)
+    code = textwrap.dedent("""
+        import os, sys
+        sys.modules["nltk"] = None  # import nltk raises ImportError
+        import torch
+        torch.set_num_threads(2)  # the suite's other workers share the cores
+        from show_tell_tpu_torch.data.dataset import MSCOCO, DataLoader
+        from show_tell_tpu_torch.evaluation.tester import test_model
+        from show_tell_tpu_torch.models.captioner import CaptionerConfig
+        from show_tell_tpu_torch.train.checkpoint import read_checkpoint, restore_train_state
+        from show_tell_tpu_torch.train.train_step import create_train_state
+        from show_tell_tpu_torch.vocab import load_vocab
+        data, out = %r, %r
+        vocab = load_vocab(os.path.join(out, "vocab.pkl"))
+        ds = MSCOCO(os.path.join(data, "annotations/captions_train2014.json"), os.path.join(data, "train2014"), vocab,
+                    tokenize=str.split)
+        cfg = CaptionerConfig("gru", 18, 16, 24, len(vocab), 1)
+        ts = restore_train_state(create_train_state(cfg, "Adam", 0.01, device="cpu"),
+                                 read_checkpoint(os.path.join(out, "model_1.ckpt")))
+        scores = test_model(ts, cfg, DataLoader(ds, 4), vocab, {"output_dir": out}, beam_size=2)
+        assert len(scores) == 11, scores
+        leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "optax", "show_tell_tpu"))
+        assert not leaked and sys.modules["nltk"] is None, leaked
+    """) % (data_root, out)
+    result = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+                            capture_output=True, text=True, timeout=300)
+    assert result.returncode == 0, result.stderr
+    assert "Testing completed." in result.stdout
+
+
+def test_cli_test_phase_imports_nothing_of_the_jax_package(tmp_path):
+    """The GRU CLI's test phase on the CPU from a saved vocabulary and a
+    port checkpoint: no jax, optax or show_tell_tpu module is imported (the
+    CLI's loader tokenizes the test captions with nltk, the reference's
+    tokenizer)."""
+    data_root, out = _small_gru_checkpoint(tmp_path)
+    code = textwrap.dedent("""
+        import sys
+        sys.path.insert(0, "tests")
+        import torch
+        torch.set_num_threads(2)  # the suite's other workers share the cores
+        from torch_eval_helpers import cli_argv
+        from show_tell_tpu_torch.cli.run import run
+        res = run("gru", cli_argv(%r, %r, ["--is_training", "0", "--is_testing", "1", "--load_model_test", "model_1",
+                                            "--device", "cpu"]))
+        assert len(res["scores"]) == 11, res["scores"]
+        leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "optax", "show_tell_tpu"))
+        assert not leaked, leaked
+    """) % (data_root, out)
+    result = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+                            capture_output=True, text=True, timeout=300)
+    assert result.returncode == 0, result.stderr
+    assert "Loading vocabulary from the existing file." in result.stdout

@@ -3,8 +3,9 @@ the CPU: two epochs whose per-step losses are the port's own train step
 replayed on the batches the loop consumed, with the same flips; the
 checkpoint cadence and ``keep_checkpoints``; ``metrics.jsonl`` and the
 profiler trace; a resume that restores weights and optimizer state and
-restarts at epoch 0; a SIGTERM that checkpoints and exits 143; and the two
-branches of later items, which raise before the first step.
+restarts at epoch 0; a SIGTERM that checkpoints and exits 143; data
+parallelism, which raises before the first step; and the in-training eval,
+whose scores equal a direct test_model call on each epoch's checkpoint.
 """
 
 import json
@@ -126,11 +127,41 @@ def test_sigterm_checkpoints_and_exits_143(setup, tmp_path):
     assert (ckpt["epoch"], ckpt["step"]) == (1, 2) and len(_losses(str(tmp_path), 1)) == 2
 
 
-@pytest.mark.parametrize("kw,item", [(dict(dp=2), "item 6"), (dict(eval_every_epochs=1), "item 5")])
+@pytest.mark.parametrize("kw,item", [(dict(dp=2), "item 6"), (dict(eval_every_epochs=1, use_pallas=0), "XLA")])
 def test_later_items_raise_before_the_first_step(setup, tmp_path, kw, item):
     params, vocab = setup
-    params = dict(params, output_dir=str(tmp_path), dp=kw.get("dp", 0))
-    with pytest.raises(NotImplementedError, match=item):
+    params = dict(params, output_dir=str(tmp_path), dp=kw.get("dp", 0), use_pallas=kw.get("use_pallas", -1))
+    with pytest.raises((NotImplementedError, ValueError), match=item):
         train(params, vocab, get_data_loader(vocab, params, "train"), test_data_loader=[],
               eval_every_epochs=kw.get("eval_every_epochs", 0))
     assert not os.listdir(str(tmp_path))
+
+
+def test_in_training_eval_equals_a_direct_test_model(setup, tmp_path, monkeypatch, capsys):
+    """eval_every_epochs=1 with a test loader: after each epoch's checkpoint
+    the loop runs test_model on ``sub_batch_test`` batches (the reference's
+    flips on) and leaves the model in train mode; its scores equal a direct
+    test_model call on that epoch's checkpoint."""
+    from show_tell_tpu_torch.evaluation import tester
+
+    params, vocab = setup
+    params = dict(params, output_dir=str(tmp_path), num_epochs=2, keep_checkpoints=0, profile_dir="",
+                  sub_batch_test=2, use_pallas=-1)
+    seen = []
+    real = tester.test_model
+
+    def recording(ts, *args, **kwargs):
+        seen.append((real(ts, *args, **kwargs), kwargs["sub_batch_size"]))
+        return seen[-1][0]
+
+    monkeypatch.setattr(tester, "test_model", recording)
+    ts = train(params, vocab, get_data_loader(vocab, params, "train"), get_data_loader(vocab, params, "test"),
+               eval_every_epochs=1)
+    assert ts.model.training and [n for _, n in seen] == [2, 2]
+    assert capsys.readouterr().out.count("Testing completed.") == 2
+    cfg = captioner_config_from_params(params, len(vocab))
+    for epoch, (scores, _) in enumerate(seen, start=1):
+        direct = create_train_state(cfg, params["optimizer_type"], params["lr"], device="cpu")
+        restore_train_state(direct, read_checkpoint(os.path.join(str(tmp_path), "model_%d.ckpt" % epoch)))
+        assert real(direct, cfg, get_data_loader(vocab, params, "test"), vocab, params, sub_batch_size=2) == scores
+    assert seen[0][0] != seen[1][0]  # the second eval saw the second epoch's weights
