@@ -44,7 +44,9 @@ Phases, one line each (any failure exits non-zero with no ok line):
   3e. the bf16 projection kernels' V-tiles on this card, and a tie across
      the first V-tile boundary in both projection kernels, f32 and bf16;
   4. pooled main paths: a flagship pooled-GRU Captioner (ResNet-101,
-     random weights from seed 0, bf16) serves three requests of 64
+     random weights from seed 0, bf16; its default encoder route, the
+     BN-folded encoder where ops.fold_bn_default() is on, as on the
+     card) serves three requests of 64
      images; the fused step must have launched 3 x 25 times and the ids
      must agree with the plain step's decode; then once more in f32 at
      B=8.  Then the same Captioner serves three requests at beam width 3
@@ -75,8 +77,12 @@ Phases, one line each (any failure exits non-zero with no ok line):
      each followed by one composite decode of the same features at B=64
      (25 launches each of the context and projection kernels); beam as
      in 4 (3 x 24 dense-step launches and one context launch a request),
-     and a sparse composite beam decode (25 context, 24 top-k launches),
-     and the s2d path as in 4;
+     and a sparse composite beam decode (25 context, 24 top-k launches;
+     its ids against the served route's on 0.95 of positions or, where
+     lower, the weakest of ROUTE_CONTROLS controls: the served route with
+     each step's new state moved at random places by as many values and
+     bf16 ulps as the composite step's differs from it on that input,
+     itself held within the bf16 state tolerance), and the s2d path as in 4;
   5b. the CLI path: 130 generated JPEGs of COCO's sizes (640 x 480 and
      the like) captioned by the s2d pooled GRU through caption_paths at
      B=64 (two full batches and a padded one), overlapped and serial
@@ -108,6 +114,20 @@ Phases, one line each (any failure exits non-zero with no ok line):
      GRU's and the attention GRU's dense beam decode at B=64; the A/B
      behind beam_step_default(): whole pooled GRU and LSTM beam decodes at
      K=3, B = 1, 64, 256, by the dense and the top-k route in turns;
+     (a) a full-width reference-format torch .ckpt (model.N.*, unit.*) of
+     the pooled GRU and the attention GRU served at B=64 through
+     Captioner.from_checkpoint, ids equal to the Captioner built from the
+     same weights; (b) the BN-folded encoder (models/serving.py) against
+     the unfolded one for the same two families: f32 features within
+     FOLD_F32_RTOL and f32 served ids equal on >= 0.95 of positions; in
+     bf16 the unfolded route's three requests against the plain decode of
+     its features (>= 0.95), and the folded features within twice the
+     unfolded route's error against the f32 features (the bar of "bf16
+     ids of the two routes equal on >= 0.95" does not hold on random
+     weights: each bf16 route parts from the f32 route's ids on about half
+     the positions, PERF.md section 6); and the A/B behind
+     fold_bn_default(): the encoder alone from uint8, B = 1 and 64, bf16
+     and f32, the routes in turns by CUDA events;
   7. training: train.loop.train, 2 epochs at B=32 (4 steps each) on 130
      generated JPEGs of COCO's sizes with one caption each from the
      synthetic vocabulary (saved as vocab.pkl and loaded by
@@ -122,6 +142,11 @@ Phases, one line each (any failure exits non-zero with no ok line):
      model_2.ckpt: an eval step (25 launches of the fused greedy step, ids
      against the plain decode) and one request of 64 served through
      Captioner.from_checkpoint (ids against the plain decode, >= 0.95);
+     (c) data parallelism: a one-rank nccl group (the pooled GRU), then two
+     gloo ranks on cuda:0 (the pooled and the attention GRU), spawned,
+     DP_STEPS f32 steps at global B=32 with flips: the ranks equal, their
+     losses, and from one backbone output the loss and every gradient's
+     norm, within TRAIN_CPU_RTOL of one process's card steps;
   8. eval, on phase 7's f32 checkpoints (the 130 JPEGs in a test loader:
      B=32, five batches, the last of 2, no flips): evaluation.tester.
      test_model greedy for each family (25 launches of its fused step a
@@ -140,7 +165,10 @@ Phases, one line each (any failure exits non-zero with no ok line):
      its printed scores equal to a direct test_model call on its
      checkpoint; cli.run.run's test phase where nltk is installed; eval
      images/s of each family f32 and the GRU bf16, PIPELINE_SCORING on and
-     off in turns.  Phase 8's launches join the kernels' counts.
+     off in turns; (d) test_model over the two gloo ranks of (c) from the
+     GRU's f32 checkpoint: its scores equal the one-process run's (the
+     word-level ones exactly, test_loss within 1e-5).  Phase 8's launches
+     join the kernels' counts.
 The last lines are the card's name and power limit, a JSON line of the
 kernels, and {"ok": true, "device": {...}}.
 """
@@ -186,6 +214,8 @@ CLI_TURNS = 5  # caption_paths runs in turns, each mode decoding the files and f
 # the neighbouring bf16: also within one bf16 ulp (bf16_ulp_gaps).
 STEM_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 S2D_CONTROLS = 4  # one-ulp controls a request on the s2d path (s2d_against_twin)
+ROUTE_CONTROLS = 2  # controls of the attention beam's sparse composite route (route_decodes)
+ROUTE_STATE_SHARE = 0.99  # of a composite step's state values within the bf16 tolerance of the served step's
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, the published peak
 BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
 SPIN_CYCLES = 2_000_000  # about 1 ms at the H100's 1.98 GHz boost clock: longer than a wrapper's enqueue
@@ -206,6 +236,15 @@ TRAIN_RUNS = (("gru", E, "SGD", 0.01, "float32"), ("lstm", LE, "Adam", 1e-3, "fl
 # by about 1e-3 relative, far below a TF32 run's gap (the smoke measures both), and that spread reaches the
 # gradients of the whole step, held within TRAIN_FULL_RTOL.
 TRAIN_CPU_RTOL, TRAIN_BACKBONE_RTOL, TRAIN_FULL_RTOL = 1e-4, 5e-3, 1e-2
+# The reference .ckpt and the fold A/B (phase 6): the pooled GRU and the attention GRU.  The folded route's f32
+# features against the unfolded route's, relative to their largest value (the JAX package's fold bar, 2e-4).
+FOLD_VARIANTS = (("gru", 256), ("attn", 512))
+FOLD_F32_RTOL = 2e-4
+# Phase 7's data-parallel runs: a one-rank nccl group (the pooled GRU) and two gloo ranks on cuda:0 (the pooled and
+# the attention GRU), DP_STEPS steps at global B = TRAIN_B from the seeded weights, held to one process's card steps
+# (TRAIN_CPU_RTOL: the losses, and from one backbone output the loss and every trainable gradient's norm).
+DP_STEPS = 2
+DP_TIMEOUT = 600  # seconds for each group of spawned ranks
 
 
 def fail(msg):
@@ -297,6 +336,135 @@ def event_median_ms(fn, iters=30, warmup=5, spin=SPIN_CYCLES, before=None):
     return statistics.median(e0.elapsed_time(e1) for e0, e1 in pairs)
 
 
+def event_rounds(routes):
+    """CUDA-event ms a call of each route ({route: fn}), after one warm-up
+    call each: AB_ROUNDS rounds of AB_REPS calls a route, the routes in
+    turns (every other round in the reverse order), the card idle between
+    routes."""
+    import torch
+
+    for fn in routes.values():
+        fn()
+    names = list(routes)
+    ms = {name: [] for name in names}
+    for rnd in range(AB_ROUNDS):
+        for name in (names if rnd % 2 == 0 else names[::-1]):
+            torch.cuda.synchronize()
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            for _ in range(AB_REPS):
+                routes[name]()
+            e1.record()
+            torch.cuda.synchronize()
+            ms[name].append(e0.elapsed_time(e1) / AB_REPS)
+    return ms
+
+
+def write_reference_ckpt(params, bn_state, path):
+    """The JAX-layout trees as the reference saves a checkpoint
+    (utils.py:131-138): the encoder's torchvision layers under their
+    nn.Sequential indices (``model.N.*``, cnn.py:34), its head, the
+    decoder's own names, torch tensors."""
+    import numpy as np
+    import torch
+
+    from show_tell_tpu_torch.models.convert import params_from_jax
+
+    seq = {"conv1": "0", "bn1": "1", "layer1": "4", "layer2": "5", "layer3": "6", "layer4": "7"}
+    sds = params_from_jax(params, bn_state)
+    enc = {}
+    for k, v in sds["encoder"].items():
+        if k.startswith("resnet."):
+            root, _, tail = k[len("resnet."):].partition(".")
+            k = "model.%s.%s" % (seq[root], tail)
+        enc[k] = torch.from_numpy(np.ascontiguousarray(v))
+    enc["last_layer.num_batches_tracked"] = torch.tensor(0)  # torch saves it with a BatchNorm1d
+    dec = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sds["decoder"].items()}
+    torch.save({"encoder_state_dict": enc, "decoder_state_dict": dec, "optimizer_state_dict": {}, "epoch": 1,
+                "step": 0}, path)
+
+
+def fixed_map(fmap):
+    """A backbone module that returns ``fmap`` whatever the images, so that two steps share the frozen ResNet's
+    output."""
+    import torch
+
+    class FixedMap(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.fmap = fmap
+
+        def forward(self, images):
+            return self.fmap
+
+    return FixedMap()
+
+
+def dp_steps(cfg, init, batch, device, mesh, fmap):
+    """DP_STEPS f32 SGD train steps (flips on, drawn for the global batch) from ``init`` on ``device``, over
+    ``mesh`` (None: one process): their losses; then, from a fresh state whose backbone returns this rank's rows of
+    ``fmap``, one step's loss and each trainable gradient's norm (f64 sums)."""
+    from show_tell_tpu_torch.models.captioner import trainable_parameters
+    from show_tell_tpu_torch.parallel.mesh import shard_rows
+    from show_tell_tpu_torch.train.train_step import create_train_state, make_train_step
+
+    ts = create_train_state(cfg, "SGD", 0.01, 0.9, device=device, seed=1, init=init, mesh=mesh)
+    step = make_train_step(cfg)
+    losses = [float(step(ts, *batch)) for _ in range(DP_STEPS)]
+    del ts
+    s = create_train_state(cfg, "SGD", 0.01, 0.9, device=device, seed=1, init=init, mesh=mesh)
+    rows = slice(None) if mesh is None else shard_rows(mesh, len(fmap))
+    s.model.encoder.resnet = fixed_map(fmap[rows].to(device))
+    fixed = float(step(s, *batch))
+    norms = {n: p.grad.double().norm().item() for n, p in trainable_parameters(s.model).items() if p.grad is not None}
+    return {"losses": losses, "fixed_loss": fixed, "norms": norms}
+
+
+def dp_worker(work):
+    """One spawned rank of phase 7's data-parallel runs, in its group on cuda:0: dp_steps for each family in
+    WORK/inputs.pkl, and, where the inputs hold phase 8's eval, test_model over the group; returns the results."""
+    import pickle
+
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from show_tell_tpu_torch.models.captioner import CaptionerConfig, init_captioner
+    from show_tell_tpu_torch.parallel import multihost
+    from show_tell_tpu_torch.parallel.mesh import make_mesh
+
+    device = torch.device("cuda", 0)
+    with open(os.path.join(work, "inputs.pkl"), "rb") as f:
+        inputs = pickle.load(f)
+    world = multihost.process_count()
+    mesh = make_mesh(world, device=device)
+    out = {"rank": multihost.process_index(), "backend": torch.distributed.get_backend(), "train": {}}
+    for variant, cfg_fields in inputs["cfgs"].items():
+        cfg = CaptionerConfig(*cfg_fields)
+        init = init_captioner(cfg, torch.Generator().manual_seed(SEED))
+        out["train"][variant] = dp_steps(cfg, init, inputs["batch"], device, mesh, inputs["fmaps"][variant])
+        torch.cuda.empty_cache()
+    if "eval" in inputs:
+        from show_tell_tpu_torch.evaluation import tester
+        from show_tell_tpu_torch.ops.fused_step import fused_gru_decode_step
+        from show_tell_tpu_torch.train.checkpoint import read_checkpoint, restore_train_state
+        from show_tell_tpu_torch.train.train_step import create_train_state
+
+        ev = inputs["eval"]
+        cfg = CaptionerConfig(*ev["cfg"])
+        ts = create_train_state(cfg, "SGD", 0.01, device=device, seed=1)
+        restore_train_state(ts, read_checkpoint(ev["ckpt"]))
+
+        class Batches(list):
+            batch_size = TRAIN_B
+
+        fused_gru_decode_step.launches = 0
+        out["eval"] = tester.test_model(ts, cfg, Batches(ev["batches"]), SyntheticVocab(cfg.vocab_size),
+                                        {"output_dir": os.path.join(work, "eval"), "eval_augment": 0,
+                                         "compute_dtype": "float32", "dp": world})
+        out["eval_launches"] = fused_gru_decode_step.launches
+    return out
+
+
 def dname(dtype):
     return str(dtype).split(".")[1]
 
@@ -386,19 +554,38 @@ def bf16_ulp_gaps(got, ref):
     return int(((g - r).abs() > torch.clamp(ulp, min=2.0 ** -16)).sum())
 
 
-def ulp_nudges(y, n, seed):
+def ulp_nudges(y, n, seed, ulps=None):
     """bf16 ``y`` with ``n`` of its positive values, at seeded random
     places, moved to the neighbouring bf16 value, up or down at random: a
-    control with as many one-ulp differences as a kernel shows."""
+    control with as many one-ulp differences as a kernel shows.  ``ulps``
+    (int32, one a value moved; then n = its length): move each that many
+    bf16 values instead, staying positive."""
     import torch
 
     g = torch.Generator(device=y.device).manual_seed(seed)
     flat = y.reshape(-1).clone()
     pos = (flat > 0).nonzero().squeeze(1)
+    n = n if ulps is None else len(ulps)
     pick = pos[torch.randperm(len(pos), generator=g, device=y.device)[:n]]
-    bits = flat.view(torch.int16)  # positive bf16 values: the bit pattern +- 1 is the neighbour above or below
-    bits[pick] += (torch.randint(0, 2, (len(pick),), generator=g, device=y.device) * 2 - 1).to(torch.int16)
+    sign = torch.randint(0, 2, (len(pick),), generator=g, device=y.device) * 2 - 1
+    bits = flat.view(torch.int16)  # positive bf16 values: the bit pattern +- k is the k-th neighbour above or below
+    if ulps is None:
+        bits[pick] += sign.to(torch.int16)
+    else:
+        moved = bits[pick].int() + sign * ulps[: len(pick)].to(y.device)
+        bits[pick] = moved.clamp(1, 0x7F7F).to(torch.int16)
     return flat.view(y.shape)
+
+
+def ulp_distances(got, ref):
+    """For each value of bf16 ``got`` that differs from ``ref``: how many
+    bf16 ulps (of the larger magnitude's binade) apart they are, int32."""
+    import torch
+
+    g, r = got.float(), ref.float()
+    differ = g != r
+    ulp = torch.ldexp(torch.ones_like(g), torch.frexp(torch.maximum(g.abs(), r.abs())).exponent - 8)
+    return torch.round((g - r).abs()[differ] / ulp[differ]).clamp(min=1).to(torch.int32)
 
 
 def check_states(what, got, ref, dtype, tol=None):
@@ -1156,11 +1343,12 @@ def ab_rounds(decodes):
     return ms
 
 
-def ab_verdict(ms, labels):
-    """The winner of two routes' rounds (ab_rounds), or None, and a line
-    that reports them: a route wins when it is faster in at least nine
-    tenths of the rounds and the medians differ by more than the larger
-    interquartile range.  labels: {route: what it is}."""
+def ab_verdict(ms, labels, calls="decodes"):
+    """The winner of two routes' rounds (ab_rounds, event_rounds), or None,
+    and a line that reports them: a route wins when it is faster in at
+    least nine tenths of the rounds and the medians differ by more than the
+    larger interquartile range.  labels: {route: what it is}; calls: what
+    a timed call is."""
     a, b = list(ms)
     (a1, _, a3), (b1, _, b3) = statistics.quantiles(ms[a], n=4), statistics.quantiles(ms[b], n=4)
     spread, gap = max(a3 - a1, b3 - b1), statistics.median(ms[b]) - statistics.median(ms[a])
@@ -1168,10 +1356,10 @@ def ab_verdict(ms, labels):
     b_won = sum(y < x for x, y in zip(ms[a], ms[b]))
     need = 0.9 * AB_ROUNDS
     winner = a if a_won >= need and gap > spread else b if b_won >= need and -gap > spread else None
-    text = ("median [quartiles] (min, max) of %d rounds of %d decodes in turns: %s %.4f ms [%.4f, %.4f] (%.4f, %.4f), "
+    text = ("median [quartiles] (min, max) of %d rounds of %d %s in turns: %s %.4f ms [%.4f, %.4f] (%.4f, %.4f), "
             "%s %.4f ms [%.4f, %.4f] (%.4f, %.4f); %s / %s %.3f; medians %.4f ms apart, spread (larger interquartile "
-            "range) %.4f ms; %s faster in %d of %d rounds, %s in %d: %s; rounds (ms a decode) %s %s, %s %s"
-            % (AB_ROUNDS, AB_REPS, labels[a], statistics.median(ms[a]), a1, a3, min(ms[a]), max(ms[a]), labels[b],
+            "range) %.4f ms; %s faster in %d of %d rounds, %s in %d: %s; rounds (ms a call) %s %s, %s %s"
+            % (AB_ROUNDS, AB_REPS, calls, labels[a], statistics.median(ms[a]), a1, a3, min(ms[a]), max(ms[a]), labels[b],
                statistics.median(ms[b]), b1, b3, min(ms[b]), max(ms[b]), b, a,
                statistics.median(ms[b]) / statistics.median(ms[a]), gap, spread, a, a_won, AB_ROUNDS, b, b_won,
                "the %s route wins" % winner if winner else "no winner", a, " ".join("%.4f" % x for x in ms[a]), b,
@@ -1366,9 +1554,11 @@ def main():
         stack_tiles,
     )
     from show_tell_tpu_torch.ops.preprocess import preprocess_u8, preprocess_u8_cuda, preprocess_u8_plain
+    from show_tell_tpu_torch.models.serving import FoldedEncoder
     from show_tell_tpu_torch.ops import (
         beam_step_default,
         dtype_code,
+        fold_bn_default,
         raise_on_error,
         stream_arg,
         whole_decode_default,
@@ -1562,23 +1752,106 @@ def main():
         return ids.cpu().numpy(), torch.stack(gaps, 1).min(1).values.cpu().numpy()
 
     def route_decodes(label, served_ids, decodes):
-        """Each (route, launches expected, decode()) on the same features:
-        counts zeroed just before, read just after; ids against the served
-        route's.  Returns {route: counts}."""
+        """Each (route, launches expected, decode(), controls) on the same
+        features: counts zeroed just before, read just after; ids against
+        the served route's on at least 0.95 of positions, or, where the
+        route has ``controls()`` (the shares of positions equal to the
+        served ids that controls of its rounding reach), on at least the
+        weakest control's share where that is lower.  Returns {route: counts}."""
         out = {}
-        for route, expected, decode in decodes:
+        for route, expected, decode, controls in decodes:
             for fn in counters:
                 fn.launches = 0
             with torch.inference_mode():
                 ids = decode().cpu().numpy()
             out[route] = read_counts(counters, expected)
             share = float((ids == served_ids).mean())
-            if share < 0.95:
-                fail("%s beam %s decode: ids equal the served route's on %.4f of positions (< 0.95)"
-                     % (label, route, share))
-            phase("main", "%s beam %s bf16 B=64 K=%d: launches %s; ids equal the served route's on %.4f of positions"
-                  % (label, route, K_BEAM, {k: v for k, v in out[route].items() if v}, share))
+            shares = controls() if controls else []
+            bar = min([0.95] + shares)
+            if share < bar:
+                fail("%s beam %s decode: ids equal the served route's on %.4f of positions (< %.4f: 0.95 or the "
+                     "weakest control, %s)" % (label, route, share, bar, " ".join("%.4f" % c for c in shares)))
+            phase("main", "%s beam %s bf16 B=64 K=%d: launches %s; ids equal the served route's on %.4f of positions "
+                  "(bar %.4f%s)" % (label, route, K_BEAM, {k: v for k, v in out[route].items() if v}, share, bar,
+                                    "; controls %s" % " ".join("%.4f" % c for c in shares) if shares else ""))
         return out
+
+    def composite_controls(cap, dcfg, feats, start_token, dense, served_ids, label):
+        """The controls of the attention beam's sparse composite route
+        against the served (fused dense step) route, ROUTE_CONTROLS of them:
+        the served route's beam decode of ``feats`` again, with the
+        composite route's step (the context kernel, embed and the plain
+        stack) also run on each step's input, and the served step's new
+        state then moved, at seeded random places, by as many values and
+        as many bf16 ulps as the composite's differs from it.  So each
+        control carries the composite's rounding, placed at random, into
+        the served route.  A composite step must have at least
+        ROUTE_STATE_SHARE of its new state's values within the bf16 state
+        tolerance of the served step's (a faulty step parts on most values;
+        on random weights the state reaches |h| ~ 1e4-1e5, and where a
+        gate's input lies near its switch, rounding alone moves a value by
+        as much as itself).  Returns the shares of positions equal to
+        ``served_ids``."""
+        dec, weights = cap.model.decoder, cap.prepared
+        emb = dec.embeddings.weight
+        feats_pm = feats.transpose(1, 2).contiguous()
+        att1 = precompute_att1(dec.attn, feats_pm).to(emb.dtype).contiguous()
+        stack = stack_plain(dcfg.cell_type)
+
+        def trunk(w_emb, f, a1, state):
+            ctx, _ = attention_context(weights, f, a1, last_h(state))
+            return stack(weights["stacked"], torch.cat([w_emb, linear_f32(dec.embed, ctx).to(w_emb.dtype)], -1), state)
+
+        with torch.inference_mode():
+            top0, state1 = trunk(start_embeddings(dec, len(feats), start_token, device), feats_pm, att1,
+                                 init_hidden(dec, dcfg, feats))
+            logp0 = torch.log_softmax(project_logits(weights["vocab"], top0), dim=-1)
+            prep = prepare_attn_decode(weights, dec, feats_pm)
+            rows = dict(prep, feats_e=prep["feats_e"].repeat_interleave(K_BEAM, dim=0),
+                        att1=prep["att1"].repeat_interleave(K_BEAM, dim=0))
+            f_rows, a_rows = feats_pm.repeat_interleave(K_BEAM, dim=0), att1.repeat_interleave(K_BEAM, dim=0)
+            tile, gather = rnn_state_helpers(len(feats), K_BEAM)
+            tol = TOL["bfloat16"][0]
+            shares, moved, close, err = [], [], [], 0.0
+            for seed in range(ROUTE_CONTROLS):
+                calls = [0]
+
+                def step(tokens, state):
+                    nonlocal err
+                    w = emb.index_select(0, tokens)
+                    _, comp = trunk(w, f_rows, a_rows, state)
+                    logits, state2 = dense(rows, w, state)
+                    parts, out = (state2, comp) if isinstance(state2, tuple) else ((state2,), (comp,)), []
+                    for i, (got, ref) in enumerate(zip(*parts)):
+                        err = max(err, (got.float() - ref.float()).abs().max().item())
+                        close.append(torch.isclose(ref.float(), got.float(), rtol=tol, atol=tol).float().mean().item())
+                        ulps = ulp_distances(ref, got)
+                        moved.append(len(ulps))
+                        out.append(ulp_nudges(got, 0, 1000 * seed + 2 * calls[0] + i, ulps))
+                    calls[0] += 1
+                    return torch.log_softmax(logits, dim=-1), tuple(out) if isinstance(state2, tuple) else out[0]
+
+                ids = beam_engine(logp0, state1, step, tile, gather, K_BEAM, T, END, PAD)
+                shares.append(float((ids.cpu().numpy() == served_ids).mean()))
+        if min(close) < ROUTE_STATE_SHARE:
+            fail("%s beam: a composite step's new state has %.4f of its values within the bf16 tolerance (rtol = atol "
+                 "= %g) of the served step's on the same input (< %g)" % (label, min(close), tol, ROUTE_STATE_SHARE))
+        phase("main", "%s beam sparse composite controls: on each step's input the composite step's new state has "
+              "%.5f-%.5f of its values within rtol = atol = %g of the served step's (bar %g; largest gap %.4g), "
+              "%d-%d values apart a step; the served route with those moves at random places: ids equal the "
+              "served ids on %s of positions"
+              % (label, min(close), max(close), tol, ROUTE_STATE_SHARE, err, min(moved), max(moved),
+                 " ".join("%.4f" % c for c in shares)))
+        return shares
+
+    def encoder_route(label, cap):
+        """The serving default's encoder route: the folded one where ops.fold_bn_default() says so."""
+        want = fold_bn_default()
+        if cap.fold_bn != want or isinstance(cap.model.encoder, FoldedEncoder) != want:
+            fail("%s: the Captioner's fold_bn is %s, its encoder a %s; fold_bn_default() is %s"
+                 % (label, cap.fold_bn, type(cap.model.encoder).__name__, want))
+        phase("main", "%s: the Captioner's default encoder route on the card is %s (ops.fold_bn_default() = %s)"
+              % (label, type(cap.model.encoder).__name__, want))
 
     def show_captions(label, served):
         for row in served[0][:3]:
@@ -1604,6 +1877,7 @@ def main():
                 return plain_loop(step, prep["embedding"], feats.to(cap.dtype), state0)
 
         cap = Captioner(params, bn_state, cfg, vocab, "bfloat16", device="gpu")
+        encoder_route(variant, cap)
         requests = [img_rng.randint(0, 256, (64, 224, 224, 3), dtype=np.uint8) for _ in range(3)]
         served, seconds, counts = serve(cap, requests, counters,
                                         dict(by_name(greedy_launches(counter, 3)), preprocess_u8=3))
@@ -1686,14 +1960,15 @@ def main():
         other_route = "dense" if beam_default == "topk" else "topk"
         routes = route_decodes(variant, beam_served[0], [
             (other_route, {other_step.__name__: T - 1},
-             lambda: beam_search_decode(cap.prepared, dcfg, feats, K_BEAM, END, PAD, fused_step=other_route)),
+             lambda: beam_search_decode(cap.prepared, dcfg, feats, K_BEAM, END, PAD, fused_step=other_route), None),
             ("sparse composite", {"project_topk": T - 1},
-             lambda: beam_search_decode(cap.prepared, dcfg, feats, K_BEAM, END, PAD, fused_step=None, sparse=True)),
+             lambda: beam_search_decode(cap.prepared, dcfg, feats, K_BEAM, END, PAD, fused_step=None, sparse=True),
+             None),
         ])
         s2d = s2d_path(variant, params, bn_state, cfg, requests, counter, pooled_plain, f32_request=variant == "gru")
         return {"seconds": seconds, "beam_seconds": beam_s, "counts": counts, "other": other,
                 "beam_counts": beam_counts, "routes": routes, "beam_share": beam_share, "cap": cap, "feats": feats,
-                "requests": requests, "s2d": s2d, "params": (params, bn_state)}
+                "requests": requests, "s2d": s2d, "params": (params, bn_state), "plain": pooled_plain}
 
     def attention_slice(variant, counter):
         """Phase 5 for one attention family; returns (launches, seconds of the
@@ -1717,6 +1992,7 @@ def main():
                 return plain_loop(step, dec.embeddings.weight, w0, init_hidden(dec, dcfg, feats))
 
         acap = Captioner(params, bn_state, acfg, vocab, "bfloat16", device="gpu")
+        encoder_route(variant, acap)
         requests = [img_rng.randint(0, 256, (64, 224, 224, 3), dtype=np.uint8) for _ in range(3)]
         served, seconds, counts = serve(acap, requests, counters, {counter.__name__: 3 * T, "preprocess_u8": 3})
         check_served(variant, served, requests, attn_plain, acap)
@@ -1801,11 +2077,12 @@ def main():
         routes = route_decodes(variant, beam_served[0], [
             ("sparse composite", {"attention_context": T, "project_topk": T - 1},
              lambda: attn_beam_search_decode(acap.prepared, acap.model.decoder, dcfg, feats, K_BEAM, acfg.start_token,
-                                             END, PAD, fused_step=None, sparse=True)),
+                                             END, PAD, fused_step=None, sparse=True),
+             lambda: composite_controls(acap, dcfg, feats, acfg.start_token, dense, beam_served[0], variant)),
         ])
         s2d = s2d_path(variant, params, bn_state, acfg, requests, counter, attn_plain)
         return {"seconds": seconds, "comp_counts": comp_counts, "counts": counts, "other": {}, "cap": acap,
-                "requests": requests,
+                "requests": requests, "plain": attn_plain,
                 "beam_seconds": beam_s, "beam_counts": beam_counts, "routes": routes, "beam_share": beam_share,
                 "s2d": s2d, "beam_decode": lambda: attn_beam_search_decode(
                     acap.prepared, acap.model.decoder, dcfg, feats, K_BEAM, acfg.start_token, END, PAD)}
@@ -1981,22 +2258,12 @@ def main():
             phase("train", "JPEG decoder of data/dataset.MSCOCO: %s; %d images of %s pixels, one caption each, B=%d: "
                   "%d steps an epoch (drop_last)" % (dataset.decoder, N_FILES, "/".join("%dx%d" % wh for wh in COCO_SIZES),
                                                      TRAIN_B, N_FILES // TRAIN_B))
-            class FixedMap(torch.nn.Module):
-                """A backbone that returns one feature map, so that two steps share the frozen ResNet's output."""
-
-                def __init__(self, fmap):
-                    super().__init__()
-                    self.fmap = fmap
-
-                def forward(self, images):
-                    return self.fmap
-
             def first_step(dev, cfg, optimizer, lr, init, batch, fmap=None):
                 """The loop's first step again on ``dev`` from the same weights and flips: (loss, {trainable
                 parameter: its gradient's norm}); with ``fmap``, the backbone's output is that map."""
                 s = create_train_state(cfg, optimizer, lr, 0.9, device=dev, seed=1, init=init)
                 if fmap is not None:
-                    s.model.encoder.resnet = FixedMap(fmap.to(s.device))
+                    s.model.encoder.resnet = fixed_map(fmap.to(s.device))
                 loss = float(make_train_step(cfg)(s, *batch[1:]))
                 # norms summed in f64: on the CPU an f32 sum over the projection gradient's 5.1M values drifts
                 # by more than TRAIN_CPU_RTOL
@@ -2174,11 +2441,11 @@ def main():
             del cap
             torch.cuda.empty_cache()
             # 8. eval, on these checkpoints
-            return eval_phase(tmp, dataset, tvocab)
+            return eval_phase(tmp, dataset, tvocab, out["gru", "float32"]["first_batch"][1:])
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
 
-    def eval_phase(tmp, dataset, tvocab):
+    def eval_phase(tmp, dataset, tvocab, train_batch):
         """Phase 8: test_model on phase 7's f32 checkpoints of the four families (and the pooled GRU in bf16, by
         beam and by the faithful beam), the native scorer against the Python one, the loop's in-training eval
         against a direct call, and eval images/s.  Returns the launch counts of its main-path runs."""
@@ -2532,7 +2799,227 @@ def main():
                                           max(off)))
         finally:
             tester.PIPELINE_SCORING = True
+        # 7 (c) and 8 (d): data parallelism on the card, the sharded eval held to the f32 GRU's scores above
+        dp_phase(tmp, batches, f32_scores, train_batch)
         return main_counts
+
+    def spawn_ranks(world, backend, work):
+        """dp_worker on ``world`` ranks spawned on cuda:0 (parallel.multihost.spawn, ended after DP_TIMEOUT);
+        returns their results in rank order and the seconds they took."""
+        from show_tell_tpu_torch.parallel import multihost
+
+        t0 = time.perf_counter()
+        try:
+            results = multihost.spawn(dp_worker, world, (work,), device, backend, timeout=DP_TIMEOUT)
+        except TimeoutError as e:
+            fail("%d %s ranks: %s" % (world, backend, e))
+        return results, time.perf_counter() - t0
+
+    def dp_phase(tmp, batches, f32_scores, train_batch):
+        """Phase 7 (c): a one-rank nccl group (the pooled GRU), then two gloo ranks on cuda:0 (the pooled and the
+        attention GRU, full width), each DP_STEPS f32 steps at global B=TRAIN_B from the seeded weights, with
+        flips, and one step from one backbone output: each rank's losses, that step's loss and every trainable
+        gradient's norm against one process's card steps (dp_steps, mesh None) within TRAIN_CPU_RTOL, and the two
+        ranks equal.  Phase 8 (d): test_model over the two gloo ranks from phase 7's f32 GRU checkpoint, on phase
+        8's batches without flips: its scores equal the one-process run's (the word-level ones exactly,
+        test_loss within 1e-5 relative), each rank 25 greedy launches a batch.  No step is skipped or caught."""
+        import pickle
+
+        from show_tell_tpu_torch.models.captioner import exact_f32_math
+        from show_tell_tpu_torch.train.loop import captioner_config_from_params
+        from show_tell_tpu_torch.train.train_step import create_train_state
+
+        cfgs, fmaps, refs = {}, {}, {}
+        for variant, Ed in FOLD_VARIANTS:
+            kw = dict(nos_filters=AC, attn_dim=AA) if variant.startswith("attn") else {}
+            cfg = CaptionerConfig(variant, 101, Ed, H, V, L, **kw)
+            init = init_captioner(cfg, torch.Generator().manual_seed(SEED))
+            s = create_train_state(cfg, "SGD", 0.01, 0.9, device="gpu", seed=1, init=init)
+            with torch.no_grad(), exact_f32_math(device):  # one train-mode backbone output of the batch
+                fmaps[variant] = s.model.encoder.resnet(preprocess_images(torch.from_numpy(train_batch[0]).to(device),
+                                                                         s.generator)).cpu()
+            del s
+            cfgs[variant] = tuple(cfg)
+            refs[variant] = dp_steps(cfg, init, train_batch, device, None, fmaps[variant])
+            torch.cuda.empty_cache()
+
+        def hold(label, results):
+            for variant in results[0]["train"]:
+                got = [r["train"][variant] for r in results]
+                if any(g != got[0] for g in got[1:]):
+                    fail("%s %s: the ranks disagree: %s" % (label, variant, got))
+                got, want = got[0], refs[variant]
+                rel = max(abs(a - b) / abs(b) for a, b in zip(got["losses"] + [got["fixed_loss"]],
+                                                              want["losses"] + [want["fixed_loss"]]))
+                if sorted(got["norms"]) != sorted(want["norms"]):
+                    fail("%s %s: gradients for %s, one process's for %s" % (label, variant, sorted(got["norms"]),
+                                                                             sorted(want["norms"])))
+                floor = 1e-3 * max(want["norms"].values())  # as phase 7: the Linear bias before BN1d is roundoff
+                nrel = {n: abs(got["norms"][n] - w) / max(w, floor) for n, w in want["norms"].items()}
+                worst = max(nrel, key=nrel.get)
+                if rel > TRAIN_CPU_RTOL or nrel[worst] > TRAIN_CPU_RTOL:
+                    fail("%s %s: losses %s (from one backbone output %.7f) against one process's %s (%.7f); gradient "
+                         "norm of %s %.6g against %.6g (bar %g)" % (label, variant, got["losses"], got["fixed_loss"],
+                                                                    want["losses"], want["fixed_loss"], worst,
+                                                                    got["norms"][worst], want["norms"][worst],
+                                                                    TRAIN_CPU_RTOL))
+                phase("train", "%s %s f32 B=%d: %d steps' losses %s against one process's %s on the card; from one "
+                      "backbone output the loss %.7f / %.7f; largest gap %.2e relative (bar %g); %d gradient norms "
+                      "within %.2e (the farthest %s; bar %g); the ranks equal" % (
+                          label, variant, TRAIN_B, DP_STEPS, " ".join("%.7f" % x for x in got["losses"]),
+                          " ".join("%.7f" % x for x in want["losses"]), got["fixed_loss"], want["fixed_loss"], rel,
+                          TRAIN_CPU_RTOL, len(nrel), nrel[worst], worst, TRAIN_CPU_RTOL))
+
+        work = os.path.join(tmp, "dp_nccl")
+        os.makedirs(work)
+        with open(os.path.join(work, "inputs.pkl"), "wb") as f:
+            pickle.dump({"cfgs": {"gru": cfgs["gru"]}, "batch": train_batch, "fmaps": {"gru": fmaps["gru"]}}, f)
+        results, seconds = spawn_ranks(1, "nccl", work)
+        if results[0]["backend"] != "nccl":
+            fail("the one-rank group ran on %s, not nccl" % results[0]["backend"])
+        hold("dp: one nccl rank (DDP and the synced BatchNorms over itself)", results)
+        phase("train", "dp: the one-rank nccl group took %.1f s (spawn, build, steps)" % seconds)
+
+        work = os.path.join(tmp, "dp_gloo")
+        os.makedirs(os.path.join(work, "eval"))
+        gcfg = captioner_config_from_params(train_params("gru", E, "SGD", 0.01), V)
+        with open(os.path.join(work, "inputs.pkl"), "wb") as f:
+            pickle.dump({"cfgs": cfgs, "batch": train_batch, "fmaps": fmaps,
+                         "eval": {"cfg": tuple(gcfg), "batches": batches,
+                                  "ckpt": os.path.join(tmp, "gru_float32", "model_%d.ckpt" % TRAIN_EPOCHS)}}, f)
+        results, seconds = spawn_ranks(2, "gloo", work)
+        hold("dp: two gloo ranks on cuda:0", results)
+        for r in results:
+            got = r["eval"]
+            off = [k for k in f32_scores if k != "test_loss" and got.get(k) != f32_scores[k]]
+            loss_rel = abs(got["test_loss"] - f32_scores["test_loss"]) / abs(f32_scores["test_loss"])
+            if off or loss_rel > 1e-5 or r["eval_launches"] != len(batches) * T:
+                fail("sharded eval rank %d: scores %s against one process's %s (unequal: %s; test_loss %.2e apart); "
+                     "%d greedy launches" % (r["rank"], got, f32_scores, off, loss_rel, r["eval_launches"]))
+        phase("eval", "sharded test_model over two gloo ranks on cuda:0 (gru f32, model_%d.ckpt, %d batches, no "
+              "flips): every score equal to the one-process run's (%s), test_loss %.7f / %.7f; each rank %d greedy "
+              "launches (its rows of each batch); the two ranks took %.1f s (spawn, build, steps, eval)"
+              % (TRAIN_EPOCHS, len(batches), ", ".join("%s %.4f" % (k, v) for k, v in f32_scores.items()
+                                                       if k != "test_loss"),
+                 results[0]["eval"]["test_loss"], f32_scores["test_loss"], results[0]["eval_launches"], seconds))
+
+    def reference_ckpt_phase(tmp):
+        """Phase 6 (a): a full-width reference-format torch .ckpt of each
+        FOLD_VARIANTS family (seeded weights), served at B=64 through
+        Captioner.from_checkpoint (counts zeroed just before the request,
+        read just after); its ids must equal, position for position, those
+        of the Captioner built from the same weights."""
+        from show_tell_tpu_torch.vocab import DatasetVocabulary, save_vocab
+
+        built = DatasetVocabulary()
+        for i in range(V):
+            built.add_new_word(vocab.index_to_word[i])
+        vocab_path = os.path.join(tmp, "vocab.pkl")
+        save_vocab(built, vocab_path)
+        for variant, Ed in FOLD_VARIANTS:
+            kw = dict(nos_filters=AC, attn_dim=AA) if variant.startswith("attn") else {}
+            cfg = CaptionerConfig(variant, 101, Ed, H, V, L, **kw)
+            params, bn_state = init_captioner(cfg, torch.Generator().manual_seed(SEED))
+            path = os.path.join(tmp, "model_1_%s.ckpt" % variant)
+            write_reference_ckpt(params, bn_state, path)
+            request = img_rng.randint(0, 256, (64, IMG, IMG, 3), dtype=np.uint8)
+            cap = Captioner.from_checkpoint(path, vocab_path, variant=variant, resnet_version=101, embed_dim=Ed,
+                                            hidden_dim=H, num_layers=L, device="gpu", **kw)
+            counter = fused_gru_decode_step if variant == "gru" else fused_attn_decode_step
+            served, seconds, counts = serve(cap, [request], counters,
+                                            dict(by_name(greedy_launches(counter, 1)), preprocess_u8=1))
+            folded = cap.fold_bn
+            del cap
+            direct = Captioner(params, bn_state, cfg, vocab, device="gpu")
+            ref = direct.caption_ids(request)
+            del direct
+            torch.cuda.empty_cache()
+            if served[0].shape != (64, T) or not np.array_equal(served[0], ref):
+                fail("%s: Captioner.from_checkpoint of the reference .ckpt gave ids equal to the directly built "
+                     "Captioner's on %.4f of positions" % (variant, float((served[0] == ref).mean())))
+            phase("main", "%s bf16 B=64, Captioner.from_checkpoint of a reference-format torch .ckpt (model.N.*, "
+                  "unit.*, %.1f MB; fold_bn %s): launches %s, %.3f s (host clock); ids equal the Captioner built from "
+                  "the same weights at all %d positions" % (variant, os.path.getsize(path) / 2**20, folded,
+                                                           {k: v for k, v in counts.items() if v}, seconds, ref.size))
+            os.remove(path)
+
+    def fold_phase():
+        """Phase 6 (b): the folded route (models/serving.FoldedEncoder, which phases 4-5 serve on the card) against
+        the unfolded one, each FOLD_VARIANTS family, a request of 64: in f32 the features within FOLD_F32_RTOL of
+        the largest and the served ids equal on >= 0.95 of positions; in bf16 the slice's three requests served by
+        the unfolded route against the plain decode of its features (check_served), and the folded features
+        within twice the unfolded route's error of the f32 features (ids printed against both routes); then the
+        encoder alone from uint8 on the card, B = 1 and 64, bf16 and f32,
+        the routes in turns by CUDA events (event_rounds, ab_verdict).  The rule, fixed before the first run:
+        fold_bn_default() is on where the folded route wins at B=64 in bf16 for both families and the unfolded route
+        wins in no cell."""
+        wins = {}
+        labels = {"folded": "folded (one biased cuDNN convolution a conv, epilogue relu / add + relu)",
+                  "unfolded": "unfolded (convolution, eval BatchNorm, relu, add)"}
+        for variant, Ed in FOLD_VARIANTS:
+            kw = dict(nos_filters=AC, attn_dim=AA) if variant.startswith("attn") else {}
+            cfg = CaptionerConfig(variant, 101, Ed, H, V, L, **kw)
+            params, bn_state = init_captioner(cfg, torch.Generator().manual_seed(SEED))
+            request = img_rng.randint(0, 256, (64, IMG, IMG, 3), dtype=np.uint8)
+            x = torch.from_numpy(request).to(device)
+            for dtype in ("float32", "bfloat16"):
+                caps = {fold: Captioner(params, bn_state, cfg, vocab, dtype, device="gpu", fold_bn=fold)
+                        for fold in (True, False)}
+                with torch.inference_mode():
+                    f = {fold: encode(c.model, x).float() for fold, c in caps.items()}
+                ids = {fold: c.caption_ids(request) for fold, c in caps.items()}
+                agree = float((ids[True] == ids[False]).mean())
+                if dtype == "float32":
+                    f32, ids32 = f[False], ids[False]
+                    scale, gap = f32.abs().max().item(), (f[True] - f32).abs().max().item()
+                    if gap > FOLD_F32_RTOL * scale or agree < 0.95:
+                        fail("%s f32 B=64: the folded encoder's features differ from the unfolded one's by %.4g (bar "
+                             "%g of their largest value %.4g); the served ids agree on %.4f of positions (bar 0.95)"
+                             % (variant, gap, FOLD_F32_RTOL, scale, agree))
+                    phase("main", "%s f32 B=64: the folded encoder's features within %.3g of the unfolded one's "
+                          "(|features| <= %.4g, relative %.3g; bar %g); the folded route's served ids equal the "
+                          "unfolded route's on %.4f of positions (>= 0.95)" % (variant, gap, scale, gap / scale,
+                                                                               FOLD_F32_RTOL, agree))
+                else:
+                    # the unfolded route, which the card's serving bypasses (phases 4-5 serve the folded one),
+                    # serves the slice's three requests, held to the plain decode of its own features by the
+                    # serving criterion (check_served: >= 0.95 of positions)
+                    sl = slices[variant]
+                    counter = fused_gru_decode_step if variant == "gru" else fused_attn_decode_step
+                    served, _, counts = serve(caps[False], sl["requests"], counters,
+                                              dict(by_name(greedy_launches(counter, 3)), preprocess_u8=3))
+                    check_served(variant + " unfolded", served, sl["requests"], sl["plain"], caps[False])
+                    phase("main", "%s unfolded bf16: launches in the three requests %s"
+                          % (variant, {k: v for k, v in counts.items() if v}))
+                    # bf16 rounds differently along each route, and a random-weight decode carries such differences
+                    # into many tokens; so each bf16 route is held to the f32 route, the fold to within twice the
+                    # unfolded route's feature error
+                    err = {fold: (f[fold] - f32).abs().max().item() / scale for fold in f}
+                    to_f32 = {fold: float((ids[fold] == ids32).mean()) for fold in ids}
+                    if err[True] > 2 * err[False]:
+                        fail("%s bf16 B=64: the folded encoder's features are %.3g from the f32 route's, relative, "
+                             "more than twice the unfolded bf16 route's %.3g" % (variant, err[True], err[False]))
+                    phase("main", "%s bf16 B=64: the folded encoder's features %.3g from the f32 route's, relative "
+                          "(the unfolded bf16 route's %.3g; bar twice that); served ids: the folded route's equal the "
+                          "unfolded route's on %.4f of positions, the f32 route's on %.4f (the unfolded route's on "
+                          "%.4f)" % (variant, err[True], err[False], agree, to_f32[True], to_f32[False]))
+                for B in (1, 64):
+                    xb = x[:B].contiguous()
+
+                    def run(c, xb=xb):
+                        with torch.inference_mode():
+                            return encode(c.model, xb)
+
+                    ms = event_rounds({"folded": lambda: run(caps[True]), "unfolded": lambda: run(caps[False])})
+                    wins[variant, dtype, B], text = ab_verdict(ms, labels, "encodes")
+                    phase("times", "%s fold A/B %s %s B=%d, the encoder from uint8 on the card, CUDA events, %s"
+                          % (card, variant, dtype, B, text))
+                del caps
+                torch.cuda.empty_cache()
+        backed = (all(wins[v, "bfloat16", 64] == "folded" for v, _ in FOLD_VARIANTS)
+                  and "unfolded" not in wins.values())
+        phase("times", "%s fold A/B verdict: by its rule this run gives %s; fold_bn_default() = %s"
+              % (card, "on" if backed else "off", fold_bn_default()))
 
     # 4. pooled main paths
     slices = {}
@@ -2843,10 +3330,13 @@ def main():
     stem12 = (event_median_ms(lambda: stem_fused_cuda(x12, sprep)), event_median_ms(lambda: stem_fused_plain(x12, sprep)))
     stem_conv = event_median_ms(lambda: stem_fused_cuda(x3, sprep, pool=False))  # 4 conv rows a CTA, no recomputed row
     with torch.inference_mode():
-        mult = res.bn1.weight.float() * torch.rsqrt(res.bn1.running_var.float() + 1e-5)
-        w4f = (transform_conv1_weight(res.conv1.weight.float()) * mult[:, None, None, None]).to(bf16).contiguous(
-            memory_format=torch.channels_last)
-        b4f = (res.bn1.bias.float() - res.bn1.running_mean.float() * mult).to(bf16)
+        w4 = transform_conv1_weight(res.conv1.weight.float())
+        if isinstance(enc, FoldedEncoder):  # the served encoder's conv1 carries bn1 already
+            b4 = res.conv1.bias.float()
+        else:
+            mult = res.bn1.weight.float() * torch.rsqrt(res.bn1.running_var.float() + 1e-5)
+            w4, b4 = w4 * mult[:, None, None, None], res.bn1.bias.float() - res.bn1.running_mean.float() * mult
+        w4f, b4f = w4.to(bf16).contiguous(memory_format=torch.channels_last), b4.to(bf16)
         xn12 = preprocess_u8_cuda(x12, bf16).permute(0, 3, 1, 2)
         xn3 = preprocess_u8_cuda(x3, bf16).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
         # yardstick: cuDNN's 4x4 conv with the BN-folded weight and bias on the normalized s2d input, relu, pool
@@ -2856,9 +3346,10 @@ def main():
                                                           3, 2, 1))
         # the encoder's own stem routes (Encoder.stem_u8), each to the post-maxpool activation
         stem_y = enc.stem_u8(x3, s2d=True)
+        bn = " (BN folded into conv1)" if isinstance(enc, FoldedEncoder) else " + BN"
         stages = {
-            "stock stem (preprocess kernel + 7x7 conv1 + BN + relu + pool)": event_median_ms(lambda: enc.stem_u8(x3)),
-            "s2d stem, conv route from [64,112,112,12] (preprocess kernel + 4x4 conv1 + BN + relu + pool)":
+            "stock stem (preprocess kernel + 7x7 conv1%s + relu + pool)" % bn: event_median_ms(lambda: enc.stem_u8(x3)),
+            "s2d stem, conv route from [64,112,112,12] (preprocess kernel + 4x4 conv1%s + relu + pool)" % bn:
                 event_median_ms(lambda: enc.stem_u8(x12, s2d=True, stem="conv")),
             "s2d stem, fused route from RGB (the served route: stem kernel)":
                 event_median_ms(lambda: enc.stem_u8(x3, s2d=True)),
@@ -2886,7 +3377,8 @@ def main():
           "after (kernel) %.4f ms %s" % (card, h2d, times["preprocess_images", 64][1],
                                           times["preprocess_images", 64][0], note))
     for stage, ms in stages.items():
-        phase("times", "%s request stage, pooled GRU, bf16, B=64: %s %.4f ms %s" % (card, stage, ms, note))
+        phase("times", "%s request stage, pooled GRU, bf16, B=64, %s: %s %.4f ms %s"
+              % (card, type(enc).__name__, stage, ms, note))
     for variant in ("gru", "lstm", "attn", "attn_lstm"):
         sl = slices[variant]
         phase("times", "%s %s s2d slice, bf16, ResNet-101 + 25 greedy steps: %.1f captions/s at B=64 (3 requests, "
@@ -2904,6 +3396,18 @@ def main():
               card, N_FILES, CLI_TURNS, decoder, spread(cli["runs"][False, True]), spread(cli["runs"][False, False]),
               spread(cli["runs"][True, True]), spread(cli["runs"][True, False]), spread(cli["runs"]["one file"]),
               ", ".join("%s %s" % (k, spread(v)) for k, v in cli["parts"].items())))
+
+    # 6 (a), (b): the reference .ckpt served, and the folded encoder against the unfolded one
+    import tempfile
+
+    ckpt_tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        reference_ckpt_phase(ckpt_tmp)
+    finally:
+        import shutil
+
+        shutil.rmtree(ckpt_tmp, ignore_errors=True)
+    fold_phase()
 
     # 7. training, then 8. eval on its checkpoints; phase 8's runs are the eval path's share of every launch count
     for counts in training_phase():

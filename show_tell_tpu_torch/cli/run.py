@@ -1,24 +1,32 @@
 """Shared CLI runner behind the four entry points (counterpart of
-show_tell_tpu/cli/run.py, one device).
+show_tell_tpu/cli/run.py).
 
 Phase selection and flow mirror reference main.py:116-176: build vocab and
 loaders, construct models, train when --is_training (the GRU CLI runs the
 in-training eval every 5 epochs), then test when --is_testing by loading
 --load_model_test and running the test_model flow.
 
-The port runs on one device: ``--multihost``, ``--dp`` > 1 and ``--mp`` > 1
-raise (ROADMAP Queue 1 item 6), as does ``--ckpt_format orbax`` (the port
-reads and writes pickle checkpoints only, item 2).
+Data parallelism is one process per device (parallel/): ``--dp N`` (N > 1)
+spawns N processes in one command, each on its own device (the CUDA card
+of its rank, or the CPU), joined into one torch.distributed group on a
+free localhost port; ``--multihost HOST:PORT,NPROC,PID`` (or ``auto``
+under torchrun) joins this process into a group of processes started
+elsewhere.  ``--mp`` > 1 (vocabulary sharding) raises (ROADMAP Queue 1
+item 6), as does ``--ckpt_format orbax`` (the port reads and writes
+pickle checkpoints only, item 2).
 """
 
 from __future__ import annotations
 
+import sys
 from typing import Any, Dict, List, Optional
 
 from show_tell_tpu_torch.core.config import load_params
 from show_tell_tpu_torch.core.device import resolve_device
 from show_tell_tpu_torch.data.dataset import get_data_loader
 from show_tell_tpu_torch.evaluation.tester import test_model
+from show_tell_tpu_torch.parallel import multihost
+from show_tell_tpu_torch.parallel.mesh import MP_ITEM
 from show_tell_tpu_torch.train.checkpoint import read_checkpoint, resolve_checkpoint_path, restore_train_state
 from show_tell_tpu_torch.train.loop import captioner_config_from_params, train
 from show_tell_tpu_torch.train.train_step import create_train_state
@@ -38,14 +46,16 @@ def apply_device(device: str) -> str:
     raise ValueError("Please specify a valid device - gpu/cpu/tpu. %s doesn't exist." % (device,))
 
 
-def _one_device(params: Dict[str, Any]) -> None:
-    """Raise, naming its ROADMAP item, for what the port does not run yet."""
-    if params.get("multihost"):
-        raise NotImplementedError("--multihost (torch.distributed across hosts) is ROADMAP Queue 1 item 6")
-    for flag, one in (("dp", 0), ("mp", 1)):
-        if int(params.get(flag, one) or one) > 1:
-            raise NotImplementedError("--%s %d (parallelism) is ROADMAP Queue 1 item 6; the port runs on one device"
-                                      % (flag, params[flag]))
+def _check_supported(params: Dict[str, Any]) -> None:
+    """Raise, before anything runs, for what the port does not run (naming
+    its ROADMAP item) and for a batch that does not divide over ``--dp``."""
+    mp = int(params.get("mp", 1) or 1)
+    if mp > 1:
+        raise NotImplementedError("--mp %d (vocabulary sharding) is %s; the port's mesh is data parallel only"
+                                  % (mp, MP_ITEM))
+    dp = int(params.get("dp", 0) or 0)
+    if dp > 1 and params["batch_size"] % dp:
+        raise ValueError("batch_size %d does not divide over %d processes" % (params["batch_size"], dp))
     if params.get("ckpt_format", "pickle") != "pickle":
         raise NotImplementedError("--ckpt_format %s: orbax checkpoint directories stay out of the port (ROADMAP "
                                   "Queue 1 item 2); it reads and writes the pickle format" % params["ckpt_format"])
@@ -70,15 +80,37 @@ def _init_from_backbone(path: str, cfg, seed: int):
     return p, s
 
 
+def _rank_run(variant: str, argv: Optional[List[str]], data_source: str, device: str):
+    """One process of a ``--dp`` run, in its group: the phases; returns the scores (None without a test phase)."""
+    return run(variant, argv, data_source, device).get("scores")
+
+
+def _spawn(variant: str, argv: Optional[List[str]], data_source: str, device: str, params: Dict[str, Any]):
+    """``--dp N`` in one command: N processes (``multihost.spawn``), one a device; returns rank 0's scores."""
+    nproc = int(params["dp"])
+    print("Data-parallel run: spawning %d processes." % nproc)
+    return multihost.spawn(_rank_run, nproc, (variant, argv, data_source, device), device)[0]
+
+
 def run(variant: str, argv: Optional[List[str]] = None, data_source: str = "MSCOCO",
         device: Optional[str] = None) -> Dict[str, Any]:
     """Parse ``argv`` for ``variant``'s CLI and run its phases.  ``device``
     overrides ``--device`` (which only the GRU CLI has, as in the reference;
-    the others run on the card unless a caller passes "cpu")."""
+    the others run on the card unless a caller passes "cpu").  ``--dp N``
+    outside a process group spawns the N processes that run them
+    (``_spawn``); this process then returns rank 0's scores."""
     params = load_params(argv, variant=variant, data_source=data_source)
     data_source = params["data_source"]  # --data_source flag may override
-    _one_device(params)
+    _check_supported(params)
     params["device"] = apply_device(device or params.get("device", "gpu"))
+    if params.get("multihost") and multihost.process_count() == 1:
+        multihost.initialize(params["multihost"], params["device"])
+        print("Multi-host run: process %d of %d." % (multihost.process_index(), multihost.process_count()))
+    elif int(params.get("dp", 0) or 0) > 1 and multihost.process_count() == 1:
+        get_vocabulary(data_source, params)  # built and saved once, before the processes read it
+        argv = list(sys.argv[1:]) if argv is None else list(argv)
+        scores = _spawn(variant, argv, data_source, params["device"], params)
+        return {"params": params} if scores is None else {"params": params, "scores": scores}
     print("Parameters being used by the Model - ", params)
 
     vocab = get_vocabulary(data_source, params)
@@ -117,8 +149,12 @@ def run(variant: str, argv: Optional[List[str]] = None, data_source: str = "MSCO
         )
 
     if params["is_testing"]:
+        if multihost.process_count() > 1:
+            # Every process evaluates together (the checkpoint must be readable on each; only rank 0 writes).
+            print("Multi-process test phase: process %d of %d joins the sharded eval."
+                  % (multihost.process_index(), multihost.process_count()))
         ts = create_train_state(cfg, params["optimizer_type"], params["lr"], params.get("momentum", 0.9),
-                                device=params["device"], seed=params.get("seed", 1))
+                                device=multihost.local_device(params["device"]), seed=params.get("seed", 1))
         ckpt_path = resolve_checkpoint_path(params["output_dir"], params["load_model_test"])
         restore_train_state(ts, read_checkpoint(ckpt_path))
         print("Model loaded.")

@@ -1,5 +1,5 @@
 """The COCO captions dataset and its batched loader (counterpart of
-show_tell_tpu/data/dataset.py, single process).
+show_tell_tpu/data/dataset.py).
 
 Reference semantics (utils.py:23-103), as the JAX package keeps them:
   * one sample per annotation (caption), not per image (utils.py:32);
@@ -18,6 +18,12 @@ padded to a fixed ``pad_length`` with explicit lengths, and a background
 thread loads batch k+1 while batch k trains.  The shuffle draws from
 ``numpy.random.RandomState(seed)`` exactly as the JAX loader does, so for
 the same seed both yield the same batches in the same order.
+
+In a group of processes (parallel/multihost.py) the train loader is
+process-sharded, as the JAX package's multi-host loader is: every process
+walks the same seeded shuffle, sorts each batch and collates its captions
+whole (metadata, no decode), and decodes only its contiguous share of the
+sorted rows, the rows its step trains on.
 """
 
 from __future__ import annotations
@@ -131,28 +137,50 @@ class MSCOCO:
         return image_path, self.load_image(image_path), caption
 
 
+def _descending_length_order(captions: Sequence[List[int]]) -> List[int]:
+    """The batch's row order: a stable sort by descending caption length (reference utils.py:61-77)."""
+    return sorted(range(len(captions)), key=lambda k: len(captions[k]), reverse=True)
+
+
+def _collate_captions(captions: Sequence[List[int]], pad_length: Optional[int]) -> Tuple[np.ndarray, np.ndarray]:
+    """Captions zero-padded to ``pad_length`` (the longest when None;
+    longer ones are cut) -> (captions int32 [B,T], lengths int32 [B])."""
+    lengths = np.array([min(len(c), pad_length) if pad_length else len(c) for c in captions], dtype=np.int32)
+    target = np.zeros((len(captions), pad_length if pad_length else int(lengths.max())), dtype=np.int32)
+    for i, cap in enumerate(captions):
+        target[i, : lengths[i]] = cap[: lengths[i]]
+    return target, lengths
+
+
 def create_batch(samples: Sequence[Tuple[str, np.ndarray, List[int]]],
                  pad_length: Optional[int] = DEFAULT_PAD_LENGTH) -> Batch:
     """Collate samples (reference utils.py:61-77): stable sort by
     descending caption length, zero-pad to ``pad_length`` (the batch's
     longest when None; longer captions are cut).  Returns (paths, images
     uint8 [B,H,W,3], captions int32 [B,T], lengths int32 [B])."""
-    order = sorted(range(len(samples)), key=lambda k: len(samples[k][2]), reverse=True)
+    order = _descending_length_order([sample[2] for sample in samples])
     paths, images, captions = zip(*[samples[k] for k in order])
-    lengths = np.array([min(len(c), pad_length) if pad_length else len(c) for c in captions], dtype=np.int32)
-    target = np.zeros((len(captions), pad_length if pad_length else int(lengths.max())), dtype=np.int32)
-    for i, cap in enumerate(captions):
-        target[i, : lengths[i]] = cap[: lengths[i]]
+    target, lengths = _collate_captions(captions, pad_length)
     return paths, np.stack(images, 0), target, lengths
 
 
 class DataLoader:
     """Batches of an MSCOCO dataset with shuffling, drop_last, and one
     background thread that loads the next batch (images decoded by
-    ``num_workers`` threads)."""
+    ``num_workers`` threads).  ``process_shard`` (process index, process
+    count): each batch's images are only this process's contiguous share
+    of the sorted rows; paths, captions and lengths stay the whole batch's
+    (``_load_batch_sharded``)."""
 
     def __init__(self, dataset: MSCOCO, batch_size: int, shuffle: bool = False, drop_last: bool = False,
-                 num_workers: int = 0, pad_length: int = DEFAULT_PAD_LENGTH, seed: int = 1):
+                 num_workers: int = 0, pad_length: int = DEFAULT_PAD_LENGTH, seed: int = 1,
+                 process_shard: Optional[Tuple[int, int]] = None):
+        if process_shard is not None and batch_size % process_shard[1]:
+            raise ValueError("batch_size %d does not divide over %d processes" % (batch_size, process_shard[1]))
+        if process_shard is not None and not drop_last:
+            # a ragged last batch would give the processes shares of different sizes
+            raise ValueError("process_shard requires drop_last=True")
+        self.process_shard = process_shard
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -178,14 +206,30 @@ class DataLoader:
             self._rng.shuffle(order)
         return [order[i * self.batch_size : (i + 1) * self.batch_size] for i in range(len(self))]
 
-    def _load_batch(self, idxs: np.ndarray, pool: ThreadPoolExecutor) -> Batch:
+    def _decode(self, paths: List[str], pool: ThreadPoolExecutor) -> List[np.ndarray]:
         ds = self.dataset
-        metas = [ds.sample_meta(int(i)) for i in idxs]
         if ds.use_native_decode and fastimage.is_available():
-            images = self._decode_native([path for path, _ in metas], pool)
-        else:
-            images = list(pool.map(ds.load_image, [path for path, _ in metas]))
+            return self._decode_native(paths, pool)
+        return list(pool.map(ds.load_image, paths))
+
+    def _load_batch(self, idxs: np.ndarray, pool: ThreadPoolExecutor) -> Batch:
+        metas = [self.dataset.sample_meta(int(i)) for i in idxs]
+        if self.process_shard is not None:
+            return self._load_batch_sharded(metas, pool)
+        images = self._decode([path for path, _ in metas], pool)
         return create_batch([(path, img, cap) for (path, cap), img in zip(metas, images)], self.pad_length)
+
+    def _load_batch_sharded(self, metas: List[Tuple[str, List[int]]], pool: ThreadPoolExecutor) -> Batch:
+        """The process-sharded batch: the whole batch's sort and captions
+        (``create_batch``'s own helpers, so the row order is one process's),
+        and the images of this process's rows [lo, hi) of it only.  Returns
+        (paths, images of rows lo..hi, captions, lengths)."""
+        pid, nproc = self.process_shard
+        order = _descending_length_order([cap for _, cap in metas])
+        lo, hi = pid * len(order) // nproc, (pid + 1) * len(order) // nproc
+        images = self._decode([metas[k][0] for k in order[lo:hi]], pool)
+        target, lengths = _collate_captions([metas[k][1] for k in order], self.pad_length)
+        return tuple(metas[k][0] for k in order), np.stack(images, 0), target, lengths
 
     def _decode_native(self, paths: List[str], pool: ThreadPoolExecutor) -> List[np.ndarray]:
         """One threaded native call decodes the batch's uncached images;
@@ -257,10 +301,12 @@ class DataLoader:
 
 def get_data_loader(vocab, params: Dict[str, Any], run_type: str) -> DataLoader:
     """The loader of reference utils.py:79-103 for run_type "train"
-    (shuffled by ``params['seed']``, drop_last) or "test" (in order, every
-    sample)."""
-    if params.get("multihost"):
-        raise NotImplementedError("multi-host loading (process-sharded batches) is ROADMAP Queue 1 item 6")
+    (shuffled by ``params['seed']``, drop_last; process-sharded in a group
+    of processes whose mesh takes them all and whose batch divides over
+    them) or "test" (in order, every sample, the same batches in every
+    process: the sharded eval splits them itself)."""
+    from show_tell_tpu_torch.parallel.multihost import process_count, process_index
+
     cache_root = str(params.get("image_cache", "") or "")
     fast_jpeg = bool(params.get("fast_jpeg", 0))
     loader_kw = dict(batch_size=params["batch_size"], num_workers=params.get("num_workers", 0),
@@ -268,7 +314,13 @@ def get_data_loader(vocab, params: Dict[str, Any], run_type: str) -> DataLoader:
     if run_type == "train":
         dataset = MSCOCO(params["ann_path_train"], params["data_path_train"], vocab, fast_jpeg=fast_jpeg,
                          image_cache=os.path.join(cache_root, "train") if cache_root else None)
-        return DataLoader(dataset, shuffle=bool(params.get("shuffle", True)), drop_last=True, **loader_kw)
+        nproc = process_count()
+        dp = int(params.get("dp", 0) or 0)
+        shard = None
+        if nproc > 1 and dp in (0, nproc) and params["batch_size"] % nproc == 0:
+            shard = (process_index(), nproc)
+        return DataLoader(dataset, shuffle=bool(params.get("shuffle", True)), drop_last=True, process_shard=shard,
+                          **loader_kw)
     if run_type == "test":
         dataset = MSCOCO(params["ann_path_test"], params["data_path_test"], vocab, fast_jpeg=fast_jpeg,
                          image_cache=os.path.join(cache_root, "test") if cache_root else None)

@@ -20,7 +20,7 @@ on a GPU); the functions here are its plain twin and the augmenting form.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -59,15 +59,20 @@ def preprocess_images(
     generator: Optional[torch.Generator] = None,
     augment: bool = True,
     dtype: torch.dtype = torch.float32,
+    shard: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
     """uint8 [B,H,W,3] -> normalized [B,H,W,3] ``dtype``.  With augment,
     each sample is flipped horizontally, then vertically, each with an
-    independent Bernoulli(0.5) draw from ``generator``."""
+    independent Bernoulli(0.5) draw from ``generator``; ``shard`` (index,
+    count): the images are that share of a data-parallel batch, flipped as
+    its rows of the whole batch's draws."""
     if images_u8.dtype != torch.uint8 or images_u8.dim() != 4 or images_u8.shape[-1] != 3:
         raise ValueError("expected uint8 [B,H,W,3] images, got %s %s" % (images_u8.dtype, tuple(images_u8.shape)))
     x = images_u8.float() / 255.0
     if augment:
-        hflip, vflip = _flip_draws(x.shape[0], generator, x.device)
+        B = x.shape[0]
+        index, count = shard or (0, 1)  # a share of a data-parallel batch: the whole batch's draws, its rows
+        hflip, vflip = (f[index * B : (index + 1) * B] for f in _flip_draws(B * count, generator, x.device))
         x = torch.where(hflip, x.flip(2), x)
         x = torch.where(vflip, x.flip(1), x)
     return _normalize(x, 1, dtype)

@@ -1,5 +1,5 @@
 """The test_model flow — reference utils.py:105-247 rebuilt (counterpart of
-show_tell_tpu/evaluation/tester.py, one device).
+show_tell_tpu/evaluation/tester.py).
 
 Per batch: teacher-forced loss, free-running decode (batched greedy, or
 beam search), ids -> words with <end> truncation and <start> skipping,
@@ -19,9 +19,15 @@ host needs travel beside their device copies.  The scoring itself runs on
 a thread pool (the native scorer releases the GIL) whose results are
 drained in batch order.
 
-One process, one device: the JAX package's process sharding of the
-scoring and its mesh (``dp``, ``mp``, multi-host) are ROADMAP Queue 1
-item 6, and asking for them raises.
+In a group of processes (``--dp``, ``--multihost``; parallel/) every
+process runs test_model together over the same batches: each step is split
+over the ranks (train_step.make_eval_step with the mesh: each decodes its
+rows, the ids are gathered, the loss summed), so every process holds the
+same captions; the host scoring is sharded, batch i on process i % n (and
+image i of the corpus pass likewise), and the float64 score tables are
+summed over the processes, bit for bit; only rank 0 writes the pickles.
+The JAX package's vocabulary sharding (``--mp`` > 1) is not ported and
+raises (ROADMAP Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -40,6 +46,8 @@ from show_tell_tpu_torch.decode.faithful_beam import faithful_beam_decode
 from show_tell_tpu_torch.evaluation import metrics
 from show_tell_tpu_torch.evaluation.metrics import evaluate
 from show_tell_tpu_torch.models.captioner import CaptionerConfig, prepare_decode
+from show_tell_tpu_torch.parallel.mesh import MP_ITEM, Mesh, make_mesh, sum_tables
+from show_tell_tpu_torch.parallel.multihost import is_primary, process_count
 from show_tell_tpu_torch.train.train_step import COMPUTE_DTYPES, TrainState, make_eval_step
 from show_tell_tpu_torch.utils import StepTimer
 
@@ -80,6 +88,7 @@ def make_test_step(
     loss_only: bool = False,
     early_exit: bool = False,
     end_token: int = 2,
+    mesh: Optional[Mesh] = None,
 ):
     """(loss, decoded ids) for one batch: ``train_step.make_eval_step``
     (evaluate(ts, images_u8, captions, lengths, generator, prepared, t_max)).
@@ -95,21 +104,21 @@ def make_test_step(
     continuations, and ``create_caption_word_format`` truncates at <end>
     either way.  It reads one flag on the host a step."""
     return make_eval_step(cfg, augment=augment, compute_dtype=compute_dtype, beam_size=beam_size,
-                          loss_only=loss_only, early_exit=early_exit, end_token=end_token)
+                          loss_only=loss_only, early_exit=early_exit, end_token=end_token, mesh=mesh)
 
 
 def check_eval_params(params: Dict[str, Any]) -> None:
-    """Raise for what the port's eval does not run: the JAX package's mesh
-    or processes, and its XLA decode route."""
-    dp, mp = int(params.get("dp", 0) or 0), int(params.get("mp", 1) or 1)
-    if dp > 1 or mp > 1 or params.get("multihost"):
-        raise NotImplementedError(
-            "the sharded eval (dp=%d, mp=%d%s) is ROADMAP Queue 1 item 6; the port evaluates on one device"
-            % (dp, mp, ", multihost" if params.get("multihost") else ""))
+    """Raise for what the port's eval does not run: the JAX package's
+    vocabulary sharding, and its XLA decode route."""
+    mp = int(params.get("mp", 1) or 1)
+    if mp > 1:
+        raise NotImplementedError("--mp %d (the eval's vocabulary sharding) is %s; the port's eval is data "
+                                  "parallel only" % (mp, MP_ITEM))
     use_pallas = int(params.get("use_pallas", -1))
     if use_pallas == 0:
-        raise ValueError("--use_pallas 0 selects the JAX package's XLA decode, which the port does not have: "
-                         "-1 and 1 both run the port's kernels (their plain twins on the CPU)")
+        raise ValueError("--use_pallas 0 selects the JAX package's XLA decode, which the port does not have "
+                         "(ROADMAP Queue 1 item 2): -1 and 1 both run the port's kernels (their plain twins on the "
+                         "CPU)")
     if use_pallas not in (-1, 1):
         raise ValueError("--use_pallas takes -1, 0 or 1, not %d" % use_pallas)
 
@@ -120,6 +129,21 @@ def _with_host_copies(data_loader):
     never read back."""
     for paths, images, captions, lengths in data_loader:
         yield paths, images, captions, lengths, np.asarray(captions), np.asarray(lengths)
+
+
+def eval_mesh(params: Dict[str, Any], data_loader, device) -> Optional[Mesh]:
+    """The sharded eval's mesh: every process of a group, or None in one
+    process.  An explicit ``--dp`` that cannot split the eval's batches
+    raises rather than falling back to one device."""
+    dp = int(params.get("dp", 0) or 0)
+    if process_count() == 1 and dp <= 1:
+        return None
+    mesh = make_mesh(dp, device=device)
+    eval_batch = getattr(data_loader, "batch_size", params.get("batch_size", 0))
+    if dp > 1 and eval_batch and eval_batch % dp:
+        raise ValueError("eval mesh dp=%d x mp=1 cannot form: %d devices visible and the eval batch size %s must "
+                         "divide dp" % (dp, process_count(), eval_batch))
+    return mesh
 
 
 def test_model(
@@ -147,6 +171,8 @@ def test_model(
     timer = timer if timer is not None else StepTimer()
 
     check_eval_params(params)
+    mesh = eval_mesh(params, data_loader, train_state.device)
+    nproc, proc_id = (mesh.dp, mesh.rank) if mesh is not None else (1, 0)
     if sub_batch_size == -1:
         sub_batch_size = len(data_loader)
 
@@ -174,6 +200,7 @@ def test_model(
         # shapes the batched decode loops.
         early_exit=bool(params.get("early_exit", 0)) and not use_faithful,
         end_token=vocab.word_to_index[vocab.end_token()],
+        mesh=mesh,
     )
     # The weights do not change inside an eval: the kernels' layout is built once.
     prepared = prepare_decode(model, COMPUTE_DTYPES[compute_dtype] or torch.float32)
@@ -239,14 +266,16 @@ def test_model(
                     target_caption_full[imgs] = list(tgt)
                     candidate_caption_full[imgs] = [pdt]
 
-            if executor is not None:
-                score_futures[idx] = executor.submit(_score_one, target_words, predicted_words)
-            else:
-                scored_rows[idx] = _score_one(target_words, predicted_words)
-                for k, v in zip(SCORE_KEYS, scored_rows[idx]):
-                    accum[k].append(v)
+            if idx % nproc == proc_id:  # one process: every batch
+                if executor is not None:
+                    score_futures[idx] = executor.submit(_score_one, target_words, predicted_words)
+                else:
+                    scored_rows[idx] = _score_one(target_words, predicted_words)
+                    for k, v in zip(SCORE_KEYS, scored_rows[idx]):
+                        accum[k].append(v)
 
-        # Running means over every batch so far, exactly the reference print.
+        # Running means over every batch so far, exactly the reference print (a group of processes: over this
+        # process's share of the batches).
         if (idx + 1) % 100 == 0:
             _resolve_scores(upto=idx)
             _m = lambda k: float(np.mean(accum[k])) if accum[k] else 0.0
@@ -297,10 +326,11 @@ def test_model(
         if executor is not None:
             executor.shutdown(wait=True)
 
-    # The per-batch score table, averaged in batch order.
+    # The per-batch score table (in a group of processes each row scored by one of them), averaged in batch order.
     table = np.zeros((len(test_loss), len(SCORE_KEYS)), np.float64)
     for i, row in scored_rows.items():
         table[i] = row
+    table = sum_tables(table, mesh)
     final = {k: float(np.mean(table[:, j])) for j, k in enumerate(SCORE_KEYS)}
     final["test_loss"] = float(np.mean(test_loss))
     print(
@@ -317,10 +347,12 @@ def test_model(
         )
     )
 
-    with open(os.path.join(params["output_dir"], "Target_Words_Dict.pickle"), "wb") as f:
-        pickle.dump(target_caption_full, f)
-    with open(os.path.join(params["output_dir"], "Candidate_Words_Dict.pickle"), "wb") as f:
-        pickle.dump(candidate_caption_full, f)
+    # Every process holds the same captions; the primary alone writes them (two writers would tear the files).
+    if is_primary():
+        with open(os.path.join(params["output_dir"], "Target_Words_Dict.pickle"), "wb") as f:
+            pickle.dump(target_caption_full, f)
+        with open(os.path.join(params["output_dir"], "Candidate_Words_Dict.pickle"), "wb") as f:
+            pickle.dump(candidate_caption_full, f)
 
     # ------ per-image nltk corpus BLEU pass (utils.py:232-246) -------- #
     # The native scorer (fastmetrics.corpus_bleu4_sums) and
@@ -333,6 +365,8 @@ def test_model(
     img_names = list(target_caption_full)
     corpus_rows = np.zeros((len(img_names), 4), np.float64)
     for i, img_nm in enumerate(img_names):
+        if i % nproc != proc_id:  # the same insertion order on every process
+            continue
         cands = candidate_caption_full[img_nm]
         refs = target_caption_full[img_nm]
         sums = fastmetrics.corpus_bleu4_sums(refs, cands, weights)
@@ -344,6 +378,7 @@ def test_model(
                     sums[w] += vals[w]
         for w in range(4):
             corpus_rows[i, w] = sums[w] / len(cands)
+    corpus_rows = sum_tables(corpus_rows, mesh)
     for w in range(4):
         final["Final_Bleu_%d" % (w + 1)] = float(np.mean(corpus_rows[:, w])) if len(img_names) else 0.0
     print(

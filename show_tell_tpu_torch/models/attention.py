@@ -179,6 +179,12 @@ def attn_decoder_forward(
     return torch.stack(preds, dim=1), torch.stack(alphas, dim=1)
 
 
-def doubly_stochastic_penalty(alphas: torch.Tensor) -> torch.Tensor:
-    """alpha_c regularizer: ((1 - sum_t alpha)^2).mean() over [B, P] (main_attn.py:131)."""
-    return ((1.0 - alphas.sum(dim=1)) ** 2).mean()
+def doubly_stochastic_penalty(alphas: torch.Tensor, rows: Optional[int] = None) -> torch.Tensor:
+    """alpha_c regularizer: ((1 - sum_t alpha)^2).mean() over [B, P]
+    (main_attn.py:131).  ``rows``: the row count of the larger batch these
+    B rows are one share of, the mean's denominator then being that
+    batch's; by default B."""
+    terms = (1.0 - alphas.sum(dim=1)) ** 2
+    if rows is None:
+        return terms.mean()
+    return terms.sum() / (terms.shape[1] * rows)

@@ -79,9 +79,10 @@ class CaptionerModel(nn.Module):
         self.encoder = Encoder(cfg.encoder_config())
         self.decoder = (AttnDecoder if cfg.is_attention else Decoder)(cfg.decoder_config())
 
-    def forward(self, images: torch.Tensor, captions: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    def forward(self, images: torch.Tensor, captions: torch.Tensor, lengths: torch.Tensor,
+                batch_lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The teacher-forced loss (``captioner_loss``) of normalized float images."""
-        return captioner_loss(self, self.cfg, images, captions, lengths)
+        return captioner_loss(self, self.cfg, images, captions, lengths, batch_lengths=batch_lengths)
 
 
 # The trainable parameters (reference main.py:96): the decoder and the encoder's head.
@@ -102,11 +103,12 @@ def captioner_loss(
     captions: torch.Tensor,  # [B, T] int
     lengths: torch.Tensor,  # [B] int
     t_max: Optional[int] = None,
+    batch_lengths: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Teacher-forced loss (captioner.captioner_loss in the JAX package):
     the encoder in the model's mode (in train mode its BatchNorms move their
     running statistics in place), then ``decoder_loss`` of its features."""
-    return decoder_loss(model, cfg, model.encoder(images), captions, lengths, t_max)
+    return decoder_loss(model, cfg, model.encoder(images), captions, lengths, t_max, batch_lengths)
 
 
 def decoder_loss(
@@ -116,6 +118,7 @@ def decoder_loss(
     captions: torch.Tensor,  # [B, T] int
     lengths: torch.Tensor,  # [B] int
     t_max: Optional[int] = None,
+    batch_lengths: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The loss of ``captioner_loss`` from the encoder's features: masked
     CE, which equals the reference's packed CE, plus alpha_c times the
@@ -128,20 +131,33 @@ def decoder_loss(
     masked out of each term and the recurrence is causal, so the loss and
     its gradients are those of the padded batch, without the dead steps.
     ``t_max``: that length, where the caller has it on the host; else it is
-    read from ``lengths`` (a device sync for lengths on a GPU)."""
+    read from ``lengths`` (a device sync for lengths on a GPU).
+
+    ``batch_lengths``: the lengths of the whole batch where these rows are
+    one data-parallel rank's share of it; the terms' denominators then
+    count that batch's tokens and rows, so the ranks' losses sum to the
+    whole batch's.  Each rank cuts at its own longest caption: the cut
+    drops only masked positions."""
     if t_max is None:
         t_max = int(lengths.max())
     captions = captions[:, : max(t_max, 1)]
+    count = rows = None
+    if batch_lengths is not None:  # every length is within its rank's cut, so the tokens are their sum
+        rows = len(batch_lengths)
+        count = batch_lengths.sum().float()
     if not cfg.is_attention:
         logits = decoder_forward(model.decoder, cfg.decoder_config(), feats, captions, lengths)
-        return masked_cross_entropy(logits, captions, lengths)
+        return masked_cross_entropy(logits, captions, lengths, count)
     if cfg.attn_next_token:
         lengths = (lengths - 1).clamp(min=0)
         targets = torch.cat([captions[:, 1:], torch.zeros_like(captions[:, :1])], dim=1)
+        if batch_lengths is not None:
+            count = (batch_lengths - 1).clamp(min=0).sum().float()
     else:
         targets = captions
     preds, alphas = attn_decoder_forward(model.decoder, cfg.decoder_config(), feats, captions, lengths)
-    return masked_cross_entropy(preds, targets, lengths) + cfg.alpha_c * doubly_stochastic_penalty(alphas)
+    return (masked_cross_entropy(preds, targets, lengths, count)
+            + cfg.alpha_c * doubly_stochastic_penalty(alphas, rows))
 
 
 def init_captioner(cfg: CaptionerConfig, generator: torch.Generator) -> Tuple[Dict[str, Any], Dict[str, Any]]:

@@ -11,6 +11,11 @@ The attention decoders add "init_h", "embed" (and "init_c" for the LSTM)
 as {"w" [C,out], "b"} and "attn": {"encoder_att", "decoder_att",
 "full_att"}, each {"w" [in,out], "b"}.
 
+The reference's own torch state_dicts (``decoder_params_from_torch``,
+``attn_decoder_params_from_torch``, ``linear_from_torch``; the encoder's in
+models/encoder.py) convert to the JAX-layout trees, for the reference
+``.ckpt`` reader (train/checkpoint.import_torch_checkpoint).
+
 Port side: ``{"encoder": state_dict, "decoder": state_dict}`` with
 torchvision's names under ``resnet.`` (OIHW convs), ``linear_secondlast_layer.*``
 and ``last_layer.*`` (nn.Linear layout), and the reference decoder's names
@@ -152,3 +157,60 @@ def trainable_from_jax(tree: Dict[str, Any]) -> Dict[str, np.ndarray]:
     out["encoder.last_layer.weight"] = np.asarray(bn["weight"])
     out["encoder.last_layer.bias"] = np.asarray(bn["bias"])
     return out
+
+
+# --- reference torch state_dicts (reference rnn.py:23-25, Attention/rnn_attn.py:49-58) -> JAX-layout trees ---
+
+
+def _np(x) -> np.ndarray:
+    """A torch tensor or array-like -> an owned numpy copy (later in-place
+    updates of the source must not reach the converted tree)."""
+    if hasattr(x, "detach"):
+        return np.array(x.detach().cpu().numpy())
+    return np.array(x)
+
+
+def decoder_params_from_torch(state_dict: Dict[str, Any], num_layers: int) -> Dict[str, Any]:
+    """A reference RNN/LSTM decoder state_dict (``embeddings.weight``,
+    ``unit.{weight,bias}_{ih,hh}_l{k}``, ``linear.*``) -> the JAX-layout
+    decoder tree of ``num_layers`` layers, numpy."""
+    sd = {k: _np(v) for k, v in state_dict.items()}
+    return {
+        "embedding": sd["embeddings.weight"],
+        "rnn": [
+            {
+                "w_ih": _T(sd["unit.weight_ih_l%d" % l]),
+                "w_hh": _T(sd["unit.weight_hh_l%d" % l]),
+                "b_ih": sd["unit.bias_ih_l%d" % l],
+                "b_hh": sd["unit.bias_hh_l%d" % l],
+            }
+            for l in range(num_layers)
+        ],
+        "linear": {"w": _T(sd["linear.weight"]), "b": sd["linear.bias"]},
+    }
+
+
+def decoder_params_to_torch(params: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """A decoder tree -> its reference-keyed numpy state dict (the inverse of
+    ``decoder_params_from_torch``; ``decoder_from_jax``, which also carries
+    an attention decoder's extra layers)."""
+    return decoder_from_jax(params)
+
+
+def linear_from_torch(sd: Dict[str, Any], prefix: str) -> Dict[str, np.ndarray]:
+    """``prefix.weight`` [out, in] and ``prefix.bias`` -> {"w" [in, out], "b"}."""
+    return {"w": _T(_np(sd[prefix + ".weight"])), "b": _np(sd[prefix + ".bias"])}
+
+
+def attn_decoder_params_from_torch(state_dict: Dict[str, Any], num_layers: int) -> Dict[str, Any]:
+    """A reference RNN_Attn state_dict -> the JAX-layout attention decoder
+    tree: the pooled keys plus ``init_h`` (``init_c`` for the LSTM),
+    ``embed`` and ``attn.{encoder,decoder,full}_att``."""
+    sd = {k: _np(v) for k, v in state_dict.items()}
+    tree = decoder_params_from_torch(sd, num_layers)
+    tree["init_h"] = linear_from_torch(sd, "init_h")
+    if "init_c.weight" in sd:
+        tree["init_c"] = linear_from_torch(sd, "init_c")
+    tree["embed"] = linear_from_torch(sd, "embed")
+    tree["attn"] = {name: linear_from_torch(sd, "attn." + name) for name in ("encoder_att", "decoder_att", "full_att")}
+    return tree

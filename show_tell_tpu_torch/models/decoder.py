@@ -170,12 +170,15 @@ def decoder_forward(
     return linear_f32(decoder.linear, outs)
 
 
-def masked_cross_entropy(logits: torch.Tensor, targets: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+def masked_cross_entropy(logits: torch.Tensor, targets: torch.Tensor, lengths: torch.Tensor,
+                         count: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean CE over the positions t < lengths of f32 logits [B, T, V]: the
     reference's CrossEntropyLoss over pack_padded_sequence data
-    (main.py:145,149)."""
+    (main.py:145,149).  ``count``: the denominator where these rows are
+    one share of a larger batch (that batch's token count); by default
+    this batch's own."""
     T = logits.shape[1]
     mask = (torch.arange(T, device=logits.device)[None, :] < lengths.to(logits.device)[:, None]).float()
     logz = torch.logsumexp(logits, dim=-1)  # [B, T]
     tok = logits.gather(-1, targets.long()[..., None])[..., 0]
-    return ((logz - tok) * mask).sum() / mask.sum()
+    return ((logz - tok) * mask).sum() / (mask.sum() if count is None else count)

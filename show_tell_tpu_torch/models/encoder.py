@@ -23,12 +23,12 @@ s2d composite), is the yardstick the fused stem is timed against.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn as nn
 
-from show_tell_tpu_torch.models.resnet import BatchNorm, ResNet, feature_dim
+from show_tell_tpu_torch.models.resnet import BatchNorm, ResNet, feature_dim, resnet_params_from_torch
 from show_tell_tpu_torch.ops.preprocess import preprocess_u8
 from show_tell_tpu_torch.ops.stem import prepare_stem, stem_fused
 
@@ -105,3 +105,40 @@ class Encoder(nn.Module):
             return fmap.reshape(B, h * w, C).transpose(1, 2)
         pooled = fmap.mean(dim=(1, 2))
         return self.last_layer(self.linear_secondlast_layer(pooled))
+
+
+# The reference wraps torchvision's children in nn.Sequential (cnn.py:34): index -> torchvision name.
+# 2 (relu) and 3 (maxpool) hold no parameters.
+_SEQUENTIAL_NAMES = {"0": "conv1", "1": "bn1", "4": "layer1", "5": "layer2", "6": "layer3", "7": "layer4"}
+
+
+def encoder_params_from_torch(state_dict: Dict[str, Any], cfg: EncoderConfig) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """A reference cnn.ResNet state_dict -> (params, state) numpy trees in the
+    JAX layout (the counterpart of show_tell_tpu/models/encoder.py's
+    ``encoder_params_from_torch``).  Keys: ``model.N.*`` (the Sequential
+    index N maps back to torchvision's names, ``_SEQUENTIAL_NAMES``),
+    ``linear_secondlast_layer.*`` and ``last_layer.*``;
+    ``num_batches_tracked`` is dropped.  ``cfg`` is taken for the JAX
+    signature: the keys carry every width."""
+    from show_tell_tpu_torch.models.convert import _T, _np
+
+    tv_sd: Dict[str, Any] = {}
+    head: Dict[str, Dict[str, Any]] = {"linear_secondlast_layer": {}, "last_layer": {}, "state": {}}
+    for k, v in state_dict.items():
+        if k.startswith("model."):
+            idx, _, tail = k[len("model."):].partition(".")
+            name = _SEQUENTIAL_NAMES.get(idx)
+            if name is not None:
+                tv_sd[name + "." + tail if tail else name] = v
+        elif k == "linear_secondlast_layer.weight":
+            head["linear_secondlast_layer"]["w"] = _T(_np(v))
+        elif k == "linear_secondlast_layer.bias":
+            head["linear_secondlast_layer"]["b"] = _np(v)
+        elif k in ("last_layer.weight", "last_layer.bias"):
+            head["last_layer"][k.partition(".")[2]] = _np(v)
+        elif k in ("last_layer.running_mean", "last_layer.running_var"):
+            head["state"][k.partition(".")[2]] = _np(v)
+    res_params, res_state = resnet_params_from_torch(tv_sd)
+    params = {"resnet": res_params, "linear_secondlast_layer": head["linear_secondlast_layer"],
+              "last_layer": head["last_layer"]}
+    return params, {"resnet": res_state, "last_layer": head["state"]}

@@ -54,7 +54,9 @@ class BatchNorm(nn.Module):
     Train mode (the JAX package's ``_bn(training=True)``) normalizes by the
     batch's biased variance over every axis but 1 and moves the running
     statistics by ``momentum`` towards the batch mean and the unbiased
-    variance (n = B x H x W), which is ``F.batch_norm``'s own rule."""
+    variance (n = B x H x W), which is ``F.batch_norm``'s own rule.  With
+    ``mesh`` set (a data-parallel run), train mode takes the mean and
+    variance of every rank's rows (``parallel.mesh.synced_batch_norm``)."""
 
     def __init__(self, c: int, momentum: float = 0.1):
         super().__init__()
@@ -63,8 +65,14 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer("running_mean", torch.zeros(c))
         self.register_buffer("running_var", torch.ones(c))
+        self.mesh = None  # a data-parallel mesh (parallel/mesh.py): train mode then takes every rank's statistics
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and self.mesh is not None:
+            from show_tell_tpu_torch.parallel.mesh import synced_batch_norm
+
+            return synced_batch_norm(x, self.weight, self.bias, self.running_mean, self.running_var, self.momentum,
+                                     BN_EPS, self.mesh)
         return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
                             training=self.training, momentum=self.momentum, eps=BN_EPS)
 

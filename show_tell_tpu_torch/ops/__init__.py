@@ -133,3 +133,30 @@ def beam_step_default() -> str:
     work outgrows the host's, at B=256.  A route by batch size would take
     that gain; the rule as fixed takes one default for every B."""
     return "dense"
+
+
+def fold_bn_default() -> bool:
+    """Whether ``serve.Captioner`` serves the encoder with every BatchNorm
+    folded into its convolution (models/serving.FoldedEncoder) when the
+    caller does not say; the counterpart of the JAX package's serving
+    transform (show_tell_tpu/models/serving.py).  It is the card's
+    default: on the CPU the Captioner keeps the unfolded encoder, the JAX
+    package's own serving route, to which the CPU tests hold it.
+
+    The rule, fixed before the first timed run (chip_smoke.py phase 6 (b):
+    the encoder alone from uint8 pixels on the card, folded and unfolded
+    in turns, ten rounds of five encodes by CUDA events, the pooled GRU and
+    the attention GRU at B = 1 and 64, bf16 and f32): on where the folded
+    route wins at B=64 in bf16 for both families by ab_verdict's rule
+    (faster in at least 9 of 10 rounds, the medians further apart than the
+    larger interquartile range) and the unfolded route wins in no cell.
+
+    On, by two runs of that A/B on an NVIDIA H100 80GB HBM3 at its 700 W
+    power limit: the folded route was faster in 10 of 10 rounds in every
+    cell; at B=64 bf16 it took 4.21-5.57 ms against 8.63-13.92 ms (2.05-2.78x,
+    the medians 4.4-8.4 ms apart against spreads of 0.05-2.3 ms), at B=1
+    bf16 2.34-5.36 against 6.54-13.45 ms, at B=64 f32 41.0-41.1 against
+    45.6-45.8 ms (1.11x: the convolutions without TF32 are the time); at B=1
+    f32 it won or tied.  The folded route runs none of the unfolded one's
+    ~104 eval-BatchNorm, ~100 ReLU and 33 add passes over the activations."""
+    return True

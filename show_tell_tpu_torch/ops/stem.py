@@ -51,7 +51,15 @@ def prepare_stem(resnet, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
     mult = cpu(bn.weight) * torch.rsqrt(cpu(bn.running_var) + BN_EPS)
     w4 = transform_conv1_weight(cpu(resnet.conv1.weight)) * mult[:, None, None, None]  # [64, 12, 4, 4]
     bias = cpu(bn.bias) - cpu(bn.running_mean) * mult
+    return stem_operands(w4, bias, dtype, resnet.conv1.weight.device)
 
+
+def stem_operands(w4: torch.Tensor, bias: torch.Tensor, dtype: torch.dtype, device: torch.device) -> Dict[str, torch.Tensor]:
+    """``prepare_stem``'s operands from conv1 with BN already folded in:
+    ``w4`` the f32 [64, 12, 4, 4] s2d kernel (``transform_conv1_weight``
+    of the folded 7x7 weight), ``bias`` its f32 [64] bias.  The BN-folded
+    encoder (models/serving.py) calls it with its own conv1; the transform
+    only moves values, so both routes get the same operands bit for bit."""
     mean = np.asarray(IMAGENET_MEAN, np.float32)
     std = np.asarray(IMAGENET_STD, np.float32)
     scale = torch.from_numpy(np.tile(1.0 / (255.0 * std), 4).astype(np.float32))  # [12], channel (di, dj, c)
@@ -62,7 +70,6 @@ def prepare_stem(resnet, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
     w = (w4 * scale[None, :, None, None]).permute(2, 3, 1, 0).reshape(TAPS, CHANNELS)
     t = tmap.permute(1, 2, 0).contiguous()
     reps = list(CLASS_REPS)
-    device = resnet.conv1.weight.device
     return {"w": w.to(device, dtype).contiguous(), "t": t.to(device), "tc": t[reps][:, reps].contiguous().to(device)}
 
 

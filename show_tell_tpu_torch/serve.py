@@ -8,6 +8,8 @@ the pooled and the soft-attention GRU and LSTM, greedy and beam decode).
     captions = captioner.caption(images_u8, beam_size=3)  # beam search, width 3
     captions = captioner.caption_files(paths)             # image files (native libjpeg, else PIL)
     captioner = Captioner.from_checkpoint(ckpt, vocab, s2d=True)  # the space-to-depth input path
+    captioner = Captioner.from_checkpoint("model_9.ckpt", vocab)  # a reference torch .ckpt reads the same way
+    captioner = Captioner.from_checkpoint(ckpt, vocab, fold_bn=True)  # BN folded into the encoder's convolutions
     for path, caption in caption_paths(captioner, paths, 64, cache=ServeImageCache(dir, 224)): ...
 
 Images are preprocessed on the device, by the preprocess kernel on a GPU;
@@ -34,7 +36,8 @@ native JPEG decoder): nothing of the JAX package is imported.
 
 CLI: ``python -m show_tell_tpu_torch.serve --ckpt model.ckpt --vocab
 vocab.pkl [--variant gru|lstm|attn|attn_lstm] [--beam_size K] [--s2d 1]
-[--fast_jpeg 1] [--image_cache DIR] [--device cpu|gpu] img1.jpg photos_dir/ ...``
+[--fast_jpeg 1] [--image_cache DIR] [--fold_bn 0|1] [--device cpu|gpu] img1.jpg photos_dir/ ...``;
+``--ckpt`` takes either checkpoint format.
 """
 
 from __future__ import annotations
@@ -54,7 +57,9 @@ from show_tell_tpu_torch.models.captioner import (
     captioner_greedy_decode,
     prepare_decode,
 )
-from show_tell_tpu_torch.train.checkpoint import load_checkpoint
+from show_tell_tpu_torch.models.serving import FoldedEncoder
+from show_tell_tpu_torch.ops import fold_bn_default
+from show_tell_tpu_torch.train.checkpoint import import_torch_checkpoint, load_checkpoint
 from show_tell_tpu_torch.vocab import load_vocab
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -74,6 +79,24 @@ def create_caption_word_format(tokenized, vocab) -> List[List[str]]:
                 curr_word.append(vocab.index_to_word[idx])
         caption_words.append(curr_word)
     return caption_words
+
+
+def load_any_checkpoint(ckpt_path: str, cfg: CaptionerConfig) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """(params, bn_state) from a show_tell_tpu pickle checkpoint or, where
+    the file is not one, from a reference torch .ckpt
+    (``import_torch_checkpoint``).  A file that loads as neither raises one
+    ValueError that names both errors: a torn checkpoint of either format
+    would otherwise hide behind the other reader's message."""
+    try:
+        return load_checkpoint(ckpt_path)
+    except Exception as ours_err:
+        try:
+            return import_torch_checkpoint(ckpt_path, cfg)
+        except Exception as torch_err:
+            raise ValueError(
+                "%s loads neither as a show_tell_tpu checkpoint (%s: %s) nor as a torch checkpoint (%s: %s)"
+                % (ckpt_path, type(ours_err).__name__, ours_err, type(torch_err).__name__, torch_err)
+            ) from torch_err
 
 
 class Staged(NamedTuple):
@@ -96,13 +119,18 @@ class Captioner:
         early_exit: bool = False,
         device: Union[str, torch.device] = "gpu",
         s2d: bool = False,
+        fold_bn: Optional[bool] = None,
     ):
         """params, bn_state: the JAX package's trees (numpy arrays).
         early_exit stops decoding once every row (beam: every beam)
         emitted <end> (identical captions).  device: 'cpu', 'gpu' or a
         torch.device; 'gpu' without CUDA raises.  s2d serves the
         space-to-depth input path: the encoder runs the fused stem kernel
-        from the pixels."""
+        from the pixels.  fold_bn serves the encoder with every BatchNorm
+        folded into its convolution (models/serving.FoldedEncoder); None
+        takes ``ops.fold_bn_default()`` on a GPU, the route its H100 A/B
+        chose, and the unfolded encoder on the CPU, where the port is held
+        to the JAX package's Captioner (which does not fold)."""
         self.cfg = cfg
         self.vocab = vocab
         self.early_exit = early_exit
@@ -111,6 +139,10 @@ class Captioner:
         self._copy_stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
         self.dtype = _DTYPES[compute_dtype]
         self.model = build_model(params, bn_state, cfg, self.dtype, self.device)
+        self.fold_bn = (self.device.type == "cuda" and fold_bn_default()) if fold_bn is None else bool(fold_bn)
+        if self.fold_bn:
+            self.model.encoder = FoldedEncoder.from_trees(params["encoder"], bn_state, cfg.encoder_config(),
+                                                          self.dtype, self.device)
         self.prepared = prepare_decode(self.model, self.dtype)
         # Early exit and beam retirement key on the loaded vocab's own <end> id.
         self.end_idx = vocab.word_to_index[vocab.end_token()]
@@ -129,17 +161,20 @@ class Captioner:
         early_exit: bool = False,
         device: Union[str, torch.device] = "gpu",
         s2d: bool = False,
+        fold_bn: Optional[bool] = None,
         **cfg_kw,
     ) -> "Captioner":
-        """Load a show_tell_tpu pickle checkpoint and its vocab.pkl."""
+        """Load a checkpoint, a show_tell_tpu pickle (either package's) or a
+        reference torch .ckpt, and its vocab.pkl."""
         vocab = load_vocab(vocab_path)
         cfg_kw.setdefault("start_token", vocab.word_to_index.get(vocab.start_token(), 1))
         cfg = CaptionerConfig(
             variant=variant, resnet_version=resnet_version, embed_dim=embed_dim,
             hidden_dim=hidden_dim, vocab_size=len(vocab), num_layers=num_layers, **cfg_kw,
         )
-        params, bn_state = load_checkpoint(ckpt_path)
-        return cls(params, bn_state, cfg, vocab, compute_dtype, early_exit=early_exit, device=device, s2d=s2d)
+        params, bn_state = load_any_checkpoint(ckpt_path, cfg)
+        return cls(params, bn_state, cfg, vocab, compute_dtype, early_exit=early_exit, device=device, s2d=s2d,
+                   fold_bn=fold_bn)
 
     def stage(self, images_u8: Union[np.ndarray, torch.Tensor]) -> Staged:
         """A uint8 batch -> ``Staged`` on the Captioner's device.  From the
@@ -266,7 +301,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
     p = argparse.ArgumentParser(prog="python -m show_tell_tpu_torch.serve", description="Caption images from a checkpoint.")
     p.add_argument("images", nargs="+", help="JPEG files and/or directories of JPEGs")
-    p.add_argument("--ckpt", required=True, help="show_tell_tpu pickle checkpoint")
+    p.add_argument("--ckpt", required=True, help="checkpoint: a show_tell_tpu pickle or a reference torch .ckpt")
     p.add_argument("--vocab", required=True, help="vocab.pkl path")
     p.add_argument("--variant", default="gru", choices=["gru", "lstm", "attn", "attn_lstm"],
                    help="model family: pooled gru/lstm (main.py, main_lstm.py) or attention attn/attn_lstm")
@@ -287,6 +322,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     p.add_argument("--s2d", type=int, default=0,
                    help="serve the space-to-depth input path: the fused stem kernel from the decoded pixels")
     p.add_argument("--fast_jpeg", type=int, default=0, help="DCT-domain scaled JPEG decode (~2x host decode speed)")
+    p.add_argument("--fold_bn", type=int, default=-1, choices=[-1, 0, 1],
+                   help="serve the encoder with its BatchNorms folded into the convolutions: 1 on, 0 off, "
+                        "-1 the default (ops.fold_bn_default() on the card, off on the CPU)")
     p.add_argument("--image_cache", default="",
                    help="decoded-image cache dir (.npy per image keyed by path, size, mtime and --fast_jpeg; stale "
                         "entries decode anew; shareable across serve runs)")
@@ -318,7 +356,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         args.ckpt, args.vocab, variant=args.variant, resnet_version=args.resnet_version,
         embed_dim=args.embedding_length or (256 if args.variant == "gru" else 512),
         hidden_dim=args.num_hidden_units, num_layers=args.num_layers, compute_dtype=args.compute_dtype,
-        early_exit=bool(args.early_exit), device=args.device, s2d=bool(args.s2d), **cfg_kw,
+        early_exit=bool(args.early_exit), device=args.device, s2d=bool(args.s2d),
+        fold_bn=None if args.fold_bn < 0 else bool(args.fold_bn), **cfg_kw,
     )
     fast_jpeg = bool(args.fast_jpeg)
     cache = ServeImageCache(args.image_cache, IMAGE_SIZE, fast_jpeg) if args.image_cache else None

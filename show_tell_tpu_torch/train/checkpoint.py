@@ -27,6 +27,9 @@ Resume follows the reference: weights and optimizer state are restored,
 training restarts at epoch 0 (the saved epoch and step are never read
 back).  The JAX package's orbax directories (``model_<N>.orbax``) are not
 read or written here: pickle files only.
+
+``import_torch_checkpoint`` reads the reference's own files (``torch.save``
+of utils.py:131-138) into the same trees, for serving.
 """
 
 from __future__ import annotations
@@ -82,8 +85,8 @@ def read_checkpoint(path: str) -> Dict[str, Any]:
         ckpt = _NumpyTreeUnpickler(f).load()
     if not (isinstance(ckpt, dict) and str(ckpt.get("format", "")).startswith("show_tell_tpu")):
         raise ValueError(
-            "%s is not a show_tell_tpu pickle checkpoint (reading reference torch .ckpt files "
-            "is ROADMAP Queue 1 item 2, serving leftovers)" % path
+            "%s is not a show_tell_tpu pickle checkpoint (a reference torch .ckpt is read by "
+            "import_torch_checkpoint, which serve.Captioner.from_checkpoint tries next)" % path
         )
     return ckpt
 
@@ -238,3 +241,23 @@ def restore_train_state(ts, ckpt: Dict[str, Any]):
             for k, v in st.items()
         }
     return ts
+
+
+def import_torch_checkpoint(path: str, cfg) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """A reference torch checkpoint (utils.py:131-138) -> (params, bn_state)
+    numpy trees in the JAX layout, as ``load_checkpoint`` returns them (the
+    counterpart of show_tell_tpu/train/checkpoint.py's
+    ``import_torch_checkpoint``).  ``cfg``: the CaptionerConfig, for the
+    family (pooled or attention) and the decoder's layer count.  The
+    optimizer state is not imported (torch.optim's layout is the
+    reference's model's, not this one's); a resumed run starts its
+    optimizer from zero."""
+    from show_tell_tpu_torch.models.convert import attn_decoder_params_from_torch, decoder_params_from_torch
+    from show_tell_tpu_torch.models.encoder import encoder_params_from_torch
+
+    # The reference's payload (encoder_state_dict, decoder_state_dict, optimizer_state_dict, epoch, step) is
+    # tensors, dicts and ints: the weights-only unpickler reads it and runs no code from the file.
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    enc_params, enc_state = encoder_params_from_torch(ckpt["encoder_state_dict"], cfg.encoder_config())
+    from_torch = attn_decoder_params_from_torch if cfg.is_attention else decoder_params_from_torch
+    return {"encoder": enc_params, "decoder": from_torch(ckpt["decoder_state_dict"], cfg.num_layers)}, enc_state

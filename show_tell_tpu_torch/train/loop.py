@@ -15,9 +15,13 @@ stage timer's host-clock split (data, step); ``profile_dir`` takes a
 checkpoint, ``test_model`` scores ``sub_batch_test`` batches of the test
 loader, and the model goes back to train mode.
 
-Not yet ported: data parallelism (``dp`` > 1, ROADMAP Queue 1 item 6),
-which raises before the first step, as does an eval setting the port's
-test_model does not run.
+Data parallelism (a torch.distributed group of more than one process,
+parallel/multihost.py; ``--dp N`` spawns one, cli/run.py): every rank runs
+this loop over the same batch stream, its step on its rows of each batch
+(train/train_step.py, DDP), and agrees with the others on a SIGTERM at
+each step; only rank 0 writes checkpoints, ``metrics.jsonl`` and the
+retention.  An eval setting the port's test_model does not run raises
+before the first step.
 """
 
 from __future__ import annotations
@@ -32,6 +36,8 @@ import torch
 
 from show_tell_tpu_torch.data.device_prefetch import device_prefetch
 from show_tell_tpu_torch.models.captioner import CaptionerConfig
+from show_tell_tpu_torch.parallel.mesh import Mesh, any_rank, make_mesh
+from show_tell_tpu_torch.parallel.multihost import is_primary, local_device, process_count, process_index
 from show_tell_tpu_torch.train.checkpoint import (
     create_checkpoint,
     find_latest_checkpoint,
@@ -62,6 +68,19 @@ def captioner_config_from_params(params: Dict[str, Any], vocab_size: int) -> Cap
     )
 
 
+def train_mesh(params: Dict[str, Any], device: torch.device) -> Optional[Mesh]:
+    """The data-parallel mesh of a run, or None in one process: every
+    process of the group (``--dp`` 0 or the process count; make_mesh raises
+    for any other dp), the batch divided evenly among them."""
+    dp = int(params.get("dp", 0) or 0)
+    if process_count() == 1 and dp <= 1:
+        return None
+    mesh = make_mesh(dp, device=device)
+    if params["batch_size"] % mesh.dp:
+        raise ValueError("batch_size %d does not divide over %d processes" % (params["batch_size"], mesh.dp))
+    return mesh
+
+
 def train(
     params: Dict[str, Any],
     vocab,
@@ -74,17 +93,17 @@ def train(
     which raises without CUDA; 'cpu' on request); returns the TrainState.
     ``init_params_state``: (params, bn_state) numpy trees in the JAX layout
     to start from, e.g. pretrained weights; else they are drawn from
-    ``params['seed']``."""
-    if (params.get("dp", 0) or 1) > 1:
-        raise NotImplementedError("data parallelism (dp=%d) is ROADMAP Queue 1 item 6; the port trains on one device"
-                                  % params["dp"])
+    ``params['seed']``.  In a group of processes each rank trains on its
+    device (``multihost.local_device``) over ``train_mesh``."""
+    device = local_device(params.get("device", "gpu"))
+    mesh = train_mesh(params, device)
     if eval_every_epochs and test_data_loader is not None:
         from show_tell_tpu_torch.evaluation.tester import check_eval_params
 
         check_eval_params(params)  # before training, not at the first eval
     cfg = captioner_config_from_params(params, len(vocab))
     ts = create_train_state(cfg, params["optimizer_type"], params["lr"], params.get("momentum", 0.9),
-                            device=params.get("device", "gpu"), seed=params.get("seed", 1), init=init_params_state)
+                            device=device, seed=params.get("seed", 1), init=init_params_state, mesh=mesh)
     if params.get("resume_training"):
         if params["resume_model_train"] == "auto":
             ckpt_path = find_latest_checkpoint(params["output_dir"])
@@ -96,6 +115,10 @@ def train(
         restore_train_state(ts, read_checkpoint(ckpt_path))
         print("Models loaded.")
 
+    primary = is_primary()
+    if mesh is not None:
+        print("Data-parallel over %d processes: process %d (%s)."
+              % (mesh.dp, process_index(), "primary - owns checkpoints/logs" if primary else "worker"))
     train_dtype = str(params.get("train_dtype", "float32"))
     if train_dtype == "bfloat16":
         print("Training compute dtype: bfloat16 (f32 master weights/optimizer).")
@@ -156,26 +179,34 @@ def train(
                         profiler.start()
                     elif idx + 1 >= 6:
                         stop_profile()
-                if preempted["flag"]:
+                # A SIGTERM reaches one process: all agree at the same batch boundary, or the others would
+                # wait for it in their next step's collectives.
+                if any_rank(preempted["flag"], mesh):
                     stop_profile()
-                    create_checkpoint(ts, epoch + 1, idx + 1, train_loss, params)
-                    print("Preempted (SIGTERM): checkpoint saved at epoch %d step %d; resume with "
-                          "--resume_training 1 --resume_model_train auto." % (epoch + 1, idx + 1))
+                    if primary:
+                        create_checkpoint(ts, epoch + 1, idx + 1, train_loss, params)
+                        print("Preempted (SIGTERM): checkpoint saved at epoch %d step %d; resume with "
+                              "--resume_training 1 --resume_model_train auto." % (epoch + 1, idx + 1))
+                    else:
+                        print("Preempted (SIGTERM): worker process %d exiting; the checkpoint is on the primary."
+                              % process_index())
                     raise SystemExit(143)
-                if (idx + 1) % 5000 == 0:
+                if (idx + 1) % 5000 == 0 and primary:
                     create_checkpoint(ts, epoch + 1, idx + 1, train_loss, params)
                 if (idx + 1) % 500 == 0 or (idx + 1) == len(train_data_loader):
                     print("Epoch %d (Step %d) - %0.4f train loss, %0.2f time."
                           % (epoch + 1, idx + 1, train_loss[-1], time.time() - start_time))
-                    logger.log("train_step", step=idx + 1, epoch=epoch + 1, loss=train_loss[-1],
-                               timing=timer.summary())
+                    if primary:
+                        logger.log("train_step", step=idx + 1, epoch=epoch + 1, loss=train_loss[-1],
+                                   timing=timer.summary())
             stop_profile()  # an epoch shorter than the trace window
             print("Epoch %d - %0.4f loss, %.2f time. " % (epoch + 1, np.mean(train_loss), time.time() - start_time))
-            logger.log("epoch", step=idx + 1, epoch=epoch + 1, mean_loss=float(np.mean(train_loss)),
-                       timing=timer.summary())
-            create_checkpoint(ts, epoch + 1, idx + 1, train_loss, params)
-            if params.get("keep_checkpoints", 0):
-                prune_checkpoints(params["output_dir"], int(params["keep_checkpoints"]))
+            if primary:
+                logger.log("epoch", step=idx + 1, epoch=epoch + 1, mean_loss=float(np.mean(train_loss)),
+                           timing=timer.summary())
+                create_checkpoint(ts, epoch + 1, idx + 1, train_loss, params)
+                if params.get("keep_checkpoints", 0):
+                    prune_checkpoints(params["output_dir"], int(params["keep_checkpoints"]))
             timer.reset()
 
             if eval_every_epochs and (epoch + 1) % eval_every_epochs == 0 and test_data_loader is not None:

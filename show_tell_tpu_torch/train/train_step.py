@@ -19,6 +19,17 @@ where the JAX step has it, which ``torch.autocast`` (a per-op policy)
 would not.  BatchNorm weights stay f32 beside bf16 activations, as its
 statistics do.  The logits that enter the CE are f32 from upcast
 operands (models/decoder.linear_f32).
+
+Data parallelism (a ``TrainState`` with the ``parallel.mesh.Mesh`` of a
+process group, one process per device): each rank takes its contiguous
+rows of the global batch and the flips the global batch draws for them,
+every BatchNorm in train mode normalizes by the statistics of all ranks'
+rows, and the loss is this rank's share of the global batch's: its sums
+over the global batch's token and row counts, which every rank reads
+from the global lengths it holds.  ``DistributedDataParallel`` over the trainable split averages
+the gradients of dp x that share, which is the gradient of the global
+loss; every rank then takes the same optimizer step.  The step returns the
+global loss, the same on every rank.
 """
 
 from __future__ import annotations
@@ -26,6 +37,7 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
+import torch.nn as nn
 from torch.func import functional_call
 
 from show_tell_tpu_torch.core.device import resolve_device
@@ -44,22 +56,66 @@ from show_tell_tpu_torch.models.captioner import (
     trainable_parameters,
 )
 from show_tell_tpu_torch.models.resnet import BatchNorm
+from show_tell_tpu_torch.parallel.mesh import (
+    Mesh,
+    active,
+    all_gather_rows,
+    all_reduce_sum,
+    replicate,
+    shard_batch,
+    shard_rows,
+)
 from show_tell_tpu_torch.train.optim import make_optimizer
 
 COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
 
+class _StepForward(nn.Module):
+    """The train step's forward as one module, so that DDP can wrap it: the
+    loss (with ``batch_lengths``, this rank's share of the whole batch's),
+    in f32, or with every float parameter but the BatchNorms' cast to
+    ``dtype`` inside the forward."""
+
+    def __init__(self, model: CaptionerModel):
+        super().__init__()
+        self.model = model
+
+    def forward(self, images: torch.Tensor, captions: torch.Tensor, lengths: torch.Tensor,
+                batch_lengths: Optional[torch.Tensor], dtype: Optional[torch.dtype]) -> torch.Tensor:
+        if dtype is None:
+            return self.model(images, captions, lengths, batch_lengths)
+        return functional_call(self.model, _compute_params(self.model, dtype),
+                               (images.to(dtype), captions, lengths, batch_lengths))
+
+
 class TrainState:
     """What a train step reads and updates: the model (f32, train mode),
     its optimizer over the trainable split, the CPU generator the flips are
-    drawn from, and the count of steps taken."""
+    drawn from, and the count of steps taken.  ``mesh``: a data-parallel
+    mesh (parallel/mesh.py), or None in one process.  ``forward`` is the
+    step's forward (``_StepForward``); under the mesh of a process group
+    every BatchNorm of the model takes the mesh's statistics, and
+    ``forward`` is its DistributedDataParallel wrapper, made here on every
+    rank at once, from rank 0's weights and statistics (``replicate``)."""
 
     def __init__(self, model: CaptionerModel, optimizer: torch.optim.Optimizer, generator: torch.Generator,
-                 step: int = 0):
+                 step: int = 0, mesh: Optional[Mesh] = None):
         self.model = model
         self.optimizer = optimizer
         self.generator = generator
         self.step = step
+        self.mesh = active(mesh)
+        self.forward = _StepForward(model)
+        if self.mesh is not None:
+            replicate(self.mesh, model)  # every rank starts from rank 0's weights and statistics
+            for m in model.modules():
+                if isinstance(m, BatchNorm):
+                    m.mesh = self.mesh
+            from torch.nn.parallel import DistributedDataParallel
+
+            # The attention families never run the encoder's head: DDP must not wait for its gradients.
+            self.forward = DistributedDataParallel(self.forward, broadcast_buffers=False,
+                                                   find_unused_parameters=model.cfg.is_attention)
 
     @property
     def device(self) -> torch.device:
@@ -74,19 +130,21 @@ def create_train_state(
     device: Union[str, torch.device] = "gpu",
     seed: int = 1,
     init: Optional[Tuple[Dict[str, Any], Dict[str, Any]]] = None,
+    mesh: Optional[Mesh] = None,
 ) -> TrainState:
     """A fresh TrainState on ``device`` ('gpu' raises without CUDA).  The
     weights are ``init``'s (params, bn_state) numpy trees in the JAX
     layout, or else drawn by ``init_captioner``'s laws from a generator
     seeded with ``seed``; the flips' generator is seeded from that one
-    first, as the JAX package splits its key."""
+    first, as the JAX package splits its key.  ``mesh``: the data-parallel
+    mesh of a multi-process run (``TrainState``), made on every rank."""
     device = resolve_device(device)
     g = torch.Generator().manual_seed(seed)
     flips = torch.Generator().manual_seed(int(torch.randint(2**62, (1,), generator=g)))
     params, bn_state = init if init is not None else init_captioner(cfg, g)
     model = build_trainable_model(params, bn_state, cfg, device)
     optimizer = make_optimizer(optimizer_type, trainable_parameters(model).values(), lr, momentum)
-    return TrainState(model, optimizer, flips)
+    return TrainState(model, optimizer, flips, mesh=mesh)
 
 
 def _compute_params(model: CaptionerModel, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
@@ -100,27 +158,49 @@ def _on(device: torch.device, *arrays):
     return [torch.as_tensor(a).to(device, non_blocking=True) for a in arrays]
 
 
+def _local_rows(mesh: Mesh, images_u8, captions, lengths):
+    """This rank's rows of a data-parallel batch.  ``captions`` and
+    ``lengths`` are the global batch's (the loader's metadata); ``images_u8``
+    is the global batch too, or already this rank's rows (the
+    process-sharded loader decodes only those)."""
+    rows = shard_rows(mesh, len(captions))
+    if len(images_u8) == len(captions):
+        images_u8 = images_u8[rows]
+    elif len(images_u8) != rows.stop - rows.start:
+        raise ValueError("images hold %d rows: neither the batch's %d nor this rank's %d"
+                         % (len(images_u8), len(captions), rows.stop - rows.start))
+    return images_u8, captions[rows], lengths[rows]
+
+
 def make_train_step(
     cfg: CaptionerConfig, augment: bool = True, compute_dtype: str = "float32"
 ) -> Callable[[TrainState, Any, Any, Any], torch.Tensor]:
     """Returns step(ts, images_u8, captions, lengths) -> the loss (a 0-dim
     f32 tensor on the device; the caller's ``float()`` is its sync).  The
     batch may be numpy or tensors on any device.  augment=False skips the
-    flips (lockstep tests: they cannot match the JAX package's draws)."""
+    flips (lockstep tests: they cannot match the JAX package's draws).
+    Under a data-parallel ``ts.mesh`` the batch is the global one
+    (``_local_rows``) and the loss the global batch's."""
     dtype = COMPUTE_DTYPES[compute_dtype]
 
     def step(ts: TrainState, images_u8, captions, lengths) -> torch.Tensor:
-        model = ts.model
+        model, mesh = ts.model, ts.mesh
         model.train()
+        shard = batch_lengths = None
+        if mesh is not None:
+            batch_lengths = _on(ts.device, lengths)[0]  # the global batch's: the loss's denominators
+            images_u8, captions, lengths = _local_rows(mesh, images_u8, captions, lengths)
+            shard = (mesh.rank, mesh.dp)
         images_u8, captions, lengths = _on(ts.device, images_u8, captions, lengths)
         with exact_f32_math(ts.device):
-            images = preprocess_images(images_u8, ts.generator if augment else None, augment)
-            if dtype is None:
-                loss = model(images, captions, lengths)
-            else:
-                loss = functional_call(model, _compute_params(model, dtype), (images.to(dtype), captions, lengths))
+            images = preprocess_images(images_u8, ts.generator if augment else None, augment, shard=shard)
             ts.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
+            loss = ts.forward(images, captions, lengths, batch_lengths, dtype)  # under a mesh, this rank's share
+            if mesh is None:
+                loss.backward()
+            else:
+                (loss * mesh.dp).backward()  # DDP averages the gradients over the dp ranks
+                loss = all_reduce_sum(loss.detach(), mesh)
             ts.optimizer.step()
         ts.step += 1
         return loss.detach()
@@ -136,6 +216,7 @@ def make_eval_step(
     loss_only: bool = False,
     early_exit: bool = False,
     end_token: int = 2,
+    mesh: Optional[Mesh] = None,
 ):
     """Returns evaluate(ts, images_u8, captions, lengths, generator=None,
     prepared=None, t_max=None) -> (loss, out): eval-mode BatchNorm, one
@@ -158,28 +239,45 @@ def make_eval_step(
     caption length, where the caller has it on the host.  Neither the loss
     nor ``out`` is read on the host here (with ``t_max`` given and no
     ``early_exit``: no device sync), so a caller may queue the next batch
-    before it reads them.  The model's mode is restored."""
+    before it reads them.  The model's mode is restored.
+
+    ``mesh``: a data-parallel mesh (the sharded eval).  A batch whose rows
+    divide over its ranks is split: each rank runs its rows (the flips the
+    whole batch draws for them), the loss is the sum of the ranks' shares
+    and ``out`` the ranks' rows gathered in order, the same on every rank.
+    A batch that does not divide (the loader's last) runs whole on every
+    rank, as the JAX package runs it replicated."""
     dtype = COMPUTE_DTYPES[compute_dtype] or torch.float32
+    mesh = active(mesh)
 
     def evaluate(ts: TrainState, images_u8, captions, lengths, generator: Optional[torch.Generator] = None,
                  prepared: Optional[Dict[str, object]] = None, t_max: Optional[int] = None):
         model = ts.model
         was_training = model.training
         model.eval()
+        split = mesh if mesh is not None and len(captions) % mesh.dp == 0 else None
+        shard = batch_lengths = None
+        if split is not None:
+            batch_lengths = _on(ts.device, lengths)[0]  # the whole batch's: the loss's denominators
+            images_u8, captions, lengths = shard_batch(split, images_u8, captions, lengths)
+            shard = (split.rank, split.dp)
         try:
             images_u8, captions, lengths = _on(ts.device, images_u8, captions, lengths)
             with torch.no_grad(), exact_f32_math(ts.device):
-                images = preprocess_images(images_u8, generator, augment, dtype)
+                images = preprocess_images(images_u8, generator, augment, dtype, shard=shard)
                 feats = encode(model, images)
-                loss = decoder_loss(model, cfg, feats, captions, lengths, t_max)
+                loss = decoder_loss(model, cfg, feats, captions, lengths, t_max, batch_lengths)
                 if loss_only:
-                    return loss, feats
-                if prepared is None:
-                    prepared = prepare_decode(model, dtype)
-                if beam_size > 0:
-                    out = beam_decode_features(model, cfg, feats, prepared, beam_size, end_token, early_exit)
+                    out = feats
                 else:
-                    out = greedy_decode_features(model, cfg, feats, prepared, end_token if early_exit else None)
+                    if prepared is None:
+                        prepared = prepare_decode(model, dtype)
+                    if beam_size > 0:
+                        out = beam_decode_features(model, cfg, feats, prepared, beam_size, end_token, early_exit)
+                    else:
+                        out = greedy_decode_features(model, cfg, feats, prepared, end_token if early_exit else None)
+                if split is not None:
+                    loss, out = all_reduce_sum(loss, split), all_gather_rows(out, split)
         finally:
             model.train(was_training)
         return loss, out

@@ -74,15 +74,17 @@ def test_each_main_runs_its_variant(monkeypatch, variant):
     assert seen == [variant]
 
 
-@pytest.mark.parametrize("flag,item", [
-    (["--multihost", "localhost:1234,2,0"], "item 6"),
-    (["--dp", "2"], "item 6"),
-    (["--mp", "2"], "item 6"),
-    (["--ckpt_format", "orbax"], "item 2"),
+@pytest.mark.parametrize("flag,error,item", [
+    (["--multihost", "localhost:1234,2"], ValueError, "coordinator_host:port,num_processes,process_id"),
+    (["--dp", "3"], ValueError, "batch_size 4 does not divide over 3 processes"),
+    (["--mp", "2"], NotImplementedError, "item 6"),
+    (["--ckpt_format", "orbax"], NotImplementedError, "item 2"),
 ])
-def test_what_the_port_does_not_run_raises_first(tmp_path, flag, item):
+def test_what_the_port_does_not_run_raises_first(tmp_path, flag, error, item):
+    """A malformed --multihost spec, a batch that does not divide over --dp,
+    --mp (not ported) and --ckpt_format orbax raise before anything runs."""
     out = str(tmp_path / "out")
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(error, match=item):
         cli.run("gru", cli_argv(str(tmp_path / "data"), out, ["--device", "cpu"] + flag))
     assert not os.path.exists(out)
 

@@ -766,6 +766,42 @@ def test_f32_encode_runs_without_tf32_and_leaves_the_global(cuda):
         torch.backends.cudnn.allow_tf32 = saved
 
 
+def test_folded_f32_encode_runs_without_tf32_and_leaves_the_global(cuda):
+    """The BN-folded encoder (models/serving.FoldedEncoder, its cuDNN
+    convolutions with fused relu and add + relu epilogues) as the last
+    test holds the unfolded one: with torch.backends.cudnn.allow_tf32 at
+    its default (True), an f32 encode equals one with TF32 off (relative
+    1e-5), not one in TF32, and the global is still True afterwards; and
+    it equals the unfolded encoder's within 2e-4 of the largest feature."""
+    from show_tell_tpu_torch.models.captioner import CaptionerConfig, build_model, encode, init_captioner
+    from show_tell_tpu_torch.models.serving import FoldedEncoder
+
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        cfg = CaptionerConfig("gru", 18, 16, 24, 40, 1)
+        params, bn_state = init_captioner(cfg, torch.Generator().manual_seed(5))
+        model = build_model(params, bn_state, cfg, torch.float32, cuda)
+        unfolded = model.encoder
+        model.encoder = FoldedEncoder.from_trees(params["encoder"], bn_state, cfg.encoder_config(), torch.float32,
+                                                 cuda)
+        images = torch.from_numpy(np.random.RandomState(5).randint(0, 256, (4, 224, 224, 3), dtype=np.uint8)).to(cuda)
+        with torch.inference_mode():
+            got = encode(model, images)
+            assert torch.backends.cudnn.allow_tf32 is True
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+                exact = model.encoder.encode_u8(images)
+                ref = unfolded.encode_u8(images)
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+                tf32 = model.encoder.encode_u8(images)
+        scale = exact.abs().max().item()
+        assert (got - exact).abs().max().item() <= 1e-5 * scale
+        assert (tf32 - exact).abs().max().item() > 1e-5 * scale
+        assert (got - ref).abs().max().item() <= 2e-4 * ref.abs().max().item()
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+
+
 # The bf16 greedy steps on the tensor cores (csrc/dense_mma.cuh): the pooled step's argmax instances and the
 # attention step's, both cells, at the flagship widths (pooled GRU E = 256, the others E = H = A = 512, P = 49,
 # V = 9,956, L = 5).  Tokens may differ from the SIMT code's where the top-2 logit gap is under 5e-2 (bf16

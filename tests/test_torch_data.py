@@ -76,8 +76,10 @@ def test_get_data_loader_and_cache_match_the_jax_loader(mini, tmp_path):
         assert loader.dataset.image_cache.hit_fraction() == 1.0
         if run == "test":
             _assert_batches_equal(list(loader), first)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        get_data_loader(vocab, dict(params, multihost=1), "train")
+    # one process: no process shard, whatever --multihost says; a shard that does not divide the batch raises
+    assert get_data_loader(vocab, dict(params, multihost="auto"), "train").process_shard is None
+    with pytest.raises(ValueError, match="does not divide over 2 processes"):
+        DataLoader(loader.dataset, 3, drop_last=True, process_shard=(0, 2))
     with pytest.raises(ValueError, match="valid run type"):
         get_data_loader(vocab, params, "eval")
 

@@ -107,9 +107,9 @@ def test_sub_batch_size_and_the_timer(trained, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("over,error,match", [
-    (dict(dp=2), NotImplementedError, "item 6"),
+    (dict(dp=2), ValueError, "needs 2 devices but only 1 are visible"),  # one process
     (dict(mp=2), NotImplementedError, "item 6"),
-    (dict(multihost="localhost:1234,2,0"), NotImplementedError, "item 6"),
+    (dict(dp=2, mp=2), NotImplementedError, "item 6"),
     (dict(use_pallas=0), ValueError, "XLA"),
 ])
 def test_what_the_port_does_not_run_raises(trained, tmp_path, over, error, match):

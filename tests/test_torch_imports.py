@@ -29,7 +29,8 @@ def test_port_imports_without_jax():
         "show_tell_tpu_torch.evaluation.tester, show_tell_tpu_torch.native.fastmetrics, "
         "show_tell_tpu_torch.decode.faithful_beam, show_tell_tpu_torch.decode.generic, show_tell_tpu_torch.core.config, "
         "show_tell_tpu_torch.cli.run, show_tell_tpu_torch.cli.main, show_tell_tpu_torch.cli.main_lstm, "
-        "show_tell_tpu_torch.cli.main_attn, show_tell_tpu_torch.cli.main_attn_lstm; "
+        "show_tell_tpu_torch.cli.main_attn, show_tell_tpu_torch.cli.main_attn_lstm, show_tell_tpu_torch.models.serving, "
+        "show_tell_tpu_torch.parallel, show_tell_tpu_torch.parallel.mesh, show_tell_tpu_torch.parallel.multihost; "
         "import sys; "
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if m.startswith('jax')); "
         "assert not any(m.split('.')[0] in ('optax', 'nltk', 'show_tell_tpu') for m in sys.modules), "
