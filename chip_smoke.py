@@ -168,7 +168,18 @@ Phases, one line each (any failure exits non-zero with no ok line):
      off in turns; (d) test_model over the two gloo ranks of (c) from the
      GRU's f32 checkpoint: its scores equal the one-process run's (the
      word-level ones exactly, test_loss within 1e-5).  Phase 8's launches
-     join the kernels' counts.
+     join the kernels' counts;
+  9. mesh serving: two gloo ranks spawned on cuda:0 serve the flagship
+     pooled GRU (V=9,956: 4,978 vocabulary rows a rank under mp=2) and
+     attention LSTM through Captioner(dp, mp) at (dp, mp) = (1, 2), then
+     (2, 1): a bf16 request of 64 greedy and by beam K=3, an f32 request of
+     8 greedy; each request's launches (under mp the stack step 25 times
+     greedy, 24 beam, and the context 25 in the attention family; under dp
+     the one-device routes); the ranks' ids equal; bf16 ids against the same
+     route in one process (a one-rank vocabulary shard, or the served route
+     on each rank's rows) on >= 0.95 of positions, f32 ids against the
+     one-process Captioner's on every row whose top-2 gap exceeds 1e-4; the
+     host clock of a request.  Its launches join the kernels' counts.
 The last lines are the card's name and power limit, a JSON line of the
 kernels, and {"ok": true, "device": {...}}.
 """
@@ -245,6 +256,12 @@ FOLD_F32_RTOL = 2e-4
 # (TRAIN_CPU_RTOL: the losses, and from one backbone output the loss and every trainable gradient's norm).
 DP_STEPS = 2
 DP_TIMEOUT = 600  # seconds for each group of spawned ranks
+# Phase 9, mesh serving: two gloo ranks on cuda:0 serve the pooled GRU and the attention LSTM at their flagship widths
+# over a dp x mp mesh, first (dp, mp) = (1, 2) (V = 9,956: 4,978 vocabulary rows a rank), then (2, 1): a bf16 request
+# of 64 greedy and by beam K_BEAM, and an f32 request of MESH_F32_ROWS greedy.
+MESH_VARIANTS = (("gru", E), ("attn_lstm", AE))
+MESH_SHAPES = ((1, 2), (2, 1))
+MESH_F32_ROWS = 8
 
 
 def fail(msg):
@@ -463,6 +480,273 @@ def dp_worker(work):
                                          "compute_dtype": "float32", "dp": world})
         out["eval_launches"] = fused_gru_decode_step.launches
     return out
+
+
+def kernel_counters():
+    """Every kernel wrapper, each counting its launches in ``.launches``."""
+    from show_tell_tpu_torch.ops.attention import attention_context
+    from show_tell_tpu_torch.ops.fused_attn import (
+        fused_attn_decode_step,
+        fused_attn_dense_step,
+        fused_attn_lstm_decode_step,
+        fused_attn_lstm_dense_step,
+    )
+    from show_tell_tpu_torch.ops.fused_beam import (
+        fused_gru_dense_step,
+        fused_gru_topk_step,
+        fused_lstm_dense_step,
+        fused_lstm_topk_step,
+    )
+    from show_tell_tpu_torch.ops.fused_step import fused_gru_decode_step, fused_lstm_decode_step
+    from show_tell_tpu_torch.ops.preprocess import preprocess_u8
+    from show_tell_tpu_torch.ops.rnn import gru_stack_step, lstm_stack_step
+    from show_tell_tpu_torch.ops.stem import stem_fused
+    from show_tell_tpu_torch.ops.vocab import project_argmax, project_topk
+    from show_tell_tpu_torch.ops.whole_decode import gru_whole_greedy_decode
+
+    return [fused_gru_decode_step, fused_lstm_decode_step, fused_attn_decode_step, fused_attn_lstm_decode_step,
+            attention_context, project_argmax, fused_gru_dense_step, fused_lstm_dense_step, fused_gru_topk_step,
+            fused_lstm_topk_step, fused_attn_dense_step, fused_attn_lstm_dense_step, project_topk, preprocess_u8,
+            stem_fused, gru_whole_greedy_decode, gru_stack_step, lstm_stack_step]
+
+
+def mesh_config(variant, Ed):
+    from show_tell_tpu_torch.models.captioner import CaptionerConfig
+
+    kw = dict(nos_filters=AC, attn_dim=AA) if variant.startswith("attn") else {}
+    return CaptionerConfig(variant, 101, Ed, H, V, L, **kw)
+
+
+def mesh_worker(work):
+    """One spawned rank of phase 9 (mesh serving), in a group of two gloo ranks
+    on cuda:0: for each family of MESH_VARIANTS (seeded weights) and each mesh
+    of MESH_SHAPES, a bf16 Captioner(dp, mp) serves WORK/inputs.pkl's request
+    of 64 greedy and by beam K_BEAM (after one warm-up request each), and an f32
+    one its request of MESH_F32_ROWS greedy.  Every kernel count is set to 0
+    just before each request and read just after it.  Returns the ids, the
+    counts, the host-clock seconds of each bf16 request (to the ids on the
+    host) and the vocabulary shard's shapes."""
+    import pickle
+
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from show_tell_tpu_torch.models.captioner import init_captioner
+    from show_tell_tpu_torch.parallel import multihost
+    from show_tell_tpu_torch.serve import Captioner
+
+    device = torch.device("cuda", 0)
+    with open(os.path.join(work, "inputs.pkl"), "rb") as f:
+        inputs = pickle.load(f)
+    counters = kernel_counters()
+    vocab = SyntheticVocab(V)
+
+    def request(cap, images, beam_size):
+        torch.cuda.synchronize()
+        for fn in counters:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        ids = cap.caption_ids(images, beam_size)
+        return {"ids": ids, "seconds": time.perf_counter() - t0, "counts": {fn.__name__: fn.launches for fn in counters}}
+
+    out = {"rank": multihost.process_index(), "backend": torch.distributed.get_backend(), "runs": {}}
+    for variant, Ed in MESH_VARIANTS:
+        cfg = mesh_config(variant, Ed)
+        params, bn_state = init_captioner(cfg, torch.Generator().manual_seed(SEED))
+        for dp, mp in MESH_SHAPES:
+            cap = Captioner(params, bn_state, cfg, vocab, "bfloat16", device=device, dp=dp, mp=mp)
+            dec = cap.model.decoder
+            run = {"shapes": (tuple(dec.linear.weight.shape), tuple(dec.linear.bias.shape),
+                              tuple(dec.embeddings.weight.shape))}
+            for beam_size in (0, K_BEAM):  # warm-up: cuDNN plans, the allocator, the sort, the first collectives
+                cap.caption_ids(inputs["request"], beam_size)
+            run["greedy"] = request(cap, inputs["request"], 0)
+            run["beam"] = request(cap, inputs["request"], K_BEAM)
+            del cap
+            cap32 = Captioner(params, bn_state, cfg, vocab, "float32", device=device, dp=dp, mp=mp)
+            run["f32"] = request(cap32, inputs["request32"], 0)
+            del cap32
+            torch.cuda.empty_cache()
+            out["runs"][variant, dp, mp] = run
+    return out
+
+
+def mesh_launches(variant, dp, mp, beam):
+    """{kernel: launches} of one mesh request on each rank: under mp the
+    stack step (after the attention context in the attention family) T
+    times a greedy request, T - 1 a beam one (its first step is plain, the
+    context's is not); under dp the one-device routes on the rank's rows."""
+    from show_tell_tpu_torch.ops import beam_step_default, whole_decode_default
+
+    attention, lstm = variant.startswith("attn"), variant.endswith("lstm")
+    if mp > 1:
+        out = {("lstm" if lstm else "gru") + "_stack_step": T - 1 if beam else T}
+        if attention:
+            out["attention_context"] = T
+    elif beam:
+        cell = "attn_lstm" if attention else ("lstm" if lstm else "gru")
+        out = {"fused_%s_%s_step" % (cell, "dense" if attention else beam_step_default()): T - 1}
+        if attention:
+            out["attention_context"] = 1
+    elif attention:
+        out = {"fused_attn_lstm_decode_step" if lstm else "fused_attn_decode_step": T}
+    elif not lstm and whole_decode_default():
+        out = {"gru_whole_greedy_decode": 1}
+    else:
+        out = {"fused_%s_decode_step" % ("lstm" if lstm else "gru"): T}
+    out["preprocess_u8"] = 1
+    return out
+
+
+def path_gaps(cap, images_u8, ids):
+    """Each row's smallest top-2 logit gap along the decode of ``ids``:
+    the plain stack (after the context's twin in the attention family) and
+    projection in f32 on the card, fed the served features and ``ids``."""
+    import torch
+
+    from show_tell_tpu_torch.models.attention import init_hidden, last_h, linear_f32, start_embeddings
+    from show_tell_tpu_torch.models.captioner import encode
+    from show_tell_tpu_torch.models.rnn_cells import init_state
+    from show_tell_tpu_torch.ops.attention import attention_context_plain, precompute_att1
+    from show_tell_tpu_torch.ops.rnn import stack_plain
+    from show_tell_tpu_torch.ops.vocab import project_logits
+
+    cfg, dec, prep, device = cap.cfg, cap.model.decoder, cap.prepared, cap.device
+    with torch.inference_mode():
+        feats = encode(cap.model, torch.from_numpy(images_u8).to(device))
+        tok = torch.from_numpy(ids).to(device).long()
+        B = len(images_u8)
+        if cfg.is_attention:
+            feats_pm = feats.transpose(1, 2).contiguous()
+            att1 = precompute_att1(dec.attn, feats_pm).to(cap.dtype).contiguous()
+            state, x = init_hidden(dec, cfg.decoder_config(), feats), start_embeddings(dec, B, cfg.start_token,
+                                                                                       device)
+        else:
+            state, x = init_state(cfg.cell_type, L, B, H, cap.dtype, device), feats.to(cap.dtype)
+        gaps = []
+        for t in range(T):
+            xin = x
+            if cfg.is_attention:
+                ctx, _ = attention_context_plain(prep, feats_pm, att1, last_h(state))
+                xin = torch.cat([x, linear_f32(dec.embed, ctx).to(x.dtype)], dim=-1)
+            top, state = stack_plain(cfg.cell_type)(prep["stacked"], xin, state)
+            gaps.append(top2_gap(project_logits(prep["vocab"], top)))
+            x = dec.embeddings.weight.index_select(0, tok[:, t])
+        return torch.stack(gaps, 1).min(1).values.cpu().numpy()
+
+
+def mesh_phase(card):
+    """Phase 9: serving over a dp x mp mesh.  Two gloo ranks spawned on
+    cuda:0 (mesh_worker) serve each MESH_VARIANTS family at its flagship
+    widths at (dp, mp) = (1, 2), then (2, 1): a bf16 request of 64 greedy
+    and by beam K_BEAM, an f32 request of MESH_F32_ROWS greedy.  Held to
+    the one-process Captioner on the same card: the ranks return the same
+    ids; under mp each holds V/2 vocabulary rows; each request launched
+    exactly mesh_launches(); bf16 ids equal on >= 0.95 of positions those
+    of the same route in one process (mp: the Captioner with a one-rank
+    vocabulary shard, the sharded route without collectives; dp: the
+    served route on each rank's 32 rows as a request of its own), their
+    share of the served route's ids printed beside; f32 ids equal the
+    served route's on every row whose top-2 logit gap on its way exceeds
+    1e-4.  ``card``: the card's name and power limit, printed beside the
+    times.  Returns the launches of the ranks' requests, summed over the
+    ranks.  No step is skipped or caught."""
+    import pickle
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from show_tell_tpu_torch.models.captioner import init_captioner, prepare_decode
+    from show_tell_tpu_torch.parallel import multihost
+    from show_tell_tpu_torch.parallel.mesh import decoder_vocab_shard, make_mesh
+    from show_tell_tpu_torch.serve import Captioner
+
+    device = torch.device("cuda", 0)
+    vocab = SyntheticVocab(V)
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        rq = np.random.RandomState(SEED + 9)
+        inputs = {"request": rq.randint(0, 256, (64, IMG, IMG, 3), dtype=np.uint8),
+                  "request32": rq.randint(0, 256, (MESH_F32_ROWS, IMG, IMG, 3), dtype=np.uint8)}
+        with open(os.path.join(work, "inputs.pkl"), "wb") as f:
+            pickle.dump(inputs, f)
+        t0 = time.perf_counter()
+        try:
+            results = multihost.spawn(mesh_worker, 2, (work,), device, "gloo", timeout=DP_TIMEOUT)
+        except TimeoutError as e:
+            fail("mesh serving ranks: %s" % e)
+        seconds = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    totals = {fn.__name__: 0 for fn in kernel_counters()}
+    request = inputs["request"]
+    for variant, Ed in MESH_VARIANTS:
+        cfg = mesh_config(variant, Ed)
+        params, bn_state = init_captioner(cfg, torch.Generator().manual_seed(SEED))
+        cap = Captioner(params, bn_state, cfg, vocab, "bfloat16", device="gpu")
+        twin = Captioner(params, bn_state, cfg, vocab, "bfloat16", device="gpu")
+        decoder_vocab_shard(make_mesh(1, 1), twin.model.decoder)
+        twin.prepared = prepare_decode(twin.model, twin.dtype)
+        served, refs = {}, {}
+        for name, k in (("greedy", 0), ("beam", K_BEAM)):
+            served[name] = cap.caption_ids(request, k)
+            refs[name, 1, 2] = twin.caption_ids(request, k)
+            refs[name, 2, 1] = np.concatenate([cap.caption_ids(request[:32], k), cap.caption_ids(request[32:], k)])
+        del cap, twin
+        cap32 = Captioner(params, bn_state, cfg, vocab, "float32", device="gpu")
+        ids32 = cap32.caption_ids(inputs["request32"])
+        gaps32 = path_gaps(cap32, inputs["request32"], ids32)
+        del cap32
+        torch.cuda.empty_cache()
+        for dp, mp in MESH_SHAPES:
+            runs = [r["runs"][variant, dp, mp] for r in results]
+            label = "%s (dp, mp) = (%d, %d)" % (variant, dp, mp)
+            rows = -(-V // mp)
+            for r, run in zip(results, runs):
+                if run["shapes"] != ((rows, H), (rows,), (rows, Ed)):
+                    fail("%s rank %d holds vocabulary tensors of shapes %s, expected %d rows"
+                         % (label, r["rank"], run["shapes"], rows))
+                for name in ("greedy", "beam", "f32"):
+                    want = mesh_launches(variant, dp, mp, name == "beam")
+                    got = {k: n for k, n in run[name]["counts"].items() if n}
+                    if got != want:
+                        fail("%s rank %d %s request launched %s, expected %s" % (label, r["rank"], name, got, want))
+                    for k, n in got.items():
+                        totals[k] += n
+            for name in ("greedy", "beam", "f32"):
+                if any((run[name]["ids"] != runs[0][name]["ids"]).any() for run in runs[1:]):
+                    fail("%s %s: the ranks returned different ids" % (label, name))
+            shares = {}
+            for name in ("greedy", "beam"):
+                ids = runs[0][name]["ids"]
+                if ids.shape != (64, T) or ids.min() < 0 or ids.max() >= V:
+                    fail("%s %s: ids of shape %s in [%d, %d]" % (label, name, ids.shape, ids.min(), ids.max()))
+                shares[name] = (float((ids == refs[name, dp, mp]).mean()), float((ids == served[name]).mean()))
+                if shares[name][0] < 0.95:
+                    fail("%s bf16 %s: ids equal the one-process route's on %.4f of positions (< 0.95)"
+                         % (label, name, shares[name][0]))
+            got32 = runs[0]["f32"]["ids"]
+            differ = [i for i in range(MESH_F32_ROWS) if (got32[i] != ids32[i]).any()]
+            for i in differ:
+                phase("mesh", "%s f32 row %d differs from the one-process Captioner's at %d of %d positions; its "
+                      "smallest top-2 gap is %.3g" % (label, i, int((got32[i] != ids32[i]).sum()), T, gaps32[i]))
+                if gaps32[i] > 1e-4:
+                    fail("%s f32 row %d differs from the one-process Captioner's with a top-2 gap of %.3g (> 1e-4)"
+                         % (label, i, gaps32[i]))
+            phase("mesh", "%s %s two gloo ranks on cuda:0, bf16 B=64: launches a request on each rank greedy %s, "
+                  "beam K=%d %s; vocabulary rows a rank %d; greedy ids equal the one-process route's on %.4f of "
+                  "positions (the served route's %.4f), beam %.4f (%.4f); f32 B=%d: %d of %d rows equal the "
+                  "one-process Captioner's; host clock a request (to the ids on the host, rank 0) greedy %.3f s, "
+                  "beam %.3f s" % (
+                      card, label, mesh_launches(variant, dp, mp, False), K_BEAM,
+                      mesh_launches(variant, dp, mp, True), rows, shares["greedy"][0], shares["greedy"][1],
+                      shares["beam"][0], shares["beam"][1], MESH_F32_ROWS, MESH_F32_ROWS - len(differ),
+                      MESH_F32_ROWS, runs[0]["greedy"]["seconds"], runs[0]["beam"]["seconds"]))
+    phase("mesh", "the two ranks took %.1f s (spawn, weights, build, requests)" % seconds)
+    return totals
 
 
 def dname(dtype):
@@ -1591,10 +1875,7 @@ def main():
     )
     from show_tell_tpu_torch.serve import Captioner
 
-    counters = [fused_gru_decode_step, fused_lstm_decode_step, fused_attn_decode_step, fused_attn_lstm_decode_step,
-                attention_context, project_argmax, fused_gru_dense_step, fused_lstm_dense_step, fused_gru_topk_step,
-                fused_lstm_topk_step, fused_attn_dense_step, fused_attn_lstm_dense_step, project_topk, preprocess_u8,
-                stem_fused, gru_whole_greedy_decode, gru_stack_step, lstm_stack_step]
+    counters = kernel_counters()
     vocab = SyntheticVocab(V)
     img_rng = np.random.RandomState(SEED + 1)
     whole_default = whole_decode_default()
@@ -3413,6 +3694,9 @@ def main():
     for counts in training_phase():
         for name, n in counts.items():
             launches[name] += n
+    # 9. serving over a dp x mp mesh; its requests' launches join the counts
+    for name, n in mesh_phase(card).items():
+        launches[name] += n
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "show_tell_tpu"))
     if leaked:

@@ -6,14 +6,18 @@ loaders, construct models, train when --is_training (the GRU CLI runs the
 in-training eval every 5 epochs), then test when --is_testing by loading
 --load_model_test and running the test_model flow.
 
-Data parallelism is one process per device (parallel/): ``--dp N`` (N > 1)
-spawns N processes in one command, each on its own device (the CUDA card
-of its rank, or the CPU), joined into one torch.distributed group on a
-free localhost port; ``--multihost HOST:PORT,NPROC,PID`` (or ``auto``
-under torchrun) joins this process into a group of processes started
-elsewhere.  ``--mp`` > 1 (vocabulary sharding) raises (ROADMAP Queue 1
-item 6), as does ``--ckpt_format orbax`` (the port reads and writes
-pickle checkpoints only, item 2).
+Parallelism is one process per device (parallel/): ``--dp N --mp M``
+(N x M > 1) spawns N x M processes in one command, each on its own device
+(the CUDA card of its rank, or the CPU), joined into one torch.distributed
+group on a free localhost port; ``--multihost HOST:PORT,NPROC,PID`` (or
+``auto`` under torchrun) joins this process into a group of processes
+started elsewhere.  Training is data parallel only, as in the JAX package
+(``--mp`` is its eval-phase flag): the N x M processes train as one
+data-parallel mesh of N x M (train/loop.train_mesh), so the batch must
+divide over all of them; the test phase and the in-training eval run over
+the N x M mesh, the vocabulary sharded over M.  ``--ckpt_format orbax``
+raises (the port reads and writes pickle checkpoints only, ROADMAP Queue 1
+item 2).
 """
 
 from __future__ import annotations
@@ -26,7 +30,6 @@ from show_tell_tpu_torch.core.device import resolve_device
 from show_tell_tpu_torch.data.dataset import get_data_loader
 from show_tell_tpu_torch.evaluation.tester import test_model
 from show_tell_tpu_torch.parallel import multihost
-from show_tell_tpu_torch.parallel.mesh import MP_ITEM
 from show_tell_tpu_torch.train.checkpoint import read_checkpoint, resolve_checkpoint_path, restore_train_state
 from show_tell_tpu_torch.train.loop import captioner_config_from_params, train
 from show_tell_tpu_torch.train.train_step import create_train_state
@@ -48,14 +51,15 @@ def apply_device(device: str) -> str:
 
 def _check_supported(params: Dict[str, Any]) -> None:
     """Raise, before anything runs, for what the port does not run (naming
-    its ROADMAP item) and for a batch that does not divide over ``--dp``."""
-    mp = int(params.get("mp", 1) or 1)
-    if mp > 1:
-        raise NotImplementedError("--mp %d (vocabulary sharding) is %s; the port's mesh is data parallel only"
-                                  % (mp, MP_ITEM))
-    dp = int(params.get("dp", 0) or 0)
-    if dp > 1 and params["batch_size"] % dp:
-        raise ValueError("batch_size %d does not divide over %d processes" % (params["batch_size"], dp))
+    its ROADMAP item) and for a batch that does not divide over the
+    processes: ``--dp`` x ``--mp`` where it trains (every process trains),
+    ``--dp`` where it only tests."""
+    dp, mp = int(params.get("dp", 0) or 0), int(params.get("mp", 1) or 1)
+    if mp < 1:
+        raise ValueError("--mp takes 1 or more, not %d" % mp)
+    share = max(dp, 1) * mp if params.get("is_training") else dp
+    if share > 1 and params["batch_size"] % share:
+        raise ValueError("batch_size %d does not divide over %d processes" % (params["batch_size"], share))
     if params.get("ckpt_format", "pickle") != "pickle":
         raise NotImplementedError("--ckpt_format %s: orbax checkpoint directories stay out of the port (ROADMAP "
                                   "Queue 1 item 2); it reads and writes the pickle format" % params["ckpt_format"])
@@ -81,13 +85,20 @@ def _init_from_backbone(path: str, cfg, seed: int):
 
 
 def _rank_run(variant: str, argv: Optional[List[str]], data_source: str, device: str):
-    """One process of a ``--dp`` run, in its group: the phases; returns the scores (None without a test phase)."""
+    """One process of a ``--dp``/``--mp`` run, in its group: the phases; returns the scores (None without a test
+    phase)."""
     return run(variant, argv, data_source, device).get("scores")
 
 
+def _processes(params: Dict[str, Any]) -> int:
+    """The processes that ``--dp N --mp M`` asks for in one command: N x M (N = 0 counts as 1)."""
+    return max(int(params.get("dp", 0) or 0), 1) * int(params.get("mp", 1) or 1)
+
+
 def _spawn(variant: str, argv: Optional[List[str]], data_source: str, device: str, params: Dict[str, Any]):
-    """``--dp N`` in one command: N processes (``multihost.spawn``), one a device; returns rank 0's scores."""
-    nproc = int(params["dp"])
+    """``--dp N --mp M`` in one command: N x M processes (``multihost.spawn``), one a device; returns rank 0's
+    scores."""
+    nproc = _processes(params)
     print("Data-parallel run: spawning %d processes." % nproc)
     return multihost.spawn(_rank_run, nproc, (variant, argv, data_source, device), device)[0]
 
@@ -96,9 +107,9 @@ def run(variant: str, argv: Optional[List[str]] = None, data_source: str = "MSCO
         device: Optional[str] = None) -> Dict[str, Any]:
     """Parse ``argv`` for ``variant``'s CLI and run its phases.  ``device``
     overrides ``--device`` (which only the GRU CLI has, as in the reference;
-    the others run on the card unless a caller passes "cpu").  ``--dp N``
-    outside a process group spawns the N processes that run them
-    (``_spawn``); this process then returns rank 0's scores."""
+    the others run on the card unless a caller passes "cpu").  ``--dp N
+    --mp M`` outside a process group spawns the N x M processes that run
+    them (``_spawn``); this process then returns rank 0's scores."""
     params = load_params(argv, variant=variant, data_source=data_source)
     data_source = params["data_source"]  # --data_source flag may override
     _check_supported(params)
@@ -106,7 +117,7 @@ def run(variant: str, argv: Optional[List[str]] = None, data_source: str = "MSCO
     if params.get("multihost") and multihost.process_count() == 1:
         multihost.initialize(params["multihost"], params["device"])
         print("Multi-host run: process %d of %d." % (multihost.process_index(), multihost.process_count()))
-    elif int(params.get("dp", 0) or 0) > 1 and multihost.process_count() == 1:
+    elif _processes(params) > 1 and multihost.process_count() == 1:
         get_vocabulary(data_source, params)  # built and saved once, before the processes read it
         argv = list(sys.argv[1:]) if argv is None else list(argv)
         scores = _spawn(variant, argv, data_source, params["device"], params)

@@ -165,7 +165,7 @@ def build_arg_parser(
     add("--compute_dtype", type=str, default="float32", choices=["float32", "bfloat16"], help="eval/serving dtype (float32 for parity, bfloat16 for speed: the kernels' tensor-core instances; metric deltas pinned <=0.05 by test)")
     add("--train_dtype", type=str, default="float32", choices=["float32", "bfloat16"], help="training compute dtype (train/train_step.py): bfloat16 casts the forward/backward inside the loss while master weights, grads, optimizer state, BN running stats, and the CE reduction stay f32 — no loss scaling needed (bf16 keeps f32's exponent range). f32 is the default and the parity dtype (TF32 off on the GPU)")
     add("--dp", type=int, default=0, help="data-parallel size: N > 1 spawns N processes, one a device (the CUDA cards of this host, or the CPU), joined by torch.distributed; 0 = every process of a --multihost group, or one device")
-    add("--mp", type=int, default=1, help="eval-phase tensor parallelism: shard the decoder's vocab-sized params over this many devices per dp shard; not ported (ROADMAP Queue 1 item 6): values above 1 raise")
+    add("--mp", type=int, default=1, help="eval-phase tensor parallelism: shard the decoder's vocab-sized params (output projection, embedding) over this many devices per dp shard (mesh = dp x mp, one process each; vocab_size must divide mp); training stays data parallel over all dp x mp processes")
     add("--multihost", type=str, default="", help="join a multi-host run: 'coordinator_host:port,num_processes,process_id' (same on every host except the id), or 'auto' under torchrun; dp then spans every process's device (parallel/multihost.py)")
     add("--use_pallas", type=int, default=-1, help="decode kernels: -1 (auto) and 1 both run the port's CUDA kernels (their plain twins on the CPU); 0 named the JAX package's XLA route, which the port does not have, and raises")
     add("--faithful_beam", type=int, default=0, help="replicate the reference rnn.py beam-search quirks exactly (batch=1) instead of standard cumulative-logprob beam")

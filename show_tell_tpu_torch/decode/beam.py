@@ -31,6 +31,16 @@ T - 1 steps run one of its step routes, picked by the caller:
 Serving (``models.captioner.captioner_beam_decode``) gives the pooled
 families the route that ``ops.beam_step_default()`` names, set by an H100
 A/B; tests call each route directly.
+
+Under a vocabulary shard (``prepared["shard"]``: a rank's share of an mp
+mesh, parallel/mesh.py) every family takes the sharded route whatever the
+caller asked, as the JAX package's sharded projection keeps its XLA path
+(show_tell_tpu/decode/beam.py:166-190,249-256,310-330): per step the
+stack-step kernel (after the attention context kernel in the attention
+families), the shard's logits, ``vocab_log_softmax`` over the mp group, and
+the K x V top-K as ``vocab_topk``; the next tokens' rows by
+``vocab_embedding``.  The fused steps and the projection + top-k kernel are
+never chosen there.
 """
 
 from __future__ import annotations
@@ -57,6 +67,7 @@ def beam_engine(
     sparse: bool = False,
     early_exit: bool = False,
     gaps: Optional[List[torch.Tensor]] = None,
+    shard=None,
 ) -> torch.Tensor:
     """Beam search over a first-step distribution and a step function.
     Returns the best hypothesis's ids [B, T] int32.
@@ -70,30 +81,45 @@ def beam_engine(
     all beams are finished each further step would keep every beam in
     place (parent = itself, token = <pad>, score unchanged; the candidates
     are the sorted scores themselves and the stable top-K returns them in
-    place), which is what the skipped tail is filled with.
+    place), which is what the skipped tail is filled with.  The ranks of an
+    mp group hold the same beams, so they stop at the same step.
 
     gaps: a list that gets every image's gap [B] between its K-th and
     (K+1)-th best candidate score at each step, and at the end between its
     best and second-best final score (a diagnostic: the places where two
-    summation orders may keep, or pick, different beams)."""
+    summation orders may keep, or pick, different beams).
+
+    shard: logp0 and the dense steps' logp are a vocabulary shard's columns
+    (parallel.mesh.VocabShard): each top-K is ``vocab_topk`` over the mp
+    group, whose global index r x padded + column names the parent r and
+    the token."""
     B, V = logp0.shape
     device = logp0.device
+    Vg = V if shard is None else shard.padded  # the global index's row pitch
 
-    def top_k(cand):  # the K best of each row, and the diagnostic gap
-        vals, idx = stable_topk(cand, K + 1 if gaps is not None else K)
+    def top_k(cand):  # cand [B, R, cols]: the K best of each image's R x cols, and the diagnostic gap
+        n = K + 1 if gaps is not None else K
+        if shard is None:
+            vals, idx = stable_topk(cand.reshape(B, -1), n)
+        else:
+            from show_tell_tpu_torch.parallel.mesh import vocab_topk
+
+            vals, idx = vocab_topk(shard, cand, n)
         if gaps is not None and vals.shape[1] > K:
             gaps.append(vals[:, K - 1] - vals[:, K])
         return vals[:, :K], idx[:, :K]
 
-    scores, toks0 = top_k(logp0)  # [B, K]
+    scores, toks0 = top_k(logp0[:, None])  # [B, K]
     state = tile_state(state1)
     finished = toks0 == end_token
     tokens = toks0.reshape(B * K)
     # Retired beams continue only with <pad>, at zero cost.  fill_ takes the
     # scalar as a kernel argument: an item assignment would copy it from the
     # host and sync the stream.
+    lo = 0 if shard is None else shard.lo
     pad_only = torch.full((V,), NEG_INF, device=device)
-    pad_only.narrow(0, pad_token, 1).fill_(0.0)
+    if lo <= pad_token < lo + V:  # under a shard, on the rank that owns <pad>
+        pad_only.narrow(0, pad_token - lo, 1).fill_(0.0)
     pad_first = torch.full((K,), NEG_INF, device=device)
     pad_first.narrow(0, 0, 1).fill_(0.0)
     parents, toks = [], []
@@ -105,13 +131,13 @@ def beam_engine(
             clogp, cids = (o.reshape(B, K, K) for o in out)
             clogp = torch.where(finished[..., None], pad_first, clogp)
             cids = torch.where(finished[..., None], pad_token, cids)
-            scores, idx = top_k((scores[..., None] + clogp).reshape(B, K * K))
+            scores, idx = top_k(scores[..., None] + clogp)
             parent = idx // K
             new_tok = cids.reshape(B, K * K).gather(1, idx.long())
         else:
             logp = torch.where(finished[..., None], pad_only, out.reshape(B, K, V))
-            scores, idx = top_k((scores[..., None] + logp).reshape(B, K * V))
-            parent, new_tok = idx // V, idx % V
+            scores, idx = top_k(scores[..., None] + logp)
+            parent, new_tok = idx // Vg, idx % Vg
         state = gather_state(state2, parent)
         finished = finished.gather(1, parent.long()) | (new_tok == end_token)
         tokens = new_tok.reshape(B * K)
@@ -131,6 +157,16 @@ def beam_engine(
         beam = parent.gather(1, beam).long()
     seq.append(toks0.gather(1, beam))
     return torch.cat(seq[::-1], dim=1).to(torch.int32)
+
+
+def _log_softmax(shard):
+    """logits -> f32 log-probabilities over the whole vocabulary: torch's,
+    or under a vocabulary shard ``vocab_log_softmax`` over the mp group."""
+    if shard is None:
+        return lambda logits: torch.log_softmax(logits, dim=-1)
+    from show_tell_tpu_torch.parallel.mesh import vocab_log_softmax
+
+    return lambda logits: vocab_log_softmax(shard, logits)
 
 
 def rnn_state_helpers(B: int, K: int):
@@ -171,19 +207,26 @@ def beam_search_decode(
     """Beam search over the pooled GRU or LSTM captioner: step 0 consumes
     the image feature from a zero state.  Returns [B, T] int32 ids.
     fused_step: "dense", "topk" or None (the module docstring); sparse:
-    the composite's projection + top-k kernel."""
+    the composite's projection + top-k kernel.  Under a vocabulary shard
+    (``prepared["shard"]``) both are set aside for the sharded route."""
     from show_tell_tpu_torch.models.rnn_cells import init_state
     from show_tell_tpu_torch.ops.fused_beam import fused_dense_step, fused_topk_step
-    from show_tell_tpu_torch.ops.rnn import stack_plain
+    from show_tell_tpu_torch.ops.rnn import sharded_lookup, stack_kernel, stack_plain
 
     _check_route(fused_step, ("dense", "topk", None))
     B = feats.shape[0]
     K = beam_size
     stacked, vocab, embedding = prepared["stacked"], prepared["vocab"], prepared["embedding"]
+    shard = prepared.get("shard")
+    log_softmax, lookup = _log_softmax(shard), sharded_lookup(shard, embedding)
     stack = stack_plain(cfg.cell_type)
     state0 = init_state(cfg.cell_type, cfg.num_layers, B, cfg.hidden_dim, embedding.dtype, feats.device)
     top, state1 = stack(stacked, feats.to(embedding.dtype), state0)
-    logp0 = torch.log_softmax(project_logits(vocab, top), dim=-1)
+    logp0 = log_softmax(project_logits(vocab, top))
+
+    def sharded_step(tokens, state):
+        top, state2 = stack_kernel(cfg.cell_type)(stacked, lookup(tokens), state)
+        return log_softmax(project_logits(vocab, top)), state2
 
     def step_fn(tokens, state):
         x = embedding.index_select(0, tokens)
@@ -198,6 +241,9 @@ def beam_search_decode(
         return torch.log_softmax(project_logits(vocab, top), dim=-1), state2
 
     tile, gather = rnn_state_helpers(B, K)
+    if shard is not None:
+        return beam_engine(logp0, state1, sharded_step, tile, gather, K, cfg.max_caption_length, end_token,
+                           pad_token, early_exit=early_exit, shard=shard)
     return beam_engine(
         logp0, state1, step_fn, tile, gather, K, cfg.max_caption_length, end_token, pad_token,
         sparse=fused_step == "topk" or (fused_step is None and sparse), early_exit=early_exit,
@@ -223,7 +269,10 @@ def attn_beam_search_decode(
     as fused_step=None does: the attention context kernel over the beam
     rows' features, ``embed(context)`` and the stack in plain torch, then
     the projection + top-k kernel when ``sparse``, else the plain
-    projection and log_softmax.  Returns [B, T] int32 ids."""
+    projection and log_softmax.  Under a vocabulary shard
+    (``weights["shard"]``) both are set aside for the sharded route: the
+    context kernel, the stack-step kernel, the shard's logits and
+    ``vocab_log_softmax``.  Returns [B, T] int32 ids."""
     from show_tell_tpu_torch.models.attention import init_hidden, last_h, linear_f32, start_embeddings
     from show_tell_tpu_torch.ops.attention import attention_context, precompute_att1
     from show_tell_tpu_torch.ops.fused_attn import (
@@ -232,25 +281,38 @@ def attn_beam_search_decode(
         fused_attn_lstm_dense_step,
         prepare_attn_decode,
     )
-    from show_tell_tpu_torch.ops.rnn import stack_plain
+    from show_tell_tpu_torch.ops.rnn import sharded_lookup, stack_kernel, stack_plain
 
     _check_route(fused_step, ("dense", None))
     B = cnn_feature.shape[0]
     K = beam_size
     embedding = decoder.embeddings.weight
     vocab = weights["vocab"]
+    shard = weights.get("shard")
+    log_softmax, lookup = _log_softmax(shard), sharded_lookup(shard, embedding)
     feats_pm = cnn_feature.transpose(1, 2).contiguous()
     att1 = precompute_att1(decoder.attn, feats_pm).to(embedding.dtype).contiguous()
-    stack = stack_plain(cfg.cell_type)
 
-    def trunk(w_emb, feats, a1, state):
+    def trunk(w_emb, feats, a1, state, stack=stack_plain(cfg.cell_type)):
         context, _ = attention_context(weights, feats, a1, last_h(state))
         x = torch.cat([w_emb, linear_f32(decoder.embed, context).to(w_emb.dtype)], dim=-1)
         return stack(weights["stacked"], x, state)
 
     state0 = init_hidden(decoder, cfg, cnn_feature)
     top0, state1 = trunk(start_embeddings(decoder, B, start_token, cnn_feature.device), feats_pm, att1, state0)
-    logp0 = torch.log_softmax(project_logits(vocab, top0), dim=-1)
+    logp0 = log_softmax(project_logits(vocab, top0))
+    tile, gather = rnn_state_helpers(B, K)
+
+    if shard is not None:
+        feats_rows = feats_pm.repeat_interleave(K, dim=0)
+        att1_rows = att1.repeat_interleave(K, dim=0)
+
+        def sharded_step(tokens, state):
+            top, state2 = trunk(lookup(tokens), feats_rows, att1_rows, state, stack_kernel(cfg.cell_type))
+            return log_softmax(project_logits(vocab, top)), state2
+
+        return beam_engine(logp0, state1, sharded_step, tile, gather, K, cfg.max_caption_length, end_token,
+                           pad_token, early_exit=early_exit, shard=shard)
 
     if fused_step == "dense" and fused_attn_fits(cfg.hidden_dim, cfg.embed_dim):
         prep = prepare_attn_decode(weights, decoder, feats_pm)
@@ -276,7 +338,6 @@ def attn_beam_search_decode(
 
         fused = False
 
-    tile, gather = rnn_state_helpers(B, K)
     return beam_engine(
         logp0, state1, step_fn, tile, gather, K, cfg.max_caption_length, end_token, pad_token,
         sparse=sparse and not fused, early_exit=early_exit,

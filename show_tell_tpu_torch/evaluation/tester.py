@@ -23,16 +23,18 @@ In a group of processes (``--dp``, ``--multihost``; parallel/) every
 process runs test_model together over the same batches: each step is split
 over the ranks (train_step.make_eval_step with the mesh: each decodes its
 rows, the ids are gathered, the loss summed), so every process holds the
-same captions; the host scoring is sharded, batch i on process i % n (and
-image i of the corpus pass likewise), and the float64 score tables are
-summed over the processes, bit for bit; only rank 0 writes the pickles.
-The JAX package's vocabulary sharding (``--mp`` > 1) is not ported and
-raises (ROADMAP Queue 1 item 6).
+same captions; the host scoring is sharded, batch i on the processes of
+dp group i % dp (and image i of the corpus pass likewise), and the float64
+score tables are summed over the dp axis, bit for bit; only rank 0 writes
+the pickles.  ``--mp`` M > 1 shards the vocabulary as well, over a dp x M
+mesh (the JAX package's ``shard_train_state(tensor_parallel=True)``,
+train_step.shard_train_state): the teacher-forced CE takes its logsumexp
+and target logits over the mp group, and every decode its sharded route;
+M must divide the vocabulary, as in the JAX package.
 """
 
 from __future__ import annotations
 
-import copy
 import os
 import pickle
 import time
@@ -46,9 +48,9 @@ from show_tell_tpu_torch.decode.faithful_beam import faithful_beam_decode
 from show_tell_tpu_torch.evaluation import metrics
 from show_tell_tpu_torch.evaluation.metrics import evaluate
 from show_tell_tpu_torch.models.captioner import CaptionerConfig, prepare_decode
-from show_tell_tpu_torch.parallel.mesh import MP_ITEM, Mesh, make_mesh, sum_tables
+from show_tell_tpu_torch.parallel.mesh import Mesh, make_mesh, sum_tables
 from show_tell_tpu_torch.parallel.multihost import is_primary, process_count
-from show_tell_tpu_torch.train.train_step import COMPUTE_DTYPES, TrainState, make_eval_step
+from show_tell_tpu_torch.train.train_step import COMPUTE_DTYPES, TrainState, make_eval_step, shard_train_state
 from show_tell_tpu_torch.utils import StepTimer
 
 # When False, each batch is scored before the next step is queued (the
@@ -108,12 +110,8 @@ def make_test_step(
 
 
 def check_eval_params(params: Dict[str, Any]) -> None:
-    """Raise for what the port's eval does not run: the JAX package's
-    vocabulary sharding, and its XLA decode route."""
-    mp = int(params.get("mp", 1) or 1)
-    if mp > 1:
-        raise NotImplementedError("--mp %d (the eval's vocabulary sharding) is %s; the port's eval is data "
-                                  "parallel only" % (mp, MP_ITEM))
+    """Raise for what the port's eval does not run: the JAX package's XLA
+    decode route."""
     use_pallas = int(params.get("use_pallas", -1))
     if use_pallas == 0:
         raise ValueError("--use_pallas 0 selects the JAX package's XLA decode, which the port does not have "
@@ -131,18 +129,26 @@ def _with_host_copies(data_loader):
         yield paths, images, captions, lengths, np.asarray(captions), np.asarray(lengths)
 
 
-def eval_mesh(params: Dict[str, Any], data_loader, device) -> Optional[Mesh]:
-    """The sharded eval's mesh: every process of a group, or None in one
-    process.  An explicit ``--dp`` that cannot split the eval's batches
-    raises rather than falling back to one device."""
+def eval_mesh(params: Dict[str, Any], data_loader, device, vocab_size: int) -> Optional[Mesh]:
+    """The sharded eval's dp x mp mesh over every process of a group, or
+    None in one process.  An explicit ``--dp`` that cannot split the eval's
+    batches raises rather than falling back to one device, and so does an
+    ``--mp`` that does not divide the vocabulary (the JAX package's rule,
+    show_tell_tpu/evaluation/tester.py:265-270)."""
     dp = int(params.get("dp", 0) or 0)
-    if process_count() == 1 and dp <= 1:
+    mp = int(params.get("mp", 1) or 1)
+    if process_count() == 1 and dp <= 1 and mp <= 1:
         return None
-    mesh = make_mesh(dp, device=device)
+    if mp > 1 and vocab_size % mp:
+        raise ValueError(
+            "--mp %d does not divide vocab_size %d; the eval loss path "
+            "cannot pad the vocab (serve.Captioner can — decode-only)" % (mp, vocab_size)
+        )
+    mesh = make_mesh(dp, mp, device=device)
     eval_batch = getattr(data_loader, "batch_size", params.get("batch_size", 0))
     if dp > 1 and eval_batch and eval_batch % dp:
-        raise ValueError("eval mesh dp=%d x mp=1 cannot form: %d devices visible and the eval batch size %s must "
-                         "divide dp" % (dp, process_count(), eval_batch))
+        raise ValueError("eval mesh dp=%d x mp=%d cannot form: %d devices visible and the eval batch size %s must "
+                         "divide dp" % (dp, mp, process_count(), eval_batch))
     return mesh
 
 
@@ -171,18 +177,18 @@ def test_model(
     timer = timer if timer is not None else StepTimer()
 
     check_eval_params(params)
-    mesh = eval_mesh(params, data_loader, train_state.device)
-    nproc, proc_id = (mesh.dp, mesh.rank) if mesh is not None else (1, 0)
+    mesh = eval_mesh(params, data_loader, train_state.device, cfg.vocab_size)
+    nproc, proc_id = (mesh.dp, mesh.dp_rank) if mesh is not None else (1, 0)
     if sub_batch_size == -1:
         sub_batch_size = len(data_loader)
 
     compute_dtype = str(params.get("compute_dtype", "float32") or "float32")
     if compute_dtype not in COMPUTE_DTYPES:
         raise ValueError("compute_dtype must be one of %s, not %r" % (sorted(COMPUTE_DTYPES), compute_dtype))
-    if compute_dtype == "bfloat16":
-        # Every float weight and BN statistic in bf16, as the JAX package casts
-        # its trainable, frozen and bn_state trees; the caller's model stays f32.
-        train_state = TrainState(copy.deepcopy(train_state.model).to(torch.bfloat16), None, None)
+    # bf16: every float weight and BN statistic cast, as the JAX package casts its trainable, frozen and bn_state
+    # trees; mp: this rank's vocabulary shard.  The caller's model stays as it is.
+    full_state = train_state
+    train_state = shard_train_state(train_state, mesh, COMPUTE_DTYPES[compute_dtype])
     model = train_state.model
     device = train_state.device
 
@@ -204,6 +210,10 @@ def test_model(
     )
     # The weights do not change inside an eval: the kernels' layout is built once.
     prepared = prepare_decode(model, COMPUTE_DTYPES[compute_dtype] or torch.float32)
+    faithful_prepared = prepared
+    if use_faithful and mesh is not None and mesh.mp > 1:  # the faithful beam decodes on the host, unsharded
+        faithful_prepared = prepare_decode(shard_train_state(full_state, None, COMPUTE_DTYPES[compute_dtype]).model,
+                                           COMPUTE_DTYPES[compute_dtype] or torch.float32)
     # One CPU generator: each batch draws its flips from it, one draw a batch.
     generator = torch.Generator().manual_seed(seed)
 
@@ -309,7 +319,7 @@ def test_model(
                 # (the same flips as the loss; one encoder forward per batch).  The
                 # beam decode runs on the host step by step, so there is no device
                 # work to pipeline: consume in place.
-                ids = faithful_beam_decode(prepared, cfg.decoder_config(), ids, beam_size)[None, :]
+                ids = faithful_beam_decode(faithful_prepared, cfg.decoder_config(), ids, beam_size)[None, :]
                 consume(idx, img_paths, host_captions, loss, ids)
                 continue
             if pending is not None:

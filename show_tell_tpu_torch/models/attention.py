@@ -32,7 +32,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from show_tell_tpu_torch.models.decoder import RNNWeights, greedy_loop, linear_f32
+from show_tell_tpu_torch.models.decoder import RNNWeights, embed_tokens, greedy_loop, linear_f32
 from show_tell_tpu_torch.models.rnn_cells import stack_step
 from show_tell_tpu_torch.ops.rnn import State
 from show_tell_tpu_torch.ops.vocab import first_max_argmax
@@ -113,8 +113,9 @@ def last_h(state: State) -> torch.Tensor:
 
 
 def start_embeddings(decoder: AttnDecoder, B: int, start_token: int, device) -> torch.Tensor:
-    """The first step's input: the <start> row of the embedding, [B, E]."""
-    return decoder.embeddings.weight[torch.full((B,), start_token, dtype=torch.long, device=device)]
+    """The first step's input: the <start> row of the embedding, [B, E]
+    (from its owning shard where the decoder holds a vocabulary shard)."""
+    return embed_tokens(decoder, torch.full((B,), start_token, dtype=torch.long, device=device))
 
 
 def attn_greedy_decode(
@@ -158,7 +159,7 @@ def attn_decoder_forward(
     whose state stays frozen from there on.  att1 is computed once."""
     feats_pm = cnn_feature.transpose(1, 2)  # [B, P, C]
     att1 = linear_f32(decoder.attn.encoder_att, feats_pm)  # hoisted: constant over t
-    emb = F.embedding(captions.long(), decoder.embeddings.weight)  # [B, T, E]
+    emb = embed_tokens(decoder, captions)  # [B, T, E]
     layers = decoder.unit.layers()
     step_fn = stack_step(cfg.cell_type)
     lengths = lengths.to(cnn_feature.device)

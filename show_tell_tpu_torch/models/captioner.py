@@ -137,7 +137,12 @@ def decoder_loss(
     one data-parallel rank's share of it; the terms' denominators then
     count that batch's tokens and rows, so the ranks' losses sum to the
     whole batch's.  Each rank cuts at its own longest caption: the cut
-    drops only masked positions."""
+    drops only masked positions.
+
+    A decoder that holds a vocabulary shard (an mp mesh's eval,
+    ``parallel.mesh.decoder_vocab_shard``) computes its columns of the
+    logits; the CE's logsumexp and target logits are then taken over the
+    mp group (``masked_cross_entropy``'s ``shard``)."""
     if t_max is None:
         t_max = int(lengths.max())
     captions = captions[:, : max(t_max, 1)]
@@ -145,9 +150,10 @@ def decoder_loss(
     if batch_lengths is not None:  # every length is within its rank's cut, so the tokens are their sum
         rows = len(batch_lengths)
         count = batch_lengths.sum().float()
+    shard = getattr(model.decoder, "vocab_shard", None)
     if not cfg.is_attention:
         logits = decoder_forward(model.decoder, cfg.decoder_config(), feats, captions, lengths)
-        return masked_cross_entropy(logits, captions, lengths, count)
+        return masked_cross_entropy(logits, captions, lengths, count, shard)
     if cfg.attn_next_token:
         lengths = (lengths - 1).clamp(min=0)
         targets = torch.cat([captions[:, 1:], torch.zeros_like(captions[:, :1])], dim=1)
@@ -156,7 +162,7 @@ def decoder_loss(
     else:
         targets = captions
     preds, alphas = attn_decoder_forward(model.decoder, cfg.decoder_config(), feats, captions, lengths)
-    return (masked_cross_entropy(preds, targets, lengths, count)
+    return (masked_cross_entropy(preds, targets, lengths, count, shard)
             + cfg.alpha_c * doubly_stochastic_penalty(alphas, rows))
 
 
@@ -310,14 +316,22 @@ def model_trees(model: CaptionerModel) -> Tuple[Dict[str, Any], Dict[str, Any]]:
 
 
 def prepare_decode(model: CaptionerModel, dtype: torch.dtype) -> Dict[str, object]:
-    """The decode kernels' weights in kernel layout, built once per model."""
+    """The decode kernels' weights in kernel layout, built once per model;
+    where the decoder holds a vocabulary shard, also "shard" (its
+    parallel.mesh.VocabShard), which sends every decode by the sharded
+    routes."""
     from show_tell_tpu_torch.ops.fused_attn import prepare_attn_weights
     from show_tell_tpu_torch.ops.rnn import prepare_greedy
 
     dec = model.decoder
     if isinstance(dec, AttnDecoder):
-        return prepare_attn_weights(dec, dtype)
-    return prepare_greedy(dec.unit.layers(), dec.embeddings.weight, dec.linear.weight, dec.linear.bias, dtype)
+        prepared = prepare_attn_weights(dec, dtype)
+    else:
+        prepared = prepare_greedy(dec.unit.layers(), dec.embeddings.weight, dec.linear.weight, dec.linear.bias,
+                                  dtype)
+    if getattr(dec, "vocab_shard", None) is not None:
+        prepared["shard"] = dec.vocab_shard
+    return prepared
 
 
 def exact_f32_convs(weight: torch.Tensor):
@@ -382,15 +396,19 @@ def captioner_greedy_decode(
 
     Dispatch (captioner.py:160-262 in the JAX package): the pooled GRU
     and LSTM take ``greedy_decode_kernel``: one fused-step launch per token
-    (or the whole-decode kernel where ``whole_decode_default()`` says so),
-    and under ``vocab_sharded`` the stack-step kernel with the projection
-    outside it (the route of a sharded projection; the attention families
-    do not read it).  Attention runs the
-    fused attention step (its GRU or LSTM instance) when H <= 2E
-    (``fused_attn_fits``), else the composite path: the attention context
-    kernel, plain embed and recurrence products, and the projection +
-    argmax kernel.  The JAX package keeps the pooled LSTM on its XLA scan
-    by a TPU measurement; here it takes the kernel like the GRU."""
+    (or the whole-decode kernel where ``whole_decode_default()`` says so).
+    Attention runs the fused attention step (its GRU or LSTM instance) when
+    H <= 2E (``fused_attn_fits``), else the composite path: the attention
+    context kernel, plain embed and recurrence products, and the projection
+    + argmax kernel.  The JAX package keeps the pooled LSTM on its XLA scan
+    by a TPU measurement; here it takes the kernel like the GRU.
+
+    A sharded projection, ``vocab_sharded`` on one device or a decoder that
+    holds an mp mesh's vocabulary shard (``prepared["shard"]``), takes the
+    stack-step kernel with the projection outside it in every family, after
+    the attention context kernel in the attention families; the fused steps,
+    the projection + argmax kernel and the whole decode are never chosen
+    there."""
     return greedy_decode_features(model, cfg, encode(model, images, s2d), prepared, end_token, vocab_sharded)
 
 
@@ -410,9 +428,12 @@ def greedy_decode_features(
     if prepared is None:
         prepared = prepare_decode(model, model.decoder.embeddings.weight.dtype)
     if cfg.is_attention:
-        fused = fused_attn_fits(cfg.hidden_dim, cfg.embed_dim)
-        decode = attn_greedy_decode_fused if fused else attn_greedy_decode_composite
-        return decode(prepared, model.decoder, cfg.decoder_config(), feats, cfg.start_token, end_token=end_token)
+        sharded = vocab_sharded or prepared.get("shard") is not None
+        if not sharded and fused_attn_fits(cfg.hidden_dim, cfg.embed_dim):
+            return attn_greedy_decode_fused(prepared, model.decoder, cfg.decoder_config(), feats, cfg.start_token,
+                                            end_token=end_token)
+        return attn_greedy_decode_composite(prepared, model.decoder, cfg.decoder_config(), feats, cfg.start_token,
+                                            end_token=end_token, vocab_sharded=sharded)
     return greedy_decode_kernel(prepared, feats, cfg.max_caption_length, end_token=end_token,
                                 vocab_sharded=vocab_sharded)
 

@@ -22,7 +22,7 @@ fixed loop's.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, NamedTuple, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional, Union
 
 import torch
 import torch.nn as nn
@@ -90,29 +90,50 @@ def linear_f32(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     return x.float() @ layer.weight.float().T + layer.bias.float()
 
 
+def embed_tokens(decoder: nn.Module, tokens: torch.Tensor) -> torch.Tensor:
+    """The embedding rows of ``tokens`` (any shape of global ids): a lookup
+    in ``decoder.embeddings``, or where the decoder holds a vocabulary
+    shard (``parallel.mesh.decoder_vocab_shard``) the mp group's
+    ``vocab_embedding``."""
+    shard = getattr(decoder, "vocab_shard", None)
+    if shard is None:
+        return F.embedding(tokens.long(), decoder.embeddings.weight)
+    from show_tell_tpu_torch.parallel.mesh import vocab_embedding
+
+    return vocab_embedding(shard, tokens, decoder.embeddings.weight)
+
+
+def _lookup(embedding: Union[torch.Tensor, Callable]) -> Callable:
+    """A table's row lookup, or ``embedding`` itself where it is a lookup (tokens -> rows)."""
+    return embedding if callable(embedding) else (lambda tok: embedding.index_select(0, tok))
+
+
 def greedy_loop(
-    step: Callable, embedding: torch.Tensor, x0, state0, T: int, end_token: Optional[int] = None
+    step: Callable, embedding: Union[torch.Tensor, Callable], x0, state0, T: int, end_token: Optional[int] = None
 ) -> torch.Tensor:
     """Run ``step(x, state) -> (tok, state)`` T times, feeding back
-    ``embedding[tok]``.  Returns [B, T] int32 ids.  end_token: run
-    ``greedy_early_exit_loop`` instead."""
+    ``embedding[tok]`` (``embedding``: the table, or a lookup tokens ->
+    rows, such as a vocabulary shard's).  Returns [B, T] int32 ids.
+    end_token: run ``greedy_early_exit_loop`` instead."""
     if end_token is not None:
         return greedy_early_exit_loop(step, embedding, x0, state0, T, end_token)
+    lookup = _lookup(embedding)
     x, state, toks = x0, state0, []
     for _ in range(T):
         tok, state = step(x, state)
         toks.append(tok)
-        x = embedding.index_select(0, tok)
+        x = lookup(tok)
     return torch.stack(toks, dim=1).to(torch.int32)
 
 
 def greedy_early_exit_loop(
-    step: Callable, embedding: torch.Tensor, x0, state0, T: int, end_token: int
+    step: Callable, embedding: Union[torch.Tensor, Callable], x0, state0, T: int, end_token: int
 ) -> torch.Tensor:
     """``greedy_loop`` that stops once every row has emitted ``end_token``
     (or after T steps).  Positions after a row's first <end> are <pad> (0);
     rows and steps before it equal the fixed loop's."""
     B = x0.shape[0]
+    lookup = _lookup(embedding)
     toks = torch.zeros(B, T, dtype=torch.int32, device=x0.device)
     done = torch.zeros(B, dtype=torch.bool, device=x0.device)
     x, state = x0, state0
@@ -123,7 +144,7 @@ def greedy_early_exit_loop(
         done = done | (tok == end_token)
         if bool(done.all()):  # one host sync per step: the price of stopping early
             break
-        x = embedding.index_select(0, tok)
+        x = lookup(tok)
     return toks
 
 
@@ -162,7 +183,7 @@ def decoder_forward(
     captions[:, j] (decoder.decoder_forward in the JAX package).  Computes
     in the embedding's dtype from a zero state, layer-major (``rnn_scan``).
     Only positions j < lengths are meaningful; the loss masks the rest."""
-    emb = F.embedding(captions.long(), decoder.embeddings.weight)  # [B, T, E]
+    emb = embed_tokens(decoder, captions)  # [B, T, E]
     inputs = torch.cat([cnn_feature.to(emb.dtype)[:, None, :], emb[:, :-1, :]], dim=1)
     state = init_state(cfg.cell_type, cfg.num_layers, captions.shape[0], cfg.hidden_dim, inputs.dtype,
                        inputs.device)
@@ -171,14 +192,21 @@ def decoder_forward(
 
 
 def masked_cross_entropy(logits: torch.Tensor, targets: torch.Tensor, lengths: torch.Tensor,
-                         count: Optional[torch.Tensor] = None) -> torch.Tensor:
+                         count: Optional[torch.Tensor] = None, shard=None) -> torch.Tensor:
     """Mean CE over the positions t < lengths of f32 logits [B, T, V]: the
     reference's CrossEntropyLoss over pack_padded_sequence data
     (main.py:145,149).  ``count``: the denominator where these rows are
     one share of a larger batch (that batch's token count); by default
-    this batch's own."""
+    this batch's own.  ``shard``: the logits are a vocabulary shard's
+    columns (``parallel.mesh.VocabShard``): the logsumexp is taken over the
+    mp group and each target's logit from its owning shard."""
     T = logits.shape[1]
     mask = (torch.arange(T, device=logits.device)[None, :] < lengths.to(logits.device)[:, None]).float()
+    if shard is not None:
+        from show_tell_tpu_torch.parallel.mesh import vocab_logsumexp, vocab_target_logit
+
+        logz, tok = vocab_logsumexp(shard, logits), vocab_target_logit(shard, logits, targets)
+        return ((logz - tok) * mask).sum() / (mask.sum() if count is None else count)
     logz = torch.logsumexp(logits, dim=-1)  # [B, T]
     tok = logits.gather(-1, targets.long()[..., None])[..., 0]
     return ((logz - tok) * mask).sum() / (mask.sum() if count is None else count)

@@ -6,7 +6,10 @@ The composite decode is the attention path for configurations outside the
 fused step's shape rule (H > 2E, ops/fused_attn.py): per step the context
 kernel (fed the last layer's h), ``embed(context)`` as a plain product,
 the cell's plain stack step (GRU or LSTM), and the projection + argmax
-kernel (ops/vocab.py).
+kernel (ops/vocab.py).  It is also the route of a sharded projection (one
+device's ``vocab_sharded``, or an mp mesh's vocabulary shard): the context
+kernel, the stack-step kernel, the projection outside any kernel and the
+argmax over the shards.
 """
 
 from __future__ import annotations
@@ -102,28 +105,41 @@ def attn_greedy_decode_composite(
     cnn_feature: torch.Tensor,  # [B, C, P]
     start_token: int,
     end_token: Optional[int] = None,
+    vocab_sharded: bool = False,
 ) -> torch.Tensor:
     """Greedy attention decode with the context kernel and the projection
     + argmax kernel (attention_pallas.attn_greedy_decode_pallas).  Returns
-    [B, T] int32 ids; end_token: stop once every row emitted it."""
+    [B, T] int32 ids; end_token: stop once every row emitted it.
+
+    With a sharded projection, ``vocab_sharded`` on one device or
+    ``weights["shard"]``, a rank's vocabulary shard of an mp mesh
+    (parallel/mesh.py), each step is the context kernel, the stack-step
+    kernel and the projection outside any kernel with the first-max argmax
+    (over the mp group under a shard; attention_pallas.py:153-157): the
+    projection + argmax kernel is never chosen there."""
     from show_tell_tpu_torch.models.attention import init_hidden, last_h, linear_f32, start_embeddings
     from show_tell_tpu_torch.models.decoder import greedy_loop
-    from show_tell_tpu_torch.ops.rnn import stack_plain
-    from show_tell_tpu_torch.ops.vocab import project_argmax
+    from show_tell_tpu_torch.ops.rnn import sharded_argmax, sharded_lookup, stack_kernel, stack_plain
+    from show_tell_tpu_torch.ops.vocab import project_argmax, project_logits
 
     B = cnn_feature.shape[0]
     feats_pm = cnn_feature.transpose(1, 2).contiguous()
     dtype = decoder.embeddings.weight.dtype
     att1 = precompute_att1(decoder.attn, feats_pm).to(dtype).contiguous()
-    stack = stack_plain(cfg.cell_type)
+    shard = weights.get("shard")
+    sharded = vocab_sharded or shard is not None
+    stack = stack_kernel(cfg.cell_type) if sharded else stack_plain(cfg.cell_type)
+    argmax = sharded_argmax(shard)
 
     def step(w_emb, state):
         context, _ = attention_context(weights, feats_pm, att1, last_h(state))
         x = torch.cat([w_emb, linear_f32(decoder.embed, context).to(w_emb.dtype)], dim=-1)
         top, state2 = stack(weights["stacked"], x, state)
+        if sharded:
+            return argmax(project_logits(weights["vocab"], top)), state2
         return project_argmax(weights["vocab"], top.contiguous()), state2
 
     w0 = start_embeddings(decoder, B, start_token, cnn_feature.device)
     state0 = init_hidden(decoder, cfg, cnn_feature)
-    embedding = decoder.embeddings.weight
-    return greedy_loop(step, embedding, w0, state0, cfg.max_caption_length, end_token)
+    lookup = sharded_lookup(shard, decoder.embeddings.weight)
+    return greedy_loop(step, lookup, w0, state0, cfg.max_caption_length, end_token)

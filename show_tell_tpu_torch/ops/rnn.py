@@ -182,6 +182,13 @@ gru_stack_step.launches = 0
 lstm_stack_step.launches = 0
 
 
+def stack_kernel(cell_type: str):
+    """The stack-step kernel of a cell, ``(stacked, x, state) -> (top,
+    state)``: ``gru_stack_step`` or ``lstm_stack_step`` (the plain twin on
+    CPU tensors), the recurrence of every sharded-projection route."""
+    return lstm_stack_step if cell_type == "lstm" else gru_stack_step
+
+
 def prepare_greedy(
     layers: List[Dict[str, torch.Tensor]],
     embedding: torch.Tensor,  # [V, E]
@@ -219,9 +226,13 @@ def greedy_decode_kernel(
         max_len steps, when ``whole_decode`` (None: ``whole_decode_default()``),
         ``end_token`` is None, the cell is the GRU and the projection is
         not sharded;
-      * ``vocab_sharded``: per token the stack-step kernel, the projection
-        ``top @ w.T + b`` in f32 outside any kernel and the first-max
-        argmax (the JAX package leaves that product to XLA);
+      * a sharded projection, ``vocab_sharded`` on one device or
+        ``prepared["shard"]``, a rank's vocabulary shard of an mp mesh
+        (parallel/mesh.py): per token the stack-step kernel, the projection
+        ``top @ w.T + b`` in f32 outside any kernel (the JAX package leaves
+        that product to XLA) and the first-max argmax, over the mp group
+        under a shard (``vocab_argmax``), which also looks up the next
+        token's embedding row (``vocab_embedding``);
       * otherwise one fused-step launch per token
         (``fused_{gru,lstm}_decode_step``).
     The per-token routes feed back ``x = embedding[tok]`` from a zero state
@@ -231,10 +242,12 @@ def greedy_decode_kernel(
     from show_tell_tpu_torch.models.rnn_cells import init_state
     from show_tell_tpu_torch.ops import whole_decode_default
     from show_tell_tpu_torch.ops.fused_step import fused_gru_decode_step, fused_lstm_decode_step
-    from show_tell_tpu_torch.ops.vocab import first_max_argmax, project_logits
+    from show_tell_tpu_torch.ops.vocab import project_logits
     from show_tell_tpu_torch.ops.whole_decode import gru_whole_greedy_decode
 
     stacked, vocab, embedding = prepared["stacked"], prepared["vocab"], prepared["embedding"]
+    shard = prepared.get("shard")
+    vocab_sharded = vocab_sharded or shard is not None
     L, GH, H = stacked["w_hh"].shape
     cell = "lstm" if GH == 4 * H else "gru"
     if whole_decode is None:
@@ -244,16 +257,40 @@ def greedy_decode_kernel(
     x0 = feats.to(embedding.dtype).contiguous()
     state0 = init_state(cell, L, feats.shape[0], H, embedding.dtype, feats.device)
     if vocab_sharded:
-        stack = lstm_stack_step if cell == "lstm" else gru_stack_step
+        stack = stack_kernel(cell)
+        argmax, lookup = sharded_argmax(shard), sharded_lookup(shard, embedding)
 
         def step(x, state):
             top, state2 = stack(stacked, x, state)
-            return first_max_argmax(project_logits(vocab, top)), state2
+            return argmax(project_logits(vocab, top)), state2
 
-    else:
-        fused = fused_lstm_decode_step if cell == "lstm" else fused_gru_decode_step
+        return greedy_loop(step, lookup, x0, state0, max_len, end_token)
+    fused = fused_lstm_decode_step if cell == "lstm" else fused_gru_decode_step
 
-        def step(x, state):
-            return fused(stacked, vocab, x, state)
+    def step(x, state):
+        return fused(stacked, vocab, x, state)
 
     return greedy_loop(step, embedding, x0, state0, max_len, end_token)
+
+
+def sharded_argmax(shard):
+    """logits -> [B] int32 tokens: ``first_max_argmax``, or under a
+    vocabulary shard (parallel.mesh.VocabShard) ``vocab_argmax`` over the
+    mp group."""
+    from show_tell_tpu_torch.ops.vocab import first_max_argmax
+
+    if shard is None:
+        return first_max_argmax
+    from show_tell_tpu_torch.parallel.mesh import vocab_argmax
+
+    return lambda logits: vocab_argmax(shard, logits)
+
+
+def sharded_lookup(shard, embedding: torch.Tensor):
+    """tokens -> the embedding's rows: the table's own rows, or under a
+    vocabulary shard ``vocab_embedding`` over the mp group."""
+    if shard is None:
+        return lambda tok: embedding.index_select(0, tok)
+    from show_tell_tpu_torch.parallel.mesh import vocab_embedding
+
+    return lambda tok: vocab_embedding(shard, tok, embedding)

@@ -12,6 +12,17 @@ the pooled and the soft-attention GRU and LSTM, greedy and beam decode).
     captioner = Captioner.from_checkpoint(ckpt, vocab, fold_bn=True)  # BN folded into the encoder's convolutions
     for path, caption in caption_paths(captioner, paths, 64, cache=ServeImageCache(dir, 224)): ...
 
+Over a dp x mp mesh (one process per device, parallel/), ``Captioner(...,
+dp=D, mp=M)`` in every process of a group of D x M: each request's rows
+split over the dp axis (a request must divide over dp), the decoder's
+vocabulary-sized tensors over the mp axis (``parallel.mesh.
+decoder_vocab_shard``: V padded to a multiple of M as the JAX Captioner
+pads it), the ids gathered so that every process returns the whole
+request's.  Under mp every family decodes through the stack-step kernel
+(after the attention context kernel in the attention families) with the
+projection split over the ranks; the CLI's ``--dp``/``--mp`` spawn the
+D x M processes (``--multihost`` joins a group started elsewhere).
+
 Images are preprocessed on the device, by the preprocess kernel on a GPU;
 with ``s2d=True`` the fused stem kernel computes the ResNet's stem from
 the uint8 pixels instead, as decoded ([B,224,224,3]; it takes their s2d
@@ -36,7 +47,8 @@ native JPEG decoder): nothing of the JAX package is imported.
 
 CLI: ``python -m show_tell_tpu_torch.serve --ckpt model.ckpt --vocab
 vocab.pkl [--variant gru|lstm|attn|attn_lstm] [--beam_size K] [--s2d 1]
-[--fast_jpeg 1] [--image_cache DIR] [--fold_bn 0|1] [--device cpu|gpu] img1.jpg photos_dir/ ...``;
+[--fast_jpeg 1] [--image_cache DIR] [--fold_bn 0|1] [--device cpu|gpu]
+[--dp D] [--mp M] [--multihost SPEC] img1.jpg photos_dir/ ...``;
 ``--ckpt`` takes either checkpoint format.
 """
 
@@ -47,7 +59,7 @@ from typing import Any, Dict, Iterator, List, NamedTuple, Optional, Sequence, Tu
 import numpy as np
 import torch
 
-from show_tell_tpu_torch.core.device import DEVICE_CHOICES, resolve_device
+from show_tell_tpu_torch.core.device import DEVICE_CHOICES
 from show_tell_tpu_torch.data.images import IMAGE_SIZE, load_images
 from show_tell_tpu_torch.data.serve_cache import ServeImageCache
 from show_tell_tpu_torch.models.captioner import (
@@ -59,6 +71,8 @@ from show_tell_tpu_torch.models.captioner import (
 )
 from show_tell_tpu_torch.models.serving import FoldedEncoder
 from show_tell_tpu_torch.ops import fold_bn_default
+from show_tell_tpu_torch.parallel import multihost
+from show_tell_tpu_torch.parallel.mesh import active, all_gather_rows, decoder_vocab_shard, make_mesh, shard_rows
 from show_tell_tpu_torch.train.checkpoint import import_torch_checkpoint, load_checkpoint
 from show_tell_tpu_torch.vocab import load_vocab
 
@@ -120,6 +134,8 @@ class Captioner:
         device: Union[str, torch.device] = "gpu",
         s2d: bool = False,
         fold_bn: Optional[bool] = None,
+        dp: int = 1,
+        mp: int = 1,
     ):
         """params, bn_state: the JAX package's trees (numpy arrays).
         early_exit stops decoding once every row (beam: every beam)
@@ -130,12 +146,20 @@ class Captioner:
         folded into its convolution (models/serving.FoldedEncoder); None
         takes ``ops.fold_bn_default()`` on a GPU, the route its H100 A/B
         chose, and the unfolded encoder on the CPU, where the port is held
-        to the JAX package's Captioner (which does not fold)."""
+        to the JAX package's Captioner (which does not fold).
+
+        dp, mp > 1: this process's place in a dp x mp mesh of the group it
+        joined (parallel/; every process of the group builds its Captioner
+        together): its rows of each request (dp) and its vocabulary shard
+        (mp, ``decoder_vocab_shard`` with the pad); 'gpu' is then this
+        rank's card (``multihost.local_device``).  Raises where the group
+        cannot form the mesh."""
         self.cfg = cfg
         self.vocab = vocab
         self.early_exit = early_exit
         self.s2d = s2d
-        self.device = resolve_device(device)
+        self.device = multihost.local_device(device)
+        self.mesh = make_mesh(dp, mp, device=self.device) if dp * mp > 1 else None
         self._copy_stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
         self.dtype = _DTYPES[compute_dtype]
         self.model = build_model(params, bn_state, cfg, self.dtype, self.device)
@@ -143,6 +167,8 @@ class Captioner:
         if self.fold_bn:
             self.model.encoder = FoldedEncoder.from_trees(params["encoder"], bn_state, cfg.encoder_config(),
                                                           self.dtype, self.device)
+        if mp > 1:
+            decoder_vocab_shard(self.mesh, self.model.decoder, pad=True)
         self.prepared = prepare_decode(self.model, self.dtype)
         # Early exit and beam retirement key on the loaded vocab's own <end> id.
         self.end_idx = vocab.word_to_index[vocab.end_token()]
@@ -162,10 +188,13 @@ class Captioner:
         device: Union[str, torch.device] = "gpu",
         s2d: bool = False,
         fold_bn: Optional[bool] = None,
+        dp: int = 1,
+        mp: int = 1,
         **cfg_kw,
     ) -> "Captioner":
         """Load a checkpoint, a show_tell_tpu pickle (either package's) or a
-        reference torch .ckpt, and its vocab.pkl."""
+        reference torch .ckpt, and its vocab.pkl (in every process of a
+        dp x mp mesh)."""
         vocab = load_vocab(vocab_path)
         cfg_kw.setdefault("start_token", vocab.word_to_index.get(vocab.start_token(), 1))
         cfg = CaptionerConfig(
@@ -174,16 +203,30 @@ class Captioner:
         )
         params, bn_state = load_any_checkpoint(ckpt_path, cfg)
         return cls(params, bn_state, cfg, vocab, compute_dtype, early_exit=early_exit, device=device, s2d=s2d,
-                   fold_bn=fold_bn)
+                   fold_bn=fold_bn, dp=dp, mp=mp)
 
-    def stage(self, images_u8: Union[np.ndarray, torch.Tensor]) -> Staged:
-        """A uint8 batch -> ``Staged`` on the Captioner's device.  From the
+    def local_rows(self, n: int) -> slice:
+        """This process's rows of a request of ``n``: its dp share under a
+        mesh (a ValueError naming dp where n does not divide), else all."""
+        if self.mesh is None:
+            return slice(0, n)
+        if n % self.mesh.dp:
+            raise ValueError("serving batch of %d does not divide over dp=%d; pass a batch that is a multiple of dp "
+                             "(pad with repeated images and slice the outputs, as the CLI does)" % (n, self.mesh.dp))
+        return shard_rows(self.mesh, n)
+
+    def stage(self, images_u8: Union[np.ndarray, torch.Tensor], local: bool = False) -> Staged:
+        """A uint8 batch -> ``Staged`` on the Captioner's device: this
+        process's rows of it under a dp mesh (``local_rows``), or with
+        ``local`` the batch as it is, already those rows.  From the
         host to a GPU the batch is copied into freshly pinned memory, then
         to the card with non_blocking=True on a side stream, and ``ready``
         records that copy; ``caption_ids`` makes the compute stream wait on
         it.  PyTorch's pinned-memory allocator keeps the buffer from reuse
         until its copy has run.  Callable from a worker thread, so batch
         k+1's copy overlaps batch k's compute."""
+        if not local:
+            images_u8 = images_u8[self.local_rows(len(images_u8))]
         host = torch.from_numpy(np.ascontiguousarray(images_u8)) if isinstance(images_u8, np.ndarray) else images_u8
         if self._copy_stream is None or host.device.type != "cpu":
             return Staged(host.to(self.device), None)
@@ -197,7 +240,9 @@ class Captioner:
     def caption_ids(self, images_u8: Union[np.ndarray, torch.Tensor, Staged], beam_size: int = 0) -> np.ndarray:
         """uint8 [B,224,224,3] (under s2d also [B,112,112,12]; host numpy,
         a tensor or a ``stage``d batch) -> [B, 25] int32 ids: greedy for
-        beam_size 0, else beam search of that width."""
+        beam_size 0, else beam search of that width.  Under a dp mesh this
+        process decodes its rows and the ids are gathered over the dp
+        group: every process returns the whole request's."""
         staged = images_u8 if isinstance(images_u8, Staged) else self.stage(images_u8)
         images = staged.images
         if staged.ready is not None:
@@ -213,6 +258,8 @@ class Captioner:
                     self.model, self.cfg, images, self.prepared,
                     end_token=self.end_idx if self.early_exit else None, s2d=self.s2d,
                 )
+            if self.mesh is not None and self.mesh.dp > 1:
+                ids = all_gather_rows(ids.to(self.mesh.device), self.mesh)
         return ids.cpu().numpy()
 
     def caption(self, images_u8, beam_size: int = 0) -> List[str]:
@@ -263,17 +310,28 @@ def caption_paths(
     overlap loads and stages batch k+1 on one worker thread while batch k
     is captioned; False runs each batch's load, copy and captioning in
     turn.  fast_jpeg: the scaled JPEG decode (``Captioner.load_files``);
-    a cache should be keyed with the same flag."""
+    a cache should be keyed with the same flag.
+
+    Under a dp mesh ``batch_size`` must divide over dp (a batch of fewer
+    files is rounded up to the next multiple of dp), each process decodes
+    only its rows of each batch, and every process yields every file's
+    caption."""
     if not paths:
         return
-    B = min(batch_size, len(paths))
+    dp = captioner.mesh.dp if captioner.mesh is not None else 1
+    B = min(batch_size, -(-len(paths) // dp) * dp)
+    rows = captioner.local_rows(B)
     chunks = [paths[lo : lo + B] for lo in range(0, len(paths), B)]
 
     def load(chunk):
-        imgs = _load_with_cache(captioner, chunk, cache, fast_jpeg)
-        if len(chunk) < B:  # pad decoded pixels, not paths
-            imgs = np.concatenate([imgs, np.repeat(imgs[-1:], B - len(chunk), axis=0)])
-        return captioner.stage(imgs)
+        # This process's rows of the padded batch, as files of the chunk (the padding repeats its last file); each
+        # file is decoded once and its pixels repeated.
+        picks = (list(range(len(chunk))) + [len(chunk) - 1] * (B - len(chunk)))[rows]
+        files = sorted(set(picks))
+        imgs = _load_with_cache(captioner, [chunk[i] for i in files], cache, fast_jpeg)
+        if picks != files:
+            imgs = imgs[[files.index(i) for i in picks]]
+        return captioner.stage(imgs, local=True)
 
     if not overlap:
         for chunk in chunks:
@@ -329,6 +387,15 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                    help="decoded-image cache dir (.npy per image keyed by path, size, mtime and --fast_jpeg; stale "
                         "entries decode anew; shareable across serve runs)")
     p.add_argument("--device", default="gpu", choices=DEVICE_CHOICES, help="gpu raises when there is no CUDA device")
+    p.add_argument("--dp", type=int, default=1,
+                   help="shard each batch's rows over this many processes, one a device (the CUDA cards of this "
+                        "host, or the CPU); dp x mp > 1 spawns the dp x mp processes")
+    p.add_argument("--mp", type=int, default=1,
+                   help="shard the decoder's vocabulary-sized tensors (output projection, embedding) over this many "
+                        "processes for each dp share")
+    p.add_argument("--multihost", default="",
+                   help="join a group of dp x mp processes started elsewhere: 'coordinator_host:port,"
+                        "num_processes,process_id', or 'auto' under torchrun; process 0 prints")
     p.add_argument("--json", action="store_true", help='emit {"image": ..., "caption": ...} JSON lines')
     args = p.parse_args(argv)
 
@@ -348,6 +415,36 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         print("no images found", file=sys.stderr)
         return 2
 
+    if args.dp < 1 or args.mp < 1:
+        print("--dp and --mp take 1 or more", file=sys.stderr)
+        return 2
+    if args.batch_size % args.dp:
+        args.batch_size += args.dp - args.batch_size % args.dp  # batches shard over dp; round up
+        print("batch_size rounded up to %d (multiple of dp=%d)" % (args.batch_size, args.dp), file=sys.stderr)
+    if args.multihost and multihost.process_count() == 1:
+        multihost.initialize(args.multihost, args.device)
+        primary = multihost.is_primary()
+        try:
+            results, cached = _serve(args, paths)
+        finally:
+            torch.distributed.destroy_process_group()
+        if not primary:
+            return 0
+    elif args.dp * args.mp > 1 and multihost.process_count() == 1:
+        results, cached = multihost.spawn(_serve, args.dp * args.mp, (args, paths), args.device)[0]
+    else:
+        results, cached = _serve(args, paths)
+    for path, cap in results:
+        print(json.dumps({"image": path, "caption": cap}) if args.json else "%s\t%s" % (path, cap))
+    if cached is not None:
+        print("image cache %s: %d hits, %d misses" % (args.image_cache, *cached), file=sys.stderr)
+    return 0
+
+
+def _serve(args, paths: List[str]) -> Tuple[List[Tuple[str, str]], Optional[Tuple[int, int]]]:
+    """The CLI's captioning in this process (one of a dp x mp mesh, or
+    alone): every (path, caption) in input order, and the image cache's
+    (hits, misses) over every row of the batches (None without a cache)."""
     cfg_kw = {}
     if args.variant.startswith("attn"):
         nos = args.nos_cnn_filters or (512 if args.resnet_version in (18, 34) else 2048)
@@ -357,16 +454,20 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         embed_dim=args.embedding_length or (256 if args.variant == "gru" else 512),
         hidden_dim=args.num_hidden_units, num_layers=args.num_layers, compute_dtype=args.compute_dtype,
         early_exit=bool(args.early_exit), device=args.device, s2d=bool(args.s2d),
-        fold_bn=None if args.fold_bn < 0 else bool(args.fold_bn), **cfg_kw,
+        fold_bn=None if args.fold_bn < 0 else bool(args.fold_bn), dp=args.dp, mp=args.mp, **cfg_kw,
     )
     fast_jpeg = bool(args.fast_jpeg)
     cache = ServeImageCache(args.image_cache, IMAGE_SIZE, fast_jpeg) if args.image_cache else None
-    for path, cap in caption_paths(captioner, paths, max(1, args.batch_size), args.beam_size, cache=cache,
-                                   fast_jpeg=fast_jpeg):
-        print(json.dumps({"image": path, "caption": cap}) if args.json else "%s\t%s" % (path, cap))
-    if cache is not None:
-        print("image cache %s: %d hits, %d misses" % (args.image_cache, cache.hits, cache.misses), file=sys.stderr)
-    return 0
+    results = list(caption_paths(captioner, paths, max(1, args.batch_size), args.beam_size, cache=cache,
+                                 fast_jpeg=fast_jpeg))
+    if cache is None:
+        return results, None
+    counts = torch.tensor([cache.hits, cache.misses], dtype=torch.int64)
+    mesh = active(captioner.mesh)
+    if mesh is not None:  # each dp rank read its own rows
+        counts = counts.to(mesh.device)
+        torch.distributed.all_reduce(counts, group=mesh.group)
+    return results, tuple(int(c) for c in counts)
 
 
 if __name__ == "__main__":

@@ -70,12 +70,15 @@ def captioner_config_from_params(params: Dict[str, Any], vocab_size: int) -> Cap
 
 def train_mesh(params: Dict[str, Any], device: torch.device) -> Optional[Mesh]:
     """The data-parallel mesh of a run, or None in one process: every
-    process of the group (``--dp`` 0 or the process count; make_mesh raises
-    for any other dp), the batch divided evenly among them."""
-    dp = int(params.get("dp", 0) or 0)
-    if process_count() == 1 and dp <= 1:
+    process of the group (``--dp`` x ``--mp``, ``--dp`` 0 meaning the
+    process count; make_mesh raises for any other dp), the batch divided
+    evenly among them.  Training is data parallel only, as in the JAX
+    package: ``--mp`` shards the eval's vocabulary, and its processes train
+    as dp ranks too."""
+    dp, mp = int(params.get("dp", 0) or 0), int(params.get("mp", 1) or 1)
+    if process_count() == 1 and dp <= 1 and mp <= 1:
         return None
-    mesh = make_mesh(dp, device=device)
+    mesh = make_mesh(dp * mp, device=device)
     if params["batch_size"] % mesh.dp:
         raise ValueError("batch_size %d does not divide over %d processes" % (params["batch_size"], mesh.dp))
     return mesh

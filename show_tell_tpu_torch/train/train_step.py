@@ -34,6 +34,7 @@ global loss, the same on every rank.
 
 from __future__ import annotations
 
+import copy
 from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
@@ -61,6 +62,7 @@ from show_tell_tpu_torch.parallel.mesh import (
     active,
     all_gather_rows,
     all_reduce_sum,
+    decoder_vocab_shard,
     replicate,
     shard_batch,
     shard_rows,
@@ -120,6 +122,26 @@ class TrainState:
     @property
     def device(self) -> torch.device:
         return self.model.decoder.embeddings.weight.device
+
+
+def shard_train_state(ts: TrainState, mesh: Optional[Mesh], dtype: Optional[torch.dtype] = None) -> TrainState:
+    """The TrainState an eval runs (the JAX package's
+    ``shard_train_state(tensor_parallel=True)``, for eval): ``ts`` itself
+    where nothing changes, else a copy of its model, in ``dtype`` (every
+    float weight and BN statistic cast, as the JAX package casts its
+    trees), whose decoder holds this rank's vocabulary shard under a mesh
+    with an mp axis (``parallel.mesh.decoder_vocab_shard`` without the pad:
+    the eval's loss cannot pad the vocabulary).  The caller's model is left
+    as it is; the copy has no optimizer (evaluation takes no step)."""
+    sharded = mesh is not None and mesh.mp > 1
+    if dtype is None and not sharded:
+        return ts
+    model = copy.deepcopy(ts.model)
+    if dtype is not None:
+        model = model.to(dtype)
+    if sharded:
+        decoder_vocab_shard(mesh, model.decoder, pad=False)
+    return TrainState(model, None, None)
 
 
 def create_train_state(
@@ -190,7 +212,7 @@ def make_train_step(
         if mesh is not None:
             batch_lengths = _on(ts.device, lengths)[0]  # the global batch's: the loss's denominators
             images_u8, captions, lengths = _local_rows(mesh, images_u8, captions, lengths)
-            shard = (mesh.rank, mesh.dp)
+            shard = (mesh.dp_rank, mesh.dp)
         images_u8, captions, lengths = _on(ts.device, images_u8, captions, lengths)
         with exact_f32_math(ts.device):
             images = preprocess_images(images_u8, ts.generator if augment else None, augment, shard=shard)
@@ -241,12 +263,15 @@ def make_eval_step(
     ``early_exit``: no device sync), so a caller may queue the next batch
     before it reads them.  The model's mode is restored.
 
-    ``mesh``: a data-parallel mesh (the sharded eval).  A batch whose rows
-    divide over its ranks is split: each rank runs its rows (the flips the
-    whole batch draws for them), the loss is the sum of the ranks' shares
-    and ``out`` the ranks' rows gathered in order, the same on every rank.
-    A batch that does not divide (the loader's last) runs whole on every
-    rank, as the JAX package runs it replicated."""
+    ``mesh``: the sharded eval's mesh.  A batch whose rows divide over its
+    dp axis is split: each dp rank runs its rows (the flips the whole batch
+    draws for them), the loss is the sum of the dp ranks' shares and
+    ``out`` their rows gathered in order, the same on every rank.  A batch
+    that does not divide (the loader's last) runs whole on every rank, as
+    the JAX package runs it replicated.  Under an mp axis ``ts.model``'s
+    decoder holds this rank's vocabulary shard (``shard_train_state``): the
+    loss and the decodes take their vocabulary-sized steps over the mp
+    group (``decoder_loss``, the decode routes)."""
     dtype = COMPUTE_DTYPES[compute_dtype] or torch.float32
     mesh = active(mesh)
 
@@ -260,7 +285,7 @@ def make_eval_step(
         if split is not None:
             batch_lengths = _on(ts.device, lengths)[0]  # the whole batch's: the loss's denominators
             images_u8, captions, lengths = shard_batch(split, images_u8, captions, lengths)
-            shard = (split.rank, split.dp)
+            shard = (split.dp_rank, split.dp)
         try:
             images_u8, captions, lengths = _on(ts.device, images_u8, captions, lengths)
             with torch.no_grad(), exact_f32_math(ts.device):

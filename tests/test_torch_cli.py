@@ -77,12 +77,13 @@ def test_each_main_runs_its_variant(monkeypatch, variant):
 @pytest.mark.parametrize("flag,error,item", [
     (["--multihost", "localhost:1234,2"], ValueError, "coordinator_host:port,num_processes,process_id"),
     (["--dp", "3"], ValueError, "batch_size 4 does not divide over 3 processes"),
-    (["--mp", "2"], NotImplementedError, "item 6"),
+    (["--mp", "3"], ValueError, "batch_size 4 does not divide over 3 processes"),  # every dp x mp rank trains
     (["--ckpt_format", "orbax"], NotImplementedError, "item 2"),
 ])
 def test_what_the_port_does_not_run_raises_first(tmp_path, flag, error, item):
-    """A malformed --multihost spec, a batch that does not divide over --dp,
-    --mp (not ported) and --ckpt_format orbax raise before anything runs."""
+    """A malformed --multihost spec, a batch that does not divide over the
+    --dp x --mp processes that train, and --ckpt_format orbax raise before
+    anything runs."""
     out = str(tmp_path / "out")
     with pytest.raises(error, match=item):
         cli.run("gru", cli_argv(str(tmp_path / "data"), out, ["--device", "cpu"] + flag))

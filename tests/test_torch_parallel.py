@@ -213,7 +213,7 @@ def test_mesh_errors_and_sigterm_agreement(runs):
         assert r["preempt_one"] is True and r["preempt_none"] is False
     with pytest.raises(ValueError, match="needs 2 devices but only 1 are visible"):
         make_mesh(2)  # one process here
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError, match="mesh dp=1 x mp=2 needs 2 devices but only 1 are visible"):
         make_mesh(1, mp=2)
 
 
