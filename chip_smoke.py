@@ -131,9 +131,10 @@ Phases, one line each (any failure exits non-zero with no ok line):
   7. training: train.loop.train, 2 epochs at B=32 (4 steps each) on 130
      generated JPEGs of COCO's sizes with one caption each from the
      synthetic vocabulary (saved as vocab.pkl and loaded by
-     get_vocabulary), for the four flagship families in f32 and the
-     pooled GRU and attention GRU in bf16 (TRAIN_RUNS); no kernel runs in
-     training.  Each step's loss (finite); the f32 first step on the card
+     get_vocabulary; the dataset tokenizes them with the port's
+     word_tokenize, which needs no nltk), for the four flagship families
+     in f32 and the pooled GRU and attention GRU in bf16 (TRAIN_RUNS); no
+     kernel runs in training.  Each step's loss (finite); the f32 first step on the card
      against the same step on the CPU (the loss; the frozen backbone's
      train-mode output, with a TF32 control; from one backbone output,
      every trainable gradient's norm); the bf16 first loss against the
@@ -163,7 +164,7 @@ Phases, one line each (any failure exits non-zero with no ok line):
      why), and native scores equal to Python's on the phase's captions;
      train.loop.train(eval_every_epochs=1) for one epoch of the pooled GRU,
      its printed scores equal to a direct test_model call on its
-     checkpoint; cli.run.run's test phase where nltk is installed; eval
+     checkpoint; cli.run.run's test phase, its scores equal; eval
      images/s of each family f32 and the GRU bf16, PIPELINE_SCORING on and
      off in turns; (d) test_model over the two gloo ranks of (c) from the
      GRU's f32 checkpoint: its scores equal the one-process run's (the
@@ -179,7 +180,25 @@ Phases, one line each (any failure exits non-zero with no ok line):
      route in one process (a one-rank vocabulary shard, or the served route
      on each rank's rows) on >= 0.95 of positions, f32 ids against the
      one-process Captioner's on every row whose top-2 gap exceeds 1e-4; the
-     host clock of a request.  Its launches join the kernels' counts.
+     host clock of a request.  Its launches join the kernels' counts;
+ 10. learn: the demonstration of tools/demo_synthetic_torch.py (400
+     generated images of coloured shapes, two captions each, 12 epochs,
+     ResNet-18, E=64, H=128, L=1, V=25, B=32, Adam 0.002), trained and
+     tested through cli.run.run on the card: (a) the pooled GRU in f32,
+     (b) the same in bf16, (c) the attention GRU (C=512, A=64) with
+     --next_token; each run's fused-step launches (25 a test batch: the
+     GRU CLI's two in-training evals and the test phase); each
+     checkpoint captions 64 unseen images (seed 999) in f32, held to
+     quality floors on the first 16, fixed from the JAX package's results
+     (LEARN_FLOORS), and its f32 ids to the plain-twin decode on every row
+     whose choices have top-2 gaps above 1e-4; on (a)'s checkpoint the
+     checks that random weights left blind: bf16 served ids against f32,
+     s2d bf16 against the stock route, the unfolded encoder against the
+     folded one in f32 and bf16 (shares of the caption positions: up to
+     each reference row's first <end>), bf16 test_model within 0.05 of
+     f32, and the card's f32 test_model against the CPU's (captions equal
+     on 0.99 of images, scores within 0.01); the routes, its launches
+     (which join the kernels' counts) and its seconds.
 The last lines are the card's name and power limit, a JSON line of the
 kernels, and {"ok": true, "device": {...}}.
 """
@@ -262,6 +281,18 @@ DP_TIMEOUT = 600  # seconds for each group of spawned ranks
 MESH_VARIANTS = (("gru", E), ("attn_lstm", AE))
 MESH_SHAPES = ((1, 2), (2, 1))
 MESH_F32_ROWS = 8
+# Phase 10, learn: the demonstration of tools/demo_synthetic_torch.py at its defaults (400 images, 12 epochs,
+# ResNet-18, E=64, H=128, L=1, Adam 0.002, B=32, no eval flips), trained and tested through cli.run.run on the card:
+# (run, variant, --next_token, --train_dtype).
+LEARN_RUNS = (("a", "gru", False, "float32"), ("b", "gru", False, "bfloat16"), ("c", "attn", True, "float32"))
+LEARN_IMAGES, LEARN_EPOCHS = 400, 12
+LEARN_PROBE = 64  # unseen images drawn at the demo's probe seed (999); the first 16 are the JAX tool's probe
+# Quality floors, fixed before any card run from the JAX package's results on this task less a margin (README.md,
+# BF16_CONV.json: the pooled GRU BLEU-4 0.316 and unseen colour 6/8; the attention GRU with --next_token 0.485,
+# 16/16 colour and 16/16 shape): (BLEU-4, colour hits, shape hits) on the first 16 unseen images.
+LEARN_FLOORS = {"a": (0.25, 10, 0), "b": (0.25, 0, 0), "c": (0.40, 14, 12)}
+LEARN_JAX = {"a": "BLEU-4 0.316, colour 6/8", "b": "BLEU-4 0.337 (f32 0.316)", "c": "BLEU-4 0.485, 16/16, 16/16"}
+GAP_TIE = 1e-4  # an f32 row must equal the plain decode where every choice's top-2 logit gap exceeds this
 
 
 def fail(msg):
@@ -598,6 +629,78 @@ def mesh_launches(variant, dp, mp, beam):
     return out
 
 
+def plain_features(cap, images_u8, stem=None):
+    """The encoder through the plain twins: the preprocess's, or under s2d
+    ``stem(images, operands)`` (NHWC; by default the fused stem's twin),
+    then the ResNet (and head) as served, its f32 convolutions without TF32
+    (scoped here: the global stays at its default)."""
+    import torch
+
+    from show_tell_tpu_torch.data.transforms import preprocess_images
+    from show_tell_tpu_torch.ops.stem import stem_fused_plain
+
+    x = torch.from_numpy(images_u8).to(cap.device)
+    enc = cap.model.encoder
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        if cap.s2d:
+            y = (stem or stem_fused_plain)(x, enc.stem_operands())
+            return enc.head(enc.resnet.forward_from_stem(y.permute(0, 3, 1, 2)))
+        return enc(preprocess_images(x, augment=False, dtype=cap.dtype))
+
+
+def plain_loop(step, embedding, x0, state0):
+    """greedy_loop over a plain step; returns ids and each row's smallest top-2 logit gap."""
+    import torch
+
+    from show_tell_tpu_torch.models.decoder import greedy_loop
+
+    gaps = []
+
+    def run(x, state):
+        tok, state2, logits = step(x, state)
+        gaps.append(top2_gap(logits))
+        return tok, state2
+
+    ids = greedy_loop(run, embedding, x0, state0, T)
+    return ids.cpu().numpy(), torch.stack(gaps, 1).min(1).values.cpu().numpy()
+
+
+def plain_decode(cap, images_u8, stem=None):
+    """The same features as ``cap`` serves (under s2d from ``stem``), decoded
+    greedily on the card with the plain twin of its fused step: (ids, each
+    row's smallest top-2 logit gap along that decode)."""
+    import torch
+
+    from show_tell_tpu_torch.models.attention import init_hidden, last_h, start_embeddings
+    from show_tell_tpu_torch.models.rnn_cells import init_state
+    from show_tell_tpu_torch.ops.fused_attn import fused_attn_decode_step_plain, prepare_attn_decode
+    from show_tell_tpu_torch.ops.fused_step import fused_gru_decode_step_plain, fused_lstm_decode_step_plain
+    from show_tell_tpu_torch.ops.vocab import project_logits
+
+    cfg, B = cap.cfg, len(images_u8)
+    with torch.inference_mode():
+        feats = plain_features(cap, images_u8, stem)
+        if cfg.is_attention:
+            dec = cap.model.decoder
+            prep = prepare_attn_decode(cap.prepared, dec, feats.transpose(1, 2))
+
+            def step(w_emb, state):
+                tok, state2 = fused_attn_decode_step_plain(prep, w_emb, state)
+                return tok, state2, project_logits(prep["vocab"], last_h(state2))
+
+            w0 = start_embeddings(dec, B, cfg.start_token, cap.device)
+            return plain_loop(step, dec.embeddings.weight, w0, init_hidden(dec, cfg.decoder_config(), feats))
+        prep = cap.prepared
+        plain_step = fused_lstm_decode_step_plain if cfg.cell_type == "lstm" else fused_gru_decode_step_plain
+
+        def step(xx, state):
+            tok, state2 = plain_step(prep["stacked"], prep["vocab"], xx, state)
+            return tok, state2, project_logits(prep["vocab"], last_h(state2))
+
+        state0 = init_state(cfg.cell_type, cfg.num_layers, B, cfg.hidden_dim, cap.dtype, cap.device)
+        return plain_loop(step, prep["embedding"], feats.to(cap.dtype), state0)
+
+
 def path_gaps(cap, images_u8, ids):
     """Each row's smallest top-2 logit gap along the decode of ``ids``:
     the plain stack (after the context's twin in the attention family) and
@@ -747,6 +850,227 @@ def mesh_phase(card):
                       MESH_F32_ROWS, runs[0]["greedy"]["seconds"], runs[0]["beam"]["seconds"]))
     phase("mesh", "the two ranks took %.1f s (spawn, weights, build, requests)" % seconds)
     return totals
+
+
+def caption_mask(ref, end):
+    """Each row's caption positions: up to and including its first ``end`` (all T where it has none)."""
+    import numpy as np
+
+    mask = np.zeros(ref.shape, bool)
+    for r, row in enumerate(ref):
+        hits = np.flatnonzero(row == end)
+        mask[r, : hits[0] + 1 if len(hits) else T] = True
+    return mask
+
+
+def id_shares(got, ref, end):
+    """(share of ``ref``'s caption positions where ``got`` equals it, share of all [B, T] positions)."""
+    mask = caption_mask(ref, end)
+    return float((got == ref)[mask].mean()), float((got == ref).mean())
+
+
+def learn_phase(card, counters):
+    """Phase 10: the port learns the repo's demonstration task on the card.
+    LEARN_RUNS train and test through cli.run.run, each run's launches read
+    around it; each checkpoint captions LEARN_PROBE unseen images in f32
+    (the quality floors on the first 16), its ids held to the plain-twin
+    decode; then the checks that random weights left blind, on (a)'s
+    checkpoint.  Returns the launch counts of its main-path runs."""
+    import contextlib
+    import io
+    import pickle
+    import re
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
+    import demo_synthetic_torch as demo
+    from show_tell_tpu_torch.cli.run import run
+    from show_tell_tpu_torch.ops import fold_bn_default, whole_decode_default
+    from show_tell_tpu_torch.ops.fused_attn import fused_attn_decode_step, fused_attn_fits
+    from show_tell_tpu_torch.ops.fused_step import fused_gru_decode_step
+    from show_tell_tpu_torch.ops.preprocess import preprocess_u8
+    from show_tell_tpu_torch.ops.stem import stem_fused
+    from show_tell_tpu_torch.serve import Captioner, create_caption_word_format
+    from show_tell_tpu_torch.vocab import tokenizer_name
+
+    t_phase = time.perf_counter()
+    step_of = {"gru": fused_gru_decode_step, "attn": fused_attn_decode_step}
+    main_counts = []
+
+    def counted(call, expected):
+        """``call()`` with every count set to 0 just before and read just after (fails unless as ``expected``)."""
+        for fn in counters:
+            fn.launches = 0
+        out = call()
+        main_counts.append(read_counts(counters, {fn.__name__: n for fn, n in expected.items()}))
+        return out
+
+    def cli(variant, argv, dev, expected_steps):
+        """cli.run.run on ``dev`` with its output kept; its decode kernel's launches counted (T a test batch)."""
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(log):
+                res = counted(lambda: run(variant, argv, device=dev),
+                              {step_of[variant]: T * expected_steps} if dev == "gpu" else {})
+        except BaseException:
+            print(log.getvalue()[-4000:], flush=True)
+            raise
+        return res, log.getvalue(), time.perf_counter() - t0
+
+    def served(cap, imgs):
+        expected = {step_of[cap.cfg.variant]: T, (stem_fused if cap.s2d else preprocess_u8): 1}
+        return counted(lambda: cap.caption_ids(imgs), expected)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_learn_")
+    try:
+        data = os.path.join(tmp, "data")
+        t0 = time.perf_counter()
+        demo.build_dataset(data, LEARN_IMAGES)
+        with open(os.path.join(data, demo.ANN_PATH)) as f:
+            n_captions = len(json.load(f)["annotations"])
+        batches = -(-n_captions // TRAIN_B)  # the test loader's batches (the last one short)
+        probe_imgs, truths = demo.probe_images(LEARN_PROBE)
+        phase("learn", "tokenizer: %s; the demo set: %d images, %d captions (%.1f s to draw and write); %d unseen "
+              "images at seed %d" % (tokenizer_name(), LEARN_IMAGES, n_captions, time.perf_counter() - t0,
+                                      LEARN_PROBE, demo.PROBE_SEED))
+        Ed, Hd = demo.WIDTHS["embed_dim"], demo.WIDTHS["hidden_dim"]
+        if not fused_attn_fits(Hd, Ed) or fused_attn_fits(Hd + 8, Ed):
+            fail("fused_attn_fits(H=%d, E=%d) = %s and at H=%d %s: the rule is H <= 2E"
+                 % (Hd, Ed, fused_attn_fits(Hd, Ed), Hd + 8, fused_attn_fits(Hd + 8, Ed)))
+        phase("learn", "routes at E=%d, H=%d, L=1: the pooled GRU's greedy decode by the fused step a step "
+              "(whole_decode_default() = %s); the attention GRU's by the fused attention step: fused_attn_fits(H=%d, "
+              "E=%d) = True (H = 2E), and at H=%d > 2E False (the composite: the context and project_argmax kernels)"
+              % (Ed, Hd, whole_decode_default(), Hd, Ed, Hd + 8))
+
+        results = {}
+        for label, variant, next_token, dtype in LEARN_RUNS:
+            out = os.path.join(tmp, label)
+            os.makedirs(out)
+            argv = demo.cli_argv(variant, data, out, LEARN_EPOCHS, next_token, ["--train_dtype", dtype])
+            # the GRU CLI's in-training eval: sub_batch_test (10) batches every 5 epochs, then the test phase
+            steps = batches + (LEARN_EPOCHS // 5 * 10 if variant == "gru" else 0)
+            res, log, seconds = cli(variant, argv, "gpu", steps)
+            scores = res["scores"]
+            losses = [float(x) for x in re.findall(r"^Epoch \d+ - ([0-9.]+) loss", log, re.M)]
+            if len(losses) != LEARN_EPOCHS or not all(np.isfinite(v) for v in scores.values()):
+                fail("learn (%s): epoch losses %s, scores %s; the log ends %r" % (label, losses, scores, log[-2000:]))
+            cap32 = Captioner.from_checkpoint(os.path.join(out, "model_%d.ckpt" % LEARN_EPOCHS),
+                                              os.path.join(out, "vocab.pkl"), variant=variant,
+                                              compute_dtype="float32", device="gpu", **demo.WIDTHS)
+            ids32 = served(cap32, probe_imgs)
+            words = [" ".join(w) for w in create_caption_word_format(ids32, cap32.vocab)]
+            color16, shape16 = demo.attribute_hits(truths[:16], words[:16])
+            color, shape = demo.attribute_hits(truths, words)
+            results[label] = scores
+            phase("learn", "(%s) %s %s%s: cli.run.run trained %d epochs (loss %.4f -> %.4f) and tested in %.1f s "
+                  "(host clock); %s launches %d; test phase BLEU-1 %.4f BLEU-4 %.4f ROUGE-L %.4f CIDEr %.4f "
+                  "test_loss %.4f; unseen images, f32: colour %d/16, shape %d/16 (of %d: %d, %d); first caption: %s"
+                  % (label, variant, dtype, " --next_token" if next_token else "", LEARN_EPOCHS, losses[0], losses[-1],
+                     seconds, step_of[variant].__name__, T * steps, scores["Bleu_1"], scores["Bleu_4"],
+                     scores["ROUGE_L"], scores["CIDEr"], scores["test_loss"], color16, shape16, LEARN_PROBE, color,
+                     shape, words[0]))
+            bleu, want_color, want_shape = LEARN_FLOORS[label]
+            if scores["Bleu_4"] < bleu or color16 < want_color or shape16 < want_shape:
+                fail("learn (%s): BLEU-4 %.4f, colour %d/16, shape %d/16 below the floors %.2f, %d, %d (JAX: %s)"
+                     % (label, scores["Bleu_4"], color16, shape16, bleu, want_color, want_shape, LEARN_JAX[label]))
+            phase("learn", "(%s) floors met: BLEU-4 >= %.2f, colour >= %d/16, shape >= %d/16 (the JAX package: %s)"
+                  % (label, bleu, want_color, want_shape, LEARN_JAX[label]))
+            # f32 served ids against the plain twin's decode of the same features
+            ref, gaps = plain_decode(cap32, probe_imgs)
+            same, sure = (ids32 == ref).all(axis=1), gaps > GAP_TIE
+            if not same[sure].all():
+                fail("learn (%s): f32 served ids differ from the plain decode on %d rows whose every choice has a "
+                     "top-2 gap > %g" % (label, int((~same & sure).sum()), GAP_TIE))
+            phase("learn", "(%s) f32 B=%d: served ids equal the plain-twin decode on %d of %d rows (every row whose "
+                  "choices all have a top-2 gap > %g: %d; the smallest gap %.3g)"
+                  % (label, LEARN_PROBE, int(same.sum()), LEARN_PROBE, GAP_TIE, int(sure.sum()), float(gaps.min())))
+            if label == "a":
+                trained = (cap32, ids32, out)
+            del cap32
+            torch.cuda.empty_cache()
+        a, b = results["a"], results["b"]
+        phase("learn", "(b) - (a), bf16 training against f32: %s" % ", ".join(
+            "%s %+.4f" % (k, b[k] - a[k]) for k in ("Bleu_1", "Bleu_2", "Bleu_3", "Bleu_4", "ROUGE_L", "CIDEr",
+                                                    "test_loss")))
+
+        # the checks that random weights left blind, on (a)'s checkpoint
+        cap32, ids32, out = trained
+        end = cap32.end_idx
+        ckpt, vocab_pkl = os.path.join(out, "model_%d.ckpt" % LEARN_EPOCHS), os.path.join(out, "vocab.pkl")
+
+        def load(dtype, **kw):
+            return Captioner.from_checkpoint(ckpt, vocab_pkl, variant="gru", compute_dtype=dtype, device="gpu",
+                                             **demo.WIDTHS, **kw)
+
+        def hold(what, got, ref, bar):
+            caption, whole = id_shares(got, ref, end)
+            if caption < bar:
+                fail("learn: %s equal on %.4f of the caption positions (< %.2f; %.4f of all [%d, %d])"
+                     % (what, caption, bar, whole, LEARN_PROBE, T))
+            phase("learn", "%s: equal on %.4f of the caption positions (bar %.2f; on %.4f of all [%d, %d] positions)"
+                  % (what, caption, bar, whole, LEARN_PROBE, T))
+
+        cap16 = load("bfloat16")
+        ids16 = served(cap16, probe_imgs)
+        hold("(a) bf16 served ids against f32 served ids", ids16, ids32, 0.95)
+        s2d16 = served(load("bfloat16", s2d=True), probe_imgs)
+        hold("(a) s2d bf16 ids (the stem kernel) against the stock route's bf16 ids", s2d16, ids16, 0.95)
+        other = not fold_bn_default()
+        for dtype, ref, bar in (("float32", ids32, 0.99), ("bfloat16", ids16, 0.95)):
+            got = served(load(dtype, fold_bn=other), probe_imgs)
+            hold("(a) %s ids of the %s encoder against the %s one (the default)"
+                 % (dtype, "folded" if other else "unfolded", "unfolded" if other else "folded"), got, ref, bar)
+        del cap16, cap32, trained
+        torch.cuda.empty_cache()
+
+        # test_model: bf16 against f32 on the card, and the card's f32 against the CPU's, through the CLI's test phase
+        def test_phase(name, extra, dev):
+            d = os.path.join(tmp, name)
+            os.makedirs(d)
+            for f in ("model_%d.ckpt" % LEARN_EPOCHS, "vocab.pkl"):
+                shutil.copy(os.path.join(out, f), os.path.join(d, f))
+            argv = demo.cli_argv("gru", data, d, LEARN_EPOCHS, extra=["--is_training", "0"] + extra)
+            res, _, seconds = cli("gru", argv, dev, batches)
+            with open(os.path.join(d, "Candidate_Words_Dict.pickle"), "rb") as f:
+                return res["scores"], pickle.load(f), seconds
+
+        s16, _, sec16 = test_phase("a_bf16", ["--compute_dtype", "bfloat16"], "gpu")
+        gap = {k: abs(s16[k] - a[k]) for k in a}
+        worst = max(gap, key=gap.get)
+        if gap[worst] > 0.05:
+            fail("learn: bf16 test_model on (a)'s checkpoint: %s %.4f against f32 %.4f (bar 0.05)"
+                 % (worst, s16[worst], a[worst]))
+        phase("learn", "(a) bf16 test_model (cli.run.run --compute_dtype bfloat16, %.1f s): every score within %.4f "
+              "of f32 (bar 0.05, the JAX package's; the farthest %s: %.4f against %.4f)"
+              % (sec16, gap[worst], worst, s16[worst], a[worst]))
+        scpu, cand_cpu, sec_cpu = test_phase("a_cpu", [], "cpu")
+        with open(os.path.join(out, "Candidate_Words_Dict.pickle"), "rb") as f:
+            cand_card = pickle.load(f)
+        if sorted(cand_cpu) != sorted(cand_card):
+            fail("learn: the CPU's test_model captioned other images than the card's")
+        equal = sum(cand_cpu[k] == cand_card[k] for k in cand_card) / len(cand_card)
+        gap = {k: abs(scpu[k] - a[k]) for k in a}
+        worst = max(gap, key=gap.get)
+        if equal < 0.99 or gap[worst] > 0.01:
+            fail("learn: the card's f32 test_model against the CPU's: candidates equal on %.4f of images (bar 0.99); "
+                 "%s %.4f against %.4f (bar 0.01)" % (equal, worst, a[worst], scpu[worst]))
+        phase("learn", "(a) f32 test_model, card against CPU (cli.run.run --device cpu, %.1f s): candidate captions "
+              "equal on %.4f of %d images (bar 0.99); every score within %.2g (bar 0.01; the farthest %s)"
+              % (sec_cpu, equal, len(cand_card), gap[worst], worst))
+        totals = {}
+        for counts in main_counts:
+            for name, n in counts.items():
+                totals[name] = totals.get(name, 0) + n
+        phase("learn", "%s launches in the phase's main-path runs %s; the phase took %.1f s"
+              % (card, {k: v for k, v in totals.items() if v}, time.perf_counter() - t_phase))
+        return totals
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def dname(dtype):
@@ -1161,10 +1485,15 @@ def tensor_core_kernel(name):
     return None
 
 
-def tile_kernel_report(build):
+PTXAS_SOURCES = ["project_argmax.cu", "project_topk.cu", "fused_step.cu", "fused_attn_step.cu", "whole_decode.cu",
+                 "stem.cu", "attention_context.cu"]  # the sources of the tensor-core instances
+
+
+def tile_kernel_report(build, ptxas_lines):
     """ptxas's registers, stack frame and spills of the tensor-core kernel
     instances (the two bf16 projection kernels, the bf16 stem and the
-    fourteen bf16 instances of MMA_STEPS), and, where the toolkit has
+    fourteen bf16 instances of MMA_STEPS), from ``ptxas_lines``
+    (build.ptxas_report of PTXAS_SOURCES), and, where the toolkit has
     cuobjdump, the tensor-core (HMMA) instructions in their SASS in the
     library; fails if one has none, if ptxas names none of them, or if one
     of NO_SPILL has a stack frame or spills."""
@@ -1172,8 +1501,7 @@ def tile_kernel_report(build):
 
     labels = TILE_KERNELS + tuple(MMA_STEPS)
     reported = set()
-    for line in build.ptxas_report(["project_argmax.cu", "project_topk.cu", "fused_step.cu", "fused_attn_step.cu",
-                                    "whole_decode.cu", "stem.cu", "attention_context.cu"]):
+    for line in ptxas_lines:
         label = tensor_core_kernel(line.rsplit(": ", 1)[0])
         if label:
             phase("build", "ptxas -v " + line)
@@ -1690,19 +2018,19 @@ def request_share(label, i, ids, rows, ref_ids):
     return share
 
 
-def check_served(label, served, requests, plain_decode, cap):
-    """Returns the smallest share of positions equal to the plain decode."""
+def check_served(label, served, requests, cap, reference=plain_decode):
+    """Returns the smallest share of positions equal to ``reference``'s decode (by default the plain twin's)."""
     shares = []
     for i, (ids, imgs) in enumerate(zip(served, requests)):
-        share = request_share(label, i, ids, len(imgs), plain_decode(cap, imgs)[0])
+        share = request_share(label, i, ids, len(imgs), reference(cap, imgs)[0])
         phase("main", "%s bf16 request %d: [64,25] ids, equal to the plain step's decode on %.4f of positions"
               % (label, i, share))
         shares.append(share)
     return min(shares)
 
 
-def check_f32(label, cap32, imgs, counter, plain_decode, beam_size=0, expected=None):
-    """One f32 request against the plain decode of its features.  Greedy:
+def check_f32(label, cap32, imgs, counter, reference=plain_decode, beam_size=0, expected=None):
+    """One f32 request against ``reference``'s decode of its features (by default the plain twin's).  Greedy:
     ``counter`` launched T times and every row equal; beam: the counts in
     ``expected`` and at least 7 of 8 rows equal."""
     counters = list(expected) if expected else [counter]
@@ -1713,7 +2041,7 @@ def check_f32(label, cap32, imgs, counter, plain_decode, beam_size=0, expected=N
         want = expected[fn] if expected else T
         if fn.launches != want:
             fail("%s f32 request launched %s %d times, expected %d" % (label, fn.__name__, fn.launches, want))
-    ref32, gaps32 = plain_decode(cap32, imgs)
+    ref32, gaps32 = reference(cap32, imgs)
     same = (ids32 == ref32).all(axis=1)
     gap = "score gap (K-th to (K+1)-th candidate, best to second final beam)" if beam_size else "top-2 gap"
     for r in [int(i) for i in range(len(same)) if not same[i]]:
@@ -1735,6 +2063,7 @@ def main():
     import numpy as np
     import torch
 
+    marks = [("1-2 device, build", time.perf_counter())]
     # 1. device
     if not torch.cuda.is_available():
         fail("torch finds no CUDA device")
@@ -1758,7 +2087,13 @@ def main():
     probe_cmd = [build.find_nvcc(), *build.NVCC_FLAGS, "-shared", "-I", here,
                  os.path.join(here, "grid_barrier_probe.cu"), "-o", probe_so]
     probe_proc = subprocess.Popen(probe_cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-    build.load_library()
+    # ptxas's report compiles the tensor-core sources once more with -v, alongside the library's own nvcc processes
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(1) as pool:
+        ptxas = pool.submit(build.ptxas_report, PTXAS_SOURCES)
+        build.load_library()
+        ptxas_lines = ptxas.result()
     probe_err = probe_proc.communicate()[1]
     if probe_proc.returncode != 0:
         fail("nvcc failed on grid_barrier_probe.cu (exit %d): %s" % (probe_proc.returncode, probe_err))
@@ -1766,13 +2101,14 @@ def main():
     os.remove(probe_so)  # loaded; nothing else reads it
     probe.st_grid_barriers.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
     probe.st_grid_barriers.restype = ctypes.c_int
-    phase("build", "%s and the grid-barrier probe in %.2f s (%s)"
+    phase("build", "%s, the grid-barrier probe and ptxas's report in %.2f s (%s)"
           % (os.path.basename(build.library_path()), time.perf_counter() - t0,
              "library already built" if cached else "nvcc ran, one process per source"))
-    tile_kernel_report(build)
+    tile_kernel_report(build, ptxas_lines)
 
+    marks.append(("3 kernels", time.perf_counter()))
     # 3. kernel against plain.  cuDNN's TF32 flag stays at its default: the
-    # port scopes it off for f32 encodes, and features() below for its own.
+    # port scopes it off for f32 encodes, and plain_features() for its own.
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.RandomState(SEED)
     errs = kernels_against_plain(rng, device)
@@ -1796,7 +2132,6 @@ def main():
         init_captioner,
         prepare_decode,
     )
-    from show_tell_tpu_torch.models.decoder import greedy_loop
     from show_tell_tpu_torch.models.rnn_cells import init_state
     from show_tell_tpu_torch.ops.attention import (
         attention_context,
@@ -1893,19 +2228,6 @@ def main():
     def by_name(expected):
         return {fn.__name__: n for fn, n in expected.items()}
 
-    def features(cap, images_u8, stem=stem_fused_plain):
-        """The encoder through the plain twins: the preprocess's, or under
-        s2d ``stem(images, operands)`` (NHWC; by default the fused stem's
-        twin), then the ResNet (and head) as served, its f32 convolutions
-        without TF32 (scoped here: the global stays at its default)."""
-        x = torch.from_numpy(images_u8).to(device)
-        enc = cap.model.encoder
-        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-            if cap.s2d:
-                y = stem(x, enc.stem_operands())
-                return enc.head(enc.resnet.forward_from_stem(y.permute(0, 3, 1, 2)))
-            return enc(preprocess_images(x, augment=False, dtype=cap.dtype))
-
     def tf32_check(label, cap32, imgs):
         """An f32 Captioner's encode, with cuDNN's TF32 flag at its default,
         against encodes with TF32 scoped off and on: equal to the first
@@ -1945,7 +2267,7 @@ def main():
         phase("main", "%s %s B=%d: served ids equal the plain-preprocess decode on all %d rows"
               % (label, dname(cap.dtype), len(ids), len(ids)))
 
-    def s2d_against_twin(label, scap, served, requests, plain_decode):
+    def s2d_against_twin(label, scap, served, requests):
         """The bf16 s2d requests against the stem's twin.  For each request:
         the stem as served (Encoder.stem_u8) within one bf16 ulp of its twin
         at every value; the plain decode (ResNet, head and step) of the
@@ -1992,7 +2314,7 @@ def main():
               "well as the weakest one-ulp control (%.4f)" % (label, bar))
         return min(r[2] for r in rows)
 
-    def s2d_path(label, params, bn_state, cfg, requests, counter, plain_decode, f32_request=False):
+    def s2d_path(label, params, bn_state, cfg, requests, counter, f32_request=False):
         """The s2d Captioner of the same weights serves the same pixels:
         three bf16 requests with the counts read around them (the stem
         once a request, the decode as on the stock path), held to the
@@ -2001,28 +2323,16 @@ def main():
         scap = Captioner(params, bn_state, cfg, vocab, "bfloat16", device="gpu", s2d=True)
         served, seconds, counts = serve(scap, requests, counters, dict(by_name(greedy_launches(counter, 3)),
                                                                         stem_fused=3))
-        share = s2d_against_twin(label, scap, served, requests, plain_decode)
+        share = s2d_against_twin(label, scap, served, requests)
         phase("main", "%s s2d: launches in the three requests %s (stem = 3 x 1)"
               % (label, {k: v for k, v in counts.items() if v}))
         show_captions(label + " s2d", served)
         if f32_request:
             scap32 = Captioner(params, bn_state, cfg, vocab, "float32", device="gpu", s2d=True)
             imgs32 = img_rng.randint(0, 256, (8, IMG, IMG, 3), dtype=np.uint8)
-            check_f32(label + " s2d", scap32, imgs32, None, plain_decode,
+            check_f32(label + " s2d", scap32, imgs32, None,
                       expected={**greedy_launches(counter, 1), stem_fused: 1})
         return {"seconds": seconds, "counts": counts, "share": share, "cap": scap}
-
-    def plain_loop(step, embedding, x0, state0):
-        """greedy_loop over a plain step; returns ids and each row's smallest top-2 logit gap."""
-        gaps = []
-
-        def run(x, state):
-            tok, state2, logits = step(x, state)
-            gaps.append(top2_gap(logits))
-            return tok, state2
-
-        ids = greedy_loop(run, embedding, x0, state0, T)
-        return ids.cpu().numpy(), torch.stack(gaps, 1).min(1).values.cpu().numpy()
 
     def plain_beam(logp0, state1, step, Bq):
         """beam_engine over plain steps; returns ids and each image's
@@ -2142,27 +2452,12 @@ def main():
         """Phase 4 for one pooled family; returns (launches, seconds of the three requests)."""
         cfg = CaptionerConfig(variant, 101, Ed, H, V, L)
         params, bn_state = init_captioner(cfg, torch.Generator().manual_seed(SEED))
-        plain_step = fused_lstm_decode_step_plain if cfg.cell_type == "lstm" else fused_gru_decode_step_plain
-
-        def pooled_plain(cap, images_u8, stem=stem_fused_plain):
-            """The same features (under s2d from ``stem``), decoded with the plain step on the card."""
-            with torch.inference_mode():
-                feats = features(cap, images_u8, stem)
-                prep = cap.prepared
-
-                def step(xx, state):
-                    tok, state2 = plain_step(prep["stacked"], prep["vocab"], xx, state)
-                    return tok, state2, project_logits(prep["vocab"], last_h(state2))
-
-                state0 = init_state(cfg.cell_type, L, len(images_u8), H, cap.dtype, device)
-                return plain_loop(step, prep["embedding"], feats.to(cap.dtype), state0)
-
         cap = Captioner(params, bn_state, cfg, vocab, "bfloat16", device="gpu")
         encoder_route(variant, cap)
         requests = [img_rng.randint(0, 256, (64, 224, 224, 3), dtype=np.uint8) for _ in range(3)]
         served, seconds, counts = serve(cap, requests, counters,
                                         dict(by_name(greedy_launches(counter, 3)), preprocess_u8=3))
-        check_served(variant, served, requests, pooled_plain, cap)
+        check_served(variant, served, requests, cap)
         phase("main", "%s: launches in the three requests %s (greedy decode %s, preprocess = 3 x 1)"
               % (variant, {k: v for k, v in counts.items() if v}, by_name(greedy_launches(counter, 3))))
         show_captions(variant, served)
@@ -2170,7 +2465,7 @@ def main():
         other = {}  # the greedy routes that serving does not take, on the same weights
         if cfg.cell_type == "gru":  # the three requests' features by the other of the whole decode and the loop
             with torch.inference_mode():
-                feats3 = [features(cap, imgs) for imgs in requests]
+                feats3 = [plain_features(cap, imgs) for imgs in requests]
                 for fn in counters:
                     fn.launches = 0
                 ids3 = [greedy_decode_kernel(cap.prepared, f, T, whole_decode=not whole_default).cpu().numpy()
@@ -2191,7 +2486,7 @@ def main():
             sharded = captioner_greedy_decode(cap.model, cfg, torch.from_numpy(requests[0]).to(device), cap.prepared,
                                               vocab_sharded=True).cpu().numpy()
         other["sharded"] = read_counts(counters, {stack_step.__name__: T, "preprocess_u8": 1})
-        ref_ids, _ = pooled_plain(cap, requests[0])
+        ref_ids, _ = plain_decode(cap, requests[0])
         share, share_served = float((sharded == ref_ids).mean()), float((sharded == served[0]).mean())
         if share < 0.95:
             fail("%s sharded-projection request: ids equal the plain decode on %.4f of positions (< 0.95)"
@@ -2203,7 +2498,7 @@ def main():
         imgs32 = img_rng.randint(0, 256, (8, 224, 224, 3), dtype=np.uint8)
         if cfg.cell_type == "gru":
             tf32_check(variant, cap32, imgs32)
-        check_plain_preprocess(variant, cap32, imgs32, check_f32(variant, cap32, imgs32, None, pooled_plain,
+        check_plain_preprocess(variant, cap32, imgs32, check_f32(variant, cap32, imgs32, None,
                                                                  expected=greedy_launches(counter, 1)))
 
         # beam, width 3: the step route beam_step_default() names, this cell's instance, 24 launches a request
@@ -2214,7 +2509,7 @@ def main():
         def pooled_beam_plain(cap, images_u8):
             """The same features, beam-decoded with the plain twins as steps on the card."""
             with torch.inference_mode():
-                feats = features(cap, images_u8)
+                feats = plain_features(cap, images_u8)
                 prep = cap.prepared
                 state0 = init_state(cfg.cell_type, L, len(images_u8), H, cap.dtype, device)
                 top, state1 = stack_plain(cfg.cell_type)(prep["stacked"], feats.to(cap.dtype), state0)
@@ -2229,14 +2524,14 @@ def main():
 
         beam_served, beam_s, beam_counts = serve(cap, requests, counters,
                                                  {served_step.__name__: 3 * (T - 1), "preprocess_u8": 3}, K_BEAM)
-        beam_share = check_served(variant + " beam", beam_served, requests, pooled_beam_plain, cap)
+        beam_share = check_served(variant + " beam", beam_served, requests, cap, pooled_beam_plain)
         phase("main", "%s beam (the %s route, beam_step_default()): launches in the three requests %s (beam step = "
               "3 x 24)" % (variant, beam_default, {k: v for k, v in beam_counts.items() if v}))
         show_captions(variant + " beam", beam_served)
         check_f32(variant + " beam", cap32, img_rng.randint(0, 256, (8, 224, 224, 3), dtype=np.uint8), served_step,
                   pooled_beam_plain, K_BEAM, {served_step: T - 1})
         with torch.inference_mode():
-            feats = features(cap, requests[0])
+            feats = plain_features(cap, requests[0])
         dcfg = cfg.decoder_config()
         other_route = "dense" if beam_default == "topk" else "topk"
         routes = route_decodes(variant, beam_served[0], [
@@ -2246,10 +2541,10 @@ def main():
              lambda: beam_search_decode(cap.prepared, dcfg, feats, K_BEAM, END, PAD, fused_step=None, sparse=True),
              None),
         ])
-        s2d = s2d_path(variant, params, bn_state, cfg, requests, counter, pooled_plain, f32_request=variant == "gru")
+        s2d = s2d_path(variant, params, bn_state, cfg, requests, counter, f32_request=variant == "gru")
         return {"seconds": seconds, "beam_seconds": beam_s, "counts": counts, "other": other,
                 "beam_counts": beam_counts, "routes": routes, "beam_share": beam_share, "cap": cap, "feats": feats,
-                "requests": requests, "s2d": s2d, "params": (params, bn_state), "plain": pooled_plain}
+                "requests": requests, "s2d": s2d, "params": (params, bn_state)}
 
     def attention_slice(variant, counter):
         """Phase 5 for one attention family; returns (launches, seconds of the
@@ -2258,25 +2553,11 @@ def main():
         dcfg = acfg.decoder_config()
         params, bn_state = init_captioner(acfg, torch.Generator().manual_seed(SEED))
 
-        def attn_plain(cap, images_u8, stem=stem_fused_plain):
-            """The same features (under s2d from ``stem``), decoded with the fused step's plain twin on the card."""
-            with torch.inference_mode():
-                feats = features(cap, images_u8, stem)
-                dec = cap.model.decoder
-                prep = prepare_attn_decode(cap.prepared, dec, feats.transpose(1, 2))
-
-                def step(w_emb, state):
-                    tok, state2 = fused_attn_decode_step_plain(prep, w_emb, state)
-                    return tok, state2, project_logits(prep["vocab"], last_h(state2))
-
-                w0 = start_embeddings(dec, len(images_u8), acfg.start_token, device)
-                return plain_loop(step, dec.embeddings.weight, w0, init_hidden(dec, dcfg, feats))
-
         acap = Captioner(params, bn_state, acfg, vocab, "bfloat16", device="gpu")
         encoder_route(variant, acap)
         requests = [img_rng.randint(0, 256, (64, 224, 224, 3), dtype=np.uint8) for _ in range(3)]
         served, seconds, counts = serve(acap, requests, counters, {counter.__name__: 3 * T, "preprocess_u8": 3})
-        check_served(variant, served, requests, attn_plain, acap)
+        check_served(variant, served, requests, acap)
         phase("main", "%s: launches in the three requests %s (fused attention step = 3 x 25, preprocess = 3 x 1)"
               % (variant, {k: v for k, v in counts.items() if v}))
         show_captions(variant, served)
@@ -2284,7 +2565,7 @@ def main():
 
         # the composite path, called directly: the flagship (H <= 2E) takes the fused step
         with torch.inference_mode():
-            feats = features(acap, requests[0])
+            feats = plain_features(acap, requests[0])
             for fn in counters:
                 fn.launches = 0
             comp_ids = attn_greedy_decode_composite(acap.prepared, acap.model.decoder, dcfg, feats,
@@ -2315,7 +2596,7 @@ def main():
               "positions" % (variant, comp_counts, share))
         acap32 = Captioner(params, bn_state, acfg, vocab, "float32", device="gpu")
         imgs32 = img_rng.randint(0, 256, (8, 224, 224, 3), dtype=np.uint8)
-        check_plain_preprocess(variant, acap32, imgs32, check_f32(variant, acap32, imgs32, counter, attn_plain))
+        check_plain_preprocess(variant, acap32, imgs32, check_f32(variant, acap32, imgs32, counter))
 
         # beam, width 3: the dense attention step's instance, 24 launches and one context launch a request
         dense = fused_attn_lstm_dense_step if dcfg.cell_type == "lstm" else fused_attn_dense_step
@@ -2323,7 +2604,7 @@ def main():
         def attn_beam_plain(cap, images_u8):
             """The same features, beam-decoded with the plain twins (the context's at step 0) on the card."""
             with torch.inference_mode():
-                feats = features(cap, images_u8)
+                feats = plain_features(cap, images_u8)
                 dec, weights = cap.model.decoder, cap.prepared
                 prep = prepare_attn_decode(weights, dec, feats.transpose(1, 2).contiguous())
                 state0 = init_hidden(dec, dcfg, feats)
@@ -2345,14 +2626,14 @@ def main():
 
         beam_served, beam_s, beam_counts = serve(
             acap, requests, counters, {dense.__name__: 3 * (T - 1), "attention_context": 3, "preprocess_u8": 3}, K_BEAM)
-        beam_share = check_served(variant + " beam", beam_served, requests, attn_beam_plain, acap)
+        beam_share = check_served(variant + " beam", beam_served, requests, acap, attn_beam_plain)
         phase("main", "%s beam: launches in the three requests %s (dense beam step = 3 x 24, context = 3 x 1)"
               % (variant, {k: v for k, v in beam_counts.items() if v}))
         show_captions(variant + " beam", beam_served)
         imgs32 = img_rng.randint(0, 256, (8, 224, 224, 3), dtype=np.uint8)
         check_f32(variant + " beam", acap32, imgs32, dense, attn_beam_plain, K_BEAM, {dense: T - 1, attention_context: 1})
         with torch.inference_mode():  # the scale at which f32 summation orders part
-            h0 = last_h(init_hidden(acap32.model.decoder, dcfg, features(acap32, imgs32)))
+            h0 = last_h(init_hidden(acap32.model.decoder, dcfg, plain_features(acap32, imgs32)))
         phase("main", "%s f32 B=8: the initial state init_h(mean of the untrained encoder's features) reaches |h| = %.4g"
               % (variant, h0.abs().max().item()))
         routes = route_decodes(variant, beam_served[0], [
@@ -2361,10 +2642,9 @@ def main():
                                              END, PAD, fused_step=None, sparse=True),
              lambda: composite_controls(acap, dcfg, feats, acfg.start_token, dense, beam_served[0], variant)),
         ])
-        s2d = s2d_path(variant, params, bn_state, acfg, requests, counter, attn_plain)
+        s2d = s2d_path(variant, params, bn_state, acfg, requests, counter)
         return {"seconds": seconds, "comp_counts": comp_counts, "counts": counts, "other": {}, "cap": acap,
-                "requests": requests, "plain": attn_plain,
-                "beam_seconds": beam_s, "beam_counts": beam_counts, "routes": routes, "beam_share": beam_share,
+                "requests": requests, "beam_seconds": beam_s, "beam_counts": beam_counts, "routes": routes, "beam_share": beam_share,
                 "s2d": s2d, "beam_decode": lambda: attn_beam_search_decode(
                     acap.prepared, acap.model.decoder, dcfg, feats, K_BEAM, acfg.start_token, END, PAD)}
 
@@ -2530,12 +2810,8 @@ def main():
             tvocab = get_vocabulary("MSCOCO", {"vocab_path": vocab_path})  # loads the file: no tokenizing
             if len(tvocab) != V or tvocab.word_to_index != vocab.word_to_index:
                 fail("get_vocabulary read %d words from vocab.pkl, not the %d saved" % (len(tvocab), V))
-            tok = tokenizer_name()
-            ds_kw = {} if tok else {"tokenize": str.split}
-            phase("train", "tokenizer: %s" % (tok or "str.split: nltk is not installed here, and the synthetic "
-                                                    "captions are lowercase words between single spaces, which nltk's "
-                                                    "tokenizer splits the same way"))
-            dataset = MSCOCO(ann_path, img_dir, tvocab, **ds_kw)
+            phase("train", "tokenizer: %s" % tokenizer_name())
+            dataset = MSCOCO(ann_path, img_dir, tvocab)
             phase("train", "JPEG decoder of data/dataset.MSCOCO: %s; %d images of %s pixels, one caption each, B=%d: "
                   "%d steps an epoch (drop_last)" % (dataset.decoder, N_FILES, "/".join("%dx%d" % wh for wh in COCO_SIZES),
                                                      TRAIN_B, N_FILES // TRAIN_B))
@@ -2705,7 +2981,7 @@ def main():
 
             def trained_plain(c, imgs):
                 with torch.inference_mode():
-                    f = features(c, imgs)
+                    f = plain_features(c, imgs)
                     p = c.prepared
 
                     def step16(xx, state):
@@ -3036,28 +3312,22 @@ def main():
               "its printed scores equal a direct test_model call on model_1.ckpt: %s" % (2 * T, lines[0][0]))
         del ts
 
-        # the CLI's test phase on the card, where the CLI's tokenizer (nltk) is installed
-        try:
-            import nltk  # noqa: F401
-        except ImportError:
-            phase("eval", "cli.run.run: not run here: nltk (the CLI loader's tokenizer) is not installed on this host; "
-                  "the CLI is covered by tests/test_torch_cli*.py on the CPU")
-        else:
-            from show_tell_tpu_torch.cli.run import run
+        # the CLI's test phase on the card: its loader tokenizes the captions (tokenizer_name(), phase 7)
+        from show_tell_tpu_torch.cli.run import run
 
-            gru_dir = os.path.join(tmp, "gru_float32")
-            shutil.copy(os.path.join(tmp, "vocab.pkl"), os.path.join(gru_dir, "vocab.pkl"))
-            argv = ["--data_dir", tmp, "--output_dir", gru_dir, "--test_ann_path", "captions_train2014.json",
-                    "--train_ann_path", "captions_train2014.json", "--train_img_dir", "train2014",
-                    "--test_img_dir", "train2014", "--resnet_version", "101", "--embedding_length", str(E),
-                    "--num_hidden_units", str(H),
-                    "--num_layers", str(L), "--batch_size", str(TRAIN_B), "--is_training", "0", "--is_testing", "1",
-                    "--load_model_test", "model_%d" % TRAIN_EPOCHS, "--eval_augment", "0", "--device", "gpu"]
-            with contextlib.redirect_stdout(io.StringIO()):
-                cli_scores = run("gru", argv)["scores"]
-            if any(cli_scores[k] != f32_scores[k] for k in f32_scores if k != "test_loss"):
-                fail("cli.run.run's test phase scored %s, test_model %s" % (cli_scores, f32_scores))
-            phase("eval", "cli.run.run('gru', ... --device gpu) test phase: scores equal the direct test_model's")
+        gru_dir = os.path.join(tmp, "gru_float32")
+        shutil.copy(os.path.join(tmp, "vocab.pkl"), os.path.join(gru_dir, "vocab.pkl"))
+        argv = ["--data_dir", tmp, "--output_dir", gru_dir, "--test_ann_path", "captions_train2014.json",
+                "--train_ann_path", "captions_train2014.json", "--train_img_dir", "train2014",
+                "--test_img_dir", "train2014", "--resnet_version", "101", "--embedding_length", str(E),
+                "--num_hidden_units", str(H),
+                "--num_layers", str(L), "--batch_size", str(TRAIN_B), "--is_training", "0", "--is_testing", "1",
+                "--load_model_test", "model_%d" % TRAIN_EPOCHS, "--eval_augment", "0", "--device", "gpu"]
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli_scores = run("gru", argv)["scores"]
+        if any(cli_scores[k] != f32_scores[k] for k in f32_scores if k != "test_loss"):
+            fail("cli.run.run's test phase scored %s, test_model %s" % (cli_scores, f32_scores))
+        phase("eval", "cli.run.run('gru', ... --device gpu) test phase: scores equal the direct test_model's")
 
         # eval images/s, host clock to the scores, the batches in memory: PIPELINE_SCORING on and off in turns
         rates = {}
@@ -3269,7 +3539,7 @@ def main():
                     counter = fused_gru_decode_step if variant == "gru" else fused_attn_decode_step
                     served, _, counts = serve(caps[False], sl["requests"], counters,
                                               dict(by_name(greedy_launches(counter, 3)), preprocess_u8=3))
-                    check_served(variant + " unfolded", served, sl["requests"], sl["plain"], caps[False])
+                    check_served(variant + " unfolded", served, sl["requests"], caps[False])
                     phase("main", "%s unfolded bf16: launches in the three requests %s"
                           % (variant, {k: v for k, v in counts.items() if v}))
                     # bf16 rounds differently along each route, and a random-weight decode carries such differences
@@ -3302,14 +3572,17 @@ def main():
         phase("times", "%s fold A/B verdict: by its rule this run gives %s; fold_bn_default() = %s"
               % (card, "on" if backed else "off", fold_bn_default()))
 
+    marks.append(("4 pooled", time.perf_counter()))
     # 4. pooled main paths
     slices = {}
     for variant, Ed, counter in (("gru", E, fused_gru_decode_step), ("lstm", LE, fused_lstm_decode_step)):
         slices[variant] = pooled_slice(variant, Ed, counter)
 
+    marks.append(("5 attention", time.perf_counter()))
     # 5. attention main paths
     for variant, counter in (("attn", fused_attn_decode_step), ("attn_lstm", fused_attn_lstm_decode_step)):
         slices[variant] = attention_slice(variant, counter)
+    marks.append(("5b CLI", time.perf_counter()))
     # 5b. the CLI path
     cli = cli_path(slices["gru"])
     # every kernel: its launches over all the main-path runs, each read just after it ran
@@ -3319,6 +3592,7 @@ def main():
     runs += [sl["counts"] for sl in slices.values()] + [sl["s2d"]["counts"] for sl in slices.values()] + [cli["counts"]]
     launches = {fn.__name__: sum(counts[fn.__name__] for counts in runs) for fn in counters}
 
+    marks.append(("6 times", time.perf_counter()))
     # 6. times (bf16, flagship widths)
     times = {}
     library = {}  # kernel -> ms of the one PyTorch call (or composite) that computes its function at the line's shape
@@ -3678,6 +3952,7 @@ def main():
               spread(cli["runs"][True, True]), spread(cli["runs"][True, False]), spread(cli["runs"]["one file"]),
               ", ".join("%s %s" % (k, spread(v)) for k, v in cli["parts"].items())))
 
+    marks.append(("6 (a), (b)", time.perf_counter()))
     # 6 (a), (b): the reference .ckpt served, and the folded encoder against the unfolded one
     import tempfile
 
@@ -3690,14 +3965,24 @@ def main():
         shutil.rmtree(ckpt_tmp, ignore_errors=True)
     fold_phase()
 
+    marks.append(("7-8 train, eval", time.perf_counter()))
     # 7. training, then 8. eval on its checkpoints; phase 8's runs are the eval path's share of every launch count
     for counts in training_phase():
         for name, n in counts.items():
             launches[name] += n
+    marks.append(("9 mesh", time.perf_counter()))
     # 9. serving over a dp x mp mesh; its requests' launches join the counts
     for name, n in mesh_phase(card).items():
         launches[name] += n
+    marks.append(("10 learn", time.perf_counter()))
+    # 10. the port learns the demonstration task; its runs' launches join the counts
+    for name, n in learn_phase(card, counters).items():
+        launches[name] += n
 
+    marks.append(("end", time.perf_counter()))
+    phase("time", "seconds by phase (host clock): %s; %.1f s in all" % (
+        ", ".join("%s %.1f" % (name, t1 - t0) for (name, t0), (_, t1) in zip(marks, marks[1:])),
+        marks[-1][1] - marks[0][1]))
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "show_tell_tpu"))
     if leaked:
         fail("the port's path imported %s" % leaked[:5])

@@ -32,7 +32,7 @@ import os
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -63,8 +63,9 @@ def _pil_decode(full_path: str, fast_jpeg: bool) -> np.ndarray:
 class MSCOCO:
     """Annotation-keyed captions dataset (reference utils.py:23-59): COCO
     JSON, or a Flickr-style TSV for an ``ann_path`` ending in .tsv.
-    ``tokenize`` splits a lowercased caption (nltk's ``word_tokenize`` by
-    default); ``image_cache``: a directory for data/image_cache.ImageCache."""
+    Captions are lowercased and split by ``vocab.word_tokenize`` (nltk's,
+    or the port's copy of it where nltk or its data is missing);
+    ``image_cache``: a directory for data/image_cache.ImageCache."""
 
     def __init__(
         self,
@@ -74,13 +75,11 @@ class MSCOCO:
         use_native_decode: Optional[bool] = None,
         fast_jpeg: bool = False,
         image_cache: Optional[str] = None,
-        tokenize: Callable[[str], List[str]] = word_tokenize,
     ):
         self.data_path = data_path
         self.vocab = vocab
         self.use_native_decode = fastimage.is_available() if use_native_decode is None else use_native_decode
         self.fast_jpeg = fast_jpeg
-        self.tokenize = tokenize
         coco = FlickrCaptions(ann_path) if ann_path.endswith(".tsv") else CocoCaptions(ann_path)
         self.annotation_ids = list(coco.anns.keys())
         self.annotation_obj = coco
@@ -104,7 +103,7 @@ class MSCOCO:
     def caption_ids(self, sample_idx: int) -> List[int]:
         ann = self.annotation_obj.anns[self.annotation_ids[sample_idx]]
         v = self.vocab
-        return [v("<start>")] + [v(t) for t in self.tokenize(str(ann["caption"]).lower())] + [v("<end>")]
+        return [v("<start>")] + [v(t) for t in word_tokenize(str(ann["caption"]).lower())] + [v("<end>")]
 
     def sample_meta(self, sample_idx: int) -> Tuple[str, List[int]]:
         """(image file name, caption ids), without decoding the image."""

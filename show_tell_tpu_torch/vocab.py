@@ -14,8 +14,11 @@ the JAX package and this module all read the file.
 (vocab_builder.py:46-102): specials <pad> <start> <end> <unk> at ids 0-3,
 then every word of the lowercased, tokenized training captions with at
 least ``vocab_threshold`` occurrences, in first-occurrence order.
-``word_tokenize`` is nltk's, imported when first called: nltk is not a
-dependency of the port, and without it tokenizing raises.
+``word_tokenize`` is nltk's where nltk and its punkt data are installed
+(what the JAX package runs); elsewhere, nltk absent included, it is the
+port's copy of nltk's Treebank word tokenizer (``treebank.py``) over a
+rule-based sentence split, the JAX package's offline fallback.  nltk is
+not a dependency of the port.
 """
 
 from __future__ import annotations
@@ -27,7 +30,9 @@ import re
 import sys
 import types
 from collections import Counter
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Tuple
+
+from show_tell_tpu_torch import treebank
 
 
 class DatasetVocabulary(object):
@@ -144,42 +149,34 @@ def _sent_split(text: str) -> List[str]:
 
 @functools.lru_cache(maxsize=None)
 def _tokenizer() -> Tuple[Callable[[str], List[str]], str]:
-    """(tokenize, its name): nltk's ``word_tokenize`` where its punkt data is
-    installed, else its Treebank word tokenizer over a rule-based sentence
-    split (the JAX package's offline fallback; the two agree on
-    single-sentence captions).  Without nltk it raises, and is asked again
-    at the next call."""
+    """(tokenize, its name): nltk's ``word_tokenize`` where nltk and its punkt
+    data are installed, else the copied Treebank word tokenizer over a
+    rule-based sentence split (the JAX package's offline fallback; the two
+    agree on single-sentence captions)."""
     try:
         import nltk
-        from nltk.tokenize.destructive import NLTKWordTokenizer
-    except ImportError as e:
-        raise ImportError("tokenizing captions needs nltk (the reference's tokenizer), which is not "
-                          "installed here: %s" % e) from e
-    try:
+
         nltk.tokenize.word_tokenize("probe.")
         return nltk.tokenize.word_tokenize, "nltk word_tokenize (punkt)"
+    except ImportError:
+        why = "nltk is not installed"
     except LookupError:
-        treebank = NLTKWordTokenizer()
-        return (lambda text: [t for s in _sent_split(text) for t in treebank.tokenize(s)],
-                "nltk Treebank words over a rule-based sentence split (no punkt data)")
+        why = "nltk has no punkt data"
+    return (lambda text: [t for s in _sent_split(text) for t in treebank.tokenize(s)],
+            "the port's copy of nltk's Treebank words over a rule-based sentence split (%s)" % why)
 
 
 def word_tokenize(text: str) -> List[str]:
-    """nltk.tokenize.word_tokenize, with the offline fallback of
-    ``_tokenizer``; raises where nltk is not installed."""
+    """nltk.tokenize.word_tokenize, or its offline stand-in (``_tokenizer``)."""
     return _tokenizer()[0](text)
 
 
-def tokenizer_name() -> Optional[str]:
-    """Which tokenizer ``word_tokenize`` runs, or None where nltk is not installed."""
-    try:
-        return _tokenizer()[1]
-    except ImportError:
-        return None
+def tokenizer_name() -> str:
+    """Which tokenizer ``word_tokenize`` runs, and why."""
+    return _tokenizer()[1]
 
 
-def get_vocabulary(dataset: str, params: Dict[str, Any],
-                   tokenize: Callable[[str], List[str]] = word_tokenize) -> DatasetVocabulary:
+def get_vocabulary(dataset: str, params: Dict[str, Any]) -> DatasetVocabulary:
     """Load ``params['vocab_path']`` if it exists (tokenizing nothing), else
     build the vocabulary from ``data_dir/train_ann_path`` (COCO JSON for
     "MSCOCO", a TSV for "Flickr") by the reference's rules and save it there."""
@@ -198,13 +195,13 @@ def get_vocabulary(dataset: str, params: Dict[str, Any],
 
         coco = CocoCaptions(annotation_path)
         for ann_id in coco.anns.keys():  # file order, which pins the ids
-            counts.update(tokenize(str(coco.anns[ann_id]["caption"]).lower()))
+            counts.update(word_tokenize(str(coco.anns[ann_id]["caption"]).lower()))
     elif dataset == "Flickr":
         print("Building vocabulary for the Flickr dataset.")
         from show_tell_tpu_torch.data.coco import parse_flickr_tsv
 
         for _, caption in parse_flickr_tsv(annotation_path):
-            counts.update(tokenize(str(caption).lower()))
+            counts.update(word_tokenize(str(caption).lower()))
     else:
         raise ValueError("Please specify a valid dataset. %s is invalid." % (dataset,))
     for word, count in counts.items():

@@ -15,7 +15,7 @@ PORT = os.path.join(REPO, "show_tell_tpu_torch")
 
 def test_port_imports_without_jax():
     code = (
-        "import show_tell_tpu_torch, show_tell_tpu_torch.serve, show_tell_tpu_torch.models.captioner, "
+        "import sys; import show_tell_tpu_torch, show_tell_tpu_torch.serve, show_tell_tpu_torch.models.captioner, "
         "show_tell_tpu_torch.ops.fused_step, show_tell_tpu_torch.ops.build, show_tell_tpu_torch.models.attention, "
         "show_tell_tpu_torch.ops.attention, show_tell_tpu_torch.ops.fused_attn, show_tell_tpu_torch.ops.vocab, "
         "show_tell_tpu_torch.ops.fused_beam, show_tell_tpu_torch.decode.beam, show_tell_tpu_torch.vocab, "
@@ -30,11 +30,13 @@ def test_port_imports_without_jax():
         "show_tell_tpu_torch.decode.faithful_beam, show_tell_tpu_torch.decode.generic, show_tell_tpu_torch.core.config, "
         "show_tell_tpu_torch.cli.run, show_tell_tpu_torch.cli.main, show_tell_tpu_torch.cli.main_lstm, "
         "show_tell_tpu_torch.cli.main_attn, show_tell_tpu_torch.cli.main_attn_lstm, show_tell_tpu_torch.models.serving, "
-        "show_tell_tpu_torch.parallel, show_tell_tpu_torch.parallel.mesh, show_tell_tpu_torch.parallel.multihost; "
-        "import sys; "
+        "show_tell_tpu_torch.parallel, show_tell_tpu_torch.parallel.mesh, show_tell_tpu_torch.parallel.multihost, "
+        "show_tell_tpu_torch.treebank; "
+        "sys.path.insert(0, 'tools'); import demo_synthetic_torch, bf16_convergence_torch; "
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if m.startswith('jax')); "
-        "assert not any(m.split('.')[0] in ('optax', 'nltk', 'show_tell_tpu') for m in sys.modules), "
-        "sorted(m for m in sys.modules if m.split('.')[0] in ('optax', 'nltk', 'show_tell_tpu'))"
+        "assert not any(m.split('.')[0] in ('optax', 'nltk', 'show_tell_tpu', 'demo_synthetic', 'bf16_convergence') "
+        "for m in sys.modules), sorted(m for m in sys.modules if m.split('.')[0] in ('optax', 'nltk', 'show_tell_tpu', "
+        "'demo_synthetic', 'bf16_convergence'))"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
     result = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True,
@@ -44,38 +46,45 @@ def test_port_imports_without_jax():
 
 def test_port_trains_without_nltk(tmp_path):
     """With nltk unimportable (the GPU host's package list has none), the
-    training modules import, a saved vocabulary loads without tokenizing,
-    and tokenizing raises and says why; a dataset given its own
-    ``tokenize`` builds batches."""
+    training modules import, ``get_vocabulary`` builds a vocabulary from the
+    mini-COCO annotations (captions with capitals and final periods) with
+    the port's copy of nltk's Treebank tokenizer, word for word and id for
+    id the JAX package's built with nltk in this process, and the dataset
+    tokenizes its captions the same way."""
     import json
 
-    ann = tmp_path / "ann.json"
-    ann.write_text(json.dumps({"images": [{"id": 1, "file_name": "x.jpg"}],
-                               "annotations": [{"id": 5, "image_id": 1, "caption": "A red bus"}]}))
+    from fixtures import build_mini_coco
+    from show_tell_tpu.vocab.tokenize import word_tokenize as jax_word_tokenize
+    from show_tell_tpu.vocab.vocabulary import get_vocabulary as jax_get_vocabulary
+
+    data = str(tmp_path / "data")
+    build_mini_coco(data)
+    params = {"data_dir": data, "train_ann_path": "annotations/captions_train2014.json", "vocab_threshold": 1}
+    want = jax_get_vocabulary("MSCOCO", dict(params, vocab_path=str(tmp_path / "jax_vocab.pkl")))
+    assert "." in want.word_to_index and "surfboard" in want.word_to_index
+    first = json.load(open(os.path.join(data, params["train_ann_path"])))["annotations"][0]
+    want_ids = [want("<start>")] + [want(t) for t in jax_word_tokenize(first["caption"].lower())] + [want("<end>")]
     code = textwrap.dedent("""
-        import sys
+        import json, sys
         sys.modules["nltk"] = None  # import nltk raises ImportError
         import show_tell_tpu_torch.train.loop, show_tell_tpu_torch.data.dataset
         from show_tell_tpu_torch import vocab as V
         from show_tell_tpu_torch.data.dataset import MSCOCO
-        assert V.tokenizer_name() is None
-        try:
-            V.word_tokenize("a red bus")
-            raise SystemExit("word_tokenize ran without nltk")
-        except ImportError as e:
-            assert "nltk" in str(e), e
-        v = V.DatasetVocabulary()
-        for w in ["<pad>", "<start>", "<end>", "<unk>", "a", "red", "bus"]:
-            v.add_new_word(w)
-        V.save_vocab(v, %r)
-        loaded = V.get_vocabulary("MSCOCO", {"vocab_path": %r})
-        ds = MSCOCO(%r, %r, loaded, tokenize=str.split)
-        assert ds.caption_ids(0) == [1, 4, 5, 6, 2], ds.caption_ids(0)
-    """) % (str(tmp_path / "v.pkl"), str(tmp_path / "v.pkl"), str(ann), str(tmp_path))
+        assert V.tokenizer_name().endswith("(nltk is not installed)"), V.tokenizer_name()
+        v = V.get_vocabulary("MSCOCO", dict(%r, vocab_path=%r))
+        ds = MSCOCO(%r, %r, v)
+        print(json.dumps({"words": v.word_to_index, "ids": ds.caption_ids(0)}))
+        assert sys.modules["nltk"] is None
+    """) % (params, str(tmp_path / "port_vocab.pkl"), os.path.join(data, params["train_ann_path"]),
+            os.path.join(data, "train2014"))
     env = dict(os.environ, PYTHONPATH=REPO)
     result = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True,
                             timeout=120)
     assert result.returncode == 0, result.stderr
+    got = json.loads(result.stdout.strip().splitlines()[-1])
+    assert got["words"] == want.word_to_index
+    assert list(got["words"]) == list(want.word_to_index)  # the same first-occurrence order, so the same ids
+    assert got["ids"] == want_ids
 
 
 def test_port_sources_never_import_jax():
@@ -88,10 +97,13 @@ def test_port_sources_never_import_jax():
                     if pattern.search(fh.read()):
                         offenders.append(os.path.join(root, f))
     assert not offenders
-    with open(os.path.join(REPO, "chip_smoke.py")) as fh:
-        smoke = fh.read()
-    assert not pattern.search(smoke)
-    assert "show_tell_tpu." not in smoke  # nothing of the JAX package either
+    jax_tools = re.compile(r"^\s*(import|from) (demo_synthetic|bf16_convergence)\b(?!_torch)", re.M)
+    for name in ("chip_smoke.py", "tools/demo_synthetic_torch.py", "tools/bf16_convergence_torch.py"):
+        with open(os.path.join(REPO, name)) as fh:
+            text = fh.read()
+        assert not pattern.search(text), name
+        assert "show_tell_tpu." not in text and "show_tell_tpu " not in text, name  # nothing of the JAX package
+        assert not jax_tools.search(text), name  # nor the JAX package's tools
 
 
 def test_serving_from_a_checkpoint_imports_nothing_of_the_jax_package(tmp_path):
@@ -175,8 +187,9 @@ def _small_gru_checkpoint(tmp_path):
 
 def test_test_model_imports_neither_nltk_nor_the_jax_package(tmp_path):
     """test_model from a port checkpoint, with nltk unimportable (the GPU
-    host has none) and the loader's captions split by str.split: no jax,
-    optax, nltk or show_tell_tpu module is imported."""
+    host has none), so that the loader's captions go through the port's copy
+    of the Treebank tokenizer: no jax, optax, nltk or show_tell_tpu module is
+    imported."""
     data_root, out = _small_gru_checkpoint(tmp_path)
     code = textwrap.dedent("""
         import os, sys
@@ -191,8 +204,7 @@ def test_test_model_imports_neither_nltk_nor_the_jax_package(tmp_path):
         from show_tell_tpu_torch.vocab import load_vocab
         data, out = %r, %r
         vocab = load_vocab(os.path.join(out, "vocab.pkl"))
-        ds = MSCOCO(os.path.join(data, "annotations/captions_train2014.json"), os.path.join(data, "train2014"), vocab,
-                    tokenize=str.split)
+        ds = MSCOCO(os.path.join(data, "annotations/captions_train2014.json"), os.path.join(data, "train2014"), vocab)
         cfg = CaptionerConfig("gru", 18, 16, 24, len(vocab), 1)
         ts = restore_train_state(create_train_state(cfg, "Adam", 0.01, device="cpu"),
                                  read_checkpoint(os.path.join(out, "model_1.ckpt")))
@@ -210,8 +222,8 @@ def test_test_model_imports_neither_nltk_nor_the_jax_package(tmp_path):
 def test_cli_test_phase_imports_nothing_of_the_jax_package(tmp_path):
     """The GRU CLI's test phase on the CPU from a saved vocabulary and a
     port checkpoint: no jax, optax or show_tell_tpu module is imported (the
-    CLI's loader tokenizes the test captions with nltk, the reference's
-    tokenizer)."""
+    CLI's loader tokenizes the test captions with the port's
+    ``word_tokenize``)."""
     data_root, out = _small_gru_checkpoint(tmp_path)
     code = textwrap.dedent("""
         import sys
