@@ -167,7 +167,7 @@ def build_arg_parser(
     add("--dp", type=int, default=0, help="data-parallel size: N > 1 spawns N processes, one a device (the CUDA cards of this host, or the CPU), joined by torch.distributed; 0 = every process of a --multihost group, or one device")
     add("--mp", type=int, default=1, help="eval-phase tensor parallelism: shard the decoder's vocab-sized params (output projection, embedding) over this many devices per dp shard (mesh = dp x mp, one process each; vocab_size must divide mp); training stays data parallel over all dp x mp processes")
     add("--multihost", type=str, default="", help="join a multi-host run: 'coordinator_host:port,num_processes,process_id' (same on every host except the id), or 'auto' under torchrun; dp then spans every process's device (parallel/multihost.py)")
-    add("--use_pallas", type=int, default=-1, help="decode kernels: -1 (auto) and 1 both run the port's CUDA kernels (their plain twins on the CPU); 0 named the JAX package's XLA route, which the port does not have, and raises")
+    add("--use_pallas", type=int, default=-1, help="eval decode route: -1 (auto) and 1 both run the port's CUDA kernels (their plain twins on the CPU); 0 the library route, the JAX package's XLA decode: the plain decodes in PyTorch's own operators, no kernel of the port")
     add("--faithful_beam", type=int, default=0, help="replicate the reference rnn.py beam-search quirks exactly (batch=1) instead of standard cumulative-logprob beam")
     add("--seed", type=int, default=1, help="global RNG seed (reference seeds torch/random with 1)")
     add("--max_caption_length", type=int, default=25, help="decode length cap (reference rnn.py:39)")

@@ -41,6 +41,15 @@ families), the shard's logits, ``vocab_log_softmax`` over the mp group, and
 the K x V top-K as ``vocab_topk``; the next tokens' rows by
 ``vocab_embedding``.  The fused steps and the projection + top-k kernel are
 never chosen there.
+
+``library_beam_search_decode`` and ``library_attn_beam_search_decode`` are
+the eval's ``--use_pallas 0`` route, the JAX package's XLA beam
+(use_pallas=False, no fused step): every step in PyTorch's own operators
+from the model's weights, ``rnn_cells.stack_step`` (after
+``attention_net_hoisted`` in the attention families), the f32 projection
+and ``log_softmax``, through the same engine; no function that launches a
+kernel of this package, nor its twin.  A decoder that holds a vocabulary
+shard takes the shard's logits and the same ``vocab_*`` collectives.
 """
 
 from __future__ import annotations
@@ -342,3 +351,75 @@ def attn_beam_search_decode(
         logp0, state1, step_fn, tile, gather, K, cfg.max_caption_length, end_token, pad_token,
         sparse=sparse and not fused, early_exit=early_exit,
     )
+
+
+def library_beam_search_decode(
+    decoder,  # models.decoder.Decoder
+    cfg,  # models.decoder.DecoderConfig
+    feats: torch.Tensor,  # [B, E] image features
+    beam_size: int,
+    end_token: int = 2,
+    pad_token: int = 0,
+    early_exit: bool = False,
+) -> torch.Tensor:
+    """``beam_search_decode`` by the library route (the module docstring):
+    step 0 consumes the image feature from a zero state, each step is
+    ``stack_step`` over the decoder's layers, the f32 projection and
+    ``log_softmax``.  Returns [B, T] int32 ids."""
+    from show_tell_tpu_torch.models.decoder import linear_f32
+    from show_tell_tpu_torch.models.rnn_cells import init_state, stack_step
+    from show_tell_tpu_torch.ops.rnn import sharded_lookup
+
+    B, K = feats.shape[0], beam_size
+    shard, embedding = getattr(decoder, "vocab_shard", None), decoder.embeddings.weight
+    log_softmax, lookup = _log_softmax(shard), sharded_lookup(shard, embedding)
+    layers, step = decoder.unit.layers(), stack_step(cfg.cell_type)
+    state0 = init_state(cfg.cell_type, cfg.num_layers, B, cfg.hidden_dim, embedding.dtype, feats.device)
+    top, state1 = step(layers, feats.to(embedding.dtype), state0)
+
+    def step_fn(tokens, state):
+        top, state2 = step(layers, lookup(tokens), state)
+        return log_softmax(linear_f32(decoder.linear, top)), state2
+
+    tile, gather = rnn_state_helpers(B, K)
+    return beam_engine(log_softmax(linear_f32(decoder.linear, top)), state1, step_fn, tile, gather, K,
+                       cfg.max_caption_length, end_token, pad_token, early_exit=early_exit, shard=shard)
+
+
+def library_attn_beam_search_decode(
+    decoder,  # models.attention.AttnDecoder
+    cfg,  # models.attention.AttnDecoderConfig
+    cnn_feature: torch.Tensor,  # [B, C, P]
+    beam_size: int,
+    start_token: int = 1,
+    end_token: int = 2,
+    pad_token: int = 0,
+    early_exit: bool = False,
+) -> torch.Tensor:
+    """``attn_beam_search_decode`` by the library route: step 0 consumes
+    <start> from init_hidden; each step is ``attention_net_hoisted`` over
+    the beam rows' features (att1 hoisted, in f32), ``embed(context)``,
+    ``stack_step``, the f32 projection and ``log_softmax``.  Returns [B, T]
+    int32 ids."""
+    from show_tell_tpu_torch.models.attention import attn_stack_step, init_hidden, start_embeddings
+    from show_tell_tpu_torch.models.decoder import linear_f32
+    from show_tell_tpu_torch.models.rnn_cells import stack_step
+    from show_tell_tpu_torch.ops.rnn import sharded_lookup
+
+    B, K = cnn_feature.shape[0], beam_size
+    shard = getattr(decoder, "vocab_shard", None)
+    log_softmax, lookup = _log_softmax(shard), sharded_lookup(shard, decoder.embeddings.weight)
+    layers, step = decoder.unit.layers(), stack_step(cfg.cell_type)
+    feats_pm = cnn_feature.transpose(1, 2)
+    att1 = linear_f32(decoder.attn.encoder_att, feats_pm)  # hoisted: constant over t
+    w0 = start_embeddings(decoder, B, start_token, cnn_feature.device)
+    top0, state1 = attn_stack_step(decoder, step, layers, feats_pm, att1, w0, init_hidden(decoder, cfg, cnn_feature))
+    feats_rows, att1_rows = feats_pm.repeat_interleave(K, dim=0), att1.repeat_interleave(K, dim=0)
+
+    def step_fn(tokens, state):
+        top, state2 = attn_stack_step(decoder, step, layers, feats_rows, att1_rows, lookup(tokens), state)
+        return log_softmax(linear_f32(decoder.linear, top)), state2
+
+    tile, gather = rnn_state_helpers(B, K)
+    return beam_engine(log_softmax(linear_f32(decoder.linear, top0)), state1, step_fn, tile, gather, K,
+                       cfg.max_caption_length, end_token, pad_token, early_exit=early_exit, shard=shard)

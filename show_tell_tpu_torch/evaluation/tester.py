@@ -12,7 +12,9 @@ method4 smoothing (utils.py:232-246).
 The loop is software-pipelined, as the JAX package's is, output-identical
 by test: each batch is staged on the device one step ahead
 (data/device_prefetch.py), and its step (loss and decode, through the
-decode kernels on a GPU) is queued before the previous batch is scored on
+decode kernels on a GPU, or with ``--use_pallas 0`` by the library route:
+the plain decodes in PyTorch's operators, as the JAX package's XLA route
+decodes) is queued before the previous batch is scored on
 the host, so the card works under the pure-host scoring.  Nothing of a
 batch is read on the host before ``consume``: the captions and lengths the
 host needs travel beside their device copies.  The scoring itself runs on
@@ -86,6 +88,7 @@ def make_test_step(
     cfg: CaptionerConfig,
     beam_size: int = 0,
     augment: bool = True,
+    use_pallas: Optional[bool] = None,
     compute_dtype: str = "float32",
     loss_only: bool = False,
     early_exit: bool = False,
@@ -104,21 +107,25 @@ def make_test_step(
     Caption output (and so every metric) is identical: positions after
     <end> become <pad> instead of the reference's don't-care argmax
     continuations, and ``create_caption_word_format`` truncates at <end>
-    either way.  It reads one flag on the host a step."""
+    either way.  It reads one flag on the host a step.
+
+    use_pallas (``--use_pallas``): None (-1, auto) and True (1) decode
+    through the port's kernels (their plain twins on the CPU); False (0) by
+    the library route, the JAX package's XLA decode: the plain decodes of
+    the model's weights in PyTorch's operators, no kernel of this package
+    (``make_eval_step(kernels=False)``)."""
     return make_eval_step(cfg, augment=augment, compute_dtype=compute_dtype, beam_size=beam_size,
-                          loss_only=loss_only, early_exit=early_exit, end_token=end_token, mesh=mesh)
+                          loss_only=loss_only, early_exit=early_exit, end_token=end_token, mesh=mesh,
+                          kernels=use_pallas is not False)
 
 
 def check_eval_params(params: Dict[str, Any]) -> None:
-    """Raise for what the port's eval does not run: the JAX package's XLA
-    decode route."""
+    """Raise for a ``--use_pallas`` outside -1 (auto), 0 (the library
+    route) and 1 (the kernels)."""
     use_pallas = int(params.get("use_pallas", -1))
-    if use_pallas == 0:
-        raise ValueError("--use_pallas 0 selects the JAX package's XLA decode, which the port does not have "
-                         "(ROADMAP Queue 1 item 2): -1 and 1 both run the port's kernels (their plain twins on the "
-                         "CPU)")
-    if use_pallas not in (-1, 1):
-        raise ValueError("--use_pallas takes -1, 0 or 1, not %d" % use_pallas)
+    if use_pallas not in (-1, 0, 1):
+        raise ValueError("--use_pallas takes -1 (auto: the kernels), 0 (the library route, the JAX package's XLA "
+                         "decode) or 1 (the kernels), not %d" % use_pallas)
 
 
 def _with_host_copies(data_loader):
@@ -194,12 +201,14 @@ def test_model(
 
     eval_augment = bool(params.get("eval_augment", 1))
     use_faithful = faithful_beam and beam_size > 0
+    up_flag = int(params.get("use_pallas", -1))  # -1 auto / 0 the library route / 1 the kernels
     step_fn = make_test_step(
         cfg,
         0 if faithful_beam else beam_size,
         # The reference augments (random flips) at test time (utils.py:96);
         # --eval_augment 0 pins eval deterministic (SURVEY.md §7).
         augment=eval_augment,
+        use_pallas=None if up_flag == -1 else bool(up_flag),
         compute_dtype=compute_dtype,
         loss_only=use_faithful,
         # --faithful_beam decodes host-side step by step; early_exit only
@@ -208,8 +217,10 @@ def test_model(
         end_token=vocab.word_to_index[vocab.end_token()],
         mesh=mesh,
     )
-    # The weights do not change inside an eval: the kernels' layout is built once.
-    prepared = prepare_decode(model, COMPUTE_DTYPES[compute_dtype] or torch.float32)
+    # The weights do not change inside an eval: the kernels' layout is built once (the library route reads none).
+    prepared = None
+    if up_flag != 0 or use_faithful:
+        prepared = prepare_decode(model, COMPUTE_DTYPES[compute_dtype] or torch.float32)
     faithful_prepared = prepared
     if use_faithful and mesh is not None and mesh.mp > 1:  # the faithful beam decodes on the host, unsharded
         faithful_prepared = prepare_decode(shard_train_state(full_state, None, COMPUTE_DTYPES[compute_dtype]).model,

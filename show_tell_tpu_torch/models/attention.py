@@ -35,7 +35,6 @@ import torch.nn.functional as F
 from show_tell_tpu_torch.models.decoder import RNNWeights, embed_tokens, greedy_loop, linear_f32
 from show_tell_tpu_torch.models.rnn_cells import stack_step
 from show_tell_tpu_torch.ops.rnn import State
-from show_tell_tpu_torch.ops.vocab import first_max_argmax
 
 
 class AttnDecoderConfig(NamedTuple):
@@ -127,23 +126,38 @@ def attn_greedy_decode(
 ) -> torch.Tensor:
     """Plain 25-step greedy decode from <start> (rnn_attn.py:77-94; the
     JAX package's attn_greedy_decode).  end_token: stop once every row
-    emitted it, <pad> after it.  Returns [B, T] int32 ids."""
+    emitted it, <pad> after it.  A decoder that holds a vocabulary shard
+    takes the argmax and the fed-back rows over the mp group, as
+    ``models.decoder.greedy_decode`` does.  Returns [B, T] int32 ids."""
+    from show_tell_tpu_torch.ops.rnn import sharded_argmax, sharded_lookup
+
     B = cnn_feature.shape[0]
     feats_pm = cnn_feature.transpose(1, 2)
     att1 = linear_f32(decoder.attn.encoder_att, feats_pm)  # hoisted: constant over t
     layers = decoder.unit.layers()
-    embedding = decoder.embeddings.weight
+    shard = getattr(decoder, "vocab_shard", None)
+    argmax = sharded_argmax(shard)
     step_fn = stack_step(cfg.cell_type)
 
     def step(w_emb, state):
-        context, _ = attention_net_hoisted(decoder.attn, feats_pm, att1, last_h(state))
-        x = torch.cat([w_emb, linear_f32(decoder.embed, context).to(w_emb.dtype)], dim=-1)
-        top, state2 = step_fn(layers, x, state)
-        return first_max_argmax(linear_f32(decoder.linear, top)), state2
+        top, state2 = attn_stack_step(decoder, step_fn, layers, feats_pm, att1, w_emb, state)
+        return argmax(linear_f32(decoder.linear, top)), state2
 
     w0 = start_embeddings(decoder, B, start_token, cnn_feature.device)
     state0 = init_hidden(decoder, cfg, cnn_feature)
-    return greedy_loop(step, embedding, w0, state0, cfg.max_caption_length, end_token)
+    return greedy_loop(step, sharded_lookup(shard, decoder.embeddings.weight), w0, state0, cfg.max_caption_length,
+                       end_token)
+
+
+def attn_stack_step(decoder: AttnDecoder, step_fn, layers, feats_pm: torch.Tensor, att1: torch.Tensor,
+                    w_emb: torch.Tensor, state: State):
+    """One plain attention step up to the top layer: the context of
+    ``attention_net_hoisted`` from the last layer's h, ``x = cat(w_emb,
+    embed(context))`` and ``step_fn`` (rnn_cells.stack_step) over
+    ``layers``.  Returns (top h [B, H], new state)."""
+    context, _ = attention_net_hoisted(decoder.attn, feats_pm, att1, last_h(state))
+    x = torch.cat([w_emb, linear_f32(decoder.embed, context).to(w_emb.dtype)], dim=-1)
+    return step_fn(layers, x, state)
 
 
 def attn_decoder_forward(

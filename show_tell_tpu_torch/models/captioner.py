@@ -28,9 +28,17 @@ from show_tell_tpu_torch.models.attention import (
     AttnDecoder,
     AttnDecoderConfig,
     attn_decoder_forward,
+    attn_greedy_decode,
     doubly_stochastic_penalty,
 )
-from show_tell_tpu_torch.models.decoder import GATES, Decoder, DecoderConfig, decoder_forward, masked_cross_entropy
+from show_tell_tpu_torch.models.decoder import (
+    GATES,
+    Decoder,
+    DecoderConfig,
+    decoder_forward,
+    greedy_decode,
+    masked_cross_entropy,
+)
 from show_tell_tpu_torch.models.encoder import Encoder, EncoderConfig
 from show_tell_tpu_torch.models.resnet import RESNET_SPECS, STAGE_WIDTHS, feature_dim
 
@@ -419,12 +427,25 @@ def greedy_decode_features(
     prepared: Optional[Dict[str, object]] = None,
     end_token: Optional[int] = None,
     vocab_sharded: bool = False,
+    kernels: bool = True,
 ) -> torch.Tensor:
-    """The decode of ``captioner_greedy_decode`` from the encoder's features."""
+    """The decode of ``captioner_greedy_decode`` from the encoder's features.
+
+    ``kernels=False`` is the eval's ``--use_pallas 0`` route, the JAX
+    package's XLA decode (captioner.py:243,262 there): the plain decode of
+    the model's own weights in PyTorch's operators, the pooled families'
+    ``models.decoder.greedy_decode`` and the attention families'
+    ``models.attention.attn_greedy_decode``, which take a vocabulary shard's
+    logits over the mp group; ``prepared`` and ``vocab_sharded`` are unused
+    there.  No kernel of this package runs, nor its twin."""
     from show_tell_tpu_torch.ops.attention import attn_greedy_decode_composite
     from show_tell_tpu_torch.ops.fused_attn import attn_greedy_decode_fused, fused_attn_fits
     from show_tell_tpu_torch.ops.rnn import greedy_decode_kernel
 
+    if not kernels:
+        if cfg.is_attention:
+            return attn_greedy_decode(model.decoder, cfg.decoder_config(), feats, cfg.start_token, end_token)
+        return greedy_decode(model.decoder, cfg.decoder_config(), feats, end_token)
     if prepared is None:
         prepared = prepare_decode(model, model.decoder.embeddings.weight.dtype)
     if cfg.is_attention:
@@ -469,11 +490,25 @@ def beam_decode_features(
     beam_size: int = 3,
     end_token: int = 2,
     early_exit: bool = False,
+    kernels: bool = True,
 ) -> torch.Tensor:
-    """The beam search of ``captioner_beam_decode`` from the encoder's features."""
-    from show_tell_tpu_torch.decode.beam import attn_beam_search_decode, beam_search_decode
+    """The beam search of ``captioner_beam_decode`` from the encoder's
+    features.  ``kernels=False``: the library route of decode/beam.py, the
+    JAX package's XLA beam (``prepared`` unused)."""
+    from show_tell_tpu_torch.decode.beam import (
+        attn_beam_search_decode,
+        beam_search_decode,
+        library_attn_beam_search_decode,
+        library_beam_search_decode,
+    )
     from show_tell_tpu_torch.ops import beam_step_default
 
+    if not kernels:
+        if cfg.is_attention:
+            return library_attn_beam_search_decode(model.decoder, cfg.decoder_config(), feats, beam_size,
+                                                   cfg.start_token, end_token=end_token, early_exit=early_exit)
+        return library_beam_search_decode(model.decoder, cfg.decoder_config(), feats, beam_size, end_token=end_token,
+                                          early_exit=early_exit)
     if prepared is None:
         prepared = prepare_decode(model, model.decoder.embeddings.weight.dtype)
     if cfg.is_attention:

@@ -30,7 +30,6 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from show_tell_tpu_torch.models.rnn_cells import init_state, rnn_scan, stack_step
-from show_tell_tpu_torch.ops.vocab import first_max_argmax
 
 
 class DecoderConfig(NamedTuple):
@@ -157,19 +156,23 @@ def greedy_decode(
     """Plain batched greedy decode: the per-layer cell, ``top @ W^T + b``
     in f32 and the first-max argmax (decoder.greedy_decode in the JAX
     package).  Computes in the embedding's dtype, from a zero state.
-    Returns [B, T] ids."""
-    layers = decoder.unit.layers()
-    embedding = decoder.embeddings.weight
-    dtype = embedding.dtype
-    state0 = init_state(cfg.cell_type, cfg.num_layers, feats.shape[0], cfg.hidden_dim, dtype, feats.device)
+    Where the decoder holds a vocabulary shard, the logits are its columns
+    and the argmax and the fed-back rows are the mp group's
+    (``ops.rnn.sharded_argmax``, ``sharded_lookup``).  Returns [B, T] ids."""
+    from show_tell_tpu_torch.ops.rnn import sharded_argmax, sharded_lookup
+
+    layers, embedding = decoder.unit.layers(), decoder.embeddings.weight
+    shard = getattr(decoder, "vocab_shard", None)
+    argmax = sharded_argmax(shard)
+    state0 = init_state(cfg.cell_type, cfg.num_layers, feats.shape[0], cfg.hidden_dim, embedding.dtype, feats.device)
     step_fn = stack_step(cfg.cell_type)
 
     def step(x, state):
         top, state2 = step_fn(layers, x, state)
-        logits = top.float() @ decoder.linear.weight.float().T + decoder.linear.bias.float()
-        return first_max_argmax(logits), state2
+        return argmax(linear_f32(decoder.linear, top)), state2
 
-    return greedy_loop(step, embedding, feats.to(dtype), state0, cfg.max_caption_length, end_token)
+    return greedy_loop(step, sharded_lookup(shard, embedding), feats.to(embedding.dtype), state0,
+                       cfg.max_caption_length, end_token)
 
 
 def decoder_forward(

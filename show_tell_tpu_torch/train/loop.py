@@ -20,8 +20,8 @@ parallel/multihost.py; ``--dp N`` spawns one, cli/run.py): every rank runs
 this loop over the same batch stream, its step on its rows of each batch
 (train/train_step.py, DDP), and agrees with the others on a SIGTERM at
 each step; only rank 0 writes checkpoints, ``metrics.jsonl`` and the
-retention.  An eval setting the port's test_model does not run raises
-before the first step.
+retention.  An eval setting the port's test_model does not take (a
+``--use_pallas`` outside -1, 0, 1) raises before the first step.
 """
 
 from __future__ import annotations

@@ -239,6 +239,7 @@ def make_eval_step(
     early_exit: bool = False,
     end_token: int = 2,
     mesh: Optional[Mesh] = None,
+    kernels: bool = True,
 ):
     """Returns evaluate(ts, images_u8, captions, lengths, generator=None,
     prepared=None, t_max=None) -> (loss, out): eval-mode BatchNorm, one
@@ -250,7 +251,9 @@ def make_eval_step(
     them on the host).  ``early_exit`` stops the decode once every row
     emitted ``end_token`` (identical ids).  The reference keeps its random
     flips at test time (utils.py:96); ``augment`` mirrors that, drawn from
-    ``generator``.
+    ``generator``.  ``kernels=False`` decodes by the library route
+    (``--use_pallas 0``: the plain decodes in PyTorch's operators, no
+    kernel; ``prepared`` unused); nothing else in the step changes.
 
     ``ts.model`` computes in ``compute_dtype`` ("bfloat16": a model whose
     weights the caller cast, and the images are cast to it).  ``prepared``:
@@ -295,12 +298,14 @@ def make_eval_step(
                 if loss_only:
                     out = feats
                 else:
-                    if prepared is None:
+                    if prepared is None and kernels:
                         prepared = prepare_decode(model, dtype)
                     if beam_size > 0:
-                        out = beam_decode_features(model, cfg, feats, prepared, beam_size, end_token, early_exit)
+                        out = beam_decode_features(model, cfg, feats, prepared, beam_size, end_token, early_exit,
+                                                   kernels=kernels)
                     else:
-                        out = greedy_decode_features(model, cfg, feats, prepared, end_token if early_exit else None)
+                        out = greedy_decode_features(model, cfg, feats, prepared, end_token if early_exit else None,
+                                                     kernels=kernels)
                 if split is not None:
                     loss, out = all_reduce_sum(loss, split), all_gather_rows(out, split)
         finally:

@@ -1033,3 +1033,43 @@ def test_eval_step_queues_without_a_device_sync(cuda, variant, beam_size):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert ids.shape == (8, 25) and torch.isfinite(loss)
+
+
+@pytest.mark.parametrize("beam_size", [0, 3], ids=["greedy", "beam"])
+@pytest.mark.parametrize("variant", ["gru", "lstm", "attn", "attn_lstm"])
+def test_library_eval_step_launches_no_kernel_and_queues_without_a_device_sync(cuda, monkeypatch, variant,
+                                                                                 beam_size):
+    """The ``--use_pallas 0`` step (make_test_step(use_pallas=False): flips,
+    loss and the library route's decode) on a staged batch: no kernel
+    wrapper counts a launch and the kernel library is never loaded (its
+    loader raises), and, as the default step above, it reads nothing on the
+    host: under torch.cuda.set_sync_debug_mode("error") any sync raises."""
+    from show_tell_tpu_torch.evaluation.tester import make_test_step
+    from show_tell_tpu_torch.models.captioner import CaptionerConfig, init_captioner
+    from show_tell_tpu_torch.ops import build
+    from show_tell_tpu_torch.ops.whole_decode import gru_whole_greedy_decode
+    from show_tell_tpu_torch.train.train_step import create_train_state
+
+    wrappers = [fused_gru_decode_step, fused_lstm_decode_step, fused_attn_decode_step, fused_attn_lstm_decode_step,
+                attention_context, project_argmax, fused_gru_dense_step, fused_lstm_dense_step, fused_gru_topk_step,
+                fused_lstm_topk_step, fused_attn_dense_step, fused_attn_lstm_dense_step, project_topk, preprocess_u8,
+                stem_fused, gru_whole_greedy_decode, gru_stack_step, lstm_stack_step]
+    cfg = CaptionerConfig(variant, 18, 16, 24, 40, 2, nos_filters=512, attn_dim=16)
+    ts = create_train_state(cfg, "SGD", 0.01, device="gpu", init=init_captioner(cfg, torch.Generator().manual_seed(5)))
+    _, images, captions, lengths = _eval_batches(40)[0]
+    staged = [torch.from_numpy(a).to(cuda) for a in (images, captions, lengths)]
+    step = make_test_step(cfg, beam_size, augment=True, use_pallas=False)
+    before = [fn.launches for fn in wrappers]
+
+    def no_library():
+        raise AssertionError("the library route loaded the kernel library")
+
+    monkeypatch.setattr(build, "load_library", no_library)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss, ids = step(ts, *staged, torch.Generator().manual_seed(1), None, int(lengths.max()))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert ids.shape == (8, 25) and torch.isfinite(loss)
+    assert [fn.launches for fn in wrappers] == before

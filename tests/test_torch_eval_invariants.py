@@ -110,7 +110,7 @@ def test_sub_batch_size_and_the_timer(trained, tmp_path, capsys):
     (dict(dp=2), ValueError, "needs 2 devices but only 1 are visible"),  # one process
     (dict(mp=2), ValueError, "--mp 2 does not divide vocab_size 69"),  # the fixture's vocabulary: 69 words
     (dict(dp=2, mp=3), ValueError, "needs 6 devices but only 1 are visible"),
-    (dict(use_pallas=0), ValueError, "XLA"),
+    (dict(use_pallas=2), ValueError, "XLA"),  # outside -1, 0, 1 (0 is the library route)
 ])
 def test_what_the_port_does_not_run_raises(trained, tmp_path, over, error, match):
     with pytest.raises(error, match=match):

@@ -97,8 +97,10 @@ def test_port_sources_never_import_jax():
                     if pattern.search(fh.read()):
                         offenders.append(os.path.join(root, f))
     assert not offenders
-    jax_tools = re.compile(r"^\s*(import|from) (demo_synthetic|bf16_convergence)\b(?!_torch)", re.M)
-    for name in ("chip_smoke.py", "tools/demo_synthetic_torch.py", "tools/bf16_convergence_torch.py"):
+    jax_tools = re.compile(r"^\s*(import|from) (demo_synthetic|bf16_convergence|prefill_cache|sweep|"
+                           r"reproduce_reference)\b(?!_torch)", re.M)
+    for name in ("chip_smoke.py", "tools/demo_synthetic_torch.py", "tools/bf16_convergence_torch.py",
+                 "tools/prefill_cache_torch.py", "tools/sweep_torch.py", "tools/reproduce_reference_torch.py"):
         with open(os.path.join(REPO, name)) as fh:
             text = fh.read()
         assert not pattern.search(text), name
@@ -242,3 +244,49 @@ def test_cli_test_phase_imports_nothing_of_the_jax_package(tmp_path):
                             capture_output=True, text=True, timeout=300)
     assert result.returncode == 0, result.stderr
     assert "Loading vocabulary from the existing file." in result.stdout
+
+
+def test_coco_tools_import_neither_nltk_nor_the_jax_package(tmp_path):
+    """tools/prefill_cache_torch.py, tools/sweep_torch.py and
+    tools/reproduce_reference_torch.py in a fresh interpreter with nltk
+    unimportable (the GPU host has none): the cache prefilled from the
+    mini-COCO fixture, a one-run sweep that trains an epoch and tests
+    through the port's CLI on that cache, and a dry run of a published row;
+    no jax, optax, nltk or show_tell_tpu module is imported."""
+    from fixtures import build_mini_coco
+    from torch_eval_helpers import cli_argv
+
+    data_root = str(tmp_path / "data")
+    build_mini_coco(data_root)
+    cache = str(tmp_path / "cache")
+    argv = cli_argv(data_root, str(tmp_path / "unused"), ["--is_training", "1", "--is_testing", "1",
+                                                          "--load_model_test", "model_1", "--image_cache", cache,
+                                                          "--device", "cpu"])
+    code = textwrap.dedent("""
+        import json, os, sys
+        sys.modules["nltk"] = None  # import nltk raises ImportError
+        import torch
+        torch.set_num_threads(2)  # the suite's other workers share the cores
+        sys.path.insert(0, "tools")
+        import prefill_cache_torch, reproduce_reference_torch, sweep_torch
+        ann = os.path.join(%r, "annotations", "captions_train2014.json")
+        for split in ("train", "test"):
+            assert prefill_cache_torch.main(["--ann_path", ann, "--img_dir", os.path.join(%r, "train2014"),
+                                             "--image_cache", os.path.join(%r, split)]) == 0
+        out = %r
+        assert sweep_torch.main(["--sweep_output", out, "--lrs", "0.01", "--embeds", "16",
+                                 "--optimizers", "Adam"] + %r) == 0
+        runs = json.load(open(os.path.join(out, "sweep_summary.json")))
+        assert [r["run"] for r in runs] == ["GRU_COCO_lr_0_01_Embed16_Adam"] and "Bleu_1" in runs[0]["scores"]
+        assert reproduce_reference_torch.main(["--row", "lstm_512_lr0001_adam"]) == 0
+        leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "optax", "show_tell_tpu",
+                                                                      "prefill_cache", "sweep",
+                                                                      "reproduce_reference"))
+        assert not leaked and sys.modules["nltk"] is None, leaked
+    """) % (data_root, data_root, cache, str(tmp_path / "sweep"), argv)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    result = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True,
+                            timeout=300)
+    assert result.returncode == 0, result.stderr[-3000:]
+    assert "python -m show_tell_tpu_torch.cli.main_lstm" in result.stdout
+    assert "8 images, 0 to decode" not in result.stdout and result.stdout.count("8 images, 8 to decode") == 2

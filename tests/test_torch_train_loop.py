@@ -128,7 +128,7 @@ def test_sigterm_checkpoints_and_exits_143(setup, tmp_path):
 
 
 @pytest.mark.parametrize("kw,item", [(dict(dp=2), "needs 2 devices but only 1 are visible"),
-                                     (dict(eval_every_epochs=1, use_pallas=0), "XLA")])
+                                     (dict(eval_every_epochs=1, use_pallas=2), "XLA")])  # outside -1, 0, 1
 def test_later_items_raise_before_the_first_step(setup, tmp_path, kw, item):
     params, vocab = setup
     params = dict(params, output_dir=str(tmp_path), dp=kw.get("dp", 0), use_pallas=kw.get("use_pallas", -1))

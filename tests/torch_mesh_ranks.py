@@ -2,16 +2,17 @@
 tests/test_torch_mesh_eval.py: groups of gloo ranks spawned apart from the
 tests' process (which imports jax).
 
-    python tests/torch_mesh_ranks.py JOB WORKDIR TIMEOUT
+    python tests/torch_mesh_ranks.py JOB WORKDIR TIMEOUT [WORLDS]
 
 JOB is "serve" or "eval".  Reads WORKDIR/inputs.pkl (weights, images,
 batches; no jax here), runs ``serve_rank`` or ``eval_rank`` on a group of
 two ranks (meshes (2, 1) and (1, 2); the eval (1, 2)), then on a group of
 four (mesh (2, 2)), each group joined by ``parallel.multihost.spawn`` and
 ended after TIMEOUT seconds, and writes WORKDIR/results.pkl: {world size:
-each rank's results, in rank order}.  The serve job then runs
-``serve.main --dp 2`` on the files the inputs name and records what it
-printed.
+each rank's results, in rank order}.  WORLDS (default "2,4") names the
+group sizes to run.  The eval passes the inputs' "use_pallas" (default -1)
+to test_model.  The serve job then runs ``serve.main --dp 2`` on the files
+the inputs name and records what it printed.
 """
 
 import contextlib
@@ -180,7 +181,8 @@ def eval_rank(work):
                 os.makedirs(out_dir, exist_ok=True)
                 got[name, beam_size] = test_model(
                     ts, cfg, ListLoader(inputs["batches"], 8), EvalVocab(cfg.vocab_size),
-                    {"output_dir": out_dir, "dp": dp, "mp": mp, "eval_augment": 0, "score_threads": 1},
+                    {"output_dir": out_dir, "dp": dp, "mp": mp, "eval_augment": 0, "score_threads": 1,
+                     "use_pallas": inputs.get("use_pallas", -1)},
                     beam_size=beam_size, seed=7)
         out["meshes"][(dp, mp)] = got
     return out
@@ -188,8 +190,9 @@ def eval_rank(work):
 
 def main():
     job, work, timeout = sys.argv[1], sys.argv[2], float(sys.argv[3])
+    worlds = [int(w) for w in (sys.argv[4] if len(sys.argv) > 4 else "2,4").split(",")]
     rank_fn = {"serve": serve_rank, "eval": eval_rank}[job]
-    results = {world: multihost.spawn(rank_fn, world, (work,), "cpu", timeout=timeout) for world in (2, 4)}
+    results = {world: multihost.spawn(rank_fn, world, (work,), "cpu", timeout=timeout) for world in worlds}
     if job == "serve":
         from show_tell_tpu_torch import serve
 

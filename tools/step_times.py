@@ -15,7 +15,11 @@ LSTM's stack steps (gru_stack_step_cuda, lstm_stack_step_cuda: the
 sharded-projection route's recurrence alone) at B = 1, 64 and 512, warm
 and cold; the fused s2d stem (stem_fused_cuda, RGB layout, pooled: the
 served call) at B = 1 and 64 and the attention context
-(attention_context_cuda) at B = 1, 64 and 256, warm and cold.  Then
+(attention_context_cuda) at B = 1, 64 and 256, warm and cold; the rows
+with no single PyTorch call (the four greedy steps, the two attention dense
+steps, the whole decode, the preprocess) beside their composite
+yardsticks (chip_smoke.library_yardsticks) at B = 1 and 64 (R = 3 and 192
+for the dense steps).  Then
 sha256 digests of every bf16 tensor-core instance's outputs on inputs of
 their own seed (the greedy, dense and top-k steps of both cells and the
 whole decode at B=64, R=192; the attention greedy and dense steps; the
@@ -114,6 +118,22 @@ def main():
         times["attention_context", B] = (cs.event_median_ms(run), cs.event_median_ms(run, before=flush.zero_))
         print("%s bf16 B=%d from %s: attention_context %.4f ms, L2 cold %.4f ms"
               % (smi, B, root, *times["attention_context", B]), flush=True)
+    # the yardsticks of the rows with no single PyTorch call (chip_smoke.library_yardsticks: composites of
+    # PyTorch's own calls on the kernel's operands) beside the kernel, at B = 1 and 64 (R = 3 and 192 for the dense
+    # steps), each behind a 10 ms spin
+    for B in (1, 64):
+        with torch.inference_mode():
+            for name, (yard, kernel, plain) in cs.library_yardsticks(np.random.RandomState(cs.SEED + 11), B,
+                                                                     device).items():
+                rows = 3 * B if name in cs.BEAM_KERNELS else B
+                iters = 10 if name == "gru_whole_greedy_decode" else 30
+                times[name, rows] = (cs.event_median_ms(kernel, iters=iters, warmup=2),)
+                times[name + " yardstick", rows] = (cs.event_median_ms(yard, iters=iters, warmup=2,
+                                                                       spin=cs.LIBRARY_SPIN_CYCLES),)
+                print("%s bf16 %s=%d from %s: %s kernel %.4f ms, yardstick (%s) %.4f ms, against the twin %s"
+                      % (smi, "R" if name in cs.BEAM_KERNELS else "B", rows, root, name, times[name, rows][0],
+                         cs.LIBRARY_CALLS[name], times[name + " yardstick", rows][0],
+                         cs.yardstick_agreement(yard(), plain())), flush=True)
     # the bits of every bf16 tensor-core instance, from inputs of their own seed
     drng = np.random.RandomState(cs.SEED + 7)
     raw = lambda t: t.cpu().contiguous().view(torch.uint8).numpy().tobytes()
@@ -161,8 +181,8 @@ def main():
             print("%s bf16 B=64 from %s: %s %.3f ms, %.1f captions/s (host clock, median of %d; min %.3f, max %.3f "
                   "ms)" % (smi, root, name, times[name, 64][0], 64e3 / times[name, 64][0], args.requests,
                            times[name, 64][1], times[name, 64][2]), flush=True)
-    print(json.dumps({"root": root, "card": smi, "ms": {"%s %s=%d" % (k[0], "R" if k[0].endswith(("topk", "dense"))
-                                                                       else "B", k[1]): v
+    beam_rows = lambda name: name.endswith(("topk", "dense")) or name.split(" ")[0] in cs.BEAM_KERNELS
+    print(json.dumps({"root": root, "card": smi, "ms": {"%s %s=%d" % (k[0], "R" if beam_rows(k[0]) else "B", k[1]): v
                                                         for k, v in times.items()}, "digests": digests}), flush=True)
 
 
