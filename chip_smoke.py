@@ -12,8 +12,9 @@ Phases, one line each (any failure exits non-zero with no ok line):
      fourteen bf16 instances of dense_mma.cuh: the four dense beam steps,
      the two pooled top-k beam steps, the four greedy steps, pooled and
      attention, GRU and LSTM, the whole decode, the two stack steps and
-     the attention context) and the tensor-core (HMMA) instructions in
-     their SASS;
+     the attention context; and its three f32 instances in split-precision
+     TF32: the pooled GRU and LSTM greedy steps and the whole decode) and
+     the tensor-core (HMMA) instructions in their SASS;
   3. kernel against plain, at the flagship widths: the pooled fused step,
      GRU (L=5, E=256, H=512, V=9,956; B = 1, 64, 512; and E=1024 > H) and
      LSTM (E=512, same B); the fused attention step, GRU and LSTM (L=5,
@@ -26,8 +27,9 @@ Phases, one line each (any failure exits non-zero with no ok line):
      step's dense form (both cells), the projection + top-k; logits and
      top-k against the plain projection of the kernel's own new top
      activation, and top-k ties listed lower index first; digests of the
-     f32 dense steps' outputs and of the greedy steps that keep the SIMT
-     code (every f32 instance), and of the bf16 pooled GRU step, at B = 1
+     f32 dense steps' outputs and of the f32 greedy steps (the attention
+     steps keep the SIMT code, the pooled ones run the tensor cores in
+     split-precision TF32), and of the bf16 pooled GRU step, at B = 1
      and 64 (two builds that print the same digests agree bit for bit);
   3c. input kernels against plain, f32 and bf16: the preprocess (C = 3
      and 12, B = 1 and 64, and two odd shapes) bit for bit; the fused stem
@@ -92,7 +94,10 @@ Phases, one line each (any failure exits non-zero with no ok line):
      decoder's scaled decode), captions equal to caption_paths' with it.
      Which JPEG decoder ran (native libjpeg or PIL), and why, is printed;
   6. times: per-step kernel and plain times (the tensor-core greedy steps
-     also with their operands cold in L2), captions/s of each slice,
+     also with their operands cold in L2; the f32 pooled greedy steps at
+     B = 1, 32, 64, 512, warm and cold, beside their bound at the TF32
+     rate, three products a multiply-add, and their f32 composite
+     yardstick with TF32 off), captions/s of each slice,
      greedy and beam, greedy also over 12 requests a family in turns
      (median [min, max]), and the pooled GRU's beam routes side by side; the
      input kernels against their twins and yardsticks (the stem at B = 1
@@ -265,6 +270,10 @@ ROUTE_CONTROLS = 2  # controls of the attention beam's sparse composite route (r
 ROUTE_STATE_SHARE = 0.99  # of a composite step's state values within the bf16 tolerance of the served step's
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, the published peak
 BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
+F32_OPS_PER_S = 67e12  # H100 SXM f32 peak outside the tensor cores
+TF32_OPS_PER_S = 495e12  # H100 SXM dense TF32 tensor-core peak
+# the f32 instances on the tensor cores in split-precision TF32: three TF32 products a multiply-add
+TF32X3_KERNELS = ("fused_gru_decode_step", "fused_lstm_decode_step", "gru_whole_greedy_decode")
 SPIN_CYCLES = 2_000_000  # about 1 ms at the H100's 1.98 GHz boost clock: longer than a wrapper's enqueue
 # about 10 ms: longer than the host work of PyTorch's own RNN call, which issues several kernels a layer
 LIBRARY_SPIN_CYCLES = 10 * SPIN_CYCLES
@@ -1525,24 +1534,28 @@ def projection_tile_ties(rng, device):
 
 # the bf16 projection kernels (vocab_mma.cuh) and the bf16 stem (stem.cu)
 TILE_KERNELS = ("project_argmax_tiles_kernel", "project_topk_tiles_kernel", "stem_mma_kernel")
-# the bf16 instances on the tensor cores (csrc/dense_mma.cuh: mma_step(), and the attention context's att2 phase):
-# entry point -> (kernel template, cell, vocab end: kArgmax = 0, kDense = 1, kTopk = 2, kNone = 3; None where the
-# template names neither: the whole decode, GRU and argmax; the attention context)
+# the instances on the tensor cores (csrc/dense_mma.cuh: every bf16 instance of mma_step(), the attention context's
+# att2 phase, and the f32 instances of tf32x3_step() in split-precision TF32): label -> (kernel template, cell, vocab
+# end: kArgmax = 0, kDense = 1, kTopk = 2, kNone = 3; None where the template names neither: the whole decode, GRU
+# and argmax; the attention context; its element type)
 MMA_STEPS = {
-    "st_fused_gru_dense_step": ("fused_step_kernel", "GruCell", 1),
-    "st_fused_lstm_dense_step": ("fused_step_kernel", "LstmCell", 1),
-    "st_fused_gru_topk_step": ("fused_step_kernel", "GruCell", 2),
-    "st_fused_lstm_topk_step": ("fused_step_kernel", "LstmCell", 2),
-    "st_fused_attn_dense_step": ("fused_attn_step_kernel", "GruCell", 1),
-    "st_fused_attn_lstm_dense_step": ("fused_attn_step_kernel", "LstmCell", 1),
-    "st_fused_gru_step": ("fused_step_kernel", "GruCell", 0),
-    "st_fused_lstm_step": ("fused_step_kernel", "LstmCell", 0),
-    "st_fused_attn_step": ("fused_attn_step_kernel", "GruCell", 0),
-    "st_fused_attn_lstm_step": ("fused_attn_step_kernel", "LstmCell", 0),
-    "st_whole_gru_decode": ("whole_gru_kernel", None, None),
-    "st_gru_stack_step": ("fused_step_kernel", "GruCell", 3),
-    "st_lstm_stack_step": ("fused_step_kernel", "LstmCell", 3),
-    "st_attention_context": ("attention_context_kernel", None, None),
+    "st_fused_gru_dense_step": ("fused_step_kernel", "GruCell", 1, "bf16"),
+    "st_fused_lstm_dense_step": ("fused_step_kernel", "LstmCell", 1, "bf16"),
+    "st_fused_gru_topk_step": ("fused_step_kernel", "GruCell", 2, "bf16"),
+    "st_fused_lstm_topk_step": ("fused_step_kernel", "LstmCell", 2, "bf16"),
+    "st_fused_attn_dense_step": ("fused_attn_step_kernel", "GruCell", 1, "bf16"),
+    "st_fused_attn_lstm_dense_step": ("fused_attn_step_kernel", "LstmCell", 1, "bf16"),
+    "st_fused_gru_step": ("fused_step_kernel", "GruCell", 0, "bf16"),
+    "st_fused_lstm_step": ("fused_step_kernel", "LstmCell", 0, "bf16"),
+    "st_fused_attn_step": ("fused_attn_step_kernel", "GruCell", 0, "bf16"),
+    "st_fused_attn_lstm_step": ("fused_attn_step_kernel", "LstmCell", 0, "bf16"),
+    "st_whole_gru_decode": ("whole_gru_kernel", None, None, "bf16"),
+    "st_gru_stack_step": ("fused_step_kernel", "GruCell", 3, "bf16"),
+    "st_lstm_stack_step": ("fused_step_kernel", "LstmCell", 3, "bf16"),
+    "st_attention_context": ("attention_context_kernel", None, None, "bf16"),
+    "st_fused_gru_step f32": ("fused_step_kernel", "GruCell", 0, "f32"),
+    "st_fused_lstm_step f32": ("fused_step_kernel", "LstmCell", 0, "f32"),
+    "st_whole_gru_decode f32": ("whole_gru_kernel", None, None, "f32"),
 }
 NO_SPILL = set(MMA_STEPS) | {"stem_mma_kernel"}  # instances that fail the build phase with a stack frame or spills
 
@@ -1555,8 +1568,11 @@ def tensor_core_kernel(name):
     tile = next((k for k in TILE_KERNELS if k in name), None)
     if tile:
         return tile
-    for label, (base, cell, mode) in MMA_STEPS.items():
-        if ((base + "<" in name or base + "I" in name) and "__nv_bfloat16" in name and (cell is None or cell in name)
+    for label, (base, cell, mode, elem) in MMA_STEPS.items():
+        # bf16: __nv_bfloat16 in either form; f32: float, demangled (<float, or <float>) or mangled (I f after the name)
+        typed = ("__nv_bfloat16" in name if elem == "bf16"
+                 else re.search(r"%s(<float[,>]|If)" % base, name) is not None)
+        if ((base + "<" in name or base + "I" in name) and typed and (cell is None or cell in name)
                 and (mode is None or re.search(r"(, (\(int\))?%d>|ELi%dE)" % (mode, mode), name))):
             return label
     return None
@@ -1568,8 +1584,9 @@ PTXAS_SOURCES = ["project_argmax.cu", "project_topk.cu", "fused_step.cu", "fused
 
 def tile_kernel_report(build, ptxas_lines):
     """ptxas's registers, stack frame and spills of the tensor-core kernel
-    instances (the two bf16 projection kernels, the bf16 stem and the
-    fourteen bf16 instances of MMA_STEPS), from ``ptxas_lines``
+    instances (the two bf16 projection kernels, the bf16 stem, the fourteen
+    bf16 instances of MMA_STEPS and its three f32 instances in
+    split-precision TF32), from ``ptxas_lines``
     (build.ptxas_report of PTXAS_SOURCES), and, where the toolkit has
     cuobjdump, the tensor-core (HMMA) instructions in their SASS in the
     library; fails if one has none, if ptxas names none of them, or if one
@@ -1719,13 +1736,14 @@ def f32_dense_digests(device):
 
 
 def simt_greedy_digests(device):
-    """Phase 3.  sha256 digests of the greedy steps' tokens and new states
-    that keep the SIMT code, at B = 1 and 64, from inputs of their own
-    seed: every f32 instance (pooled GRU and LSTM, attention GRU and LSTM),
-    so that two builds that print the same digests gave bit-equal outputs
-    on those paths.  After them, the bf16 pooled GRU's (the tensor cores
-    since it moved with the whole decode; its draws keep the B=64 f32
-    inputs those of earlier builds)."""
+    """Phase 3.  sha256 digests of the f32 greedy steps' tokens and new
+    states at B = 1 and 64, from inputs of their own seed: the attention
+    GRU and LSTM keep the SIMT code, so two builds that print the same
+    digests gave bit-equal outputs on those paths; the pooled GRU and LSTM
+    run the tensor cores in split-precision TF32, so theirs change with
+    that code.  After them, the bf16 pooled GRU's (the tensor cores since
+    it moved with the whole decode; its draws keep the B=64 f32 inputs
+    those of earlier builds)."""
     import hashlib
 
     import numpy as np
@@ -1750,9 +1768,10 @@ def simt_greedy_digests(device):
                 prep, w_emb, state = attn_inputs(rng, B, dtype, device, cell)
                 tok, new_state = fused_attn_decode_step_cuda(prep, w_emb, state)
             states = new_state if isinstance(new_state, tuple) else (new_state,)
+            route = ("tensor cores" if dtype == torch.bfloat16 else "tensor cores, split-precision TF32"
+                     if family.startswith("pooled") else "SIMT")
             phase("kernel", "%s greedy step %s B=%d (%s): sha256 of the tokens %s, of the new state %s"
-                  % (family, dname(dtype), B, "SIMT" if dtype == torch.float32 else "tensor cores", digest([tok]),
-                     digest(states)))
+                  % (family, dname(dtype), B, route, digest([tok]), digest(states)))
 
 
 def u8_images(rng, shape, device):
@@ -1853,13 +1872,15 @@ def library_rnn(cell, stacked, Ed):
     return rnn
 
 
-def library_yardsticks(rng, rows, device):
+def library_yardsticks(rng, rows, device, dtype=None, names=None):
     """For the rows whose kernels have no single PyTorch call: composites of
     PyTorch's own calls that compute the kernel's function on its operands,
-    bf16 at ``rows`` rows (beam rows for the dense steps), each built outside
-    the timed call.  Returns {row name: (yardstick, kernel, plain twin)},
-    each a function of no arguments whose first output is compared: tokens,
-    logits or the normalized images."""
+    at ``rows`` rows (beam rows for the dense steps), in ``dtype`` (default
+    bf16; in f32 the caller scopes TF32 off), each built outside the timed
+    call; ``names``: only those rows.  Returns {row name: (yardstick,
+    kernel, plain twin)}, each a function of no arguments; the kernel's and
+    the twin's return their whole output, whose first tensor (tokens, logits
+    or the normalized images) the yardstick's output is compared with."""
     import torch
     import torch.nn.functional as F
 
@@ -1879,67 +1900,75 @@ def library_yardsticks(rng, rows, device):
     from show_tell_tpu_torch.ops.preprocess import preprocess_u8_cuda, preprocess_u8_plain
     from show_tell_tpu_torch.ops.whole_decode import gru_whole_greedy_decode_cuda, gru_whole_greedy_decode_plain
 
-    dtype = torch.bfloat16
+    dtype = dtype or torch.bfloat16
+    want = lambda name: names is None or name in names
     out = {}
     hx_of = lambda state: tuple(state) if isinstance(state, tuple) else state
     for cell, Ed, name, cuda, plain in (("gru", E, "fused_gru_decode_step", fused_gru_decode_step_cuda,
                                          fused_gru_decode_step_plain),
                                         ("lstm", LE, "fused_lstm_decode_step", fused_lstm_decode_step_cuda,
                                          fused_lstm_decode_step_plain)):
+        if not want(name):
+            continue
         stacked, vocab, x, state = step_inputs(rng, rows, dtype, device, Ed, cell)
         rnn = library_rnn(cell, stacked, Ed)
         yard = lambda rnn=rnn, vocab=vocab, x=x, state=state: torch.addmm(
             vocab["b"], rnn(x[None], hx_of(state))[0][0], vocab["w"].T).argmax(dim=-1)
-        out[name] = (yard, lambda c=cuda, a=(stacked, vocab, x, state): c(*a)[0],
-                     lambda p=plain, a=(stacked, vocab, x, state): p(*a)[0])
+        out[name] = (yard, lambda c=cuda, a=(stacked, vocab, x, state): c(*a),
+                     lambda p=plain, a=(stacked, vocab, x, state): p(*a))
+
+    def logits(prep, w_emb, state, rnn):
+        # the attention_context row's composite over the embed-space features, + b_emb, then the stack and the
+        # projection
+        h = (state[0] if isinstance(state, tuple) else state)[-1]
+        alpha = torch.softmax((F.leaky_relu(prep["att1"] + torch.addmm(prep["bdec"], h, prep["wdec"].T)[:, None],
+                                            0.2) @ prep["wfull"]).float(), dim=1)
+        ctx = torch.bmm(alpha[:, None, :].to(dtype), prep["feats_e"])[:, 0] + prep["b_emb"]
+        top = rnn(torch.cat([w_emb, ctx], dim=-1)[None], hx_of(state))[0][0]
+        return torch.addmm(prep["vocab"]["b"], top, prep["vocab"]["w"].T)
+
     for cell in ("gru", "lstm"):
-        prep, w_emb, state = attn_inputs(rng, rows, dtype, device, cell)
-        rnn = library_rnn(cell, prep["stacked"], 2 * AE)
-
-        def logits(prep=prep, w_emb=w_emb, state=state, rnn=rnn):
-            # the attention_context row's composite over the embed-space features, + b_emb, then the stack and
-            # the projection
-            h = (state[0] if isinstance(state, tuple) else state)[-1]
-            alpha = torch.softmax((F.leaky_relu(prep["att1"] + torch.addmm(prep["bdec"], h, prep["wdec"].T)[:, None],
-                                                0.2) @ prep["wfull"]).float(), dim=1)
-            ctx = torch.bmm(alpha[:, None, :].to(dtype), prep["feats_e"])[:, 0] + prep["b_emb"]
-            top = rnn(torch.cat([w_emb, ctx], dim=-1)[None], hx_of(state))[0][0]
-            return torch.addmm(prep["vocab"]["b"], top, prep["vocab"]["w"].T)
-
-        a = (prep, w_emb, state)
         suffix = "_lstm" if cell == "lstm" else ""
-        out["fused_attn%s_decode_step" % suffix] = (
-            lambda f=logits: f().argmax(dim=-1), lambda a=a: fused_attn_decode_step_cuda(*a)[0],
-            lambda a=a: fused_attn_decode_step_plain(*a)[0])
-        arows = attn_inputs(rng, 3 * rows, dtype, device, cell)
-        rnn = library_rnn(cell, arows[0]["stacked"], 2 * AE)
-        out["fused_attn%s_dense_step" % suffix] = (
-            lambda f=logits, a=arows, rnn=rnn: f(*a, rnn=rnn).float(), lambda a=arows: fused_attn_dense_step_cuda(*a)[0],
-            lambda a=arows: fused_attn_dense_step_plain(*a)[0])
-    prepared, feats = whole_inputs(rng, rows, dtype, device)
-    rnn = library_rnn("gru", prepared["stacked"], E)
+        if want("fused_attn%s_decode_step" % suffix):
+            a = attn_inputs(rng, rows, dtype, device, cell)
+            rnn = library_rnn(cell, a[0]["stacked"], 2 * AE)
+            out["fused_attn%s_decode_step" % suffix] = (
+                lambda a=a, rnn=rnn: logits(*a, rnn).argmax(dim=-1), lambda a=a: fused_attn_decode_step_cuda(*a),
+                lambda a=a: fused_attn_decode_step_plain(*a))
+        if want("fused_attn%s_dense_step" % suffix):
+            a = attn_inputs(rng, 3 * rows, dtype, device, cell)
+            rnn = library_rnn(cell, a[0]["stacked"], 2 * AE)
+            out["fused_attn%s_dense_step" % suffix] = (
+                lambda a=a, rnn=rnn: logits(*a, rnn).float(), lambda a=a: fused_attn_dense_step_cuda(*a),
+                lambda a=a: fused_attn_dense_step_plain(*a))
+    if want("gru_whole_greedy_decode"):
+        prepared, feats = whole_inputs(rng, rows, dtype, device)
+        rnn = library_rnn("gru", prepared["stacked"], E)
 
-    def whole(prepared=prepared, feats=feats, rnn=rnn):
-        x, hs, toks = feats.to(dtype), torch.zeros(L, feats.shape[0], H, dtype=dtype, device=device), []
-        for _ in range(T):
-            top, hs = rnn(x[None], hs)
-            tok = torch.addmm(prepared["vocab"]["b"], top[0], prepared["vocab"]["w"].T).argmax(dim=-1)
-            toks.append(tok)
-            x = prepared["embedding"].index_select(0, tok)
-        return torch.stack(toks, 1)
+        def whole(prepared=prepared, feats=feats, rnn=rnn):
+            x, hs, toks = feats.to(dtype), torch.zeros(L, feats.shape[0], H, dtype=dtype, device=device), []
+            for _ in range(T):
+                top, hs = rnn(x[None], hs)
+                tok = torch.addmm(prepared["vocab"]["b"], top[0], prepared["vocab"]["w"].T).argmax(dim=-1)
+                toks.append(tok)
+                x = prepared["embedding"].index_select(0, tok)
+            return torch.stack(toks, 1)
 
-    out["gru_whole_greedy_decode"] = (whole, lambda: gru_whole_greedy_decode_cuda(prepared, feats, T),
-                                      lambda: gru_whole_greedy_decode_plain(prepared, feats, T))
-    imgs = u8_images(rng, (rows, IMG, IMG, 3), device)
-    mean = torch.tensor(IMAGENET_MEAN, device=device)
-    std = torch.tensor(IMAGENET_STD, device=device)
-    out["preprocess_images"] = (lambda: ((imgs.float() / 255.0 - mean) / std).to(dtype),
-                                lambda: preprocess_u8_cuda(imgs, dtype), lambda: preprocess_u8_plain(imgs, dtype))
+        out["gru_whole_greedy_decode"] = (whole, lambda: gru_whole_greedy_decode_cuda(prepared, feats, T),
+                                          lambda: gru_whole_greedy_decode_plain(prepared, feats, T))
+    if want("preprocess_images"):
+        imgs = u8_images(rng, (rows, IMG, IMG, 3), device)
+        mean = torch.tensor(IMAGENET_MEAN, device=device)
+        std = torch.tensor(IMAGENET_STD, device=device)
+        out["preprocess_images"] = (lambda: ((imgs.float() / 255.0 - mean) / std).to(dtype),
+                                    lambda: preprocess_u8_cuda(imgs, dtype), lambda: preprocess_u8_plain(imgs, dtype))
     return out
 
 
 def yardstick_agreement(got, ref):
-    """How a yardstick's output meets the twin's: the share of equal tokens, or the largest absolute difference."""
+    """How a yardstick's output meets the twin's first output: the share of equal tokens, or the largest absolute
+    difference."""
+    ref = ref[0] if isinstance(ref, tuple) else ref
     if not got.is_floating_point():
         return "tokens equal on %.4f" % (got.long() == ref.long()).float().mean().item()
     return "max_abs_err %.3g" % (got.float() - ref.float()).abs().max().item()
@@ -2057,18 +2086,19 @@ def decode_kernels_against_plain(rng, device):
     return errs
 
 
-def work(name, R, k=K_BEAM, emb_rows=0):
+def work(name, R, k=K_BEAM, emb_rows=0, esize=2):
     """(bytes, operations) that one call of kernel ``name`` at R rows must
-    move and do in bf16 at the flagship widths: each input read once, each
-    output written once, two operations a multiply-add.  emb_rows: the
-    embedding rows a whole decode fed back (what its data needs)."""
-    if name == "preprocess_images":  # u8 in, bf16 out; a multiply, a subtract and a divide an element
+    move and do at the flagship widths, its tensors of ``esize`` bytes an
+    element (2: bf16, 4: f32): each input read once, each output written
+    once, two operations a multiply-add.  emb_rows: the embedding rows a
+    whole decode fed back (what its data needs)."""
+    if name == "preprocess_images":  # u8 in, bf16 (f32) out; a multiply, a subtract and a divide an element
         n = R * IMG * IMG * 3
-        return 3 * n, 3 * n
-    if name == "stem_fused":  # u8 image, w (bf16) and the class table tc (f32) in, pooled bf16 out
+        return (1 + esize) * n, 3 * n
+    if name == "stem_fused":  # u8 image, w (bf16 or f32) and the class table tc (f32) in, pooled bf16 (f32) out
         # conv1's 7 x 7 x 3 = 147 taps a position: the 192 of the 4 x 4 x 12 s2d form hold 45 structural zeros
         side = IMG // 2
-        return (R * side * side * 12 + 2 * 192 * 64 + 4 * 4 * 4 * 64 + 2 * R * (side // 2) ** 2 * 64,
+        return (R * side * side * 12 + esize * 192 * 64 + 4 * 4 * 4 * 64 + esize * R * (side // 2) ** 2 * 64,
                 2 * R * side * side * 64 * 147)
     cell = "lstm" if "lstm" in name else "gru"
     G = GATES[cell] * H
@@ -2076,29 +2106,37 @@ def work(name, R, k=K_BEAM, emb_rows=0):
     I0 = 2 * AE if attn else (LE if cell == "lstm" else E)
     vocab_el, vocab_ops = V * H + V, 2 * R * V * H
     if name == "attention_context":  # feats, att1, h, wdec, bdec, wfull -> ctx, alpha (f32)
-        return (2 * (R * AP * (AC + AA) + R * H + AA * H + 2 * AA + R * AC) + 4 * R * AP,
+        return (esize * (R * AP * (AC + AA) + R * H + AA * H + 2 * AA + R * AC) + 4 * R * AP,
                 2 * R * (AA * H + AP * AA + AP * AC))
     end_bytes = 8 * R * k if "topk" in name else 4 * R * V if "dense" in name else 4 * R  # logp + ids, logits, tok
     if name.startswith("project_"):
-        return 2 * (R * H + vocab_el) + end_bytes, vocab_ops
+        return esize * (R * H + vocab_el) + end_bytes, vocab_ops
     stack_el = G * I0 + (2 * L - 1) * G * H + 2 * L * G  # w_ih0, w_ihU and w_hh, the biases
     state_el = 2 * (2 if cell == "lstm" else 1) * L * R * H  # hs (and cs), in and out
     rec_ops = 2 * R * (G * I0 + (2 * L - 1) * G * H)
     if name.endswith("stack_step"):  # x, the weights, the state in and out
-        return 2 * (R * I0 + stack_el + state_el), rec_ops
+        return esize * (R * I0 + stack_el + state_el), rec_ops
     if name == "gru_whole_greedy_decode":  # features, weights, projection, the rows fed back; T tokens a row out
-        return 2 * (R * I0 + stack_el + vocab_el + emb_rows * I0) + 4 * R * T, T * (rec_ops + vocab_ops)
+        return esize * (R * I0 + stack_el + vocab_el + emb_rows * I0) + 4 * R * T, T * (rec_ops + vocab_ops)
     x_el = R * AE + R * AP * (AE + AA) + AA * H + 2 * AA + AE if attn else R * I0  # w_emb, feats_e, att1, ... or x
     ops = rec_ops + vocab_ops
     if attn:
         ops += 2 * R * (AA * H + AP * AA + AP * AE)  # att2, the scores, the context
-    return 2 * (stack_el + state_el + vocab_el + x_el) + end_bytes, ops
+    return esize * (stack_el + state_el + vocab_el + x_el) + end_bytes, ops
 
 
-def bound(name, R, emb_rows=0):
-    """(least ms the card could take for one call, what bounds it)."""
-    nbytes, ops = work(name, R, emb_rows=emb_rows)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
+def bound(name, R, emb_rows=0, dtype="bfloat16"):
+    """(least ms the card could take for one call, what bounds it): bf16 at the
+    tensor cores' bf16 peak; f32 (``dtype`` float32) on the tensor cores in
+    split-precision TF32 for TF32X3_KERNELS (three products a multiply-add at
+    the TF32 peak), else at the card's f32 peak outside the tensor cores."""
+    f32 = dtype == "float32"
+    nbytes, ops = work(name, R, emb_rows=emb_rows, esize=4 if f32 else 2)
+    if not f32:
+        t_ops = ops / BF16_OPS_PER_S
+    else:
+        t_ops = 3 * ops / TF32_OPS_PER_S if name in TF32X3_KERNELS else ops / F32_OPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -2268,7 +2306,7 @@ def main():
         fail("nvcc failed on grid_barrier_probe.cu (exit %d): %s" % (probe_proc.returncode, probe_err))
     probe = ctypes.CDLL(probe_so)
     os.remove(probe_so)  # loaded; nothing else reads it
-    probe.st_grid_barriers.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    probe.st_grid_barriers.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p]
     probe.st_grid_barriers.restype = ctypes.c_int
     phase("build", "%s, the grid-barrier probe and ptxas's report in %.2f s (%s)"
           % (os.path.basename(build.library_path()), time.perf_counter() - t0,
@@ -3814,6 +3852,7 @@ def main():
     times = {}
     library = {}  # kernel -> ms of the one PyTorch call (or composite) that computes its function at the line's shape
     cold_ms = {}  # (kernel, B) -> ms with the operands cold in L2 (a 64 MB write between the spin and the call)
+    f32_rows = {}  # (kernel, B) -> the f32 instance's times, bound and yardstick (the pooled greedy steps)
     flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=device)
     note = "(median of 30 after 5, CUDA events, each call queued behind a 1 ms spin)"
     for name, cell, Ed, cuda_step, plain_step in (
@@ -3825,6 +3864,22 @@ def main():
                               event_median_ms(lambda: plain_step(stacked, vocab_w, x, state)))
             # the tensor-core greedy steps, also with their operands cold in L2
             cold_ms[name, B] = event_median_ms(lambda: cuda_step(stacked, vocab_w, x, state), before=flush_buf.zero_)
+        # the f32 instance (the tensor cores in split-precision TF32) at B = 1, 32, 64, 512, L2 warm and cold, beside
+        # its twin, its f32 bound and its f32 composite yardstick (torch.nn.GRU / LSTM + addmm + argmax, TF32 off)
+        for B in (1, 32, 64, 512):
+            with torch.inference_mode(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+                yard, call, plain = library_yardsticks(rng, B, device, torch.float32, (name,))[name]
+                row = {"rows": B, "ms": event_median_ms(call), "cold_ms": event_median_ms(call, before=flush_buf.zero_),
+                       "plain_ms": event_median_ms(plain)}
+                agree = yardstick_agreement(yard(), plain())
+                row["library_ms"] = event_median_ms(yard, spin=LIBRARY_SPIN_CYCLES)
+            row["bound_ms"], row["bound_by"] = bound(name, B, dtype="float32")
+            f32_rows[name, B] = row
+            phase("times", "%s float32 %s B=%d (tensor cores, split-precision TF32): kernel %.4f ms (L2 cold %.4f ms), "
+                  "plain %.4f ms, bound %.4f ms (%s), f32 composite yardstick %s %.4f ms (TF32 off, 10 ms spin; "
+                  "against the twin: %s): kernel / yardstick %.3f %s"
+                  % (card, name, B, row["ms"], row["cold_ms"], row["plain_ms"], row["bound_ms"], row["bound_by"],
+                     LIBRARY_CALLS[name], row["library_ms"], agree, row["ms"] / row["library_ms"], note))
     for B in (1, 64, 256):
         for name, cell in (("fused_attn_decode_step", "gru"), ("fused_attn_lstm_decode_step", "lstm")):
             prep, w_emb, state = attn_inputs(rng, B, torch.bfloat16, device, cell)
@@ -3990,7 +4045,7 @@ def main():
         code = dtype_code("grid barriers", dtype)
 
         def barriers():
-            raise_on_error("grid barriers", probe.st_grid_barriers(code, L, 64, E, H, BARRIERS, stream_arg(device)))
+            raise_on_error("grid barriers", probe.st_grid_barriers(code, BARRIERS, stream_arg(device)))
 
         per_us = 1e3 * event_median_ms(barriers, iters=10, warmup=2) / BARRIERS
         phase("times", "%s %s grid barrier at the whole-decode kernel's grid: %.3f us each (%d in one launch); a T=25 "
@@ -4239,6 +4294,8 @@ def main():
             "library_call": LIBRARY_CALLS.get(name),
             "rows": rows,
         })
+        if (name, rows) in f32_rows:  # its f32 instance, on the tensor cores in split-precision TF32, at B = 64
+            kernels[-1]["float32"] = f32_rows[name, rows]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -19,13 +19,8 @@ __global__ void __launch_bounds__(kThreads) grid_barriers_kernel(int n) {
 }
 
 template <typename T>
-cudaError_t launch_barriers(int L, int B, int E, int H, int n, cudaStream_t stream) {
-  Params p{};
-  p.even.L = L;
-  p.even.B = B;
-  p.even.I0 = E;
-  p.even.H = H;
-  const size_t smem = smem_bytes<T>(p);
+cudaError_t launch_barriers(int n, cudaStream_t stream) {
+  const size_t smem = kMmaSmemFloats * sizeof(float);  // the whole decode's staged sums, either dtype
   cudaError_t err;
   if (smem > 48 * 1024) {
     err = cudaFuncSetAttribute(whole_gru_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -47,10 +42,11 @@ cudaError_t launch_barriers(int L, int B, int E, int H, int n, cudaStream_t stre
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (the whole-decode instance whose grid is
-// taken).  Returns a cudaError_t (0 on success).
-extern "C" int st_grid_barriers(int dtype, int L, int B, int E, int H, int n, void* stream) {
+// taken; both stage the same shared memory, whatever the widths).  Returns a
+// cudaError_t (0 on success).
+extern "C" int st_grid_barriers(int dtype, int n, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return static_cast<int>(launch_barriers<float>(L, B, E, H, n, s));
-  if (dtype == 1) return static_cast<int>(launch_barriers<__nv_bfloat16>(L, B, E, H, n, s));
+  if (dtype == 0) return static_cast<int>(launch_barriers<float>(n, s));
+  if (dtype == 1) return static_cast<int>(launch_barriers<__nv_bfloat16>(n, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -7,7 +7,11 @@
 // instance of fused_step.cu and fused_attn_step.cu (both cells), and the
 // whole decode of whole_decode.cu, which runs the pooled GRU argmax
 // instance's layers and key merge T times and so stays bit-equal to its
-// per-step loop.  The f32 instances keep the SIMT code of decode_common.cuh.
+// per-step loop.  tf32x3_step() names the f32 instances that run it in
+// split-precision TF32 (below): the pooled greedy steps (fused_step.cu's
+// argmax end, both cells) and, with them, the whole decode.  The other f32
+// instances (the attention steps, the dense, top-k and stack ends) keep
+// the SIMT code of decode_common.cuh.
 //
 // What bounds a step on an H100.  It reads the recurrence weights (15-23 MB
 // in bf16 at the flagships) and the 10.2 MB projection, 25-34 MB in all,
@@ -44,9 +48,10 @@
 //   r and z over both sides, n's x side and n's h side apart; the LSTM its
 //   four gates.  The vocabulary's tile is 64 rows.  Items go round the
 //   cooperative grid; a layer ends in the grid barrier, as before.
-// - K split across blocks (the stack step only, SplitK): at a small batch a
-//   layer has few items (32 at B = 1: 32 of 132 SMs pull its weights), so
-//   the stack step's instance may cut each item into S parts, part s taking
+// - K split across blocks (the bf16 stack step and the f32 greedy steps,
+//   SplitK): at a small batch a layer has few items (32 at B = 1: 32 of 132
+//   SMs pull its weights), so those instances may cut each item into S
+//   parts, part s taking
 //   the contiguous run [s n / S, (s + 1) n / S) of the layer's n K chunks,
 //   split over the four warps as above.  Each part writes its warp-ordered
 //   sums (16 columns x up to 32 rows, each slot) to a global scratch; the
@@ -91,6 +96,41 @@
 //   the chunk's 32, are zeros in registers (never loaded); only j < H,
 //   v < V and n < B are written or form a key.  K need only be a multiple
 //   of 8.
+//
+// The f32 instances of tf32x3_step().  Their weights are twice the bf16
+// bytes: 50.3 MB (GRU, E=256) and 62.3 MB (LSTM, E=512) a step at the
+// flagships, no longer inside the 50 MB L2, so every re-read of a weight
+// is HBM traffic; the SIMT code re-read each weight once per 8 batch rows
+// and multiplied in an f32 FMA loop.  Here the same items, pipeline,
+// staging and ends run on mma.sync.m16n8k8 with tf32 operands:
+// - Products in split-precision TF32 (3xTF32), this code's one deliberate
+//   numeric choice.  Each f32 operand a is split in registers, as it
+//   arrives, into big = tf32(a) and small = tf32(a - big), both rounded to
+//   nearest with ties away (cvt.rna, which leaves the low 13 bits zero),
+//   and a product is big_a big_b + big_a small_b + small_a big_b: three
+//   mma's from a zeroed partial sum (small_a big_b first, big_a big_b
+//   last), the partial sum then added to the item's f32 sum by an f32 add,
+//   since the tensor cores truncate what they accumulate.  The small x
+//   small term and the split's remainders are about 2^-21 of |a b|, f32's
+//   order.  One-pass TF32 keeps about 2^-11 and would miss the f32 bars
+//   (states within 1e-5 of the plain twin).  No pre-split copy of the
+//   weights: it would double the bytes a step reads.
+// - Fragments: m16n8k8 takes 8 K columns a step where m16n8k16 took 16.  A
+//   chunk is kTf32Chunk = 16 columns, and lane (g, t) reads columns
+//   4t .. 4t+3 of each row (16 contiguous bytes, as in bf16: a warp's load
+//   is 8 rows x 64 contiguous bytes) and feeds them to two k8 steps:
+//   columns 4t and 4t+1 to the first as its k = t and t + 4, 4t+2 and 4t+3
+//   to the second, the same for A and B.  The accumulators' layout is
+//   m16n8k16's, so the staging and the ends are shared.
+// - Items: bf16's, and the layers split K across blocks as the stack step
+//   does (S from ops/fused_step.stack_tiles for 16-column chunks: 8 parts
+//   at B <= 32, 4 at B = 64, 1 from B = 160): unsplit, a layer's 32 items
+//   at B <= 32 left 100 SMs idle and each warp's chunks in one long chain
+//   of HBM reads, and the step ran no faster than the SIMT code.  A weight
+//   tile's slabs run at once on other blocks: taking a tile's two slabs in
+//   turn on one block (its second read from L2) gained a little at B >= 64
+//   but, with the K split, spilled registers.  kTf32Depth = 1: with a
+//   second register buffer the f32 instances spilled too.
 
 #pragma once
 
@@ -110,6 +150,8 @@ constexpr int kMmaDepth = 2;                   // register buffers of a warp's c
 constexpr size_t kMmaSmemFloats = static_cast<size_t>(kWarps) * kMmaVals * kMmaPitch;
 constexpr int kMaxSplits = 8;                  // parts an item's K chunks may be split into (the stack step)
 constexpr int kMmaPartFloats = kMmaSlots * kMmaSlab * 16;  // f32 sums of one part in the split-K scratch
+constexpr int kTf32Chunk = 16;                 // K columns a step of a warp in f32: two k8 mma steps
+constexpr int kTf32Depth = 1;                  // kMmaDepth of the f32 instances (2 spilled)
 
 // Whether a fused step's instance (or, with kArgmax, the whole decode) runs this file's code: bf16, any vocab end
 // (dense, top-k, argmax or none), either cell.
@@ -119,6 +161,30 @@ __host__ __device__ constexpr bool mma_step() {
          (kMode == kDense || kMode == kTopk || kMode == kArgmax || kMode == kNone);
 }
 
+// Whether a pooled step's f32 instance runs this file's code in split-precision TF32: the argmax end of
+// fused_step.cu, either cell, and the whole decode, which runs that instance's layers and key merge.  Only
+// fused_step.cu and whole_decode.cu ask it (pooled_mma_step); the attention steps ask mma_step() alone.
+template <typename T, int kMode>
+__host__ __device__ constexpr bool tf32x3_step() {
+  return std::is_same<T, float>::value && kMode == kArgmax;
+}
+
+// Whether a pooled step's instance (fused_step.cu, whole_decode.cu) runs this file's code.
+template <typename T, int kMode>
+__host__ __device__ constexpr bool pooled_mma_step() {
+  return mma_step<T, kMode>() || tf32x3_step<T, kMode>();
+}
+
+// The K geometry of each operand type: columns a chunk, columns a lane's 16-byte load, and the register buffers of a
+// warp's chunk pipeline.
+template <typename T> struct MmaShape;
+template <> struct MmaShape<__nv_bfloat16> {
+  static constexpr int kChunk = kMmaChunk, kLane = 8, kDepth = kMmaDepth;
+};
+template <> struct MmaShape<float> {
+  static constexpr int kChunk = kTf32Chunk, kLane = 4, kDepth = kTf32Depth;
+};
+
 // The stack step's K split across blocks: S parts an item, for layer 0 and for the upper layers.
 struct SplitK {
   float* partial;          // [max_parts, kMmaSlots, kMmaSlab, 16] scratch: each part's warp-ordered sums
@@ -126,6 +192,18 @@ struct SplitK {
   int s0, su;              // S of layer 0 and of layers 1 .. L-1, 1 <= S <= kMaxSplits
   int max_parts;           // parts the scratch holds: items x S for each S > 1
 };
+
+// A K split of the layers (the bf16 stack step, the f32 greedy steps and whole decode: ``split``): 1 <= S <=
+// kMaxSplits for layer 0 and for the upper layers, and where S > 1 the scratch and counters for items x S parts, an
+// item 16 columns and 32 rows; the other instances take S = 1.
+inline bool split_args_ok(bool split, const SplitK& k, int B, int H) {
+  if (!split) return k.s0 == 1 && k.su == 1;
+  const int items = (B + kMmaSlab - 1) / kMmaSlab * ((H + 15) / 16);
+  auto ok = [&](int S) {
+    return S >= 1 && S <= kMaxSplits && (S == 1 || (k.partial && k.arrivals && items * S <= k.max_parts));
+  };
+  return ok(k.s0) && ok(k.su);
+}
 
 // threadIdx.x, opaque to the compiler: a phase (a layer, a projection) reads it once, and its widths through the same
 // empty asm, so that nothing it derives from them is hoisted out of the whole decode's step loop (see Registers above).
@@ -144,11 +222,12 @@ struct MmaChunk {
 
 // A: NA m16 row tiles, tile i at a + i * tile_step, its row r at + r * K; row r
 // of tile i is real while r + i * row_step < a_rows.  B: the slab's rows at
-// b, nb of them real.  Columns k0 + 8t .. k0 + 8t + 7 of each, zero past K.
-template <int NA>
-__device__ __forceinline__ void mma_load(MmaChunk& f, const __nv_bfloat16* a, size_t tile_step, int a_rows,
-                                         int row_step, const __nv_bfloat16* b, int nb, int K, int k0, int lane) {
-  const int g = lane >> 2, k = k0 + 8 * (lane & 3);
+// b, nb of them real.  Columns k0 + 8t .. k0 + 8t + 7 of each (bf16; f32:
+// k0 + 4t .. k0 + 4t + 3), zero past K.
+template <typename T, int NA>
+__device__ __forceinline__ void mma_load(MmaChunk& f, const T* a, size_t tile_step, int a_rows, int row_step,
+                                         const T* b, int nb, int K, int k0, int lane) {
+  const int g = lane >> 2, k = k0 + MmaShape<T>::kLane * (lane & 3);
   const bool in_k = k < K;
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
 #pragma unroll
@@ -181,6 +260,91 @@ __device__ __forceinline__ void mma_tile(float (&acc)[4][4], const MmaChunk& f, 
   }
 }
 
+// 3xTF32's split of an f32 value: big = tf32(v), small = tf32(v - big), each
+// rounded to nearest with ties away (cvt.rna leaves the low 13 bits zero, so
+// big reads back as the float it stands for, and v - big is exact in f32).
+__device__ __forceinline__ void tf32_split(float v, uint32_t& big, uint32_t& small) {
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(big) : "f"(v));
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(small) : "f"(v - __uint_as_float(big)));
+}
+
+__device__ __forceinline__ void mma_tf32_1688(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Float e (0..3, static once unrolled) of a lane's 16-byte load.
+__device__ __forceinline__ float lane_float(const uint4& u, int e) {
+  return __uint_as_float(e == 0 ? u.x : e == 1 ? u.y : e == 2 ? u.z : u.w);
+}
+
+// f32: acc[nt] += k8 step s of tile i of the chunk x its n8 tiles nt < nts, in
+// 3xTF32; bb, bs are the big and small halves of the B values of step s.  A
+// fragment (m16n8k8, tf32): a0 = A[g][t], a1 = A[g+8][t], a2 = A[g][t+4],
+// a3 = A[g+8][t+4], logical k = t and t + 4 being the lane's floats 2s and
+// 2s + 1 (columns 4t + 2s and 4t + 2s + 1 of the chunk); b0 = B[t][g],
+// b1 = B[t+4][g] from the same floats of the batch row's load.  The step's
+// three products are summed from zero on the tensor cores and added to acc
+// by an f32 add (round to nearest): the tensor cores truncate what they
+// accumulate, and a running sum carried through them over K drifted by
+// about 2^-23 of its size an mma, past the f32 bar of 1e-5 on the states
+// at the flagship widths.
+__device__ __forceinline__ void mma_tile_tf32x3(float (&acc)[4][4], const MmaChunk& f, int i, int s, int nts,
+                                                const uint32_t (&bb)[4][2], const uint32_t (&bs)[4][2]) {
+  uint32_t ab[4], as[4];
+  tf32_split(lane_float(f.a[i][0], 2 * s), ab[0], as[0]);
+  tf32_split(lane_float(f.a[i][1], 2 * s), ab[1], as[1]);
+  tf32_split(lane_float(f.a[i][0], 2 * s + 1), ab[2], as[2]);
+  tf32_split(lane_float(f.a[i][1], 2 * s + 1), ab[3], as[3]);
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    if (nt < nts) {
+      float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      mma_tf32_1688(d, as, bb[nt][0], bb[nt][1]);
+      mma_tf32_1688(d, ab, bs[nt][0], bs[nt][1]);
+      mma_tf32_1688(d, ab, bb[nt][0], bb[nt][1]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nt][e] += d[e];
+    }
+  }
+}
+
+// The chunk's products: A tile i < NA into acc[i], but the GRU's n gate
+// (NA == 3, tile 2) of an h-side chunk (n_h) into acc[3], its h side apart.
+// bf16: mma_tile's two k16 steps a tile; f32: two k8 steps, each splitting
+// the slab's B values once for all NA tiles.
+template <typename T, int NA>
+__device__ __forceinline__ void mma_chunk(float (&acc)[kMmaSlots][4][4], const MmaChunk& f, int nts, bool n_h) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+#pragma unroll
+    for (int i = 0; i < NA; ++i) {
+      if (NA == 3 && i == 2 && n_h)
+        mma_tile(acc[3], f, i, nts);
+      else
+        mma_tile(acc[i], f, i, nts);
+    }
+  } else {
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      uint32_t bb[4][2], bs[4][2];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) tf32_split(lane_float(f.b[nt], 2 * s + h), bb[nt][h], bs[nt][h]);
+#pragma unroll
+      for (int i = 0; i < NA; ++i) {
+        if (NA == 3 && i == 2 && n_h)
+          mma_tile_tf32x3(acc[3], f, i, s, nts, bb, bs);
+        else
+          mma_tile_tf32x3(acc[i], f, i, s, nts, bb, bs);
+      }
+    }
+  }
+}
+
 __device__ __forceinline__ void mma_zero(float (&acc)[kMmaSlots][4][4]) {
 #pragma unroll
   for (int s = 0; s < kMmaSlots; ++s)
@@ -191,19 +355,19 @@ __device__ __forceinline__ void mma_zero(float (&acc)[kMmaSlots][4][4]) {
 }
 
 // Chunks [c0, c1) through load(f, c) and then compute(f, c), the loads of
-// the next kMmaDepth - 1 chunks in flight while one is computed (a ring of
+// the next kDepth - 1 chunks in flight while one is computed (a ring of
 // register buffers, unrolled so that every index is static).
-template <typename Load, typename Compute>
+template <int kDepth = kMmaDepth, typename Load, typename Compute>
 __device__ __forceinline__ void mma_pipeline(int c0, int c1, Load load, Compute compute) {
-  MmaChunk buf[kMmaDepth];
+  MmaChunk buf[kDepth];
 #pragma unroll
-  for (int d = 0; d + 1 < kMmaDepth; ++d)
+  for (int d = 0; d + 1 < kDepth; ++d)
     if (c0 + d < c1) load(buf[d], c0 + d);
-  for (int c = c0; c < c1; c += kMmaDepth) {
+  for (int c = c0; c < c1; c += kDepth) {
 #pragma unroll
-    for (int d = 0; d < kMmaDepth; ++d) {
+    for (int d = 0; d < kDepth; ++d) {
       if (c + d < c1) {
-        if (c + d + kMmaDepth - 1 < c1) load(buf[(d + kMmaDepth - 1) % kMmaDepth], c + d + kMmaDepth - 1);
+        if (c + d + kDepth - 1 < c1) load(buf[(d + kDepth - 1) % kDepth], c + d + kDepth - 1);
         compute(buf[d], c + d);
       }
     }
@@ -268,15 +432,16 @@ __device__ __forceinline__ void mma_part_sums(const float* parts, int S, int m, 
 }
 
 // One layer of the recurrence over all B rows, by (16 columns, 32 rows)
-// items.  K is the layer input's I columns, then h's H.  kSplit (the stack
-// step): each item is S parts over its K chunks, finished by the last part
-// to arrive (see the K split above); with S = 1 as without kSplit.
-template <typename Cell, bool kSplit = false>
-__device__ void mma_rnn_layer(const Layer<__nv_bfloat16>& y, float* red, const SplitK* sk = nullptr, int S = 1) {
-  constexpr int G = Cell::kGates;
+// items.  K is the layer input's I columns, then h's H.  kSplit (the bf16
+// stack step, the f32 greedy steps): each item is S parts over its K
+// chunks, finished by the last part to arrive (see the K split above);
+// with S = 1 as without kSplit.
+template <typename T, typename Cell, bool kSplit = false>
+__device__ void mma_rnn_layer(const Layer<T>& y, float* red, const SplitK* sk = nullptr, int S = 1) {
+  constexpr int G = Cell::kGates, kChunk = MmaShape<T>::kChunk;
   int H = y.H, I = y.I, B = y.B;
   asm volatile("" : "+r"(H), "+r"(I), "+r"(B));  // opaque, as phase_thread()
-  const int cx = (I + kMmaChunk - 1) / kMmaChunk, n_chunks = cx + (H + kMmaChunk - 1) / kMmaChunk;
+  const int cx = (I + kChunk - 1) / kChunk, n_chunks = cx + (H + kChunk - 1) / kChunk;
   const int tid = phase_thread(), lane = tid & 31;
   int c0, c1;
   mma_split(n_chunks, c0, c1, tid >> 5);
@@ -288,23 +453,17 @@ __device__ void mma_rnn_layer(const Layer<__nv_bfloat16>& y, float* red, const S
     const int nb = min(kMmaSlab, B - n0), nts = (nb + 7) / 8;
     auto load = [&](MmaChunk& f, int c) {
       if (c < cx)
-        mma_load<G>(f, y.w_ih + static_cast<size_t>(j0) * I, static_cast<size_t>(H) * I, H - j0, 0,
-                    y.xin + static_cast<size_t>(n0) * I, nb, I, c * kMmaChunk, lane);
+        mma_load<T, G>(f, y.w_ih + static_cast<size_t>(j0) * I, static_cast<size_t>(H) * I, H - j0, 0,
+                       y.xin + static_cast<size_t>(n0) * I, nb, I, c * kChunk, lane);
       else
-        mma_load<G>(f, y.w_hh + static_cast<size_t>(j0) * H, static_cast<size_t>(H) * H, H - j0, 0,
-                    y.hin + static_cast<size_t>(n0) * H, nb, H, (c - cx) * kMmaChunk, lane);
+        mma_load<T, G>(f, y.w_hh + static_cast<size_t>(j0) * H, static_cast<size_t>(H) * H, H - j0, 0,
+                       y.hin + static_cast<size_t>(n0) * H, nb, H, (c - cx) * kChunk, lane);
     };
     float acc[kMmaSlots][4][4];
     mma_zero(acc);
-    mma_pipeline(c0, c1, load, [&](const MmaChunk& f, int c) {
-#pragma unroll
-      for (int i = 0; i < G; ++i) {
-        if (G == 3 && i == 2 && c >= cx)
-          mma_tile(acc[3], f, i, nts);  // the GRU's n gate: the h side apart
-        else
-          mma_tile(acc[i], f, i, nts);
-      }
-    });
+    // the chunk's products; the GRU's n gate: the h side apart
+    mma_pipeline<MmaShape<T>::kDepth>(c0, c1, load,
+                                      [&](const MmaChunk& f, int c) { mma_chunk<T, G>(acc, f, nts, c >= cx); });
     __syncthreads();  // the previous item's finish is done with red
     mma_stage(acc, red, tid);
     const float* parts = nullptr;  // the item's S parts in the scratch, once this block is the last to arrive
@@ -351,50 +510,49 @@ __device__ void mma_rnn_layer(const Layer<__nv_bfloat16>& y, float* red, const S
         else
           s[3] = t[3];
         const int row = n0 + n;
-        const float h = Cell::kHidden ? __bfloat162float(__ldcg(y.hin + static_cast<size_t>(row) * H + j)) : 0.0f;
-        Cell::template finish<__nv_bfloat16>(y, s, row, j, h);
+        const float h = Cell::kHidden ? Vec<T>::to_f32(__ldcg(y.hin + static_cast<size_t>(row) * H + j)) : 0.0f;
+        Cell::template finish<T>(y, s, row, j, h);
       }
     }
   }
 }
 
 // Layer l of the stack on the tensor cores (stack_layer's operands).
-template <typename Cell>
+template <typename T, typename Cell>
 __device__ void mma_stack_layer(const StackArgs& s, int l, float* red) {
-  mma_rnn_layer<Cell>(stack_layer_args<__nv_bfloat16, Cell>(s, l), red);
+  mma_rnn_layer<T, Cell>(stack_layer_args<T, Cell>(s, l), red);
 }
 
-// Layer l of the stack step (kNone): its K split S ways across blocks, S = sk.s0 for layer 0, sk.su above.
-template <typename Cell>
+// Layer l with its K split S ways across blocks, S = sk.s0 for layer 0, sk.su above: the bf16 stack step (kNone)
+// and the f32 greedy steps.
+template <typename T, typename Cell>
 __device__ void mma_stack_layer(const StackArgs& s, int l, float* red, const SplitK& sk) {
-  mma_rnn_layer<Cell, true>(stack_layer_args<__nv_bfloat16, Cell>(s, l), red, &sk, l == 0 ? sk.s0 : sk.su);
+  mma_rnn_layer<T, Cell, true>(stack_layer_args<T, Cell>(s, l), red, &sk, l == 0 ? sk.s0 : sk.su);
 }
 
 // top[b] . wv[v] in f32 for all B rows, by (64 vocabulary rows, 32 batch
 // rows) items; top [B, H], wv [V, H].  After an item's sums are staged,
 // every thread calls end(n0, nb, v0): mma_sum(red, m >> 4, m & 15, n) is
 // the product of batch row n0 + n (n < nb) and vocabulary row v0 + m.
-template <typename End>
-__device__ __forceinline__ void mma_project(const __nv_bfloat16* top, const __nv_bfloat16* wv, int B, int H, int V,
-                                            float* red, End end) {
+template <typename T, typename End>
+__device__ __forceinline__ void mma_project(const T* top, const T* wv, int B, int H, int V, float* red, End end) {
+  constexpr int kChunk = MmaShape<T>::kChunk;
   asm volatile("" : "+r"(B), "+r"(H), "+r"(V));  // opaque, as phase_thread()
   const int tid = phase_thread(), lane = tid & 31;
   int c0, c1;
-  mma_split((H + kMmaChunk - 1) / kMmaChunk, c0, c1, tid >> 5);
+  mma_split((H + kChunk - 1) / kChunk, c0, c1, tid >> 5);
   const int slabs = (B + kMmaSlab - 1) / kMmaSlab, items = slabs * ((V + kMmaVocabRows - 1) / kMmaVocabRows);
   for (int item = blockIdx.x; item < items; item += gridDim.x) {
     const int n0 = (item % slabs) * kMmaSlab, v0 = (item / slabs) * kMmaVocabRows;
     const int nb = min(kMmaSlab, B - n0), nts = (nb + 7) / 8;
     auto load = [&](MmaChunk& f, int c) {
-      mma_load<kMmaSlots>(f, wv + static_cast<size_t>(v0) * H, static_cast<size_t>(16) * H, V - v0, 16,
-                          top + static_cast<size_t>(n0) * H, nb, H, c * kMmaChunk, lane);
+      mma_load<T, kMmaSlots>(f, wv + static_cast<size_t>(v0) * H, static_cast<size_t>(16) * H, V - v0, 16,
+                             top + static_cast<size_t>(n0) * H, nb, H, c * kChunk, lane);
     };
     float acc[kMmaSlots][4][4];
     mma_zero(acc);
-    mma_pipeline(c0, c1, load, [&](const MmaChunk& f, int) {
-#pragma unroll
-      for (int i = 0; i < kMmaSlots; ++i) mma_tile(acc[i], f, i, nts);
-    });
+    mma_pipeline<MmaShape<T>::kDepth>(c0, c1, load,
+                                      [&](const MmaChunk& f, int) { mma_chunk<T, kMmaSlots>(acc, f, nts, false); });
     __syncthreads();  // the previous item's end is done with red
     mma_stage(acc, red, tid);
     end(n0, nb, v0);
@@ -404,8 +562,9 @@ __device__ __forceinline__ void mma_project(const __nv_bfloat16* top, const __nv
 // best[b] = max(best[b], the packed (logit, index) key of b's first max over
 // v < V of top[b] . wv[v] + bv[v]), by one atomicMax an item and batch row;
 // best must start below every key (0) behind a grid barrier.
-__device__ void mma_argmax_keys(const __nv_bfloat16* top, const __nv_bfloat16* wv, const __nv_bfloat16* bv, int B,
-                                int H, int V, unsigned long long* best, float* red) {
+template <typename T>
+__device__ void mma_argmax_keys(const T* top, const T* wv, const T* bv, int B, int H, int V, unsigned long long* best,
+                                float* red) {
   static_assert(kThreads == kRowThreads * kMmaSlab && kMmaVocabRows == kRowThreads * 16,
                 "the argmax end: four threads a batch row, 16 vocabulary rows (one slot) each");
   const int tid = phase_thread();
@@ -418,7 +577,7 @@ __device__ void mma_argmax_keys(const __nv_bfloat16* top, const __nv_bfloat16* w
       for (int m = 0; m < 16; ++m) {  // increasing v: of equal values the first stays
         const int v = v0 + 16 * q + m;
         if (v < V) {
-          const float x = mma_sum(red, q, m, n) + __bfloat162float(bv[v]);
+          const float x = mma_sum(red, q, m, n) + Vec<T>::to_f32(bv[v]);
           if (idx < 0 || x > val) {
             val = x;
             idx = v;
@@ -481,17 +640,17 @@ __device__ void mma_topk_parts(const __nv_bfloat16* top, const __nv_bfloat16* wv
 
 // The vocab phase of an mma_step instance, after the top activation is
 // complete: the dense f32 logits, each row's top-K log-probabilities, or
-// the first-max argmax tokens.
-template <int kMode>
-__device__ void mma_vocab_phase(const __nv_bfloat16* top, const __nv_bfloat16* wv, const __nv_bfloat16* bv, int B,
-                                int H, int V, const VocabOut& out, float* red, cg::grid_group& grid) {
+// the first-max argmax tokens (also the tf32x3_step instances' end).
+template <int kMode, typename T>
+__device__ void mma_vocab_phase(const T* top, const T* wv, const T* bv, int B, int H, int V, const VocabOut& out,
+                                float* red, cg::grid_group& grid) {
   if constexpr (kMode == kDense) {
     mma_project(top, wv, B, H, V, red, [&](int n0, int nb, int v0) {
       // a batch row's 64 logits, one contiguous run: consecutive threads take consecutive v
       for (int o = threadIdx.x; o < kMmaVocabRows * kMmaSlab; o += kThreads) {
         const int m = o % kMmaVocabRows, n = o / kMmaVocabRows, v = v0 + m;
         if (n < nb && v < V)
-          out.logits[static_cast<size_t>(n0 + n) * V + v] = mma_sum(red, m >> 4, m & 15, n) + __bfloat162float(bv[v]);
+          out.logits[static_cast<size_t>(n0 + n) * V + v] = mma_sum(red, m >> 4, m & 15, n) + Vec<T>::to_f32(bv[v]);
       }
     });
   } else if constexpr (kMode == kTopk) {

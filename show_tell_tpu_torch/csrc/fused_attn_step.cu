@@ -205,7 +205,7 @@ __global__ void __launch_bounds__(kThreads) fused_attn_step_kernel(Params p) {
   grid.sync();  // x = cat(w_emb, ctx_e) is complete
   for (int l = 0; l < s.L; ++l) {
     if constexpr (kMma)
-      mma_stack_layer<Cell>(s, l, smem);
+      mma_stack_layer<T, Cell>(s, l, smem);
     else
       stack_layer<T, Cell>(s, l, smem);
     grid.sync();

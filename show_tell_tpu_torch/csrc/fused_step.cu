@@ -46,7 +46,11 @@
 // The bf16 instances that mma_step() names run the recurrence and the
 // projection on the tensor cores instead (dense_mma.cuh: mma.sync, weights
 // re-read once per 32 batch rows): every end of both cells, the stack
-// step's none included.  The argmax end merges each 64-row vocabulary item's first
+// step's none included.  So do the f32 argmax instances (tf32x3_step(), the
+// greedy steps of both cells), in split-precision TF32 (three tf32 mma's
+// a product, about f32's precision), their layers' K split across blocks
+// at small B as the stack step's; the f32 dense, top-k and stack
+// instances keep the SIMT code.  The argmax end merges each 64-row vocabulary item's first
 // max into best by one atomicMax a row; the top-K end writes one part per
 // 64-row vocabulary item (its K greatest keys and (max, sum)), and after a
 // grid barrier merge_topk reduces each row's ceil(V / 64) parts, so it
@@ -106,7 +110,7 @@ struct Params {
   const void* bv;   // [V]
   VocabOut out;     // the vocab end's outputs and scratch
   int V;
-  SplitK split;     // the stack step's K split (bf16 kNone); zeros elsewhere
+  SplitK split;     // the layers' K split (bf16 kNone, f32 kArgmax); zeros elsewhere
 };
 
 template <typename T, typename Cell, int kMode>
@@ -114,14 +118,15 @@ __global__ void __launch_bounds__(kThreads) fused_step_kernel(Params p) {
   extern __shared__ float smem[];
   cg::grid_group grid = cg::this_grid();
   const StackArgs& s = p.stack;
-  constexpr bool kMma = mma_step<T, kMode>();  // the tensor cores (dense_mma.cuh)
+  // the tensor cores (dense_mma.cuh): every bf16 instance, and the f32 argmax instance in split-precision TF32
+  constexpr bool kMma = pooled_mma_step<T, kMode>();
   if constexpr (kMode == kArgmax)
     for (int b = grid_thread(); b < s.B; b += grid_threads()) p.out.best[b] = 0ull;  // below every packed key
   for (int l = 0; l < s.L; ++l) {
-    if constexpr (kMma && kMode == kNone)
-      mma_stack_layer<Cell>(s, l, smem, p.split);
+    if constexpr (kMma && (kMode == kNone || tf32x3_step<T, kMode>()))
+      mma_stack_layer<T, Cell>(s, l, smem, p.split);
     else if constexpr (kMma)
-      mma_stack_layer<Cell>(s, l, smem);
+      mma_stack_layer<T, Cell>(s, l, smem);
     else
       stack_layer<T, Cell>(s, l, smem);
     if (kMode != kNone || l + 1 < s.L) grid.sync();  // layer l's h' is complete in new_hs
@@ -141,7 +146,7 @@ template <typename T, typename Cell, int kMode>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   Params args = p;
   void* argv[] = {&args};
-  const size_t floats = mma_step<T, kMode>() ? kMmaSmemFloats : stack_smem_floats(p.stack);
+  const size_t floats = pooled_mma_step<T, kMode>() ? kMmaSmemFloats : stack_smem_floats(p.stack);
   return launch_cooperative(fused_step_kernel<T, Cell, kMode>, floats * sizeof(float), argv, stream);
 }
 
@@ -166,17 +171,6 @@ bool topk_args_ok(int dtype, int V, int K, int max_splits) {
   return dtype != 1 || max_splits >= (V + kMmaVocabRows - 1) / kMmaVocabRows;
 }
 
-// A stack step's K split: in bf16, 1 <= S <= kMaxSplits for layer 0 and for the upper layers, and where S > 1 the
-// scratch and counters for items x S parts; f32 (SIMT) takes S = 1.
-bool split_args_ok(int dtype, const SplitK& k, int B, int H) {
-  if (dtype != 1) return k.s0 == 1 && k.su == 1;
-  const int items = (B + kMmaSlab - 1) / kMmaSlab * ((H + 15) / 16);
-  auto ok = [&](int S) {
-    return S >= 1 && S <= kMaxSplits && (S == 1 || (k.partial && k.arrivals && items * S <= k.max_parts));
-  };
-  return ok(k.s0) && ok(k.su);
-}
-
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Each returns a cudaError_t (0 on
@@ -187,27 +181,33 @@ bool split_args_ok(int dtype, const SplitK& k, int B, int H) {
 // grid; in bf16 n = max_splits >= ceil(V / 64), one part per vocabulary
 // item (else cudaErrorInvalidValue).
 
-// Greedy: tok [B] int32; best [B] scratch.
+// Greedy: tok [B] int32; best [B] scratch.  s0, su, partial, arrivals, max_parts: the layers' K split in f32 (as
+// the stack step's below; bf16: S = 1).
 extern "C" int st_fused_gru_step(int dtype, const void* x, const void* w_ih0, const void* w_ihU,
                                  const void* w_hh, const void* b_ih, const void* b_hh, const void* hs,
                                  const void* wv, const void* bv, void* new_hs, int32_t* tok,
-                                 unsigned long long* best, int L, int B, int E, int H, int V, void* stream) {
+                                 unsigned long long* best, float* partial, unsigned int* arrivals, int L, int B,
+                                 int E, int H, int V, int s0, int su, int max_parts, void* stream) {
+  const SplitK split{partial, arrivals, s0, su, max_parts};
+  if (!split_args_ok(dtype == 0, split, B, H)) return static_cast<int>(cudaErrorInvalidValue);
   return run<GruCell, kArgmax>(
       dtype,
       Params{{x, w_ih0, w_ihU, w_hh, b_ih, b_hh, hs, nullptr, new_hs, nullptr, L, B, E, H}, wv, bv,
-             argmax_out(tok, best), V},
+             argmax_out(tok, best), V, split},
       stream);
 }
 
 extern "C" int st_fused_lstm_step(int dtype, const void* x, const void* w_ih0, const void* w_ihU,
                                   const void* w_hh, const void* b_ih, const void* b_hh, const void* hs,
                                   const void* cs, const void* wv, const void* bv, void* new_hs, void* new_cs,
-                                  int32_t* tok, unsigned long long* best, int L, int B, int E, int H, int V,
-                                  void* stream) {
+                                  int32_t* tok, unsigned long long* best, float* partial, unsigned int* arrivals,
+                                  int L, int B, int E, int H, int V, int s0, int su, int max_parts, void* stream) {
+  const SplitK split{partial, arrivals, s0, su, max_parts};
+  if (!split_args_ok(dtype == 0, split, B, H)) return static_cast<int>(cudaErrorInvalidValue);
   return run<LstmCell, kArgmax>(
       dtype,
       Params{{x, w_ih0, w_ihU, w_hh, b_ih, b_hh, hs, cs, new_hs, new_cs, L, B, E, H}, wv, bv, argmax_out(tok, best),
-             V},
+             V, split},
       stream);
 }
 
@@ -270,7 +270,7 @@ extern "C" int st_gru_stack_step(int dtype, const void* x, const void* w_ih0, co
                                  unsigned int* arrivals, int L, int B, int E, int H, int s0, int su, int max_parts,
                                  void* stream) {
   const SplitK split{partial, arrivals, s0, su, max_parts};
-  if (!split_args_ok(dtype, split, B, H)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!split_args_ok(dtype == 1, split, B, H)) return static_cast<int>(cudaErrorInvalidValue);
   return run<GruCell, kNone>(
       dtype, Params{{x, w_ih0, w_ihU, w_hh, b_ih, b_hh, hs, nullptr, new_hs, nullptr, L, B, E, H}, nullptr, nullptr,
                     VocabOut{}, 0, split},
@@ -282,7 +282,7 @@ extern "C" int st_lstm_stack_step(int dtype, const void* x, const void* w_ih0, c
                                   void* new_cs, float* partial, unsigned int* arrivals, int L, int B, int E, int H,
                                   int s0, int su, int max_parts, void* stream) {
   const SplitK split{partial, arrivals, s0, su, max_parts};
-  if (!split_args_ok(dtype, split, B, H)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!split_args_ok(dtype == 1, split, B, H)) return static_cast<int>(cudaErrorInvalidValue);
   return run<LstmCell, kNone>(
       dtype, Params{{x, w_ih0, w_ihU, w_hh, b_ih, b_hh, hs, cs, new_hs, new_cs, L, B, E, H}, nullptr, nullptr,
                     VocabOut{}, 0, split},

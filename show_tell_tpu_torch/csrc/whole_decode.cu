@@ -14,11 +14,12 @@
 // What bounds it on an H100.  Each step reads the recurrence weights
 // (14.9 MB in bf16 at L=5, E=256, H=512) and the projection (10.2 MB at
 // V=9,956): 25 MB a step, 627 MB for T=25, all inside the 50 MB L2 cache
-// after the first step.  At small B those bytes bound it.  In bf16 the
-// layers and the projection run on the tensor cores (dense_mma.cuh:
-// mma_stack_layer, mma_argmax_keys), whose weights are re-read once per 32
-// batch rows; f32 keeps the SIMT loops of decode_common.cuh, which re-read
-// them once per 8 rows and turn into an f32 FMA loop at large B.  What it
+// after the first step (f32: 50.3 MB a step, at the L2's size).  At small
+// B those bytes bound it.  The layers and the projection run on the tensor
+// cores (dense_mma.cuh: mma_stack_layer, mma_argmax_keys), whose weights
+// are re-read once per 32 batch rows, in bf16 as bf16 products and in f32
+// in split-precision TF32 (tf32x3_step(), the layers' K split across
+// blocks), as the pooled GRU greedy step of the same dtype runs.  What it
 // saves over T launches of the per-step kernel is T-1 launches, T-1
 // embedding gathers as separate torch ops and the host's work between
 // them; what it adds is one grid barrier a step (L+2 a step against the
@@ -54,9 +55,10 @@
 //     mma_load's activation fragments, __ldcg) and the gathered rows are
 //     stored through L2 (__stcg), since L1 is not coherent across SMs;
 //   * the layer and projection code is the per-step kernel's of the same
-//     dtype (mma_step<T, kArgmax>(): dense_mma.cuh in bf16, decode_common.cuh
-//     in f32), whose f32 sums run in one order per output whatever the grid
-//     (split-K by warp index, added in warp order; or one warp a column) and
+//     dtype (pooled_mma_step<T, kArgmax>(): dense_mma.cuh in both, in f32
+//     with the same K split across blocks, S from the same rule), whose
+//     f32 sums run in one order per output whatever the grid (split-K by
+//     warp index, added in warp order; the S parts in order) and
 //     whose first max merges by packed keys: the tokens are bit-equal to T
 //     launches of st_fused_gru_step and index_select.
 
@@ -72,6 +74,7 @@ struct Params {
   int32_t* toks;                  // [B, T]     out
   unsigned long long* best;       // [B]        scratch: packed (logit, index) keys
   int V, T;
+  SplitK split;                   // the layers' K split in f32, as st_fused_gru_step's (bf16: S = 1)
 };
 
 // After the argmax barrier of step t: one warp a row.  Lane 0 reads the
@@ -104,19 +107,16 @@ __device__ void emit_tokens(const Params& p, int t, bool gather) {
 template <typename T>
 __device__ __forceinline__ void decode_step(const Params& p, const StackArgs& s, int t, float* smem,
                                             cg::grid_group& grid) {
-  constexpr bool kMma = mma_step<T, kArgmax>();  // the tensor cores (dense_mma.cuh), as st_fused_gru_step's instance
+  static_assert(pooled_mma_step<T, kArgmax>(), "both instances run st_fused_gru_step's tensor-core code");
   for (int l = 0; l < s.L; ++l) {
-    if constexpr (kMma)
-      mma_stack_layer<GruCell>(s, l, smem);
+    if constexpr (tf32x3_step<T, kArgmax>())
+      mma_stack_layer<T, GruCell>(s, l, smem, p.split);
     else
-      stack_layer<T, GruCell>(s, l, smem);
+      mma_stack_layer<T, GruCell>(s, l, smem);
     grid.sync();  // layer l's h' is complete (the first also orders the zeroed keys before any atomicMax)
   }
   const T* top = static_cast<const T*>(s.new_hs) + static_cast<size_t>(s.L - 1) * s.B * s.H;
-  if constexpr (kMma)
-    mma_argmax_keys(top, static_cast<const T*>(p.wv), static_cast<const T*>(p.bv), s.B, s.H, p.V, p.best, smem);
-  else
-    project_argmax<T>(top, static_cast<const T*>(p.wv), static_cast<const T*>(p.bv), s.B, s.H, p.V, p.best, smem);
+  mma_argmax_keys(top, static_cast<const T*>(p.wv), static_cast<const T*>(p.bv), s.B, s.H, p.V, p.best, smem);
   grid.sync();  // every key is final
   const bool more = t + 1 < p.T;
   emit_tokens<T>(p, t, more);
@@ -135,15 +135,10 @@ __global__ void __launch_bounds__(kThreads) whole_gru_kernel(Params p) {
 }
 
 template <typename T>
-size_t smem_bytes(const Params& p) {
-  return (mma_step<T, kArgmax>() ? kMmaSmemFloats : stack_smem_floats(p.even)) * sizeof(float);
-}
-
-template <typename T>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   Params args = p;
   void* argv[] = {&args};
-  return launch_cooperative(whole_gru_kernel<T>, smem_bytes<T>(p), argv, stream);
+  return launch_cooperative(whole_gru_kernel<T>, kMmaSmemFloats * sizeof(float), argv, stream);
 }
 
 }  // namespace
@@ -151,17 +146,22 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 // dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 on success).
 // x [B, E] holds the features in and is scratch after step 0 (the gathered
 // rows); toks [B, T] int32 out; hs0 (zeroed) and hs1 [L, B, H] and best [B]
-// (u64) are scratch.
+// (u64) are scratch.  s0, su, partial, arrivals, max_parts: the layers' K
+// split in f32, as st_fused_gru_step takes it (every step reuses the
+// scratch, and the counters are back at zero after each layer); bf16: S = 1.
 extern "C" int st_whole_gru_decode(int dtype, void* x, const void* emb, const void* w_ih0, const void* w_ihU,
                                    const void* w_hh, const void* b_ih, const void* b_hh, const void* wv, const void* bv,
-                                   void* hs0, void* hs1, int32_t* toks, unsigned long long* best, int L, int B, int E,
-                                   int H, int V, int T, void* stream) {
+                                   void* hs0, void* hs1, int32_t* toks, unsigned long long* best, float* partial,
+                                   unsigned int* arrivals, int L, int B, int E, int H, int V, int T, int s0, int su,
+                                   int max_parts, void* stream) {
   if (T < 1 || V < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const SplitK split{partial, arrivals, s0, su, max_parts};
+  if (!split_args_ok(dtype == 0, split, B, H)) return static_cast<int>(cudaErrorInvalidValue);
   const StackArgs even{x, w_ih0, w_ihU, w_hh, b_ih, b_hh, hs0, nullptr, hs1, nullptr, L, B, E, H};
   StackArgs odd = even;
   odd.hs = hs1;
   odd.new_hs = hs0;
-  const Params p{even, odd, emb, wv, bv, toks, best, V, T};
+  const Params p{even, odd, emb, wv, bv, toks, best, V, T, split};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return static_cast<int>(launch<float>(p, s));
   if (dtype == 1) return static_cast<int>(launch<__nv_bfloat16>(p, s));

@@ -164,15 +164,15 @@ def load_library() -> ctypes.CDLL:
         lib = ctypes.CDLL(build())
         p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
         signatures = {
-            "st_fused_gru_step": [i] + [p] * 12 + [i] * 5 + [p],
-            "st_fused_lstm_step": [i] + [p] * 14 + [i] * 5 + [p],
+            "st_fused_gru_step": [i] + [p] * 14 + [i] * 8 + [p],
+            "st_fused_lstm_step": [i] + [p] * 16 + [i] * 8 + [p],
             "st_fused_gru_dense_step": [i] + [p] * 11 + [i] * 5 + [p],
             "st_fused_lstm_dense_step": [i] + [p] * 13 + [i] * 5 + [p],
             "st_fused_gru_topk_step": [i] + [p] * 14 + [i] * 7 + [p],
             "st_fused_lstm_topk_step": [i] + [p] * 16 + [i] * 7 + [p],
             "st_gru_stack_step": [i] + [p] * 10 + [i] * 7 + [p],
             "st_lstm_stack_step": [i] + [p] * 12 + [i] * 7 + [p],
-            "st_whole_gru_decode": [i] + [p] * 13 + [i] * 6 + [p],
+            "st_whole_gru_decode": [i] + [p] * 15 + [i] * 9 + [p],
             "st_fused_attn_step": [i] + [p] * 20 + [i] * 7 + [p],
             "st_fused_attn_lstm_step": [i] + [p] * 22 + [i] * 7 + [p],
             "st_fused_attn_dense_step": [i] + [p] * 19 + [i] * 7 + [p],

@@ -14,7 +14,10 @@ projection on the tensor cores (csrc/dense_mma.cuh), whose launch
 geometry ``mma_tiles`` computes: the dense, top-k and argmax ends, both
 cells (the pooled GRU's argmax instance bit-equal to the whole decode),
 and the stack step (no vocab end), whose K split across blocks
-``stack_tiles`` computes.  f32 keeps the SIMT code.
+``stack_tiles`` computes.  In f32 the instances that ``tf32x3_step``
+names, the two greedy steps here and the whole decode, run the same code
+in split-precision TF32 (three tf32 products a product, about f32's
+precision); every other f32 instance keeps the SIMT code.
 """
 
 from __future__ import annotations
@@ -40,77 +43,98 @@ ATTN_ROWS = 8  # the attention's SIMT phase A1 holds 8 rows of h (kBM in csrc/de
 MAX_SPLITS = 8  # parts a stack-step item's K chunks may be split into (kMaxSplits)
 MMA_BLOCKS_PER_SM = 2  # blocks of a tensor-core step resident on an SM: 128 threads at <= 256 registers each
 MMA_PART = MMA_SLOTS * MMA_SLAB * 16  # f32 sums of one split-K part: every slot's 16 columns x 32 rows
+TF32_CHUNK = 16  # K columns a warp's step in f32: two k8 steps of mma.sync m16n8k8 (tf32)
 
 
 def mma_step(dtype: torch.dtype, end: Union[str, int, None]) -> bool:
     """Whether a fused step's instance runs on the tensor cores (mma_step()
     in csrc/dense_mma.cuh): bf16, with any end ("dense", "argmax", a top-k
     width, or None: the stack step), of either cell; the whole decode
-    (csrc/whole_decode.cu) as the "argmax" end.  f32 keeps the SIMT code."""
+    (csrc/whole_decode.cu) as the "argmax" end.  In f32 see ``tf32x3_step``."""
     return dtype == torch.bfloat16
+
+
+def tf32x3_step(dtype: torch.dtype, end: Union[str, int, None]) -> bool:
+    """Whether a pooled step's f32 instance runs on the tensor cores in
+    split-precision TF32 (tf32x3_step() in csrc/dense_mma.cuh): the greedy
+    step of either cell (the "argmax" end) and the whole decode, which runs
+    that step's code.  Only this module and ops/whole_decode.py ask it; the
+    attention steps ask ``mma_step`` alone, and the f32 dense, top-k and
+    stack ends keep the SIMT code."""
+    return dtype == torch.float32 and end == "argmax"
 
 
 class MmaTiles(NamedTuple):
     gate_items: int  # (16 columns of every gate, 32 batch rows) items of a layer
     vocab_items: int  # (64 vocabulary rows, 32 batch rows) items of the projection
-    layer0_chunks: int  # 32-column K chunks of layer 0 (I0, then H), split over the 4 warps
+    layer0_chunks: int  # K chunks (32 columns; f32: 16) of layer 0 (I0, then H), split over the 4 warps
     upper_chunks: int  # the same for a layer l > 0 (H, then H)
     vocab_chunks: int  # the same for the projection (H)
     smem: int  # dynamic shared memory of a block, bytes
 
 
-def mma_tiles(R: int, I0: int, H: int, V: int, attention: Optional[Tuple[int, int]] = None) -> MmaTiles:
+def mma_tiles(R: int, I0: int, H: int, V: int, attention: Optional[Tuple[int, int]] = None,
+              dtype: torch.dtype = torch.bfloat16) -> MmaTiles:
     """The launch geometry of a tensor-core step (pooled, or with
     ``attention`` = (A, P)) at R batch rows: its items, K chunks and shared
     memory, as csrc/dense_mma.cuh and the kernels' launch compute them; the
-    dense and the argmax end take the same items.  The grid is the
-    occupancy times the SM count, and blocks walk the items.  Raises for
-    widths whose shared memory exceeds a block's."""
+    dense and the argmax end take the same items.  ``dtype`` float32: the
+    ``tf32x3_step`` instances, whose chunks are TF32_CHUNK columns (their
+    layers' K split: ``stack_tiles``).  The grid is the occupancy times the
+    SM count, and blocks walk the items.  Raises for widths whose shared
+    memory exceeds a block's."""
     check_widths("tensor-core step", I0=I0, H=H)
-    chunks = lambda k: -(-k // MMA_CHUNK)
+    f32 = dtype == torch.float32
+    chunks = lambda k: -(-k // (TF32_CHUNK if f32 else MMA_CHUNK))
     slabs = -(-R // MMA_SLAB)
     smem = MMA_SMEM
     if attention is not None:  # A1's rows of h and A2's A + P scores share the block's memory
         A, P = attention
         smem = max(smem, 4 * (A + P), 4 * ATTN_ROWS * H)
     if smem > SMEM_LIMIT:
-        raise ValueError("the bf16 tensor-core step at H=%d%s needs %d bytes of shared memory a block, over the %d a "
-                         "block may use" % (H, "" if attention is None else ", A=%d, P=%d" % attention, smem,
-                                            SMEM_LIMIT))
+        raise ValueError("the %s tensor-core step at H=%d%s needs %d bytes of shared memory a block, over the %d a "
+                         "block may use" % ("f32" if f32 else "bf16", H,
+                                            "" if attention is None else ", A=%d, P=%d" % attention, smem, SMEM_LIMIT))
     return MmaTiles(slabs * -(-H // 16), slabs * -(-V // MMA_VOCAB_ROWS), chunks(I0) + chunks(H), 2 * chunks(H),
                     chunks(H), smem)
 
 
 class StackTiles(NamedTuple):
     items: int  # (16 columns of every gate, 32 batch rows) items of a layer
-    chunks: Tuple[int, int]  # 32-column K chunks of layer 0 (I0, then H) and of a layer l > 0 (H, then H)
+    chunks: Tuple[int, int]  # K chunks (32 columns; f32: 16) of layer 0 (I0, then H) and of a layer l > 0 (H, H)
     splits: Tuple[int, int]  # S, the parts of an item's K chunks, in layer 0 and in the layers above
     parts: int  # split-K scratch parts, items x the larger S > 1 (0: no layer splits)
 
 
-def stack_splits(B: int, I: int, H: int, sms: int) -> int:
-    """S for a bf16 stack-step layer of input width I at B rows on a card
-    of ``sms`` SMs: as many parts as the resident grid (MMA_BLOCKS_PER_SM
-    blocks an SM) holds for the layer's items, at most MAX_SPLITS and at
-    most a chunk a warp; 1 where the items alone fill the grid.  Settled
-    on an H100 by chip_smoke.py's sweep of S = 1 .. 8 (PERF.md)."""
+def stack_splits(B: int, I: int, H: int, sms: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """S for a layer of input width I at B rows on a card of ``sms`` SMs,
+    in the bf16 stack step (``dtype`` bfloat16) or the f32 greedy steps
+    (float32, whose chunks are TF32_CHUNK columns): as many parts as the
+    resident grid (MMA_BLOCKS_PER_SM blocks an SM) holds for the layer's
+    items, at most MAX_SPLITS and at most a chunk a warp; 1 where the items
+    alone fill the grid.  Settled on an H100 by sweeps of S = 1 .. 8: for
+    the bf16 stack step by chip_smoke.py's, for the f32 greedy steps by
+    tools/step_times.py --dtype float32's at B = 1, 32, 64, 128, where the
+    rule's S was the fastest for both cells (PERF.md)."""
+    chunk = TF32_CHUNK if dtype == torch.float32 else MMA_CHUNK
     items = -(-B // MMA_SLAB) * -(-H // 16)
-    chunks = -(-I // MMA_CHUNK) + -(-H // MMA_CHUNK)
+    chunks = -(-I // chunk) + -(-H // chunk)
     return max(1, min(MAX_SPLITS, chunks // MMA_WARPS, MMA_BLOCKS_PER_SM * sms // items))
 
 
-def stack_tiles(B: int, I0: int, H: int, sms: int, splits: int = 0) -> StackTiles:
-    """The bf16 stack step's launch geometry at B rows: its items, K
-    chunks, the S of layer 0 and of the upper layers (``stack_splits``, or
-    ``splits`` for both where it is given) and the parts its scratch must
-    hold.  Raises for widths that are not multiples of 8 and for an S
-    outside 1 .. MAX_SPLITS."""
+def stack_tiles(B: int, I0: int, H: int, sms: int, splits: int = 0, dtype: torch.dtype = torch.bfloat16) -> StackTiles:
+    """The launch geometry of the layers' K split at B rows, in the bf16
+    stack step or (``dtype`` float32) the f32 greedy steps and whole
+    decode: the items, K chunks, the S of layer 0 and of the upper layers
+    (``stack_splits``, or ``splits`` for both where it is given) and the
+    parts the scratch must hold.  Raises for widths that are not multiples
+    of 8 and for an S outside 1 .. MAX_SPLITS."""
     check_widths("stack step", I0=I0, H=H)
     if splits and not 1 <= splits <= MAX_SPLITS:
         raise ValueError("the stack step splits K into 1 to %d parts (got %d)" % (MAX_SPLITS, splits))
     items = -(-B // MMA_SLAB) * -(-H // 16)
-    chunks = lambda k: -(-k // MMA_CHUNK)
-    S = tuple(splits or stack_splits(B, I, H, sms) for I in (I0, H))
+    chunks = lambda k: -(-k // (TF32_CHUNK if dtype == torch.float32 else MMA_CHUNK))
+    S = tuple(splits or stack_splits(B, I, H, sms, dtype) for I in (I0, H))
     return StackTiles(items, (chunks(I0) + chunks(H), 2 * chunks(H)), S, items * max(S) if max(S) > 1 else 0)
 
 
@@ -122,15 +146,28 @@ _ARRIVALS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 
 
 def arrival_counters(device: torch.device, items: int) -> torch.Tensor:
-    """The split-K arrival counters of the stack step on ``device``'s
-    current stream, at least ``items`` of them: zeroed when allocated, and
-    every launch leaves them at zero (each item's last part wraps its
-    counter back), so a launch needs no memset of its own."""
+    """The split-K arrival counters of the stack step and the f32 greedy
+    steps on ``device``'s current stream, at least ``items`` of them:
+    zeroed when allocated, and every launch leaves them at zero (each
+    item's last part wraps its counter back), so a launch needs no memset
+    of its own."""
     key = (device, torch.cuda.current_stream(device).cuda_stream)
     counters = _ARRIVALS.get(key)
     if counters is None or counters.numel() < items:
         counters = _ARRIVALS[key] = torch.zeros(items, dtype=torch.int32, device=device)
     return counters
+
+
+def layer_split(B: int, E: int, H: int, device: torch.device, dtype: torch.dtype, splits: int = 0):
+    """The K split's launch arguments of an instance that splits its layers
+    (the bf16 stack step; the f32 greedy steps and the f32 whole decode,
+    ``tf32x3_step``): (the scratch, to hold until the launch is queued, or
+    None; the [partial, arrivals] pointers; [s0, su, parts])."""
+    tiles = stack_tiles(B, E, H, sm_count(device), splits, dtype)
+    if not tiles.parts:
+        return None, [None, None], [*tiles.splits, 0]
+    partial = torch.empty(tiles.parts * MMA_PART, dtype=torch.float32, device=device)
+    return partial, [partial.data_ptr(), arrival_counters(device, tiles.items).data_ptr()], [*tiles.splits, tiles.parts]
 
 
 def fused_gru_decode_step_plain(
@@ -175,11 +212,13 @@ def launch_fused_step(kernel: str, stacked, vocab, x, state: State, end: Union[s
     ``end``: "argmax" (tok [B] int32), "dense" (logits [B, V] f32), a top-k
     width k (logp [B, k] f32, ids [B, k] int32), or None, the stack step
     (the top activation [B, H], a view of new_hs[L-1]; ``vocab`` is not
-    read).  An instance that ``mma_step`` names has its tensor-core
-    geometry checked first (``mma_tiles``; the stack step ``stack_tiles``,
-    which ``splits`` overrides); its top-k end gets one scratch part per
-    MMA_VOCAB_ROWS vocabulary rows, the stack step its split-K scratch and
-    the stream's arrival counters.  Returns (the end's output, new state)."""
+    read).  An instance that ``mma_step`` or ``tf32x3_step`` names has its
+    tensor-core geometry checked first (``mma_tiles``; the layers' K split
+    ``stack_tiles``, which ``splits`` overrides in the bf16 stack step and
+    the f32 greedy steps); its top-k end gets one
+    scratch part per MMA_VOCAB_ROWS vocabulary rows, the bf16 stack step and
+    the f32 greedy steps their split-K scratch and the stream's arrival
+    counters (``layer_split``).  Returns (the end's output, new state)."""
     from show_tell_tpu_torch.ops.build import load_library
 
     lstm = isinstance(state, tuple)
@@ -194,8 +233,8 @@ def launch_fused_step(kernel: str, stacked, vocab, x, state: State, end: Union[s
     check_tensor("x", x, (B, E), dtype, device)
     ints = [L, B, E, H]
     vocab_ptrs = []
-    if splits and not (end is None and dtype == torch.bfloat16):
-        raise ValueError("%s: splits apply to the bf16 stack step only" % kernel)
+    if splits and not ((end is None and dtype == torch.bfloat16) or tf32x3_step(dtype, end)):
+        raise ValueError("%s: splits apply to the bf16 stack step only and to the f32 greedy steps" % kernel)
     if end is not None:
         V = vocab["w"].shape[0]
         if V < 1:
@@ -206,22 +245,23 @@ def launch_fused_step(kernel: str, stacked, vocab, x, state: State, end: Union[s
         vocab_ptrs = [vocab["w"].data_ptr(), vocab["b"].data_ptr()]
         if mma_step(dtype, end):
             mma_tiles(B, E, H, V)
+        elif tf32x3_step(dtype, end):
+            mma_tiles(B, E, H, V, dtype=dtype)
     new_hs = torch.empty_like(hs)
     new_cs = torch.empty_like(cs) if lstm else None
+    # the layers' K split (the bf16 stack step, the f32 greedy steps): its scratch is held until the launch is queued
+    partial, split_ptrs, split_ints = None, [None, None], [1, 1, 0]
+    if (end is None and mma_step(dtype, end)) or tf32x3_step(dtype, end):
+        partial, split_ptrs, split_ints = layer_split(B, E, H, device, dtype, splits)
     if end is None:
         out, entry_name = new_hs[L - 1], "st_%s_stack_step"
-        ptrs, split_ints = [None, None], [1, 1, 0]  # f32: no split
-        if mma_step(dtype, end):
-            tiles = stack_tiles(B, E, H, sm_count(device), splits)
-            if tiles.parts:  # held until the launch is queued
-                partial = torch.empty(tiles.parts * MMA_PART, dtype=torch.float32, device=device)
-                ptrs = [partial.data_ptr(), arrival_counters(device, tiles.items).data_ptr()]
-            split_ints = [*tiles.splits, tiles.parts]
+        ptrs = split_ptrs
         ints += split_ints
     elif end == "argmax":
         out = torch.empty(B, dtype=torch.int32, device=device)
         best = torch.empty(B, dtype=torch.int64, device=device)
-        ptrs, entry_name = [out.data_ptr(), best.data_ptr()], "st_fused_%s_step"
+        ptrs, entry_name = [out.data_ptr(), best.data_ptr(), *split_ptrs], "st_fused_%s_step"
+        ints += split_ints
     elif end == "dense":
         out = torch.empty(B, V, dtype=torch.float32, device=device)
         ptrs, entry_name = [out.data_ptr()], "st_fused_%s_dense_step"
@@ -246,20 +286,21 @@ def launch_fused_step(kernel: str, stacked, vocab, x, state: State, end: Union[s
     return out, ((new_hs, new_cs) if lstm else new_hs)
 
 
-def fused_gru_decode_step_cuda(stacked, vocab, x, hs) -> Tuple[torch.Tensor, torch.Tensor]:
+def fused_gru_decode_step_cuda(stacked, vocab, x, hs, splits: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the GRU kernel on the current stream.  Every input must be on
     the same CUDA device, in one dtype (float32 or bfloat16), contiguous,
-    with E and H multiples of 8.  Raises on anything else and on a failed
-    launch."""
-    out = launch_fused_step("fused_gru_decode_step", stacked, vocab, x, hs, "argmax")
+    with E and H multiples of 8.  ``splits`` (f32 only): that S for every
+    layer instead of ``stack_tiles``'s.  Raises on anything else and on a
+    failed launch."""
+    out = launch_fused_step("fused_gru_decode_step", stacked, vocab, x, hs, "argmax", splits)
     fused_gru_decode_step.launches += 1
     return out
 
 
-def fused_lstm_decode_step_cuda(stacked, vocab, x, state: LstmState) -> Tuple[torch.Tensor, LstmState]:
+def fused_lstm_decode_step_cuda(stacked, vocab, x, state: LstmState, splits: int = 0) -> Tuple[torch.Tensor, LstmState]:
     """Launch the LSTM kernel on the current stream; the GRU kernel's rules,
     with cs [L, B, H] held like hs."""
-    out = launch_fused_step("fused_lstm_decode_step", stacked, vocab, x, state, "argmax")
+    out = launch_fused_step("fused_lstm_decode_step", stacked, vocab, x, state, "argmax", splits)
     fused_lstm_decode_step.launches += 1
     return out
 

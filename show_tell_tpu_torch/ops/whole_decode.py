@@ -6,10 +6,11 @@ fed back inside the kernel; its plain twin and a count of launches.
 Counterpart of show_tell_tpu/ops/whole_decode_pallas.py::gru_whole_greedy_decode_pallas.
 Fixed T (no early exit), GRU only, an unsharded projection; layer 0 reads
 the features at their own width E.  Each step is the pooled GRU argmax
-step's own code (ops/fused_step.py): in bf16 the tensor cores
-(csrc/dense_mma.cuh, whose geometry ``mma_tiles`` checks before the
-launch), in f32 the SIMT loops; so its ids are bit-equal to T launches of
-that step with ``index_select`` between them.
+step's own code (ops/fused_step.py): the tensor cores (csrc/dense_mma.cuh,
+whose geometry ``mma_tiles`` checks before the launch), in bf16 as bf16
+products and in f32 in split-precision TF32 (``tf32x3_step``); so its ids
+are bit-equal to T launches of that step with ``index_select`` between
+them.
 """
 
 from __future__ import annotations
@@ -19,7 +20,14 @@ from typing import Dict
 import torch
 
 from show_tell_tpu_torch.ops import check_tensor, dtype_code, raise_on_error, stream_arg, uses_kernel
-from show_tell_tpu_torch.ops.fused_step import check_stack, fused_gru_decode_step_plain, mma_step, mma_tiles
+from show_tell_tpu_torch.ops.fused_step import (
+    check_stack,
+    fused_gru_decode_step_plain,
+    layer_split,
+    mma_step,
+    mma_tiles,
+    tf32x3_step,
+)
 
 
 def gru_whole_greedy_decode_plain(prepared: Dict[str, object], feats: torch.Tensor, T: int) -> torch.Tensor:
@@ -43,8 +51,8 @@ def gru_whole_greedy_decode_cuda(prepared: Dict[str, object], feats: torch.Tenso
     """Launch the kernel on the current stream.  Every operand on one CUDA
     device in one dtype (float32 or bfloat16), contiguous, with E and H
     multiples of 8; the features are cast to the compute dtype.  Raises on
-    anything else (in bf16 also on widths whose tensor-core tiles do not
-    fit) and on a failed launch."""
+    anything else (also on widths whose tensor-core tiles do not fit) and
+    on a failed launch."""
     from show_tell_tpu_torch.ops.build import load_library
 
     kernel = "gru_whole_greedy_decode"
@@ -67,6 +75,12 @@ def gru_whole_greedy_decode_cuda(prepared: Dict[str, object], feats: torch.Tenso
     check_tensor("vocab b", vocab["b"], (V,), dtype, device)
     if mma_step(dtype, "argmax"):
         mma_tiles(B, E, H, V)
+    elif tf32x3_step(dtype, "argmax"):
+        mma_tiles(B, E, H, V, dtype=dtype)
+    # f32: the per-step kernel's K split of the layers (the same S, so the same sums); held until the launch is queued
+    partial, split_ptrs, split_ints = None, [None, None], [1, 1, 0]
+    if tf32x3_step(dtype, "argmax"):
+        partial, split_ptrs, split_ints = layer_split(B, E, H, device, dtype)
     hs1 = torch.empty_like(hs0)
     toks = torch.empty(B, T, dtype=torch.int32, device=device)
     best = torch.empty(B, dtype=torch.int64, device=device)
@@ -76,7 +90,7 @@ def gru_whole_greedy_decode_cuda(prepared: Dict[str, object], feats: torch.Tenso
             code, x.data_ptr(), emb.data_ptr(), stacked["w_ih0"].data_ptr(), stacked["w_ihU"].data_ptr(),
             stacked["w_hh"].data_ptr(), stacked["b_ih"].data_ptr(), stacked["b_hh"].data_ptr(),
             vocab["w"].data_ptr(), vocab["b"].data_ptr(), hs0.data_ptr(), hs1.data_ptr(), toks.data_ptr(),
-            best.data_ptr(), L, B, E, H, V, T, stream_arg(device),
+            best.data_ptr(), *split_ptrs, L, B, E, H, V, T, *split_ints, stream_arg(device),
         )
     raise_on_error(kernel, err)
     gru_whole_greedy_decode.launches += 1

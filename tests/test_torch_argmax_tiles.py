@@ -142,7 +142,7 @@ def test_argmax_end_constants_agree_with_the_kernel_headers():
     assert "const int n = tid / kRowThreads, q = tid % kRowThreads;" in end
     assert "const int tid = phase_thread();\n  mma_project(top, wv, B, H, V, red, [&](int n0, int nb, int v0) {" in src
     assert "for (int m = 0; m < 16; ++m) {" in end and "const int v = v0 + 16 * q + m;" in end
-    assert "const float x = mma_sum(red, q, m, n) + __bfloat162float(bv[v]);" in end
+    assert "const float x = mma_sum(red, q, m, n) + Vec<T>::to_f32(bv[v]);" in end
     assert "if (idx < 0 || x > val) {" in end
     assert "row_max_key(idx >= 0 ? pack_key(val, idx) : 0ull)" in end
     assert "if (n < nb && q == 0) atomicMax(best + n0 + n, key);" in end
@@ -294,18 +294,18 @@ def no_library(monkeypatch):
     """mma_tiles' calls recorded; the library replaced by a raise."""
     calls = []
 
-    def spy(*args):
-        calls.append(args)
-        return fused_step.mma_tiles.__wrapped__(*args)
+    def spy(*args, **kw):
+        calls.append(args + tuple(kw.values()))
+        return fused_step.mma_tiles.__wrapped__(*args, **kw)
 
     spy.__wrapped__ = fused_step.mma_tiles
     monkeypatch.setattr(fused_step, "mma_tiles", spy)
     monkeypatch.setattr(fused_attn, "mma_tiles", spy)
     monkeypatch.setattr(whole_decode, "mma_tiles", spy)
 
-    def stack_spy(*args):
-        calls.append(args)
-        return STACK_TILES(*args)
+    def stack_spy(*args, **kw):
+        calls.append(args + tuple(kw.values()))
+        return STACK_TILES(*args, **kw)
 
     monkeypatch.setattr(fused_step, "stack_tiles", stack_spy)
     monkeypatch.setattr(fused_step, "sm_count", lambda device: 132)  # an H100's SMs, for tensors off the card
@@ -321,8 +321,11 @@ def test_mma_tiles_check_runs_for_the_tensor_core_instances_only(no_library):
     """bf16 dense steps, the greedy steps (pooled and attention, both
     cells), the whole decode and the stack steps (``stack_tiles``, with
     the card's SM count and no forced S) check the tensor-core geometry
-    before the launch; f32 does not (it keeps the SIMT code).  The top-k
-    steps: tests/test_torch_topk_tiles.py."""
+    before the launch; in f32 the pooled greedy steps of both cells and the
+    whole decode do too (split-precision TF32, ``tf32x3_step``, with the f32
+    chunks and slabs), and so does their K split (``stack_tiles`` in f32);
+    the rest do not (they keep the SIMT code).  The top-k steps:
+    tests/test_torch_topk_tiles.py."""
     B, E, H, V, A, P = 3, 16, 24, 40, 16, 5
     for dtype in (torch.float32, torch.bfloat16):
         bf16 = dtype == torch.bfloat16
@@ -331,22 +334,23 @@ def test_mma_tiles_check_runs_for_the_tensor_core_instances_only(no_library):
             launches = [
                 (lambda: (fused_lstm_decode_step_cuda if lstm else fused_gru_decode_step_cuda)(stacked, vocab, x,
                                                                                                  state),
-                 bf16, (B, E, H, V)),
-                (lambda: fused_dense_step_cuda(stacked, vocab, x, state), bf16, (B, E, H, V)),
-                (lambda: (lstm_stack_step_cuda if lstm else gru_stack_step_cuda)(stacked, x, state), bf16,
-                 (B, E, H, 132, 0)),
-                (lambda: fused_attn_decode_step_cuda(prep, w_emb, astate), bf16, (B, 2 * E, H, V, (A, P))),
-                (lambda: fused_attn_dense_step_cuda(prep, w_emb, astate), bf16, (B, 2 * E, H, V, (A, P))),
+                 [(B, E, H, V) if bf16 else (B, E, H, V, dtype)] + ([] if bf16 else [(B, E, H, 132, 0, dtype)])),
+                (lambda: fused_dense_step_cuda(stacked, vocab, x, state), [(B, E, H, V)] if bf16 else []),
+                (lambda: (lstm_stack_step_cuda if lstm else gru_stack_step_cuda)(stacked, x, state),
+                 [(B, E, H, 132, 0, dtype)] if bf16 else []),
+                (lambda: fused_attn_decode_step_cuda(prep, w_emb, astate), [(B, 2 * E, H, V, (A, P))] if bf16 else []),
+                (lambda: fused_attn_dense_step_cuda(prep, w_emb, astate), [(B, 2 * E, H, V, (A, P))] if bf16 else []),
             ]
-            if not lstm:  # the whole decode: the pooled GRU's greedy step T times
+            if not lstm:  # the whole decode: the pooled GRU's greedy step T times (in f32 with its K split)
                 emb = torch.zeros(V, E, dtype=dtype)
                 launches.append((lambda: gru_whole_greedy_decode_cuda(
-                    {"stacked": stacked, "vocab": vocab, "embedding": emb}, x, 4), bf16, (B, E, H, V)))
-            for launch, checked, args in launches:
+                    {"stacked": stacked, "vocab": vocab, "embedding": emb}, x, 4),
+                    [(B, E, H, V) if bf16 else (B, E, H, V, dtype)] + ([] if bf16 else [(B, E, H, 132, 0, dtype)])))
+            for launch, checked in launches:
                 no_library.clear()
                 with pytest.raises(_Launched):
                     launch()
-                assert no_library == ([args] if checked else [])
+                assert no_library == checked
         assert fused_step.mma_step(dtype, "argmax") == fused_step.mma_step(dtype, "dense") == bf16
         assert fused_step.mma_step(dtype, 3) == bf16  # a top-k width: bf16 top-k runs on the tensor cores too
         assert fused_step.mma_step(dtype, None) == bf16  # the stack step: bf16 on the tensor cores too

@@ -7,8 +7,10 @@ argmax, the projection + top-k, the image preprocess and the fused s2d
 stem; the f32 encode without TF32; and one f32 train step on the card
 against the same step on the CPU.  The bf16 instances on the tensor
 cores (the dense steps and the greedy steps, pooled and attention, GRU
-and LSTM; the whole decode) are also held bit for bit to each other, and
-the ones that keep the SIMT code (f32) to the SIMT ends.
+and LSTM; the whole decode) are also held bit for bit to each other, the
+f32 pooled greedy steps (split-precision TF32 on the tensor cores) to the
+twin and to themselves, and the ones that keep the SIMT code (the other
+f32 instances) to the SIMT ends.
 
 Marked ``cuda``: each test skips where torch finds no CUDA device (the
 kernels have no CPU or interpret mode).  Run them on the card with
@@ -82,9 +84,9 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(B, E, H, V, L, dtype, device, seed=0, gates=3):
+def _inputs(B, E, H, V, L, dtype, device, seed=0, gates=3, scale=0.3):
     rng = np.random.RandomState(seed)
-    t = lambda *s: torch.from_numpy(rng.uniform(-0.3, 0.3, s).astype(np.float32))
+    t = lambda *s: torch.from_numpy(rng.uniform(-scale, scale, s).astype(np.float32))
     G = gates * H
     layers = [{"w_ih": t(G, E if l == 0 else H), "w_hh": t(G, H), "b_ih": t(G), "b_hh": t(G)} for l in range(L)]
     stacked = {k: v.to(device) for k, v in prepare_rnn_weights(layers, dtype).items()}
@@ -453,10 +455,12 @@ def test_bf16_dense_logits_tie_across_the_first_and_last_vocab_tiles(cuda, V):
 @pytest.mark.parametrize("R,E,H,V,L", [(3, 16, 24, 40, 2), (65, 40, 24, 1001, 2), (192, 256, 512, 9956, 5)])
 @pytest.mark.parametrize("cell", ["gru", "lstm"])
 def test_f32_dense_step_runs_the_simt_code(cuda, cell, R, E, H, V, L):
-    """The f32 dense instances keep the SIMT code of the other ends: their new
-    state is bit-equal to the stack step's and the top-k step's, and the
-    first-max argmax of their logits is the greedy step's token on every row
-    (the same per-column sums)."""
+    """The f32 dense instances keep the SIMT code of the other SIMT ends:
+    their new state is bit-equal to the stack step's and the top-k step's.
+    The f32 greedy step runs the tensor cores in split-precision TF32
+    (test_f32_pooled_greedy_steps_run_the_tensor_core_code): its state is
+    within 1e-5 of theirs, and its tokens are the first-max argmax of the
+    dense logits on every row whose top-2 gap exceeds 1e-4."""
     stacked, vocab, x, hs = _inputs(R, E, H, V, L, torch.float32, cuda, seed=19, gates=4 if cell == "lstm" else 3)
     state = _state(cell, hs, 20)
     logits, new_state = fused_dense_step(stacked, vocab, x, state)
@@ -465,10 +469,14 @@ def test_f32_dense_step_runs_the_simt_code(cuda, cell, R, E, H, V, L):
     others = [stack(stacked, x, state)[1], fused_topk_step(stacked, vocab, x, state, 3)[1]]
     tok, greedy_state = greedy(stacked, vocab, x, state)
     torch.cuda.synchronize()
-    for other in others + [greedy_state]:
+    for other in others:
         for a, b in zip(new_state if cell == "lstm" else (new_state,), other if cell == "lstm" else (other,)):
             assert torch.equal(a, b)
-    assert torch.equal(first_max_argmax(logits), tok)
+    tol, gap = TOL[torch.float32]
+    for a, b in zip(new_state if cell == "lstm" else (new_state,), greedy_state if cell == "lstm" else (greedy_state,)):
+        torch.testing.assert_close(b, a, rtol=tol, atol=tol)
+    clear = _clear(logits, gap)
+    assert torch.equal(first_max_argmax(logits)[clear], tok[clear])
 
 
 def test_beam_wrappers_reject_what_they_do_not_take(cuda):
@@ -612,8 +620,8 @@ def _greedy_prepared(B, E, H, V, L, dtype, device, seed=0):
                                          (64, 256, 512, 9956, 5, 25)])
 def test_whole_decode_kernel_bit_equal_to_the_step_loop(cuda, dtype, B, E, H, V, L, T):
     """One launch for all T steps, ids equal bit for bit to T launches of the
-    fused step with index_select between them (in bf16 both on the tensor
-    cores, in f32 both SIMT); greedy_decode_kernel takes it under
+    fused step with index_select between them (both on the tensor cores,
+    f32 in split-precision TF32); greedy_decode_kernel takes it under
     whole_decode=True."""
     prepared, feats = _greedy_prepared(B, E, H, V, L, dtype, cuda)
     before = gru_whole_greedy_decode.launches, fused_gru_decode_step.launches
@@ -809,13 +817,14 @@ def test_folded_f32_encode_runs_without_tf32_and_leaves_the_global(cuda):
 TC_GREEDY = ["pooled gru", "pooled lstm", "attention gru", "attention lstm"]
 
 
-def _tc_greedy(family, B, dtype, device, seed=21):
-    """(step, plain twin, its arguments, vocab) of one tensor-core greedy family."""
+def _tc_greedy(family, B, dtype, device, seed=21, scale=0.3):
+    """(step, plain twin, its arguments, vocab) of one tensor-core greedy family; the pooled ones' weights in
+    +-scale."""
     if family == "pooled gru":
-        stacked, vocab, x, hs = _inputs(B, 256, 512, 9956, 5, dtype, device, seed=seed)
+        stacked, vocab, x, hs = _inputs(B, 256, 512, 9956, 5, dtype, device, seed=seed, scale=scale)
         return fused_gru_decode_step, fused_gru_decode_step_plain, (stacked, vocab, x, hs), vocab
     if family == "pooled lstm":
-        stacked, vocab, x, hs = _inputs(B, 512, 512, 9956, 5, dtype, device, seed=seed, gates=4)
+        stacked, vocab, x, hs = _inputs(B, 512, 512, 9956, 5, dtype, device, seed=seed, gates=4, scale=scale)
         args = (stacked, vocab, x, _state("lstm", hs, seed))
         return fused_lstm_decode_step, fused_lstm_decode_step_plain, args, vocab
     cell = family.split()[1]
@@ -886,6 +895,90 @@ def test_bf16_greedy_steps_run_the_tensor_core_code(cuda, family, B):
                     dense_state if isinstance(dense_state, tuple) else (dense_state,)):
         assert torch.equal(a, b)
     assert torch.equal(first_max_argmax(logits), tok)
+
+
+# The f32 pooled greedy steps (and the whole decode) on the tensor cores in split-precision TF32
+# (csrc/dense_mma.cuh, tf32x3_step()): f32's bars, states within 1e-5 and tokens equal where the gap exceeds 1e-4.
+TF32X3_GREEDY = ["pooled gru", "pooled lstm"]
+
+
+def _tuple(state):
+    return state if isinstance(state, tuple) else (state,)
+
+
+@pytest.mark.parametrize("B", [1, 19, 32, 64, 512])
+@pytest.mark.parametrize("family", TF32X3_GREEDY)
+def test_f32_pooled_greedy_steps_run_the_tensor_core_code(cuda, family, B):
+    """At the flagship widths, weights at the decoder init's scale
+    (U(+-1/sqrt(H)), as chip_smoke.py draws them): new states within 1e-5
+    of the plain twin (rtol and atol), tokens equal on every row whose
+    top-2 gap exceeds 1e-4, two launches bit-equal; and sums that are not
+    the SIMT code's: the new state differs in its bits from the f32 dense
+    step's (SIMT)."""
+    step, plain, args, vocab = _tc_greedy(family, B, torch.float32, cuda, seed=28, scale=512 ** -0.5)
+    before = step.launches
+    (tok, state), (tok2, state2) = step(*args), step(*args)
+    torch.cuda.synchronize()
+    assert step.launches == before + 2 and tok.dtype == torch.int32 and tuple(tok.shape) == (B,)
+    assert torch.equal(tok, tok2) and all(torch.equal(a, b) for a, b in zip(_tuple(state), _tuple(state2)))
+    ref_tok, ref_state = plain(*args)
+    tol, gap = TOL[torch.float32]
+    for g, r in zip(_tuple(state), _tuple(ref_state)):
+        torch.testing.assert_close(g, r, rtol=tol, atol=tol)
+    clear = _clear(project_logits(vocab, _top(ref_state)), gap)
+    assert torch.equal(tok[clear], ref_tok[clear])
+    _, simt_state = fused_dense_step(*args)
+    assert not all(torch.equal(a, b) for a, b in zip(_tuple(state), _tuple(simt_state)))
+
+
+def _f64_stack(stacked, x, state):
+    """The recurrence in float64 on the card from the same f32 operands: the new states."""
+    d = lambda v: v.double()
+    lstm = isinstance(state, tuple)
+    hs, cs = (d(state[0]), d(state[1])) if lstm else (d(state), None)
+    H, inp, out_h, out_c = hs.shape[2], d(x), [], []
+    for l in range(hs.shape[0]):
+        w_ih = stacked["w_ih0"] if l == 0 else stacked["w_ihU"][l - 1]
+        gx = torch.addmm(d(stacked["b_ih"][l]), inp, d(w_ih).T).split(H, dim=1)
+        gh = torch.addmm(d(stacked["b_hh"][l]), hs[l], d(stacked["w_hh"][l]).T).split(H, dim=1)
+        if lstm:
+            c = torch.sigmoid(gx[1] + gh[1]) * cs[l] + torch.sigmoid(gx[0] + gh[0]) * torch.tanh(gx[2] + gh[2])
+            inp = torch.sigmoid(gx[3] + gh[3]) * torch.tanh(c)
+            out_c.append(c)
+        else:
+            r, z = torch.sigmoid(gx[0] + gh[0]), torch.sigmoid(gx[1] + gh[1])
+            inp = (1 - z) * torch.tanh(gx[2] + r * gh[2]) + z * hs[l]
+        out_h.append(inp)
+    return (torch.stack(out_h), torch.stack(out_c)) if lstm else torch.stack(out_h)
+
+
+@pytest.mark.parametrize("B", [64, 512])
+@pytest.mark.parametrize("family", TF32X3_GREEDY)
+def test_f32_pooled_greedy_steps_err_no_more_than_the_twin(cuda, family, B):
+    """Weights in +-0.3 (pre-activations of several units, where two f32
+    summation orders part by up to about 1e-5 in the states): against the
+    recurrence in float64, the kernel's new states err no more than the
+    plain twin's (cuBLAS in f32), at the worst value and in the mean
+    square."""
+    step, plain, args, _ = _tc_greedy(family, B, torch.float32, cuda, seed=30)
+    state, ref_state = step(*args)[1], plain(*args)[1]
+    exact = _f64_stack(args[0], args[2], args[3])
+    err = lambda got: torch.cat([(g.double() - e).abs().flatten() for g, e in zip(_tuple(got), _tuple(exact))])
+    ours, twin = err(state), err(ref_state)
+    assert ours.max() <= twin.max() and ours.square().mean() <= twin.square().mean()
+
+
+@pytest.mark.parametrize("lo,hi", [(63, 64), (5, 9954)], ids=["across-two-items", "first-and-last-tiles"])
+@pytest.mark.parametrize("family", TF32X3_GREEDY)
+def test_f32_pooled_greedy_tie_across_vocab_items_takes_the_lower_index(cuda, family, lo, hi):
+    """Two equal vocabulary rows on top in every row, in two 64-row items,
+    at B = 65 (a slab pair and a partial slab): the lower index, as the
+    plain twin."""
+    step, plain, args, vocab = _tc_greedy(family, 65, torch.float32, cuda, seed=29)
+    vocab["w"][hi] = vocab["w"][lo]
+    vocab["b"][lo] = vocab["b"][hi] = 50.0
+    assert step(*args)[0].tolist() == [lo] * 65
+    assert plain(*args)[0].tolist() == [lo] * 65
 
 
 @pytest.mark.parametrize("B,E,H,A,P,V,L", [(3, 16, 24, 16, 5, 40, 1), (65, 64, 128, 32, 7, 1001, 2),

@@ -1,12 +1,15 @@
-"""Greedy captions/s at B=64 of the PyTorch port's flagship families on one NVIDIA GPU.
+"""Greedy captions/s of the PyTorch port's flagship families on one NVIDIA GPU.
 
     python tools/greedy_rate.py [--root DIR] [--rounds N] [--variants gru,lstm,attn,attn_lstm]
+                                [--dtype bfloat16|float32] [--batch B]
 
 Imports show_tell_tpu_torch from DIR (default: this checkout), so that one
 script times two checkouts alike, each in its own process.  Each family's
-bf16 Captioner is built as chip_smoke.py builds it (ResNet-101, random
-weights from seed 0, a synthetic vocabulary of 9,956 words, the flagship
-widths) and serves three requests of 64 random 224 x 224 images through
+Captioner (bf16 by default; --dtype float32: the f32 route that test_model
+and serve --compute_dtype float32 take) is built as chip_smoke.py builds
+it (ResNet-101, random weights from seed 0, a synthetic vocabulary of
+9,956 words, the flagship widths) and serves three requests of --batch
+(64) random 224 x 224 images through
 chip_smoke.greedy_rates: one warm-up request, then N rounds of the three,
 the families in turns, each request timed alone on the host clock to ids
 on the host.  Prints the card's name and power limit, one line a family
@@ -29,6 +32,8 @@ def main():
     ap.add_argument("--root", default=HERE, help="checkout whose show_tell_tpu_torch is timed")
     ap.add_argument("--rounds", type=int, default=4)
     ap.add_argument("--variants", default="gru,lstm,attn,attn_lstm")
+    ap.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"))
+    ap.add_argument("--batch", type=int, default=64, help="images a request")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -58,14 +63,17 @@ def main():
         else:
             cfg = CaptionerConfig(variant, 101, cs.LE if variant == "lstm" else cs.E, cs.H, cs.V, cs.L)
         params, bn_state = init_captioner(cfg, torch.Generator().manual_seed(cs.SEED))
-        cap = Captioner(params, bn_state, cfg, vocab, "bfloat16", device="gpu")
-        served[variant] = (cap, [img_rng.randint(0, 256, (64, cs.IMG, cs.IMG, 3), dtype=np.uint8) for _ in range(3)])
+        cap = Captioner(params, bn_state, cfg, vocab, args.dtype, device="gpu")
+        served[variant] = (cap, [img_rng.randint(0, 256, (args.batch, cs.IMG, cs.IMG, 3), dtype=np.uint8)
+                                 for _ in range(3)])
     rates = cs.greedy_rates(served, args.rounds)
     print(smi, flush=True)
     for variant, per_s in rates.items():
-        print("%s greedy bf16 B=64 from %s: %.1f captions/s, median [min, max] [%.1f, %.1f] of %d requests"
-              % (variant, root, statistics.median(per_s), min(per_s), max(per_s), len(per_s)), flush=True)
-    print(json.dumps({"root": root, "card": smi, "rates": rates}), flush=True)
+        print("%s greedy %s B=%d from %s: %.1f captions/s, median [min, max] [%.1f, %.1f] of %d requests"
+              % (variant, args.dtype, args.batch, root, statistics.median(per_s), min(per_s), max(per_s), len(per_s)),
+              flush=True)
+    print(json.dumps({"root": root, "card": smi, "dtype": args.dtype, "batch": args.batch, "rates": rates}),
+          flush=True)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,7 @@
 """Device times of the pooled fused-step kernels at the flagship widths on one NVIDIA GPU.
 
     python tools/step_times.py [--root DIR] [--requests N]
+    python tools/step_times.py [--root DIR] --dtype float32
 
 Imports show_tell_tpu_torch from DIR (default: this checkout), so that one
 script times two checkouts alike, each in its own process.  In bf16, with
@@ -31,6 +32,23 @@ attention GRU's beam request (K=3), the Captioners built as chip_smoke.py
 builds them (ResNet-101, random weights from seed 0).  Prints the card's
 name and power limit, one line a kernel and B, and a JSON line of every
 time and digest.
+
+With --dtype float32, every f32 instance of the 14 TPU kernels' ports
+instead (f32_instances): the pooled greedy steps (the tensor cores in
+split-precision TF32) at B = 1, 32, 64 and 512, every other instance at B
+= 1, 32, 64 (R = 3, 96, 192 beam rows), each with its operands warm in L2
+and cold, and the whole decode at B = 1, 64 and 512 (median of 10 after
+2); beside each, its f32 composite yardstick (PyTorch's own calls on the
+same operands, with TF32 off; chip_smoke.library_yardsticks where it
+builds the row), its bound (chip_smoke.bound: bytes over 3.35 TB/s against
+operations over the card's 67 TFLOP/s of f32, or, for the instances on
+the tensor cores, three TF32 products a multiply-add over its 495 TFLOP/s
+of TF32), its plain twin's time (at B=64, R=192) and its launches on the
+f32 eval path; then, where the checkout's f32 greedy steps take
+``splits``, their K split swept (S = 1 .. 8 at B = 1, 32, 64, 128, warm
+and cold, beside the S that stack_tiles takes); then sha256 digests of
+every f32 instance's outputs, so that two checkouts that print the same
+digests gave bit-equal outputs.
 """
 
 import argparse
@@ -50,6 +68,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=HERE, help="checkout whose show_tell_tpu_torch is timed")
     ap.add_argument("--requests", type=int, default=0, help="also time N whole requests of each served path")
+    ap.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"),
+                    help="float32: every f32 instance beside its f32 yardstick instead")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -80,6 +100,9 @@ def main():
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
     times = {}
     print(smi, flush=True)
+    if args.dtype == "float32":
+        f32_instances(cs, root, smi, device, flush)
+        return
     for B in (1, 64, 512):
         stacked, vocab, x, hs = cs.step_inputs(rng, B, torch.bfloat16, device)
         step = lambda: fused_gru_decode_step_cuda(stacked, vocab, x, hs)
@@ -184,6 +207,185 @@ def main():
     beam_rows = lambda name: name.endswith(("topk", "dense")) or name.split(" ")[0] in cs.BEAM_KERNELS
     print(json.dumps({"root": root, "card": smi, "ms": {"%s %s=%d" % (k[0], "R" if beam_rows(k[0]) else "B", k[1]): v
                                                         for k, v in times.items()}, "digests": digests}), flush=True)
+
+
+# the launches of each f32 instance on the f32 eval path (test_model, greedy, B=32): a batch's, where it runs there
+F32_EVAL_LAUNCHES = {
+    "fused_gru_decode_step": "25 a batch (pooled GRU)", "fused_lstm_decode_step": "25 a batch (pooled LSTM)",
+    "fused_attn_decode_step": "25 a batch (attention GRU)",
+    "fused_attn_lstm_decode_step": "25 a batch (attention LSTM)",
+    "fused_gru_dense_step": "24 a beam batch (--beam_size)", "fused_lstm_dense_step": "24 a beam batch (--beam_size)",
+    "fused_attn_dense_step": "24 a beam batch (--beam_size)", "fused_attn_lstm_dense_step": "24 a beam batch",
+    "attention_context": "1 an attention beam batch",
+    "gru_stack_step": "25 a batch under --mp", "lstm_stack_step": "25 a batch under --mp",
+}
+
+
+def f32_instances(cs, root, smi, device, flush):
+    """--dtype float32: every f32 instance, warm and cold, beside its f32
+    composite yardstick (TF32 off) and its bound; the K split of the f32
+    greedy steps swept; then their digests."""
+    import hashlib
+    import inspect
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from show_tell_tpu_torch.ops.attention import attention_context_cuda, attention_context_plain
+    from show_tell_tpu_torch.ops.fused_beam import (
+        fused_dense_step_cuda,
+        fused_dense_step_plain,
+        fused_topk_step_cuda,
+        fused_topk_step_plain,
+    )
+    from show_tell_tpu_torch.ops.fused_step import (
+        MAX_SPLITS,
+        fused_gru_decode_step_cuda,
+        fused_lstm_decode_step_cuda,
+        sm_count,
+        stack_tiles,
+    )
+    from show_tell_tpu_torch.ops.rnn import gru_stack_plain, gru_stack_step_cuda, lstm_stack_plain, lstm_stack_step_cuda
+    from show_tell_tpu_torch.ops.s2d_stem import S2D_PAD, space_to_depth
+    from show_tell_tpu_torch.ops.stem import prepare_stem, stem_fused_cuda, stem_fused_plain
+    from show_tell_tpu_torch.ops.vocab import (
+        project_argmax_cuda,
+        project_argmax_plain,
+        project_topk_cuda,
+        project_topk_plain,
+    )
+
+    f32, K = torch.float32, cs.K_BEAM
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(cs.SEED + 13)
+    hx = lambda state: tuple(state) if isinstance(state, tuple) else state
+    rows = {}  # (name, B or R) -> {"ms", "cold_ms", "yard_ms", "bound_ms", "bound_by"}
+    # the rows whose yardstick chip_smoke.library_yardsticks builds (at B rows; the dense steps' at 3 B)
+    library_rows = ("fused_gru_decode_step", "fused_lstm_decode_step", "fused_attn_decode_step",
+                    "fused_attn_lstm_decode_step", "fused_attn_dense_step", "fused_attn_lstm_dense_step",
+                    "preprocess_images", "gru_whole_greedy_decode")
+
+    def both(cuda, plain, *args):  # (kernel call, plain twin call) on the same operands
+        return (lambda: cuda(*args)), (lambda: plain(*args))
+
+    def cases(name, n, draw=rng):
+        """(kernel call, plain twin call, yardstick call) of instance ``name`` at n rows, operands drawn from
+        ``draw``."""
+        if name in library_rows:
+            yard, kernel, plain = cs.library_yardsticks(draw, n // K if name in cs.BEAM_KERNELS else n, device, f32,
+                                                        (name,))[name]
+            return kernel, plain, yard
+        cell = "lstm" if "lstm" in name else "gru"
+        Ed = cs.LE if cell == "lstm" else cs.E
+        if name in ("fused_gru_dense_step", "fused_lstm_dense_step", "fused_gru_topk_step", "fused_lstm_topk_step",
+                    "gru_stack_step", "lstm_stack_step"):
+            stacked, vocab, x, state = cs.step_inputs(draw, n, f32, device, Ed, cell)
+            rnn = cs.library_rnn(cell, stacked, Ed)
+            top = lambda: rnn(x[None], hx(state))[0][0]
+            if name.endswith("dense_step"):
+                return (*both(fused_dense_step_cuda, fused_dense_step_plain, stacked, vocab, x, state),
+                        lambda: torch.addmm(vocab["b"], top(), vocab["w"].T))
+            if name.endswith("topk_step"):
+                return (*both(fused_topk_step_cuda, fused_topk_step_plain, stacked, vocab, x, state, K),
+                        lambda: torch.log_softmax(torch.addmm(vocab["b"], top(), vocab["w"].T), dim=-1).topk(K))
+            stack = (lstm_stack_step_cuda, lstm_stack_plain) if cell == "lstm" else (gru_stack_step_cuda,
+                                                                                    gru_stack_plain)
+            return (*both(*stack, stacked, x, state), lambda: rnn(x[None], hx(state)))
+        if name == "attention_context":
+            weights, feats, att1, h = cs.context_inputs(draw, n, f32, device)
+            return (*both(attention_context_cuda, attention_context_plain, weights, feats, att1, h),
+                    lambda: torch.bmm(torch.softmax(F.leaky_relu(att1 + torch.addmm(weights["bdec"], h,
+                                                                                     weights["wdec"].T)[:, None], 0.2)
+                                                    @ weights["wfull"], dim=1)[:, None, :], feats)[:, 0])
+        if name.startswith("project_"):
+            vocab = cs.vocab_inputs(draw, cs.H, f32, device)
+            top = cs.uniform(draw, (n, cs.H), 1.0, f32, device)
+            logits = lambda: torch.addmm(vocab["b"], top, vocab["w"].T)
+            if name == "project_argmax":
+                return (*both(project_argmax_cuda, project_argmax_plain, vocab, top), lambda: logits().argmax(dim=-1))
+            return (*both(project_topk_cuda, project_topk_plain, vocab, top, K),
+                    lambda: torch.log_softmax(logits(), dim=-1).topk(K))
+        imgs = cs.u8_images(draw, (n, cs.IMG, cs.IMG, 3), device)
+        sprep = prepare_stem(cs.stem_stub(draw, device), f32)  # the stem: cuDNN's 4x4 conv of the s2d form + t, pool
+        x12 = space_to_depth(imgs).permute(0, 3, 1, 2).float()
+        w4 = sprep["w"].reshape(4, 4, 12, 64).permute(3, 2, 0, 1).contiguous()
+        tp = sprep["t"].permute(2, 0, 1)[None]
+        return (*both(stem_fused_cuda, stem_fused_plain, imgs, sprep),
+                lambda: F.max_pool2d(F.relu(F.conv2d(F.pad(x12, S2D_PAD), w4) + tp), 3, 2, 1))
+
+    greedy = {"fused_gru_decode_step": (1, 32, 64, 512), "fused_lstm_decode_step": (1, 32, 64, 512)}
+    batch = (1, 32, 64)
+    beam = tuple(r * K for r in batch)  # R = 3, 96, 192
+    plan = dict(greedy)
+    plan.update({name: batch for name in ("fused_attn_decode_step", "fused_attn_lstm_decode_step", "gru_stack_step",
+                                          "lstm_stack_step", "attention_context", "project_argmax",
+                                          "preprocess_images", "stem_fused")})
+    plan.update({name: beam for name in ("fused_gru_dense_step", "fused_lstm_dense_step", "fused_gru_topk_step",
+                                         "fused_lstm_topk_step", "fused_attn_dense_step", "fused_attn_lstm_dense_step",
+                                         "project_topk")})
+    note = "(CUDA events, median of 30 after 5, each call queued behind a 1 ms spin, the yardstick's a 10 ms spin)"
+    with torch.inference_mode(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        for name, sizes in plan.items():
+            for n in sizes:
+                kernel, plain, yard = cases(name, n)
+                ms, cold = cs.event_median_ms(kernel), cs.event_median_ms(kernel, before=flush.zero_)
+                y_ms = cs.event_median_ms(yard, spin=cs.LIBRARY_SPIN_CYCLES)
+                p_ms = cs.event_median_ms(plain, iters=10, warmup=2) if n == sizes[2] else None  # B=64, R=192
+                b_ms, b_by = cs.bound(name, n, dtype="float32")
+                rows[name, n] = {"ms": ms, "cold_ms": cold, "yard_ms": y_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                                 "bound_by": b_by}
+                print("%s float32 %s %s=%d from %s: kernel %.4f ms, L2 cold %.4f ms; f32 yardstick %.4f ms "
+                      "(kernel / yardstick %.3f); plain %s; bound %.4f ms (%s), kernel / bound %.1f; eval launches: "
+                      "%s %s" % (smi, name, "R" if name in cs.BEAM_KERNELS else "B", n, root, ms, cold, y_ms,
+                                 ms / y_ms, "%.4f ms" % p_ms if p_ms else "not timed", b_ms, b_by, ms / b_ms,
+                                 F32_EVAL_LAUNCHES.get(name, "none"), note), flush=True)
+        for B in (1, 64, 512):  # the whole decode of T steps and its composite yardstick (library_yardsticks)
+            run, plain, yard = cases("gru_whole_greedy_decode", B)
+            ms = cs.event_median_ms(run, iters=10, warmup=2)
+            cold = cs.event_median_ms(run, iters=10, warmup=2, before=flush.zero_)
+            y_ms = cs.event_median_ms(yard, iters=10, warmup=2, spin=cs.LIBRARY_SPIN_CYCLES)
+            p_ms = cs.event_median_ms(plain, iters=5, warmup=1) if B == 64 else None
+            b_ms, b_by = cs.bound("gru_whole_greedy_decode", B, int(torch.unique(run()[:, :-1]).numel()), "float32")
+            rows["gru_whole_greedy_decode", B] = {"ms": ms, "cold_ms": cold, "yard_ms": y_ms, "plain_ms": p_ms,
+                                                  "bound_ms": b_ms, "bound_by": b_by}
+            print("%s float32 gru_whole_greedy_decode B=%d T=%d from %s: kernel %.4f ms, L2 cold %.4f ms; f32 "
+                  "yardstick %.4f ms (kernel / yardstick %.3f; host issue in it); bound %.4f ms (%s), kernel / bound "
+                  "%.1f; median of 10 after 2" % (smi, B, cs.T, root, ms, cold, y_ms, ms / y_ms, b_ms, b_by, ms / b_ms),
+                  flush=True)
+    # the f32 greedy steps' K split: every S the kernel takes, L2 warm and cold, beside the one stack_tiles takes
+    splits = {}  # "cell B" -> {S: (warm ms, cold ms)}, with the rule's S
+    sweep = "splits" in inspect.signature(fused_gru_decode_step_cuda).parameters  # a checkout that takes a forced S
+    for cell, Ed, step in (("gru", cs.E, fused_gru_decode_step_cuda), ("lstm", cs.LE, fused_lstm_decode_step_cuda))[
+            :2 if sweep else 0]:
+        for B in (1, 32, 64, 128):
+            stacked, vocab, x, state = cs.step_inputs(rng, B, f32, device, Ed, cell)
+            by_split = {S: (cs.event_median_ms(lambda: step(stacked, vocab, x, state, splits=S)),
+                            cs.event_median_ms(lambda: step(stacked, vocab, x, state, splits=S), before=flush.zero_))
+                        for S in range(1, MAX_SPLITS + 1)}
+            rule = stack_tiles(B, Ed, cs.H, sm_count(device), dtype=f32).splits
+            best = min(by_split, key=lambda S: by_split[S][0])
+            splits["%s %d" % (cell, B)] = {"rule": rule, "best": best, "ms": by_split}
+            print("%s float32 fused_%s_decode_step B=%d K split from %s: %s; the rule takes S = %d (layer 0), %d "
+                  "(above); fastest warm S = %d, %.4f ms %s"
+                  % (smi, cell, B, root, ", ".join("S=%d %.4f ms (cold %.4f)" % (S, *t) for S, t in by_split.items()),
+                     *rule, best, by_split[best][0], note), flush=True)
+    # the bits of every f32 instance, from inputs of their own seed: the SIMT ones must equal another checkout's
+    drng = np.random.RandomState(cs.SEED + 17)
+    flat = lambda out: [t for o in (out if isinstance(out, tuple) else (out,))
+                        for t in (o if isinstance(o, tuple) else (o,))]
+    digests = {}
+    for name in (*plan, "gru_whole_greedy_decode"):
+        n = 64 * K if name in cs.BEAM_KERNELS else 64
+        digests["%s %d" % (name, n)] = cases(name, n, drng)[0]()
+    torch.cuda.synchronize()
+    digests = {k: hashlib.sha256(b"".join(t.cpu().contiguous().numpy().tobytes() for t in flat(v))).hexdigest()[:16]
+               for k, v in digests.items()}
+    print("%s float32 instances from %s, sha256 of their outputs: %s"
+          % (smi, root, ", ".join("%s %s" % kv for kv in digests.items())), flush=True)
+    print(json.dumps({"root": root, "card": smi, "dtype": "float32",
+                      "rows": {"%s %d" % k: v for k, v in rows.items()}, "splits": splits, "digests": digests}),
+          flush=True)
 
 
 if __name__ == "__main__":
