@@ -9,9 +9,10 @@
 // instance's layers and key merge T times and so stays bit-equal to its
 // per-step loop.  tf32x3_step() names the f32 instances that run it in
 // split-precision TF32 (below): the pooled greedy steps (fused_step.cu's
-// argmax end, both cells) and, with them, the whole decode.  The other f32
-// instances (the attention steps, the dense, top-k and stack ends) keep
-// the SIMT code of decode_common.cuh.
+// argmax end, both cells) and, with them, the whole decode; and the four
+// attention steps (fused_attn_step.cu's argmax and dense ends, both cells,
+// att2 included).  The other f32 instances (the pooled dense, top-k and
+// stack ends) keep the SIMT code of decode_common.cuh.
 //
 // What bounds a step on an H100.  It reads the recurrence weights (15-23 MB
 // in bf16 at the flagships) and the 10.2 MB projection, 25-34 MB in all,
@@ -48,10 +49,10 @@
 //   r and z over both sides, n's x side and n's h side apart; the LSTM its
 //   four gates.  The vocabulary's tile is 64 rows.  Items go round the
 //   cooperative grid; a layer ends in the grid barrier, as before.
-// - K split across blocks (the bf16 stack step and the f32 greedy steps,
-//   SplitK): at a small batch a layer has few items (32 at B = 1: 32 of 132
-//   SMs pull its weights), so those instances may cut each item into S
-//   parts, part s taking
+// - K split across blocks (the bf16 stack step and the f32 tf32x3_step()
+//   instances, SplitK): at a small batch a layer has few items (32 at B =
+//   1: 32 of 132 SMs pull its weights), so those instances may cut each
+//   item into S parts, part s taking
 //   the contiguous run [s n / S, (s + 1) n / S) of the layer's n K chunks,
 //   split over the four warps as above.  Each part writes its warp-ordered
 //   sums (16 columns x up to 32 rows, each slot) to a global scratch; the
@@ -99,7 +100,8 @@
 //
 // The f32 instances of tf32x3_step().  Their weights are twice the bf16
 // bytes: 50.3 MB (GRU, E=256) and 62.3 MB (LSTM, E=512) a step at the
-// flagships, no longer inside the 50 MB L2, so every re-read of a weight
+// pooled flagships, 56 and 68 MB at the attention ones (2E = 1024, W_dec),
+// no longer inside the 50 MB L2, so every re-read of a weight
 // is HBM traffic; the SIMT code re-read each weight once per 8 batch rows
 // and multiplied in an f32 FMA loop.  Here the same items, pipeline,
 // staging and ends run on mma.sync.m16n8k8 with tf32 operands:
@@ -124,7 +126,8 @@
 //   m16n8k16's, so the staging and the ends are shared.
 // - Items: bf16's, and the layers split K across blocks as the stack step
 //   does (S from ops/fused_step.stack_tiles for 16-column chunks: 8 parts
-//   at B <= 32, 4 at B = 64, 1 from B = 160): unsplit, a layer's 32 items
+//   at B <= 32, 4 at B = 64, 1 from B = 160; the attention steps' 2E-wide
+//   layer 0 the same, 2 parts at R = 96): unsplit, a layer's 32 items
 //   at B <= 32 left 100 SMs idle and each warp's chunks in one long chain
 //   of HBM reads, and the step ran no faster than the SIMT code.  A weight
 //   tile's slabs run at once on other blocks: taking a tile's two slabs in
@@ -161,12 +164,13 @@ __host__ __device__ constexpr bool mma_step() {
          (kMode == kDense || kMode == kTopk || kMode == kArgmax || kMode == kNone);
 }
 
-// Whether a pooled step's f32 instance runs this file's code in split-precision TF32: the argmax end of
-// fused_step.cu, either cell, and the whole decode, which runs that instance's layers and key merge.  Only
-// fused_step.cu and whole_decode.cu ask it (pooled_mma_step); the attention steps ask mma_step() alone.
-template <typename T, int kMode>
+// Whether a step's f32 instance runs this file's code in split-precision TF32: the argmax end of fused_step.cu,
+// either cell, and the whole decode, which runs that instance's layers and key merge (fused_step.cu and
+// whole_decode.cu ask it through pooled_mma_step); with kAttention, fused_attn_step.cu's argmax and dense ends,
+// either cell.  The pooled dense, top-k and stack ends keep the SIMT code.
+template <typename T, int kMode, bool kAttention = false>
 __host__ __device__ constexpr bool tf32x3_step() {
-  return std::is_same<T, float>::value && kMode == kArgmax;
+  return std::is_same<T, float>::value && (kMode == kArgmax || (kAttention && kMode == kDense));
 }
 
 // Whether a pooled step's instance (fused_step.cu, whole_decode.cu) runs this file's code.
@@ -193,7 +197,7 @@ struct SplitK {
   int max_parts;           // parts the scratch holds: items x S for each S > 1
 };
 
-// A K split of the layers (the bf16 stack step, the f32 greedy steps and whole decode: ``split``): 1 <= S <=
+// A K split of the layers (the bf16 stack step, the f32 tf32x3_step() instances: ``split``): 1 <= S <=
 // kMaxSplits for layer 0 and for the upper layers, and where S > 1 the scratch and counters for items x S parts, an
 // item 16 columns and 32 rows; the other instances take S = 1.
 inline bool split_args_ok(bool split, const SplitK& k, int B, int H) {
@@ -433,7 +437,7 @@ __device__ __forceinline__ void mma_part_sums(const float* parts, int S, int m, 
 
 // One layer of the recurrence over all B rows, by (16 columns, 32 rows)
 // items.  K is the layer input's I columns, then h's H.  kSplit (the bf16
-// stack step, the f32 greedy steps): each item is S parts over its K
+// stack step, the f32 tf32x3_step() instances): each item is S parts over its K
 // chunks, finished by the last part to arrive (see the K split above);
 // with S = 1 as without kSplit.
 template <typename T, typename Cell, bool kSplit = false>
@@ -524,7 +528,7 @@ __device__ void mma_stack_layer(const StackArgs& s, int l, float* red) {
 }
 
 // Layer l with its K split S ways across blocks, S = sk.s0 for layer 0, sk.su above: the bf16 stack step (kNone)
-// and the f32 greedy steps.
+// and the f32 tf32x3_step() instances.
 template <typename T, typename Cell>
 __device__ void mma_stack_layer(const StackArgs& s, int l, float* red, const SplitK& sk) {
   mma_rnn_layer<T, Cell, true>(stack_layer_args<T, Cell>(s, l), red, &sk, l == 0 ? sk.s0 : sk.su);
@@ -640,7 +644,8 @@ __device__ void mma_topk_parts(const __nv_bfloat16* top, const __nv_bfloat16* wv
 
 // The vocab phase of an mma_step instance, after the top activation is
 // complete: the dense f32 logits, each row's top-K log-probabilities, or
-// the first-max argmax tokens (also the tf32x3_step instances' end).
+// the first-max argmax tokens (also the tf32x3_step() instances' ends: the
+// argmax, and the attention steps' dense logits).
 template <int kMode, typename T>
 __device__ void mma_vocab_phase(const T* top, const T* wv, const T* bv, int B, int H, int V, const VocabOut& out,
                                 float* red, cg::grid_group& grid) {

@@ -173,10 +173,10 @@ def load_library() -> ctypes.CDLL:
             "st_gru_stack_step": [i] + [p] * 10 + [i] * 7 + [p],
             "st_lstm_stack_step": [i] + [p] * 12 + [i] * 7 + [p],
             "st_whole_gru_decode": [i] + [p] * 15 + [i] * 9 + [p],
-            "st_fused_attn_step": [i] + [p] * 20 + [i] * 7 + [p],
-            "st_fused_attn_lstm_step": [i] + [p] * 22 + [i] * 7 + [p],
-            "st_fused_attn_dense_step": [i] + [p] * 19 + [i] * 7 + [p],
-            "st_fused_attn_lstm_dense_step": [i] + [p] * 21 + [i] * 7 + [p],
+            "st_fused_attn_step": [i] + [p] * 22 + [i] * 10 + [p],
+            "st_fused_attn_lstm_step": [i] + [p] * 24 + [i] * 10 + [p],
+            "st_fused_attn_dense_step": [i] + [p] * 21 + [i] * 10 + [p],
+            "st_fused_attn_lstm_dense_step": [i] + [p] * 23 + [i] * 10 + [p],
             "st_attention_context": [i] + [p] * 9 + [i] * 5 + [p],
             "st_project_argmax": [i] + [p] * 5 + [i] * 4 + [p],
             "st_project_topk": [i] + [p] * 7 + [i] * 6 + [p],

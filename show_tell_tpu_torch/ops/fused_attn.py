@@ -9,9 +9,13 @@ modes).
 The step takes the state as the greedy loop carries it: hs [L, B, H] for
 the GRU, the tuple (hs, cs) for the LSTM.
 
-In bf16 both ends run the recurrence and the projection on the tensor
-cores (csrc/dense_mma.cuh; geometry ``fused_step.mma_tiles``); the
-attention phases and f32 keep the SIMT code.
+Every instance runs the recurrence and the projection on the tensor cores
+(csrc/dense_mma.cuh; geometry ``fused_step.mma_tiles``): bf16 as
+``fused_step.mma_step`` names it, with the attention phases in SIMT code;
+f32 in split-precision TF32 (``fused_step.tf32x3_step(..., attention=True)``:
+three tf32 products a product, about f32's precision), its layers' K split
+across blocks (``fused_step.layer_split``), with the attention phases in
+SIMT code spread over the grid.
 
 Two per-image constants are hoisted out of the step, as on the TPU:
 ``att1 = feats @ W_enc + b_enc`` and ``feats_e = feats @ W_embed``.  Decode
@@ -29,7 +33,7 @@ import torch
 
 from show_tell_tpu_torch.ops import check_tensor, check_widths, dtype_code, raise_on_error, stream_arg, uses_kernel
 from show_tell_tpu_torch.ops.attention import attention_alpha_plain, precompute_att1
-from show_tell_tpu_torch.ops.fused_step import check_stack, mma_step, mma_tiles
+from show_tell_tpu_torch.ops.fused_step import check_stack, layer_split, mma_step, mma_tiles, tf32x3_step
 from show_tell_tpu_torch.ops.rnn import LstmState, State, prepare_rnn_weights, stack_plain
 from show_tell_tpu_torch.ops.vocab import prepare_vocab, project_argmax_plain, project_logits
 
@@ -105,9 +109,11 @@ def fused_attn_dense_step_plain(
 
 def _fused_attn_cuda(prep, w_emb, state: State, dense: bool):
     """Check, allocate and launch the GRU or (for a state (hs, cs)) the
-    LSTM instance of the argmax or the dense kernel; a bf16 instance's
-    tensor-core geometry is checked first (``mma_tiles`` raises for a
-    width that does not fit).  Returns (tok or logits, new state)."""
+    LSTM instance of the argmax or the dense kernel; its tensor-core
+    geometry is checked first (``mma_tiles`` raises for a width that does
+    not fit), and an f32 instance gets its layers' K split (``layer_split``:
+    the scratch and the stream's arrival counters; layer 0 is 2E wide).
+    Returns (tok or logits, new state)."""
     from show_tell_tpu_torch.ops.build import load_library
 
     lstm = isinstance(state, tuple)
@@ -134,21 +140,26 @@ def _fused_attn_cuda(prep, w_emb, state: State, dense: bool):
     check_tensor("b_emb", prep["b_emb"], (E,), dtype, device)
     check_tensor("vocab w", prep["vocab"]["w"], (V, H), dtype, device)
     check_tensor("vocab b", prep["vocab"]["b"], (V,), dtype, device)
-    if mma_step(dtype, "dense" if dense else "argmax"):
+    end = "dense" if dense else "argmax"
+    partial, split_ptrs, split_ints = None, [None, None], [1, 1, 0]  # the split's scratch is held until queued
+    if mma_step(dtype, end):
         mma_tiles(B, 2 * E, H, V, (A, P))
+    elif tf32x3_step(dtype, end, attention=True):
+        mma_tiles(B, 2 * E, H, V, (A, P), dtype=dtype)
+        partial, split_ptrs, split_ints = layer_split(B, 2 * E, H, device, dtype)
     lib = load_library()
     stacked, vocab = prep["stacked"], prep["vocab"]
     x = torch.empty(B, 2 * E, dtype=dtype, device=device)
-    att2 = torch.empty(B, A, dtype=torch.float32, device=device)
+    att2 = torch.empty(B, A + P, dtype=torch.float32, device=device)  # att2, then the f32 A2's scores
     new_hs = torch.empty_like(hs)
     new_cs = torch.empty_like(cs) if lstm else None
     if dense:
         out = torch.empty(B, V, dtype=torch.float32, device=device)
-        end = [out.data_ptr()]
+        end_ptrs = [out.data_ptr()]
     else:
         out = torch.empty(B, dtype=torch.int32, device=device)
         best = torch.empty(B, dtype=torch.int64, device=device)
-        end = [out.data_ptr(), best.data_ptr()]
+        end_ptrs = [out.data_ptr(), best.data_ptr()]
     state_in = [hs.data_ptr(), cs.data_ptr()] if lstm else [hs.data_ptr()]
     state_out = [new_hs.data_ptr(), new_cs.data_ptr()] if lstm else [new_hs.data_ptr()]
     entry = getattr(lib, "st_fused_attn_%s%sstep" % ("lstm_" if lstm else "", "dense_" if dense else ""))
@@ -158,8 +169,8 @@ def _fused_attn_cuda(prep, w_emb, state: State, dense: bool):
             prep["bdec"].data_ptr(), prep["wfull"].data_ptr(), prep["b_emb"].data_ptr(),
             stacked["w_ih0"].data_ptr(), stacked["w_ihU"].data_ptr(), stacked["w_hh"].data_ptr(),
             stacked["b_ih"].data_ptr(), stacked["b_hh"].data_ptr(), *state_in, vocab["w"].data_ptr(),
-            vocab["b"].data_ptr(), x.data_ptr(), att2.data_ptr(), *state_out, *end,
-            L, B, E, H, A, P, V, stream_arg(device),
+            vocab["b"].data_ptr(), x.data_ptr(), att2.data_ptr(), *state_out, *end_ptrs, *split_ptrs,
+            L, B, E, H, A, P, V, *split_ints, stream_arg(device),
         )
     raise_on_error(kernel, err)
     return out, ((new_hs, new_cs) if lstm else new_hs)

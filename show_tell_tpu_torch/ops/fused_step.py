@@ -15,9 +15,11 @@ geometry ``mma_tiles`` computes: the dense, top-k and argmax ends, both
 cells (the pooled GRU's argmax instance bit-equal to the whole decode),
 and the stack step (no vocab end), whose K split across blocks
 ``stack_tiles`` computes.  In f32 the instances that ``tf32x3_step``
-names, the two greedy steps here and the whole decode, run the same code
-in split-precision TF32 (three tf32 products a product, about f32's
-precision); every other f32 instance keeps the SIMT code.
+names, the two greedy steps here, the whole decode and the four attention
+steps of ops/fused_attn.py (greedy and dense, both cells), run the same
+code in split-precision TF32 (three tf32 products a product, about f32's
+precision), their layers' K split across blocks; every other f32 instance
+keeps the SIMT code.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ MMA_WARPS = 4  # warps a block (128 threads, the SIMT phases' block), splitting 
 MMA_PITCH = 33  # floats a staged row of a warp's 32 lanes
 MMA_SMEM = 4 * MMA_WARPS * MMA_SLOTS * 4 * 4 * MMA_PITCH  # bytes: every warp's 64 sums a lane
 ATTN_ROWS = 8  # the attention's SIMT phase A1 holds 8 rows of h (kBM in csrc/decode_common.cuh)
+ATTN_CTX_COLS = 128  # columns of E an item of the f32 attention context (kCtxCols in csrc/fused_attn_step.cu)
 MAX_SPLITS = 8  # parts a stack-step item's K chunks may be split into (kMaxSplits)
 MMA_BLOCKS_PER_SM = 2  # blocks of a tensor-core step resident on an SM: 128 threads at <= 256 registers each
 MMA_PART = MMA_SLOTS * MMA_SLAB * 16  # f32 sums of one split-K part: every slot's 16 columns x 32 rows
@@ -54,14 +57,14 @@ def mma_step(dtype: torch.dtype, end: Union[str, int, None]) -> bool:
     return dtype == torch.bfloat16
 
 
-def tf32x3_step(dtype: torch.dtype, end: Union[str, int, None]) -> bool:
-    """Whether a pooled step's f32 instance runs on the tensor cores in
-    split-precision TF32 (tf32x3_step() in csrc/dense_mma.cuh): the greedy
-    step of either cell (the "argmax" end) and the whole decode, which runs
-    that step's code.  Only this module and ops/whole_decode.py ask it; the
-    attention steps ask ``mma_step`` alone, and the f32 dense, top-k and
-    stack ends keep the SIMT code."""
-    return dtype == torch.float32 and end == "argmax"
+def tf32x3_step(dtype: torch.dtype, end: Union[str, int, None], attention: bool = False) -> bool:
+    """Whether a step's f32 instance runs on the tensor cores in
+    split-precision TF32 (tf32x3_step() in csrc/dense_mma.cuh): the pooled
+    greedy step of either cell (the "argmax" end) and the whole decode,
+    which runs that step's code; with ``attention``, the attention step's
+    "argmax" and "dense" ends, either cell (ops/fused_attn.py).  The pooled
+    f32 dense, top-k and stack ends keep the SIMT code."""
+    return dtype == torch.float32 and (end == "argmax" or (attention and end == "dense"))
 
 
 class MmaTiles(NamedTuple):
@@ -80,7 +83,8 @@ def mma_tiles(R: int, I0: int, H: int, V: int, attention: Optional[Tuple[int, in
     memory, as csrc/dense_mma.cuh and the kernels' launch compute them; the
     dense and the argmax end take the same items.  ``dtype`` float32: the
     ``tf32x3_step`` instances, whose chunks are TF32_CHUNK columns (their
-    layers' K split: ``stack_tiles``).  The grid is the occupancy times the
+    layers' K split: ``stack_tiles``; ``smem`` the larger of the f32
+    attention steps' two launches).  The grid is the occupancy times the
     SM count, and blocks walk the items.  Raises for widths whose shared
     memory exceeds a block's."""
     check_widths("tensor-core step", I0=I0, H=H)
@@ -88,9 +92,11 @@ def mma_tiles(R: int, I0: int, H: int, V: int, attention: Optional[Tuple[int, in
     chunks = lambda k: -(-k // (TF32_CHUNK if f32 else MMA_CHUNK))
     slabs = -(-R // MMA_SLAB)
     smem = MMA_SMEM
-    if attention is not None:  # A1's rows of h and A2's A + P scores share the block's memory
+    if attention is not None:
+        # A1's rows of h and A2's A + P scores beside the staged sums (f32: alpha and the context's f64 sums, in a
+        # launch of their own before the step's)
         A, P = attention
-        smem = max(smem, 4 * (A + P), 4 * ATTN_ROWS * H)
+        smem = max(smem, 4 * ATTN_ROWS * H, 4 * P + 8 * MMA_WARPS * ATTN_CTX_COLS if f32 else 4 * (A + P))
     if smem > SMEM_LIMIT:
         raise ValueError("the %s tensor-core step at H=%d%s needs %d bytes of shared memory a block, over the %d a "
                          "block may use" % ("f32" if f32 else "bf16", H,
@@ -108,8 +114,8 @@ class StackTiles(NamedTuple):
 
 def stack_splits(B: int, I: int, H: int, sms: int, dtype: torch.dtype = torch.bfloat16) -> int:
     """S for a layer of input width I at B rows on a card of ``sms`` SMs,
-    in the bf16 stack step (``dtype`` bfloat16) or the f32 greedy steps
-    (float32, whose chunks are TF32_CHUNK columns): as many parts as the
+    in the bf16 stack step (``dtype`` bfloat16) or the f32 ``tf32x3_step``
+    instances (float32, whose chunks are TF32_CHUNK columns): as many parts as the
     resident grid (MMA_BLOCKS_PER_SM blocks an SM) holds for the layer's
     items, at most MAX_SPLITS and at most a chunk a warp; 1 where the items
     alone fill the grid.  Settled on an H100 by sweeps of S = 1 .. 8: for
@@ -124,8 +130,9 @@ def stack_splits(B: int, I: int, H: int, sms: int, dtype: torch.dtype = torch.bf
 
 def stack_tiles(B: int, I0: int, H: int, sms: int, splits: int = 0, dtype: torch.dtype = torch.bfloat16) -> StackTiles:
     """The launch geometry of the layers' K split at B rows, in the bf16
-    stack step or (``dtype`` float32) the f32 greedy steps and whole
-    decode: the items, K chunks, the S of layer 0 and of the upper layers
+    stack step or (``dtype`` float32) the f32 ``tf32x3_step`` instances
+    (the greedy steps, the whole decode, the attention steps): the items,
+    K chunks, the S of layer 0 and of the upper layers
     (``stack_splits``, or ``splits`` for both where it is given) and the
     parts the scratch must hold.  Raises for widths that are not multiples
     of 8 and for an S outside 1 .. MAX_SPLITS."""
@@ -146,8 +153,8 @@ _ARRIVALS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 
 
 def arrival_counters(device: torch.device, items: int) -> torch.Tensor:
-    """The split-K arrival counters of the stack step and the f32 greedy
-    steps on ``device``'s current stream, at least ``items`` of them:
+    """The split-K arrival counters of the stack step and the f32
+    ``tf32x3_step`` instances on ``device``'s current stream, at least ``items`` of them:
     zeroed when allocated, and every launch leaves them at zero (each
     item's last part wraps its counter back), so a launch needs no memset
     of its own."""
@@ -160,8 +167,9 @@ def arrival_counters(device: torch.device, items: int) -> torch.Tensor:
 
 def layer_split(B: int, E: int, H: int, device: torch.device, dtype: torch.dtype, splits: int = 0):
     """The K split's launch arguments of an instance that splits its layers
-    (the bf16 stack step; the f32 greedy steps and the f32 whole decode,
-    ``tf32x3_step``): (the scratch, to hold until the launch is queued, or
+    (the bf16 stack step; the f32 ``tf32x3_step`` instances: the greedy
+    steps, the whole decode, the attention steps; E is layer 0's input
+    width): (the scratch, to hold until the launch is queued, or
     None; the [partial, arrivals] pointers; [s0, su, parts])."""
     tiles = stack_tiles(B, E, H, sm_count(device), splits, dtype)
     if not tiles.parts:

@@ -321,16 +321,20 @@ def test_mma_tiles_check_runs_for_the_tensor_core_instances_only(no_library):
     """bf16 dense steps, the greedy steps (pooled and attention, both
     cells), the whole decode and the stack steps (``stack_tiles``, with
     the card's SM count and no forced S) check the tensor-core geometry
-    before the launch; in f32 the pooled greedy steps of both cells and the
-    whole decode do too (split-precision TF32, ``tf32x3_step``, with the f32
-    chunks and slabs), and so does their K split (``stack_tiles`` in f32);
-    the rest do not (they keep the SIMT code).  The top-k steps:
+    before the launch; in f32 the pooled greedy steps of both cells, the
+    whole decode and the attention steps (greedy and dense, both cells) do
+    too (split-precision TF32, ``tf32x3_step``, with the f32 chunks and
+    slabs), and so does their K split (``stack_tiles`` in f32); the rest do
+    not (they keep the SIMT code).  The top-k steps:
     tests/test_torch_topk_tiles.py."""
     B, E, H, V, A, P = 3, 16, 24, 40, 16, 5
     for dtype in (torch.float32, torch.bfloat16):
         bf16 = dtype == torch.bfloat16
         for lstm in (False, True):
             (stacked, vocab, x, state), (prep, w_emb, astate) = _small(dtype, lstm)
+            # the attention steps, greedy and dense: in f32 with their 2E-wide layer 0's K split
+            attn_checks = ([(B, 2 * E, H, V, (A, P))] if bf16 else
+                           [(B, 2 * E, H, V, (A, P), dtype), (B, 2 * E, H, 132, 0, dtype)])
             launches = [
                 (lambda: (fused_lstm_decode_step_cuda if lstm else fused_gru_decode_step_cuda)(stacked, vocab, x,
                                                                                                  state),
@@ -338,8 +342,8 @@ def test_mma_tiles_check_runs_for_the_tensor_core_instances_only(no_library):
                 (lambda: fused_dense_step_cuda(stacked, vocab, x, state), [(B, E, H, V)] if bf16 else []),
                 (lambda: (lstm_stack_step_cuda if lstm else gru_stack_step_cuda)(stacked, x, state),
                  [(B, E, H, 132, 0, dtype)] if bf16 else []),
-                (lambda: fused_attn_decode_step_cuda(prep, w_emb, astate), [(B, 2 * E, H, V, (A, P))] if bf16 else []),
-                (lambda: fused_attn_dense_step_cuda(prep, w_emb, astate), [(B, 2 * E, H, V, (A, P))] if bf16 else []),
+                (lambda: fused_attn_decode_step_cuda(prep, w_emb, astate), attn_checks),
+                (lambda: fused_attn_dense_step_cuda(prep, w_emb, astate), attn_checks),
             ]
             if not lstm:  # the whole decode: the pooled GRU's greedy step T times (in f32 with its K split)
                 emb = torch.zeros(V, E, dtype=dtype)
@@ -358,17 +362,14 @@ def test_mma_tiles_check_runs_for_the_tensor_core_instances_only(no_library):
 
 def test_a_width_that_does_not_fit_raises_before_the_launch(no_library):
     """The attention greedy step at H=8,192 (A1 holds 8 rows of h in f32:
-    262,144 bytes) raises in bf16, on meta tensors, before the library is
-    asked for; in f32 (SIMT) it reaches the library."""
+    262,144 bytes) raises, on meta tensors, before the library is asked
+    for: in bf16, and in f32, whose instances run the tensor cores in
+    split-precision TF32 and check the same geometry."""
     for lstm in (False, True):
-        (_, _, _, _), (prep, w_emb, state) = _small(torch.bfloat16, lstm, H=8192, E=512, A=512, P=49, L=1,
-                                                    device="meta")
-        with pytest.raises(ValueError, match="H=8192, A=512, P=49 needs 262144 bytes"):
-            fused_attn_decode_step_cuda(prep, w_emb, state)
-        (_, _, _, _), (prep, w_emb, state) = _small(torch.float32, lstm, H=8192, E=512, A=512, P=49, L=1,
-                                                    device="meta")
-        with pytest.raises(_Launched):
-            fused_attn_decode_step_cuda(prep, w_emb, state)
+        for dtype in (torch.bfloat16, torch.float32):
+            (_, _, _, _), (prep, w_emb, state) = _small(dtype, lstm, H=8192, E=512, A=512, P=49, L=1, device="meta")
+            with pytest.raises(ValueError, match="H=8192, A=512, P=49 needs 262144 bytes"):
+                fused_attn_decode_step_cuda(prep, w_emb, state)
     with pytest.raises(ValueError, match="multiples of 8"):
         fused_step.mma_tiles(64, 20, 512, 9956)
     assert fused_step.mma_tiles(64, 512, 512, 9956) == (64, 312, 32, 32, 16, 33792)

@@ -8,9 +8,10 @@ stem; the f32 encode without TF32; and one f32 train step on the card
 against the same step on the CPU.  The bf16 instances on the tensor
 cores (the dense steps and the greedy steps, pooled and attention, GRU
 and LSTM; the whole decode) are also held bit for bit to each other, the
-f32 pooled greedy steps (split-precision TF32 on the tensor cores) to the
-twin and to themselves, and the ones that keep the SIMT code (the other
-f32 instances) to the SIMT ends.
+f32 instances in split-precision TF32 on the tensor cores (the pooled
+greedy steps, the four attention steps) to the twin, to float64 and to
+themselves, and the ones that keep the SIMT code (the other f32
+instances) to the SIMT ends.
 
 Marked ``cuda``: each test skips where torch finds no CUDA device (the
 kernels have no CPU or interpret mode).  Run them on the card with
@@ -144,9 +145,9 @@ def _clear(logits, gap):
     return (top[:, 0] - top[:, 1]) > gap
 
 
-def _attn_prep(B, E, H, A, P, V, L, dtype, device, seed=0, gates=3):
+def _attn_prep(B, E, H, A, P, V, L, dtype, device, seed=0, gates=3, scale=0.3):
     rng = np.random.RandomState(seed)
-    t = lambda *s, b=0.3: torch.from_numpy(rng.uniform(-b, b, s).astype(np.float32))
+    t = lambda *s, b=scale: torch.from_numpy(rng.uniform(-b, b, s).astype(np.float32))
     G = gates * H
     layers = [{"w_ih": t(G, 2 * E if l == 0 else H), "w_hh": t(G, H), "b_ih": t(G), "b_hh": t(G)} for l in range(L)]
     d = lambda x: x.to(device, dtype).contiguous()
@@ -984,10 +985,11 @@ def test_f32_pooled_greedy_tie_across_vocab_items_takes_the_lower_index(cuda, fa
 @pytest.mark.parametrize("B,E,H,A,P,V,L", [(3, 16, 24, 16, 5, 40, 1), (65, 64, 128, 32, 7, 1001, 2),
                                            (64, 512, 512, 512, 49, 9956, 5)])
 @pytest.mark.parametrize("cell", ["gru", "lstm"])
-def test_f32_attention_greedy_step_runs_the_simt_code(cuda, cell, B, E, H, A, P, V, L):
-    """The f32 attention greedy instances keep the SIMT code: a new state
-    bit-equal to the f32 dense step's, tokens the first-max argmax of its
-    logits."""
+def test_f32_attention_greedy_step_runs_the_dense_steps_code(cuda, cell, B, E, H, A, P, V, L):
+    """The f32 attention greedy instances run the f32 dense instances' code
+    (both on the 3xTF32 tiles, the same K split at the same rows): a new
+    state bit-equal to the f32 dense step's, tokens the first-max argmax of
+    its logits."""
     prep, w_emb, hs = _attn_prep(B, E, H, A, P, V, L, torch.float32, cuda, seed=26,
                                  gates=4 if cell == "lstm" else 3)
     state = _state(cell, hs, 27)
@@ -997,6 +999,107 @@ def test_f32_attention_greedy_step_runs_the_simt_code(cuda, cell, B, E, H, A, P,
     torch.cuda.synchronize()
     for a, b in zip(new_state if cell == "lstm" else (new_state,), dense_state if cell == "lstm" else (dense_state,)):
         assert torch.equal(a, b)
+    assert torch.equal(first_max_argmax(logits), tok)
+
+
+# The f32 attention steps (greedy and dense, GRU and LSTM) on the tensor cores in split-precision TF32, att2 included
+# (csrc/fused_attn_step.cu, tf32x3_step<T, kMode, true>()), at the flagship widths (E = H = A = 512, P = 49,
+# V = 9,956, L = 5): f32's bars, as the pooled greedy steps above.
+TF32X3_ATTN = [("gru", False), ("lstm", False), ("gru", True), ("lstm", True)]
+TF32X3_ATTN_IDS = ["gru-greedy", "lstm-greedy", "gru-dense", "lstm-dense"]
+
+
+def _f32_attn(cell, dense, R, device, seed, scale=512 ** -0.5):
+    """(step, plain twin, its arguments) of one f32 attention instance at R rows, the weights in +-scale."""
+    prep, w_emb, hs = _attn_prep(R, 512, 512, 512, 49, 9956, 5, torch.float32, device, seed=seed,
+                                 gates=4 if cell == "lstm" else 3, scale=scale)
+    if dense:
+        step = fused_attn_lstm_dense_step if cell == "lstm" else fused_attn_dense_step
+        return step, fused_attn_dense_step_plain, (prep, w_emb, _state(cell, hs, seed))
+    step = fused_attn_lstm_decode_step if cell == "lstm" else fused_attn_decode_step
+    return step, fused_attn_decode_step_plain, (prep, w_emb, _state(cell, hs, seed))
+
+
+@pytest.mark.parametrize("B", [1, 19, 32, 64])
+@pytest.mark.parametrize("cell,dense", TF32X3_ATTN, ids=TF32X3_ATTN_IDS)
+def test_f32_attention_steps_run_the_tensor_core_code(cuda, cell, dense, B):
+    """Greedy at B rows, dense at 3 B beam rows (up to 192): new states
+    within 1e-5 (greedy) or 2e-5 (dense) of the plain twin, rtol and atol;
+    dense logits within 1e-4 of the plain projection of the kernel's own top
+    activation; tokens equal to the twin's on every row whose top-2 gap
+    exceeds 1e-4; two launches bit-equal, each counted."""
+    R = 3 * B if dense else B
+    step, plain, args = _f32_attn(cell, dense, R, cuda, seed=31)
+    before = step.launches
+    (out, state), (out2, state2) = step(*args), step(*args)
+    torch.cuda.synchronize()
+    assert step.launches == before + 2
+    assert torch.equal(out, out2) and all(torch.equal(a, b) for a, b in zip(_tuple(state), _tuple(state2)))
+    ref_out, ref_state = plain(*args)
+    tol = BEAM_STATE_TOL[torch.float32] if dense else TOL[torch.float32][0]
+    for g, r in zip(_tuple(state), _tuple(ref_state)):
+        torch.testing.assert_close(g, r, rtol=tol, atol=tol)
+    vocab = args[0]["vocab"]
+    if dense:
+        assert out.shape == (R, 9956) and out.dtype == torch.float32
+        torch.testing.assert_close(out, project_logits(vocab, _top(state)), rtol=BEAM_TOL, atol=BEAM_TOL)
+    else:
+        assert out.dtype == torch.int32 and tuple(out.shape) == (B,)
+        clear = _clear(project_logits(vocab, _top(ref_state)), TOL[torch.float32][1])
+        assert torch.equal(out[clear], ref_out[clear])
+
+
+def _f64_attn_stack(prep, w_emb, state):
+    """The attention trunk and the recurrence in float64 on the card from the same f32 operands: the new states."""
+    d = lambda v: v.double()
+    h = d(state[0] if isinstance(state, tuple) else state)[-1]
+    att2 = torch.addmm(d(prep["bdec"]), h, d(prep["wdec"]).T)
+    alpha = torch.softmax(torch.nn.functional.leaky_relu(d(prep["att1"]) + att2[:, None], 0.2) @ d(prep["wfull"]), 1)
+    ctx = (d(prep["feats_e"]) * alpha[..., None]).sum(1) + d(prep["b_emb"])
+    return _f64_stack(prep["stacked"], torch.cat([d(w_emb), ctx], -1), state)
+
+
+@pytest.mark.parametrize("cell,dense", TF32X3_ATTN, ids=TF32X3_ATTN_IDS)
+def test_f32_attention_steps_err_no_more_than_the_twin(cuda, cell, dense):
+    """Weights in +-0.3 at B = 64 (R = 192): against the attention trunk
+    and the recurrence in float64, the kernel's new states err no more than
+    the plain twin's (cuBLAS in f32), at the worst value and in the mean
+    square."""
+    step, plain, args = _f32_attn(cell, dense, 192 if dense else 64, cuda, seed=32, scale=0.3)
+    state, ref_state = step(*args)[1], plain(*args)[1]
+    exact = _f64_attn_stack(*args)
+    err = lambda got: torch.cat([(g.double() - e).abs().flatten() for g, e in zip(_tuple(got), _tuple(exact))])
+    ours, twin = err(state), err(ref_state)
+    assert ours.max() <= twin.max() and ours.square().mean() <= twin.square().mean()
+
+
+@pytest.mark.parametrize("lo,hi", [(63, 64), (5, 9954)], ids=["across-two-items", "first-and-last-tiles"])
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_f32_attention_greedy_tie_across_vocab_items_takes_the_lower_index(cuda, cell, lo, hi):
+    """Two equal vocabulary rows on top in every row, in two 64-row items,
+    at B = 65 (a partial slab): the lower index, as the plain twin; the
+    dense step's logits tie there."""
+    step, plain, args = _f32_attn(cell, False, 65, cuda, seed=33)
+    vocab = args[0]["vocab"]
+    vocab["w"][hi] = vocab["w"][lo]
+    vocab["b"][lo] = vocab["b"][hi] = 50.0
+    assert step(*args)[0].tolist() == [lo] * 65
+    assert plain(*args)[0].tolist() == [lo] * 65
+    logits = _f32_attn(cell, True, 65, cuda, seed=33)[0](*args)[0]
+    assert torch.equal(logits[:, lo], logits[:, hi]) and first_max_argmax(logits).tolist() == [lo] * 65
+
+
+@pytest.mark.parametrize("B", [1, 32, 64])
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_f32_attention_greedy_state_is_the_dense_state(cuda, cell, B):
+    """At the flagship widths and the K split of B rows: the greedy
+    instance's new state bit-equal to the dense instance's, and its tokens
+    the first-max argmax of the dense logits on every row."""
+    greedy, _, args = _f32_attn(cell, False, B, cuda, seed=34)
+    dense = _f32_attn(cell, True, B, cuda, seed=34)[0]
+    (tok, state), (logits, dense_state) = greedy(*args), dense(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(_tuple(state), _tuple(dense_state)))
     assert torch.equal(first_max_argmax(logits), tok)
 
 

@@ -351,23 +351,35 @@ ENDS = ["argmax", "dense", 3, None]
 @pytest.mark.parametrize("end", ENDS)
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_the_predicate_sends_only_the_f32_argmax_end_to_the_tensor_cores(dtype, end):
-    """tf32x3_step: f32 with the argmax end (the pooled step and the whole
-    decode ask it; which wrappers do: test_torch_argmax_tiles.py's
-    test_mma_tiles_check_runs_for_the_tensor_core_instances_only); mma_step
-    (every bf16 instance) unchanged, and never both."""
-    assert tf32x3_step(dtype, end) is (dtype == torch.float32 and end == "argmax")
+    """tf32x3_step: of the pooled instances, f32 with the argmax end (the
+    pooled step and the whole decode ask it; which wrappers do:
+    test_torch_argmax_tiles.py's
+    test_mma_tiles_check_runs_for_the_tensor_core_instances_only); of the
+    attention instances (``attention``), f32 with the argmax and the dense
+    end, so every other f32 instance (the pooled dense, top-k and stack
+    ends) keeps the SIMT code; mma_step (every bf16 instance) unchanged,
+    and never both."""
+    f32 = dtype == torch.float32
+    assert tf32x3_step(dtype, end) is (f32 and end == "argmax")
+    assert tf32x3_step(dtype, end, attention=True) is (f32 and end in ("argmax", "dense"))
     assert mma_step(dtype, end) is (dtype == torch.bfloat16)
-    assert not (tf32x3_step(dtype, end) and mma_step(dtype, end))
+    assert not ((tf32x3_step(dtype, end) or tf32x3_step(dtype, end, attention=True)) and mma_step(dtype, end))
 
 
 def test_the_kernel_sources_gate_the_f32_instances_narrowly():
-    """In CUDA: tf32x3_step() is f32 with the argmax end; fused_step.cu and
-    whole_decode.cu ask pooled_mma_step() (mma_step() or tf32x3_step()),
-    fused_attn_step.cu asks mma_step() alone; the constants agree."""
+    """In CUDA: tf32x3_step() is f32 with the argmax end, or with
+    kAttention the argmax and the dense end; fused_step.cu and
+    whole_decode.cu ask pooled_mma_step() (mma_step() or tf32x3_step()
+    without kAttention), fused_attn_step.cu asks tf32x3_step<T, kMode,
+    true>() and holds every other instance to mma_step(), with no SIMT
+    layer or projection left in it (its f32 instances: the attention
+    phases in a launch of their own); the constants agree."""
     src = open(HEADER).read()
     const = lambda name: int(re.search(r"constexpr int %s = (\d+);" % name, src).group(1))
     assert const("kTf32Chunk") == TF32_CHUNK == 16 and const("kTf32Depth") == 1
-    assert "return std::is_same<T, float>::value && kMode == kArgmax;" in src
+    assert ("return std::is_same<T, float>::value && (kMode == kArgmax || (kAttention && kMode == kDense));"
+            in src)
+    assert "template <typename T, int kMode, bool kAttention = false>" in src
     assert "return mma_step<T, kMode>() || tf32x3_step<T, kMode>();" in src
     assert "static constexpr int kChunk = kTf32Chunk, kLane = 4, kDepth = kTf32Depth;" in src
     assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in src and "cvt.rna.tf32.f32" in src
@@ -375,8 +387,12 @@ def test_the_kernel_sources_gate_the_f32_instances_narrowly():
     step, whole, attn = read("fused_step.cu"), read("whole_decode.cu"), read("fused_attn_step.cu")
     assert "constexpr bool kMma = pooled_mma_step<T, kMode>();" in step
     assert "pooled_mma_step<T, kArgmax>()" in whole
-    assert "constexpr bool kMma = mma_step<T, kMode>();" in attn
-    assert "pooled_mma_step" not in attn and "tf32x3_step" not in attn
+    assert "constexpr bool kTf32 = tf32x3_step<T, kMode, true>();" in attn
+    assert "static_assert(mma_step<T, kMode>() || kTf32," in attn
+    assert "mma_stack_layer<T, Cell>(s, l, smem, p.split);" in attn and "mma_vocab_phase<kMode>(" in attn
+    assert "launch_cooperative(attention_f32_kernel," in attn  # the f32 attention phases: a launch of their own
+    assert "pooled_mma_step" not in attn
+    assert not re.search(r"(?<!mma_)(stack_layer|vocab_phase)<", attn)  # the SIMT layer and projection
 
 
 # ---------------------------------------------------------------- geometry
