@@ -12,10 +12,10 @@ Phases, one line each (any failure exits non-zero with no ok line):
      fourteen bf16 instances of dense_mma.cuh: the four dense beam steps,
      the two pooled top-k beam steps, the four greedy steps, pooled and
      attention, GRU and LSTM, the whole decode, the two stack steps and
-     the attention context; and its seven f32 instances in split-precision
-     TF32: the pooled GRU and LSTM greedy steps, the whole decode and the
-     four attention steps, greedy and dense, GRU and LSTM) and the
-     tensor-core (HMMA) instructions in their SASS;
+     the attention context; and its eleven f32 instances in split-precision
+     TF32: the pooled GRU and LSTM greedy, dense and top-k steps, the whole
+     decode and the four attention steps, greedy and dense, GRU and LSTM)
+     and the tensor-core (HMMA) instructions in their SASS;
   3. kernel against plain, at the flagship widths: the pooled fused step,
      GRU (L=5, E=256, H=512, V=9,956; B = 1, 64, 512; and E=1024 > H) and
      LSTM (E=512, same B); the fused attention step, GRU and LSTM (L=5,
@@ -28,11 +28,11 @@ Phases, one line each (any failure exits non-zero with no ok line):
      step's dense form (both cells), the projection + top-k; logits and
      top-k against the plain projection of the kernel's own new top
      activation, and top-k ties listed lower index first; digests of the
-     f32 dense steps' outputs (the pooled ones keep the SIMT code, the
-     attention ones run the tensor cores in split-precision TF32) and of
-     the f32 greedy steps (all four on the tensor cores in split-precision
-     TF32), and of the bf16 pooled GRU step, at B = 1 and 64 (two builds
-     that print the same digests agree bit for bit);
+     f32 dense steps' outputs (pooled and attention, all four on the
+     tensor cores in split-precision TF32) and of the f32 greedy steps (all
+     four on the tensor cores in split-precision TF32), and of the bf16
+     pooled GRU step, at B = 1 and 64 (two builds that print the same
+     digests agree bit for bit);
   3c. input kernels against plain, f32 and bf16: the preprocess (C = 3
      and 12, B = 1 and 64, and two odd shapes) bit for bit; the fused stem
      (s2d and RGB layouts, pool on and off, B = 1 and 64) within STEM_TOL,
@@ -97,8 +97,9 @@ Phases, one line each (any failure exits non-zero with no ok line):
      Which JPEG decoder ran (native libjpeg or PIL), and why, is printed;
   6. times: per-step kernel and plain times (the tensor-core greedy steps
      also with their operands cold in L2; the f32 pooled greedy steps at
-     B = 1, 32, 64, 512 and the f32 attention steps at B = 1, 32, 64
-     (greedy) and R = 3, 96, 192 (dense), warm and cold, beside their bound
+     B = 1, 32, 64, 512, the f32 attention steps at B = 1, 32, 64
+     (greedy) and R = 3, 96, 192 (dense) and the f32 pooled dense and top-k
+     steps at R = 192, warm and cold, beside their bound
      at the TF32 rate, three products a multiply-add, and their f32
      composite yardstick with TF32 off), captions/s of each slice,
      greedy and beam, greedy also over 12 requests a family in turns
@@ -279,7 +280,8 @@ TF32_OPS_PER_S = 495e12  # H100 SXM dense TF32 tensor-core peak
 # steps' A1 and A2 at the f32 rate: attention_ops)
 TF32X3_KERNELS = ("fused_gru_decode_step", "fused_lstm_decode_step", "gru_whole_greedy_decode",
                   "fused_attn_decode_step", "fused_attn_lstm_decode_step", "fused_attn_dense_step",
-                  "fused_attn_lstm_dense_step")
+                  "fused_attn_lstm_dense_step", "fused_gru_dense_step", "fused_lstm_dense_step",
+                  "fused_gru_topk_step", "fused_lstm_topk_step")
 SPIN_CYCLES = 2_000_000  # about 1 ms at the H100's 1.98 GHz boost clock: longer than a wrapper's enqueue
 # about 10 ms: longer than the host work of PyTorch's own RNN call, which issues several kernels a layer
 LIBRARY_SPIN_CYCLES = 10 * SPIN_CYCLES
@@ -1313,21 +1315,22 @@ def check_tokens(what, tok, ref_tok, logits, dtype):
     return int(clear.sum())
 
 
-def greedy_rates(served, rounds):
-    """Greedy captions/s of each family, {name: (Captioner, requests)}:
-    after one warm-up request each, ``rounds`` rounds in which every family
-    serves each of its requests once (the families in turns, reversed every
-    other round), each request timed alone on the host clock, to ids on the
-    host.  Returns {name: [captions/s of each request]}."""
+def greedy_rates(served, rounds, beam_size=0):
+    """Greedy (or, with ``beam_size``, beam-search) captions/s of each
+    family, {name: (Captioner, requests)}: after one warm-up request each,
+    ``rounds`` rounds in which every family serves each of its requests
+    once (the families in turns, reversed every other round), each request
+    timed alone on the host clock, to ids on the host.  Returns {name:
+    [captions/s of each request]}."""
     for cap, requests in served.values():
-        cap.caption_ids(requests[0])
+        cap.caption_ids(requests[0], beam_size)
     rates = {name: [] for name in served}
     for rnd in range(rounds):
         for name in list(served) if rnd % 2 == 0 else list(served)[::-1]:
             cap, requests = served[name]
             for imgs in requests:
                 t0 = time.perf_counter()
-                cap.caption_ids(imgs)
+                cap.caption_ids(imgs, beam_size)
                 rates[name].append(len(imgs) / (time.perf_counter() - t0))
     return rates
 
@@ -1551,8 +1554,8 @@ def projection_tile_ties(rng, device):
 # the bf16 projection kernels (vocab_mma.cuh) and the bf16 stem (stem.cu)
 TILE_KERNELS = ("project_argmax_tiles_kernel", "project_topk_tiles_kernel", "stem_mma_kernel")
 # the instances on the tensor cores (csrc/dense_mma.cuh: every bf16 instance of mma_step(), the attention context's
-# att2 phase, and the f32 instances of tf32x3_step() in split-precision TF32, the pooled greedy steps, the whole
-# decode and the four attention steps): label -> (kernel template, cell, vocab
+# att2 phase, and the f32 instances of tf32x3_step() in split-precision TF32, the pooled greedy, dense and top-k
+# steps, the whole decode and the four attention steps): label -> (kernel template, cell, vocab
 # end: kArgmax = 0, kDense = 1, kTopk = 2, kNone = 3; None where the template names neither: the whole decode, GRU
 # and argmax; the attention context; its element type)
 MMA_STEPS = {
@@ -1577,6 +1580,10 @@ MMA_STEPS = {
     "st_fused_attn_lstm_step f32": ("fused_attn_step_kernel", "LstmCell", 0, "f32"),
     "st_fused_attn_dense_step f32": ("fused_attn_step_kernel", "GruCell", 1, "f32"),
     "st_fused_attn_lstm_dense_step f32": ("fused_attn_step_kernel", "LstmCell", 1, "f32"),
+    "st_fused_gru_dense_step f32": ("fused_step_kernel", "GruCell", 1, "f32"),
+    "st_fused_lstm_dense_step f32": ("fused_step_kernel", "LstmCell", 1, "f32"),
+    "st_fused_gru_topk_step f32": ("fused_step_kernel", "GruCell", 2, "f32"),
+    "st_fused_lstm_topk_step f32": ("fused_step_kernel", "LstmCell", 2, "f32"),
 }
 NO_SPILL = set(MMA_STEPS) | {"stem_mma_kernel"}  # instances that fail the build phase with a stack frame or spills
 
@@ -1606,7 +1613,7 @@ PTXAS_SOURCES = ["project_argmax.cu", "project_topk.cu", "fused_step.cu", "fused
 def tile_kernel_report(build, ptxas_lines):
     """ptxas's registers, stack frame and spills of the tensor-core kernel
     instances (the two bf16 projection kernels, the bf16 stem, the fourteen
-    bf16 instances of MMA_STEPS and its seven f32 instances in
+    bf16 instances of MMA_STEPS and its eleven f32 instances in
     split-precision TF32), from ``ptxas_lines``
     (build.ptxas_report of PTXAS_SOURCES), and, where the toolkit has
     cuobjdump, the tensor-core (HMMA) instructions in their SASS in the
@@ -1729,9 +1736,9 @@ def beam_kernels_against_plain(rng, device):
 def f32_dense_digests(device):
     """Phase 3b.  sha256 digests of the f32 dense steps' logits and new
     states at R = 3 and 192, from inputs of their own seed: two builds that
-    print the same digests gave bit-equal outputs.  The pooled instances
-    run the SIMT path; the attention ones run the tensor cores in
-    split-precision TF32, so theirs change with that code."""
+    print the same digests gave bit-equal outputs.  The pooled and the
+    attention instances run the tensor cores in split-precision TF32, so
+    their digests change with that code."""
     import hashlib
 
     import numpy as np
@@ -1747,8 +1754,8 @@ def f32_dense_digests(device):
             stacked, vocab, x, state = step_inputs(rng, R, torch.float32, device, Ec, cell)
             logits, new_state = fused_dense_step_cuda(stacked, vocab, x, state)
             states = new_state if isinstance(new_state, tuple) else (new_state,)
-            phase("kernel", "beam %s dense step float32 R=%d (SIMT): sha256 of the logits %s, of the new state %s"
-                  % (cell, R, digest([logits]), digest(states)))
+            phase("kernel", "beam %s dense step float32 R=%d (tensor cores, split-precision TF32): sha256 of the logits "
+                  "%s, of the new state %s" % (cell, R, digest([logits]), digest(states)))
         for cell in ("gru", "lstm"):
             prep, w_emb, state = attn_inputs(rng, R, torch.float32, device, cell)
             logits, new_state = fused_attn_dense_step_cuda(prep, w_emb, state)
@@ -1896,12 +1903,15 @@ def library_rnn(cell, stacked, Ed):
 def library_yardsticks(rng, rows, device, dtype=None, names=None):
     """For the rows whose kernels have no single PyTorch call: composites of
     PyTorch's own calls that compute the kernel's function on its operands,
-    at ``rows`` rows (beam rows for the dense steps), in ``dtype`` (default
-    bf16; in f32 the caller scopes TF32 off), each built outside the timed
-    call; ``names``: only those rows.  Returns {row name: (yardstick,
-    kernel, plain twin)}, each a function of no arguments; the kernel's and
-    the twin's return their whole output, whose first tensor (tokens, logits
-    or the normalized images) the yardstick's output is compared with."""
+    at ``rows`` rows (3 x rows beam rows for the dense and top-k steps), in
+    ``dtype`` (default bf16; in f32 the caller scopes TF32 off), each built
+    outside the timed call; ``names``: only those rows (the pooled dense
+    and top-k steps only where named: phase 6 times their bf16 yardsticks
+    beside the stack step).  Returns {row name: (yardstick, kernel, plain
+    twin)}, each a function of no arguments; the kernel's and the twin's
+    return their whole output, whose first tensor (tokens, logits, the
+    top-k logp or the normalized images) the yardstick's output is compared
+    with."""
     import torch
     import torch.nn.functional as F
 
@@ -1911,6 +1921,12 @@ def library_yardsticks(rng, rows, device, dtype=None, names=None):
         fused_attn_decode_step_plain,
         fused_attn_dense_step_cuda,
         fused_attn_dense_step_plain,
+    )
+    from show_tell_tpu_torch.ops.fused_beam import (
+        fused_dense_step_cuda,
+        fused_dense_step_plain,
+        fused_topk_step_cuda,
+        fused_topk_step_plain,
     )
     from show_tell_tpu_torch.ops.fused_step import (
         fused_gru_decode_step_cuda,
@@ -1937,6 +1953,21 @@ def library_yardsticks(rng, rows, device, dtype=None, names=None):
             vocab["b"], rnn(x[None], hx_of(state))[0][0], vocab["w"].T).argmax(dim=-1)
         out[name] = (yard, lambda c=cuda, a=(stacked, vocab, x, state): c(*a),
                      lambda p=plain, a=(stacked, vocab, x, state): p(*a))
+    for cell, Ed in (("gru", E), ("lstm", LE)):  # the pooled beam steps: torch.nn.GRU / LSTM + addmm (+ the top-k)
+        for end in ("dense", "topk"):
+            name = "fused_%s_%s_step" % (cell, end)
+            if names is None or name not in names:
+                continue
+            a = step_inputs(rng, 3 * rows, dtype, device, Ed, cell)
+            rnn = library_rnn(cell, a[0], Ed)
+            logits = lambda rnn=rnn, a=a: torch.addmm(a[1]["b"], rnn(a[2][None], hx_of(a[3]))[0][0],
+                                                      a[1]["w"].T).float()
+            if end == "dense":
+                out[name] = (logits, lambda a=a: fused_dense_step_cuda(*a), lambda a=a: fused_dense_step_plain(*a))
+            else:
+                out[name] = (lambda logits=logits: logits().log_softmax(dim=-1).topk(K_BEAM, dim=-1).values,
+                             lambda a=a: fused_topk_step_cuda(*a, K_BEAM),
+                             lambda a=a: fused_topk_step_plain(*a, K_BEAM))
 
     def logits(prep, w_emb, state, rnn):
         # the attention_context row's composite over the embed-space features, + b_emb, then the stack and the
@@ -1987,9 +2018,10 @@ def library_yardsticks(rng, rows, device, dtype=None, names=None):
 
 
 def yardstick_agreement(got, ref):
-    """How a yardstick's output meets the twin's first output: the share of equal tokens, or the largest absolute
-    difference."""
-    ref = ref[0] if isinstance(ref, tuple) else ref
+    """How a yardstick's output meets the twin's first output (a top-k step's: its logp): the share of equal
+    tokens, or the largest absolute difference."""
+    while isinstance(ref, tuple):
+        ref = ref[0]
     if not got.is_floating_point():
         return "tokens equal on %.4f" % (got.long() == ref.long()).float().mean().item()
     return "max_abs_err %.3g" % (got.float() - ref.float()).abs().max().item()
@@ -3923,6 +3955,10 @@ def main():
         # the f32 instance (torch.nn.GRU / LSTM + addmm + argmax for its yardstick) at B = 1, 32, 64, 512
         for B in (1, 32, 64, 512):
             f32_row(name, B)
+        # the cell's f32 dense and top-k beam steps at R = 192, the kernels line's shape (their yardsticks:
+        # torch.nn.GRU / LSTM + addmm, and + log_softmax + topk)
+        for beam_name in (name.replace("decode", "dense"), name.replace("decode", "topk")):
+            f32_row(beam_name, 64)
     for B in (1, 64, 256):
         for name, cell in (("fused_attn_decode_step", "gru"), ("fused_attn_lstm_decode_step", "lstm")):
             prep, w_emb, state = attn_inputs(rng, B, torch.bfloat16, device, cell)

@@ -385,19 +385,6 @@ struct ArgmaxSink {
   }
 };
 
-// Beam's dense end: the f32 logits themselves, logits[row, v].  Lane b
-// stores row b's logit, so a warp's 8 stores stride by V: simple, not
-// coalesced (a staging tile in shared memory would coalesce them).
-struct DenseSink {
-  float* logits;  // [B, V]
-  int V;
-  __device__ __forceinline__ void start() {}
-  __device__ __forceinline__ void column(int row, int v, float logit) {
-    logits[static_cast<size_t>(row) * V + v] = logit;
-  }
-  __device__ __forceinline__ void finish(int, int, int, int, int) {}
-};
-
 // Beam's sparse end: each row's K best (log-probability, index) pairs.
 // Part p = split * kWarps + warp of a row is what one warp saw of it in
 // one column range; the phase writes every part's top-K keys and its
@@ -541,24 +528,18 @@ __device__ __forceinline__ void argmax_tokens(const VocabOut& o, int B, cg::grid
   for (int b = grid_thread(); b < B; b += grid_threads()) o.tok[b] = key_index(o.best[b]);
 }
 
-// The vocab phase after the top activation is complete (a grid barrier
-// before it): argmax tokens, dense logits or top-K log-probabilities.
-template <int kMode, typename T>
-__device__ __forceinline__ void vocab_phase(const T* top, const T* wv, const T* bv, int B, int H, int V,
-                                            const VocabOut& o, float* xs, cg::grid_group& grid) {
-  if constexpr (kMode == kArgmax) {
-    project_argmax<T>(top, wv, bv, B, H, V, o.best, xs);
-    argmax_tokens(o, B, grid);
-  } else if constexpr (kMode == kDense) {
-    DenseSink sink{o.logits, V};
-    project_items<T>(top, wv, bv, B, H, V, Tiling(B, V), xs, sink);
-  } else {
-    const Tiling t(B, V, o.topk.max_splits);
-    TopkSink sink{o.topk, B};
-    project_items<T>(top, wv, bv, B, H, V, t, xs, sink);
-    grid.sync();  // every part is in scratch
-    merge_topk(o.topk, B, t.splits * kWarps);
-  }
+// The f32 projection + top-K of project_topk.cu, by SIMT warps: each
+// (batch tile, column range) item's warps write their parts, and after a
+// grid barrier merge_topk reduces each row's max_splits x kWarps parts.
+// (Every fused step's vocabulary end runs dense_mma.cuh's mma_vocab_phase.)
+template <typename T>
+__device__ __forceinline__ void topk_phase(const T* top, const T* wv, const T* bv, int B, int H, int V,
+                                           const TopkArgs& a, float* xs, cg::grid_group& grid) {
+  const Tiling t(B, V, a.max_splits);
+  TopkSink sink{a, B};
+  project_items<T>(top, wv, bv, B, H, V, t, xs, sink);
+  grid.sync();  // every part is in scratch
+  merge_topk(a, B, t.splits * kWarps);
 }
 
 // Launch ``kernel`` cooperatively with kThreads threads a block and as many

@@ -8,11 +8,11 @@
 // whole decode of whole_decode.cu, which runs the pooled GRU argmax
 // instance's layers and key merge T times and so stays bit-equal to its
 // per-step loop.  tf32x3_step() names the f32 instances that run it in
-// split-precision TF32 (below): the pooled greedy steps (fused_step.cu's
-// argmax end, both cells) and, with them, the whole decode; and the four
-// attention steps (fused_attn_step.cu's argmax and dense ends, both cells,
-// att2 included).  The other f32 instances (the pooled dense, top-k and
-// stack ends) keep the SIMT code of decode_common.cuh.
+// split-precision TF32 (below): the pooled steps' argmax, dense and top-k
+// ends (fused_step.cu, both cells) and, with the argmax one, the whole
+// decode; and the four attention steps (fused_attn_step.cu's argmax and
+// dense ends, both cells, att2 included).  The f32 stack steps (the kNone
+// end) keep the SIMT layers of decode_common.cuh.
 //
 // What bounds a step on an H100.  It reads the recurrence weights (15-23 MB
 // in bf16 at the flagships) and the 10.2 MB projection, 25-34 MB in all,
@@ -103,8 +103,13 @@
 // pooled flagships, 56 and 68 MB at the attention ones (2E = 1024, W_dec),
 // no longer inside the 50 MB L2, so every re-read of a weight
 // is HBM traffic; the SIMT code re-read each weight once per 8 batch rows
-// and multiplied in an f32 FMA loop.  Here the same items, pipeline,
-// staging and ends run on mma.sync.m16n8k8 with tf32 operands:
+// (24 times at R = 192 beam rows) and multiplied in an f32 FMA loop, its
+// dense end stored each logit alone at a stride of V and its top-k end
+// wrote a part per (warp, column range) of the grid.  Here the same items,
+// pipeline, staging and ends run on mma.sync.m16n8k8 with tf32 operands
+// (weights re-read once per 32-row slab, 6 times at R = 192; the dense
+// end's runs of 64 logits; the top-k end's part per 64-row vocabulary
+// item, so its keys and their merge do not depend on the grid):
 // - Products in split-precision TF32 (3xTF32), this code's one deliberate
 //   numeric choice.  Each f32 operand a is split in registers, as it
 //   arrives, into big = tf32(a) and small = tf32(a - big), both rounded to
@@ -126,8 +131,10 @@
 //   m16n8k16's, so the staging and the ends are shared.
 // - Items: bf16's, and the layers split K across blocks as the stack step
 //   does (S from ops/fused_step.stack_tiles for 16-column chunks: 8 parts
-//   at B <= 32, 4 at B = 64, 1 from B = 160; the attention steps' 2E-wide
-//   layer 0 the same, 2 parts at R = 96): unsplit, a layer's 32 items
+//   at B <= 32, 4 at B = 64, 2 at R = 96, 1 from B = 160; the attention
+//   steps' 2E-wide layer 0 the same; the greedy, dense and top-k instances
+//   of a cell take the same S at the same rows, so their new states are
+//   bit-equal): unsplit, a layer's 32 items
 //   at B <= 32 left 100 SMs idle and each warp's chunks in one long chain
 //   of HBM reads, and the step ran no faster than the SIMT code.  A weight
 //   tile's slabs run at once on other blocks: taking a tile's two slabs in
@@ -164,13 +171,13 @@ __host__ __device__ constexpr bool mma_step() {
          (kMode == kDense || kMode == kTopk || kMode == kArgmax || kMode == kNone);
 }
 
-// Whether a step's f32 instance runs this file's code in split-precision TF32: the argmax end of fused_step.cu,
-// either cell, and the whole decode, which runs that instance's layers and key merge (fused_step.cu and
-// whole_decode.cu ask it through pooled_mma_step); with kAttention, fused_attn_step.cu's argmax and dense ends,
-// either cell.  The pooled dense, top-k and stack ends keep the SIMT code.
+// Whether a step's f32 instance runs this file's code in split-precision TF32: every vocabulary end of
+// fused_step.cu (argmax, dense, top-k), either cell, and the whole decode, which runs the argmax instance's layers
+// and key merge (fused_step.cu and whole_decode.cu ask it through pooled_mma_step); with kAttention,
+// fused_attn_step.cu's argmax and dense ends, either cell.  The f32 stack steps (kNone) keep the SIMT layers.
 template <typename T, int kMode, bool kAttention = false>
 __host__ __device__ constexpr bool tf32x3_step() {
-  return std::is_same<T, float>::value && (kMode == kArgmax || (kAttention && kMode == kDense));
+  return std::is_same<T, float>::value && (kMode == kArgmax || kMode == kDense || (!kAttention && kMode == kTopk));
 }
 
 // Whether a pooled step's instance (fused_step.cu, whole_decode.cu) runs this file's code.
@@ -603,9 +610,11 @@ __device__ void mma_argmax_keys(const T* top, const T* wv, const T* bv, int B, i
 // grid.  Thread 4n + q scans rows v0 + 16q .. v0 + 16q + 15 of batch row n
 // (sum + bias in f32, v < V only) into a TopkList and its (m, s); the four
 // threads of a row take the max of m and the rescaled sum of s by xor
-// shuffles and K pops of the greatest head (TopkTileEnd's combine).
-__device__ void mma_topk_parts(const __nv_bfloat16* top, const __nv_bfloat16* wv, const __nv_bfloat16* bv, int B,
-                               int H, int V, const TopkArgs& a, float* red) {
+// shuffles and K pops of the greatest head (TopkTileEnd's combine).  The
+// bf16 and the f32 (3xTF32) instances alike.
+template <typename T>
+__device__ void mma_topk_parts(const T* top, const T* wv, const T* bv, int B, int H, int V, const TopkArgs& a,
+                               float* red) {
   const int tid = phase_thread();
   mma_project(top, wv, B, H, V, red, [&](int n0, int nb, int v0) {
     const int n = tid / kRowThreads, q = tid % kRowThreads;  // slot q: rows v0 + 16q + i
@@ -617,7 +626,7 @@ __device__ void mma_topk_parts(const __nv_bfloat16* top, const __nv_bfloat16* wv
       const int v = v0 + 16 * q + i;
       x[i] = 0.0f;
       if (n < nb && v < V) {
-        x[i] = mma_sum(red, q, i, n) + __bfloat162float(bv[v]);
+        x[i] = mma_sum(red, q, i, n) + Vec<T>::to_f32(bv[v]);
         m = fmaxf(m, x[i]);
         list.insert(pack_key(x[i], v));
       }
@@ -642,10 +651,9 @@ __device__ void mma_topk_parts(const __nv_bfloat16* top, const __nv_bfloat16* wv
   });
 }
 
-// The vocab phase of an mma_step instance, after the top activation is
-// complete: the dense f32 logits, each row's top-K log-probabilities, or
-// the first-max argmax tokens (also the tf32x3_step() instances' ends: the
-// argmax, and the attention steps' dense logits).
+// The vocab phase of an mma_step instance (or a tf32x3_step one), after
+// the top activation is complete: the dense f32 logits, each row's top-K
+// log-probabilities, or the first-max argmax tokens.
 template <int kMode, typename T>
 __device__ void mma_vocab_phase(const T* top, const T* wv, const T* bv, int B, int H, int V, const VocabOut& out,
                                 float* red, cg::grid_group& grid) {

@@ -41,22 +41,25 @@
 // At small batches the step is bound by those bytes (7.5 and 9.3 us at
 // 3.35 TB/s, less from L2): the greedy step writes only B tokens, and its
 // 1.6-2.0 GFLOP at B = 64 are about 2 us on the tensor cores.  The SIMT
-// code below reads each weight row once per batch tile of kBM rows and
-// multiplies in f32, so at large batches it turns into an f32 FMA loop.
+// layers (decode_common.cuh, now the f32 stack step's alone) read each
+// weight row once per batch tile of kBM rows and multiply in f32, so at
+// large batches they turn into an f32 FMA loop.
 // The bf16 instances that mma_step() names run the recurrence and the
 // projection on the tensor cores instead (dense_mma.cuh: mma.sync, weights
 // re-read once per 32 batch rows): every end of both cells, the stack
-// step's none included.  So do the f32 argmax instances (tf32x3_step(), the
-// greedy steps of both cells), in split-precision TF32 (three tf32 mma's
-// a product, about f32's precision), their layers' K split across blocks
-// at small B as the stack step's; the f32 dense, top-k and stack
-// instances keep the SIMT code.  The argmax end merges each 64-row vocabulary item's first
-// max into best by one atomicMax a row; the top-K end writes one part per
-// 64-row vocabulary item (its K greatest keys and (max, sum)), and after a
-// grid barrier merge_topk reduces each row's ceil(V / 64) parts, so it
-// needs scratch for that many parts (max_splits >= ceil(V / 64)).  The
-// whole decode (whole_decode.cu) runs the GRU argmax instance's layers and
-// key merge, so its ids stay bit-equal to this instance's loop.
+// step's none included.  So do the f32 instances with a vocabulary end
+// (tf32x3_step(): the greedy, dense and top-k steps of both cells), in
+// split-precision TF32 (three tf32 mma's a product, about f32's
+// precision), their layers' K split across blocks at small B as the stack
+// step's, the same S for the three ends at the same rows; only the f32
+// stack steps keep the SIMT layers.  The argmax end merges each 64-row
+// vocabulary item's first max into best by one atomicMax a row; the top-K
+// end writes one part per 64-row vocabulary item (its K greatest keys and
+// (max, sum)), and after a grid barrier merge_topk reduces each row's
+// ceil(V / 64) parts, so it needs scratch for that many parts (max_splits
+// >= ceil(V / 64)).  The whole decode (whole_decode.cu) runs the GRU argmax
+// instance's layers and key merge, so its ids stay bit-equal to this
+// instance's loop.
 // The stack step (kNone) reads the recurrence weights alone: 14.9 MB (GRU,
 // E=256) and 21.0 MB (LSTM, E=512) in bf16, plus [L, B, H] states in and
 // out; its bound is those bytes, 4.5 and 6.3 us at 3.35 TB/s at small B,
@@ -70,9 +73,9 @@
 // which it leaves at zero.
 // The design (device code in decode_common.cuh):
 //   * weights are kept in the torch layout [out, in] so that one output
-//     column is one contiguous row: a warp owns a column (its G gate rows)
-//     and reads it as coalesced 16-byte lane loads against kBM batch rows
-//     in shared memory;
+//     column is one contiguous row (the f32 stack step's SIMT layers: a
+//     warp owns a column, its G gate rows, and reads it as coalesced
+//     16-byte lane loads against kBM batch rows in shared memory);
 //   * one cooperative launch covers the whole step.  The TPU kernel carried
 //     the layer activation and the running (max, index) from one grid step
 //     to the next on one core; Hopper's blocks run in parallel and in no
@@ -82,22 +85,19 @@
 //     a greater value wins, and on equal values the lower index wins,
 //     exactly the first-max rule of vocab_pallas.merge_block_argmax;
 //   * the top-K end replaces the TPU's per-vocab-block top-k and online
-//     logsumexp (vocab_pallas.topk_block_stage): in f32 each warp keeps
-//     its rows' top-K keys and (max, sum) over its columns in registers
-//     and writes them to per-part scratch (in bf16, each 64-row vocabulary
-//     item's four threads a row do, dense_mma.cuh); after one more barrier
-//     a warp per row merges the parts by the same 64-bit key order
-//     (jax.lax.top_k's tie rule) and forms lse.  In f32 the wrapper sizes
-//     the scratch from a bound on the grid (the SM count times 16 resident
-//     128-thread blocks), in bf16 at one part per vocabulary item;
-//   * the dense end: in f32, lane b stores its logit at logits[b, v],
-//     stores that stride by V; in bf16, dense_mma.cuh stages each tile's
-//     logits in shared memory and stores each row's 64 as one run;
+//     logsumexp (vocab_pallas.topk_block_stage): each 64-row vocabulary
+//     item's four threads a row keep the row's top-K keys and (max, sum)
+//     over the item and write them to that item's part of the scratch
+//     (dense_mma.cuh); after one more barrier a warp per row merges the
+//     parts in item order by the same 64-bit key order (jax.lax.top_k's
+//     tie rule) and forms lse, whatever the grid;
+//   * the dense end: dense_mma.cuh stages each tile's logits in shared
+//     memory and stores each row's 64 as one run;
 //   * the grid is sized from the occupancy of this kernel times the SM
-//     count, and each block walks over (batch tile, column range) items,
-//     so any B, H and V run, and at B=1 every SM still gets columns;
+//     count, and each block walks over its items, so any B, H and V run;
 //   * the LSTM sums a gate's x side and h side into one accumulator, so
-//     a warp holds kBM x 4 sums, fewer than the GRU's kBM x 6.
+//     an item holds four gates' sums where the GRU's holds r, z and n's
+//     two sides.
 // The vocabulary is not padded: the last columns are simply the last items.
 
 #include "dense_mma.cuh"
@@ -110,7 +110,7 @@ struct Params {
   const void* bv;   // [V]
   VocabOut out;     // the vocab end's outputs and scratch
   int V;
-  SplitK split;     // the layers' K split (bf16 kNone, f32 kArgmax); zeros elsewhere
+  SplitK split;     // the layers' K split (bf16 kNone, f32 every vocabulary end); S = 1 elsewhere
 };
 
 template <typename T, typename Cell, int kMode>
@@ -118,8 +118,10 @@ __global__ void __launch_bounds__(kThreads) fused_step_kernel(Params p) {
   extern __shared__ float smem[];
   cg::grid_group grid = cg::this_grid();
   const StackArgs& s = p.stack;
-  // the tensor cores (dense_mma.cuh): every bf16 instance, and the f32 argmax instance in split-precision TF32
+  // the tensor cores (dense_mma.cuh): every bf16 instance, and every f32 instance with a vocabulary end in
+  // split-precision TF32; the f32 stack step (kNone) runs the SIMT layers
   constexpr bool kMma = pooled_mma_step<T, kMode>();
+  static_assert(kMma || kMode == kNone, "every instance with a vocabulary end runs the tensor cores");
   if constexpr (kMode == kArgmax)
     for (int b = grid_thread(); b < s.B; b += grid_threads()) p.out.best[b] = 0ull;  // below every packed key
   for (int l = 0; l < s.L; ++l) {
@@ -133,12 +135,8 @@ __global__ void __launch_bounds__(kThreads) fused_step_kernel(Params p) {
   }
   if constexpr (kMode != kNone) {
     const T* top = static_cast<const T*>(s.new_hs) + static_cast<size_t>(s.L - 1) * s.B * s.H;
-    if constexpr (kMma)
-      mma_vocab_phase<kMode>(top, static_cast<const T*>(p.wv), static_cast<const T*>(p.bv), s.B, s.H, p.V, p.out,
-                             smem, grid);
-    else
-      vocab_phase<kMode, T>(top, static_cast<const T*>(p.wv), static_cast<const T*>(p.bv), s.B, s.H, p.V, p.out,
-                            smem, grid);
+    mma_vocab_phase<kMode>(top, static_cast<const T*>(p.wv), static_cast<const T*>(p.bv), s.B, s.H, p.V, p.out, smem,
+                           grid);
   }
 }
 
@@ -164,25 +162,24 @@ VocabOut topk_out(unsigned long long* part_keys, float2* part_ms, float* logp, i
   return VocabOut{nullptr, nullptr, nullptr, {part_keys, part_ms, logp, ids, K, max_splits}};
 }
 
-// A top-K step's K and scratch: 1 <= K <= min(kMaxK, V); the tensor-core
-// instances (bf16) write one part per 64-row vocabulary item.
-bool topk_args_ok(int dtype, int V, int K, int max_splits) {
-  if (K < 1 || K > kMaxK || K > V || max_splits < 1) return false;
-  return dtype != 1 || max_splits >= (V + kMmaVocabRows - 1) / kMmaVocabRows;
+// A top-K step's K and scratch: 1 <= K <= min(kMaxK, V), and room for one
+// part per 64-row vocabulary item (every instance runs the tensor cores).
+bool topk_args_ok(int V, int K, int max_splits) {
+  return K >= 1 && K <= kMaxK && K <= V && max_splits >= (V + kMmaVocabRows - 1) / kMmaVocabRows;
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Each returns a cudaError_t (0 on
-// success); a width whose [kBM, max(E, H) + H] f32 tile exceeds a block's
-// shared memory fails here.  The top-K steps take K <= 8 and per-part
-// scratch part_keys [n, B, K] (u64) and part_ms [n, B] (float2): in f32
-// n = max_splits * 4, where max_splits bounds the column ranges of the
-// grid; in bf16 n = max_splits >= ceil(V / 64), one part per vocabulary
-// item (else cudaErrorInvalidValue).
+// success); the f32 stack step fails here on a width whose [kBM, max(E, H)
+// + H] f32 tile exceeds a block's shared memory.  The top-K steps take K <=
+// 8 and per-part scratch part_keys [n, B, K] (u64) and part_ms [n, B]
+// (float2), n = max_splits >= ceil(V / 64), one part per vocabulary item
+// (else cudaErrorInvalidValue).  s0, su, partial, arrivals, max_parts of
+// the greedy, dense and top-k steps: the layers' K split in f32 (as the
+// stack step's below; bf16: S = 1).
 
-// Greedy: tok [B] int32; best [B] scratch.  s0, su, partial, arrivals, max_parts: the layers' K split in f32 (as
-// the stack step's below; bf16: S = 1).
+// Greedy: tok [B] int32; best [B] scratch.
 extern "C" int st_fused_gru_step(int dtype, const void* x, const void* w_ih0, const void* w_ihU,
                                  const void* w_hh, const void* b_ih, const void* b_hh, const void* hs,
                                  const void* wv, const void* bv, void* new_hs, int32_t* tok,
@@ -214,22 +211,29 @@ extern "C" int st_fused_lstm_step(int dtype, const void* x, const void* w_ih0, c
 // Beam, dense: logits [B, V] f32.
 extern "C" int st_fused_gru_dense_step(int dtype, const void* x, const void* w_ih0, const void* w_ihU,
                                        const void* w_hh, const void* b_ih, const void* b_hh, const void* hs,
-                                       const void* wv, const void* bv, void* new_hs, float* logits, int L, int B,
-                                       int E, int H, int V, void* stream) {
+                                       const void* wv, const void* bv, void* new_hs, float* logits, float* partial,
+                                       unsigned int* arrivals, int L, int B, int E, int H, int V, int s0, int su,
+                                       int max_parts, void* stream) {
+  const SplitK split{partial, arrivals, s0, su, max_parts};
+  if (!split_args_ok(dtype == 0, split, B, H)) return static_cast<int>(cudaErrorInvalidValue);
   return run<GruCell, kDense>(
       dtype,
       Params{{x, w_ih0, w_ihU, w_hh, b_ih, b_hh, hs, nullptr, new_hs, nullptr, L, B, E, H}, wv, bv,
-             dense_out(logits), V},
+             dense_out(logits), V, split},
       stream);
 }
 
 extern "C" int st_fused_lstm_dense_step(int dtype, const void* x, const void* w_ih0, const void* w_ihU,
                                         const void* w_hh, const void* b_ih, const void* b_hh, const void* hs,
                                         const void* cs, const void* wv, const void* bv, void* new_hs, void* new_cs,
-                                        float* logits, int L, int B, int E, int H, int V, void* stream) {
+                                        float* logits, float* partial, unsigned int* arrivals, int L, int B, int E,
+                                        int H, int V, int s0, int su, int max_parts, void* stream) {
+  const SplitK split{partial, arrivals, s0, su, max_parts};
+  if (!split_args_ok(dtype == 0, split, B, H)) return static_cast<int>(cudaErrorInvalidValue);
   return run<LstmCell, kDense>(
       dtype,
-      Params{{x, w_ih0, w_ihU, w_hh, b_ih, b_hh, hs, cs, new_hs, new_cs, L, B, E, H}, wv, bv, dense_out(logits), V},
+      Params{{x, w_ih0, w_ihU, w_hh, b_ih, b_hh, hs, cs, new_hs, new_cs, L, B, E, H}, wv, bv, dense_out(logits), V,
+             split},
       stream);
 }
 
@@ -237,13 +241,16 @@ extern "C" int st_fused_lstm_dense_step(int dtype, const void* x, const void* w_
 extern "C" int st_fused_gru_topk_step(int dtype, const void* x, const void* w_ih0, const void* w_ihU,
                                       const void* w_hh, const void* b_ih, const void* b_hh, const void* hs,
                                       const void* wv, const void* bv, void* new_hs, unsigned long long* part_keys,
-                                      float2* part_ms, float* logp, int32_t* ids, int L, int B, int E, int H, int V,
-                                      int K, int max_splits, void* stream) {
-  if (!topk_args_ok(dtype, V, K, max_splits)) return static_cast<int>(cudaErrorInvalidValue);
+                                      float2* part_ms, float* logp, int32_t* ids, float* partial,
+                                      unsigned int* arrivals, int L, int B, int E, int H, int V, int K,
+                                      int max_splits, int s0, int su, int max_parts, void* stream) {
+  const SplitK split{partial, arrivals, s0, su, max_parts};
+  if (!topk_args_ok(V, K, max_splits) || !split_args_ok(dtype == 0, split, B, H))
+    return static_cast<int>(cudaErrorInvalidValue);
   return run<GruCell, kTopk>(
       dtype,
       Params{{x, w_ih0, w_ihU, w_hh, b_ih, b_hh, hs, nullptr, new_hs, nullptr, L, B, E, H}, wv, bv,
-             topk_out(part_keys, part_ms, logp, ids, K, max_splits), V},
+             topk_out(part_keys, part_ms, logp, ids, K, max_splits), V, split},
       stream);
 }
 
@@ -251,12 +258,15 @@ extern "C" int st_fused_lstm_topk_step(int dtype, const void* x, const void* w_i
                                        const void* w_hh, const void* b_ih, const void* b_hh, const void* hs,
                                        const void* cs, const void* wv, const void* bv, void* new_hs, void* new_cs,
                                        unsigned long long* part_keys, float2* part_ms, float* logp, int32_t* ids,
-                                       int L, int B, int E, int H, int V, int K, int max_splits, void* stream) {
-  if (!topk_args_ok(dtype, V, K, max_splits)) return static_cast<int>(cudaErrorInvalidValue);
+                                       float* partial, unsigned int* arrivals, int L, int B, int E, int H, int V,
+                                       int K, int max_splits, int s0, int su, int max_parts, void* stream) {
+  const SplitK split{partial, arrivals, s0, su, max_parts};
+  if (!topk_args_ok(V, K, max_splits) || !split_args_ok(dtype == 0, split, B, H))
+    return static_cast<int>(cudaErrorInvalidValue);
   return run<LstmCell, kTopk>(
       dtype,
       Params{{x, w_ih0, w_ihU, w_hh, b_ih, b_hh, hs, cs, new_hs, new_cs, L, B, E, H}, wv, bv,
-             topk_out(part_keys, part_ms, logp, ids, K, max_splits), V},
+             topk_out(part_keys, part_ms, logp, ids, K, max_splits), V, split},
       stream);
 }
 

@@ -14,7 +14,7 @@
 // bf16 runs on the tensor cores (vocab_mma.cuh): a block owns a V-tile of
 // mv rows, holds its weights in shared memory for all of K and takes every
 // batch row against them, so the weights are read once per call.  f32
-// keeps the SIMT projection phase of the fused steps (decode_common.cuh):
+// runs the SIMT projection of decode_common.cuh (project_argmax):
 // a warp owns a vocabulary row and reads it coalesced against kBM batch
 // rows in shared memory; each lane keeps the first max of its row over the
 // columns its warp visits in order.

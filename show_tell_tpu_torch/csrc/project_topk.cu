@@ -23,8 +23,8 @@
 //
 // bf16 runs on the tensor cores (vocab_mma.cuh): a block owns a V-tile of
 // mv rows with its weights in shared memory, takes every batch row against
-// them, and writes one part per (V-tile, row).  f32 keeps the top-K end of
-// the fused steps (decode_common.cuh): a warp owns a vocabulary row and
+// them, and writes one part per (V-tile, row).  f32 runs the SIMT
+// topk_phase (decode_common.cuh): a warp owns a vocabulary row and
 // reads it coalesced against kBM batch rows in shared memory; lane b keeps
 // row b's keys and (m, s) over the columns its warp visits, and each
 // (column range, warp) writes a part.
@@ -38,7 +38,7 @@ struct Params {
   const void* top;  // [B, H]
   const void* wv;   // [V, H]  torch layout
   const void* bv;   // [V]
-  VocabOut out;     // top-K outputs and scratch
+  TopkArgs topk;    // top-K outputs and scratch
   int B, H, V;
 };
 
@@ -46,8 +46,8 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads) project_topk_kernel(Params p) {
   extern __shared__ float smem[];
   cg::grid_group grid = cg::this_grid();
-  vocab_phase<kTopk, T>(static_cast<const T*>(p.top), static_cast<const T*>(p.wv), static_cast<const T*>(p.bv), p.B,
-                        p.H, p.V, p.out, smem, grid);
+  topk_phase<T>(static_cast<const T*>(p.top), static_cast<const T*>(p.wv), static_cast<const T*>(p.bv), p.B, p.H, p.V,
+                p.topk, smem, grid);
 }
 
 template <typename T>
@@ -71,7 +71,7 @@ TileLaunchCache tiles_cache;
 cudaError_t launch_tiles_bf16(const Params& p, int mv, cudaStream_t stream) {
   TileArgs a{static_cast<const __nv_bfloat16*>(p.top), static_cast<const __nv_bfloat16*>(p.wv),
              static_cast<const __nv_bfloat16*>(p.bv), p.B, p.H, p.V, mv};
-  TopkArgs k = p.out.topk;
+  TopkArgs k = p.topk;
   void* argv[] = {&a, &k};
   return launch_tiles(project_topk_tiles_kernel, tiles_cache, mv, p.H, (p.V + mv - 1) / mv, argv, stream);
 }
@@ -88,7 +88,7 @@ extern "C" int st_project_topk(int dtype, const void* top, const void* wv, const
                                unsigned long long* part_keys, float2* part_ms, float* logp, int32_t* ids, int B,
                                int H, int V, int K, int max_splits, int mv, void* stream) {
   if (K < 1 || K > kMaxK || K > V || max_splits < 1) return static_cast<int>(cudaErrorInvalidValue);
-  Params p{top, wv, bv, VocabOut{nullptr, nullptr, nullptr, {part_keys, part_ms, logp, ids, K, max_splits}}, B, H, V};
+  Params p{top, wv, bv, {part_keys, part_ms, logp, ids, K, max_splits}, B, H, V};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && mv == 0) return static_cast<int>(launch<float>(p, s));
   if (dtype == 1 && vocab_tile_ok(mv, H) && (V + mv - 1) / mv <= max_splits)

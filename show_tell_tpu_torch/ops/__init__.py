@@ -84,8 +84,10 @@ def whole_decode_default() -> bool:
     10 rounds) and B=64 (1.5616 against 1.7619 ms, 10 of 10, medians
     0.2003 ms apart, spread 0.1896 ms), and lost at B=512 (3.8727 against
     3.7698 ms, the loop faster in 10 of 10 rounds, medians 0.1029 ms
-    apart, spread 0.0403 ms).  f32 (SIMT) still favours the whole decode
-    at every B (1.20x, 1.031x, 1.019x).  The earlier runs, on the SIMT
+    apart, spread 0.0403 ms).  In f32, when both still ran the SIMT code
+    (before the 3xTF32 tiles), the whole decode was faster at every B
+    (1.20x, 1.031x, 1.019x); that A/B has not been run on the 3xTF32 tiles.
+    The earlier runs, on the SIMT
     bf16 kernels, had it on: faster in 10 of 10 rounds at every B, 1.62x
     at B=1 and 1.01x at B=64 in the run that set it.
 

@@ -166,10 +166,10 @@ def load_library() -> ctypes.CDLL:
         signatures = {
             "st_fused_gru_step": [i] + [p] * 14 + [i] * 8 + [p],
             "st_fused_lstm_step": [i] + [p] * 16 + [i] * 8 + [p],
-            "st_fused_gru_dense_step": [i] + [p] * 11 + [i] * 5 + [p],
-            "st_fused_lstm_dense_step": [i] + [p] * 13 + [i] * 5 + [p],
-            "st_fused_gru_topk_step": [i] + [p] * 14 + [i] * 7 + [p],
-            "st_fused_lstm_topk_step": [i] + [p] * 16 + [i] * 7 + [p],
+            "st_fused_gru_dense_step": [i] + [p] * 13 + [i] * 8 + [p],
+            "st_fused_lstm_dense_step": [i] + [p] * 15 + [i] * 8 + [p],
+            "st_fused_gru_topk_step": [i] + [p] * 16 + [i] * 10 + [p],
+            "st_fused_lstm_topk_step": [i] + [p] * 18 + [i] * 10 + [p],
             "st_gru_stack_step": [i] + [p] * 10 + [i] * 7 + [p],
             "st_lstm_stack_step": [i] + [p] * 12 + [i] * 7 + [p],
             "st_whole_gru_decode": [i] + [p] * 15 + [i] * 9 + [p],

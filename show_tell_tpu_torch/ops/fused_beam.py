@@ -8,12 +8,14 @@ and ::fused_topk_step_pallas.  The beam rows ride the batch axis: x is
 [R, E] and the state [L, R, H] for R = B x K rows.  Layer 0 reads x at its
 own width E, which may exceed H (the TPU kernels refuse E > H).
 
-In bf16 the dense and top-k instances (and the attention's dense ones in
+The dense and top-k instances (and the attention's dense ones in
 ops/fused_attn.py) run their recurrence and projection on the tensor
 cores (csrc/dense_mma.cuh, whose launch geometry ``fused_step.mma_tiles``
-computes); the top-k end writes each 64-row vocabulary item's top-k keys
-and (max, sum) and merges them after a grid barrier.  f32 keeps the SIMT
-code.
+computes): bf16 on mma.sync's bf16 tiles, f32 in split-precision TF32
+with the layers' K split (``fused_step.tf32x3_step``, ``stack_tiles``), the
+same S as the greedy step at the same rows.  The top-k end writes each
+64-row vocabulary item's top-k keys and (max, sum) and merges them, in
+item order, after a grid barrier.
 """
 
 from __future__ import annotations

@@ -15,11 +15,12 @@ geometry ``mma_tiles`` computes: the dense, top-k and argmax ends, both
 cells (the pooled GRU's argmax instance bit-equal to the whole decode),
 and the stack step (no vocab end), whose K split across blocks
 ``stack_tiles`` computes.  In f32 the instances that ``tf32x3_step``
-names, the two greedy steps here, the whole decode and the four attention
-steps of ops/fused_attn.py (greedy and dense, both cells), run the same
-code in split-precision TF32 (three tf32 products a product, about f32's
-precision), their layers' K split across blocks; every other f32 instance
-keeps the SIMT code.
+names, the two greedy steps here, the dense and top-k beam steps of
+ops/fused_beam.py, the whole decode and the four attention steps of
+ops/fused_attn.py (greedy and dense, both cells), run the same code in
+split-precision TF32 (three tf32 products a product, about f32's
+precision), their layers' K split across blocks; only the f32 stack steps
+keep the SIMT layers.
 """
 
 from __future__ import annotations
@@ -59,12 +60,13 @@ def mma_step(dtype: torch.dtype, end: Union[str, int, None]) -> bool:
 
 def tf32x3_step(dtype: torch.dtype, end: Union[str, int, None], attention: bool = False) -> bool:
     """Whether a step's f32 instance runs on the tensor cores in
-    split-precision TF32 (tf32x3_step() in csrc/dense_mma.cuh): the pooled
-    greedy step of either cell (the "argmax" end) and the whole decode,
-    which runs that step's code; with ``attention``, the attention step's
-    "argmax" and "dense" ends, either cell (ops/fused_attn.py).  The pooled
-    f32 dense, top-k and stack ends keep the SIMT code."""
-    return dtype == torch.float32 and (end == "argmax" or (attention and end == "dense"))
+    split-precision TF32 (tf32x3_step() in csrc/dense_mma.cuh): every
+    vocabulary end of the pooled step ("argmax", "dense", a top-k width),
+    either cell, and the whole decode, which runs the "argmax" step's code;
+    with ``attention``, the attention step's "argmax" and "dense" ends,
+    either cell (ops/fused_attn.py).  The f32 stack steps (end None) keep
+    the SIMT layers."""
+    return dtype == torch.float32 and end is not None and (not attention or end in ("argmax", "dense"))
 
 
 class MmaTiles(NamedTuple):
@@ -131,7 +133,8 @@ def stack_splits(B: int, I: int, H: int, sms: int, dtype: torch.dtype = torch.bf
 def stack_tiles(B: int, I0: int, H: int, sms: int, splits: int = 0, dtype: torch.dtype = torch.bfloat16) -> StackTiles:
     """The launch geometry of the layers' K split at B rows, in the bf16
     stack step or (``dtype`` float32) the f32 ``tf32x3_step`` instances
-    (the greedy steps, the whole decode, the attention steps): the items,
+    (the greedy, dense and top-k steps, the whole decode, the attention
+    steps): the items,
     K chunks, the S of layer 0 and of the upper layers
     (``stack_splits``, or ``splits`` for both where it is given) and the
     parts the scratch must hold.  Raises for widths that are not multiples
@@ -167,9 +170,10 @@ def arrival_counters(device: torch.device, items: int) -> torch.Tensor:
 
 def layer_split(B: int, E: int, H: int, device: torch.device, dtype: torch.dtype, splits: int = 0):
     """The K split's launch arguments of an instance that splits its layers
-    (the bf16 stack step; the f32 ``tf32x3_step`` instances: the greedy
-    steps, the whole decode, the attention steps; E is layer 0's input
-    width): (the scratch, to hold until the launch is queued, or
+    (the bf16 stack step; the f32 ``tf32x3_step`` instances: the greedy,
+    dense and top-k steps, the whole decode, the attention steps; E is
+    layer 0's input width): (the scratch, to hold until the launch is
+    queued, or
     None; the [partial, arrivals] pointers; [s0, su, parts])."""
     tiles = stack_tiles(B, E, H, sm_count(device), splits, dtype)
     if not tiles.parts:
@@ -220,13 +224,14 @@ def launch_fused_step(kernel: str, stacked, vocab, x, state: State, end: Union[s
     ``end``: "argmax" (tok [B] int32), "dense" (logits [B, V] f32), a top-k
     width k (logp [B, k] f32, ids [B, k] int32), or None, the stack step
     (the top activation [B, H], a view of new_hs[L-1]; ``vocab`` is not
-    read).  An instance that ``mma_step`` or ``tf32x3_step`` names has its
-    tensor-core geometry checked first (``mma_tiles``; the layers' K split
-    ``stack_tiles``, which ``splits`` overrides in the bf16 stack step and
-    the f32 greedy steps); its top-k end gets one
-    scratch part per MMA_VOCAB_ROWS vocabulary rows, the bf16 stack step and
-    the f32 greedy steps their split-K scratch and the stream's arrival
-    counters (``layer_split``).  Returns (the end's output, new state)."""
+    read).  An instance that ``mma_step`` or ``tf32x3_step`` names (every
+    one but the f32 stack step) has its tensor-core geometry checked first
+    (``mma_tiles``; the layers' K split ``stack_tiles``, which ``splits``
+    overrides in the bf16 stack step and the f32 steps with a vocabulary
+    end); its top-k end gets one scratch part per MMA_VOCAB_ROWS vocabulary
+    rows, the bf16 stack step and the f32 steps their split-K scratch and
+    the stream's arrival counters (``layer_split``).  Returns (the end's
+    output, new state)."""
     from show_tell_tpu_torch.ops.build import load_library
 
     lstm = isinstance(state, tuple)
@@ -242,7 +247,8 @@ def launch_fused_step(kernel: str, stacked, vocab, x, state: State, end: Union[s
     ints = [L, B, E, H]
     vocab_ptrs = []
     if splits and not ((end is None and dtype == torch.bfloat16) or tf32x3_step(dtype, end)):
-        raise ValueError("%s: splits apply to the bf16 stack step only and to the f32 greedy steps" % kernel)
+        raise ValueError("%s: splits apply to the bf16 stack step only and to the f32 steps with a vocabulary end"
+                         % kernel)
     if end is not None:
         V = vocab["w"].shape[0]
         if V < 1:
@@ -257,7 +263,8 @@ def launch_fused_step(kernel: str, stacked, vocab, x, state: State, end: Union[s
             mma_tiles(B, E, H, V, dtype=dtype)
     new_hs = torch.empty_like(hs)
     new_cs = torch.empty_like(cs) if lstm else None
-    # the layers' K split (the bf16 stack step, the f32 greedy steps): its scratch is held until the launch is queued
+    # the layers' K split (the bf16 stack step, the f32 steps with a vocabulary end): its scratch is held until the
+    # launch is queued
     partial, split_ptrs, split_ints = None, [None, None], [1, 1, 0]
     if (end is None and mma_step(dtype, end)) or tf32x3_step(dtype, end):
         partial, split_ptrs, split_ints = layer_split(B, E, H, device, dtype, splits)
@@ -272,13 +279,14 @@ def launch_fused_step(kernel: str, stacked, vocab, x, state: State, end: Union[s
         ints += split_ints
     elif end == "dense":
         out = torch.empty(B, V, dtype=torch.float32, device=device)
-        ptrs, entry_name = [out.data_ptr()], "st_fused_%s_dense_step"
-    else:
-        items = -(-V // MMA_VOCAB_ROWS) if mma_step(dtype, end) else None
+        ptrs, entry_name = [out.data_ptr(), *split_ptrs], "st_fused_%s_dense_step"
+        ints += split_ints
+    else:  # one scratch part per 64-row vocabulary item
+        items = -(-V // MMA_VOCAB_ROWS)
         max_splits, part_keys, part_ms, logp, ids = topk_launch_args(kernel, B, V, end, device, items)
         out = (logp, ids)
-        ptrs = [part_keys.data_ptr(), part_ms.data_ptr(), logp.data_ptr(), ids.data_ptr()]
-        ints += [end, max_splits]
+        ptrs = [part_keys.data_ptr(), part_ms.data_ptr(), logp.data_ptr(), ids.data_ptr(), *split_ptrs]
+        ints += [end, max_splits, *split_ints]
         entry_name = "st_fused_%s_topk_step"
     lib = load_library()
     entry = getattr(lib, entry_name % ("lstm" if lstm else "gru"))

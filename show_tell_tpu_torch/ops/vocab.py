@@ -8,7 +8,7 @@ The CUDA kernels read the projection in the torch layout [V, H], one
 contiguous row per vocabulary entry, and mask the ragged end of V
 themselves, so nothing is padded here.  In bf16 both kernels run on the
 tensor cores in V-tiles whose geometry ``vocab_tiles`` computes here and
-passes to the launch; f32 keeps the SIMT projection of the fused steps.
+passes to the launch; f32 runs SIMT projections (csrc/decode_common.cuh).
 """
 
 from __future__ import annotations
@@ -160,11 +160,12 @@ def project_topk_plain(vocab: Dict[str, torch.Tensor], top: torch.Tensor, k: int
 def topk_launch_args(kernel: str, B: int, V: int, k: int, device: torch.device, tiles: Optional[int] = None):
     """Check k and allocate what a top-k vocab phase writes: logp and ids
     [B, k], and its per-part scratch.  The bf16 projection kernel writes
-    one part per V-tile, the bf16 fused top-k step one per 64-row
+    one part per V-tile, the fused top-k step (bf16 and f32) one per 64-row
     vocabulary item: pass that count as ``tiles``, and max_splits = n =
-    tiles.  Otherwise (the SIMT phase) the grid is sized inside the launch
-    from the kernel's occupancy, so the scratch is sized from a bound on it:
-    at most RESIDENT_BLOCKS_PER_SM blocks on each SM, hence at most
+    tiles.  Otherwise (the f32 projection kernel's SIMT phase) the grid is
+    sized inside the launch from the kernel's occupancy, so the scratch is
+    sized from a bound on it: at most RESIDENT_BLOCKS_PER_SM blocks on each
+    SM, hence at most
     max_splits = min(V, that grid // ceil(B / 8)) column ranges a row, each
     worked by KERNEL_WARPS warps, n = max_splits x KERNEL_WARPS.  Returns
     (max_splits, part_keys [n, B, k] int64, part_ms [n, B, 2] f32, logp, ids)."""

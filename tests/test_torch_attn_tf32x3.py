@@ -166,10 +166,11 @@ def test_flagship_attention_step_at_b32_and_one_pass_tf32_misses_the_bar(cell):
 @pytest.mark.parametrize("end", ["argmax", "dense", 3, None])
 def test_the_attention_instances_on_the_tiles_are_f32_argmax_and_dense(end):
     """The attention steps' f32 instances (argmax and dense: the only ends
-    the attention kernel has) run the 3xTF32 tiles; the pooled instances of
-    the same end run them only with the argmax end; bf16 is mma_step's."""
+    the attention kernel has) run the 3xTF32 tiles; the pooled instances
+    run them with every vocabulary end (not the stack step's None); bf16 is
+    mma_step's."""
     assert tf32x3_step(torch.float32, end, attention=True) is (end in ("argmax", "dense"))
-    assert tf32x3_step(torch.float32, end) is (end == "argmax")
+    assert tf32x3_step(torch.float32, end) is (end is not None)
     assert not tf32x3_step(torch.bfloat16, end, attention=True) and mma_step(torch.bfloat16, end)
 
 

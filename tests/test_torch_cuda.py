@@ -9,9 +9,9 @@ against the same step on the CPU.  The bf16 instances on the tensor
 cores (the dense steps and the greedy steps, pooled and attention, GRU
 and LSTM; the whole decode) are also held bit for bit to each other, the
 f32 instances in split-precision TF32 on the tensor cores (the pooled
-greedy steps, the four attention steps) to the twin, to float64 and to
-themselves, and the ones that keep the SIMT code (the other f32
-instances) to the SIMT ends.
+greedy, dense and top-k steps, the four attention steps) to the twin, to
+float64 and to themselves, and the greedy, dense and top-k steps of a cell
+to each other bit for bit.
 
 Marked ``cuda``: each test skips where torch finds no CUDA device (the
 kernels have no CPU or interpret mode).  Run them on the card with
@@ -71,6 +71,7 @@ from show_tell_tpu_torch.ops.vocab import (
     project_logits,
     project_topk,
     project_topk_plain,
+    stable_topk,
     vocab_tiles,
 )
 
@@ -455,29 +456,30 @@ def test_bf16_dense_logits_tie_across_the_first_and_last_vocab_tiles(cuda, V):
 
 @pytest.mark.parametrize("R,E,H,V,L", [(3, 16, 24, 40, 2), (65, 40, 24, 1001, 2), (192, 256, 512, 9956, 5)])
 @pytest.mark.parametrize("cell", ["gru", "lstm"])
-def test_f32_dense_step_runs_the_simt_code(cuda, cell, R, E, H, V, L):
-    """The f32 dense instances keep the SIMT code of the other SIMT ends:
-    their new state is bit-equal to the stack step's and the top-k step's.
-    The f32 greedy step runs the tensor cores in split-precision TF32
-    (test_f32_pooled_greedy_steps_run_the_tensor_core_code): its state is
-    within 1e-5 of theirs, and its tokens are the first-max argmax of the
-    dense logits on every row whose top-2 gap exceeds 1e-4."""
+def test_f32_beam_steps_run_the_greedy_steps_code(cuda, cell, R, E, H, V, L):
+    """The f32 dense and top-k instances run the f32 greedy instance's code
+    (the 3xTF32 tiles, the same K split at the same rows): their new states
+    bit-equal to the greedy step's, its tokens the first-max argmax of the
+    dense logits on every row, the top-k ids the stable top-k of the dense
+    logits where the k + 1 best are more than 1e-4 apart.  The f32 stack
+    step keeps the SIMT layers: its state within 1e-5 of theirs."""
     stacked, vocab, x, hs = _inputs(R, E, H, V, L, torch.float32, cuda, seed=19, gates=4 if cell == "lstm" else 3)
     state = _state(cell, hs, 20)
     logits, new_state = fused_dense_step(stacked, vocab, x, state)
     stack = lstm_stack_step if cell == "lstm" else gru_stack_step
     greedy = fused_lstm_decode_step if cell == "lstm" else fused_gru_decode_step
-    others = [stack(stacked, x, state)[1], fused_topk_step(stacked, vocab, x, state, 3)[1]]
+    (_, ids), topk_state = fused_topk_step(stacked, vocab, x, state, 3)
     tok, greedy_state = greedy(stacked, vocab, x, state)
+    simt_state = stack(stacked, x, state)[1]
     torch.cuda.synchronize()
-    for other in others:
-        for a, b in zip(new_state if cell == "lstm" else (new_state,), other if cell == "lstm" else (other,)):
-            assert torch.equal(a, b)
-    tol, gap = TOL[torch.float32]
-    for a, b in zip(new_state if cell == "lstm" else (new_state,), greedy_state if cell == "lstm" else (greedy_state,)):
-        torch.testing.assert_close(b, a, rtol=tol, atol=tol)
-    clear = _clear(logits, gap)
-    assert torch.equal(first_max_argmax(logits)[clear], tok[clear])
+    for other in (topk_state, greedy_state):
+        assert all(torch.equal(a, b) for a, b in zip(_tuple(new_state), _tuple(other)))
+    for a, b in zip(_tuple(new_state), _tuple(simt_state)):
+        torch.testing.assert_close(b, a, rtol=TOL[torch.float32][0], atol=TOL[torch.float32][0])
+    assert torch.equal(first_max_argmax(logits), tok)
+    best = logits.topk(min(4, V), dim=-1).values
+    clear = (best[:, :-1] - best[:, 1:]).min(dim=1).values > BEAM_TOL
+    assert torch.equal(ids[clear], stable_topk(logits, 3)[1][clear])
 
 
 def test_beam_wrappers_reject_what_they_do_not_take(cuda):
@@ -914,8 +916,8 @@ def test_f32_pooled_greedy_steps_run_the_tensor_core_code(cuda, family, B):
     (U(+-1/sqrt(H)), as chip_smoke.py draws them): new states within 1e-5
     of the plain twin (rtol and atol), tokens equal on every row whose
     top-2 gap exceeds 1e-4, two launches bit-equal; and sums that are not
-    the SIMT code's: the new state differs in its bits from the f32 dense
-    step's (SIMT)."""
+    the SIMT code's: the new state differs in its bits from the f32 stack
+    step's (SIMT layers)."""
     step, plain, args, vocab = _tc_greedy(family, B, torch.float32, cuda, seed=28, scale=512 ** -0.5)
     before = step.launches
     (tok, state), (tok2, state2) = step(*args), step(*args)
@@ -928,7 +930,8 @@ def test_f32_pooled_greedy_steps_run_the_tensor_core_code(cuda, family, B):
         torch.testing.assert_close(g, r, rtol=tol, atol=tol)
     clear = _clear(project_logits(vocab, _top(ref_state)), gap)
     assert torch.equal(tok[clear], ref_tok[clear])
-    _, simt_state = fused_dense_step(*args)
+    stack = lstm_stack_step if family == "pooled lstm" else gru_stack_step
+    _, simt_state = stack(args[0], args[2], args[3])
     assert not all(torch.equal(a, b) for a, b in zip(_tuple(state), _tuple(simt_state)))
 
 
@@ -980,6 +983,93 @@ def test_f32_pooled_greedy_tie_across_vocab_items_takes_the_lower_index(cuda, fa
     vocab["b"][lo] = vocab["b"][hi] = 50.0
     assert step(*args)[0].tolist() == [lo] * 65
     assert plain(*args)[0].tolist() == [lo] * 65
+
+
+# The f32 pooled beam steps (dense and top-k, GRU and LSTM) on the tensor cores in split-precision TF32, with the
+# layers' K split (csrc/fused_step.cu, tf32x3_step()), at the flagship widths: the f32 beam bars (states within 2e-5
+# of the twin, logits and logp within 1e-4, ids equal where the k + 1 best logits are more than 1e-4 apart).
+TF32X3_BEAM = [("gru", "dense"), ("lstm", "dense"), ("gru", "topk"), ("lstm", "topk")]
+TF32X3_BEAM_IDS = ["gru-dense", "lstm-dense", "gru-topk", "lstm-topk"]
+K_BEAM = 3
+BEAM_STEPS = {("gru", "dense"): fused_gru_dense_step, ("lstm", "dense"): fused_lstm_dense_step,
+              ("gru", "topk"): fused_gru_topk_step, ("lstm", "topk"): fused_lstm_topk_step}
+
+
+def _f32_beam(cell, end, R, device, seed, scale=512 ** -0.5):
+    """(step, its arguments) of one f32 pooled beam instance at R rows of the flagship cell, the weights in +-scale:
+    the top-k step's arguments end in k = 3."""
+    stacked, vocab, x, hs = _inputs(R, 512 if cell == "lstm" else 256, 512, 9956, 5, torch.float32, device,
+                                    seed=seed, gates=4 if cell == "lstm" else 3, scale=scale)
+    args = (stacked, vocab, x, _state(cell, hs, seed))
+    return BEAM_STEPS[cell, end], args + ((K_BEAM,) if end == "topk" else ())
+
+
+@pytest.mark.parametrize("R", [1, 3, 19, 96, 192])
+@pytest.mark.parametrize("cell,end", TF32X3_BEAM, ids=TF32X3_BEAM_IDS)
+def test_f32_pooled_beam_steps_run_the_tensor_core_code(cuda, cell, end, R):
+    """New states within 2e-5 of the plain twin (rtol and atol); dense
+    logits within 1e-4 of the plain projection of the kernel's own top
+    activation; top-k logp within 1e-4 of log_softmax of the dense step's
+    logits and ids equal to their stable top-k where the k + 1 best logits
+    are more than 1e-4 apart (and to the plain projection's top-k of the
+    kernel's top activation); two launches bit-equal, each counted; the new
+    state bit-equal to the greedy step's at the same rows."""
+    step, args = _f32_beam(cell, end, R, cuda, seed=35)
+    before = step.launches
+    (out, state), (out2, state2) = step(*args), step(*args)
+    torch.cuda.synchronize()
+    assert step.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(_tuple(out), _tuple(out2)))
+    assert all(torch.equal(a, b) for a, b in zip(_tuple(state), _tuple(state2)))
+    _check_states(state, fused_dense_step_plain(*args[:4])[1], torch.float32)
+    vocab = args[1]
+    if end == "dense":
+        assert out.shape == (R, 9956) and out.dtype == torch.float32
+        torch.testing.assert_close(out, project_logits(vocab, _top(state)), rtol=BEAM_TOL, atol=BEAM_TOL)
+    else:
+        logp, ids = out
+        assert ids.dtype == torch.int32 and tuple(ids.shape) == (R, K_BEAM)
+        logits = BEAM_STEPS[cell, "dense"](*args[:4])[0]
+        ref_logp, ref_ids = stable_topk(torch.log_softmax(logits, dim=-1), K_BEAM)
+        torch.testing.assert_close(logp, ref_logp, rtol=BEAM_TOL, atol=BEAM_TOL)
+        best = logits.topk(K_BEAM + 1, dim=-1).values
+        clear = (best[:, :-1] - best[:, 1:]).min(dim=1).values > BEAM_TOL
+        assert torch.equal(ids[clear], ref_ids[clear])
+        _check_topk(logp, ids, vocab, _top(state), K_BEAM)
+    greedy = fused_lstm_decode_step if cell == "lstm" else fused_gru_decode_step
+    assert all(torch.equal(a, b) for a, b in zip(_tuple(state), _tuple(greedy(*args[:4])[1])))
+
+
+@pytest.mark.parametrize("R", [96, 192])
+@pytest.mark.parametrize("cell,end", TF32X3_BEAM, ids=TF32X3_BEAM_IDS)
+def test_f32_pooled_beam_steps_err_no_more_than_the_twin(cuda, cell, end, R):
+    """Weights in +-0.3 (pre-activations of several units, where two f32
+    summation orders part by up to about 1e-5 in the states): against the
+    recurrence in float64, the kernel's new states err no more than the
+    plain twin's (cuBLAS in f32), at the worst value and in the mean
+    square."""
+    step, args = _f32_beam(cell, end, R, cuda, seed=36, scale=0.3)
+    state, ref_state = step(*args)[1], fused_dense_step_plain(*args[:4])[1]
+    exact = _f64_stack(args[0], args[2], args[3])
+    err = lambda got: torch.cat([(g.double() - e).abs().flatten() for g, e in zip(_tuple(got), _tuple(exact))])
+    ours, twin = err(state), err(ref_state)
+    assert ours.max() <= twin.max() and ours.square().mean() <= twin.square().mean()
+
+
+@pytest.mark.parametrize("R", [3, 65, 192])
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_f32_pooled_beam_tie_of_columns_7_and_9000(cuda, cell, R):
+    """Columns 7 and 9000 (the first and the 141st 64-row vocabulary item)
+    equal and top in every row: the top-k step lists [7, 9000, ...], the
+    dense step's logits tie there and their first max is 7."""
+    step, args = _f32_beam(cell, "topk", R, cuda, seed=37)
+    vocab = args[1]
+    vocab["w"][9000] = vocab["w"][7]
+    vocab["b"][7] = vocab["b"][9000] = 100.0
+    (_, ids), _ = step(*args[:4], 5)
+    assert ids[:, :2].tolist() == [[7, 9000]] * R
+    logits = BEAM_STEPS[cell, "dense"](*args[:4])[0]
+    assert torch.equal(logits[:, 7], logits[:, 9000]) and first_max_argmax(logits).tolist() == [7] * R
 
 
 @pytest.mark.parametrize("B,E,H,A,P,V,L", [(3, 16, 24, 16, 5, 40, 1), (65, 64, 128, 32, 7, 1001, 2),

@@ -147,17 +147,18 @@ def _clear(logits, k):
 
 def test_topk_end_agrees_with_the_kernel_sources():
     """The re-enactment's rules, read back from dense_mma.cuh and
-    fused_step.cu: bf16 top-k is an mma_step instance; the end scans
+    fused_step.cu: bf16 top-k is an mma_step instance (f32 top-k a
+    tf32x3_step one, the same end templated on the type); the end scans
     thread q's 16 rows, keys them by pack_key, sums exp from the thread's
     max, combines the row's four threads, writes part v0 / 64; the merge
     reads ceil(V / 64) parts after a grid barrier; the C entry points
-    refuse scratch for fewer parts."""
+    refuse scratch for fewer parts in either dtype."""
     src = open(HEADER).read()
     assert "(kMode == kDense || kMode == kTopk || kMode == kArgmax || kMode == kNone)" in src
     end = src[src.index("__device__ void mma_topk_parts("):src.index("// The vocab phase of an mma_step instance")]
     assert "const int n = tid / kRowThreads, q = tid % kRowThreads;" in end
     assert "const int v = v0 + 16 * q + i;" in end and "for (int i = 0; i < 16; ++i) {" in end
-    assert "x[i] = mma_sum(red, q, i, n) + __bfloat162float(bv[v]);" in end
+    assert "x[i] = mma_sum(red, q, i, n) + Vec<T>::to_f32(bv[v]);" in end
     assert "m = fmaxf(m, x[i]);\n        list.insert(pack_key(x[i], v));" in end
     assert "if (n < nb && v0 + 16 * q + i < V) s += expf(x[i] - m);" in end
     assert "float sum = s > 0.0f ? s * expf(m - mx) : 0.0f;" in end
@@ -167,8 +168,9 @@ def test_topk_end_agrees_with_the_kernel_sources():
     assert ("mma_topk_parts(top, wv, bv, B, H, V, out.topk, red);\n    grid.sync();  // every part is in scratch\n"
             "    merge_topk(out.topk, B, (V + kMmaVocabRows - 1) / kMmaVocabRows);") in src
     step = open(os.path.join(os.path.dirname(HEADER), "fused_step.cu")).read()
-    assert "return dtype != 1 || max_splits >= (V + kMmaVocabRows - 1) / kMmaVocabRows;" in step
-    refusal = "if (!topk_args_ok(dtype, V, K, max_splits)) return static_cast<int>(cudaErrorInvalidValue);"
+    assert "K <= V && max_splits >= (V + kMmaVocabRows - 1) / kMmaVocabRows;" in step
+    refusal = ("if (!topk_args_ok(V, K, max_splits) || !split_args_ok(dtype == 0, split, B, H))\n"
+               "    return static_cast<int>(cudaErrorInvalidValue);")
     assert step.count(refusal) == 2
     assert MMA_VOCAB_ROWS == 16 * SLOTS == RUN * ROW_THREADS
 
@@ -303,10 +305,12 @@ def test_topk_scratch_holds_one_part_per_item(B, V, k):
 
 
 def test_topk_launch_checks_geometry_and_sizes_scratch(no_library, monkeypatch):
-    """bf16 top-k steps (both cells) check the tensor-core geometry and
-    size their scratch at one part per 64-row item before the library is
-    asked for; f32 (SIMT) does neither and sizes it from the bound on the
-    grid (16 resident blocks on each SM, kBM = 8 rows a tile)."""
+    """Top-k steps (both cells, bf16 and f32) check the tensor-core
+    geometry and size their scratch at one part per 64-row item before the
+    library is asked for; f32 also takes its layers' K split (stack_tiles
+    in f32).  The f32 projection kernel (SIMT) sizes its scratch from the
+    bound on the grid (16 resident blocks on each SM, kBM = 8 rows a
+    tile)."""
     sized = []
 
     def spy(*args):
@@ -325,8 +329,8 @@ def test_topk_launch_checks_geometry_and_sizes_scratch(no_library, monkeypatch):
             sized.clear()
             with pytest.raises(_Launched):
                 fused_topk_step_cuda(stacked, vocab, x, state, 3)
-            assert no_library == ([(B, E, H, V)] if bf16 else [])
-            assert sized == [2 if bf16 else None]
+            assert no_library == ([(B, E, H, V)] if bf16 else [(B, E, H, V, dtype), (B, E, H, 132, 0, dtype)])
+            assert sized == [2]
         with pytest.raises(ValueError, match="k=%d" % (MAX_K + 1)):
             fused_topk_step_cuda(*_small(dtype, False, V=V)[0], MAX_K + 1)
     assert topk_launch_args("fused_topk_step", 3, V, 3, torch.device("cpu"))[0] == min(V, 132 * RESIDENT_BLOCKS_PER_SM)

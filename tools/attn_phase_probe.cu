@@ -9,7 +9,9 @@
 // Routes (0 and 1 for both cells and ends, 2-5 for the GRU's argmax end):
 //   0  SIMT, one launch: the f32 code the attention steps ran before the
 //      3xTF32 tiles (A1 attention_scores_in, A2 attention_context_e,
-//      decode_common.cuh's layers and vocab phase), all still in the source;
+//      decode_common.cuh's layers and SIMT projection; the dense end's
+//      strided stores, which the library no longer keeps, are copied
+//      below);
 //   1  the library's f32 instance: the attention launch (A1 att2_f32, A2
 //      scores_f32 and, after a grid barrier, context_f32), then the step's
 //      launch (the 3xTF32 tiles' layers with their K split, the projection);
@@ -170,6 +172,31 @@ __device__ void attention_part(const Params& p, float* smem, cg::grid_group& gri
   st.mark(grid, false);
 }
 
+// Route 0's dense end, as the SIMT code stored it before the 3xTF32 tiles (the library keeps no SIMT dense end): lane
+// b stores row b's logit at logits[row, v], a warp's 8 stores strided by V.
+struct SimtDenseSink {
+  float* logits;  // [B, V]
+  int V;
+  __device__ __forceinline__ void start() {}
+  __device__ __forceinline__ void column(int row, int v, float logit) {
+    logits[static_cast<size_t>(row) * V + v] = logit;
+  }
+  __device__ __forceinline__ void finish(int, int, int, int, int) {}
+};
+
+// Route 0's projection: decode_common.cuh's SIMT project_items with the argmax or the dense end.
+template <int kMode>
+__device__ void simt_vocab_phase(const float* top, const float* wv, const float* bv, int B, int H, int V,
+                                 const VocabOut& o, float* xs, cg::grid_group& grid) {
+  if constexpr (kMode == kArgmax) {
+    project_argmax<float>(top, wv, bv, B, H, V, o.best, xs);
+    argmax_tokens(o, B, grid);
+  } else {
+    SimtDenseSink sink{o.logits, V};
+    project_items<float>(top, wv, bv, B, H, V, Tiling(B, V), xs, sink);
+  }
+}
+
 // The second launch's phases: the layers and the projection (kRoute 0: the SIMT code, else the 3xTF32 tiles).
 template <typename Cell, int kMode, int kRoute>
 __device__ void step_part(const Params& p, float* smem, cg::grid_group& grid, Stamps& st) {
@@ -184,8 +211,8 @@ __device__ void step_part(const Params& p, float* smem, cg::grid_group& grid, St
   }
   const float* top = static_cast<const float*>(s.new_hs) + static_cast<size_t>(s.L - 1) * s.B * s.H;
   if constexpr (kRoute == 0)
-    vocab_phase<kMode, float>(top, static_cast<const float*>(p.wv), static_cast<const float*>(p.bv), s.B, s.H, p.V,
-                              p.out, smem, grid);
+    simt_vocab_phase<kMode>(top, static_cast<const float*>(p.wv), static_cast<const float*>(p.bv), s.B, s.H, p.V,
+                            p.out, smem, grid);
   else
     mma_vocab_phase<kMode>(top, static_cast<const float*>(p.wv), static_cast<const float*>(p.bv), s.B, s.H, p.V,
                            p.out, smem, grid);

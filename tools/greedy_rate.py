@@ -1,7 +1,7 @@
-"""Greedy captions/s of the PyTorch port's flagship families on one NVIDIA GPU.
+"""Greedy (or beam-search) captions/s of the PyTorch port's flagship families on one NVIDIA GPU.
 
     python tools/greedy_rate.py [--root DIR] [--rounds N] [--variants gru,lstm,attn,attn_lstm]
-                                [--dtype bfloat16|float32] [--batch B]
+                                [--dtype bfloat16|float32] [--batch B] [--beam_size K]
 
 Imports show_tell_tpu_torch from DIR (default: this checkout), so that one
 script times two checkouts alike, each in its own process.  Each family's
@@ -12,8 +12,11 @@ it (ResNet-101, random weights from seed 0, a synthetic vocabulary of
 (64) random 224 x 224 images through
 chip_smoke.greedy_rates: one warm-up request, then N rounds of the three,
 the families in turns, each request timed alone on the host clock to ids
-on the host.  Prints the card's name and power limit, one line a family
-(median [min, max] captions/s) and a JSON line of every request's rate.
+on the host; --beam_size K serves them by beam search of width K instead
+(Captioner.caption_ids(images, K): the pooled families' route is
+ops.beam_step_default()'s fused step, 24 launches a request).  Prints the
+card's name and power limit, one line a family (median [min, max]
+captions/s) and a JSON line of every request's rate.
 """
 
 import argparse
@@ -34,6 +37,7 @@ def main():
     ap.add_argument("--variants", default="gru,lstm,attn,attn_lstm")
     ap.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"))
     ap.add_argument("--batch", type=int, default=64, help="images a request")
+    ap.add_argument("--beam_size", type=int, default=0, help="beam width (0: greedy)")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -66,14 +70,15 @@ def main():
         cap = Captioner(params, bn_state, cfg, vocab, args.dtype, device="gpu")
         served[variant] = (cap, [img_rng.randint(0, 256, (args.batch, cs.IMG, cs.IMG, 3), dtype=np.uint8)
                                  for _ in range(3)])
-    rates = cs.greedy_rates(served, args.rounds)
+    rates = cs.greedy_rates(served, args.rounds, args.beam_size)
     print(smi, flush=True)
+    mode = "beam K=%d" % args.beam_size if args.beam_size else "greedy"
     for variant, per_s in rates.items():
-        print("%s greedy %s B=%d from %s: %.1f captions/s, median [min, max] [%.1f, %.1f] of %d requests"
-              % (variant, args.dtype, args.batch, root, statistics.median(per_s), min(per_s), max(per_s), len(per_s)),
-              flush=True)
-    print(json.dumps({"root": root, "card": smi, "dtype": args.dtype, "batch": args.batch, "rates": rates}),
-          flush=True)
+        print("%s %s %s B=%d from %s: %.1f captions/s, median [min, max] [%.1f, %.1f] of %d requests"
+              % (variant, mode, args.dtype, args.batch, root, statistics.median(per_s), min(per_s), max(per_s),
+                 len(per_s)), flush=True)
+    print(json.dumps({"root": root, "card": smi, "dtype": args.dtype, "batch": args.batch,
+                      "beam_size": args.beam_size, "rates": rates}), flush=True)
 
 
 if __name__ == "__main__":

@@ -45,7 +45,7 @@ operations over the card's 67 TFLOP/s of f32, or, for the instances on
 the tensor cores, three TF32 products a multiply-add over its 495 TFLOP/s
 of TF32), its plain twin's time (at B=64, R=192) and its launches on the
 f32 eval path; then, where the checkout's f32 greedy steps take
-``splits``, their K split swept (S = 1 .. 8 at B = 1, 32, 64, 128, warm
+``splits``, their K split swept (S = 1 .. 8 at B = 1, 32, 64, 128, 192, warm
 and cold, beside the S that stack_tiles takes); then sha256 digests of
 every f32 instance's outputs, so that two checkouts that print the same
 digests gave bit-equal outputs.
@@ -358,7 +358,7 @@ def f32_instances(cs, root, smi, device, flush):
     sweep = "splits" in inspect.signature(fused_gru_decode_step_cuda).parameters  # a checkout that takes a forced S
     for cell, Ed, step in (("gru", cs.E, fused_gru_decode_step_cuda), ("lstm", cs.LE, fused_lstm_decode_step_cuda))[
             :2 if sweep else 0]:
-        for B in (1, 32, 64, 128):
+        for B in (1, 32, 64, 128, 192):  # 192: the beam steps' R at B = 64, K = 3 (the same layers)
             stacked, vocab, x, state = cs.step_inputs(rng, B, f32, device, Ed, cell)
             by_split = {S: (cs.event_median_ms(lambda: step(stacked, vocab, x, state, splits=S)),
                             cs.event_median_ms(lambda: step(stacked, vocab, x, state, splits=S), before=flush.zero_))
