@@ -281,7 +281,7 @@ TF32_OPS_PER_S = 495e12  # H100 SXM dense TF32 tensor-core peak
 TF32X3_KERNELS = ("fused_gru_decode_step", "fused_lstm_decode_step", "gru_whole_greedy_decode",
                   "fused_attn_decode_step", "fused_attn_lstm_decode_step", "fused_attn_dense_step",
                   "fused_attn_lstm_dense_step", "fused_gru_dense_step", "fused_lstm_dense_step",
-                  "fused_gru_topk_step", "fused_lstm_topk_step")
+                  "fused_gru_topk_step", "fused_lstm_topk_step", "project_argmax", "project_topk")
 SPIN_CYCLES = 2_000_000  # about 1 ms at the H100's 1.98 GHz boost clock: longer than a wrapper's enqueue
 # about 10 ms: longer than the host work of PyTorch's own RNN call, which issues several kernels a layer
 LIBRARY_SPIN_CYCLES = 10 * SPIN_CYCLES
@@ -1521,20 +1521,20 @@ def check_topk(what, logp, ids, top, vocab, k):
 
 def projection_tile_ties(rng, device):
     """Phase 3e.  Columns mv - 1 and mv, on either side of the first V-tile
-    boundary of the bf16 projection kernels at the flagship V (the tile
-    vocab_tiles picks on this card), equal and top in every row:
-    project_argmax gives mv - 1 and project_topk lists mv - 1 then mv, f32
-    and bf16, at B = 64 and R = 192 rows."""
+    boundary of the projection kernels at the flagship V (the tile
+    vocab_tiles picks on this card for each dtype), equal and top in every
+    row: project_argmax gives mv - 1 and project_topk lists mv - 1 then mv,
+    f32 and bf16, at B = 64 and R = 192 rows."""
     import torch
 
     from show_tell_tpu_torch.ops.vocab import project_argmax_cuda, project_topk_cuda, vocab_tiles
 
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    g = vocab_tiles(H, V, sms)
-    phase("kernel", "bf16 projection tiles at H=%d, V=%d on %d SMs: %d rows a V-tile, %d tiles, %d bytes of shared "
-          "memory a block" % (H, V, sms, g.mv, g.tiles, g.smem))
-    pair = torch.tensor([g.mv - 1, g.mv], device=device)
     for dtype in (torch.float32, torch.bfloat16):
+        g = vocab_tiles(H, V, sms, dtype)
+        phase("kernel", "%s projection tiles at H=%d, V=%d on %d SMs: %d rows a V-tile, %d tiles, %d bytes of shared "
+              "memory a block" % (dname(dtype), H, V, sms, g.mv, g.tiles, g.smem))
+        pair = torch.tensor([g.mv - 1, g.mv], device=device)
         for rows in (64, 192):
             vocab = vocab_inputs(rng, H, dtype, device)
             vocab["w"][g.mv] = vocab["w"][g.mv - 1]
@@ -1551,8 +1551,15 @@ def projection_tile_ties(rng, device):
                   % (dname(dtype), rows, g.mv - 1, g.mv, g.mv - 1, g.mv - 1, g.mv))
 
 
-# the bf16 projection kernels (vocab_mma.cuh) and the bf16 stem (stem.cu)
-TILE_KERNELS = ("project_argmax_tiles_kernel", "project_topk_tiles_kernel", "stem_mma_kernel")
+# the projection kernels' V-tile instances (vocab_mma.cuh: bf16, and f32 in split-precision TF32) and the bf16 stem
+# (stem.cu): label -> (kernel, its element type; None where the kernel is no template)
+TILE_KERNELS = {
+    "project_argmax_tiles_kernel": ("project_argmax_tiles_kernel", "bf16"),
+    "project_topk_tiles_kernel": ("project_topk_tiles_kernel", "bf16"),
+    "project_argmax_tiles_kernel f32": ("project_argmax_tiles_kernel", "f32"),
+    "project_topk_tiles_kernel f32": ("project_topk_tiles_kernel", "f32"),
+    "stem_mma_kernel": ("stem_mma_kernel", None),
+}
 # the instances on the tensor cores (csrc/dense_mma.cuh: every bf16 instance of mma_step(), the attention context's
 # att2 phase, and the f32 instances of tf32x3_step() in split-precision TF32, the pooled greedy, dense and top-k
 # steps, the whole decode and the four attention steps): label -> (kernel template, cell, vocab
@@ -1585,7 +1592,18 @@ MMA_STEPS = {
     "st_fused_gru_topk_step f32": ("fused_step_kernel", "GruCell", 2, "f32"),
     "st_fused_lstm_topk_step f32": ("fused_step_kernel", "LstmCell", 2, "f32"),
 }
-NO_SPILL = set(MMA_STEPS) | {"stem_mma_kernel"}  # instances that fail the build phase with a stack frame or spills
+# instances that fail the build phase with a stack frame or spills
+NO_SPILL = set(MMA_STEPS) | {"stem_mma_kernel", "project_argmax_tiles_kernel f32", "project_topk_tiles_kernel f32"}
+
+
+def typed_instance(name, base, elem):
+    """Whether kernel name ``name`` (mangled or demangled) is template ``base``'s instance for element type ``elem``:
+    bf16, __nv_bfloat16 in either form; f32, float, demangled (<float, or <float>) or mangled (I f after the name)."""
+    import re
+
+    if elem == "bf16":
+        return "__nv_bfloat16" in name
+    return re.search(r"%s(<float[,>]|If)" % base, name) is not None
 
 
 def tensor_core_kernel(name):
@@ -1593,14 +1611,12 @@ def tensor_core_kernel(name):
     demangled, as ptxas_report does) among the tensor-core instances, or None."""
     import re
 
-    tile = next((k for k in TILE_KERNELS if k in name), None)
-    if tile:
-        return tile
+    for label, (base, elem) in TILE_KERNELS.items():
+        if base in name and (elem is None or typed_instance(name, base, elem)):
+            return label
     for label, (base, cell, mode, elem) in MMA_STEPS.items():
-        # bf16: __nv_bfloat16 in either form; f32: float, demangled (<float, or <float>) or mangled (I f after the name)
-        typed = ("__nv_bfloat16" in name if elem == "bf16"
-                 else re.search(r"%s(<float[,>]|If)" % base, name) is not None)
-        if ((base + "<" in name or base + "I" in name) and typed and (cell is None or cell in name)
+        if ((base + "<" in name or base + "I" in name) and typed_instance(name, base, elem)
+                and (cell is None or cell in name)
                 and (mode is None or re.search(r"(, (\(int\))?%d>|ELi%dE)" % (mode, mode), name))):
             return label
     return None
@@ -1612,16 +1628,16 @@ PTXAS_SOURCES = ["project_argmax.cu", "project_topk.cu", "fused_step.cu", "fused
 
 def tile_kernel_report(build, ptxas_lines):
     """ptxas's registers, stack frame and spills of the tensor-core kernel
-    instances (the two bf16 projection kernels, the bf16 stem, the fourteen
-    bf16 instances of MMA_STEPS and its eleven f32 instances in
-    split-precision TF32), from ``ptxas_lines``
+    instances (the two projection kernels in bf16 and in f32, split-precision
+    TF32, the bf16 stem, the fourteen bf16 instances of MMA_STEPS and its
+    eleven f32 instances in split-precision TF32), from ``ptxas_lines``
     (build.ptxas_report of PTXAS_SOURCES), and, where the toolkit has
     cuobjdump, the tensor-core (HMMA) instructions in their SASS in the
     library; fails if one has none, if ptxas names none of them, or if one
     of NO_SPILL has a stack frame or spills."""
     import re
 
-    labels = TILE_KERNELS + tuple(MMA_STEPS)
+    labels = tuple(TILE_KERNELS) + tuple(MMA_STEPS)
     reported = set()
     for line in ptxas_lines:
         label = tensor_core_kernel(line.rsplit(": ", 1)[0])

@@ -1,9 +1,10 @@
 // Device code shared by the decode kernels (fused_step.cu,
 // fused_attn_step.cu, attention_context.cu, project_argmax.cu,
 // project_topk.cu, whole_decode.cu): 16-byte vector loads, warp
-// reductions, the first-max argmax key, the GRU and LSTM stack layers, the
-// vocab projection with its ends (first-max argmax, dense f32 logits,
-// top-K with logsumexp, or none), and the cooperative launch.
+// reductions, the first-max argmax key, the GRU and LSTM stack layers (the
+// SIMT layers of the f32 stack steps), what the vocabulary ends share
+// (VocabMode, the top-K parts and their merge, the argmax tokens), and the
+// cooperative launch.
 //
 // Every kernel here runs kThreads threads a block.  Weights are in the torch
 // layout [out, in], so one output column is one contiguous row: a warp owns
@@ -112,14 +113,12 @@ __device__ void load_rows(float* smem, const T* src, int b0, int nb, int width) 
 
 // Splits the work of one phase into (batch tile, column range) items:
 // every block gets at least one item while there are columns to go round.
-// max_splits caps the column ranges (the top-k phase's scratch holds that
-// many per row).
 struct Tiling {
   int row_tiles, splits, per_split;
-  __device__ Tiling(int B, int cols, int max_splits = 0x7fffffff) {
+  __device__ Tiling(int B, int cols) {
     row_tiles = (B + kBM - 1) / kBM;
     splits = max(1, static_cast<int>(gridDim.x) / row_tiles);
-    splits = min(min(splits, cols), max_splits);
+    splits = min(splits, cols);
     per_split = (cols + splits - 1) / splits;
   }
   __device__ int items() const { return row_tiles * splits; }
@@ -311,84 +310,11 @@ __device__ void stack_layer(const StackArgs& s, int l, float* smem) {
   rnn_layer<T, Cell>(stack_layer_args<T, Cell>(s, l), xs, hsm);
 }
 
-// The vocab projection  logit = top[b] . wv[v] + bv[v]  (f32) for all B
-// rows, split into (batch tile, column range) items; top [B, H], wv [V, H].
-// A warp takes one column at a time and lane b ends with row b0 + b's
-// logit.  Per item, each warp calls sink.start(), then sink.column(row, v,
-// logit) on its lanes b < nb for its columns in increasing v, then
-// sink.finish(b0, nb, split, warp, lane).
-template <typename T, typename Sink>
-__device__ __forceinline__ void project_items(const T* top, const T* wv, const T* bv, int B, int H, int V,
-                                              const Tiling& t, float* xs, Sink& sink) {
-  constexpr int N = Vec<T>::N;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int item = blockIdx.x; item < t.items(); item += gridDim.x) {
-    const int split = item % t.splits;
-    const int b0 = (item / t.splits) * kBM;
-    const int nb = min(kBM, B - b0);
-    const int v0 = split * t.per_split;
-    const int v1 = min(V, v0 + t.per_split);
-    __syncthreads();
-    load_rows<T>(xs, top, b0, nb, H);
-    __syncthreads();
-    sink.start();
-    for (int v = v0 + warp; v < v1; v += kWarps) {
-      float acc[kBM];
-#pragma unroll
-      for (int b = 0; b < kBM; ++b) acc[b] = 0.0f;
-      for (int k = lane * N; k < H; k += 32 * N) {
-        float w[N];
-        Vec<T>::ldg(wv + static_cast<size_t>(v) * H + k, w);
-#pragma unroll
-        for (int b = 0; b < kBM; ++b) {
-          if (b < nb) {
-            const float* xr = xs + b * H + k;
-#pragma unroll
-            for (int i = 0; i < N; ++i) acc[b] += w[i] * xr[i];
-          }
-        }
-      }
-      float mine = 0.0f;
-#pragma unroll
-      for (int b = 0; b < kBM; ++b) {
-        if (b < nb) {
-          const float s = warp_sum(acc[b]);
-          if (lane == b) mine = s;
-        }
-      }
-      if (lane < nb) sink.column(b0 + lane, v, mine + Vec<T>::to_f32(bv[v]));
-    }
-    sink.finish(b0, nb, split, warp, lane);
-  }
-}
-
-// Greedy end: lane b keeps the running first max of its row over the
-// warp's columns (visited in increasing order), then merges it into
-// best[row] by atomicMax over packed (logit, index) keys.  best must start
-// below every key (0).
-struct ArgmaxSink {
-  unsigned long long* best;  // [B]
-  float val;
-  int idx;
-  __device__ __forceinline__ void start() {
-    val = -INFINITY;
-    idx = -1;
-  }
-  __device__ __forceinline__ void column(int, int v, float logit) {
-    if (idx < 0 || logit > val) {
-      val = logit;
-      idx = v;
-    }
-  }
-  __device__ __forceinline__ void finish(int b0, int nb, int, int, int lane) {
-    if (lane < nb && idx >= 0) atomicMax(best + b0 + lane, pack_key(val, idx));
-  }
-};
-
 // Beam's sparse end: each row's K best (log-probability, index) pairs.
-// Part p = split * kWarps + warp of a row is what one warp saw of it in
-// one column range; the phase writes every part's top-K keys and its
-// online logsumexp (m, s) to scratch, and merge_topk reduces the parts.
+// A part of a row is what one block saw of it in one range of the
+// vocabulary (a V-tile of the projection kernels, a 64-row vocabulary item
+// of the fused top-k steps); the phase writes every part's top-K keys and
+// its online logsumexp (m, s) to scratch, and merge_topk reduces the parts.
 constexpr int kMaxK = 8;
 
 struct TopkArgs {
@@ -396,7 +322,7 @@ struct TopkArgs {
   float2* part_ms;                // [n_parts, B] scratch: (max, sum of exp(logit - max))
   float* logp;                    // [B, K] out: logit - logsumexp, best first
   int32_t* ids;                   // [B, K] out
-  int K, max_splits;              // K <= kMaxK; n_parts <= max_splits * kWarps
+  int K, max_splits;              // K <= kMaxK; n_parts <= max_splits
 };
 
 // A sorted (descending) list of the kMaxK greatest keys seen, in registers:
@@ -436,30 +362,6 @@ __device__ __forceinline__ void lse_merge(float& m, float& s, float m2, float s2
   }
 }
 
-struct TopkSink {
-  TopkArgs a;
-  int B;
-  TopkList list;
-  float m, s;
-  __device__ __forceinline__ void start() {
-    list.clear();
-    m = -INFINITY;
-    s = 0.0f;
-  }
-  __device__ __forceinline__ void column(int, int v, float logit) {
-    lse_merge(m, s, logit, 1.0f);
-    list.insert(pack_key(logit, v));
-  }
-  __device__ __forceinline__ void finish(int b0, int nb, int split, int warp, int lane) {
-    if (lane >= nb) return;
-    const size_t at = static_cast<size_t>(split * kWarps + warp) * B + b0 + lane;
-#pragma unroll
-    for (int j = 0; j < kMaxK; ++j)
-      if (j < a.K) a.part_keys[at * a.K + j] = list.keys[j];
-    a.part_ms[at] = make_float2(m, s);
-  }
-};
-
 // After a grid barrier: one warp per row merges the row's parts.  Each lane
 // folds every 32nd part into its own top-K and (m, s); the warp then takes
 // the K greatest heads in turn (a greater value first, of equal values the
@@ -498,15 +400,6 @@ __device__ __forceinline__ void merge_topk(const TopkArgs& a, int B, int n_parts
   }
 }
 
-// best[b] = atomicMax over packed (logit, index) keys of top[b] . wv[v] + bv[v]
-// for v in [0, V).  top [B, H], wv [V, H]; best must start below every key (0).
-template <typename T>
-__device__ void project_argmax(const T* top, const T* wv, const T* bv, int B, int H, int V,
-                               unsigned long long* best, float* xs) {
-  ArgmaxSink sink{best};
-  project_items<T>(top, wv, bv, B, H, V, Tiling(B, V), xs, sink);
-}
-
 __device__ __forceinline__ int grid_thread() { return blockIdx.x * kThreads + threadIdx.x; }
 __device__ __forceinline__ int grid_threads() { return gridDim.x * kThreads; }
 
@@ -526,20 +419,6 @@ struct VocabOut {
 __device__ __forceinline__ void argmax_tokens(const VocabOut& o, int B, cg::grid_group& grid) {
   grid.sync();
   for (int b = grid_thread(); b < B; b += grid_threads()) o.tok[b] = key_index(o.best[b]);
-}
-
-// The f32 projection + top-K of project_topk.cu, by SIMT warps: each
-// (batch tile, column range) item's warps write their parts, and after a
-// grid barrier merge_topk reduces each row's max_splits x kWarps parts.
-// (Every fused step's vocabulary end runs dense_mma.cuh's mma_vocab_phase.)
-template <typename T>
-__device__ __forceinline__ void topk_phase(const T* top, const T* wv, const T* bv, int B, int H, int V,
-                                           const TopkArgs& a, float* xs, cg::grid_group& grid) {
-  const Tiling t(B, V, a.max_splits);
-  TopkSink sink{a, B};
-  project_items<T>(top, wv, bv, B, H, V, t, xs, sink);
-  grid.sync();  // every part is in scratch
-  merge_topk(a, B, t.splits * kWarps);
 }
 
 // Launch ``kernel`` cooperatively with kThreads threads a block and as many

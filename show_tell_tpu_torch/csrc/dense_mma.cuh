@@ -77,8 +77,8 @@
 //   lower index) and merges the item into best[row] with one atomicMax,
 //   the first-max rule of vocab_pallas.merge_block_argmax, whatever the
 //   grid or the order of the atomics (mma_argmax_keys).  The per-step
-//   kernels read the tokens from best after a grid barrier (argmax_tokens,
-//   as the SIMT end); the whole decode reads them in its own token phase.
+//   kernels read the tokens from best after a grid barrier (argmax_tokens);
+//   the whole decode reads them in its own token phase.
 //   The top-k end scans the same runs into each thread's K greatest keys
 //   and its (max, sum of exp), combines a row's four threads into one part
 //   per vocabulary item (mma_topk_parts) and, after a grid barrier,
@@ -279,13 +279,7 @@ __device__ __forceinline__ void tf32_split(float v, uint32_t& big, uint32_t& sma
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(small) : "f"(v - __uint_as_float(big)));
 }
 
-__device__ __forceinline__ void mma_tf32_1688(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// mma_tf32_1688 is vocab_mma.cuh's, which the f32 projection kernels share.
 
 // Float e (0..3, static once unrolled) of a lane's 16-byte load.
 __device__ __forceinline__ float lane_float(const uint4& u, int e) {

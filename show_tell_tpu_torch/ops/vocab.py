@@ -6,9 +6,11 @@ argmax and the stable top-k, the projection + argmax kernel
 
 The CUDA kernels read the projection in the torch layout [V, H], one
 contiguous row per vocabulary entry, and mask the ragged end of V
-themselves, so nothing is padded here.  In bf16 both kernels run on the
-tensor cores in V-tiles whose geometry ``vocab_tiles`` computes here and
-passes to the launch; f32 runs SIMT projections (csrc/decode_common.cuh).
+themselves, so nothing is padded here.  Both kernels run on the tensor
+cores (csrc/vocab_mma.cuh) in V-tiles whose geometry ``vocab_tiles``
+computes here for each dtype and passes to the launch: bf16 by mma.sync
+m16n8k16, f32 in split-precision TF32 (3xTF32) with a ring and pitches of
+its own.
 """
 
 from __future__ import annotations
@@ -48,12 +50,27 @@ def project_argmax_plain(vocab: Dict[str, torch.Tensor], top: torch.Tensor) -> t
     return first_max_argmax(project_logits(vocab, top))
 
 
-# The bf16 kernels' V-tiles (csrc/vocab_mma.cuh; the constants must agree with it)
+# The projection kernels' V-tiles (csrc/vocab_mma.cuh; the constants must agree with it)
 TILE_ROWS_MAX = 128  # mv <= this: 4 m16 tiles of f32 accumulators a warp
 BATCH_GROUP = 64  # batch rows a pass: 4 slabs of 16
-K_CHUNK = 64  # K elements a stage of the cp.async ring
-RING_STAGES = 6
 SMEM_LIMIT = 232448  # the 227 KB of shared memory a block may opt into on Hopper
+
+
+class TileShape(NamedTuple):
+    """The K geometry of one element type (TileShape<T> in csrc/vocab_mma.cuh)."""
+
+    size: int  # bytes an element
+    align: int  # K rounded up to this: the mma's k
+    pad: int  # elements past the rounded K in a weight row: an odd number of 16-byte units in all
+    chunk: int  # K elements a stage of the cp.async ring
+    stages: int  # ring stages
+    ring_pitch: int  # elements a ring row: 144 bytes, nine 16-byte units
+
+
+TILE_SHAPES = {
+    torch.bfloat16: TileShape(2, 16, 8, 64, 6, 72),  # mma.sync m16n8k16
+    torch.float32: TileShape(4, 8, 4, 32, 4, 36),  # m16n8k8 in 3xTF32: the weights take twice bf16's bytes
+}
 
 
 class VocabTiles(NamedTuple):
@@ -62,37 +79,38 @@ class VocabTiles(NamedTuple):
     smem: int  # dynamic shared memory of a block, bytes
 
 
-def tile_smem(mv: int, H: int) -> int:
+def tile_smem(mv: int, H: int, dtype: torch.dtype) -> int:
     """A block's shared memory (vocab_tile_smem in csrc/vocab_mma.cuh): the
-    V-tile's weights at a row pitch of H rounded up to 16, plus 8; the ring
-    of batch chunks; the staged f32 logits of one batch group."""
-    kp = -(-H // 16) * 16
-    return 2 * (mv * (kp + 8) + RING_STAGES * BATCH_GROUP * (K_CHUNK + 8)) + 4 * BATCH_GROUP * (mv + 4)
+    V-tile's weights at a row pitch of H rounded up to the mma's k, plus
+    the shape's pad; the ring of batch chunks; the staged f32 logits of one
+    batch group at a pitch of mv + 4.  In f32: 4 (mv (H + 4) + 4 x 64 x 36)
+    + 4 x 64 (mv + 4) bytes for H a multiple of 8."""
+    s = TILE_SHAPES[dtype]
+    kp = -(-H // s.align) * s.align
+    return s.size * (mv * (kp + s.pad) + s.stages * BATCH_GROUP * s.ring_pitch) + 4 * BATCH_GROUP * (mv + 4)
 
 
-def vocab_tiles(H: int, V: int, sms: int) -> VocabTiles:
-    """The bf16 kernels' launch geometry: V-tiles of mv rows, mv the least
-    multiple of 16 that covers V in at most ``sms`` tiles (about one wave
-    of one block an SM), capped at TILE_ROWS_MAX and at what fits in
+def vocab_tiles(H: int, V: int, sms: int, dtype: torch.dtype) -> VocabTiles:
+    """The kernels' launch geometry in ``dtype``: V-tiles of mv rows, mv the
+    least multiple of 16 that covers V in at most ``sms`` tiles (about one
+    wave of one block an SM), capped at TILE_ROWS_MAX and at what fits in
     shared memory.  Raises for an H whose 16-row tile does not fit."""
     if H < 8 or H % 8:
         raise ValueError("the vocab projection needs H a multiple of 8 (got H=%d)" % H)
     fit = TILE_ROWS_MAX
-    while fit >= 16 and tile_smem(fit, H) > SMEM_LIMIT:
+    while fit >= 16 and tile_smem(fit, H, dtype) > SMEM_LIMIT:
         fit -= 16
     if fit < 16:
-        raise ValueError("H=%d is too wide for the bf16 vocab projection: a 16-row V-tile needs %d bytes of shared "
-                         "memory, over the %d a block may use" % (H, tile_smem(16, H), SMEM_LIMIT))
+        raise ValueError("H=%d is too wide for the %s vocab projection: a 16-row V-tile needs %d bytes of shared "
+                         "memory, over the %d a block may use" % (H, dtype, tile_smem(16, H, dtype), SMEM_LIMIT))
     units = -(-V // 16)  # 16-row units of V
     mv = min(16 * -(-units // sms), TILE_ROWS_MAX, fit)
-    return VocabTiles(mv, -(-V // mv), tile_smem(mv, H))
+    return VocabTiles(mv, -(-V // mv), tile_smem(mv, H, dtype))
 
 
 def tile_rows(H: int, V: int, device: torch.device, dtype: torch.dtype) -> int:
-    """The mv argument of a projection kernel: the V-tile rows in bf16, 0 in f32 (the SIMT path)."""
-    if dtype != torch.bfloat16:
-        return 0
-    return vocab_tiles(H, V, torch.cuda.get_device_properties(device).multi_processor_count).mv
+    """The mv argument of a projection kernel: the V-tile rows on this device in this dtype."""
+    return vocab_tiles(H, V, torch.cuda.get_device_properties(device).multi_processor_count, dtype).mv
 
 
 def project_argmax_cuda(vocab: Dict[str, torch.Tensor], top: torch.Tensor) -> torch.Tensor:
@@ -137,8 +155,6 @@ project_argmax.launches = 0
 
 
 MAX_K = 8  # the top-k kernels keep each row's K best in registers: K <= 8
-RESIDENT_BLOCKS_PER_SM = 2048 // 128  # an SM holds 2,048 threads: 16 of the kernels' 128-thread blocks
-KERNEL_WARPS = 4  # warps a block: each writes one top-k part per column range
 
 
 def stable_topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -157,30 +173,18 @@ def project_topk_plain(vocab: Dict[str, torch.Tensor], top: torch.Tensor, k: int
     return stable_topk(torch.log_softmax(project_logits(vocab, top), dim=-1), k)
 
 
-def topk_launch_args(kernel: str, B: int, V: int, k: int, device: torch.device, tiles: Optional[int] = None):
+def topk_launch_args(kernel: str, B: int, V: int, k: int, device: torch.device, tiles: int):
     """Check k and allocate what a top-k vocab phase writes: logp and ids
-    [B, k], and its per-part scratch.  The bf16 projection kernel writes
-    one part per V-tile, the fused top-k step (bf16 and f32) one per 64-row
-    vocabulary item: pass that count as ``tiles``, and max_splits = n =
-    tiles.  Otherwise (the f32 projection kernel's SIMT phase) the grid is
-    sized inside the launch from the kernel's occupancy, so the scratch is
-    sized from a bound on it: at most RESIDENT_BLOCKS_PER_SM blocks on each
-    SM, hence at most
-    max_splits = min(V, that grid // ceil(B / 8)) column ranges a row, each
-    worked by KERNEL_WARPS warps, n = max_splits x KERNEL_WARPS.  Returns
-    (max_splits, part_keys [n, B, k] int64, part_ms [n, B, 2] f32, logp, ids)."""
+    [B, k], and its scratch of ``tiles`` parts a row: the projection kernel
+    writes one part per V-tile (vocab_tiles), the fused top-k step one per
+    64-row vocabulary item; max_splits = n = tiles.  Returns (max_splits,
+    part_keys [n, B, k] int64, part_ms [n, B, 2] f32, logp, ids)."""
     if not 1 <= k <= min(MAX_K, V):
         raise ValueError("%s takes 1 <= k <= min(%d, V) (got k=%d, V=%d)" % (kernel, MAX_K, k, V))
-    if tiles is not None:
-        max_splits = n = tiles
-    else:
-        sms = torch.cuda.get_device_properties(device).multi_processor_count
-        max_splits = max(1, min(V, sms * RESIDENT_BLOCKS_PER_SM // -(-B // 8)))
-        n = max_splits * KERNEL_WARPS
     return (
-        max_splits,
-        torch.empty(n, B, k, dtype=torch.int64, device=device),
-        torch.empty(n, B, 2, dtype=torch.float32, device=device),
+        tiles,
+        torch.empty(tiles, B, k, dtype=torch.int64, device=device),
+        torch.empty(tiles, B, 2, dtype=torch.float32, device=device),
         torch.empty(B, k, dtype=torch.float32, device=device),
         torch.empty(B, k, dtype=torch.int32, device=device),
     )
@@ -204,8 +208,7 @@ def project_topk_cuda(vocab: Dict[str, torch.Tensor], top: torch.Tensor, k: int)
     check_tensor("vocab w", vocab["w"], (V, H), dtype, device)
     check_tensor("vocab b", vocab["b"], (V,), dtype, device)
     mv = tile_rows(H, V, device, dtype)
-    max_splits, part_keys, part_ms, logp, ids = topk_launch_args("project_topk", B, V, k, device,
-                                                                 -(-V // mv) if mv else None)
+    max_splits, part_keys, part_ms, logp, ids = topk_launch_args("project_topk", B, V, k, device, -(-V // mv))
     lib = load_library()
     with torch.cuda.device(device):
         err = lib.st_project_topk(code, top.data_ptr(), vocab["w"].data_ptr(), vocab["b"].data_ptr(),

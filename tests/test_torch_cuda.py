@@ -387,9 +387,9 @@ def test_project_topk_kernel_matches_plain(cuda, dtype, R, H, V, k):
 @pytest.mark.parametrize("B,H,V", [(19, 512, 9956), (19, 24, 1001), (64, 512, 1001)])
 def test_projection_kernels_tie_across_a_tile_boundary(cuda, dtype, B, H, V):
     """Columns mv - 1 and mv, on either side of the first V-tile boundary at
-    the tile the bf16 kernels pick for this V, equal and top in every row:
+    the tile the kernels pick for this V and dtype, equal and top in every row:
     argmax gives mv - 1, top-k lists mv - 1 then mv."""
-    mv = vocab_tiles(H, V, torch.cuda.get_device_properties(cuda).multi_processor_count).mv
+    mv = vocab_tiles(H, V, torch.cuda.get_device_properties(cuda).multi_processor_count, dtype).mv
     prep, _, hs = _attn_prep(B, 8, H, 8, 1, V, 1, dtype, cuda, seed=14)
     vocab = prep["vocab"]
     vocab["w"][mv] = vocab["w"][mv - 1]

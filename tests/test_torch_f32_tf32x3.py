@@ -386,8 +386,10 @@ def test_the_kernel_sources_gate_the_f32_instances_narrowly():
     assert "template <typename T, int kMode, bool kAttention = false>" in src
     assert "return mma_step<T, kMode>() || tf32x3_step<T, kMode>();" in src
     assert "static constexpr int kChunk = kTf32Chunk, kLane = 4, kDepth = kTf32Depth;" in src
-    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in src and "cvt.rna.tf32.f32" in src
     read = lambda name: open(os.path.join(CSRC, name)).read()
+    shared = read("vocab_mma.cuh")  # mma_tf32_1688, shared with the f32 projection kernels
+    assert '#include "vocab_mma.cuh"' in src
+    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in shared and "cvt.rna.tf32.f32" in src
     step, whole, attn = read("fused_step.cu"), read("whole_decode.cu"), read("fused_attn_step.cu")
     assert "constexpr bool kMma = pooled_mma_step<T, kMode>();" in step
     assert ('static_assert(kMma || kMode == kNone, "every instance with a vocabulary end runs the tensor cores");'

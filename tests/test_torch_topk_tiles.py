@@ -39,11 +39,11 @@ from show_tell_tpu_torch.ops.fused_beam import fused_topk_step, fused_topk_step_
 from show_tell_tpu_torch.ops.fused_step import MMA_VOCAB_ROWS
 from show_tell_tpu_torch.ops.vocab import (
     MAX_K,
-    RESIDENT_BLOCKS_PER_SM,
     project_logits,
     project_topk_plain,
     stable_topk,
     topk_launch_args,
+    vocab_tiles,
 )
 from test_torch_argmax_tiles import RUN, THREADS, ROW_THREADS, _Launched, _small, no_library, pack_key  # noqa: F401
 from test_torch_gate_tiles import (
@@ -308,9 +308,9 @@ def test_topk_launch_checks_geometry_and_sizes_scratch(no_library, monkeypatch):
     """Top-k steps (both cells, bf16 and f32) check the tensor-core
     geometry and size their scratch at one part per 64-row item before the
     library is asked for; f32 also takes its layers' K split (stack_tiles
-    in f32).  The f32 projection kernel (SIMT) sizes its scratch from the
-    bound on the grid (16 resident blocks on each SM, kBM = 8 rows a
-    tile)."""
+    in f32).  Every top-k phase sizes its scratch by the parts it writes:
+    the f32 projection kernel, on V-tiles as bf16's, one part a tile
+    (vocab_tiles in f32), not a bound on a SIMT grid."""
     sized = []
 
     def spy(*args):
@@ -333,4 +333,6 @@ def test_topk_launch_checks_geometry_and_sizes_scratch(no_library, monkeypatch):
             assert sized == [2]
         with pytest.raises(ValueError, match="k=%d" % (MAX_K + 1)):
             fused_topk_step_cuda(*_small(dtype, False, V=V)[0], MAX_K + 1)
-    assert topk_launch_args("fused_topk_step", 3, V, 3, torch.device("cpu"))[0] == min(V, 132 * RESIDENT_BLOCKS_PER_SM)
+    f32_tiles = vocab_tiles(H, V, 132, torch.float32).tiles
+    max_splits, part_keys, part_ms = topk_launch_args("project_topk", 3, V, 3, torch.device("cpu"), f32_tiles)[:3]
+    assert max_splits == f32_tiles == -(-V // 16) and part_keys.shape[0] == part_ms.shape[0] == f32_tiles

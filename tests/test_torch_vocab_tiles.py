@@ -1,8 +1,8 @@
-"""The bf16 projection kernels' V-tiles (csrc/vocab_mma.cuh), on the CPU.
+"""The projection kernels' V-tiles (csrc/vocab_mma.cuh), on the CPU.
 
 The kernels run only on the card; what surrounds them is Python that runs
-here: the launch geometry (``vocab_tiles``: tile rows, tile count, shared
-memory) and the top-k scratch it sizes.  Their arithmetic is re-enacted in
+here: the launch geometry of each dtype (``vocab_tiles``: tile rows, tile
+count, shared memory) and the top-k scratch it sizes.  Their arithmetic is re-enacted in
 torch and numpy: each V-tile's top-K (value, index) keys, packed as the
 kernels pack them, and its online logsumexp (m, s); then the merge of one
 part per tile.  The re-enactment is held to the plain twins and to the JAX
@@ -19,11 +19,10 @@ from show_tell_tpu.ops.vocab_pallas import prepare_vocab as jax_prepare_vocab
 from show_tell_tpu.ops.vocab_pallas import project_argmax_pallas, project_topk_pallas
 from show_tell_tpu_torch.ops.vocab import (
     BATCH_GROUP,
-    K_CHUNK,
     MAX_K,
-    RING_STAGES,
     SMEM_LIMIT,
     TILE_ROWS_MAX,
+    TILE_SHAPES,
     prepare_vocab,
     project_argmax,
     project_argmax_plain,
@@ -39,16 +38,20 @@ H = 24
 BLOCK_V = 16  # the JAX kernels' vocab block here
 
 
-# (H, V, SMs): the flagship on an H100 SXM (132 SMs) and PCIe (114); the card tests' shapes; widths up to the largest
-# that fits; a vocabulary too large for one wave of 128-row tiles.
-GEOMETRIES = [(512, 9956, 132), (512, 9956, 114), (24, 40, 132), (24, 1001, 132), (128, 1001, 132),
-              (512, 1001, 132), (1024, 9956, 132), (2048, 9956, 132), (5360, 9956, 132), (512, 30000, 132),
-              (8, 1, 132), (16, 17, 1)]
+# (H, V, SMs, dtype): the flagship on an H100 SXM (132 SMs) and PCIe (114); the card tests' shapes; widths up to the
+# largest that fits in each dtype (bf16 5,360, f32 2,968); a vocabulary too large for one wave of 128-row tiles.
+BF16, F32 = torch.bfloat16, torch.float32
+GEOMETRIES = [(512, 9956, 132, BF16), (512, 9956, 114, BF16), (24, 40, 132, BF16), (24, 1001, 132, BF16),
+              (128, 1001, 132, BF16), (512, 1001, 132, BF16), (1024, 9956, 132, BF16), (2048, 9956, 132, BF16),
+              (5360, 9956, 132, BF16), (512, 30000, 132, BF16), (8, 1, 132, BF16), (16, 17, 1, BF16),
+              (512, 9956, 132, F32), (512, 9956, 114, F32), (24, 40, 132, F32), (24, 1001, 132, F32),
+              (512, 1001, 132, F32), (1024, 9956, 132, F32), (2968, 9956, 132, F32), (512, 30000, 132, F32),
+              (8, 1, 132, F32), (16, 17, 1, F32)]
 
 
-@pytest.mark.parametrize("H_,V,sms", GEOMETRIES)
-def test_tiles_cover_the_vocabulary_exactly(H_, V, sms):
-    g = vocab_tiles(H_, V, sms)
+@pytest.mark.parametrize("H_,V,sms,dtype", GEOMETRIES)
+def test_tiles_cover_the_vocabulary_exactly(H_, V, sms, dtype):
+    g = vocab_tiles(H_, V, sms, dtype)
     assert g.mv % 16 == 0 and 16 <= g.mv <= TILE_ROWS_MAX
     assert g.tiles == -(-V // g.mv)
     covered = np.zeros(V, np.int64)
@@ -57,42 +60,48 @@ def test_tiles_cover_the_vocabulary_exactly(H_, V, sms):
         assert lo < hi  # no empty tile
         covered[lo:hi] += 1
     assert (covered == 1).all()
-    assert g.smem == tile_smem(g.mv, H_) <= SMEM_LIMIT
-    if g.mv < TILE_ROWS_MAX and tile_smem(g.mv + 16, H_) <= SMEM_LIMIT:
+    assert g.smem == tile_smem(g.mv, H_, dtype) <= SMEM_LIMIT
+    if g.mv < TILE_ROWS_MAX and tile_smem(g.mv + 16, H_, dtype) <= SMEM_LIMIT:
         assert g.tiles <= sms  # not capped: about one wave of one block an SM
         if g.mv > 16:
             assert -(-V // (g.mv - 16)) > sms  # and mv is the least that does it
 
 
 def test_flagship_geometry():
-    """V=9,956 at H=512 on 132 SMs: 80-row tiles, 125 of them, 156 KB a block."""
-    assert vocab_tiles(512, 9956, 132) == (80, 125, 160000)
+    """V=9,956 at H=512 on 132 SMs: 80-row tiles, 125 of them, 156 KB a block in bf16 and 218 KB in f32."""
+    assert vocab_tiles(512, 9956, 132, BF16) == (80, 125, 160000)
+    assert vocab_tiles(512, 9956, 132, F32) == (80, 125, 223488)
 
 
 def test_shared_memory_layout_matches_the_kernel_formula():
-    """Weights at a pitch of K rounded to 16, plus 8 bf16 (an odd number of
-    16-byte units); the ring; the staged f32 logits at a pitch of mv + 4."""
+    """bf16: weights at a pitch of K rounded to 16, plus 8 bf16 (an odd
+    number of 16-byte units); the ring of 6 stages of 64 at a pitch of 72;
+    the staged f32 logits at a pitch of mv + 4."""
+    s = TILE_SHAPES[BF16]
+    assert (s.size, s.align, s.pad, s.chunk, s.stages, s.ring_pitch) == (2, 16, 8, 64, 6, 72)
     for mv, H_ in [(16, 8), (80, 512), (128, 24), (32, 2048)]:
         kp = -(-H_ // 16) * 16
         assert (kp + 8) * 2 // 16 % 2 == 1
-        ring = RING_STAGES * BATCH_GROUP * (K_CHUNK + 8) * 2
-        assert tile_smem(mv, H_) == mv * (kp + 8) * 2 + ring + BATCH_GROUP * (mv + 4) * 4
+        ring = 6 * BATCH_GROUP * (64 + 8) * 2
+        assert tile_smem(mv, H_, BF16) == mv * (kp + 8) * 2 + ring + BATCH_GROUP * (mv + 4) * 4
 
 
-@pytest.mark.parametrize("H_", [5376, 8192])
-def test_too_wide_h_raises_a_clear_error(H_):
+@pytest.mark.parametrize("H_,dtype", [(5376, BF16), (8192, BF16), (2976, F32), (5360, F32)])
+def test_too_wide_h_raises_a_clear_error(H_, dtype):
     with pytest.raises(ValueError, match="H=%d is too wide.*shared memory" % H_):
-        vocab_tiles(H_, 9956, 132)
+        vocab_tiles(H_, 9956, 132, dtype)
 
 
-def test_h_must_be_a_multiple_of_8():
+@pytest.mark.parametrize("dtype", [BF16, F32])
+def test_h_must_be_a_multiple_of_8(dtype):
     with pytest.raises(ValueError, match="multiple of 8"):
-        vocab_tiles(20, 40, 132)
+        vocab_tiles(20, 40, 132, dtype)
 
 
+@pytest.mark.parametrize("dtype", [BF16, F32])
 @pytest.mark.parametrize("B,V,k", [(1, 9956, 3), (19, 1001, 5), (192, 9956, 3), (320, 9956, 8), (3, 40, 1)])
-def test_topk_scratch_holds_one_part_per_tile(B, V, k):
-    g = vocab_tiles(512, V, 132)
+def test_topk_scratch_holds_one_part_per_tile(B, V, k, dtype):
+    g = vocab_tiles(512, V, 132, dtype)
     max_splits, part_keys, part_ms, logp, ids = topk_launch_args("project_topk", B, V, k, torch.device("cpu"),
                                                                  g.tiles)
     assert max_splits == g.tiles
@@ -197,14 +206,14 @@ def test_tiled_topk_matches_plain_and_pallas(V, sms, k):
     """Ties straddle the first tile boundary (columns mv - 1 and mv) and lie
     inside the last tile: the merged parts list the lower index first, as
     the plain twin and jax.lax.top_k do; logp within 1e-5 (per-tile sums)."""
-    mv = vocab_tiles(H, V, sms).mv
+    mv = vocab_tiles(H, V, sms, F32).mv
     ties = ((mv - 1, mv), (V - 2, V - 1))
     linear, top = _case(k, V, ties=ties)
     vocab = _port_vocab(linear)
     logits = project_logits(vocab, torch.from_numpy(top)).numpy()
     _assert_tied(logits, ties)
     keys, ms = tile_parts(logits, mv, k)
-    assert len(keys) == vocab_tiles(H, V, sms).tiles
+    assert len(keys) == vocab_tiles(H, V, sms, F32).tiles
     logp, ids = merge_parts(keys, ms, k)
     ref_logp, ref_ids = project_topk_plain(vocab, torch.from_numpy(top), k)
     j_logp, j_ids = project_topk_pallas(_jax_vocab(linear), jnp.asarray(top), k, block_v=BLOCK_V, interpret=True)
@@ -221,7 +230,7 @@ def test_tiled_topk_matches_plain_and_pallas(V, sms, k):
 
 @pytest.mark.parametrize("V,sms", [(77, 132), (77, 2), (40, 2)])
 def test_tiled_argmax_takes_the_lower_index_across_a_tile_boundary(V, sms):
-    mv = vocab_tiles(H, V, sms).mv
+    mv = vocab_tiles(H, V, sms, F32).mv
     linear, top = _case(3, V, ties=((mv - 1, mv),))
     vocab = _port_vocab(linear)
     logits = project_logits(vocab, torch.from_numpy(top)).numpy()

@@ -9,7 +9,7 @@
 // Routes (0 and 1 for both cells and ends, 2-5 for the GRU's argmax end):
 //   0  SIMT, one launch: the f32 code the attention steps ran before the
 //      3xTF32 tiles (A1 attention_scores_in, A2 attention_context_e,
-//      decode_common.cuh's layers and SIMT projection; the dense end's
+//      decode_common.cuh's layers; the SIMT projection and the dense end's
 //      strided stores, which the library no longer keeps, are copied
 //      below);
 //   1  the library's f32 instance: the attention launch (A1 att2_f32, A2
@@ -172,6 +172,76 @@ __device__ void attention_part(const Params& p, float* smem, cg::grid_group& gri
   st.mark(grid, false);
 }
 
+// Route 0's projection, as the SIMT code ran it before the 3xTF32 tiles (the library keeps no SIMT projection):
+// (batch tile, column range) items, a warp a column, lane b ending with row b0 + b's logit, handed to a sink.
+template <typename T, typename Sink>
+__device__ __forceinline__ void simt_project_items(const T* top, const T* wv, const T* bv, int B, int H, int V,
+                                                   const Tiling& t, float* xs, Sink& sink) {
+  constexpr int N = Vec<T>::N;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int item = blockIdx.x; item < t.items(); item += gridDim.x) {
+    const int split = item % t.splits;
+    const int b0 = (item / t.splits) * kBM;
+    const int nb = min(kBM, B - b0);
+    const int v0 = split * t.per_split;
+    const int v1 = min(V, v0 + t.per_split);
+    __syncthreads();
+    load_rows<T>(xs, top, b0, nb, H);
+    __syncthreads();
+    sink.start();
+    for (int v = v0 + warp; v < v1; v += kWarps) {
+      float acc[kBM];
+#pragma unroll
+      for (int b = 0; b < kBM; ++b) acc[b] = 0.0f;
+      for (int k = lane * N; k < H; k += 32 * N) {
+        float w[N];
+        Vec<T>::ldg(wv + static_cast<size_t>(v) * H + k, w);
+#pragma unroll
+        for (int b = 0; b < kBM; ++b) {
+          if (b < nb) {
+            const float* xr = xs + b * H + k;
+#pragma unroll
+            for (int i = 0; i < N; ++i) acc[b] += w[i] * xr[i];
+          }
+        }
+      }
+      float mine = 0.0f;
+#pragma unroll
+      for (int b = 0; b < kBM; ++b) {
+        if (b < nb) {
+          const float s = warp_sum(acc[b]);
+          if (lane == b) mine = s;
+        }
+      }
+      if (lane < nb) sink.column(b0 + lane, v, mine + Vec<T>::to_f32(bv[v]));
+    }
+    sink.finish(b0, nb, split, warp, lane);
+  }
+}
+
+// Greedy end: lane b keeps the running first max of its row over the
+// warp's columns (visited in increasing order), then merges it into
+// best[row] by atomicMax over packed (logit, index) keys.  best must start
+// below every key (0).
+struct SimtArgmaxSink {
+  unsigned long long* best;  // [B]
+  float val;
+  int idx;
+  __device__ __forceinline__ void start() {
+    val = -INFINITY;
+    idx = -1;
+  }
+  __device__ __forceinline__ void column(int, int v, float logit) {
+    if (idx < 0 || logit > val) {
+      val = logit;
+      idx = v;
+    }
+  }
+  __device__ __forceinline__ void finish(int b0, int nb, int, int, int lane) {
+    if (lane < nb && idx >= 0) atomicMax(best + b0 + lane, pack_key(val, idx));
+  }
+};
+
 // Route 0's dense end, as the SIMT code stored it before the 3xTF32 tiles (the library keeps no SIMT dense end): lane
 // b stores row b's logit at logits[row, v], a warp's 8 stores strided by V.
 struct SimtDenseSink {
@@ -184,16 +254,17 @@ struct SimtDenseSink {
   __device__ __forceinline__ void finish(int, int, int, int, int) {}
 };
 
-// Route 0's projection: decode_common.cuh's SIMT project_items with the argmax or the dense end.
+// Route 0's projection: simt_project_items with the argmax or the dense end.
 template <int kMode>
 __device__ void simt_vocab_phase(const float* top, const float* wv, const float* bv, int B, int H, int V,
                                  const VocabOut& o, float* xs, cg::grid_group& grid) {
   if constexpr (kMode == kArgmax) {
-    project_argmax<float>(top, wv, bv, B, H, V, o.best, xs);
+    SimtArgmaxSink sink{o.best};
+    simt_project_items<float>(top, wv, bv, B, H, V, Tiling(B, V), xs, sink);
     argmax_tokens(o, B, grid);
   } else {
     SimtDenseSink sink{o.logits, V};
-    project_items<float>(top, wv, bv, B, H, V, Tiling(B, V), xs, sink);
+    simt_project_items<float>(top, wv, bv, B, H, V, Tiling(B, V), xs, sink);
   }
 }
 

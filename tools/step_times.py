@@ -24,7 +24,9 @@ for the dense steps).  Then
 sha256 digests of every bf16 tensor-core instance's outputs on inputs of
 their own seed (the greedy, dense and top-k steps of both cells and the
 whole decode at B=64, R=192; the attention greedy and dense steps; the
-stem and the attention context at B=64), so that two checkouts that
+stem and the attention context at B=64; the projection kernels,
+project_argmax at B=64 and project_topk at R=192, which are also timed
+at B = 1, 64 and R = 3, 192), so that two checkouts that
 print the same digests gave bit-equal outputs.  With --requests N, also
 whole requests of 64 images on the host clock (to ids on the host, median
 of N after one warm-up): the pooled GRU's s2d greedy request and the
@@ -35,9 +37,10 @@ time and digest.
 
 With --dtype float32, every f32 instance of the 14 TPU kernels' ports
 instead (f32_instances): the pooled greedy steps (the tensor cores in
-split-precision TF32) at B = 1, 32, 64 and 512, every other instance at B
-= 1, 32, 64 (R = 3, 96, 192 beam rows), each with its operands warm in L2
-and cold, and the whole decode at B = 1, 64 and 512 (median of 10 after
+split-precision TF32, as every f32 instance but the context, the stem,
+the preprocess and the stack steps) at B = 1, 32, 64 and 512, every other
+instance at B = 1, 32, 64 (R = 3, 96, 192 beam rows), each with its
+operands warm in L2 and cold, and the whole decode at B = 1, 64 and 512 (median of 10 after
 2); beside each, its f32 composite yardstick (PyTorch's own calls on the
 same operands, with TF32 off; chip_smoke.library_yardsticks where it
 builds the row), its bound (chip_smoke.bound: bytes over 3.35 TB/s against
@@ -87,6 +90,7 @@ def main():
     from show_tell_tpu_torch.ops.attention import attention_context_cuda
     from show_tell_tpu_torch.ops.rnn import gru_stack_step_cuda, lstm_stack_step_cuda
     from show_tell_tpu_torch.ops.stem import prepare_stem, stem_fused_cuda
+    from show_tell_tpu_torch.ops.vocab import project_argmax_cuda, project_topk_cuda
     from show_tell_tpu_torch.ops.whole_decode import gru_whole_greedy_decode_cuda
 
     if not show_tell_tpu_torch.__file__.startswith(root + os.sep):
@@ -141,6 +145,15 @@ def main():
         times["attention_context", B] = (cs.event_median_ms(run), cs.event_median_ms(run, before=flush.zero_))
         print("%s bf16 B=%d from %s: attention_context %.4f ms, L2 cold %.4f ms"
               % (smi, B, root, *times["attention_context", B]), flush=True)
+    vocab_b = cs.vocab_inputs(rng, cs.H, torch.bfloat16, device)
+    for name, sizes in (("project_argmax", (1, 64)), ("project_topk", (3, 192))):
+        for n in sizes:
+            h = cs.uniform(rng, (n, cs.H), 1.0, torch.bfloat16, device)
+            run = ((lambda: project_argmax_cuda(vocab_b, h)) if name == "project_argmax"
+                   else (lambda: project_topk_cuda(vocab_b, h, cs.K_BEAM)))
+            times[name, n] = (cs.event_median_ms(run), cs.event_median_ms(run, before=flush.zero_))
+            print("%s bf16 %s=%d from %s: %s %.4f ms, L2 cold %.4f ms"
+                  % (smi, "R" if name in cs.BEAM_KERNELS else "B", n, root, name, *times[name, n]), flush=True)
     # the yardsticks of the rows with no single PyTorch call (chip_smoke.library_yardsticks: composites of
     # PyTorch's own calls on the kernel's operands) beside the kernel, at B = 1 and 64 (R = 3 and 192 for the dense
     # steps), each behind a 10 ms spin
@@ -179,6 +192,11 @@ def main():
     digests["stem B=64"] = stem_fused_cuda(cs.u8_images(drng, (64, cs.IMG, cs.IMG, 3), device),
                                            prepare_stem(cs.stem_stub(drng, device), torch.bfloat16))
     digests["attention_context B=64"] = attention_context_cuda(*cs.context_inputs(drng, 64, torch.bfloat16, device))
+    pvocab = cs.vocab_inputs(drng, cs.H, torch.bfloat16, device)
+    digests["project_argmax B=64"] = project_argmax_cuda(pvocab, cs.uniform(drng, (64, cs.H), 1.0, torch.bfloat16,
+                                                                             device))
+    digests["project_topk R=192"] = project_topk_cuda(pvocab, cs.uniform(drng, (192, cs.H), 1.0, torch.bfloat16,
+                                                                          device), cs.K_BEAM)
     torch.cuda.synchronize()
     digests = {k: hashlib.sha256(b"".join(raw(t) for t in flat(v))).hexdigest()[:16] for k, v in digests.items()}
     print("%s bf16 tensor-core instances from %s, sha256 of their outputs: %s"
