@@ -8,7 +8,8 @@ Phases, one line each (any failure exits non-zero with no ok line):
   2. build: the CUDA kernels from show_tell_tpu_torch/csrc, with nvcc, and
      beside them the grid-barrier probe (grid_barrier_probe.cu); ptxas's
      registers, stack and spills of the tensor-core instances (the bf16
-     projection kernels, vocab_mma.cuh; the bf16 stem, stem.cu; the
+     projection kernels, vocab_mma.cuh; the stem, stem.cu, bf16 and f32 in
+     split-precision TF32; the
      fourteen bf16 instances of dense_mma.cuh: the four dense beam steps,
      the two pooled top-k beam steps, the four greedy steps, pooled and
      attention, GRU and LSTM, the whole decode, the two stack steps and
@@ -36,7 +37,8 @@ Phases, one line each (any failure exits non-zero with no ok line):
   3c. input kernels against plain, f32 and bf16: the preprocess (C = 3
      and 12, B = 1 and 64, and two odd shapes) bit for bit; the fused stem
      (s2d and RGB layouts, pool on and off, B = 1 and 64) within STEM_TOL,
-     bf16 also within one bf16 ulp, with its share of bit-equal values;
+     bf16 also within one bf16 ulp, with its share of bit-equal values, f32
+     also against an f64 evaluation of the same sums;
   3d. the greedy routes' other kernels, f32 and bf16, B = 1, 64, 512: the
      whole-decode kernel (all 25 steps in one launch) bit-equal to the
      per-step kernel's loop and against its twin, with a cross-block tie
@@ -263,11 +265,13 @@ IMG = 224  # the serving image side
 N_FILES = 130  # the CLI phase: two full batches of 64 and one padded batch of 2
 COCO_SIZES = ((640, 480), (640, 427), (480, 640), (427, 640))  # (width, height): MS-COCO's most common image sizes
 CLI_TURNS = 5  # caption_paths runs in turns, each mode decoding the files and from the cache
-# Fused stem against its twin, rtol = atol.  f32: both sum the 192 taps in
-# f32 in one order, and the twin rounds each product (the kernel's FMA does
-# not).  bf16: each product of a pixel and a bf16 weight is exact in f32,
-# but the tensor cores add them in another order, so a value may round to
-# the neighbouring bf16: also within one bf16 ulp (bf16_ulp_gaps).
+# Fused stem against its twin, rtol = atol.  f32: the kernel adds x hi and
+# x lo of each weight's TF32 halves, each exact in f32, on the tensor cores;
+# it differs from the twin by lo's rounding (2^-22 of w), the twin's
+# rounding of each product and the order of the sums.  bf16: each product of
+# a pixel and a bf16 weight is exact in f32, but the tensor cores add them in
+# another order, so a value may round to the neighbouring bf16: also within
+# one bf16 ulp (bf16_ulp_gaps).
 STEM_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 S2D_CONTROLS = 4  # one-ulp controls a request on the s2d path (s2d_against_twin)
 ROUTE_CONTROLS = 2  # controls of the attention beam's sparse composite route (route_decodes)
@@ -282,6 +286,8 @@ TF32X3_KERNELS = ("fused_gru_decode_step", "fused_lstm_decode_step", "gru_whole_
                   "fused_attn_decode_step", "fused_attn_lstm_decode_step", "fused_attn_dense_step",
                   "fused_attn_lstm_dense_step", "fused_gru_dense_step", "fused_lstm_dense_step",
                   "fused_gru_topk_step", "fused_lstm_topk_step", "project_argmax", "project_topk")
+# the f32 stem on the tensor cores in split-precision TF32: its pixels are exact in TF32, so two products a multiply-add
+TF32X2_KERNELS = ("stem_fused",)
 SPIN_CYCLES = 2_000_000  # about 1 ms at the H100's 1.98 GHz boost clock: longer than a wrapper's enqueue
 # about 10 ms: longer than the host work of PyTorch's own RNN call, which issues several kernels a layer
 LIBRARY_SPIN_CYCLES = 10 * SPIN_CYCLES
@@ -1551,14 +1557,16 @@ def projection_tile_ties(rng, device):
                   % (dname(dtype), rows, g.mv - 1, g.mv, g.mv - 1, g.mv - 1, g.mv))
 
 
-# the projection kernels' V-tile instances (vocab_mma.cuh: bf16, and f32 in split-precision TF32) and the bf16 stem
-# (stem.cu): label -> (kernel, its element type; None where the kernel is no template)
+# the projection kernels' V-tile instances (vocab_mma.cuh: bf16, and f32 in split-precision TF32) and the stem
+# (stem.cu: bf16, and f32 in split-precision TF32): label -> (kernel, its element type; None where the kernel is no
+# template)
 TILE_KERNELS = {
     "project_argmax_tiles_kernel": ("project_argmax_tiles_kernel", "bf16"),
     "project_topk_tiles_kernel": ("project_topk_tiles_kernel", "bf16"),
     "project_argmax_tiles_kernel f32": ("project_argmax_tiles_kernel", "f32"),
     "project_topk_tiles_kernel f32": ("project_topk_tiles_kernel", "f32"),
     "stem_mma_kernel": ("stem_mma_kernel", None),
+    "stem_tf32_kernel f32": ("stem_tf32_kernel", None),
 }
 # the instances on the tensor cores (csrc/dense_mma.cuh: every bf16 instance of mma_step(), the attention context's
 # att2 phase, and the f32 instances of tf32x3_step() in split-precision TF32, the pooled greedy, dense and top-k
@@ -1593,7 +1601,8 @@ MMA_STEPS = {
     "st_fused_lstm_topk_step f32": ("fused_step_kernel", "LstmCell", 2, "f32"),
 }
 # instances that fail the build phase with a stack frame or spills
-NO_SPILL = set(MMA_STEPS) | {"stem_mma_kernel", "project_argmax_tiles_kernel f32", "project_topk_tiles_kernel f32"}
+NO_SPILL = set(MMA_STEPS) | {"stem_mma_kernel", "stem_tf32_kernel f32", "project_argmax_tiles_kernel f32",
+                              "project_topk_tiles_kernel f32"}
 
 
 def typed_instance(name, base, elem):
@@ -1629,7 +1638,8 @@ PTXAS_SOURCES = ["project_argmax.cu", "project_topk.cu", "fused_step.cu", "fused
 def tile_kernel_report(build, ptxas_lines):
     """ptxas's registers, stack frame and spills of the tensor-core kernel
     instances (the two projection kernels in bf16 and in f32, split-precision
-    TF32, the bf16 stem, the fourteen bf16 instances of MMA_STEPS and its
+    TF32, the stem in bf16 and in f32, split-precision TF32, the fourteen
+    bf16 instances of MMA_STEPS and its
     eleven f32 instances in split-precision TF32), from ``ptxas_lines``
     (build.ptxas_report of PTXAS_SOURCES), and, where the toolkit has
     cuobjdump, the tensor-core (HMMA) instructions in their SASS in the
@@ -1845,7 +1855,7 @@ def input_kernels_against_plain(rng, device):
 
     from show_tell_tpu_torch.ops.preprocess import preprocess_u8_cuda, preprocess_u8_plain
     from show_tell_tpu_torch.ops.s2d_stem import space_to_depth
-    from show_tell_tpu_torch.ops.stem import prepare_stem, stem_fused_cuda, stem_fused_plain
+    from show_tell_tpu_torch.ops.stem import prepare_stem, stem_fused_cuda, stem_fused_f64, stem_fused_plain
 
     errs = {"preprocess_images": 0.0}
     side = IMG // 2
@@ -1879,10 +1889,15 @@ def input_kernels_against_plain(rng, device):
                             fail("%s: %d values more than one bf16 ulp from the twin" % (what, wide))
                     if dtype == torch.bfloat16 and B == 64 and layout == "rgb" and pool:  # the served input
                         errs["stem_fused"] = err
-                    phase("kernel", "%s: %s max_abs_err %.3g (rtol atol %g; |plain| <= %.3g%s); %d of %d values "
+                    f64 = ""
+                    if dtype == torch.float32:
+                        exact = stem_fused_f64(x, prepared, pool)
+                        f64 = "; against f64 %.3g (the twin's %.3g)" % ((got.double() - exact).abs().max().item(),
+                                                                         (ref.double() - exact).abs().max().item())
+                    phase("kernel", "%s: %s max_abs_err %.3g (rtol atol %g; |plain| <= %.3g%s)%s; %d of %d values "
                           "differ, %.6f bit-equal" % (what, tuple(got.shape), err, tol, ref.float().abs().max().item(),
                                                       ", each within one bf16 ulp" if dtype == torch.bfloat16 else "",
-                                                      int((got != ref).sum()), got.numel(),
+                                                      f64, int((got != ref).sum()), got.numel(),
                                                       (got == ref).float().mean().item()))
     return errs
 
@@ -2201,8 +2216,9 @@ def bound(name, R, emb_rows=0, dtype="bfloat16"):
     """(least ms the card could take for one call, what bounds it): bf16 at the
     tensor cores' bf16 peak; f32 (``dtype`` float32) on the tensor cores in
     split-precision TF32 for TF32X3_KERNELS (three products a multiply-add at
-    the TF32 peak; the attention steps' A1 and A2 at the f32 peak), else at
-    the card's f32 peak outside the tensor cores."""
+    the TF32 peak; the attention steps' A1 and A2 at the f32 peak) and
+    TF32X2_KERNELS (two products: the stem), else at the card's f32 peak
+    outside the tensor cores."""
     f32 = dtype == "float32"
     nbytes, ops = work(name, R, emb_rows=emb_rows, esize=4 if f32 else 2)
     if not f32:
@@ -2210,6 +2226,8 @@ def bound(name, R, emb_rows=0, dtype="bfloat16"):
     elif name in TF32X3_KERNELS:
         simt = attention_ops(R) if name.startswith("fused_attn") else 0
         t_ops = 3 * (ops - simt) / TF32_OPS_PER_S + simt / F32_OPS_PER_S
+    elif name in TF32X2_KERNELS:
+        t_ops = 2 * ops / TF32_OPS_PER_S
     else:
         t_ops = ops / F32_OPS_PER_S
     t_bytes = nbytes / HBM_BYTES_PER_S

@@ -21,17 +21,18 @@
 //
 // What bounds it on an H100: operations, 112 x 112 x 64 x 147 real
 // multiply-adds an image (the 192 taps of the s2d form hold 45 structural
-// zeros) on the bf16 tensor cores, against 147 KB in and 392 KB (bf16,
-// pooled) out.
+// zeros), against 147 KB in and 392 KB (bf16, pooled; f32 784 KB) out: in
+// bf16 on the tensor cores' bf16 rate, in f32 as two TF32 products a
+// multiply-add on their TF32 rate (0.0305 ms at B = 32).
 //
 // bf16 (stem_mma_kernel): an implicit GEMM on mma.sync m16n8k16, bf16 in,
 // f32 sums.  M is conv positions (an m16 tile is 16 columns of one conv
 // row), N the 64 output channels, K the 192 taps.  Every pixel is an
-// integer 0..255, exact in bf16, and w is bf16, so the products are the
-// ones the SIMT kernel formed; only the order of the f32 additions differs.
+// integer 0..255, exact in bf16, and w is bf16, so each product is exact
+// in f32; only the order of the f32 additions differs from the twin's.
 // - Grid: one CTA per (image, band of kBandPooled = 2 pooled rows, or
 //   kBandConv = 4 conv rows without the pool): 28 CTAs an image, so a
-//   single image spreads over 28 SMs (the SIMT kernel: 8).  A pooled band
+//   single image spreads over 28 SMs.  A pooled band
 //   computes conv rows 2r0-1 .. 2r0+3: the first is its neighbour's last
 //   too (a fifth of the products computed twice).
 // - Shared memory: the band's 8 s2d input rows as bf16, laid out
@@ -65,15 +66,49 @@
 //   value >= 0 and every window holds at least one in-image value, so 0
 //   stands in for the pool's -inf padding.
 //
-// f32 (stem_simt_kernel, the parity dtype, on the SIMT units; the tensor
-// cores would take f32 as TF32): one CTA per (image, band of 7 pooled rows,
-// or 14 conv rows without the pool), 224 threads, each owning 4 adjacent
-// conv columns x 8 output channels (32 f32 accumulators).  The CTA walks
-// its band's conv rows in order; the 4 s2d input rows a conv row reads sit
-// in a ring in shared memory as f32 (one row enters per conv row), and the
-// folded weights sit there as f32 for the whole band.  Rows pool in
-// registers as they pass; columns pool across threads through one
-// shared-memory row of each thread's last column.  Both kernels read tc.
+// f32 (stem_tf32_kernel): the same implicit GEMM on mma.sync m16n8k8 with
+// tf32 operands, in split precision.  Every pixel is an integer 0..255,
+// exact in TF32 (11 significant bits), so A needs no split; each weight is
+// split once a CTA into TF32 halves w = hi + lo, rounded to nearest with
+// ties away by cvt.rna's rounding in integer arithmetic (tf32_split_bits,
+// vocab_mma.cuh), and x w = x hi + x lo: two products a k8 step, not
+// 3xTF32's three (x_lo hi is identically zero).  Each product of an 8-bit
+// pixel and an 11-bit half is exact in f32; what is left is lo's own
+// rounding (at most 2^-22 of w) and the order of the f32 sums.  Both
+// products go straight into the running f32 sums (lo first): the 1e-4 bar
+// against the twin does not need the 3xTF32 kernels' per-step partial sums
+// (tools/stem_precision.py --variant fresh-sums measures both against f64).
+// - Grid: one CTA per (image, band, half of the 64 channels): the bf16
+//   kernel's 28 bands, each split into two CTAs of 32 channels, so a single
+//   image spreads over 56 SMs.  The halves read the same input band.
+// - Shared memory (100,608 bytes, two CTAs an SM): the band's 8 s2d rows as
+//   f32 in the bf16 kernel's [row][col -2 .. 113][12] layout (44,544 bytes);
+//   the CTA's 32 channels of hi and of lo, channel-major [32][192 + 4]
+//   (50,176 bytes: w transposed and split during the CTA's one load,
+//   neighbouring threads on neighbouring taps); tc; and one exchange row a
+//   warp for the column pool.  The f32 column stride is 48 bytes, 16-byte
+//   aligned, so A fragments come by ldmatrix.x4 (b16 on the f32 rows: lane
+//   (g, t) gets float t of row g, the tf32 fragment layout) in the plain
+//   row order, row m = column q0 + m: the eight row addresses of a matrix,
+//   48 m bytes apart, fall in distinct 16-byte bank groups.  B fragments
+//   come by ldmatrix.x4 from the 784-byte channel rows (49 units), two n8
+//   tiles a load, K in its natural order (ldmatrix .trans moves 16-bit
+//   elements only).
+// - Warps: seven, warp w owning conv columns 16w .. 16w + 15 (one m16 tile)
+//   and the CTA's four n8 tiles, for all the band's conv rows at once (five
+//   pooled, four without the pool: 80 or 64 f32 sums a thread).  Each k8
+//   step loads the hi and lo fragments once (four ldmatrix) for the five
+//   rows' A fragments (five ldmatrix) and 40 mma.  ptxas: 124 registers,
+//   no stack frame or spill; loading a step's four B fragments before its
+//   first mma, or the weights' and the band's global loads together,
+//   spilled at 128 registers under __launch_bounds__(224, 2).
+// - Epilogue, in registers: + tc, relu; rows pool as maxima over the five
+//   rows (band 0's row -1 becomes 0, relu's floor); columns pool across
+//   lanes by shuffles (lane g holds columns g and g + 8), column q0 - 1
+//   from the previous warp through shared memory.  The even lanes store
+//   the pooled columns, 8 bytes a lane, whole 32-byte sectors a warp.
+//   No staged row: the f32 output is the max of f32 values, and holding the
+//   band's rows in registers leaves the shared memory to two CTAs an SM.
 
 #include "vocab_mma.cuh"  // mma_bf16_16816, ldmatrix_x4 (and decode_common.cuh)
 
@@ -86,162 +121,6 @@ constexpr int kTaps = 16 * kK;               // 192
 constexpr int kClasses = 4;                  // row (column) classes of tc: 0, 1, 2..110, 111
 
 __device__ __forceinline__ int pos_class(int p) { return p < 2 ? p : (p == kS - 1 ? 3 : 2); }
-
-// ---------------------------------------------------------------- f32: the SIMT kernel
-
-constexpr int kPitch = kS + 4;               // a smem input row holds cols -2 .. 113 (zeros outside)
-constexpr int kSlot = kK * kPitch;           // one s2d row, [k][col]
-constexpr int kGroups = kS / 4;              // 28 groups of 4 conv columns
-constexpr int kSimtThreads = kGroups * 8;    // x 8 channel groups = 224
-constexpr int kBands = 8;                    // CTAs an image
-constexpr int kPoolRows = kS / 2 / kBands;   // 7 pooled rows a band
-constexpr int kConvRows = kS / kBands;       // 14 conv rows a band without the pool
-constexpr int kSmemFloats = 4 * kSlot + kTaps * kC + kGroups * kC;
-constexpr size_t kSmemBytes = kSmemFloats * sizeof(float);  // 78,592
-
-template <typename T> __device__ __forceinline__ float to_f32(T v);
-template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
-
-// 4 consecutive channels out, as one 16-byte store.
-__device__ __forceinline__ void store4(float* out, const float* v) {
-  *reinterpret_cast<float4*>(out) = make_float4(v[0], v[1], v[2], v[3]);
-}
-
-// s2d row i of image b into ring slot `dst` ([k][col + 2]); rows outside the image are zeros.
-__device__ __forceinline__ void load_row(float* dst, const uint8_t* __restrict__ x, int b, int i, bool rgb) {
-  if (i < 0 || i >= kS) {
-    for (int e = threadIdx.x; e < kS * kK; e += kSimtThreads) dst[(e / kS) * kPitch + e % kS + 2] = 0.f;
-    return;
-  }
-  if (rgb) {  // rgb rows 2i (di = 0) and 2i+1 (di = 1): byte e of a row is col e / 6, (dj, c) = e % 6
-    const uint8_t* src = x + (static_cast<size_t>(b) * 2 * kS + 2 * i) * 2 * kS * 3;
-    for (int e = threadIdx.x; e < 2 * 6 * kS; e += kSimtThreads) {
-      const int di = e / (6 * kS), r = e % (6 * kS);
-      dst[(di * 6 + r % 6) * kPitch + r / 6 + 2] = static_cast<float>(src[e]);
-    }
-  } else {    // byte e of an s2d row is col e / 12, channel e % 12
-    const uint8_t* src = x + (static_cast<size_t>(b) * kS + i) * kS * kK;
-    for (int e = threadIdx.x; e < kS * kK; e += kSimtThreads) dst[(e % kK) * kPitch + e / kK + 2] = static_cast<float>(src[e]);
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kSimtThreads, 2)
-stem_simt_kernel(const uint8_t* __restrict__ x, const T* __restrict__ w, const float* __restrict__ tc,
-                 T* __restrict__ out, bool rgb, bool pool) {
-  extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4);  // [4 slots][kK][kPitch]
-  float* ws = xs + 4 * kSlot;                    // [kTaps][kC]
-  float* xch = ws + kTaps * kC;                  // [kGroups][kC]: each group's last column, for the column pool
-
-  const int b = blockIdx.y;
-  const int g = threadIdx.x >> 3, cg = threadIdx.x & 7;  // columns 4g..4g+3; channels cg*4 + {0..3} and 32 + cg*4 + {0..3}
-  int p_begin, p_end;
-  if (pool) {
-    const int r0 = blockIdx.x * kPoolRows;
-    p_begin = r0 > 0 ? 2 * r0 - 1 : 0;
-    p_end = 2 * (r0 + kPoolRows);
-  } else {
-    p_begin = blockIdx.x * kConvRows;
-    p_end = p_begin + kConvRows;
-  }
-
-  for (int e = threadIdx.x; e < kTaps * kC; e += kSimtThreads) ws[e] = to_f32(w[e]);
-  for (int e = threadIdx.x; e < 4 * kK * 4; e += kSimtThreads) {  // the pad columns -2, -1, 112, 113 of every slot row
-    const int c = e & 3;
-    xs[(e >> 2) * kPitch + (c < 2 ? c : kS + c)] = 0.f;
-  }
-  for (int i = p_begin - 2; i <= p_begin + 1; ++i) load_row(xs + (i & 3) * kSlot, x, b, i, rgb);
-  __syncthreads();
-
-  float cur[4][8];  // the running max over the pooled row's window rows
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int o = 0; o < 8; ++o) cur[j][o] = 0.f;
-
-  for (int p = p_begin; p < p_end; ++p) {
-    if (p > p_begin) {
-      __syncthreads();  // every thread is done with row p-3's slot
-      load_row(xs + ((p + 1) & 3) * kSlot, x, b, p + 1, rgb);
-      __syncthreads();
-    }
-    float acc[4][8];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int o = 0; o < 8; ++o) acc[j][o] = 0.f;
-#pragma unroll 1
-    for (int a = 0; a < 4; ++a) {
-      const float* xrow = xs + ((p + a - 2) & 3) * kSlot + 4 * g;  // cols 4g-2 .. 4g+4 at offsets 0..6
-      const float* wa = ws + a * 4 * kK * kC + cg * 4;
-#pragma unroll 2
-      for (int k = 0; k < kK; ++k) {
-        const float4 x0 = *reinterpret_cast<const float4*>(xrow + k * kPitch);
-        const float2 x1 = *reinterpret_cast<const float2*>(xrow + k * kPitch + 4);
-        const float xv[7] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, xrow[k * kPitch + 6]};
-#pragma unroll
-        for (int bb = 0; bb < 4; ++bb) {
-          const float* wr = wa + (bb * kK + k) * kC;
-          const float4 w0 = *reinterpret_cast<const float4*>(wr);
-          const float4 w1 = *reinterpret_cast<const float4*>(wr + 32);
-          const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-#pragma unroll
-            for (int o = 0; o < 8; ++o) acc[j][o] = fmaf(xv[j + bb], wv[o], acc[j][o]);
-        }
-      }
-    }
-    // + tc of the position's (row class, column class), relu
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float* tr = tc + (pos_class(p) * kClasses + pos_class(4 * g + j)) * kC + cg * 4;
-      const float4 t0 = __ldg(reinterpret_cast<const float4*>(tr));
-      const float4 t1 = __ldg(reinterpret_cast<const float4*>(tr + 32));
-      const float tv[8] = {t0.x, t0.y, t0.z, t0.w, t1.x, t1.y, t1.z, t1.w};
-#pragma unroll
-      for (int o = 0; o < 8; ++o) acc[j][o] = fmaxf(acc[j][o] + tv[o], 0.f);
-    }
-    if (!pool) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        T* dst = out + ((static_cast<size_t>(b) * kS + p) * kS + 4 * g + j) * kC + cg * 4;
-        store4(dst, acc[j]);
-        store4(dst + 32, acc[j] + 4);
-      }
-      continue;
-    }
-    const bool closes = (p & 1) && p > p_begin;  // conv row 2r+1 closes pooled row r (and opens r+1)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int o = 0; o < 8; ++o) cur[j][o] = (p & 1) && !closes ? acc[j][o] : fmaxf(cur[j][o], acc[j][o]);
-    if (!closes) continue;
-    const int r = (p - 1) / 2;
-#pragma unroll
-    for (int o = 0; o < 8; ++o) xch[g * kC + (o >> 2) * 32 + cg * 4 + (o & 3)] = cur[3][o];
-    __syncthreads();
-    float pooled[2][8];
-#pragma unroll
-    for (int o = 0; o < 8; ++o) {
-      const float left = g > 0 ? xch[(g - 1) * kC + (o >> 2) * 32 + cg * 4 + (o & 3)] : 0.f;  // column 4g-1
-      pooled[0][o] = fmaxf(left, fmaxf(cur[0][o], cur[1][o]));
-      pooled[1][o] = fmaxf(cur[1][o], fmaxf(cur[2][o], cur[3][o]));
-    }
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      T* dst = out + ((static_cast<size_t>(b) * (kS / 2) + r) * (kS / 2) + 2 * g + s) * kC + cg * 4;
-      store4(dst, pooled[s]);
-      store4(dst + 32, pooled[s] + 4);
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int o = 0; o < 8; ++o) cur[j][o] = acc[j][o];  // row 2r+1 opens pooled row r+1
-  }
-}
-
 
 // ---------------------------------------------------------------- bf16: the tensor-core kernel
 
@@ -486,12 +365,238 @@ stem_mma_kernel(const uint8_t* __restrict__ x, const __nv_bfloat16* __restrict__
   }
 }
 
-cudaError_t launch_simt(const uint8_t* x, const float* w, const float* tc, float* out, int B, bool rgb, bool pool,
+// ---------------------------------------------------------------- f32: the split-precision TF32 kernel
+
+constexpr int kTfHalves = 2;                        // CTAs of a band: output channels 0..31 and 32..63
+constexpr int kTfC = kC / kTfHalves;                // 32 channels a CTA: four n8 tiles
+constexpr int kTfNts = kTfC / 8;                    // 4
+constexpr int kTfWPitch = kTaps + 4;                // f32 a weight row (one channel, 192 taps): 196, 49 16-byte units
+constexpr int kTfPoolRows = 2 * kBandPooled + 1;    // conv rows a pooled band computes: 5
+constexpr int kTfExchange = kMmaWarps * 2 * kTfC;   // f32 of the column pool's exchange rows: a warp's two pooled rows
+constexpr int kTfSmemFloats = kInRows * kRowPitch + 2 * kTfC * kTfWPitch + kClasses * kClasses * kC + kTfExchange;
+constexpr size_t kTfSmemBytes = 4 * static_cast<size_t>(kTfSmemFloats);  // 100,608: two CTAs an SM
+static_assert(kTfSmemBytes * 2 + 2048 <= 233472, "two CTAs share an SM's 228 KB");
+
+// The band's s2d rows i0 .. i0 + kInRows - 1 of image b into xs ([row][col + 2][12] f32, as load_band's bf16 rows);
+// rows outside the image and the pad columns -2, -1, 112, 113 are zeros.  Four pixels a 32-bit load, all of a
+// thread's loads in flight before its first store; four pixels (s2d) or two pairs (RGB) a shared store.
+__device__ void load_band_f32(float* xs, const uint8_t* __restrict__ x, int b, int i0, bool rgb) {
+  constexpr int kPadUnits = kK / 2;  // 6 float4: the two pad columns on each side of a row
+  for (int e = threadIdx.x; e < kInRows * 2 * kPadUnits; e += kMmaThreads) {
+    const int r = e / (2 * kPadUnits), c = e % (2 * kPadUnits);
+    reinterpret_cast<float4*>(xs + r * kRowPitch)[c < kPadUnits ? c : kRowPitch / 4 - 2 * kPadUnits + c] =
+        make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  constexpr int kQuads = kS * kK / 4;                   // 336 four-byte loads an s2d row (an RGB row: 168)
+  constexpr int kPer = kInRows * kQuads / kMmaThreads;  // 12 a thread
+  uint32_t v[kPer];
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    const int e = threadIdx.x + j * kMmaThreads, r = e / kQuads, q = e % kQuads, i = i0 + r;
+    const uint8_t* src = rgb ? x + (static_cast<size_t>(b) * 2 * kS + 2 * i + q / (kQuads / 2)) * 2 * kS * 3 +
+                                   4 * (q % (kQuads / 2))  // RGB row 2i + di, di = q / 168
+                             : x + (static_cast<size_t>(b) * kS + i) * kS * kK + 4 * q;
+    v[j] = i >= 0 && i < kS ? __ldg(reinterpret_cast<const uint32_t*>(src)) : 0u;
+  }
+  const auto px = [](uint32_t u, int h) { return static_cast<float>((u >> (8 * h)) & 0xffu); };
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    const int e = threadIdx.x + j * kMmaThreads, r = e / kQuads, q = e % kQuads;
+    float* row = xs + r * kRowPitch + 2 * kK;  // column 0
+    if (rgb) {  // bytes 4u .. 4u + 3 of RGB row 2i + di: byte e' is column e' / 6, channel di*6 + e' % 6
+      const int di = q / (kQuads / 2), u = q % (kQuads / 2);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int e2 = 4 * u + 2 * h;  // an even byte: its pair stays in one column
+        *reinterpret_cast<float2*>(row + (e2 / 6) * kK + di * 6 + e2 % 6) =
+            make_float2(px(v[j], 2 * h), px(v[j], 2 * h + 1));
+      }
+    } else {    // byte e' of an s2d row is element e' of the [col][12] row
+      *reinterpret_cast<float4*>(row + 4 * q) = make_float4(px(v[j], 0), px(v[j], 1), px(v[j], 2), px(v[j], 3));
+    }
+  }
+}
+
+// The CTA's 32 channels of w [192][64] into wh and wl [32][kTfWPitch], channel-major, as TF32 halves: w = hi + lo
+// (tf32_split_bits), each split once a CTA.  Neighbouring threads take neighbouring taps, so a warp's stores fall on
+// distinct banks but where its taps wrap past 191; each thread reads 16 bytes of a w row.
+__device__ void load_weights_tf32(float* wh, float* wl, const float* __restrict__ w, int half) {
+  for (int e = threadIdx.x; e < kTfC / 4 * kTaps; e += kMmaThreads) {
+    const int c = e / kTaps, k = e % kTaps;  // channels 4c .. 4c + 3 of the half, tap k
+    const float4 v = __ldg(reinterpret_cast<const float4*>(w + k * kC + half * kTfC + 4 * c));
+    const float f[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      uint32_t hi, lo;
+      tf32_split_bits(__float_as_uint(f[i]), hi, lo);
+      wh[(4 * c + i) * kTfWPitch + k] = __uint_as_float(hi);
+      wl[(4 * c + i) * kTfWPitch + k] = __uint_as_float(lo);
+    }
+  }
+}
+
+// acc[j] = the conv sums of rows p0 + j (j < kRows; smem input rows j .. j + 3) at this warp's 16 columns, row m of
+// the m16 tile being column q0 + m, and the CTA's four n8 tiles of channels.  Each k8 step takes two TF32 products
+// into the f32 sums, x lo then x hi: a pixel is exact in TF32, so x w needs no third.  Fragments by ldmatrix.x4 on
+// the f32 rows (an 8x8 b16 matrix is 8 rows of 4 floats, and lane (g, t) receives float t of row g, the m16n8k8
+// tf32 layout): A as matrices (rows 0-7 | 8-15) x (k 0-3 | 4-7), whose 16-byte row addresses 48 (q0 + m) + 32 s
+// (+ 16) bytes fall in distinct bank groups for the eight m; B from the channel-major halves as matrices
+// (k 0-3 | 4-7) x (n8 tile 2np | 2np + 1), 784-byte rows.
+template <int kRows>
+__device__ __forceinline__ void conv_rows_tf32(float (&acc)[kRows][kTfNts][4], const float* xs, const float* wh,
+                                               const float* wl, int q0, int lane) {
+#pragma unroll
+  for (int j = 0; j < kRows; ++j)
+#pragma unroll
+    for (int nt = 0; nt < kTfNts; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][nt][e] = 0.0f;
+  const uint32_t a_at = smem_addr(xs + (q0 + (lane & 15)) * kK + (lane >> 4) * 4);
+  const int b_off = ((lane >> 4) * 8 + (lane & 7)) * kTfWPitch + ((lane >> 3) & 1) * 4;
+  const uint32_t bh_at = smem_addr(wh + b_off), bl_at = smem_addr(wl + b_off);
+#pragma unroll 1
+  for (int a = 0; a < 4; ++a) {  // tap row a: six k8 steps, K = 48 a + 8 s .. + 7
+#pragma unroll
+    for (int s = 0; s < 6; ++s) {
+      const int k = 48 * a + 8 * s;
+      uint32_t af[kRows][4];
+#pragma unroll
+      for (int j = 0; j < kRows; ++j) ldmatrix_x4_at(af[j], a_at + 4 * ((a + j) * kRowPitch + 8 * s));
+#pragma unroll
+      for (int np = 0; np < kTfNts / 2; ++np) {
+        uint32_t bl[4], bh[4];
+        ldmatrix_x4_at(bl, bl_at + 4 * (16 * np * kTfWPitch + k));
+        ldmatrix_x4_at(bh, bh_at + 4 * (16 * np * kTfWPitch + k));
+#pragma unroll
+        for (int j = 0; j < kRows; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) mma_tf32_1688(acc[j][2 * np + h], af[j], bl[2 * h], bl[2 * h + 1]);
+#pragma unroll
+        for (int j = 0; j < kRows; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) mma_tf32_1688(acc[j][2 * np + h], af[j], bh[2 * h], bh[2 * h + 1]);
+      }
+    }
+  }
+}
+
+// acc[j] = relu(acc[j] + tc[class of row p0 + j][class of the column]) on the CTA's channels; a row above the image
+// (p0 + j < 0: band 0's first) becomes 0, the max's identity after relu.  Lane (g, t) holds columns q0 + g
+// (e = 0, 1) and q0 + g + 8 (e = 2, 3), channels 8 nt + 2t, + 1 of the half.
+template <int kRows>
+__device__ __forceinline__ void shift_relu_tf32(float (&acc)[kRows][kTfNts][4], const float* ts, int p0, int q0,
+                                                int half, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < kRows; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float* tr =
+          ts + (pos_class(max(p0 + j, 0)) * kClasses + pos_class(q0 + g + 8 * h)) * kC + half * kTfC + 2 * t;
+#pragma unroll
+      for (int nt = 0; nt < kTfNts; ++nt) {
+        const float2 tv = *reinterpret_cast<const float2*>(tr + 8 * nt);
+        acc[j][nt][2 * h] = p0 + j < 0 ? 0.0f : fmaxf(acc[j][nt][2 * h] + tv.x, 0.0f);
+        acc[j][nt][2 * h + 1] = p0 + j < 0 ? 0.0f : fmaxf(acc[j][nt][2 * h + 1] + tv.y, 0.0f);
+      }
+    }
+}
+
+__global__ void __launch_bounds__(kMmaThreads, 2)
+stem_tf32_kernel(const uint8_t* __restrict__ x, const float* __restrict__ w, const float* __restrict__ tc,
+                 float* __restrict__ out, bool rgb, bool pool) {
+  extern __shared__ float4 smem4[];
+  float* xs = reinterpret_cast<float*>(smem4);   // [kInRows][kRowPitch]
+  float* wh = xs + kInRows * kRowPitch;           // [kTfC][kTfWPitch]: tf32 hi of the CTA's channels, tap-minor
+  float* wl = wh + kTfC * kTfWPitch;              // the same, lo
+  float* ts = wl + kTfC * kTfWPitch;              // [kClasses][kClasses][kC]
+  float* xch = ts + kClasses * kClasses * kC;     // [kMmaWarps][2][kTfC] (kTfExchange): each warp's column 15
+  const int b = blockIdx.y, band = blockIdx.x / kTfHalves, half = blockIdx.x % kTfHalves;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, q0 = 16 * warp, g = lane >> 2, t = lane & 3;
+  // pool: conv rows p0 = 2r0 - 1 .. 2r0 + 3 (row -1 of band 0 computed, then zeroed); no pool: p0 .. p0 + 3
+  const int p0 = pool ? 2 * kBandPooled * band - 1 : kBandConv * band;
+
+  for (int e = threadIdx.x; e < kClasses * kClasses * kC / 4; e += kMmaThreads)
+    cp_async16(ts + 4 * e, tc + 4 * e, true);
+  cp_async_commit();
+  load_weights_tf32(wh, wl, w, half);
+  load_band_f32(xs, x, b, p0 - 2, rgb);
+  cp_async_wait<0>();
+  __syncthreads();
+
+  if (!pool) {
+    float acc[kBandConv][kTfNts][4];
+    conv_rows_tf32<kBandConv>(acc, xs, wh, wl, q0, lane);
+    shift_relu_tf32<kBandConv>(acc, ts, p0, q0, half, lane);
+#pragma unroll
+    for (int j = 0; j < kBandConv; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int nt = 0; nt < kTfNts; ++nt)
+          *reinterpret_cast<float2*>(out + ((static_cast<size_t>(b) * kS + p0 + j) * kS + q0 + g + 8 * h) * kC +
+                                     half * kTfC + 8 * nt + 2 * t) =
+              make_float2(acc[j][nt][2 * h], acc[j][nt][2 * h + 1]);
+    return;
+  }
+  float acc[kTfPoolRows][kTfNts][4];
+  conv_rows_tf32<kTfPoolRows>(acc, xs, wh, wl, q0, lane);
+  shift_relu_tf32<kTfPoolRows>(acc, ts, p0, q0, half, lane);
+  // rows: pooled row 2 band + r is the max of conv rows p0 + 2r .. p0 + 2r + 2
+  float v[2][kTfNts][4];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int nt = 0; nt < kTfNts; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        v[r][nt][e] = fmaxf(fmaxf(acc[2 * r][nt][e], acc[2 * r + 1][nt][e]), acc[2 * r + 2][nt][e]);
+  // columns: pooled column q0 / 2 + g / 2 (even g) is the max of columns q0 + g - 1 .. q0 + g + 1, q0 / 2 + 4 + g / 2
+  // that of q0 + g + 7 .. q0 + g + 9; a neighbour column is lane g +- 1's (a shuffle by four lanes), column q0 + 7
+  // lane 7's first, and column q0 - 1 the previous warp's column 15, which comes through shared memory
+  if (g == 7) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int nt = 0; nt < kTfNts; ++nt)
+        *reinterpret_cast<float2*>(xch + (warp * 2 + r) * kTfC + 8 * nt + 2 * t) =
+            make_float2(v[r][nt][2], v[r][nt][3]);
+  }
+  __syncthreads();
+  const float* prev = xch + (warp - 1) * 2 * kTfC;
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int nt = 0; nt < kTfNts; ++nt) {
+      float lo_col[2], hi_col[2];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const float h0 = v[r][nt][c], h1 = v[r][nt][2 + c];
+        const int up = (lane + 28) & 31, down = (lane + 4) & 31;  // lanes g - 1 and g + 1 (g = 7 and 0 at the ends)
+        const float l0 = __shfl_sync(0xffffffffu, h0, up), l1 = __shfl_sync(0xffffffffu, h1, up);
+        const float r0 = __shfl_sync(0xffffffffu, h0, down), r1 = __shfl_sync(0xffffffffu, h1, down);
+        const float left0 = g > 0 ? l0 : warp > 0 ? prev[r * kTfC + 8 * nt + 2 * t + c] : 0.0f;
+        lo_col[c] = fmaxf(fmaxf(left0, h0), r0);
+        hi_col[c] = fmaxf(fmaxf(g > 0 ? l1 : l0, h1), r1);
+      }
+      if ((g & 1) == 0) {
+        float* dst = out + ((static_cast<size_t>(b) * (kS / 2) + 2 * band + r) * (kS / 2) + q0 / 2 + g / 2) * kC +
+                     half * kTfC + 8 * nt + 2 * t;
+        *reinterpret_cast<float2*>(dst) = make_float2(lo_col[0], lo_col[1]);
+        *reinterpret_cast<float2*>(dst + 4 * kC) = make_float2(hi_col[0], hi_col[1]);
+      }
+    }
+}
+
+cudaError_t launch_tf32(const uint8_t* x, const float* w, const float* tc, float* out, int B, bool rgb, bool pool,
                         cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(stem_simt_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(kSmemBytes));
+  cudaError_t err = cudaFuncSetAttribute(stem_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(kTfSmemBytes));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(stem_tf32_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               static_cast<int>(cudaSharedmemCarveoutMaxShared));
   if (err != cudaSuccess) return err;
-  stem_simt_kernel<float><<<dim3(kBands, B), kSimtThreads, kSmemBytes, stream>>>(x, w, tc, out, rgb, pool);
+  stem_tf32_kernel<<<dim3(kMmaBands * kTfHalves, B), kMmaThreads, kTfSmemBytes, stream>>>(x, w, tc, out, rgb, pool);
   return cudaGetLastError();
 }
 
@@ -506,7 +611,7 @@ cudaError_t launch_mma(const uint8_t* x, const __nv_bfloat16* w, const float* tc
 
 }  // namespace
 
-// dtype: 0 = float32 (the SIMT kernel), 1 = bfloat16 (the tensor-core kernel), for w and out.
+// dtype: 0 = float32 (stem_tf32_kernel), 1 = bfloat16 (stem_mma_kernel), for w and out.
 // layout: 0 = s2d [B,112,112,12], 1 = RGB [B,224,224,3].  pool: 1 = [B,56,56,64] out, 0 = [B,112,112,64].
 // tc [4, 4, 64] f32.  Returns a cudaError_t (0 on success).
 extern "C" int st_stem(int dtype, int layout, int pool, const void* x, const void* w, const void* tc, void* out, int B,
@@ -515,7 +620,7 @@ extern "C" int st_stem(int dtype, int layout, int pool, const void* x, const voi
   const uint8_t* xp = static_cast<const uint8_t*>(x);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return static_cast<int>(launch_simt(xp, static_cast<const float*>(w), static_cast<const float*>(tc),
+    return static_cast<int>(launch_tf32(xp, static_cast<const float*>(w), static_cast<const float*>(tc),
                                         static_cast<float*>(out), B, layout == 1, pool != 0, s));
   if (dtype == 1)
     return static_cast<int>(launch_mma(xp, static_cast<const __nv_bfloat16*>(w), static_cast<const float*>(tc),

@@ -82,15 +82,17 @@ def _layout(images_u8: torch.Tensor) -> int:
 
 def stem_fused_plain(images_u8: torch.Tensor, prepared: Dict[str, torch.Tensor], pool: bool = True) -> torch.Tensor:
     """The kernel's function in plain torch ops: each f32 sum runs over
-    the 192 taps in the f32 (SIMT) kernel's order (a, then c12, then b)
-    starting from 0, then + t, relu, maxpool, rounded once to the compute
-    dtype, in NHWC.  In f32 the two differ by the twin's rounding of each
-    product (the kernel's fused multiply-add does not round it).  With
-    bf16 weights every product of a pixel and a weight is exact in f32,
-    but the bf16 kernel adds them on the tensor cores in another order
-    (k16 steps, and within one the hardware's), so its f32 sums differ
-    from the twin's in the last bits and the bf16 outputs by at most one
-    bf16 ulp where a sum sits near a rounding boundary."""
+    the 192 taps in the order (a, then c12, then b), a product at a time
+    from 0, then + t, relu, maxpool, rounded once to the compute dtype, in
+    NHWC.  Both kernels add their products on the tensor cores in another
+    order (k8 or k16 steps of the taps in (a, b, c12) order, and within one
+    the hardware's).  f32: the kernel splits each weight into TF32 halves,
+    w = hi + lo, and adds x hi and x lo, each exact in f32; the two differ
+    by lo's rounding (at most 2^-22 of w), the twin's rounding of each
+    product and the order of the sums, far inside 1e-4.  bf16: every
+    product of a pixel and a bf16 weight is exact in f32, so the f32 sums
+    differ from the twin's in the last bits only, and the bf16 outputs by
+    at most one bf16 ulp where a sum sits near a rounding boundary."""
     if _layout(images_u8) == 1:
         images_u8 = space_to_depth(images_u8)
     w = prepared["w"]
@@ -108,12 +110,26 @@ def stem_fused_plain(images_u8: torch.Tensor, prepared: Dict[str, torch.Tensor],
     return y.permute(0, 2, 3, 1).to(w.dtype).contiguous()
 
 
+def stem_fused_f64(images_u8: torch.Tensor, prepared: Dict[str, torch.Tensor], pool: bool = True) -> torch.Tensor:
+    """The same function evaluated in f64 on the same operands (w as it
+    is, widened), NHWC, not rounded to the compute dtype: the reference
+    from which the kernels' and the twin's f32 sums are measured."""
+    if _layout(images_u8) == 1:
+        images_u8 = space_to_depth(images_u8)
+    x = F.pad(images_u8.permute(0, 3, 1, 2).double(), S2D_PAD)
+    w4 = prepared["w"].double().reshape(4, 4, 12, CHANNELS).permute(3, 2, 0, 1)
+    y = F.relu(F.conv2d(x, w4) + prepared["t"].double().permute(2, 0, 1))
+    if pool:
+        y = F.max_pool2d(y, kernel_size=3, stride=2, padding=1)
+    return y.permute(0, 2, 3, 1)
+
+
 def stem_fused_cuda(images_u8: torch.Tensor, prepared: Dict[str, torch.Tensor], pool: bool = True) -> torch.Tensor:
     """Launch the kernel on the current stream.  images_u8 uint8 [B,112,112,12]
-    or [B,224,224,3]; prepared w [192, 64] (f32: the SIMT kernel; bf16:
-    the tensor-core kernel) and tc [4, 4, 64] f32; both
-    on one CUDA device, contiguous.  Raises on anything else and on a
-    failed launch."""
+    or [B,224,224,3], B <= 65,535; prepared w [192, 64] (f32: the split-
+    precision TF32 kernel, 56 CTAs an image; bf16: the bf16 one, 28) and
+    tc [4, 4, 64] f32; all on one CUDA device, contiguous.  Raises on
+    anything else and on a failed launch."""
     from show_tell_tpu_torch.ops.build import load_library
 
     layout = _layout(images_u8)

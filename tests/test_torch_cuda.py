@@ -61,7 +61,7 @@ from show_tell_tpu_torch.ops.rnn import (
     stack_plain,
 )
 from show_tell_tpu_torch.ops.s2d_stem import space_to_depth
-from show_tell_tpu_torch.ops.stem import prepare_stem, stem_fused, stem_fused_plain
+from show_tell_tpu_torch.ops.stem import prepare_stem, stem_fused, stem_fused_f64, stem_fused_plain
 from show_tell_tpu_torch.ops.whole_decode import gru_whole_greedy_decode
 from show_tell_tpu_torch.ops.vocab import (
     first_max_argmax,
@@ -525,10 +525,13 @@ def _stem_resnet(device, seed=0):
 @pytest.mark.parametrize("pool", [True, False], ids=["pool", "no_pool"])
 @pytest.mark.parametrize("layout", ["s2d", "rgb"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("B", [1, 5])
+@pytest.mark.parametrize("B", [1, 5, 29, 32])
 def test_stem_kernel_matches_plain(cuda, B, dtype, layout, pool):
-    """Against the twin, which sums the taps in the f32 kernel's order: f32
-    within 1e-4 (the twin rounds each product, the kernel's FMA does not).
+    """Against the twin, at B = 1, 5, 29 (odd, over 28) and 32: f32 within
+    1e-4 (the kernel adds x hi and x lo of each weight's TF32 halves, each
+    exact in f32, in its own order; the twin rounds each product), and
+    within 1e-4 of an f64 evaluation of the same sums, whose largest error
+    it prints beside the twin's.
     bf16 within one bf16 ulp at every element, and bit-equal on at least
     99% of them: each product of a pixel and a bf16 weight is exact in f32,
     but the tensor cores add them in another order, so an f32 sum may
@@ -554,6 +557,11 @@ def test_stem_kernel_matches_plain(cuda, B, dtype, layout, pool):
         assert equal >= 0.99, "bit-equal on %.6f of the elements" % equal
     else:
         torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+        exact = stem_fused_f64(x, prepared, pool)
+        print("stem f32 B=%d %s %s: max_abs_err against the twin %.3g, against f64 %.3g (the twin's %.3g)"
+              % (B, layout, "pool" if pool else "no pool", (got - ref).abs().max().item(),
+                 (got.double() - exact).abs().max().item(), (ref.double() - exact).abs().max().item()))
+        torch.testing.assert_close(got.double(), exact, rtol=1e-4, atol=1e-4)
 
 
 def test_stem_and_preprocess_wrappers_reject_what_they_do_not_take(cuda):

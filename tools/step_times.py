@@ -37,8 +37,8 @@ time and digest.
 
 With --dtype float32, every f32 instance of the 14 TPU kernels' ports
 instead (f32_instances): the pooled greedy steps (the tensor cores in
-split-precision TF32, as every f32 instance but the context, the stem,
-the preprocess and the stack steps) at B = 1, 32, 64 and 512, every other
+split-precision TF32, as every f32 instance but the context, the
+preprocess and the stack steps) at B = 1, 32, 64 and 512, every other
 instance at B = 1, 32, 64 (R = 3, 96, 192 beam rows), each with its
 operands warm in L2 and cold, and the whole decode at B = 1, 64 and 512 (median of 10 after
 2); beside each, its f32 composite yardstick (PyTorch's own calls on the
@@ -46,8 +46,9 @@ same operands, with TF32 off; chip_smoke.library_yardsticks where it
 builds the row), its bound (chip_smoke.bound: bytes over 3.35 TB/s against
 operations over the card's 67 TFLOP/s of f32, or, for the instances on
 the tensor cores, three TF32 products a multiply-add over its 495 TFLOP/s
-of TF32), its plain twin's time (at B=64, R=192) and its launches on the
-f32 eval path; then, where the checkout's f32 greedy steps take
+of TF32; the stem two, its pixels being exact in TF32), its plain twin's
+time (at B=64, R=192) and its launches on the f32 eval path; every row's
+kernel / yardstick at B=1 (R=3) in one line; then, where the checkout's f32 greedy steps take
 ``splits``, their K split swept (S = 1 .. 8 at B = 1, 32, 64, 128, 192, warm
 and cold, beside the S that stack_tiles takes); then sha256 digests of
 every f32 instance's outputs, so that two checkouts that print the same
@@ -371,6 +372,11 @@ def f32_instances(cs, root, smi, device, flush):
                   "yardstick %.4f ms (kernel / yardstick %.3f; host issue in it); bound %.4f ms (%s), kernel / bound "
                   "%.1f; median of 10 after 2" % (smi, B, cs.T, root, ms, cold, y_ms, ms / y_ms, b_ms, b_by, ms / b_ms),
                   flush=True)
+    # every row's kernel / yardstick at its smallest size (B=1; R=3 for the beam rows), in one line
+    smallest = {"%s %s=%d" % (name, "R" if name in cs.BEAM_KERNELS else "B", n): r["ms"] / r["yard_ms"]
+                for (name, n), r in rows.items() if n == min(m for other, m in rows if other == name)}
+    print("%s float32 kernel / yardstick at B=1 (beam rows R=3) from %s: %s"
+          % (smi, root, ", ".join("%s %.3f" % kv for kv in smallest.items())), flush=True)
     # the f32 greedy steps' K split: every S the kernel takes, L2 warm and cold, beside the one stack_tiles takes
     splits = {}  # "cell B" -> {S: (warm ms, cold ms)}, with the rule's S
     sweep = "splits" in inspect.signature(fused_gru_decode_step_cuda).parameters  # a checkout that takes a forced S
@@ -402,8 +408,8 @@ def f32_instances(cs, root, smi, device, flush):
     print("%s float32 instances from %s, sha256 of their outputs: %s"
           % (smi, root, ", ".join("%s %s" % kv for kv in digests.items())), flush=True)
     print(json.dumps({"root": root, "card": smi, "dtype": "float32",
-                      "rows": {"%s %d" % k: v for k, v in rows.items()}, "splits": splits, "digests": digests}),
-          flush=True)
+                      "rows": {"%s %d" % k: v for k, v in rows.items()}, "smallest_over_yardstick": smallest,
+                      "splits": splits, "digests": digests}), flush=True)
 
 
 if __name__ == "__main__":
