@@ -13,10 +13,10 @@ Phases, one line each (any failure exits non-zero with no ok line):
      fourteen bf16 instances of dense_mma.cuh: the four dense beam steps,
      the two pooled top-k beam steps, the four greedy steps, pooled and
      attention, GRU and LSTM, the whole decode, the two stack steps and
-     the attention context; and its eleven f32 instances in split-precision
-     TF32: the pooled GRU and LSTM greedy, dense and top-k steps, the whole
-     decode and the four attention steps, greedy and dense, GRU and LSTM)
-     and the tensor-core (HMMA) instructions in their SASS;
+     the attention context; and its thirteen f32 instances in split-precision
+     TF32: the pooled GRU and LSTM greedy, dense, top-k and stack steps, the
+     whole decode and the four attention steps, greedy and dense, GRU and
+     LSTM) and the tensor-core (HMMA) instructions in their SASS;
   3. kernel against plain, at the flagship widths: the pooled fused step,
      GRU (L=5, E=256, H=512, V=9,956; B = 1, 64, 512; and E=1024 > H) and
      LSTM (E=512, same B); the fused attention step, GRU and LSTM (L=5,
@@ -45,8 +45,8 @@ Phases, one line each (any failure exits non-zero with no ok line):
      (columns 7 and 9000) and a tie across the first 64-row vocabulary
      item boundary (63 and 64);
      the GRU (E=256) and LSTM (E=512) stack steps against their twins,
-     in bf16 also launched twice (bit-equal) with the arrival counters of
-     their K split back at zero;
+     launched twice (bit-equal) with the arrival counters of their K split
+     back at zero, in f32 also bit-equal to the f32 greedy step's states;
   3e. the bf16 projection kernels' V-tiles on this card, and a tie across
      the first V-tile boundary in both projection kernels, f32 and bf16;
   4. pooled main paths: a flagship pooled-GRU Captioner (ResNet-101,
@@ -285,7 +285,8 @@ TF32_OPS_PER_S = 495e12  # H100 SXM dense TF32 tensor-core peak
 TF32X3_KERNELS = ("fused_gru_decode_step", "fused_lstm_decode_step", "gru_whole_greedy_decode",
                   "fused_attn_decode_step", "fused_attn_lstm_decode_step", "fused_attn_dense_step",
                   "fused_attn_lstm_dense_step", "fused_gru_dense_step", "fused_lstm_dense_step",
-                  "fused_gru_topk_step", "fused_lstm_topk_step", "project_argmax", "project_topk")
+                  "fused_gru_topk_step", "fused_lstm_topk_step", "gru_stack_step", "lstm_stack_step",
+                  "project_argmax", "project_topk")
 # the f32 stem on the tensor cores in split-precision TF32: its pixels are exact in TF32, so two products a multiply-add
 TF32X2_KERNELS = ("stem_fused",)
 SPIN_CYCLES = 2_000_000  # about 1 ms at the H100's 1.98 GHz boost clock: longer than a wrapper's enqueue
@@ -1569,8 +1570,8 @@ TILE_KERNELS = {
     "stem_tf32_kernel f32": ("stem_tf32_kernel", None),
 }
 # the instances on the tensor cores (csrc/dense_mma.cuh: every bf16 instance of mma_step(), the attention context's
-# att2 phase, and the f32 instances of tf32x3_step() in split-precision TF32, the pooled greedy, dense and top-k
-# steps, the whole decode and the four attention steps): label -> (kernel template, cell, vocab
+# att2 phase, and the f32 instances of tf32x3_step() in split-precision TF32, the pooled greedy, dense, top-k and
+# stack steps, the whole decode and the four attention steps): label -> (kernel template, cell, vocab
 # end: kArgmax = 0, kDense = 1, kTopk = 2, kNone = 3; None where the template names neither: the whole decode, GRU
 # and argmax; the attention context; its element type)
 MMA_STEPS = {
@@ -1599,6 +1600,8 @@ MMA_STEPS = {
     "st_fused_lstm_dense_step f32": ("fused_step_kernel", "LstmCell", 1, "f32"),
     "st_fused_gru_topk_step f32": ("fused_step_kernel", "GruCell", 2, "f32"),
     "st_fused_lstm_topk_step f32": ("fused_step_kernel", "LstmCell", 2, "f32"),
+    "st_gru_stack_step f32": ("fused_step_kernel", "GruCell", 3, "f32"),
+    "st_lstm_stack_step f32": ("fused_step_kernel", "LstmCell", 3, "f32"),
 }
 # instances that fail the build phase with a stack frame or spills
 NO_SPILL = set(MMA_STEPS) | {"stem_mma_kernel", "stem_tf32_kernel f32", "project_argmax_tiles_kernel f32",
@@ -1640,7 +1643,7 @@ def tile_kernel_report(build, ptxas_lines):
     instances (the two projection kernels in bf16 and in f32, split-precision
     TF32, the stem in bf16 and in f32, split-precision TF32, the fourteen
     bf16 instances of MMA_STEPS and its
-    eleven f32 instances in split-precision TF32), from ``ptxas_lines``
+    thirteen f32 instances in split-precision TF32), from ``ptxas_lines``
     (build.ptxas_report of PTXAS_SOURCES), and, where the toolkit has
     cuobjdump, the tensor-core (HMMA) instructions in their SASS in the
     library; fails if one has none, if ptxas names none of them, or if one
@@ -2088,7 +2091,13 @@ def decode_kernels_against_plain(rng, device):
     import torch
 
     from show_tell_tpu_torch.models.attention import last_h
-    from show_tell_tpu_torch.ops.fused_step import arrival_counters, sm_count, stack_tiles
+    from show_tell_tpu_torch.ops.fused_step import (
+        arrival_counters,
+        fused_gru_decode_step_cuda,
+        fused_lstm_decode_step_cuda,
+        sm_count,
+        stack_tiles,
+    )
     from show_tell_tpu_torch.ops.rnn import (
         greedy_decode_kernel,
         gru_stack_plain,
@@ -2143,7 +2152,7 @@ def decode_kernels_against_plain(rng, device):
                 ("gru_stack_step", "gru", E, gru_stack_step_cuda, gru_stack_plain),
                 ("lstm_stack_step", "lstm", LE, lstm_stack_step_cuda, lstm_stack_plain)):
             for B in (1, 64, 512):
-                stacked, _, x, state = step_inputs(rng, B, dtype, device, Ec, cell)
+                stacked, vocab, x, state = step_inputs(rng, B, dtype, device, Ec, cell)
                 top, new_state = cuda_step(stacked, x, state)
                 torch.cuda.synchronize()
                 _, ref_state = plain_step(stacked, x, state)
@@ -2153,29 +2162,38 @@ def decode_kernels_against_plain(rng, device):
                     fail("%s: the top activation is not new_hs[L-1]" % what)
                 if dtype == torch.bfloat16 and B == 64:
                     errs[name] = err
-                split = ""
-                if dtype == torch.bfloat16:  # the K split: the same bits again, its counters left at zero
-                    tiles = stack_tiles(B, Ec, H, sm_count(device))
-                    again = cuda_step(stacked, x, state)[1]
-                    torch.cuda.synchronize()
-                    pairs = zip(*(st if isinstance(st, tuple) else (st,) for st in (new_state, again)))
-                    if not all(torch.equal(a, b) for a, b in pairs):
-                        fail("%s: a second launch on the same inputs gave other bits" % what)
-                    if int(arrival_counters(device, tiles.items).abs().sum()):
-                        fail("%s: the K split's arrival counters are not back at zero" % what)
-                    split = "; K split S = %d (layer 0), %d (above): a second launch bit-equal, counters at zero" % (
-                        tiles.splits)
+                # the K split: the same bits again, its counters left at zero; in f32 the greedy step's layers
+                tiles = stack_tiles(B, Ec, H, sm_count(device), dtype=dtype)
+                again = cuda_step(stacked, x, state)[1]
+                greedy = None
+                if dtype == torch.float32:
+                    greedy_cuda = fused_lstm_decode_step_cuda if cell == "lstm" else fused_gru_decode_step_cuda
+                    greedy = greedy_cuda(stacked, vocab, x, state)[1]
+                torch.cuda.synchronize()
+                states = lambda st: st if isinstance(st, tuple) else (st,)
+                if not all(torch.equal(a, b) for a, b in zip(states(new_state), states(again))):
+                    fail("%s: a second launch on the same inputs gave other bits" % what)
+                if int(arrival_counters(device, tiles.items).abs().sum()):
+                    fail("%s: the K split's arrival counters are not back at zero" % what)
+                if greedy is not None and not all(torch.equal(a, b) for a, b in zip(states(new_state),
+                                                                                      states(greedy))):
+                    fail("%s: the new state is not bit-equal to the f32 greedy step's on the same operands" % what)
+                split = "; K split S = %d (layer 0), %d (above): a second launch bit-equal, counters at zero" % (
+                    tiles.splits)
+                if greedy is not None:
+                    split += "; bit-equal to the f32 greedy step's state"
                 phase("kernel", "%s: state max_abs_err %.3g (rtol atol %g); top = new_hs[L-1]%s"
                       % (what, err, tol[0], split))
     return errs
 
 
-def work(name, R, k=K_BEAM, emb_rows=0, esize=2):
+def work(name, R, k=K_BEAM, emb_rows=0, esize=2, layers=L):
     """(bytes, operations) that one call of kernel ``name`` at R rows must
     move and do at the flagship widths, its tensors of ``esize`` bytes an
     element (2: bf16, 4: f32): each input read once, each output written
     once, two operations a multiply-add.  emb_rows: the embedding rows a
-    whole decode fed back (what its data needs)."""
+    whole decode fed back (what its data needs); layers: the recurrence's
+    depth (the flagships' L)."""
     if name == "preprocess_images":  # u8 in, bf16 (f32) out; a multiply, a subtract and a divide an element
         n = R * IMG * IMG * 3
         return (1 + esize) * n, 3 * n
@@ -2195,9 +2213,9 @@ def work(name, R, k=K_BEAM, emb_rows=0, esize=2):
     end_bytes = 8 * R * k if "topk" in name else 4 * R * V if "dense" in name else 4 * R  # logp + ids, logits, tok
     if name.startswith("project_"):
         return esize * (R * H + vocab_el) + end_bytes, vocab_ops
-    stack_el = G * I0 + (2 * L - 1) * G * H + 2 * L * G  # w_ih0, w_ihU and w_hh, the biases
-    state_el = 2 * (2 if cell == "lstm" else 1) * L * R * H  # hs (and cs), in and out
-    rec_ops = 2 * R * (G * I0 + (2 * L - 1) * G * H)
+    stack_el = G * I0 + (2 * layers - 1) * G * H + 2 * layers * G  # w_ih0, w_ihU and w_hh, the biases
+    state_el = 2 * (2 if cell == "lstm" else 1) * layers * R * H  # hs (and cs), in and out
+    rec_ops = 2 * R * (G * I0 + (2 * layers - 1) * G * H)
     if name.endswith("stack_step"):  # x, the weights, the state in and out
         return esize * (R * I0 + stack_el + state_el), rec_ops
     if name == "gru_whole_greedy_decode":  # features, weights, projection, the rows fed back; T tokens a row out
@@ -2212,7 +2230,7 @@ def attention_ops(R):
     return 2 * R * (AA * H + AP * AA + AP * AE)
 
 
-def bound(name, R, emb_rows=0, dtype="bfloat16"):
+def bound(name, R, emb_rows=0, dtype="bfloat16", layers=L):
     """(least ms the card could take for one call, what bounds it): bf16 at the
     tensor cores' bf16 peak; f32 (``dtype`` float32) on the tensor cores in
     split-precision TF32 for TF32X3_KERNELS (three products a multiply-add at
@@ -2220,7 +2238,7 @@ def bound(name, R, emb_rows=0, dtype="bfloat16"):
     TF32X2_KERNELS (two products: the stem), else at the card's f32 peak
     outside the tensor cores."""
     f32 = dtype == "float32"
-    nbytes, ops = work(name, R, emb_rows=emb_rows, esize=4 if f32 else 2)
+    nbytes, ops = work(name, R, emb_rows=emb_rows, esize=4 if f32 else 2, layers=layers)
     if not f32:
         t_ops = ops / BF16_OPS_PER_S
     elif name in TF32X3_KERNELS:

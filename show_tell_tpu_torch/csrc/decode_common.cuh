@@ -1,18 +1,20 @@
 // Device code shared by the decode kernels (fused_step.cu,
 // fused_attn_step.cu, attention_context.cu, project_argmax.cu,
 // project_topk.cu, whole_decode.cu): 16-byte vector loads, warp
-// reductions, the first-max argmax key, the GRU and LSTM stack layers (the
-// SIMT layers of the f32 stack steps), what the vocabulary ends share
-// (VocabMode, the top-K parts and their merge, the argmax tokens), and the
-// cooperative launch.
+// reductions, the first-max argmax key, the stacked recurrence's operands
+// and the GRU and LSTM cells' finish (the tensor-core layers of
+// dense_mma.cuh call them), what the vocabulary ends share (VocabMode, the
+// top-K parts and their merge, the argmax tokens), and the cooperative
+// launch.
 //
 // Every kernel here runs kThreads threads a block.  Weights are in the torch
-// layout [out, in], so one output column is one contiguous row: a warp owns
-// a column, each lane reads 16 contiguous bytes of it per chunk (512 bytes a
-// warp load), multiplies them with up to kBM batch rows held in shared
-// memory as f32, and the warp reduces by shuffles.  Row widths must be
-// multiples of 8 elements (the callers check), so every 16-byte load is
-// aligned and whole.
+// layout [out, in], so one output column is one contiguous row.  The SIMT
+// phases (the attention phases of fused_attn_step.cu and
+// attention_context.cu) give a warp a column: each lane reads 16 contiguous
+// bytes of it per chunk, multiplies them with up to kBM batch rows held in
+// shared memory as f32 (load_rows, Tiling), and the warp reduces by
+// shuffles.  Row widths must be multiples of 8 elements (the callers
+// check), so every 16-byte load is aligned and whole.
 //
 // Everything is a template, inline or in an anonymous namespace, so each
 // .cu file that includes this header compiles its own copy.
@@ -143,11 +145,6 @@ struct StackArgs {
   int L, B, I0, H;
 };
 
-// Shared memory a block needs for one layer: kBM rows of the wider input plus kBM rows of h.
-inline size_t stack_smem_floats(const StackArgs& s) {
-  return static_cast<size_t>(kBM) * ((s.I0 > s.H ? s.I0 : s.H) + s.H);
-}
-
 // One layer of the stack over all B rows, as pointers into StackArgs.
 template <typename T>
 struct Layer {
@@ -163,34 +160,9 @@ struct Layer {
   int I, B, H;
 };
 
-// acc[b][A0 + g] += w[g*H + j] . rows[b] for the G gates of column j and
-// the nb rows held in shared memory (width floats each).  Each lane takes
-// 16-byte chunks of the weight rows; the warp sums the lanes afterwards.
-template <typename T, int G, int A0, int NA>
-__device__ __forceinline__ void gate_dots(float (&acc)[kBM][NA], const T* w, int width, int H, int j,
-                                          const float* rows, int nb) {
-  constexpr int N = Vec<T>::N;
-  const int lane = threadIdx.x & 31;
-  for (int k = lane * N; k < width; k += 32 * N) {
-    float wv[G][N];
-#pragma unroll
-    for (int g = 0; g < G; ++g) Vec<T>::ldg(w + static_cast<size_t>(g * H + j) * width + k, wv[g]);
-#pragma unroll
-    for (int b = 0; b < kBM; ++b) {
-      if (b < nb) {
-        const float* r = rows + b * width + k;
-#pragma unroll
-        for (int i = 0; i < N; ++i)
-#pragma unroll
-          for (int g = 0; g < G; ++g) acc[b][A0 + g] += wv[g][i] * r[i];
-      }
-    }
-  }
-}
-
 // The cells.  Each names its gate count G, its kAcc f32 sums per row and
-// column (the x-side sums go to acc[0..G), the h-side sums from kHidden),
-// and finish(), which turns lane b's sums into row b's outputs at column j
+// column (the x-side sums at s[0..G), the h-side sums from kHidden), and
+// finish(), which turns the sums of one row at column j into its outputs
 // (inlined, so that the sums stay in registers).
 // Weights are in the torch layout with torch's gate order and double
 // biases; the gate math is f32 and only the stored states are cast to T.
@@ -235,49 +207,6 @@ struct LstmCell {
   }
 };
 
-// One layer over all B rows, split into (batch tile, column range) items.
-// xs holds kBM rows of I floats, hsm kBM rows of H.
-template <typename T, typename Cell>
-__device__ void rnn_layer(const Layer<T>& y, float* xs, float* hsm) {
-  constexpr int G = Cell::kGates, NA = Cell::kAcc;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int H = y.H;
-  Tiling t(y.B, H);
-  for (int item = blockIdx.x; item < t.items(); item += gridDim.x) {
-    const int b0 = (item / t.splits) * kBM;
-    const int nb = min(kBM, y.B - b0);
-    const int j0 = (item % t.splits) * t.per_split;
-    const int j1 = min(H, j0 + t.per_split);
-    __syncthreads();  // the previous item is done with the tiles
-    load_rows<T>(xs, y.xin, b0, nb, y.I);
-    load_rows<T>(hsm, y.hin, b0, nb, H);
-    __syncthreads();
-    for (int j = j0 + warp; j < j1; j += kWarps) {
-      float acc[kBM][NA];
-#pragma unroll
-      for (int b = 0; b < kBM; ++b)
-#pragma unroll
-        for (int a = 0; a < NA; ++a) acc[b][a] = 0.0f;
-      gate_dots<T, G, 0>(acc, y.w_ih, y.I, H, j, xs, nb);
-      gate_dots<T, G, Cell::kHidden>(acc, y.w_hh, H, H, j, hsm, nb);
-      float mine[NA];  // lane b ends with row b0 + b's sums
-#pragma unroll
-      for (int a = 0; a < NA; ++a) mine[a] = 0.0f;
-#pragma unroll
-      for (int b = 0; b < kBM; ++b) {
-        if (b < nb) {
-#pragma unroll
-          for (int a = 0; a < NA; ++a) {
-            const float v = warp_sum(acc[b][a]);
-            if (lane == b) mine[a] = v;
-          }
-        }
-      }
-      if (lane < nb) Cell::template finish<T>(y, mine, b0 + lane, j, hsm[lane * H + j]);
-    }
-  }
-}
-
 // Layer l of the stack as pointers into StackArgs: its input is x (l = 0)
 // or layer l-1's output in new_hs.
 template <typename T, typename Cell>
@@ -299,15 +228,6 @@ __device__ __forceinline__ Layer<T> stack_layer_args(const StackArgs& s, int l) 
       s.B,
       s.H,
   };
-}
-
-// Layer l of a decode step's recurrence.  A kernel templated on the cell
-// calls it for l = 0..L-1 with a grid barrier after each.
-template <typename T, typename Cell>
-__device__ void stack_layer(const StackArgs& s, int l, float* smem) {
-  float* xs = smem;
-  float* hsm = smem + static_cast<size_t>(kBM) * (s.I0 > s.H ? s.I0 : s.H);
-  rnn_layer<T, Cell>(stack_layer_args<T, Cell>(s, l), xs, hsm);
 }
 
 // Beam's sparse end: each row's K best (log-probability, index) pairs.

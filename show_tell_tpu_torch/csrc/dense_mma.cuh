@@ -8,11 +8,11 @@
 // whole decode of whole_decode.cu, which runs the pooled GRU argmax
 // instance's layers and key merge T times and so stays bit-equal to its
 // per-step loop.  tf32x3_step() names the f32 instances that run it in
-// split-precision TF32 (below): the pooled steps' argmax, dense and top-k
-// ends (fused_step.cu, both cells) and, with the argmax one, the whole
-// decode; and the four attention steps (fused_attn_step.cu's argmax and
-// dense ends, both cells, att2 included).  The f32 stack steps (the kNone
-// end) keep the SIMT layers of decode_common.cuh.
+// split-precision TF32 (below): every end of the pooled step (fused_step.cu,
+// both cells: argmax, dense, top-k and the stack step's none) and, with the
+// argmax one, the whole decode; and the four attention steps
+// (fused_attn_step.cu's argmax and dense ends, both cells, att2 included).
+// So every decode step of either dtype runs its layers here.
 //
 // What bounds a step on an H100.  It reads the recurrence weights (15-23 MB
 // in bf16 at the flagships) and the 10.2 MB projection, 25-34 MB in all,
@@ -49,7 +49,7 @@
 //   r and z over both sides, n's x side and n's h side apart; the LSTM its
 //   four gates.  The vocabulary's tile is 64 rows.  Items go round the
 //   cooperative grid; a layer ends in the grid barrier, as before.
-// - K split across blocks (the bf16 stack step and the f32 tf32x3_step()
+// - K split across blocks (the stack steps and the f32 tf32x3_step()
 //   instances, SplitK): at a small batch a layer has few items (32 at B =
 //   1: 32 of 132 SMs pull its weights), so those instances may cut each
 //   item into S parts, part s taking
@@ -101,8 +101,10 @@
 // The f32 instances of tf32x3_step().  Their weights are twice the bf16
 // bytes: 50.3 MB (GRU, E=256) and 62.3 MB (LSTM, E=512) a step at the
 // pooled flagships, 56 and 68 MB at the attention ones (2E = 1024, W_dec),
-// no longer inside the 50 MB L2, so every re-read of a weight
-// is HBM traffic; the SIMT code re-read each weight once per 8 batch rows
+// no longer inside the 50 MB L2, so every re-read of a weight is HBM
+// traffic (the stack steps' recurrence alone: 29.9 and 41.9 MB, the
+// LSTM's still past what L2 holds beside the states); the SIMT code
+// re-read each weight once per 8 batch rows
 // (24 times at R = 192 beam rows) and multiplied in an f32 FMA loop, its
 // dense end stored each logit alone at a stride of V and its top-k end
 // wrote a part per (warp, column range) of the grid.  Here the same items,
@@ -132,15 +134,20 @@
 // - Items: bf16's, and the layers split K across blocks as the stack step
 //   does (S from ops/fused_step.stack_tiles for 16-column chunks: 8 parts
 //   at B <= 32, 4 at B = 64, 2 at R = 96, 1 from B = 160; the attention
-//   steps' 2E-wide layer 0 the same; the greedy, dense and top-k instances
-//   of a cell take the same S at the same rows, so their new states are
-//   bit-equal): unsplit, a layer's 32 items
+//   steps' 2E-wide layer 0 the same; the greedy, dense, top-k and stack
+//   instances of a cell take the same S at the same rows, so their new
+//   states are bit-equal): unsplit, a layer's 32 items
 //   at B <= 32 left 100 SMs idle and each warp's chunks in one long chain
 //   of HBM reads, and the step ran no faster than the SIMT code.  A weight
 //   tile's slabs run at once on other blocks: taking a tile's two slabs in
 //   turn on one block (its second read from L2) gained a little at B >= 64
 //   but, with the K split, spilled registers.  kTf32Depth = 1: with a
-//   second register buffer the f32 instances spilled too.
+//   second register buffer the f32 instances spilled too, the greedy ones
+//   and even the LSTM stack step, whose kernel holds the layers alone (255
+//   registers and 8 bytes of stack).  The GRU stack step's fit in 230
+//   registers: it alone takes kTf32StackDepth = 2 (layer_depth()), 8-18%
+//   faster at B = 32 .. 512; the depth moves only when loads are issued,
+//   never a sum, so its states stay bit-equal to the greedy step's.
 
 #pragma once
 
@@ -162,6 +169,7 @@ constexpr int kMaxSplits = 8;                  // parts an item's K chunks may b
 constexpr int kMmaPartFloats = kMmaSlots * kMmaSlab * 16;  // f32 sums of one part in the split-K scratch
 constexpr int kTf32Chunk = 16;                 // K columns a step of a warp in f32: two k8 mma steps
 constexpr int kTf32Depth = 1;                  // kMmaDepth of the f32 instances (2 spilled)
+constexpr int kTf32StackDepth = 2;             // kMmaDepth of the f32 GRU stack step's layers (layer_depth)
 
 // Whether a fused step's instance (or, with kArgmax, the whole decode) runs this file's code: bf16, any vocab end
 // (dense, top-k, argmax or none), either cell.
@@ -171,13 +179,14 @@ __host__ __device__ constexpr bool mma_step() {
          (kMode == kDense || kMode == kTopk || kMode == kArgmax || kMode == kNone);
 }
 
-// Whether a step's f32 instance runs this file's code in split-precision TF32: every vocabulary end of
-// fused_step.cu (argmax, dense, top-k), either cell, and the whole decode, which runs the argmax instance's layers
+// Whether a step's f32 instance runs this file's code in split-precision TF32: every end of fused_step.cu (argmax,
+// dense, top-k and the stack step's none), either cell, and the whole decode, which runs the argmax instance's layers
 // and key merge (fused_step.cu and whole_decode.cu ask it through pooled_mma_step); with kAttention,
-// fused_attn_step.cu's argmax and dense ends, either cell.  The f32 stack steps (kNone) keep the SIMT layers.
+// fused_attn_step.cu's argmax and dense ends, either cell.
 template <typename T, int kMode, bool kAttention = false>
 __host__ __device__ constexpr bool tf32x3_step() {
-  return std::is_same<T, float>::value && (kMode == kArgmax || kMode == kDense || (!kAttention && kMode == kTopk));
+  return std::is_same<T, float>::value &&
+         (kMode == kArgmax || kMode == kDense || (!kAttention && (kMode == kTopk || kMode == kNone)));
 }
 
 // Whether a pooled step's instance (fused_step.cu, whole_decode.cu) runs this file's code.
@@ -196,7 +205,14 @@ template <> struct MmaShape<float> {
   static constexpr int kChunk = kTf32Chunk, kLane = 4, kDepth = kTf32Depth;
 };
 
-// The stack step's K split across blocks: S parts an item, for layer 0 and for the upper layers.
+// The register buffers of a pooled step's layer pipeline: kTf32StackDepth for the f32 GRU stack step, whose kernel
+// holds the layers alone (the LSTM's spills at two); its type's kDepth for every other instance.
+template <typename T, typename Cell, int kMode>
+__host__ __device__ constexpr int layer_depth() {
+  return std::is_same<T, float>::value && kMode == kNone && Cell::kGates == 3 ? kTf32StackDepth : MmaShape<T>::kDepth;
+}
+
+// A layer's K split across blocks: S parts an item, for layer 0 and for the upper layers.
 struct SplitK {
   float* partial;          // [max_parts, kMmaSlots, kMmaSlab, 16] scratch: each part's warp-ordered sums
   unsigned int* arrivals;  // [items] counters: 0 before a layer, 0 again after it
@@ -204,9 +220,9 @@ struct SplitK {
   int max_parts;           // parts the scratch holds: items x S for each S > 1
 };
 
-// A K split of the layers (the bf16 stack step, the f32 tf32x3_step() instances: ``split``): 1 <= S <=
+// A K split of the layers (the stack steps of both types, the f32 tf32x3_step() instances: ``split``): 1 <= S <=
 // kMaxSplits for layer 0 and for the upper layers, and where S > 1 the scratch and counters for items x S parts, an
-// item 16 columns and 32 rows; the other instances take S = 1.
+// item 16 columns and 32 rows; the other instances (bf16 with a vocabulary end) take S = 1.
 inline bool split_args_ok(bool split, const SplitK& k, int B, int H) {
   if (!split) return k.s0 == 1 && k.su == 1;
   const int items = (B + kMmaSlab - 1) / kMmaSlab * ((H + 15) / 16);
@@ -437,11 +453,12 @@ __device__ __forceinline__ void mma_part_sums(const float* parts, int S, int m, 
 }
 
 // One layer of the recurrence over all B rows, by (16 columns, 32 rows)
-// items.  K is the layer input's I columns, then h's H.  kSplit (the bf16
-// stack step, the f32 tf32x3_step() instances): each item is S parts over its K
+// items.  K is the layer input's I columns, then h's H.  kSplit (the stack
+// steps, the f32 tf32x3_step() instances): each item is S parts over its K
 // chunks, finished by the last part to arrive (see the K split above);
-// with S = 1 as without kSplit.
-template <typename T, typename Cell, bool kSplit = false>
+// with S = 1 as without kSplit.  kDepth: the register buffers of the chunk
+// pipeline (layer_depth()).
+template <typename T, typename Cell, bool kSplit = false, int kDepth = MmaShape<T>::kDepth>
 __device__ void mma_rnn_layer(const Layer<T>& y, float* red, const SplitK* sk = nullptr, int S = 1) {
   constexpr int G = Cell::kGates, kChunk = MmaShape<T>::kChunk;
   int H = y.H, I = y.I, B = y.B;
@@ -467,8 +484,7 @@ __device__ void mma_rnn_layer(const Layer<T>& y, float* red, const SplitK* sk = 
     float acc[kMmaSlots][4][4];
     mma_zero(acc);
     // the chunk's products; the GRU's n gate: the h side apart
-    mma_pipeline<MmaShape<T>::kDepth>(c0, c1, load,
-                                      [&](const MmaChunk& f, int c) { mma_chunk<T, G>(acc, f, nts, c >= cx); });
+    mma_pipeline<kDepth>(c0, c1, load, [&](const MmaChunk& f, int c) { mma_chunk<T, G>(acc, f, nts, c >= cx); });
     __syncthreads();  // the previous item's finish is done with red
     mma_stage(acc, red, tid);
     const float* parts = nullptr;  // the item's S parts in the scratch, once this block is the last to arrive
@@ -522,17 +538,17 @@ __device__ void mma_rnn_layer(const Layer<T>& y, float* red, const SplitK* sk = 
   }
 }
 
-// Layer l of the stack on the tensor cores (stack_layer's operands).
+// Layer l of the stack on the tensor cores (stack_layer_args' operands).
 template <typename T, typename Cell>
 __device__ void mma_stack_layer(const StackArgs& s, int l, float* red) {
   mma_rnn_layer<T, Cell>(stack_layer_args<T, Cell>(s, l), red);
 }
 
-// Layer l with its K split S ways across blocks, S = sk.s0 for layer 0, sk.su above: the bf16 stack step (kNone)
-// and the f32 tf32x3_step() instances.
-template <typename T, typename Cell>
+// Layer l with its K split S ways across blocks, S = sk.s0 for layer 0, sk.su above: the stack steps (kNone) and
+// the f32 tf32x3_step() instances; kDepth as mma_rnn_layer's.
+template <typename T, typename Cell, int kDepth = MmaShape<T>::kDepth>
 __device__ void mma_stack_layer(const StackArgs& s, int l, float* red, const SplitK& sk) {
-  mma_rnn_layer<T, Cell, true>(stack_layer_args<T, Cell>(s, l), red, &sk, l == 0 ? sk.s0 : sk.su);
+  mma_rnn_layer<T, Cell, true, kDepth>(stack_layer_args<T, Cell>(s, l), red, &sk, l == 0 ? sk.s0 : sk.su);
 }
 
 // top[b] . wv[v] in f32 for all B rows, by (64 vocabulary rows, 32 batch

@@ -40,19 +40,16 @@
 // rows); the top-K end writes only [B, K] and a few MB of per-part scratch.
 // At small batches the step is bound by those bytes (7.5 and 9.3 us at
 // 3.35 TB/s, less from L2): the greedy step writes only B tokens, and its
-// 1.6-2.0 GFLOP at B = 64 are about 2 us on the tensor cores.  The SIMT
-// layers (decode_common.cuh, now the f32 stack step's alone) read each
-// weight row once per batch tile of kBM rows and multiply in f32, so at
-// large batches they turn into an f32 FMA loop.
-// The bf16 instances that mma_step() names run the recurrence and the
-// projection on the tensor cores instead (dense_mma.cuh: mma.sync, weights
-// re-read once per 32 batch rows): every end of both cells, the stack
-// step's none included.  So do the f32 instances with a vocabulary end
-// (tf32x3_step(): the greedy, dense and top-k steps of both cells), in
-// split-precision TF32 (three tf32 mma's a product, about f32's
-// precision), their layers' K split across blocks at small B as the stack
-// step's, the same S for the three ends at the same rows; only the f32
-// stack steps keep the SIMT layers.  The argmax end merges each 64-row
+// 1.6-2.0 GFLOP at B = 64 are about 2 us on the tensor cores.
+// Every instance runs the recurrence and the projection on the tensor
+// cores (dense_mma.cuh: mma.sync, weights re-read once per 32 batch rows):
+// in bf16 the instances that mma_step() names, every end of both cells,
+// the stack step's none included; in f32 those that tf32x3_step() names,
+// the same ends (the greedy, dense, top-k and stack steps of both cells),
+// in split-precision TF32 (three tf32 mma's a product, about f32's
+// precision), their layers' K split across blocks at small B, the same S
+// for the four ends at the same rows, so their new states are bit-equal.
+// The argmax end merges each 64-row
 // vocabulary item's first max into best by one atomicMax a row; the top-K
 // end writes one part per 64-row vocabulary item (its K greatest keys and
 // (max, sum)), and after a grid barrier merge_topk reduces each row's
@@ -61,21 +58,23 @@
 // instance's layers and key merge, so its ids stay bit-equal to this
 // instance's loop.
 // The stack step (kNone) reads the recurrence weights alone: 14.9 MB (GRU,
-// E=256) and 21.0 MB (LSTM, E=512) in bf16, plus [L, B, H] states in and
-// out; its bound is those bytes, 4.5 and 6.3 us at 3.35 TB/s at small B,
-// and its 7.65 and 10.7 GFLOP at B = 512 (7.7 and 10.8 us on the tensor
-// cores).  Its bf16 instance runs the tensor-core layers too, with no vocab
-// phase, and at small B splits each item's K chunks across S blocks
-// (dense_mma.cuh, SplitK: the last part to arrive adds the S parts in
-// order and finishes), so that more than a layer's 32 items (B = 1) pull
-// its weights; S per layer comes from the wrapper (ops/fused_step.py
-// stack_tiles), with the partial-sum scratch and the arrival counters,
-// which it leaves at zero.
-// The design (device code in decode_common.cuh):
+// E=256) and 21.0 MB (LSTM, E=512) in bf16, 29.9 and 41.9 MB in f32, plus
+// [L, B, H] states in and out; its bound is those bytes at small B (4.5
+// and 6.3 us in bf16, 8.9 and 12.5 us in f32 at 3.35 TB/s), and its 7.65
+// and 10.7 GFLOP at B = 512 (7.7 and 10.8 us on the bf16 tensor cores, 46
+// and 65 us at three TF32 products a multiply-add).  It runs the
+// tensor-core layers with no vocab phase, and at small B splits each
+// item's K chunks across S blocks (dense_mma.cuh, SplitK: the last part to
+// arrive adds the S parts in order and finishes), so that more than a
+// layer's 32 items (B = 1) pull its weights; S per layer comes from the
+// wrapper (ops/fused_step.py stack_tiles), with the partial-sum scratch
+// and the arrival counters, which it leaves at zero.  The f32 GRU
+// instance's layer pipeline is two chunks deep (layer_depth()): its kernel
+// holds no vocabulary phase, so its registers go to the layers alone.
+// The design (device code in dense_mma.cuh and decode_common.cuh):
 //   * weights are kept in the torch layout [out, in] so that one output
-//     column is one contiguous row (the f32 stack step's SIMT layers: a
-//     warp owns a column, its G gate rows, and reads it as coalesced
-//     16-byte lane loads against kBM batch rows in shared memory);
+//     column is one contiguous row, and a tensor-core A fragment is a
+//     plain row read;
 //   * one cooperative launch covers the whole step.  The TPU kernel carried
 //     the layer activation and the running (max, index) from one grid step
 //     to the next on one core; Hopper's blocks run in parallel and in no
@@ -110,7 +109,7 @@ struct Params {
   const void* bv;   // [V]
   VocabOut out;     // the vocab end's outputs and scratch
   int V;
-  SplitK split;     // the layers' K split (bf16 kNone, f32 every vocabulary end); S = 1 elsewhere
+  SplitK split;     // the layers' K split (the stack steps, f32 every end); S = 1 elsewhere
 };
 
 template <typename T, typename Cell, int kMode>
@@ -118,19 +117,15 @@ __global__ void __launch_bounds__(kThreads) fused_step_kernel(Params p) {
   extern __shared__ float smem[];
   cg::grid_group grid = cg::this_grid();
   const StackArgs& s = p.stack;
-  // the tensor cores (dense_mma.cuh): every bf16 instance, and every f32 instance with a vocabulary end in
-  // split-precision TF32; the f32 stack step (kNone) runs the SIMT layers
-  constexpr bool kMma = pooled_mma_step<T, kMode>();
-  static_assert(kMma || kMode == kNone, "every instance with a vocabulary end runs the tensor cores");
+  // the tensor cores (dense_mma.cuh): every bf16 instance, and every f32 instance in split-precision TF32
+  static_assert(pooled_mma_step<T, kMode>(), "every instance runs the tensor cores");
   if constexpr (kMode == kArgmax)
     for (int b = grid_thread(); b < s.B; b += grid_threads()) p.out.best[b] = 0ull;  // below every packed key
   for (int l = 0; l < s.L; ++l) {
-    if constexpr (kMma && (kMode == kNone || tf32x3_step<T, kMode>()))
-      mma_stack_layer<T, Cell>(s, l, smem, p.split);
-    else if constexpr (kMma)
-      mma_stack_layer<T, Cell>(s, l, smem);
+    if constexpr (kMode == kNone || tf32x3_step<T, kMode>())
+      mma_stack_layer<T, Cell, layer_depth<T, Cell, kMode>()>(s, l, smem, p.split);
     else
-      stack_layer<T, Cell>(s, l, smem);
+      mma_stack_layer<T, Cell>(s, l, smem);
     if (kMode != kNone || l + 1 < s.L) grid.sync();  // layer l's h' is complete in new_hs
   }
   if constexpr (kMode != kNone) {
@@ -144,8 +139,7 @@ template <typename T, typename Cell, int kMode>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   Params args = p;
   void* argv[] = {&args};
-  const size_t floats = pooled_mma_step<T, kMode>() ? kMmaSmemFloats : stack_smem_floats(p.stack);
-  return launch_cooperative(fused_step_kernel<T, Cell, kMode>, floats * sizeof(float), argv, stream);
+  return launch_cooperative(fused_step_kernel<T, Cell, kMode>, kMmaSmemFloats * sizeof(float), argv, stream);
 }
 
 template <typename Cell, int kMode>
@@ -171,13 +165,12 @@ bool topk_args_ok(int V, int K, int max_splits) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Each returns a cudaError_t (0 on
-// success); the f32 stack step fails here on a width whose [kBM, max(E, H)
-// + H] f32 tile exceeds a block's shared memory.  The top-K steps take K <=
+// success).  The top-K steps take K <=
 // 8 and per-part scratch part_keys [n, B, K] (u64) and part_ms [n, B]
 // (float2), n = max_splits >= ceil(V / 64), one part per vocabulary item
 // (else cudaErrorInvalidValue).  s0, su, partial, arrivals, max_parts of
 // the greedy, dense and top-k steps: the layers' K split in f32 (as the
-// stack step's below; bf16: S = 1).
+// stack step's below, at the same S for the same rows; bf16: S = 1).
 
 // Greedy: tok [B] int32; best [B] scratch.
 extern "C" int st_fused_gru_step(int dtype, const void* x, const void* w_ih0, const void* w_ihU,
@@ -272,7 +265,7 @@ extern "C" int st_fused_lstm_topk_step(int dtype, const void* x, const void* w_i
 
 // The stack step: the recurrence alone, new_hs (and new_cs) out; the top
 // activation is new_hs[L-1].  s0, su: the K split of layer 0 and of the
-// upper layers (bf16: 1 .. 8; f32: 1); where one exceeds 1, partial
+// upper layers, 1 .. 8 in both dtypes; where one exceeds 1, partial
 // [max_parts, 4, 32, 16] f32 scratch and arrivals [ceil(B/32) ceil(H/16)]
 // u32 counters, zero, which the kernel leaves at zero.
 extern "C" int st_gru_stack_step(int dtype, const void* x, const void* w_ih0, const void* w_ihU, const void* w_hh,
@@ -280,7 +273,7 @@ extern "C" int st_gru_stack_step(int dtype, const void* x, const void* w_ih0, co
                                  unsigned int* arrivals, int L, int B, int E, int H, int s0, int su, int max_parts,
                                  void* stream) {
   const SplitK split{partial, arrivals, s0, su, max_parts};
-  if (!split_args_ok(dtype == 1, split, B, H)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!split_args_ok(true, split, B, H)) return static_cast<int>(cudaErrorInvalidValue);
   return run<GruCell, kNone>(
       dtype, Params{{x, w_ih0, w_ihU, w_hh, b_ih, b_hh, hs, nullptr, new_hs, nullptr, L, B, E, H}, nullptr, nullptr,
                     VocabOut{}, 0, split},
@@ -292,7 +285,7 @@ extern "C" int st_lstm_stack_step(int dtype, const void* x, const void* w_ih0, c
                                   void* new_cs, float* partial, unsigned int* arrivals, int L, int B, int E, int H,
                                   int s0, int su, int max_parts, void* stream) {
   const SplitK split{partial, arrivals, s0, su, max_parts};
-  if (!split_args_ok(dtype == 1, split, B, H)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!split_args_ok(true, split, B, H)) return static_cast<int>(cudaErrorInvalidValue);
   return run<LstmCell, kNone>(
       dtype, Params{{x, w_ih0, w_ihU, w_hh, b_ih, b_hh, hs, cs, new_hs, new_cs, L, B, E, H}, nullptr, nullptr,
                     VocabOut{}, 0, split},

@@ -16,11 +16,11 @@ cells (the pooled GRU's argmax instance bit-equal to the whole decode),
 and the stack step (no vocab end), whose K split across blocks
 ``stack_tiles`` computes.  In f32 the instances that ``tf32x3_step``
 names, the two greedy steps here, the dense and top-k beam steps of
-ops/fused_beam.py, the whole decode and the four attention steps of
-ops/fused_attn.py (greedy and dense, both cells), run the same code in
-split-precision TF32 (three tf32 products a product, about f32's
-precision), their layers' K split across blocks; only the f32 stack steps
-keep the SIMT layers.
+ops/fused_beam.py, the stack steps of ops/rnn.py, the whole decode and the
+four attention steps of ops/fused_attn.py (greedy and dense, both cells),
+run the same code in split-precision TF32 (three tf32 products a product,
+about f32's precision), their layers' K split across blocks, so that every
+f32 pooled step of a cell gives the same new state at the same rows.
 """
 
 from __future__ import annotations
@@ -60,13 +60,12 @@ def mma_step(dtype: torch.dtype, end: Union[str, int, None]) -> bool:
 
 def tf32x3_step(dtype: torch.dtype, end: Union[str, int, None], attention: bool = False) -> bool:
     """Whether a step's f32 instance runs on the tensor cores in
-    split-precision TF32 (tf32x3_step() in csrc/dense_mma.cuh): every
-    vocabulary end of the pooled step ("argmax", "dense", a top-k width),
-    either cell, and the whole decode, which runs the "argmax" step's code;
-    with ``attention``, the attention step's "argmax" and "dense" ends,
-    either cell (ops/fused_attn.py).  The f32 stack steps (end None) keep
-    the SIMT layers."""
-    return dtype == torch.float32 and end is not None and (not attention or end in ("argmax", "dense"))
+    split-precision TF32 (tf32x3_step() in csrc/dense_mma.cuh): every end
+    of the pooled step ("argmax", "dense", a top-k width, or None: the
+    stack step), either cell, and the whole decode, which runs the "argmax"
+    step's code; with ``attention``, the attention step's "argmax" and
+    "dense" ends, either cell (ops/fused_attn.py)."""
+    return dtype == torch.float32 and (not attention or end in ("argmax", "dense"))
 
 
 class MmaTiles(NamedTuple):
@@ -117,7 +116,8 @@ class StackTiles(NamedTuple):
 def stack_splits(B: int, I: int, H: int, sms: int, dtype: torch.dtype = torch.bfloat16) -> int:
     """S for a layer of input width I at B rows on a card of ``sms`` SMs,
     in the bf16 stack step (``dtype`` bfloat16) or the f32 ``tf32x3_step``
-    instances (float32, whose chunks are TF32_CHUNK columns): as many parts as the
+    instances (float32, the stack steps among them, whose chunks are
+    TF32_CHUNK columns): as many parts as the
     resident grid (MMA_BLOCKS_PER_SM blocks an SM) holds for the layer's
     items, at most MAX_SPLITS and at most a chunk a warp; 1 where the items
     alone fill the grid.  Settled on an H100 by sweeps of S = 1 .. 8: for
@@ -133,8 +133,8 @@ def stack_splits(B: int, I: int, H: int, sms: int, dtype: torch.dtype = torch.bf
 def stack_tiles(B: int, I0: int, H: int, sms: int, splits: int = 0, dtype: torch.dtype = torch.bfloat16) -> StackTiles:
     """The launch geometry of the layers' K split at B rows, in the bf16
     stack step or (``dtype`` float32) the f32 ``tf32x3_step`` instances
-    (the greedy, dense and top-k steps, the whole decode, the attention
-    steps): the items,
+    (the greedy, dense, top-k and stack steps, the whole decode, the
+    attention steps): the items,
     K chunks, the S of layer 0 and of the upper layers
     (``stack_splits``, or ``splits`` for both where it is given) and the
     parts the scratch must hold.  Raises for widths that are not multiples
@@ -156,7 +156,7 @@ _ARRIVALS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 
 
 def arrival_counters(device: torch.device, items: int) -> torch.Tensor:
-    """The split-K arrival counters of the stack step and the f32
+    """The split-K arrival counters of the stack steps and the f32
     ``tf32x3_step`` instances on ``device``'s current stream, at least ``items`` of them:
     zeroed when allocated, and every launch leaves them at zero (each
     item's last part wraps its counter back), so a launch needs no memset
@@ -170,11 +170,11 @@ def arrival_counters(device: torch.device, items: int) -> torch.Tensor:
 
 def layer_split(B: int, E: int, H: int, device: torch.device, dtype: torch.dtype, splits: int = 0):
     """The K split's launch arguments of an instance that splits its layers
-    (the bf16 stack step; the f32 ``tf32x3_step`` instances: the greedy,
-    dense and top-k steps, the whole decode, the attention steps; E is
-    layer 0's input width): (the scratch, to hold until the launch is
-    queued, or
-    None; the [partial, arrivals] pointers; [s0, su, parts])."""
+    (the stack steps of both dtypes; the f32 ``tf32x3_step`` instances: the
+    greedy, dense, top-k and stack steps, the whole decode, the attention
+    steps; E is layer 0's input width): (the scratch, to hold until the
+    launch is queued, or None; the [partial, arrivals] pointers; [s0, su,
+    parts])."""
     tiles = stack_tiles(B, E, H, sm_count(device), splits, dtype)
     if not tiles.parts:
         return None, [None, None], [*tiles.splits, 0]
@@ -224,14 +224,15 @@ def launch_fused_step(kernel: str, stacked, vocab, x, state: State, end: Union[s
     ``end``: "argmax" (tok [B] int32), "dense" (logits [B, V] f32), a top-k
     width k (logp [B, k] f32, ids [B, k] int32), or None, the stack step
     (the top activation [B, H], a view of new_hs[L-1]; ``vocab`` is not
-    read).  An instance that ``mma_step`` or ``tf32x3_step`` names (every
-    one but the f32 stack step) has its tensor-core geometry checked first
-    (``mma_tiles``; the layers' K split ``stack_tiles``, which ``splits``
-    overrides in the bf16 stack step and the f32 steps with a vocabulary
-    end); its top-k end gets one scratch part per MMA_VOCAB_ROWS vocabulary
-    rows, the bf16 stack step and the f32 steps their split-K scratch and
-    the stream's arrival counters (``layer_split``).  Returns (the end's
-    output, new state)."""
+    read).  Every instance runs the tensor cores (``mma_step`` in bf16,
+    ``tf32x3_step`` in f32): one with a vocabulary end has its tensor-core
+    geometry checked first (``mma_tiles``), and the layers' K split of the
+    stack steps and of the f32 steps (``stack_tiles``, which ``splits``
+    overrides; the bf16 steps with a vocabulary end take none) is checked
+    as their split-K scratch and the stream's arrival counters are drawn
+    (``layer_split``); the top-k end gets one scratch part per
+    MMA_VOCAB_ROWS vocabulary rows.  Returns (the end's output, new
+    state)."""
     from show_tell_tpu_torch.ops.build import load_library
 
     lstm = isinstance(state, tuple)
@@ -246,9 +247,10 @@ def launch_fused_step(kernel: str, stacked, vocab, x, state: State, end: Union[s
     check_tensor("x", x, (B, E), dtype, device)
     ints = [L, B, E, H]
     vocab_ptrs = []
-    if splits and not ((end is None and dtype == torch.bfloat16) or tf32x3_step(dtype, end)):
-        raise ValueError("%s: splits apply to the bf16 stack step only and to the f32 steps with a vocabulary end"
-                         % kernel)
+    split = end is None or tf32x3_step(dtype, end)  # the instances whose layers split K across blocks
+    if splits and not split:
+        raise ValueError("%s: splits apply to the stack steps and to the f32 steps; the bf16 steps with a vocabulary "
+                         "end take none" % kernel)
     if end is not None:
         V = vocab["w"].shape[0]
         if V < 1:
@@ -263,10 +265,9 @@ def launch_fused_step(kernel: str, stacked, vocab, x, state: State, end: Union[s
             mma_tiles(B, E, H, V, dtype=dtype)
     new_hs = torch.empty_like(hs)
     new_cs = torch.empty_like(cs) if lstm else None
-    # the layers' K split (the bf16 stack step, the f32 steps with a vocabulary end): its scratch is held until the
-    # launch is queued
+    # the layers' K split (the stack steps, the f32 steps): its scratch is held until the launch is queued
     partial, split_ptrs, split_ints = None, [None, None], [1, 1, 0]
-    if (end is None and mma_step(dtype, end)) or tf32x3_step(dtype, end):
+    if split:
         partial, split_ptrs, split_ints = layer_split(B, E, H, device, dtype, splits)
     if end is None:
         out, entry_name = new_hs[L - 1], "st_%s_stack_step"

@@ -132,11 +132,13 @@ def stack_plain(cell_type: str):
 
 def gru_stack_step_cuda(stacked, x, hs, splits: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the GRU stack-step kernel (csrc/fused_step.cu, the kNone end)
-    on the current stream: the fused step's checks, no vocab operands.  In
-    bf16 it runs on the tensor cores (csrc/dense_mma.cuh) with each layer's
-    K split across S blocks, S by ``fused_step.stack_tiles`` (``splits``:
-    that S for every layer instead); f32 runs the SIMT code.  Raises on
-    anything it does not take and on a failed launch."""
+    on the current stream: the fused step's checks, no vocab operands.  It
+    runs on the tensor cores (csrc/dense_mma.cuh; f32 in split-precision
+    TF32) with each layer's K split across S blocks, S by
+    ``fused_step.stack_tiles`` (``splits``: that S for every layer
+    instead); in f32 its new state is bit-equal to the f32 greedy step's
+    at the same rows.  Raises on anything it does not take and on a failed
+    launch."""
     from show_tell_tpu_torch.ops.fused_step import launch_fused_step
 
     out = launch_fused_step("gru_stack_step", stacked, None, x, hs, None, splits)

@@ -325,8 +325,8 @@ def test_mma_tiles_check_runs_for_the_tensor_core_instances_only(no_library):
     cells, the whole decode and the attention steps (greedy and dense, both
     cells) do too (split-precision TF32, ``tf32x3_step``, with the f32
     chunks and slabs), and so does their K split (``stack_tiles`` in f32);
-    the f32 stack steps do not (they keep the SIMT layers).  The top-k
-    steps: tests/test_torch_topk_tiles.py."""
+    the f32 stack steps check their K split (``stack_tiles`` in f32) as
+    the bf16 ones do in bf16.  The top-k steps: tests/test_torch_topk_tiles.py."""
     B, E, H, V, A, P = 3, 16, 24, 40, 16, 5
     for dtype in (torch.float32, torch.bfloat16):
         bf16 = dtype == torch.bfloat16
@@ -342,7 +342,7 @@ def test_mma_tiles_check_runs_for_the_tensor_core_instances_only(no_library):
                 (lambda: fused_dense_step_cuda(stacked, vocab, x, state),
                  [(B, E, H, V)] if bf16 else [(B, E, H, V, dtype), (B, E, H, 132, 0, dtype)]),
                 (lambda: (lstm_stack_step_cuda if lstm else gru_stack_step_cuda)(stacked, x, state),
-                 [(B, E, H, 132, 0, dtype)] if bf16 else []),
+                 [(B, E, H, 132, 0, dtype)]),
                 (lambda: fused_attn_decode_step_cuda(prep, w_emb, astate), attn_checks),
                 (lambda: fused_attn_dense_step_cuda(prep, w_emb, astate), attn_checks),
             ]

@@ -167,10 +167,10 @@ def test_flagship_attention_step_at_b32_and_one_pass_tf32_misses_the_bar(cell):
 def test_the_attention_instances_on_the_tiles_are_f32_argmax_and_dense(end):
     """The attention steps' f32 instances (argmax and dense: the only ends
     the attention kernel has) run the 3xTF32 tiles; the pooled instances
-    run them with every vocabulary end (not the stack step's None); bf16 is
+    run them with every end, the stack step's None included; bf16 is
     mma_step's."""
     assert tf32x3_step(torch.float32, end, attention=True) is (end in ("argmax", "dense"))
-    assert tf32x3_step(torch.float32, end) is (end is not None)
+    assert tf32x3_step(torch.float32, end) is True
     assert not tf32x3_step(torch.bfloat16, end, attention=True) and mma_step(torch.bfloat16, end)
 
 

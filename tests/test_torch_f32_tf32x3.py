@@ -12,9 +12,10 @@ the cells' finish and the first-max argmax.  The re-enactment is held to
 the port's f32 twin and to the JAX package's fused step in interpret mode
 at small widths and at one flagship-width step (B = 32), and one-pass
 TF32 is shown to miss the f32 bar there.  Also: which instances the
-predicate sends to the tensor cores (every f32 pooled end but the stack
-step's; the beam ends: tests/test_torch_beam_tf32x3.py), and the f32
-items' geometry.
+predicate sends to the tensor cores (every f32 pooled end, the stack
+step's included; the beam ends: tests/test_torch_beam_tf32x3.py, the
+stack steps: tests/test_torch_stack_tf32x3.py), and the f32 items'
+geometry.
 """
 
 import os
@@ -353,16 +354,16 @@ ENDS = ["argmax", "dense", 3, None]
 @pytest.mark.parametrize("end", ENDS)
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_the_predicate_sends_only_the_f32_argmax_end_to_the_tensor_cores(dtype, end):
-    """tf32x3_step: of the pooled instances, f32 with every vocabulary end,
-    argmax, dense and top-k (the pooled step and the whole decode ask it;
-    which wrappers do: test_torch_argmax_tiles.py's
+    """tf32x3_step: of the pooled instances, f32 with every end, argmax,
+    dense, top-k and None, the stack step (the pooled step, the stack step
+    and the whole decode ask it; which wrappers do: test_torch_argmax_tiles.py's
     test_mma_tiles_check_runs_for_the_tensor_core_instances_only); of the
     attention instances (``attention``), f32 with the argmax and the dense
-    end, so the only f32 instances left on the SIMT code are the stack
-    steps (no vocabulary end); mma_step (every bf16 instance) unchanged,
-    and never both."""
+    end (there is no attention stack step), so no f32 instance is left on
+    the SIMT layers; mma_step (every bf16 instance) unchanged, and never
+    both."""
     f32 = dtype == torch.float32
-    assert tf32x3_step(dtype, end) is (f32 and end is not None)
+    assert tf32x3_step(dtype, end) is f32
     assert tf32x3_step(dtype, end, attention=True) is (f32 and end in ("argmax", "dense"))
     assert mma_step(dtype, end) is (dtype == torch.bfloat16)
     assert not ((tf32x3_step(dtype, end) or tf32x3_step(dtype, end, attention=True)) and mma_step(dtype, end))
@@ -370,19 +371,24 @@ def test_the_predicate_sends_only_the_f32_argmax_end_to_the_tensor_cores(dtype, 
 
 def test_the_kernel_sources_gate_the_f32_instances_narrowly():
     """In CUDA: tf32x3_step() is f32 with the argmax, the dense or (not
-    with kAttention) the top-k end; fused_step.cu and whole_decode.cu ask
-    pooled_mma_step() (mma_step() or tf32x3_step() without kAttention), and
-    fused_step.cu holds every instance with a vocabulary end to it, its
-    SIMT layers left to the f32 stack step and no SIMT projection in it;
-    fused_attn_step.cu asks tf32x3_step<T, kMode, true>() and holds every
-    other instance to mma_step(), with no SIMT layer or projection left in
-    it (its f32 instances: the attention phases in a launch of their own);
-    the constants agree."""
+    with kAttention) the top-k end or none, the stack step's;
+    fused_step.cu and whole_decode.cu ask pooled_mma_step() (mma_step() or
+    tf32x3_step() without kAttention), and fused_step.cu holds every
+    instance to it, the stack steps and the f32 steps on the split layers
+    at the depth of layer_depth() (kTf32StackDepth = 2 for the f32 GRU
+    stack step alone), with no SIMT layer or projection left in it, and
+    decode_common.cuh keeps no SIMT layer code; fused_attn_step.cu asks
+    tf32x3_step<T, kMode, true>() and holds every other instance to
+    mma_step(), with no SIMT layer or projection left in it (its f32
+    instances: the attention phases in a launch of their own); the
+    constants agree."""
     src = open(HEADER).read()
     const = lambda name: int(re.search(r"constexpr int %s = (\d+);" % name, src).group(1))
-    assert const("kTf32Chunk") == TF32_CHUNK == 16 and const("kTf32Depth") == 1
-    assert ("return std::is_same<T, float>::value && (kMode == kArgmax || kMode == kDense || (!kAttention && kMode "
-            "== kTopk));" in src)
+    assert const("kTf32Chunk") == TF32_CHUNK == 16 and const("kTf32Depth") == 1 and const("kTf32StackDepth") == 2
+    assert ("return std::is_same<T, float>::value && kMode == kNone && Cell::kGates == 3 ? kTf32StackDepth : "
+            "MmaShape<T>::kDepth;" in src)
+    assert ("return std::is_same<T, float>::value &&\n         (kMode == kArgmax || kMode == kDense || (!kAttention "
+            "&& (kMode == kTopk || kMode == kNone)));" in src)
     assert "template <typename T, int kMode, bool kAttention = false>" in src
     assert "return mma_step<T, kMode>() || tf32x3_step<T, kMode>();" in src
     assert "static constexpr int kChunk = kTf32Chunk, kLane = 4, kDepth = kTf32Depth;" in src
@@ -391,10 +397,16 @@ def test_the_kernel_sources_gate_the_f32_instances_narrowly():
     assert '#include "vocab_mma.cuh"' in src
     assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in shared and "cvt.rna.tf32.f32" in src
     step, whole, attn = read("fused_step.cu"), read("whole_decode.cu"), read("fused_attn_step.cu")
-    assert "constexpr bool kMma = pooled_mma_step<T, kMode>();" in step
-    assert ('static_assert(kMma || kMode == kNone, "every instance with a vocabulary end runs the tensor cores");'
-            in step)
-    assert "stack_layer<T, Cell>(s, l, smem);" in step and not re.search(r"(?<!mma_)vocab_phase<", step)
+    common = read("decode_common.cuh")
+    assert 'static_assert(pooled_mma_step<T, kMode>(), "every instance runs the tensor cores");' in step
+    assert "if constexpr (kMode == kNone || tf32x3_step<T, kMode>())" in step
+    assert "mma_stack_layer<T, Cell, layer_depth<T, Cell, kMode>()>(s, l, smem, p.split);" in step
+    assert "kMmaSmemFloats * sizeof(float)" in step and "stack_smem_floats" not in step
+    assert step.count("split_args_ok(true, split, B, H)") == 2  # both stack steps take a K split in both dtypes
+    assert not re.search(r"(?<!mma_)(stack_layer|vocab_phase)<", step)  # the SIMT layer and projection
+    for gone in ("rnn_layer", "gate_dots", "stack_smem_floats", "stack_layer<"):
+        assert gone not in common.replace("mma_stack_layer<", "")
+    assert "stack_layer_args" in common and "struct Tiling" in common and "void load_rows(" in common
     assert "pooled_mma_step<T, kArgmax>()" in whole
     assert "constexpr bool kTf32 = tf32x3_step<T, kMode, true>();" in attn
     assert "static_assert(mma_step<T, kMode>() || kTf32," in attn

@@ -8,10 +8,9 @@
 //
 // Routes (0 and 1 for both cells and ends, 2-5 for the GRU's argmax end):
 //   0  SIMT, one launch: the f32 code the attention steps ran before the
-//      3xTF32 tiles (A1 attention_scores_in, A2 attention_context_e,
-//      decode_common.cuh's layers; the SIMT projection and the dense end's
-//      strided stores, which the library no longer keeps, are copied
-//      below);
+//      3xTF32 tiles (A1 attention_scores_in, A2 attention_context_e; the
+//      SIMT layers, the SIMT projection and the dense end's strided stores,
+//      which the library no longer keeps, are copied below);
 //   1  the library's f32 instance: the attention launch (A1 att2_f32, A2
 //      scores_f32 and, after a grid barrier, context_f32), then the step's
 //      launch (the 3xTF32 tiles' layers with their K split, the projection);
@@ -268,13 +267,91 @@ __device__ void simt_vocab_phase(const float* top, const float* wv, const float*
   }
 }
 
+// Route 0's layers, as the SIMT code ran them before the 3xTF32 tiles (the library keeps no SIMT layer): a warp
+// owns a column j, reads its G gate rows as 16-byte lane loads against kBM batch rows held in shared memory, and
+// reduces each (row, gate) sum by shuffles; lane b finishes row b.
+
+// Shared memory a block needs for one layer: kBM rows of the wider input plus kBM rows of h.
+inline size_t simt_stack_smem_floats(const StackArgs& s) {
+  return static_cast<size_t>(kBM) * ((s.I0 > s.H ? s.I0 : s.H) + s.H);
+}
+
+// acc[b][A0 + g] += w[g*H + j] . rows[b] for the G gates of column j and the nb rows held in shared memory (width
+// floats each).
+template <int G, int A0, int NA>
+__device__ __forceinline__ void simt_gate_dots(float (&acc)[kBM][NA], const float* w, int width, int H, int j,
+                                               const float* rows, int nb) {
+  constexpr int N = Vec<float>::N;
+  const int lane = threadIdx.x & 31;
+  for (int k = lane * N; k < width; k += 32 * N) {
+    float wv[G][N];
+#pragma unroll
+    for (int g = 0; g < G; ++g) Vec<float>::ldg(w + static_cast<size_t>(g * H + j) * width + k, wv[g]);
+#pragma unroll
+    for (int b = 0; b < kBM; ++b) {
+      if (b < nb) {
+        const float* r = rows + b * width + k;
+#pragma unroll
+        for (int i = 0; i < N; ++i)
+#pragma unroll
+          for (int g = 0; g < G; ++g) acc[b][A0 + g] += wv[g][i] * r[i];
+      }
+    }
+  }
+}
+
+// Layer l over all B rows, split into (batch tile, column range) items.
+template <typename Cell>
+__device__ void simt_stack_layer(const StackArgs& s, int l, float* smem) {
+  constexpr int G = Cell::kGates, NA = Cell::kAcc;
+  const Layer<float> y = stack_layer_args<float, Cell>(s, l);
+  float* xs = smem;
+  float* hsm = smem + static_cast<size_t>(kBM) * (s.I0 > s.H ? s.I0 : s.H);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int H = y.H;
+  Tiling t(y.B, H);
+  for (int item = blockIdx.x; item < t.items(); item += gridDim.x) {
+    const int b0 = (item / t.splits) * kBM;
+    const int nb = min(kBM, y.B - b0);
+    const int j0 = (item % t.splits) * t.per_split;
+    const int j1 = min(H, j0 + t.per_split);
+    __syncthreads();  // the previous item is done with the tiles
+    load_rows<float>(xs, y.xin, b0, nb, y.I);
+    load_rows<float>(hsm, y.hin, b0, nb, H);
+    __syncthreads();
+    for (int j = j0 + warp; j < j1; j += kWarps) {
+      float acc[kBM][NA];
+#pragma unroll
+      for (int b = 0; b < kBM; ++b)
+#pragma unroll
+        for (int a = 0; a < NA; ++a) acc[b][a] = 0.0f;
+      simt_gate_dots<G, 0>(acc, y.w_ih, y.I, H, j, xs, nb);
+      simt_gate_dots<G, Cell::kHidden>(acc, y.w_hh, H, H, j, hsm, nb);
+      float mine[NA];  // lane b ends with row b0 + b's sums
+#pragma unroll
+      for (int a = 0; a < NA; ++a) mine[a] = 0.0f;
+#pragma unroll
+      for (int b = 0; b < kBM; ++b) {
+        if (b < nb) {
+#pragma unroll
+          for (int a = 0; a < NA; ++a) {
+            const float v = warp_sum(acc[b][a]);
+            if (lane == b) mine[a] = v;
+          }
+        }
+      }
+      if (lane < nb) Cell::template finish<float>(y, mine, b0 + lane, j, hsm[lane * H + j]);
+    }
+  }
+}
+
 // The second launch's phases: the layers and the projection (kRoute 0: the SIMT code, else the 3xTF32 tiles).
 template <typename Cell, int kMode, int kRoute>
 __device__ void step_part(const Params& p, float* smem, cg::grid_group& grid, Stamps& st) {
   const StackArgs& s = p.stack;
   for (int l = 0; l < s.L; ++l) {
     if constexpr (kRoute == 0)
-      stack_layer<float, Cell>(s, l, smem);
+      simt_stack_layer<Cell>(s, l, smem);
     else
       mma_stack_layer<float, Cell>(s, l, smem, p.split);
     st.mark(grid, false);
@@ -345,7 +422,7 @@ int probe_launch(const Params& p, unsigned long long* stamps, cudaStream_t strea
   size_t attn = std::max(attention_smem_floats(p, false), attention_smem_floats(p, true));
   if (kRoute == 3) attn = std::max(attn, kMmaSmemFloats);  // A1's staged tensor-core sums
   if constexpr (kRoute == 0 || kRoute == 5) {
-    const size_t stack = kRoute == 0 ? stack_smem_floats(p.stack) : kMmaSmemFloats;
+    const size_t stack = kRoute == 0 ? simt_stack_smem_floats(p.stack) : kMmaSmemFloats;
     return launch_probe(probe_step_kernel<Cell, kMode, kRoute, true>, std::max(attn, stack), p, stamps, stream);
   } else {
     const cudaError_t err = launch_probe(probe_attention_kernel<kRoute>, attn, p, stamps, stream);

@@ -1,7 +1,7 @@
 """Device times of the pooled fused-step kernels at the flagship widths on one NVIDIA GPU.
 
     python tools/step_times.py [--root DIR] [--requests N]
-    python tools/step_times.py [--root DIR] --dtype float32
+    python tools/step_times.py [--root DIR] --dtype float32 [--rows NAME,...]
 
 Imports show_tell_tpu_torch from DIR (default: this checkout), so that one
 script times two checkouts alike, each in its own process.  In bf16, with
@@ -36,10 +36,10 @@ name and power limit, one line a kernel and B, and a JSON line of every
 time and digest.
 
 With --dtype float32, every f32 instance of the 14 TPU kernels' ports
-instead (f32_instances): the pooled greedy steps (the tensor cores in
-split-precision TF32, as every f32 instance but the context, the
-preprocess and the stack steps) at B = 1, 32, 64 and 512, every other
-instance at B = 1, 32, 64 (R = 3, 96, 192 beam rows), each with its
+instead (f32_instances; --rows: only those named): the pooled greedy and
+stack steps (the tensor cores in split-precision TF32, as every f32
+instance but the context and the preprocess) at B = 1, 32, 64 and 512,
+every other instance at B = 1, 32, 64 (R = 3, 96, 192 beam rows), each with its
 operands warm in L2 and cold, and the whole decode at B = 1, 64 and 512 (median of 10 after
 2); beside each, its f32 composite yardstick (PyTorch's own calls on the
 same operands, with TF32 off; chip_smoke.library_yardsticks where it
@@ -50,9 +50,14 @@ of TF32; the stem two, its pixels being exact in TF32), its plain twin's
 time (at B=64, R=192) and its launches on the f32 eval path; every row's
 kernel / yardstick at B=1 (R=3) in one line; then, where the checkout's f32 greedy steps take
 ``splits``, their K split swept (S = 1 .. 8 at B = 1, 32, 64, 128, 192, warm
-and cold, beside the S that stack_tiles takes); then sha256 digests of
-every f32 instance's outputs, so that two checkouts that print the same
-digests gave bit-equal outputs.
+and cold, beside the S that stack_tiles takes), and where its f32 stack steps
+do (they run the split 3xTF32 layers), theirs at B = 1, 32, 64; then the
+stack steps at L = 1 .. 5 layers of the same widths (B = 1, 32, 64, 512, warm
+and cold): the least-squares slope a layer against the bound's, and the
+intercept, which splits the step's excess over its bound into what each
+layer adds and a fixed cost (launch, barriers, layer 0's wider input);
+then sha256 digests of every f32 instance's outputs, so that two
+checkouts that print the same digests gave bit-equal outputs.
 """
 
 import argparse
@@ -74,6 +79,7 @@ def main():
     ap.add_argument("--requests", type=int, default=0, help="also time N whole requests of each served path")
     ap.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"),
                     help="float32: every f32 instance beside its f32 yardstick instead")
+    ap.add_argument("--rows", default="", help="float32: only these instances (comma-separated names)")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -106,7 +112,7 @@ def main():
     times = {}
     print(smi, flush=True)
     if args.dtype == "float32":
-        f32_instances(cs, root, smi, device, flush)
+        f32_instances(cs, root, smi, device, flush, [r for r in args.rows.split(",") if r])
         return
     for B in (1, 64, 512):
         stacked, vocab, x, hs = cs.step_inputs(rng, B, torch.bfloat16, device)
@@ -240,10 +246,11 @@ F32_EVAL_LAUNCHES = {
 }
 
 
-def f32_instances(cs, root, smi, device, flush):
-    """--dtype float32: every f32 instance, warm and cold, beside its f32
-    composite yardstick (TF32 off) and its bound; the K split of the f32
-    greedy steps swept; then their digests."""
+def f32_instances(cs, root, smi, device, flush, only=()):
+    """--dtype float32: every f32 instance (or those ``only`` names), warm
+    and cold, beside its f32 composite yardstick (TF32 off) and its bound;
+    the K split of the f32 greedy and stack steps swept; the stack steps at
+    L = 1 .. 5; then their digests."""
     import hashlib
     import inspect
 
@@ -264,6 +271,7 @@ def f32_instances(cs, root, smi, device, flush):
         fused_lstm_decode_step_cuda,
         sm_count,
         stack_tiles,
+        tf32x3_step,
     )
     from show_tell_tpu_torch.ops.rnn import gru_stack_plain, gru_stack_step_cuda, lstm_stack_plain, lstm_stack_step_cuda
     from show_tell_tpu_torch.ops.s2d_stem import S2D_PAD, space_to_depth
@@ -333,20 +341,25 @@ def f32_instances(cs, root, smi, device, flush):
         return (*both(stem_fused_cuda, stem_fused_plain, imgs, sprep),
                 lambda: F.max_pool2d(F.relu(F.conv2d(F.pad(x12, S2D_PAD), w4) + tp), 3, 2, 1))
 
-    greedy = {"fused_gru_decode_step": (1, 32, 64, 512), "fused_lstm_decode_step": (1, 32, 64, 512)}
+    pooled = (1, 32, 64, 512)
     batch = (1, 32, 64)
     beam = tuple(r * K for r in batch)  # R = 3, 96, 192
-    plan = dict(greedy)
-    plan.update({name: batch for name in ("fused_attn_decode_step", "fused_attn_lstm_decode_step", "gru_stack_step",
-                                          "lstm_stack_step", "attention_context", "project_argmax",
-                                          "preprocess_images", "stem_fused")})
+    plan = {name: pooled for name in ("fused_gru_decode_step", "fused_lstm_decode_step", "gru_stack_step",
+                                      "lstm_stack_step")}
+    plan.update({name: batch for name in ("fused_attn_decode_step", "fused_attn_lstm_decode_step",
+                                          "attention_context", "project_argmax", "preprocess_images", "stem_fused")})
     plan.update({name: beam for name in ("fused_gru_dense_step", "fused_lstm_dense_step", "fused_gru_topk_step",
                                          "fused_lstm_topk_step", "fused_attn_dense_step", "fused_attn_lstm_dense_step",
                                          "project_topk")})
+    if only:
+        unknown = set(only) - set(plan) - {"gru_whole_greedy_decode"}
+        if unknown:
+            cs.fail("--rows names no f32 instance: %s" % sorted(unknown))
+    wanted = lambda name: not only or name in only
     note = "(CUDA events, median of 30 after 5, each call queued behind a 1 ms spin, the yardstick's a 10 ms spin)"
     with torch.inference_mode(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
         for name, sizes in plan.items():
-            for n in sizes:
+            for n in sizes if wanted(name) else ():
                 kernel, plain, yard = cases(name, n)
                 ms, cold = cs.event_median_ms(kernel), cs.event_median_ms(kernel, before=flush.zero_)
                 y_ms = cs.event_median_ms(yard, spin=cs.LIBRARY_SPIN_CYCLES)
@@ -359,8 +372,8 @@ def f32_instances(cs, root, smi, device, flush):
                       "%s %s" % (smi, name, "R" if name in cs.BEAM_KERNELS else "B", n, root, ms, cold, y_ms,
                                  ms / y_ms, "%.4f ms" % p_ms if p_ms else "not timed", b_ms, b_by, ms / b_ms,
                                  F32_EVAL_LAUNCHES.get(name, "none"), note), flush=True)
-        for B in (1, 64, 512):  # the whole decode of T steps and its composite yardstick (library_yardsticks)
-            run, plain, yard = cases("gru_whole_greedy_decode", B)
+        for B in (1, 64, 512) if wanted("gru_whole_greedy_decode") else ():  # the whole decode of T steps and
+            run, plain, yard = cases("gru_whole_greedy_decode", B)  # its composite yardstick (library_yardsticks)
             ms = cs.event_median_ms(run, iters=10, warmup=2)
             cold = cs.event_median_ms(run, iters=10, warmup=2, before=flush.zero_)
             y_ms = cs.event_median_ms(yard, iters=10, warmup=2, spin=cs.LIBRARY_SPIN_CYCLES)
@@ -377,29 +390,69 @@ def f32_instances(cs, root, smi, device, flush):
                 for (name, n), r in rows.items() if n == min(m for other, m in rows if other == name)}
     print("%s float32 kernel / yardstick at B=1 (beam rows R=3) from %s: %s"
           % (smi, root, ", ".join("%s %.3f" % kv for kv in smallest.items())), flush=True)
-    # the f32 greedy steps' K split: every S the kernel takes, L2 warm and cold, beside the one stack_tiles takes
-    splits = {}  # "cell B" -> {S: (warm ms, cold ms)}, with the rule's S
-    sweep = "splits" in inspect.signature(fused_gru_decode_step_cuda).parameters  # a checkout that takes a forced S
-    for cell, Ed, step in (("gru", cs.E, fused_gru_decode_step_cuda), ("lstm", cs.LE, fused_lstm_decode_step_cuda))[
-            :2 if sweep else 0]:
-        for B in (1, 32, 64, 128, 192):  # 192: the beam steps' R at B = 64, K = 3 (the same layers)
-            stacked, vocab, x, state = cs.step_inputs(rng, B, f32, device, Ed, cell)
-            by_split = {S: (cs.event_median_ms(lambda: step(stacked, vocab, x, state, splits=S)),
-                            cs.event_median_ms(lambda: step(stacked, vocab, x, state, splits=S), before=flush.zero_))
+    # the K split of the f32 greedy and stack steps: every S the kernel takes, L2 warm and cold, beside the one
+    # stack_tiles takes; where the checkout takes a forced f32 S (its greedy steps since the 3xTF32 tiles, its stack
+    # steps since they run them)
+    splits = {}  # "name B" -> {S: (warm ms, cold ms)}, with the rule's S
+    sweeps = []  # (name, cell, layer-0 width, call with a forced S, the B swept)
+    if "splits" in inspect.signature(fused_gru_decode_step_cuda).parameters:
+        sweeps += [("fused_%s_decode_step" % cell, cell, Ed, lambda a, S, c=call: c(*a, splits=S),
+                    (1, 32, 64, 128, 192))  # 192: the beam steps' R at B = 64, K = 3 (the same layers)
+                   for cell, Ed, call in (("gru", cs.E, fused_gru_decode_step_cuda),
+                                          ("lstm", cs.LE, fused_lstm_decode_step_cuda))]
+    if tf32x3_step(f32, None):
+        sweeps += [("%s_stack_step" % cell, cell, Ed, lambda a, S, c=call: c(a[0], *a[2:], splits=S), (1, 32, 64))
+                   for cell, Ed, call in (("gru", cs.E, gru_stack_step_cuda), ("lstm", cs.LE, lstm_stack_step_cuda))]
+    for name, cell, Ed, call, sizes in sweeps:
+        if not wanted(name):
+            continue
+        for B in sizes:
+            a = cs.step_inputs(rng, B, f32, device, Ed, cell)
+            by_split = {S: (cs.event_median_ms(lambda: call(a, S)), cs.event_median_ms(lambda: call(a, S),
+                                                                                       before=flush.zero_))
                         for S in range(1, MAX_SPLITS + 1)}
             rule = stack_tiles(B, Ed, cs.H, sm_count(device), dtype=f32).splits
             best = min(by_split, key=lambda S: by_split[S][0])
-            splits["%s %d" % (cell, B)] = {"rule": rule, "best": best, "ms": by_split}
-            print("%s float32 fused_%s_decode_step B=%d K split from %s: %s; the rule takes S = %d (layer 0), %d "
-                  "(above); fastest warm S = %d, %.4f ms %s"
-                  % (smi, cell, B, root, ", ".join("S=%d %.4f ms (cold %.4f)" % (S, *t) for S, t in by_split.items()),
-                     *rule, best, by_split[best][0], note), flush=True)
+            splits["%s %d" % (name, B)] = {"rule": rule, "best": best, "ms": by_split}
+            print("%s float32 %s B=%d K split from %s: %s; the rule takes S = %d (layer 0), %d (above): %.4f ms; "
+                  "fastest warm S = %d, %.4f ms %s"
+                  % (smi, name, B, root, ", ".join("S=%d %.4f ms (cold %.4f)" % (S, *t) for S, t in by_split.items()),
+                     *rule, by_split[rule[1]][0] if rule[0] == rule[1] else float("nan"), best, by_split[best][0],
+                     note), flush=True)
+    # the stack steps at L = 1 .. 5 layers of the flagship widths (the first L layers of an L=5 stack): the slope a
+    # layer and the intercept of a least-squares line through the times, against the bound's
+    layers = {}  # "name B" -> {"ms": [warm ms at L = 1 .. 5], "cold_ms": [...], "bound_ms": [...], fit}
+    for name, cell, Ed, call in (("gru_stack_step", "gru", cs.E, gru_stack_step_cuda),
+                                 ("lstm_stack_step", "lstm", cs.LE, lstm_stack_step_cuda)):
+        if not wanted(name):
+            continue
+        for B in (1, 32, 64, 512):
+            stacked, _, x, state = cs.step_inputs(rng, B, f32, device, Ed, cell)
+            warm, cold, bounds = [], [], []
+            for Ld in range(1, cs.L + 1):
+                st = {"w_ih0": stacked["w_ih0"], "w_ihU": stacked["w_ihU"][:Ld - 1], "w_hh": stacked["w_hh"][:Ld],
+                      "b_ih": stacked["b_ih"][:Ld], "b_hh": stacked["b_hh"][:Ld]}
+                sd = tuple(s[:Ld] for s in state) if cell == "lstm" else state[:Ld]
+                warm.append(cs.event_median_ms(lambda: call(st, x, sd)))
+                cold.append(cs.event_median_ms(lambda: call(st, x, sd), before=flush.zero_))
+                bounds.append(cs.bound(name, B, dtype="float32", layers=Ld)[0])
+            slope, icept = np.polyfit(np.arange(1, cs.L + 1), warm, 1)
+            b_slope = (bounds[-1] - bounds[0]) / (cs.L - 1)  # the bound of each layer above layer 0
+            excess = warm[-1] - bounds[-1]
+            layers["%s %d" % (name, B)] = {"ms": warm, "cold_ms": cold, "bound_ms": bounds, "slope_ms": slope,
+                                           "intercept_ms": icept, "bound_slope_ms": b_slope}
+            print("%s float32 %s B=%d at L = 1 .. %d from %s: %s ms (L2 cold %s); bound %s ms; slope %.4f ms a layer "
+                  "(bound %.4f, %.2fx), intercept %.4f ms; of the L=%d excess %.4f ms, (L-1) x (slope - bound slope) "
+                  "%.4f ms goes with the layers above layer 0 %s"
+                  % (smi, name, B, cs.L, root, " / ".join("%.4f" % v for v in warm),
+                     " / ".join("%.4f" % v for v in cold), " / ".join("%.4f" % v for v in bounds), slope, b_slope,
+                     slope / b_slope, icept, cs.L, excess, (cs.L - 1) * (slope - b_slope), note), flush=True)
     # the bits of every f32 instance, from inputs of their own seed: the SIMT ones must equal another checkout's
     drng = np.random.RandomState(cs.SEED + 17)
     flat = lambda out: [t for o in (out if isinstance(out, tuple) else (out,))
                         for t in (o if isinstance(o, tuple) else (o,))]
     digests = {}
-    for name in (*plan, "gru_whole_greedy_decode"):
+    for name in (*plan, "gru_whole_greedy_decode") if not only else ():
         n = 64 * K if name in cs.BEAM_KERNELS else 64
         digests["%s %d" % (name, n)] = cases(name, n, drng)[0]()
     torch.cuda.synchronize()
@@ -409,7 +462,7 @@ def f32_instances(cs, root, smi, device, flush):
           % (smi, root, ", ".join("%s %s" % kv for kv in digests.items())), flush=True)
     print(json.dumps({"root": root, "card": smi, "dtype": "float32",
                       "rows": {"%s %d" % k: v for k, v in rows.items()}, "smallest_over_yardstick": smallest,
-                      "splits": splits, "digests": digests}), flush=True)
+                      "splits": splits, "layers": layers, "digests": digests}), flush=True)
 
 
 if __name__ == "__main__":
